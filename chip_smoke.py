@@ -17,9 +17,10 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            seed) answering 8 concurrent requests; every kernel's launch
            counter is set to 0 just before and read just after, and the
            first-token logits are held against a plain-path forward;
-  timing   decode tokens/s (batch 16 at context 512) and the time to first
-           token of a 3712-token prompt in 512-token chunks, by bench.py's
-           method.
+  timing   decode tokens/s (batch 16 at context 512; greedy, and sampled
+           at temperature 0.8, top_p 0.9) and the time to first token of a
+           3712-token prompt in 512-token chunks, by bench.py's method, then
+           a torch.profiler breakdown of one decode window and one prefill.
 
 The last lines are the kernels' JSON record, the GPU's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failed phase makes the script exit
@@ -455,20 +456,29 @@ def phase_timing(rec: dict, args, smi: str) -> None:
     context_lens = np.full(BATCH, CTX, np.int32)
     limits = np.full(BATCH, MAX_PAGES * S - 1, np.int32)
     tokens = np.zeros(BATCH, np.int32)
-    sp = SamplingParams.greedy(BATCH, device=dev)
-    run = lambda **kw: ex.run_decode_multi(tokens, page_tables, positions, context_lens,
-                                           limits, sp, K, greedy_only=True, **kw)
-    run()
-    t0 = time.perf_counter()
-    pending = None
-    for _ in range(WINDOWS):
-        handle = run(reuse_carry=True, fetch=False)
-        if pending is not None:
-            ex.fetch(pending)
-        pending = handle
-    ex.fetch(pending)
-    dt = time.perf_counter() - t0
-    tok_s = BATCH * K * WINDOWS / dt
+    greedy = SamplingParams.greedy(BATCH, device=dev)
+    sampled = SamplingParams.greedy(BATCH, device=dev)
+    sampled.temperature.fill_(0.8)
+    sampled.top_p.fill_(0.9)
+
+    def run(sp=greedy, **kw):
+        return ex.run_decode_multi(tokens, page_tables, positions, context_lens, limits, sp, K,
+                                   greedy_only=sp is greedy, **kw)
+
+    def decode_tok_s(sp):
+        run(sp)
+        t0 = time.perf_counter()
+        pending = None
+        for _ in range(WINDOWS):
+            handle = run(sp, reuse_carry=True, fetch=False)
+            if pending is not None:
+                ex.fetch(pending)
+            pending = handle
+        ex.fetch(pending)
+        return BATCH * K * WINDOWS / (time.perf_counter() - t0)
+
+    tok_s = decode_tok_s(greedy)
+    sampled_tok_s = decode_tok_s(sampled)
 
     PROMPT, CHUNK = 3712, 512
     n_chunks = (PROMPT + CHUNK - 1) // CHUNK
@@ -519,10 +529,12 @@ def phase_timing(rec: dict, args, smi: str) -> None:
     t0 = time.perf_counter()
     prefill_once()
     ttft_ms = (time.perf_counter() - t0) * 1e3
-    print(f"timing: decode {tok_s:.2f} tok/s (batch {BATCH}, context {CTX}, window {K}, "
+    print(f"timing: decode {tok_s:.2f} tok/s greedy, {sampled_tok_s:.2f} tok/s sampled "
+          f"(temperature 0.8, top_p 0.9) (batch {BATCH}, context {CTX}, window {K}, "
           f"{WINDOWS} windows); TTFT {ttft_ms:.2f} ms (prompt {PROMPT}, chunk {CHUNK}); "
           f"{ex.cfg.num_layers} layers; {smi}", flush=True)
-    print(json.dumps({"decode_tok_s": tok_s, "ttft_ms": ttft_ms, "gpu": smi}), flush=True)
+    print(json.dumps({"decode_tok_s": tok_s, "sampled_decode_tok_s": sampled_tok_s,
+                      "ttft_ms": ttft_ms, "gpu": smi}), flush=True)
 
     # where the time goes: one traced decode window and one traced prefill,
     # after the timed runs (the trace does not touch the numbers above)

@@ -3,24 +3,29 @@
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
-    python3 chip_smoke.py                   # every phase
-    python3 chip_smoke.py --phases kernels  # a subset
+    python3 chip_smoke.py                         # every phase
+    python3 chip_smoke.py --phases kernels,serve  # a subset
 
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together) and runs these phases:
 
   kernels  each CUDA kernel against its plain PyTorch version in bf16 at the
-           shapes the main path gives it, and timed beside its bound, the
+           shapes the main paths give it, and timed beside its bound, the
            plain version and one PyTorch library call (CUDA events, median);
-  serve    the main path: ``LLM`` + ``DynamicBatchGenerator`` at the full
-           MiniCPM-2B width (bench.py's configuration, random weights from a
-           seed) answering 8 concurrent requests; every kernel's launch
-           counter is set to 0 just before and read just after, and the
-           first-token logits are held against a plain-path forward;
-  timing   decode tokens/s (batch 16 at context 512; greedy, and sampled
-           at temperature 0.8, top_p 0.9) and the time to first token of a
-           3712-token prompt in 512-token chunks, by bench.py's method, then
-           a torch.profiler breakdown of one decode window and one prefill.
+  serve    the two main paths, each through ``LLM`` + ``DynamicBatchGenerator``
+           answering 8 concurrent requests, with every kernel's launch
+           counter set to 0 just before and read just after, and the
+           first-token logits and one batch-8 decode step's logits (contexts
+           up to 3713) held against a plain-path forward:
+           MiniCPM-2B (bf16, bench.py's configuration, random weights from a
+           seed) and Qwen2.5-14B GPTQ-Int4 (48 layers, full width; HF-format
+           GPTQ tensors made from a seed as tools/make_bench_model.py makes
+           them, converted by the port's ``map_hf_params``);
+  timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
+           and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
+           3712, greedy) and the time to first token of a 3712-token prompt
+           in 512-token chunks, by bench.py's method, then a torch.profiler
+           breakdown of one decode window and one prefill.
 
 The last lines are the kernels' JSON record, the GPU's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failed phase makes the script exit
@@ -45,6 +50,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 ATTN_TOL = 2e-2             # max |kernel - plain| on unit-variance bf16 inputs
+# max |kernel - plain| / max |plain| of the int4 matmul: the dequantized
+# tiles are the same bf16 values; the output is rounded to bf16 and the fp32
+# sums run in another order
+W4A16_TOL = 1e-2
 LOGIT_TOL = 5e-2            # max |kernel - plain| logits / max |plain logits|
 
 KERNELS = {
@@ -60,6 +69,24 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/prefill_attention.cu",
         replaces="zhilight_tpu/ops/pallas/prefill_attention.py:255",
     ),
+    "w4a16_matmul": dict(
+        source="zhilight_tpu_torch/csrc/quant_matmul.cu",
+        replaces="zhilight_tpu/ops/pallas/quant_matmul.py:242",
+    ),
+}
+ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
+                     "paged_prefill_attention_hm_packed")
+
+# Qwen/Qwen2.5-14B-Instruct-GPTQ-Int4's config.json fields, as
+# tools/make_bench_model.py:30-44 writes them
+QWEN14B_GPTQ = {
+    "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2", "hidden_size": 5120,
+    "intermediate_size": 13824, "num_hidden_layers": 48, "num_attention_heads": 40,
+    "num_key_value_heads": 8, "vocab_size": 152064, "max_position_embeddings": 32768,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "eos_token_id": 2, "bos_token_id": 1,
+    "quantization_config": {"quant_method": "gptq", "bits": 4, "group_size": 128,
+                            "desc_act": False, "sym": True},
 }
 
 
@@ -83,13 +110,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call."""
+def time_ms(fn, reps: int = 30, warmup: int = 3, flush=None) -> float:
+    """Median device time of one call, by CUDA events around each call;
+    ``flush`` runs before each call, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -134,6 +164,66 @@ def _randn(rng, *shape):
     return _dev(rng.standard_normal(shape).astype(np.float32), torch.bfloat16)
 
 
+def _bf16(rng, shape, scale=0.02):
+    """Random bf16 (tools/make_bench_model.py's ``bf16``), as a torch tensor."""
+    g = torch.Generator().manual_seed(int(rng.integers(2**31)))
+    return (torch.randn(int(np.prod(shape)), generator=g) * scale).to(torch.bfloat16).reshape(shape)
+
+
+def gptq_tensors(rng, K, N, group_size):
+    """Random AutoGPTQ-v1 tensors of a [K, N] linear (tools/make_bench_model.py's
+    ``gptq_tensors``): sym zeros stored as 7, unpacked as 8."""
+    G = K // group_size
+    qweight = rng.integers(0, 2**32, size=(K // 8, N), dtype=np.uint32).astype(np.int32)
+    qzeros = np.full((G, N // 8), 0x77777777, dtype=np.uint32).astype(np.int32)
+    scales = (rng.random((G, N), dtype=np.float32) * 0.004 + 0.001).astype(np.float16)
+    g_idx = (np.arange(K, dtype=np.int32) // group_size).astype(np.int32)
+    return dict(qweight=qweight, qzeros=qzeros, scales=scales, g_idx=g_idx)
+
+
+def qwen_hf_tensors(hf: dict, seed: int, keep: dict):
+    """(HF name, tensor) pairs of a random GPTQ-Int4 checkpoint of ``hf``'s
+    geometry, in tools/make_bench_model.py's format and order; dense leaves
+    bf16 at scale 0.02, norms 1. ``keep`` receives layer 0's q_proj GPTQ
+    tensors and the seconds spent making the tensors."""
+    t0 = time.monotonic()
+    made = 0.0
+    rng = np.random.default_rng(seed)
+    H, NH, KV = hf["hidden_size"], hf["num_attention_heads"], hf["num_key_value_heads"]
+    HD, FF, V = H // NH, hf["intermediate_size"], hf["vocab_size"]
+    gs = hf["quantization_config"]["group_size"]
+    ones = torch.ones(H, dtype=torch.bfloat16)
+    lin = {
+        "self_attn.q_proj": (H, NH * HD), "self_attn.k_proj": (H, KV * HD),
+        "self_attn.v_proj": (H, KV * HD), "self_attn.o_proj": (NH * HD, H),
+        "mlp.gate_proj": (H, FF), "mlp.up_proj": (H, FF), "mlp.down_proj": (FF, H),
+    }
+
+    def emit(name, value):
+        nonlocal t0, made
+        made += time.monotonic() - t0
+        yield name, value
+        t0 = time.monotonic()
+
+    yield from emit("model.embed_tokens.weight", _bf16(rng, (V, H)))
+    for i in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        for name, (K, N) in lin.items():
+            parts = gptq_tensors(rng, K, N, gs)
+            if i == 0 and name == "self_attn.q_proj":
+                keep["q_proj"] = parts
+            for k, v in parts.items():
+                yield from emit(pre + name + "." + k, v)
+            if name != "self_attn.o_proj" and name.startswith("self_attn."):
+                yield from emit(pre + name + ".bias", _bf16(rng, (N,)))
+        yield from emit(pre + "input_layernorm.weight", ones)
+        yield from emit(pre + "post_attention_layernorm.weight", ones)
+    rng = np.random.default_rng(seed + 1)
+    yield from emit("model.norm.weight", ones)
+    yield from emit("lm_head.weight", _bf16(rng, (V, H)))
+    keep["make_s"] = made + time.monotonic() - t0
+
+
 # ---------------------------------------------------------------------------
 # phase: kernels
 # ---------------------------------------------------------------------------
@@ -149,9 +239,11 @@ def phase_kernels(rec: dict) -> None:
     S = 16
 
     # -- write_rows_hm: bit-exact against the plain scatter -------------------
+    # MiniCPM-2B's pool (36 heads, rows 2 x 64 wide) at its decode batch and
+    # a prefill chunk; Qwen2.5-14B's (8 KV heads, rows 2 x 128 wide) likewise
     err = 0.0
-    for T, start in ((16, None), (512, 3205)):
-        H, D = 36, 64
+    for T, start, H, D in ((16, None, 36, 64), (512, 3205, 36, 64),
+                           (8, None, 8, 128), (512, 3200, 8, 128)):
         k, v = _randn(rng, T, H, D), _randn(rng, T, H, D)
         if start is None:  # decode: one row per sequence, one skipped
             npages = 64
@@ -169,8 +261,8 @@ def phase_kernels(rec: dict) -> None:
         want = W.write_rows_hm_plain(pool.clone(), k, v, slots)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"write_rows_hm T={T}: not bit-exact")
-        print(f"kernels: write_rows_hm T={T} bit-exact", flush=True)
+            raise AssertionError(f"write_rows_hm T={T} Hkv={H} D={D}: not bit-exact")
+        print(f"kernels: write_rows_hm T={T} Hkv={H} D={D} bit-exact", flush=True)
     # timed at the decode step's shape (B=16 rows of 36 heads x 64)
     T, H, D = 16, 36, 64
     k, v = _randn(rng, T, H, D), _randn(rng, T, H, D)
@@ -194,11 +286,16 @@ def phase_kernels(rec: dict) -> None:
         dict(B=16, Hq=36, Hkv=36, D=64, ctx_max=4096, window=0),
         dict(B=16, Hq=32, Hkv=8, D=128, ctx_max=4096, window=0),
         dict(B=16, Hq=36, Hkv=36, D=64, ctx_max=1024, window=100),
+        # Qwen2.5-14B at its serving batch: 40 query heads on 8 KV heads
+        dict(B=8, Hq=40, Hkv=8, D=128, ctx=[3712, 7, 513, 1500, 100, 16, 250, 3201], window=0),
     ]
     for c in cases:
         B, Hq, Hkv, D = c["B"], c["Hq"], c["Hkv"], c["D"]
-        ctx = rng.integers(1, c["ctx_max"] + 1, B).astype(np.int32)
-        ctx[5] = 0  # an empty slot
+        if "ctx" in c:
+            ctx = np.array(c["ctx"], np.int32)
+        else:
+            ctx = rng.integers(1, c["ctx_max"] + 1, B).astype(np.int32)
+            ctx[5] = 0  # an empty slot
         tables, npages = _paged(rng, ctx, S)
         pool = _randn(rng, Hkv, npages * S, 2 * D)
         q = _randn(rng, B, Hq, D)
@@ -233,19 +330,22 @@ def phase_kernels(rec: dict) -> None:
 
     # -- paged_prefill_attention_hm_packed ----------------------------------
     err = 0.0
-    H, D = 36, 64
+    minicpm, qwen = dict(Hq=36, Hkv=36, D=64), dict(Hq=40, Hkv=8, D=128)
     cases = [
-        dict(cache_lens=[0], q_lens=[512], TC=512),
-        dict(cache_lens=[3205], q_lens=[512], TC=512),
-        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128),
+        dict(cache_lens=[0], q_lens=[512], TC=512, **minicpm),
+        dict(cache_lens=[3205], q_lens=[512], TC=512, **minicpm),
+        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **minicpm),
+        dict(cache_lens=[0], q_lens=[512], TC=512, **qwen),
+        dict(cache_lens=[3200], q_lens=[512], TC=512, **qwen),
+        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **qwen),
     ]
     for c in cases:
         cl = np.array(c["cache_lens"], np.int32)
         ql = np.array(c["q_lens"], np.int32)
-        NS, TC = len(cl), c["TC"]
+        NS, TC, D = len(cl), c["TC"], c["D"]
         tables, npages = _paged(rng, cl + ql, S)
-        pool = _randn(rng, H, npages * S, 2 * D)
-        q = _randn(rng, NS * TC, H, D)
+        pool = _randn(rng, c["Hkv"], npages * S, 2 * D)
+        q = _randn(rng, NS * TC, c["Hq"], D)
         args = (q, pool, _dev(tables), _dev(cl), _dev(ql), S, 1.0 / np.sqrt(D))
         got = P.paged_prefill_attention_hm_packed(*args)
         want = P.paged_prefill_attention_hm_packed_plain(*args)
@@ -261,6 +361,7 @@ def phase_kernels(rec: dict) -> None:
             raise AssertionError(f"prefill attention {c}: max abs err {e} > {ATTN_TOL}")
         err = max(err, e)
     # timed at the time-to-first-token shape: a 512-token chunk at context 3200
+    H, D = 36, 64
     CL, QL = 3200, 512
     tables, npages = _paged(rng, [CL + QL], S)
     pool = _randn(rng, H, npages * S, 2 * D)
@@ -283,6 +384,8 @@ def phase_kernels(rec: dict) -> None:
     nbytes = (CL + QL) * H * 2 * D * 2 + 2 * q.numel() * 2
     t_b, by = bound(nbytes, 4 * H * D * keys)
     rec["paged_prefill_attention_hm_packed"].update(bound_ms=t_b, bound_by=by)
+
+    kernels_w4a16(rec, rng)
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -290,19 +393,109 @@ def phase_kernels(rec: dict) -> None:
               f"library_ms={r['library_ms']:.4f}", flush=True)
 
 
+def kernels_w4a16(rec: dict, rng) -> None:
+    """w4a16_matmul against its plain version at the Qwen2.5-14B projections'
+    (K, N), both weight formats, decode to prefill M; then timed with a cold
+    L2 (a decode step streams every layer's weights once)."""
+    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+    from zhilight_tpu_torch.ops.quant import dequant_int4, int4_linear, pack_int4
+    from zhilight_tpu_torch.utils.hf_loader import _pad_canon_int4
+
+    gs = 128
+
+    def weights(K, N):
+        q = _dev(rng.integers(0, 16, (K, N)).astype(np.int8))
+        s = _dev((rng.random((K // gs, N)) * 0.004 + 0.001).astype(np.float32))
+        z = _dev(rng.integers(1, 16, (K // gs, N)).astype(np.float32))
+        return q, s, z
+
+    abs_err = 0.0
+
+    def check(what, got, want):
+        """max |got - want| / max |want|, held to W4A16_TOL."""
+        nonlocal abs_err
+        diff = (got.float() - want.float()).abs().max().item()
+        e = diff / want.float().abs().max().item()
+        if not (torch.isfinite(got).all() and e <= W4A16_TOL):
+            raise AssertionError(f"w4a16 {what}: max rel err {e} > {W4A16_TOL}")
+        abs_err = max(abs_err, diff)
+        return e
+
+    err = 0.0
+    pairs = [(5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120)]
+    planar = {}
+    for K, N in pairs:
+        q, s, z = weights(K, N)
+        planar[K, N] = (pack_int4(q), s, z)
+        for fmt, w in (("planar", planar[K, N][0]), ("nibbles", q)):
+            es = []
+            for M in (1, 8, 16, 37, 512):
+                x = _randn(rng, M, K)
+                es.append(check(f"{fmt} M={M} K={K} N={N}", Q.w4a16_matmul(x, w, s, z),
+                                Q.w4a16_matmul_plain(x, w, s, z)))
+            print(f"kernels: w4a16 {fmt} K={K} N={N} M=1,8,16,37,512 max rel err "
+                  f"{max(es):.3e}", flush=True)
+            err = max(err, *es)
+    # act-order: the perm gather in int4_linear, then the kernel
+    K, N = 5120, 1024
+    q, s, z = weights(K, N)
+    perm = _dev(rng.permutation(K).astype(np.int32))
+    x = _randn(rng, 8, K)
+    p = {"w_p": pack_int4(q), "scales": s, "zeros": z, "perm": perm}
+    e = check("perm", int4_linear(p, x), Q.w4a16_matmul_plain(x[:, perm.long()], p["w_p"], s, z))
+    # a K the loader pads (DeepSeek-V2-Lite's expert down_proj, 1408 at gs 128)
+    K, N = 1408, 2048
+    q, s, z = weights(K, N)
+    canon = _pad_canon_int4({"w_p": q.cpu().numpy(), "scales": s.cpu().numpy(),
+                             "zeros": z.cpu().numpy()})
+    p = {"w_p": pack_int4(_dev(canon["w_p"])), "scales": _dev(canon["scales"]),
+         "zeros": _dev(canon["zeros"])}
+    x = _randn(rng, 8, K)
+    e2 = check("padded K", int4_linear(p, x), Q.w4a16_matmul_plain(x, q, s, z))
+    err = max(err, e, e2)
+    print(f"kernels: w4a16 perm max rel err {e:.3e}; K 1408 padded to "
+          f"{p['w_p'].shape[0] * 2} max rel err {e2:.3e}; over every case max rel err "
+          f"{err:.3e}, max abs err {abs_err:.3e}", flush=True)
+
+    # timed: each call finds the L2 cold, as in a decode step
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    for M in (8, 512):
+        for K, N in pairs:
+            w, s, z = planar[K, N]
+            x = _randn(rng, M, K)
+            wd = dequant_int4(w, s, z, torch.bfloat16)
+            t_b, by = bound(K * N // 2 + 8 * (K // gs) * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+            row = dict(
+                ms=time_ms(lambda: Q.w4a16_matmul(x, w, s, z), flush=flush),
+                plain_ms=time_ms(lambda: Q.w4a16_matmul_plain(x, w, s, z), flush=flush),
+                library_ms=time_ms(lambda: torch.matmul(x, wd), flush=flush),
+                bound_ms=t_b, bound_by=by,
+            )
+            print(f"kernels: w4a16 M={M} K={K} N={N} ms={row['ms']:.4f} "
+                  f"bound_ms={t_b:.4f} ({by}) plain_ms={row['plain_ms']:.4f} "
+                  f"library_ms={row['library_ms']:.4f} (torch.matmul on the dequantized "
+                  f"bf16 weight)", flush=True)
+            if (M, K, N) == (8, 5120, 13824):  # gate/up_proj at the serving batch
+                rec["w4a16_matmul"].update(row, max_abs_err=abs_err)
+    del scratch
+
+
 # ---------------------------------------------------------------------------
-# phase: serve (the main path)
+# phase: serve (the main paths)
 # ---------------------------------------------------------------------------
 
 def _counters():
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
 
     return {
         "write_rows_hm": W.write_rows_hm,
         "paged_decode_attention_hm": A.paged_decode_attention_hm,
         "paged_prefill_attention_hm_packed": P.paged_prefill_attention_hm_packed,
+        "w4a16_matmul": Q.w4a16_matmul,
     }
 
 
@@ -319,6 +512,7 @@ def plain_kernels():
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
 
     def prefill_single(q, pool, table, cache_len, q_len, S, scale, sw=0):
         return P.paged_prefill_attention_hm_packed_plain(
@@ -330,7 +524,8 @@ def plain_kernels():
                            SimpleNamespace(paged_decode_attention_hm=A.paged_decode_attention_hm_plain)), \
          mock.patch.object(llama_mod, "prefill_attention", SimpleNamespace(
              paged_prefill_attention_hm=prefill_single,
-             paged_prefill_attention_hm_packed=P.paged_prefill_attention_hm_packed_plain)):
+             paged_prefill_attention_hm_packed=P.paged_prefill_attention_hm_packed_plain)), \
+         mock.patch.object(Q, "w4a16_matmul", Q.w4a16_matmul_plain):
         yield
 
 
@@ -357,30 +552,67 @@ def _prefill_logits(ex, prompt):
     return logits
 
 
-def phase_serve(rec: dict, args) -> None:
-    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
-    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
-    from zhilight_tpu_torch.llm import LLM
+def _decode_step_logits(ex, prompts, chunk=512):
+    """One decode step's logits [B, V], through the kernels and through the
+    plain path, after each prompt was prefilled (kernel path, ``chunk``-token
+    chunks) into a scratch cache; every slot decodes the argmax of its
+    prompt's last logits, so the contexts are the prompts' lengths + 1."""
+    from zhilight_tpu_torch.kvcache.paged import new_kv_cache
     from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 
-    cfg = minicpm_2b()
-    t0 = time.monotonic()
-    params = L.init_params(cfg, seed=args.seed, device="cuda")
-    torch.cuda.synchronize()
-    ecfg = EngineConfig(
-        max_model_len=4096,
-        cache=CacheConfig(page_size=16),
-        scheduler=SchedulerConfig(max_batch=16, chunk_size=512),
-    )
-    llm = LLM(model_config=cfg, params=params, engine_config=ecfg, device="cuda")
-    ex = llm.executor
+    cfg, S, B = ex.cfg, ex.page_size, len(prompts)
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    maxp = max(len(p) // S + 1 for p in prompts)
+    cache = new_kv_cache(cfg.num_layers, B * maxp, S, cfg.num_kv_heads, cfg.dim_head,
+                         cfg.torch_dtype, device=ex.device)
+    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+
+    def slots(b, pos):
+        return tables[b, (pos // S).long()] * S + pos % S
+
+    nxt = []
+    with torch.no_grad():
+        for b, p in enumerate(prompts):
+            for start in range(0, len(p), chunk):
+                toks = torch.tensor(p[start : start + chunk], **i32)
+                pos = torch.arange(start, start + len(toks), **i32)
+                meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos),
+                                   page_table=tables[b], cache_len=torch.tensor(start, **i32),
+                                   q_len=torch.tensor(len(toks), **i32))
+                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache)
+            nxt.append(int(logits.argmax()))
+        n = torch.tensor([len(p) for p in prompts], **i32)
+        meta = DecodeMeta(positions=n, slot_mapping=slots(torch.arange(B, device=ex.device), n),
+                          page_tables=tables, context_lens=n + 1)
+        tokens = torch.tensor(nxt, **i32)
+        got, _ = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, cache)
+        with plain_kernels():
+            want, _ = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, cache)
+    return got, want
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def serve_path(label: str, llm, rec: dict, expect, seed: int) -> None:
+    """One main path: 8 concurrent requests (prompts of 7 to 3712 tokens, 32
+    new tokens, 2 sampled) with the launch counters zeroed just before and
+    read just after, then the first-token logits and one decode step's logits
+    (every prompt's continuation) against the plain path."""
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+
+    ex, cfg = llm.executor, llm.model_config
     warm_s = ex.warmup()
-    print(f"serve: MiniCPM-2B {cfg.num_layers} layers, {L.param_count(params) / 1e9:.3f} B params, "
+    weights = sum(t.numel() * t.element_size() for t in _leaves(ex.params))
+    print(f"serve: {label}: {cfg.num_layers} layers, {weights / 2**30:.2f} GiB of weights, "
           f"{ex.num_pages} KV pages, decode window {ex.decode_window}, "
-          f"set-up {time.monotonic() - t0:.1f} s (warmup {warm_s:.1f} s), "
-          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+          f"warmup {warm_s:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+          flush=True)
 
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     lens = [7, 100, 513, 1500, 3712, 16, 250, 40]
     prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
     MAXLEN = 32
@@ -403,22 +635,24 @@ def phase_serve(rec: dict, args) -> None:
     finally:
         gen.stop()
     for name, n in launches.items():
-        rec[name]["launches"] = n
-    print(f"serve: {len(prompts)} requests in {wall:.2f} s; launches {launches}", flush=True)
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"][label] = n
+    print(f"serve: {label}: {len(prompts)} requests in {wall:.2f} s; launches {launches}",
+          flush=True)
     for n, a, r in zip(lens, gargs, results):
         out = r.outputs[0]
-        print(f"serve: prompt {n} temp {a.temperature}: {len(out.token_ids)} tokens, "
+        print(f"serve: {label}: prompt {n} temp {a.temperature}: {len(out.token_ids)} tokens, "
               f"finish {out.finish_reason}, first tokens {out.token_ids[:6]}", flush=True)
         if not (len(out.token_ids) == MAXLEN or out.finish_reason == "stop"):
             raise AssertionError(f"prompt {n}: {len(out.token_ids)} tokens, {out.finish_reason}")
         if out.logprobs is None or not np.all(np.isfinite(out.logprobs)):
             raise AssertionError(f"prompt {n}: non-finite logprobs")
-    if any(n == 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if any(launches[name] == 0 for name in expect):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
     if solo[0].outputs[0].token_ids != solo[1].outputs[0].token_ids:
         raise AssertionError("a repeated greedy request returned other tokens")
     same = sum(a == b for a, b in zip(solo[0].outputs[0].token_ids, results[0].outputs[0].token_ids))
-    print(f"serve: repeated greedy request identical; agrees with its batched run "
+    print(f"serve: {label}: repeated greedy request identical; agrees with its batched run "
           f"on {same}/{MAXLEN} tokens", flush=True)
 
     # first-token logits: main path (kernels) against the plain path, on the card
@@ -430,27 +664,122 @@ def phase_serve(rec: dict, args) -> None:
         raise AssertionError("non-finite first-token logits")
     rel = ((got - want).abs().max() / want.abs().max()).item()
     top_k, top_p = torch.topk(got, 5).indices.tolist(), torch.topk(want, 5).indices.tolist()
-    print(f"serve: first-token logits kernel vs plain: max rel err {rel:.3e} "
+    print(f"serve: {label}: first-token logits kernel vs plain: max rel err {rel:.3e} "
           f"(tolerance {LOGIT_TOL}); argmax {top_k[0]} vs {top_p[0]}; "
           f"top-5 overlap {len(set(top_k) & set(top_p))}/5", flush=True)
-    if rel > LOGIT_TOL:
-        raise AssertionError(f"first-token logits differ: {rel} > {LOGIT_TOL}")
-    args.llm = llm
+    if rel > LOGIT_TOL or top_k[0] != top_p[0]:
+        raise AssertionError(f"{label}: first-token logits differ: {rel} > {LOGIT_TOL} "
+                             f"or argmax {top_k[0]} != {top_p[0]}")
+
+    # one decode step of the 8 prompts (contexts 8 to 3713) against the plain
+    # path; a row's argmax may differ only where the plain logits put the
+    # kernel's pick within the tolerance of their own maximum
+    got, want = _decode_step_logits(ex, prompts)
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite decode-step logits")
+    scale = want.abs().amax(-1)
+    rel = ((got - want).abs().amax(-1) / scale).max().item()
+    pick = got.argmax(-1)
+    same = int((pick == want.argmax(-1)).sum())
+    slack = ((want.amax(-1) - want.gather(-1, pick[:, None])[:, 0]) / scale).max().item()
+    print(f"serve: {label}: decode-step logits kernel vs plain (batch {len(prompts)}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.dim_head}, contexts "
+          f"{min(lens) + 1} to {max(lens) + 1}): max rel err {rel:.3e} (tolerance {LOGIT_TOL}); "
+          f"argmax same on {same}/{len(prompts)} rows, worst pick {slack:.3e} of max |logit| "
+          f"below the plain maximum", flush=True)
+    if rel > LOGIT_TOL or slack > LOGIT_TOL:
+        raise AssertionError(f"{label}: decode-step logits differ: {rel} or {slack} > {LOGIT_TOL}")
+
+
+def load_qwen(seed: int):
+    """Qwen2.5-14B GPTQ-Int4 from HF-format tensors made from ``seed``,
+    through the port's map_hf_params into ``LLM``."""
+    from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, QuantConfig,
+                                           SchedulerConfig, adapt_hf_config)
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.ops.quant import pack_int4
+    from zhilight_tpu_torch.utils.hf_loader import map_hf_params
+    from zhilight_tpu_torch.utils.quant_convert import unpack_gptq
+
+    hf = QWEN14B_GPTQ
+    cfg, qcfg = adapt_hf_config(hf), QuantConfig.from_hf_config(hf)
+    keep = {}
+    t0 = time.monotonic()
+    params = map_hf_params(qwen_hf_tensors(hf, seed, keep), cfg, quant_method="gptq",
+                           device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    # the loader repacked qweight straight to planar on the GPU; hold one
+    # projection against the canonical route on the host (unpack to int8
+    # nibbles, then pack_int4)
+    canon = pack_int4(torch.from_numpy(unpack_gptq(**keep["q_proj"])["w_p"]))
+    if not torch.equal(params["layers"]["0"]["attn"]["q_proj"]["w_p"].cpu(), canon):
+        raise AssertionError("GPTQ planar repack on the GPU differs from unpack_gptq + pack_int4")
+    ecfg = EngineConfig(
+        max_model_len=3904,
+        cache=CacheConfig(page_size=16),
+        scheduler=SchedulerConfig(max_batch=8, chunk_size=512),
+    )
+    llm = LLM(model_config=cfg, quant_config=qcfg, params=params, engine_config=ecfg,
+              device="cuda")
+    q = llm.executor.params["layers"]["0"]["attn"]["q_proj"]
+    print(f"serve: Qwen2.5-14B GPTQ-Int4: HF tensors made from seed {seed} in "
+          f"{keep['make_s']:.1f} s; map_hf_params(gptq) on the GPU in "
+          f"{load_s - keep['make_s']:.1f} s (load and conversion {load_s:.1f} s in all); "
+          f"layer-0 q_proj w_p {q['w_p'].dtype} {tuple(q['w_p'].shape)}, scales "
+          f"{q['scales'].dtype}, bit-identical to unpack_gptq + pack_int4 on the host", flush=True)
+    return llm
+
+
+def phase_serve(rec: dict, args) -> None:
+    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    cfg = minicpm_2b()
+    t0 = time.monotonic()
+    params = L.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    ecfg = EngineConfig(
+        max_model_len=4096,
+        cache=CacheConfig(page_size=16),
+        scheduler=SchedulerConfig(max_batch=16, chunk_size=512),
+    )
+    llm = LLM(model_config=cfg, params=params, engine_config=ecfg, device="cuda")
+    print(f"serve: MiniCPM-2B set-up {time.monotonic() - t0:.1f} s", flush=True)
+    serve_path("MiniCPM-2B", llm, rec, ATTENTION_KERNELS, args.seed)
+    args.llms["MiniCPM-2B"] = llm
+
+    llm = load_qwen(args.seed)
+    serve_path("Qwen2.5-14B-GPTQ-Int4", llm, rec, tuple(KERNELS), args.seed)
+    args.llms["Qwen2.5-14B-GPTQ-Int4"] = llm
 
 
 # ---------------------------------------------------------------------------
 # phase: timing (bench.py's method)
 # ---------------------------------------------------------------------------
 
-def phase_timing(rec: dict, args, smi: str) -> None:
+TIMING = {  # path -> (decode batch, context, time sampled decode too)
+    "MiniCPM-2B": (16, 512, True),
+    "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False),
+}
+
+
+def phase_timing(args, smi: str) -> None:
+    if not args.llms:
+        raise RuntimeError("timing needs the serve phase")
+    for label, llm in args.llms.items():
+        timing_path(label, llm.executor, *TIMING[label], smi)
+
+
+def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, smi: str) -> None:
     from zhilight_tpu_torch.models.base import PrefillMeta
     from zhilight_tpu_torch.ops.sampling import SamplingParams
 
-    ex = args.llm.executor
     dev = ex.device
-    S, BATCH, CTX, WINDOWS = ex.page_size, 16, 512, 10
-    MAX_PAGES = CTX // S + 2
-    K = ex.decode_window
+    S, WINDOWS, K = ex.page_size, 10, ex.decode_window
+    # pages for the context and every step of the timed windows
+    MAX_PAGES = min((CTX + (WINDOWS + 1) * K) // S + 1, ex.num_pages // BATCH)
     page_tables = np.stack([b * MAX_PAGES + np.arange(MAX_PAGES) for b in range(BATCH)]).astype(np.int32)
     positions = np.full(BATCH, CTX - 1, np.int32)
     context_lens = np.full(BATCH, CTX, np.int32)
@@ -478,7 +807,7 @@ def phase_timing(rec: dict, args, smi: str) -> None:
         return BATCH * K * WINDOWS / (time.perf_counter() - t0)
 
     tok_s = decode_tok_s(greedy)
-    sampled_tok_s = decode_tok_s(sampled)
+    sampled_tok_s = decode_tok_s(sampled) if sampled_too else None
 
     PROMPT, CHUNK = 3712, 512
     n_chunks = (PROMPT + CHUNK - 1) // CHUNK
@@ -529,17 +858,18 @@ def phase_timing(rec: dict, args, smi: str) -> None:
     t0 = time.perf_counter()
     prefill_once()
     ttft_ms = (time.perf_counter() - t0) * 1e3
-    print(f"timing: decode {tok_s:.2f} tok/s greedy, {sampled_tok_s:.2f} tok/s sampled "
-          f"(temperature 0.8, top_p 0.9) (batch {BATCH}, context {CTX}, window {K}, "
-          f"{WINDOWS} windows); TTFT {ttft_ms:.2f} ms (prompt {PROMPT}, chunk {CHUNK}); "
-          f"{ex.cfg.num_layers} layers; {smi}", flush=True)
-    print(json.dumps({"decode_tok_s": tok_s, "sampled_decode_tok_s": sampled_tok_s,
+    sampled_txt = (f", {sampled_tok_s:.2f} tok/s sampled (temperature 0.8, top_p 0.9)"
+                   if sampled_too else "")
+    print(f"timing: {label}: decode {tok_s:.2f} tok/s greedy{sampled_txt} (batch {BATCH}, "
+          f"context {CTX}, window {K}, {WINDOWS} windows); TTFT {ttft_ms:.2f} ms (prompt "
+          f"{PROMPT}, chunk {CHUNK}); {ex.cfg.num_layers} layers; {smi}", flush=True)
+    print(json.dumps({"path": label, "decode_tok_s": tok_s, "sampled_decode_tok_s": sampled_tok_s,
                       "ttft_ms": ttft_ms, "gpu": smi}), flush=True)
 
     # where the time goes: one traced decode window and one traced prefill,
     # after the timed runs (the trace does not touch the numbers above)
-    profile("decode window", lambda: run(reuse_carry=True))
-    profile("prefill 3712", prefill_once)
+    profile(f"{label} decode window", lambda: run(reuse_carry=True))
+    profile(f"{label} prefill 3712", prefill_once)
 
 
 def profile(what: str, fn) -> None:
@@ -571,6 +901,7 @@ def main() -> int:
     ap.add_argument("--phases", default="kernels,serve,timing")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    args.llms = {}
     phases = [p for p in args.phases.split(",") if p]
 
     if not torch.cuda.is_available():
@@ -582,32 +913,36 @@ def main() -> int:
     print(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.monotonic()
     _build.build_all()
-    print(f"build: 3 CUDA libraries in {time.monotonic() - t0:.1f} s", flush=True)
+    print(f"build: {len(_build.SOURCES)} CUDA libraries in {time.monotonic() - t0:.1f} s",
+          flush=True)
     for name, log in _build.build_logs().items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
     print("kernels: " + ", ".join(f"{k} ({v['source']})" for k, v in KERNELS.items()), flush=True)
 
-    rec = {name: dict(name=name, route="cuda", **meta, launches=0, max_abs_err=None,
+    rec = {name: dict(name=name, route="cuda", **meta, launches=0, launches_by_path={},
+                      max_abs_err=None,
                       ms=None, plain_ms=None, bound_ms=None, bound_by=None,
                       library_ms=None)
            for name, meta in KERNELS.items()}
     failed = []
     for phase in phases:
+        t0 = time.monotonic()
         try:
             if phase == "kernels":
                 phase_kernels(rec)
             elif phase == "serve":
                 phase_serve(rec, args)
             elif phase == "timing":
-                phase_timing(rec, args, smi)
+                phase_timing(args, smi)
             else:
                 raise ValueError(f"unknown phase {phase!r}")
         except Exception:
             traceback.print_exc()
             print(f"phase {phase}: FAILED", flush=True)
             failed.append(phase)
+        print(f"phase {phase}: {time.monotonic() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rec.values())}), flush=True)
     print(smi, flush=True)
     if failed:

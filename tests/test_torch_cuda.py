@@ -9,16 +9,30 @@ package, so it also runs where only PyTorch is installed:
 Inputs are unit-variance bf16 from a numpy seed. Tolerance: the KV write is
 bit-exact; attention outputs agree within 2e-2 absolute (bf16 output
 rounding plus the kernels' fp32 probabilities against the plain version's
-bf16-rounded ones).
+bf16-rounded ones); the int4 matmul within 1e-2 of the largest plain output
+(bf16 output rounding, fp32 sums in another order).
 """
+
+import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
+from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig, load_model_config
+from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+from zhilight_tpu_torch.kvcache.paged import new_kv_cache
+from zhilight_tpu_torch.llm import LLM
+from zhilight_tpu_torch.models import llama as L
+from zhilight_tpu_torch.models.base import PrefillMeta
 from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 from zhilight_tpu_torch.ops.cuda import kv_write as W
 from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+from zhilight_tpu_torch.ops.quant import int4_linear, pack_int4
+from zhilight_tpu_torch.utils import quant_convert as QC
+from zhilight_tpu_torch.utils.quant_convert import planar_from_gptq
 
 S = 16
 TOL = 2e-2
@@ -47,10 +61,10 @@ def _tables(rng, lens, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("start,n", [(0, 16), (21, 40), (3205, 512)])
-def test_write_rows_hm_is_exact(cuda, start, n):
+@pytest.mark.parametrize("H,D", [(36, 64), (8, 128)])  # MiniCPM-2B's pool, Qwen2.5-14B's
+@pytest.mark.parametrize("start,n", [(0, 8), (0, 16), (21, 40), (3205, 512)])
+def test_write_rows_hm_is_exact(cuda, start, n, H, D):
     rng = np.random.default_rng(start)
-    H, D = 36, 64
     pages = (start + n) // S + 3
     table = rng.permutation(pages)
     pos = np.arange(start, start + n)
@@ -63,11 +77,15 @@ def test_write_rows_hm_is_exact(cuda, start, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,D,window", [(36, 36, 64, 0), (32, 8, 128, 0), (16, 1, 64, 50)])
-def test_decode_attention_matches_plain(cuda, hq, hkv, D, window):
+@pytest.mark.parametrize("hq,hkv,D,window,ctx_max", [
+    (36, 36, 64, 0, 700), (32, 8, 128, 0, 700), (16, 1, 64, 50, 700),
+    (40, 8, 128, 0, 3712),  # Qwen2.5-14B at its serving batch and context
+])
+def test_decode_attention_matches_plain(cuda, hq, hkv, D, window, ctx_max):
     rng = np.random.default_rng(hq + D)
     B = 8
-    ctx = rng.integers(1, 700, B).astype(np.int32)
+    ctx = rng.integers(1, ctx_max, B).astype(np.int32)
+    ctx[0] = ctx_max
     ctx[2] = 0
     tables, npages = _tables(rng, ctx, cuda)
     pool = _bf16(rng, cuda, hkv, npages * S, 2 * D)
@@ -80,7 +98,7 @@ def test_decode_attention_matches_plain(cuda, hq, hkv, D, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,D", [(8, 2, 64), (36, 36, 64), (8, 8, 128)])
+@pytest.mark.parametrize("hq,hkv,D", [(8, 2, 64), (36, 36, 64), (8, 8, 128), (40, 8, 128)])
 def test_prefill_attention_matches_plain(cuda, hq, hkv, D):
     rng = np.random.default_rng(hq + D)
     TC = 96
@@ -101,6 +119,149 @@ def test_prefill_attention_matches_plain(cuda, hq, hkv, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,D", [(36, 36, 64), (40, 8, 128)])  # MiniCPM-2B, Qwen2.5-14B
+def test_prefill_attention_long_context_matches_plain(cuda, hq, hkv, D):
+    """The last full chunk of a 3712-token prompt: 512 queries at cache_len 3200."""
+    rng = np.random.default_rng(hq)
+    CL, QL = 3200, 512
+    tables, npages = _tables(rng, [CL + QL], cuda)
+    pool = _bf16(rng, cuda, hkv, npages * S, 2 * D)
+    lens = lambda n: torch.tensor([n], dtype=torch.int32, device=cuda)
+    args = (_bf16(rng, cuda, QL, hq, D), pool, tables, lens(CL), lens(QL), S, 1.0 / np.sqrt(D))
+    got = P.paged_prefill_attention_hm_packed(*args)
+    want = P.paged_prefill_attention_hm_packed_plain(*args)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+def _int4(rng, K, N, gs, device, planar):
+    w = rng.integers(0, 16, (K, N)).astype(np.int8)
+    scales = ((rng.random((K // gs, N)) + 0.5) * 0.01).astype(np.float32)
+    zeros = rng.integers(1, 16, (K // gs, N)).astype(np.float32)
+    w = torch.from_numpy(w)
+    w = pack_int4(w) if planar else w
+    return w.to(device), torch.from_numpy(scales).to(device), torch.from_numpy(zeros).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 512])
+@pytest.mark.parametrize("K,N,gs", [(512, 256, 128), (768, 200, 64), (384, 136, 32), (256, 64, 256)])
+def test_w4a16_matmul_matches_plain(cuda, planar, M, K, N, gs):
+    """Both weight formats, ragged M and N, groups of 32 to K. Tolerance:
+    max |err| <= 1e-2 * max |plain| (the bf16 output rounding; fp32 sums in
+    another order; the dequantized tiles are the same bf16 values)."""
+    rng = np.random.default_rng(M + K + N)
+    w, scales, zeros = _int4(rng, K, N, gs, cuda, planar)
+    x = _bf16(rng, cuda, M, K)
+    got = Q.w4a16_matmul(x, w, scales, zeros)
+    want = Q.w4a16_matmul_plain(x, w, scales, zeros)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_int4_linear_with_perm_and_padding_on_gpu(cuda):
+    """int4_linear gathers x by the act-order perm and zero-pads K before the
+    kernel; the same call through the plain version agrees."""
+    rng = np.random.default_rng(3)
+    K, N, gs = 384, 128, 64
+    w, scales, zeros = _int4(rng, K, N, gs, cuda, False)
+    perm = torch.from_numpy(rng.permutation(K).astype(np.int32)).to(cuda)
+    x = _bf16(rng, cuda, 5, K - gs)  # the last group is padding
+    p = {"w_p": w, "scales": scales, "zeros": zeros, "perm": perm}
+    before = Q.w4a16_matmul.launches
+    got = int4_linear(p, x)
+    assert Q.w4a16_matmul.launches == before + 1
+    xp = torch.nn.functional.pad(x, (0, gs)).index_select(-1, perm)
+    want = Q.w4a16_matmul_plain(xp, w, scales, zeros)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gptq_planar_repack_on_gpu_is_bit_exact(cuda):
+    """The loader repacks GPTQ qweight on the GPU: bit for bit the host's."""
+    qweight = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 2**32, (640, 1024), dtype=np.uint32).astype(np.int32))
+    assert torch.equal(planar_from_gptq(qweight.to(cuda)).cpu(), planar_from_gptq(qweight))
+
+
+def _write_qwen2_int4(path, method):
+    """A tiny Qwen2 int4 checkpoint (2 layers, dim 256, 4 heads of 64, 2 KV
+    heads, ff 512, vocab 128, group 64) as pytorch_model.bin + config.json."""
+    rng = np.random.default_rng(1)
+    D, FF, V, GS = 256, 512, 128, 64
+    state = {"model.embed_tokens.weight": rng.standard_normal((V, D)) * 0.5,
+             "model.norm.weight": np.ones(D), "lm_head.weight": rng.standard_normal((V, D)) * 0.1}
+    lin = {"self_attn.q_proj": (D, 256), "self_attn.k_proj": (D, 128), "self_attn.v_proj": (D, 128),
+           "self_attn.o_proj": (256, D), "mlp.gate_proj": (D, FF), "mlp.up_proj": (D, FF),
+           "mlp.down_proj": (FF, D)}
+    for i in range(2):
+        pre = f"model.layers.{i}."
+        for name, (K, N) in lin.items():
+            w = rng.integers(0, 16, (K, N)).astype(np.int8)
+            scales = ((rng.random((K // GS, N)) + 0.5) * (0.25 / np.sqrt(K))).astype(np.float16)
+            zeros = rng.integers(1, 16, (K // GS, N)).astype(np.float32)
+            pack = QC.pack_gptq if method == "gptq" else QC.pack_awq
+            for k, v in zip(("qweight", "qzeros", "scales"), pack(w, zeros, scales)):
+                state[pre + name + "." + k] = v
+            if name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+                state[pre + name + ".bias"] = rng.standard_normal(N) * 0.1
+        state[pre + "input_layernorm.weight"] = np.ones(D)
+        state[pre + "post_attention_layernorm.weight"] = np.ones(D)
+    torch.save({k: torch.from_numpy(np.asarray(v, np.float32) if v.dtype == np.float64 else v)
+                for k, v in state.items()}, path / "pytorch_model.bin")
+    cfg = {"model_type": "qwen2", "hidden_size": D, "intermediate_size": FF,
+           "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
+           "vocab_size": V, "max_position_embeddings": 256, "rope_theta": 1e6,
+           "rms_norm_eps": 1e-6, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+           "quantization_config": {"quant_method": method, "bits": 4, "group_size": GS}}
+    (path / "config.json").write_text(json.dumps(cfg))
+    return str(path)
+
+
+def _first_token_logits(llm, prompt):
+    ex, cfg = llm.executor, llm.model_config
+    n, pages = len(prompt), (len(prompt) + 15) // 16
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    cache = new_kv_cache(cfg.num_layers, pages, 16, cfg.num_kv_heads, cfg.dim_head,
+                         cfg.torch_dtype, device=ex.device)
+    meta = PrefillMeta(torch.arange(n, **i32), torch.arange(n, **i32), torch.arange(pages, **i32),
+                       torch.tensor(0, **i32), torch.tensor(n, **i32))
+    with torch.no_grad():
+        logits, _ = L.forward_prefill(ex.params, cfg, ex.rope, torch.tensor(prompt, **i32), meta, cache)
+    return logits.float().cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["gptq", "awq"])
+def test_llm_model_path_on_gpu(cuda, tmp_path, method):
+    """LLM(model_path=...) on the GPU: the loader converts on the device (GPTQ
+    repack, AWQ unpack and pack), every projection runs the kernel, and the
+    bf16 first-token logits agree with the CPU's fp32 plain path within 5e-2
+    of the largest logit (bf16 activations and weights through 2 layers)."""
+    path = _write_qwen2_int4(tmp_path, method)
+    ecfg = EngineConfig(max_model_len=128, cache=CacheConfig(page_size=16, num_pages=64),
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
+    gpu = LLM(model_path=path, engine_config=ecfg, device=cuda)
+    q = gpu.executor.params["layers"]["0"]["attn"]["q_proj"]
+    assert q["w_p"].is_cuda and q["w_p"].dtype == torch.uint8 and q["scales"].dtype == torch.float32
+    cfg, _, _ = load_model_config(path)
+    cpu = LLM(model_path=path, model_config=dataclasses.replace(cfg, dtype="float32"),
+              engine_config=ecfg, device="cpu")
+    prompt = np.random.default_rng(2).integers(2, 128, 40).tolist()
+    before = Q.w4a16_matmul.launches
+    got = _first_token_logits(gpu, prompt)
+    assert Q.w4a16_matmul.launches - before == 7 * 2
+    want = _first_token_logits(cpu, prompt)
+    assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+    with DynamicBatchGenerator(gpu) as gen:
+        res = gen.batch_generate([prompt, prompt[:7]], [GeneratorArg(max_length=8)] * 2, timeout=300)
+    assert all(len(r.outputs[0].token_ids) == 8 or r.outputs[0].finish_reason == "stop"
+               for r in res)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     """A CUDA tensor never reaches a plain version: what the kernels do not
     take raises."""
@@ -113,3 +274,6 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     with pytest.raises(NotImplementedError):
         P.paged_prefill_attention_hm_packed(q.reshape(8, 1, 64).expand(8, 4, 64).contiguous(),
                                             pool, tables, ctx, ctx, S, 0.125)
+    w, scales, zeros = _int4(np.random.default_rng(0), 256, 64, 128, cuda, True)
+    with pytest.raises(NotImplementedError):
+        Q.w4a16_matmul(torch.zeros(2, 256, device=cuda), w, scales, zeros)  # fp32 x

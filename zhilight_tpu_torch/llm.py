@@ -1,30 +1,49 @@
 """Top-level model entry point (counterpart of ``zhilight_tpu/llm.py``).
 
-``LLM(model_config=..., params=..., engine_config=..., device=...)`` builds
-the executor for in-memory weights; ``llm.generator()`` (or
-``DynamicBatchGenerator(llm)``) serves requests on token ids. The device
-defaults to the GPU and there is no silent move to the CPU: without a GPU,
-``device`` must be given as ``"cpu"``. Loading an HF checkpoint directory
-(``model_path``), the tokenizer, SmoothQuant calibration and the scoring
+``LLM(model_path=...)`` reads an HF checkpoint directory (``config.json``,
+``generation_config.json``, safetensors or torch ``.bin`` weights, dense or
+GPTQ/AWQ int4); ``LLM(model_config=..., params=..., quant_config=...)``
+takes in-memory weights. ``llm.generator()`` (or ``DynamicBatchGenerator(llm)``)
+serves requests on token ids. The device defaults to the GPU and there is no
+silent move to the CPU: without a GPU, ``device`` must be given as ``"cpu"``.
+The tokenizer, W8A8/FP8 weights, SmoothQuant calibration and the scoring
 utilities (``calc_*``) are later slices of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from typing import Any, Dict, Optional
 
 import torch
 
-from .config import EngineConfig, ModelConfig, QuantConfig, QuantType
+from .config import EngineConfig, ModelConfig, QuantConfig, QuantType, load_model_config
 from .engine.engine import ModelExecutor
 from .engine.generator import DynamicBatchGenerator
 from .utils.convert import params_to_torch
+from .utils.hf_loader import load_hf_state
 
 __all__ = ["LLM"]
+
+_PORTED_QUANT = (QuantType.NO_QUANT, QuantType.GPTQ, QuantType.AWQ)
 
 
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _load_generation_eos(model_path: str) -> list:
+    """EOS id(s) from HF generation_config.json (int or list)."""
+    path = os.path.join(model_path, "generation_config.json")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        raw = json.load(f).get("eos_token_id")
+    if raw is None:
+        return []
+    return [int(x) for x in (raw if isinstance(raw, list) else [raw])]
 
 
 class LLM:
@@ -38,14 +57,20 @@ class LLM:
         tokenizer=None,
         device=None,
     ):
-        if model_path:
-            _not_ported("loading a checkpoint directory (model_path)")
-        if model_config is None or params is None:
-            raise ValueError("LLM needs model_config and params")
-        if quant_config is not None and quant_config.quant_type != QuantType.NO_QUANT:
-            _not_ported("quantized serving")
         if tokenizer is not None:
             _not_ported("tokenizer support")
+        self.engine_config = engine_config or EngineConfig(model_path=model_path)
+        self.hf_config = {}
+        if model_path:
+            cfg, qcfg, self.hf_config = load_model_config(model_path)
+            model_config = model_config or cfg
+            quant_config = quant_config or qcfg
+        if model_config is None or (params is None and not model_path):
+            raise ValueError("LLM needs model_path, or model_config and params")
+        self.model_config = model_config
+        self.quant_config = quant_config or QuantConfig()
+        if self.quant_config.quant_type not in _PORTED_QUANT:
+            _not_ported(f"{self.quant_config.quant_type.name} weights")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -54,11 +79,19 @@ class LLM:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        self.engine_config = engine_config or EngineConfig()
-        self.model_config = model_config
-        self.quant_config = quant_config or QuantConfig()
-        self.hf_config = {}
         self.tokenizer = None
+
+        if params is None:
+            params = load_hf_state(
+                model_path, model_config, quant=self.quant_config, device=self.device
+            )
+        eos_ids = _load_generation_eos(model_path) if model_path else []
+        if eos_ids:
+            sched = self.engine_config.scheduler
+            self.engine_config = dataclasses.replace(
+                self.engine_config,
+                scheduler=dataclasses.replace(sched, eos_id=eos_ids[0], eos_ids=tuple(eos_ids)),
+            )
         params = params_to_torch(params, self.device, model_config.torch_dtype)
         self.executor = ModelExecutor(model_config, params, self.engine_config, self.device)
 

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 
-SOURCES = ("kv_write", "attn_headmajor", "prefill_attention")
+SOURCES = ("kv_write", "attn_headmajor", "prefill_attention", "quant_matmul")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -1,10 +1,14 @@
 """Linear layer (counterpart of ``zhilight_tpu/ops/linear.py``).
 
-The port carries the dense format ``{"w": [in, out], "b"?: [out]}`` only.
-The product is a plain ``torch.matmul`` (XLA's in the reference; on the GPU
-cuBLAS accumulates bf16 products in fp32). The quantized formats of the
-reference (int8, W8A8, GPTQ/AWQ int4, FP8 block) belong to later slices and
-raise ``NotImplementedError``.
+The weight format is told by the keys of a parameter dict:
+
+  {"w": [in, out], "b"?: [out]}                        dense
+  {"w_p": int4, "scales", "zeros", "perm"?, "b"?}      GPTQ/AWQ W4A16 (``ops/quant.py``)
+
+The dense product is a plain ``torch.matmul`` (XLA's in the reference; on the
+GPU cuBLAS accumulates bf16 products in fp32). The int4 product is the
+hand-written ``w4a16_matmul`` kernel on the GPU. The reference's int8 (W8A8)
+and FP8 formats belong to later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,16 +17,20 @@ from typing import Dict
 
 import torch
 
-__all__ = ["linear"]
+from .quant import fp8_linear, int4_linear, int8_linear
 
-_QUANT_KEYS = ("w_q", "w_p", "w_f8")
+__all__ = ["linear"]
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if "w" in p:
         y = torch.matmul(x, p["w"])
-    elif any(k in p for k in _QUANT_KEYS):
-        raise NotImplementedError(f"quantized linear formats are not ported yet: {sorted(p)}")
+    elif "w_p" in p:
+        y = int4_linear(p, x)
+    elif "w_q" in p:
+        y = int8_linear(p, x)
+    elif "w_f8" in p:
+        y = fp8_linear(p, x)
     else:
         raise ValueError(f"unknown linear param format: {sorted(p)}")
     if "b" in p:

@@ -14,10 +14,16 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_to_torch"]
+__all__ = ["params_to_torch", "to_tensor"]
+
+# leaves of an int4 linear ({"w_p", "scales", "zeros", "perm"?, "b"?}) that
+# keep their own dtypes: uint8/int8 weights, f32 scales and zeros, int32 perm
+_INT4_LEAVES = ("w_p", "scales", "zeros", "perm")
 
 
-def _leaf(x: Any) -> torch.Tensor:
+def to_tensor(x: Any) -> torch.Tensor:
+    """A torch tensor as it is, or a CPU tensor copied from an array (numpy,
+    ml_dtypes bfloat16 included, or any object numpy can read)."""
     if isinstance(x, torch.Tensor):
         return x
     a = np.array(x, order="C")  # a writable copy (device_get arrays are read-only)
@@ -28,11 +34,15 @@ def _leaf(x: Any) -> torch.Tensor:
 
 def params_to_torch(params: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dict of arrays (numpy, or any object numpy can read) -> the
-    same nesting of torch tensors on ``device``; ``dtype`` casts the
-    floating-point leaves."""
+    same nesting of torch tensors on ``device``; ``dtype`` casts the dense
+    floating-point leaves (an int4 linear's scales and zeros stay f32)."""
     if isinstance(params, dict):
-        return {k: params_to_torch(v, device, dtype) for k, v in params.items()}
-    t = _leaf(params)
+        int4 = "w_p" in params
+        return {
+            k: params_to_torch(v, device, None if int4 and k in _INT4_LEAVES else dtype)
+            for k, v in params.items()
+        }
+    t = to_tensor(params)
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

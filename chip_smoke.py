@@ -9,23 +9,29 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together) and runs these phases:
 
-  kernels  each CUDA kernel against its plain PyTorch version in bf16 at the
-           shapes the main paths give it, and timed beside its bound, the
-           plain version and one PyTorch library call (CUDA events, median);
-  serve    the two main paths, each through ``LLM`` + ``DynamicBatchGenerator``
+  kernels  each CUDA kernel against its plain PyTorch version (bf16 queries;
+           bf16 and int8 pools) at the shapes the main paths give it, and
+           timed beside its bound, the plain version and one PyTorch library
+           call (CUDA events, median), at MiniCPM-2B's and Qwen2.5-14B's shapes;
+  serve    the three main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
            first-token logits and one batch-8 decode step's logits (contexts
            up to 3713) held against a plain-path forward:
            MiniCPM-2B (bf16, bench.py's configuration, random weights from a
-           seed) and Qwen2.5-14B GPTQ-Int4 (48 layers, full width; HF-format
+           seed), Qwen2.5-14B GPTQ-Int4 (48 layers, full width; HF-format
            GPTQ tensors made from a seed as tools/make_bench_model.py makes
-           them, converted by the port's ``map_hf_params``);
+           them, converted by the port's ``map_hf_params``), and the same
+           Qwen weights served with an int8 KV cache (``kv_dtype="int8"``),
+           on whose executor the pool-row operations (``copy_slots``,
+           ``swap_out_rows`` -> ``swap_in_rows``), a beam request and
+           ``calc_logits`` are also driven;
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
-           3712, greedy) and the time to first token of a 3712-token prompt
-           in 512-token chunks, by bench.py's method, then a torch.profiler
-           breakdown of one decode window and one prefill.
+           3712, greedy, over the bf16 and the int8 pool) and the time to
+           first token of a 3712-token prompt in 512-token chunks, by
+           bench.py's method, then a torch.profiler breakdown of one decode
+           window and one prefill.
 
 The last lines are the kernels' JSON record, the GPU's name and power limit,
 and ``{"ok": true, "device": {...}}``. Any failed phase makes the script exit
@@ -73,9 +79,26 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/quant_matmul.cu",
         replaces="zhilight_tpu/ops/pallas/quant_matmul.py:242",
     ),
+    "paged_decode_attention_hm_q": dict(
+        source="zhilight_tpu_torch/csrc/attn_headmajor_q.cu",
+        replaces="zhilight_tpu/ops/pallas/attn_headmajor.py:341",
+    ),
+    "paged_prefill_attention_hm_packed_q": dict(
+        source="zhilight_tpu_torch/csrc/prefill_attention_q.cu",
+        replaces="zhilight_tpu/ops/pallas/prefill_attention.py:503",
+    ),
 }
 ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
+INT8_KERNELS = ("paged_decode_attention_hm_q", "paged_prefill_attention_hm_packed_q")
+# what each main path must launch, and what it must not
+PATHS = {
+    "MiniCPM-2B": ATTENTION_KERNELS,
+    "Qwen2.5-14B-GPTQ-Int4": ATTENTION_KERNELS + ("w4a16_matmul",),
+    "Qwen2.5-14B-GPTQ-Int4-int8kv": ("write_rows_hm", "w4a16_matmul") + INT8_KERNELS,
+}
+MINICPM_HEADS = dict(Hq=36, Hkv=36, D=64)
+QWEN_HEADS = dict(Hq=40, Hkv=8, D=128)
 
 # Qwen/Qwen2.5-14B-Instruct-GPTQ-Int4's config.json fields, as
 # tools/make_bench_model.py:30-44 writes them
@@ -228,67 +251,95 @@ def qwen_hf_tensors(hf: dict, seed: int, keep: dict):
 # phase: kernels
 # ---------------------------------------------------------------------------
 
-def phase_kernels(rec: dict) -> None:
-    from zhilight_tpu_torch.kvcache.paged import gather_hm
-    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
-    from zhilight_tpu_torch.ops.cuda import kv_write as W
-    from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+def _int8_pool(rng, Hkv, slots, D):
+    """Unit-variance K|V rows quantized as the cache quantizes them: the int8
+    pool [Hkv, N, 2D] and its head-major scales [Hkv, N + 1] (last column
+    spare, as ``new_kv_cache`` lays them out)."""
+    from zhilight_tpu_torch.kvcache.paged import _quantize_rows
 
-    F = torch.nn.functional
-    rng = np.random.default_rng(0)
+    k_q, k_s = _quantize_rows(_randn(rng, slots, Hkv, D))
+    v_q, v_s = _quantize_rows(_randn(rng, slots, Hkv, D))
+    pool = torch.cat([k_q, v_q], -1).transpose(0, 1).contiguous()
+    pad = torch.zeros(Hkv, 1, device="cuda")
+    return (pool, torch.cat([k_s.t(), pad], 1).contiguous(),
+            torch.cat([v_s.t(), pad], 1).contiguous())
+
+
+def _pool_args(rng, Hkv, slots, D, int8):
+    """(pool,) or (pool, k_scales, v_scales), and the pool as bf16 rows (the
+    int8 pool dequantized beforehand) for the library call."""
+    if not int8:
+        pool = _randn(rng, Hkv, slots, 2 * D)
+        return (pool,), pool
+    pool, ks, vs = _int8_pool(rng, Hkv, slots, D)
+    sc = torch.cat([ks[:, :slots, None].expand(-1, -1, D), vs[:, :slots, None].expand(-1, -1, D)], -1)
+    return (pool, ks, vs), (pool.float() * sc).to(torch.bfloat16)
+
+
+def check_write(rng, W) -> None:
+    """write_rows_hm bit-exact against the plain scatter: MiniCPM-2B's pool (36
+    heads, rows 2 x 64 wide) at its decode batch and a prefill chunk, and
+    Qwen2.5-14B's (8 KV heads, rows 2 x 128 wide) likewise; bf16 rows, and
+    int8 rows (64- or 128-byte halves) as an int8 cache writes them."""
     S = 16
+    for int8 in (False, True):
+        for T, start, H, D in ((16, None, 36, 64), (512, 3205, 36, 64),
+                               (8, None, 8, 128), (512, 3200, 8, 128)):
+            if int8:
+                k, v = (_dev(rng.integers(-127, 128, (T, H, D)).astype(np.int8)) for _ in "kv")
+            else:
+                k, v = _randn(rng, T, H, D), _randn(rng, T, H, D)
+            if start is None:  # decode: one row per sequence, one skipped
+                npages = 64
+                pages = rng.permutation(npages)[:T]
+                slots = pages * S + rng.integers(0, S, T)
+                slots[3] = -1
+            else:  # a prefill chunk starting mid-page, through a shuffled table
+                npages = (start + T) // S + 4
+                table = rng.permutation(npages)
+                pos = np.arange(start, start + T)
+                slots = table[pos // S] * S + pos % S
+            slots = _dev(slots.astype(np.int32))
+            pool = _randn(rng, H, npages * S, 2 * D)
+            if int8:
+                pool = (pool * 40).to(torch.int8)
+            got = W.write_rows_hm(pool.clone(), k, v, slots)
+            want = W.write_rows_hm_plain(pool.clone(), k, v, slots)
+            torch.cuda.synchronize()
+            what = f"write_rows_hm {'int8' if int8 else 'bf16'} T={T} Hkv={H} D={D}"
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: not bit-exact")
+            print(f"kernels: {what} bit-exact", flush=True)
 
-    # -- write_rows_hm: bit-exact against the plain scatter -------------------
-    # MiniCPM-2B's pool (36 heads, rows 2 x 64 wide) at its decode batch and
-    # a prefill chunk; Qwen2.5-14B's (8 KV heads, rows 2 x 128 wide) likewise
-    err = 0.0
-    for T, start, H, D in ((16, None, 36, 64), (512, 3205, 36, 64),
-                           (8, None, 8, 128), (512, 3200, 8, 128)):
+
+def time_write(rng, W, T, H, D, int8) -> dict:
+    """A decode step's (or a chunk's) rows on exclusive pages."""
+    S = 16
+    if int8:
+        k, v = (_dev(rng.integers(-127, 128, (T, H, D)).astype(np.int8)) for _ in "kv")
+    else:
         k, v = _randn(rng, T, H, D), _randn(rng, T, H, D)
-        if start is None:  # decode: one row per sequence, one skipped
-            npages = 64
-            pages = rng.permutation(npages)[:T]
-            slots = pages * S + rng.integers(0, S, T)
-            slots[3] = -1
-        else:  # a prefill chunk starting mid-page, through a shuffled table
-            npages = (start + T) // S + 4
-            table = rng.permutation(npages)
-            pos = np.arange(start, start + T)
-            slots = table[pos // S] * S + pos % S
-        slots = _dev(slots.astype(np.int32))
-        pool = _randn(rng, H, npages * S, 2 * D)
-        got = W.write_rows_hm(pool.clone(), k, v, slots)
-        want = W.write_rows_hm_plain(pool.clone(), k, v, slots)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"write_rows_hm T={T} Hkv={H} D={D}: not bit-exact")
-        print(f"kernels: write_rows_hm T={T} Hkv={H} D={D} bit-exact", flush=True)
-    # timed at the decode step's shape (B=16 rows of 36 heads x 64)
-    T, H, D = 16, 36, 64
-    k, v = _randn(rng, T, H, D), _randn(rng, T, H, D)
-    slots = _dev((rng.permutation(256)[:T] * S).astype(np.int32))
-    pool = _randn(rng, H, 256 * S, 2 * D)
+    npages = max(256, 2 * T)
+    slots = _dev((rng.permutation(npages)[:T] * S).astype(np.int32))
+    pool = torch.zeros(H, npages * S, 2 * D, dtype=k.dtype, device="cuda")
     rows_hm = torch.cat([k, v], -1).transpose(0, 1).contiguous()
     idx = slots.long()
-    ms = time_ms(lambda: W.write_rows_hm(pool, k, v, slots))
-    rec["write_rows_hm"].update(
-        max_abs_err=err, ms=ms,
+    t_b, by = bound(2 * T * H * 2 * D * k.element_size() + T * 4, 0)
+    return dict(
+        ms=time_ms(lambda: W.write_rows_hm(pool, k, v, slots)),
         plain_ms=time_ms(lambda: W.write_rows_hm_plain(pool, k, v, slots)),
         # pool[:, idx] = rows: one index_put_ on rows already laid out head-major
         library_ms=time_ms(lambda: operator.setitem(pool, (slice(None), idx), rows_hm)),
+        bound_ms=t_b, bound_by=by,
     )
-    t_b, by = bound(2 * T * H * 2 * D * 2 + T * 4, 0)
-    rec["write_rows_hm"].update(bound_ms=t_b, bound_by=by)
 
-    # -- paged_decode_attention_hm ------------------------------------------
-    err = 0.0
-    cases = [
-        dict(B=16, Hq=36, Hkv=36, D=64, ctx_max=4096, window=0),
-        dict(B=16, Hq=32, Hkv=8, D=128, ctx_max=4096, window=0),
-        dict(B=16, Hq=36, Hkv=36, D=64, ctx_max=1024, window=100),
-        # Qwen2.5-14B at its serving batch: 40 query heads on 8 KV heads
-        dict(B=8, Hq=40, Hkv=8, D=128, ctx=[3712, 7, 513, 1500, 100, 16, 250, 3201], window=0),
-    ]
+
+def check_decode(rng, A, cases, int8) -> float:
+    """Decode attention (bf16 pool, or int8 pool with scales) against its
+    plain version; returns the largest error."""
+    S, err = 16, 0.0
+    fn, plain = ((A.paged_decode_attention_hm_q, A.paged_decode_attention_hm_q_plain) if int8
+                 else (A.paged_decode_attention_hm, A.paged_decode_attention_hm_plain))
     for c in cases:
         B, Hq, Hkv, D = c["B"], c["Hq"], c["Hkv"], c["D"]
         if "ctx" in c:
@@ -297,58 +348,72 @@ def phase_kernels(rec: dict) -> None:
             ctx = rng.integers(1, c["ctx_max"] + 1, B).astype(np.int32)
             ctx[5] = 0  # an empty slot
         tables, npages = _paged(rng, ctx, S)
-        pool = _randn(rng, Hkv, npages * S, 2 * D)
-        q = _randn(rng, B, Hq, D)
-        args = (q, pool, _dev(tables), _dev(ctx), S, 1.0 / np.sqrt(D), c["window"])
-        got = A.paged_decode_attention_hm(*args)
-        want = A.paged_decode_attention_hm_plain(*args)
+        pools, _ = _pool_args(rng, Hkv, npages * S, D, int8)
+        args = (_randn(rng, B, Hq, D), *pools, _dev(tables), _dev(ctx), S, 1.0 / np.sqrt(D),
+                c["window"])
+        got, want = fn(*args), plain(*args)
         e = (got.float() - want.float()).abs().max().item()
-        print(f"kernels: decode {c} max_abs_err={e:.3e}", flush=True)
+        print(f"kernels: decode {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e}", flush=True)
         if not np.isfinite(e) or e > ATTN_TOL:
             raise AssertionError(f"decode attention {c}: max abs err {e} > {ATTN_TOL}")
+        if got[torch.from_numpy(ctx == 0)].any():
+            raise AssertionError(f"decode attention {c}: an empty slot is not zero")
         err = max(err, e)
-    # timed at bench.py's decode shape: B=16, context 512, 36 heads of 64
-    B, H, D, CTX = 16, 36, 64, 512
+    return err
+
+
+def time_decode(rng, A, B, Hq, Hkv, D, CTX, int8) -> dict:
+    """One decode step's attention of a layer: B sequences of CTX tokens."""
+    from zhilight_tpu_torch.kvcache.paged import gather_hm
+
+    F, S = torch.nn.functional, 16
+    fn, plain = ((A.paged_decode_attention_hm_q, A.paged_decode_attention_hm_q_plain) if int8
+                 else (A.paged_decode_attention_hm, A.paged_decode_attention_hm_plain))
     maxp = CTX // S + 2
     tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
-    pool = _randn(rng, H, B * maxp * S, 2 * D)
-    q = _randn(rng, B, H, D)
-    ctx = _dev(np.full(B, CTX, np.int32))
-    args = (q, pool, _dev(tables), ctx, S, 1.0 / np.sqrt(D))
-    k, v = gather_hm(pool, _dev(tables), S)  # [B, KV, H, D]
+    pools, rows = _pool_args(rng, Hkv, B * maxp * S, D, int8)
+    q = _randn(rng, B, Hq, D)
+    args = (q, *pools, _dev(tables), _dev(np.full(B, CTX, np.int32)), S, 1.0 / np.sqrt(D))
+    k, v = gather_hm(rows, _dev(tables), S)  # [B, KV, Hkv, D] bf16
     kg = k[:, :CTX].transpose(1, 2).contiguous()
     vg = v[:, :CTX].transpose(1, 2).contiguous()
-    rec["paged_decode_attention_hm"].update(
-        max_abs_err=err,
-        ms=time_ms(lambda: A.paged_decode_attention_hm(*args)),
-        plain_ms=time_ms(lambda: A.paged_decode_attention_hm_plain(*args)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg)),
+    gqa = dict(enable_gqa=True) if Hq != Hkv else {}
+    nbytes = (B * CTX * Hkv * 2 * D * pools[0].element_size() + 2 * q.numel() * 2
+              + tables.size * 4 + B * 4)
+    if int8:
+        nbytes += B * CTX * Hkv * 2 * 4  # one K and one V scale per (token, KV head)
+    t_b, by = bound(nbytes, 4 * B * Hq * CTX * D)
+    return dict(
+        ms=time_ms(lambda: fn(*args)),
+        plain_ms=time_ms(lambda: plain(*args), reps=10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, **gqa)),
+        bound_ms=t_b, bound_by=by,
     )
-    nbytes = B * CTX * H * 2 * D * 2 + 2 * q.numel() * 2 + tables.size * 4 + B * 4
-    t_b, by = bound(nbytes, 4 * B * H * CTX * D)
-    rec["paged_decode_attention_hm"].update(bound_ms=t_b, bound_by=by)
 
-    # -- paged_prefill_attention_hm_packed ----------------------------------
-    err = 0.0
-    minicpm, qwen = dict(Hq=36, Hkv=36, D=64), dict(Hq=40, Hkv=8, D=128)
-    cases = [
-        dict(cache_lens=[0], q_lens=[512], TC=512, **minicpm),
-        dict(cache_lens=[3205], q_lens=[512], TC=512, **minicpm),
-        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **minicpm),
-        dict(cache_lens=[0], q_lens=[512], TC=512, **qwen),
-        dict(cache_lens=[3200], q_lens=[512], TC=512, **qwen),
-        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **qwen),
-    ]
+
+def check_prefill(rng, P, cases, int8) -> float:
+    """Packed prefill attention against its plain version on the valid rows;
+    a one-segment case also goes through the single-sequence wrapper."""
+    S, err = 16, 0.0
+    fn, plain, single = (
+        (P.paged_prefill_attention_hm_packed_q, P.paged_prefill_attention_hm_packed_q_plain,
+         P.paged_prefill_attention_hm_q) if int8 else
+        (P.paged_prefill_attention_hm_packed, P.paged_prefill_attention_hm_packed_plain,
+         P.paged_prefill_attention_hm))
     for c in cases:
         cl = np.array(c["cache_lens"], np.int32)
         ql = np.array(c["q_lens"], np.int32)
         NS, TC, D = len(cl), c["TC"], c["D"]
         tables, npages = _paged(rng, cl + ql, S)
-        pool = _randn(rng, c["Hkv"], npages * S, 2 * D)
+        pools, _ = _pool_args(rng, c["Hkv"], npages * S, D, int8)
         q = _randn(rng, NS * TC, c["Hq"], D)
-        args = (q, pool, _dev(tables), _dev(cl), _dev(ql), S, 1.0 / np.sqrt(D))
-        got = P.paged_prefill_attention_hm_packed(*args)
-        want = P.paged_prefill_attention_hm_packed_plain(*args)
+        tail = (S, 1.0 / np.sqrt(D), c.get("window", 0))
+        tables = _dev(tables)
+        if NS == 1:
+            got = single(q, *pools, tables[0], int(cl[0]), int(ql[0]), *tail)
+        else:
+            got = fn(q, *pools, tables, _dev(cl), _dev(ql), *tail)
+        want = plain(q, *pools, tables, _dev(cl), _dev(ql), *tail)
         if not torch.isfinite(got).all():
             raise AssertionError(f"prefill attention {c}: non-finite output")
         e = 0.0
@@ -356,34 +421,117 @@ def phase_kernels(rec: dict) -> None:
             rows = slice(s * TC, s * TC + int(ql[s]))
             if ql[s]:
                 e = max(e, (got[rows].float() - want[rows].float()).abs().max().item())
-        print(f"kernels: prefill {c} max_abs_err={e:.3e}", flush=True)
+        print(f"kernels: prefill {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e}", flush=True)
         if e > ATTN_TOL:
             raise AssertionError(f"prefill attention {c}: max abs err {e} > {ATTN_TOL}")
         err = max(err, e)
-    # timed at the time-to-first-token shape: a 512-token chunk at context 3200
-    H, D = 36, 64
-    CL, QL = 3200, 512
+    return err
+
+
+def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
+    """A chunk of QL tokens at cache length CL (the last full chunk of the
+    time-to-first-token prompt)."""
+    from zhilight_tpu_torch.kvcache.paged import gather_hm
+
+    F, S = torch.nn.functional, 16
+    fn, plain = ((P.paged_prefill_attention_hm_packed_q,
+                  P.paged_prefill_attention_hm_packed_q_plain) if int8 else
+                 (P.paged_prefill_attention_hm_packed, P.paged_prefill_attention_hm_packed_plain))
     tables, npages = _paged(rng, [CL + QL], S)
-    pool = _randn(rng, H, npages * S, 2 * D)
-    q = _randn(rng, QL, H, D)
-    args = (q, pool, _dev(tables), _dev(np.array([CL], np.int32)),
+    pools, rows = _pool_args(rng, Hkv, npages * S, D, int8)
+    q = _randn(rng, QL, Hq, D)
+    args = (q, *pools, _dev(tables), _dev(np.array([CL], np.int32)),
             _dev(np.array([QL], np.int32)), S, 1.0 / np.sqrt(D))
-    k, v = gather_hm(pool, _dev(tables[0]), S)  # [KV, H, D]
+    k, v = gather_hm(rows, _dev(tables[0]), S)  # [KV, Hkv, D] bf16
     kg = k[: CL + QL].transpose(0, 1)[None].contiguous()
     vg = v[: CL + QL].transpose(0, 1)[None].contiguous()
     qg = q.transpose(0, 1)[None].contiguous()
     mask = (torch.arange(CL + QL, device="cuda")[None, :]
             <= CL + torch.arange(QL, device="cuda")[:, None])
-    rec["paged_prefill_attention_hm_packed"].update(
-        max_abs_err=err,
-        ms=time_ms(lambda: P.paged_prefill_attention_hm_packed(*args)),
-        plain_ms=time_ms(lambda: P.paged_prefill_attention_hm_packed_plain(*args), reps=10),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)),
-    )
+    gqa = dict(enable_gqa=True) if Hq != Hkv else {}
     keys = sum(CL + i + 1 for i in range(QL))
-    nbytes = (CL + QL) * H * 2 * D * 2 + 2 * q.numel() * 2
-    t_b, by = bound(nbytes, 4 * H * D * keys)
-    rec["paged_prefill_attention_hm_packed"].update(bound_ms=t_b, bound_by=by)
+    nbytes = (CL + QL) * Hkv * 2 * D * pools[0].element_size() + 2 * q.numel() * 2
+    if int8:
+        nbytes += (CL + QL) * Hkv * 2 * 4
+    t_b, by = bound(nbytes, 4 * Hq * D * keys)
+    return dict(
+        ms=time_ms(lambda: fn(*args)),
+        plain_ms=time_ms(lambda: plain(*args), reps=10),
+        library_ms=time_ms(
+            lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, **gqa)),
+        bound_ms=t_b, bound_by=by,
+    )
+
+
+def phase_kernels(rec: dict) -> None:
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+
+    rng = np.random.default_rng(0)
+    mini, qwen = MINICPM_HEADS, QWEN_HEADS
+
+    def record(name, err, main, shapes):
+        """The kernel's JSON numbers are those of its ``main`` shape; every
+        timed shape is kept under ``shapes``."""
+        rec[name].update(shapes[main], max_abs_err=err, shape=main, shapes=shapes)
+        for label, r in shapes.items():
+            print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f}", flush=True)
+
+    # -- write_rows_hm: bf16 and int8 rows, bit-exact --------------------------
+    check_write(rng, W)
+    record("write_rows_hm", 0.0, "MiniCPM-2B decode step, 16 rows bf16", {
+        "MiniCPM-2B decode step, 16 rows bf16": time_write(rng, W, 16, 36, 64, False),
+        "Qwen2.5-14B decode step, 8 rows bf16": time_write(rng, W, 8, 8, 128, False),
+        "Qwen2.5-14B decode step, 8 rows int8": time_write(rng, W, 8, 8, 128, True),
+        "Qwen2.5-14B chunk, 512 rows bf16": time_write(rng, W, 512, 8, 128, False),
+        "Qwen2.5-14B chunk, 512 rows int8": time_write(rng, W, 512, 8, 128, True),
+    })
+
+    # -- decode attention: bf16 pool, then int8 pool ---------------------------
+    decode_cases = [
+        dict(B=16, **mini, ctx_max=4096, window=0),
+        dict(B=16, Hq=32, Hkv=8, D=128, ctx_max=4096, window=0),
+        dict(B=16, **mini, ctx_max=1024, window=100),
+        # Qwen2.5-14B at its serving batch: 40 query heads on 8 KV heads
+        dict(B=8, **qwen, ctx=[3712, 7, 513, 1500, 100, 16, 250, 3201], window=0),
+        dict(B=8, **qwen, ctx=[3712, 7, 0, 1500, 100, 16, 250, 3201], window=300),
+    ]
+    for int8, name in ((False, "paged_decode_attention_hm"), (True, "paged_decode_attention_hm_q")):
+        err = check_decode(rng, A, decode_cases, int8)
+        kind = "int8" if int8 else "bf16"
+        shapes = {
+            # bench.py's decode shape, and the Qwen serving stage's
+            f"MiniCPM-2B batch 16, context 512, {kind} pool":
+                time_decode(rng, A, 16, **mini, CTX=512, int8=int8),
+            f"Qwen2.5-14B batch 8, context 3712, {kind} pool":
+                time_decode(rng, A, 8, **qwen, CTX=3712, int8=int8),
+        }
+        record(name, err, list(shapes)[1 if int8 else 0], shapes)
+
+    # -- prefill attention: bf16 pool, then int8 pool --------------------------
+    prefill_cases = [
+        dict(cache_lens=[0], q_lens=[512], TC=512, **mini),
+        dict(cache_lens=[3205], q_lens=[512], TC=512, **mini),
+        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **mini),
+        dict(cache_lens=[0], q_lens=[512], TC=512, **qwen),
+        dict(cache_lens=[3200], q_lens=[512], TC=512, **qwen),
+        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **qwen),
+        dict(cache_lens=[700, 40], q_lens=[128, 90], TC=128, window=200, **qwen),
+    ]
+    for int8, name in ((False, "paged_prefill_attention_hm_packed"),
+                       (True, "paged_prefill_attention_hm_packed_q")):
+        err = check_prefill(rng, P, prefill_cases, int8)
+        kind = "int8" if int8 else "bf16"
+        shapes = {
+            f"MiniCPM-2B 512-token chunk at cache 3200, {kind} pool":
+                time_prefill(rng, P, **mini, CL=3200, QL=512, int8=int8),
+            f"Qwen2.5-14B 512-token chunk at cache 3200, {kind} pool":
+                time_prefill(rng, P, **qwen, CL=3200, QL=512, int8=int8),
+        }
+        record(name, err, list(shapes)[1 if int8 else 0], shapes)
 
     kernels_w4a16(rec, rng)
     for name in KERNELS:
@@ -496,6 +644,8 @@ def _counters():
         "paged_decode_attention_hm": A.paged_decode_attention_hm,
         "paged_prefill_attention_hm_packed": P.paged_prefill_attention_hm_packed,
         "w4a16_matmul": Q.w4a16_matmul,
+        "paged_decode_attention_hm_q": A.paged_decode_attention_hm_q,
+        "paged_prefill_attention_hm_packed_q": P.paged_prefill_attention_hm_packed_q,
     }
 
 
@@ -514,32 +664,38 @@ def plain_kernels():
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
 
-    def prefill_single(q, pool, table, cache_len, q_len, S, scale, sw=0):
-        return P.paged_prefill_attention_hm_packed_plain(
-            q, pool, table.reshape(1, -1), cache_len.reshape(1), q_len.reshape(1), S, scale, sw)
+    def single(packed_plain):
+        """The one-segment wrapper's signature over a packed plain version."""
+        def fn(q, *rest):
+            *pools, table, cache_len, q_len, S, scale, sw = rest
+            return packed_plain(q, *pools, table.reshape(1, -1), cache_len.reshape(1),
+                                q_len.reshape(1), S, scale, sw)
+        return fn
 
     with mock.patch.object(paged_mod, "kv_write",
                            SimpleNamespace(write_rows_hm=W.write_rows_hm_plain)), \
-         mock.patch.object(llama_mod, "attn_headmajor",
-                           SimpleNamespace(paged_decode_attention_hm=A.paged_decode_attention_hm_plain)), \
+         mock.patch.object(llama_mod, "attn_headmajor", SimpleNamespace(
+             paged_decode_attention_hm=A.paged_decode_attention_hm_plain,
+             paged_decode_attention_hm_q=A.paged_decode_attention_hm_q_plain)), \
          mock.patch.object(llama_mod, "prefill_attention", SimpleNamespace(
-             paged_prefill_attention_hm=prefill_single,
-             paged_prefill_attention_hm_packed=P.paged_prefill_attention_hm_packed_plain)), \
+             paged_prefill_attention_hm=single(P.paged_prefill_attention_hm_packed_plain),
+             paged_prefill_attention_hm_packed=P.paged_prefill_attention_hm_packed_plain,
+             paged_prefill_attention_hm_q=single(P.paged_prefill_attention_hm_packed_q_plain),
+             paged_prefill_attention_hm_packed_q=P.paged_prefill_attention_hm_packed_q_plain)), \
          mock.patch.object(Q, "w4a16_matmul", Q.w4a16_matmul_plain):
         yield
 
 
-def _prefill_logits(ex, prompt):
+def _prefill_logits(ex, prompt, quantized=None):
     """Last-token logits [V] of one prompt through the model's forward on a
-    scratch cache (identity page table)."""
-    from zhilight_tpu_torch.kvcache.paged import new_kv_cache
+    scratch cache (identity page table) of the serving pool's kind, or as
+    ``quantized`` says."""
     from zhilight_tpu_torch.models import llama as L
     from zhilight_tpu_torch.models.base import PrefillMeta
 
     cfg, S, n = ex.cfg, ex.page_size, len(prompt)
     pages = (n + S - 1) // S
-    cache = new_kv_cache(cfg.num_layers, pages, S, cfg.num_kv_heads, cfg.dim_head,
-                         cfg.torch_dtype, device=ex.device)
+    cache = ex.new_cache(pages, quantized)
     i32 = dict(dtype=torch.int32, device=ex.device)
     meta = PrefillMeta(
         positions=torch.arange(n, **i32), slot_mapping=torch.arange(n, **i32),
@@ -557,15 +713,13 @@ def _decode_step_logits(ex, prompts, chunk=512):
     plain path, after each prompt was prefilled (kernel path, ``chunk``-token
     chunks) into a scratch cache; every slot decodes the argmax of its
     prompt's last logits, so the contexts are the prompts' lengths + 1."""
-    from zhilight_tpu_torch.kvcache.paged import new_kv_cache
     from zhilight_tpu_torch.models import llama as L
     from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 
     cfg, S, B = ex.cfg, ex.page_size, len(prompts)
     i32 = dict(dtype=torch.int32, device=ex.device)
     maxp = max(len(p) // S + 1 for p in prompts)
-    cache = new_kv_cache(cfg.num_layers, B * maxp, S, cfg.num_kv_heads, cfg.dim_head,
-                         cfg.torch_dtype, device=ex.device)
+    cache = ex.new_cache(B * maxp)
     tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
 
     def slots(b, pos):
@@ -597,14 +751,15 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
-def serve_path(label: str, llm, rec: dict, expect, seed: int) -> None:
+def serve_path(label: str, llm, rec: dict, seed: int):
     """One main path: 8 concurrent requests (prompts of 7 to 3712 tokens, 32
     new tokens, 2 sampled) with the launch counters zeroed just before and
     read just after, then the first-token logits and one decode step's logits
-    (every prompt's continuation) against the plain path."""
+    (every prompt's continuation) against the plain path. Returns the prompts
+    and the kernel path's first-token logits of prompt 1."""
     from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
 
-    ex, cfg = llm.executor, llm.model_config
+    ex, cfg, expect = llm.executor, llm.model_config, PATHS[label]
     warm_s = ex.warmup()
     weights = sum(t.numel() * t.element_size() for t in _leaves(ex.params))
     print(f"serve: {label}: {cfg.num_layers} layers, {weights / 2**30:.2f} GiB of weights, "
@@ -649,6 +804,8 @@ def serve_path(label: str, llm, rec: dict, expect, seed: int) -> None:
             raise AssertionError(f"prompt {n}: non-finite logprobs")
     if any(launches[name] == 0 for name in expect):
         raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    if any(n for name, n in launches.items() if name not in expect):
+        raise AssertionError(f"{label}: a kernel of another path launched: {launches}")
     if solo[0].outputs[0].token_ids != solo[1].outputs[0].token_ids:
         raise AssertionError("a repeated greedy request returned other tokens")
     same = sum(a == b for a, b in zip(solo[0].outputs[0].token_ids, results[0].outputs[0].token_ids))
@@ -657,7 +814,7 @@ def serve_path(label: str, llm, rec: dict, expect, seed: int) -> None:
 
     # first-token logits: main path (kernels) against the plain path, on the card
     prompt = prompts[1]
-    got = _prefill_logits(ex, prompt)
+    first = got = _prefill_logits(ex, prompt)
     with plain_kernels():
         want = _prefill_logits(ex, prompt)
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
@@ -689,13 +846,99 @@ def serve_path(label: str, llm, rec: dict, expect, seed: int) -> None:
           f"below the plain maximum", flush=True)
     if rel > LOGIT_TOL or slack > LOGIT_TOL:
         raise AssertionError(f"{label}: decode-step logits differ: {rel} or {slack} > {LOGIT_TOL}")
+    return prompts, first
+
+
+def pool_rows_and_scoring(label: str, llm, prompts, bf16_first) -> None:
+    """On the int8-KV executor: copy_slots and swap_out_rows -> swap_in_rows
+    bit-exact over the pool and both scale arrays, one beam request, and
+    calc_logits against the prefill logits of the same prompt."""
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+
+    ex = llm.executor
+    cache = ex.cache
+    if not (cache.quantized and len(cache.arrays()) == 3 and cache.k[0].dtype == torch.int8):
+        raise AssertionError(f"{label}: the serving pool is not int8 with scales")
+    N = cache.num_slots
+    # 64 rows the requests wrote (their K scales are set), copied and swapped
+    # into 128 rows nothing has written yet
+    written = cache.k_scale[0][0, :N] != 0
+    src, free = torch.nonzero(written)[:64, 0], torch.nonzero(~written)[:128, 0]
+    if len(src) < 64 or len(free) < 128:
+        raise AssertionError(f"{label}: {len(src)} written and {len(free)} free pool rows")
+    rows = src.cpu().numpy().astype(np.int32)
+    dst = free.cpu().numpy().astype(np.int32)
+    before = [[arr[:, src].clone() for arr in arrays] for arrays in cache.arrays()]
+    ex.copy_slots(rows, dst[:64])
+    ex.swap_in_rows(dst[64:], ex.swap_out_rows(rows))
+    torch.cuda.synchronize()
+    n = 0
+    for arrays, saved in zip(cache.arrays(), before):
+        for arr, want in zip(arrays, saved):
+            if not (torch.equal(arr[:, free[:64]], want) and torch.equal(arr[:, free[64:]], want)):
+                raise AssertionError(f"{label}: pool rows moved by copy or swap differ")
+            if not torch.equal(arr[:, src], want):
+                raise AssertionError(f"{label}: copy or swap changed its source rows")
+            n += 1
+    print(f"serve: {label}: copy_slots and swap_out_rows -> swap_in_rows bit-exact over "
+          f"{n} arrays ({ex.cfg.num_layers} layers x pool, k_scale, v_scale), 64 rows each",
+          flush=True)
+
+    with DynamicBatchGenerator(llm) as gen:
+        t0 = time.monotonic()
+        beam = gen.generate(prompts[5], GeneratorArg(beam_size=2, num_results=2, max_length=8),
+                            timeout=300)
+        beam_s = time.monotonic() - t0
+    outs = [(o.token_ids, round(o.score, 4)) for o in beam.outputs]
+    if not outs or not all(len(t) > 0 and np.isfinite(sc) for t, sc in outs):
+        raise AssertionError(f"{label}: beam request returned {outs}")
+    print(f"serve: {label}: beam request (beam 2, 8 new tokens) in {beam_s:.2f} s: {outs}",
+          flush=True)
+
+    # calc_logits runs on a scratch cache in the model's dtype, beside the
+    # int8 pool: its last row is the first-token logits of a bf16-KV prefill
+    prompt = prompts[1]
+    t0 = time.monotonic()
+    scored = torch.from_numpy(llm.calc_logits(prompt)).to(ex.device)
+    score_s = time.monotonic() - t0
+    want = _prefill_logits(ex, prompt, quantized=False)
+    if scored.shape != (len(prompt), ex.cfg.vocab_size) or not torch.isfinite(scored).all():
+        raise AssertionError(f"{label}: calc_logits returned {tuple(scored.shape)}")
+    rel = ((scored[-1] - want).abs().max() / want.abs().max()).item()
+    rel8 = ((scored[-1] - _prefill_logits(ex, prompt)).abs().max() / want.abs().max()).item()
+    rel_paths = ((bf16_first - _prefill_logits(ex, prompt)).abs().max() / bf16_first.abs().max()).item()
+    print(f"serve: {label}: calc_logits ({len(prompt)} tokens, {score_s:.2f} s) last row vs "
+          f"prefill logits over a bf16 scratch cache: max rel err {rel:.3e} (tolerance "
+          f"{LOGIT_TOL}); vs prefill logits over an int8 cache {rel8:.3e}; int8-KV first-token "
+          f"logits vs the bf16-KV path's {rel_paths:.3e} (printed, not held)", flush=True)
+    if rel > LOGIT_TOL or int(scored[-1].argmax()) != int(want.argmax()):
+        raise AssertionError(f"{label}: calc_logits differs from the prefill logits: {rel}")
+
+
+def release_pool(llm) -> None:
+    """Drop a path's KV pool until the timing phase rebuilds it, so that only
+    one path's pool is held at a time."""
+    llm.executor.cache = None
+    llm.executor._decode_carry = None
+    torch.cuda.empty_cache()
+
+
+def qwen_engine_config(kv_dtype: str = "bfloat16"):
+    """bench.py's serving stage: batch 8, max_model_len 3904, 512-token chunks;
+    the pool is sized from the free device memory (1952 pages of 16)."""
+    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+
+    return EngineConfig(
+        max_model_len=3904,
+        cache=CacheConfig(page_size=16, kv_dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_batch=8, chunk_size=512),
+    )
 
 
 def load_qwen(seed: int):
     """Qwen2.5-14B GPTQ-Int4 from HF-format tensors made from ``seed``,
     through the port's map_hf_params into ``LLM``."""
-    from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, QuantConfig,
-                                           SchedulerConfig, adapt_hf_config)
+    from zhilight_tpu_torch.config import QuantConfig, adapt_hf_config
     from zhilight_tpu_torch.llm import LLM
     from zhilight_tpu_torch.ops.quant import pack_int4
     from zhilight_tpu_torch.utils.hf_loader import map_hf_params
@@ -715,13 +958,8 @@ def load_qwen(seed: int):
     canon = pack_int4(torch.from_numpy(unpack_gptq(**keep["q_proj"])["w_p"]))
     if not torch.equal(params["layers"]["0"]["attn"]["q_proj"]["w_p"].cpu(), canon):
         raise AssertionError("GPTQ planar repack on the GPU differs from unpack_gptq + pack_int4")
-    ecfg = EngineConfig(
-        max_model_len=3904,
-        cache=CacheConfig(page_size=16),
-        scheduler=SchedulerConfig(max_batch=8, chunk_size=512),
-    )
-    llm = LLM(model_config=cfg, quant_config=qcfg, params=params, engine_config=ecfg,
-              device="cuda")
+    llm = LLM(model_config=cfg, quant_config=qcfg, params=params,
+              engine_config=qwen_engine_config(), device="cuda")
     q = llm.executor.params["layers"]["0"]["attn"]["q_proj"]
     print(f"serve: Qwen2.5-14B GPTQ-Int4: HF tensors made from seed {seed} in "
           f"{keep['make_s']:.1f} s; map_hf_params(gptq) on the GPU in "
@@ -747,12 +985,30 @@ def phase_serve(rec: dict, args) -> None:
     )
     llm = LLM(model_config=cfg, params=params, engine_config=ecfg, device="cuda")
     print(f"serve: MiniCPM-2B set-up {time.monotonic() - t0:.1f} s", flush=True)
-    serve_path("MiniCPM-2B", llm, rec, ATTENTION_KERNELS, args.seed)
+    serve_path("MiniCPM-2B", llm, rec, args.seed)
     args.llms["MiniCPM-2B"] = llm
+    release_pool(llm)
 
     llm = load_qwen(args.seed)
-    serve_path("Qwen2.5-14B-GPTQ-Int4", llm, rec, tuple(KERNELS), args.seed)
+    _, bf16_first = serve_path("Qwen2.5-14B-GPTQ-Int4", llm, rec, args.seed)
     args.llms["Qwen2.5-14B-GPTQ-Int4"] = llm
+    release_pool(llm)
+
+    # the same leaves (making them is most of the load time) behind an int8 pool
+    label = "Qwen2.5-14B-GPTQ-Int4-int8kv"
+    pool_bytes = lambda c: sum(a.numel() * a.element_size() for arrays in c.arrays() for a in arrays)
+    llm8 = LLM(model_config=llm.model_config, quant_config=llm.quant_config,
+               params=llm.executor.params, engine_config=qwen_engine_config("int8"),
+               device="cuda")
+    ex8 = llm8.executor
+    print(f"serve: {label}: int8 pool of {ex8.num_pages} pages x {ex8.page_size} = "
+          f"{ex8.cache.num_slots} tokens, {pool_bytes(ex8.cache) / 1e9:.3f} GB with its scales "
+          f"({ex8._kv_bytes_per_token()} bytes per token; the bf16 pool takes "
+          f"{llm.executor._kv_bytes_per_token()})", flush=True)
+    prompts, _ = serve_path(label, llm8, rec, args.seed)
+    pool_rows_and_scoring(label, llm8, prompts, bf16_first)
+    args.llms[label] = llm8
+    release_pool(llm8)
 
 
 # ---------------------------------------------------------------------------
@@ -762,6 +1018,7 @@ def phase_serve(rec: dict, args) -> None:
 TIMING = {  # path -> (decode batch, context, time sampled decode too)
     "MiniCPM-2B": (16, 512, True),
     "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False),
+    "Qwen2.5-14B-GPTQ-Int4-int8kv": (8, 3712, False),
 }
 
 
@@ -769,7 +1026,10 @@ def phase_timing(args, smi: str) -> None:
     if not args.llms:
         raise RuntimeError("timing needs the serve phase")
     for label, llm in args.llms.items():
-        timing_path(label, llm.executor, *TIMING[label], smi)
+        ex = llm.executor
+        ex.cache = ex.new_cache(ex.num_pages)  # the serve phase released it
+        timing_path(label, ex, *TIMING[label], smi)
+        release_pool(llm)
 
 
 def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, smi: str) -> None:

@@ -6,11 +6,13 @@ package, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -p no:cacheprovider
 
-Inputs are unit-variance bf16 from a numpy seed. Tolerance: the KV write is
-bit-exact; attention outputs agree within 2e-2 absolute (bf16 output
-rounding plus the kernels' fp32 probabilities against the plain version's
-bf16-rounded ones); the int4 matmul within 1e-2 of the largest plain output
-(bf16 output rounding, fp32 sums in another order).
+Inputs are unit-variance bf16 from a numpy seed; int8 pools hold such rows
+quantized by the cache's own ``_quantize_rows``. Tolerance: the KV write is
+bit-exact, for bf16 and for int8 rows; attention outputs agree within 2e-2
+absolute (bf16 output rounding plus the kernels' fp32 probabilities against
+the plain version's bf16-rounded ones), over bf16 and over int8 pools; the
+int4 matmul within 1e-2 of the largest plain output (bf16 output rounding,
+fp32 sums in another order).
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ import torch
 
 from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig, load_model_config
 from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
-from zhilight_tpu_torch.kvcache.paged import new_kv_cache
+from zhilight_tpu_torch.kvcache.paged import _quantize_rows, new_kv_cache, write_kv
 from zhilight_tpu_torch.llm import LLM
 from zhilight_tpu_torch.models import llama as L
 from zhilight_tpu_torch.models.base import PrefillMeta
@@ -131,6 +133,153 @@ def test_prefill_attention_long_context_matches_plain(cuda, hq, hkv, D):
     got = P.paged_prefill_attention_hm_packed(*args)
     want = P.paged_prefill_attention_hm_packed_plain(*args)
     assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+def _int8_pool(rng, device, hkv, slots, D):
+    """An int8 pool [Hkv, N, 2D] of quantized unit-variance rows and its
+    head-major scales [Hkv, N + 1] (last column spare, as the cache keeps it)."""
+    k_q, k_s = _quantize_rows(_bf16(rng, device, slots, hkv, D))
+    v_q, v_s = _quantize_rows(_bf16(rng, device, slots, hkv, D))
+    pool = torch.cat([k_q, v_q], -1).transpose(0, 1).contiguous()
+    pad = torch.zeros(hkv, 1, device=device)
+    return pool, torch.cat([k_s.t(), pad], 1).contiguous(), torch.cat([v_s.t(), pad], 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,D", [(36, 64), (8, 128)])
+@pytest.mark.parametrize("start,n", [(0, 8), (21, 40), (3205, 512)])
+def test_int8_write_kv_is_exact(cuda, start, n, H, D):
+    """write_kv into an int8 cache on the card: the quantized rows go through
+    the write kernel (64- or 128-byte halves) and their scales beside them,
+    bit-equal to the plain scatter of the same rows; a skipped row leaves no
+    trace. The quantization itself is held to the CPU's within one step:
+    on the card PyTorch divides by the constant 127 through its reciprocal,
+    so a scale may differ by an fp32 ulp."""
+    rng = np.random.default_rng(start + D)
+    pages = (start + n) // S + 3
+    table = rng.permutation(pages)
+    pos = np.arange(start, start + n)
+    slots = (table[pos // S] * S + pos % S).astype(np.int32)
+    slots[n // 3] = -1
+    k, v = _bf16(rng, cuda, n, H, D), _bf16(rng, cuda, n, H, D)
+    slots_dev = torch.from_numpy(slots).to(cuda)
+    cache = new_kv_cache(1, pages, S, H, D, torch.bfloat16, quantized=True, device=cuda)
+    before = W.write_rows_hm.launches
+    write_kv(cache, 0, k, v, slots_dev)
+    assert W.write_rows_hm.launches == before + 1
+
+    (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
+    want = W.write_rows_hm_plain(torch.zeros_like(cache.k[0]), k_q, v_q, slots_dev)
+    assert torch.equal(cache.k[0], want)
+    keep = torch.from_numpy(slots >= 0).to(cuda)
+    for got, sc in ((cache.k_scale[0], k_s), (cache.v_scale[0], v_s)):
+        ref = torch.zeros_like(got[:, :-1])
+        ref[:, slots_dev[keep].long()] = sc[keep].t()
+        assert torch.equal(got[:, :-1], ref)
+
+    cq, cs = _quantize_rows(k.cpu())
+    assert torch.allclose(k_s.cpu(), cs, rtol=2.5e-7, atol=0)
+    assert (k_q.cpu().int() - cq.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,D,window,ctx_max", [
+    (36, 36, 64, 0, 700), (32, 8, 128, 0, 700), (16, 1, 64, 50, 700), (16, 2, 128, 0, 300),
+    (40, 8, 128, 0, 3712),  # Qwen2.5-14B at its serving batch and context
+])
+def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx_max):
+    rng = np.random.default_rng(hq + D)
+    B = 8
+    ctx = rng.integers(1, ctx_max, B).astype(np.int32)
+    ctx[0] = ctx_max
+    ctx[2] = 0
+    tables, npages = _tables(rng, ctx, cuda)
+    pool, ks, vs = _int8_pool(rng, cuda, hkv, npages * S, D)
+    args = (_bf16(rng, cuda, B, hq, D), pool, ks, vs, tables, torch.from_numpy(ctx).to(cuda), S,
+            1.0 / np.sqrt(D), window)
+    before = A.paged_decode_attention_hm_q.launches
+    got = A.paged_decode_attention_hm_q(*args)
+    assert A.paged_decode_attention_hm_q.launches == before + 1
+    want = A.paged_decode_attention_hm_q_plain(*args)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,D,window", [(8, 2, 64, 0), (36, 36, 64, 0), (8, 8, 128, 0),
+                                             (40, 8, 128, 0), (40, 8, 128, 60)])
+def test_prefill_attention_q_matches_plain(cuda, hq, hkv, D, window):
+    rng = np.random.default_rng(hq + D)
+    TC = 96
+    cache_lens = np.array([0, 45, 7], np.int32)
+    q_lens = np.array([96, 50, 0], np.int32)
+    tables, npages = _tables(rng, cache_lens + q_lens, cuda)
+    pool, ks, vs = _int8_pool(rng, cuda, hkv, npages * S, D)
+    q = _bf16(rng, cuda, len(q_lens) * TC, hq, D)
+    lens = lambda a: torch.from_numpy(a).to(cuda)
+    args = (q, pool, ks, vs, tables, lens(cache_lens), lens(q_lens), S, 1.0 / np.sqrt(D), window)
+    got = P.paged_prefill_attention_hm_packed_q(*args)
+    want = P.paged_prefill_attention_hm_packed_q_plain(*args)
+    assert torch.isfinite(got).all()
+    for s, ql in enumerate(q_lens.tolist()):
+        if ql:
+            rows = slice(s * TC, s * TC + ql)
+            assert (got[rows].float() - want[rows].float()).abs().max().item() <= TOL
+    # the one-segment wrapper is the packed kernel with NS = 1
+    one = P.paged_prefill_attention_hm_q(q[TC : 2 * TC], pool, ks, vs, tables[1], 45, 50, S,
+                                         1.0 / np.sqrt(D), window)
+    assert torch.equal(one[:50], got[TC : TC + 50])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,D", [(36, 36, 64), (40, 8, 128)])  # MiniCPM-2B, Qwen2.5-14B
+def test_prefill_attention_q_long_context_matches_plain(cuda, hq, hkv, D):
+    """The last full chunk of a 3712-token prompt: 512 queries at cache_len 3200."""
+    rng = np.random.default_rng(hq)
+    CL, QL = 3200, 512
+    tables, npages = _tables(rng, [CL + QL], cuda)
+    pool, ks, vs = _int8_pool(rng, cuda, hkv, npages * S, D)
+    lens = lambda n: torch.tensor([n], dtype=torch.int32, device=cuda)
+    args = (_bf16(rng, cuda, QL, hq, D), pool, ks, vs, tables, lens(CL), lens(QL), S,
+            1.0 / np.sqrt(D))
+    got = P.paged_prefill_attention_hm_packed_q(*args)
+    want = P.paged_prefill_attention_hm_packed_q_plain(*args)
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_int8_kv_engine_on_gpu(cuda):
+    """A small bf16 model served with kv_dtype="int8": every attention call
+    goes through the two int8 kernels, beam copies and a swap round trip move
+    int8 rows with their scales, and calc_logits runs beside the int8 pool."""
+    cfg = L.ModelConfig(model_type="llama", num_layers=2, dim_model=256, num_heads=4, dim_head=64,
+                        num_kv_heads=2, dim_ff=512, vocab_size=128, dtype="bfloat16")
+    ecfg = EngineConfig(max_model_len=256,
+                        cache=CacheConfig(page_size=16, num_pages=64, kv_dtype="int8"),
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
+    llm = LLM(model_config=cfg, params=L.init_params(cfg, 0, cuda), engine_config=ecfg, device=cuda)
+    ex = llm.executor
+    assert ex.cache.quantized and ex.cache.k[0].dtype == torch.int8
+    counters = (A.paged_decode_attention_hm_q, P.paged_prefill_attention_hm_packed_q,
+                A.paged_decode_attention_hm, P.paged_prefill_attention_hm_packed)
+    before = [f.launches for f in counters]
+    prompts = [np.random.default_rng(i).integers(2, 128, n).tolist() for i, n in enumerate((40, 7, 100))]
+    with DynamicBatchGenerator(llm) as gen:
+        res = gen.batch_generate(prompts, [GeneratorArg(max_length=8)] * 3, timeout=300)
+        beam = gen.generate(prompts[1], GeneratorArg(beam_size=2, max_length=6), timeout=300)
+    assert all(len(r.outputs[0].token_ids) == 8 or r.outputs[0].finish_reason == "stop" for r in res)
+    assert len(beam.outputs) >= 1
+    used = [f.launches - b for f, b in zip(counters, before)]
+    assert used[0] > 0 and used[1] > 0 and used[2] == 0 and used[3] == 0
+    snap = [[a.clone() for a in arrays] for arrays in ex.cache.arrays()]
+    rows = np.arange(0, 32, dtype=np.int32)
+    ex.swap_in_rows(rows + 512, ex.swap_out_rows(rows))
+    ex.copy_slots(rows, rows + 640)
+    for arrays, now in zip(snap, ex.cache.arrays()):
+        for a, b in zip(arrays, now):
+            assert torch.equal(b[:, 512:544], a[:, :32]) and torch.equal(b[:, 640:672], a[:, :32])
+    logits = llm.calc_logits(prompts[0])
+    assert logits.shape == (40, 128) and np.isfinite(logits).all()
 
 
 def _int4(rng, K, N, gs, device, planar):
@@ -277,3 +426,15 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     w, scales, zeros = _int4(np.random.default_rng(0), 256, 64, 128, cuda, True)
     with pytest.raises(NotImplementedError):
         Q.w4a16_matmul(torch.zeros(2, 256, device=cuda), w, scales, zeros)  # fp32 x
+    # the int8 kernels take bf16 q over an int8 pool with fp32 head-major scales
+    qb = q.to(torch.bfloat16)
+    pool8 = torch.zeros(4, 64, 128, dtype=torch.int8, device=cuda)
+    sc = torch.zeros(4, 65, device=cuda)
+    with pytest.raises(NotImplementedError):
+        A.paged_decode_attention_hm_q(q, pool8, sc, sc, tables, ctx, S, 0.125)       # fp32 q
+    with pytest.raises(NotImplementedError):
+        A.paged_decode_attention_hm_q(qb, pool.to(torch.bfloat16), sc, sc, tables, ctx, S, 0.125)
+    with pytest.raises(ValueError):
+        A.paged_decode_attention_hm_q(qb, pool8, sc[:, :10], sc, tables, ctx, S, 0.125)
+    with pytest.raises(NotImplementedError):
+        A.paged_decode_attention_hm_q(qb, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)

@@ -10,6 +10,7 @@ from .task import (
 from .engine import ModelExecutor
 from .scheduler import Scheduler
 from .generator import DynamicBatchGenerator
+from .session import SessionGenerator
 from .detokenizer import IncrementalDetokenizer
 
 __all__ = [
@@ -23,5 +24,6 @@ __all__ = [
     "ModelExecutor",
     "Scheduler",
     "DynamicBatchGenerator",
+    "SessionGenerator",
     "IncrementalDetokenizer",
 ]

@@ -10,6 +10,12 @@ sampled tokens, positions and context lengths stay on the device, so the
 host synchronises once per window (:meth:`fetch`). Host arrays reach the
 device through :meth:`upload` (pinned, asynchronous), so dispatching a step
 never waits for the device.
+
+The KV pool is in the model's dtype, or int8 with fp32 scales under
+``CacheConfig(kv_dtype="int8")``. The pool-row operations (:meth:`copy_slots`
+for beam search, :meth:`swap_out_rows` / :meth:`swap_in_rows` for swap
+preemption) move rows of every array of the cache, so they serve both kinds;
+:meth:`run_score` / :meth:`run_hidden` run a whole sequence on a scratch cache.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ class ModelExecutor:
             raise NotImplementedError("tensor, data and pipeline parallelism are not ported yet")
         if cfg.mla.enabled or cfg.moe.enabled:
             raise NotImplementedError("MLA and MoE models are not ported yet")
-        if engine_cfg.cache.kv_dtype != "bfloat16" and engine_cfg.cache.kv_dtype != cfg.dtype:
+        if engine_cfg.cache.kv_dtype not in ("bfloat16", "int8", cfg.dtype):
             raise NotImplementedError(f"KV dtype {engine_cfg.cache.kv_dtype} is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -80,10 +86,7 @@ class ModelExecutor:
         self.max_pages_per_seq = _round_up(engine_cfg.max_model_len, self.page_size) // self.page_size
         self.max_batch = self.sched_cfg.max_batch
 
-        self.cache: KVCache = new_kv_cache(
-            cfg.num_layers, self.num_pages, self.page_size, cfg.num_kv_heads,
-            cfg.dim_head, cfg.torch_dtype, device=self.device,
-        )
+        self.cache: KVCache = self.new_cache(self.num_pages)
         self.sampler_state: SamplerState = new_sampler_state(
             self.max_batch, cfg.vocab_size, self.device
         )
@@ -117,9 +120,13 @@ class ModelExecutor:
         return dataclasses.replace(sc, prefill_buckets=bks)
 
     def _kv_bytes_per_token(self) -> int:
+        """Pool bytes one token takes over all layers: K and V elements in
+        the pool's dtype and, for an int8 pool, their two fp32 scales."""
         cfg = self.cfg
-        itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
-        return cfg.num_layers * 2 * cfg.num_kv_heads * cfg.dim_head * itemsize
+        rows = cfg.num_layers * 2 * cfg.num_kv_heads
+        if self.cache_cfg.kv_dtype == "int8":
+            return rows * cfg.dim_head + rows * 4
+        return rows * cfg.dim_head * torch.empty((), dtype=cfg.torch_dtype).element_size()
 
     def _decide_num_pages(self) -> int:
         cc = self.cache_cfg
@@ -141,6 +148,18 @@ class ModelExecutor:
             # context are unusable
             tokens = min(tokens, self.sched_cfg.max_batch * self.engine_cfg.max_model_len)
         return max(tokens // S, 8)
+
+    def new_cache(self, num_pages: int, quantized: Optional[bool] = None) -> KVCache:
+        """A zeroed cache of ``num_pages`` pages in the serving pool's
+        geometry: int8 with scales under ``kv_dtype="int8"`` (or as
+        ``quantized`` says), else in the model's dtype."""
+        cfg = self.cfg
+        if quantized is None:
+            quantized = self.cache_cfg.kv_dtype == "int8"
+        return new_kv_cache(
+            cfg.num_layers, num_pages, self.page_size, cfg.num_kv_heads, cfg.dim_head,
+            cfg.torch_dtype, quantized=quantized, device=self.device,
+        )
 
     # ------------------------------------------------------------------
     # host <-> device
@@ -379,22 +398,69 @@ class ModelExecutor:
         return self.fetch(handle) if fetch else handle
 
     # ------------------------------------------------------------------
-    # not ported yet (beam search, preemption, scoring)
+    # pool rows: beam copies and swap preemption
     # ------------------------------------------------------------------
+    def _rows(self, rows: np.ndarray) -> torch.Tensor:
+        """Slot indices on the device, without the skipped (negative) ones."""
+        rows = np.asarray(rows)
+        return self.upload(rows[rows >= 0].astype(np.int64))
+
     def copy_slots(self, src_rows: np.ndarray, dst_rows: np.ndarray):
-        raise NotImplementedError("beam search (cache row copies) is not ported yet")
+        """Copy cache rows src -> dst (slot indices) in every layer: the pool
+        and, for an int8 cache, both scale arrays. Pairs with a negative
+        destination are skipped."""
+        src_rows, dst_rows = np.asarray(src_rows), np.asarray(dst_rows)
+        keep = dst_rows >= 0
+        src = self.upload(np.maximum(src_rows[keep], 0).astype(np.int64))
+        dst = self.upload(dst_rows[keep].astype(np.int64))
+        for arrays in self.cache.arrays():
+            for arr in arrays:
+                arr[:, dst] = arr[:, src]
+        self._decode_carry = None  # the pool changed under the carried window
 
     def swap_out_rows(self, rows: np.ndarray):
-        raise NotImplementedError("swap preemption is not ported yet")
+        """Download cache rows (slot indices, every layer; pool and scales)
+        to the host. Does not change the cache: the caller frees the pages
+        afterwards. Returns what :meth:`swap_in_rows` takes."""
+        idx = self._rows(rows)
+        return [[arr[:, idx].cpu() for arr in arrays] for arrays in self.cache.arrays()]
 
     def swap_in_rows(self, rows: np.ndarray, data):
-        raise NotImplementedError("swap preemption is not ported yet")
+        """Upload rows that :meth:`swap_out_rows` returned into (newly
+        allocated) slots; the row count must match."""
+        idx = self._rows(rows)
+        for arrays, saved in zip(self.cache.arrays(), data):
+            for arr, host in zip(arrays, saved):
+                arr[:, idx] = host.to(self.device)
+        self._decode_carry = None  # the pool changed under the carried window
 
-    def run_score(self, tokens: np.ndarray) -> np.ndarray:
-        raise NotImplementedError("scoring (calc_logits) is not ported yet")
+    # ------------------------------------------------------------------
+    # scoring
+    # ------------------------------------------------------------------
+    def run_score(self, tokens: np.ndarray, _kind: str = "score") -> np.ndarray:
+        """Full-sequence fp32 logits [T, V] of ``tokens``, through a scratch
+        identity-paged cache in the model's dtype: serving state is not
+        touched. The sequence runs as one chunk of its own length, whatever
+        the prefill buckets are (nothing is compiled per shape here)."""
+        n = int(tokens.shape[0])
+        S = self.page_size
+        maxp = _round_up(n, S) // S
+        i32 = dict(dtype=torch.int32, device=self.device)
+        rows = torch.arange(n, **i32)
+        meta = PrefillMeta(
+            positions=rows, slot_mapping=rows, page_table=torch.arange(maxp, **i32),
+            cache_len=torch.zeros((), **i32), q_len=torch.full((), n, **i32),
+        )
+        forward = llama_mod.forward_score if _kind == "score" else llama_mod.forward_hidden
+        with torch.no_grad():
+            out, _ = forward(self.params, self.cfg, self.rope,
+                             self.upload(np.asarray(tokens, np.int32)), meta,
+                             self.new_cache(maxp, quantized=False))
+        return out.float().cpu().numpy()
 
     def run_hidden(self, tokens: np.ndarray) -> np.ndarray:
-        raise NotImplementedError("hidden-state output is not ported yet")
+        """Full-sequence last-layer hidden states [T, d] after the final norm."""
+        return self.run_score(tokens, _kind="hidden")
 
     # ------------------------------------------------------------------
     def warmup(self) -> float:

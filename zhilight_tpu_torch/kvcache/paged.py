@@ -4,8 +4,15 @@ Counterpart of ``zhilight_tpu/kvcache/paged.py``: one statically shaped
 paged pool per layer, addressed by page tables. The port holds the packed
 head-major layout that the reference uses whenever ``2*head_dim % 128 == 0``:
 each layer's pool is ``[Hkv, num_pages * page_size, 2*head_dim]``, K in
-lanes ``[:D]`` and V in lanes ``[D:]``. Slot-major, int8 and MLA latent pools
-are later slices of the port and raise ``NotImplementedError``.
+lanes ``[:D]`` and V in lanes ``[D:]``. An int8 cache (``quantized=True``)
+stores int8 elements in the same pool geometry plus one fp32 absmax scale per
+(token, KV head) for K and for V. The scales are head-major
+``[Hkv, N_slots + 1]`` (the reference keeps them slot-major ``[N_slots, Hkv]``):
+every array of the cache then has its slot dimension at dim 1, and an
+attention block that owns one KV head reads its tokens' scales from
+neighbouring addresses. The last column is a spare that absorbs the scales of
+skipped rows. Slot-major and MLA latent pools are later slices of the port and
+raise ``NotImplementedError``.
 
 Writes update the pool in place (PyTorch has no buffer donation to emulate):
 :func:`write_kv` returns the same cache object it was given.
@@ -20,15 +27,31 @@ import torch
 
 from ..ops.cuda import kv_write
 
-__all__ = ["KVCache", "new_kv_cache", "write_kv", "gather_kv", "gather_hm", "slot_indices"]
+__all__ = ["KVCache", "new_kv_cache", "write_kv", "gather_kv", "gather_hm", "gather_scales",
+           "slot_indices"]
 
 
 @dataclass
 class KVCache:
-    """Per-layer head-major packed pools ``[Hkv, N_slots, 2D]``."""
+    """Per-layer head-major packed pools ``[Hkv, N_slots, 2D]``; for an int8
+    cache also the per-layer fp32 scales ``[Hkv, N_slots + 1]`` of K and of V
+    (the last column a spare)."""
 
     k: List[torch.Tensor]
     page_size: int = 16
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def arrays(self) -> List[List[torch.Tensor]]:
+        """Every per-layer array list of the cache (the pools, then the
+        scales of an int8 cache). Each array's slot dimension is dim 1."""
+        if self.quantized:
+            return [self.k, self.k_scale, self.v_scale]
+        return [self.k]
 
     @property
     def num_slots(self) -> int:
@@ -53,15 +76,33 @@ def new_kv_cache(
     quantized: bool = False,
     device: Optional[torch.device] = None,
 ) -> KVCache:
-    if quantized:
-        raise NotImplementedError("int8 KV pools are not ported yet")
     if (2 * head_dim) % 128:
         raise NotImplementedError(
             f"head_dim {head_dim}: slot-major pools (2*head_dim % 128 != 0) are not ported yet"
         )
     shape = (num_kv_heads, num_pages * page_size, 2 * head_dim)
-    pools = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)]
-    return KVCache(k=pools, page_size=page_size)
+    store_dtype = torch.int8 if quantized else dtype
+    pools = [torch.zeros(shape, dtype=store_dtype, device=device) for _ in range(num_layers)]
+    if not quantized:
+        return KVCache(k=pools, page_size=page_size)
+
+    def scales():
+        # one spare column past the pool's slots takes the scales of skipped
+        # rows (slot < 0), so the scatter needs no mask and no host sync
+        return [torch.zeros((shape[0], shape[1] + 1), dtype=torch.float32, device=device)
+                for _ in range(num_layers)]
+
+    return KVCache(k=pools, page_size=page_size, k_scale=scales(), v_scale=scales())
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax int8 quantization of K or V rows [..., D]:
+    int8 rows and their fp32 scales [...] (an all-zero row gets the 1e-8
+    floor; ties round half to even, as the reference's ``jnp.round``)."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
 
 
 def write_kv(
@@ -71,8 +112,21 @@ def write_kv(
     v_new: torch.Tensor,         # [T, Hkv, D]
     slot_mapping: torch.Tensor,  # [T] int32 flat slot (page*page_size + offset); < 0 => skip
 ) -> KVCache:
-    """Write new K/V rows into layer ``layer``'s pool, in place."""
+    """Write new K/V rows into layer ``layer``'s pool, in place. An int8
+    cache quantizes the rows first and scatters their scales beside them
+    (plain tensor ops, as the reference leaves both to XLA)."""
     pool = cache.k[layer]
+    if cache.quantized:
+        # K and V in one pass: half the small launches of two
+        rows, scales = _quantize_rows(torch.stack((k_new, v_new)))  # [2, T, Hkv, D], [2, T, Hkv]
+        kv_write.write_rows_hm(pool, rows[0], rows[1], slot_mapping)
+        # a skipped row (slot < 0, or past the pool) lands in the spare last column
+        N = cache.num_slots
+        idx = slot_mapping.long()
+        idx = torch.where((idx < 0) | (idx >= N), N, idx)
+        cache.k_scale[layer][:, idx] = scales[0].t()
+        cache.v_scale[layer][:, idx] = scales[1].t()
+        return cache
     kv_write.write_rows_hm(
         pool,
         k_new.to(pool.dtype).contiguous(),
@@ -101,7 +155,24 @@ def gather_hm(
     return kv[..., :d], kv[..., d:]
 
 
+def gather_scales(
+    scales: torch.Tensor,        # [Hkv, >= N]
+    page_indices: torch.Tensor,  # [..., pages]
+    page_size: int,
+) -> torch.Tensor:
+    """Gather pages of a scale array into ``[..., pages*page_size, Hkv]``."""
+    return torch.movedim(scales[:, slot_indices(page_indices, page_size)], 0, -1)
+
+
 def gather_kv(
     cache: KVCache, layer: int, page_indices: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    return gather_hm(cache.k[layer], page_indices, cache.page_size)
+    """Contiguous K and V of the given pages. An int8 cache is dequantized
+    and, as in the reference's ``gather_kv``, rounded to bf16."""
+    k, v = gather_hm(cache.k[layer], page_indices, cache.page_size)
+    if cache.quantized:
+        ks = gather_scales(cache.k_scale[layer], page_indices, cache.page_size)
+        vs = gather_scales(cache.v_scale[layer], page_indices, cache.page_size)
+        k = (k.float() * ks[..., None]).to(torch.bfloat16)
+        v = (v.float() * vs[..., None]).to(torch.bfloat16)
+    return k, v

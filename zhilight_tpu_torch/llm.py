@@ -6,8 +6,10 @@ GPTQ/AWQ int4); ``LLM(model_config=..., params=..., quant_config=...)``
 takes in-memory weights. ``llm.generator()`` (or ``DynamicBatchGenerator(llm)``)
 serves requests on token ids. The device defaults to the GPU and there is no
 silent move to the CPU: without a GPU, ``device`` must be given as ``"cpu"``.
-The tokenizer, W8A8/FP8 weights, SmoothQuant calibration and the scoring
-utilities (``calc_*``) are later slices of the port.
+The scoring utilities (``calc_logits``, ``calc_hidden_states``,
+``calc_log_prob``, ``calc_loss``, ``calc_greedy_match``) take token ids. The
+tokenizer (string input), W8A8/FP8 weights and SmoothQuant calibration are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .config import EngineConfig, ModelConfig, QuantConfig, QuantType, load_model_config
@@ -98,20 +101,49 @@ class LLM:
     def generator(self) -> DynamicBatchGenerator:
         return DynamicBatchGenerator(self)
 
-    def calc_logits(self, tokens):
-        _not_ported("scoring (calc_logits)")
+    # ------------------------------------------------------------------
+    # scoring utilities, on token ids
+    # ------------------------------------------------------------------
+    def _encode_ids(self, tokens) -> np.ndarray:
+        if isinstance(tokens, str):
+            _not_ported("string input (tokenizer support)")
+        return np.asarray(list(tokens), dtype=np.int32)
 
-    def calc_hidden_states(self, tokens):
-        _not_ported("hidden-state output (calc_hidden_states)")
+    def calc_logits(self, tokens) -> np.ndarray:
+        """Per-position vocab logits [T, V] (fp32 numpy)."""
+        return self.executor.run_score(self._encode_ids(tokens))
+
+    def calc_hidden_states(self, tokens) -> np.ndarray:
+        """Per-position last-layer hidden states [T, d] after the final norm."""
+        return self.executor.run_hidden(self._encode_ids(tokens))
+
+    def _logits_and_labels(self, tokens, labels):
+        """The logit rows that score ``labels``: by default position i scores
+        the next token, tokens[i + 1]."""
+        ids = self._encode_ids(tokens)
+        logits = self.executor.run_score(ids)
+        if labels is None:
+            return logits[:-1], ids[1:]
+        lab = np.asarray(list(labels), dtype=np.int32)
+        return logits[: len(lab)], lab
 
     def calc_log_prob(self, tokens, labels=None):
-        _not_ported("scoring (calc_log_prob)")
+        """(total, per-position list) of log p(labels[i] | tokens[: i + 1])."""
+        rows, lab = self._logits_and_labels(tokens, labels)
+        top = rows.max(-1, keepdims=True)
+        logp = rows - top - np.log(np.sum(np.exp(rows - top), -1, keepdims=True))
+        per = logp[np.arange(len(lab)), lab]
+        return float(per.sum()), per.tolist()
 
-    def calc_loss(self, tokens, labels=None):
-        _not_ported("scoring (calc_loss)")
+    def calc_loss(self, tokens, labels=None) -> float:
+        """Mean cross-entropy of the labels (next tokens by default)."""
+        total, per = self.calc_log_prob(tokens, labels)
+        return float(-total / max(len(per), 1))
 
-    def calc_greedy_match(self, tokens, labels=None):
-        _not_ported("scoring (calc_greedy_match)")
+    def calc_greedy_match(self, tokens, labels=None) -> int:
+        """Number of positions whose argmax logit is the label."""
+        rows, lab = self._logits_and_labels(tokens, labels)
+        return int(np.sum(np.argmax(rows, axis=-1) == lab))
 
     @classmethod
     def load_with_smooth_quant(cls, *args, **kw):

@@ -10,7 +10,8 @@ write the paged KV pool in place.
 Attention goes through the head-major packed pool: every layer writes its
 new K|V rows (``ops.cuda.kv_write``), then prefill chunks (single or packed)
 run ``ops.cuda.prefill_attention`` and decode steps
-``ops.cuda.attn_headmajor``. Those wrappers launch the CUDA kernels for CUDA
+``ops.cuda.attn_headmajor``; over an int8 cache both take their ``_q`` forms
+with the layer's scales. Those wrappers launch the CUDA kernels for CUDA
 tensors and run their plain PyTorch versions for CPU tensors. MoE, MLA,
 window side-KV and fused write+attend are later slices.
 """
@@ -38,6 +39,8 @@ __all__ = [
     "backbone",
     "forward_prefill",
     "forward_prefill_packed",
+    "forward_score",
+    "forward_hidden",
     "forward_decode",
     "get_logits",
 ]
@@ -104,19 +107,23 @@ def attention_layer(
     scale = 1.0 / math.sqrt(cfg.dim_head)
 
     cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
-    pool, S, sw = cache.k[layer_idx], cache.page_size, cfg.sliding_window
+    S, sw = cache.page_size, cfg.sliding_window
+    # an int8 cache goes to the _q kernels with this layer's scales
+    kv = (cache.k[layer_idx],)
+    if cache.quantized:
+        kv += (cache.k_scale[layer_idx], cache.v_scale[layer_idx])
     if mode == "prefill" and isinstance(meta, PackedPrefillMeta):
-        out = prefill_attention.paged_prefill_attention_hm_packed(
-            q, pool, meta.page_tables, meta.cache_lens, meta.q_lens, S, scale, sw
-        )
+        attend = (prefill_attention.paged_prefill_attention_hm_packed_q if cache.quantized
+                  else prefill_attention.paged_prefill_attention_hm_packed)
+        out = attend(q, *kv, meta.page_tables, meta.cache_lens, meta.q_lens, S, scale, sw)
     elif mode == "prefill":
-        out = prefill_attention.paged_prefill_attention_hm(
-            q, pool, meta.page_table, meta.cache_len, meta.q_len, S, scale, sw
-        )
+        attend = (prefill_attention.paged_prefill_attention_hm_q if cache.quantized
+                  else prefill_attention.paged_prefill_attention_hm)
+        out = attend(q, *kv, meta.page_table, meta.cache_len, meta.q_len, S, scale, sw)
     else:
-        out = attn_headmajor.paged_decode_attention_hm(
-            q, pool, meta.page_tables, meta.context_lens, S, scale, sw
-        )
+        attend = (attn_headmajor.paged_decode_attention_hm_q if cache.quantized
+                  else attn_headmajor.paged_decode_attention_hm)
+        out = attend(q, *kv, meta.page_tables, meta.context_lens, S, scale, sw)
     return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
 
 
@@ -244,6 +251,32 @@ def forward_prefill_packed(
     TC = tokens.shape[0] // NS
     rows = torch.arange(NS, device=tokens.device) * TC + (meta.q_lens - 1).clamp_min(0)
     return get_logits(params, cfg, hidden.index_select(0, rows.long())), cache
+
+
+def forward_score(
+    params: Params,
+    cfg: ModelConfig,
+    rope: RopeTable,
+    tokens: torch.Tensor,  # [T]
+    meta: PrefillMeta,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Full-sequence fp32 logits [T, V]: the scoring utilities keep every
+    position's logits, not only the last."""
+    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill")
+    return get_logits(params, cfg, hidden), cache
+
+
+def forward_hidden(
+    params: Params,
+    cfg: ModelConfig,
+    rope: RopeTable,
+    tokens: torch.Tensor,  # [T]
+    meta: PrefillMeta,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Full-sequence last-layer hidden states [T, d] after the final norm."""
+    return backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill")
 
 
 def forward_decode(

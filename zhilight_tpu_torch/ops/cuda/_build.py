@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 
-SOURCES = ("kv_write", "attn_headmajor", "prefill_attention", "quant_matmul")
+SOURCES = ("kv_write", "attn_headmajor", "attn_headmajor_q", "prefill_attention",
+           "prefill_attention_q", "quant_matmul")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

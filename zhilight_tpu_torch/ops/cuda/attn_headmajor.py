@@ -1,13 +1,23 @@
 """Paged decode attention over the head-major packed K|V pool.
 
 Counterpart of ``zhilight_tpu/ops/pallas/attn_headmajor.py``
-``paged_decode_attention_hm`` (:151) in its default mode. The CUDA kernel is
-``csrc/attn_headmajor.cu``; the plain PyTorch version is
-:func:`paged_decode_attention_hm_plain` (page gather + ``ops.attention``).
-:func:`paged_decode_attention_hm` takes the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+``paged_decode_attention_hm`` (:151) in its default mode, and of
+``paged_decode_attention_hm_q`` (:341), the same attention over an int8 pool
+with per-(token, KV head) fp32 scales. The CUDA kernels are
+``csrc/attn_headmajor.cu`` and ``csrc/attn_headmajor_q.cu``; the plain PyTorch
+versions are :func:`paged_decode_attention_hm_plain` (page gather +
+``ops.attention``) and :func:`paged_decode_attention_hm_q_plain`. The wrappers
+take the plain versions only for CPU tensors; for CUDA tensors they launch the
+kernel or raise.
 
-Like the TPU kernel, an empty slot (``context_lens[b] == 0``) yields zeros.
+The int8 functions never dequantize K or V elements: the K scale multiplies
+the fp32 scores and the V scale the probabilities. The plain version rounds
+``p * v_scale`` to q's dtype before the second product, as the TPU kernel
+does; the CUDA kernel keeps it in fp32 (inside the tolerance of bf16 outputs).
+The scales are head-major ``[Hkv, >= N]`` (``kvcache/paged.py``), where the
+reference keeps them ``[N, Hkv]``.
+
+Like the TPU kernels, an empty slot (``context_lens[b] == 0``) yields zeros.
 The flash-partial output (``emit_partial``, window side-KV) and the MLA
 latent mode (``v_dim``) belong to later slices and raise.
 """
@@ -18,11 +28,17 @@ import ctypes
 
 import torch
 
-from ...kvcache.paged import gather_hm
-from ..attention import decode_attention
+from ...kvcache.paged import gather_hm, gather_scales
+from ..attention import NEG_INF, decode_attention
 from . import _build
 
-__all__ = ["paged_decode_attention_hm", "paged_decode_attention_hm_plain"]
+__all__ = [
+    "paged_decode_attention_hm",
+    "paged_decode_attention_hm_plain",
+    "paged_decode_attention_hm_q",
+    "paged_decode_attention_hm_q_plain",
+    "check_scales",
+]
 
 
 def paged_decode_attention_hm_plain(
@@ -100,3 +116,123 @@ def paged_decode_attention_hm(
 
 
 paged_decode_attention_hm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 pool
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention_hm_q_plain(
+    q: torch.Tensor,             # [B, Hq, D]
+    kv_pool: torch.Tensor,       # [Hkv, N, 2D] int8
+    k_scales: torch.Tensor,      # [Hkv, >= N] f32
+    v_scales: torch.Tensor,      # [Hkv, >= N] f32
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    B, Hq, D = q.shape
+    Hkv = kv_pool.shape[0]
+    k, v = gather_hm(kv_pool, page_tables, page_size)         # [B, KV, Hkv, D] int8
+    ks = gather_scales(k_scales, page_tables, page_size)      # [B, KV, Hkv]
+    vs = gather_scales(v_scales, page_tables, page_size)
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    scores = scores * ks.transpose(1, 2)[:, :, None]
+
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    ctx = context_lens[:, None]
+    mask = k_pos < ctx
+    if sliding_window > 0:
+        mask &= k_pos > ctx - 1 - sliding_window
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+
+    probs = torch.softmax(scores, dim=-1) * vs.transpose(1, 2)[:, :, None]
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(q.dtype).float(), v.float())
+    out = out.reshape(B, Hq, D).to(q.dtype)
+    return out.masked_fill((context_lens <= 0)[:, None, None], 0)
+
+
+def check_scales(what: str, kv_pool, k_scales, v_scales) -> None:
+    """The scale arrays an int8 kernel takes: fp32 ``[Hkv, >= N]`` on the
+    pool's device, unit stride along the slots, one row stride for both."""
+    Hkv, N, _ = kv_pool.shape
+    for s in (k_scales, v_scales):
+        if (s.dtype != torch.float32 or s.dim() != 2 or s.shape[0] != Hkv or s.shape[1] < N
+                or s.stride(1) != 1 or s.device != kv_pool.device):
+            raise ValueError(f"{what}: scales must be fp32 [Hkv, >= N] beside the pool, "
+                             f"got {s.dtype} {tuple(s.shape)}")
+    if k_scales.stride(0) != v_scales.stride(0):
+        raise ValueError(f"{what}: k_scales and v_scales must share one row stride")
+
+
+def _entry_q():
+    fn = _build.library("attn_headmajor_q").zt_decode_attention_hm_q
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong,
+                       ctypes.c_longlong, i, i, ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_decode_attention_hm_q(
+    q: torch.Tensor,
+    kv_pool: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    page_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+    emit_partial: bool = False,
+) -> torch.Tensor:
+    """Attention output [B, Hq, D] of each slot's query over its first
+    ``context_lens[b]`` tokens of the int8 pool. The reference's flash-partial
+    output (``emit_partial``) is not ported yet."""
+    if emit_partial:
+        raise NotImplementedError("int8 decode attention: emit_partial is not ported yet")
+    if q.device.type == "cpu":
+        return paged_decode_attention_hm_q_plain(
+            q, kv_pool, k_scales, v_scales, page_tables, context_lens, page_size, scale,
+            sliding_window,
+        )
+    if not q.is_cuda:
+        raise NotImplementedError(f"int8 decode attention: no kernel for device {q.device}")
+    B, Hq, D = q.shape
+    Hkv, N, D2 = kv_pool.shape
+    if D2 != 2 * D or Hq % Hkv:
+        raise ValueError(f"int8 decode attention: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}")
+    G = Hq // Hkv
+    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.int8:
+        raise NotImplementedError(
+            f"int8 decode attention kernel takes bf16 q and an int8 pool, got {q.dtype}/{kv_pool.dtype}"
+        )
+    if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
+        raise NotImplementedError(f"int8 decode attention kernel: head_dim {D} with group {G}")
+    check_scales("int8 decode attention", kv_pool, k_scales, v_scales)
+    maxp = page_tables.shape[1]
+    if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("int8 decode attention: page_tables and context_lens must be int32")
+    if page_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError("int8 decode attention: page_tables [B, maxp], context_lens [B]")
+    for t in (q, kv_pool, page_tables, context_lens):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("int8 decode attention: tensors must be contiguous and on one device")
+    out = torch.empty_like(q)
+    err = _entry_q()(
+        out.data_ptr(), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D,
+        N, k_scales.stride(0), maxp, page_size, float(scale), int(sliding_window),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_decode_attention_hm_q")
+    paged_decode_attention_hm_q.launches += 1
+    return out
+
+
+paged_decode_attention_hm_q.launches = 0
+

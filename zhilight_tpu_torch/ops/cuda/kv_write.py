@@ -10,7 +10,9 @@ v[t, h]`` for every row with ``0 <= slot[t] < N``; rows with a negative slot
 are skipped. This is the general per-row scatter of the XLA path, so chunks
 may start mid-page. K and V are taken separately, which saves the
 ``concatenate`` of ``kvcache/paged.py:287-290``. The pool is updated in
-place and returned (JAX's version returns a new pool).
+place and returned (JAX's version returns a new pool). The kernel moves
+bytes, so the int8 rows of a quantized cache (64 or 128 bytes per half) go
+through it as they are; a half must be a multiple of 16 bytes.
 """
 
 from __future__ import annotations

@@ -2,11 +2,21 @@
 
 Counterpart of ``zhilight_tpu/ops/pallas/prefill_attention.py``
 ``paged_prefill_attention_hm_packed`` (:255) and its one-segment wrapper
-``paged_prefill_attention_hm`` (:227). The CUDA kernel is
-``csrc/prefill_attention.cu``; the plain PyTorch version is
-:func:`paged_prefill_attention_hm_packed_plain` (per-segment page gather +
-``ops.attention.prefill_attention``). The wrappers take the plain version
-only for CPU tensors; for CUDA tensors they launch the kernel or raise.
+``paged_prefill_attention_hm`` (:227), and of their int8-pool forms
+``paged_prefill_attention_hm_packed_q`` (:503) and
+``paged_prefill_attention_hm_q`` (:644). The CUDA kernels are
+``csrc/prefill_attention.cu`` and ``csrc/prefill_attention_q.cu``; the plain
+PyTorch versions are :func:`paged_prefill_attention_hm_packed_plain`
+(per-segment page gather + ``ops.attention.prefill_attention``) and
+:func:`paged_prefill_attention_hm_packed_q_plain`. The wrappers take the plain
+versions only for CPU tensors; for CUDA tensors they launch the kernel or
+raise.
+
+The int8 functions fold the per-(token, KV head) K scale into the fp32 scores
+and the V scale into the probabilities, which are rounded to q's dtype before
+the second product, as the TPU kernel does; K and V elements are never
+multiplied by a scale. The scales are head-major ``[Hkv, >= N]``
+(``kvcache/paged.py``), where the reference keeps them ``[N, Hkv]``.
 
 The pool must already hold the chunk's K/V (the write runs first). Only rows
 ``i < q_lens[s]`` of each segment are meaningful; padding rows and segments
@@ -19,14 +29,18 @@ import ctypes
 
 import torch
 
-from ...kvcache.paged import gather_hm
-from ..attention import prefill_attention
+from ...kvcache.paged import gather_hm, gather_scales
+from ..attention import NEG_INF, prefill_attention
 from . import _build
+from .attn_headmajor import check_scales
 
 __all__ = [
     "paged_prefill_attention_hm",
     "paged_prefill_attention_hm_packed",
     "paged_prefill_attention_hm_packed_plain",
+    "paged_prefill_attention_hm_q",
+    "paged_prefill_attention_hm_packed_q",
+    "paged_prefill_attention_hm_packed_q_plain",
 ]
 
 
@@ -127,14 +141,146 @@ def paged_prefill_attention_hm(
     sliding_window: int = 0,
 ) -> torch.Tensor:
     """One sequence's chunk: the packed kernel with a single segment."""
-    lens = dict(dtype=torch.int32, device=q.device)
     return paged_prefill_attention_hm_packed(
-        q,
-        kv_pool,
+        q, kv_pool, *_one_segment(q, page_table, cache_len, q_len), page_size, scale,
+        sliding_window,
+    )
+
+
+def _one_segment(q, page_table, cache_len, q_len):
+    """(page_tables [1, maxp], cache_lens [1], q_lens [1]) of one sequence."""
+    lens = dict(dtype=torch.int32, device=q.device)
+    return (
         page_table.reshape(1, -1),
         torch.as_tensor(cache_len, **lens).reshape(1),
         torch.as_tensor(q_len, **lens).reshape(1),
-        page_size,
-        scale,
-        sliding_window,
+    )
+
+
+# ---------------------------------------------------------------------------
+# int8 pool
+# ---------------------------------------------------------------------------
+
+def paged_prefill_attention_hm_packed_q_plain(
+    q: torch.Tensor,            # [NS*TC, Hq, D]
+    kv_pool: torch.Tensor,      # [Hkv, N, 2D] int8
+    k_scales: torch.Tensor,     # [Hkv, >= N] f32
+    v_scales: torch.Tensor,     # [Hkv, >= N] f32
+    page_tables: torch.Tensor,  # [NS, maxp] int; < 0 => padding
+    cache_lens: torch.Tensor,   # [NS] int
+    q_lens: torch.Tensor,       # [NS] int
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    NS = page_tables.shape[0]
+    T, Hq, D = q.shape
+    TC, Hkv = T // NS, kv_pool.shape[0]
+    outs = []
+    for s in range(NS):
+        k, v = gather_hm(kv_pool, page_tables[s], page_size)        # [KV, Hkv, D] int8
+        ks = gather_scales(k_scales, page_tables[s], page_size).t()  # [Hkv, KV]
+        vs = gather_scales(v_scales, page_tables[s], page_size).t()
+        qg = q[s * TC : (s + 1) * TC].reshape(TC, Hkv, Hq // Hkv, D).float()
+        scores = torch.einsum("tkgd,skd->kgts", qg, k.float()) * scale
+        scores = scores * ks[:, None, None]
+
+        q_pos = cache_lens[s] + torch.arange(TC, device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[0], device=q.device)[None, :]
+        mask = (k_pos <= q_pos) & (k_pos < cache_lens[s] + q_lens[s])
+        if sliding_window > 0:
+            mask &= k_pos > q_pos - sliding_window
+        scores = torch.where(mask, scores, NEG_INF)
+
+        probs = torch.softmax(scores, dim=-1) * vs[:, None, None]
+        out = torch.einsum("kgts,skd->tkgd", probs.to(q.dtype).float(), v.float())
+        outs.append(out.reshape(TC, Hq, D).to(q.dtype))
+    return torch.cat(outs, dim=0)
+
+
+def _entry_q():
+    fn = _build.library("prefill_attention_q").zt_prefill_attention_hm_q
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_prefill_attention_hm_packed_q(
+    q: torch.Tensor,
+    kv_pool: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    page_tables: torch.Tensor,
+    cache_lens: torch.Tensor,
+    q_lens: torch.Tensor,
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """NS packed prefill segments of TC tokens each over the int8 pool;
+    returns [NS*TC, Hq, D]."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_hm_packed_q_plain(
+            q, kv_pool, k_scales, v_scales, page_tables, cache_lens, q_lens, page_size,
+            scale, sliding_window,
+        )
+    if not q.is_cuda:
+        raise NotImplementedError(f"int8 prefill attention: no kernel for device {q.device}")
+    T, Hq, D = q.shape
+    Hkv, N, D2 = kv_pool.shape
+    NS, maxp = page_tables.shape
+    if D2 != 2 * D or Hq % Hkv or T % NS:
+        raise ValueError(
+            f"int8 prefill attention: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}, {NS} segments"
+        )
+    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.int8:
+        raise NotImplementedError(
+            f"int8 prefill attention kernel takes bf16 q and an int8 pool, got {q.dtype}/{kv_pool.dtype}"
+        )
+    if D not in (64, 128):
+        raise NotImplementedError(f"int8 prefill attention kernel: head_dim {D}")
+    check_scales("int8 prefill attention", kv_pool, k_scales, v_scales)
+    for t in (page_tables, cache_lens, q_lens):
+        if t.dtype != torch.int32:
+            raise ValueError("int8 prefill attention: page tables and lengths must be int32")
+    if cache_lens.shape != (NS,) or q_lens.shape != (NS,):
+        raise ValueError("int8 prefill attention: cache_lens and q_lens must be [NS]")
+    for t in (q, kv_pool, page_tables, cache_lens, q_lens):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("int8 prefill attention: tensors must be contiguous and on one device")
+    out = torch.empty_like(q)
+    err = _entry_q()(
+        out.data_ptr(), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), page_tables.data_ptr(), cache_lens.data_ptr(), q_lens.data_ptr(),
+        NS, T // NS, Hq, Hkv, D, N, k_scales.stride(0), maxp, page_size, float(scale),
+        int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_prefill_attention_hm_packed_q")
+    paged_prefill_attention_hm_packed_q.launches += 1
+    return out
+
+
+paged_prefill_attention_hm_packed_q.launches = 0
+
+
+def paged_prefill_attention_hm_q(
+    q: torch.Tensor,           # [T, Hq, D]
+    kv_pool: torch.Tensor,     # [Hkv, N, 2D] int8
+    k_scales: torch.Tensor,    # [Hkv, >= N] f32
+    v_scales: torch.Tensor,
+    page_table: torch.Tensor,  # [maxp] int32
+    cache_len,                 # int or 0-d int32 tensor
+    q_len,                     # int or 0-d int32 tensor
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """One sequence's chunk over the int8 pool: the packed kernel with a
+    single segment."""
+    return paged_prefill_attention_hm_packed_q(
+        q, kv_pool, k_scales, v_scales, *_one_segment(q, page_table, cache_len, q_len),
+        page_size, scale, sliding_window,
     )

@@ -12,8 +12,10 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
   kernels  each CUDA kernel against its plain PyTorch version (bf16 queries;
            bf16 and int8 pools) at the shapes the main paths give it, and
            timed beside its bound, the plain version and one PyTorch library
-           call (CUDA events, median), at MiniCPM-2B's and Qwen2.5-14B's shapes;
-  serve    the three main paths, each through ``LLM`` + ``DynamicBatchGenerator``
+           call (CUDA events, median), at MiniCPM-2B's, Qwen2.5-14B's and
+           DeepSeek-V2-Lite's shapes (latent row write, MLA latent decode,
+           grouped int4 matmul over the expert stacks);
+  serve    the four main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
            first-token logits and one batch-8 decode step's logits (contexts
@@ -25,12 +27,18 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            Qwen weights served with an int8 KV cache (``kv_dtype="int8"``),
            on whose executor the pool-row operations (``copy_slots``,
            ``swap_out_rows`` -> ``swap_in_rows``), a beam request and
-           ``calc_logits`` are also driven;
+           ``calc_logits`` are also driven; and DeepSeek-V2-Lite GPTQ-Int4 (27
+           layers, full width: MLA over a latent pool, 64 routed + 2 shared
+           experts, top 6; HF-format tensors named and quantized as
+           tools/make_bench_model.py's ``deepseek-v2-lite-w4``; prompts up to
+           2816 tokens), with ``copy_slots`` and a swap round trip on the
+           latent pool; then the same configuration with bf16 expert stacks
+           at 4 layers (the dense grouped-expert path) against the plain path;
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
-           3712, greedy, over the bf16 and the int8 pool) and the time to
-           first token of a 3712-token prompt in 512-token chunks, by
-           bench.py's method, then a torch.profiler breakdown of one decode
+           3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
+           batch 8 at context 2816) and the time to first token of a 3712-token
+           prompt (DeepSeek: 2816) in 512-token chunks, by bench.py's method, then a torch.profiler breakdown of one decode
            window and one prefill.
 
 The last lines are the kernels' JSON record, the GPU's name and power limit,
@@ -87,6 +95,20 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/prefill_attention_q.cu",
         replaces="zhilight_tpu/ops/pallas/prefill_attention.py:503",
     ),
+    "write_rows_2d": dict(
+        source="zhilight_tpu_torch/csrc/kv_write_2d.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:324",
+    ),
+    # the MLA latent mode (v_dim > 0) of the TPU decode kernel, reached through
+    # zhilight_tpu/ops/pallas/paged_attention.py:791 (paged_mla_decode)
+    "paged_mla_decode": dict(
+        source="zhilight_tpu_torch/csrc/mla_decode.cu",
+        replaces="zhilight_tpu/ops/pallas/attn_headmajor.py:151",
+    ),
+    "w4a16_ragged_matmul": dict(
+        source="zhilight_tpu_torch/csrc/quant_ragged.cu",
+        replaces="zhilight_tpu/ops/pallas/quant_ragged.py:142",
+    ),
 }
 ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
@@ -96,7 +118,13 @@ PATHS = {
     "MiniCPM-2B": ATTENTION_KERNELS,
     "Qwen2.5-14B-GPTQ-Int4": ATTENTION_KERNELS + ("w4a16_matmul",),
     "Qwen2.5-14B-GPTQ-Int4-int8kv": ("write_rows_hm", "w4a16_matmul") + INT8_KERNELS,
+    # MLA prefill is plain torch, as the reference leaves it to XLA
+    "DeepSeek-V2-Lite-GPTQ-Int4": ("write_rows_2d", "paged_mla_decode", "w4a16_ragged_matmul",
+                                   "w4a16_matmul"),
 }
+# prompt lengths of a path's 8 requests (32 new tokens each)
+SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
+DEEPSEEK_LENS = [7, 100, 513, 1500, 2816, 16, 250, 40]  # max_model_len 3072
 MINICPM_HEADS = dict(Hq=36, Hkv=36, D=64)
 QWEN_HEADS = dict(Hq=40, Hkv=8, D=128)
 
@@ -108,6 +136,26 @@ QWEN14B_GPTQ = {
     "num_key_value_heads": 8, "vocab_size": 152064, "max_position_embeddings": 32768,
     "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "eos_token_id": 2, "bos_token_id": 1,
+    "quantization_config": {"quant_method": "gptq", "bits": 4, "group_size": 128,
+                            "desc_act": False, "sym": True},
+}
+
+# deepseek-ai/DeepSeek-V2-Lite's geometry with GPTQ-Int4 expert stacks: the
+# config.json fields that tools/make_bench_model.py:88-125 ("deepseek-v2-lite-w4")
+# writes
+DEEPSEEK_V2_LITE_GPTQ = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2", "hidden_size": 2048,
+    "intermediate_size": 10944, "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16, "n_routed_experts": 64,
+    "n_shared_experts": 2, "num_experts_per_tok": 6, "first_k_dense_replace": 1,
+    "moe_layer_freq": 1, "kv_lora_rank": 512, "q_lora_rank": None, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "scoring_func": "softmax", "topk_method": "greedy",
+    "norm_topk_prob": False, "routed_scaling_factor": 1.0, "vocab_size": 102400,
+    "max_position_embeddings": 163840, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "eos_token_id": 2, "bos_token_id": 1,
+    "rope_scaling": {"rope_type": "yarn", "factor": 40.0, "beta_fast": 32, "beta_slow": 1,
+                     "mscale": 0.707, "mscale_all_dim": 0.707,
+                     "original_max_position_embeddings": 4096},
     "quantization_config": {"quant_method": "gptq", "bits": 4, "group_size": 128,
                             "desc_act": False, "sym": True},
 }
@@ -243,6 +291,66 @@ def qwen_hf_tensors(hf: dict, seed: int, keep: dict):
         yield from emit(pre + "post_attention_layernorm.weight", ones)
     rng = np.random.default_rng(seed + 1)
     yield from emit("model.norm.weight", ones)
+    yield from emit("lm_head.weight", _bf16(rng, (V, H)))
+    keep["make_s"] = made + time.monotonic() - t0
+
+
+def deepseek_hf_tensors(hf: dict, seed: int, keep: dict, quant_experts: bool = True):
+    """(HF name, tensor) pairs of a random DeepSeek-V2 checkpoint of ``hf``'s
+    geometry, named and quantized as tools/make_bench_model.py's
+    ``_make_deepseek_layers``: GPTQ q_proj and o_proj, bf16 kv_a and kv_b, a bf16
+    dense first layer, a bf16 router, GPTQ routed and shared experts (bf16
+    routed experts with ``quant_experts=False``). One layer's tensors are made
+    at a time. ``keep`` receives the seconds spent making the tensors."""
+    t0 = time.monotonic()
+    made = 0.0
+    rng = np.random.default_rng(seed)
+    H, NH, V = hf["hidden_size"], hf["num_attention_heads"], hf["vocab_size"]
+    FF, MFF, E = hf["intermediate_size"], hf["moe_intermediate_size"], hf["n_routed_experts"]
+    SH = hf["n_shared_experts"] * MFF
+    lora, rope_d = hf["kv_lora_rank"], hf["qk_rope_head_dim"]
+    nope_d, v_d = hf["qk_nope_head_dim"], hf["v_head_dim"]
+    gs = hf["quantization_config"]["group_size"]
+
+    def emit(name, value):
+        nonlocal t0, made
+        made += time.monotonic() - t0
+        yield name, value
+        t0 = time.monotonic()
+
+    def lin(name, K, N, quant=True):
+        if quant:
+            for k, v in gptq_tensors(rng, K, N, gs).items():
+                yield from emit(name + "." + k, v)
+        else:
+            yield from emit(name + ".weight", _bf16(rng, (N, K)))  # HF [out, in]
+
+    yield from emit("model.embed_tokens.weight", _bf16(rng, (V, H)))
+    for i in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        yield from lin(pre + "self_attn.q_proj", H, NH * (nope_d + rope_d))
+        yield from lin(pre + "self_attn.kv_a_proj_with_mqa", H, lora + rope_d, quant=False)
+        yield from emit(pre + "self_attn.kv_a_layernorm.weight", torch.ones(lora, dtype=torch.bfloat16))
+        yield from lin(pre + "self_attn.kv_b_proj", lora, NH * (nope_d + v_d), quant=False)
+        yield from lin(pre + "self_attn.o_proj", NH * v_d, H)
+        if i < hf["first_k_dense_replace"]:
+            for name, (K, N) in (("gate_proj", (H, FF)), ("up_proj", (H, FF)), ("down_proj", (FF, H))):
+                yield from lin(pre + "mlp." + name, K, N, quant=False)
+        else:
+            yield from emit(pre + "mlp.gate.weight", _bf16(rng, (E, H)))
+            for e in range(E):
+                epre = pre + f"mlp.experts.{e}."
+                yield from lin(epre + "gate_proj", H, MFF, quant_experts)
+                yield from lin(epre + "up_proj", H, MFF, quant_experts)
+                yield from lin(epre + "down_proj", MFF, H, quant_experts)
+            yield from lin(pre + "mlp.shared_experts.gate_proj", H, SH)
+            yield from lin(pre + "mlp.shared_experts.up_proj", H, SH)
+            yield from lin(pre + "mlp.shared_experts.down_proj", SH, H)
+        ones = torch.ones(H, dtype=torch.bfloat16)
+        yield from emit(pre + "input_layernorm.weight", ones)
+        yield from emit(pre + "post_attention_layernorm.weight", ones)
+    rng = np.random.default_rng(seed + 1)
+    yield from emit("model.norm.weight", torch.ones(H, dtype=torch.bfloat16))
     yield from emit("lm_head.weight", _bf16(rng, (V, H)))
     keep["make_s"] = made + time.monotonic() - t0
 
@@ -463,6 +571,16 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
     )
 
 
+def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
+    """The kernel's JSON numbers are those of its ``main`` shape; every timed
+    shape is kept under ``shapes``."""
+    rec[name].update(shapes[main], max_abs_err=err, shape=main, shapes=shapes)
+    for label, r in shapes.items():
+        print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']:.4f}", flush=True)
+
+
 def phase_kernels(rec: dict) -> None:
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
@@ -472,13 +590,7 @@ def phase_kernels(rec: dict) -> None:
     mini, qwen = MINICPM_HEADS, QWEN_HEADS
 
     def record(name, err, main, shapes):
-        """The kernel's JSON numbers are those of its ``main`` shape; every
-        timed shape is kept under ``shapes``."""
-        rec[name].update(shapes[main], max_abs_err=err, shape=main, shapes=shapes)
-        for label, r in shapes.items():
-            print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']:.4f}", flush=True)
+        _record(rec, name, err, main, shapes)
 
     # -- write_rows_hm: bf16 and int8 rows, bit-exact --------------------------
     check_write(rng, W)
@@ -534,6 +646,7 @@ def phase_kernels(rec: dict) -> None:
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
 
     kernels_w4a16(rec, rng)
+    kernels_deepseek(rec, rng)
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -629,6 +742,166 @@ def kernels_w4a16(rec: dict, rng) -> None:
     del scratch
 
 
+def kernels_deepseek(rec: dict, rng) -> None:
+    """The three kernels of the DeepSeek-V2-Lite path at its shapes (16 heads,
+    latent rows of 576 = 512 + 64 bf16, 64 experts of 2048 x 1408, top 6, group
+    128): each against its plain version, then timed."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
+    from zhilight_tpu_torch.ops.quant import dequant_expert_int4, pack_expert_int4, ragged_layout
+
+    F, S, X, VD, H = torch.nn.functional, 16, 576, 512, 16
+    scale = 1.0 / np.sqrt(192)
+
+    # -- write_rows_2d: a decode step's 8 rows, a 512-token chunk; bit-exact ---
+    def write_case(T, start):
+        if start is None:  # decode: one row per sequence, one skipped
+            npages = 64
+            slots = rng.permutation(npages)[:T] * S + rng.integers(0, S, T)
+            slots[3] = -1
+        else:  # a chunk starting mid-page through a shuffled table, its tail padded
+            npages = (start + T) // S + 4
+            table = rng.permutation(npages)
+            pos = np.arange(start, start + T)
+            slots = table[pos // S] * S + pos % S
+            slots[-37:] = -1
+        return _randn(rng, T, X), _dev(slots.astype(np.int32)), _randn(rng, 1, npages * S, X)
+
+    shapes = {}
+    for T, start, label in ((8, None, "DeepSeek-V2-Lite decode step, 8 rows of 576"),
+                            (512, 2309, "DeepSeek-V2-Lite chunk, 512 rows of 576")):
+        rows, slots, pool = write_case(T, start)
+        got = W.write_rows_2d(pool.clone(), rows, slots)
+        want = W.write_rows_2d_plain(pool.clone(), rows, slots)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"write_rows_2d T={T}: not bit-exact")
+        print(f"kernels: write_rows_2d T={T} X={X} bit-exact", flush=True)
+        # timed on T distinct rows spread over the pool (the library call takes no skipped rows)
+        idx = torch.arange(T, device="cuda") * (pool.shape[1] // T)
+        slots = idx.to(torch.int32)
+        t_b, by = bound(2 * T * X * 2 + T * 4, 0)
+        shapes[label] = dict(
+            ms=time_ms(lambda: W.write_rows_2d(pool, rows, slots)),
+            plain_ms=time_ms(lambda: W.write_rows_2d_plain(pool, rows, slots)),
+            library_ms=time_ms(lambda: pool[0].index_copy_(0, idx, rows)),
+            bound_ms=t_b, bound_by=by,
+        )
+    _record(rec, "write_rows_2d", 0.0, list(shapes)[0], shapes)
+
+    # -- paged_mla_decode: ragged contexts with an empty slot, then ctx 2816 ----
+    err = 0.0
+    for ctx in ([2816, 7, 0, 1500, 100, 16, 1, 2305], [64, 65, 63, 128, 2816, 2815, 0, 640]):
+        ctx = np.array(ctx, np.int32)
+        tables, npages = _paged(rng, ctx, S)
+        args = (_randn(rng, len(ctx), H, X), _randn(rng, npages * S, X), _dev(tables), _dev(ctx),
+                S, scale)
+        got = A.paged_mla_decode(*args, v_dim=VD)
+        want = A.paged_mla_decode_plain(*args, v_dim=VD)
+        e = (got.float() - want.float()).abs().max().item()
+        print(f"kernels: mla decode B={len(ctx)} H={H} ctx={ctx.tolist()} max_abs_err={e:.3e}",
+              flush=True)
+        if not np.isfinite(e) or e > ATTN_TOL:
+            raise AssertionError(f"MLA decode ctx {ctx}: max abs err {e} > {ATTN_TOL}")
+        if got[torch.from_numpy(ctx == 0)].any():
+            raise AssertionError("MLA decode: an empty slot is not zero")
+        err = max(err, e)
+    B, CTX = 8, 2816
+    maxp = 3072 // S
+    tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+    pool, q = _randn(rng, B * maxp * S, X), _randn(rng, B, H, X)
+    args = (q, pool, _dev(tables), _dev(np.full(B, CTX, np.int32)), S, scale)
+    # latents gathered beforehand, [B, 1, CTX, 576], shared by the 16 heads as views
+    lat = pool.reshape(B, maxp * S, X)[:, None, :CTX]
+    kg = lat.contiguous().expand(-1, H, -1, -1)
+    vg = lat[..., :VD].contiguous().expand(-1, H, -1, -1)
+    t_b, by = bound(B * CTX * X * 2 + q.numel() * 2 + B * H * VD * 2 + tables.size * 4 + B * 4,
+                    2 * B * H * CTX * (X + VD))
+    label = f"DeepSeek-V2-Lite batch {B}, context {CTX}, 16 heads"
+    _record(rec, "paged_mla_decode", err, label, {label: dict(
+        ms=time_ms(lambda: A.paged_mla_decode(*args, v_dim=VD)),
+        plain_ms=time_ms(lambda: A.paged_mla_decode_plain(*args, v_dim=VD), reps=10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, scale=scale)),
+        bound_ms=t_b, bound_by=by,
+    )})
+
+    # -- w4a16_ragged_matmul ----------------------------------------------------
+    E, gs = 64, 128
+
+    def stack(K, N, pad_groups=0):
+        q4 = _dev(rng.integers(0, 16, (E, K, N)).astype(np.int8))
+        s = _dev((rng.random((E, K // gs, N)) * 0.004 + 0.001).astype(np.float32))
+        z = _dev(rng.integers(1, 16, (E, K // gs, N)).astype(np.float32))
+        if pad_groups:  # the loader's zero-scale pad groups (K 1408 -> 1536)
+            s[:, -pad_groups:] = 0
+        return pack_expert_int4(q4), s, z
+
+    def layout(flat, TM):
+        _, dest, tile_expert, num_occ, mp = ragged_layout(_dev(flat.astype(np.int32)), E + 1, TM,
+                                                          occ_experts=E)
+        return dest, tile_expert, num_occ, mp
+
+    def routed(R_, seed):
+        """R_ / 6 tokens' top-6 experts, drawn without replacement per token;
+        expert 1 gets no rows."""
+        g = np.random.default_rng(seed)
+        flat = np.concatenate([g.permutation(E - 1)[:6] for _ in range(R_ // 6)])
+        return np.where(flat >= 1, flat + 1, flat)
+
+    stacks = {"gate/up (K 2048, N 1408)": (2048, 1408, 0), "down (K 1536, N 2048)": (1536, 2048, 1)}
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    rel_err, abs_err, shapes = 0.0, 0.0, {}
+    for wname, (K, N, pad) in stacks.items():
+        w_p, s, z = stack(K, N, pad)
+        wd = dequant_expert_int4(w_p, s, z, torch.bfloat16)  # for the library call
+        cases = (("decode, 48 rows", routed(48, 1), 8), ("chunk, 3072 rows", routed(3072, 2), 64),
+                 ("5 rows over 64 experts", np.array([63, 0, 17, 63, 40]), 8))
+        for cname, flat, TM in cases:
+            dest, tile_expert, num_occ, mp = layout(flat, TM)
+            x = torch.zeros(mp, K, dtype=torch.bfloat16, device="cuda")
+            x[dest] = _randn(rng, len(flat), K)
+            if pad:
+                x[:, K - pad * gs :] = 0
+            got = R.w4a16_ragged_matmul(x, w_p, s, z, tile_expert, num_occ)[dest].float()
+            want = R.w4a16_ragged_matmul_plain(x, w_p, s, z, tile_expert, num_occ)[dest].float()
+            diff = (got - want).abs().max().item()
+            e = diff / want.abs().max().item()
+            print(f"kernels: w4a16_ragged {wname} {cname} TM={TM}: max rel err {e:.3e}", flush=True)
+            if not (torch.isfinite(got).all() and e <= W4A16_TOL):
+                raise AssertionError(f"w4a16_ragged {wname} {cname}: max rel err {e} > {W4A16_TOL}")
+            rel_err, abs_err = max(rel_err, e), max(abs_err, diff)
+            if len(flat) < 48:
+                continue
+            # timed with a cold L2, as a decode step finds the experts' weights
+            experts, counts = np.unique(flat, return_counts=True)
+            R_ = len(flat)
+            t_b, by = bound(len(experts) * (K * N // 2 + 8 * (K // gs) * N) + 2 * R_ * (K + N),
+                            2 * R_ * K * N)
+            xs = x[dest]  # the rows, sorted by expert
+            groups = list(zip(experts.tolist(), np.cumsum(counts) - counts, np.cumsum(counts)))
+            out = torch.empty(R_, N, dtype=torch.bfloat16, device="cuda")
+
+            def library():  # one torch.matmul per routed expert, weights dequantized beforehand
+                for ex, a, b in groups:
+                    torch.matmul(xs[a:b], wd[ex], out=out[a:b])
+
+            shapes[f"DeepSeek-V2-Lite {wname}, {cname} over {len(experts)} experts"] = dict(
+                ms=time_ms(lambda: R.w4a16_ragged_matmul(x, w_p, s, z, tile_expert, num_occ),
+                           flush=scratch.zero_),
+                plain_ms=time_ms(lambda: R.w4a16_ragged_matmul_plain(x, w_p, s, z, tile_expert,
+                                                                     num_occ), reps=5, flush=scratch.zero_),
+                library_ms=time_ms(library, flush=scratch.zero_),
+                bound_ms=t_b, bound_by=by,
+            )
+        del w_p, s, z, wd
+    del scratch
+    print(f"kernels: w4a16_ragged over every case max rel err {rel_err:.3e}, max abs err "
+          f"{abs_err:.3e}", flush=True)
+    _record(rec, "w4a16_ragged_matmul", abs_err, list(shapes)[0], shapes)
+
+
 # ---------------------------------------------------------------------------
 # phase: serve (the main paths)
 # ---------------------------------------------------------------------------
@@ -638,8 +911,12 @@ def _counters():
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
 
     return {
+        "write_rows_2d": W.write_rows_2d,
+        "paged_mla_decode": A.paged_mla_decode,
+        "w4a16_ragged_matmul": R.w4a16_ragged_matmul,
         "write_rows_hm": W.write_rows_hm,
         "paged_decode_attention_hm": A.paged_decode_attention_hm,
         "paged_prefill_attention_hm_packed": P.paged_prefill_attention_hm_packed,
@@ -659,10 +936,13 @@ def plain_kernels():
 
     from zhilight_tpu_torch.kvcache import paged as paged_mod
     from zhilight_tpu_torch.models import llama as llama_mod
+    from zhilight_tpu_torch.models import mla as mla_mod
+    from zhilight_tpu_torch.models import moe as moe_mod
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
 
     def single(packed_plain):
         """The one-segment wrapper's signature over a packed plain version."""
@@ -673,7 +953,12 @@ def plain_kernels():
         return fn
 
     with mock.patch.object(paged_mod, "kv_write",
-                           SimpleNamespace(write_rows_hm=W.write_rows_hm_plain)), \
+                           SimpleNamespace(write_rows_hm=W.write_rows_hm_plain,
+                                           write_rows_2d=W.write_rows_2d_plain)), \
+         mock.patch.object(mla_mod, "attn_headmajor",
+                           SimpleNamespace(paged_mla_decode=A.paged_mla_decode_plain)), \
+         mock.patch.object(moe_mod, "quant_ragged", SimpleNamespace(
+             w4a16_ragged_matmul=R.w4a16_ragged_matmul_plain)), \
          mock.patch.object(llama_mod, "attn_headmajor", SimpleNamespace(
              paged_decode_attention_hm=A.paged_decode_attention_hm_plain,
              paged_decode_attention_hm_q=A.paged_decode_attention_hm_q_plain)), \
@@ -751,8 +1036,8 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
-def serve_path(label: str, llm, rec: dict, seed: int):
-    """One main path: 8 concurrent requests (prompts of 7 to 3712 tokens, 32
+def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS):
+    """One main path: 8 concurrent requests (prompts of ``lens`` tokens, 32
     new tokens, 2 sampled) with the launch counters zeroed just before and
     read just after, then the first-token logits and one decode step's logits
     (every prompt's continuation) against the plain path. Returns the prompts
@@ -768,7 +1053,6 @@ def serve_path(label: str, llm, rec: dict, seed: int):
           flush=True)
 
     rng = np.random.default_rng(seed)
-    lens = [7, 100, 513, 1500, 3712, 16, 250, 40]
     prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in lens]
     MAXLEN = 32
     gargs = [GeneratorArg(max_length=MAXLEN) for _ in lens]
@@ -828,7 +1112,7 @@ def serve_path(label: str, llm, rec: dict, seed: int):
         raise AssertionError(f"{label}: first-token logits differ: {rel} > {LOGIT_TOL} "
                              f"or argmax {top_k[0]} != {top_p[0]}")
 
-    # one decode step of the 8 prompts (contexts 8 to 3713) against the plain
+    # one decode step of the 8 prompts (contexts of the prompts + 1) against the plain
     # path; a row's argmax may differ only where the plain logits put the
     # kernel's pick within the tolerance of their own maximum
     got, want = _decode_step_logits(ex, prompts)
@@ -849,20 +1133,11 @@ def serve_path(label: str, llm, rec: dict, seed: int):
     return prompts, first
 
 
-def pool_rows_and_scoring(label: str, llm, prompts, bf16_first) -> None:
-    """On the int8-KV executor: copy_slots and swap_out_rows -> swap_in_rows
-    bit-exact over the pool and both scale arrays, one beam request, and
-    calc_logits against the prefill logits of the same prompt."""
-    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
-
-    ex = llm.executor
+def pool_rows(label: str, ex, written: torch.Tensor, what: str) -> None:
+    """copy_slots and swap_out_rows -> swap_in_rows, bit-exact over every array
+    of the serving cache: 64 rows the requests wrote (``written`` [N] says
+    which) are copied and swapped into 128 rows nothing has written yet."""
     cache = ex.cache
-    if not (cache.quantized and len(cache.arrays()) == 3 and cache.k[0].dtype == torch.int8):
-        raise AssertionError(f"{label}: the serving pool is not int8 with scales")
-    N = cache.num_slots
-    # 64 rows the requests wrote (their K scales are set), copied and swapped
-    # into 128 rows nothing has written yet
-    written = cache.k_scale[0][0, :N] != 0
     src, free = torch.nonzero(written)[:64, 0], torch.nonzero(~written)[:128, 0]
     if len(src) < 64 or len(free) < 128:
         raise AssertionError(f"{label}: {len(src)} written and {len(free)} free pool rows")
@@ -881,8 +1156,21 @@ def pool_rows_and_scoring(label: str, llm, prompts, bf16_first) -> None:
                 raise AssertionError(f"{label}: copy or swap changed its source rows")
             n += 1
     print(f"serve: {label}: copy_slots and swap_out_rows -> swap_in_rows bit-exact over "
-          f"{n} arrays ({ex.cfg.num_layers} layers x pool, k_scale, v_scale), 64 rows each",
-          flush=True)
+          f"{n} arrays ({ex.cfg.num_layers} layers x {what}), 64 rows each", flush=True)
+
+
+def pool_rows_and_scoring(label: str, llm, prompts, bf16_first) -> None:
+    """On the int8-KV executor: copy_slots and swap_out_rows -> swap_in_rows
+    bit-exact over the pool and both scale arrays, one beam request, and
+    calc_logits against the prefill logits of the same prompt."""
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+
+    ex = llm.executor
+    cache = ex.cache
+    if not (cache.quantized and len(cache.arrays()) == 3 and cache.k[0].dtype == torch.int8):
+        raise AssertionError(f"{label}: the serving pool is not int8 with scales")
+    # rows the requests wrote: their K scales are set
+    pool_rows(label, ex, cache.k_scale[0][0, : cache.num_slots] != 0, "pool, k_scale, v_scale")
 
     with DynamicBatchGenerator(llm) as gen:
         t0 = time.monotonic()
@@ -969,6 +1257,115 @@ def load_qwen(seed: int):
     return llm
 
 
+def deepseek_engine_config():
+    """bench.py:433-436's DeepSeek serving stage: batch 8, max_model_len 3072
+    (2816-token prompts), 512-token chunks; the latent pool holds 8 x 3072 tokens."""
+    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+
+    return EngineConfig(
+        max_model_len=3072,
+        cache=CacheConfig(page_size=16),
+        scheduler=SchedulerConfig(max_batch=8, chunk_size=512),
+    )
+
+
+def load_deepseek(label: str, hf: dict, seed: int, quant_experts: bool = True):
+    """DeepSeek-V2-Lite from HF-format tensors made from ``seed``, converted by
+    the port's map_hf_params one layer at a time (neither the host nor the GPU
+    holds the checkpoint twice), into ``LLM``."""
+    from zhilight_tpu_torch.config import QuantConfig, adapt_hf_config
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.utils.hf_loader import map_hf_params
+
+    cfg, qcfg = adapt_hf_config(hf), QuantConfig.from_hf_config(hf)
+    keep, params, n_tensors = {}, {}, 0
+    t0 = time.monotonic()
+
+    def convert(group):
+        nonlocal n_tensors
+        n_tensors += len(group)
+        tree = map_hf_params(group, cfg, quant_method="gptq", device="cuda")
+        params.setdefault("layers", {}).update(tree.pop("layers", {}))
+        params.update(tree)
+
+    group, layer = [], None
+    for name, value in deepseek_hf_tensors(hf, seed, keep, quant_experts):
+        key = name.split(".")[2] if name.startswith("model.layers.") else name
+        if group and key != layer:
+            convert(group)
+            group = []
+        layer = key
+        group.append((name, value))
+    convert(group)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    llm = LLM(model_config=cfg, quant_config=qcfg, params=params,
+              engine_config=deepseek_engine_config(), device="cuda")
+    mlp = llm.executor.params["layers"][str(cfg.num_layers - 1)]["mlp"]
+    router, down = mlp["router"]["w"], mlp["experts"]["down_proj"]
+    kinds = ({k: (str(v.dtype), tuple(v.shape)) for k, v in down.items()})
+    print(f"serve: {label}: {n_tensors} HF tensors made from seed {seed} in {keep['make_s']:.1f} s; "
+          f"map_hf_params(gptq) layer by layer in {load_s - keep['make_s']:.1f} s (load and "
+          f"conversion {load_s:.1f} s in all); router {router.dtype} {tuple(router.shape)}, "
+          f"expert down_proj stack {kinds}", flush=True)
+    if router.dtype != torch.float32:
+        raise AssertionError(f"{label}: the router is {router.dtype}, not float32")
+    # K = moe_intermediate_size padded to whole pairs of groups (1408 -> 1536)
+    gs2 = 2 * hf["quantization_config"]["group_size"]
+    k_pad = -(-hf["moe_intermediate_size"] // gs2) * gs2
+    want = (hf["n_routed_experts"], k_pad // 2, hf["hidden_size"])
+    if quant_experts and (down["w_p"].dtype != torch.uint8 or down["w_p"].shape != want
+                          or down["scales"].shape[1] != 2 * k_pad // gs2):
+        raise AssertionError(f"{label}: expert down_proj stack is not uint8 {want}: {kinds}")
+    return llm
+
+
+def dense_expert_path(args) -> None:
+    """DeepSeek-V2-Lite's configuration with bf16 expert stacks at 4 layers: the
+    dense grouped-expert path (the library's grouped GEMM with the group ends on
+    the device) beside the MLA kernels, logits against the plain path; and that
+    grouped product against one fp32 product per expert."""
+    from zhilight_tpu_torch.models import moe as moe_mod
+
+    label = "DeepSeek-V2-Lite-bf16-experts-4-layers"
+    llm = load_deepseek(label, dict(DEEPSEEK_V2_LITE_GPTQ, num_hidden_layers=4), args.seed,
+                        quant_experts=False)
+    ex = llm.executor
+    experts = ex.params["layers"]["3"]["mlp"]["experts"]
+    if "w" not in experts["gate_proj"] or experts["gate_proj"]["w"].shape != (64, 2048, 1408):
+        raise AssertionError(f"{label}: the expert stacks are not dense")
+    rng = np.random.default_rng(args.seed)
+    sizes = torch.from_numpy(rng.multinomial(48, np.ones(64) / 64)).cuda()
+    x = _randn(rng, 48, 2048)
+    got = moe_mod._grouped_mm(x, experts["gate_proj"]["w"], sizes).float()
+    want = moe_mod._grouped_mm(x.float(), experts["gate_proj"]["w"].float(), sizes)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"serve: {label}: grouped product (48 rows over 64 experts) vs one fp32 product per "
+          f"expert: max rel err {rel:.3e} (tolerance {W4A16_TOL})", flush=True)
+    if not rel <= W4A16_TOL:
+        raise AssertionError(f"{label}: grouped product differs: {rel}")
+
+    prompts = [rng.integers(3, ex.cfg.vocab_size, n).tolist() for n in (100, 700, 16, 1500)]
+    got = _prefill_logits(ex, prompts[0])
+    with plain_kernels():
+        want = _prefill_logits(ex, prompts[0])
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    d_got, d_want = _decode_step_logits(ex, prompts)
+    scale = d_want.abs().amax(-1)
+    d_rel = ((d_got - d_want).abs().amax(-1) / scale).max().item()
+    pick = d_got.argmax(-1)
+    slack = ((d_want.amax(-1) - d_want.gather(-1, pick[:, None])[:, 0]) / scale).max().item()
+    print(f"serve: {label}: logits kernel vs plain path: first token max rel err {rel:.3e}, "
+          f"argmax {int(got.argmax())} vs {int(want.argmax())}; decode step (batch 4) max rel err "
+          f"{d_rel:.3e}, worst pick {slack:.3e} below the plain maximum (tolerance {LOGIT_TOL})",
+          flush=True)
+    if not (torch.isfinite(got).all() and torch.isfinite(d_got).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    if rel > LOGIT_TOL or int(got.argmax()) != int(want.argmax()) or d_rel > LOGIT_TOL or slack > LOGIT_TOL:
+        raise AssertionError(f"{label}: logits differ from the plain path")
+    release_pool(llm)
+
+
 def phase_serve(rec: dict, args) -> None:
     from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from zhilight_tpu_torch.llm import LLM
@@ -1010,15 +1407,32 @@ def phase_serve(rec: dict, args) -> None:
     args.llms[label] = llm8
     release_pool(llm8)
 
+    label = "DeepSeek-V2-Lite-GPTQ-Int4"
+    llm = load_deepseek(label, DEEPSEEK_V2_LITE_GPTQ, args.seed)
+    ex = llm.executor
+    print(f"serve: {label}: latent pool of {ex.num_pages} pages x {ex.page_size} = "
+          f"{ex.cache.num_slots} tokens, {pool_bytes(ex.cache) / 1e9:.3f} GB "
+          f"({ex._kv_bytes_per_token()} bytes per token)", flush=True)
+    serve_path(label, llm, rec, args.seed, DEEPSEEK_LENS)
+    if not ex.cache.is_latent:
+        raise AssertionError(f"{label}: the serving pool is not a latent pool")
+    # rows the requests wrote are non-zero
+    pool_rows(label, ex, ex.cache.latent[0][0].float().abs().sum(-1) != 0, "latent pool")
+    args.llms[label] = llm
+    release_pool(llm)
+
+    dense_expert_path(args)
+
 
 # ---------------------------------------------------------------------------
 # phase: timing (bench.py's method)
 # ---------------------------------------------------------------------------
 
-TIMING = {  # path -> (decode batch, context, time sampled decode too)
-    "MiniCPM-2B": (16, 512, True),
-    "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False),
-    "Qwen2.5-14B-GPTQ-Int4-int8kv": (8, 3712, False),
+TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prompt)
+    "MiniCPM-2B": (16, 512, True, 3712),
+    "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False, 3712),
+    "Qwen2.5-14B-GPTQ-Int4-int8kv": (8, 3712, False, 3712),
+    "DeepSeek-V2-Lite-GPTQ-Int4": (8, 2816, False, 2816),
 }
 
 
@@ -1032,7 +1446,8 @@ def phase_timing(args, smi: str) -> None:
         release_pool(llm)
 
 
-def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, smi: str) -> None:
+def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT: int,
+                smi: str) -> None:
     from zhilight_tpu_torch.models.base import PrefillMeta
     from zhilight_tpu_torch.ops.sampling import SamplingParams
 
@@ -1069,7 +1484,7 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, smi: st
     tok_s = decode_tok_s(greedy)
     sampled_tok_s = decode_tok_s(sampled) if sampled_too else None
 
-    PROMPT, CHUNK = 3712, 512
+    CHUNK = 512
     n_chunks = (PROMPT + CHUNK - 1) // CHUNK
     n_pages = (PROMPT + 1 + S - 1) // S
     prompt = np.random.RandomState(0).randint(2, 1000, PROMPT).astype(np.int32)
@@ -1129,7 +1544,7 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, smi: st
     # where the time goes: one traced decode window and one traced prefill,
     # after the timed runs (the trace does not touch the numbers above)
     profile(f"{label} decode window", lambda: run(reuse_carry=True))
-    profile(f"{label} prefill 3712", prefill_once)
+    profile(f"{label} prefill {PROMPT}", prefill_once)
 
 
 def profile(what: str, fn) -> None:

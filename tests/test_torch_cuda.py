@@ -12,7 +12,9 @@ bit-exact, for bf16 and for int8 rows; attention outputs agree within 2e-2
 absolute (bf16 output rounding plus the kernels' fp32 probabilities against
 the plain version's bf16-rounded ones), over bf16 and over int8 pools; the
 int4 matmul within 1e-2 of the largest plain output (bf16 output rounding,
-fp32 sums in another order).
+fp32 sums in another order), and so the grouped int4 matmul over expert
+stacks; the latent row write is bit-exact and the MLA latent decode within
+2e-2 absolute, as the other attention kernels.
 """
 
 import dataclasses
@@ -32,7 +34,8 @@ from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 from zhilight_tpu_torch.ops.cuda import kv_write as W
 from zhilight_tpu_torch.ops.cuda import prefill_attention as P
 from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
-from zhilight_tpu_torch.ops.quant import int4_linear, pack_int4
+from zhilight_tpu_torch.ops.cuda import quant_ragged as R
+from zhilight_tpu_torch.ops.quant import int4_linear, pack_expert_int4, pack_int4, ragged_layout
 from zhilight_tpu_torch.utils import quant_convert as QC
 from zhilight_tpu_torch.utils.quant_convert import planar_from_gptq
 
@@ -438,3 +441,104 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         A.paged_decode_attention_hm_q(qb, pool8, sc[:, :10], sc, tables, ctx, S, 0.125)
     with pytest.raises(NotImplementedError):
         A.paged_decode_attention_hm_q(qb, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)
+    # the latent decode is built for bf16 rows of k_dim 576 / v_dim 512
+    lat = torch.zeros(64, 576, dtype=torch.bfloat16, device=cuda)
+    q576 = torch.zeros(2, 4, 576, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        A.paged_mla_decode(q576.float(), lat.float(), tables, ctx, S, 0.1, v_dim=512)  # fp32
+    with pytest.raises(NotImplementedError):
+        A.paged_mla_decode(q576[..., :192].contiguous(), lat, tables, ctx, S, 0.1, v_dim=128)
+    with pytest.raises(NotImplementedError):
+        A.paged_mla_decode(q576, lat, tables, ctx, S, 0.1, v_dim=512, emit_partial=True)
+    # the grouped int4 matmul takes bf16 rows and the shapes the reference
+    # routes to its kernel (N % 128, group size % 32, groups inside a plane)
+    te, occ = torch.zeros(2, dtype=torch.int32, device=cuda), torch.ones(1, dtype=torch.int32, device=cuda)
+    for K, N, gs, dtype in ((256, 128, 128, torch.float32), (256, 64, 128, torch.bfloat16),
+                            (256, 128, 16, torch.bfloat16), (384, 128, 128, torch.bfloat16)):
+        w_p, sc3, z3 = _expert_stack(np.random.default_rng(0), cuda, 2, K, N, gs)
+        with pytest.raises(NotImplementedError):
+            R.w4a16_ragged_matmul(torch.zeros(16, K, dtype=dtype, device=cuda), w_p, sc3, z3, te, occ)
+
+
+# ---------------------------------------------------------------------------
+# MLA latent pool and MoE expert stacks (DeepSeek-V2-Lite's shapes)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("X,dtype", [(576, torch.bfloat16), (640, torch.bfloat16),
+                                     (36, torch.bfloat16), (21, torch.float32), (7, torch.int8)])
+@pytest.mark.parametrize("start,n", [(0, 8), (21, 40), (2304, 512)])
+def test_write_rows_2d_is_exact(cuda, start, n, X, dtype):
+    rng = np.random.default_rng(start + X)
+    pages = (start + n) // S + 3
+    table = rng.permutation(pages)
+    pos = np.arange(start, start + n)
+    slots = torch.from_numpy((table[pos // S] * S + pos % S).astype(np.int32)).to(cuda)
+    slots[n // 3] = -1
+    mk = lambda *shape: (_bf16(rng, cuda, *shape).float() * 20).to(dtype)
+    rows, pool = mk(n, X), mk(1, pages * S, X)
+    got = W.write_rows_2d(pool.clone(), rows, slots)
+    assert got.shape == pool.shape
+    assert torch.equal(got, W.write_rows_2d_plain(pool.clone(), rows, slots))
+    # a 2-D pool, and rows in another dtype than the pool's (cast first)
+    got = W.write_rows_2d(pool[0].clone(), rows.float(), slots)
+    assert torch.equal(got, W.write_rows_2d_plain(pool[0].clone(), rows.float(), slots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,ctx_max,stored", [(8, 16, 2816, 576), (3, 16, 300, 576),
+                                                (8, 16, 1000, 640), (2, 5, 130, 576),
+                                                (1, 40, 3000, 576)])
+def test_mla_decode_matches_plain(cuda, B, H, ctx_max, stored):
+    rng = np.random.default_rng(B + ctx_max)
+    ctx = rng.integers(1, ctx_max, B).astype(np.int32)
+    ctx[0] = ctx_max
+    if B > 2:
+        ctx[2] = 0
+    tables, npages = _tables(rng, ctx, cuda)
+    pool = _bf16(rng, cuda, npages * S, stored)
+    q = _bf16(rng, cuda, B, H, 576)
+    args = (q, pool, tables, torch.from_numpy(ctx).to(cuda), S, 1.0 / np.sqrt(192))
+    got = A.paged_mla_decode(*args, v_dim=512)
+    want = A.paged_mla_decode_plain(*args, v_dim=512)
+    assert got.shape == (B, H, 512) and torch.isfinite(got).all()
+    if B > 2:
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    # the head-major entry point's latent mode is the same kernel
+    hm = A.paged_decode_attention_hm(q, pool[None], *args[2:], v_dim=512)
+    assert torch.equal(hm, got)
+
+
+def _expert_stack(rng, device, E, K, N, gs, pad_groups=0):
+    q = torch.from_numpy(rng.integers(0, 16, (E, K, N)).astype(np.int8)).to(device)
+    s = torch.from_numpy((rng.random((E, K // gs, N)) * 0.004 + 0.001).astype(np.float32)).to(device)
+    z = torch.from_numpy(rng.integers(1, 16, (E, K // gs, N)).astype(np.float32)).to(device)
+    if pad_groups:  # the loader's zero-scale pad groups at the end of K
+        s[:, -pad_groups:] = 0
+    return pack_expert_int4(q), s, z
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R_,TM,E,K,N,gs,pad", [
+    (48, 8, 64, 2048, 1408, 128, 0),    # DeepSeek-V2-Lite decode, gate/up
+    (48, 8, 64, 1536, 2048, 128, 1),    # ... down, K 1408 padded to 1536
+    (3072, 64, 64, 2048, 1408, 128, 0), # a 512-token chunk
+    (700, 64, 8, 256, 128, 64, 0),
+    (5, 8, 16, 128, 256, 32, 0),        # few rows, many experts
+    (100, 32, 4, 256, 384, 128, 0),
+])
+def test_w4a16_ragged_matmul_matches_plain(cuda, R_, TM, E, K, N, gs, pad):
+    rng = np.random.default_rng(R_ + K)
+    flat = rng.integers(0, E, R_)
+    flat[flat == 1] = 0  # an expert without rows
+    w_p, s, z = _expert_stack(rng, cuda, E, K, N, gs, pad)
+    _, dest, tile_expert, num_occ, mp = ragged_layout(torch.from_numpy(flat).to(cuda), E + 1, TM,
+                                                      occ_experts=E)
+    x = torch.zeros(mp, K, dtype=torch.bfloat16, device=cuda)
+    x[dest] = _bf16(rng, cuda, R_, K)
+    got = R.w4a16_ragged_matmul(x, w_p, s, z, tile_expert, num_occ)
+    want = R.w4a16_ragged_matmul_plain(x, w_p, s, z, tile_expert, num_occ)
+    got, want = got[dest].float(), want[dest].float()
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2

@@ -181,8 +181,10 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
                                             torch.empty(1, **i32), S, 0.125)
 
 
-@pytest.mark.parametrize("kw", [dict(emit_partial=True), dict(v_dim=64)])
+@pytest.mark.parametrize("kw", [dict(emit_partial=True), dict(emit_partial=True, v_dim=64)])
 def test_decode_attention_modes_of_later_slices_raise(kw):
+    """The flash-partial output raises, in the default and in the latent mode
+    (the latent mode itself is held to the JAX package in test_torch_mla.py)."""
     q, k, v, tables, ctx = decode_setup(B=2)
     with pytest.raises(NotImplementedError):
         A.paged_decode_attention_hm(T(q), T(_pool(k, v)), T(tables), T(ctx), S, 0.125, **kw)

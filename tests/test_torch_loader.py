@@ -134,33 +134,32 @@ def test_map_hf_params_matches_reference(method, act_order, dtype):
 
 
 def test_map_hf_params_refuses_what_is_not_ported():
-    tensors = [("model.layers.0.mlp.experts.0.gate_proj.weight", np.zeros((8, 8), np.float32))]
-    with pytest.raises(NotImplementedError):
-        TH.map_hf_params(tensors, adapt_hf_config(HF_CONFIG))
     with pytest.raises(NotImplementedError):
         TH.map_hf_params([], adapt_hf_config(HF_CONFIG), quant_method="fp8")
+    with pytest.raises(ValueError, match="unmapped"):
+        TH.map_hf_params([("model.layers.0.mlp.nonsense.weight", np.zeros((8, 8), np.float32))],
+                         adapt_hf_config(HF_CONFIG))
 
 
 @pytest.mark.parametrize("name", [
     "model.layers.3.mlp.gate.weight",                            # Qwen2-MoE / DeepSeek router
     "model.layers.3.mlp.gate.e_score_correction_bias",
-    "model.layers.3.mlp.shared_expert.up_proj.qweight",
+    "model.layers.3.mlp.shared_expert.up_proj.weight",
     "model.layers.3.mlp.shared_experts.down_proj.weight",
     "model.layers.3.mlp.shared_expert_gate.weight",
-    "model.layers.3.mlp.experts.7.down_proj.qzeros",
+    "model.layers.3.mlp.experts.7.down_proj.weight",
     "model.layers.3.block_sparse_moe.experts.0.w1.weight",       # Mixtral
     "model.layers.3.self_attn.kv_a_proj_with_mqa.weight",        # DeepSeek MLA
     "model.layers.3.self_attn.q_b_proj.weight",
 ])
-def test_map_hf_params_refuses_moe_and_mla_names(name):
-    """Names of the MoE and MLA models raise instead of being dropped, also
-    from the non-strict checkpoint loader; the dense names beside them map
-    as the reference maps them."""
-    with pytest.raises(NotImplementedError):
-        TH.map_hf_params([(name, np.zeros((8, 8), np.float32))], adapt_hf_config(HF_CONFIG),
-                         strict=False, quant_method="gptq")
-    for dense in ("model.layers.3.mlp.gate_proj.weight", "model.layers.3.self_attn.q_proj.bias"):
-        assert TH.map_hf_name(dense) == JH.map_hf_name(dense)[:2]
+def test_map_hf_names_of_moe_and_mla_match_jax(name):
+    """The MoE and MLA names map to the reference's paths, transposes and
+    expert indices (the leaves themselves are held equal in
+    test_torch_moe.py); so do the dense names beside them."""
+    assert TH.map_hf_name(name) == JH.map_hf_name(name)
+    for dense in ("model.layers.3.mlp.gate_proj.weight", "model.layers.3.self_attn.q_proj.bias",
+                  "model.layers.3.rotary_emb.inv_freq", "model.layers.3.unknown.weight"):
+        assert TH.map_hf_name(dense) == JH.map_hf_name(dense)
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,8 @@ device through :meth:`upload` (pinned, asynchronous), so dispatching a step
 never waits for the device.
 
 The KV pool is in the model's dtype, or int8 with fp32 scales under
-``CacheConfig(kv_dtype="int8")``. The pool-row operations (:meth:`copy_slots`
+``CacheConfig(kv_dtype="int8")``; an MLA model's is a latent pool in the
+model's dtype. The pool-row operations (:meth:`copy_slots`
 for beam search, :meth:`swap_out_rows` / :meth:`swap_in_rows` for swap
 preemption) move rows of every array of the cache, so they serve both kinds;
 :meth:`run_score` / :meth:`run_hidden` run a whole sequence on a scratch cache.
@@ -29,7 +30,7 @@ import torch
 
 from ..config import EngineConfig, ModelConfig
 from ..config.engine_config import SchedulerConfig
-from ..kvcache.paged import KVCache, new_kv_cache
+from ..kvcache.paged import KVCache, new_kv_cache, new_latent_cache
 from ..models import llama as llama_mod
 from ..models.base import DecodeMeta, PackedPrefillMeta, PrefillMeta
 from ..ops.sampling import (
@@ -63,8 +64,6 @@ class ModelExecutor:
         pcfg = engine_cfg.parallel
         if pcfg.num_devices > 1 or pcfg.num_hosts > 1:
             raise NotImplementedError("tensor, data and pipeline parallelism are not ported yet")
-        if cfg.mla.enabled or cfg.moe.enabled:
-            raise NotImplementedError("MLA and MoE models are not ported yet")
         if engine_cfg.cache.kv_dtype not in ("bfloat16", "int8", cfg.dtype):
             raise NotImplementedError(f"KV dtype {engine_cfg.cache.kv_dtype} is not ported yet")
         self.device = torch.device(device)
@@ -121,8 +120,11 @@ class ModelExecutor:
 
     def _kv_bytes_per_token(self) -> int:
         """Pool bytes one token takes over all layers: K and V elements in
-        the pool's dtype and, for an int8 pool, their two fp32 scales."""
+        the pool's dtype and, for an int8 pool, their two fp32 scales; for an
+        MLA model one latent row (2 bytes an element) per layer."""
         cfg = self.cfg
+        if cfg.mla.enabled:
+            return cfg.num_layers * cfg.mla.latent_dim * 2
         rows = cfg.num_layers * 2 * cfg.num_kv_heads
         if self.cache_cfg.kv_dtype == "int8":
             return rows * cfg.dim_head + rows * 4
@@ -152,8 +154,15 @@ class ModelExecutor:
     def new_cache(self, num_pages: int, quantized: Optional[bool] = None) -> KVCache:
         """A zeroed cache of ``num_pages`` pages in the serving pool's
         geometry: int8 with scales under ``kv_dtype="int8"`` (or as
-        ``quantized`` says), else in the model's dtype."""
+        ``quantized`` says), else in the model's dtype. An MLA model gets a
+        latent cache in the model's dtype whatever ``kv_dtype`` says: the
+        latent pool has no int8 form, as in the reference."""
         cfg = self.cfg
+        if cfg.mla.enabled:
+            return new_latent_cache(
+                cfg.num_layers, num_pages, self.page_size, cfg.mla.latent_dim,
+                cfg.torch_dtype, device=self.device,
+            )
         if quantized is None:
             quantized = self.cache_cfg.kv_dtype == "int8"
         return new_kv_cache(

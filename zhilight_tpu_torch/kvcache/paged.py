@@ -11,8 +11,16 @@ stores int8 elements in the same pool geometry plus one fp32 absmax scale per
 every array of the cache then has its slot dimension at dim 1, and an
 attention block that owns one KV head reads its tokens' scales from
 neighbouring addresses. The last column is a spare that absorbs the scales of
-skipped rows. Slot-major and MLA latent pools are later slices of the port and
-raise ``NotImplementedError``.
+skipped rows. Slot-major pools are a later slice of the port and raise
+``NotImplementedError``.
+
+An MLA model keeps one latent row per token instead (:func:`new_latent_cache`):
+each layer's pool is ``[1, num_pages * page_size, latent_dim]``, the
+compressed KV (``kv_lora_rank``) followed by the rope key. The leading unit
+dimension keeps the slot dimension at dim 1, as in every other array of the
+cache. The reference pads the row to a multiple of 128 lanes for its TPU
+kernels; the port stores ``latent_dim`` elements (576 for DeepSeek-V2: 1152
+bytes, a multiple of 16).
 
 Writes update the pool in place (PyTorch has no buffer donation to emulate):
 :func:`write_kv` returns the same cache object it was given.
@@ -27,35 +35,43 @@ import torch
 
 from ..ops.cuda import kv_write
 
-__all__ = ["KVCache", "new_kv_cache", "write_kv", "gather_kv", "gather_hm", "gather_scales",
-           "slot_indices"]
+__all__ = ["KVCache", "new_kv_cache", "new_latent_cache", "write_kv", "write_latent",
+           "gather_kv", "gather_hm", "gather_scales", "gather_latent", "slot_indices"]
 
 
 @dataclass
 class KVCache:
     """Per-layer head-major packed pools ``[Hkv, N_slots, 2D]``; for an int8
     cache also the per-layer fp32 scales ``[Hkv, N_slots + 1]`` of K and of V
-    (the last column a spare)."""
+    (the last column a spare). An MLA cache holds ``latent`` instead of
+    ``k``: per-layer latent pools ``[1, N_slots, latent_dim]``."""
 
-    k: List[torch.Tensor]
+    k: Optional[List[torch.Tensor]] = None
     page_size: int = 16
     k_scale: Optional[List[torch.Tensor]] = None
     v_scale: Optional[List[torch.Tensor]] = None
+    latent: Optional[List[torch.Tensor]] = None
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    @property
+    def is_latent(self) -> bool:
+        return self.latent is not None
+
     def arrays(self) -> List[List[torch.Tensor]]:
         """Every per-layer array list of the cache (the pools, then the
         scales of an int8 cache). Each array's slot dimension is dim 1."""
+        if self.is_latent:
+            return [self.latent]
         if self.quantized:
             return [self.k, self.k_scale, self.v_scale]
         return [self.k]
 
     @property
     def num_slots(self) -> int:
-        return self.k[0].shape[1]
+        return self.arrays()[0][0].shape[1]
 
     @property
     def num_pages(self) -> int:
@@ -63,7 +79,7 @@ class KVCache:
 
     @property
     def num_layers(self) -> int:
-        return len(self.k)
+        return len(self.arrays()[0])
 
 
 def new_kv_cache(
@@ -93,6 +109,23 @@ def new_kv_cache(
                 for _ in range(num_layers)]
 
     return KVCache(k=pools, page_size=page_size, k_scale=scales(), v_scale=scales())
+
+
+def new_latent_cache(
+    num_layers: int,
+    num_pages: int,
+    page_size: int,
+    latent_dim: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: Optional[torch.device] = None,
+) -> KVCache:
+    """A zeroed MLA latent cache: one ``[1, N_slots, latent_dim]`` pool per
+    layer in ``dtype``. There is no int8 form, as in the reference."""
+    shape = (1, num_pages * page_size, latent_dim)
+    return KVCache(
+        latent=[torch.zeros(shape, dtype=dtype, device=device) for _ in range(num_layers)],
+        page_size=page_size,
+    )
 
 
 def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,6 +169,17 @@ def write_kv(
     return cache
 
 
+def write_latent(
+    cache: KVCache,
+    layer: int,
+    latent_new: torch.Tensor,    # [T, latent_dim]
+    slot_mapping: torch.Tensor,  # [T] int32; < 0 => skip
+) -> KVCache:
+    """Write new latent rows into layer ``layer``'s pool, in place."""
+    kv_write.write_rows_2d(cache.latent[layer], latent_new, slot_mapping)
+    return cache
+
+
 def slot_indices(page_indices: torch.Tensor, page_size: int) -> torch.Tensor:
     """[..., pages] page ids -> [..., pages*page_size] slot ids (padding
     pages, < 0, read page 0 and are masked by the caller)."""
@@ -176,3 +220,8 @@ def gather_kv(
         k = (k.float() * ks[..., None]).to(torch.bfloat16)
         v = (v.float() * vs[..., None]).to(torch.bfloat16)
     return k, v
+
+
+def gather_latent(cache: KVCache, layer: int, page_indices: torch.Tensor) -> torch.Tensor:
+    """Gather latent pages into ``[..., pages*page_size, latent_dim]``."""
+    return cache.latent[layer][0][slot_indices(page_indices, cache.page_size)]

@@ -1,9 +1,11 @@
-"""LLaMA-family dense transformer (counterpart of ``zhilight_tpu/models/llama.py``).
+"""LLaMA-family transformer (counterpart of ``zhilight_tpu/models/llama.py``).
 
-Covers the dense architectures of the reference: llama / mistral / qwen2
+Covers the architectures of the reference: llama / mistral / qwen2
 (attention bias) / qwen3 (qk-norm) / cohere (parallel residual, LayerNorm,
 logit_scale) / MiniCPM "cpm_dragonfly" (scale_emb, depth-scaled residual,
-dim_model_base logit scaling, tied head). Parameters are the reference's
+dim_model_base logit scaling, tied head), and the MLA attention
+(``models/mla.py``) and MoE feed-forward (``models/moe.py``) of DeepSeek-V2/V3,
+Qwen2-MoE and Mixtral. Parameters are the reference's
 nested dict layout holding torch tensors; forward functions run eagerly and
 write the paged KV pool in place.
 
@@ -12,8 +14,9 @@ new K|V rows (``ops.cuda.kv_write``), then prefill chunks (single or packed)
 run ``ops.cuda.prefill_attention`` and decode steps
 ``ops.cuda.attn_headmajor``; over an int8 cache both take their ``_q`` forms
 with the layer's scales. Those wrappers launch the CUDA kernels for CUDA
-tensors and run their plain PyTorch versions for CPU tensors. MoE, MLA,
-window side-KV and fused write+attend are later slices.
+tensors and run their plain PyTorch versions for CPU tensors. An MLA model
+keeps a latent pool instead and attends through ``models/mla.py``. Window
+side-KV and fused write+attend are later slices.
 """
 
 from __future__ import annotations
@@ -49,10 +52,8 @@ Params = Dict[str, Any]
 
 
 def build_rope(cfg: ModelConfig, max_model_len: int = 0) -> RopeTable:
-    if cfg.mla.enabled:
-        raise NotImplementedError("MLA models are not ported yet")
     return build_rope_table(
-        cfg.dim_head, cfg.rope_theta, cfg.rope, cfg.max_position_embeddings, max_model_len
+        cfg.mla.qk_rope_head_dim if cfg.mla.enabled else cfg.dim_head, cfg.rope_theta, cfg.rope, cfg.max_position_embeddings, max_model_len
     )
 
 
@@ -140,6 +141,14 @@ def dense_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return linear(p["down_proj"], gated_act(g, u, cfg.activate_fn))
 
 
+def mlp_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, layer_idx: int) -> torch.Tensor:
+    if cfg.is_moe_layer(layer_idx):
+        from .moe import moe_layer
+
+        return moe_layer(p, cfg, x)
+    return dense_mlp(p, cfg, x)
+
+
 def decoder_layer(
     p: Params,
     cfg: ModelConfig,
@@ -154,18 +163,20 @@ def decoder_layer(
 ) -> Tuple[torch.Tensor, KVCache]:
     """Pre-norm block: sequential residual by default, Cohere's parallel
     variant, MiniCPM's depth-scaled residual (scale_depth / sqrt(L))."""
-    if cfg.is_moe_layer(layer_idx):
-        raise NotImplementedError("MoE layers are not ported yet")
+    if cfg.mla.enabled:
+        from .mla import mla_attention_layer as attn_fn
+    else:
+        attn_fn = attention_layer
     res_scale = cfg.scale_depth / math.sqrt(cfg.num_layers) if cfg.scale_depth != 1.0 else 1.0
     h = _norm(p["ln_attn"], cfg, x)
-    attn_out, cache = attention_layer(
+    attn_out, cache = attn_fn(
         p["attn"], cfg, rope, h, positions, cache, layer_idx, meta, mode, rot=rot
     )
     if cfg.parallel_residual:
-        return x + attn_out + dense_mlp(p["mlp"], cfg, h), cache
+        return x + attn_out + mlp_layer(p["mlp"], cfg, h, layer_idx), cache
     x = x + attn_out * res_scale
     h = _norm(p["ln_ff"], cfg, x)
-    return x + dense_mlp(p["mlp"], cfg, h) * res_scale, cache
+    return x + mlp_layer(p["mlp"], cfg, h, layer_idx) * res_scale, cache
 
 
 # ---------------------------------------------------------------------------
@@ -305,8 +316,6 @@ def init_params(
     """Random weights in the reference's layout and scales (normal /
     sqrt(fan_in), embeddings 0.02, norms 1), drawn on ``device`` from a
     generator seeded with ``seed``."""
-    if cfg.mla.enabled or cfg.moe.enabled:
-        raise NotImplementedError("MLA and MoE models are not ported yet")
     dtype = dtype or cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     d, hq, hkv, dh = cfg.dim_model, cfg.num_heads, cfg.num_kv_heads, cfg.dim_head
@@ -325,18 +334,38 @@ def init_params(
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
 
-    def layer() -> Params:
-        attn = {
-            "q_proj": lin(d, hq * dh, cfg.attn_bias),
-            "k_proj": lin(d, hkv * dh, cfg.attn_bias),
-            "v_proj": lin(d, hkv * dh, cfg.attn_bias),
-            "o_proj": lin(hq * dh, d),
-        }
-        if cfg.qk_norm:
+    def layer(i: int) -> Params:
+        if cfg.mla.enabled:
+            m = cfg.mla
+            attn = {
+                "kv_a_proj": lin(d, m.kv_lora_rank + m.qk_rope_head_dim),
+                "kv_a_norm": {"w": ones(m.kv_lora_rank)},
+                "kv_b_proj": lin(m.kv_lora_rank, hq * (m.qk_nope_head_dim + m.v_head_dim)),
+                "o_proj": lin(hq * m.v_head_dim, d),
+            }
+            if m.q_lora_rank:
+                attn["q_a_proj"] = lin(d, m.q_lora_rank)
+                attn["q_a_norm"] = {"w": ones(m.q_lora_rank)}
+                attn["q_b_proj"] = lin(m.q_lora_rank, hq * m.qk_head_dim)
+            else:
+                attn["q_proj"] = lin(d, hq * m.qk_head_dim)
+        else:
+            attn = {
+                "q_proj": lin(d, hq * dh, cfg.attn_bias),
+                "k_proj": lin(d, hkv * dh, cfg.attn_bias),
+                "v_proj": lin(d, hkv * dh, cfg.attn_bias),
+                "o_proj": lin(hq * dh, d),
+            }
+        if cfg.qk_norm and not cfg.mla.enabled:
             attn["q_norm"] = {"w": ones(dh)}
             attn["k_norm"] = {"w": ones(dh)}
-        mlp = {"gate_proj": lin(d, cfg.dim_ff), "up_proj": lin(d, cfg.dim_ff),
-               "down_proj": lin(cfg.dim_ff, d)}
+        if cfg.is_moe_layer(i):
+            from .moe import init_moe_params
+
+            mlp = init_moe_params(cfg, gen, dtype, device)
+        else:
+            mlp = {"gate_proj": lin(d, cfg.dim_ff), "up_proj": lin(d, cfg.dim_ff),
+                   "down_proj": lin(cfg.dim_ff, d)}
         p = {"ln_attn": {"w": ones(d)}, "attn": attn, "mlp": mlp}
         if not cfg.parallel_residual:
             p["ln_ff"] = {"w": ones(d)}
@@ -344,7 +373,7 @@ def init_params(
 
     params: Params = {
         "embedding": {"w": dense((cfg.vocab_size, d), scale=0.02)},
-        "layers": {str(i): layer() for i in range(cfg.num_layers)},
+        "layers": {str(i): layer(i) for i in range(cfg.num_layers)},
         "final_norm": {"w": ones(d)},
     }
     if not cfg.tie_lm_head:

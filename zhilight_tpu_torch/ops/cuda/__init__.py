@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, one module per Pallas module they
-replace (``zhilight_tpu/ops/pallas/``): ``kv_write``, ``attn_headmajor`` and
-``prefill_attention`` (each over a bf16 pool and, in its ``_q`` functions,
-over an int8 pool with scales) and ``quant_matmul``. Each module holds its
-kernels' wrappers, their plain PyTorch versions and a launch counter on each
-wrapper;
+replace (``zhilight_tpu/ops/pallas/``): ``kv_write`` (the head-major pool and
+the 2-D latent pool), ``attn_headmajor`` and ``prefill_attention`` (each over
+a bf16 pool and, in its ``_q`` functions, over an int8 pool with scales;
+``attn_headmajor`` also holds the MLA latent decode), ``quant_matmul`` and
+``quant_ragged``. Each module holds its kernels' wrappers, their plain PyTorch
+versions and a launch counter on each wrapper;
 ``_build`` compiles the sources in ``zhilight_tpu_torch/csrc`` on first use."""

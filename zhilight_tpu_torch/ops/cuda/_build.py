@@ -4,7 +4,8 @@ Each source ``zhilight_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into its own shared library with a plain C interface,
 loaded with :mod:`ctypes`. The build happens on first use, into
 ``zhilight_tpu_torch/build/`` (listed in ``.gitignore``), under a file name
-keyed by a hash of the source and the flags, so an edited source is rebuilt
+keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. All missing libraries are compiled
 at once, one ``nvcc`` process each. Nothing here runs at import time: the
 package imports on a machine without CUDA, and only a kernel launch on a CUDA
@@ -30,7 +31,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
 
 SOURCES = ("kv_write", "attn_headmajor", "attn_headmajor_q", "prefill_attention",
-           "prefill_attention_q", "quant_matmul")
+           "prefill_attention_q", "quant_matmul", "kv_write_2d", "mla_decode", "quant_ragged")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -52,7 +53,9 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()
+    # the headers a source may include are part of its key: an edit there rebuilds
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_FLAGS).encode()).hexdigest()
     return src, _BUILD / f"{name}-{digest[:16]}.so"
 
 

@@ -17,9 +17,17 @@ does; the CUDA kernel keeps it in fp32 (inside the tolerance of bf16 outputs).
 The scales are head-major ``[Hkv, >= N]`` (``kvcache/paged.py``), where the
 reference keeps them ``[N, Hkv]``.
 
+The MLA latent mode of ``paged_decode_attention_hm`` (``v_dim > 0``: one
+shared latent row per token, scores over its first ``k_dim`` elements, values
+its first ``v_dim``) is :func:`paged_mla_decode`, the counterpart of
+``zhilight_tpu/ops/pallas/paged_attention.py`` ``paged_mla_decode`` (:791);
+its CUDA kernel is ``csrc/mla_decode.cu`` and its plain version
+:func:`paged_mla_decode_plain`. ``paged_decode_attention_hm(..., v_dim=...)``
+goes there.
+
 Like the TPU kernels, an empty slot (``context_lens[b] == 0``) yields zeros.
-The flash-partial output (``emit_partial``, window side-KV) and the MLA
-latent mode (``v_dim``) belong to later slices and raise.
+The flash-partial output (``emit_partial``, window side-KV) belongs to a later
+slice and raises.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import ctypes
 
 import torch
 
-from ...kvcache.paged import gather_hm, gather_scales
+from ...kvcache.paged import gather_hm, gather_scales, slot_indices
 from ..attention import NEG_INF, decode_attention
 from . import _build
 
@@ -37,6 +45,8 @@ __all__ = [
     "paged_decode_attention_hm_plain",
     "paged_decode_attention_hm_q",
     "paged_decode_attention_hm_q_plain",
+    "paged_mla_decode",
+    "paged_mla_decode_plain",
     "check_scales",
 ]
 
@@ -77,10 +87,16 @@ def paged_decode_attention_hm(
     v_dim: int = 0,
 ) -> torch.Tensor:
     """Attention output [B, Hq, D] of each slot's query over its first
-    ``context_lens[b]`` pool tokens. The reference's flash-partial output
-    (``emit_partial``) and MLA latent mode (``v_dim``) are not ported yet."""
-    if emit_partial or v_dim:
-        raise NotImplementedError("decode attention: emit_partial and v_dim are not ported yet")
+    ``context_lens[b]`` pool tokens. ``v_dim > 0`` is the MLA latent mode
+    (pool ``[1, N, stored]``, output [B, Hq, v_dim]; no sliding window). The
+    reference's flash-partial output (``emit_partial``) is not ported yet."""
+    if emit_partial:
+        raise NotImplementedError("decode attention: emit_partial is not ported yet")
+    if v_dim:
+        if sliding_window or kv_pool.dim() != 3 or kv_pool.shape[0] != 1:
+            raise ValueError("decode attention: the latent mode takes a [1, N, stored] pool "
+                             "and no sliding window")
+        return paged_mla_decode(q, kv_pool[0], page_tables, context_lens, page_size, scale, v_dim)
     if q.device.type == "cpu":
         return paged_decode_attention_hm_plain(
             q, kv_pool, page_tables, context_lens, page_size, scale, sliding_window
@@ -236,3 +252,102 @@ def paged_decode_attention_hm_q(
 
 paged_decode_attention_hm_q.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# MLA latent pool
+# ---------------------------------------------------------------------------
+
+def paged_mla_decode_plain(
+    q_eff: torch.Tensor,         # [B, H, k_dim]: absorbed q_latent | q_pe
+    latent_pool: torch.Tensor,   # [N, stored], stored >= k_dim
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int
+    page_size: int,
+    scale: float,
+    v_dim: int,
+) -> torch.Tensor:
+    k_dim = q_eff.shape[-1]
+    ctx = latent_pool[slot_indices(page_tables, page_size)]  # [B, KV, stored]
+    scores = torch.einsum("bhx,bsx->bhs", q_eff.float(), ctx[..., :k_dim].float()) * scale
+    k_pos = torch.arange(ctx.shape[1], device=q_eff.device)[None, :]
+    scores = torch.where((k_pos < context_lens[:, None])[:, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q_eff.dtype)
+    out = torch.einsum("bhs,bsv->bhv", probs.float(), ctx[..., :v_dim].float()).to(q_eff.dtype)
+    return out.masked_fill((context_lens <= 0)[:, None, None], 0)
+
+
+# blocks the latent kernel aims to keep in flight: two per SM of an H100
+_MLA_TARGET_BLOCKS = 2 * 132
+
+
+def _entry_mla():
+    fn = _build.library("mla_decode").zt_mla_decode
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
+                       ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_mla_decode(
+    q_eff: torch.Tensor,
+    latent_pool: torch.Tensor,
+    page_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    page_size: int,
+    scale: float,
+    v_dim: int,
+    emit_partial: bool = False,
+) -> torch.Tensor:
+    """MLA absorbed-weight latent decode as single-"head" MQA: scores are
+    ``q_eff . latent[:k_dim]``, the output ``softmax(scores) . latent[:v_dim]``,
+    [B, H, v_dim] in q's dtype. The reference's flash-partial output
+    (``emit_partial``, window side-KV) is not ported yet."""
+    if emit_partial:
+        raise NotImplementedError("MLA decode: emit_partial is not ported yet")
+    if q_eff.device.type == "cpu":
+        return paged_mla_decode_plain(
+            q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim
+        )
+    if not q_eff.is_cuda:
+        raise NotImplementedError(f"MLA decode: no kernel for device {q_eff.device}")
+    B, H, k_dim = q_eff.shape
+    if latent_pool.dim() != 2 or latent_pool.shape[1] < k_dim:
+        raise ValueError(f"MLA decode: q {tuple(q_eff.shape)}, pool {tuple(latent_pool.shape)}")
+    N, stored = latent_pool.shape
+    if q_eff.dtype != torch.bfloat16 or latent_pool.dtype != torch.bfloat16:
+        raise NotImplementedError(f"MLA decode kernel takes bf16, got {q_eff.dtype}/{latent_pool.dtype}")
+    if (k_dim, v_dim) != (576, 512) or stored % 8:
+        raise NotImplementedError(
+            f"MLA decode kernel: k_dim {k_dim}, v_dim {v_dim}, row of {stored} elements "
+            "(built for 576/512, rows a multiple of 16 bytes)")
+    maxp = page_tables.shape[1]
+    if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("MLA decode: page_tables and context_lens must be int32")
+    if page_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError("MLA decode: page_tables [B, maxp], context_lens [B]")
+    for t in (q_eff, latent_pool, page_tables, context_lens):
+        if t.device != q_eff.device or not t.is_contiguous():
+            raise ValueError("MLA decode: tensors must be contiguous and on one device")
+    # the context is cut over `splits` blocks per (sequence, 16 heads); the
+    # count comes from the shapes alone, the kernel reads the real lengths and
+    # blocks without tokens exit
+    head_tiles = (H + 15) // 16
+    splits = max(-(-_MLA_TARGET_BLOCKS // (B * head_tiles)), 1)
+    f32 = dict(dtype=torch.float32, device=q_eff.device)
+    part_acc = torch.empty((B, head_tiles, splits, 16, v_dim), **f32)
+    part_ml = torch.empty((B, head_tiles, splits, 2, 16), **f32)
+    out = torch.empty((B, H, v_dim), dtype=q_eff.dtype, device=q_eff.device)
+    err = _entry_mla()(
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), q_eff.data_ptr(),
+        latent_pool.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim,
+        v_dim, N, stored, maxp, page_size, float(scale), splits,
+        torch.cuda.current_stream(q_eff.device).cuda_stream,
+    )
+    _build.check(err, "paged_mla_decode")
+    paged_mla_decode.launches += 1
+    return out
+
+
+paged_mla_decode.launches = 0

@@ -1,4 +1,4 @@
-"""KV-pool row writes into the head-major packed pool.
+"""KV-pool row writes: into the head-major packed pool, and into a 2-D pool.
 
 Counterpart of ``zhilight_tpu/ops/pallas/kv_write.py`` ``write_rows_hm``
 (:606). The CUDA kernel is ``csrc/kv_write.cu``; the plain PyTorch version
@@ -13,6 +13,14 @@ may start mid-page. K and V are taken separately, which saves the
 place and returned (JAX's version returns a new pool). The kernel moves
 bytes, so the int8 rows of a quantized cache (64 or 128 bytes per half) go
 through it as they are; a half must be a multiple of 16 bytes.
+
+:func:`write_rows_2d` is the counterpart of ``write_rows_2d`` (:324), the row
+write of the MLA latent pool: ``pool[slot[t], :] = rows[t, :]`` for a pool
+``[N, X]`` (or ``[1, N, X]``, as the cache holds it) and rows ``[T, X]``, cast
+to the pool's dtype first as the reference does. Its CUDA kernel is
+``csrc/kv_write_2d.cu``, its plain version :func:`write_rows_2d_plain`. The
+reference's ``page_size`` argument served its page-granular TPU kernels and
+is dropped, as in :func:`write_rows_hm`.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 
 from . import _build
 
-__all__ = ["write_rows_hm", "write_rows_hm_plain"]
+__all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_2d_plain"]
 
 
 def write_rows_hm_plain(
@@ -83,3 +91,69 @@ def write_rows_hm(
 
 
 write_rows_hm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 2-D pool (MLA latents)
+# ---------------------------------------------------------------------------
+
+def _pool_2d(pool: torch.Tensor) -> torch.Tensor:
+    """The pool as [N, X]: a leading unit dimension is dropped (a view)."""
+    if pool.dim() == 3 and pool.shape[0] == 1:
+        return pool[0]
+    if pool.dim() != 2:
+        raise ValueError(f"write_rows_2d: pool must be [N, X] or [1, N, X], got {tuple(pool.shape)}")
+    return pool
+
+
+def write_rows_2d_plain(
+    pool: torch.Tensor,          # [N, X] or [1, N, X]
+    rows: torch.Tensor,          # [T, X]
+    slot_mapping: torch.Tensor,  # [T] int; < 0 => skip
+) -> torch.Tensor:
+    p2 = _pool_2d(pool)
+    keep = (slot_mapping >= 0) & (slot_mapping < p2.shape[0])
+    p2[slot_mapping[keep].long()] = rows.to(pool.dtype)[keep]
+    return pool
+
+
+def _entry_2d():
+    fn = _build.library("kv_write_2d").zt_write_rows_2d
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def write_rows_2d(
+    pool: torch.Tensor,
+    rows: torch.Tensor,
+    slot_mapping: torch.Tensor,
+) -> torch.Tensor:
+    """Write rows into the 2-D pool in place; returns the pool."""
+    if pool.device.type == "cpu":
+        return write_rows_2d_plain(pool, rows, slot_mapping)
+    if not pool.is_cuda:
+        raise NotImplementedError(f"write_rows_2d: no kernel for device {pool.device}")
+    p2 = _pool_2d(pool)
+    N, X = p2.shape
+    T = rows.shape[0]
+    if rows.shape != (T, X):
+        raise ValueError(f"write_rows_2d: pool {tuple(pool.shape)}, rows {tuple(rows.shape)}")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (T,):
+        raise ValueError("write_rows_2d: slot_mapping must be int32 [T]")
+    rows = rows.to(pool.dtype).contiguous()
+    for t in (p2, rows, slot_mapping):
+        if t.device != pool.device or not t.is_contiguous():
+            raise ValueError("write_rows_2d: tensors must be contiguous and on one device")
+    err = _entry_2d()(
+        p2.data_ptr(), rows.data_ptr(), slot_mapping.data_ptr(), T, N,
+        X * pool.element_size(), torch.cuda.current_stream(pool.device).cuda_stream,
+    )
+    _build.check(err, "write_rows_2d")
+    write_rows_2d.launches += 1
+    return pool
+
+
+write_rows_2d.launches = 0

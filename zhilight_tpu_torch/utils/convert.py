@@ -35,11 +35,14 @@ def to_tensor(x: Any) -> torch.Tensor:
 def params_to_torch(params: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dict of arrays (numpy, or any object numpy can read) -> the
     same nesting of torch tensors on ``device``; ``dtype`` casts the dense
-    floating-point leaves (an int4 linear's scales and zeros stay f32)."""
+    floating-point leaves, MLA projections and dense expert stacks included.
+    An int4 linear's or expert stack's scales and zeros stay f32, and so do a
+    MoE router's weight and correction bias (routing runs in fp32)."""
     if isinstance(params, dict):
         int4 = "w_p" in params
         return {
-            k: params_to_torch(v, device, None if int4 and k in _INT4_LEAVES else dtype)
+            k: params_to_torch(
+                v, device, None if (int4 and k in _INT4_LEAVES) or k == "router" else dtype)
             for k, v in params.items()
         }
     t = to_tensor(params)

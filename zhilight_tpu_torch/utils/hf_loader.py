@@ -1,8 +1,10 @@
 """HF checkpoint loading: safetensors / torch ``.bin`` -> the port's params.
 
 Counterpart of ``zhilight_tpu/utils/hf_loader.py``, its dense and int4
-parts: the HF -> internal name mapping, the GPTQ/AWQ conversion into the
-``ops/quant.py`` int4 format, and the checkpoint readers. Leaves are torch
+parts: the HF -> internal name mapping (dense, MLA, and the MoE names of
+Qwen2-MoE, DeepSeek and Mixtral), the GPTQ/AWQ conversion into the
+``ops/quant.py`` int4 format, per-expert tensors stacked into ``[E, ...]``
+leaves, and the checkpoint readers. Leaves are torch
 tensors in the reference's nesting and layout, on the CPU unless ``device``
 is given. HF stores linear weights [out, in]; the port stores [in, out]
 (x @ W), so dense kernels are transposed on load. With ``device`` given,
@@ -10,8 +12,7 @@ each tensor is moved there first and transposed, cast or (GPTQ planar fast
 path) repacked there: a GPU does those passes over a 14B model's weights
 far faster than the host.
 
-MoE and MLA tensors and FP8 checkpoints are later slices and raise
-``NotImplementedError``.
+FP8 checkpoints are a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config.model_config import ModelConfig
-from ..ops.quant import pack_int4
+from ..ops.quant import pack_expert_int4, pack_int4
 from .convert import to_tensor
 from .quant_convert import convert_quant_tensors, planar_from_gptq
 
@@ -73,8 +74,8 @@ def iter_checkpoint(model_path: str) -> Tensors:
 # name mapping
 # ---------------------------------------------------------------------------
 
-# (hf regex, target template, needs_transpose): the dense and int4 models'
-# names. Target path "-" means: intentionally dropped.
+# (hf regex, target template, needs_transpose). {i} = layer, {e} = expert.
+# Target path "-" means: intentionally dropped.
 _DENSE_RULES: List[Tuple[str, str, bool]] = [
     (r"^(model|language_model(\.model)?)\.embed_tokens\.weight$", "embedding.w", False),
     (r"^(model|language_model(\.model)?)\.norm\.weight$", "final_norm.w", False),
@@ -85,33 +86,45 @@ _DENSE_RULES: List[Tuple[str, str, bool]] = [
     (r"L\.self_attn\.(q|k|v|o)_proj\.weight$", "layers.{i}.attn.{m}_proj.w", True),
     (r"L\.self_attn\.(q|k|v|o)_proj\.bias$", "layers.{i}.attn.{m}_proj.b", False),
     (r"L\.self_attn\.(q|k)_norm\.weight$", "layers.{i}.attn.{m}_norm.w", False),
+    # MLA (deepseek)
+    (r"L\.self_attn\.q_a_proj\.weight$", "layers.{i}.attn.q_a_proj.w", True),
+    (r"L\.self_attn\.q_a_layernorm\.weight$", "layers.{i}.attn.q_a_norm.w", False),
+    (r"L\.self_attn\.q_b_proj\.weight$", "layers.{i}.attn.q_b_proj.w", True),
+    (r"L\.self_attn\.kv_a_proj_with_mqa\.weight$", "layers.{i}.attn.kv_a_proj.w", True),
+    (r"L\.self_attn\.kv_a_layernorm\.weight$", "layers.{i}.attn.kv_a_norm.w", False),
+    (r"L\.self_attn\.kv_b_proj\.weight$", "layers.{i}.attn.kv_b_proj.w", True),
     # dense mlp
     (r"L\.mlp\.(gate|up|down)_proj\.weight$", "layers.{i}.mlp.{m}_proj.w", True),
+    # qwen2-moe / deepseek shared + routed experts
+    (r"L\.mlp\.gate\.weight$", "layers.{i}.mlp.router.w", True),
+    (r"L\.mlp\.gate\.e_score_correction_bias$", "layers.{i}.mlp.router.e_score_correction_bias", False),
+    (r"L\.mlp\.shared_expert\.(gate|up|down)_proj\.weight$", "layers.{i}.mlp.shared_expert.{m}_proj.w", True),
+    (r"L\.mlp\.shared_experts\.(gate|up|down)_proj\.weight$", "layers.{i}.mlp.shared_expert.{m}_proj.w", True),
+    (r"L\.mlp\.shared_expert_gate\.weight$", "layers.{i}.mlp.shared_expert_gate.w", True),
+    (r"L\.mlp\.experts\.E\.(gate|up|down)_proj\.weight$", "layers.{i}.mlp.experts.{m}_proj.w.{e}", True),
+    # mixtral
+    (r"L\.block_sparse_moe\.gate\.weight$", "layers.{i}.mlp.router.w", True),
+    (r"L\.block_sparse_moe\.experts\.E\.w1\.weight$", "layers.{i}.mlp.experts.gate_proj.w.{e}", True),
+    (r"L\.block_sparse_moe\.experts\.E\.w3\.weight$", "layers.{i}.mlp.experts.up_proj.w.{e}", True),
+    (r"L\.block_sparse_moe\.experts\.E\.w2\.weight$", "layers.{i}.mlp.experts.down_proj.w.{e}", True),
     # rotary inv_freq buffers occasionally stored in checkpoints
     (r"rotary_emb\.inv_freq$", "-", False),
 ]
 _LAYER = r"^(?:model|language_model(?:\.model)?)\.layers\.(?P<i>\d+)"
-
-# MoE routers and experts (Qwen2-MoE, DeepSeek, Mixtral) and MLA projections
-# (DeepSeek): their models are later slices
-_NOT_PORTED = re.compile(
-    _LAYER + r"\.(?:mlp\.(?:gate\.|shared_expert|experts\.)|block_sparse_moe\."
-    r"|self_attn\.(?:q_a_|q_b_|kv_a_|kv_b_))"
-)
+_EXPERT = r"(?P<e>\d+)"
 
 
 def _compile_rules():
-    return [(re.compile(pat.replace("L", _LAYER)), target, tr) for pat, target, tr in _DENSE_RULES]
+    return [(re.compile(pat.replace("L", _LAYER).replace("E", _EXPERT)), target, tr)
+            for pat, target, tr in _DENSE_RULES]
 
 
 _COMPILED_RULES = _compile_rules()
 
 
-def map_hf_name(name: str) -> Optional[Tuple[str, bool]]:
-    """HF tensor name -> (target path, transpose?), or None if dropped or
-    unknown. MoE and MLA tensors raise ``NotImplementedError``."""
-    if _NOT_PORTED.search(name):
-        raise NotImplementedError(f"MoE and MLA checkpoints are not ported yet: {name}")
+def map_hf_name(name: str) -> Optional[Tuple[str, bool, Optional[int]]]:
+    """HF tensor name -> (target path, transpose?, expert index or None), or
+    None if dropped or unknown."""
     for pat, target, tr in _COMPILED_RULES:
         mobj = pat.search(name)
         if not mobj:
@@ -125,7 +138,8 @@ def map_hf_name(name: str) -> Optional[Tuple[str, bool]]:
             path = path.replace("{i}", mobj.group("i"))
         if "{m}" in path:
             path = path.replace("{m}", m)
-        return path, tr
+        e = mobj.groupdict().get("e")
+        return path.replace(".{e}", ""), tr, int(e) if e is not None else None
     return None
 
 
@@ -172,7 +186,8 @@ def map_hf_params(
         raise NotImplementedError("FP8 checkpoints are not ported yet")
     dtype = dtype or cfg.torch_dtype
     tree: Dict[str, Any] = {}
-    quant_stash: Dict[str, Dict[str, np.ndarray]] = {}  # linear path -> kind -> array
+    expert_stash: Dict[str, Dict[int, torch.Tensor]] = {}  # stack path -> expert -> [in, out]
+    quant_stash: Dict[str, Dict[str, Any]] = {}  # linear path -> kind -> array (or expert -> array)
     unmapped: List[str] = []
 
     for name, arr in tensors:
@@ -183,7 +198,12 @@ def map_hf_params(
             if mapped is None:
                 unmapped.append(name)
                 continue
-            quant_stash.setdefault(mapped[0][: -len(".w")], {})[kind] = _numpy(arr)
+            path, _, e = mapped
+            entry = quant_stash.setdefault(path[: -len(".w")], {})
+            if e is not None:
+                entry.setdefault(kind, {})[e] = _numpy(arr)
+            else:
+                entry[kind] = _numpy(arr)
             continue
 
         mapped = map_hf_name(name)
@@ -191,11 +211,17 @@ def map_hf_params(
             if not map_hf_name_is_dropped(name):
                 unmapped.append(name)
             continue
-        path, transpose = mapped
+        path, transpose, e = mapped
         t = to_tensor(arr).to(device)
         if transpose:
             t = t.t().contiguous()
-        _set_path(tree, path, t.to(dtype))
+        if e is not None:
+            expert_stash.setdefault(path, {})[e] = t.to(dtype)
+        else:
+            _set_path(tree, path, t.to(_target_dtype(path, dtype)))
+
+    for path, experts in expert_stash.items():
+        _set_path(tree, path, torch.stack([experts[i] for i in range(max(experts) + 1)]))
 
     if quant_stash:
         _convert_quant_stash(tree, quant_stash, quant_method, device)
@@ -203,6 +229,11 @@ def map_hf_params(
     if strict and unmapped:
         raise ValueError(f"unmapped checkpoint tensors: {unmapped[:10]}")
     return tree
+
+
+def _target_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
+    # routers stay fp32 for routing numerics
+    return torch.float32 if ".router." in path else dtype
 
 
 def _gptq_trivial_gidx(entry) -> bool:
@@ -222,8 +253,36 @@ def _planar_fast_path_ok(entry) -> bool:
     return K % 256 == 0 and K % (2 * gs) == 0
 
 
+def _convert_expert_stack(entry, quant_method):
+    """Per-expert quant tensors {kind: {expert: array}} -> one canonical
+    stack {"w_p" int8 [E, K, N], "scales", "zeros" [E, G, N], "perm"? [E, K]},
+    its K padded like a single linear's."""
+    E = max(max(v) for v in entry.values()) + 1
+    parts = [convert_quant_tensors({k: v[e] for k, v in entry.items()}, quant_method)
+             for e in range(E)]
+    if any("perm" in p for p in parts):
+        # act_order expert stacks: every expert's rows were group-sorted by its
+        # own g_idx; experts with a trivial g_idx get the identity, so the
+        # stack is uniform. models/moe.py gathers each row's activations with
+        # its expert's permutation.
+        K = parts[0]["w_p"].shape[0]
+        for p in parts:
+            p.setdefault("perm", np.arange(K, dtype=np.int32))
+    return _pad_canon_int4({k: np.stack([p[k] for p in parts], axis=0) for k in parts[0]})
+
+
 def _convert_quant_stash(tree, quant_stash, quant_method, device):
     for path, entry in quant_stash.items():
+        if isinstance(next(iter(entry.values())), dict):  # per-expert quant tensors
+            for k, v in _convert_expert_stack(entry, quant_method).items():
+                t = torch.from_numpy(v.astype({"w_p": np.int8, "perm": np.int32}.get(k, np.float32)))
+                t = t.to(device)
+                if k == "w_p" and v.shape[1] % 2 == 0:
+                    # 4 bits a weight, each expert planar-packed on its own
+                    # (ops/quant.pack_expert_int4), packed on the device
+                    t = pack_expert_int4(t)
+                _set_path(tree, f"{path}.{k}", t)
+            continue
         if (
             quant_method == "gptq"
             and "qweight" in entry

@@ -14,8 +14,9 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            timed beside its bound, the plain version and one PyTorch library
            call (CUDA events, median), at MiniCPM-2B's, Qwen2.5-14B's and
            DeepSeek-V2-Lite's shapes (latent row write, MLA latent decode,
-           grouped int4 matmul over the expert stacks);
-  serve    the four main paths, each through ``LLM`` + ``DynamicBatchGenerator``
+           grouped int4 matmul over the expert stacks), and the FP8 block
+           matmul at Qwen3-8B's seven projection shapes, M = 8 and 512;
+  serve    the five main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
            first-token logits and one batch-8 decode step's logits (contexts
@@ -34,10 +35,22 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            2816 tokens), with ``copy_slots`` and a swap round trip on the
            latent pool; then the same configuration with bf16 expert stacks
            at 4 layers (the dense grouped-expert path) against the plain path;
+           and Qwen3-8B-FP8 (36 layers, full width; HF-format e4m3 ``.weight``
+           [out, in] tensors with fp32 ``weight_scale_inv`` [out/128, in/128]
+           made from a seed on the GPU, converted layer by layer by the port's
+           ``map_hf_params(quant_method="fp8")`` with ``ZT_FP8_KEEP=1``, so
+           the weights stay FP8 and every projection runs the FP8 kernel),
+           then the same tensors at 4 layers dequantized at load (the
+           loader's default) against the kept ones. Beside them, W8A8:
+           MiniCPM-2B calibrated on four seeded 512-token sequences
+           (``calc_act_scales``), quantized by ``quantize_int8_params`` and
+           served from the int8 tree, with ``int8_linear`` on the card held
+           against the same call on the CPU;
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
            3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
-           batch 8 at context 2816) and the time to first token of a 3712-token
+           batch 8 at context 2816; Qwen3-8B-FP8 batch 8 at context 3712;
+           MiniCPM-2B W8A8 batch 16 at context 512, decode only) and the time to first token of a 3712-token
            prompt (DeepSeek: 2816) in 512-token chunks, by bench.py's method, then a torch.profiler breakdown of one decode
            window and one prefill.
 
@@ -52,6 +65,7 @@ import argparse
 import contextlib
 import json
 import operator
+import os
 import statistics
 import subprocess
 import sys
@@ -68,6 +82,13 @@ ATTN_TOL = 2e-2             # max |kernel - plain| on unit-variance bf16 inputs
 # tiles are the same bf16 values; the output is rounded to bf16 and the fp32
 # sums run in another order
 W4A16_TOL = 1e-2
+# max |kernel - plain| / max |plain| of the FP8 block matmul: the same bf16
+# weights and fp32 block sums; the output is rounded to bf16 once and the fp32
+# sums (split-K included) run in another order
+FP8_TOL = 1e-2
+# max |card - CPU| / max |CPU| of int8_linear: the int32 product is exact; the
+# card may divide through a reciprocal, so an activation code may differ by one
+INT8_TOL = 1e-2
 LOGIT_TOL = 5e-2            # max |kernel - plain| logits / max |plain logits|
 
 KERNELS = {
@@ -109,6 +130,10 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/quant_ragged.cu",
         replaces="zhilight_tpu/ops/pallas/quant_ragged.py:142",
     ),
+    "fp8_block_matmul": dict(
+        source="zhilight_tpu_torch/csrc/fp8_matmul.cu",
+        replaces="zhilight_tpu/ops/pallas/fp8_matmul.py:85",
+    ),
 }
 ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
@@ -121,12 +146,18 @@ PATHS = {
     # MLA prefill is plain torch, as the reference leaves it to XLA
     "DeepSeek-V2-Lite-GPTQ-Int4": ("write_rows_2d", "paged_mla_decode", "w4a16_ragged_matmul",
                                    "w4a16_matmul"),
+    "Qwen3-8B-FP8": ATTENTION_KERNELS + ("fp8_block_matmul",),
+    # W8A8 adds no hand-written kernel: the int8 product is the library's
+    "MiniCPM-2B-W8A8": ATTENTION_KERNELS,
 }
 # prompt lengths of a path's 8 requests (32 new tokens each)
 SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
 DEEPSEEK_LENS = [7, 100, 513, 1500, 2816, 16, 250, 40]  # max_model_len 3072
 MINICPM_HEADS = dict(Hq=36, Hkv=36, D=64)
 QWEN_HEADS = dict(Hq=40, Hkv=8, D=128)
+# Qwen3-8B's projections, (K, N): q/o, k/v, gate/up, down
+QWEN3_SHAPES = {"q/o_proj": (4096, 4096), "k/v_proj": (4096, 1024),
+                "gate/up_proj": (4096, 12288), "down_proj": (12288, 4096)}
 
 # Qwen/Qwen2.5-14B-Instruct-GPTQ-Int4's config.json fields, as
 # tools/make_bench_model.py:30-44 writes them
@@ -158,6 +189,19 @@ DEEPSEEK_V2_LITE_GPTQ = {
                      "original_max_position_embeddings": 4096},
     "quantization_config": {"quant_method": "gptq", "bits": 4, "group_size": 128,
                             "desc_act": False, "sym": True},
+}
+
+
+# Qwen/Qwen3-8B-FP8's config.json fields
+QWEN3_8B_FP8 = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "hidden_size": 4096,
+    "intermediate_size": 12288, "num_hidden_layers": 36, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "vocab_size": 151936,
+    "max_position_embeddings": 40960, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+    "tie_word_embeddings": False, "attention_bias": False, "torch_dtype": "bfloat16",
+    "eos_token_id": 151645, "bos_token_id": 151643,
+    "quantization_config": {"quant_method": "fp8", "fmt": "e4m3", "activation_scheme": "dynamic",
+                            "weight_block_size": [128, 128]},
 }
 
 
@@ -353,6 +397,56 @@ def deepseek_hf_tensors(hf: dict, seed: int, keep: dict, quant_experts: bool = T
     yield from emit("model.norm.weight", torch.ones(H, dtype=torch.bfloat16))
     yield from emit("lm_head.weight", _bf16(rng, (V, H)))
     keep["make_s"] = made + time.monotonic() - t0
+
+
+def fp8_block_quantize(w: torch.Tensor):
+    """fp32 [out, in] -> (float8_e4m3fn [out, in], f32 scales [out/128, in/128]):
+    each 128 x 128 block scaled to the format's largest value, 448, and
+    rounded to nearest (which never yields a NaN encoding)."""
+    O, I = w.shape
+    blocks = w.reshape(O // 128, 128, I // 128, 128)
+    s = blocks.abs().amax(dim=(1, 3)) / 448.0 + 1e-12
+    w8 = (blocks / s[:, None, :, None]).reshape(O, I).to(torch.float8_e4m3fn)
+    return w8, s
+
+
+def qwen3_fp8_hf_tensors(hf: dict, seed: int):
+    """(HF name, tensor) pairs of a random FP8 block-scaled checkpoint of
+    ``hf``'s geometry, named and laid out as the official FP8 releases: e4m3
+    ``.weight`` [out, in] with f32 ``.weight_scale_inv`` [out/128, in/128] for
+    the seven projections of each layer (normal values / sqrt(fan_in), as
+    ``models.llama.init_params`` draws them); embeddings and lm_head bf16 at
+    0.02, norms 1. Made on the GPU, one layer at a time, from generators seeded with ``seed``
+    (a shallower model's layers are a prefix of a deeper one's)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    H, NH, KV = hf["hidden_size"], hf["num_attention_heads"], hf["num_key_value_heads"]
+    HD, FF, V = hf["head_dim"], hf["intermediate_size"], hf["vocab_size"]
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+
+    def randn(shape, g=gen, scale=0.02):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def linear(shape):
+        """[out, in] at llama.init_params' scale: normal / sqrt(fan_in)."""
+        return randn(shape, scale=shape[1] ** -0.5)
+
+    yield "model.embed_tokens.weight", randn((V, H)).to(torch.bfloat16)
+    lin = {"self_attn.q_proj": (NH * HD, H), "self_attn.k_proj": (KV * HD, H),
+           "self_attn.v_proj": (KV * HD, H), "self_attn.o_proj": (H, NH * HD),
+           "mlp.gate_proj": (FF, H), "mlp.up_proj": (FF, H), "mlp.down_proj": (H, FF)}
+    for i in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        for name, shape in lin.items():
+            w8, s = fp8_block_quantize(linear(shape))
+            yield pre + name + ".weight", w8
+            yield pre + name + ".weight_scale_inv", s
+        yield pre + "self_attn.q_norm.weight", torch.ones(HD, **bf)
+        yield pre + "self_attn.k_norm.weight", torch.ones(HD, **bf)
+        yield pre + "input_layernorm.weight", torch.ones(H, **bf)
+        yield pre + "post_attention_layernorm.weight", torch.ones(H, **bf)
+    tail = torch.Generator(device="cuda").manual_seed(seed + 1)
+    yield "model.norm.weight", torch.ones(H, **bf)
+    yield "lm_head.weight", randn((V, H), tail).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -647,6 +741,7 @@ def phase_kernels(rec: dict) -> None:
 
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
+    kernels_fp8(rec, rng)
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -740,6 +835,60 @@ def kernels_w4a16(rec: dict, rng) -> None:
             if (M, K, N) == (8, 5120, 13824):  # gate/up_proj at the serving batch
                 rec["w4a16_matmul"].update(row, max_abs_err=abs_err)
     del scratch
+
+
+def kernels_fp8(rec: dict, rng) -> None:
+    """fp8_block_matmul against its plain version at Qwen3-8B's seven projection
+    shapes (four distinct K x N) at a decode batch (M = 8) and a prefill chunk
+    (M = 512); then timed with a cold L2 (a decode step streams every layer's
+    weights once) beside the plain version and ``torch.matmul`` on a bf16
+    weight dequantized beforehand."""
+    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
+
+    def weights(K, N):
+        """e4m3 weights quantized from normal values, block by block."""
+        w = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).cuda() * 0.02
+        w8, s = fp8_block_quantize(w)  # HF layout [out, in], scales [out/128, in/128]
+        w8 = w8.view(torch.uint8).t().contiguous().view(torch.float8_e4m3fn)
+        nan = ((w8.view(torch.uint8) & 0x7F) == 0x7F).sum().item()
+        if nan:
+            raise AssertionError(f"fp8 weights K={K} N={N}: {nan} NaN encodings")
+        return w8, s.t().contiguous()
+
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    rel_err, abs_err, shapes = 0.0, 0.0, {}
+    for pname, (K, N) in QWEN3_SHAPES.items():
+        w8, bs = weights(K, N)
+        wd = (w8.float().reshape(K // 128, 128, N // 128, 128) * bs[:, None, :, None]
+              ).reshape(K, N).to(torch.bfloat16)  # for the library call
+        for M in (8, 512):
+            x = _randn(rng, M, K)
+            got, want = F8.fp8_block_matmul(x, w8, bs), F8.fp8_block_matmul_plain(x, w8, bs)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs().max().item()
+            e = diff / want.float().abs().max().item()
+            if not (torch.isfinite(got).all() and e <= FP8_TOL):
+                raise AssertionError(f"fp8_block_matmul {pname} M={M}: max rel err {e} > {FP8_TOL}")
+            if not torch.equal(got, F8.fp8_block_matmul(x, w8, bs)):
+                raise AssertionError(f"fp8_block_matmul {pname} M={M}: a repeated call differs")
+            rel_err, abs_err = max(rel_err, e), max(abs_err, diff)
+            t_b, by = bound(K * N + 4 * (K // 128) * (N // 128) + 2 * M * K + 2 * M * N,
+                            2 * M * K * N)
+            shapes[f"Qwen3-8B {pname} (K {K}, N {N}), M {M}"] = dict(
+                ms=time_ms(lambda: F8.fp8_block_matmul(x, w8, bs), flush=scratch.zero_),
+                plain_ms=time_ms(lambda: F8.fp8_block_matmul_plain(x, w8, bs), reps=5,
+                                 flush=scratch.zero_),
+                library_ms=time_ms(lambda: torch.matmul(x, wd), flush=scratch.zero_),
+                bound_ms=t_b, bound_by=by, max_rel_err=e,
+            )
+            print(f"kernels: fp8_block_matmul {pname} K={K} N={N} M={M}: max rel err {e:.3e}",
+                  flush=True)
+        del w8, bs, wd
+    del scratch
+    print(f"kernels: fp8_block_matmul over every case max rel err {rel_err:.3e}, max abs err "
+          f"{abs_err:.3e} (library: torch.matmul on the bf16 weight dequantized beforehand)",
+          flush=True)
+    _record(rec, "fp8_block_matmul", abs_err, "Qwen3-8B gate/up_proj (K 4096, N 12288), M 8", shapes)
 
 
 def kernels_deepseek(rec: dict, rng) -> None:
@@ -908,12 +1057,14 @@ def kernels_deepseek(rec: dict, rng) -> None:
 
 def _counters():
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
     from zhilight_tpu_torch.ops.cuda import quant_ragged as R
 
     return {
+        "fp8_block_matmul": F8.fp8_block_matmul,
         "write_rows_2d": W.write_rows_2d,
         "paged_mla_decode": A.paged_mla_decode,
         "w4a16_ragged_matmul": R.w4a16_ragged_matmul,
@@ -939,6 +1090,7 @@ def plain_kernels():
     from zhilight_tpu_torch.models import mla as mla_mod
     from zhilight_tpu_torch.models import moe as moe_mod
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
@@ -967,7 +1119,8 @@ def plain_kernels():
              paged_prefill_attention_hm_packed=P.paged_prefill_attention_hm_packed_plain,
              paged_prefill_attention_hm_q=single(P.paged_prefill_attention_hm_packed_q_plain),
              paged_prefill_attention_hm_packed_q=P.paged_prefill_attention_hm_packed_q_plain)), \
-         mock.patch.object(Q, "w4a16_matmul", Q.w4a16_matmul_plain):
+         mock.patch.object(Q, "w4a16_matmul", Q.w4a16_matmul_plain), \
+         mock.patch.object(F8, "fp8_block_matmul", F8.fp8_block_matmul_plain):
         yield
 
 
@@ -1036,12 +1189,13 @@ def _leaves(tree):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
-def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS):
+def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS, compare_plain=True):
     """One main path: 8 concurrent requests (prompts of ``lens`` tokens, 32
     new tokens, 2 sampled) with the launch counters zeroed just before and
     read just after, then the first-token logits and one decode step's logits
-    (every prompt's continuation) against the plain path. Returns the prompts
-    and the kernel path's first-token logits of prompt 1."""
+    (every prompt's continuation) against the plain path (not for a path that
+    adds no kernel to one already held: ``compare_plain=False``). Returns the
+    prompts and the kernel path's first-token logits of prompt 1."""
     from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
 
     ex, cfg, expect = llm.executor, llm.model_config, PATHS[label]
@@ -1095,6 +1249,8 @@ def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS):
     same = sum(a == b for a, b in zip(solo[0].outputs[0].token_ids, results[0].outputs[0].token_ids))
     print(f"serve: {label}: repeated greedy request identical; agrees with its batched run "
           f"on {same}/{MAXLEN} tokens", flush=True)
+    if not compare_plain:
+        return prompts, None
 
     # first-token logits: main path (kernels) against the plain path, on the card
     prompt = prompts[1]
@@ -1269,27 +1425,23 @@ def deepseek_engine_config():
     )
 
 
-def load_deepseek(label: str, hf: dict, seed: int, quant_experts: bool = True):
-    """DeepSeek-V2-Lite from HF-format tensors made from ``seed``, converted by
-    the port's map_hf_params one layer at a time (neither the host nor the GPU
-    holds the checkpoint twice), into ``LLM``."""
-    from zhilight_tpu_torch.config import QuantConfig, adapt_hf_config
-    from zhilight_tpu_torch.llm import LLM
+def map_hf_params_by_layer(tensors, cfg, quant_method: str):
+    """The port's map_hf_params on one layer's HF tensors at a time, on the
+    GPU, so that neither the host nor the GPU holds a checkpoint twice.
+    Returns the parameter tree and the number of tensors."""
     from zhilight_tpu_torch.utils.hf_loader import map_hf_params
 
-    cfg, qcfg = adapt_hf_config(hf), QuantConfig.from_hf_config(hf)
-    keep, params, n_tensors = {}, {}, 0
-    t0 = time.monotonic()
+    params, n_tensors = {}, 0
 
     def convert(group):
         nonlocal n_tensors
         n_tensors += len(group)
-        tree = map_hf_params(group, cfg, quant_method="gptq", device="cuda")
+        tree = map_hf_params(group, cfg, quant_method=quant_method, device="cuda")
         params.setdefault("layers", {}).update(tree.pop("layers", {}))
         params.update(tree)
 
     group, layer = [], None
-    for name, value in deepseek_hf_tensors(hf, seed, keep, quant_experts):
+    for name, value in tensors:
         key = name.split(".")[2] if name.startswith("model.layers.") else name
         if group and key != layer:
             convert(group)
@@ -1298,6 +1450,21 @@ def load_deepseek(label: str, hf: dict, seed: int, quant_experts: bool = True):
         group.append((name, value))
     convert(group)
     torch.cuda.synchronize()
+    return params, n_tensors
+
+
+def load_deepseek(label: str, hf: dict, seed: int, quant_experts: bool = True):
+    """DeepSeek-V2-Lite from HF-format tensors made from ``seed``, converted by
+    the port's map_hf_params one layer at a time (neither the host nor the GPU
+    holds the checkpoint twice), into ``LLM``."""
+    from zhilight_tpu_torch.config import QuantConfig, adapt_hf_config
+    from zhilight_tpu_torch.llm import LLM
+
+    cfg, qcfg = adapt_hf_config(hf), QuantConfig.from_hf_config(hf)
+    keep = {}
+    t0 = time.monotonic()
+    params, n_tensors = map_hf_params_by_layer(
+        deepseek_hf_tensors(hf, seed, keep, quant_experts), cfg, "gptq")
     load_s = time.monotonic() - t0
     llm = LLM(model_config=cfg, quant_config=qcfg, params=params,
               engine_config=deepseek_engine_config(), device="cuda")
@@ -1366,6 +1533,134 @@ def dense_expert_path(args) -> None:
     release_pool(llm)
 
 
+@contextlib.contextmanager
+def fp8_kept(keep: bool):
+    """ZT_FP8_KEEP as the loader reads it, for the enclosed load only."""
+    old = os.environ.pop("ZT_FP8_KEEP", None)
+    if keep:
+        os.environ["ZT_FP8_KEEP"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("ZT_FP8_KEEP", None)
+        if old is not None:
+            os.environ["ZT_FP8_KEEP"] = old
+
+
+def load_qwen3_fp8(label: str, seed: int, layers: int, keep: bool):
+    """Qwen3-8B-FP8 at ``layers`` layers from HF-format FP8 tensors made from
+    ``seed`` on the GPU, converted by the port's map_hf_params one layer at a
+    time into ``LLM``: kept in FP8 (ZT_FP8_KEEP=1) or dequantized at load."""
+    from zhilight_tpu_torch.config import QuantConfig, adapt_hf_config
+    from zhilight_tpu_torch.llm import LLM
+
+    hf = dict(QWEN3_8B_FP8, num_hidden_layers=layers)
+    cfg, qcfg = adapt_hf_config(hf), QuantConfig.from_hf_config(hf)
+    t0 = time.monotonic()
+    with fp8_kept(keep):
+        params, n_tensors = map_hf_params_by_layer(qwen3_fp8_hf_tensors(hf, seed), cfg, "fp8")
+    load_s = time.monotonic() - t0
+    llm = LLM(model_config=cfg, quant_config=qcfg, params=params,
+              engine_config=qwen_engine_config(), device="cuda")
+    gate = llm.executor.params["layers"][str(layers - 1)]["mlp"]["gate_proj"]
+    kinds = {k: (str(v.dtype), tuple(v.shape)) for k, v in gate.items()}
+    print(f"serve: {label}: {n_tensors} HF tensors made from seed {seed} on the GPU and converted "
+          f"by map_hf_params(fp8) layer by layer in {load_s:.1f} s (ZT_FP8_KEEP "
+          f"{'1' if keep else 'unset'}); {qcfg.quant_type.name}, qk_norm {cfg.qk_norm}; last "
+          f"layer's gate_proj {kinds}", flush=True)
+    H, FF = hf["hidden_size"], hf["intermediate_size"]
+    want = ({"w_f8": ("torch.float8_e4m3fn", (H, FF)), "block_scale": ("torch.float32", (H // 128, FF // 128))}
+            if keep else {"w": ("torch.bfloat16", (H, FF))})
+    if kinds != want:
+        raise AssertionError(f"{label}: gate_proj is {kinds}, not {want}")
+    return llm
+
+
+def fp8_default_load_path(args) -> None:
+    """The loader's two branches against each other on the card, at 4 layers:
+    the same FP8 tensors dequantized at load (served by the library's bf16
+    product) and kept in FP8 (served by the kernel)."""
+    label = "Qwen3-8B-FP8-4-layers"
+    kept = load_qwen3_fp8(label + "-kept", args.seed, 4, keep=True)
+    release_pool(kept)
+    deq = load_qwen3_fp8(label + "-dequantized-at-load", args.seed, 4, keep=False)
+    counters = _counters()
+    prompt = np.random.default_rng(args.seed).integers(3, deq.model_config.vocab_size, 100).tolist()
+    counters["fp8_block_matmul"].launches = 0
+    want = _prefill_logits(deq.executor, prompt)
+    if counters["fp8_block_matmul"].launches:
+        raise AssertionError(f"{label}: the dequantized model launched the FP8 kernel")
+    got = _prefill_logits(kept.executor, prompt)
+    n = counters["fp8_block_matmul"].launches
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"serve: {label}: first-token logits, weights kept in FP8 ({n} kernel launches) vs "
+          f"dequantized at load (torch.matmul): max rel err {rel:.3e} (tolerance {LOGIT_TOL}); "
+          f"argmax {int(got.argmax())} vs {int(want.argmax())}", flush=True)
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()) or n != 4 * 7:
+        raise AssertionError(f"{label}: non-finite logits, or {n} launches instead of 28")
+    if rel > LOGIT_TOL or int(got.argmax()) != int(want.argmax()):
+        raise AssertionError(f"{label}: the loader's two branches differ: {rel} > {LOGIT_TOL}")
+    release_pool(deq)
+
+
+def w8a8_path(llm, rec: dict, args) -> None:
+    """W8A8 on MiniCPM-2B: calibrate the bf16 model's activation scales on four
+    seeded 512-token sequences, quantize its linears to int8 with SmoothQuant,
+    serve from the int8 tree; then ``int8_linear`` on the card against the
+    same call on the CPU at the model's projection shapes."""
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.ops.quant import int8_linear, quantize_int8_weight
+    from zhilight_tpu_torch.utils.quant_convert import quantize_int8_params
+
+    label, cfg = "MiniCPM-2B-W8A8", llm.model_config
+    rng = np.random.default_rng(args.seed + 5)
+    calib = [rng.integers(3, cfg.vocab_size, 512).tolist() for _ in range(4)]
+    t0 = time.monotonic()
+    scales = llm.calc_act_scales(calib, calib_len=512)
+    calib_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    qparams = quantize_int8_params(llm.executor.params, scales, alpha=0.5)
+    torch.cuda.synchronize()
+    quant_s = time.monotonic() - t0
+    if len(scales) != 7 * cfg.num_layers or not all(np.isfinite(v).all() for v in scales.values()):
+        raise AssertionError(f"{label}: {len(scales)} activation scales")
+    llm8 = LLM(model_config=cfg, params=qparams, engine_config=llm.engine_config, device="cuda")
+    down = llm8.executor.params["layers"]["0"]["mlp"]["down_proj"]
+    kinds = {k: (str(v.dtype), tuple(v.shape)) for k, v in down.items()}
+    print(f"serve: {label}: calc_act_scales on 4 x 512 tokens in {calib_s:.2f} s "
+          f"({len(scales)} sites), quantize_int8_params on the GPU in {quant_s:.2f} s; layer-0 "
+          f"down_proj {kinds}", flush=True)
+    if kinds != {"w_q": ("torch.int8", (cfg.dim_ff, cfg.dim_model)),
+                 "scale": ("torch.float32", (cfg.dim_model,)),
+                 "smooth": ("torch.float32", (cfg.dim_ff,))}:
+        raise AssertionError(f"{label}: down_proj is {kinds}")
+    serve_path(label, llm8, rec, args.seed, compare_plain=False)
+    args.llms[label] = llm8
+    release_pool(llm8)
+
+    # int8_linear, card against CPU: M = 8 goes through the zero-padded torch._int_mm
+    worst = 0.0
+    for K, N in ((2304, 2304), (2304, 5760), (5760, 2304)):
+        w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) / np.sqrt(K)
+        w_q, scale = quantize_int8_weight(w)
+        for smooth in (False, True):
+            p = {"w_q": w_q, "scale": scale}
+            if smooth:
+                p["smooth"] = torch.from_numpy((rng.random(K) + 0.5).astype(np.float32))
+            for M in (8, 512):
+                x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+                want = int8_linear(p, x).float()
+                got = int8_linear({k: v.cuda() for k, v in p.items()}, x.cuda()).float().cpu()
+                e = ((got - want).abs().max() / want.abs().max()).item()
+                if not (torch.isfinite(got).all() and e <= INT8_TOL):
+                    raise AssertionError(f"int8_linear K={K} N={N} M={M} smooth={smooth}: "
+                                         f"max rel err {e} > {INT8_TOL}")
+                worst = max(worst, e)
+    print(f"serve: {label}: int8_linear on the card vs the CPU at 2304 x 2304, 2304 x 5760 and "
+          f"5760 x 2304, with and without smooth, M = 8 and 512: max rel err {worst:.3e} "
+          f"(tolerance {INT8_TOL})", flush=True)
+
+
 def phase_serve(rec: dict, args) -> None:
     from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
     from zhilight_tpu_torch.llm import LLM
@@ -1385,6 +1680,7 @@ def phase_serve(rec: dict, args) -> None:
     serve_path("MiniCPM-2B", llm, rec, args.seed)
     args.llms["MiniCPM-2B"] = llm
     release_pool(llm)
+    w8a8_path(llm, rec, args)
 
     llm = load_qwen(args.seed)
     _, bf16_first = serve_path("Qwen2.5-14B-GPTQ-Int4", llm, rec, args.seed)
@@ -1423,16 +1719,29 @@ def phase_serve(rec: dict, args) -> None:
 
     dense_expert_path(args)
 
+    label = "Qwen3-8B-FP8"
+    llm = load_qwen3_fp8(label, args.seed, QWEN3_8B_FP8["num_hidden_layers"], keep=True)
+    ex = llm.executor
+    print(f"serve: {label}: bf16 pool of {ex.num_pages} pages x {ex.page_size} = "
+          f"{ex.cache.num_slots} tokens, {pool_bytes(ex.cache) / 1e9:.3f} GB "
+          f"({ex._kv_bytes_per_token()} bytes per token)", flush=True)
+    serve_path(label, llm, rec, args.seed)
+    args.llms[label] = llm
+    release_pool(llm)
+    fp8_default_load_path(args)
+
 
 # ---------------------------------------------------------------------------
 # phase: timing (bench.py's method)
 # ---------------------------------------------------------------------------
 
-TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prompt)
+TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prompt or 0 for none)
     "MiniCPM-2B": (16, 512, True, 3712),
     "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False, 3712),
     "Qwen2.5-14B-GPTQ-Int4-int8kv": (8, 3712, False, 3712),
     "DeepSeek-V2-Lite-GPTQ-Int4": (8, 2816, False, 2816),
+    "Qwen3-8B-FP8": (8, 3712, False, 3712),
+    "MiniCPM-2B-W8A8": (16, 512, False, 0),  # decode only: prefill adds nothing the bf16 path lacks
 }
 
 
@@ -1441,9 +1750,11 @@ def phase_timing(args, smi: str) -> None:
         raise RuntimeError("timing needs the serve phase")
     for label, llm in args.llms.items():
         ex = llm.executor
+        t0 = time.monotonic()
         ex.cache = ex.new_cache(ex.num_pages)  # the serve phase released it
         timing_path(label, ex, *TIMING[label], smi)
         release_pool(llm)
+        print(f"timing: {label}: measured and traced in {time.monotonic() - t0:.1f} s", flush=True)
 
 
 def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT: int,
@@ -1483,6 +1794,13 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT:
 
     tok_s = decode_tok_s(greedy)
     sampled_tok_s = decode_tok_s(sampled) if sampled_too else None
+    if not PROMPT:
+        print(f"timing: {label}: decode {tok_s:.2f} tok/s greedy (batch {BATCH}, context {CTX}, "
+              f"window {K}, {WINDOWS} windows); {ex.cfg.num_layers} layers; {smi}", flush=True)
+        print(json.dumps({"path": label, "decode_tok_s": tok_s, "sampled_decode_tok_s": None,
+                          "ttft_ms": None, "gpu": smi}), flush=True)
+        profile(f"{label} decode window", lambda: run(reuse_carry=True))
+        return
 
     CHUNK = 512
     n_chunks = (PROMPT + CHUNK - 1) // CHUNK
@@ -1565,7 +1883,8 @@ def profile(what: str, fn) -> None:
     print(f"profile: {what}: wall {wall_ms:.2f} ms (traced), device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} kernels", flush=True)
     for e in top:
-        print(f"profile: {what}:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+        print(f"profile: {what}:   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"({100 * e.self_device_time_total / 1e3 / busy_ms:4.1f}% of busy)  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
 
 

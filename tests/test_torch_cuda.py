@@ -14,7 +14,11 @@ the plain version's bf16-rounded ones), over bf16 and over int8 pools; the
 int4 matmul within 1e-2 of the largest plain output (bf16 output rounding,
 fp32 sums in another order), and so the grouped int4 matmul over expert
 stacks; the latent row write is bit-exact and the MLA latent decode within
-2e-2 absolute, as the other attention kernels.
+2e-2 absolute, as the other attention kernels; the FP8 block matmul within
+1e-2 of the largest plain output (one bf16 rounding of the output, fp32 sums
+in another order); ``int8_linear`` on the card within 1e-2 of the largest
+output of the same call on the CPU (the integer product is exact, but the
+card may divide through a reciprocal, so a code may differ by one).
 """
 
 import dataclasses
@@ -31,11 +35,13 @@ from zhilight_tpu_torch.llm import LLM
 from zhilight_tpu_torch.models import llama as L
 from zhilight_tpu_torch.models.base import PrefillMeta
 from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
 from zhilight_tpu_torch.ops.cuda import kv_write as W
 from zhilight_tpu_torch.ops.cuda import prefill_attention as P
 from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
 from zhilight_tpu_torch.ops.cuda import quant_ragged as R
-from zhilight_tpu_torch.ops.quant import int4_linear, pack_expert_int4, pack_int4, ragged_layout
+from zhilight_tpu_torch.ops.quant import (fp8_linear, int4_linear, int8_linear, pack_expert_int4,
+                                          pack_int4, quantize_int8_weight, ragged_layout)
 from zhilight_tpu_torch.utils import quant_convert as QC
 from zhilight_tpu_torch.utils.quant_convert import planar_from_gptq
 
@@ -542,3 +548,83 @@ def test_w4a16_ragged_matmul_matches_plain(cuda, R_, TM, E, K, N, gs, pad):
     got, want = got[dest].float(), want[dest].float()
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+
+
+def _fp8_weights(rng, device, K, N):
+    """e4m3 weights without the NaN bytes, block scales around 2/sqrt(K)/100."""
+    bits = rng.integers(0, 256, (K, N)).astype(np.uint8)
+    bits[(bits & 0x7F) == 0x7F] = 0x3C
+    w = torch.from_numpy(bits).to(device).view(torch.float8_e4m3fn)
+    bs = (rng.random((K // 128, N // 128)) + 0.5) * (0.02 / np.sqrt(K))
+    return w, torch.from_numpy(bs.astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 512, 515])
+@pytest.mark.parametrize("K,N", [(128, 128), (384, 256), (4096, 1024), (4096, 4096),
+                                 (4096, 12288), (12288, 4096)])  # the last four: Qwen3-8B
+def test_fp8_block_matmul_matches_plain(cuda, M, K, N):
+    rng = np.random.default_rng(M + K + N)
+    w, bs = _fp8_weights(rng, cuda, K, N)
+    x = _bf16(rng, cuda, M, K)
+    before = F8.fp8_block_matmul.launches
+    got = F8.fp8_block_matmul(x, w, bs)
+    assert F8.fp8_block_matmul.launches == before + 1
+    want = F8.fp8_block_matmul_plain(x, w, bs)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N) and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    assert err <= 1e-2, err
+    # split-K adds its partial sums in a fixed order: a repeated call is bit-equal
+    assert torch.equal(got, F8.fp8_block_matmul(x, w, bs))
+
+
+@pytest.mark.cuda
+def test_fp8_linear_on_gpu_dispatch(cuda):
+    """A bf16 or fp32 x over 128 x 128 blocks launches the kernel (fp32 cast to
+    bf16 and back); other block shapes and per-channel scales dequantize; the
+    wrapper itself raises on what the kernel does not take."""
+    rng = np.random.default_rng(0)
+    K, N = 256, 384
+    w, bs = _fp8_weights(rng, cuda, K, N)
+    x = _bf16(rng, cuda, 2, 5, K)
+    n0 = F8.fp8_block_matmul.launches
+    y = fp8_linear({"w_f8": w, "block_scale": bs}, x)
+    y32 = fp8_linear({"w_f8": w, "block_scale": bs}, x.float())
+    assert F8.fp8_block_matmul.launches == n0 + 2
+    assert y.shape == (2, 5, N) and y.dtype == torch.bfloat16 and y32.dtype == torch.float32
+    assert torch.equal(y32, y.float())
+    want = F8.fp8_block_matmul_plain(x, w, bs)
+    assert (y.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+    # 64-row blocks and a per-channel scale: dequantize, no launch
+    bs64 = bs.repeat_interleave(2, dim=0)
+    y64 = fp8_linear({"w_f8": w, "block_scale": bs64}, x)
+    ych = fp8_linear({"w_f8": w, "scale": torch.full((N,), 0.01, device=cuda)}, x)
+    assert F8.fp8_block_matmul.launches == n0 + 2
+    assert (y64.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
+    assert torch.isfinite(ych).all()
+    with pytest.raises(NotImplementedError, match="bf16"):
+        F8.fp8_block_matmul(x.float(), w, bs)
+    with pytest.raises(ValueError, match="block_scale"):
+        F8.fp8_block_matmul(x, w, bs[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        F8.fp8_block_matmul(x.transpose(0, 1), w, bs)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        F8.fp8_block_matmul(x, w.view(torch.uint8), bs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("M", [1, 8, 16, 40, 512])
+def test_int8_linear_on_gpu_matches_cpu(cuda, M, smooth):
+    """M below 32 goes through the zero-padded torch._int_mm."""
+    rng = np.random.default_rng(M)
+    K, N = 2304, 5760
+    w_q, scale = quantize_int8_weight(torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) / 48)
+    p = {"w_q": w_q, "scale": scale}
+    if smooth:
+        p["smooth"] = torch.from_numpy((rng.random(K) + 0.5).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(torch.bfloat16)
+    want = int8_linear(p, x).float()
+    got = int8_linear({k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert (got.float().cpu() - want).abs().max().item() <= 1e-2 * want.abs().max().item()

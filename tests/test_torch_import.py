@@ -1,6 +1,8 @@
 """The port (zhilight_tpu_torch) stands alone: importing it and every module
-of the slice loads neither JAX nor the JAX package, no file of it imports
-either, and its entry point runs on the GPU unless told otherwise."""
+of the slices (found by a glob, so new modules such as ``utils/calibrate.py``
+and ``ops/cuda/fp8_matmul.py`` are covered) loads neither JAX, the JAX
+package nor ``ml_dtypes``, no file of it imports any of them, and its entry
+point runs on the GPU unless told otherwise."""
 
 import ast
 import os
@@ -10,6 +12,7 @@ from pathlib import Path
 
 import pytest
 
+FOREIGN = ("jax", "jaxlib", "zhilight_tpu", "ml_dtypes")
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "zhilight_tpu_torch"
 MODULES = sorted(
@@ -23,7 +26,7 @@ def test_import_leaves_jax_out():
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'zhilight_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FOREIGN!r})\n"
         "print(len(sys.modules)); assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -46,8 +49,12 @@ def test_no_file_imports_jax(module):
     path = ROOT / (module.replace(".", "/") + ".py")
     if not path.exists():
         path = ROOT / module.replace(".", "/") / "__init__.py"
-    bad = [m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "zhilight_tpu")]
+    bad = [m for m in _imports(path) if m.split(".")[0] in FOREIGN]
     assert not bad, f"{path}: imports {bad}"
+
+
+def test_new_modules_are_covered():
+    assert {"zhilight_tpu_torch.utils.calibrate", "zhilight_tpu_torch.ops.cuda.fp8_matmul"} <= set(MODULES)
 
 
 def test_llm_without_device_raises_without_gpu(monkeypatch):

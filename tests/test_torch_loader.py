@@ -134,8 +134,6 @@ def test_map_hf_params_matches_reference(method, act_order, dtype):
 
 
 def test_map_hf_params_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        TH.map_hf_params([], adapt_hf_config(HF_CONFIG), quant_method="fp8")
     with pytest.raises(ValueError, match="unmapped"):
         TH.map_hf_params([("model.layers.0.mlp.nonsense.weight", np.zeros((8, 8), np.float32))],
                          adapt_hf_config(HF_CONFIG))
@@ -231,3 +229,146 @@ def test_llm_model_path_matches_reference(checkpoint):
     want = serve(jllm, JGenerator, JGeneratorArg)
     got = serve(tllm, TGenerator, TGeneratorArg)
     assert got == want and all(len(t) > 0 for t in got)
+
+
+# ---------------------------------------------------------------------------
+# FP8 checkpoints
+# ---------------------------------------------------------------------------
+
+def _fp8_linear_tensors(seed=9, O=256, I=128, B=128):
+    """tests/test_quant.py:322-333's tensors: one HF [out, in] e4m3 weight with
+    its [out/B, in/B] ``weight_scale_inv``."""
+    import ml_dtypes
+
+    rng = np.random.RandomState(seed)
+    w8 = rng.randn(O, I).astype(np.float32).astype(ml_dtypes.float8_e4m3fn)
+    sc = rng.rand(O // B, I // B).astype(np.float32) * 0.05 + 0.01
+    return w8, sc
+
+
+def _assert_leaves_bit_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        w, g = np.asarray(w), got[path]
+        if w.dtype.itemsize == 1 and w.dtype.kind not in "iu":  # FP8: by its bytes
+            assert g.dtype == torch.float8_e4m3fn, path
+            g, w = g.view(torch.uint8), w.view(np.uint8)
+        elif w.dtype.name == "bfloat16":
+            assert g.dtype == torch.bfloat16, path
+            g, w = g.view(torch.uint16), w.view(np.uint16)
+        else:
+            assert str(g.dtype).removeprefix("torch.") == w.dtype.name, path
+        assert tuple(g.shape) == w.shape, path
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=path)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("keep", [False, True])
+def test_map_hf_params_fp8_matches_reference(monkeypatch, keep, dtype):
+    """An FP8 linear through both loaders: dequantized at load by default
+    (``w`` in the model dtype), kept as ``w_f8`` [in, out] + ``block_scale``
+    [in/128, out/128] with ZT_FP8_KEEP=1; the weight as an ml_dtypes array and
+    as a torch tensor."""
+    from zhilight_tpu.config import ModelConfig as JModelConfig
+    from zhilight_tpu_torch.config import ModelConfig as TModelConfig
+    from zhilight_tpu_torch.utils.convert import to_tensor
+
+    monkeypatch.setenv("ZT_FP8_KEEP", "1" if keep else "0")
+    w8, sc = _fp8_linear_tensors()
+    O, I = w8.shape
+    kw = dict(model_type="llama", num_layers=1, dim_model=I, num_heads=4, dim_head=32,
+              num_kv_heads=2, dim_ff=O, vocab_size=64, dtype=dtype)
+    names = ("model.layers.0.mlp.gate_proj.weight", "model.layers.0.mlp.gate_proj.weight_scale_inv")
+    want = dict(_leaves(JH.map_hf_params(list(zip(names, (w8, sc))), JModelConfig(**kw),
+                                         strict=False, quant_method="fp8")))
+    assert sorted(want) == (["layers.0.mlp.gate_proj.block_scale", "layers.0.mlp.gate_proj.w_f8"]
+                            if keep else ["layers.0.mlp.gate_proj.w"])
+    for weight in (w8, to_tensor(w8)):
+        got = dict(_leaves(TH.map_hf_params(list(zip(names, (weight, sc))), TModelConfig(**kw),
+                                            strict=False, quant_method="fp8")))
+        _assert_leaves_bit_equal(got, want)
+    if keep:
+        assert got["layers.0.mlp.gate_proj.w_f8"].shape == (I, O)
+        assert got["layers.0.mlp.gate_proj.block_scale"].shape == (I // 128, O // 128)
+        # a kept weight needs 2-D block scales
+        with pytest.raises(ValueError, match="ZT_FP8_KEEP=1 requires 2-D block scales"):
+            TH.map_hf_params([(names[0], w8), (names[1][:-4], np.full(O, 0.5, np.float32))],
+                             TModelConfig(**kw), strict=False, quant_method="fp8")
+
+
+def test_map_hf_params_fp8_scale_without_fp8_weight_matches_reference():
+    """A scale beside a weight that is not one byte wide: the weight goes
+    through the dense rule and the scale is recorded as ``block_scale``."""
+    from zhilight_tpu.config import ModelConfig as JModelConfig
+    from zhilight_tpu_torch.config import ModelConfig as TModelConfig
+
+    w8, sc = _fp8_linear_tensors()
+    kw = dict(model_type="llama", num_layers=1, dim_model=128, num_heads=4, dim_head=32,
+              num_kv_heads=2, dim_ff=256, vocab_size=64, dtype="float32")
+    tensors = [("model.layers.0.mlp.gate_proj.weight", w8.astype(np.float32)),
+               ("model.layers.0.mlp.gate_proj.weight_scale_inv", sc)]
+    want = dict(_leaves(JH.map_hf_params(tensors, JModelConfig(**kw), strict=False, quant_method="fp8")))
+    got = dict(_leaves(TH.map_hf_params(tensors, TModelConfig(**kw), strict=False, quant_method="fp8")))
+    assert sorted(want) == ["layers.0.mlp.gate_proj.block_scale", "layers.0.mlp.gate_proj.w"]
+    _assert_leaves_bit_equal(got, want)
+
+
+def test_fp8_dequant_host_scale_layouts_match_reference():
+    """Block (2-D), per-channel (1-D) and per-tensor (0-D) scales, and none;
+    a 3-D scale is a ValueError on both sides (tests/test_quant.py:351-372)."""
+    w8, sc = _fp8_linear_tensors(seed=3, O=256, I=128)
+    O = w8.shape[0]
+    for scale in (sc, np.full(O, 0.25, np.float32), np.float32(0.5), None):
+        for jdtype, tdtype in ((None, None), (np.float32, torch.float32)):
+            want = JH._fp8_dequant_host(w8, scale, jdtype)
+            got = TH._fp8_dequant_host(w8, scale, tdtype)
+            _assert_leaves_bit_equal({"w": got}, {"w": want})
+    for mod in (JH, TH):
+        with pytest.raises(ValueError, match="fp8 weight_scale"):
+            mod._fp8_dequant_host(w8, np.ones((2, 2, 2), np.float32), None)
+
+
+@pytest.mark.parametrize("keep", [False, True])
+def test_fp8_expert_stack_matches_reference(monkeypatch, keep):
+    """Per-expert FP8 tensors of a MoE layer: dequantized at load they stack
+    to the reference's dense ``w`` [E, in, out] and run; kept in FP8 they
+    stack to ``w_f8`` [E, in, out] + ``block_scale``, which ``moe_layer``
+    refuses in both packages (no FP8 expert kernel)."""
+    from zhilight_tpu.config import ModelConfig as JModelConfig
+    from zhilight_tpu.config import MoEConfig as JMoEConfig
+    from zhilight_tpu.models.moe import moe_layer as j_moe_layer
+    from zhilight_tpu_torch.config import ModelConfig as TModelConfig
+    from zhilight_tpu_torch.config import MoEConfig as TMoEConfig
+    from zhilight_tpu_torch.models.moe import moe_layer as t_moe_layer
+
+    monkeypatch.setenv("ZT_FP8_KEEP", "1" if keep else "0")
+    E, Dm, FFe = 4, 128, 256
+    rng = np.random.RandomState(7)
+    tensors = [("model.layers.0.mlp.gate.weight", rng.randn(E, Dm).astype(np.float32))]
+    for e in range(E):
+        for name, (O, I) in (("gate_proj", (FFe, Dm)), ("up_proj", (FFe, Dm)), ("down_proj", (Dm, FFe))):
+            w8, sc = _fp8_linear_tensors(seed=10 * e + len(name), O=O, I=I)
+            pre = f"model.layers.0.mlp.experts.{e}.{name}."
+            tensors += [(pre + "weight", w8), (pre + "weight_scale_inv", sc * 0.05)]
+    kw = dict(model_type="qwen2_moe", num_layers=1, dim_model=Dm, num_heads=2, dim_head=64,
+              num_kv_heads=2, dim_ff=FFe, vocab_size=64, dtype="float32")
+    moe = dict(num_experts=E, top_k=2, intermediate_size=FFe)
+    jcfg, tcfg = JModelConfig(**kw, moe=JMoEConfig(**moe)), TModelConfig(**kw, moe=TMoEConfig(**moe))
+    jtree = JH.map_hf_params(tensors, jcfg, strict=False, quant_method="fp8")
+    ttree = TH.map_hf_params(tensors, tcfg, strict=False, quant_method="fp8")
+    want, got = dict(_leaves(jtree)), dict(_leaves(ttree))
+    _assert_leaves_bit_equal(got, want)
+    stack = "layers.0.mlp.experts.down_proj."
+    assert got[stack + ("w_f8" if keep else "w")].shape == (E, FFe, Dm)
+    x = rng.randn(5, Dm).astype(np.float32)
+    jmlp, tmlp = jtree["layers"]["0"]["mlp"], ttree["layers"]["0"]["mlp"]
+    if keep:
+        assert got[stack + "block_scale"].shape == (E, FFe // 128, Dm // 128)
+        with pytest.raises(ValueError, match="unknown expert weight format"):
+            j_moe_layer(jmlp, jcfg, jnp.asarray(x))
+        with pytest.raises(ValueError, match="unknown expert weight format"):
+            t_moe_layer(tmlp, tcfg, torch.from_numpy(x))
+    else:
+        np.testing.assert_allclose(t_moe_layer(tmlp, tcfg, torch.from_numpy(x)).numpy(),
+                                   np.asarray(j_moe_layer(jmlp, jcfg, jnp.asarray(x))),
+                                   rtol=1e-4, atol=1e-4)

@@ -1,15 +1,17 @@
 """Top-level model entry point (counterpart of ``zhilight_tpu/llm.py``).
 
 ``LLM(model_path=...)`` reads an HF checkpoint directory (``config.json``,
-``generation_config.json``, safetensors or torch ``.bin`` weights, dense or
-GPTQ/AWQ int4); ``LLM(model_config=..., params=..., quant_config=...)``
-takes in-memory weights. ``llm.generator()`` (or ``DynamicBatchGenerator(llm)``)
-serves requests on token ids. The device defaults to the GPU and there is no
+``generation_config.json``, safetensors or torch ``.bin`` weights: dense,
+GPTQ/AWQ int4, or FP8, which is dequantized at load unless ``ZT_FP8_KEEP=1``
+keeps it for the FP8 kernel); ``LLM(model_config=..., params=..., quant_config=...)``
+takes in-memory weights. ``QuantType.AUTO_INT8`` quantizes a raw checkpoint to
+W8A8 int8 at load, and ``LLM.load_with_smooth_quant`` calibrates it first.
+``llm.generator()`` (or ``DynamicBatchGenerator(llm)``) serves requests on
+token ids. The device defaults to the GPU and there is no
 silent move to the CPU: without a GPU, ``device`` must be given as ``"cpu"``.
 The scoring utilities (``calc_logits``, ``calc_hidden_states``,
 ``calc_log_prob``, ``calc_loss``, ``calc_greedy_match``) take token ids. The
-tokenizer (string input), W8A8/FP8 weights and SmoothQuant calibration are
-later slices of the port.
+tokenizer (string input) is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -29,8 +31,6 @@ from .utils.convert import params_to_torch
 from .utils.hf_loader import load_hf_state
 
 __all__ = ["LLM"]
-
-_PORTED_QUANT = (QuantType.NO_QUANT, QuantType.GPTQ, QuantType.AWQ)
 
 
 def _not_ported(what: str):
@@ -72,8 +72,6 @@ class LLM:
             raise ValueError("LLM needs model_path, or model_config and params")
         self.model_config = model_config
         self.quant_config = quant_config or QuantConfig()
-        if self.quant_config.quant_type not in _PORTED_QUANT:
-            _not_ported(f"{self.quant_config.quant_type.name} weights")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -88,6 +86,12 @@ class LLM:
             params = load_hf_state(
                 model_path, model_config, quant=self.quant_config, device=self.device
             )
+            if self.quant_config.quant_type == QuantType.AUTO_INT8:
+                # quantize the raw fp16/bf16 weights to W8A8 at load; the
+                # calibrated SmoothQuant variant is LLM.load_with_smooth_quant
+                from .utils.quant_convert import quantize_int8_params
+
+                params = quantize_int8_params(params, alpha=self.quant_config.smooth_alpha)
         eos_ids = _load_generation_eos(model_path) if model_path else []
         if eos_ids:
             sched = self.engine_config.scheduler
@@ -100,6 +104,52 @@ class LLM:
 
     def generator(self) -> DynamicBatchGenerator:
         return DynamicBatchGenerator(self)
+
+    # ------------------------------------------------------------------
+    # SmoothQuant calibration
+    # ------------------------------------------------------------------
+    def calc_act_scales(self, prompts, calib_len: int = 512) -> Dict[str, np.ndarray]:
+        """Run calibration prompts (token ids) through the model and return
+        the per-channel activation |max| of every quantized linear's input
+        (parameter path -> [in] float32). Each prompt is tiled or truncated
+        to ``calib_len`` tokens."""
+        from .utils.calibrate import calc_act_scales as _calc
+
+        batches = []
+        for p in prompts:
+            ids = self._encode_ids(p)
+            if len(ids) == 0:
+                continue
+            reps = -(-calib_len // len(ids))
+            batches.append(np.tile(ids, reps)[:calib_len])
+        if not batches:
+            raise ValueError("no non-empty calibration prompts")
+        return _calc(self.executor.params, self.model_config, self.executor.rope, batches)
+
+    @classmethod
+    def load_with_smooth_quant(
+        cls,
+        model_path: str,
+        calibration_prompts,
+        engine_config: Optional[EngineConfig] = None,
+        alpha: float = 0.5,
+        calib_len: int = 512,
+        **kw,
+    ) -> "LLM":
+        """The SmoothQuant flow from a raw fp16/bf16 checkpoint: load it,
+        calibrate the activation scales on ``calibration_prompts`` (token
+        ids), migrate the outliers into the weights (``alpha``) and serve
+        W8A8 int8 on the same device."""
+        from .utils.quant_convert import quantize_int8_params
+
+        base = cls(model_path=model_path, engine_config=engine_config, **kw)
+        scales = base.calc_act_scales(calibration_prompts, calib_len=calib_len)
+        params, device = base.executor.params, base.device
+        mc, ec = base.model_config, base.engine_config
+        base.executor = None  # release the KV pool before the rebuild
+        del base
+        return cls(model_config=mc, engine_config=ec, device=device,
+                   params=quantize_int8_params(params, scales, alpha))
 
     # ------------------------------------------------------------------
     # scoring utilities, on token ids
@@ -144,7 +194,3 @@ class LLM:
         """Number of positions whose argmax logit is the label."""
         rows, lab = self._logits_and_labels(tokens, labels)
         return int(np.sum(np.argmax(rows, axis=-1) == lab))
-
-    @classmethod
-    def load_with_smooth_quant(cls, *args, **kw):
-        _not_ported("SmoothQuant calibration")

@@ -1,16 +1,23 @@
 """Quantized linear paths (counterpart of ``zhilight_tpu/ops/quant.py``).
 
-The port carries the int4 half: GPTQ/AWQ W4A16 linears in the canonical
-format the loader produces (``utils/hf_loader.py``):
+Canonical formats, as the loader (``utils/hf_loader.py``) and the converters
+(``utils/quant_convert.py``) produce them:
 
+  int8:  {"w_q": int8 [in, out], "scale": f32 [out], "smooth"?: f32 [in]}
   int4:  {"w_p": uint8 [in/2, out] global-planar packed nibbles, or
                  int8 [in, out] nibble values 0..15,
           "scales": f32 [groups, out], "zeros": f32 [groups, out],
           "perm"?: int32 [in] (GPTQ act-order row permutation)}
+  fp8:   {"w_f8": float8_e4m3fn [in, out],
+          "scale": f32 [] | [out]  or  "block_scale": f32 [in/B, out/B]}
 
 :func:`int4_linear` runs ``ops.cuda.quant_matmul.w4a16_matmul``: the
 hand-written CUDA kernel for CUDA tensors, its plain PyTorch version for CPU
-tensors. W8A8 int8 and FP8 linears are later slices and raise.
+tensors. :func:`fp8_linear` sends a CUDA tensor over 128 x 128 block scales to
+the hand-written ``ops.cuda.fp8_matmul.fp8_block_matmul`` and dequantizes in
+every other case. :func:`int8_linear` (W8A8, SmoothQuant) is an int8 x int8
+product with int32 accumulation through ``torch._int_mm``, as the reference
+leaves it to ``lax.dot_general``.
 
 MoE expert stacks keep the same format with a leading expert dimension
 (``w_p`` uint8 ``[E, in/2, out]``, each expert planar-packed on its own:
@@ -32,6 +39,7 @@ __all__ = [
     "int4_linear",
     "int8_linear",
     "fp8_linear",
+    "quantize_int8_weight",
     "pack_int4",
     "unpack_int4",
     "dequant_int4",
@@ -162,9 +170,82 @@ def ragged_layout(flat_experts: torch.Tensor, num_experts: int, tm: int, occ_exp
     return sort_idx, dest, tile_expert.to(torch.int32), num_occ, mp
 
 
-def int8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError("W8A8 int8 linears are not ported yet")
+# ---------------------------------------------------------------------------
+# INT8 (W8A8, SmoothQuant)
+# ---------------------------------------------------------------------------
 
+def quantize_int8_weight(w: torch.Tensor):
+    """Per-output-channel absmax int8 quantization: w [in, out] ->
+    (w_q int8, scale f32 [out])."""
+    wf = w.float()
+    scale = (wf.abs().amax(0) / 127.0).clamp_min(1e-8)
+    w_q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return w_q, scale
+
+
+def _quantize_act_per_token(x: torch.Tensor):
+    """Dynamic per-token absmax int8 activation quantization: x [..., in] ->
+    (q int8, scale f32 [..., 1]); round half to even, as the reference."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+# torch._int_mm on CUDA takes more than 16 rows, and K and N multiples of 8
+_INT_MM_MIN_ROWS = 32
+
+
+def _int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] x int8 [K, N] -> int32 [M, N], exact."""
+    M, K = x_q.shape
+    if not x_q.is_cuda:
+        return torch._int_mm(x_q, w_q)
+    if K % 8 or w_q.shape[1] % 8:
+        raise NotImplementedError(
+            f"int8_linear on CUDA: K {K} and N {w_q.shape[1]} must be multiples of 8")
+    if M >= _INT_MM_MIN_ROWS:
+        return torch._int_mm(x_q, w_q)
+    # a decode batch: zero rows up to the library's minimum, sliced off again
+    # (the activation scales were taken before, so a pad row touches none)
+    padded = torch.zeros((_INT_MM_MIN_ROWS, K), dtype=torch.int8, device=x_q.device)
+    padded[:M] = x_q
+    return torch._int_mm(padded, w_q)[:M]
+
+
+def int8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """W8A8: smooth-scale x, dynamic per-token int8 quantization, an int8 x
+    int8 product with int32 accumulation, then the two scales."""
+    if "smooth" in p:
+        x = x * p["smooth"].to(x.dtype)
+    x_q, x_scale = _quantize_act_per_token(x)
+    K = x_q.shape[-1]
+    acc = _int8_matmul(x_q.reshape(-1, K), p["w_q"]).reshape(*x_q.shape[:-1], -1)
+    y = acc.float() * x_scale * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FP8
+# ---------------------------------------------------------------------------
 
 def fp8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError("FP8 linears are not ported yet")
+    """FP8 (e4m3) weight linear with a per-tensor or per-channel ``scale`` or
+    block scales. A CUDA tensor over 128 x 128 blocks goes to the
+    ``fp8_block_matmul`` kernel (bf16 activations, the weight read as one
+    byte each and never dequantized in device memory); every other case
+    dequantizes in fp32, rounds the weight to x's dtype and multiplies."""
+    w = p["w_f8"]
+    if "block_scale" in p:
+        bs = p["block_scale"]  # [in/B, out/B]
+        K, N = w.shape
+        if x.is_cuda and K % 128 == 0 and N % 128 == 0 and bs.shape == (K // 128, N // 128):
+            from .cuda.fp8_matmul import fp8_block_matmul
+
+            return fp8_block_matmul(x.to(torch.bfloat16), w, bs).to(x.dtype)
+        Bk, Bn = K // bs.shape[0], N // bs.shape[1]
+        wf = w.float().reshape(bs.shape[0], Bk, bs.shape[1], Bn) * bs[:, None, :, None]
+        w_deq = wf.reshape(K, N).to(x.dtype)
+    else:
+        w_deq = (w.float() * p["scale"]).to(x.dtype)
+    return torch.matmul(x, w_deq)

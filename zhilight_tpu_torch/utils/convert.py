@@ -16,19 +16,30 @@ import torch
 
 __all__ = ["params_to_torch", "to_tensor"]
 
-# leaves of an int4 linear ({"w_p", "scales", "zeros", "perm"?, "b"?}) that
-# keep their own dtypes: uint8/int8 weights, f32 scales and zeros, int32 perm
-_INT4_LEAVES = ("w_p", "scales", "zeros", "perm")
+# leaves of a quantized linear or expert stack that keep their own dtypes
+# (a bias "b" beside them is still cast):
+#   int4 {"w_p", "scales", "zeros", "perm"?}: uint8/int8 weights, f32 scales
+#        and zeros, int32 perm
+#   int8 {"w_q", "scale", "smooth"?}: int8 weights, f32 scale and smooth
+#   fp8  {"w_f8", "block_scale" | "scale"}: float8_e4m3fn weights, f32 scales
+_QUANT_LEAVES = {
+    "w_p": ("w_p", "scales", "zeros", "perm"),
+    "w_q": ("w_q", "scale", "smooth"),
+    "w_f8": ("w_f8", "block_scale", "scale"),
+}
 
 
 def to_tensor(x: Any) -> torch.Tensor:
     """A torch tensor as it is, or a CPU tensor copied from an array (numpy,
-    ml_dtypes bfloat16 included, or any object numpy can read)."""
+    ml_dtypes bfloat16 and float8_e4m3fn included, or any object numpy can
+    read)."""
     if isinstance(x, torch.Tensor):
         return x
     a = np.array(x, order="C")  # a writable copy (device_get arrays are read-only)
     if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: no numpy-native type
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn" and a.dtype.itemsize == 1:  # ml_dtypes, by its bits
+        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     return torch.from_numpy(a)
 
 
@@ -36,13 +47,13 @@ def params_to_torch(params: Any, device=None, dtype: Optional[torch.dtype] = Non
     """Nested dict of arrays (numpy, or any object numpy can read) -> the
     same nesting of torch tensors on ``device``; ``dtype`` casts the dense
     floating-point leaves, MLA projections and dense expert stacks included.
-    An int4 linear's or expert stack's scales and zeros stay f32, and so do a
-    MoE router's weight and correction bias (routing runs in fp32)."""
+    The leaves of an int4, int8 or FP8 linear or expert stack keep their
+    dtypes (payloads, f32 scales, zeros and smooth vectors, int32 perm), and
+    so do a MoE router's weight and correction bias (routing runs in fp32)."""
     if isinstance(params, dict):
-        int4 = "w_p" in params
+        kept = next((leaves for w, leaves in _QUANT_LEAVES.items() if w in params), ())
         return {
-            k: params_to_torch(
-                v, device, None if (int4 and k in _INT4_LEAVES) or k == "router" else dtype)
+            k: params_to_torch(v, device, None if k in kept or k == "router" else dtype)
             for k, v in params.items()
         }
     t = to_tensor(params)

@@ -1,18 +1,17 @@
 """HF checkpoint loading: safetensors / torch ``.bin`` -> the port's params.
 
-Counterpart of ``zhilight_tpu/utils/hf_loader.py``, its dense and int4
-parts: the HF -> internal name mapping (dense, MLA, and the MoE names of
-Qwen2-MoE, DeepSeek and Mixtral), the GPTQ/AWQ conversion into the
-``ops/quant.py`` int4 format, per-expert tensors stacked into ``[E, ...]``
-leaves, and the checkpoint readers. Leaves are torch
+Counterpart of ``zhilight_tpu/utils/hf_loader.py``: the HF -> internal name
+mapping (dense, MLA, and the MoE names of Qwen2-MoE, DeepSeek and Mixtral),
+the GPTQ/AWQ conversion into the ``ops/quant.py`` int4 format, FP8 checkpoints
+(e4m3 weights with block, per-channel or per-tensor scales: dequantized at
+load by default, kept in FP8 with ``ZT_FP8_KEEP=1``), per-expert tensors
+stacked into ``[E, ...]`` leaves, and the checkpoint readers. Leaves are torch
 tensors in the reference's nesting and layout, on the CPU unless ``device``
 is given. HF stores linear weights [out, in]; the port stores [in, out]
 (x @ W), so dense kernels are transposed on load. With ``device`` given,
-each tensor is moved there first and transposed, cast or (GPTQ planar fast
-path) repacked there: a GPU does those passes over a 14B model's weights
-far faster than the host.
-
-FP8 checkpoints are a later slice and raise ``NotImplementedError``.
+each tensor is moved there first and transposed, cast, (GPTQ planar fast
+path) repacked or (FP8) decoded and scaled there: a GPU does those passes
+over a 14B model's weights far faster than the host.
 """
 
 from __future__ import annotations
@@ -166,7 +165,13 @@ def _numpy(arr: Any) -> np.ndarray:
     return np.asarray(arr)
 
 
-_QUANT_SUFFIXES = ("qweight", "qzeros", "scales", "g_idx")
+_QUANT_SUFFIXES = ("qweight", "qzeros", "scales", "g_idx", "weight_scale", "weight_scale_inv")
+# kinds of an FP8 linear: stashed as torch tensors (numpy has no FP8 type)
+_FP8_KINDS = ("weight", "weight_scale", "weight_scale_inv")
+
+
+def _itemsize(arr: Any) -> int:
+    return arr.element_size() if isinstance(arr, torch.Tensor) else np.asarray(arr).dtype.itemsize
 
 
 def map_hf_params(
@@ -180,10 +185,8 @@ def map_hf_params(
     """Build the nested param dict from (hf_name, array or tensor) pairs,
     its leaves on ``device`` (default: the CPU).
 
-    ``quant_method`` ("gptq" | "awq") converts the packed checkpoint tensors
-    of each quantized linear into the int4 format of ``ops/quant.py``."""
-    if quant_method == "fp8":
-        raise NotImplementedError("FP8 checkpoints are not ported yet")
+    ``quant_method`` ("gptq" | "awq" | "fp8") converts the checkpoint tensors
+    of each quantized linear into the formats of ``ops/quant.py``."""
     dtype = dtype or cfg.torch_dtype
     tree: Dict[str, Any] = {}
     expert_stash: Dict[str, Dict[int, torch.Tensor]] = {}  # stack path -> expert -> [in, out]
@@ -193,17 +196,24 @@ def map_hf_params(
     for name, arr in tensors:
         # quantized linear tensors: strip the kind suffix, map the base name
         kind = next((s for s in _QUANT_SUFFIXES if name.endswith("." + s)), None)
+        base = name if kind is None else name[: -(len(kind) + 1)] + ".weight"
+        if (kind is None and quant_method == "fp8" and name.endswith(".weight")
+                and _itemsize(arr) == 1):
+            # an FP8 checkpoint keeps the projection under its plain .weight
+            # name: stash the payload, so that its scales are applied at conversion
+            kind = "weight"
         if kind is not None:
-            mapped = map_hf_name(name[: -(len(kind) + 1)] + ".weight")
+            mapped = map_hf_name(base)
             if mapped is None:
                 unmapped.append(name)
                 continue
             path, _, e = mapped
             entry = quant_stash.setdefault(path[: -len(".w")], {})
+            value = to_tensor(arr) if kind in _FP8_KINDS else _numpy(arr)
             if e is not None:
-                entry.setdefault(kind, {})[e] = _numpy(arr)
+                entry.setdefault(kind, {})[e] = value
             else:
-                entry[kind] = _numpy(arr)
+                entry[kind] = value
             continue
 
         mapped = map_hf_name(name)
@@ -224,7 +234,7 @@ def map_hf_params(
         _set_path(tree, path, torch.stack([experts[i] for i in range(max(experts) + 1)]))
 
     if quant_stash:
-        _convert_quant_stash(tree, quant_stash, quant_method, device)
+        _convert_quant_stash(tree, quant_stash, quant_method, dtype, device)
 
     if strict and unmapped:
         raise ValueError(f"unmapped checkpoint tensors: {unmapped[:10]}")
@@ -271,8 +281,77 @@ def _convert_expert_stack(entry, quant_method):
     return _pad_canon_int4({k: np.stack([p[k] for p in parts], axis=0) for k in parts[0]})
 
 
-def _convert_quant_stash(tree, quant_stash, quant_method, device):
+def _as_e4m3(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte tensor's bits as float8_e4m3fn."""
+    return t if t.dtype == torch.float8_e4m3fn else t.view(torch.uint8).view(torch.float8_e4m3fn)
+
+
+def _fp8_dequant_host(w_oi, scale_oi, dtype=None, device=None) -> torch.Tensor:
+    """[out, in] FP8 + block/channel/tensor scales -> [in, out] dequantized in
+    fp32 and rounded to ``dtype`` (default bf16), on ``device`` (default: the
+    host). Scales may be 2-D [out/B, in/B] (block), 1-D [out] (per-channel),
+    0-D (per-tensor) or None."""
+    t = _as_e4m3(to_tensor(w_oi)).to(device).float()
+    if scale_oi is not None:
+        s = to_tensor(scale_oi).to(device).float()
+        if s.dim() == 2:
+            (O, I), (so, si) = t.shape, s.shape
+            t = (t.reshape(so, O // so, si, I // si) * s[:, None, :, None]).reshape(O, I)
+        elif s.dim() == 1:  # per-output-channel
+            t = t * s[:, None]
+        elif s.dim() == 0:  # per-tensor
+            t = t * s
+        else:
+            raise ValueError(f"unsupported fp8 weight_scale layout: ndim={s.dim()}")
+    return t.t().contiguous().to(dtype or torch.bfloat16)
+
+
+def _convert_fp8_entry(tree, path, entry, dtype, device):
+    """One FP8 linear (or per-expert stack): apply its scales.
+
+    By default the weight is dequantized at load to the model dtype and
+    served as a dense ``w`` (experts stacked ``[E, in, out]``).
+    ``ZT_FP8_KEEP=1`` keeps the FP8 payload ``w_f8`` [in, out] and its
+    ``block_scale`` [in/128, out/128] (the checkpoint's [out, in] layouts
+    transposed) for the ``fp8_block_matmul`` kernel: half the bytes in device
+    memory and per decode step."""
+    w = entry.get("weight")
+    scale = entry.get("weight_scale_inv", entry.get("weight_scale"))
+    keep = os.environ.get("ZT_FP8_KEEP") == "1"
+    if w is None:
+        # a scale without a stashed weight (the weight was not one byte wide
+        # and went through the dense rule): record the scale
+        if scale is not None:
+            _set_path(tree, path + ".block_scale", scale.to(device).float().t().contiguous())
+        return
+    per_expert = isinstance(w, dict)
+    if per_expert:
+        E = max(w) + 1
+        ws = [w[e] for e in range(E)]
+        ss = [scale[e] if isinstance(scale, dict) else scale for e in range(E)]
+    else:
+        ws, ss = [w], [scale]
+    if keep:
+        if any(s is None or s.dim() != 2 for s in ss):
+            raise ValueError(
+                f"ZT_FP8_KEEP=1 requires 2-D block scales for every fp8 weight; {path} has "
+                f"scale={[None if s is None else tuple(s.shape) for s in ss]}")
+        # FP8 tensors are transposed and stacked as bytes
+        wt = [_as_e4m3(x.to(device)).view(torch.uint8).t().contiguous() for x in ws]
+        st = [s.to(device).float().t().contiguous() for s in ss]
+        w_f8 = (torch.stack(wt) if per_expert else wt[0]).view(torch.float8_e4m3fn)
+        _set_path(tree, path + ".w_f8", w_f8)
+        _set_path(tree, path + ".block_scale", torch.stack(st) if per_expert else st[0])
+        return
+    deq = [_fp8_dequant_host(x, s, dtype, device) for x, s in zip(ws, ss)]
+    _set_path(tree, path + ".w", torch.stack(deq) if per_expert else deq[0])
+
+
+def _convert_quant_stash(tree, quant_stash, quant_method, dtype, device):
     for path, entry in quant_stash.items():
+        if quant_method == "fp8":
+            _convert_fp8_entry(tree, path, entry, dtype, device)
+            continue
         if isinstance(next(iter(entry.values())), dict):  # per-expert quant tensors
             for k, v in _convert_expert_stack(entry, quant_method).items():
                 t = torch.from_numpy(v.astype({"w_p": np.int8, "perm": np.int32}.get(k, np.float32)))

@@ -1,5 +1,5 @@
-"""Checkpoint-side int4 conversion (counterpart of
-``zhilight_tpu/utils/quant_convert.py``, its GPTQ/AWQ half).
+"""Checkpoint-side quantization conversion (counterpart of
+``zhilight_tpu/utils/quant_convert.py``).
 
 The packed int32 checkpoint tensors are unpacked once, at load, into the
 canonical int4 format of ``ops/quant.py`` (nibble values in int8, groupwise
@@ -17,15 +17,20 @@ Packing conventions:
     i*8 + AWQ_ORDER[j] with AWQ_ORDER = (0, 2, 4, 6, 1, 3, 5, 7); qzeros
     packed the same way, no offset; scales [G, N].
 
-W8A8 (``auto_int8_from_fp``, SmoothQuant) is a later slice.
+W8A8 at load (:func:`auto_int8_from_fp`, :func:`smooth_quant_weights`,
+:func:`quantize_int8_params`) takes and returns torch tensors on the weights'
+own device; the arithmetic is fp32 in the reference's order, so ``w_q`` is
+bit-equal to the reference's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.quant import quantize_int8_weight
 
 __all__ = [
     "unpack_gptq",
@@ -35,6 +40,9 @@ __all__ = [
     "gptq_planar_qweight",
     "planar_from_gptq",
     "convert_quant_tensors",
+    "auto_int8_from_fp",
+    "smooth_quant_weights",
+    "quantize_int8_params",
 ]
 
 AWQ_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
@@ -219,3 +227,77 @@ def convert_quant_tensors(
     if method == "awq":
         return unpack_awq(tensors["qweight"], tensors["qzeros"], tensors["scales"])
     raise ValueError(f"unknown quant method {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# int8 at load
+# ---------------------------------------------------------------------------
+
+def auto_int8_from_fp(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-output-channel absmax int8. w [in, out] -> {"w_q" int8, "scale" f32 [out]}."""
+    w_q, scale = quantize_int8_weight(w)
+    return {"w_q": w_q, "scale": scale}
+
+
+def smooth_quant_weights(
+    w: torch.Tensor, act_scale, alpha: float = 0.5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SmoothQuant migration: returns (w * s[:, None], 1 / s) with
+    s = act_scale^alpha / w_rowmax^(1 - alpha), all fp32. The runtime
+    multiplies the activations by the returned ``smooth`` (= 1 / s) vector.
+    The [in] vector s is computed with numpy on the host, in the reference's
+    order (the libraries' ``pow`` differ in the last bit); the weight stays
+    on its device."""
+    wf = w.float()
+    if isinstance(act_scale, torch.Tensor):
+        act_scale = act_scale.detach().cpu().numpy()
+    act = np.asarray(act_scale, np.float32)
+    w_amax = np.maximum(wf.abs().amax(1).cpu().numpy(), 1e-8)
+    s = np.power(np.maximum(act, 1e-8), alpha) / np.power(w_amax, 1.0 - alpha)
+    s = np.maximum(s, 1e-8).astype(np.float32)
+    smooth = torch.from_numpy((1.0 / s).astype(np.float32)).to(wf.device)
+    return wf * torch.from_numpy(s).to(wf.device)[:, None], smooth
+
+
+_INT8_TARGETS = (
+    "qkv_proj", "q_proj", "k_proj", "v_proj", "o_proj",
+    "gate_up_proj", "gate_proj", "up_proj", "down_proj",
+)
+
+
+def quantize_int8_params(
+    params: Dict[str, Any],
+    act_scales: Optional[Dict[str, Any]] = None,
+    alpha: float = 0.5,
+) -> Dict[str, Any]:
+    """Quantize the dense-layer linears of a loaded parameter tree to W8A8
+    int8 in place of their ``{"w"}`` leaves (2-D weights only; expert stacks
+    are skipped; a bias is kept). With ``act_scales`` (from
+    ``utils.calibrate.calc_act_scales``, keyed by parameter path) the
+    SmoothQuant migration folds activation outliers into the weights and
+    stores the inverse ``smooth`` vector for ``ops.quant.int8_linear``.
+    Embedding, lm_head, norms, routers and leaves that are quantized already
+    are untouched. Returns a new tree; the leaves stay on their device."""
+
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            sub = f"{path}.{k}" if path else k
+            if not isinstance(v, dict):
+                out[k] = v
+            elif (k in _INT8_TARGETS and "w" in v and ".experts" not in sub
+                  and getattr(v["w"], "ndim", 0) == 2):
+                w, smooth = v["w"].float(), None
+                if act_scales is not None and sub in act_scales:
+                    w, smooth = smooth_quant_weights(w, act_scales[sub], alpha)
+                new = auto_int8_from_fp(w)
+                if smooth is not None:
+                    new["smooth"] = smooth
+                if "b" in v:
+                    new["b"] = v["b"]
+                out[k] = new
+            else:
+                out[k] = walk(v, sub)
+        return out
+
+    return walk(params, "")

@@ -16,7 +16,11 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            DeepSeek-V2-Lite's shapes (latent row write, MLA latent decode,
            grouped int4 matmul over the expert stacks), and the FP8 block
            matmul at Qwen3-8B's seven projection shapes, M = 8 and 512;
-  serve    the five main paths, each through ``LLM`` + ``DynamicBatchGenerator``
+           and the four kernels of the slot-major pools (separate K and V
+           pools, head_dim 16 to 128): decode attention over bf16 and int8
+           pools at H2O-Danube-1.8B's shape (32 / 8 heads of 80) and the two
+           row writes at its rows and at Qwen2.5-14B's;
+  serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
            first-token logits and one batch-8 decode step's logits (contexts
@@ -45,13 +49,24 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            MiniCPM-2B calibrated on four seeded 512-token sequences
            (``calc_act_scales``), quantized by ``quantize_int8_params`` and
            served from the int8 tree, with ``int8_linear`` on the card held
-           against the same call on the CPU;
+           against the same call on the CPU. Then H2O-Danube-1.8B
+           (``mistral``, 24 layers, full width, 32 / 8 heads of 80, random
+           weights from the seed) over a bf16 slot-major pool, and the same
+           weights over an int8 one (``kv_dtype="int8"``; with the pool-row
+           operations, a beam request and ``calc_logits``); and a 4-layer
+           model at Qwen2.5-14B's attention geometry (40 / 8 heads of 128)
+           whose pool is slot-major because ``ZT_NO_PACKED_KV=1`` is set while
+           its executor builds it, the only layout that reaches
+           ``paged_write_rows``, with logits against the packed pool's;
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
            3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
            batch 8 at context 2816; Qwen3-8B-FP8 batch 8 at context 3712;
-           MiniCPM-2B W8A8 batch 16 at context 512, decode only) and the time to first token of a 3712-token
-           prompt (DeepSeek: 2816) in 512-token chunks, by bench.py's method, then a torch.profiler breakdown of one decode
+           MiniCPM-2B W8A8 batch 16 at context 512, decode only;
+           H2O-Danube-1.8B batch 8 at context 3712, over the bf16 pool and,
+           decode only, the int8 pool) and the time to first token of a
+           3712-token prompt (DeepSeek: 2816) in 512-token chunks, by
+           bench.py's method, then a torch.profiler breakdown of one decode
            window and one prefill.
 
 The last lines are the kernels' JSON record, the GPU's name and power limit,
@@ -134,6 +149,22 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/fp8_matmul.cu",
         replaces="zhilight_tpu/ops/pallas/fp8_matmul.py:85",
     ),
+    "paged_decode_attention": dict(
+        source="zhilight_tpu_torch/csrc/paged_attention.cu",
+        replaces="zhilight_tpu/ops/pallas/paged_attention.py:364",
+    ),
+    "paged_write_rows": dict(
+        source="zhilight_tpu_torch/csrc/kv_write_pair.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:141",
+    ),
+    "write_rows_2d_pair": dict(
+        source="zhilight_tpu_torch/csrc/kv_write_pair.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:427",
+    ),
+    "paged_decode_attention_q": dict(
+        source="zhilight_tpu_torch/csrc/paged_attention_q.cu",
+        replaces="zhilight_tpu/ops/pallas/paged_attention.py:971",
+    ),
 }
 ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
@@ -149,6 +180,10 @@ PATHS = {
     "Qwen3-8B-FP8": ATTENTION_KERNELS + ("fp8_block_matmul",),
     # W8A8 adds no hand-written kernel: the int8 product is the library's
     "MiniCPM-2B-W8A8": ATTENTION_KERNELS,
+    # slot-major pools: prefill attends over the gathered context in plain
+    # torch, as the reference leaves it to XLA
+    "H2O-Danube-1.8B": ("write_rows_2d_pair", "paged_decode_attention"),
+    "H2O-Danube-1.8B-int8kv": ("write_rows_2d_pair", "paged_decode_attention_q"),
 }
 # prompt lengths of a path's 8 requests (32 new tokens each)
 SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
@@ -158,6 +193,7 @@ QWEN_HEADS = dict(Hq=40, Hkv=8, D=128)
 # Qwen3-8B's projections, (K, N): q/o, k/v, gate/up, down
 QWEN3_SHAPES = {"q/o_proj": (4096, 4096), "k/v_proj": (4096, 1024),
                 "gate/up_proj": (4096, 12288), "down_proj": (12288, 4096)}
+DANUBE_HEADS = dict(Hq=32, Hkv=8, D=80)
 
 # Qwen/Qwen2.5-14B-Instruct-GPTQ-Int4's config.json fields, as
 # tools/make_bench_model.py:30-44 writes them
@@ -202,6 +238,16 @@ QWEN3_8B_FP8 = {
     "eos_token_id": 151645, "bos_token_id": 151643,
     "quantization_config": {"quant_method": "fp8", "fmt": "e4m3", "activation_scheme": "dynamic",
                             "weight_block_size": [128, 128]},
+}
+
+
+# h2oai/h2o-danube-1.8b-base's config.json fields
+DANUBE_1_8B = {
+    "architectures": ["MistralForCausalLM"], "model_type": "mistral", "hidden_size": 2560,
+    "intermediate_size": 6912, "num_hidden_layers": 24, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "vocab_size": 32000, "max_position_embeddings": 16384,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "sliding_window": 4096,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "bos_token_id": 1, "eos_token_id": 2,
 }
 
 
@@ -742,6 +788,7 @@ def phase_kernels(rec: dict) -> None:
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
     kernels_fp8(rec, rng)
+    kernels_slot_major(rec, rng)
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1051,6 +1098,168 @@ def kernels_deepseek(rec: dict, rng) -> None:
     _record(rec, "w4a16_ragged_matmul", abs_err, list(shapes)[0], shapes)
 
 
+def kernels_slot_major(rec: dict, rng) -> None:
+    """The four kernels of the slot-major pools against their plain versions:
+    decode attention over bf16 and int8 pools at head_dim 16, 80, 96, 100 and
+    128 with groups of 1, 4 and 5 query heads, over contexts that end
+    mid-page, an empty slot, with and without a sliding window shorter than
+    the contexts, and at the serving shapes (batch 8, H2O-Danube-1.8B's 32 / 8
+    heads of 80 and Qwen2.5-14B's 40 / 8 of 128, contexts up to 3712, window
+    0 and 300); the two row writes bit-exact, bf16 and int8 rows, a decode
+    step's rows and a chunk starting mid-page. Then timed: decode at
+    H2O-Danube-1.8B's shape (batch 8, context 3712, 32 / 8 heads of 80) and at
+    Qwen2.5-14B's heads (40 / 8 of 128, the layout ZT_NO_PACKED_KV=1 gives
+    it), beside SDPA on rows gathered (and dequantized) beforehand; the writes
+    at 8 and 512 rows beside ``index_copy_`` on the pools' 2-D views."""
+    from zhilight_tpu_torch.kvcache.paged import _quantize_rows, slot_indices
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+
+    F, S = torch.nn.functional, 16
+
+    def pools(Hkv, slots, D, int8):
+        """Pools [1, N, Hkv, D]: (k, v) bf16, or (k, v, k_scales, v_scales)
+        int8 with head-major scales [Hkv, N + 1]; and the K and V rows [N,
+        Hkv, D] in bf16 (dequantized beforehand) for the library call."""
+        k, v = _randn(rng, slots, Hkv, D), _randn(rng, slots, Hkv, D)
+        if not int8:
+            return (k[None], v[None]), (k, v)
+        (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
+        pad = torch.zeros(Hkv, 1, device="cuda")
+        deq = tuple((x.float() * sc[..., None]).to(torch.bfloat16) for x, sc in ((k_q, k_s), (v_q, v_s)))
+        return (k_q[None], v_q[None], torch.cat([k_s.t(), pad], 1).contiguous(),
+                torch.cat([v_s.t(), pad], 1).contiguous()), deq
+
+    # -- decode attention over bf16, then int8 pools -----------------------------
+    for int8, name in ((False, "paged_decode_attention"), (True, "paged_decode_attention_q")):
+        fn, plain = ((PA.paged_decode_attention_q, PA.paged_decode_attention_q_plain) if int8
+                     else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
+        kind = "int8" if int8 else "bf16"
+
+        def check(ctx, Hq, Hkv, D, windows):
+            """The kernel against its plain version; returns the largest error."""
+            tables, npages = _paged(rng, ctx, S)
+            pk, _ = pools(Hkv, npages * S, D, int8)
+            q = _randn(rng, len(ctx), Hq, D)
+            e_max = 0.0
+            for window in windows:
+                args = (q, *pk, _dev(tables), _dev(ctx), S, 1.0 / np.sqrt(D), window)
+                got, want = fn(*args), plain(*args)
+                e = (got.float() - want.float()).abs().max().item()
+                label = f"{name} Hq={Hq} Hkv={Hkv} D={D} window={window} ctx={ctx.tolist()}"
+                if not np.isfinite(e) or e > ATTN_TOL:
+                    raise AssertionError(f"{label}: max abs err {e} > {ATTN_TOL}")
+                if got[torch.from_numpy(ctx == 0)].any():
+                    raise AssertionError(f"{label}: an empty slot is not zero")
+                e_max = max(e_max, e)
+            return e_max
+
+        ctx = np.array([700, 1, 0, 17, 33, 257, 16, 129], np.int32)  # slot 2 empty
+        err = max(check(ctx, 2 * G, 2, D, (0, 40)) for D in (16, 80, 96, 100, 128)
+                  for G in (1, 4, 5))
+        print(f"kernels: {name} ({kind} slot-major pools) at D 16, 80, 96, 100, 128, G 1, 4, 5, "
+              f"window 0 and 40, contexts {ctx.tolist()}: max abs err {err:.3e}", flush=True)
+        # the serving shapes: H2O-Danube-1.8B's batch and heads (the grid the
+        # main path launches) and Qwen2.5-14B's heads (G 5: two query-row
+        # groups a block), at contexts up to 3712 that cut into ranges
+        for model, heads in (("H2O-Danube-1.8B", DANUBE_HEADS), ("Qwen2.5-14B", QWEN_HEADS)):
+            e = 0.0
+            for ctx in ([3712, 7, 513, 1500, 100, 16, 250, 3201],
+                        [3712, 7, 0, 1500, 100, 16, 250, 3201]):
+                e = max(e, check(np.array(ctx, np.int32), **heads, windows=(0, 300)))
+            print(f"kernels: {name} ({kind} slot-major pools) at {model}'s heads {heads}, "
+                  f"batch 8, contexts up to 3712 (one empty), window 0 and 300: max abs err "
+                  f"{e:.3e}", flush=True)
+            err = max(err, e)
+
+        def timed(B, Hq, Hkv, D, CTX):
+            maxp = CTX // S + 2
+            tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+            pk, (kr, vr) = pools(Hkv, B * maxp * S, D, int8)
+            q = _randn(rng, B, Hq, D)
+            args = (q, *pk, _dev(tables), _dev(np.full(B, CTX, np.int32)), S, 1.0 / np.sqrt(D))
+            slots = slot_indices(_dev(tables), S)[:, :CTX]                # [B, CTX]
+            kg = kr[slots].transpose(1, 2).contiguous()                   # [B, Hkv, CTX, D]
+            vg = vr[slots].transpose(1, 2).contiguous()
+            gqa = dict(enable_gqa=True) if Hq != Hkv else {}
+            nbytes = (2 * B * CTX * Hkv * D * pk[0].element_size() + 2 * q.numel() * 2
+                      + tables.size * 4 + B * 4)
+            if int8:
+                nbytes += B * CTX * Hkv * 2 * 4  # one K and one V scale per (token, KV head)
+            t_b, by = bound(nbytes, 4 * B * Hq * CTX * D)
+            return dict(
+                ms=time_ms(lambda: fn(*args)),
+                plain_ms=time_ms(lambda: plain(*args), reps=10),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg,
+                                                                          **gqa)),
+                bound_ms=t_b, bound_by=by,
+            )
+
+        _record(rec, name, err, f"H2O-Danube-1.8B batch 8, context 3712, {kind} pool", {
+            f"H2O-Danube-1.8B batch 8, context 3712, {kind} pool":
+                timed(8, CTX=3712, **DANUBE_HEADS),
+            f"Qwen2.5-14B heads batch 8, context 3712, {kind} slot-major pool":
+                timed(8, CTX=3712, **QWEN_HEADS),
+        })
+
+    # -- the two row writes: bit-exact, then timed -------------------------------
+    def write_case(T_, start, Hkv, D, int8, zero_pools=False):
+        if start is None:  # decode: one row per sequence, one skipped
+            npages = max(64, 2 * T_)
+            slots = rng.permutation(npages)[:T_] * S + rng.integers(0, S, T_)
+            slots[T_ // 2] = -1
+        else:  # a chunk starting mid-page through a shuffled table
+            npages = (start + T_) // S + 4
+            table = rng.permutation(npages)
+            pos = np.arange(start, start + T_)
+            slots = table[pos // S] * S + pos % S
+        if int8:
+            rows = [_dev(rng.integers(-127, 128, (T_, Hkv, D)).astype(np.int8)) for _ in "kv"]
+        else:
+            rows = [_randn(rng, T_, Hkv, D) for _ in "kv"]
+        shape = (1, npages * S, Hkv, D)
+        pk = [torch.zeros(shape, dtype=rows[0].dtype, device="cuda") if zero_pools
+              else (_randn(rng, *shape) * 40).to(rows[0].dtype) for _ in "kv"]
+        return pk, rows, _dev(slots.astype(np.int32))
+
+    for name, fn, plain, (Hkv, D) in (
+            ("paged_write_rows", W.paged_write_rows, W.paged_write_rows_plain, (8, 128)),
+            ("write_rows_2d_pair", W.write_rows_2d_pair, W.write_rows_2d_pair_plain, (8, 80))):
+        for hd in ((8, 80), (8, 128), (2, 16), (1, 100)):
+            for int8 in (False, True):
+                for T_, start in ((8, None), (512, 3205)):
+                    pk, rows, slots = write_case(T_, start, *hd, int8)
+                    got = fn(*(p.clone() for p in pk), *rows, slots)
+                    want = plain(*(p.clone() for p in pk), *rows, slots)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"{name} Hkv={hd[0]} D={hd[1]} T={T_} int8={int8}: "
+                                             "not bit-exact")
+        print(f"kernels: {name} bit-exact at (Hkv, D) (8, 80), (8, 128), (2, 16), (1, 100), "
+              "bf16 and int8 rows, 8 rows and a 512-token chunk starting mid-page", flush=True)
+        shapes = {}
+        model = "Qwen2.5-14B" if D == 128 else "H2O-Danube-1.8B"
+        for T_, int8 in ((8, False), (512, False), (8, True)):
+            # distinct rows on exclusive pages (the library call takes no skipped rows)
+            pk, rows, _ = write_case(T_, None, Hkv, D, int8, zero_pools=True)
+            idx = torch.from_numpy(rng.permutation(pk[0].shape[1] // S)[:T_] * S).cuda()
+            slots = idx.to(torch.int32)
+            k2, v2 = (p[0].view(p.shape[1], -1) for p in pk)
+            kr2, vr2 = (r.reshape(T_, -1) for r in rows)
+            t_b, by = bound(2 * 2 * T_ * Hkv * D * rows[0].element_size() + T_ * 4, 0)
+
+            def library():  # the K rows, then the V rows
+                k2.index_copy_(0, idx, kr2)
+                v2.index_copy_(0, idx, vr2)
+
+            shapes[f"{model} {T_} rows {'int8' if int8 else 'bf16'}"] = dict(
+                ms=time_ms(lambda: fn(*pk, *rows, slots)),
+                plain_ms=time_ms(lambda: plain(*pk, *rows, slots)),
+                library_ms=time_ms(library), bound_ms=t_b, bound_by=by,
+            )
+        _record(rec, name, 0.0, f"{model} 8 rows bf16", shapes)
+
+
 # ---------------------------------------------------------------------------
 # phase: serve (the main paths)
 # ---------------------------------------------------------------------------
@@ -1059,11 +1268,16 @@ def _counters():
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
     from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
     from zhilight_tpu_torch.ops.cuda import quant_ragged as R
 
     return {
+        "paged_decode_attention": PA.paged_decode_attention,
+        "paged_write_rows": W.paged_write_rows,
+        "write_rows_2d_pair": W.write_rows_2d_pair,
+        "paged_decode_attention_q": PA.paged_decode_attention_q,
         "fp8_block_matmul": F8.fp8_block_matmul,
         "write_rows_2d": W.write_rows_2d,
         "paged_mla_decode": A.paged_mla_decode,
@@ -1092,6 +1306,7 @@ def plain_kernels():
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
     from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
     from zhilight_tpu_torch.ops.cuda import quant_ragged as R
@@ -1106,7 +1321,12 @@ def plain_kernels():
 
     with mock.patch.object(paged_mod, "kv_write",
                            SimpleNamespace(write_rows_hm=W.write_rows_hm_plain,
-                                           write_rows_2d=W.write_rows_2d_plain)), \
+                                           write_rows_2d=W.write_rows_2d_plain,
+                                           paged_write_rows=W.paged_write_rows_plain,
+                                           write_rows_2d_pair=W.write_rows_2d_pair_plain)), \
+         mock.patch.object(llama_mod, "paged_attention", SimpleNamespace(
+             paged_decode_attention=PA.paged_decode_attention_plain,
+             paged_decode_attention_q=PA.paged_decode_attention_q_plain)), \
          mock.patch.object(mla_mod, "attn_headmajor",
                            SimpleNamespace(paged_mla_decode=A.paged_mla_decode_plain)), \
          mock.patch.object(moe_mod, "quant_ragged", SimpleNamespace(
@@ -1323,10 +1543,12 @@ def pool_rows_and_scoring(label: str, llm, prompts, bf16_first) -> None:
 
     ex = llm.executor
     cache = ex.cache
-    if not (cache.quantized and len(cache.arrays()) == 3 and cache.k[0].dtype == torch.int8):
+    if not (cache.quantized and cache.k[0].dtype == torch.int8
+            and len(cache.arrays()) == (3 if cache.packed else 4)):
         raise AssertionError(f"{label}: the serving pool is not int8 with scales")
     # rows the requests wrote: their K scales are set
-    pool_rows(label, ex, cache.k_scale[0][0, : cache.num_slots] != 0, "pool, k_scale, v_scale")
+    pool_rows(label, ex, cache.k_scale[0][0, : cache.num_slots] != 0,
+              "pool, k_scale, v_scale" if cache.packed else "K pool, V pool, k_scale, v_scale")
 
     with DynamicBatchGenerator(llm) as gen:
         t0 = time.monotonic()
@@ -1534,17 +1756,19 @@ def dense_expert_path(args) -> None:
 
 
 @contextlib.contextmanager
-def fp8_kept(keep: bool):
-    """ZT_FP8_KEEP as the loader reads it, for the enclosed load only."""
-    old = os.environ.pop("ZT_FP8_KEEP", None)
-    if keep:
-        os.environ["ZT_FP8_KEEP"] = "1"
+def env_switch(name: str, on: bool):
+    """``name=1`` in the environment for the enclosed block only (unset when
+    ``on`` is false): ZT_FP8_KEEP as the loader reads it, ZT_NO_PACKED_KV as
+    ``new_kv_cache`` reads it."""
+    old = os.environ.pop(name, None)
+    if on:
+        os.environ[name] = "1"
     try:
         yield
     finally:
-        os.environ.pop("ZT_FP8_KEEP", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["ZT_FP8_KEEP"] = old
+            os.environ[name] = old
 
 
 def load_qwen3_fp8(label: str, seed: int, layers: int, keep: bool):
@@ -1557,7 +1781,7 @@ def load_qwen3_fp8(label: str, seed: int, layers: int, keep: bool):
     hf = dict(QWEN3_8B_FP8, num_hidden_layers=layers)
     cfg, qcfg = adapt_hf_config(hf), QuantConfig.from_hf_config(hf)
     t0 = time.monotonic()
-    with fp8_kept(keep):
+    with env_switch("ZT_FP8_KEEP", keep):
         params, n_tensors = map_hf_params_by_layer(qwen3_fp8_hf_tensors(hf, seed), cfg, "fp8")
     load_s = time.monotonic() - t0
     llm = LLM(model_config=cfg, quant_config=qcfg, params=params,
@@ -1730,6 +1954,122 @@ def phase_serve(rec: dict, args) -> None:
     release_pool(llm)
     fp8_default_load_path(args)
 
+    danube_paths(rec, args)
+    no_packed_kv_path(rec, args)
+
+
+def danube_engine_config(kv_dtype: str = "bfloat16"):
+    """Batch 8, max_model_len 4096 (prompts of up to 3712 tokens and their 32
+    new ones), 512-token chunks; the pool is sized from the free memory."""
+    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+
+    return EngineConfig(
+        max_model_len=4096,
+        cache=CacheConfig(page_size=16, kv_dtype=kv_dtype),
+        scheduler=SchedulerConfig(max_batch=8, chunk_size=512),
+    )
+
+
+def danube_paths(rec: dict, args) -> None:
+    """H2O-Danube-1.8B at full width and depth, random weights from the seed:
+    head_dim 80, so slot-major K and V pools, over bf16 and over int8."""
+    from zhilight_tpu_torch.config import adapt_hf_config
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    t0 = time.monotonic()
+    cfg = adapt_hf_config(DANUBE_1_8B)
+    params = L.init_params(cfg, seed=args.seed, device="cuda")
+    pool_bytes = lambda c: sum(a.numel() * a.element_size() for arrays in c.arrays() for a in arrays)
+    bf16_first = None
+    for kv_dtype, label in (("bfloat16", "H2O-Danube-1.8B"), ("int8", "H2O-Danube-1.8B-int8kv")):
+        llm = LLM(model_config=cfg, params=params, engine_config=danube_engine_config(kv_dtype),
+                  device="cuda")
+        ex = llm.executor
+        cache = ex.cache
+        if cache.packed or tuple(cache.k[0].shape) != (1, cache.num_slots, 8, 80):
+            raise AssertionError(f"{label}: the pool is not slot-major [1, N, 8, 80]: "
+                                 f"{tuple(cache.k[0].shape)}")
+        print(f"serve: {label}: {kv_dtype} slot-major pools of {ex.num_pages} pages x "
+              f"{ex.page_size} = {cache.num_slots} tokens, {pool_bytes(cache) / 1e9:.3f} GB "
+              f"({ex._kv_bytes_per_token()} bytes per token); sliding window "
+              f"{cfg.sliding_window}", flush=True)
+        prompts, first = serve_path(label, llm, rec, args.seed)
+        if kv_dtype == "int8":
+            pool_rows_and_scoring(label, llm, prompts, bf16_first)
+        else:
+            bf16_first = first
+        args.llms[label] = llm
+        release_pool(llm)
+    print(f"serve: H2O-Danube-1.8B paths in {time.monotonic() - t0:.1f} s", flush=True)
+
+
+def no_packed_kv_path(rec: dict, args) -> None:
+    """``paged_write_rows`` is reached only by rows the TPU can write one by one
+    (Hkv % 8 == 0, D % 128 == 0), which a slot-major pool holds only under
+    ZT_NO_PACKED_KV=1. A 4-layer bf16 model at Qwen2.5-14B's attention geometry
+    (d 5120, 40 / 8 heads of 128; weights from the seed), the switch set while
+    its executor builds its pool, serves four requests; then its first-token
+    and decode-step logits over a slot-major cache against the same weights
+    over the packed pool."""
+    from zhilight_tpu_torch.config import adapt_hf_config
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    t0 = time.monotonic()
+    label = "Qwen2.5-14B-geometry-4-layers-ZT_NO_PACKED_KV"
+    hf = {k: v for k, v in QWEN14B_GPTQ.items() if k != "quantization_config"}
+    cfg = adapt_hf_config(dict(hf, num_hidden_layers=4))
+    params = L.init_params(cfg, seed=args.seed, device="cuda")
+    with env_switch("ZT_NO_PACKED_KV", True):
+        llm = LLM(model_config=cfg, params=params, engine_config=qwen_engine_config(),
+                  device="cuda")
+    ex = llm.executor
+    if ex.cache.packed or tuple(ex.cache.k[0].shape[2:]) != (8, 128):
+        raise AssertionError(f"{label}: the pool is not slot-major [1, N, 8, 128]")
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in (100, 513, 1500, 16)]
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with DynamicBatchGenerator(llm) as gen:
+        results = gen.batch_generate(prompts, GeneratorArg(max_length=8), timeout=300)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"][label] = n
+    print(f"serve: {label}: {len(prompts)} requests, "
+          f"{[len(r.outputs[0].token_ids) for r in results]} tokens; launches {launches}",
+          flush=True)
+    expect = ("paged_write_rows", "paged_decode_attention")
+    if any(launches[n] == 0 for n in expect) or any(
+            n for name, n in launches.items() if name not in expect):
+        raise AssertionError(f"{label}: launched {launches}, expected only {expect}")
+
+    # the same forward over a slot-major and over a packed scratch cache
+    with env_switch("ZT_NO_PACKED_KV", True):
+        first_sm = _prefill_logits(ex, prompts[0])
+        step_sm, _ = _decode_step_logits(ex, prompts)
+    first_pk = _prefill_logits(ex, prompts[0])
+    step_pk, _ = _decode_step_logits(ex, prompts)
+    rel_first = ((first_sm - first_pk).abs().max() / first_pk.abs().max()).item()
+    scale = step_pk.abs().amax(-1)
+    rel_step = ((step_sm - step_pk).abs().amax(-1) / scale).max().item()
+    same = int((step_sm.argmax(-1) == step_pk.argmax(-1)).sum())
+    print(f"serve: {label}: logits over slot-major vs packed pools: first token max rel err "
+          f"{rel_first:.3e}, argmax {int(first_sm.argmax())} vs {int(first_pk.argmax())}; "
+          f"decode step (batch {len(prompts)}) max rel err {rel_step:.3e}, argmax same on "
+          f"{same}/{len(prompts)} rows (tolerance {LOGIT_TOL}); {time.monotonic() - t0:.1f} s",
+          flush=True)
+    if not (torch.isfinite(first_sm).all() and torch.isfinite(step_sm).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    if (rel_first > LOGIT_TOL or rel_step > LOGIT_TOL or same != len(prompts)
+            or int(first_sm.argmax()) != int(first_pk.argmax())):
+        raise AssertionError(f"{label}: slot-major and packed pools give other logits")
+    release_pool(llm)
+
 
 # ---------------------------------------------------------------------------
 # phase: timing (bench.py's method)
@@ -1742,6 +2082,8 @@ TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prom
     "DeepSeek-V2-Lite-GPTQ-Int4": (8, 2816, False, 2816),
     "Qwen3-8B-FP8": (8, 3712, False, 3712),
     "MiniCPM-2B-W8A8": (16, 512, False, 0),  # decode only: prefill adds nothing the bf16 path lacks
+    "H2O-Danube-1.8B": (8, 3712, False, 3712),
+    "H2O-Danube-1.8B-int8kv": (8, 3712, False, 0),  # decode only: the int8 prefill is the gather
 }
 
 

@@ -18,7 +18,10 @@ stacks; the latent row write is bit-exact and the MLA latent decode within
 1e-2 of the largest plain output (one bf16 rounding of the output, fp32 sums
 in another order); ``int8_linear`` on the card within 1e-2 of the largest
 output of the same call on the CPU (the integer product is exact, but the
-card may divide through a reciprocal, so a code may differ by one).
+card may divide through a reciprocal, so a code may differ by one). The
+slot-major pools' kernels (separate K and V pools ``[1, N, Hkv, D]``) follow
+the same rules: their row writes bit-exact for bf16 and int8 rows, their
+decode attention within 2e-2 absolute at head_dim 16 to 128.
 """
 
 import dataclasses
@@ -37,6 +40,7 @@ from zhilight_tpu_torch.models.base import PrefillMeta
 from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
 from zhilight_tpu_torch.ops.cuda import kv_write as W
+from zhilight_tpu_torch.ops.cuda import paged_attention as PA
 from zhilight_tpu_torch.ops.cuda import prefill_attention as P
 from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
 from zhilight_tpu_torch.ops.cuda import quant_ragged as R
@@ -628,3 +632,148 @@ def test_int8_linear_on_gpu_matches_cpu(cuda, M, smooth):
     got = int8_linear({k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert (got.float().cpu() - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# slot-major pools (head_dim 16, 80, 96, 100; 128 under ZT_NO_PACKED_KV=1)
+# ---------------------------------------------------------------------------
+
+def _slot_major_pools(rng, device, slots, hkv, D, int8):
+    """Separate K and V pools [1, N, Hkv, D] of unit-variance rows (bf16), or
+    those rows quantized with their head-major scales [Hkv, N + 1]."""
+    k, v = _bf16(rng, device, slots, hkv, D), _bf16(rng, device, slots, hkv, D)
+    if not int8:
+        return k[None], v[None]
+    (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
+    pad = torch.zeros(hkv, 1, device=device)
+    return (k_q[None], v_q[None], torch.cat([k_s.t(), pad], 1).contiguous(),
+            torch.cat([v_s.t(), pad], 1).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 4, 5])
+@pytest.mark.parametrize("D", [16, 80, 96, 100, 128])
+def test_slot_major_decode_attention_matches_plain(cuda, D, G, int8):
+    """8 sequences on 2 KV heads: contexts ending mid-page, an empty slot,
+    then the same with a sliding window shorter than the contexts."""
+    rng = np.random.default_rng(D + G)
+    hkv = 2
+    ctx = np.array([700, 1, 0, 17, 33, 257, 16, 129], np.int32)
+    tables, npages = _tables(rng, ctx, cuda)
+    pools = _slot_major_pools(rng, cuda, npages * S, hkv, D, int8)
+    fn, plain = ((PA.paged_decode_attention_q, PA.paged_decode_attention_q_plain) if int8
+                 else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
+    q = _bf16(rng, cuda, len(ctx), hkv * G, D)
+    for window in (0, 40):
+        args = (q, *pools, tables, torch.from_numpy(ctx).to(cuda), S, 1.0 / np.sqrt(D), window)
+        got, want = fn(*args), plain(*args)
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+        assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("hkv,G,D", [(8, 4, 80), (8, 5, 128), (4, 16, 80), (1, 24, 64)])
+def test_slot_major_decode_attention_long_context_and_wide_groups(cuda, hkv, G, D, window, int8):
+    """H2O-Danube-1.8B's geometry (8 KV heads, G 4, head_dim 80) and
+    Qwen2.5-14B's heads (G 5 of 128) at batch 8, contexts up to 3712 (the
+    kernel cuts the context into ranges and merges them), one slot empty;
+    groups of query heads past the kernel's 4 or 8 rows a block."""
+    rng = np.random.default_rng(hkv * G + window)
+    ctx = np.array([3712, 7, 0, 1500, 100, 16, 250, 3201], np.int32)
+    tables, npages = _tables(rng, ctx, cuda)
+    pools = _slot_major_pools(rng, cuda, npages * S, hkv, D, int8)
+    fn, plain = ((PA.paged_decode_attention_q, PA.paged_decode_attention_q_plain) if int8
+                 else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
+    args = (_bf16(rng, cuda, 8, hkv * G, D), *pools, tables, torch.from_numpy(ctx).to(cuda), S,
+            1.0 / np.sqrt(D), window)
+    got = fn(*args)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert (got.float() - plain(*args).float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hkv,D", [(8, 80), (8, 128), (2, 16), (1, 100), (3, 7)])
+@pytest.mark.parametrize("start,n", [(0, 8), (21, 40), (3205, 512)])
+def test_slot_major_writes_are_exact(cuda, start, n, hkv, D, int8):
+    """Both pair writes against their plain versions: a decode step's rows or
+    a chunk starting mid-page through a shuffled table, one row skipped."""
+    rng = np.random.default_rng(start + D)
+    pages = (start + n) // S + 3
+    table = rng.permutation(pages)
+    pos = np.arange(start, start + n)
+    slots = torch.from_numpy((table[pos // S] * S + pos % S).astype(np.int32)).to(cuda)
+    slots[n // 3] = -1
+    if int8:
+        rows = [torch.from_numpy(rng.integers(-127, 128, (n, hkv, D)).astype(np.int8)).to(cuda)
+                for _ in range(2)]
+        pools = [torch.from_numpy(rng.integers(-127, 128, (1, pages * S, hkv, D)).astype(np.int8)
+                                  ).to(cuda) for _ in range(2)]
+    else:
+        rows = [_bf16(rng, cuda, n, hkv, D) for _ in range(2)]
+        pools = [_bf16(rng, cuda, 1, pages * S, hkv, D) for _ in range(2)]
+    for fn, plain in ((W.paged_write_rows, W.paged_write_rows_plain),
+                      (W.write_rows_2d_pair, W.write_rows_2d_pair_plain)):
+        n0 = fn.launches
+        gk, gv = fn(*(p.clone() for p in pools), *rows, slots)
+        wk, wv = plain(*(p.clone() for p in pools), *rows, slots)
+        assert fn.launches == n0 + 1
+        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_slot_major_write_kv_routes_as_the_reference(cuda, quantized, monkeypatch):
+    """write_kv on the card: head_dim 80 (8 KV heads) takes write_rows_2d_pair;
+    head_dim 128 under ZT_NO_PACKED_KV=1 takes paged_write_rows (Hkv % 8 == 0
+    and D % 128 == 0); int8 rows through the same kernels, scales beside them."""
+    rng = np.random.default_rng(6)
+    monkeypatch.setenv("ZT_NO_PACKED_KV", "1")
+    for D, fn in ((80, W.write_rows_2d_pair), (128, W.paged_write_rows)):
+        cache = new_kv_cache(1, 8, S, 8, D, torch.bfloat16, quantized=quantized, device=cuda)
+        assert not cache.packed
+        k, v = _bf16(rng, cuda, 5, 8, D), _bf16(rng, cuda, 5, 8, D)
+        slots = torch.tensor([3, 40, -1, 77, 100], dtype=torch.int32, device=cuda)
+        n0 = fn.launches
+        write_kv(cache, 0, k, v, slots)
+        assert fn.launches == n0 + 1
+        keep = slots >= 0
+        if quantized:
+            (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
+            assert torch.equal(cache.k[0][0, slots[keep].long()], k_q[keep])
+            assert torch.equal(cache.v[0][0, slots[keep].long()], v_q[keep])
+            assert torch.equal(cache.k_scale[0][:, slots[keep].long()], k_s[keep].t())
+        else:
+            assert torch.equal(cache.k[0][0, slots[keep].long()], k[keep])
+            assert torch.equal(cache.v[0][0, slots[keep].long()], v[keep])
+
+
+@pytest.mark.cuda
+def test_slot_major_wrappers_raise_on_unsupported_cuda_inputs(cuda):
+    q = torch.zeros(2, 4, 80, dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros(1, 64, 2, 80, dtype=torch.bfloat16, device=cuda)
+    pool8 = pool.to(torch.int8)
+    sc = torch.zeros(2, 65, device=cuda)
+    tables = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    ctx = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        PA.paged_decode_attention(q.float(), pool, pool, tables, ctx, S, 0.1)       # fp32 q
+    with pytest.raises(NotImplementedError):
+        PA.paged_decode_attention(q, pool8, pool8, tables, ctx, S, 0.1)             # int8 pools
+    with pytest.raises(NotImplementedError):
+        PA.paged_decode_attention_q(q, pool, pool, sc, sc, tables, ctx, S, 0.1)     # bf16 pools
+    with pytest.raises(ValueError):
+        PA.paged_decode_attention_q(q, pool8, pool8, sc[:, :10], sc, tables, ctx, S, 0.1)
+    wide = torch.zeros(2, 4, 272, dtype=torch.bfloat16, device=cuda)
+    wpool = torch.zeros(1, 64, 2, 272, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        PA.paged_decode_attention(wide, wpool, wpool, tables, ctx, S, 0.1)          # D > 256
+    rows = torch.zeros(3, 2, 80, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        W.paged_write_rows(pool, pool, rows, rows, torch.zeros(3, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        W.write_rows_2d_pair(pool, pool, rows[:, :1], rows, torch.zeros(3, dtype=torch.int32,
+                                                                          device=cuda))

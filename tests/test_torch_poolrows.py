@@ -6,9 +6,9 @@ the rows carry scales, for an int8 pool.
 
 The JAX package's own tests of these paths (tests/test_preemption.py,
 test_beam_search.py, test_scoring.py, test_sessions.py) run a head_dim 8 model
-on slot-major pools, which the port does not hold yet; here both packages run
-one tiny fp32 model with head_dim 64 (packed head-major pools) from the same
-weights. Tokens must be identical; logits and hidden states agree to
+on slot-major pools; here both packages run one tiny fp32 model with head_dim
+64 (packed head-major pools) from the same weights (tests/test_torch_slotmajor.py
+holds beam search and swap preemption over slot-major pools). Tokens must be identical; logits and hidden states agree to
 rtol = atol = 1e-4 (fp32 sums in another order).
 """
 

@@ -1,26 +1,33 @@
 """Device-side paged KV cache.
 
 Counterpart of ``zhilight_tpu/kvcache/paged.py``: one statically shaped
-paged pool per layer, addressed by page tables. The port holds the packed
-head-major layout that the reference uses whenever ``2*head_dim % 128 == 0``:
-each layer's pool is ``[Hkv, num_pages * page_size, 2*head_dim]``, K in
-lanes ``[:D]`` and V in lanes ``[D:]``. An int8 cache (``quantized=True``)
-stores int8 elements in the same pool geometry plus one fp32 absmax scale per
-(token, KV head) for K and for V. The scales are head-major
-``[Hkv, N_slots + 1]`` (the reference keeps them slot-major ``[N_slots, Hkv]``):
-every array of the cache then has its slot dimension at dim 1, and an
-attention block that owns one KV head reads its tokens' scales from
-neighbouring addresses. The last column is a spare that absorbs the scales of
-skipped rows. Slot-major pools are a later slice of the port and raise
-``NotImplementedError``.
+paged pool per layer, addressed by page tables, in one of the reference's two
+layouts, chosen as the reference chooses (:func:`_use_packed`):
+
+* packed head-major, whenever ``2*head_dim % 128 == 0``: each layer's pool is
+  ``[Hkv, num_pages * page_size, 2*head_dim]``, K in lanes ``[:D]`` and V in
+  lanes ``[D:]``;
+* slot-major otherwise (head_dim 16, 80, 96, 100 ...), or for any head_dim
+  under ``ZT_NO_PACKED_KV=1``: separate K and V pools per layer, each the
+  reference's ``[N_slots, Hkv, D]`` stored with a leading unit dimension,
+  ``[1, N_slots, Hkv, D]``. ``pool[0]`` is the reference's array, so one
+  token's row of ``Hkv*D`` elements is contiguous.
+
+An int8 cache (``quantized=True``) stores int8 elements in the same pool
+geometry plus one fp32 absmax scale per (token, KV head) for K and for V. The
+scales are head-major ``[Hkv, N_slots + 1]`` in both layouts (the reference
+keeps them slot-major ``[N_slots, Hkv]``): an attention block that owns one KV
+head reads its tokens' scales from neighbouring addresses. The last column is
+a spare that absorbs the scales of skipped rows.
 
 An MLA model keeps one latent row per token instead (:func:`new_latent_cache`):
 each layer's pool is ``[1, num_pages * page_size, latent_dim]``, the
-compressed KV (``kv_lora_rank``) followed by the rope key. The leading unit
-dimension keeps the slot dimension at dim 1, as in every other array of the
-cache. The reference pads the row to a multiple of 128 lanes for its TPU
-kernels; the port stores ``latent_dim`` elements (576 for DeepSeek-V2: 1152
-bytes, a multiple of 16).
+compressed KV (``kv_lora_rank``) followed by the rope key. The reference pads
+the row to a multiple of 128 lanes for its TPU kernels; the port stores
+``latent_dim`` elements (576 for DeepSeek-V2: 1152 bytes, a multiple of 16).
+
+Every array of a cache has its slot dimension at dim 1 (hence the leading unit
+dimensions), so the engine's pool-row operations serve every layout.
 
 Writes update the pool in place (PyTorch has no buffer donation to emulate):
 :func:`write_kv` returns the same cache object it was given.
@@ -28,6 +35,7 @@ Writes update the pool in place (PyTorch has no buffer donation to emulate):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -41,16 +49,19 @@ __all__ = ["KVCache", "new_kv_cache", "new_latent_cache", "write_kv", "write_lat
 
 @dataclass
 class KVCache:
-    """Per-layer head-major packed pools ``[Hkv, N_slots, 2D]``; for an int8
-    cache also the per-layer fp32 scales ``[Hkv, N_slots + 1]`` of K and of V
-    (the last column a spare). An MLA cache holds ``latent`` instead of
-    ``k``: per-layer latent pools ``[1, N_slots, latent_dim]``."""
+    """Per-layer pools: head-major packed ``[Hkv, N_slots, 2D]`` in ``k``
+    (``packed``), or slot-major ``[1, N_slots, Hkv, D]`` in ``k`` and ``v``;
+    for an int8 cache also the per-layer fp32 scales ``[Hkv, N_slots + 1]`` of
+    K and of V (the last column a spare). An MLA cache holds ``latent``
+    instead: per-layer latent pools ``[1, N_slots, latent_dim]``."""
 
     k: Optional[List[torch.Tensor]] = None
     page_size: int = 16
     k_scale: Optional[List[torch.Tensor]] = None
     v_scale: Optional[List[torch.Tensor]] = None
     latent: Optional[List[torch.Tensor]] = None
+    v: Optional[List[torch.Tensor]] = None  # slot-major V pools; None when packed
+    packed: bool = False
 
     @property
     def quantized(self) -> bool:
@@ -65,9 +76,10 @@ class KVCache:
         scales of an int8 cache). Each array's slot dimension is dim 1."""
         if self.is_latent:
             return [self.latent]
+        pools = [self.k] if self.packed else [self.k, self.v]
         if self.quantized:
-            return [self.k, self.k_scale, self.v_scale]
-        return [self.k]
+            return pools + [self.k_scale, self.v_scale]
+        return pools
 
     @property
     def num_slots(self) -> int:
@@ -82,6 +94,16 @@ class KVCache:
         return len(self.arrays()[0])
 
 
+def _use_packed(head_dim: int) -> bool:
+    """The packed head-major layout for any head_dim whose K|V row tiles the
+    reference's 128-lane registers; slot-major pools otherwise, or for every
+    head_dim under ``ZT_NO_PACKED_KV=1`` (read here, as the reference reads
+    it). The switch picks a layout: both layouts run CUDA kernels."""
+    if os.environ.get("ZT_NO_PACKED_KV") == "1":
+        return False
+    return (2 * head_dim) % 128 == 0
+
+
 def new_kv_cache(
     num_layers: int,
     num_pages: int,
@@ -92,23 +114,24 @@ def new_kv_cache(
     quantized: bool = False,
     device: Optional[torch.device] = None,
 ) -> KVCache:
-    if (2 * head_dim) % 128:
-        raise NotImplementedError(
-            f"head_dim {head_dim}: slot-major pools (2*head_dim % 128 != 0) are not ported yet"
-        )
-    shape = (num_kv_heads, num_pages * page_size, 2 * head_dim)
+    N = num_pages * page_size
     store_dtype = torch.int8 if quantized else dtype
-    pools = [torch.zeros(shape, dtype=store_dtype, device=device) for _ in range(num_layers)]
-    if not quantized:
-        return KVCache(k=pools, page_size=page_size)
+    packed = _use_packed(head_dim)
+    shape = (num_kv_heads, N, 2 * head_dim) if packed else (1, N, num_kv_heads, head_dim)
+
+    def pools():
+        return [torch.zeros(shape, dtype=store_dtype, device=device) for _ in range(num_layers)]
 
     def scales():
         # one spare column past the pool's slots takes the scales of skipped
         # rows (slot < 0), so the scatter needs no mask and no host sync
-        return [torch.zeros((shape[0], shape[1] + 1), dtype=torch.float32, device=device)
+        return [torch.zeros((num_kv_heads, N + 1), dtype=torch.float32, device=device)
                 for _ in range(num_layers)]
 
-    return KVCache(k=pools, page_size=page_size, k_scale=scales(), v_scale=scales())
+    return KVCache(
+        k=pools(), v=None if packed else pools(), page_size=page_size, packed=packed,
+        k_scale=scales() if quantized else None, v_scale=scales() if quantized else None,
+    )
 
 
 def new_latent_cache(
@@ -138,6 +161,24 @@ def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def _rows_tile_aligned(rows: torch.Tensor) -> bool:
+    """The reference's choice between its two slot-major row writes
+    (``kvcache/paged.py:229-232``): ``paged_write_rows`` for rows [T, Hkv, D]
+    with ``Hkv % 8 == 0`` and ``D % 128 == 0``, ``write_rows_2d_pair`` else."""
+    return rows.shape[-2] % 8 == 0 and rows.shape[-1] % 128 == 0
+
+
+def _write_rows(cache: KVCache, layer: int, k_rows, v_rows, slot_mapping) -> None:
+    """Rows into layer ``layer``'s pools, whatever the layout and dtype: the
+    CUDA writes move bytes, so int8 rows take the same kernel as model-dtype
+    rows (the reference scatters slot-major int8 rows through XLA)."""
+    if cache.packed:
+        kv_write.write_rows_hm(cache.k[layer], k_rows, v_rows, slot_mapping)
+        return
+    write = kv_write.paged_write_rows if _rows_tile_aligned(k_rows) else kv_write.write_rows_2d_pair
+    write(cache.k[layer], cache.v[layer], k_rows, v_rows, slot_mapping)
+
+
 def write_kv(
     cache: KVCache,
     layer: int,
@@ -145,14 +186,13 @@ def write_kv(
     v_new: torch.Tensor,         # [T, Hkv, D]
     slot_mapping: torch.Tensor,  # [T] int32 flat slot (page*page_size + offset); < 0 => skip
 ) -> KVCache:
-    """Write new K/V rows into layer ``layer``'s pool, in place. An int8
+    """Write new K/V rows into layer ``layer``'s pools, in place. An int8
     cache quantizes the rows first and scatters their scales beside them
     (plain tensor ops, as the reference leaves both to XLA)."""
-    pool = cache.k[layer]
     if cache.quantized:
         # K and V in one pass: half the small launches of two
         rows, scales = _quantize_rows(torch.stack((k_new, v_new)))  # [2, T, Hkv, D], [2, T, Hkv]
-        kv_write.write_rows_hm(pool, rows[0], rows[1], slot_mapping)
+        _write_rows(cache, layer, rows[0], rows[1], slot_mapping)
         # a skipped row (slot < 0, or past the pool) lands in the spare last column
         N = cache.num_slots
         idx = slot_mapping.long()
@@ -160,12 +200,9 @@ def write_kv(
         cache.k_scale[layer][:, idx] = scales[0].t()
         cache.v_scale[layer][:, idx] = scales[1].t()
         return cache
-    kv_write.write_rows_hm(
-        pool,
-        k_new.to(pool.dtype).contiguous(),
-        v_new.to(pool.dtype).contiguous(),
-        slot_mapping,
-    )
+    dtype = cache.k[layer].dtype
+    _write_rows(cache, layer, k_new.to(dtype).contiguous(), v_new.to(dtype).contiguous(),
+                slot_mapping)
     return cache
 
 
@@ -211,9 +248,14 @@ def gather_scales(
 def gather_kv(
     cache: KVCache, layer: int, page_indices: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Contiguous K and V of the given pages. An int8 cache is dequantized
-    and, as in the reference's ``gather_kv``, rounded to bf16."""
-    k, v = gather_hm(cache.k[layer], page_indices, cache.page_size)
+    """Contiguous K and V ``[..., pages*page_size, Hkv, D]`` of the given
+    pages. An int8 cache is dequantized and, as in the reference's
+    ``gather_kv``, rounded to bf16 (the slot-major prefill attends over this)."""
+    if cache.packed:
+        k, v = gather_hm(cache.k[layer], page_indices, cache.page_size)
+    else:
+        slots = slot_indices(page_indices, cache.page_size)
+        k, v = cache.k[layer][0][slots], cache.v[layer][0][slots]
     if cache.quantized:
         ks = gather_scales(cache.k_scale[layer], page_indices, cache.page_size)
         vs = gather_scales(cache.v_scale[layer], page_indices, cache.page_size)

@@ -9,14 +9,25 @@ Qwen2-MoE and Mixtral. Parameters are the reference's
 nested dict layout holding torch tensors; forward functions run eagerly and
 write the paged KV pool in place.
 
-Attention goes through the head-major packed pool: every layer writes its
-new K|V rows (``ops.cuda.kv_write``), then prefill chunks (single or packed)
-run ``ops.cuda.prefill_attention`` and decode steps
-``ops.cuda.attn_headmajor``; over an int8 cache both take their ``_q`` forms
-with the layer's scales. Those wrappers launch the CUDA kernels for CUDA
-tensors and run their plain PyTorch versions for CPU tensors. An MLA model
-keeps a latent pool instead and attends through ``models/mla.py``. Window
-side-KV and fused write+attend are later slices.
+Every layer writes its new K and V rows (``ops.cuda.kv_write``), then
+attends over the paged pool, whose layout ``kvcache/paged.py`` picks as the
+reference does:
+
+* the head-major packed pool (``2*head_dim % 128 == 0``): prefill chunks
+  (single or packed) run ``ops.cuda.prefill_attention``, decode steps
+  ``ops.cuda.attn_headmajor``;
+* slot-major K and V pools (any other head_dim, or ``ZT_NO_PACKED_KV=1``):
+  decode steps run ``ops.cuda.paged_attention``. A prefill chunk gathers its
+  context (``gather_kv``) and runs the plain ``ops.attention.prefill_attention``,
+  one segment at a time in a packed chunk, on the CPU and the GPU alike: the
+  reference has no Pallas kernel there either and leaves this work to XLA
+  (``zhilight_tpu/models/llama.py:348-366, 416-420``).
+
+Over an int8 cache the kernels take their ``_q`` forms with the layer's
+scales. Those wrappers launch the CUDA kernels for CUDA tensors and run their
+plain PyTorch versions for CPU tensors. An MLA model keeps a latent pool
+instead and attends through ``models/mla.py``. Window side-KV and fused
+write+attend are later slices.
 """
 
 from __future__ import annotations
@@ -27,9 +38,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..config.model_config import ModelConfig
-from ..kvcache.paged import KVCache, write_kv
+from ..kvcache.paged import KVCache, gather_kv, write_kv
 from ..ops.activations import gated_act
-from ..ops.cuda import attn_headmajor, prefill_attention
+from ..ops.attention import prefill_attention as attend_chunk
+from ..ops.cuda import attn_headmajor, paged_attention, prefill_attention
 from ..ops.linear import linear
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import RopeTable, apply_rope_rot, build_rope_table
@@ -109,6 +121,9 @@ def attention_layer(
 
     cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
     S, sw = cache.page_size, cfg.sliding_window
+    if not cache.packed:
+        out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
+        return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
     # an int8 cache goes to the _q kernels with this layer's scales
     kv = (cache.k[layer_idx],)
     if cache.quantized:
@@ -126,6 +141,34 @@ def attention_layer(
                   else attn_headmajor.paged_decode_attention_hm)
         out = attend(q, *kv, meta.page_tables, meta.context_lens, S, scale, sw)
     return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+
+
+def _slot_major_attention(
+    cache: KVCache, layer: int, q: torch.Tensor, meta, mode: str, scale: float, sw: int
+) -> torch.Tensor:
+    """Attention over slot-major K and V pools (reference
+    ``models/llama.py:348-366, 416-420, 443-457, 482-494``): a prefill chunk
+    attends over its gathered context (an int8 one dequantized and rounded to
+    bf16 by ``gather_kv``), a packed chunk one segment at a time; a decode step
+    runs the paged decode kernel."""
+    if mode == "prefill" and isinstance(meta, PackedPrefillMeta):
+        TC = q.shape[0] // meta.num_segments
+        outs = []
+        for s in range(meta.num_segments):
+            ck, cv = gather_kv(cache, layer, meta.page_tables[s])
+            outs.append(attend_chunk(q[s * TC:(s + 1) * TC], ck, cv, meta.cache_lens[s],
+                                     meta.q_lens[s], scale, sw))
+        return torch.cat(outs)
+    if mode == "prefill":
+        ck, cv = gather_kv(cache, layer, meta.page_table)
+        return attend_chunk(q, ck, cv, meta.cache_len, meta.q_len, scale, sw)
+    S = cache.page_size
+    if cache.quantized:
+        return paged_attention.paged_decode_attention_q(
+            q, cache.k[layer], cache.v[layer], cache.k_scale[layer], cache.v_scale[layer],
+            meta.page_tables, meta.context_lens, S, scale, sw)
+    return paged_attention.paged_decode_attention(
+        q, cache.k[layer], cache.v[layer], meta.page_tables, meta.context_lens, S, scale, sw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the port, one module per Pallas module they
-replace (``zhilight_tpu/ops/pallas/``): ``kv_write`` (the head-major pool and
-the 2-D latent pool), ``attn_headmajor`` and ``prefill_attention`` (each over
-a bf16 pool and, in its ``_q`` functions, over an int8 pool with scales;
-``attn_headmajor`` also holds the MLA latent decode), ``quant_matmul`` and
-``quant_ragged``. Each module holds its kernels' wrappers, their plain PyTorch
-versions and a launch counter on each wrapper;
-``_build`` compiles the sources in ``zhilight_tpu_torch/csrc`` on first use."""
+replace (``zhilight_tpu/ops/pallas/``): ``kv_write`` (the head-major pool, the
+2-D latent pool and the separate slot-major K and V pools),
+``attn_headmajor`` and ``prefill_attention`` (each over a bf16 pool and, in
+its ``_q`` functions, over an int8 pool with scales; ``attn_headmajor`` also
+holds the MLA latent decode), ``paged_attention`` (decode over slot-major
+pools, bf16 or int8), ``quant_matmul``, ``quant_ragged`` and ``fp8_matmul``.
+Each module holds its kernels' wrappers, their plain PyTorch versions and a
+launch counter on each wrapper; ``_build`` compiles the sources in
+``zhilight_tpu_torch/csrc`` on first use."""

@@ -1,4 +1,5 @@
-"""KV-pool row writes: into the head-major packed pool, and into a 2-D pool.
+"""KV-pool row writes: into the head-major packed pool, into a 2-D pool, and
+into separate slot-major K and V pools.
 
 Counterpart of ``zhilight_tpu/ops/pallas/kv_write.py`` ``write_rows_hm``
 (:606). The CUDA kernel is ``csrc/kv_write.cu``; the plain PyTorch version
@@ -21,6 +22,16 @@ to the pool's dtype first as the reference does. Its CUDA kernel is
 ``csrc/kv_write_2d.cu``, its plain version :func:`write_rows_2d_plain`. The
 reference's ``page_size`` argument served its page-granular TPU kernels and
 is dropped, as in :func:`write_rows_hm`.
+
+:func:`paged_write_rows` (:141) and :func:`write_rows_2d_pair` (:427) write
+the separate slot-major K and V pools, ``[N, Hkv, D]`` (or ``[1, N, Hkv, D]``,
+as the cache holds them), in one call: ``k_cache[slot[t]] = k_rows[t]`` and
+``v_cache[slot[t]] = v_rows[t]`` for ``0 <= slot[t] < N``, rows cast to the
+pools' dtype, pools updated in place and returned as ``(k_cache, v_cache)``.
+The reference has two because its TPU kernels need tile-aligned rows for the
+first; on the GPU they compute one thing, so both launch ``csrc/kv_write_pair.cu``
+(any row width, bf16 or int8 rows), and each keeps its own launch counter and
+plain version. ``page_size`` and ``interpret`` are dropped.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import torch
 
 from . import _build
 
-__all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_2d_plain"]
+__all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_2d_plain",
+           "paged_write_rows", "paged_write_rows_plain", "write_rows_2d_pair",
+           "write_rows_2d_pair_plain"]
 
 
 def write_rows_hm_plain(
@@ -157,3 +170,96 @@ def write_rows_2d(
 
 
 write_rows_2d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# separate slot-major K and V pools
+# ---------------------------------------------------------------------------
+
+def _rows_view(pool: torch.Tensor) -> torch.Tensor:
+    """A slot-major pool [N, Hkv, D] (or [1, N, Hkv, D]) as its 2-D view
+    [N, Hkv * D]: one token's row of every head."""
+    if pool.dim() == 4 and pool.shape[0] == 1:
+        pool = pool[0]
+    if pool.dim() != 3:
+        raise ValueError(f"pair write: pool must be [N, Hkv, D] or [1, N, Hkv, D], "
+                         f"got {tuple(pool.shape)}")
+    return pool.view(pool.shape[0], -1)
+
+
+def paged_write_rows_plain(
+    k_cache: torch.Tensor,       # [N, Hkv, D] or [1, N, Hkv, D]
+    v_cache: torch.Tensor,
+    k_rows: torch.Tensor,        # [T, Hkv, D]
+    v_rows: torch.Tensor,
+    slot_mapping: torch.Tensor,  # [T] int; < 0 => skip
+):
+    for pool, rows in ((k_cache, k_rows), (v_cache, v_rows)):
+        write_rows_2d_plain(_rows_view(pool), rows.reshape(rows.shape[0], -1), slot_mapping)
+    return k_cache, v_cache
+
+
+# the reference's two writes differ only in how their TPU kernels move rows
+write_rows_2d_pair_plain = paged_write_rows_plain
+
+
+def _entry_pair():
+    fn = _build.library("kv_write_pair").zt_write_rows_pair
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _write_pair(what: str, k_cache, v_cache, k_rows, v_rows, slot_mapping) -> None:
+    """Launch csrc/kv_write_pair.cu for a CUDA pool, or raise."""
+    if not k_cache.is_cuda:
+        raise NotImplementedError(f"{what}: no kernel for device {k_cache.device}")
+    k2, v2 = _rows_view(k_cache), _rows_view(v_cache)
+    N, X = k2.shape
+    T = k_rows.shape[0]
+    if v2.shape != (N, X) or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"{what}: k {tuple(k_cache.shape)} {k_cache.dtype}, "
+                         f"v {tuple(v_cache.shape)} {v_cache.dtype}")
+    rk = k_rows.to(k_cache.dtype).reshape(T, -1).contiguous()
+    rv = v_rows.to(k_cache.dtype).reshape(T, -1).contiguous()
+    if rk.shape != (T, X) or rv.shape != (T, X):
+        raise ValueError(f"{what}: pools {tuple(k_cache.shape)}, rows {tuple(k_rows.shape)} / "
+                         f"{tuple(v_rows.shape)}")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (T,):
+        raise ValueError(f"{what}: slot_mapping must be int32 [T]")
+    for t in (k2, v2, rk, rv, slot_mapping):
+        if t.device != k_cache.device or not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous and on one device")
+    err = _entry_pair()(
+        k2.data_ptr(), v2.data_ptr(), rk.data_ptr(), rv.data_ptr(), slot_mapping.data_ptr(),
+        T, N, X * k_cache.element_size(), torch.cuda.current_stream(k_cache.device).cuda_stream,
+    )
+    _build.check(err, what)
+
+
+def paged_write_rows(k_cache, v_cache, k_rows, v_rows, slot_mapping):
+    """Write K and V rows into the slot-major pools in place; returns
+    ``(k_cache, v_cache)``."""
+    if k_cache.device.type == "cpu":
+        return paged_write_rows_plain(k_cache, v_cache, k_rows, v_rows, slot_mapping)
+    _write_pair("paged_write_rows", k_cache, v_cache, k_rows, v_rows, slot_mapping)
+    paged_write_rows.launches += 1
+    return k_cache, v_cache
+
+
+paged_write_rows.launches = 0
+
+
+def write_rows_2d_pair(k_cache, v_cache, k_rows, v_rows, slot_mapping):
+    """Write K and V rows into the slot-major pools in place through their 2-D
+    views; returns ``(k_cache, v_cache)``."""
+    if k_cache.device.type == "cpu":
+        return write_rows_2d_pair_plain(k_cache, v_cache, k_rows, v_rows, slot_mapping)
+    _write_pair("write_rows_2d_pair", k_cache, v_cache, k_rows, v_rows, slot_mapping)
+    write_rows_2d_pair.launches += 1
+    return k_cache, v_cache
+
+
+write_rows_2d_pair.launches = 0

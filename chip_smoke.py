@@ -19,7 +19,11 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            and the four kernels of the slot-major pools (separate K and V
            pools, head_dim 16 to 128): decode attention over bf16 and int8
            pools at H2O-Danube-1.8B's shape (32 / 8 heads of 80) and the two
-           row writes at its rows and at Qwen2.5-14B's;
+           row writes at its rows and at Qwen2.5-14B's; and the window
+           side-KV kernels: the partial modes of the three decode kernels
+           (MiniCPM-2B's and Qwen2.5-14B's shapes with an empty pool,
+           DeepSeek-V2-Lite's) and the two end-of-window flushes, bit-exact
+           (batch 8 and 16, 8 window rows, bf16 and int8 rows, latent rows);
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -57,14 +61,22 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            model at Qwen2.5-14B's attention geometry (40 / 8 heads of 128)
            whose pool is slot-major because ``ZT_NO_PACKED_KV=1`` is set while
            its executor builds it, the only layout that reaches
-           ``paged_write_rows``, with logits against the packed pool's;
+           ``paged_write_rows``, with logits against the packed pool's; and
+           three decode-window side-KV paths (``ZT_WINDOW_KV=1`` set while a
+           second executor over already loaded weights is built): MiniCPM-2B
+           (bf16 pool), Qwen2.5-14B GPTQ-Int4 over the int8 pool, and
+           DeepSeek-V2-Lite GPTQ-Int4 (latent pool), each serving the 8
+           requests through the partial kernels and the flush, then one
+           8-step window with side buffers against the per-step path on the
+           same prefilled cache (logits, launches, pools after the flush);
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
            3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
            batch 8 at context 2816; Qwen3-8B-FP8 batch 8 at context 3712;
            MiniCPM-2B W8A8 batch 16 at context 512, decode only;
            H2O-Danube-1.8B batch 8 at context 3712, over the bf16 pool and,
-           decode only, the int8 pool) and the time to first token of a
+           decode only, the int8 pool; decode only, the three window paths
+           at their per-step twins' batch and context) and the time to first token of a
            3712-token prompt (DeepSeek: 2816) in 512-token chunks, by
            bench.py's method, then a torch.profiler breakdown of one decode
            window and one prefill.
@@ -78,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import operator
 import os
@@ -165,6 +178,30 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/paged_attention_q.cu",
         replaces="zhilight_tpu/ops/pallas/paged_attention.py:971",
     ),
+    # window side-KV (ZT_WINDOW_KV=1): the end-of-window flushes and the
+    # emit_partial modes of the three decode kernels
+    "flush_side_rows_hm": dict(
+        source="zhilight_tpu_torch/csrc/kv_flush.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:796",
+    ),
+    "flush_side_rows_2d": dict(
+        source="zhilight_tpu_torch/csrc/kv_flush.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:929",
+    ),
+    "paged_decode_attention_hm_partial": dict(
+        source="zhilight_tpu_torch/csrc/attn_headmajor.cu",
+        replaces="zhilight_tpu/ops/pallas/attn_headmajor.py:151",
+    ),
+    "paged_decode_attention_hm_q_partial": dict(
+        source="zhilight_tpu_torch/csrc/attn_headmajor_q.cu",
+        replaces="zhilight_tpu/ops/pallas/attn_headmajor.py:341",
+    ),
+    # the reference serves the MLA partials from _kernel_bs (:179) through
+    # paged_mla_decode(emit_partial=True)
+    "paged_mla_decode_partial": dict(
+        source="zhilight_tpu_torch/csrc/mla_decode.cu",
+        replaces="zhilight_tpu/ops/pallas/paged_attention.py:791",
+    ),
 }
 ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
@@ -184,6 +221,17 @@ PATHS = {
     # torch, as the reference leaves it to XLA
     "H2O-Danube-1.8B": ("write_rows_2d_pair", "paged_decode_attention"),
     "H2O-Danube-1.8B-int8kv": ("write_rows_2d_pair", "paged_decode_attention_q"),
+    # decode windows with side-buffered KV writes (ZT_WINDOW_KV=1): the decode
+    # kernels in their partial mode and one flush a layer a window, never the
+    # normal decode; the row writes are prefill's
+    "MiniCPM-2B-window": ("write_rows_hm", "paged_prefill_attention_hm_packed",
+                          "paged_decode_attention_hm_partial", "flush_side_rows_hm"),
+    "Qwen2.5-14B-GPTQ-Int4-int8kv-window": ("write_rows_hm", "w4a16_matmul",
+                                            "paged_prefill_attention_hm_packed_q",
+                                            "paged_decode_attention_hm_q_partial",
+                                            "flush_side_rows_hm"),
+    "DeepSeek-V2-Lite-GPTQ-Int4-window": ("write_rows_2d", "w4a16_ragged_matmul", "w4a16_matmul",
+                                          "paged_mla_decode_partial", "flush_side_rows_2d"),
 }
 # prompt lengths of a path's 8 requests (32 new tokens each)
 SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
@@ -718,7 +766,12 @@ def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
     for label, r in shapes.items():
         print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f}", flush=True)
+              f"library_ms={_ms(r['library_ms'])}", flush=True)
+
+
+def _ms(t) -> str:
+    """A time for the log; None where no one PyTorch call computes the function."""
+    return "null" if t is None else f"{t:.4f}"
 
 
 def phase_kernels(rec: dict) -> None:
@@ -789,11 +842,12 @@ def phase_kernels(rec: dict) -> None:
     kernels_deepseek(rec, rng)
     kernels_fp8(rec, rng)
     kernels_slot_major(rec, rng)
+    kernels_window(rec, rng)
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f}", flush=True)
+              f"library_ms={_ms(r['library_ms'])}", flush=True)
 
 
 def kernels_w4a16(rec: dict, rng) -> None:
@@ -1260,6 +1314,153 @@ def kernels_slot_major(rec: dict, rng) -> None:
         _record(rec, name, 0.0, f"{model} 8 rows bf16", shapes)
 
 
+def _partial_err(got, want, ctx) -> float:
+    """Partial-mode error: |m| where l > 0, l and acc over their largest plain
+    value (the unnormalized sums grow with the context); an empty context must
+    give exactly m = -2e38, l = 0, acc = 0."""
+    (m, l, acc), (wm, wl, wacc) = got, want
+    live, empty = wl > 0, torch.from_numpy(np.asarray(ctx) == 0).to(m.device)
+    if not (torch.all(m[empty] == -2e38) and not l[empty].any() and not acc[empty].any()):
+        raise AssertionError("partial mode: an empty pool is not (-2e38, 0, 0)")
+    if not all(torch.isfinite(t).all() for t in (l, acc)):
+        raise AssertionError("partial mode: non-finite l or acc")
+    return max((m[live] - wm[live]).abs().max().item(),
+               ((l - wl).abs().max() / wl.abs().max()).item(),
+               ((acc - wacc).abs().max() / wacc.abs().max()).item())
+
+
+# window side-KV flush cases (page size 16, Kw 8): entries mid-page, on a
+# page boundary, on a page's last row; n_rows 0, some and all; runs that
+# cross into the next page
+FLUSH_ENTRY = [13, 16, 15, 3, 40, 31, 0, 57, 100, 111, 64, 7, 8, 200, 95, 48]
+FLUSH_ROWS = [8, 0, 4, 8, 1, 8, 5, 7, 8, 8, 2, 0, 6, 8, 3, 8]
+
+
+def kernels_window(rec: dict, rng) -> None:
+    """The window side-KV kernels against their plain versions, then timed:
+    the partial modes of the three decode kernels at MiniCPM-2B's shape (batch
+    16, context 512, one empty pool), Qwen2.5-14B's (batch 8, pool lengths
+    3712, 7, 513, 0, 1500, 100, 16, 250; bf16 and int8 pools) and
+    DeepSeek-V2-Lite's (batch 8, up to 2816); the two flushes bit-exact at
+    batch 8 and 16 with 8 window rows, bf16 and int8 rows at MiniCPM-2B's and
+    Qwen2.5-14B's pools, bf16 latent rows of 576."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+
+    S = 16
+    mini, qwen = MINICPM_HEADS, QWEN_HEADS
+
+    def partial_case(B, Hq, Hkv, D, ctx, int8):
+        ctx = np.asarray(ctx, np.int32)
+        tables, npages = _paged(rng, ctx, S)
+        pools, _ = _pool_args(rng, Hkv, npages * S, D, int8)
+        return ctx, (_randn(rng, B, Hq, D), *pools, _dev(tables), _dev(ctx), S, 1.0 / np.sqrt(D))
+
+    def time_partial(fn, plain, args, B, Hq, Hkv, D, CTX, int8):
+        nbytes = (B * CTX * Hkv * 2 * D * args[1].element_size() + args[0].numel() * 2
+                  + B * Hq * (D + 2) * 4 + args[-4].numel() * 4 + B * 4)
+        if int8:
+            nbytes += B * CTX * Hkv * 2 * 4
+        t_b, by = bound(nbytes, 4 * B * Hq * CTX * D)
+        # no PyTorch call returns unnormalized flash partials: library_ms is null
+        return dict(ms=time_ms(lambda: fn(*args)), plain_ms=time_ms(lambda: plain(*args), reps=10),
+                    library_ms=None, bound_ms=t_b, bound_by=by)
+
+    qwen_ctx = [3712, 7, 513, 0, 1500, 100, 16, 250]
+    mini_ctx = [512] * 5 + [0] + [512] * 10
+    for int8, name in ((False, "paged_decode_attention_hm_partial"),
+                       (True, "paged_decode_attention_hm_q_partial")):
+        fn = A.paged_decode_attention_hm_q_partial if int8 else A.paged_decode_attention_hm_partial
+        plain = (A.paged_decode_attention_hm_q_partial_plain if int8
+                 else A.paged_decode_attention_hm_partial_plain)
+        kind, err, shapes = "int8" if int8 else "bf16", 0.0, {}
+        for B, heads, ctx, label in ((16, mini, mini_ctx, "MiniCPM-2B batch 16, context 512"),
+                                     (8, qwen, qwen_ctx, "Qwen2.5-14B batch 8, pool lengths up to 3712")):
+            ctx, args = partial_case(B, **heads, ctx=ctx, int8=int8)
+            e = _partial_err(fn(*args), plain(*args), ctx)
+            print(f"kernels: {name} {label}: partial err {e:.3e}", flush=True)
+            if not e <= ATTN_TOL:
+                raise AssertionError(f"{name} {label}: partial err {e} > {ATTN_TOL}")
+            err = max(err, e)
+        for B, heads, CTX, label in ((16, mini, 512, f"MiniCPM-2B batch 16, context 512, {kind} pool"),
+                                     (8, qwen, 3712, f"Qwen2.5-14B batch 8, context 3712, {kind} pool")):
+            _, args = partial_case(B, **heads, ctx=[CTX] * B, int8=int8)
+            shapes[label] = time_partial(fn, plain, args, B, **heads, CTX=CTX, int8=int8)
+        _record(rec, name, err, list(shapes)[1 if int8 else 0], shapes)
+
+    X, VD, H = 576, 512, 16
+    scale = 1.0 / np.sqrt(192)
+    err = 0.0
+    for ctx in ([2816, 7, 0, 1500, 100, 16, 1, 2305], [64, 65, 63, 128, 2816, 2815, 0, 640]):
+        ctx = np.array(ctx, np.int32)
+        tables, npages = _paged(rng, ctx, S)
+        args = (_randn(rng, 8, H, X), _randn(rng, npages * S, X), _dev(tables), _dev(ctx), S, scale, VD)
+        e = _partial_err(A.paged_mla_decode_partial(*args), A.paged_mla_decode_partial_plain(*args), ctx)
+        print(f"kernels: paged_mla_decode_partial ctx={ctx.tolist()}: partial err {e:.3e}", flush=True)
+        if not e <= ATTN_TOL:
+            raise AssertionError(f"MLA partial ctx {ctx}: partial err {e} > {ATTN_TOL}")
+        err = max(err, e)
+    B, CTX, maxp = 8, 2816, 3072 // S
+    tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+    args = (_randn(rng, B, H, X), _randn(rng, B * maxp * S, X), _dev(tables),
+            _dev(np.full(B, CTX, np.int32)), S, scale, VD)
+    t_b, by = bound(B * CTX * X * 2 + B * H * X * 2 + B * H * (VD + 2) * 4 + tables.size * 4 + B * 4,
+                    2 * B * H * CTX * (X + VD))
+    label = f"DeepSeek-V2-Lite batch {B}, context {CTX}, 16 heads"
+    _record(rec, "paged_mla_decode_partial", err, label, {label: dict(
+        ms=time_ms(lambda: A.paged_mla_decode_partial(*args)),
+        plain_ms=time_ms(lambda: A.paged_mla_decode_partial_plain(*args), reps=10),
+        library_ms=None, bound_ms=t_b, bound_by=by)})
+
+    # -- the flushes: bit-exact, then timed with every window row live -------
+    def flush_case(B, H, X, dtype, entry, n_rows):
+        entry, n_rows = np.asarray(entry, np.int32), np.asarray(n_rows, np.int32)
+        tables, npages = _paged(rng, entry + 8, S)
+        lead = (H,) if H else ()
+        shape_p, shape_s = (*lead, npages * S, X), (B, *lead, 8, X)
+        if dtype == torch.int8:
+            pool, side = (_dev(rng.integers(-127, 128, sh).astype(np.int8)) for sh in (shape_p, shape_s))
+        else:
+            pool, side = _randn(rng, *shape_p), _randn(rng, *shape_s)
+        return pool, (side, _dev(entry), _dev(n_rows), _dev(tables), S)
+
+    cases = (("flush_side_rows_hm", 16, 36, 128, torch.bfloat16, "MiniCPM-2B"),
+             ("flush_side_rows_hm", 16, 36, 128, torch.int8, "MiniCPM-2B"),
+             ("flush_side_rows_hm", 8, 8, 256, torch.bfloat16, "Qwen2.5-14B"),
+             ("flush_side_rows_hm", 8, 8, 256, torch.int8, "Qwen2.5-14B"),
+             ("flush_side_rows_2d", 8, 0, 576, torch.bfloat16, "DeepSeek-V2-Lite"),
+             ("flush_side_rows_2d", 16, 0, 576, torch.bfloat16, "DeepSeek-V2-Lite"))
+    shapes = {"flush_side_rows_hm": {}, "flush_side_rows_2d": {}}
+    for name, B, H, X, dtype, model in cases:
+        fn, plain = getattr(W, name), getattr(W, name + "_plain")
+        pool, args = flush_case(B, H, X, dtype, FLUSH_ENTRY[:B], FLUSH_ROWS[:B])
+        got, want = fn(pool.clone(), *args), plain(pool.clone(), *args)
+        torch.cuda.synchronize()
+        what = f"{name} {model} B={B} rows of {X} {str(dtype)[6:]}"
+        if not torch.equal(got, want) or torch.equal(got, pool):
+            raise AssertionError(f"{what}: not bit-exact")
+        print(f"kernels: {what}, Kw 8, n_rows {FLUSH_ROWS[:B]}: bit-exact", flush=True)
+        label = f"{model} window, B {B}, Kw 8, {str(dtype)[6:]} rows"
+        # timed with every row live, against index_copy_ of the same rows
+        # laid out beforehand, at slots computed on the device
+        pool, args = flush_case(B, H, X, dtype, [16 * b + 3 for b in range(B)], [8] * B)
+        side, entry, n_rows, tables, _ = args
+        slots = W.side_slots(entry, n_rows, tables, S, 8).reshape(-1)
+        rows = (side.transpose(0, 1).reshape(H, B * 8, X).contiguous() if H
+                else side.reshape(B * 8, X))
+        row_bytes = (H or 1) * X * side.element_size()
+        t_b, by = bound(2 * B * 8 * row_bytes + tables.numel() * 4 + B * 8, 0)
+        shapes[name][label] = dict(
+            ms=time_ms(lambda: fn(pool, *args)),
+            plain_ms=time_ms(lambda: plain(pool, *args)),
+            library_ms=time_ms(lambda: pool.index_copy_(1 if H else 0, slots, rows)),
+            bound_ms=t_b, bound_by=by)
+    _record(rec, "flush_side_rows_hm", 0.0, "MiniCPM-2B window, B 16, Kw 8, bfloat16 rows",
+            shapes["flush_side_rows_hm"])
+    _record(rec, "flush_side_rows_2d", 0.0, "DeepSeek-V2-Lite window, B 8, Kw 8, bfloat16 rows",
+            shapes["flush_side_rows_2d"])
+
+
 # ---------------------------------------------------------------------------
 # phase: serve (the main paths)
 # ---------------------------------------------------------------------------
@@ -1288,6 +1489,11 @@ def _counters():
         "w4a16_matmul": Q.w4a16_matmul,
         "paged_decode_attention_hm_q": A.paged_decode_attention_hm_q,
         "paged_prefill_attention_hm_packed_q": P.paged_prefill_attention_hm_packed_q,
+        "flush_side_rows_hm": W.flush_side_rows_hm,
+        "flush_side_rows_2d": W.flush_side_rows_2d,
+        "paged_decode_attention_hm_partial": A.paged_decode_attention_hm_partial,
+        "paged_decode_attention_hm_q_partial": A.paged_decode_attention_hm_q_partial,
+        "paged_mla_decode_partial": A.paged_mla_decode_partial,
     }
 
 
@@ -1581,6 +1787,147 @@ def pool_rows_and_scoring(label: str, llm, prompts, bf16_first) -> None:
         raise AssertionError(f"{label}: calc_logits differs from the prefill logits: {rel}")
 
 
+def window_path(label: str, base, engine_config, rec: dict, args, lens=SERVE_LENS):
+    """A decode-window side-KV path: a second ``LLM`` over ``base``'s weights,
+    its executor built with ZT_WINDOW_KV=1 set for it alone, serving the 8
+    requests (``serve_path``: the partial kernels and the flush, never the
+    normal decode), then :func:`window_check`."""
+    from zhilight_tpu_torch.llm import LLM
+
+    with env_switch("ZT_WINDOW_KV", True):
+        llm = LLM(model_config=base.model_config, quant_config=base.quant_config,
+                  params=base.executor.params, engine_config=engine_config, device="cuda")
+    ex = llm.executor
+    if not (ex.window_kv and ex._use_side_window(ex.decode_window)):
+        raise AssertionError(f"{label}: the executor does not take the side-buffer path")
+    prompts, _ = serve_path(label, llm, rec, args.seed, lens, compare_plain=False)
+    window_check(label, ex, prompts)
+    args.llms[label] = llm
+    release_pool(llm)
+
+
+def window_check(label: str, ex, prompts, K: int = 8) -> None:
+    """One K-step decode window of the 8 prompts (prefilled through the
+    kernels in 512-token chunks into a scratch cache, which is then copied),
+    run with side buffers (``forward_decode_window`` + ``flush_window_rows``)
+    and per step (``forward_decode``) on the same weights, both fed the
+    per-step path's greedy tokens. Held: during the window no row write
+    launches and the flush launches once a layer; at each step every row's
+    logits agree within LOGIT_TOL of the largest and the window's pick lies
+    within LOGIT_TOL of the per-step maximum; after the flush every layer's
+    rows are bit-equal to the window's side rows (requantized for an int8
+    pool), and layer 0's to the per-step path's (int8: codes within 1,
+    scales within 2^-8 relative, as this step's rows are dequantized to bf16
+    inside the window and requantized at the flush)."""
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
+
+    cfg, S, B = ex.cfg, ex.page_size, len(prompts)
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    maxp = max((len(p) + K) // S + 1 for p in prompts)
+    cache = ex.new_cache(B * maxp)
+    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+    rows_b = torch.arange(B, device=ex.device)
+
+    def slots(b, pos):
+        return tables[b, (pos // S).long()] * S + pos % S
+
+    counters = _counters()
+    with torch.no_grad():
+        nxt = []
+        for b, p in enumerate(prompts):
+            for start in range(0, len(p), 512):
+                toks = torch.tensor(p[start : start + 512], **i32)
+                pos = torch.arange(start, start + len(toks), **i32)
+                meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
+                                   cache_len=torch.tensor(start, **i32),
+                                   q_len=torch.tensor(len(toks), **i32))
+                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache)
+            nxt.append(int(logits.argmax()))
+        step_cache = dataclasses.replace(cache, **{
+            f: [a.clone() for a in getattr(cache, f)] for f in ("k", "v", "latent", "k_scale", "v_scale")
+            if getattr(cache, f) is not None})
+        n = torch.tensor([len(p) for p in prompts], **i32)
+        side_dtype = torch.float32 if cache.quantized else cfg.torch_dtype
+        side = L.new_side_rows(cfg, B, K, side_dtype, ex.device)
+        valid = torch.zeros(B, K, dtype=torch.bool, device=ex.device)
+        tokens = torch.tensor(nxt, **i32)
+        writes = 0
+        worst_rel, worst_slack, same = 0.0, 0.0, 0
+        for k in range(K):
+            pos = n + k
+            meta = DecodeMeta(positions=pos, slot_mapping=slots(rows_b, pos), page_tables=tables,
+                              context_lens=pos + 1)
+            valid[:, k] = True
+            w0 = counters["write_rows_hm"].launches + counters["write_rows_2d"].launches
+            got, cache, side = L.forward_decode_window(ex.params, cfg, ex.rope, tokens, meta, cache,
+                                                       side, valid, n, k)
+            writes += counters["write_rows_hm"].launches + counters["write_rows_2d"].launches - w0
+            want, step_cache = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, step_cache)
+            if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+                raise AssertionError(f"{label}: non-finite window logits at step {k}")
+            scale = want.abs().amax(-1)
+            worst_rel = max(worst_rel, ((got - want).abs().amax(-1) / scale).max().item())
+            pick = got.argmax(-1)
+            same += int((pick == want.argmax(-1)).sum())
+            worst_slack = max(worst_slack, ((want.amax(-1) - want.gather(-1, pick[:, None])[:, 0])
+                                            / scale).max().item())
+            tokens = want.argmax(-1).to(torch.int32)
+        flush = counters["flush_side_rows_2d" if cfg.mla.enabled else "flush_side_rows_hm"]
+        f0 = flush.launches
+        cache = L.flush_window_rows(cfg, cache, side, valid, n, tables)
+        flushes = flush.launches - f0
+    torch.cuda.synchronize()
+    print(f"serve: {label}: one {K}-step window with side buffers vs per step (batch {B}, "
+          f"contexts {min(map(len, prompts)) + 1} to {max(map(len, prompts)) + K}): logits max rel "
+          f"err {worst_rel:.3e} (tolerance {LOGIT_TOL}); argmax same on {same}/{B * K} rows, worst "
+          f"pick {worst_slack:.3e} of max |logit| below the per-step maximum; row writes during "
+          f"the window {writes}, flush launches {flushes} ({cfg.num_layers} layers)", flush=True)
+    if worst_rel > LOGIT_TOL or worst_slack > LOGIT_TOL:
+        raise AssertionError(f"{label}: window logits differ from per-step: {worst_rel}, {worst_slack}")
+    if writes or flushes != cfg.num_layers:
+        raise AssertionError(f"{label}: {writes} row writes in the window, {flushes} flushes")
+
+    # the pool after the flush: every layer holds exactly the window's side
+    # rows (an int8 pool their requantization); layer 0's rows are the
+    # per-step path's too (the same tokens give the same rows there; deeper
+    # layers attend over rounding-level differences, printed, not held)
+    from zhilight_tpu_torch.kvcache.paged import _quantize_rows
+
+    written = slots(rows_b[:, None], n[:, None] + torch.arange(K, device=ex.device)).reshape(-1).long()
+    mismatched, per_step = [], []
+    for layer, rows in enumerate(side):
+        if cfg.mla.enabled:
+            want = [rows.reshape(1, B * K, -1)]
+        elif cache.quantized:
+            D = rows.shape[-1] // 2
+            codes, scales = _quantize_rows(torch.stack((rows[..., :D], rows[..., D:])))
+            want = [torch.cat((codes[0], codes[1]), -1), scales[0], scales[1]]
+        else:
+            want = [rows]
+        if not cfg.mla.enabled:  # [B, Hkv, K(, X)] -> [Hkv, B * K(, X)] as the pool holds them
+            want = [w.transpose(0, 1).reshape(w.shape[1], B * K, *w.shape[3:]) for w in want]
+        for arrays, ref, w in zip(cache.arrays(), step_cache.arrays(), want):
+            got = arrays[layer][:, written]
+            if not torch.equal(got, w):
+                mismatched.append(layer)
+            diff = (got.float() - ref[layer][:, written].float()).abs().max()
+            per_step.append((layer, (diff / ref[layer][:, written].float().abs().max()).item()))
+    layer0 = [rel for layer, rel in per_step if layer == 0]
+    print(f"serve: {label}: pools after the flush ({len(written)} rows a layer): every layer's rows "
+          f"equal to the window's side rows{' requantized' if cache.quantized else ''}: "
+          f"{not mismatched}; against the per-step writes, layer 0 max rel diff "
+          f"{max(layer0):.3e}, every layer {max(rel for _, rel in per_step):.3e}", flush=True)
+    if mismatched:
+        raise AssertionError(f"{label}: flushed rows differ from the side rows in layers {mismatched}")
+    if cache.quantized:  # bf16 dequantized rows requantized: a code may move by one
+        codes_ok = (cache.k[0][:, written].int() - step_cache.k[0][:, written].int()).abs().max() <= 1
+        if not (codes_ok and max(layer0[1:]) <= 2.0 ** -8):
+            raise AssertionError(f"{label}: layer 0's int8 rows differ from the per-step path's")
+    elif max(layer0) != 0:
+        raise AssertionError(f"{label}: layer 0's rows differ from the per-step path's")
+
+
 def release_pool(llm) -> None:
     """Drop a path's KV pool until the timing phase rebuilds it, so that only
     one path's pool is held at a time."""
@@ -1759,7 +2106,7 @@ def dense_expert_path(args) -> None:
 def env_switch(name: str, on: bool):
     """``name=1`` in the environment for the enclosed block only (unset when
     ``on`` is false): ZT_FP8_KEEP as the loader reads it, ZT_NO_PACKED_KV as
-    ``new_kv_cache`` reads it."""
+    ``new_kv_cache`` reads it, ZT_WINDOW_KV as ``ModelExecutor`` reads it."""
     old = os.environ.pop(name, None)
     if on:
         os.environ[name] = "1"
@@ -1904,6 +2251,7 @@ def phase_serve(rec: dict, args) -> None:
     serve_path("MiniCPM-2B", llm, rec, args.seed)
     args.llms["MiniCPM-2B"] = llm
     release_pool(llm)
+    window_path("MiniCPM-2B-window", llm, ecfg, rec, args)
     w8a8_path(llm, rec, args)
 
     llm = load_qwen(args.seed)
@@ -1926,6 +2274,7 @@ def phase_serve(rec: dict, args) -> None:
     pool_rows_and_scoring(label, llm8, prompts, bf16_first)
     args.llms[label] = llm8
     release_pool(llm8)
+    window_path("Qwen2.5-14B-GPTQ-Int4-int8kv-window", llm, qwen_engine_config("int8"), rec, args)
 
     label = "DeepSeek-V2-Lite-GPTQ-Int4"
     llm = load_deepseek(label, DEEPSEEK_V2_LITE_GPTQ, args.seed)
@@ -1940,6 +2289,8 @@ def phase_serve(rec: dict, args) -> None:
     pool_rows(label, ex, ex.cache.latent[0][0].float().abs().sum(-1) != 0, "latent pool")
     args.llms[label] = llm
     release_pool(llm)
+    window_path("DeepSeek-V2-Lite-GPTQ-Int4-window", llm, deepseek_engine_config(), rec, args,
+                DEEPSEEK_LENS)
 
     dense_expert_path(args)
 
@@ -2084,7 +2435,18 @@ TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prom
     "MiniCPM-2B-W8A8": (16, 512, False, 0),  # decode only: prefill adds nothing the bf16 path lacks
     "H2O-Danube-1.8B": (8, 3712, False, 3712),
     "H2O-Danube-1.8B-int8kv": (8, 3712, False, 0),  # decode only: the int8 prefill is the gather
+    # window side-KV changes decode only
+    "MiniCPM-2B-window": (16, 512, False, 0),
+    "Qwen2.5-14B-GPTQ-Int4-int8kv-window": (8, 3712, False, 0),
+    "DeepSeek-V2-Lite-GPTQ-Int4-window": (8, 2816, False, 0),
 }
+
+
+# prompt length of the traced prefill where it is not the TTFT prompt: a
+# DeepSeek-V2-Lite prompt of 2816 tokens is some 101,000 launches, and tracing
+# them took about 95 s of the script's 1200; one 512-token chunk shows the same
+# breakdown
+PROFILED_PREFILL = {"DeepSeek-V2-Lite-GPTQ-Int4": 512}
 
 
 def phase_timing(args, smi: str) -> None:
@@ -2141,11 +2503,10 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT:
               f"window {K}, {WINDOWS} windows); {ex.cfg.num_layers} layers; {smi}", flush=True)
         print(json.dumps({"path": label, "decode_tok_s": tok_s, "sampled_decode_tok_s": None,
                           "ttft_ms": None, "gpu": smi}), flush=True)
-        profile(f"{label} decode window", lambda: run(reuse_carry=True))
+        profile(f"{label} decode window", lambda: run(reuse_carry=True), steps=K)
         return
 
     CHUNK = 512
-    n_chunks = (PROMPT + CHUNK - 1) // CHUNK
     n_pages = (PROMPT + 1 + S - 1) // S
     prompt = np.random.RandomState(0).randint(2, 1000, PROMPT).astype(np.int32)
     sp1 = SamplingParams.greedy(1, device=dev)
@@ -2154,11 +2515,12 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT:
     pt_dev = torch.from_numpy(pt_np).to(dev)
     i32 = dict(dtype=torch.int32, device=dev)
 
-    def prefill_once():
+    def prefill_once(length=PROMPT):
+        n_chunks = (length + CHUNK - 1) // CHUNK
         c = 0
         while c < n_chunks:
             start = c * CHUNK
-            chunk = min(CHUNK, PROMPT - start)
+            chunk = min(CHUNK, length - start)
             is_last = c + 1 == n_chunks
             chainable = (n_chunks - 1) - c
             if not is_last and chunk == CHUNK and chainable >= 2:
@@ -2203,13 +2565,15 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT:
 
     # where the time goes: one traced decode window and one traced prefill,
     # after the timed runs (the trace does not touch the numbers above)
-    profile(f"{label} decode window", lambda: run(reuse_carry=True))
-    profile(f"{label} prefill {PROMPT}", prefill_once)
+    profile(f"{label} decode window", lambda: run(reuse_carry=True), steps=K)
+    traced = PROFILED_PREFILL.get(label, PROMPT)
+    profile(f"{label} prefill {traced}", lambda: prefill_once(traced))
 
 
-def profile(what: str, fn) -> None:
+def profile(what: str, fn, steps: int = 0) -> None:
     """Device busy share and the kernels that take most device time in one
-    traced call (torch.profiler, CUPTI)."""
+    traced call (torch.profiler, CUPTI); with ``steps``, the launches per
+    decode step too."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
@@ -2222,8 +2586,10 @@ def profile(what: str, fn) -> None:
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    launches = sum(e.count for e in events)
+    per_step = f" ({launches / steps:.1f} per step)" if steps else ""
     print(f"profile: {what}: wall {wall_ms:.2f} ms (traced), device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} kernels", flush=True)
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches} kernels{per_step}", flush=True)
     for e in top:
         print(f"profile: {what}:   {e.self_device_time_total / 1e3:8.3f} ms "
               f"({100 * e.self_device_time_total / 1e3 / busy_ms:4.1f}% of busy)  x{e.count:<5d} "

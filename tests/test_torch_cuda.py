@@ -21,7 +21,11 @@ output of the same call on the CPU (the integer product is exact, but the
 card may divide through a reciprocal, so a code may differ by one). The
 slot-major pools' kernels (separate K and V pools ``[1, N, Hkv, D]``) follow
 the same rules: their row writes bit-exact for bf16 and int8 rows, their
-decode attention within 2e-2 absolute at head_dim 16 to 128.
+decode attention within 2e-2 absolute at head_dim 16 to 128. The window
+side-KV kernels: the two flushes bit-exact; the partial modes of the three
+decode kernels within 2e-2 relative to their size (m absolute where l > 0,
+l and acc over their largest value: unnormalized sums grow with the
+context), and exactly m = -2e38, l = 0, acc = 0 for an empty pool.
 """
 
 import dataclasses
@@ -449,8 +453,8 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         A.paged_decode_attention_hm_q(qb, pool.to(torch.bfloat16), sc, sc, tables, ctx, S, 0.125)
     with pytest.raises(ValueError):
         A.paged_decode_attention_hm_q(qb, pool8, sc[:, :10], sc, tables, ctx, S, 0.125)
-    with pytest.raises(NotImplementedError):
-        A.paged_decode_attention_hm_q(qb, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)
+    with pytest.raises(NotImplementedError):  # the partial mode takes what the kernel takes
+        A.paged_decode_attention_hm_q(q, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)
     # the latent decode is built for bf16 rows of k_dim 576 / v_dim 512
     lat = torch.zeros(64, 576, dtype=torch.bfloat16, device=cuda)
     q576 = torch.zeros(2, 4, 576, dtype=torch.bfloat16, device=cuda)
@@ -459,7 +463,16 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     with pytest.raises(NotImplementedError):
         A.paged_mla_decode(q576[..., :192].contiguous(), lat, tables, ctx, S, 0.1, v_dim=128)
     with pytest.raises(NotImplementedError):
-        A.paged_mla_decode(q576, lat, tables, ctx, S, 0.1, v_dim=512, emit_partial=True)
+        A.paged_mla_decode(q576.float(), lat, tables, ctx, S, 0.1, v_dim=512, emit_partial=True)
+    # the window flushes take int8 side rows only for an int8 pool, and Kw <= S
+    with pytest.raises(ValueError):
+        W.flush_side_rows_hm(pool8, torch.zeros(2, 4, 4, 128, device=cuda), ctx, ctx, tables, S)
+    with pytest.raises(ValueError):
+        W.flush_side_rows_2d(lat, torch.zeros(2, S + 1, 576, dtype=torch.bfloat16, device=cuda),
+                             ctx, ctx, tables, S)
+    with pytest.raises(ValueError):
+        W.flush_side_rows_2d(lat, torch.zeros(2, 4, 576, dtype=torch.bfloat16, device=cuda),
+                             ctx.long(), ctx, tables, S)
     # the grouped int4 matmul takes bf16 rows and the shapes the reference
     # routes to its kernel (N % 128, group size % 32, groups inside a plane)
     te, occ = torch.zeros(2, dtype=torch.int32, device=cuda), torch.ones(1, dtype=torch.int32, device=cuda)
@@ -777,3 +790,138 @@ def test_slot_major_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     with pytest.raises(ValueError):
         W.write_rows_2d_pair(pool, pool, rows[:, :1], rows, torch.zeros(3, dtype=torch.int32,
                                                                           device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# window side-KV: partial modes of the decode kernels, the two flushes
+# ---------------------------------------------------------------------------
+
+def _partial_err(got, want, ctx):
+    """Largest of: |m| error where l > 0, l and acc errors over their largest
+    plain value. An empty context must give exactly (-2e38, 0, 0)."""
+    (m, l, acc), (wm, wl, wacc) = got, want
+    live = wl > 0
+    empty = torch.from_numpy(ctx == 0).to(m.device)
+    assert torch.all(m[empty] == -2e38) and not l[empty].any() and not acc[empty].any()
+    assert all(torch.isfinite(t).all() for t in (l, acc))
+    return max((m[live] - wm[live]).abs().max().item(),
+               ((l - wl).abs().max() / wl.abs().max()).item(),
+               ((acc - wacc).abs().max() / wacc.abs().max()).item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,hq,hkv,D,ctx", [
+    (16, 36, 36, 64, None),                                   # MiniCPM-2B, context 512
+    (8, 40, 8, 128, [3712, 7, 513, 0, 1500, 100, 16, 250]),  # Qwen2.5-14B
+])
+def test_decode_attention_partial_matches_plain(cuda, B, hq, hkv, D, ctx, int8):
+    rng = np.random.default_rng(B + D)
+    ctx = np.array(ctx if ctx else [512] * 5 + [0] + [512] * 10, np.int32)
+    tables, npages = _tables(rng, ctx, cuda)
+    pools = _int8_pool(rng, cuda, hkv, npages * S, D) if int8 else (
+        _bf16(rng, cuda, hkv, npages * S, 2 * D),)
+    args = (_bf16(rng, cuda, B, hq, D), *pools, tables, torch.from_numpy(ctx).to(cuda), S,
+            1.0 / np.sqrt(D))
+    fn, plain = ((A.paged_decode_attention_hm_q_partial, A.paged_decode_attention_hm_q_partial_plain)
+                 if int8 else
+                 (A.paged_decode_attention_hm_partial, A.paged_decode_attention_hm_partial_plain))
+    before = fn.launches
+    got = (A.paged_decode_attention_hm_q if int8 else A.paged_decode_attention_hm)(
+        *args, emit_partial=True)
+    assert fn.launches == before + 1
+    assert got[0].shape == (B, hkv, hq // hkv) and got[2].shape == (B, hkv, hq // hkv, D)
+    assert _partial_err(got, plain(*args), ctx) <= TOL
+
+
+@pytest.mark.cuda
+def test_mla_decode_partial_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    ctx = np.array([2816, 7, 0, 1500, 100, 16, 1, 2305], np.int32)  # DeepSeek-V2-Lite's batch
+    tables, npages = _tables(rng, ctx, cuda)
+    args = (_bf16(rng, cuda, 8, 16, 576), _bf16(rng, cuda, npages * S, 576), tables,
+            torch.from_numpy(ctx).to(cuda), S, 1.0 / np.sqrt(192))
+    got = A.paged_mla_decode(*args, v_dim=512, emit_partial=True)
+    assert got[0].shape == (8, 16) and got[2].shape == (8, 16, 512)
+    assert _partial_err(got, A.paged_mla_decode_partial_plain(*args, v_dim=512), ctx) <= TOL
+    # normalizing the partials gives the normal mode's output
+    out = A.paged_mla_decode(*args, v_dim=512)
+    norm = got[2] / got[1].clamp_min(1e-20)[..., None]
+    assert (norm - out.float()).abs().max().item() <= TOL
+
+
+# windows: entries mid-page, on a page boundary, on a page's last row; n_rows
+# 0, some and all of Kw 8, runs crossing into the next page (page size 16)
+_ENTRY = [13, 16, 15, 3, 40, 31, 0, 57]
+_N_ROWS = [8, 0, 4, 8, 1, 8, 5, 7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,X,dtype", [
+    (16, 36, 128, torch.bfloat16), (16, 36, 128, torch.int8),  # MiniCPM-2B's pool
+    (8, 8, 256, torch.bfloat16), (8, 8, 256, torch.int8),      # Qwen2.5-14B's
+    (8, 0, 576, torch.bfloat16),                               # DeepSeek-V2-Lite's latent pool
+])
+def test_flush_side_rows_is_exact(cuda, B, H, X, dtype):
+    rng = np.random.default_rng(B + X)
+    entry = np.array((_ENTRY * 2)[:B], np.int32)
+    n_rows = np.array((_N_ROWS * 2)[:B], np.int32)
+    n_rows[-1] = 0  # an idle slot
+    tables, npages = _tables(rng, entry + 8, cuda)
+    lead = (H,) if H else ()
+
+    def rand(*shape):
+        if dtype == torch.int8:
+            return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(cuda)
+        return _bf16(rng, cuda, *shape)
+
+    pool = rand(*lead, npages * S, X)
+    side = rand(B, *lead, 8, X)
+    fn, plain = ((W.flush_side_rows_hm, W.flush_side_rows_hm_plain) if H else
+                 (W.flush_side_rows_2d, W.flush_side_rows_2d_plain))
+    i32 = lambda a: torch.from_numpy(a).to(cuda)
+    before = fn.launches
+    got = fn(pool.clone(), side, i32(entry), i32(n_rows), tables, S)
+    want = plain(pool.clone(), side, i32(entry), i32(n_rows), tables, S)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, want) and not torch.equal(got, pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_window_kv_engine_on_gpu(cuda, kv_dtype, monkeypatch):
+    """A small bf16 model served with ZT_WINDOW_KV=1: 8-step windows run the
+    partial kernel and one flush a layer a window, and write no row per step;
+    the tokens equal the per-step engine's on the same weights."""
+    cfg = L.ModelConfig(model_type="llama", num_layers=2, dim_model=256, num_heads=4, dim_head=64,
+                        num_kv_heads=2, dim_ff=512, vocab_size=128, dtype="bfloat16")
+    ecfg = EngineConfig(max_model_len=256,
+                        cache=CacheConfig(page_size=16, num_pages=64, kv_dtype=kv_dtype),
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
+    params = L.init_params(cfg, 0, cuda)
+    prompts = [np.random.default_rng(i).integers(2, 128, n).tolist() for i, n in enumerate((40, 7, 100))]
+    partial = A.paged_decode_attention_hm_q_partial if kv_dtype == "int8" else A.paged_decode_attention_hm_partial
+    runs = {}
+    for window in (False, True):
+        if window:
+            monkeypatch.setenv("ZT_WINDOW_KV", "1")
+        llm = LLM(model_config=cfg, params=params, engine_config=ecfg, device=cuda)
+        assert llm.executor.window_kv == window and llm.executor.decode_window == 8
+        with DynamicBatchGenerator(llm) as gen:
+            # the same prompts' prefill alone, then prefill and decode
+            w0 = W.write_rows_hm.launches
+            gen.batch_generate(prompts, [GeneratorArg(max_length=1)] * 3, timeout=300)
+            before = (W.flush_side_rows_hm.launches, partial.launches, W.write_rows_hm.launches)
+            res = gen.batch_generate(prompts, [GeneratorArg(max_length=16)] * 3, timeout=300)
+        prefill_writes = before[2] - w0
+        runs[window] = [r.outputs[0].token_ids for r in res]
+        flushes, partials, writes = (n - b for n, b in zip(
+            (W.flush_side_rows_hm.launches, partial.launches, W.write_rows_hm.launches), before))
+        if window:  # decode writes no row per step: one flush a layer a window
+            assert flushes > 0 and flushes % 2 == 0 and partials > 0 and writes == prefill_writes
+        else:
+            assert flushes == partials == 0 and writes > prefill_writes
+    assert all(len(t) == 16 for t in runs[True])
+    same = sum(a == b for x, y in zip(runs[True], runs[False]) for a, b in zip(x, y))
+    assert same >= 0.9 * 48  # bf16: the merge rounds differently from the one-pass kernel

@@ -234,10 +234,17 @@ def test_q_wrappers_take_the_plain_version_only_on_the_cpu():
 
 
 def test_decode_attention_q_emit_partial_raises():
+    """The flash-partial mode takes its plain version only on the CPU (held
+    to the Pallas kernel in tests/test_torch_window.py): tensors on the meta
+    device get no plain version and no kernel, and raise."""
     q, pool, k_s, v_s, tables, ctx = _decode_q_case(2, 8, B=2)
+    args = (T(q), T(pool), _t_scales(k_s), _t_scales(v_s), T(tables), T(ctx), S, 0.125)
+    got = A.paged_decode_attention_hm_q(*args, emit_partial=True)
+    want = A.paged_decode_attention_hm_q_partial_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     with pytest.raises(NotImplementedError):
-        A.paged_decode_attention_hm_q(T(q), T(pool), _t_scales(k_s), _t_scales(v_s), T(tables),
-                                      T(ctx), S, 0.125, emit_partial=True)
+        A.paged_decode_attention_hm_q(*(a.to("meta") for a in args[:6]), S, 0.125,
+                                      emit_partial=True)
 
 
 # ---------------------------------------------------------------------------

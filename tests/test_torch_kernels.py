@@ -183,8 +183,14 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
 
 @pytest.mark.parametrize("kw", [dict(emit_partial=True), dict(emit_partial=True, v_dim=64)])
 def test_decode_attention_modes_of_later_slices_raise(kw):
-    """The flash-partial output raises, in the default and in the latent mode
-    (the latent mode itself is held to the JAX package in test_torch_mla.py)."""
+    """The flash-partial output, in the default and in the latent mode, takes
+    its plain version only on the CPU (both are held to the Pallas kernels in
+    tests/test_torch_window.py): on the meta device it raises."""
     q, k, v, tables, ctx = decode_setup(B=2)
+    args = [T(q), T(_pool(k, v)), T(tables), T(ctx)]
+    if "v_dim" in kw:  # the latent mode: one [1, N, stored] pool
+        args[1] = args[1][:1].contiguous()
+    m, l, acc = A.paged_decode_attention_hm(*args, S, 0.125, **kw)
+    assert m.dtype == l.dtype == acc.dtype == torch.float32 and acc.shape[-1] == 64
     with pytest.raises(NotImplementedError):
-        A.paged_decode_attention_hm(T(q), T(_pool(k, v)), T(tables), T(ctx), S, 0.125, **kw)
+        A.paged_decode_attention_hm(*(a.to("meta") for a in args), S, 0.125, **kw)

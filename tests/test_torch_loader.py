@@ -372,3 +372,32 @@ def test_fp8_expert_stack_matches_reference(monkeypatch, keep):
         np.testing.assert_allclose(t_moe_layer(tmlp, tcfg, torch.from_numpy(x)).numpy(),
                                    np.asarray(j_moe_layer(jmlp, jcfg, jnp.asarray(x))),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_safetensors_checkpoint_leaves_match_reference(tmp_path, tie):
+    """A tiny llama written by ``transformers``' ``save_pretrained`` as
+    safetensors: the port's ``iter_safetensors`` yields the reference's
+    tensors, and ``load_hf_state`` the reference's leaves, bit for bit (a
+    tied head drops ``lm_head`` in both)."""
+    transformers = pytest.importorskip("transformers")
+    pytest.importorskip("safetensors")
+    hf_cfg = transformers.LlamaConfig(
+        hidden_size=64, intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, vocab_size=97, max_position_embeddings=128,
+        tie_word_embeddings=tie, torch_dtype="float32")
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(hf_cfg).save_pretrained(tmp_path, safe_serialization=True)
+    assert any(p.suffix == ".safetensors" for p in tmp_path.iterdir())
+    path = str(tmp_path)
+
+    want = dict(JH.iter_safetensors(path))
+    got = dict(TH.iter_safetensors(path))
+    assert sorted(got) == sorted(want) and len(got) == 2 + 9 * 2 + (not tie)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), w, err_msg=name)
+
+    want = dict(_leaves(JH.load_hf_state(path, j_load_model_config(path)[0])))
+    got = dict(_leaves(TH.load_hf_state(path, t_load_model_config(path)[0])))
+    assert ("lm_head.w" in got) == (not tie)
+    _assert_leaves_bit_equal(got, want)

@@ -184,13 +184,18 @@ def test_absorbed_decode_matches_jax():
 
 
 def test_emit_partial_and_side_rows_raise():
+    """The latent decode, normal and partial (held to the Pallas kernel in
+    tests/test_torch_window.py), takes its plain version only on the CPU: on
+    the meta device it raises."""
     pool, q_nope, q_pe, w_uk, _, ctx, tables, PS, lora, _ = _latent_decode_inputs()
     q_eff = torch.zeros(3, 4, 192)
-    with pytest.raises(NotImplementedError):
-        A.paged_mla_decode(q_eff, T(pool), T(tables), T(ctx), PS, 0.1, v_dim=lora, emit_partial=True)
-    with pytest.raises(NotImplementedError):
-        A.paged_mla_decode(q_eff.to("meta"), T(pool).to("meta"), T(tables).to("meta"),
-                           T(ctx).to("meta"), PS, 0.1, v_dim=lora)
+    m, l, acc = A.paged_mla_decode(q_eff, T(pool), T(tables), T(ctx), PS, 0.1, v_dim=lora,
+                                   emit_partial=True)
+    assert m.shape == l.shape == (3, 4) and acc.shape == (3, 4, lora)
+    for partial in (False, True):
+        with pytest.raises(NotImplementedError):
+            A.paged_mla_decode(q_eff.to("meta"), T(pool).to("meta"), T(tables).to("meta"),
+                               T(ctx).to("meta"), PS, 0.1, v_dim=lora, emit_partial=partial)
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +311,16 @@ def test_mla_layer_prefill_packed_and_decode_match_jax(model):
                   TDecodeMeta(*(T(a) for a in arrays)), "decode")
     np.testing.assert_allclose(to[:2], jo[:2], rtol=RTOL, atol=ATOL)
     _assert_pools(jcache, tcache)
-    with pytest.raises(NotImplementedError):
-        TM.mla_attention_layer(ta, tcfg, trope, T(x), T(positions), tcache, 0,
-                               TDecodeMeta(*(T(a) for a in arrays)), "decode", side={})
+    # the same step as the first of a decode window (side rows, no write):
+    # this step's row from the side buffer, the rest from the pool
+    valid = T(arrays[3] > 0)
+    side = dict(rows=torch.zeros(3, 2, tcfg.mla.latent_dim), valid=torch.stack([valid, torch.zeros_like(valid)], 1),
+                pool_lens=T(np.maximum(arrays[3] - 1, 0)), step=0)
+    before = tcache.latent[0].clone()
+    so, _, rows = TM.mla_attention_layer(ta, tcfg, trope, T(x), T(positions), tcache, 0,
+                                         TDecodeMeta(*(T(a) for a in arrays)), "decode", side=side)
+    np.testing.assert_allclose(so[:2].numpy(), to[:2], rtol=RTOL, atol=ATOL)
+    assert torch.equal(tcache.latent[0], before) and rows is side["rows"] and rows[:2, 0].any()
 
 
 def test_model_logits_match_jax(model):

@@ -2,7 +2,8 @@
 //
 // Replaces: zhilight_tpu/ops/pallas/attn_headmajor.py
 // paged_decode_attention_hm (:151), kernel _kernel_hm (:54), in its default
-// mode (normalized output; no emit_partial, no MLA v_dim).
+// mode (normalized output) and its emit_partial mode (:126-139, the flash
+// partials of the decode-window side buffer); not its MLA v_dim mode.
 //
 // Computes, for each sequence b and query head h = hkv * G + g:
 //   out[b, h] = softmax(scale * q[b, h] . K[t]) . V[t] over the tokens
@@ -10,7 +11,10 @@
 //   when a sliding window is set; token t lives at pool[hkv, page*S + t%S]
 //   with page = page_tables[b, t / S]; K is lanes [:D], V lanes [D:].
 // fp32 scores and online softmax with NEG_INF = -2e38 and the max(l, 1e-20)
-// floor of the TPU kernel, so an empty slot (ctx == 0) yields zeros.
+// floor of the TPU kernel, so an empty slot (ctx == 0) yields zeros. With
+// EMIT (the partial mode) the block writes fp32 m = max score, l = sum of
+// exp(score - m) and the unnormalized acc = sum exp(score - m) * V instead of
+// acc / max(l, 1e-20): m = -2e38, l = 0, acc = 0 for an empty slot.
 //
 // Bound on the H100: bytes. Each (b, kv head) streams ctx * 2D elements of
 // the pool once; at B=16, ctx 512, 36 heads, D=64 in bf16 that is 75.5 MB per
@@ -53,9 +57,11 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* f) {
   }
 }
 
-template <int D, int GMAX>
+template <int D, int GMAX, bool EMIT>
 __global__ void __launch_bounds__(NWARPS * 32) decode_hm_kernel(
-    __nv_bfloat16* __restrict__ out,          // [B, Hq, D]
+    void* __restrict__ out,                   // [B, Hq, D]: bf16, or fp32 acc with EMIT
+    float* __restrict__ m_out,                // [B, Hq] with EMIT, else unused
+    float* __restrict__ l_out,                // [B, Hq] with EMIT, else unused
     const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
     const __nv_bfloat16* __restrict__ pool,   // [Hkv, N, 2D]
     const int32_t* __restrict__ page_tables,  // [B, maxp]
@@ -155,29 +161,40 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_hm_kernel(
       L += sm_l[w][g] * f;
       A += sm_acc[w][g][d] * f;
     }
-    out[((long long)b * Hq + hkv * G + g) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    const long long row = (long long)b * Hq + hkv * G + g;
+    if constexpr (EMIT) {
+      static_cast<float*>(out)[row * D + d] = A;
+      if (d == 0) {
+        m_out[row] = M;
+        l_out[row] = L;
+      }
+    } else {
+      static_cast<__nv_bfloat16*>(out)[row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    }
   }
 }
 
 template <int D, int GMAX>
-int launch(void* out, const void* q, const void* pool, const void* page_tables,
-           const void* context_lens, int B, int Hkv, int G, long long N, int maxp,
-           int S, float scale, int window, cudaStream_t stream) {
-  decode_hm_kernel<D, GMAX><<<dim3(B, Hkv), NWARPS * 32, 0, stream>>>(
-      (__nv_bfloat16*)out, (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool,
+int launch(void* out, float* m_out, float* l_out, const void* q, const void* pool,
+           const void* page_tables, const void* context_lens, int B, int Hkv, int G,
+           long long N, int maxp, int S, float scale, int window, cudaStream_t stream) {
+  auto kernel = m_out != nullptr ? decode_hm_kernel<D, GMAX, true>
+                                 : decode_hm_kernel<D, GMAX, false>;
+  kernel<<<dim3(B, Hkv), NWARPS * 32, 0, stream>>>(
+      out, m_out, l_out, (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool,
       (const int32_t*)page_tables, (const int32_t*)context_lens, Hkv, G, N, maxp,
       S, scale, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int dispatch_g(void* out, const void* q, const void* pool, const void* page_tables,
-               const void* context_lens, int B, int Hkv, int G, long long N,
-               int maxp, int S, float scale, int window, cudaStream_t stream) {
-#define ZT_G(GM)                                                                 \
-  if (G <= GM)                                                                   \
-    return launch<D, GM>(out, q, pool, page_tables, context_lens, B, Hkv, G, N, \
-                         maxp, S, scale, window, stream);
+int dispatch_g(void* out, float* m_out, float* l_out, const void* q, const void* pool,
+               const void* page_tables, const void* context_lens, int B, int Hkv, int G,
+               long long N, int maxp, int S, float scale, int window, cudaStream_t stream) {
+#define ZT_G(GM)                                                                   \
+  if (G <= GM)                                                                     \
+    return launch<D, GM>(out, m_out, l_out, q, pool, page_tables, context_lens, B, \
+                         Hkv, G, N, maxp, S, scale, window, stream);
   ZT_G(1) ZT_G(2) ZT_G(4) ZT_G(8)
   // the merge buffer of 16 query rows at D=128 would exceed 48 KB of static
   // shared memory
@@ -189,19 +206,22 @@ int dispatch_g(void* out, const void* q, const void* pool, const void* page_tabl
 }  // namespace
 
 // Supported: bf16 q and pool, D = 64 with G = Hq / Hkv in [1, 16], or
-// D = 128 with G in [1, 8].
-extern "C" int zt_decode_attention_hm(void* out, const void* q, const void* pool,
-                                      const void* page_tables,
+// D = 128 with G in [1, 8]. With m_out (and l_out) non-null the partial mode
+// runs: out is fp32 [B, Hq, D] and receives the unnormalized accumulator,
+// m_out and l_out fp32 [B, Hq] the running max and normalizer.
+extern "C" int zt_decode_attention_hm(void* out, float* m_out, float* l_out, const void* q,
+                                      const void* pool, const void* page_tables,
                                       const void* context_lens, int B, int Hkv,
                                       int G, int D, long long N, int maxp, int S,
                                       float scale, int window, void* stream) {
   if (B == 0) return 0;
+  if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
-    return dispatch_g<64>(out, q, pool, page_tables, context_lens, B, Hkv, G, N,
-                          maxp, S, scale, window, st);
+    return dispatch_g<64>(out, m_out, l_out, q, pool, page_tables, context_lens, B, Hkv, G,
+                          N, maxp, S, scale, window, st);
   if (D == 128)
-    return dispatch_g<128>(out, q, pool, page_tables, context_lens, B, Hkv, G, N,
-                           maxp, S, scale, window, st);
+    return dispatch_g<128>(out, m_out, l_out, q, pool, page_tables, context_lens, B, Hkv, G,
+                           N, maxp, S, scale, window, st);
   return (int)cudaErrorInvalidValue;
 }

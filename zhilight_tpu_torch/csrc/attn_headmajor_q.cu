@@ -2,7 +2,9 @@
 //
 // Replaces: zhilight_tpu/ops/pallas/attn_headmajor.py
 // paged_decode_attention_hm_q (:341), kernel _kernel_hm_q (:254), in its
-// default mode (normalized output; no emit_partial).
+// default mode (normalized output) and its emit_partial mode (:325-336, the
+// flash partials of the decode-window side buffer: fp32 m, l and the
+// unnormalized acc, written instead of acc / max(l, 1e-20)).
 //
 // Computes, for each sequence b and query head h = hkv * G + g, over the
 // tokens t in [start, ctx), ctx = context_lens[b], start = max(0, ctx -
@@ -55,9 +57,11 @@ __device__ __forceinline__ void unpack_i8x4(uint32_t raw, float* f) {
   f[3] = (float)c.w;
 }
 
-template <int D, int GMAX>
+template <int D, int GMAX, bool EMIT>
 __global__ void __launch_bounds__(NWARPS * 32) decode_hm_q_kernel(
-    __nv_bfloat16* __restrict__ out,          // [B, Hq, D]
+    void* __restrict__ out,                   // [B, Hq, D]: bf16, or fp32 acc with EMIT
+    float* __restrict__ m_out,                // [B, Hq] with EMIT, else unused
+    float* __restrict__ l_out,                // [B, Hq] with EMIT, else unused
     const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
     const int8_t* __restrict__ pool,          // [Hkv, N, 2D]
     const float* __restrict__ k_scales,       // [Hkv, scale_stride]
@@ -234,32 +238,45 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_hm_q_kernel(
       L += sm_l[w][g] * f;
       A += sm_acc[w][g][d] * f;
     }
-    out[((long long)b * Hq + hkv * G + g) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    const long long row = (long long)b * Hq + hkv * G + g;
+    if constexpr (EMIT) {
+      static_cast<float*>(out)[row * D + d] = A;
+      if (d == 0) {
+        m_out[row] = M;
+        l_out[row] = L;
+      }
+    } else {
+      static_cast<__nv_bfloat16*>(out)[row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    }
   }
 }
 
 template <int D, int GMAX>
-int launch(void* out, const void* q, const void* pool, const void* k_scales,
-           const void* v_scales, const void* page_tables, const void* context_lens,
-           int B, int Hkv, int G, long long N, long long scale_stride, int maxp,
-           int S, float scale, int window, cudaStream_t stream) {
-  decode_hm_q_kernel<D, GMAX><<<dim3(B, Hkv), NWARPS * 32, 0, stream>>>(
-      (__nv_bfloat16*)out, (const __nv_bfloat16*)q, (const int8_t*)pool,
+int launch(void* out, float* m_out, float* l_out, const void* q, const void* pool,
+           const void* k_scales, const void* v_scales, const void* page_tables,
+           const void* context_lens, int B, int Hkv, int G, long long N,
+           long long scale_stride, int maxp, int S, float scale, int window,
+           cudaStream_t stream) {
+  auto kernel = m_out != nullptr ? decode_hm_q_kernel<D, GMAX, true>
+                                 : decode_hm_q_kernel<D, GMAX, false>;
+  kernel<<<dim3(B, Hkv), NWARPS * 32, 0, stream>>>(
+      out, m_out, l_out, (const __nv_bfloat16*)q, (const int8_t*)pool,
       (const float*)k_scales, (const float*)v_scales, (const int32_t*)page_tables,
       (const int32_t*)context_lens, Hkv, G, N, scale_stride, maxp, S, scale, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int dispatch_g(void* out, const void* q, const void* pool, const void* k_scales,
-               const void* v_scales, const void* page_tables, const void* context_lens,
-               int B, int Hkv, int G, long long N, long long scale_stride, int maxp,
-               int S, float scale, int window, cudaStream_t stream) {
+int dispatch_g(void* out, float* m_out, float* l_out, const void* q, const void* pool,
+               const void* k_scales, const void* v_scales, const void* page_tables,
+               const void* context_lens, int B, int Hkv, int G, long long N,
+               long long scale_stride, int maxp, int S, float scale, int window,
+               cudaStream_t stream) {
   // rows past G would be computed for nothing, so every G up to 8 has its
   // own instantiation (Qwen2.5-14B: G = 5)
 #define ZT_G(GM)                                                                  \
   if (G <= GM)                                                                    \
-    return launch<D, GM>(out, q, pool, k_scales, v_scales, page_tables,           \
+    return launch<D, GM>(out, m_out, l_out, q, pool, k_scales, v_scales, page_tables, \
                          context_lens, B, Hkv, G, N, scale_stride, maxp, S, scale, \
                          window, stream);
   ZT_G(1) ZT_G(2) ZT_G(3) ZT_G(4) ZT_G(5) ZT_G(6) ZT_G(7) ZT_G(8)
@@ -273,9 +290,12 @@ int dispatch_g(void* out, const void* q, const void* pool, const void* k_scales,
 }  // namespace
 
 // Supported: bf16 q, int8 pool, fp32 scales; D = 64 with G = Hq / Hkv in
-// [1, 16], or D = 128 with G in [1, 8]. Returns the CUDA error code of the
-// launch (0 = success).
-extern "C" int zt_decode_attention_hm_q(void* out, const void* q, const void* pool,
+// [1, 16], or D = 128 with G in [1, 8]. With m_out (and l_out) non-null the
+// partial mode runs: out is fp32 [B, Hq, D] and receives the unnormalized
+// accumulator, m_out and l_out fp32 [B, Hq] the running max and normalizer.
+// Returns the CUDA error code of the launch (0 = success).
+extern "C" int zt_decode_attention_hm_q(void* out, float* m_out, float* l_out,
+                                        const void* q, const void* pool,
                                         const void* k_scales, const void* v_scales,
                                         const void* page_tables,
                                         const void* context_lens, int B, int Hkv,
@@ -283,12 +303,13 @@ extern "C" int zt_decode_attention_hm_q(void* out, const void* q, const void* po
                                         long long scale_stride, int maxp, int S,
                                         float scale, int window, void* stream) {
   if (B == 0) return 0;
+  if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D == 64)
-    return dispatch_g<64>(out, q, pool, k_scales, v_scales, page_tables, context_lens,
+    return dispatch_g<64>(out, m_out, l_out, q, pool, k_scales, v_scales, page_tables, context_lens,
                           B, Hkv, G, N, scale_stride, maxp, S, scale, window, st);
   if (D == 128)
-    return dispatch_g<128>(out, q, pool, k_scales, v_scales, page_tables, context_lens,
+    return dispatch_g<128>(out, m_out, l_out, q, pool, k_scales, v_scales, page_tables, context_lens,
                            B, Hkv, G, N, scale_stride, maxp, S, scale, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,7 +3,10 @@
 // Replaces: zhilight_tpu/ops/pallas/attn_headmajor.py
 // paged_decode_attention_hm (:151), kernel _kernel_hm (:54), in its MLA latent
 // mode (v_dim > 0), as zhilight_tpu/ops/pallas/paged_attention.py
-// paged_mla_decode (:791) reaches it.
+// paged_mla_decode (:791) reaches it; and paged_mla_decode's emit_partial mode,
+// which the reference serves from _kernel_bs (paged_attention.py:179, emit at
+// :272-287): the same function, with the merge kernel writing fp32 M, sum L and
+// the unnormalized accumulator instead of dividing.
 //
 // Computes, for each sequence b and head h, over the tokens t < ctx =
 // context_lens[b], token t at pool row page_tables[b, t / S] * S + t % S:
@@ -251,9 +254,13 @@ __global__ void __launch_bounds__(NT) mla_decode_kernel(
 }
 
 // out[b, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-20)
-template <int VD>
+// with M = max_s m_s; with EMIT, out (fp32) gets the sum unnormalized and
+// m_out, l_out [B, H] get M and the sum of l_s * exp(m_s - M): the flash
+// partials of the whole context (M = -2e38, L = 0, acc = 0 when it is empty).
+template <int VD, bool EMIT>
 __global__ void __launch_bounds__(128) mla_merge_kernel(
-    bf16* __restrict__ out,                   // [B, H, VD]
+    void* __restrict__ out,                   // [B, H, VD]: bf16, or fp32 with EMIT
+    float* __restrict__ m_out, float* __restrict__ l_out,
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     const int32_t* __restrict__ context_lens, int H, int tiles_h, int splits, int maxp,
     int S) {
@@ -270,17 +277,26 @@ __global__ void __launch_bounds__(128) mla_merge_kernel(
   float Lsum = 0.f;
   for (int s = 0; s < used; ++s)
     Lsum += part_ml[(base + s) * 2 * HT + HT + r] * __expf(part_ml[(base + s) * 2 * HT + r] - M);
+  const long long row = (long long)b * H + h;
+  if (EMIT && threadIdx.x == 0) {
+    m_out[row] = M;
+    l_out[row] = Lsum;
+  }
   const float inv = 1.f / fmaxf(Lsum, 1e-20f);
   for (int d = threadIdx.x; d < VD; d += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < used; ++s)
       a += part_acc[((base + s) * HT + r) * VD + d] * __expf(part_ml[(base + s) * 2 * HT + r] - M);
-    out[((long long)b * H + h) * VD + d] = __float2bfloat16(a * inv);
+    if constexpr (EMIT)
+      static_cast<float*>(out)[row * VD + d] = a;
+    else
+      static_cast<bf16*>(out)[row * VD + d] = __float2bfloat16(a * inv);
   }
 }
 
 template <int KD, int VD>
-int launch(void* out, void* part_acc, void* part_ml, const void* q, const void* pool,
+int launch(void* out, float* m_out, float* l_out, void* part_acc, void* part_ml,
+           const void* q, const void* pool,
            const void* page_tables, const void* context_lens, int B, int H, long long N,
            int stored, int maxp, int S, float scale, int splits, cudaStream_t stream) {
   using L = Smem<KD, VD>;
@@ -297,8 +313,9 @@ int launch(void* out, void* part_acc, void* part_ml, const void* q, const void* 
       (const int32_t*)page_tables, (const int32_t*)context_lens, H, N, stored, maxp, S, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  mla_merge_kernel<VD><<<dim3(H, B), 128, 0, stream>>>(
-      (bf16*)out, (const float*)part_acc, (const float*)part_ml,
+  auto merge = m_out != nullptr ? mla_merge_kernel<VD, true> : mla_merge_kernel<VD, false>;
+  merge<<<dim3(H, B), 128, 0, stream>>>(
+      out, m_out, l_out, (const float*)part_acc, (const float*)part_ml,
       (const int32_t*)context_lens, H, tiles_h, splits, maxp, S);
   return (int)cudaGetLastError();
 }
@@ -308,17 +325,21 @@ int launch(void* out, void* part_acc, void* part_ml, const void* q, const void* 
 // Supported (the wrapper checks): bf16 q [B, H, KD] and pool [N, stored] with
 // (KD, VD) = (576, 512), stored >= KD and a multiple of 8; scratch part_acc
 // fp32 [B, ceil(H / 16), splits, 16, VD] and part_ml fp32
-// [B, ceil(H / 16), splits, 2, 16], 32-byte aligned; out bf16 [B, H, VD].
-extern "C" int zt_mla_decode(void* out, void* part_acc, void* part_ml, const void* q,
+// [B, ceil(H / 16), splits, 2, 16], 32-byte aligned; out bf16 [B, H, VD], or
+// with m_out and l_out (fp32 [B, H]) non-null the partial mode: out fp32
+// [B, H, VD] receives the unnormalized accumulator.
+extern "C" int zt_mla_decode(void* out, float* m_out, float* l_out, void* part_acc,
+                             void* part_ml, const void* q,
                              const void* pool, const void* page_tables,
                              const void* context_lens, int B, int H, int KD, int VD,
                              long long N, int stored, int maxp, int S, float scale,
                              int splits, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (splits < 1 || stored < KD || stored % 8) return (int)cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (KD == 576 && VD == 512)
-    return launch<576, 512>(out, part_acc, part_ml, q, pool, page_tables, context_lens, B, H,
+    return launch<576, 512>(out, m_out, l_out, part_acc, part_ml, q, pool, page_tables, context_lens, B, H,
                             N, stored, maxp, S, scale, splits, st);
   return (int)cudaErrorInvalidValue;
 }

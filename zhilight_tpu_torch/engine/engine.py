@@ -17,11 +17,17 @@ model's dtype. The pool-row operations (:meth:`copy_slots`
 for beam search, :meth:`swap_out_rows` / :meth:`swap_in_rows` for swap
 preemption) move rows of every array of the cache, so they serve both kinds;
 :meth:`run_score` / :meth:`run_hidden` run a whole sequence on a scratch cache.
+
+With ``ZT_WINDOW_KV=1`` in the environment when the executor is built, decode
+windows keep each layer's new rows in side buffers and write the pool once at
+the window's end (:meth:`_use_side_window` says when), as the reference's
+``ZT_WINDOW_KV=1`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -100,6 +106,9 @@ class ModelExecutor:
         self.decode_window = ms if ms > 0 else (8 if self.device.type == "cuda" else 1)
         # device-resident decode window carry (see run_decode_multi)
         self._decode_carry: Optional[tuple] = None
+        # window side-KV, read once per executor as the reference reads it
+        # once per decode program
+        self.window_kv = os.environ.get("ZT_WINDOW_KV") == "1"
 
     # ------------------------------------------------------------------
     # sizing
@@ -334,6 +343,18 @@ class ModelExecutor:
     # ------------------------------------------------------------------
     # decode windows
     # ------------------------------------------------------------------
+    def _use_side_window(self, num_steps: int) -> bool:
+        """Window-batched KV writes (``zhilight_tpu/engine/engine.py:589-622``):
+        under ``ZT_WINDOW_KV=1``, a window of 2 to ``page_size`` steps (its
+        rows then fall in at most two pages a slot) without a sliding window,
+        over a latent pool or a packed head-major one (bf16 or int8). Anything
+        else decodes per step."""
+        if not self.window_kv or not 2 <= num_steps <= self.page_size:
+            return False
+        if (self.cfg.sliding_window or 0) > 0:
+            return False
+        return self.cfg.mla.enabled or self.cache.packed
+
     def run_decode_multi(
         self,
         tokens: np.ndarray,        # [B] last sampled token per slot
@@ -360,7 +381,13 @@ class ModelExecutor:
         ``reuse_carry=True`` continues from the previous window's device
         state (tokens, positions, context_lens, page_tables, limits) instead
         of the host arrays; valid when the slot set, pages and limits are
-        unchanged and every slot consumed the full window."""
+        unchanged and every slot consumed the full window.
+
+        Under :meth:`_use_side_window` the steps write no pool row: each
+        layer's rows collect in side buffers (fp32 over an int8 pool, so the
+        flush requantizes exactly what the window attended over), attention
+        covers the pool as it was at the window's entry plus the side rows,
+        and the rows are flushed after the last step, in this call."""
         key = (num_steps, num_logprobs, greedy_only)
         if reuse_carry and self._decode_carry is not None and self._decode_carry[0] == key:
             _, d_tok, d_pos, d_ctx, d_pt, d_lim = self._decode_carry
@@ -373,8 +400,16 @@ class ModelExecutor:
         maxp = d_pt.shape[1]
         state = self.sampler_state
         outs = []
+        side = self._use_side_window(num_steps)
+        if side:
+            entry_pos, pool_lens = d_pos, (d_ctx - 1).clamp_min(0)
+            dtype = torch.float32 if self.cache.quantized else self.cfg.torch_dtype
+            side_rows = llama_mod.new_side_rows(self.cfg, d_tok.shape[0], num_steps, dtype,
+                                                self.device)
+            side_valid = torch.zeros((d_tok.shape[0], num_steps), dtype=torch.bool,
+                                     device=self.device)
         with torch.no_grad():
-            for _ in range(num_steps):
+            for k in range(num_steps):
                 valid = (d_ctx > 0) & (d_ctx <= d_lim)
                 pidx = torch.clamp(d_pos // S, 0, maxp - 1).long()[:, None]
                 page = d_pt.gather(1, pidx)[:, 0]
@@ -382,9 +417,16 @@ class ModelExecutor:
                 meta = DecodeMeta(
                     positions=d_pos, slot_mapping=slot, page_tables=d_pt, context_lens=d_ctx
                 )
-                logits, self.cache = llama_mod.forward_decode(
-                    self.params, self.cfg, self.rope, d_tok, meta, self.cache
-                )
+                if side:
+                    side_valid[:, k] = valid
+                    logits, self.cache, side_rows = llama_mod.forward_decode_window(
+                        self.params, self.cfg, self.rope, d_tok, meta, self.cache,
+                        side_rows, side_valid, pool_lens, k,
+                    )
+                else:
+                    logits, self.cache = llama_mod.forward_decode(
+                        self.params, self.cfg, self.rope, d_tok, meta, self.cache
+                    )
                 tok, lp, toplp, toptok, st2 = sample_step(
                     logits, state, sparams, generators=self.generators,
                     logit_bias_tokens=bias_tok, logit_bias_values=bias_val,
@@ -401,6 +443,10 @@ class ModelExecutor:
                 d_pos = torch.where(valid, d_pos + 1, d_pos)
                 d_ctx = torch.where(valid, d_ctx + 1, d_ctx)
                 outs.append((tok, lp, toplp, toptok))
+            if side:
+                self.cache = llama_mod.flush_window_rows(
+                    self.cfg, self.cache, side_rows, side_valid, entry_pos, d_pt
+                )
         self.sampler_state = state
         self._decode_carry = (key, d_tok, d_pos, d_ctx, d_pt, d_lim)
         handle = tuple(torch.stack(x) for x in zip(*outs))

@@ -31,6 +31,13 @@ dimensions), so the engine's pool-row operations serve every layout.
 
 Writes update the pool in place (PyTorch has no buffer donation to emulate):
 :func:`write_kv` returns the same cache object it was given.
+
+A decode window with side-buffered KV writes (``ZT_WINDOW_KV=1``) writes no
+row while it runs and flushes each layer's window rows at its end:
+:func:`flush_side_kv` for a packed pool (an int8 one requantizes the fp32
+side rows and scatters their scales, dead rows' into the spare column, where
+the reference drops them at ``num_slots``) and :func:`flush_side_latent` for
+a latent pool.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 from ..ops.cuda import kv_write
 
 __all__ = ["KVCache", "new_kv_cache", "new_latent_cache", "write_kv", "write_latent",
-           "gather_kv", "gather_hm", "gather_scales", "gather_latent", "slot_indices"]
+           "flush_side_kv", "flush_side_latent", "side_scale_index", "gather_kv", "gather_hm",
+           "gather_scales", "gather_latent", "slot_indices"]
 
 
 @dataclass
@@ -214,6 +222,53 @@ def write_latent(
 ) -> KVCache:
     """Write new latent rows into layer ``layer``'s pool, in place."""
     kv_write.write_rows_2d(cache.latent[layer], latent_new, slot_mapping)
+    return cache
+
+
+def side_scale_index(cache: KVCache, entry_pos, n_rows, page_tables, window: int) -> torch.Tensor:
+    """Scale column of each window row of an int8 cache, [B * window]: its
+    pool slot, or the spare column N for a row past ``n_rows``. One for every
+    layer of a window's flush."""
+    N = cache.num_slots
+    slots = kv_write.side_slots(entry_pos, n_rows, page_tables, cache.page_size, window)
+    return torch.where((slots < 0) | (slots >= N), N, slots).reshape(-1)
+
+
+def flush_side_kv(
+    cache: KVCache,
+    layer: int,
+    rows: torch.Tensor,          # [B, Hkv, Kw, 2D] window rows (fp32 for an int8 cache)
+    entry_pos: torch.Tensor,     # [B] int32 position of each slot's first window row
+    n_rows: torch.Tensor,        # [B] int32 live window rows
+    page_tables: torch.Tensor,   # [B, maxp] int32
+    scale_index: Optional[torch.Tensor] = None,  # int8 cache: side_scale_index(...)
+) -> KVCache:
+    """Flush one layer's window rows into its packed pool, in place. An int8
+    cache requantizes them first (idempotent on the values the window
+    attended over) and writes their scales (plain tensor ops, as the
+    reference leaves both to XLA) at ``scale_index``, computed here unless the
+    caller computed it once for every layer; the rows go through the CUDA
+    flush."""
+    if cache.quantized:
+        if scale_index is None:
+            scale_index = side_scale_index(cache, entry_pos, n_rows, page_tables, rows.shape[2])
+        D = rows.shape[-1] // 2
+        codes, scales = _quantize_rows(torch.stack((rows[..., :D], rows[..., D:])))
+        rows = torch.cat((codes[0], codes[1]), dim=-1)  # [B, Hkv, Kw, 2D] int8
+        Hkv = rows.shape[1]
+        # scales [2, B, Hkv, Kw] -> columns of the head-major [Hkv, N + 1] arrays
+        cache.k_scale[layer][:, scale_index] = scales[0].transpose(0, 1).reshape(Hkv, -1)
+        cache.v_scale[layer][:, scale_index] = scales[1].transpose(0, 1).reshape(Hkv, -1)
+    kv_write.flush_side_rows_hm(cache.k[layer], rows, entry_pos, n_rows, page_tables,
+                                cache.page_size)
+    return cache
+
+
+def flush_side_latent(cache: KVCache, layer: int, rows, entry_pos, n_rows, page_tables) -> KVCache:
+    """Flush one layer's window latent rows [B, Kw, latent_dim] into its
+    pool, in place."""
+    kv_write.flush_side_rows_2d(cache.latent[layer], rows, entry_pos, n_rows, page_tables,
+                                cache.page_size)
     return cache
 
 

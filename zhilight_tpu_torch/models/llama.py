@@ -26,8 +26,15 @@ reference does:
 Over an int8 cache the kernels take their ``_q`` forms with the layer's
 scales. Those wrappers launch the CUDA kernels for CUDA tensors and run their
 plain PyTorch versions for CPU tensors. An MLA model keeps a latent pool
-instead and attends through ``models/mla.py``. Window side-KV and fused
-write+attend are later slices.
+instead and attends through ``models/mla.py``.
+
+Decode windows with side-buffered KV writes (``ZT_WINDOW_KV=1``, chosen by
+the executor): :func:`forward_decode_window` keeps each layer's new K|V rows
+(MLA: latent rows) in a side buffer instead of writing the pool; the decode
+kernel returns flash partials over the pool as it was when the window began,
+and the side rows are attended and merged in plain torch, on the GPU too, as
+the reference leaves them to XLA. :func:`flush_window_rows` writes the
+window's rows once at its end. Fused write+attend is a later slice.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..config.model_config import ModelConfig
-from ..kvcache.paged import KVCache, gather_kv, write_kv
+from ..kvcache.paged import (KVCache, _quantize_rows, flush_side_kv, flush_side_latent,
+                             gather_kv, side_scale_index, write_kv)
 from ..ops.activations import gated_act
+from ..ops.attention import merge_window
 from ..ops.attention import prefill_attention as attend_chunk
 from ..ops.cuda import attn_headmajor, paged_attention, prefill_attention
 from ..ops.linear import linear
@@ -57,6 +66,9 @@ __all__ = [
     "forward_score",
     "forward_hidden",
     "forward_decode",
+    "forward_decode_window",
+    "new_side_rows",
+    "flush_window_rows",
     "get_logits",
 ]
 
@@ -108,9 +120,12 @@ def attention_layer(
     meta,
     mode: str,
     rot=None,
-) -> Tuple[torch.Tensor, KVCache]:
+    side=None,
+):
     """Standard / GQA attention over the paged pool: write this step's K|V
-    rows, then attend (prefill chunk, packed chunks or decode step)."""
+    rows, then attend (prefill chunk, packed chunks or decode step). With
+    ``side`` (a decode window's side buffer, see :func:`forward_decode_window`)
+    nothing is written and ``(out, cache, side_rows)`` is returned."""
     n = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     q, k = _maybe_qk_norm(p, cfg, q, k)
@@ -118,6 +133,10 @@ def attention_layer(
     q = apply_rope_rot(q, cos_f, sin_f, rope.neox_style)
     k = apply_rope_rot(k, cos_f, sin_f, rope.neox_style)
     scale = 1.0 / math.sqrt(cfg.dim_head)
+
+    if side is not None:
+        out, rows = _side_window_attention(cache, layer_idx, q, k, v, meta, side, scale)
+        return linear(p["o_proj"], out), cache, rows
 
     cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
     S, sw = cache.page_size, cfg.sliding_window
@@ -141,6 +160,40 @@ def attention_layer(
                   else attn_headmajor.paged_decode_attention_hm)
         out = attend(q, *kv, meta.page_tables, meta.context_lens, S, scale, sw)
     return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+
+
+def _side_window_attention(cache: KVCache, layer: int, q, k, v, meta, side, scale: float):
+    """A decode step of a window with side-buffered writes
+    (``zhilight_tpu/models/llama.py:131-227``): this step's K|V rows go into
+    column ``side["step"]`` of the layer's side rows [B, Hkv, Kw, 2D] (in
+    place), the decode kernel gives flash partials over the first
+    ``side["pool_lens"][b]`` pool tokens, and the window's valid side rows are
+    attended in fp32 and merged exactly. Over an int8 pool this step's rows
+    are quantized and dequantized first, so the window attends over the
+    values the pool will hold after the flush. Returns (out [B, Hq*D],
+    side_rows)."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[1]
+    rows = side["rows"]
+    if cache.quantized:
+        codes, scales = _quantize_rows(torch.stack((k, v)))
+        k, v = (codes.float() * scales[..., None]).to(k.dtype)
+    rows[:, :, side["step"]] = torch.cat((k, v), dim=-1).to(rows.dtype)
+
+    kv = (cache.k[layer],)
+    if cache.quantized:
+        kv += (cache.k_scale[layer], cache.v_scale[layer])
+    attend = (attn_headmajor.paged_decode_attention_hm_q if cache.quantized
+              else attn_headmajor.paged_decode_attention_hm)
+    partial = attend(q, *kv, meta.page_tables, side["pool_lens"], cache.page_size, scale, 0,
+                     emit_partial=True)  # fp32 (m, l, acc) [B, Hkv, G(, D)]
+
+    side_f = rows.float()
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("bhgd,bhkd->bhgk", qg, side_f[..., :D]) * scale
+    out = merge_window(partial, scores, side["valid"][:, None, None, :],
+                       lambda p: torch.einsum("bhgk,bhkd->bhgd", p, side_f[..., D:]))
+    return out.to(q.dtype).reshape(B, Hq * D), rows
 
 
 def _slot_major_attention(
@@ -203,23 +256,25 @@ def decoder_layer(
     meta,
     mode: str,
     rot=None,
-) -> Tuple[torch.Tensor, KVCache]:
+    side=None,
+):
     """Pre-norm block: sequential residual by default, Cohere's parallel
-    variant, MiniCPM's depth-scaled residual (scale_depth / sqrt(L))."""
+    variant, MiniCPM's depth-scaled residual (scale_depth / sqrt(L)). With
+    ``side`` (decode windows) returns (x, cache, side_rows)."""
     if cfg.mla.enabled:
         from .mla import mla_attention_layer as attn_fn
     else:
         attn_fn = attention_layer
     res_scale = cfg.scale_depth / math.sqrt(cfg.num_layers) if cfg.scale_depth != 1.0 else 1.0
     h = _norm(p["ln_attn"], cfg, x)
-    attn_out, cache = attn_fn(
-        p["attn"], cfg, rope, h, positions, cache, layer_idx, meta, mode, rot=rot
+    attn_out, cache, *rows = attn_fn(
+        p["attn"], cfg, rope, h, positions, cache, layer_idx, meta, mode, rot=rot, side=side
     )
     if cfg.parallel_residual:
-        return x + attn_out + mlp_layer(p["mlp"], cfg, h, layer_idx), cache
+        return (x + attn_out + mlp_layer(p["mlp"], cfg, h, layer_idx), cache, *rows)
     x = x + attn_out * res_scale
     h = _norm(p["ln_ff"], cfg, x)
-    return x + mlp_layer(p["mlp"], cfg, h, layer_idx) * res_scale, cache
+    return (x + mlp_layer(p["mlp"], cfg, h, layer_idx) * res_scale, cache, *rows)
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +399,67 @@ def forward_decode(
     """One decode step for all slots; returns fp32 logits [B, V]."""
     hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "decode")
     return get_logits(params, cfg, hidden), cache
+
+
+def new_side_rows(cfg: ModelConfig, batch: int, window: int, dtype: torch.dtype, device=None):
+    """Zeroed per-layer side buffers of a decode window: [B, Hkv, Kw, 2D]
+    (K|V rows), or for MLA [B, Kw, latent_dim] (the port's latent pool is not
+    padded, so neither are its side rows)."""
+    shape = ((batch, window, cfg.mla.latent_dim) if cfg.mla.enabled
+             else (batch, cfg.num_kv_heads, window, 2 * cfg.dim_head))
+    return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)]
+
+
+def forward_decode_window(
+    params: Params,
+    cfg: ModelConfig,
+    rope: RopeTable,
+    tokens: torch.Tensor,      # [B]
+    meta: DecodeMeta,
+    cache: KVCache,
+    side_rows,                 # per layer: new_side_rows' buffers
+    side_valid: torch.Tensor,  # [B, Kw] bool: column j set iff the slot was live at step j
+    pool_lens: torch.Tensor,   # [B] int32: pool tokens at the window's entry
+    step: int,                 # this step's column of the window
+):
+    """One decode step of a window with side-buffered KV writes: every layer
+    puts its new rows into its side buffer (in place) instead of the pool and
+    attends over the pool's partials and the side rows. Returns (fp32 logits
+    [B, V], cache, side_rows); :func:`flush_window_rows` writes the pool at
+    the end of the window."""
+    x = embed(params, cfg, tokens)
+    rot = rope.rot_values(meta.positions)
+    rows = []
+    for i in range(cfg.num_layers):
+        side = dict(rows=side_rows[i], valid=side_valid, pool_lens=pool_lens, step=step)
+        x, cache, r = decoder_layer(params["layers"][str(i)], cfg, rope, x, meta.positions,
+                                    cache, i, meta, "decode", rot=rot, side=side)
+        rows.append(r)
+    hidden = _norm(params["final_norm"], cfg, x)
+    return get_logits(params, cfg, hidden), cache, rows
+
+
+def flush_window_rows(
+    cfg: ModelConfig,
+    cache: KVCache,
+    side_rows,
+    side_valid: torch.Tensor,   # [B, Kw] bool
+    entry_pos: torch.Tensor,    # [B] int32 position of each slot's first window row
+    page_tables: torch.Tensor,  # [B, maxp] int32
+) -> KVCache:
+    """End of a decode window: each layer's live side rows (the first
+    ``side_valid[b].sum()`` of slot b: a frozen slot stays frozen) go into the
+    pool, one flush kernel a layer."""
+    n_rows = side_valid.sum(dim=1, dtype=torch.int32)
+    if cfg.mla.enabled:
+        for i, rows in enumerate(side_rows):
+            cache = flush_side_latent(cache, i, rows, entry_pos, n_rows, page_tables)
+        return cache
+    index = (side_scale_index(cache, entry_pos, n_rows, page_tables, side_valid.shape[1])
+             if cache.quantized else None)
+    for i, rows in enumerate(side_rows):
+        cache = flush_side_kv(cache, i, rows, entry_pos, n_rows, page_tables, index)
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,12 @@ path over gathered latents. Prefill decompresses gathered latents through
 reference leaves it to XLA. The softmax scale follows DeepSeek's YaRN:
 ``qk_head_dim ** -0.5 * yarn_mscale(factor, mscale_all_dim) ** 2``.
 
-The decode-window side buffer (``side``) and the fused latent write + attend
-(``ZT_FUSED_KV``) of the reference are later slices.
+In a decode window with side-buffered writes (``side``, ``ZT_WINDOW_KV=1``)
+the step's latent row goes into the window's side buffer instead of the pool;
+the latent decode kernel returns flash partials over the pool and
+:func:`_side_window_mla` merges the window's rows in plain torch
+(``zhilight_tpu/models/mla.py:215-281``). The fused latent write + attend
+(``ZT_FUSED_KV``) of the reference is a later slice.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from ..config.model_config import ModelConfig
 from ..kvcache.paged import KVCache, gather_latent, write_latent
-from ..ops.attention import NEG_INF
+from ..ops.attention import NEG_INF, merge_window
 from ..ops.cuda import attn_headmajor
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
@@ -101,11 +105,11 @@ def mla_attention_layer(
     mode: str,
     rot=None,
     side=None,
-) -> Tuple[torch.Tensor, KVCache]:
+):
     """MLA over the latent pool: write this step's latent rows, then attend
-    (prefill chunk, packed chunks or decode step)."""
-    if side is not None:
-        raise NotImplementedError("MLA window side-KV is not ported yet")
+    (prefill chunk, packed chunks or decode step). With ``side`` (a decode
+    window's side buffer) nothing is written and ``(out, cache, side_rows)``
+    is returned."""
     m = cfg.mla
     T = x.shape[0]
     scale = mla_softmax_scale(cfg)
@@ -121,6 +125,10 @@ def mla_attention_layer(
 
     latent = torch.cat([c_kv, k_pe], dim=-1)  # [T, latent_dim]
     w_uk, w_uv = _kv_b_weights(p, cfg)
+    if side is not None:
+        out, rows = _side_window_mla(cache, layer_idx, q_nope, q_pe, latent, w_uk, w_uv, meta,
+                                     side, scale, m)
+        return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache, rows
     cache = write_latent(cache, layer_idx, latent, meta.slot_mapping)
 
     if mode == "prefill" and isinstance(meta, PackedPrefillMeta):
@@ -166,6 +174,28 @@ def _mla_decode_kernel(q_nope, q_pe, cache, layer_idx, w_uk, w_uv, meta, scale, 
         v_dim=m.kv_lora_rank,
     )
     return _einsum_f32("bhl,lhv->bhv", out_latent, w_uv).to(q_nope.dtype)
+
+
+def _side_window_mla(cache, layer_idx, q_nope, q_pe, latent, w_uk, w_uv, meta, side, scale, m):
+    """Absorbed latent MQA of a window step: the step's latent row goes into
+    column ``side["step"]`` of the side rows [B, Kw, latent_dim] (in place),
+    the latent decode kernel gives flash partials over the first
+    ``side["pool_lens"][b]`` pool rows, the window's valid rows are attended
+    in fp32 and merged exactly, and the up-projection multiplies in fp32.
+    Returns (out [B, H, v_head_dim], side_rows)."""
+    rows = side["rows"]
+    rows[:, side["step"]] = latent.to(rows.dtype)
+    q_eff = _q_eff(q_nope, q_pe, w_uk)  # [B, H, lora + rope]
+    partial = attn_headmajor.paged_mla_decode(
+        q_eff, cache.latent[layer_idx][0], meta.page_tables, side["pool_lens"], cache.page_size,
+        scale, v_dim=m.kv_lora_rank, emit_partial=True,
+    )  # fp32 (m [B, H], l [B, H], acc [B, H, lora])
+    side_f = rows.float()
+    scores = torch.einsum("bhx,bkx->bhk", q_eff.float(), side_f) * scale
+    out_latent = merge_window(partial, scores, side["valid"][:, None, :],
+                              lambda p: torch.einsum("bhk,bkv->bhv", p,
+                                                     side_f[..., : m.kv_lora_rank]))
+    return _einsum_f32("bhl,lhv->bhv", out_latent, w_uv).to(q_nope.dtype), rows
 
 
 def _mla_decode(

@@ -16,9 +16,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["prefill_attention", "decode_attention"]
+__all__ = ["prefill_attention", "decode_attention", "merge_window"]
 
 NEG_INF = -2.0e38
+# finite stand-in for the kernels' NEG_INF in the window merge (the
+# reference's _SIDE_NEG)
+SIDE_NEG = -1.0e38
 
 
 def prefill_attention(
@@ -77,3 +80,25 @@ def decode_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype).float(), v.float())
     return out.reshape(B, Hq, Dv).to(q.dtype)
+
+
+def merge_window(partial, scores: torch.Tensor, mask: torch.Tensor, pv) -> torch.Tensor:
+    """Decode attention over the pool and a window's side rows, merged
+    exactly (``zhilight_tpu/models/llama.py:193-227``, ``models/mla.py:264-276``).
+
+    ``partial`` is the decode kernel's flash partials over the pool, fp32
+    ``(m [...], l [...], acc [..., Dv])``; ``scores`` [..., Kw] are the fp32
+    scaled scores of the side rows and ``mask`` (broadcastable to them) their
+    validity; ``pv(p)`` returns the product of the side probabilities
+    [..., Kw] with the side values, [..., Dv]. Returns the normalized fp32
+    output [..., Dv]. An empty pool (m = -2e38) or an empty window gives the
+    other side alone."""
+    m_pool, l_pool, acc_pool = partial
+    m_pool, l_pool = m_pool.clamp_min(SIDE_NEG)[..., None], l_pool[..., None]
+    s = torch.where(mask, scores, 2.0 * SIDE_NEG)
+    m_side = s.amax(dim=-1, keepdim=True).clamp_min(SIDE_NEG)
+    p = torch.exp(s - m_side)
+    m_tot = torch.maximum(m_pool, m_side)
+    a_pool, a_side = torch.exp(m_pool - m_tot), torch.exp(m_side - m_tot)
+    l_tot = (l_pool * a_pool + p.sum(dim=-1, keepdim=True) * a_side).clamp_min(1e-20)
+    return (acc_pool * a_pool + pv(p) * a_side) / l_tot

@@ -26,8 +26,19 @@ its CUDA kernel is ``csrc/mla_decode.cu`` and its plain version
 goes there.
 
 Like the TPU kernels, an empty slot (``context_lens[b] == 0``) yields zeros.
-The flash-partial output (``emit_partial``, window side-KV) belongs to a later
-slice and raises.
+
+``emit_partial=True`` (window side-KV: ``models/llama.py``
+``_side_window_attention``) returns the flash partials over the pool instead
+of the normalized output: fp32 ``(m, l, acc)``, the running max of the scaled
+scores, the sum of ``exp(s - m)`` and the unnormalized ``sum exp(s - m) * V``.
+The reference packs them into lanes (``[B, Hkv, G, 2D]``: lane 0 m, lane 1 l,
+``[D:]`` acc; the MLA form ``[B, H, 128 + v_dim]``); the port returns them
+apart, ``m``, ``l`` ``[B, Hkv, G]`` and ``acc`` ``[B, Hkv, G, D]`` (MLA:
+``[B, H]``, ``[B, H, v_dim]``). An empty context gives m = -2e38, l = 0,
+acc = 0. The partial modes are the same CUDA kernels with their last pass
+writing the partials (``*_partial`` wrappers, each with its own launch
+counter), and have plain versions beside them (``*_partial_plain``), whose
+probabilities stay fp32 as the kernels' do.
 """
 
 from __future__ import annotations
@@ -43,12 +54,38 @@ from . import _build
 __all__ = [
     "paged_decode_attention_hm",
     "paged_decode_attention_hm_plain",
+    "paged_decode_attention_hm_partial",
+    "paged_decode_attention_hm_partial_plain",
     "paged_decode_attention_hm_q",
     "paged_decode_attention_hm_q_plain",
+    "paged_decode_attention_hm_q_partial",
+    "paged_decode_attention_hm_q_partial_plain",
     "paged_mla_decode",
     "paged_mla_decode_plain",
+    "paged_mla_decode_partial",
+    "paged_mla_decode_partial_plain",
     "check_scales",
 ]
+
+
+def _partial_probs(scores: torch.Tensor, mask: torch.Tensor):
+    """Flash partials of fp32 ``scores`` [..., T] under ``mask``: the max m
+    (-2e38 where nothing is valid), ``l = sum exp(s - m)`` and the
+    probabilities ``exp(s - m)``, zero where masked."""
+    s = torch.where(mask, scores, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), p
+
+
+def _hm_mask(context_lens: torch.Tensor, kv_len: int, sliding_window: int) -> torch.Tensor:
+    """[B, 1, 1, KV] validity of each gathered token of a decode step."""
+    k_pos = torch.arange(kv_len, device=context_lens.device)[None, :]
+    ctx = context_lens[:, None]
+    mask = k_pos < ctx
+    if sliding_window > 0:
+        mask &= k_pos > ctx - 1 - sliding_window
+    return mask[:, None, None]
 
 
 def paged_decode_attention_hm_plain(
@@ -65,14 +102,84 @@ def paged_decode_attention_hm_plain(
     return out.masked_fill((context_lens <= 0)[:, None, None], 0)
 
 
+def paged_decode_attention_hm_partial_plain(
+    q: torch.Tensor,             # [B, Hq, D]
+    kv_pool: torch.Tensor,       # [Hkv, N, 2D]
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int: pool tokens to attend over
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+):
+    B, Hq, D = q.shape
+    Hkv = kv_pool.shape[0]
+    k, v = gather_hm(kv_pool, page_tables, page_size)  # [B, KV, Hkv, D]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    m, l, p = _partial_probs(scores, _hm_mask(context_lens, k.shape[1], sliding_window))
+    return m, l, torch.einsum("bkgs,bskd->bkgd", p, v.float())
+
+
 def _entry():
     fn = _build.library("attn_headmajor").zt_decode_attention_hm
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i,
                        ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _outputs(q: torch.Tensor, Hkv: int, D: int, partial: bool):
+    """The kernel's outputs and their three pointers (acc or out, m, l): a
+    tensor like q, or fp32 (m, l, acc) shaped [B, Hkv, G] and [B, Hkv, G, D]."""
+    B, Hq = q.shape[:2]
+    if not partial:
+        out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+        return out, (out.data_ptr(), None, None)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m, l = torch.empty((B, Hkv, Hq // Hkv), **f32), torch.empty((B, Hkv, Hq // Hkv), **f32)
+    acc = torch.empty((B, Hkv, Hq // Hkv, D), **f32)
+    return (m, l, acc), (acc.data_ptr(), m.data_ptr(), l.data_ptr())
+
+
+def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
+    """The head-major kernels' shape, type and layout rules, shared by the
+    bf16 and int8 forms; returns (B, Hkv, G, D, N, maxp)."""
+    if not q.is_cuda:
+        raise NotImplementedError(f"{what}: no kernel for device {q.device}")
+    B, Hq, D = q.shape
+    Hkv, N, D2 = kv_pool.shape
+    if D2 != 2 * D or Hq % Hkv:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}")
+    G = Hq // Hkv
+    if q.dtype != torch.bfloat16 or kv_pool.dtype != pool_dtype:
+        raise NotImplementedError(
+            f"{what} kernel takes bf16 q and a {pool_dtype} pool, got {q.dtype}/{kv_pool.dtype}")
+    if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
+        raise NotImplementedError(f"{what} kernel: head_dim {D} with group {G}")
+    if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError(f"{what}: page_tables and context_lens must be int32")
+    if page_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError(f"{what}: page_tables [B, maxp], context_lens [B]")
+    for t in (q, kv_pool, page_tables, context_lens):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous and on one device")
+    return B, Hkv, G, D, N, page_tables.shape[1]
+
+
+def _launch_hm(what, q, kv_pool, page_tables, context_lens, page_size, scale, sliding_window,
+               partial: bool):
+    B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens,
+                                      torch.bfloat16)
+    result, ptrs = _outputs(q, Hkv, D, partial)
+    err = _entry()(
+        *ptrs, q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
+        context_lens.data_ptr(), B, Hkv, G, D, N, maxp, page_size, float(scale),
+        int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, what)
+    return result
 
 
 def paged_decode_attention_hm(
@@ -85,53 +192,56 @@ def paged_decode_attention_hm(
     sliding_window: int = 0,
     emit_partial: bool = False,
     v_dim: int = 0,
-) -> torch.Tensor:
+):
     """Attention output [B, Hq, D] of each slot's query over its first
-    ``context_lens[b]`` pool tokens. ``v_dim > 0`` is the MLA latent mode
-    (pool ``[1, N, stored]``, output [B, Hq, v_dim]; no sliding window). The
-    reference's flash-partial output (``emit_partial``) is not ported yet."""
-    if emit_partial:
-        raise NotImplementedError("decode attention: emit_partial is not ported yet")
+    ``context_lens[b]`` pool tokens, or with ``emit_partial`` its flash
+    partials (m, l, acc). ``v_dim > 0`` is the MLA latent mode (pool
+    ``[1, N, stored]``, output [B, Hq, v_dim]; no sliding window)."""
     if v_dim:
         if sliding_window or kv_pool.dim() != 3 or kv_pool.shape[0] != 1:
             raise ValueError("decode attention: the latent mode takes a [1, N, stored] pool "
                              "and no sliding window")
-        return paged_mla_decode(q, kv_pool[0], page_tables, context_lens, page_size, scale, v_dim)
+        return paged_mla_decode(q, kv_pool[0], page_tables, context_lens, page_size, scale, v_dim,
+                                emit_partial=emit_partial)
+    if emit_partial:
+        return paged_decode_attention_hm_partial(q, kv_pool, page_tables, context_lens,
+                                                 page_size, scale, sliding_window)
     if q.device.type == "cpu":
         return paged_decode_attention_hm_plain(
             q, kv_pool, page_tables, context_lens, page_size, scale, sliding_window
         )
-    if not q.is_cuda:
-        raise NotImplementedError(f"decode attention: no kernel for device {q.device}")
-    B, Hq, D = q.shape
-    Hkv, N, D2 = kv_pool.shape
-    if D2 != 2 * D or Hq % Hkv:
-        raise ValueError(f"decode attention: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}")
-    G = Hq // Hkv
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.bfloat16:
-        raise NotImplementedError(f"decode attention kernel takes bf16, got {q.dtype}/{kv_pool.dtype}")
-    if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
-        raise NotImplementedError(f"decode attention kernel: head_dim {D} with group {G}")
-    maxp = page_tables.shape[1]
-    if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
-        raise ValueError("decode attention: page_tables and context_lens must be int32")
-    if page_tables.shape[0] != B or context_lens.shape != (B,):
-        raise ValueError("decode attention: page_tables [B, maxp], context_lens [B]")
-    for t in (q, kv_pool, page_tables, context_lens):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("decode attention: tensors must be contiguous and on one device")
-    out = torch.empty_like(q)
-    err = _entry()(
-        out.data_ptr(), q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
-        context_lens.data_ptr(), B, Hkv, G, D, N, maxp, page_size, float(scale),
-        int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "paged_decode_attention_hm")
+    out = _launch_hm("paged_decode_attention_hm", q, kv_pool, page_tables, context_lens,
+                     page_size, scale, sliding_window, partial=False)
     paged_decode_attention_hm.launches += 1
     return out
 
 
 paged_decode_attention_hm.launches = 0
+
+
+def paged_decode_attention_hm_partial(
+    q: torch.Tensor,
+    kv_pool: torch.Tensor,
+    page_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+):
+    """Flash partials (m, l, acc) of each slot's query over its first
+    ``context_lens[b]`` pool tokens: the kernel of
+    :func:`paged_decode_attention_hm` in its partial mode."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_hm_partial_plain(
+            q, kv_pool, page_tables, context_lens, page_size, scale, sliding_window
+        )
+    out = _launch_hm("paged_decode_attention_hm_partial", q, kv_pool, page_tables,
+                     context_lens, page_size, scale, sliding_window, partial=True)
+    paged_decode_attention_hm_partial.launches += 1
+    return out
+
+
+paged_decode_attention_hm_partial.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -157,18 +267,36 @@ def paged_decode_attention_hm_q_plain(
     qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
     scores = scores * ks.transpose(1, 2)[:, :, None]
-
-    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
-    ctx = context_lens[:, None]
-    mask = k_pos < ctx
-    if sliding_window > 0:
-        mask &= k_pos > ctx - 1 - sliding_window
-    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    scores = torch.where(_hm_mask(context_lens, k.shape[1], sliding_window), scores, NEG_INF)
 
     probs = torch.softmax(scores, dim=-1) * vs.transpose(1, 2)[:, :, None]
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(q.dtype).float(), v.float())
     out = out.reshape(B, Hq, D).to(q.dtype)
     return out.masked_fill((context_lens <= 0)[:, None, None], 0)
+
+
+def paged_decode_attention_hm_q_partial_plain(
+    q: torch.Tensor,             # [B, Hq, D]
+    kv_pool: torch.Tensor,       # [Hkv, N, 2D] int8
+    k_scales: torch.Tensor,      # [Hkv, >= N] f32
+    v_scales: torch.Tensor,      # [Hkv, >= N] f32
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int: pool tokens to attend over
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+):
+    B, Hq, D = q.shape
+    Hkv = kv_pool.shape[0]
+    k, v = gather_hm(kv_pool, page_tables, page_size)         # [B, KV, Hkv, D] int8
+    ks = gather_scales(k_scales, page_tables, page_size)      # [B, KV, Hkv]
+    vs = gather_scales(v_scales, page_tables, page_size)
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    scores = scores * ks.transpose(1, 2)[:, :, None]
+    m, l, p = _partial_probs(scores, _hm_mask(context_lens, k.shape[1], sliding_window))
+    acc = torch.einsum("bkgs,bskd->bkgd", p * vs.transpose(1, 2)[:, :, None], v.float())
+    return m, l, acc
 
 
 def check_scales(what: str, kv_pool, k_scales, v_scales) -> None:
@@ -188,10 +316,25 @@ def _entry_q():
     fn = _build.library("attn_headmajor_q").zt_decode_attention_hm_q
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong,
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong,
                        ctypes.c_longlong, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_hm_q(what, q, kv_pool, k_scales, v_scales, page_tables, context_lens, page_size,
+                 scale, sliding_window, partial: bool):
+    B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens, torch.int8)
+    check_scales(what, kv_pool, k_scales, v_scales)
+    result, ptrs = _outputs(q, Hkv, D, partial)
+    err = _entry_q()(
+        *ptrs, q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
+        page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N, k_scales.stride(0),
+        maxp, page_size, float(scale), int(sliding_window),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, what)
+    return result
 
 
 def paged_decode_attention_hm_q(
@@ -205,52 +348,47 @@ def paged_decode_attention_hm_q(
     scale: float,
     sliding_window: int = 0,
     emit_partial: bool = False,
-) -> torch.Tensor:
+):
     """Attention output [B, Hq, D] of each slot's query over its first
-    ``context_lens[b]`` tokens of the int8 pool. The reference's flash-partial
-    output (``emit_partial``) is not ported yet."""
+    ``context_lens[b]`` tokens of the int8 pool, or with ``emit_partial`` its
+    flash partials (m, l, acc)."""
+    args = (q, kv_pool, k_scales, v_scales, page_tables, context_lens, page_size, scale,
+            sliding_window)
     if emit_partial:
-        raise NotImplementedError("int8 decode attention: emit_partial is not ported yet")
+        return paged_decode_attention_hm_q_partial(*args)
     if q.device.type == "cpu":
-        return paged_decode_attention_hm_q_plain(
-            q, kv_pool, k_scales, v_scales, page_tables, context_lens, page_size, scale,
-            sliding_window,
-        )
-    if not q.is_cuda:
-        raise NotImplementedError(f"int8 decode attention: no kernel for device {q.device}")
-    B, Hq, D = q.shape
-    Hkv, N, D2 = kv_pool.shape
-    if D2 != 2 * D or Hq % Hkv:
-        raise ValueError(f"int8 decode attention: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}")
-    G = Hq // Hkv
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.int8:
-        raise NotImplementedError(
-            f"int8 decode attention kernel takes bf16 q and an int8 pool, got {q.dtype}/{kv_pool.dtype}"
-        )
-    if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
-        raise NotImplementedError(f"int8 decode attention kernel: head_dim {D} with group {G}")
-    check_scales("int8 decode attention", kv_pool, k_scales, v_scales)
-    maxp = page_tables.shape[1]
-    if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
-        raise ValueError("int8 decode attention: page_tables and context_lens must be int32")
-    if page_tables.shape[0] != B or context_lens.shape != (B,):
-        raise ValueError("int8 decode attention: page_tables [B, maxp], context_lens [B]")
-    for t in (q, kv_pool, page_tables, context_lens):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("int8 decode attention: tensors must be contiguous and on one device")
-    out = torch.empty_like(q)
-    err = _entry_q()(
-        out.data_ptr(), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
-        v_scales.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D,
-        N, k_scales.stride(0), maxp, page_size, float(scale), int(sliding_window),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "paged_decode_attention_hm_q")
+        return paged_decode_attention_hm_q_plain(*args)
+    out = _launch_hm_q("paged_decode_attention_hm_q", *args, partial=False)
     paged_decode_attention_hm_q.launches += 1
     return out
 
 
 paged_decode_attention_hm_q.launches = 0
+
+
+def paged_decode_attention_hm_q_partial(
+    q: torch.Tensor,
+    kv_pool: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    page_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+):
+    """Flash partials (m, l, acc) over the int8 pool: the kernel of
+    :func:`paged_decode_attention_hm_q` in its partial mode."""
+    args = (q, kv_pool, k_scales, v_scales, page_tables, context_lens, page_size, scale,
+            sliding_window)
+    if q.device.type == "cpu":
+        return paged_decode_attention_hm_q_partial_plain(*args)
+    out = _launch_hm_q("paged_decode_attention_hm_q_partial", *args, partial=True)
+    paged_decode_attention_hm_q_partial.launches += 1
+    return out
+
+
+paged_decode_attention_hm_q_partial.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +414,23 @@ def paged_mla_decode_plain(
     return out.masked_fill((context_lens <= 0)[:, None, None], 0)
 
 
+def paged_mla_decode_partial_plain(
+    q_eff: torch.Tensor,         # [B, H, k_dim]
+    latent_pool: torch.Tensor,   # [N, stored], stored >= k_dim
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int: pool tokens to attend over
+    page_size: int,
+    scale: float,
+    v_dim: int,
+):
+    k_dim = q_eff.shape[-1]
+    ctx = latent_pool[slot_indices(page_tables, page_size)]  # [B, KV, stored]
+    scores = torch.einsum("bhx,bsx->bhs", q_eff.float(), ctx[..., :k_dim].float()) * scale
+    k_pos = torch.arange(ctx.shape[1], device=q_eff.device)[None, :]
+    m, l, p = _partial_probs(scores, (k_pos < context_lens[:, None])[:, None])
+    return m, l, torch.einsum("bhs,bsv->bhv", p, ctx[..., :v_dim].float())
+
+
 # blocks the latent kernel aims to keep in flight: two per SM of an H100
 _MLA_TARGET_BLOCKS = 2 * 132
 
@@ -284,7 +439,7 @@ def _entry_mla():
     fn = _build.library("mla_decode").zt_mla_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
                        ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
@@ -299,37 +454,69 @@ def paged_mla_decode(
     scale: float,
     v_dim: int,
     emit_partial: bool = False,
-) -> torch.Tensor:
+):
     """MLA absorbed-weight latent decode as single-"head" MQA: scores are
     ``q_eff . latent[:k_dim]``, the output ``softmax(scores) . latent[:v_dim]``,
-    [B, H, v_dim] in q's dtype. The reference's flash-partial output
-    (``emit_partial``, window side-KV) is not ported yet."""
+    [B, H, v_dim] in q's dtype; with ``emit_partial`` the flash partials
+    (m, l, acc) instead."""
+    args = (q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim)
     if emit_partial:
-        raise NotImplementedError("MLA decode: emit_partial is not ported yet")
+        return paged_mla_decode_partial(*args)
     if q_eff.device.type == "cpu":
-        return paged_mla_decode_plain(
-            q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim
-        )
+        return paged_mla_decode_plain(*args)
+    out = _launch_mla("paged_mla_decode", *args, partial=False)
+    paged_mla_decode.launches += 1
+    return out
+
+
+paged_mla_decode.launches = 0
+
+
+def paged_mla_decode_partial(
+    q_eff: torch.Tensor,
+    latent_pool: torch.Tensor,
+    page_tables: torch.Tensor,
+    context_lens: torch.Tensor,
+    page_size: int,
+    scale: float,
+    v_dim: int,
+):
+    """Flash partials (m [B, H], l [B, H], acc [B, H, v_dim]) of the latent
+    decode: the kernel of :func:`paged_mla_decode`, its merge writing the
+    partials (the reference's ``emit_partial`` of ``_kernel_bs``)."""
+    args = (q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim)
+    if q_eff.device.type == "cpu":
+        return paged_mla_decode_partial_plain(*args)
+    out = _launch_mla("paged_mla_decode_partial", *args, partial=True)
+    paged_mla_decode_partial.launches += 1
+    return out
+
+
+paged_mla_decode_partial.launches = 0
+
+
+def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim,
+                partial: bool):
     if not q_eff.is_cuda:
-        raise NotImplementedError(f"MLA decode: no kernel for device {q_eff.device}")
+        raise NotImplementedError(f"{what}: no kernel for device {q_eff.device}")
     B, H, k_dim = q_eff.shape
     if latent_pool.dim() != 2 or latent_pool.shape[1] < k_dim:
-        raise ValueError(f"MLA decode: q {tuple(q_eff.shape)}, pool {tuple(latent_pool.shape)}")
+        raise ValueError(f"{what}: q {tuple(q_eff.shape)}, pool {tuple(latent_pool.shape)}")
     N, stored = latent_pool.shape
     if q_eff.dtype != torch.bfloat16 or latent_pool.dtype != torch.bfloat16:
-        raise NotImplementedError(f"MLA decode kernel takes bf16, got {q_eff.dtype}/{latent_pool.dtype}")
+        raise NotImplementedError(f"{what} kernel takes bf16, got {q_eff.dtype}/{latent_pool.dtype}")
     if (k_dim, v_dim) != (576, 512) or stored % 8:
         raise NotImplementedError(
-            f"MLA decode kernel: k_dim {k_dim}, v_dim {v_dim}, row of {stored} elements "
+            f"{what} kernel: k_dim {k_dim}, v_dim {v_dim}, row of {stored} elements "
             "(built for 576/512, rows a multiple of 16 bytes)")
     maxp = page_tables.shape[1]
     if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
-        raise ValueError("MLA decode: page_tables and context_lens must be int32")
+        raise ValueError(f"{what}: page_tables and context_lens must be int32")
     if page_tables.shape[0] != B or context_lens.shape != (B,):
-        raise ValueError("MLA decode: page_tables [B, maxp], context_lens [B]")
+        raise ValueError(f"{what}: page_tables [B, maxp], context_lens [B]")
     for t in (q_eff, latent_pool, page_tables, context_lens):
         if t.device != q_eff.device or not t.is_contiguous():
-            raise ValueError("MLA decode: tensors must be contiguous and on one device")
+            raise ValueError(f"{what}: tensors must be contiguous and on one device")
     # the context is cut over `splits` blocks per (sequence, 16 heads); the
     # count comes from the shapes alone, the kernel reads the real lengths and
     # blocks without tokens exit
@@ -338,16 +525,18 @@ def paged_mla_decode(
     f32 = dict(dtype=torch.float32, device=q_eff.device)
     part_acc = torch.empty((B, head_tiles, splits, 16, v_dim), **f32)
     part_ml = torch.empty((B, head_tiles, splits, 2, 16), **f32)
-    out = torch.empty((B, H, v_dim), dtype=q_eff.dtype, device=q_eff.device)
+    if partial:
+        m, l = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
+        acc = torch.empty((B, H, v_dim), **f32)
+        result, ptrs = (m, l, acc), (acc.data_ptr(), m.data_ptr(), l.data_ptr())
+    else:
+        result = torch.empty((B, H, v_dim), dtype=q_eff.dtype, device=q_eff.device)
+        ptrs = (result.data_ptr(), None, None)
     err = _entry_mla()(
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), q_eff.data_ptr(),
+        *ptrs, part_acc.data_ptr(), part_ml.data_ptr(), q_eff.data_ptr(),
         latent_pool.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim,
         v_dim, N, stored, maxp, page_size, float(scale), splits,
         torch.cuda.current_stream(q_eff.device).cuda_stream,
     )
-    _build.check(err, "paged_mla_decode")
-    paged_mla_decode.launches += 1
-    return out
-
-
-paged_mla_decode.launches = 0
+    _build.check(err, what)
+    return result

@@ -32,6 +32,21 @@ The reference has two because its TPU kernels need tile-aligned rows for the
 first; on the GPU they compute one thing, so both launch ``csrc/kv_write_pair.cu``
 (any row width, bf16 or int8 rows), and each keeps its own launch counter and
 plain version. ``page_size`` and ``interpret`` are dropped.
+
+:func:`flush_side_rows_hm` (:796) and :func:`flush_side_rows_2d` (:929) end a
+decode window with side-buffered KV writes (``ZT_WINDOW_KV=1``): slot b's
+first ``n_rows[b]`` window rows, which sit at positions ``entry_pos[b] ...``
+and so in at most two pages (``Kw <= page_size``), go into the pool through
+the page table: ``pool[:, slot(b, j)] = side[b, :, j]`` for the head-major
+pool ``[Hkv, N, 2D]`` and side rows ``[B, Hkv, Kw, 2D]``, and
+``pool[slot(b, j)] = side[b, j]`` for the latent pool ``[N, X]`` (or
+``[1, N, X]``) and side rows ``[B, Kw, X]``. Rows past ``n_rows`` are left
+alone. Both launch ``csrc/kv_flush.cu``, which computes each row's slot on
+the device (one launch a layer, no host sync); :func:`_side_page_runs` is the
+reference's split of a slot's rows into its page runs, from which the plain
+versions and :func:`side_slots` compute the same slots. Side rows are cast to
+the pool's dtype, as the reference casts them; an int8 pool takes int8 rows
+only (the caller requantizes).
 """
 
 from __future__ import annotations
@@ -44,7 +59,8 @@ from . import _build
 
 __all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_2d_plain",
            "paged_write_rows", "paged_write_rows_plain", "write_rows_2d_pair",
-           "write_rows_2d_pair_plain"]
+           "write_rows_2d_pair_plain", "flush_side_rows_hm", "flush_side_rows_hm_plain",
+           "flush_side_rows_2d", "flush_side_rows_2d_plain", "side_slots"]
 
 
 def write_rows_hm_plain(
@@ -263,3 +279,128 @@ def write_rows_2d_pair(k_cache, v_cache, k_rows, v_rows, slot_mapping):
 
 
 write_rows_2d_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# end-of-window flush of the decode side buffer
+# ---------------------------------------------------------------------------
+
+def _side_page_runs(entry_pos, n_rows, page_tables, page_size):
+    """Split each slot's contiguous window rows into its <= 2 page runs:
+    (starts1, lens1, starts2, lens2), pool rows and row counts [B]. Padding
+    pages (< 0) read page 0 and page-table indices clip to the last column,
+    as the reference's do."""
+    S, maxp = page_size, page_tables.shape[1]
+    safe = page_tables.clamp_min(0)
+    page1 = safe.gather(1, (entry_pos // S).clamp(0, maxp - 1).long()[:, None])[:, 0]
+    off1 = entry_pos % S
+    lens1 = torch.minimum(n_rows, S - off1)
+    page2 = safe.gather(1, ((entry_pos + lens1) // S).clamp(0, maxp - 1).long()[:, None])[:, 0]
+    return page1 * S + off1, lens1, page2 * S, (n_rows - lens1).clamp_min(0)
+
+
+def side_slots(entry_pos, n_rows, page_tables, page_size: int, window: int) -> torch.Tensor:
+    """Pool slot of each window row, [B, window] int64; -1 past ``n_rows``."""
+    starts1, lens1, starts2, _ = _side_page_runs(entry_pos, n_rows, page_tables, page_size)
+    j = torch.arange(window, device=entry_pos.device)[None, :]
+    slots = torch.where(j < lens1[:, None], starts1[:, None] + j, starts2[:, None] + j - lens1[:, None])
+    return torch.where(j < n_rows[:, None], slots.long(), -1)
+
+
+def _side_rows(what: str, side: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
+    if pool.dtype == torch.int8 and side.dtype != torch.int8:
+        raise ValueError(f"{what}: an int8 pool takes requantized int8 rows, got {side.dtype}")
+    return side.to(pool.dtype)
+
+
+def flush_side_rows_hm_plain(
+    pool: torch.Tensor,         # [Hkv, N, X]
+    side: torch.Tensor,         # [B, Hkv, Kw, X]
+    entry_pos: torch.Tensor,    # [B] int: position of each slot's first window row
+    n_rows: torch.Tensor,       # [B] int: live window rows (0 => untouched slot)
+    page_tables: torch.Tensor,  # [B, maxp] int
+    page_size: int,
+) -> torch.Tensor:
+    slots = side_slots(entry_pos, n_rows, page_tables, page_size, side.shape[2])
+    live = (slots >= 0) & (slots < pool.shape[1])
+    rows = _side_rows("flush_side_rows_hm", side, pool).transpose(1, 2)[live]  # [n, Hkv, X]
+    pool[:, slots[live]] = rows.transpose(0, 1)
+    return pool
+
+
+def flush_side_rows_2d_plain(
+    pool: torch.Tensor,         # [N, X] or [1, N, X]
+    side: torch.Tensor,         # [B, Kw, X]
+    entry_pos: torch.Tensor,
+    n_rows: torch.Tensor,
+    page_tables: torch.Tensor,
+    page_size: int,
+) -> torch.Tensor:
+    p2 = _pool_2d(pool)
+    slots = side_slots(entry_pos, n_rows, page_tables, page_size, side.shape[1])
+    live = (slots >= 0) & (slots < p2.shape[0])
+    p2[slots[live]] = _side_rows("flush_side_rows_2d", side, pool)[live]
+    return pool
+
+
+def _entry_flush():
+    fn = _build.library("kv_flush").zt_flush_side_rows
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _flush(what: str, pool3, side4, entry_pos, n_rows, page_tables, page_size: int) -> None:
+    """Launch csrc/kv_flush.cu for a pool [H, N, X] and side rows
+    [B, H, Kw, X] on the GPU, or raise."""
+    if not pool3.is_cuda:
+        raise NotImplementedError(f"{what}: no kernel for device {pool3.device}")
+    H, N, X = pool3.shape
+    B, Hs, Kw, Xs = side4.shape
+    if (Hs, Xs) != (H, X):
+        raise ValueError(f"{what}: pool {tuple(pool3.shape)}, side rows {tuple(side4.shape)}")
+    if Kw > page_size:
+        raise ValueError(f"{what}: {Kw} window rows do not fit a page of {page_size}")
+    side4 = _side_rows(what, side4, pool3).contiguous()
+    maxp = page_tables.shape[1]
+    for t, shape in ((entry_pos, (B,)), (n_rows, (B,)), (page_tables, (B, maxp))):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{what}: entry_pos, n_rows int32 [B], page_tables int32 [B, maxp]")
+    for t in (pool3, side4, entry_pos, n_rows, page_tables):
+        if t.device != pool3.device or not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous and on one device")
+    err = _entry_flush()(
+        pool3.data_ptr(), side4.data_ptr(), entry_pos.data_ptr(), n_rows.data_ptr(),
+        page_tables.data_ptr(), B, H, Kw, N, maxp, page_size, X * pool3.element_size(),
+        torch.cuda.current_stream(pool3.device).cuda_stream,
+    )
+    _build.check(err, what)
+
+
+def flush_side_rows_hm(pool, side, entry_pos, n_rows, page_tables, page_size: int):
+    """Write each slot's live window rows into the head-major pool in place;
+    returns the pool."""
+    if pool.device.type == "cpu":
+        return flush_side_rows_hm_plain(pool, side, entry_pos, n_rows, page_tables, page_size)
+    _flush("flush_side_rows_hm", pool, side, entry_pos, n_rows, page_tables, page_size)
+    flush_side_rows_hm.launches += 1
+    return pool
+
+
+flush_side_rows_hm.launches = 0
+
+
+def flush_side_rows_2d(pool, side, entry_pos, n_rows, page_tables, page_size: int):
+    """Write each slot's live window rows into the 2-D (latent) pool in place;
+    returns the pool."""
+    if pool.device.type == "cpu":
+        return flush_side_rows_2d_plain(pool, side, entry_pos, n_rows, page_tables, page_size)
+    _flush("flush_side_rows_2d", _pool_2d(pool)[None], side[:, None], entry_pos, n_rows,
+           page_tables, page_size)
+    flush_side_rows_2d.launches += 1
+    return pool
+
+
+flush_side_rows_2d.launches = 0

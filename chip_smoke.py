@@ -24,6 +24,11 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            (MiniCPM-2B's and Qwen2.5-14B's shapes with an empty pool,
            DeepSeek-V2-Lite's) and the two end-of-window flushes, bit-exact
            (batch 8 and 16, 8 window rows, bf16 and int8 rows, latent rows);
+           and the fused write + attend kernels (ZT_FUSED_KV=1) over
+           slot-major pools (H2O-Danube-1.8B's and Qwen2.5-14B's heads),
+           the packed single pool and the latent pool (DeepSeek-V2-Lite's),
+           pools bit-exact, timed beside the unfused pair of port kernels
+           they replace and a library pair;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -69,6 +74,13 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            requests through the partial kernels and the flush, then one
            8-step window with side buffers against the per-step path on the
            same prefilled cache (logits, launches, pools after the flush);
+           and two fused write + attend paths (``ZT_FUSED_KV=1`` set while a
+           second executor over loaded weights is built): H2O-Danube-1.8B
+           (slot-major bf16 pool) and DeepSeek-V2-Lite GPTQ-Int4 (latent
+           pool), each serving the 8 requests through the fused kernel with
+           no unfused decode and row writes in prefill only, then one batch-8
+           decode step fused against unfused on the same prefilled cache
+           (logits, launches, every layer's written rows);
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
            3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
@@ -76,7 +88,8 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            MiniCPM-2B W8A8 batch 16 at context 512, decode only;
            H2O-Danube-1.8B batch 8 at context 3712, over the bf16 pool and,
            decode only, the int8 pool; decode only, the three window paths
-           at their per-step twins' batch and context) and the time to first token of a
+           and the two fused paths at their twins' batch and context) and the
+           time to first token of a
            3712-token prompt (DeepSeek: 2816) in 512-token chunks, by
            bench.py's method, then a torch.profiler breakdown of one decode
            window and one prefill.
@@ -202,6 +215,16 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/mla_decode.cu",
         replaces="zhilight_tpu/ops/pallas/paged_attention.py:791",
     ),
+    # fused write + attend (ZT_FUSED_KV=1): one TPU kernel, _kernel_bs_fused
+    # (:445), in its slot-major and packed modes and its latent mode
+    "paged_decode_attention_fused": dict(
+        source="zhilight_tpu_torch/csrc/paged_attention_fused.cu",
+        replaces="zhilight_tpu/ops/pallas/paged_attention.py:644",
+    ),
+    "paged_mla_decode_fused": dict(
+        source="zhilight_tpu_torch/csrc/mla_decode.cu",
+        replaces="zhilight_tpu/ops/pallas/paged_attention.py:844",
+    ),
 }
 ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
@@ -232,7 +255,15 @@ PATHS = {
                                             "flush_side_rows_hm"),
     "DeepSeek-V2-Lite-GPTQ-Int4-window": ("write_rows_2d", "w4a16_ragged_matmul", "w4a16_matmul",
                                           "paged_mla_decode_partial", "flush_side_rows_2d"),
+    # fused write + attend (ZT_FUSED_KV=1): the fused kernel in decode, never
+    # the unfused decode; the row writes are prefill's (FUSED_PREFILL_WRITES)
+    "H2O-Danube-1.8B-fused": ("write_rows_2d_pair", "paged_decode_attention_fused"),
+    "DeepSeek-V2-Lite-GPTQ-Int4-fused": ("write_rows_2d", "w4a16_ragged_matmul", "w4a16_matmul",
+                                         "paged_mla_decode_fused"),
 }
+# a fused path's row write: layers x prefill forwards launches, none in decode
+FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "write_rows_2d_pair",
+                        "DeepSeek-V2-Lite-GPTQ-Int4-fused": "write_rows_2d"}
 # prompt lengths of a path's 8 requests (32 new tokens each)
 SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
 DEEPSEEK_LENS = [7, 100, 513, 1500, 2816, 16, 250, 40]  # max_model_len 3072
@@ -764,9 +795,10 @@ def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
     shape is kept under ``shapes``."""
     rec[name].update(shapes[main], max_abs_err=err, shape=main, shapes=shapes)
     for label, r in shapes.items():
+        pair = f" unfused_pair_ms={r['unfused_pair_ms']:.4f}" if "unfused_pair_ms" in r else ""
         print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={_ms(r['library_ms'])}", flush=True)
+              f"library_ms={_ms(r['library_ms'])}{pair}", flush=True)
 
 
 def _ms(t) -> str:
@@ -843,6 +875,7 @@ def phase_kernels(rec: dict) -> None:
     kernels_fp8(rec, rng)
     kernels_slot_major(rec, rng)
     kernels_window(rec, rng)
+    kernels_fused(rec, rng)
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1465,6 +1498,163 @@ def kernels_window(rec: dict, rng) -> None:
 # phase: serve (the main paths)
 # ---------------------------------------------------------------------------
 
+def kernels_fused(rec: dict, rng) -> None:
+    """The fused write + attend kernels (ZT_FUSED_KV=1) against their plain
+    versions, the pools after each call bit-exact: the slot-major mode at
+    H2O-Danube-1.8B's shape (batch 8, 32 / 8 heads of 80) and Qwen2.5-14B's
+    heads (40 / 8 of 128), the packed single pool at Danube's heads, contexts
+    up to 3712 with slot 2 frozen, then with a context of 1 and an empty one,
+    windows 0 and 300 (output within ATTN_TOL); the latent mode at
+    DeepSeek-V2-Lite's shape (batch 8, 16 heads, rows of 576, contexts up to
+    2816; within ATTN_TOL of the largest output: its tiles round the
+    probabilities to bf16). Then timed at the serving contexts (batch 8 at
+    3712; 2816) beside the byte bound (the unfused pair's bytes plus the new
+    rows read and written), the plain version, the unfused pair of port
+    kernels it replaces (row write, then decode: kernels 12 + 10; 7 + 2b) and
+    a library pair (``index_copy_`` of the rows, then SDPA on rows gathered
+    beforehand): no single PyTorch call writes and attends."""
+    from zhilight_tpu_torch.kvcache.paged import slot_indices
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+
+    F, S, B = torch.nn.functional, 16, 8
+
+    def inputs(ctx):
+        """Shuffled tables over ``ctx``, the new rows' slots (position ctx - 1;
+        slot 2 frozen, an empty context -1)."""
+        ctx = np.array(ctx, np.int32)
+        tables, npages = _paged(rng, ctx, S)
+        slots = np.array([tables[b, (c - 1) // S] * S + (c - 1) % S if c > 0 else -1
+                          for b, c in enumerate(ctx)], np.int32)
+        slots[2] = -1
+        return _dev(tables), npages, _dev(slots), _dev(ctx)
+
+    err = 0.0
+    for model, heads, packed in (("H2O-Danube-1.8B", DANUBE_HEADS, False),
+                                 ("Qwen2.5-14B", QWEN_HEADS, False),
+                                 ("H2O-Danube-1.8B", DANUBE_HEADS, True)):
+        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
+        e_model = 0.0
+        for ctx in ([3712, 7, 513, 1500, 100, 16, 250, 3201], [3712, 1, 513, 0, 100, 16, 250, 17]):
+            tables, npages, slots, ctx_t = inputs(ctx)
+            k, v = _randn(rng, npages * S, Hkv, D), _randn(rng, npages * S, Hkv, D)
+            pools = (torch.cat((k, v), -1)[None],) if packed else (k[None], v[None])
+            q = _randn(rng, B, Hq, D)
+            k_new, v_new = _randn(rng, B, Hkv, D), _randn(rng, B, Hkv, D)
+            for window in (0, 300):
+                gp, wp = [p.clone() for p in pools], [p.clone() for p in pools]
+                tail = (k_new, v_new, slots, tables, ctx_t, S, 1.0 / np.sqrt(D), window)
+                got = PA.paged_decode_attention_fused(q, gp[0], None if packed else gp[1], *tail)
+                want = PA.paged_decode_attention_fused_plain(q, wp[0], None if packed else wp[1],
+                                                             *tail)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                what = f"fused decode {model} packed={packed} window={window} ctx={ctx}"
+                if not np.isfinite(e) or e > ATTN_TOL:
+                    raise AssertionError(f"{what}: max abs err {e} > {ATTN_TOL}")
+                if not all(torch.equal(g, w) for g, w in zip(gp, wp)):
+                    raise AssertionError(f"{what}: pools differ from the plain version's")
+                e_model = max(e_model, e)
+        print(f"kernels: paged_decode_attention_fused at {model}'s heads {heads} "
+              f"{'(packed pool)' if packed else '(two pools)'}, batch 8, contexts up to 3712 "
+              f"(one frozen, then ctx 1 and 0), window 0 and 300: max abs err {e_model:.3e}, "
+              f"pools bit-exact", flush=True)
+        err = max(err, e_model)
+
+    def timed(Hq, Hkv, D, CTX):
+        maxp = CTX // S + 2
+        N = B * maxp * S
+        tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+        k, v = _randn(rng, N, Hkv, D), _randn(rng, N, Hkv, D)
+        q = _randn(rng, B, Hq, D)
+        k_new, v_new = _randn(rng, B, Hkv, D), _randn(rng, B, Hkv, D)
+        idx = _dev(tables[:, (CTX - 1) // S] * S + (CTX - 1) % S).long()
+        slots, tables_d, ctx = idx.to(torch.int32), _dev(tables), _dev(np.full(B, CTX, np.int32))
+        scale = 1.0 / np.sqrt(D)
+        args = (q, k[None], v[None], k_new, v_new, slots, tables_d, ctx, S, scale)
+
+        def pair():  # kernel 12, then kernel 10 over the written pool
+            W.write_rows_2d_pair(k[None], v[None], k_new, v_new, slots)
+            PA.paged_decode_attention(q, k[None], v[None], tables_d, ctx, S, scale)
+
+        sl = slot_indices(tables_d, S)[:, :CTX]
+        kg, vg = (x[sl].transpose(1, 2).contiguous() for x in (k, v))  # [B, Hkv, CTX, D]
+        k2, v2 = k.view(N, -1), v.view(N, -1)
+        kr, vr = k_new.reshape(B, -1), v_new.reshape(B, -1)
+
+        def library():
+            k2.index_copy_(0, idx, kr)
+            v2.index_copy_(0, idx, vr)
+            F.scaled_dot_product_attention(q[:, :, None], kg, vg, enable_gqa=True)
+
+        row = Hkv * D * 2
+        nbytes = (2 * B * (CTX - 1) * row + 2 * q.numel() * 2 + 4 * B * row + tables.size * 4
+                  + 3 * B * 4)
+        t_b, by = bound(nbytes, 4 * B * Hq * CTX * D)
+        return dict(ms=time_ms(lambda: PA.paged_decode_attention_fused(*args)),
+                    plain_ms=time_ms(lambda: PA.paged_decode_attention_fused_plain(*args), reps=10),
+                    unfused_pair_ms=time_ms(pair), library_ms=time_ms(library),
+                    bound_ms=t_b, bound_by=by)
+
+    _record(rec, "paged_decode_attention_fused", err, "H2O-Danube-1.8B batch 8, context 3712", {
+        "H2O-Danube-1.8B batch 8, context 3712": timed(CTX=3712, **DANUBE_HEADS),
+        "Qwen2.5-14B heads batch 8, context 3712, slot-major": timed(CTX=3712, **QWEN_HEADS),
+    })
+
+    # -- the latent mode ---------------------------------------------------------
+    H, X, VD = 16, 576, 512
+    scale = 1.0 / np.sqrt(192)
+    err = rel_err = 0.0
+    for ctx in ([2816, 7, 513, 1500, 100, 16, 250, 2305], [2816, 1, 513, 0, 100, 16, 250, 17]):
+        tables, npages, slots, ctx_t = inputs(ctx)
+        pool = _randn(rng, 1, npages * S, X)
+        q, new = _randn(rng, B, H, X), _randn(rng, B, X)
+        gp, wp = pool.clone(), pool.clone()
+        tail = (new, slots, tables, ctx_t, S, scale, VD)
+        got = PA.paged_mla_decode_fused(q, gp, *tail)
+        want = PA.paged_mla_decode_fused_plain(q, wp, *tail)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        r = e / want.float().abs().max().item()
+        print(f"kernels: paged_mla_decode_fused B=8 H={H} ctx={ctx}: max abs err {e:.3e}, "
+              f"{r:.3e} of the largest output", flush=True)
+        if not np.isfinite(e) or r > ATTN_TOL:
+            raise AssertionError(f"fused latent decode ctx {ctx}: rel err {r} > {ATTN_TOL}")
+        if not torch.equal(gp, wp):
+            raise AssertionError(f"fused latent decode ctx {ctx}: pool differs from the plain one")
+        err, rel_err = max(err, e), max(rel_err, r)
+    CTX = 2816
+    maxp = 3072 // S
+    tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+    pool, q, new = _randn(rng, 1, B * maxp * S, X), _randn(rng, B, H, X), _randn(rng, B, X)
+    idx = _dev(tables[:, (CTX - 1) // S] * S + (CTX - 1) % S).long()
+    slots, tables_d, ctx = idx.to(torch.int32), _dev(tables), _dev(np.full(B, CTX, np.int32))
+    args = (q, pool, new, slots, tables_d, ctx, S, scale, VD)
+
+    def pair():  # kernel 7, then kernel 2b over the written pool
+        W.write_rows_2d(pool, new, slots)
+        A.paged_mla_decode(q, pool[0], tables_d, ctx, S, scale, v_dim=VD)
+
+    lat = pool[0].reshape(B, maxp * S, X)[:, None, :CTX]  # latents gathered beforehand
+    kg = lat.contiguous().expand(-1, H, -1, -1)
+    vg = lat[..., :VD].contiguous().expand(-1, H, -1, -1)
+
+    def library():
+        pool[0].index_copy_(0, idx, new)
+        F.scaled_dot_product_attention(q[:, :, None], kg, vg, scale=scale)
+
+    t_b, by = bound(B * (CTX - 1) * X * 2 + q.numel() * 2 + B * H * VD * 2 + 2 * B * X * 2
+                    + tables.size * 4 + 3 * B * 4, 2 * B * H * CTX * (X + VD))
+    label = f"DeepSeek-V2-Lite batch {B}, context {CTX}, 16 heads"
+    print(f"kernels: paged_mla_decode_fused over every case max rel err {rel_err:.3e}", flush=True)
+    _record(rec, "paged_mla_decode_fused", err, label, {label: dict(
+        ms=time_ms(lambda: PA.paged_mla_decode_fused(*args)),
+        plain_ms=time_ms(lambda: PA.paged_mla_decode_fused_plain(*args), reps=10),
+        unfused_pair_ms=time_ms(pair), library_ms=time_ms(library), bound_ms=t_b, bound_by=by,
+    )})
+
+
 def _counters():
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
@@ -1494,6 +1684,8 @@ def _counters():
         "paged_decode_attention_hm_partial": A.paged_decode_attention_hm_partial,
         "paged_decode_attention_hm_q_partial": A.paged_decode_attention_hm_q_partial,
         "paged_mla_decode_partial": A.paged_mla_decode_partial,
+        "paged_decode_attention_fused": PA.paged_decode_attention_fused,
+        "paged_mla_decode_fused": PA.paged_mla_decode_fused,
     }
 
 
@@ -1532,9 +1724,12 @@ def plain_kernels():
                                            write_rows_2d_pair=W.write_rows_2d_pair_plain)), \
          mock.patch.object(llama_mod, "paged_attention", SimpleNamespace(
              paged_decode_attention=PA.paged_decode_attention_plain,
-             paged_decode_attention_q=PA.paged_decode_attention_q_plain)), \
+             paged_decode_attention_q=PA.paged_decode_attention_q_plain,
+             paged_decode_attention_fused=PA.paged_decode_attention_fused_plain)), \
          mock.patch.object(mla_mod, "attn_headmajor",
                            SimpleNamespace(paged_mla_decode=A.paged_mla_decode_plain)), \
+         mock.patch.object(mla_mod, "paged_attention",
+                           SimpleNamespace(paged_mla_decode_fused=PA.paged_mla_decode_fused_plain)), \
          mock.patch.object(moe_mod, "quant_ragged", SimpleNamespace(
              w4a16_ragged_matmul=R.w4a16_ragged_matmul_plain)), \
          mock.patch.object(llama_mod, "attn_headmajor", SimpleNamespace(
@@ -1622,7 +1817,10 @@ def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS, compare_p
     (every prompt's continuation) against the plain path (not for a path that
     adds no kernel to one already held: ``compare_plain=False``). Returns the
     prompts and the kernel path's first-token logits of prompt 1."""
+    from unittest import mock
+
     from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+    from zhilight_tpu_torch.models import llama as L
 
     ex, cfg, expect = llm.executor, llm.model_config, PATHS[label]
     warm_s = ex.warmup()
@@ -1639,14 +1837,22 @@ def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS, compare_p
     gargs[1] = GeneratorArg(max_length=MAXLEN, temperature=0.8, top_p=0.9, seed=7)
     gargs[6] = GeneratorArg(max_length=MAXLEN, temperature=0.8, top_p=0.9, seed=11)
 
+    prefills = [0]  # model forwards over prefill chunks (single, packed, chained)
+    backbone = L.backbone
+
+    def counted(*a, **kw):
+        prefills[0] += a[7] == "prefill"
+        return backbone(*a, **kw)
+
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
     gen = DynamicBatchGenerator(llm).start()
     try:
         t0 = time.monotonic()
-        results = gen.batch_generate(prompts, gargs, timeout=600)
-        torch.cuda.synchronize()
+        with mock.patch.object(L, "backbone", counted):
+            results = gen.batch_generate(prompts, gargs, timeout=600)
+            torch.cuda.synchronize()
         wall = time.monotonic() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
         solo = [gen.generate(prompts[0], GeneratorArg(max_length=MAXLEN), timeout=300)
@@ -1656,8 +1862,12 @@ def serve_path(label: str, llm, rec: dict, seed: int, lens=SERVE_LENS, compare_p
     for name, n in launches.items():
         rec[name]["launches"] += n
         rec[name]["launches_by_path"][label] = n
-    print(f"serve: {label}: {len(prompts)} requests in {wall:.2f} s; launches {launches}",
-          flush=True)
+    print(f"serve: {label}: {len(prompts)} requests in {wall:.2f} s, {prefills[0]} prefill "
+          f"forwards; launches {launches}", flush=True)
+    write = FUSED_PREFILL_WRITES.get(label)
+    if write and launches[write] != cfg.num_layers * prefills[0]:
+        raise AssertionError(f"{label}: {launches[write]} {write} launches, not {cfg.num_layers} "
+                             f"layers x {prefills[0]} prefill forwards: a decode step wrote rows")
     for n, a, r in zip(lens, gargs, results):
         out = r.outputs[0]
         print(f"serve: {label}: prompt {n} temp {a.temperature}: {len(out.token_ids)} tokens, "
@@ -1928,6 +2138,134 @@ def window_check(label: str, ex, prompts, K: int = 8) -> None:
         raise AssertionError(f"{label}: layer 0's rows differ from the per-step path's")
 
 
+def fused_path(label: str, base, engine_config, rec: dict, args, lens=SERVE_LENS):
+    """A fused write + attend path: a second ``LLM`` over ``base``'s weights,
+    its executor built with ZT_FUSED_KV=1 set for it alone, serving the 8
+    requests (``serve_path``: the fused kernel and never the unfused decode;
+    row writes only in prefill), then :func:`fused_check`."""
+    from zhilight_tpu_torch.llm import LLM
+
+    with env_switch("ZT_FUSED_KV", True):
+        llm = LLM(model_config=base.model_config, quant_config=base.quant_config,
+                  params=base.executor.params, engine_config=engine_config, device="cuda")
+    if not llm.executor.fused_kv:
+        raise AssertionError(f"{label}: the executor did not read ZT_FUSED_KV")
+    prompts, _ = serve_path(label, llm, rec, args.seed, lens, compare_plain=False)
+    fused_check(label, llm.executor, prompts)
+    args.llms[label] = llm
+    release_pool(llm)
+
+
+def fused_check(label: str, ex, prompts) -> None:
+    """One batch-8 decode step of the prompts (prefilled through the kernels
+    in 512-token chunks into a scratch cache, which is then copied), fused
+    (``DecodeMeta.fused``) and unfused, on the same weights and tokens. Held:
+    the fused step launches the fused kernel once a layer and no unfused
+    decode and no row write; the logits agree within LOGIT_TOL of the largest
+    with the same argmax on every row; every layer's pools equal the pre-step
+    pools with the rows the fused kernel was given stored by the unfused
+    write kernel, and layer 0's rows equal the unfused step's (the same
+    inputs; deeper layers' rows follow the rounding of their inputs:
+    printed, not held)."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models import mla as M
+    from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+
+    cfg, S, B = ex.cfg, ex.page_size, len(prompts)
+    mla = cfg.mla.enabled
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    maxp = max(len(p) // S + 1 for p in prompts)
+    cache = ex.new_cache(B * maxp)
+    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+    rows_b = torch.arange(B, device=ex.device)
+
+    def slots(b, pos):
+        return tables[b, (pos // S).long()] * S + pos % S
+
+    with torch.no_grad():
+        nxt = []
+        for b, p in enumerate(prompts):
+            for start in range(0, len(p), 512):
+                toks = torch.tensor(p[start : start + 512], **i32)
+                pos = torch.arange(start, start + len(toks), **i32)
+                meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
+                                   cache_len=torch.tensor(start, **i32),
+                                   q_len=torch.tensor(len(toks), **i32))
+                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache)
+            nxt.append(int(logits.argmax()))
+    fields = ("latent",) if mla else ("k", "v")
+    pre = dataclasses.replace(cache, **{f: [a.clone() for a in getattr(cache, f)] for f in fields})
+    n = torch.tensor([len(p) for p in prompts], **i32)
+    meta = DecodeMeta(positions=n, slot_mapping=slots(rows_b, n), page_tables=tables,
+                      context_lens=n + 1)
+    tokens = torch.tensor(nxt, **i32)
+
+    name = "paged_mla_decode_fused" if mla else "paged_decode_attention_fused"
+    kernel, given = getattr(PA, name), []
+
+    def capture(*a, **kw):  # the rows each layer hands the fused kernel
+        given.append((a[2],) if mla else (a[3], a[4]))
+        return kernel(*a, **kw)
+
+    counters = _counters()
+    before = {k: c.launches for k, c in counters.items()}
+    # the model module calls the wrapper through its `paged_attention` name
+    with torch.no_grad(), mock.patch.object(M if mla else L, "paged_attention",
+                                            SimpleNamespace(**{name: capture})):
+        got, cache = L.forward_decode(ex.params, cfg, ex.rope, tokens,
+                                      dataclasses.replace(meta, fused=True), cache)
+    torch.cuda.synchronize()
+    launched = {k: c.launches - before[k] for k, c in counters.items()
+                if c.launches != before[k] and "matmul" not in k}  # attention and row writes
+    if launched != {name: cfg.num_layers}:
+        raise AssertionError(f"{label}: the fused step launched {launched}")
+    mismatched = []
+    for layer, rows in enumerate(given):
+        if mla:
+            want = [W.write_rows_2d(pre.latent[layer].clone(), rows[0], meta.slot_mapping)]
+            have = [cache.latent[layer]]
+        else:
+            want = list(W.write_rows_2d_pair(pre.k[layer].clone(), pre.v[layer].clone(),
+                                             *rows, meta.slot_mapping))
+            have = [cache.k[layer], cache.v[layer]]
+        if not all(torch.equal(w, h) for w, h in zip(want, have)):
+            mismatched.append(layer)
+        del want
+    with torch.no_grad():
+        want, pre = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, pre)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: non-finite decode-step logits")
+    scale = want.abs().amax(-1)
+    rel = ((got - want).abs().amax(-1) / scale).max().item()
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    written = meta.slot_mapping.long()
+    per_layer = []
+    for f in fields:
+        for layer, (a, b) in enumerate(zip(getattr(cache, f), getattr(pre, f))):
+            ga, gb = a[0][written].float(), b[0][written].float()
+            per_layer.append((layer, ((ga - gb).abs().max() / gb.abs().max()).item()))
+    layer0 = max(r for layer, r in per_layer if layer == 0)
+    print(f"serve: {label}: one decode step fused vs unfused (batch {B}, contexts "
+          f"{min(map(len, prompts)) + 1} to {max(map(len, prompts)) + 1}): logits max rel err "
+          f"{rel:.3e} (tolerance {LOGIT_TOL}); argmax same on {same}/{B} rows; {name} launches "
+          f"{cfg.num_layers}, no unfused decode or row write; every layer's pools equal to the "
+          f"unfused write of the kernel's rows: {not mismatched}; written rows against the "
+          f"unfused step's, layer 0 max rel diff {layer0:.3e}, every layer "
+          f"{max(r for _, r in per_layer):.3e}", flush=True)
+    if rel > LOGIT_TOL or same != B:
+        raise AssertionError(f"{label}: fused logits differ from unfused: {rel}, argmax {same}/{B}")
+    if mismatched:
+        raise AssertionError(f"{label}: pools differ from the unfused write in layers {mismatched}")
+    if layer0 != 0:
+        raise AssertionError(f"{label}: layer 0's rows differ from the unfused step's")
+
+
 def release_pool(llm) -> None:
     """Drop a path's KV pool until the timing phase rebuilds it, so that only
     one path's pool is held at a time."""
@@ -2106,7 +2444,8 @@ def dense_expert_path(args) -> None:
 def env_switch(name: str, on: bool):
     """``name=1`` in the environment for the enclosed block only (unset when
     ``on`` is false): ZT_FP8_KEEP as the loader reads it, ZT_NO_PACKED_KV as
-    ``new_kv_cache`` reads it, ZT_WINDOW_KV as ``ModelExecutor`` reads it."""
+    ``new_kv_cache`` reads it, ZT_WINDOW_KV and ZT_FUSED_KV as ``ModelExecutor``
+    reads them."""
     old = os.environ.pop(name, None)
     if on:
         os.environ[name] = "1"
@@ -2291,6 +2630,8 @@ def phase_serve(rec: dict, args) -> None:
     release_pool(llm)
     window_path("DeepSeek-V2-Lite-GPTQ-Int4-window", llm, deepseek_engine_config(), rec, args,
                 DEEPSEEK_LENS)
+    fused_path("DeepSeek-V2-Lite-GPTQ-Int4-fused", llm, deepseek_engine_config(), rec, args,
+               DEEPSEEK_LENS)
 
     dense_expert_path(args)
 
@@ -2352,6 +2693,8 @@ def danube_paths(rec: dict, args) -> None:
             bf16_first = first
         args.llms[label] = llm
         release_pool(llm)
+    fused_path("H2O-Danube-1.8B-fused", args.llms["H2O-Danube-1.8B"], danube_engine_config(),
+               rec, args)
     print(f"serve: H2O-Danube-1.8B paths in {time.monotonic() - t0:.1f} s", flush=True)
 
 
@@ -2439,6 +2782,9 @@ TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prom
     "MiniCPM-2B-window": (16, 512, False, 0),
     "Qwen2.5-14B-GPTQ-Int4-int8kv-window": (8, 3712, False, 0),
     "DeepSeek-V2-Lite-GPTQ-Int4-window": (8, 2816, False, 0),
+    # fused write + attend changes decode only
+    "H2O-Danube-1.8B-fused": (8, 3712, False, 0),
+    "DeepSeek-V2-Lite-GPTQ-Int4-fused": (8, 2816, False, 0),
 }
 
 

@@ -25,7 +25,11 @@ decode attention within 2e-2 absolute at head_dim 16 to 128. The window
 side-KV kernels: the two flushes bit-exact; the partial modes of the three
 decode kernels within 2e-2 relative to their size (m absolute where l > 0,
 l and acc over their largest value: unnormalized sums grow with the
-context), and exactly m = -2e38, l = 0, acc = 0 for an empty pool.
+context), and exactly m = -2e38, l = 0, acc = 0 for an empty pool. The fused
+write + attend kernels (``ZT_FUSED_KV=1``): the pools after the call
+bit-equal to the plain version's, the output within 2e-2 absolute (slot-major
+and packed pools) or 2e-2 of its size (the latent mode, whose tiles round the
+probabilities to bf16 where the plain version keeps them fp32).
 """
 
 import dataclasses
@@ -925,3 +929,162 @@ def test_window_kv_engine_on_gpu(cuda, kv_dtype, monkeypatch):
     assert all(len(t) == 16 for t in runs[True])
     same = sum(a == b for x, y in zip(runs[True], runs[False]) for a, b in zip(x, y))
     assert same >= 0.9 * 48  # bf16: the merge rounds differently from the one-pass kernel
+
+
+# ---------------------------------------------------------------------------
+# fused write + attend (ZT_FUSED_KV=1)
+# ---------------------------------------------------------------------------
+
+# contexts counting the new token: 3712 (ranges merged), 1 (the new row
+# alone), 0 (empty), the new row on a page's last row (16) and first row
+# (17); slot 5 frozen, slots 6 and 7 share their first 4 pages (read only)
+_FUSED_CTX = [3712, 1, 0, 16, 17, 300, 700, 129]
+
+
+def _fused_inputs(rng, device, ctx):
+    """Page tables (sequences 6 and 7 sharing a read-only prefix), and the
+    new rows' slots: the row at position ctx - 1; -1 for the empty and the
+    frozen sequence."""
+    ctx = np.array(ctx, np.int32)
+    tables, npages = _tables(rng, ctx, device)
+    tables = tables.cpu().numpy()
+    tables[7, :4] = tables[6, :4]
+    slots = np.array([tables[b, (c - 1) // S] * S + (c - 1) % S if c > 0 else -1
+                      for b, c in enumerate(ctx)], np.int32)
+    slots[5] = -1
+    i32 = lambda a: torch.from_numpy(a).to(device)
+    return i32(tables), npages, i32(slots), i32(ctx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("hkv,G,D", [(2, 1, 16), (2, 8, 16), (2, 4, 80), (2, 8, 128),
+                                     (8, 1, 16), (8, 4, 80), (8, 5, 128), (8, 8, 128),
+                                     (12, 2, 64)])
+def test_fused_decode_attention_matches_plain(cuda, hkv, G, D, packed):
+    """Danube's (8 KV heads, G 4, head_dim 80) and Qwen2.5-14B's (G 5 of 128)
+    geometries among others, at batch 8 over _FUSED_CTX, windows 0 and 300."""
+    rng = np.random.default_rng(hkv * G + D + packed)
+    tables, npages, slots, ctx = _fused_inputs(rng, cuda, _FUSED_CTX)
+    k, v = _bf16(rng, cuda, npages * S, hkv, D), _bf16(rng, cuda, npages * S, hkv, D)
+    pools = (torch.cat((k, v), -1)[None],) if packed else (k[None], v[None])
+    q = _bf16(rng, cuda, 8, hkv * G, D)
+    k_new, v_new = _bf16(rng, cuda, 8, hkv, D), _bf16(rng, cuda, 8, hkv, D)
+    for window in (0, 300):
+        got_pools = [p.clone() for p in pools]
+        want_pools = [p.clone() for p in pools]
+        tail = (k_new, v_new, slots, tables, ctx, S, 1.0 / np.sqrt(D), window)
+        before = PA.paged_decode_attention_fused.launches
+        got = PA.paged_decode_attention_fused(q, got_pools[0], None if packed else got_pools[1],
+                                              *tail)
+        want = PA.paged_decode_attention_fused_plain(
+            q, want_pools[0], None if packed else want_pools[1], *tail)
+        torch.cuda.synchronize()
+        assert PA.paged_decode_attention_fused.launches == before + 1
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max().item() <= TOL
+        assert all(torch.equal(g, w) for g, w in zip(got_pools, want_pools))
+        # the empty slot gives its new V row, the written rows are the new ones
+        assert (got[2].float() - v_new[2].repeat_interleave(G, 0).float()).abs().max() <= TOL
+        assert not all(torch.equal(g, p) for g, p in zip(got_pools, pools))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,ctx", [(8, 16, [2816, 1, 0, 16, 17, 1500, 100, 2305]),
+                                     (3, 16, [300, 1, 65]), (2, 40, [3000, 64])])
+def test_mla_decode_fused_matches_plain(cuda, B, H, ctx):
+    """DeepSeek-V2-Lite's latent rows (576, V the first 512) and 16 heads at
+    its serving batch, and smaller batches; pools [1, N, 576]."""
+    rng = np.random.default_rng(B + H)
+    tables, npages, slots, ctx_t = _fused_inputs(rng, cuda, ctx + [0] * (8 - B))
+    tables, slots, ctx_t = tables[:B], slots[:B].clone(), ctx_t[:B]
+    if B == 8:
+        slots[5] = -1  # frozen
+    pool = _bf16(rng, cuda, 1, npages * S, 576)
+    q, new = _bf16(rng, cuda, B, H, 576), _bf16(rng, cuda, B, 576)
+    got_pool, want_pool = pool.clone(), pool.clone()
+    tail = (new, slots, tables, ctx_t, S, 1.0 / np.sqrt(192), 512)
+    got = PA.paged_mla_decode_fused(q, got_pool, *tail)
+    want = PA.paged_mla_decode_fused_plain(q, want_pool, *tail)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, 512) and torch.isfinite(got).all()
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    assert err <= TOL
+    assert torch.equal(got_pool, want_pool) and not torch.equal(got_pool, pool)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_raise_on_unsupported_cuda_inputs(cuda):
+    q = torch.zeros(2, 4, 80, dtype=torch.bfloat16, device=cuda)
+    pool = torch.zeros(1, 64, 2, 80, dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(2, 2, 80, dtype=torch.bfloat16, device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    slots, tables, ctx = torch.zeros(2, **i32), torch.zeros(2, 4, **i32), torch.ones(2, **i32)
+    fused = PA.paged_decode_attention_fused
+    with pytest.raises(NotImplementedError):
+        fused(q.float(), pool, pool, rows, rows, slots, tables, ctx, S, 0.1)        # fp32 q
+    with pytest.raises(NotImplementedError):
+        fused(q, pool.float(), pool.float(), rows, rows, slots, tables, ctx, S, 0.1)  # fp32 pools
+    with pytest.raises(ValueError):
+        fused(q, pool, pool, rows, rows, slots, tables.long(), ctx, S, 0.1)        # int64 tables
+    with pytest.raises(ValueError):
+        fused(q, pool, None, rows, rows, slots, tables, ctx, S, 0.1)               # not [.., 2D]
+    with pytest.raises(ValueError):
+        fused(q, pool, pool, rows[:1], rows, slots, tables, ctx, S, 0.1)           # rows [B, Hkv, D]
+    with pytest.raises(ValueError):
+        fused(q.transpose(0, 1).contiguous().transpose(0, 1), pool, pool, rows, rows, slots,
+              tables, ctx, S, 0.1)                                                # not contiguous
+    wide = torch.zeros(2, 4, 272, dtype=torch.bfloat16, device=cuda)
+    wpool = torch.zeros(1, 64, 2, 272, dtype=torch.bfloat16, device=cuda)
+    wrows = torch.zeros(2, 2, 272, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        fused(wide, wpool, wpool, wrows, wrows, slots, tables, ctx, S, 0.1)        # D > 256
+    lq = torch.zeros(2, 16, 576, dtype=torch.bfloat16, device=cuda)
+    lpool = torch.zeros(1, 64, 576, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        PA.paged_mla_decode_fused(lq, lpool, lpool[0, :2], slots, tables, ctx, S, 0.1, 256)
+    with pytest.raises(ValueError):
+        PA.paged_mla_decode_fused(lq, lpool, lpool[0, :2, :512], slots, tables, ctx, S, 0.1, 512)
+    with pytest.raises(ValueError):
+        PA.paged_mla_decode_fused(lq, lpool, lpool[0, :2], slots.long(), tables, ctx, S, 0.1, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim_head", [80, 64])
+def test_fused_kv_engine_on_gpu(cuda, dim_head, monkeypatch):
+    """A small bf16 model served with ZT_FUSED_KV=1: over a slot-major pool
+    (head_dim 80) the decode steps launch the fused kernel and no unfused
+    decode or row write; over the packed pool (head_dim 64) the mode stays
+    off. The tokens equal the unfused engine's on the same weights (bf16: the
+    fold rounds differently from the one-pass kernel, so 90% of them)."""
+    cfg = L.ModelConfig(model_type="llama", num_layers=2, dim_model=256, num_heads=4,
+                        dim_head=dim_head, num_kv_heads=2, dim_ff=512, vocab_size=128,
+                        dtype="bfloat16")
+    ecfg = EngineConfig(max_model_len=256, cache=CacheConfig(page_size=16, num_pages=64),
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
+    params = L.init_params(cfg, 0, cuda)
+    prompts = [np.random.default_rng(i).integers(2, 128, n).tolist() for i, n in enumerate((40, 7, 100))]
+    write = W.write_rows_2d_pair if dim_head == 80 else W.write_rows_hm
+    counted = (PA.paged_decode_attention_fused, PA.paged_decode_attention,
+               A.paged_decode_attention_hm, write)
+    runs = {}
+    for fused in (False, True):
+        if fused:
+            monkeypatch.setenv("ZT_FUSED_KV", "1")
+        llm = LLM(model_config=cfg, params=params, engine_config=ecfg, device=cuda)
+        assert llm.executor.fused_kv == fused
+        with DynamicBatchGenerator(llm) as gen:
+            # the same prompts' prefill alone, then prefill and decode
+            w0 = write.launches
+            gen.batch_generate(prompts, [GeneratorArg(max_length=1)] * 3, timeout=300)
+            before = [fn.launches for fn in counted]
+            res = gen.batch_generate(prompts, [GeneratorArg(max_length=16)] * 3, timeout=300)
+        runs[fused] = [r.outputs[0].token_ids for r in res]
+        n_fused, n_slot, n_hm, writes = (fn.launches - b for fn, b in zip(counted, before))
+        if fused and dim_head == 80:  # decode writes no row apart from the fused kernel's
+            assert n_fused > 0 and n_slot == 0 and writes == before[3] - w0
+        else:
+            assert n_fused == 0 and n_slot + n_hm > 0 and writes > before[3] - w0
+    assert all(len(t) == 16 for t in runs[True])
+    same = sum(a == b for x, y in zip(runs[True], runs[False]) for a, b in zip(x, y))
+    assert same >= 0.9 * 48

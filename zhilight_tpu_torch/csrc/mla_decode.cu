@@ -35,11 +35,29 @@
 // a second kernel merges a head's partials and writes bf16. About 106 KB of
 // shared memory per block, so two blocks share an SM and one's loads overlap
 // the other's arithmetic. No TMA, no wgmma yet.
+//
+// Fused latent write + attend (zt_mla_decode_fused): replaces
+// zhilight_tpu/ops/pallas/paged_attention.py paged_mla_decode_fused (:844),
+// the latent mode of kernel _kernel_bs_fused (:445). context_lens count this
+// step's token, whose latent row (latent_new [B, stored], in the pool's
+// dtype) is not in the pool yet: the tiles cover pool rows t < ctx - 1 only,
+// and the merge kernel folds the new row in as one more partial (m = s_new =
+// scale * q[b, h, :KD] . latent_new[b, :KD], l = 1, acc = latent_new[b, :VD]),
+// in fp32, so an empty context gives the new row's V. Block h = 0 of the
+// merge then stores the row at slot_mapping[b] when that is >= 0 and ctx >=
+// 1; the merge runs after the tiles in stream order, so no read races the
+// write. As in the unfused mode the tiles round p to bf16 for their WMMA p.V
+// product, where the TPU kernel keeps it fp32 (its fused mode casts the
+// latent rows to fp32): the kernel is held to the unrounded plain version
+// within 2e-2 of the output's size. Bytes: the unfused mode's plus the
+// written row (7.8 us at DeepSeek-V2-Lite's batch 8, context 2816).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "paged_decode.cuh"  // zt_paged::block_dot (128 threads)
 
 namespace {
 
@@ -84,7 +102,7 @@ __global__ void __launch_bounds__(NT) mla_decode_kernel(
     const bf16* __restrict__ pool,            // [N, stored]
     const int32_t* __restrict__ page_tables,  // [B, maxp]
     const int32_t* __restrict__ context_lens, // [B]
-    int H, long long N, int stored, int maxp, int S, float scale) {
+    int H, long long N, int stored, int maxp, int S, float scale, int drop) {
   using L = Smem<KD, VD>;
   constexpr int LDK = L::LDK;
   constexpr int CPR = KD / 8;   // 16-byte chunks per row
@@ -106,8 +124,9 @@ __global__ void __launch_bounds__(NT) mla_decode_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32;
 
+  // drop = 1 (fused): row ctx - 1 is this step's, folded in by the merge
   int ctx = context_lens[b];
-  ctx = max(0, min(ctx, maxp * S));
+  ctx = max(0, min(ctx, maxp * S) - drop);
   int first, last;
   split_range(ctx, splits, split, &first, &last);
   if (first >= last) return;  // the merge kernel skips this split as well
@@ -253,38 +272,57 @@ __global__ void __launch_bounds__(NT) mla_decode_kernel(
   }
 }
 
+// The fused mode's extra inputs (latent_new null otherwise).
+struct LatentRows {
+  const bf16* q;           // [B, H, KD]
+  const bf16* latent_new;  // [B, stored] this step's rows, in the pool's dtype
+  const int32_t* slots;    // [B] pool row of each; < 0 => not written
+  bf16* pool;              // [N, stored], written at slots[b] only
+};
+
 // out[b, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-20)
 // with M = max_s m_s; with EMIT, out (fp32) gets the sum unnormalized and
 // m_out, l_out [B, H] get M and the sum of l_s * exp(m_s - M): the flash
 // partials of the whole context (M = -2e38, L = 0, acc = 0 when it is empty).
-template <int VD, bool EMIT>
+// FUSED adds the new latent row as one more partial and stores it (header).
+template <int KD, int VD, bool EMIT, bool FUSED>
 __global__ void __launch_bounds__(128) mla_merge_kernel(
     void* __restrict__ out,                   // [B, H, VD]: bf16, or fp32 with EMIT
     float* __restrict__ m_out, float* __restrict__ l_out,
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int32_t* __restrict__ context_lens, int H, int tiles_h, int splits, int maxp,
-    int S) {
+    const int32_t* __restrict__ context_lens, LatentRows fz, int H, int tiles_h, int splits,
+    int maxp, int S, long long N, int stored, float scale) {
+  static_assert(!(EMIT && FUSED), "the fused mode returns the output");
   const int b = blockIdx.y, h = blockIdx.x;
   const int ht = h / HT, r = h % HT;
   int ctx = context_lens[b];
   ctx = max(0, min(ctx, maxp * S));
-  const int tiles = (ctx + TN - 1) / TN;
+  const int tiles = ((FUSED ? max(ctx - 1, 0) : ctx) + TN - 1) / TN;
   const int per = max((tiles + splits - 1) / splits, 1);
   const int used = (tiles + per - 1) / per;  // splits with a non-empty range
   const long long base = ((long long)b * tiles_h + ht) * splits;
-  float M = NEG_INF;
+  const long long row = (long long)b * H + h;
+  const bf16* new_row = FUSED ? fz.latent_new + (long long)b * stored : nullptr;
+  float M = NEG_INF, s_new = NEG_INF;
+  if constexpr (FUSED) {
+    s_new = zt_paged::block_dot(fz.q + row * KD, new_row, KD, scale);
+    M = s_new;
+    const long long slot = fz.slots[b];
+    if (h == 0 && slot >= 0 && slot < N && ctx >= 1)
+      for (int d = threadIdx.x; d < stored; d += blockDim.x)
+        fz.pool[slot * stored + d] = new_row[d];
+  }
   for (int s = 0; s < used; ++s) M = fmaxf(M, part_ml[(base + s) * 2 * HT + r]);
-  float Lsum = 0.f;
+  float Lsum = FUSED ? __expf(s_new - M) : 0.f;
   for (int s = 0; s < used; ++s)
     Lsum += part_ml[(base + s) * 2 * HT + HT + r] * __expf(part_ml[(base + s) * 2 * HT + r] - M);
-  const long long row = (long long)b * H + h;
   if (EMIT && threadIdx.x == 0) {
     m_out[row] = M;
     l_out[row] = Lsum;
   }
   const float inv = 1.f / fmaxf(Lsum, 1e-20f);
   for (int d = threadIdx.x; d < VD; d += blockDim.x) {
-    float a = 0.f;
+    float a = FUSED ? __bfloat162float(new_row[d]) * __expf(s_new - M) : 0.f;
     for (int s = 0; s < used; ++s)
       a += part_acc[((base + s) * HT + r) * VD + d] * __expf(part_ml[(base + s) * 2 * HT + r] - M);
     if constexpr (EMIT)
@@ -297,8 +335,9 @@ __global__ void __launch_bounds__(128) mla_merge_kernel(
 template <int KD, int VD>
 int launch(void* out, float* m_out, float* l_out, void* part_acc, void* part_ml,
            const void* q, const void* pool,
-           const void* page_tables, const void* context_lens, int B, int H, long long N,
-           int stored, int maxp, int S, float scale, int splits, cudaStream_t stream) {
+           const void* page_tables, const void* context_lens, const LatentRows& fz, int B,
+           int H, long long N, int stored, int maxp, int S, float scale, int splits,
+           cudaStream_t stream) {
   using L = Smem<KD, VD>;
   static bool configured = false;
   if (!configured) {
@@ -310,13 +349,16 @@ int launch(void* out, float* m_out, float* l_out, void* part_acc, void* part_ml,
   const int tiles_h = (H + HT - 1) / HT;
   mla_decode_kernel<KD, VD><<<dim3(splits, tiles_h, B), NT, L::BYTES, stream>>>(
       (float*)part_acc, (float*)part_ml, (const bf16*)q, (const bf16*)pool,
-      (const int32_t*)page_tables, (const int32_t*)context_lens, H, N, stored, maxp, S, scale);
+      (const int32_t*)page_tables, (const int32_t*)context_lens, H, N, stored, maxp, S, scale,
+      fz.latent_new != nullptr ? 1 : 0);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto merge = m_out != nullptr ? mla_merge_kernel<VD, true> : mla_merge_kernel<VD, false>;
+  auto merge = fz.latent_new != nullptr ? mla_merge_kernel<KD, VD, false, true>
+               : m_out != nullptr       ? mla_merge_kernel<KD, VD, true, false>
+                                        : mla_merge_kernel<KD, VD, false, false>;
   merge<<<dim3(H, B), 128, 0, stream>>>(
       out, m_out, l_out, (const float*)part_acc, (const float*)part_ml,
-      (const int32_t*)context_lens, H, tiles_h, splits, maxp, S);
+      (const int32_t*)context_lens, fz, H, tiles_h, splits, maxp, S, N, stored, scale);
   return (int)cudaGetLastError();
 }
 
@@ -339,7 +381,27 @@ extern "C" int zt_mla_decode(void* out, float* m_out, float* l_out, void* part_a
   if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (KD == 576 && VD == 512)
-    return launch<576, 512>(out, m_out, l_out, part_acc, part_ml, q, pool, page_tables, context_lens, B, H,
-                            N, stored, maxp, S, scale, splits, st);
+    return launch<576, 512>(out, m_out, l_out, part_acc, part_ml, q, pool, page_tables,
+                            context_lens, LatentRows{}, B, H, N, stored, maxp, S, scale, splits,
+                            st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fused mode (header): as zt_mla_decode without the partial outputs, plus
+// bf16 latent_new [B, stored] and int32 slot_mapping [B]; pool is written at
+// slot_mapping[b] (>= 0) with row b of latent_new. Returns the CUDA error code.
+extern "C" int zt_mla_decode_fused(void* out, void* part_acc, void* part_ml, const void* q,
+                                   void* pool, const void* latent_new, const void* slot_mapping,
+                                   const void* page_tables, const void* context_lens, int B,
+                                   int H, int KD, int VD, long long N, int stored, int maxp,
+                                   int S, float scale, int splits, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (splits < 1 || stored < KD || stored % 8) return (int)cudaErrorInvalidValue;
+  const LatentRows fz{(const bf16*)q, (const bf16*)latent_new, (const int32_t*)slot_mapping,
+                      (bf16*)pool};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (KD == 576 && VD == 512)
+    return launch<576, 512>(out, nullptr, nullptr, part_acc, part_ml, q, pool, page_tables,
+                            context_lens, fz, B, H, N, stored, maxp, S, scale, splits, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,8 +20,8 @@ extern "C" int zt_paged_decode_attention(void* out, void* part_acc, void* part_m
                                          int D, long long N, int maxp, int S, float scale,
                                          int window, int target_blocks, int max_splits,
                                          void* stream) {
-  return zt_paged::dispatch<zt_paged::bf16>(
+  return zt_paged::dispatch<zt_paged::bf16, false>(
       out, part_acc, part_ml, q, k_pool, v_pool, nullptr, nullptr, page_tables, context_lens,
-      B, Hkv, G, D, N, 0, maxp, S, scale, window, target_blocks, max_splits,
-      (cudaStream_t)stream);
+      zt_paged::FusedRows{}, B, Hkv, G, D, D, N, 0, maxp, S, scale, window, target_blocks,
+      max_splits, (cudaStream_t)stream);
 }

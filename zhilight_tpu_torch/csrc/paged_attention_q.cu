@@ -22,8 +22,8 @@ extern "C" int zt_paged_decode_attention_q(void* out, void* part_acc, void* part
                                            int D, long long N, long long scale_stride,
                                            int maxp, int S, float scale, int window,
                                            int target_blocks, int max_splits, void* stream) {
-  return zt_paged::dispatch<int8_t>(
+  return zt_paged::dispatch<int8_t, false>(
       out, part_acc, part_ml, q, k_pool, v_pool, k_scales, v_scales, page_tables,
-      context_lens, B, Hkv, G, D, N, scale_stride, maxp, S, scale, window, target_blocks,
-      max_splits, (cudaStream_t)stream);
+      context_lens, zt_paged::FusedRows{}, B, Hkv, G, D, D, N, scale_stride, maxp, S, scale,
+      window, target_blocks, max_splits, (cudaStream_t)stream);
 }

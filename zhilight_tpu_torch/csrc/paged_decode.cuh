@@ -45,6 +45,22 @@
 // own (m, l, acc); groups merge by shuffle, warps through shared memory, and
 // a second kernel merges the splits (skipped when splits == 1). No tensor
 // cores and no asynchronous copies yet.
+//
+// Fused write + attend (FUSED, bf16 pools only; paged_attention_fused.cu):
+// context_lens include this step's token, whose K and V rows (k_new, v_new
+// [B, Hkv, D], already in the pool's dtype) are not in the pool yet. The
+// context loop covers the pool tokens t < ctx - 1 only and never reads row
+// ctx - 1: another block of the same sequence writes it during the launch.
+// The new token's column (s = scale * q . k_new, value v_new) is folded into
+// the fp32 softmax once per (b, query head): by the block itself when
+// splits == 1, else by the merge kernel, as one more partial (m = s, l = 1,
+// acc = v_new). An empty context therefore gives v_new, not zeros. Split 0,
+// head group 0 of each (b, KV head) writes that head's rows at
+// slot_mapping[b] when it is >= 0 (and ctx >= 1, as the TPU kernel writes
+// only inside a context). A stored row is rs elements long; K sits at its
+// start, V at v_pool - k_pool elements into it: separate pools (rs = D,
+// v_pool its own array) or the packed single pool [N, Hkv, 2D] (rs = 2D,
+// v_pool = k_pool + D).
 
 #pragma once
 
@@ -120,24 +136,55 @@ __device__ __forceinline__ void load_vec<int8_t, 1>(const int8_t* p, float* f) {
   f[0] = (float)*p;
 }
 
+// The fused mode's extra inputs (null pointers otherwise).
+struct FusedRows {
+  const bf16* k_new;      // [B, Hkv, D] this step's rows, in the pool's dtype
+  const bf16* v_new;      // [B, Hkv, D]
+  const int32_t* slots;   // [B] pool slot of each row; < 0 => not written
+  bf16* k_dst;            // the pools again, written at slots[b] only
+  bf16* v_dst;
+};
+
+// sum of x over the block's 128 threads, returned to every thread
+__device__ __forceinline__ float block_sum(float x) {
+  __shared__ float red[NWARPS];
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  __syncthreads();  // a previous call's readers are done with red
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < NWARPS; ++w) s += red[w];
+  return s;
+}
+
+// scale * a . b over n bf16 elements, for the block's 128 threads
+__device__ __forceinline__ float block_dot(const bf16* a, const bf16* b, int n, float scale) {
+  float x = 0.f;
+  for (int d = threadIdx.x; d < n; d += NT) x += __bfloat162float(a[d]) * __bfloat162float(b[d]);
+  return block_sum(x) * scale;
+}
+
 // T: bf16 (model-dtype pools) or int8 (quantized pools, read with scales).
-// VEC elements per load, NC loads per lane and token, GMAX query rows held.
-template <typename T, int VEC, int NC, int GMAX>
+// VEC elements per load, NC loads per lane and token, GMAX query rows held;
+// FUSED: write this step's rows and fold their column in (header).
+template <typename T, int VEC, int NC, int GMAX, bool FUSED>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
     bf16* __restrict__ out,                   // [B, Hq, D] (splits == 1)
     float* __restrict__ part_acc,             // [B, Hq, splits, D] (splits > 1)
     float* __restrict__ part_ml,              // [B, Hq, splits, 2]
     const bf16* __restrict__ q,               // [B, Hq, D]
-    const T* __restrict__ k_pool,             // [N, Hkv, D]
-    const T* __restrict__ v_pool,             // [N, Hkv, D]
+    const T* __restrict__ k_pool,             // [N, Hkv, rs]: K at the row's start
+    const T* __restrict__ v_pool,             // V at the same stride
     const float* __restrict__ k_scales,       // [Hkv, scale_stride] (int8 pools)
     const float* __restrict__ v_scales,       // [Hkv, scale_stride] (int8 pools)
     const int32_t* __restrict__ page_tables,  // [B, maxp]
     const int32_t* __restrict__ context_lens, // [B]
-    int Hkv, int G, int gt, int D, long long N, long long scale_stride, int maxp, int S,
-    float scale, int window, int lpt_log2) {
+    FusedRows fz, int Hkv, int G, int gt, int D, long long rs, long long N,
+    long long scale_stride, int maxp, int S, float scale, int window, int lpt_log2) {
   constexpr int EPL = VEC * NC;  // elements of a row a lane holds
   constexpr bool QUANT = sizeof(T) == 1;
+  static_assert(!(FUSED && QUANT), "the fused mode takes bf16 pools");
   const int split = blockIdx.x, splits = gridDim.x;
   const int groups = gridDim.y / Hkv;
   const int hkv = blockIdx.y / groups;
@@ -155,10 +202,24 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 
   int ctx = context_lens[b];
   ctx = max(0, min(ctx, maxp * S));
+  // the fused mode's row ctx - 1 comes from k_new / v_new, never the pool
+  const int end = FUSED ? max(ctx - 1, 0) : ctx;
   const int start = window > 0 ? max(0, ctx - window) : 0;
-  const int per = (ctx - start + splits - 1) / splits;
+  const int per = (end - start + splits - 1) / splits;
   const int t_begin = start + split * per;
-  const int t_end = min(t_begin + per, ctx);
+  const int t_end = min(t_begin + per, end);
+
+  if constexpr (FUSED) {
+    const long long slot = fz.slots[b];
+    if (split == 0 && g0 == 0 && slot >= 0 && slot < N && ctx >= 1) {
+      const long long src = ((long long)b * Hkv + hkv) * D;
+      const long long dst = (slot * Hkv + hkv) * rs;
+      for (int d = threadIdx.x; d < D; d += NT) {
+        fz.k_dst[dst + d] = fz.k_new[src + d];
+        fz.v_dst[dst + d] = fz.v_new[src + d];
+      }
+    }
+  }
 
   float qv[GMAX][EPL], acc[GMAX][EPL], m[GMAX], l[GMAX];
 #pragma unroll
@@ -200,7 +261,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       long long page = pt[tc / S];
       page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
       const long long slot = page * S + tc % S;
-      row[u] = (slot * Hkv + hkv) * D;
+      row[u] = (slot * Hkv + hkv) * rs;
       ksc[u] = 0.f;
       vsc[u] = 0.f;
       if constexpr (QUANT) {
@@ -317,6 +378,17 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     }
   }
   __syncthreads();
+  // the new token's scores, when this block is the only split (block-uniform)
+  __shared__ float sm_new[GMAX];
+  const bool fold = FUSED && splits == 1;
+  if (fold) {
+    const bf16* kn = fz.k_new + ((long long)b * Hkv + hkv) * D;
+    for (int g = 0; g < gn; ++g) {
+      const float s_new = block_dot(q + ((long long)b * Hq + hkv * G + g0 + g) * D, kn, D, scale);
+      if (threadIdx.x == 0) sm_new[g] = s_new;
+    }
+    __syncthreads();
+  }
   for (int i = threadIdx.x; i < gn * D; i += NT) {
     const int g = i / D;
     const int d = i - g * D;
@@ -329,6 +401,14 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       const float f = __expf(sm_m[w * GMAX + g] - M);
       L += sm_l[w * GMAX + g] * f;
       A += sm_acc[(w * GMAX + g) * D + d] * f;
+    }
+    if (fold) {  // one more partial: m = s_new, l = 1, acc = v_new
+      const float s_new = sm_new[g];
+      const float M2 = fmaxf(M, s_new);
+      const float fa = __expf(M - M2), fb = __expf(s_new - M2);
+      const float vn = __bfloat162float(fz.v_new[((long long)b * Hkv + hkv) * D + d]);
+      L = L * fa + fb;
+      A = A * fa + vn * fb;
     }
     const long long bh = (long long)b * Hq + hkv * G + g0 + g;
     if (splits == 1) {
@@ -344,61 +424,78 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   }
 }
 
-// out[b, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-20)
-__global__ void __launch_bounds__(128) paged_decode_merge_kernel(
+// out[b, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-20);
+// FUSED adds the new token's column as one more partial (m = scale * q .
+// k_new, l = 1, acc = v_new)
+template <bool FUSED>
+__global__ void __launch_bounds__(NT) paged_decode_merge_kernel(
     bf16* __restrict__ out,            // [B * Hq, D]
     const float* __restrict__ part_acc,  // [B * Hq, splits, D]
     const float* __restrict__ part_ml,   // [B * Hq, splits, 2]
-    int D, int splits) {
+    const bf16* __restrict__ q,          // [B * Hq, D] (FUSED)
+    FusedRows fz, int Hkv, int G, int D, int splits, float scale) {
   const long long bh = blockIdx.x;
   const float* ml = part_ml + bh * splits * 2;
   float M = NEG_INF;
   for (int s = 0; s < splits; ++s) M = fmaxf(M, ml[2 * s]);
-  float L = 0.f;
+  const bf16* vn = nullptr;
+  float s_new = NEG_INF;
+  if constexpr (FUSED) {
+    const long long kv_row = (bh / (Hkv * G)) * Hkv + (bh % (Hkv * G)) / G;
+    s_new = block_dot(q + bh * D, fz.k_new + kv_row * D, D, scale);
+    vn = fz.v_new + kv_row * D;
+    M = fmaxf(M, s_new);
+  }
+  float L = FUSED ? __expf(s_new - M) : 0.f;
   for (int s = 0; s < splits; ++s) L += ml[2 * s + 1] * __expf(ml[2 * s] - M);
   const float inv = 1.f / fmaxf(L, 1e-20f);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float a = 0.f;
+    if constexpr (FUSED) a = __bfloat162float(vn[d]) * __expf(s_new - M);
     for (int s = 0; s < splits; ++s) a += part_acc[(bh * splits + s) * D + d] * __expf(ml[2 * s] - M);
     out[bh * D + d] = __float2bfloat16(a * inv);
   }
 }
 
-template <typename T, int VEC, int NC, int GMAX>
+template <typename T, int VEC, int NC, int GMAX, bool FUSED>
 int launch(void* out, void* part_acc, void* part_ml, const void* q, const void* k_pool,
            const void* v_pool, const void* k_scales, const void* v_scales,
-           const void* page_tables, const void* context_lens, int B, int Hkv, int G, int groups,
-           int gt, int D, long long N, long long scale_stride, int maxp, int S, float scale,
-           int window, int lpt_log2, int splits, cudaStream_t stream) {
+           const void* page_tables, const void* context_lens, const FusedRows& fz, int B,
+           int Hkv, int G, int groups, int gt, int D, long long rs, long long N,
+           long long scale_stride, int maxp, int S, float scale, int window, int lpt_log2,
+           int splits, cudaStream_t stream) {
   const size_t smem = (size_t)NWARPS * GMAX * (2 + D) * sizeof(float);
-  paged_decode_kernel<T, VEC, NC, GMAX><<<dim3(splits, Hkv * groups, B), NT, smem, stream>>>(
-      (bf16*)out, (float*)part_acc, (float*)part_ml, (const bf16*)q, (const T*)k_pool,
-      (const T*)v_pool, (const float*)k_scales, (const float*)v_scales,
-      (const int32_t*)page_tables, (const int32_t*)context_lens, Hkv, G, gt, D, N,
-      scale_stride, maxp, S, scale, window, lpt_log2);
+  paged_decode_kernel<T, VEC, NC, GMAX, FUSED>
+      <<<dim3(splits, Hkv * groups, B), NT, smem, stream>>>(
+          (bf16*)out, (float*)part_acc, (float*)part_ml, (const bf16*)q, (const T*)k_pool,
+          (const T*)v_pool, (const float*)k_scales, (const float*)v_scales,
+          (const int32_t*)page_tables, (const int32_t*)context_lens, fz, Hkv, G, gt, D, rs, N,
+          scale_stride, maxp, S, scale, window, lpt_log2);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  paged_decode_merge_kernel<<<B * Hkv * G, 128, 0, stream>>>(
-      (bf16*)out, (const float*)part_acc, (const float*)part_ml, D, splits);
+  paged_decode_merge_kernel<FUSED><<<B * Hkv * G, NT, 0, stream>>>(
+      (bf16*)out, (const float*)part_acc, (const float*)part_ml, (const bf16*)q, fz, Hkv, G, D,
+      splits, scale);
   return (int)cudaGetLastError();
 }
 
 inline bool aligned(const void* p, int bytes) { return (uintptr_t)p % bytes == 0; }
 
 // Picks the vector width, the lanes per token and the query-row groups from D,
-// G and the pointers, and the context ranges from the block count, then
-// launches the matching instantiation.
-template <typename T>
+// G, the row stride rs and the pointers, and the context ranges from the
+// block count, then launches the matching instantiation.
+template <typename T, bool FUSED>
 int dispatch(void* out, void* part_acc, void* part_ml, const void* q, const void* k_pool,
              const void* v_pool, const void* k_scales, const void* v_scales,
-             const void* page_tables, const void* context_lens, int B, int Hkv, int G, int D,
-             long long N, long long scale_stride, int maxp, int S, float scale, int window,
-             int target_blocks, int max_splits, cudaStream_t stream) {
+             const void* page_tables, const void* context_lens, const FusedRows& fz, int B,
+             int Hkv, int G, int D, long long rs, long long N, long long scale_stride, int maxp,
+             int S, float scale, int window, int target_blocks, int max_splits,
+             cudaStream_t stream) {
   if (B == 0 || Hkv == 0 || G == 0) return 0;
-  if (D < 1 || D > DMAX || S < 1 || max_splits < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > DMAX || rs < D || S < 1 || max_splits < 1) return (int)cudaErrorInvalidValue;
   const int es = (int)sizeof(T);
   auto fits = [&](int vec) {
-    return D % vec == 0 && aligned(q, 2 * vec) && aligned(k_pool, es * vec) &&
+    return D % vec == 0 && rs % vec == 0 && aligned(q, 2 * vec) && aligned(k_pool, es * vec) &&
            aligned(v_pool, es * vec);
   };
   const int vec = fits(8) ? 8 : (fits(2) ? 2 : 1);
@@ -419,11 +516,12 @@ int dispatch(void* out, void* part_acc, void* part_ml, const void* q, const void
   const long long cells = (long long)B * Hkv * groups;
   const int splits = (int)std::max(1LL, std::min<long long>((target_blocks + cells - 1) / cells,
                                                             max_splits));
-#define ZT_CASE(V, C, GM)                                                                  \
-  if (vec == V && nc == C && gmax == GM)                                                   \
-    return launch<T, V, C, GM>(out, part_acc, part_ml, q, k_pool, v_pool, k_scales, v_scales, \
-                               page_tables, context_lens, B, Hkv, G, groups, gt, D, N,      \
-                               scale_stride, maxp, S, scale, window, lpt_log2, splits, stream);
+#define ZT_CASE(V, C, GM)                                                                   \
+  if (vec == V && nc == C && gmax == GM)                                                    \
+    return launch<T, V, C, GM, FUSED>(out, part_acc, part_ml, q, k_pool, v_pool, k_scales,  \
+                                      v_scales, page_tables, context_lens, fz, B, Hkv, G,   \
+                                      groups, gt, D, rs, N, scale_stride, maxp, S, scale,   \
+                                      window, lpt_log2, splits, stream);
   // eight elements a lane: D % 8 == 0; even D of 130-256; odd D of 129-256
   ZT_CASE(8, 1, 1) ZT_CASE(8, 1, 2) ZT_CASE(8, 1, 4)
   ZT_CASE(2, 4, 1) ZT_CASE(2, 4, 2) ZT_CASE(2, 4, 4)

@@ -21,7 +21,11 @@ preemption) move rows of every array of the cache, so they serve both kinds;
 With ``ZT_WINDOW_KV=1`` in the environment when the executor is built, decode
 windows keep each layer's new rows in side buffers and write the pool once at
 the window's end (:meth:`_use_side_window` says when), as the reference's
-``ZT_WINDOW_KV=1`` does.
+``ZT_WINDOW_KV=1`` does. With ``ZT_FUSED_KV=1`` there, the decode steps that
+take no side buffer write each layer's new rows inside the attention kernel
+(``DecodeMeta.fused``; over slot-major model-dtype pools and latent pools
+only, as the reference routes it). Both switches are read once, when the
+executor is built; the reference reads them when it traces a decode program.
 """
 
 from __future__ import annotations
@@ -109,6 +113,8 @@ class ModelExecutor:
         # window side-KV, read once per executor as the reference reads it
         # once per decode program
         self.window_kv = os.environ.get("ZT_WINDOW_KV") == "1"
+        # fused write + attend in decode steps, read once likewise
+        self.fused_kv = os.environ.get("ZT_FUSED_KV") == "1"
 
     # ------------------------------------------------------------------
     # sizing
@@ -415,7 +421,8 @@ class ModelExecutor:
                 page = d_pt.gather(1, pidx)[:, 0]
                 slot = torch.where(valid, page * S + d_pos % S, -1).to(torch.int32)
                 meta = DecodeMeta(
-                    positions=d_pos, slot_mapping=slot, page_tables=d_pt, context_lens=d_ctx
+                    positions=d_pos, slot_mapping=slot, page_tables=d_pt, context_lens=d_ctx,
+                    fused=self.fused_kv,
                 )
                 if side:
                     side_valid[:, k] = valid

@@ -61,6 +61,9 @@ class DecodeMeta:
     slot_mapping: torch.Tensor  # [B] int32 flat cache slot; -1 inactive
     page_tables: torch.Tensor   # [B, max_pages] int32; -1 pad
     context_lens: torch.Tensor  # [B] int32, includes the new token
+    # write the new rows inside the attention kernel (ZT_FUSED_KV=1, where the
+    # pool allows: models/llama._use_fused_write)
+    fused: bool = False
 
     @property
     def batch(self) -> int:

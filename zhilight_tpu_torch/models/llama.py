@@ -34,7 +34,16 @@ the executor): :func:`forward_decode_window` keeps each layer's new K|V rows
 kernel returns flash partials over the pool as it was when the window began,
 and the side rows are attended and merged in plain torch, on the GPU too, as
 the reference leaves them to XLA. :func:`flush_window_rows` writes the
-window's rows once at its end. Fused write+attend is a later slice.
+window's rows once at its end.
+
+Fused write + attend (``ZT_FUSED_KV=1``, read by the executor, which sets
+``DecodeMeta.fused``): a decode step over slot-major pools in the model dtype
+(never int8, never the packed head-major pool: :func:`_use_fused_write`)
+skips ``write_kv`` and calls ``ops.cuda.paged_attention``'s
+``paged_decode_attention_fused``, which writes the rows and attends in one
+kernel (its plain version for CPU tensors); an MLA model's decode step calls
+``paged_mla_decode_fused`` over its latent pool (``models/mla.py``). Prefill
+never fuses, and a decode window with side buffers takes precedence.
 """
 
 from __future__ import annotations
@@ -109,6 +118,12 @@ def _maybe_qk_norm(p: Params, cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor
     return norm(q, p["q_norm"]["w"], cfg.eps), norm(k, p["k_norm"]["w"], cfg.eps)
 
 
+def _use_fused_write(cache: KVCache, fused: bool) -> bool:
+    """The fused write + attend decode (``zhilight_tpu/models/llama.py:105-120``):
+    asked for, over slot-major pools in the model dtype only."""
+    return fused and not cache.quantized and not cache.packed
+
+
 def attention_layer(
     p: Params,
     cfg: ModelConfig,
@@ -138,8 +153,14 @@ def attention_layer(
         out, rows = _side_window_attention(cache, layer_idx, q, k, v, meta, side, scale)
         return linear(p["o_proj"], out), cache, rows
 
-    cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
     S, sw = cache.page_size, cfg.sliding_window
+    if mode == "decode" and _use_fused_write(cache, meta.fused):
+        out = paged_attention.paged_decode_attention_fused(
+            q, cache.k[layer_idx], cache.v[layer_idx], k, v, meta.slot_mapping,
+            meta.page_tables, meta.context_lens, S, scale, sw)
+        return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+
+    cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
     if not cache.packed:
         out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
         return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache

@@ -25,8 +25,12 @@ In a decode window with side-buffered writes (``side``, ``ZT_WINDOW_KV=1``)
 the step's latent row goes into the window's side buffer instead of the pool;
 the latent decode kernel returns flash partials over the pool and
 :func:`_side_window_mla` merges the window's rows in plain torch
-(``zhilight_tpu/models/mla.py:215-281``). The fused latent write + attend
-(``ZT_FUSED_KV``) of the reference is a later slice.
+(``zhilight_tpu/models/mla.py:215-281``). A decode step with
+``DecodeMeta.fused`` (``ZT_FUSED_KV=1``; the side buffer takes precedence)
+skips ``write_latent`` and calls ``ops.cuda.paged_attention``'s
+``paged_mla_decode_fused``, which writes the latent row and attends in one
+kernel, on the CPU too through its plain version
+(``zhilight_tpu/models/mla.py:175-179, 190-212``).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 from ..config.model_config import ModelConfig
 from ..kvcache.paged import KVCache, gather_latent, write_latent
 from ..ops.attention import NEG_INF, merge_window
-from ..ops.cuda import attn_headmajor
+from ..ops.cuda import attn_headmajor, paged_attention
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
 from ..ops.rope import RopeTable, apply_rope_rot
@@ -129,6 +133,9 @@ def mla_attention_layer(
         out, rows = _side_window_mla(cache, layer_idx, q_nope, q_pe, latent, w_uk, w_uv, meta,
                                      side, scale, m)
         return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache, rows
+    if mode == "decode" and meta.fused:
+        out = _mla_decode_fused(q_nope, q_pe, latent, cache, layer_idx, w_uk, w_uv, meta, scale, m)
+        return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache
     cache = write_latent(cache, layer_idx, latent, meta.slot_mapping)
 
     if mode == "prefill" and isinstance(meta, PackedPrefillMeta):
@@ -167,6 +174,23 @@ def _mla_decode_kernel(q_nope, q_pe, cache, layer_idx, w_uk, w_uv, meta, scale, 
     out_latent = attn_headmajor.paged_mla_decode(
         _q_eff(q_nope, q_pe, w_uk),
         cache.latent[layer_idx][0],
+        meta.page_tables,
+        meta.context_lens,
+        cache.page_size,
+        scale,
+        v_dim=m.kv_lora_rank,
+    )
+    return _einsum_f32("bhl,lhv->bhv", out_latent, w_uv).to(q_nope.dtype)
+
+
+def _mla_decode_fused(q_nope, q_pe, latent, cache, layer_idx, w_uk, w_uv, meta, scale, m):
+    """The step's latent rows written and attended in one kernel; the output
+    up-projection multiplies in fp32."""
+    out_latent = paged_attention.paged_mla_decode_fused(
+        _q_eff(q_nope, q_pe, w_uk),
+        cache.latent[layer_idx],
+        latent,
+        meta.slot_mapping,
         meta.page_tables,
         meta.context_lens,
         cache.page_size,

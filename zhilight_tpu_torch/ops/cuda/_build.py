@@ -32,7 +32,8 @@ _BUILD = _PKG / "build"
 
 SOURCES = ("kv_write", "attn_headmajor", "attn_headmajor_q", "prefill_attention",
            "prefill_attention_q", "quant_matmul", "kv_write_2d", "mla_decode", "quant_ragged",
-           "fp8_matmul", "kv_write_pair", "paged_attention", "paged_attention_q", "kv_flush")
+           "fp8_matmul", "kv_write_pair", "paged_attention", "paged_attention_q", "kv_flush",
+           "paged_attention_fused")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -131,7 +131,7 @@ def _pool_2d(pool: torch.Tensor) -> torch.Tensor:
     if pool.dim() == 3 and pool.shape[0] == 1:
         return pool[0]
     if pool.dim() != 2:
-        raise ValueError(f"write_rows_2d: pool must be [N, X] or [1, N, X], got {tuple(pool.shape)}")
+        raise ValueError(f"2-D pool: must be [N, X] or [1, N, X], got {tuple(pool.shape)}")
     return pool
 
 

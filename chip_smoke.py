@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
     python3 chip_smoke.py                         # every phase
     python3 chip_smoke.py --phases kernels,serve  # a subset
+    python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
 ``nvcc`` per source, all started together) and runs these phases:
@@ -12,7 +13,10 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
   kernels  each CUDA kernel against its plain PyTorch version (bf16 queries;
            bf16 and int8 pools) at the shapes the main paths give it, and
            timed beside its bound, the plain version and one PyTorch library
-           call (CUDA events, median), at MiniCPM-2B's, Qwen2.5-14B's and
+           call (device time: CUDA events around each call, queued behind a
+           sleep kernel so no host time falls between them, median; the bf16
+           head-major decode and prefill also without that backlog, the
+           per-call cost a host-bound path pays), at MiniCPM-2B's, Qwen2.5-14B's and
            DeepSeek-V2-Lite's shapes (latent row write, MLA latent decode,
            grouped int4 matmul over the expert stacks), and the FP8 block
            matmul at Qwen3-8B's seven projection shapes, M = 8 and 512;
@@ -28,7 +32,14 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            slot-major pools (H2O-Danube-1.8B's and Qwen2.5-14B's heads),
            the packed single pool and the latent pool (DeepSeek-V2-Lite's),
            pools bit-exact, timed beside the unfused pair of port kernels
-           they replace and a library pair;
+           they replace and a library pair. The bf16 head-major decode and
+           prefill are also held at their split edges (contexts 1, 64, 65, a
+           split boundary, a window across splits, an empty slot) and at
+           head_dim 192 and 256 with up to 40 query heads a KV head, and timed
+           at head_dim 256 (16 / 8 heads); with ``--parent-csrc DIR`` the
+           attn_headmajor.cu and prefill_attention.cu in DIR (an earlier
+           tree's) are built apart with nvcc and timed beside this tree's in
+           turns at MiniCPM-2B's and Qwen2.5-14B's shapes;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -350,12 +361,34 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3, flush=None) -> float:
+# GPU clock cycles a second, no fewer than the H100's 1.98 GHz boost clock: a
+# backlog sized with it lasts at least as long as asked
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 3, flush=None, backlog: bool = True) -> float:
     """Median device time of one call, by CUDA events around each call;
-    ``flush`` runs before each call, outside the events."""
+    ``flush`` runs before each call, outside the events.
+
+    With ``backlog`` (the default) the stream first runs a sleep kernel
+    (``torch.cuda._sleep``) twice as long as the host took to enqueue the
+    same calls in a probe run, so every event pair is enqueued before the
+    device reaches it and measures device time alone: the wrapper's Python
+    checks between two calls are hidden behind the backlog. Without it the
+    device idles between calls and an event pair also holds the host time a
+    call spends before its launch: the per-call cost a host-bound path pays."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if backlog:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S) + 2_000_000)
     events = []
     for _ in range(reps):
         if flush is not None:
@@ -715,6 +748,8 @@ def time_decode(rng, A, B, Hq, Hkv, D, CTX, int8) -> dict:
         plain_ms=time_ms(lambda: plain(*args), reps=10),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, **gqa)),
         bound_ms=t_b, bound_by=by,
+        # the same call without the backlog: device time plus the wrapper's host time
+        call_ms=time_ms(lambda: fn(*args), backlog=False),
     )
 
 
@@ -787,7 +822,112 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
         library_ms=time_ms(
             lambda: F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, **gqa)),
         bound_ms=t_b, bound_by=by,
+        call_ms=time_ms(lambda: fn(*args), backlog=False),
     )
+
+
+def parent_kernels(csrc: str):
+    """The bf16 head-major decode and prefill kernels of an earlier tree
+    (``csrc`` holds its attn_headmajor.cu and prefill_attention.cu), built
+    by nvcc with this tree's flags into a temporary directory and driven
+    through their own C signatures: (decode(q, pool, tables, ctx, S, scale,
+    partial), prefill(q, pool, tables, cache_lens, q_lens, S, scale))."""
+    import ctypes
+    import tempfile
+
+    from zhilight_tpu_torch.ops.cuda import _build
+
+    out_dir = tempfile.mkdtemp(prefix="zt_parent_")
+    libs = {}
+    procs = [(name, subprocess.Popen(
+        [_build._nvcc(), *_build._FLAGS, "-o", f"{out_dir}/{name}.so", f"{csrc}/{name}.cu"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in ("attn_headmajor", "prefill_attention")]
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"parent {name}: nvcc exit {proc.returncode}\n{log}")
+        libs[name] = ctypes.CDLL(f"{out_dir}/{name}.so")
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    dec = libs["attn_headmajor"].zt_decode_attention_hm
+    dec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ll, i, i, f, i, p]
+    pre = libs["prefill_attention"].zt_prefill_attention_hm
+    pre.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, i, i, f, i, p]
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def decode(q, pool, tables, ctx, S, scale, partial=False):
+        B, Hq, D = q.shape
+        Hkv, N, _ = pool.shape
+        if partial:
+            acc = torch.empty(B, Hq, D, dtype=torch.float32, device=q.device)
+            m, l = (torch.empty(B, Hq, dtype=torch.float32, device=q.device) for _ in range(2))
+            ptrs, out = (acc.data_ptr(), m.data_ptr(), l.data_ptr()), (m, l, acc)
+        else:
+            out = torch.empty_like(q)
+            ptrs = (out.data_ptr(), None, None)
+        _build.check(dec(*ptrs, q.data_ptr(), pool.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
+                         B, Hkv, Hq // Hkv, D, N, tables.shape[1], S, scale, 0, stream()),
+                     "parent decode")
+        return out
+
+    def prefill(q, pool, tables, cache_lens, q_lens, S, scale):
+        T, Hq, D = q.shape
+        Hkv, N, _ = pool.shape
+        NS = tables.shape[0]
+        out = torch.empty_like(q)
+        _build.check(pre(out.data_ptr(), q.data_ptr(), pool.data_ptr(), tables.data_ptr(),
+                         cache_lens.data_ptr(), q_lens.data_ptr(), NS, T // NS, Hq, Hkv, D, N,
+                         tables.shape[1], S, scale, 0, stream()), "parent prefill")
+        return out
+
+    return decode, prefill
+
+
+def compare_parent(rng, A, P, csrc: str) -> None:
+    """Rows 2, 2p and 3 of an earlier tree against this tree's, in turns
+    (parent, this tree, this tree, parent) on the same inputs, device time by
+    the same ``time_ms``; also held against each other. One JSON line."""
+    S = 16
+    decode, prefill = parent_kernels(csrc)
+    res = {}
+
+    def turns(label, old, new):
+        t = [time_ms(old), time_ms(new), time_ms(new), time_ms(old)]
+        res[label] = dict(parent_ms=[t[0], t[3]], new_ms=[t[1], t[2]])
+        print(f"kernels: parent vs this tree, {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"this tree {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+
+    for B, heads, CTX, model in ((16, MINICPM_HEADS, 512, "MiniCPM-2B batch 16, context 512"),
+                                 (8, QWEN_HEADS, 3712, "Qwen2.5-14B batch 8, context 3712")):
+        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
+        maxp = CTX // S + 2
+        tables = _dev(np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32))
+        pool = _randn(rng, Hkv, B * maxp * S, 2 * D)
+        q, ctx, scale = _randn(rng, B, Hq, D), _dev(np.full(B, CTX, np.int32)), 1.0 / np.sqrt(D)
+        e = (decode(q, pool, tables, ctx, S, scale).float()
+             - A.paged_decode_attention_hm(q, pool, tables, ctx, S, scale).float()).abs().max()
+        if not e <= ATTN_TOL:
+            raise AssertionError(f"parent vs this tree, decode {model}: {e}")
+        turns(f"row 2, {model}", lambda: decode(q, pool, tables, ctx, S, scale),
+              lambda: A.paged_decode_attention_hm(q, pool, tables, ctx, S, scale))
+        turns(f"row 2p, {model}", lambda: decode(q, pool, tables, ctx, S, scale, partial=True),
+              lambda: A.paged_decode_attention_hm_partial(q, pool, tables, ctx, S, scale))
+    for heads, model in ((MINICPM_HEADS, "MiniCPM-2B"), (QWEN_HEADS, "Qwen2.5-14B")):
+        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
+        CL, QL = 3200, 512
+        tables, npages = _paged(rng, [CL + QL], S)
+        tables = _dev(tables)
+        pool = _randn(rng, Hkv, npages * S, 2 * D)
+        q = _randn(rng, QL, Hq, D)
+        cl, ql, scale = _dev(np.array([CL], np.int32)), _dev(np.array([QL], np.int32)), 1.0 / np.sqrt(D)
+        e = (prefill(q, pool, tables, cl, ql, S, scale).float() - P.paged_prefill_attention_hm_packed(
+            q, pool, tables, cl, ql, S, scale).float()).abs().max()
+        if not e <= ATTN_TOL:
+            raise AssertionError(f"parent vs this tree, prefill {model}: {e}")
+        turns(f"row 3, {model} 512-token chunk at cache 3200",
+              lambda: prefill(q, pool, tables, cl, ql, S, scale),
+              lambda: P.paged_prefill_attention_hm_packed(q, pool, tables, cl, ql, S, scale))
+    print(json.dumps({"parent_compare": res}), flush=True)
 
 
 def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
@@ -796,6 +936,8 @@ def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
     rec[name].update(shapes[main], max_abs_err=err, shape=main, shapes=shapes)
     for label, r in shapes.items():
         pair = f" unfused_pair_ms={r['unfused_pair_ms']:.4f}" if "unfused_pair_ms" in r else ""
+        if "call_ms" in r:
+            pair += f" call_ms={r['call_ms']:.4f} (host-inclusive, no backlog)"
         print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
               f"library_ms={_ms(r['library_ms'])}{pair}", flush=True)
@@ -806,7 +948,15 @@ def _ms(t) -> str:
     return "null" if t is None else f"{t:.4f}"
 
 
-def phase_kernels(rec: dict) -> None:
+# the bf16 decode kernel's split edges at Qwen2.5-14B's heads and batch (9
+# splits of whole 64-token tiles of each sequence): contexts 1, 64, 65, 1152
+# (every split full), 1153 (a last split of one token), an empty slot
+SPLIT_CTX = [3712, 1, 0, 64, 65, 1152, 1153, 2000]
+# head_dim 256 at Gemma-2-9B's attention geometry (16 / 8 heads of 256)
+GEMMA2_HEADS = dict(Hq=16, Hkv=8, D=256)
+
+
+def phase_kernels(rec: dict, args) -> None:
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import prefill_attention as P
@@ -836,8 +986,21 @@ def phase_kernels(rec: dict) -> None:
         dict(B=8, **qwen, ctx=[3712, 7, 513, 1500, 100, 16, 250, 3201], window=0),
         dict(B=8, **qwen, ctx=[3712, 7, 0, 1500, 100, 16, 250, 3201], window=300),
     ]
+    # the bf16 kernel's split edges, and the head dims and groups it takes
+    # beyond the int8 kernel's (G 16 at 128 and 256, G 4 at 192, G 20 at 64)
+    bf16_decode_cases = [
+        dict(B=8, **qwen, ctx=SPLIT_CTX, window=0),
+        dict(B=8, **qwen, ctx=SPLIT_CTX, window=700),  # a window across splits
+        dict(B=8, Hq=16, Hkv=4, D=192, ctx_max=3000, window=0),
+        dict(B=8, Hq=32, Hkv=2, D=256, ctx_max=3000, window=0),
+        dict(B=8, Hq=32, Hkv=2, D=128, ctx_max=3000, window=0),
+        dict(B=8, Hq=40, Hkv=2, D=64, ctx_max=700, window=0),
+        dict(B=8, **GEMMA2_HEADS, ctx=SPLIT_CTX, window=300),
+    ]
     for int8, name in ((False, "paged_decode_attention_hm"), (True, "paged_decode_attention_hm_q")):
         err = check_decode(rng, A, decode_cases, int8)
+        if not int8:  # inputs of their own, so the earlier cases keep theirs
+            err = max(err, check_decode(np.random.default_rng(1), A, bf16_decode_cases, False))
         kind = "int8" if int8 else "bf16"
         shapes = {
             # bench.py's decode shape, and the Qwen serving stage's
@@ -846,6 +1009,9 @@ def phase_kernels(rec: dict) -> None:
             f"Qwen2.5-14B batch 8, context 3712, {kind} pool":
                 time_decode(rng, A, 8, **qwen, CTX=3712, int8=int8),
         }
+        if not int8:
+            shapes["head_dim 256 (16 / 8 heads) batch 8, context 3712, bf16 pool"] = time_decode(
+                np.random.default_rng(4), A, 8, **GEMMA2_HEADS, CTX=3712, int8=False)
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
 
     # -- prefill attention: bf16 pool, then int8 pool --------------------------
@@ -858,9 +1024,18 @@ def phase_kernels(rec: dict) -> None:
         dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **qwen),
         dict(cache_lens=[700, 40], q_lens=[128, 90], TC=128, window=200, **qwen),
     ]
+    # head dims 192 and 256: a windowed chunk that starts and ends mid-page
+    bf16_prefill_cases = [
+        dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, Hq=8, Hkv=4, D=192),
+        dict(cache_lens=[3205], q_lens=[300], TC=320, window=1000, **GEMMA2_HEADS),
+        dict(cache_lens=[0, 45], q_lens=[96, 50], TC=96, Hq=32, Hkv=2, D=256),
+        dict(cache_lens=[3205, 20], q_lens=[300, 77], TC=320, window=700, **qwen),
+    ]
     for int8, name in ((False, "paged_prefill_attention_hm_packed"),
                        (True, "paged_prefill_attention_hm_packed_q")):
         err = check_prefill(rng, P, prefill_cases, int8)
+        if not int8:
+            err = max(err, check_prefill(np.random.default_rng(2), P, bf16_prefill_cases, False))
         kind = "int8" if int8 else "bf16"
         shapes = {
             f"MiniCPM-2B 512-token chunk at cache 3200, {kind} pool":
@@ -868,7 +1043,13 @@ def phase_kernels(rec: dict) -> None:
             f"Qwen2.5-14B 512-token chunk at cache 3200, {kind} pool":
                 time_prefill(rng, P, **qwen, CL=3200, QL=512, int8=int8),
         }
+        if not int8:
+            shapes["head_dim 256 (16 / 8 heads) 512-token chunk at cache 3200, bf16 pool"] = (
+                time_prefill(np.random.default_rng(5), P, **GEMMA2_HEADS, CL=3200, QL=512,
+                             int8=False))
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
+    if args.parent_csrc:
+        compare_parent(np.random.default_rng(6), A, P, args.parent_csrc)
 
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
@@ -1383,7 +1564,7 @@ def kernels_window(rec: dict, rng) -> None:
     S = 16
     mini, qwen = MINICPM_HEADS, QWEN_HEADS
 
-    def partial_case(B, Hq, Hkv, D, ctx, int8):
+    def partial_case(B, Hq, Hkv, D, ctx, int8, rng=rng):
         ctx = np.asarray(ctx, np.int32)
         tables, npages = _paged(rng, ctx, S)
         pools, _ = _pool_args(rng, Hkv, npages * S, D, int8)
@@ -1407,9 +1588,15 @@ def kernels_window(rec: dict, rng) -> None:
         plain = (A.paged_decode_attention_hm_q_partial_plain if int8
                  else A.paged_decode_attention_hm_partial_plain)
         kind, err, shapes = "int8" if int8 else "bf16", 0.0, {}
-        for B, heads, ctx, label in ((16, mini, mini_ctx, "MiniCPM-2B batch 16, context 512"),
-                                     (8, qwen, qwen_ctx, "Qwen2.5-14B batch 8, pool lengths up to 3712")):
-            ctx, args = partial_case(B, **heads, ctx=ctx, int8=int8)
+        cases = [(16, mini, mini_ctx, "MiniCPM-2B batch 16, context 512", rng),
+                 (8, qwen, qwen_ctx, "Qwen2.5-14B batch 8, pool lengths up to 3712", rng)]
+        if not int8:  # the bf16 kernel's split edges, and head_dim 256, on inputs of their own
+            rng3 = np.random.default_rng(3)
+            cases += [(8, qwen, SPLIT_CTX, "Qwen2.5-14B batch 8, split edges", rng3),
+                      (8, GEMMA2_HEADS, SPLIT_CTX, "head_dim 256 (16 / 8 heads), split edges",
+                       rng3)]
+        for B, heads, ctx, label, case_rng in cases:
+            ctx, args = partial_case(B, **heads, ctx=ctx, int8=int8, rng=case_rng)
             e = _partial_err(fn(*args), plain(*args), ctx)
             print(f"kernels: {name} {label}: partial err {e:.3e}", flush=True)
             if not e <= ATTN_TOL:
@@ -2948,6 +3135,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="kernels,serve,timing")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent-csrc", default="",
+                    help="a directory holding an earlier attn_headmajor.cu and "
+                         "prefill_attention.cu: build them apart and time them beside this "
+                         "tree's kernels in the kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]
@@ -2979,7 +3170,7 @@ def main() -> int:
         t0 = time.monotonic()
         try:
             if phase == "kernels":
-                phase_kernels(rec)
+                phase_kernels(rec, args)
             elif phase == "serve":
                 phase_serve(rec, args)
             elif phase == "timing":

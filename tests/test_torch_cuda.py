@@ -99,29 +99,57 @@ def test_write_rows_hm_is_exact(cuda, start, n, H, D):
     assert torch.equal(got, W.write_rows_hm_plain(pool.clone(), k, v, slots))
 
 
+# the bf16 decode kernel's split edges at Qwen2.5-14B's heads and batch (9
+# splits of whole 64-token tiles of each sequence): contexts 1, 64 and 65 (one
+# tile, two), 1152 (18 tiles, 2 a split: every split full), 1153 (a last
+# split of one token), an empty slot with page-table rows of -1
+_SPLIT_CTX = [3712, 1, 0, 64, 65, 1152, 1153, 2000]
+
+
+def _ctx(rng, ctx, B=8):
+    """Contexts: a list as given, or random up to ``ctx`` with slot 0 at
+    ``ctx`` and slot 2 empty."""
+    if isinstance(ctx, list):
+        return np.array(ctx, np.int32)
+    lens = rng.integers(1, ctx, B).astype(np.int32)
+    lens[0], lens[2] = ctx, 0
+    return lens
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,D,window,ctx_max", [
+@pytest.mark.parametrize("hq,hkv,D,window,ctx", [
     (36, 36, 64, 0, 700), (32, 8, 128, 0, 700), (16, 1, 64, 50, 700),
     (40, 8, 128, 0, 3712),  # Qwen2.5-14B at its serving batch and context
+    (40, 8, 128, 0, _SPLIT_CTX), (40, 8, 128, 700, _SPLIT_CTX),  # a window across splits
+    # head dims and groups the bf16 kernel took from this slice on: G 4 at
+    # 192, G 16 at 256 and 128, G 20 (two row groups) at 64, a window at 256
+    (16, 4, 192, 0, 3000), (32, 2, 256, 0, 3000), (32, 2, 128, 0, 3000),
+    (40, 2, 64, 0, 700), (16, 8, 256, 300, _SPLIT_CTX),
 ])
-def test_decode_attention_matches_plain(cuda, hq, hkv, D, window, ctx_max):
+def test_decode_attention_matches_plain(cuda, hq, hkv, D, window, ctx):
+    """The kernel against the plain version; an empty slot gives zeros; a
+    second call gives the same bits (the split merge runs in fixed order)
+    and leaves the merge's tickets at zero."""
     rng = np.random.default_rng(hq + D)
-    B = 8
-    ctx = rng.integers(1, ctx_max, B).astype(np.int32)
-    ctx[0] = ctx_max
-    ctx[2] = 0
+    ctx = _ctx(rng, ctx)
+    B = len(ctx)
     tables, npages = _tables(rng, ctx, cuda)
     pool = _bf16(rng, cuda, hkv, npages * S, 2 * D)
     args = (_bf16(rng, cuda, B, hq, D), pool, tables, torch.from_numpy(ctx).to(cuda), S,
             1.0 / np.sqrt(D), window)
     got = A.paged_decode_attention_hm(*args)
     want = A.paged_decode_attention_hm_plain(*args)
-    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    empty = torch.from_numpy(ctx == 0).to(cuda)
+    assert not got[empty].any()
     assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert torch.equal(A.paged_decode_attention_hm(*args), got)
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in A._TICKETS.values())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,D", [(8, 2, 64), (36, 36, 64), (8, 8, 128), (40, 8, 128)])
+@pytest.mark.parametrize("hq,hkv,D", [(8, 2, 64), (36, 36, 64), (8, 8, 128), (40, 8, 128),
+                                      (8, 4, 192), (16, 8, 256), (32, 2, 256)])
 def test_prefill_attention_matches_plain(cuda, hq, hkv, D):
     rng = np.random.default_rng(hq + D)
     TC = 96
@@ -154,6 +182,30 @@ def test_prefill_attention_long_context_matches_plain(cuda, hq, hkv, D):
     got = P.paged_prefill_attention_hm_packed(*args)
     want = P.paged_prefill_attention_hm_packed_plain(*args)
     assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,D,window", [(40, 8, 128, 700), (16, 8, 256, 1000),
+                                             (8, 4, 192, 300)])
+def test_prefill_attention_windowed_long_context_matches_plain(cuda, hq, hkv, D, window):
+    """A sliding window over a long cache: a 300-token chunk that starts and
+    ends mid-page (cache 3205) and mid-tile, packed beside a short segment."""
+    rng = np.random.default_rng(hq + D)
+    TC = 320
+    cache_lens = np.array([3205, 20], np.int32)
+    q_lens = np.array([300, 77], np.int32)
+    tables, npages = _tables(rng, cache_lens + q_lens, cuda)
+    pool = _bf16(rng, cuda, hkv, npages * S, 2 * D)
+    lens = lambda a: torch.from_numpy(a).to(cuda)
+    args = (_bf16(rng, cuda, 2 * TC, hq, D), pool, tables, lens(cache_lens), lens(q_lens), S,
+            1.0 / np.sqrt(D), window)
+    got = P.paged_prefill_attention_hm_packed(*args)
+    want = P.paged_prefill_attention_hm_packed_plain(*args)
+    assert torch.isfinite(got).all()
+    for s, ql in enumerate(q_lens.tolist()):
+        rows = slice(s * TC, s * TC + ql)
+        assert (got[rows].float() - want[rows].float()).abs().max().item() <= TOL
+        assert not got[s * TC + ql : (s + 1) * TC].any()  # padding rows are zeros
 
 
 def _int8_pool(rng, device, hkv, slots, D):
@@ -459,6 +511,25 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         A.paged_decode_attention_hm_q(qb, pool8, sc[:, :10], sc, tables, ctx, S, 0.125)
     with pytest.raises(NotImplementedError):  # the partial mode takes what the kernel takes
         A.paged_decode_attention_hm_q(q, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)
+    # head_dim 256: the bf16 kernels run it, the int8 ones raise; head_dim 96
+    # (a slot-major pool in the engine) no head-major kernel takes
+    q256, pool256 = torch.zeros(2, 4, 256, dtype=torch.bfloat16, device=cuda), torch.zeros(
+        4, 64, 512, dtype=torch.bfloat16, device=cuda)
+    assert not A.paged_decode_attention_hm(q256, pool256, tables, ctx, S, 0.125).isnan().any()
+    assert P.paged_prefill_attention_hm_packed(q256, pool256, tables[:1], ctx[:1], ctx[:1], S,
+                                               0.125).shape == q256.shape
+    pool8_256 = pool256.to(torch.int8)
+    with pytest.raises(NotImplementedError):
+        A.paged_decode_attention_hm_q(q256, pool8_256, sc, sc, tables, ctx, S, 0.125)
+    with pytest.raises(NotImplementedError):
+        P.paged_prefill_attention_hm_packed_q(q256, pool8_256, sc, sc, tables[:1], ctx[:1],
+                                              ctx[:1], S, 0.125)
+    q96 = torch.zeros(2, 4, 96, dtype=torch.bfloat16, device=cuda)
+    pool96 = torch.zeros(4, 64, 192, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):
+        A.paged_decode_attention_hm(q96, pool96, tables, ctx, S, 0.125)
+    with pytest.raises(NotImplementedError):
+        P.paged_prefill_attention_hm_packed(q96, pool96, tables[:1], ctx[:1], ctx[:1], S, 0.125)
     # the latent decode is built for bf16 rows of k_dim 576 / v_dim 512
     lat = torch.zeros(64, 576, dtype=torch.bfloat16, device=cuda)
     q576 = torch.zeros(2, 4, 576, dtype=torch.bfloat16, device=cuda)
@@ -818,11 +889,22 @@ def _partial_err(got, want, ctx):
 @pytest.mark.parametrize("B,hq,hkv,D,ctx", [
     (16, 36, 36, 64, None),                                   # MiniCPM-2B, context 512
     (8, 40, 8, 128, [3712, 7, 513, 0, 1500, 100, 16, 250]),  # Qwen2.5-14B
+    (8, 40, 8, 128, _SPLIT_CTX),                              # the bf16 kernel's split edges
+    (8, 16, 4, 192, _SPLIT_CTX), (8, 32, 2, 256, _SPLIT_CTX), (8, 32, 2, 128, _SPLIT_CTX),
 ])
 def test_decode_attention_partial_matches_plain(cuda, B, hq, hkv, D, ctx, int8):
+    """The partial modes against their plain versions. The int8 kernel keeps
+    its limits (D 64 with G <= 16, D 128 with G <= 8): past them it raises."""
     rng = np.random.default_rng(B + D)
     ctx = np.array(ctx if ctx else [512] * 5 + [0] + [512] * 10, np.int32)
     tables, npages = _tables(rng, ctx, cuda)
+    if int8 and not ((D == 64 and hq // hkv <= 16) or (D == 128 and hq // hkv <= 8)):
+        pools = _int8_pool(rng, cuda, hkv, npages * S, D)
+        with pytest.raises(NotImplementedError):
+            A.paged_decode_attention_hm_q(_bf16(rng, cuda, B, hq, D), *pools, tables,
+                                          torch.from_numpy(ctx).to(cuda), S, 0.1,
+                                          emit_partial=True)
+        return
     pools = _int8_pool(rng, cuda, hkv, npages * S, D) if int8 else (
         _bf16(rng, cuda, hkv, npages * S, 2 * D),)
     args = (_bf16(rng, cuda, B, hq, D), *pools, tables, torch.from_numpy(ctx).to(cuda), S,

@@ -102,6 +102,41 @@ def test_decode_attention_matches_pallas(hkv, hq, sliding_window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("D,hkv,hq,sliding_window", [
+    (192, 2, 8, 0),    # G 4 at head_dim 192
+    (256, 1, 16, 0),   # G 16 at 256
+    (128, 2, 32, 0),   # G 16 at 128
+    (256, 2, 4, 24),   # a sliding window at 256
+])
+def test_decode_attention_wide_heads_match_pallas(D, hkv, hq, sliding_window):
+    """The head dims and query groups the bf16 CUDA kernel takes beyond D 64
+    and 128 with G <= 8: its plain version against the Pallas kernel."""
+    q, k, v, tables, ctx = decode_setup(Hq=hq, Hkv=hkv, D=D, seed=D + hq)
+    pool = _pool(k, v)
+    scale = 1.0 / np.sqrt(D)
+    want = j_decode(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(tables), jnp.asarray(ctx),
+                    S, scale, sliding_window=sliding_window, interpret=True)
+    got = A.paged_decode_attention_hm(T(q), T(pool), T(tables), T(ctx), S, scale, sliding_window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("B,Hkv,G,max_ctx,capacity,want", [
+    (16, 36, 1, 4096, 792, 1),     # MiniCPM-2B's batch: 576 blocks in one wave, no split
+    (8, 8, 5, 3904, 264, 4),       # Qwen2.5-14B's: 64 blocks, 4 splits fill two an SM
+    (8, 8, 5, 64, 264, 1),         # one tile to split
+    (8, 8, 5, 0, 264, 1),          # nothing to address
+    (1, 1, 1, 1 << 20, 264, 64),   # the most splits the kernel takes
+    (8, 2, 40, 3000, 264, 5),      # G 40: three row groups of 16 a KV head
+    (32, 36, 1, 4096, 792, 1),     # more blocks than one wave: never fewer than 1
+])
+def test_decode_splits(B, Hkv, G, max_ctx, capacity, want):
+    """The bf16 decode kernel's split count: as many splits as keep every
+    block in one wave of ``capacity`` blocks, never more than the
+    addressable context has 64-token tiles (a split is whole tiles), at
+    least 1 and at most 64."""
+    assert A.decode_splits(B, Hkv, G, max_ctx, capacity) == want
+
+
 def test_decode_attention_empty_slot_is_zero_like_pallas():
     q, k, v, tables, ctx = decode_setup(B=3)
     ctx[1] = 0
@@ -128,6 +163,8 @@ def test_decode_attention_empty_slot_is_zero_like_pallas():
         (32, 160, 29, 4, 4, 64, 0),   # later chunk, MHA
         (48, 64, 48, 4, 4, 64, 40),   # sliding window
         (40, 0, 40, 8, 8, 128, 0),    # head_dim 128
+        (48, 0, 40, 8, 4, 192, 0),    # head_dim 192, GQA, padding rows
+        (32, 37, 29, 8, 2, 256, 24),  # head_dim 256: a window, a chunk not page-aligned
     ],
 )
 def test_prefill_attention_matches_pallas(n, cache_len, q_len, hq, hkv, D, window):

@@ -3,225 +3,446 @@
 // Replaces: zhilight_tpu/ops/pallas/attn_headmajor.py
 // paged_decode_attention_hm (:151), kernel _kernel_hm (:54), in its default
 // mode (normalized output) and its emit_partial mode (:126-139, the flash
-// partials of the decode-window side buffer); not its MLA v_dim mode.
+// partials of the decode-window side buffer); not its MLA v_dim mode
+// (csrc/mla_decode.cu).
 //
 // Computes, for each sequence b and query head h = hkv * G + g:
 //   out[b, h] = softmax(scale * q[b, h] . K[t]) . V[t] over the tokens
 //   t in [start, ctx), ctx = context_lens[b], start = max(0, ctx - window)
 //   when a sliding window is set; token t lives at pool[hkv, page*S + t%S]
-//   with page = page_tables[b, t / S]; K is lanes [:D], V lanes [D:].
+//   with page = page_tables[b, t / S] (clamped into the pool); K is lanes
+//   [:D], V lanes [D:].
 // fp32 scores and online softmax with NEG_INF = -2e38 and the max(l, 1e-20)
-// floor of the TPU kernel, so an empty slot (ctx == 0) yields zeros. With
-// EMIT (the partial mode) the block writes fp32 m = max score, l = sum of
-// exp(score - m) and the unnormalized acc = sum exp(score - m) * V instead of
-// acc / max(l, 1e-20): m = -2e38, l = 0, acc = 0 for an empty slot.
+// floor of the TPU kernel, so an empty slot (ctx == 0) yields zeros. The
+// probabilities are rounded to bf16 for the P.V product, as the TPU kernel
+// casts p.astype(kv.dtype) before its second dot_general (_kernel_hm body,
+// :118-122); l sums them unrounded. With EMIT (the partial mode) the kernel
+// writes fp32 m = max score, l = sum of exp(score - m) and the unnormalized
+// acc = sum exp(score - m) * V instead of acc / max(l, 1e-20): m = -2e38,
+// l = 0, acc = 0 for an empty slot.
 //
-// Bound on the H100: bytes. Each (b, kv head) streams ctx * 2D elements of
-// the pool once; at B=16, ctx 512, 36 heads, D=64 in bf16 that is 75.5 MB per
-// layer, 22.5 us at 3.35 TB/s; the arithmetic is G*4D flops per 4D bytes.
-// Design: grid (B, Hkv), so a block owns the G query rows of one KV head and
-// reads each K|V row once for all of them. Only the ceil(ctx / S) valid
-// pages are walked (the TPU kernel fetched every page-table slot, clamped).
-// Each of the block's warps takes every NWARPS-th group of UNROLL tokens;
-// lane l holds elements [l*D/32, (l+1)*D/32) of q, K, V and the accumulator,
-// so a warp's loads of one row are one coalesced 128- or 256-byte segment
-// and a score is a 5-step shuffle reduction. Several tokens' loads are issued
-// before any is used, to keep memory requests in flight. Each warp keeps its
-// own (m, l, acc); the warps merge through shared memory at the end.
+// Bound on the H100: bytes, B * ctx * Hkv * 2D * 2 of pool plus q, the output,
+// the page tables and the lengths: at Qwen2.5-14B's batch 8, context 3712,
+// 8 KV heads of 128 that is 121.6 MB a layer, 36.4 us at 3.35 TB/s. The
+// arithmetic is 4 * G flops per pool element (5 flops per byte at G 5), far
+// under the card's 295, so the tensor cores here take the serial
+// per-token shuffle reductions out of the loop, not the rate.
+//
+// Design (split-context flash decoding on mma.sync):
+// - Grid (splits, Hkv * groups, B). A block owns up to 16 query rows of one
+//   KV head (G rows, zero-padded to 16: one m16 tile; G > 16 is cut into
+//   groups of 16) and a run of 64-token tiles of one sequence, so each K|V
+//   row is read once for all the group's query heads. The host picks `splits`
+//   so that all the blocks fit on the card at once, in one wave
+//   (ops/cuda/attn_headmajor.py `decode_splits`, from B, Hkv, G, the page
+//   tables' width and zt_decode_attention_hm_blocks_per_sm): a block that
+//   starts late, after the first wave, would double the time. A batch of 8
+//   on 8 KV heads then takes 4 splits at D 128 (256 blocks, two an SM),
+//   while MiniCPM-2B's 576 (sequence, head) pairs take one and skip the
+//   merge.
+// - The tiles of a sequence are [start / 64, ceil(ctx / 64)) on the absolute
+//   64-token grid; split s takes tiles [s * per, (s + 1) * per) of them with
+//   per = ceil(tiles / splits), so every split is a whole number of tiles,
+//   the splits cover [start, ctx) exactly and a short sequence leaves the
+//   later splits empty (those blocks return at once; `parts` counts the
+//   others). Rows of a tile outside [start, ctx) are zero-filled in shared
+//   memory and masked, so no stale bf16 (inf, NaN) meets a zero probability.
+// - K|V tiles (64 rows of 2D bf16, rows padded by 16 bytes so ldmatrix is
+//   conflict-free) are gathered through the page table with cp.async 16-byte
+//   copies into a ring of stages (3 at D 128, 2 otherwise): the next tiles' bytes are
+//   in flight while this one is multiplied. The page ids of the next tile to
+//   copy are loaded a tile ahead, two a lane, and spread by shuffles, so no
+//   copy waits on a page-table read. One __syncthreads per tile.
+// - Warp w takes tokens [16w, 16w + 16) of each tile: S = Q K^T is 16 x 16 x D
+//   and O += P V is 16 x D x 16 on mma.sync m16n8k16 (bf16 -> fp32), Q and K
+//   through ldmatrix, V through ldmatrix.trans; P goes from the score
+//   accumulators to the A operand in registers (csrc/attn_tile.cuh). Each warp
+//   keeps its own (m, l, O) over its tokens: no barrier between the two
+//   products; the four warps merge through shared memory at the end.
+// - The split merge happens in the last block of a (sequence, head group) to
+//   finish, not in a second kernel: each block writes its (m, l, acc) partial,
+//   fences, and takes a ticket from a zeroed int32 counter that the wrapper
+//   owns; the block that draws the last ticket merges all the partials in
+//   fixed split order (fp32, so the result does not depend on which block
+//   ran last) and resets the counter to zero. One launch a layer keeps the
+//   host-bound paths' launch count as it was; a merge kernel would add one.
+// - Any D in {64, 128, 192, 256} and any G.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_tile.cuh"
+
 namespace {
 
-constexpr float NEG_INF = -2.0e38f;
-constexpr int NWARPS = 8;
-constexpr int UNROLL = 4;
+using bf16 = __nv_bfloat16;
+using namespace zt_mma;
 
-template <int EPL>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* f) {
-  if constexpr (EPL == 2) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    f[0] = x.x;
-    f[1] = x.y;
+constexpr float NEG_INF = -2.0e38f;
+constexpr int NWARPS = 4;
+constexpr int NT = NWARPS * 32;
+constexpr int TN = 64;  // tokens per tile (16 per warp)
+constexpr int HR = 16;  // query rows per block
+constexpr int MAX_SPLITS = 64;
+
+template <int D>
+struct Cfg {
+  static constexpr int LDK = 2 * D + 8;  // bf16 per staged K|V row
+  static constexpr int LDQ = D + 8;      // bf16 per staged q row
+  // 3 stages at D 128 (two blocks an SM), 2 elsewhere: at D 64 that lets six
+  // blocks share an SM, so MiniCPM-2B's 576 blocks run in one wave
+  static constexpr int STAGES = D == 128 ? 3 : 2;
+  static constexpr int STAGE = TN * LDK;  // bf16 per stage
+  static constexpr int KV_BYTES = STAGES * STAGE * 2;
+  static constexpr int BYTES = KV_BYTES + HR * LDQ * 2;
+  // the end-of-block merge reuses the stages: per warp O [HR, D], m, l [HR];
+  // the split merge's per-row weights [MAX_SPLITS, HR] and (M, 1 / L) [HR]
+  static constexpr int MERGE_FLOATS = NWARPS * HR * (D + 2) + MAX_SPLITS * HR + 2 * HR;
+  static_assert(MERGE_FLOATS * 4 <= KV_BYTES, "merge buffers");
+  static_assert(D % 64 == 0, "head dim");
+};
+
+// tiles [*first, *last) of split `split` over the tiles of [start, ctx); the
+// number of splits with a non-empty range
+__device__ __forceinline__ int split_range(int start, int ctx, int splits, int split, int* first,
+                                           int* last) {
+  const int t0 = start / TN;
+  const int tiles = ctx > start ? (ctx + TN - 1) / TN - t0 : 0;
+  const int per = (tiles + splits - 1) / splits;
+  *first = t0 + min(split * per, tiles);
+  *last = t0 + min((split + 1) * per, tiles);
+  return per > 0 ? (tiles + per - 1) / per : 0;
+}
+
+template <int D, bool EMIT>
+__device__ __forceinline__ void write_final(void* out, float* m_out, float* l_out, long long row,
+                                            int d, float M, float L, float A) {
+  if constexpr (EMIT) {
+    static_cast<float*>(out)[row * D + d] = A;
+    if (d == 0) {
+      m_out[row] = M;
+      l_out[row] = L;
+    }
   } else {
-    static_assert(EPL == 4, "EPL");
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
+    static_cast<bf16*>(out)[row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
   }
 }
 
-template <int D, int GMAX, bool EMIT>
-__global__ void __launch_bounds__(NWARPS * 32) decode_hm_kernel(
+template <int D, bool EMIT>
+__global__ void __launch_bounds__(NT) decode_hm_kernel(
     void* __restrict__ out,                   // [B, Hq, D]: bf16, or fp32 acc with EMIT
     float* __restrict__ m_out,                // [B, Hq] with EMIT, else unused
     float* __restrict__ l_out,                // [B, Hq] with EMIT, else unused
-    const __nv_bfloat16* __restrict__ q,      // [B, Hq, D]
-    const __nv_bfloat16* __restrict__ pool,   // [Hkv, N, 2D]
+    float* __restrict__ part_acc,             // [B, Hkv * groups, splits, HR, D]
+    float* __restrict__ part_ml,              // [B, Hkv * groups, splits, 2, HR]
+    int* __restrict__ tickets,                // [B, Hkv * groups], zero between launches
+    const bf16* __restrict__ q,               // [B, Hq, D]
+    const bf16* __restrict__ pool,            // [Hkv, N, 2D]
     const int32_t* __restrict__ page_tables,  // [B, maxp]
     const int32_t* __restrict__ context_lens, // [B]
-    int Hkv, int G, long long N, int maxp, int S, float scale, int window) {
-  constexpr int EPL = D / 32;
-  const int b = blockIdx.x;
-  const int hkv = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+    int Hkv, int G, int groups, long long N, int maxp, int S, float scale, int window) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sKV = reinterpret_cast<bf16*>(smem);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + C::KV_BYTES);
+  __shared__ int s_last;
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int hg = blockIdx.y;  // hkv * groups + group
+  const int hkv = hg / groups, grp = hg % groups;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Hq = Hkv * G;
-  const long long num_pages = N / S;
+  const int h0 = hkv * G + grp * HR;  // the block's first query head
+  const int rows = min(HR, G - grp * HR);
 
   int ctx = context_lens[b];
   ctx = max(0, min(ctx, maxp * S));
   const int start = window > 0 ? max(0, ctx - window) : 0;
+  int first, last;
+  const int parts = max(split_range(start, ctx, splits, split, &first, &last), 1);
+  if (split >= parts) return;  // an empty split: the merge counts `parts` tickets only
 
-  float qv[GMAX][EPL];
-  float m[GMAX], l[GMAX], acc[GMAX][EPL];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      acc[g][e] = 0.f;
-      qv[g][e] = 0.f;
-    }
-    if (g < G) {
-      load_bf16<EPL>(q + ((long long)b * Hq + hkv * G + g) * D + lane * EPL, qv[g]);
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) qv[g][e] *= scale;
-    }
+  // q rows of the group (zero rows past `rows`)
+  constexpr int QV = D / 8;
+  for (int i = tid; i < HR * QV; i += NT) {
+    const int r = i / QV, c = i % QV;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < rows) v = *reinterpret_cast<const uint4*>(q + ((long long)b * Hq + h0 + r) * D + c * 8);
+    *reinterpret_cast<uint4*>(sQ + r * C::LDQ + c * 8) = v;
   }
 
-  const __nv_bfloat16* head = pool + (long long)hkv * N * 2 * D;
+  const bf16* head = pool + (long long)hkv * N * 2 * D;
   const int32_t* pt = page_tables + (long long)b * maxp;
+  const long long num_pages = N / S;
+  const int s_shift = log2_if_pow2(S);
+  auto page_of = [&](int t) { return s_shift >= 0 ? t >> s_shift : t / S; };
 
-  for (int t0 = start + warp * UNROLL; t0 < ctx; t0 += NWARPS * UNROLL) {
-    float kf[UNROLL][EPL], vf[UNROLL][EPL];
+  // the ring: tile `first + issued` goes next, its page ids already in `ids`
+  const int n = last - first;
+  int issued = 0;
+  PageIds ids{};
+  if (n > 0) ids = fetch_pages(pt, maxp, page_of(first * TN), lane);
+  auto issue = [&]() {
+    if (issued < n) {
+      const int tile = first + issued;
+      gather_tile<TN, 2 * D, C::LDK, NT, 2>(sKV + (issued % C::STAGES) * C::STAGE, head, pt, ids,
+                                         tile * TN, start, ctx, S, s_shift, num_pages, tid);
+      if (++issued < n) ids = fetch_pages(pt, maxp, page_of((tile + 1) * TN), lane);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int t = t0 + u;
-      if (t < ctx) {
-        long long page = pt[t / S];
-        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-        const __nv_bfloat16* row = head + (page * S + t % S) * 2 * D + lane * EPL;
-        load_bf16<EPL>(row, kf[u]);
-        load_bf16<EPL>(row + D, vf[u]);
+  for (int s = 0; s < C::STAGES - 1; ++s) issue();
+
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // tile i is in; every warp is done with tile i - 1
+    issue();          // tile i + STAGES - 1, into tile i - 1's stage
+    const int tok0 = (first + i) * TN + warp * 16;  // this warp's 16 tokens
+    if (tok0 >= ctx || tok0 + 16 <= start) continue;  // warp-uniform
+    const bf16* kw = sKV + (i % C::STAGES) * C::STAGE + warp * 16 * C::LDK;
+
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      uint32_t a[4], bk[4];
+      ldsm_x4(a, sQ + a_offset(lane, C::LDQ, k * 16));
+      ldsm_x4(bk, kw + b_offset(lane, C::LDK, 0, k * 16));
+      mma_bf16(s[0], a, bk[0], bk[1]);
+      mma_bf16(s[1], a, bk[2], bk[3]);
+    }
+
+    // online softmax over the warp's 16 tokens; rows g and g + 8 of the tile
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = tok0 + nt * 8 + 2 * (lane % 4) + (e & 1);
+        const float v = (t >= start && t < ctx) ? s[nt][e] * scale : NEG_INF;
+        s[nt][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = __expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
     }
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (t0 + u >= ctx) break;  // uniform across the warp
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        if (g >= G) break;
-        float s = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) s += qv[g][e] * kf[u][e];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = __expf(m[g] - m_new);
-        const float p = __expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + p * vf[u][e];
-        m[g] = m_new;
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[nt][e] > NEG_INF ? __expf(s[nt][e] - m_r[e >> 1]) : 0.f;
+        s[nt][e] = p;
+        l_r[e >> 1] += p;
       }
+    uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                      pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bv[4];
+      ldsm_x4_trans(bv, kw + bt_offset(lane, C::LDK, 0, D + dp * 16));
+      mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+      mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages become the merge buffers
 
-  __shared__ float sm_m[NWARPS][GMAX];
-  __shared__ float sm_l[NWARPS][GMAX];
-  __shared__ float sm_acc[NWARPS][GMAX][D];
+  // merge the four warps: per-warp O, m and l (l summed over the quad first)
+  float* sO = reinterpret_cast<float*>(smem);        // [NWARPS][HR][D]
+  float* sM = sO + NWARPS * HR * D;                  // [NWARPS][HR]
+  float* sL = sM + NWARPS * HR;                      // [NWARPS][HR]
+  float* sW = sL + NWARPS * HR;                      // [MAX_SPLITS][HR]
+  float* sRow = sW + MAX_SPLITS * HR;                // M [HR], 1 / L or L [HR]
+  {
+    const int g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
     }
+    if (lane % 4 == 0) {
+      sM[warp * HR + g] = m_r[0];
+      sM[warp * HR + g + 8] = m_r[1];
+      sL[warp * HR + g] = l_r[0];
+      sL[warp * HR + g + 8] = l_r[1];
+    }
+    float* ow = sO + warp * HR * D;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(ow + g * D + j * 8 + c) = make_float2(o[j][0], o[j][1]);
+      *reinterpret_cast<float2*>(ow + (g + 8) * D + j * 8 + c) = make_float2(o[j][2], o[j][3]);
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D;
-    const int d = i - g * D;
-    float M = NEG_INF;
+  if (tid < HR) {
+    float M = NEG_INF, L = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, A = 0.f;
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, sM[w * HR + tid]);
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
-      const float f = __expf(sm_m[w][g] - M);
-      L += sm_l[w][g] * f;
-      A += sm_acc[w][g][d] * f;
+      const float f = __expf(sM[w * HR + tid] - M);
+      sW[w * HR + tid] = f;
+      L += sL[w * HR + tid] * f;
     }
-    const long long row = (long long)b * Hq + hkv * G + g;
-    if constexpr (EMIT) {
-      static_cast<float*>(out)[row * D + d] = A;
-      if (d == 0) {
-        m_out[row] = M;
-        l_out[row] = L;
-      }
-    } else {
-      static_cast<__nv_bfloat16*>(out)[row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    sRow[tid] = M;
+    sRow[HR + tid] = L;
+  }
+  __syncthreads();
+
+  const long long row0 = (long long)b * Hq + h0;
+  const long long slot = ((long long)b * gridDim.y + hg) * splits;
+  if (parts == 1) {
+    for (int i = tid; i < rows * D; i += NT) {
+      const int r = i / D, d = i % D;
+      float A = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) A += sO[(w * HR + r) * D + d] * sW[w * HR + r];
+      write_final<D, EMIT>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
     }
+    return;
+  }
+
+  // several splits: write this split's partial, then the last block merges
+  for (int i = tid; i < rows * D; i += NT) {
+    const int r = i / D, d = i % D;
+    float A = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) A += sO[(w * HR + r) * D + d] * sW[w * HR + r];
+    part_acc[((slot + split) * HR + r) * D + d] = A;
+  }
+  if (tid < rows) {
+    part_ml[(slot + split) * 2 * HR + tid] = sRow[tid];
+    part_ml[(slot + split) * 2 * HR + HR + tid] = sRow[HR + tid];
+  }
+  __threadfence();  // the partial is visible device-wide before the ticket
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(tickets + (long long)b * gridDim.y + hg, 1) == parts - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+
+  if (tid < rows) {
+    float M = NEG_INF, L = 0.f;
+    for (int p = 0; p < parts; ++p) M = fmaxf(M, __ldcg(part_ml + (slot + p) * 2 * HR + tid));
+    for (int p = 0; p < parts; ++p) {
+      const float f = __expf(__ldcg(part_ml + (slot + p) * 2 * HR + tid) - M);
+      sW[p * HR + tid] = f;
+      L += __ldcg(part_ml + (slot + p) * 2 * HR + HR + tid) * f;
+    }
+    sRow[tid] = M;
+    sRow[HR + tid] = L;
+  }
+  if (tid == 0) tickets[(long long)b * gridDim.y + hg] = 0;  // ready for the next launch
+  __syncthreads();
+  for (int i = tid; i < rows * D; i += NT) {
+    const int r = i / D, d = i % D;
+    float A = 0.f;
+    for (int p = 0; p < parts; ++p)
+      A += __ldcg(part_acc + ((slot + p) * HR + r) * D + d) * sW[p * HR + r];
+    write_final<D, EMIT>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
   }
 }
 
-template <int D, int GMAX>
-int launch(void* out, float* m_out, float* l_out, const void* q, const void* pool,
-           const void* page_tables, const void* context_lens, int B, int Hkv, int G,
-           long long N, int maxp, int S, float scale, int window, cudaStream_t stream) {
-  auto kernel = m_out != nullptr ? decode_hm_kernel<D, GMAX, true>
-                                 : decode_hm_kernel<D, GMAX, false>;
-  kernel<<<dim3(B, Hkv), NWARPS * 32, 0, stream>>>(
-      out, m_out, l_out, (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool,
-      (const int32_t*)page_tables, (const int32_t*)context_lens, Hkv, G, N, maxp,
-      S, scale, window);
+template <int D, bool EMIT>
+int launch_one(void* out, float* m_out, float* l_out, float* part_acc, float* part_ml,
+               int* tickets, const void* q, const void* pool, const void* page_tables,
+               const void* context_lens, int B, int Hkv, int G, long long N, int maxp, int S,
+               float scale, int window, int splits, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(decode_hm_kernel<D, EMIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int groups = (G + HR - 1) / HR;
+  decode_hm_kernel<D, EMIT><<<dim3(splits, Hkv * groups, B), NT, C::BYTES, stream>>>(
+      out, m_out, l_out, part_acc, part_ml, tickets, (const bf16*)q, (const bf16*)pool,
+      (const int32_t*)page_tables, (const int32_t*)context_lens, Hkv, G, groups, N, maxp, S,
+      scale, window);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int dispatch_g(void* out, float* m_out, float* l_out, const void* q, const void* pool,
-               const void* page_tables, const void* context_lens, int B, int Hkv, int G,
-               long long N, int maxp, int S, float scale, int window, cudaStream_t stream) {
-#define ZT_G(GM)                                                                   \
-  if (G <= GM)                                                                     \
-    return launch<D, GM>(out, m_out, l_out, q, pool, page_tables, context_lens, B, \
-                         Hkv, G, N, maxp, S, scale, window, stream);
-  ZT_G(1) ZT_G(2) ZT_G(4) ZT_G(8)
-  // the merge buffer of 16 query rows at D=128 would exceed 48 KB of static
-  // shared memory
-  if constexpr (D == 64) { ZT_G(16) }
-#undef ZT_G
-  return (int)cudaErrorInvalidValue;
+int launch(void* out, float* m_out, float* l_out, float* part_acc, float* part_ml, int* tickets,
+           const void* q, const void* pool, const void* page_tables, const void* context_lens,
+           int B, int Hkv, int G, long long N, int maxp, int S, float scale, int window,
+           int splits, cudaStream_t stream) {
+  auto fn = m_out != nullptr ? launch_one<D, true> : launch_one<D, false>;
+  return fn(out, m_out, l_out, part_acc, part_ml, tickets, q, pool, page_tables, context_lens, B,
+            Hkv, G, N, maxp, S, scale, window, splits, stream);
+}
+
+template <int D>
+int blocks_per_sm(int* blocks) {
+  using C = Cfg<D>;
+  cudaError_t e = cudaFuncSetAttribute(decode_hm_kernel<D, false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, decode_hm_kernel<D, false>, NT,
+                                                      C::BYTES);
+  return (int)e;
 }
 
 }  // namespace
 
-// Supported: bf16 q and pool, D = 64 with G = Hq / Hkv in [1, 16], or
-// D = 128 with G in [1, 8]. With m_out (and l_out) non-null the partial mode
-// runs: out is fp32 [B, Hq, D] and receives the unnormalized accumulator,
-// m_out and l_out fp32 [B, Hq] the running max and normalizer.
-extern "C" int zt_decode_attention_hm(void* out, float* m_out, float* l_out, const void* q,
+// How many blocks of the head-dim-D kernel one SM holds at once (into
+// *blocks); the host sizes `splits` with it. Returns the CUDA error code.
+extern "C" int zt_decode_attention_hm_blocks_per_sm(int D, int* blocks) {
+  if (D == 64) return blocks_per_sm<64>(blocks);
+  if (D == 128) return blocks_per_sm<128>(blocks);
+  if (D == 192) return blocks_per_sm<192>(blocks);
+  if (D == 256) return blocks_per_sm<256>(blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Supported: bf16 q and pool, D in {64, 128, 192, 256}, any G = Hq / Hkv >= 1,
+// 1 <= splits <= 64. With splits > 1: part_acc fp32
+// [B, Hkv * ceil(G / 16), splits, 16, D], part_ml fp32 [..., splits, 2, 16]
+// and tickets int32 [B, Hkv * ceil(G / 16)], zero before the launch and left
+// zero after it (with splits == 1 the three may be null). With m_out (and
+// l_out) non-null the partial mode runs: out is fp32 [B, Hq, D] and receives
+// the unnormalized accumulator, m_out and l_out fp32 [B, Hq] the running max
+// and normalizer. Returns the CUDA error code of the launch.
+extern "C" int zt_decode_attention_hm(void* out, float* m_out, float* l_out, float* part_acc,
+                                      float* part_ml, int* tickets, const void* q,
                                       const void* pool, const void* page_tables,
-                                      const void* context_lens, int B, int Hkv,
-                                      int G, int D, long long N, int maxp, int S,
-                                      float scale, int window, void* stream) {
+                                      const void* context_lens, int B, int Hkv, int G, int D,
+                                      long long N, int maxp, int S, float scale, int window,
+                                      int splits, void* stream) {
   if (B == 0) return 0;
-  if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((m_out == nullptr) != (l_out == nullptr) || G < 1 || splits < 1 || splits > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (part_acc == nullptr || part_ml == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
-    return dispatch_g<64>(out, m_out, l_out, q, pool, page_tables, context_lens, B, Hkv, G,
-                          N, maxp, S, scale, window, st);
-  if (D == 128)
-    return dispatch_g<128>(out, m_out, l_out, q, pool, page_tables, context_lens, B, Hkv, G,
-                           N, maxp, S, scale, window, st);
+#define ZT_D(DD)                                                                            \
+  if (D == DD)                                                                              \
+    return launch<DD>(out, m_out, l_out, part_acc, part_ml, tickets, q, pool, page_tables,  \
+                      context_lens, B, Hkv, G, N, maxp, S, scale, window, splits, st);
+  ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)
+#undef ZT_D
   return (int)cudaErrorInvalidValue;
 }

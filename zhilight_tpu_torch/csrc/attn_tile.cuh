@@ -1,0 +1,141 @@
+// Helpers shared by the bf16 head-major attention kernels (attn_headmajor.cu,
+// prefill_attention.cu): warp-level tensor-core products, asynchronous copies
+// and the paged gather of a K|V tile.
+//
+// mma.sync m16n8k16 bf16 -> fp32 fragment layouts (PTX ISA, "Matrix Fragments
+// for mma.m16n8k16"), with g = lane / 4 and c = 2 * (lane % 4):
+//   A (16 x 16, row-major): a[0] = (g, c..c+1), a[1] = (g+8, c..c+1),
+//                           a[2] = (g, c+8..c+9), a[3] = (g+8, c+8..c+9)
+//   B (16 x 8, "col"):      b[0] = (k c..c+1, n g), b[1] = (k c+8..c+9, n g)
+//   C (16 x 8, fp32):       c[0..1] = (g, c..c+1), c[2..3] = (g+8, c..c+1)
+// So the C fragments of two adjacent 8-column tiles are, packed to bf16 pairs,
+// the A fragment of a 16-deep product: the softmax probabilities go from the
+// scores' accumulators to the second product without leaving registers.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace zt_mma {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16-byte global -> shared copy that bypasses L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a . b (16 x 8 x 16, bf16 operands, fp32 accumulators)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Address of lane `lane`'s row for ldsm_x4 of the A operand (16 rows x 16
+// columns at col0) of a row-major tile with leading dimension ld: matrices
+// (rows 0-7 | 8-15) x (cols 0-7 | 8-15) in a[0..3] order.
+__device__ __forceinline__ int a_offset(int lane, int ld, int col0) {
+  return (lane % 16) * ld + col0 + (lane / 16) * 8;
+}
+
+// ldsm_x4 of B fragments for two 8-column tiles from a tile stored n-major
+// (row n holds the k values, as K rows hold the head dims): r[0..1] is the
+// fragment of columns n0..n0+7, r[2..3] of n0+8..n0+15; 16 deep from k0.
+__device__ __forceinline__ int b_offset(int lane, int ld, int n0, int k0) {
+  return (n0 + lane % 8 + 8 * (lane / 16)) * ld + k0 + 8 * ((lane / 8) % 2);
+}
+
+// ldsm_x4_trans of B fragments from a tile stored k-major (row k holds the n
+// values, as V rows of tokens hold the head dims): r[0..1] is the fragment of
+// columns n0..n0+7, r[2..3] of n0+8..n0+15; 16 deep from row k0.
+__device__ __forceinline__ int bt_offset(int lane, int ld, int k0, int n0) {
+  return (k0 + lane % 8 + 8 * ((lane / 8) % 2)) * ld + n0 + 8 * (lane / 16);
+}
+
+// Page ids of the pages from p0 on, fetched by every lane of a warp ahead of
+// a tile's copy, two a lane (pages p0 .. p0 + 63: enough for a 64-row tile at
+// page sizes >= 2), so the copy waits on no global load; gather_tile spreads
+// them by shuffles.
+struct PageIds {
+  int p0, a, b;
+};
+
+__device__ __forceinline__ PageIds fetch_pages(const int32_t* pt, int maxp, int p0, int lane) {
+  return {p0, pt[min(p0 + lane, maxp - 1)], pt[min(p0 + 32 + lane, maxp - 1)]};
+}
+
+// Stage rows [t0, t0 + ROWS) of one head of a head-major pool (rows of D2
+// bf16, token t at head[(page * S + t % S) * D2], page = pt[t / S] clamped
+// into [0, num_pages)) into dst, LD bf16 a row, with cp.async 16-byte copies
+// of the NT threads of the block; rows outside [lo, hi) are zero-filled.
+// ids holds the page ids from t0 / S on (fetch_pages); s_shift is log2(S)
+// when S is a power of two, else -1. Every lane of every warp must call it.
+// UNROLL copies are unrolled: fewer keep the registers down, more hide the
+// index arithmetic.
+template <int ROWS, int D2, int LD, int NT, int UNROLL>
+__device__ __forceinline__ void gather_tile(__nv_bfloat16* dst0, const __nv_bfloat16* head,
+                                            const int32_t* pt, const PageIds& ids, int t0, int lo,
+                                            int hi, int S, int s_shift, long long num_pages,
+                                            int tid) {
+  constexpr int CPR = D2 / 8;  // 16-byte chunks per row
+  static_assert((ROWS * CPR) % NT == 0, "tile chunks");
+#pragma unroll UNROLL
+  for (int k = 0; k < ROWS * CPR / NT; ++k) {
+    const int i = tid + k * NT;
+    const int r = i / CPR, c = i % CPR;
+    const int t = t0 + r;
+    const int pidx = s_shift >= 0 ? t >> s_shift : t / S;
+    const int rel = pidx - ids.p0;
+    const int pa = __shfl_sync(0xffffffffu, ids.a, rel & 31);
+    const int pb = __shfl_sync(0xffffffffu, ids.b, rel & 31);
+    __nv_bfloat16* dst = dst0 + r * LD + c * 8;
+    if (t >= lo && t < hi) {
+      long long page = rel < 32 ? pa : (rel < 64 ? pb : pt[pidx]);
+      page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+      cp_async16(dst, head + (page * S + (t - pidx * S)) * D2 + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+__device__ __forceinline__ int log2_if_pow2(int S) {
+  return (S & (S - 1)) ? -1 : __ffs(S) - 1;
+}
+
+}  // namespace zt_mma

@@ -11,241 +11,313 @@
 // q_lens[s] (and j >= cache_lens[s] + i + 1 - window when a sliding window is
 // set). The pool already holds the chunk's own K/V. Rows i >= q_lens[s] are
 // padding: they see no key and come out as zeros, which the host discards.
-// fp32 scores and online softmax, NEG_INF = -2e38, max(l, 1e-20) floor.
+// fp32 scores and online softmax, NEG_INF = -2e38, max(l, 1e-20) floor. The
+// probabilities are rounded to bf16 for the P.V product, as the TPU kernel
+// casts p to the pool's dtype before its second dot (_kernel_prefill_hm body,
+// :212-216); l sums them unrounded.
 //
-// Bound on the H100: operations. A 512-token chunk against a 3.7k context
-// with 36 heads of 64 is about 16 GFLOP, 16 us at the 989 TFLOP/s bf16
-// tensor-core rate, while its K|V bytes take a few microseconds. Design: one
-// block of 4 warps per (64-query block of a segment, query head); it walks
-// 64-token K|V tiles up to the block's causal bound only. Each tile is
-// gathered through the page table into shared memory (zeros past the valid
-// context, so no NaN meets a zero probability). Q.K^T and P.V run on the
-// tensor cores through WMMA 16x16x16 bf16 tiles with fp32 accumulation; each
-// warp owns 16 query rows, so the softmax between the two products needs only
-// warp-level synchronisation. The running output lives in shared memory in
-// fp32 and is rescaled per row before each P.V product.
+// Bound on the H100: operations, 4 * Hq * D flops per (query, visible key):
+// a 512-token chunk at cache 3200 with Qwen2.5-14B's 40 heads of 128 is
+// 36.3 GFLOP, 36.6 us at the 989 TFLOP/s dense bf16 rate, while its K|V bytes
+// (15.2 MB) take 4.5 us.
+//
+// Design (FlashAttention-2's shape on mma.sync):
+// - One block of 4 warps per (64-query block of a segment, query head); warp w
+//   owns query rows [16w, 16w + 16). The block walks BK-key tiles (64 at
+//   D 64, 32 above: see Cfg) from
+//   its window's first tile up to its causal bound only. A warp skips the
+//   tiles that are wholly masked for its 16 rows, and masks element by element
+//   only on the tiles that cross one of its rows' bounds.
+// - K|V tiles are gathered through the page table with cp.async 16-byte
+//   copies into a ring of stages (3 at D <= 128, 2 above) in shared memory, rows
+//   padded by 16 bytes so ldmatrix is conflict-free; rows outside the block's
+//   key range are zero-filled, so no stale bf16 (inf, NaN) meets a zero
+//   probability. The page ids of the next tile to copy are loaded a tile
+//   ahead and spread by shuffles. One __syncthreads per tile; the next tile
+//   loads while this one is multiplied.
+// - S = Q K^T and O += P V run on mma.sync m16n8k16 (bf16 -> fp32), Q and K
+//   through ldmatrix, V through ldmatrix.trans. The scores, the row max and
+//   sum (quad shuffles), P (packed to bf16 in registers as the A operand of
+//   P V, csrc/attn_tile.cuh) and the running O stay in registers; no score or
+//   output tile goes through shared memory. Q's fragments stay in registers
+//   for the whole loop at D <= 128; at D 192 and 256 they are re-read from
+//   the staged Q tile each step, to leave the registers to O.
+// - The grid is (Hq, query blocks x NS) with the query blocks of each segment
+//   in reverse, so the blocks with the most keys start first and the causal
+//   imbalance does not leave SMs idle at the end; the G heads of one KV group
+//   are neighbours in launch order and read the same K|V tiles, which the
+//   50 MB L2 holds (Qwen2.5-14B's K|V for a chunk at cache 3200 is 15 MB):
+//   heads share tiles through L2 rather than one block, which keeps a block's
+//   registers to one head's O.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "attn_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using namespace zt_mma;
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile
 constexpr int NWARPS = BQ / 16;
 constexpr int NT = NWARPS * 32;
 
 template <int D>
-struct Smem {
-  static constexpr int LDQ = D + 8;       // bf16
-  static constexpr int LDKV = 2 * D + 8;  // bf16
-  static constexpr int LDS = BK + 4;      // float
-  static constexpr int LDP = BK + 8;      // bf16
-  static constexpr int LDO = D + 4;       // float
-  static constexpr int Q_OFF = 0;
-  static constexpr int KV_OFF = Q_OFF + BQ * LDQ * 2;
-  static constexpr int S_OFF = KV_OFF + BK * LDKV * 2;
-  static constexpr int P_OFF = S_OFF + BQ * LDS * 4;
-  static constexpr int O_OFF = P_OFF + BQ * LDP * 2;
-  static constexpr int ROW_OFF = O_OFF + BQ * LDO * 4;
-  static constexpr int BYTES = ROW_OFF + 4 * BQ * 4;  // m, l, alpha, hi
+struct Cfg {
+  // keys per tile and stages: at D 128, 32-key tiles in 3 stages (68 KB, so
+  // two blocks share an SM) ran 1.5x faster on the H100 than 64-key tiles in
+  // 2 stages; at D 192 and 256 the registers of O leave room for 32 keys only
+  static constexpr int BK = D == 64 ? 64 : 32;
+  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr int UNROLL = D == 64 ? BK * (2 * D / 8) / NT : 2;  // gather_tile: all at D 64
+  static constexpr bool QREG = D <= 128;         // Q fragments held in registers
+  static constexpr int LDQ = D + 8;              // bf16 per staged q row
+  static constexpr int LDK = 2 * D + 8;          // bf16 per staged K|V row
+  static constexpr int STAGE = BK * LDK;
+  static constexpr int Q_BYTES = BQ * LDQ * 2;
+  static constexpr int BYTES = Q_BYTES + STAGES * STAGE * 2;
+  static_assert(D % 64 == 0, "head dim");
 };
 
+// three blocks an SM up to D 128 (at most 170 registers a thread): MiniCPM-2B's
+// 288 blocks and Qwen2.5-14B's 320 for a 512-token chunk then run in one wave
 template <int D>
-__global__ void __launch_bounds__(NT) prefill_hm_kernel(
+__global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
     bf16* __restrict__ out,                   // [NS*TC, Hq, D]
     const bf16* __restrict__ q,               // [NS*TC, Hq, D]
     const bf16* __restrict__ pool,            // [Hkv, N, 2D]
     const int32_t* __restrict__ page_tables,  // [NS, maxp]
     const int32_t* __restrict__ cache_lens,   // [NS]
     const int32_t* __restrict__ q_lens,       // [NS]
-    int Hq, int Hkv, long long N, int maxp, int S, int TC, int qblocks_per_seg,
+    int Hq, int Hkv, long long N, int maxp, int S, int TC, int NS, int qblocks_per_seg,
     float scale, int window) {
-  using L = Smem<D>;
-  constexpr int D2 = 2 * D;
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::KV_OFF);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* sO = reinterpret_cast<float*>(smem + L::O_OFF);
-  float* sM = reinterpret_cast<float*>(smem + L::ROW_OFF);
-  float* sL = sM + BQ;
-  float* sAlpha = sL + BQ;
-  int* sHi = reinterpret_cast<int*>(sAlpha + BQ);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sKV = reinterpret_cast<bf16*>(smem + C::Q_BYTES);
 
-  const int seg = blockIdx.x / qblocks_per_seg;
-  const int row0 = (blockIdx.x % qblocks_per_seg) * BQ;
-  const int hq = blockIdx.y;
+  const int hq = blockIdx.x;
+  const int seg = blockIdx.y % NS;
+  const int row0 = (qblocks_per_seg - 1 - blockIdx.y / NS) * BQ;  // the last blocks first
   const int hkv = hq / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long num_pages = N / S;
 
   const int cache_len = cache_lens[seg];
   const int q_len = q_lens[seg];
   const int total = cache_len + q_len;
   const int32_t* pt = page_tables + (long long)seg * maxp;
-  const bf16* head = pool + (long long)hkv * N * D2;
+  const bf16* head = pool + (long long)hkv * N * 2 * D;
 
-  // Q tile (rows past the segment are zero) and per-row state
-  constexpr int QV = D / 8;  // 16-byte vectors per q row
-  for (int i = tid; i < BQ * QV; i += NT) {
-    const int r = i / QV, c = i % QV;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < TC)
-      val = *reinterpret_cast<const uint4*>(
-          q + (((long long)seg * TC + row0 + r) * Hq + hq) * D + c * 8);
-    *reinterpret_cast<uint4*>(sQ + r * L::LDQ + c * 8) = val;
-  }
-  for (int r = tid; r < BQ; r += NT) {
-    const int i = row0 + r;
-    sHi[r] = i < q_len ? min(cache_len + i + 1, total) : 0;
-    sM[r] = NEG_INF;
-    sL[r] = 0.f;
-  }
-  for (int i = tid; i < BQ * D; i += NT) sO[(i / D) * L::LDO + i % D] = 0.f;
-
+  // the block's keys [kv_lo, kv_hi)
   int kv_hi = 0, kv_lo = 0;
   if (row0 < q_len) {
     kv_hi = cache_len + min(q_len, row0 + BQ);
     if (window > 0) kv_lo = max(0, cache_len + row0 + 1 - window);
   }
   kv_hi = min(kv_hi, maxp * S);
-  __syncthreads();
 
-  constexpr int KVV = D2 / 8;  // 16-byte vectors per K|V row
-  for (int j0 = (kv_lo / BK) * BK; j0 < kv_hi; j0 += BK) {
-    for (int i = tid; i < BK * KVV; i += NT) {
-      const int r = i / KVV, c = i % KVV;
-      const int j = j0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (j < kv_hi) {
-        long long page = pt[j / S];
-        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-        val = *reinterpret_cast<const uint4*>(head + (page * S + j % S) * D2 + c * 8);
-      }
-      *reinterpret_cast<uint4*>(sKV + r * L::LDKV + c * 8) = val;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fill_fragment(c, 0.f);
-#pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          wmma::load_matrix_sync(a, sQ + warp * 16 * L::LDQ + k * 16, L::LDQ);
-          wmma::load_matrix_sync(b, sKV + n * 16 * L::LDKV + k * 16, L::LDKV);
-          wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, c, L::LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // online softmax: two lanes per row, 32 columns each
-    {
-      const int r = warp * 16 + lane / 2;
-      const int c0 = (lane % 2) * (BK / 2);
-      const int hi = sHi[r];
-      const int lo = window > 0 ? hi - window : 0;
-      float* srow = sS + r * L::LDS;
-      float mx = NEG_INF;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = j0 + c;
-        const float s = (j < hi && j >= lo) ? srow[c] * scale : NEG_INF;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      bf16* prow = sP + r * L::LDP;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = j0 + c;
-        const float p = (j < hi && j >= lo) ? __expf(srow[c] - m_new) : 0.f;
-        prow[c] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();
-      if (lane % 2 == 0) {
-        const float alpha = __expf(m_old - m_new);
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-        sAlpha[r] = alpha;
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = warp * 16 + i / D;
-      sO[r * L::LDO + i % D] *= sAlpha[r];
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* o = sO + warp * 16 * L::LDO + n * 16;
-        wmma::load_matrix_sync(c, o, L::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int k = 0; k < BK / 16; ++k) {
-          wmma::load_matrix_sync(a, sP + warp * 16 * L::LDP + k * 16, L::LDP);
-          wmma::load_matrix_sync(b, sKV + k * 16 * L::LDKV + D + n * 16, L::LDKV);
-          wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(o, c, L::LDO, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();  // every warp is done with sKV before the next tile
+  // Q tile (rows past the segment's TC are zero)
+  constexpr int QV = D / 8;
+  for (int i = tid; i < BQ * QV; i += NT) {
+    const int r = i / QV, c = i % QV;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < TC)
+      val = *reinterpret_cast<const uint4*>(
+          q + (((long long)seg * TC + row0 + r) * Hq + hq) * D + c * 8);
+    *reinterpret_cast<uint4*>(sQ + r * C::LDQ + c * 8) = val;
   }
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    if (row0 + r >= TC) continue;
-    const float val = sO[r * L::LDO + d] / fmaxf(sL[r], 1e-20f);
-    out[(((long long)seg * TC + row0 + r) * Hq + hq) * D + d] = __float2bfloat16(val);
+  // the ring: tile `issued` goes next, its page ids already in `ids`
+  const int s_shift = log2_if_pow2(S);
+  auto page_of = [&](int t) { return s_shift >= 0 ? t >> s_shift : t / S; };
+  const int jt0 = (kv_lo / BK) * BK;
+  const int n = kv_hi > jt0 ? (kv_hi - jt0 + BK - 1) / BK : 0;
+  int issued = 0;
+  PageIds ids{};
+  if (n > 0) ids = fetch_pages(pt, maxp, page_of(jt0), lane);
+  auto issue = [&]() {
+    if (issued < n) {
+      const int j0 = jt0 + issued * BK;
+      gather_tile<BK, 2 * D, C::LDK, NT, C::UNROLL>(sKV + (issued % C::STAGES) * C::STAGE, head, pt, ids,
+                                         j0, kv_lo, kv_hi, S, s_shift, num_pages, tid);
+      if (++issued < n) ids = fetch_pages(pt, maxp, page_of(j0 + BK), lane);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) issue();
+
+  // this thread's rows g and g + 8 of the warp's 16, their key bounds [lo, hi)
+  const int g = lane / 4;
+  int hi[2], lo[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + warp * 16 + g + 8 * r;
+    hi[r] = i < q_len ? min(cache_len + i + 1, total) : 0;
+    lo[r] = window > 0 ? hi[r] - window : 0;
+  }
+  // the warp's extremes: tiles outside [lo_min, hi_max) are skipped, tiles
+  // inside [lo_max, hi_min) need no mask
+  int hi_max = max(hi[0], hi[1]), hi_min = min(hi[0], hi[1]);
+  int lo_min = min(lo[0], lo[1]), lo_max = max(lo[0], lo[1]);
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    hi_max = max(hi_max, __shfl_xor_sync(0xffffffffu, hi_max, off));
+    hi_min = min(hi_min, __shfl_xor_sync(0xffffffffu, hi_min, off));
+    lo_min = min(lo_min, __shfl_xor_sync(0xffffffffu, lo_min, off));
+    lo_max = max(lo_max, __shfl_xor_sync(0xffffffffu, lo_max, off));
+  }
+
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  constexpr int QF = C::QREG ? D / 16 : 1;
+  uint32_t qf[QF][4];
+  const bf16* qw = sQ + warp * 16 * C::LDQ;
+
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // tile it is in (and, on the first pass, the Q tile)
+    issue();          // tile it + STAGES - 1, into tile it - 1's stage
+    if constexpr (C::QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k) ldsm_x4(qf[k], qw + a_offset(lane, C::LDQ, k * 16));
+      }
+    }
+    const int j0 = jt0 + it * BK;
+    if (j0 >= hi_max || j0 + BK <= lo_min) continue;  // warp-uniform: all masked
+    const bool full = j0 + BK <= hi_min && j0 >= lo_max;
+    const bf16* kv = sKV + (it % C::STAGES) * C::STAGE;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      uint32_t a_ld[4];
+      const uint32_t* a;
+      if constexpr (C::QREG) {
+        a = qf[k];
+      } else {
+        ldsm_x4(a_ld, qw + a_offset(lane, C::LDQ, k * 16));
+        a = a_ld;
+      }
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kv + b_offset(lane, C::LDK, np * 16, k * 16));
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // online softmax over the tile for rows g and g + 8
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[nt][e] * scale;
+        if (!full) {
+          const int j = j0 + nt * 8 + 2 * (lane % 4) + (e & 1);
+          if (j >= hi[e >> 1] || j < lo[e >> 1]) v = NEG_INF;
+        }
+        s[nt][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = __expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[nt][e] > NEG_INF ? __expf(s[nt][e] - m_r[e >> 1]) : 0.f;
+        s[nt][e] = p;
+        l_r[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, kv + bt_offset(lane, C::LDK, kk * 16, D + dp * 16));
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    l_r[r] = 1.f / fmaxf(l_r[r], 1e-20f);
+  }
+  const int c = 2 * (lane % 4);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + warp * 16 + g + 8 * r;
+    if (i >= TC) continue;
+    bf16* orow = out + (((long long)seg * TC + i) * Hq + hq) * D + c;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(o[j][2 * r] * l_r[r], o[j][2 * r + 1] * l_r[r]);
   }
 }
 
 template <int D>
 int launch(void* out, const void* q, const void* pool, const void* page_tables,
-           const void* cache_lens, const void* q_lens, int NS, int TC, int Hq,
-           int Hkv, long long N, int maxp, int S, float scale, int window,
-           cudaStream_t stream) {
-  const int bytes = Smem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_hm_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
+           const void* cache_lens, const void* q_lens, int NS, int TC, int Hq, int Hkv,
+           long long N, int maxp, int S, float scale, int window, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        prefill_hm_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   const int qbps = (TC + BQ - 1) / BQ;
-  prefill_hm_kernel<D><<<dim3(NS * qbps, Hq), NT, bytes, stream>>>(
+  prefill_hm_kernel<D><<<dim3(Hq, NS * qbps), NT, C::BYTES, stream>>>(
       (bf16*)out, (const bf16*)q, (const bf16*)pool, (const int32_t*)page_tables,
-      (const int32_t*)cache_lens, (const int32_t*)q_lens, Hq, Hkv, N, maxp, S, TC,
-      qbps, scale, window);
+      (const int32_t*)cache_lens, (const int32_t*)q_lens, Hq, Hkv, N, maxp, S, TC, NS, qbps,
+      scale, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Supported: bf16 q and pool, D in {64, 128}, Hq a multiple of Hkv.
+// Supported: bf16 q and pool, D in {64, 128, 192, 256}, Hq a multiple of Hkv.
+// Returns the CUDA error code of the launch.
 extern "C" int zt_prefill_attention_hm(void* out, const void* q, const void* pool,
                                        const void* page_tables,
                                        const void* cache_lens, const void* q_lens,
@@ -254,11 +326,11 @@ extern "C" int zt_prefill_attention_hm(void* out, const void* q, const void* poo
                                        int window, void* stream) {
   if (NS == 0 || TC == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
-    return launch<64>(out, q, pool, page_tables, cache_lens, q_lens, NS, TC, Hq,
-                      Hkv, N, maxp, S, scale, window, st);
-  if (D == 128)
-    return launch<128>(out, q, pool, page_tables, cache_lens, q_lens, NS, TC, Hq,
-                       Hkv, N, maxp, S, scale, window, st);
+#define ZT_D(DD)                                                                          \
+  if (D == DD)                                                                            \
+    return launch<DD>(out, q, pool, page_tables, cache_lens, q_lens, NS, TC, Hq, Hkv, N, \
+                      maxp, S, scale, window, st);
+  ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)
+#undef ZT_D
   return (int)cudaErrorInvalidValue;
 }

@@ -10,6 +10,14 @@ versions are :func:`paged_decode_attention_hm_plain` (page gather +
 take the plain versions only for CPU tensors; for CUDA tensors they launch the
 kernel or raise.
 
+The bf16 kernel takes head_dim 64, 128, 192 and 256 with any number of query
+heads per KV head. It splits each context over several blocks when the batch
+alone would not fill the card (:func:`decode_splits` picks the count from the
+shapes) and merges their partials in the same launch; the wrapper allocates
+the partials per call and keeps a zeroed ticket buffer per device for the
+merge. It rounds the probabilities to bf16 for the P.V product, as the TPU
+kernel does.
+
 The int8 functions never dequantize K or V elements: the K scale multiplies
 the fp32 scores and the V scale the probabilities. The plain version rounds
 ``p * v_scale`` to q's dtype before the second product, as the TPU kernel
@@ -38,7 +46,8 @@ apart, ``m``, ``l`` ``[B, Hkv, G]`` and ``acc`` ``[B, Hkv, G, D]`` (MLA:
 acc = 0. The partial modes are the same CUDA kernels with their last pass
 writing the partials (``*_partial`` wrappers, each with its own launch
 counter), and have plain versions beside them (``*_partial_plain``), whose
-probabilities stay fp32 as the kernels' do.
+probabilities stay fp32 (the int8 kernel's do too; the bf16 kernel rounds
+them to bf16 for P.V, inside the partials' tolerance).
 """
 
 from __future__ import annotations
@@ -124,10 +133,60 @@ def _entry():
     fn = _build.library("attn_headmajor").zt_decode_attention_hm
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i,
-                       ctypes.c_float, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i,
+                       ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# the bf16 kernel's split-context plan (csrc/attn_headmajor.cu): 64-token
+# tiles, blocks of 16 query rows, at most 64 splits
+_TILE, _ROWS, _MAX_SPLITS = 64, 16, 64
+BF16_HEAD_DIMS = (64, 128, 192, 256)
+
+
+def decode_splits(B: int, Hkv: int, G: int, max_ctx: int, capacity: int) -> int:
+    """How many blocks share the context of one (sequence, group of 16 query
+    rows) in the bf16 decode kernel: as many as let every block fit on the
+    card at once (``capacity`` blocks: one wave, since a block that waits for
+    a second wave doubles the time), no more than the 64-token tiles of the
+    longest context the page tables can address (``max_ctx``, from their
+    shape: no device read), at least 1 and at most 64. The kernel cuts each
+    sequence's own tiles into that many whole-tile runs and skips the empty
+    ones."""
+    blocks = B * Hkv * -(-G // _ROWS)
+    tiles = -(-max_ctx // _TILE)
+    return max(1, min(capacity // max(blocks, 1), tiles, _MAX_SPLITS))
+
+
+_CAPACITY: dict = {}
+
+
+def _capacity(device, D: int) -> int:
+    """Blocks of the head-dim-D kernel the card holds at once (occupancy
+    times SMs), asked once per device."""
+    cap = _CAPACITY.get((device, D))
+    if cap is None:
+        fn = _build.library("attn_headmajor").zt_decode_attention_hm_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        n = ctypes.c_int(0)
+        _build.check(fn(D, ctypes.byref(n)), "paged_decode_attention_hm occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        cap = _CAPACITY[(device, D)] = max(n.value, 1) * sms
+    return cap
+
+
+# per device: the kernel's int32 tickets, zero between launches (the kernel's
+# last block of each (sequence, head group) resets its own); grown, never
+# shrunk. One stream at a time uses them, as the engine runs decode.
+_TICKETS: dict = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = _TICKETS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def _outputs(q: torch.Tensor, Hkv: int, D: int, partial: bool):
@@ -145,7 +204,9 @@ def _outputs(q: torch.Tensor, Hkv: int, D: int, partial: bool):
 
 def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     """The head-major kernels' shape, type and layout rules, shared by the
-    bf16 and int8 forms; returns (B, Hkv, G, D, N, maxp)."""
+    bf16 and int8 forms; returns (B, Hkv, G, D, N, maxp). The bf16 kernel
+    takes D in ``BF16_HEAD_DIMS`` with any G; the int8 kernel (D 64, G <= 16)
+    and (D 128, G <= 8)."""
     if not q.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q.device}")
     B, Hq, D = q.shape
@@ -156,8 +217,11 @@ def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     if q.dtype != torch.bfloat16 or kv_pool.dtype != pool_dtype:
         raise NotImplementedError(
             f"{what} kernel takes bf16 q and a {pool_dtype} pool, got {q.dtype}/{kv_pool.dtype}")
-    if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
-        raise NotImplementedError(f"{what} kernel: head_dim {D} with group {G}")
+    if pool_dtype == torch.int8:
+        if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
+            raise NotImplementedError(f"{what} kernel: head_dim {D} with group {G}")
+    elif D not in BF16_HEAD_DIMS:
+        raise NotImplementedError(f"{what} kernel: head_dim {D}")
     if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise ValueError(f"{what}: page_tables and context_lens must be int32")
     if page_tables.shape[0] != B or context_lens.shape != (B,):
@@ -173,10 +237,19 @@ def _launch_hm(what, q, kv_pool, page_tables, context_lens, page_size, scale, sl
     B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens,
                                       torch.bfloat16)
     result, ptrs = _outputs(q, Hkv, D, partial)
+    splits = decode_splits(B, Hkv, G, maxp * page_size, _capacity(q.device, D))
+    scratch = (None, None, None)
+    if splits > 1:
+        heads = Hkv * -(-G // _ROWS)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((B, heads, splits, _ROWS, D), **f32)
+        part_ml = torch.empty((B, heads, splits, 2, _ROWS), **f32)
+        scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
+                   _tickets(q.device, B * heads).data_ptr())
     err = _entry()(
-        *ptrs, q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
+        *ptrs, *scratch, q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
         context_lens.data_ptr(), B, Hkv, G, D, N, maxp, page_size, float(scale),
-        int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream,
+        int(sliding_window), splits, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
     return result

@@ -18,6 +18,9 @@ the second product, as the TPU kernel does; K and V elements are never
 multiplied by a scale. The scales are head-major ``[Hkv, >= N]``
 (``kvcache/paged.py``), where the reference keeps them ``[N, Hkv]``.
 
+The bf16 kernel takes head_dim 64, 128, 192 and 256; the int8 kernel 64 and
+128.
+
 The pool must already hold the chunk's K/V (the write runs first). Only rows
 ``i < q_lens[s]`` of each segment are meaningful; padding rows and segments
 with ``q_len == 0`` come out finite, and the host discards them.
@@ -32,7 +35,7 @@ import torch
 from ...kvcache.paged import gather_hm, gather_scales
 from ..attention import NEG_INF, prefill_attention
 from . import _build
-from .attn_headmajor import check_scales
+from .attn_headmajor import BF16_HEAD_DIMS, check_scales
 
 __all__ = [
     "paged_prefill_attention_hm",
@@ -105,7 +108,7 @@ def paged_prefill_attention_hm_packed(
         )
     if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.bfloat16:
         raise NotImplementedError(f"prefill attention kernel takes bf16, got {q.dtype}/{kv_pool.dtype}")
-    if D not in (64, 128):
+    if D not in BF16_HEAD_DIMS:
         raise NotImplementedError(f"prefill attention kernel: head_dim {D}")
     for t in (page_tables, cache_lens, q_lens):
         if t.dtype != torch.int32:

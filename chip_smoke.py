@@ -36,10 +36,17 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            prefill are also held at their split edges (contexts 1, 64, 65, a
            split boundary, a window across splits, an empty slot) and at
            head_dim 192 and 256 with up to 40 query heads a KV head, and timed
-           at head_dim 256 (16 / 8 heads); with ``--parent-csrc DIR`` the
-           attn_headmajor.cu and prefill_attention.cu in DIR (an earlier
-           tree's) are built apart with nvcc and timed beside this tree's in
-           turns at MiniCPM-2B's and Qwen2.5-14B's shapes;
+           at head_dim 256 (16 / 8 heads), as is the int8 head-major
+           prefill; the int4 matmul is held at M 1 to 512, at split counts
+           whose runs end inside a group, at N % 16 == 8, at a group size
+           that is not a multiple of 32 rows, and two calls of a split-K
+           plan to the same bits, and timed at M 8, 128 and 512 (also at
+           every kernel and split count it takes); with
+           ``--parent-csrc DIR`` the attn_headmajor.cu, prefill_attention.cu,
+           quant_matmul.cu and prefill_attention_q.cu in DIR (an earlier
+           tree's csrc) are built apart with nvcc and timed beside this
+           tree's in turns at MiniCPM-2B's and Qwen2.5-14B's shapes (the
+           int4 matmul at the four Qwen2.5-14B projections, M 8 and 512);
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -280,6 +287,9 @@ SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
 DEEPSEEK_LENS = [7, 100, 513, 1500, 2816, 16, 250, 40]  # max_model_len 3072
 MINICPM_HEADS = dict(Hq=36, Hkv=36, D=64)
 QWEN_HEADS = dict(Hq=40, Hkv=8, D=128)
+# Qwen2.5-14B's projections, (K, N)
+QWEN_W4_SHAPES = {"q/o_proj": (5120, 5120), "k/v_proj": (5120, 1024),
+                  "gate/up_proj": (5120, 13824), "down_proj": (13824, 5120)}
 # Qwen3-8B's projections, (K, N): q/o, k/v, gate/up, down
 QWEN3_SHAPES = {"q/o_proj": (4096, 4096), "k/v_proj": (4096, 1024),
                 "gate/up_proj": (4096, 12288), "down_proj": (12288, 4096)}
@@ -827,22 +837,25 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
 
 
 def parent_kernels(csrc: str):
-    """The bf16 head-major decode and prefill kernels of an earlier tree
-    (``csrc`` holds its attn_headmajor.cu and prefill_attention.cu), built
-    by nvcc with this tree's flags into a temporary directory and driven
-    through their own C signatures: (decode(q, pool, tables, ctx, S, scale,
-    partial), prefill(q, pool, tables, cache_lens, q_lens, S, scale))."""
+    """Kernels of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc),
+    built by nvcc with this tree's flags into a temporary directory and
+    driven through their own C signatures: the bf16 head-major decode and
+    prefill (rows 2, 3), the int4 matmul and the int8 head-major prefill (rows
+    4, 6). Returns {name: fn}: decode(q, pool, tables, ctx, S, scale,
+    partial), prefill(q, pool, tables, cache_lens, q_lens, S, scale),
+    w4a16(x, w, scales, zeros), prefill_q(q, pool, ks, vs, tables,
+    cache_lens, q_lens, S, scale)."""
     import ctypes
     import tempfile
 
     from zhilight_tpu_torch.ops.cuda import _build
 
     out_dir = tempfile.mkdtemp(prefix="zt_parent_")
+    names = ("attn_headmajor", "prefill_attention", "quant_matmul", "prefill_attention_q")
     libs = {}
     procs = [(name, subprocess.Popen(
         [_build._nvcc(), *_build._FLAGS, "-o", f"{out_dir}/{name}.so", f"{csrc}/{name}.cu"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in ("attn_headmajor", "prefill_attention")]
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name in names]
     for name, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode:
@@ -850,24 +863,37 @@ def parent_kernels(csrc: str):
         libs[name] = ctypes.CDLL(f"{out_dir}/{name}.so")
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     dec = libs["attn_headmajor"].zt_decode_attention_hm
-    dec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ll, i, i, f, i, p]
+    dec.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, ll, i, i, f, i, i, p]
     pre = libs["prefill_attention"].zt_prefill_attention_hm
     pre.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, i, i, f, i, p]
+    mm = libs["quant_matmul"].zt_w4a16_matmul
+    mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    preq = libs["prefill_attention_q"].zt_prefill_attention_hm_q
+    preq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, f, i, p]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
+    tickets = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")  # the parent's own
+
     def decode(q, pool, tables, ctx, S, scale, partial=False):
+        """The split plan and scratch this tree's wrapper gives its kernel."""
+        from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+
         B, Hq, D = q.shape
         Hkv, N, _ = pool.shape
-        if partial:
-            acc = torch.empty(B, Hq, D, dtype=torch.float32, device=q.device)
-            m, l = (torch.empty(B, Hq, dtype=torch.float32, device=q.device) for _ in range(2))
-            ptrs, out = (acc.data_ptr(), m.data_ptr(), l.data_ptr()), (m, l, acc)
-        else:
-            out = torch.empty_like(q)
-            ptrs = (out.data_ptr(), None, None)
-        _build.check(dec(*ptrs, q.data_ptr(), pool.data_ptr(), tables.data_ptr(), ctx.data_ptr(),
-                         B, Hkv, Hq // Hkv, D, N, tables.shape[1], S, scale, 0, stream()),
-                     "parent decode")
+        G = Hq // Hkv
+        out, ptrs = A._outputs(q, Hkv, D, partial)
+        splits = A.decode_splits(B, Hkv, G, tables.shape[1] * S, A._capacity(q.device, D))
+        scratch = (None, None, None)
+        if splits > 1:
+            heads = Hkv * -(-G // A._ROWS)
+            part_acc = torch.empty((B, heads, splits, A._ROWS, D), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((B, heads, splits, 2, A._ROWS), dtype=torch.float32,
+                                  device=q.device)
+            scratch = (part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr())
+        _build.check(dec(*ptrs, *scratch, q.data_ptr(), pool.data_ptr(), tables.data_ptr(),
+                         ctx.data_ptr(), B, Hkv, G, D, N, tables.shape[1], S, scale, 0, splits,
+                         stream()), "parent decode")
         return out
 
     def prefill(q, pool, tables, cache_lens, q_lens, S, scale):
@@ -880,7 +906,26 @@ def parent_kernels(csrc: str):
                          tables.shape[1], S, scale, 0, stream()), "parent prefill")
         return out
 
-    return decode, prefill
+    def w4a16(x, w, scales, zeros):
+        (M, K), N = x.shape, w.shape[1]
+        out = torch.empty(M, N, dtype=x.dtype, device=x.device)
+        _build.check(mm(out.data_ptr(), x.data_ptr(), w.data_ptr(), scales.data_ptr(),
+                        zeros.data_ptr(), M, N, K, scales.shape[0], int(w.dtype == torch.uint8),
+                        stream()), "parent w4a16")
+        return out
+
+    def prefill_q(q, pool, ks, vs, tables, cache_lens, q_lens, S, scale):
+        T, Hq, D = q.shape
+        Hkv, N, _ = pool.shape
+        NS = tables.shape[0]
+        out = torch.empty_like(q)
+        _build.check(preq(out.data_ptr(), q.data_ptr(), pool.data_ptr(), ks.data_ptr(),
+                          vs.data_ptr(), tables.data_ptr(), cache_lens.data_ptr(),
+                          q_lens.data_ptr(), NS, T // NS, Hq, Hkv, D, N, ks.stride(0),
+                          tables.shape[1], S, scale, 0, stream()), "parent int8 prefill")
+        return out
+
+    return dict(decode=decode, prefill=prefill, w4a16=w4a16, prefill_q=prefill_q)
 
 
 def compare_parent(rng, A, P, csrc: str) -> None:
@@ -888,14 +933,10 @@ def compare_parent(rng, A, P, csrc: str) -> None:
     (parent, this tree, this tree, parent) on the same inputs, device time by
     the same ``time_ms``; also held against each other. One JSON line."""
     S = 16
-    decode, prefill = parent_kernels(csrc)
+    parent = parent_kernels(csrc)
+    decode, prefill = parent["decode"], parent["prefill"]
     res = {}
-
-    def turns(label, old, new):
-        t = [time_ms(old), time_ms(new), time_ms(new), time_ms(old)]
-        res[label] = dict(parent_ms=[t[0], t[3]], new_ms=[t[1], t[2]])
-        print(f"kernels: parent vs this tree, {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
-              f"this tree {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+    turns = _turns(res)
 
     for B, heads, CTX, model in ((16, MINICPM_HEADS, 512, "MiniCPM-2B batch 16, context 512"),
                                  (8, QWEN_HEADS, 3712, "Qwen2.5-14B batch 8, context 3712")):
@@ -928,6 +969,62 @@ def compare_parent(rng, A, P, csrc: str) -> None:
               lambda: prefill(q, pool, tables, cl, ql, S, scale),
               lambda: P.paged_prefill_attention_hm_packed(q, pool, tables, cl, ql, S, scale))
     print(json.dumps({"parent_compare": res}), flush=True)
+
+
+def _turns(res: dict, flush=None):
+    """Time an earlier tree's call and this tree's in turns (parent, this
+    tree, this tree, parent), into res[label]."""
+    def turns(label, old, new):
+        t = [time_ms(old, flush=flush), time_ms(new, flush=flush), time_ms(new, flush=flush),
+             time_ms(old, flush=flush)]
+        res[label] = dict(parent_ms=[t[0], t[3]], new_ms=[t[1], t[2]])
+        print(f"kernels: parent vs this tree, {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
+              f"this tree {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+    return turns
+
+
+def compare_parent_q(rng, P, csrc: str) -> None:
+    """Rows 4 and 6 of an earlier tree against this tree's, in turns on the
+    same inputs: w4a16_matmul at the four Qwen2.5-14B projection shapes, M 8
+    and 512, with a cold L2; the int8 head-major prefill at MiniCPM-2B's and
+    Qwen2.5-14B's 512-token chunk at cache 3200. Each pair is also held
+    against each other (W4A16_TOL, ATTN_TOL). One JSON line."""
+    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+    from zhilight_tpu_torch.ops.quant import pack_int4
+
+    parent = parent_kernels(csrc)
+    res = {}
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    cold = _turns(res, flush=scratch.zero_)
+    for name, (K, N) in QWEN_W4_SHAPES.items():
+        w = pack_int4(_dev(rng.integers(0, 16, (K, N)).astype(np.int8)))
+        s = _dev((rng.random((K // 128, N)) * 0.004 + 0.001).astype(np.float32))
+        z = _dev(rng.integers(1, 16, (K // 128, N)).astype(np.float32))
+        for M in (8, 512):
+            x = _randn(rng, M, K)
+            old, new = parent["w4a16"](x, w, s, z), Q.w4a16_matmul(x, w, s, z)
+            e = (old.float() - new.float()).abs().max().item() / new.float().abs().max().item()
+            if not e <= W4A16_TOL:
+                raise AssertionError(f"parent vs this tree, w4a16 {name} M={M}: {e}")
+            cold(f"row 4, {name} M={M}", lambda: parent["w4a16"](x, w, s, z),
+                 lambda: Q.w4a16_matmul(x, w, s, z))
+    del scratch
+    turns = _turns(res)
+    S, CL, QL = 16, 3200, 512
+    for heads, model in ((MINICPM_HEADS, "MiniCPM-2B"), (QWEN_HEADS, "Qwen2.5-14B")):
+        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
+        tables, npages = _paged(rng, [CL + QL], S)
+        (pool, ks, vs), _ = _pool_args(rng, Hkv, npages * S, D, True)
+        args = (_randn(rng, QL, Hq, D), pool, ks, vs, _dev(tables),
+                _dev(np.array([CL], np.int32)), _dev(np.array([QL], np.int32)), S, 1.0 / np.sqrt(D))
+        e = (parent["prefill_q"](*args).float()
+             - P.paged_prefill_attention_hm_packed_q(*args).float()).abs().max()
+        if not e <= ATTN_TOL:
+            raise AssertionError(f"parent vs this tree, int8 prefill {model}: {e}")
+        turns(f"row 6, {model} 512-token chunk at cache 3200, int8 pool",
+              lambda: parent["prefill_q"](*args),
+              lambda: P.paged_prefill_attention_hm_packed_q(*args))
+    print(json.dumps({"parent_compare_q": res}), flush=True)
 
 
 def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
@@ -1025,7 +1122,7 @@ def phase_kernels(rec: dict, args) -> None:
         dict(cache_lens=[700, 40], q_lens=[128, 90], TC=128, window=200, **qwen),
     ]
     # head dims 192 and 256: a windowed chunk that starts and ends mid-page
-    bf16_prefill_cases = [
+    wide_prefill_cases = [
         dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, Hq=8, Hkv=4, D=192),
         dict(cache_lens=[3205], q_lens=[300], TC=320, window=1000, **GEMMA2_HEADS),
         dict(cache_lens=[0, 45], q_lens=[96, 50], TC=96, Hq=32, Hkv=2, D=256),
@@ -1034,22 +1131,23 @@ def phase_kernels(rec: dict, args) -> None:
     for int8, name in ((False, "paged_prefill_attention_hm_packed"),
                        (True, "paged_prefill_attention_hm_packed_q")):
         err = check_prefill(rng, P, prefill_cases, int8)
-        if not int8:
-            err = max(err, check_prefill(np.random.default_rng(2), P, bf16_prefill_cases, False))
+        # inputs of their own, so the earlier cases keep theirs
+        err = max(err, check_prefill(np.random.default_rng(3 if int8 else 2), P,
+                                     wide_prefill_cases, int8))
         kind = "int8" if int8 else "bf16"
         shapes = {
             f"MiniCPM-2B 512-token chunk at cache 3200, {kind} pool":
                 time_prefill(rng, P, **mini, CL=3200, QL=512, int8=int8),
             f"Qwen2.5-14B 512-token chunk at cache 3200, {kind} pool":
                 time_prefill(rng, P, **qwen, CL=3200, QL=512, int8=int8),
+            f"head_dim 256 (16 / 8 heads) 512-token chunk at cache 3200, {kind} pool":
+                time_prefill(np.random.default_rng(7 if int8 else 5), P, **GEMMA2_HEADS,
+                             CL=3200, QL=512, int8=int8),
         }
-        if not int8:
-            shapes["head_dim 256 (16 / 8 heads) 512-token chunk at cache 3200, bf16 pool"] = (
-                time_prefill(np.random.default_rng(5), P, **GEMMA2_HEADS, CL=3200, QL=512,
-                             int8=False))
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
     if args.parent_csrc:
         compare_parent(np.random.default_rng(6), A, P, args.parent_csrc)
+        compare_parent_q(np.random.default_rng(8), P, args.parent_csrc)
 
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
@@ -1066,8 +1164,11 @@ def phase_kernels(rec: dict, args) -> None:
 
 def kernels_w4a16(rec: dict, rng) -> None:
     """w4a16_matmul against its plain version at the Qwen2.5-14B projections'
-    (K, N), both weight formats, decode to prefill M; then timed with a cold
-    L2 (a decode step streams every layer's weights once)."""
+    (K, N), both weight formats, decode to prefill M, and at its split-K and
+    layout edges; then timed with a cold L2 (a decode step streams every
+    layer's weights once) at M 8, 128 and 512, each shape also at every
+    kernel and split count the kernel takes (the "sweep:" lines behind the
+    host's plan)."""
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
     from zhilight_tpu_torch.ops.quant import dequant_int4, int4_linear, pack_int4
     from zhilight_tpu_torch.utils.hf_loader import _pad_canon_int4
@@ -1093,18 +1194,17 @@ def kernels_w4a16(rec: dict, rng) -> None:
         return e
 
     err = 0.0
-    pairs = [(5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120)]
     planar = {}
-    for K, N in pairs:
+    for K, N in QWEN_W4_SHAPES.values():
         q, s, z = weights(K, N)
         planar[K, N] = (pack_int4(q), s, z)
         for fmt, w in (("planar", planar[K, N][0]), ("nibbles", q)):
             es = []
-            for M in (1, 8, 16, 37, 512):
+            for M in (1, 8, 16, 37, 128, 512):
                 x = _randn(rng, M, K)
                 es.append(check(f"{fmt} M={M} K={K} N={N}", Q.w4a16_matmul(x, w, s, z),
                                 Q.w4a16_matmul_plain(x, w, s, z)))
-            print(f"kernels: w4a16 {fmt} K={K} N={N} M=1,8,16,37,512 max rel err "
+            print(f"kernels: w4a16 {fmt} K={K} N={N} M=1,8,16,37,128,512 max rel err "
                   f"{max(es):.3e}", flush=True)
             err = max(err, *es)
     # act-order: the perm gather in int4_linear, then the kernel
@@ -1125,14 +1225,54 @@ def kernels_w4a16(rec: dict, rng) -> None:
     e2 = check("padded K", int4_linear(p, x), Q.w4a16_matmul_plain(x, q, s, z))
     err = max(err, e, e2)
     print(f"kernels: w4a16 perm max rel err {e:.3e}; K 1408 padded to "
-          f"{p['w_p'].shape[0] * 2} max rel err {e2:.3e}; over every case max rel err "
-          f"{err:.3e}, max abs err {abs_err:.3e}", flush=True)
+          f"{p['w_p'].shape[0] * 2} max rel err {e2:.3e}", flush=True)
+
+    # split-K edges. Qwen2.5-14B's k/v shape has 2560 weight rows, a group
+    # every 128: the prefill kernels' stages of 32 rows at split counts whose
+    # runs end inside a group (3, 6, 7, 9), the decode kernel's stages of 64
+    # (at most 8 a split) at 6, 7 and one stage a split (40)
+    w, s, z = planar[5120, 1024]
+    for M, cfgs, counts in ((8, (0,), (5, 6, 7, 10, 20, 40)),
+                            (37, (1, 2), (1, 3, 6, 7, 9, 16)), (130, (1, 2), (1, 3, 6, 7, 9, 16))):
+        x = _randn(rng, M, 5120)
+        want = Q.w4a16_matmul_plain(x, w, s, z)
+        for cfg in cfgs:
+            for splits in counts:
+                out = torch.empty(M, 1024, dtype=torch.bfloat16, device="cuda")
+                Q._run(x, w, s, z, out, True, (cfg, splits))
+                err = max(err, check(f"M={M} config {cfg} splits {splits}", out, want))
+    # N a multiple of 8 but not of 16 (8-byte weight copies), a group size
+    # that is not a multiple of 32 rows (scales per weight), both formats
+    for K, N, G in ((5120, 1032, 40), (768, 200, 16)):
+        q, s, z = weights(K, N) if G == K // gs else (
+            _dev(rng.integers(0, 16, (K, N)).astype(np.int8)),
+            _dev((rng.random((G, N)) * 0.004 + 0.001).astype(np.float32)),
+            _dev(rng.integers(1, 16, (G, N)).astype(np.float32)))
+        for w in (pack_int4(q), q):
+            for M in (5, 16, 130):
+                x = _randn(rng, M, K)
+                err = max(err, check(f"K={K} N={N} G={G} {w.dtype} M={M}",
+                                     Q.w4a16_matmul(x, w, s, z), Q.w4a16_matmul_plain(x, w, s, z)))
+    # a plan with several splits at Qwen's down_proj K: two calls, the same bits
+    K, N = 13824, 1024
+    q, s, z = weights(K, N)
+    w = pack_int4(q)
+    x = _randn(rng, 8, K)
+    first = Q.w4a16_matmul(x, w, s, z)
+    err = max(err, check("K=13824 N=1024 M=8", first, Q.w4a16_matmul_plain(x, w, s, z)))
+    if not torch.equal(first, Q.w4a16_matmul(x, w, s, z)):
+        raise AssertionError("w4a16: a second call at a split-K plan gave other bits")
+    print(f"kernels: w4a16 split-K plan at K=13824 N=1024 M=8: "
+          f"{Q._DEVICES[x.device].plans[8, N, K, True]} (config, splits), a second call "
+          f"bit-identical; over every case max rel err {err:.3e}, max abs err {abs_err:.3e}",
+          flush=True)
 
     # timed: each call finds the L2 cold, as in a decode step
     scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
-    for M in (8, 512):
-        for K, N in pairs:
+    dev = Q._DEVICES[torch.device("cuda", torch.cuda.current_device())]
+    for M in (8, 128, 512):
+        for name, (K, N) in QWEN_W4_SHAPES.items():
             w, s, z = planar[K, N]
             x = _randn(rng, M, K)
             wd = dequant_int4(w, s, z, torch.bfloat16)
@@ -1143,12 +1283,25 @@ def kernels_w4a16(rec: dict, rng) -> None:
                 library_ms=time_ms(lambda: torch.matmul(x, wd), flush=flush),
                 bound_ms=t_b, bound_by=by,
             )
-            print(f"kernels: w4a16 M={M} K={K} N={N} ms={row['ms']:.4f} "
-                  f"bound_ms={t_b:.4f} ({by}) plain_ms={row['plain_ms']:.4f} "
+            print(f"kernels: w4a16 {name} M={M} K={K} N={N} plan={dev.plans[M, N, K, True]} "
+                  f"ms={row['ms']:.4f} bound_ms={t_b:.4f} ({by}) plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']:.4f} (torch.matmul on the dequantized "
                   f"bf16 weight)", flush=True)
             if (M, K, N) == (8, 5120, 13824):  # gate/up_proj at the serving batch
                 rec["w4a16_matmul"].update(row, max_abs_err=abs_err)
+            times = []
+            for cfg in range(len(Q.CONFIGS)):
+                stages = K // 2 // Q.STAGE_ROWS[cfg]
+                for splits in (1, 2, 3, 4, 5, 6, 8, 10, 14, 16, 20, 27, 32):
+                    per = -(-stages // splits)
+                    if -(-stages // per) != splits or (
+                            cfg == 0 and (M > 16 or per * Q.STAGE_ROWS[0] > Q.DECODE_ROWS)):
+                        continue
+                    out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+                    t = time_ms(lambda: Q._run(x, w, s, z, out, True, (cfg, splits)), flush=flush)
+                    times.append(f"{cfg}/{splits}:{t:.4f}")
+            print(f"sweep: w4a16 M={M} K={K} N={N} config/splits:ms {' '.join(times)}",
+                  flush=True)
     del scratch
 
 
@@ -3136,9 +3289,10 @@ def main() -> int:
     ap.add_argument("--phases", default="kernels,serve,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
-                    help="a directory holding an earlier attn_headmajor.cu and "
-                         "prefill_attention.cu: build them apart and time them beside this "
-                         "tree's kernels in the kernels phase")
+                    help="an earlier tree's zhilight_tpu_torch/csrc: build its "
+                         "attn_headmajor.cu, prefill_attention.cu, quant_matmul.cu and "
+                         "prefill_attention_q.cu apart and time them beside this tree's "
+                         "kernels in the kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -280,7 +280,8 @@ def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx_max):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hq,hkv,D,window", [(8, 2, 64, 0), (36, 36, 64, 0), (8, 8, 128, 0),
-                                             (40, 8, 128, 0), (40, 8, 128, 60)])
+                                             (40, 8, 128, 0), (40, 8, 128, 60), (8, 2, 192, 0),
+                                             (16, 8, 256, 0), (16, 8, 256, 60)])
 def test_prefill_attention_q_matches_plain(cuda, hq, hkv, D, window):
     rng = np.random.default_rng(hq + D)
     TC = 96
@@ -305,7 +306,8 @@ def test_prefill_attention_q_matches_plain(cuda, hq, hkv, D, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,D", [(36, 36, 64), (40, 8, 128)])  # MiniCPM-2B, Qwen2.5-14B
+# MiniCPM-2B, Qwen2.5-14B; head dims 192 and 256
+@pytest.mark.parametrize("hq,hkv,D", [(36, 36, 64), (40, 8, 128), (16, 8, 192), (16, 8, 256)])
 def test_prefill_attention_q_long_context_matches_plain(cuda, hq, hkv, D):
     """The last full chunk of a 3712-token prompt: 512 queries at cache_len 3200."""
     rng = np.random.default_rng(hq)
@@ -366,12 +368,14 @@ def _int4(rng, K, N, gs, device, planar):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("planar", [True, False])
-@pytest.mark.parametrize("M", [1, 8, 16, 37, 512])
-@pytest.mark.parametrize("K,N,gs", [(512, 256, 128), (768, 200, 64), (384, 136, 32), (256, 64, 256)])
+@pytest.mark.parametrize("M", [1, 8, 16, 37, 128, 512])
+@pytest.mark.parametrize("K,N,gs", [(512, 256, 128), (768, 200, 64), (384, 136, 32), (256, 64, 256),
+                                    (768, 200, 48), (1024, 1032, 128)])
 def test_w4a16_matmul_matches_plain(cuda, planar, M, K, N, gs):
-    """Both weight formats, ragged M and N, groups of 32 to K. Tolerance:
+    """Both weight formats, ragged M and N (N % 16 == 8 too), groups of 32 to
+    K and of 48 (a group size the kernel's 32-row stages cross). Tolerance:
     max |err| <= 1e-2 * max |plain| (the bf16 output rounding; fp32 sums in
-    another order; the dequantized tiles are the same bf16 values)."""
+    another order; the dequantized weights are the same bf16 values)."""
     rng = np.random.default_rng(M + K + N)
     w, scales, zeros = _int4(rng, K, N, gs, cuda, planar)
     x = _bf16(rng, cuda, M, K)
@@ -380,6 +384,22 @@ def test_w4a16_matmul_matches_plain(cuda, planar, M, K, N, gs):
     assert got.shape == (M, N) and got.dtype == torch.bfloat16
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_w4a16_matmul_split_k_is_deterministic(cuda):
+    """Qwen2.5-14B's down_proj K over k/v's N at a decode batch: a plan with
+    several splits, held to the plain version, and a second call gives the
+    same bits (the partials are summed in split order; the tickets reset)."""
+    rng = np.random.default_rng(11)
+    K, N = 13824, 1024
+    w, scales, zeros = _int4(rng, K, N, 128, cuda, True)
+    x = _bf16(rng, cuda, 8, K)
+    got = Q.w4a16_matmul(x, w, scales, zeros)
+    assert Q._DEVICES[got.device].plans[8, N, K, True][1] > 1
+    want = Q.w4a16_matmul_plain(x, w, scales, zeros)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.float().abs().max().item()
+    assert torch.equal(got, Q.w4a16_matmul(x, w, scales, zeros))
 
 
 @pytest.mark.cuda
@@ -511,8 +531,9 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         A.paged_decode_attention_hm_q(qb, pool8, sc[:, :10], sc, tables, ctx, S, 0.125)
     with pytest.raises(NotImplementedError):  # the partial mode takes what the kernel takes
         A.paged_decode_attention_hm_q(q, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)
-    # head_dim 256: the bf16 kernels run it, the int8 ones raise; head_dim 96
-    # (a slot-major pool in the engine) no head-major kernel takes
+    # head_dim 256: the bf16 kernels and the int8 prefill run it, the int8
+    # decode raises; head_dim 96 (a slot-major pool in the engine) no
+    # head-major kernel takes
     q256, pool256 = torch.zeros(2, 4, 256, dtype=torch.bfloat16, device=cuda), torch.zeros(
         4, 64, 512, dtype=torch.bfloat16, device=cuda)
     assert not A.paged_decode_attention_hm(q256, pool256, tables, ctx, S, 0.125).isnan().any()
@@ -521,9 +542,8 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     pool8_256 = pool256.to(torch.int8)
     with pytest.raises(NotImplementedError):
         A.paged_decode_attention_hm_q(q256, pool8_256, sc, sc, tables, ctx, S, 0.125)
-    with pytest.raises(NotImplementedError):
-        P.paged_prefill_attention_hm_packed_q(q256, pool8_256, sc, sc, tables[:1], ctx[:1],
-                                              ctx[:1], S, 0.125)
+    assert P.paged_prefill_attention_hm_packed_q(q256, pool8_256, sc, sc, tables[:1], ctx[:1],
+                                                 ctx[:1], S, 0.125).shape == q256.shape
     q96 = torch.zeros(2, 4, 96, dtype=torch.bfloat16, device=cuda)
     pool96 = torch.zeros(4, 64, 192, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError):

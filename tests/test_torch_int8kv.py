@@ -189,6 +189,25 @@ def test_prefill_attention_q_matches_pallas(hkv, hq, cache_len, window):
     np.testing.assert_allclose(got[:q_len].numpy(), np.asarray(want)[:q_len], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("hkv,hq,D,window", [(2, 8, 192, 0), (2, 8, 256, 0), (8, 16, 256, 24)])
+def test_prefill_attention_q_wide_heads_match_pallas(hkv, hq, D, window):
+    """Head dims 192 and 256, which the reference packs into an int8 pool
+    too: a 50-token chunk at cache 40."""
+    n, cache_len, q_len = 64, 40, 50
+    q, k, v, pages, _ = prefill_setup(n, cache_len + q_len, hq, hkv, D, seed=3)
+    k_q, k_s = _quant(k)
+    v_q, v_s = _quant(v)
+    pool = _pool(k_q, v_q)
+    scale = 1.0 / np.sqrt(D)
+    want = j_prefill_q(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_s), jnp.asarray(v_s),
+                       jnp.asarray(pages), jnp.int32(cache_len), jnp.int32(q_len), S, scale,
+                       sliding_window=window, interpret=True)
+    got = P.paged_prefill_attention_hm_q(T(q), T(pool), _t_scales(k_s), _t_scales(v_s), T(pages),
+                                         torch.tensor(cache_len), torch.tensor(q_len), S, scale,
+                                         window)
+    np.testing.assert_allclose(got[:q_len].numpy(), np.asarray(want)[:q_len], rtol=RTOL, atol=ATOL)
+
+
 def test_packed_prefill_attention_q_matches_pallas():
     """Two packed segments, one with cached context and one short
     (tests/test_prefill_kernel.py's int8 packed case)."""

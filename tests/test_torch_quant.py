@@ -213,3 +213,30 @@ def test_params_to_torch_keeps_int4_leaves():
         assert p["scales"].dtype == torch.float32 and p["zeros"].dtype == torch.float32
         np.testing.assert_array_equal(p["scales"].numpy(), scales)
     assert t["nibbles"]["perm"].dtype == torch.int32
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("K", [1024, 5120, 13824])
+def test_w4a16_split_plan_covers_k_in_whole_stages(K, planar):
+    """The kernel's split-K plan (chosen on the host): at decode batches the
+    decode kernel, and splits that cut the weight rows into that many
+    non-empty runs of whole stages covering them exactly, each decode run at
+    most DECODE_ROWS rows."""
+    rows = K // 2 if planar else K
+    unit = TQM.STAGE_ROWS[0]
+    stages = -(-rows // unit)
+    for M in range(1, 17):
+        for N in (1024, 5120, 13824):
+            cfg, splits = TQM.plan(M, N, K, planar, sms=132)
+            assert cfg == 0 and 1 <= splits <= stages
+            per = -(-stages // splits)
+            assert per * unit <= TQM.DECODE_ROWS
+            runs = [(s * per, min((s + 1) * per, stages)) for s in range(splits)]
+            assert all(lo < hi for lo, hi in runs)
+            assert runs[0][0] == 0 and runs[-1][1] == stages
+            assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+            assert (stages - 1) * unit < rows <= stages * unit
+    for M, want in ((17, 1), (64, 1), (65, 2), (512, 2)):
+        cfg, splits = TQM.plan(M, 5120, K, planar, sms=132)
+        stages = -(-rows // TQM.STAGE_ROWS[cfg])
+        assert cfg == want and -(-stages // -(-stages // splits)) == splits

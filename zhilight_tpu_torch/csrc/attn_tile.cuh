@@ -1,5 +1,6 @@
-// Helpers shared by the bf16 head-major attention kernels (attn_headmajor.cu,
-// prefill_attention.cu): warp-level tensor-core products, asynchronous copies
+// Helpers shared by the head-major attention kernels (attn_headmajor.cu,
+// prefill_attention.cu, prefill_attention_q.cu) and the int4 matmul
+// (quant_matmul.cu): warp-level tensor-core products, asynchronous copies
 // and the paged gather of a K|V tile.
 //
 // mma.sync m16n8k16 bf16 -> fp32 fragment layouts (PTX ISA, "Matrix Fragments
@@ -100,19 +101,21 @@ __device__ __forceinline__ PageIds fetch_pages(const int32_t* pt, int maxp, int 
 }
 
 // Stage rows [t0, t0 + ROWS) of one head of a head-major pool (rows of D2
-// bf16, token t at head[(page * S + t % S) * D2], page = pt[t / S] clamped
-// into [0, num_pages)) into dst, LD bf16 a row, with cp.async 16-byte copies
-// of the NT threads of the block; rows outside [lo, hi) are zero-filled.
-// ids holds the page ids from t0 / S on (fetch_pages); s_shift is log2(S)
-// when S is a power of two, else -1. Every lane of every warp must call it.
-// UNROLL copies are unrolled: fewer keep the registers down, more hide the
-// index arithmetic.
-template <int ROWS, int D2, int LD, int NT, int UNROLL>
-__device__ __forceinline__ void gather_tile(__nv_bfloat16* dst0, const __nv_bfloat16* head,
-                                            const int32_t* pt, const PageIds& ids, int t0, int lo,
-                                            int hi, int S, int s_shift, long long num_pages,
-                                            int tid) {
-  constexpr int CPR = D2 / 8;  // 16-byte chunks per row
+// elements of type T, bf16 or int8; token t at head[(page * S + t % S) * D2],
+// page = pt[t / S] clamped into [0, num_pages)) into dst, LD elements a row,
+// with cp.async 16-byte copies of the NT threads of the block; rows outside
+// [lo, hi) are zero-filled. Thread tid handles chunks tid + k * NT (16 bytes
+// each, row-major), so a thread may read back its own chunks after
+// cp_async_wait with no barrier. ids holds the page ids from t0 / S on
+// (fetch_pages); s_shift is log2(S) when S is a power of two, else -1. Every
+// lane of every warp must call it. UNROLL copies are unrolled: fewer keep
+// the registers down, more hide the index arithmetic.
+template <int ROWS, int D2, int LD, int NT, int UNROLL, class T = __nv_bfloat16>
+__device__ __forceinline__ void gather_tile(T* dst0, const T* head, const int32_t* pt,
+                                            const PageIds& ids, int t0, int lo, int hi, int S,
+                                            int s_shift, long long num_pages, int tid) {
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CPR = D2 / EPC;        // chunks per row
   static_assert((ROWS * CPR) % NT == 0, "tile chunks");
 #pragma unroll UNROLL
   for (int k = 0; k < ROWS * CPR / NT; ++k) {
@@ -123,11 +126,11 @@ __device__ __forceinline__ void gather_tile(__nv_bfloat16* dst0, const __nv_bflo
     const int rel = pidx - ids.p0;
     const int pa = __shfl_sync(0xffffffffu, ids.a, rel & 31);
     const int pb = __shfl_sync(0xffffffffu, ids.b, rel & 31);
-    __nv_bfloat16* dst = dst0 + r * LD + c * 8;
+    T* dst = dst0 + r * LD + c * EPC;
     if (t >= lo && t < hi) {
       long long page = rel < 32 ? pa : (rel < 64 ? pb : pt[pidx]);
       page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-      cp_async16(dst, head + (page * S + (t - pidx * S)) * D2 + c * 8);
+      cp_async16(dst, head + (page * S + (t - pidx * S)) * D2 + c * EPC);
     } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
     }

@@ -11,63 +11,98 @@
 //   out[i]  = sum_j bf16(p[i, j] * v_scales[hkv, slot(j)]) * V_i8[j] / l[i]
 // with p, l from the fp32 online softmax of s (NEG_INF = -2e38, max(l, 1e-20)
 // floor). As in the TPU kernel, no K or V element is multiplied by a scale,
-// l sums the unscaled p, and p * v_scale is rounded to bf16 before the second
-// product. q is not quantized. The scales are head-major
-// [Hkv, scale_stride >= N] (the reference keeps them [N, Hkv] and re-blocks
-// them per call; here a tile's 64 scales are read straight from one row).
+// the K scale multiplies the score before the mask, l sums the unscaled p,
+// and p * v_scale is rounded to bf16 before the second product. q is not
+// quantized. The scales are head-major [Hkv, scale_stride >= N] (the
+// reference keeps them [N, Hkv] and re-blocks them per call; here a tile's
+// scales are read straight from one row).
 //
-// Bound on the H100: operations, as for the bf16 kernel (the same two
-// products per key); the K|V bytes halve. Design: the bf16 kernel's, one
-// block of 4 warps per (64-query block of a segment, query head) walking
-// 64-token tiles up to its causal bound, both products on WMMA 16x16x16 bf16
-// tiles with fp32 accumulation. A tile's int8 rows are converted to bf16
-// while they are staged into shared memory (exact: |x| <= 127), its 64 K and
-// V scales are staged beside it, and the softmax pass multiplies each score
-// column by its K scale before the mask and each probability by its V scale
-// before rounding it to bf16. Rows past the valid context are staged as
-// zeros with scale 0 and masked, so no NaN meets a zero probability.
+// Bound on the H100: operations, 4 * Hq * D flops per (query, visible key),
+// as for the bf16 kernel: 36.3 GFLOP for a 512-token chunk at cache 3200 with
+// Qwen2.5-14B's 40 heads of 128 (36.6 us at 989 TFLOP/s), while its int8 K|V
+// bytes and scales (7.6 MB + 0.2 MB) take 2.4 us.
+//
+// Design: prefill_attention.cu's (see its header), with int8 tiles:
+// - One block of 4 warps per (64-query block of a segment, query head), the
+//   blocks with the most keys launched first; warp w owns query rows [16w,
+//   16w + 16) and skips the key tiles wholly masked for them. S = Q K^T and
+//   O += P V run on mma.sync m16n8k16 (bf16 -> fp32); the scores, the row max
+//   and sum, P (the A operand of P V) and O stay in registers. Q's fragments
+//   stay in registers at D <= 128 and are re-read from the staged Q tile at
+//   D 192 and 256.
+// - A tile's int8 K|V rows (half the bytes of the bf16 kernel's) are
+//   gathered through the page table with 16-byte cp.async copies into a ring
+//   of int8 slots (page ids fetched a tile ahead, gather_tile in
+//   attn_tile.cuh), its BK K and V scales with 4-byte copies beside them.
+//   Rows outside the block's key range are zero-filled and their scales
+//   staged as 0, so no stale bytes or scales (inf, NaN) reach a product.
+// - Int8 -> bf16 is exact (|x| <= 127) and done once a tile in shared memory:
+//   the thread that copied a 16-byte chunk converts it (2^23 + 128 + x built
+//   in a float's mantissa, minus 2^23 + 128; the float's top half is the
+//   bf16) into a bf16 K|V tile laid out as the bf16 kernel stages it, which
+//   the warps then read through ldmatrix (K) and ldmatrix.trans (V). A
+//   conversion in registers would build the fragments from single bytes:
+//   V's B fragment pairs two keys of one column, two rows apart in the tile,
+//   which ldmatrix (16-bit elements) cannot gather. Each chunk is converted
+//   once a block rather than once a warp.
+// - Pipeline: the bf16 tile is double-buffered, so tile it + 1 is converted
+//   while tile it is multiplied, with one __syncthreads a tile. A thread
+//   converts only the chunks it copied, so the int8 ring needs no barrier of
+//   its own: tile it + STAGES is copied into the slot tile it left.
+// - Key tiles: 64 keys at D 64, 32 at D 128 and 192, 16 at D 256, so that
+//   three blocks share an SM at D <= 128 and two above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "attn_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
+using namespace zt_mma;
 
 constexpr float NEG_INF = -2.0e38f;
 constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile
 constexpr int NWARPS = BQ / 16;
 constexpr int NT = NWARPS * 32;
 
-// two int8 values as a pair of bf16 (low half first)
-__device__ __forceinline__ uint32_t pack_bf16x2(int8_t a, int8_t b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn((float)a, (float)b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int D>
-struct Smem {
-  static constexpr int LDQ = D + 8;       // bf16
-  static constexpr int LDKV = 2 * D + 8;  // bf16
-  static constexpr int LDS = BK + 4;      // float
-  static constexpr int LDP = BK + 8;      // bf16
-  static constexpr int LDO = D + 4;       // float
-  static constexpr int Q_OFF = 0;
-  static constexpr int KV_OFF = Q_OFF + BQ * LDQ * 2;
-  static constexpr int S_OFF = KV_OFF + BK * LDKV * 2;
-  static constexpr int P_OFF = S_OFF + BQ * LDS * 4;
-  static constexpr int O_OFF = P_OFF + BQ * LDP * 2;
-  static constexpr int ROW_OFF = O_OFF + BQ * LDO * 4;
-  static constexpr int SC_OFF = ROW_OFF + 4 * BQ * 4;  // m, l, alpha, hi
-  static constexpr int BYTES = SC_OFF + 2 * BK * 4;    // k and v scales of a tile
+struct Cfg {
+  static constexpr int BK = D == 64 ? 64 : D == 256 ? 16 : 32;  // keys per tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;                 // int8 slots
+  static constexpr int D2 = 2 * D;                               // int8 per K|V row
+  static constexpr int CH = BK * D2 / 16 / NT;                   // chunks a thread copies
+  static constexpr int UNROLL = D == 64 ? CH : 2;
+  static constexpr bool QREG = D <= 128;  // Q fragments held in registers
+  static constexpr int LDQ = D + 8;       // bf16 per staged q row
+  static constexpr int LDK = D2 + 8;      // bf16 per converted K|V row
+  static constexpr int Q_BYTES = BQ * LDQ * 2;
+  static constexpr int BUF = BK * LDK * 2 + 2 * BK * 4;  // bf16 tile, its K and V scales
+  static constexpr int SLOT = BK * D2 + 2 * BK * 4;      // int8 tile, its K and V scales
+  static constexpr int BYTES = Q_BYTES + 2 * BUF + STAGES * SLOT;
+  static_assert(D % 64 == 0 && (BK * D2 / 16) % NT == 0 && (2 * BK) % 32 == 0, "shapes");
 };
 
+// 16 int8 -> 16 bf16 (8 pairs, low byte in the low half), exactly
+__device__ __forceinline__ void int8x16_to_bf16(uint4 v, uint32_t* out) {
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t u = words[w] ^ 0x80808080u;  // x + 128 as unsigned bytes
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) - 8388736.f;
+    out[2 * w] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+    out[2 * w + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+  }
+}
+
+// three blocks an SM up to D 128 (at most 170 registers a thread), two above
 template <int D>
-__global__ void __launch_bounds__(NT) prefill_hm_q_kernel(
+__global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
     bf16* __restrict__ out,                   // [NS*TC, Hq, D]
     const bf16* __restrict__ q,               // [NS*TC, Hq, D]
     const int8_t* __restrict__ pool,          // [Hkv, N, 2D]
@@ -76,191 +111,262 @@ __global__ void __launch_bounds__(NT) prefill_hm_q_kernel(
     const int32_t* __restrict__ page_tables,  // [NS, maxp]
     const int32_t* __restrict__ cache_lens,   // [NS]
     const int32_t* __restrict__ q_lens,       // [NS]
-    int Hq, int Hkv, long long N, long long scale_stride, int maxp, int S, int TC,
+    int Hq, int Hkv, long long N, long long scale_stride, int maxp, int S, int TC, int NS,
     int qblocks_per_seg, float scale, int window) {
-  using L = Smem<D>;
-  constexpr int D2 = 2 * D;
+  using C = Cfg<D>;
+  constexpr int BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + L::KV_OFF);
-  float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::P_OFF);
-  float* sO = reinterpret_cast<float*>(smem + L::O_OFF);
-  float* sM = reinterpret_cast<float*>(smem + L::ROW_OFF);
-  float* sL = sM + BQ;
-  float* sAlpha = sL + BQ;
-  int* sHi = reinterpret_cast<int*>(sAlpha + BQ);
-  float* sKs = reinterpret_cast<float*>(smem + L::SC_OFF);
-  float* sVs = sKs + BK;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  unsigned char* sBuf = smem + C::Q_BYTES;               // 2 x (bf16 tile, scales)
+  unsigned char* sSlot = sBuf + 2 * C::BUF;              // STAGES x (int8 tile, scales)
 
-  const int seg = blockIdx.x / qblocks_per_seg;
-  const int row0 = (blockIdx.x % qblocks_per_seg) * BQ;
-  const int hq = blockIdx.y;
+  const int hq = blockIdx.x;
+  const int seg = blockIdx.y % NS;
+  const int row0 = (qblocks_per_seg - 1 - blockIdx.y / NS) * BQ;  // the last blocks first
   const int hkv = hq / (Hq / Hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const long long num_pages = N / S;
 
   const int cache_len = cache_lens[seg];
   const int q_len = q_lens[seg];
   const int total = cache_len + q_len;
   const int32_t* pt = page_tables + (long long)seg * maxp;
-  const int8_t* head = pool + (long long)hkv * N * D2;
+  const int8_t* head = pool + (long long)hkv * N * C::D2;
   const float* ks_head = k_scales + (long long)hkv * scale_stride;
   const float* vs_head = v_scales + (long long)hkv * scale_stride;
 
-  // Q tile (rows past the segment are zero) and per-row state
-  constexpr int QV = D / 8;  // 16-byte vectors per q row
-  for (int i = tid; i < BQ * QV; i += NT) {
-    const int r = i / QV, c = i % QV;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < TC)
-      val = *reinterpret_cast<const uint4*>(
-          q + (((long long)seg * TC + row0 + r) * Hq + hq) * D + c * 8);
-    *reinterpret_cast<uint4*>(sQ + r * L::LDQ + c * 8) = val;
-  }
-  for (int r = tid; r < BQ; r += NT) {
-    const int i = row0 + r;
-    sHi[r] = i < q_len ? min(cache_len + i + 1, total) : 0;
-    sM[r] = NEG_INF;
-    sL[r] = 0.f;
-  }
-  for (int i = tid; i < BQ * D; i += NT) sO[(i / D) * L::LDO + i % D] = 0.f;
-
+  // the block's keys [kv_lo, kv_hi)
   int kv_hi = 0, kv_lo = 0;
   if (row0 < q_len) {
     kv_hi = cache_len + min(q_len, row0 + BQ);
     if (window > 0) kv_lo = max(0, cache_len + row0 + 1 - window);
   }
   kv_hi = min(kv_hi, maxp * S);
-  __syncthreads();
 
-  constexpr int KVV = D2 / 16;  // 16-byte vectors (16 int8 elements) per K|V row
-  for (int j0 = (kv_lo / BK) * BK; j0 < kv_hi; j0 += BK) {
-    for (int i = tid; i < BK * KVV; i += NT) {
-      const int r = i / KVV, c = i % KVV;
-      const int j = j0 + r;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (j < kv_hi) {
-        long long page = pt[j / S];
-        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-        val = *reinterpret_cast<const uint4*>(head + (page * S + j % S) * D2 + c * 16);
+  // Q tile (rows past the segment's TC are zero)
+  constexpr int QV = D / 8;
+  for (int i = tid; i < BQ * QV; i += NT) {
+    const int r = i / QV, c = i % QV;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < TC)
+      val = *reinterpret_cast<const uint4*>(
+          q + (((long long)seg * TC + row0 + r) * Hq + hq) * D + c * 8);
+    *reinterpret_cast<uint4*>(sQ + r * C::LDQ + c * 8) = val;
+  }
+
+  // the int8 ring: tile `issued` goes next into slot issued % STAGES, its
+  // page ids already in `ids`
+  const int s_shift = log2_if_pow2(S);
+  auto page_of = [&](int t) { return s_shift >= 0 ? t >> s_shift : t / S; };
+  const int jt0 = (kv_lo / BK) * BK;
+  const int n = kv_hi > jt0 ? (kv_hi - jt0 + BK - 1) / BK : 0;
+  int issued = 0;
+  PageIds ids{};
+  if (n > 0) ids = fetch_pages(pt, maxp, page_of(jt0), lane);
+  auto issue = [&]() {
+    if (issued < n) {
+      const int j0 = jt0 + issued * BK;
+      unsigned char* slot = sSlot + (issued % C::STAGES) * C::SLOT;
+      gather_tile<BK, C::D2, C::D2, NT, C::UNROLL, int8_t>(
+          reinterpret_cast<int8_t*>(slot), head, pt, ids, j0, kv_lo, kv_hi, S, s_shift,
+          num_pages, tid);
+      if (tid < 2 * BK) {  // whole warps: the K scales, then the V scales
+        const int r = tid % BK, t = j0 + r;
+        float* dst = reinterpret_cast<float*>(slot + BK * C::D2) + tid;
+        const int pidx = page_of(t), rel = pidx - ids.p0;
+        const int pa = __shfl_sync(0xffffffffu, ids.a, rel & 31);
+        const int pb = __shfl_sync(0xffffffffu, ids.b, rel & 31);
+        if (t >= kv_lo && t < kv_hi) {
+          long long page = rel < 32 ? pa : (rel < 64 ? pb : pt[pidx]);
+          page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+          const float* src = (tid < BK ? ks_head : vs_head) + page * S + (t - pidx * S);
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+                       "l"(src));
+        } else {
+          *dst = 0.f;
+        }
       }
-      // 16 int8 -> 16 bf16 (exact), two 16-byte stores
-      const uint32_t words[4] = {val.x, val.y, val.z, val.w};
-      uint32_t pk[8];
+      if (++issued < n) ids = fetch_pages(pt, maxp, page_of(j0 + BK), lane);
+    }
+    cp_async_commit();
+  };
+  // tile t's chunks (and scales) this thread copied, converted into buffer t % 2
+  auto convert = [&](int t) {
+    const unsigned char* slot = sSlot + (t % C::STAGES) * C::SLOT;
+    unsigned char* buf = sBuf + (t % 2) * C::BUF;
+    constexpr int CPR = C::D2 / 16;
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        pk[2 * w] = pack_bf16x2((int8_t)(words[w]), (int8_t)(words[w] >> 8));
-        pk[2 * w + 1] = pack_bf16x2((int8_t)(words[w] >> 16), (int8_t)(words[w] >> 24));
-      }
-      uint4* dst = reinterpret_cast<uint4*>(sKV + r * L::LDKV + c * 16);
+    for (int k = 0; k < C::CH; ++k) {
+      const int i = tid + k * NT, r = i / CPR, c = i % CPR;
+      uint32_t pk[8];
+      int8x16_to_bf16(*reinterpret_cast<const uint4*>(slot + r * C::D2 + c * 16), pk);
+      uint4* dst = reinterpret_cast<uint4*>(buf + (r * C::LDK + c * 16) * 2);
       dst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
       dst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
     }
-    for (int r = tid; r < BK; r += NT) {
-      const int j = j0 + r;
-      float ks = 0.f, vs = 0.f;
-      if (j < kv_hi) {
-        long long page = pt[j / S];
-        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-        const long long slot = page * S + j % S;
-        ks = ks_head[slot];
-        vs = vs_head[slot];
-      }
-      sKs[r] = ks;
-      sVs[r] = vs;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+    if (tid < 2 * BK)
+      reinterpret_cast<float*>(buf + BK * C::LDK * 2)[tid] =
+          reinterpret_cast<const float*>(slot + BK * C::D2)[tid];
+  };
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fill_fragment(c, 0.f);
-#pragma unroll
-        for (int k = 0; k < D / 16; ++k) {
-          wmma::load_matrix_sync(a, sQ + warp * 16 * L::LDQ + k * 16, L::LDQ);
-          wmma::load_matrix_sync(b, sKV + n * 16 * L::LDKV + k * 16, L::LDKV);
-          wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, c, L::LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // online softmax: two lanes per row, 32 columns each
-    {
-      const int r = warp * 16 + lane / 2;
-      const int c0 = (lane % 2) * (BK / 2);
-      const int hi = sHi[r];
-      const int lo = window > 0 ? hi - window : 0;
-      float* srow = sS + r * L::LDS;
-      float mx = NEG_INF;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = j0 + c;
-        const float s = (j < hi && j >= lo) ? srow[c] * scale * sKs[c] : NEG_INF;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      bf16* prow = sP + r * L::LDP;
-      for (int c = c0; c < c0 + BK / 2; ++c) {
-        const int j = j0 + c;
-        const float p = (j < hi && j >= lo) ? __expf(srow[c] - m_new) : 0.f;
-        prow[c] = __float2bfloat16(p * sVs[c]);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();
-      if (lane % 2 == 0) {
-        const float alpha = __expf(m_old - m_new);
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-        sAlpha[r] = alpha;
-      }
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = warp * 16 + i / D;
-      sO[r * L::LDO + i % D] *= sAlpha[r];
-    }
-    __syncwarp();
-
-    // O += P V for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* o = sO + warp * 16 * L::LDO + n * 16;
-        wmma::load_matrix_sync(c, o, L::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int k = 0; k < BK / 16; ++k) {
-          wmma::load_matrix_sync(a, sP + warp * 16 * L::LDP + k * 16, L::LDP);
-          wmma::load_matrix_sync(b, sKV + k * 16 * L::LDKV + D + n * 16, L::LDKV);
-          wmma::mma_sync(c, a, b, c);
-        }
-        wmma::store_matrix_sync(o, c, L::LDO, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();  // every warp is done with sKV and the scales before the next tile
+  for (int s = 0; s < C::STAGES; ++s) issue();
+  if (n > 0) {
+    cp_async_wait<C::STAGES - 1>();  // tile 0
+    convert(0);
   }
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i % D;
-    if (row0 + r >= TC) continue;
-    const float val = sO[r * L::LDO + d] / fmaxf(sL[r], 1e-20f);
-    out[(((long long)seg * TC + row0 + r) * Hq + hq) * D + d] = __float2bfloat16(val);
+  // this thread's rows g and g + 8 of the warp's 16, their key bounds [lo, hi)
+  const int g = lane / 4;
+  int hi[2], lo[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + warp * 16 + g + 8 * r;
+    hi[r] = i < q_len ? min(cache_len + i + 1, total) : 0;
+    lo[r] = window > 0 ? hi[r] - window : 0;
+  }
+  // the warp's extremes: tiles outside [lo_min, hi_max) are skipped, tiles
+  // inside [lo_max, hi_min) need no mask
+  int hi_max = max(hi[0], hi[1]), hi_min = min(hi[0], hi[1]);
+  int lo_min = min(lo[0], lo[1]), lo_max = max(lo[0], lo[1]);
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    hi_max = max(hi_max, __shfl_xor_sync(0xffffffffu, hi_max, off));
+    hi_min = min(hi_min, __shfl_xor_sync(0xffffffffu, hi_min, off));
+    lo_min = min(lo_min, __shfl_xor_sync(0xffffffffu, lo_min, off));
+    lo_max = max(lo_max, __shfl_xor_sync(0xffffffffu, lo_max, off));
+  }
+
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  constexpr int QF = C::QREG ? D / 16 : 1;
+  uint32_t qf[QF][4];
+  const bf16* qw = sQ + warp * 16 * C::LDQ;
+  const int c2 = 2 * (lane % 4);
+
+  for (int it = 0; it < n; ++it) {
+    // tile it converted (and, on the first pass, the Q tile staged); every
+    // warp is done with buffer (it + 1) % 2
+    __syncthreads();
+    if (it + 1 < n) {
+      cp_async_wait<C::STAGES - 2>();  // this thread's chunks of tile it + 1
+      convert(it + 1);
+    }
+    issue();  // tile it + STAGES, into the slot tile it left
+    if constexpr (C::QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k) ldsm_x4(qf[k], qw + a_offset(lane, C::LDQ, k * 16));
+      }
+    }
+    const int j0 = jt0 + it * BK;
+    if (j0 >= hi_max || j0 + BK <= lo_min) continue;  // warp-uniform: all masked
+    const bool full = j0 + BK <= hi_min && j0 >= lo_max;
+    const unsigned char* buf = sBuf + (it % 2) * C::BUF;
+    const bf16* kv = reinterpret_cast<const bf16*>(buf);
+    const float* sks = reinterpret_cast<const float*>(buf + BK * C::LDK * 2);
+    const float* svs = sks + BK;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      uint32_t a_ld[4];
+      const uint32_t* a;
+      if constexpr (C::QREG) {
+        a = qf[k];
+      } else {
+        ldsm_x4(a_ld, qw + a_offset(lane, C::LDQ, k * 16));
+        a = a_ld;
+      }
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, kv + b_offset(lane, C::LDK, np * 16, k * 16));
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // online softmax over the tile for rows g and g + 8; the K scale of key
+    // column c multiplies its score before the mask
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      const float2 ksc = *reinterpret_cast<const float2*>(sks + nt * 8 + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[nt][e] * scale * (e & 1 ? ksc.y : ksc.x);
+        if (!full) {
+          const int j = j0 + nt * 8 + c2 + (e & 1);
+          if (j >= hi[e >> 1] || j < lo[e >> 1]) v = NEG_INF;
+        }
+        s[nt][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = __expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+    // p (unscaled) into l; p times the key's V scale, rounded to bf16, into P
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      const float2 vsc = *reinterpret_cast<const float2*>(svs + nt * 8 + c2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[nt][e] > NEG_INF ? __expf(s[nt][e] - m_r[e >> 1]) : 0.f;
+        l_r[e >> 1] += p;
+        s[nt][e] = p * (e & 1 ? vsc.y : vsc.x);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, kv + bt_offset(lane, C::LDK, kk * 16, D + dp * 16));
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    l_r[r] = 1.f / fmaxf(l_r[r], 1e-20f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + warp * 16 + g + 8 * r;
+    if (i >= TC) continue;
+    bf16* orow = out + (((long long)seg * TC + i) * Hq + hq) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(o[j][2 * r] * l_r[r], o[j][2 * r + 1] * l_r[r]);
   }
 }
 
@@ -270,23 +376,29 @@ int launch(void* out, const void* q, const void* pool, const void* k_scales,
            const void* q_lens, int NS, int TC, int Hq, int Hkv, long long N,
            long long scale_stride, int maxp, int S, float scale, int window,
            cudaStream_t stream) {
-  const int bytes = Smem<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_hm_q_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
+  using C = Cfg<D>;
+  static int err = -1;  // once per head dim
+  if (err < 0) {  // and the largest carveout, so that two or three blocks share an SM
+    err = (int)cudaFuncSetAttribute(prefill_hm_q_kernel<D>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(prefill_hm_q_kernel<D>,
+                                      cudaFuncAttributePreferredSharedMemoryCarveout,
+                                      cudaSharedmemCarveoutMaxShared);
+  }
+  if (err) return err;
   const int qbps = (TC + BQ - 1) / BQ;
-  prefill_hm_q_kernel<D><<<dim3(NS * qbps, Hq), NT, bytes, stream>>>(
+  prefill_hm_q_kernel<D><<<dim3(Hq, NS * qbps), NT, C::BYTES, stream>>>(
       (bf16*)out, (const bf16*)q, (const int8_t*)pool, (const float*)k_scales,
       (const float*)v_scales, (const int32_t*)page_tables, (const int32_t*)cache_lens,
-      (const int32_t*)q_lens, Hq, Hkv, N, scale_stride, maxp, S, TC, qbps, scale,
-      window);
+      (const int32_t*)q_lens, Hq, Hkv, N, scale_stride, maxp, S, TC, NS, qbps, scale, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Supported: bf16 q, int8 pool, fp32 scales, D in {64, 128}, Hq a multiple of
-// Hkv. Returns the CUDA error code of the launch (0 = success).
+// Supported: bf16 q, int8 pool, fp32 scales, D in {64, 128, 192, 256}, Hq a
+// multiple of Hkv. Returns the CUDA error code of the launch (0 = success).
 extern "C" int zt_prefill_attention_hm_q(void* out, const void* q, const void* pool,
                                          const void* k_scales, const void* v_scales,
                                          const void* page_tables,
@@ -297,11 +409,11 @@ extern "C" int zt_prefill_attention_hm_q(void* out, const void* q, const void* p
                                          void* stream) {
   if (NS == 0 || TC == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 64)
-    return launch<64>(out, q, pool, k_scales, v_scales, page_tables, cache_lens, q_lens,
+#define ZT_D(DD)                                                                          \
+  if (D == DD)                                                                            \
+    return launch<DD>(out, q, pool, k_scales, v_scales, page_tables, cache_lens, q_lens, \
                       NS, TC, Hq, Hkv, N, scale_stride, maxp, S, scale, window, st);
-  if (D == 128)
-    return launch<128>(out, q, pool, k_scales, v_scales, page_tables, cache_lens, q_lens,
-                       NS, TC, Hq, Hkv, N, scale_stride, maxp, S, scale, window, st);
+  ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)
+#undef ZT_D
   return (int)cudaErrorInvalidValue;
 }

@@ -18,8 +18,7 @@ the second product, as the TPU kernel does; K and V elements are never
 multiplied by a scale. The scales are head-major ``[Hkv, >= N]``
 (``kvcache/paged.py``), where the reference keeps them ``[N, Hkv]``.
 
-The bf16 kernel takes head_dim 64, 128, 192 and 256; the int8 kernel 64 and
-128.
+Both kernels take head_dim 64, 128, 192 and 256.
 
 The pool must already hold the chunk's K/V (the write runs first). Only rows
 ``i < q_lens[s]`` of each segment are meaningful; padding rows and segments
@@ -243,7 +242,7 @@ def paged_prefill_attention_hm_packed_q(
         raise NotImplementedError(
             f"int8 prefill attention kernel takes bf16 q and an int8 pool, got {q.dtype}/{kv_pool.dtype}"
         )
-    if D not in (64, 128):
+    if D not in BF16_HEAD_DIMS:
         raise NotImplementedError(f"int8 prefill attention kernel: head_dim {D}")
     check_scales("int8 prefill attention", kv_pool, k_scales, v_scales)
     for t in (page_tables, cache_lens, q_lens):

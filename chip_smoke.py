@@ -36,17 +36,21 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            prefill are also held at their split edges (contexts 1, 64, 65, a
            split boundary, a window across splits, an empty slot) and at
            head_dim 192 and 256 with up to 40 query heads a KV head, and timed
-           at head_dim 256 (16 / 8 heads), as is the int8 head-major
-           prefill; the int4 matmul is held at M 1 to 512, at split counts
-           whose runs end inside a group, at N % 16 == 8, at a group size
-           that is not a multiple of 32 rows, and two calls of a split-K
-           plan to the same bits, and timed at M 8, 128 and 512 (also at
-           every kernel and split count it takes); with
-           ``--parent-csrc DIR`` the attn_headmajor.cu, prefill_attention.cu,
-           quant_matmul.cu and prefill_attention_q.cu in DIR (an earlier
-           tree's csrc) are built apart with nvcc and timed beside this
-           tree's in turns at MiniCPM-2B's and Qwen2.5-14B's shapes (the
-           int4 matmul at the four Qwen2.5-14B projections, M 8 and 512);
+           at head_dim 256 (16 / 8 heads), as are the int8 head-major decode
+           (the same cases, a repeated call to the same bits) and prefill;
+           the four head-major attention kernels (bf16 and int8, decode and
+           prefill) are held to their twins too, the plain versions that
+           round where the kernels round; the int4 matmul is held at M 1 to
+           512, at split counts whose runs end inside a group, at N % 16 == 8,
+           at a group size that is not a multiple of 32 rows, and two calls of
+           a split-K plan to the same bits, and timed at M 8, 128 and 512
+           (also at every kernel and split count it takes); the FP8 block
+           matmul is held on every finite e4m3 code, bit for bit; with
+           ``--parent-csrc DIR`` the fp8_matmul.cu and attn_headmajor_q.cu in
+           DIR (an earlier tree's csrc) are built apart with nvcc and timed
+           beside this tree's in turns: the FP8 block matmul at the four
+           Qwen3-8B projections, M 8 and 512, and the int8 head-major decode
+           and its partial mode at MiniCPM-2B's and Qwen2.5-14B's shapes;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -84,7 +88,10 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            model at Qwen2.5-14B's attention geometry (40 / 8 heads of 128)
            whose pool is slot-major because ``ZT_NO_PACKED_KV=1`` is set while
            its executor builds it, the only layout that reaches
-           ``paged_write_rows``, with logits against the packed pool's; and
+           ``paged_write_rows``, with logits against the packed pool's; and a
+           4-layer model at Gemma-2-9B's attention geometry (16 / 8 heads of
+           256) over an int8 head-major pool, four requests, its logits
+           against the plain path; and
            three decode-window side-KV paths (``ZT_WINDOW_KV=1`` set while a
            second executor over already loaded weights is built): MiniCPM-2B
            (bf16 pool), Qwen2.5-14B GPTQ-Int4 over the int8 pool, and
@@ -278,6 +285,8 @@ PATHS = {
     "H2O-Danube-1.8B-fused": ("write_rows_2d_pair", "paged_decode_attention_fused"),
     "DeepSeek-V2-Lite-GPTQ-Int4-fused": ("write_rows_2d", "w4a16_ragged_matmul", "w4a16_matmul",
                                          "paged_mla_decode_fused"),
+    # an int8 head-major pool at head_dim 256 (4 layers at Gemma-2-9B's heads)
+    "Gemma-2-9B-geometry-4-layers-int8kv": ("write_rows_hm",) + INT8_KERNELS,
 }
 # a fused path's row write: layers x prefill forwards launches, none in decode
 FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "write_rows_2d_pair",
@@ -706,10 +715,14 @@ def time_write(rng, W, T, H, D, int8) -> dict:
 
 def check_decode(rng, A, cases, int8) -> float:
     """Decode attention (bf16 pool, or int8 pool with scales) against its
-    plain version; returns the largest error."""
+    plain version and its twin (the plain version in the kernels' rounding
+    order); an empty slot is zero and a repeated call gives the same bits.
+    Returns the largest error against the plain version."""
     S, err = 16, 0.0
-    fn, plain = ((A.paged_decode_attention_hm_q, A.paged_decode_attention_hm_q_plain) if int8
-                 else (A.paged_decode_attention_hm, A.paged_decode_attention_hm_plain))
+    fn, plain, twin = ((A.paged_decode_attention_hm_q, A.paged_decode_attention_hm_q_plain,
+                        A.paged_decode_attention_hm_q_twin) if int8 else
+                       (A.paged_decode_attention_hm, A.paged_decode_attention_hm_plain,
+                        A.paged_decode_attention_hm_twin))
     for c in cases:
         B, Hq, Hkv, D = c["B"], c["Hq"], c["Hkv"], c["D"]
         if "ctx" in c:
@@ -723,11 +736,15 @@ def check_decode(rng, A, cases, int8) -> float:
                 c["window"])
         got, want = fn(*args), plain(*args)
         e = (got.float() - want.float()).abs().max().item()
-        print(f"kernels: decode {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e}", flush=True)
-        if not np.isfinite(e) or e > ATTN_TOL:
-            raise AssertionError(f"decode attention {c}: max abs err {e} > {ATTN_TOL}")
+        e_twin = (got.float() - twin(*args).float()).abs().max().item()
+        print(f"kernels: decode {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e} "
+              f"(twin {e_twin:.3e})", flush=True)
+        if not (np.isfinite(e) and e <= ATTN_TOL and e_twin <= ATTN_TOL):
+            raise AssertionError(f"decode attention {c}: max abs err {e} (twin {e_twin}) > {ATTN_TOL}")
         if got[torch.from_numpy(ctx == 0)].any():
             raise AssertionError(f"decode attention {c}: an empty slot is not zero")
+        if not torch.equal(fn(*args), got):
+            raise AssertionError(f"decode attention {c}: a repeated call differs")
         err = max(err, e)
     return err
 
@@ -767,11 +784,11 @@ def check_prefill(rng, P, cases, int8) -> float:
     """Packed prefill attention against its plain version on the valid rows;
     a one-segment case also goes through the single-sequence wrapper."""
     S, err = 16, 0.0
-    fn, plain, single = (
+    fn, plain, twin, single = (
         (P.paged_prefill_attention_hm_packed_q, P.paged_prefill_attention_hm_packed_q_plain,
-         P.paged_prefill_attention_hm_q) if int8 else
+         P.paged_prefill_attention_hm_packed_q_twin, P.paged_prefill_attention_hm_q) if int8 else
         (P.paged_prefill_attention_hm_packed, P.paged_prefill_attention_hm_packed_plain,
-         P.paged_prefill_attention_hm))
+         P.paged_prefill_attention_hm_packed_twin, P.paged_prefill_attention_hm))
     for c in cases:
         cl = np.array(c["cache_lens"], np.int32)
         ql = np.array(c["q_lens"], np.int32)
@@ -786,16 +803,19 @@ def check_prefill(rng, P, cases, int8) -> float:
         else:
             got = fn(q, *pools, tables, _dev(cl), _dev(ql), *tail)
         want = plain(q, *pools, tables, _dev(cl), _dev(ql), *tail)
+        want_twin = twin(q, *pools, tables, _dev(cl), _dev(ql), *tail)
         if not torch.isfinite(got).all():
             raise AssertionError(f"prefill attention {c}: non-finite output")
-        e = 0.0
+        e = e_twin = 0.0
         for s in range(NS):
             rows = slice(s * TC, s * TC + int(ql[s]))
             if ql[s]:
                 e = max(e, (got[rows].float() - want[rows].float()).abs().max().item())
-        print(f"kernels: prefill {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e}", flush=True)
-        if e > ATTN_TOL:
-            raise AssertionError(f"prefill attention {c}: max abs err {e} > {ATTN_TOL}")
+                e_twin = max(e_twin, (got[rows].float() - want_twin[rows].float()).abs().max().item())
+        print(f"kernels: prefill {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e} "
+              f"(twin {e_twin:.3e})", flush=True)
+        if e > ATTN_TOL or e_twin > ATTN_TOL:
+            raise AssertionError(f"prefill attention {c}: max abs err {e} (twin {e_twin}) > {ATTN_TOL}")
         err = max(err, e)
     return err
 
@@ -839,19 +859,19 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
 def parent_kernels(csrc: str):
     """Kernels of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc),
     built by nvcc with this tree's flags into a temporary directory and
-    driven through their own C signatures: the bf16 head-major decode and
-    prefill (rows 2, 3), the int4 matmul and the int8 head-major prefill (rows
-    4, 6). Returns {name: fn}: decode(q, pool, tables, ctx, S, scale,
-    partial), prefill(q, pool, tables, cache_lens, q_lens, S, scale),
-    w4a16(x, w, scales, zeros), prefill_q(q, pool, ks, vs, tables,
-    cache_lens, q_lens, S, scale)."""
+    driven through their own C signatures (those before the FP8 block matmul
+    took a host plan and the int8 decode split its contexts): the FP8 block
+    matmul (row 9) and the int8 head-major decode (rows 5, 5p). Returns {name:
+    fn}: fp8(x, w, scale), decode_q(q, pool, ks, vs, tables, ctx, S, scale,
+    partial)."""
     import ctypes
     import tempfile
 
     from zhilight_tpu_torch.ops.cuda import _build
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 
     out_dir = tempfile.mkdtemp(prefix="zt_parent_")
-    names = ("attn_headmajor", "prefill_attention", "quant_matmul", "prefill_attention_q")
+    names = ("fp8_matmul", "attn_headmajor_q")
     libs = {}
     procs = [(name, subprocess.Popen(
         [_build._nvcc(), *_build._FLAGS, "-o", f"{out_dir}/{name}.so", f"{csrc}/{name}.cu"],
@@ -862,112 +882,86 @@ def parent_kernels(csrc: str):
             raise RuntimeError(f"parent {name}: nvcc exit {proc.returncode}\n{log}")
         libs[name] = ctypes.CDLL(f"{out_dir}/{name}.so")
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    dec = libs["attn_headmajor"].zt_decode_attention_hm
-    dec.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, ll, i, i, f, i, i, p]
-    pre = libs["prefill_attention"].zt_prefill_attention_hm
-    pre.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, i, i, f, i, p]
-    mm = libs["quant_matmul"].zt_w4a16_matmul
-    mm.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    preq = libs["prefill_attention_q"].zt_prefill_attention_hm_q
-    preq.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i, f, i, p]
+    mm = libs["fp8_matmul"].zt_fp8_block_matmul
+    mm.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    splits = libs["fp8_matmul"].zt_fp8_block_matmul_splits
+    splits.argtypes, splits.restype = [i, i, i], i
+    dec = libs["attn_headmajor_q"].zt_decode_attention_hm_q
+    dec.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, i, i, f, i, p]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
-    tickets = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")  # the parent's own
-
-    def decode(q, pool, tables, ctx, S, scale, partial=False):
-        """The split plan and scratch this tree's wrapper gives its kernel."""
-        from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
-
-        B, Hq, D = q.shape
-        Hkv, N, _ = pool.shape
-        G = Hq // Hkv
-        out, ptrs = A._outputs(q, Hkv, D, partial)
-        splits = A.decode_splits(B, Hkv, G, tables.shape[1] * S, A._capacity(q.device, D))
-        scratch = (None, None, None)
-        if splits > 1:
-            heads = Hkv * -(-G // A._ROWS)
-            part_acc = torch.empty((B, heads, splits, A._ROWS, D), dtype=torch.float32,
-                                   device=q.device)
-            part_ml = torch.empty((B, heads, splits, 2, A._ROWS), dtype=torch.float32,
-                                  device=q.device)
-            scratch = (part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr())
-        _build.check(dec(*ptrs, *scratch, q.data_ptr(), pool.data_ptr(), tables.data_ptr(),
-                         ctx.data_ptr(), B, Hkv, G, D, N, tables.shape[1], S, scale, 0, splits,
-                         stream()), "parent decode")
-        return out
-
-    def prefill(q, pool, tables, cache_lens, q_lens, S, scale):
-        T, Hq, D = q.shape
-        Hkv, N, _ = pool.shape
-        NS = tables.shape[0]
-        out = torch.empty_like(q)
-        _build.check(pre(out.data_ptr(), q.data_ptr(), pool.data_ptr(), tables.data_ptr(),
-                         cache_lens.data_ptr(), q_lens.data_ptr(), NS, T // NS, Hq, Hkv, D, N,
-                         tables.shape[1], S, scale, 0, stream()), "parent prefill")
-        return out
-
-    def w4a16(x, w, scales, zeros):
+    def fp8(x, w, scale):
         (M, K), N = x.shape, w.shape[1]
         out = torch.empty(M, N, dtype=x.dtype, device=x.device)
-        _build.check(mm(out.data_ptr(), x.data_ptr(), w.data_ptr(), scales.data_ptr(),
-                        zeros.data_ptr(), M, N, K, scales.shape[0], int(w.dtype == torch.uint8),
-                        stream()), "parent w4a16")
+        n = splits(M, N, K)
+        part = torch.empty(n, M, N, dtype=torch.float32, device=x.device) if n > 1 else None
+        _build.check(mm(out.data_ptr(), None if part is None else part.data_ptr(), x.data_ptr(),
+                        w.data_ptr(), scale.data_ptr(), M, N, K, n, stream()), "parent fp8")
         return out
 
-    def prefill_q(q, pool, ks, vs, tables, cache_lens, q_lens, S, scale):
-        T, Hq, D = q.shape
+    def decode_q(q, pool, ks, vs, tables, ctx, S, scale, partial=False):
+        B, Hq, D = q.shape
         Hkv, N, _ = pool.shape
-        NS = tables.shape[0]
-        out = torch.empty_like(q)
-        _build.check(preq(out.data_ptr(), q.data_ptr(), pool.data_ptr(), ks.data_ptr(),
-                          vs.data_ptr(), tables.data_ptr(), cache_lens.data_ptr(),
-                          q_lens.data_ptr(), NS, T // NS, Hq, Hkv, D, N, ks.stride(0),
-                          tables.shape[1], S, scale, 0, stream()), "parent int8 prefill")
+        out, ptrs = A._outputs(q, Hkv, D, partial)
+        _build.check(dec(*ptrs, q.data_ptr(), pool.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                         tables.data_ptr(), ctx.data_ptr(), B, Hkv, Hq // Hkv, D, N,
+                         ks.stride(0), tables.shape[1], S, scale, 0, stream()),
+                     "parent int8 decode")
         return out
 
-    return dict(decode=decode, prefill=prefill, w4a16=w4a16, prefill_q=prefill_q)
+    return dict(fp8=fp8, decode_q=decode_q)
 
 
-def compare_parent(rng, A, P, csrc: str) -> None:
-    """Rows 2, 2p and 3 of an earlier tree against this tree's, in turns
+def compare_parent(rng, csrc: str) -> None:
+    """Rows 9, 5 and 5p of an earlier tree against this tree's, in turns
     (parent, this tree, this tree, parent) on the same inputs, device time by
-    the same ``time_ms``; also held against each other. One JSON line."""
-    S = 16
-    parent = parent_kernels(csrc)
-    decode, prefill = parent["decode"], parent["prefill"]
-    res = {}
-    turns = _turns(res)
+    the same ``time_ms``: fp8_block_matmul at the four Qwen3-8B projection
+    shapes, M 8 and 512, with a cold L2; the int8 head-major decode and its
+    partial mode at MiniCPM-2B's and Qwen2.5-14B's shapes. Each pair is also
+    held against each other (FP8_TOL, ATTN_TOL; the partials relative to
+    their size). One JSON line."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
 
+    parent = parent_kernels(csrc)
+    res = {}
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    cold = _turns(res, flush=scratch.zero_)
+    for name, (K, N) in QWEN3_SHAPES.items():
+        bits = rng.integers(0, 256, (K, N)).astype(np.uint8)
+        bits[(bits & 0x7F) == 0x7F] = 0x3C
+        w = _dev(bits).view(torch.float8_e4m3fn)
+        s = _dev(((rng.random((K // 128, N // 128)) + 0.5) * (0.02 / np.sqrt(K))).astype(np.float32))
+        for M in (8, 512):
+            x = _randn(rng, M, K)
+            old, new = parent["fp8"](x, w, s), F8.fp8_block_matmul(x, w, s)
+            e = (old.float() - new.float()).abs().max().item() / new.float().abs().max().item()
+            if not e <= FP8_TOL:
+                raise AssertionError(f"parent vs this tree, fp8 {name} M={M}: {e}")
+            cold(f"row 9, {name} M={M}", lambda: parent["fp8"](x, w, s),
+                 lambda: F8.fp8_block_matmul(x, w, s))
+    del scratch
+    turns = _turns(res)
+    S = 16
     for B, heads, CTX, model in ((16, MINICPM_HEADS, 512, "MiniCPM-2B batch 16, context 512"),
                                  (8, QWEN_HEADS, 3712, "Qwen2.5-14B batch 8, context 3712")):
         Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
         maxp = CTX // S + 2
         tables = _dev(np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32))
-        pool = _randn(rng, Hkv, B * maxp * S, 2 * D)
-        q, ctx, scale = _randn(rng, B, Hq, D), _dev(np.full(B, CTX, np.int32)), 1.0 / np.sqrt(D)
-        e = (decode(q, pool, tables, ctx, S, scale).float()
-             - A.paged_decode_attention_hm(q, pool, tables, ctx, S, scale).float()).abs().max()
-        if not e <= ATTN_TOL:
-            raise AssertionError(f"parent vs this tree, decode {model}: {e}")
-        turns(f"row 2, {model}", lambda: decode(q, pool, tables, ctx, S, scale),
-              lambda: A.paged_decode_attention_hm(q, pool, tables, ctx, S, scale))
-        turns(f"row 2p, {model}", lambda: decode(q, pool, tables, ctx, S, scale, partial=True),
-              lambda: A.paged_decode_attention_hm_partial(q, pool, tables, ctx, S, scale))
-    for heads, model in ((MINICPM_HEADS, "MiniCPM-2B"), (QWEN_HEADS, "Qwen2.5-14B")):
-        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
-        CL, QL = 3200, 512
-        tables, npages = _paged(rng, [CL + QL], S)
-        tables = _dev(tables)
-        pool = _randn(rng, Hkv, npages * S, 2 * D)
-        q = _randn(rng, QL, Hq, D)
-        cl, ql, scale = _dev(np.array([CL], np.int32)), _dev(np.array([QL], np.int32)), 1.0 / np.sqrt(D)
-        e = (prefill(q, pool, tables, cl, ql, S, scale).float() - P.paged_prefill_attention_hm_packed(
-            q, pool, tables, cl, ql, S, scale).float()).abs().max()
-        if not e <= ATTN_TOL:
-            raise AssertionError(f"parent vs this tree, prefill {model}: {e}")
-        turns(f"row 3, {model} 512-token chunk at cache 3200",
-              lambda: prefill(q, pool, tables, cl, ql, S, scale),
-              lambda: P.paged_prefill_attention_hm_packed(q, pool, tables, cl, ql, S, scale))
+        (pool, ks, vs), _ = _pool_args(rng, Hkv, B * maxp * S, D, True)
+        args = (_randn(rng, B, Hq, D), pool, ks, vs, tables, _dev(np.full(B, CTX, np.int32)), S,
+                1.0 / np.sqrt(D))
+        e = (parent["decode_q"](*args).float()
+             - A.paged_decode_attention_hm_q(*args).float()).abs().max().item()
+        ctx = np.full(B, CTX, np.int32)
+        e_p = _partial_err(A.paged_decode_attention_hm_q(*args, emit_partial=True),
+                           parent["decode_q"](*args, partial=True), ctx)
+        if not (e <= ATTN_TOL and e_p <= ATTN_TOL):
+            raise AssertionError(f"parent vs this tree, int8 decode {model}: {e}, partial {e_p}")
+        turns(f"row 5, {model}, int8 pool", lambda: parent["decode_q"](*args),
+              lambda: A.paged_decode_attention_hm_q(*args))
+        turns(f"row 5p, {model}, int8 pool", lambda: parent["decode_q"](*args, partial=True),
+              lambda: A.paged_decode_attention_hm_q(*args, emit_partial=True))
     print(json.dumps({"parent_compare": res}), flush=True)
 
 
@@ -981,50 +975,6 @@ def _turns(res: dict, flush=None):
         print(f"kernels: parent vs this tree, {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
               f"this tree {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
     return turns
-
-
-def compare_parent_q(rng, P, csrc: str) -> None:
-    """Rows 4 and 6 of an earlier tree against this tree's, in turns on the
-    same inputs: w4a16_matmul at the four Qwen2.5-14B projection shapes, M 8
-    and 512, with a cold L2; the int8 head-major prefill at MiniCPM-2B's and
-    Qwen2.5-14B's 512-token chunk at cache 3200. Each pair is also held
-    against each other (W4A16_TOL, ATTN_TOL). One JSON line."""
-    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
-    from zhilight_tpu_torch.ops.quant import pack_int4
-
-    parent = parent_kernels(csrc)
-    res = {}
-    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    cold = _turns(res, flush=scratch.zero_)
-    for name, (K, N) in QWEN_W4_SHAPES.items():
-        w = pack_int4(_dev(rng.integers(0, 16, (K, N)).astype(np.int8)))
-        s = _dev((rng.random((K // 128, N)) * 0.004 + 0.001).astype(np.float32))
-        z = _dev(rng.integers(1, 16, (K // 128, N)).astype(np.float32))
-        for M in (8, 512):
-            x = _randn(rng, M, K)
-            old, new = parent["w4a16"](x, w, s, z), Q.w4a16_matmul(x, w, s, z)
-            e = (old.float() - new.float()).abs().max().item() / new.float().abs().max().item()
-            if not e <= W4A16_TOL:
-                raise AssertionError(f"parent vs this tree, w4a16 {name} M={M}: {e}")
-            cold(f"row 4, {name} M={M}", lambda: parent["w4a16"](x, w, s, z),
-                 lambda: Q.w4a16_matmul(x, w, s, z))
-    del scratch
-    turns = _turns(res)
-    S, CL, QL = 16, 3200, 512
-    for heads, model in ((MINICPM_HEADS, "MiniCPM-2B"), (QWEN_HEADS, "Qwen2.5-14B")):
-        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
-        tables, npages = _paged(rng, [CL + QL], S)
-        (pool, ks, vs), _ = _pool_args(rng, Hkv, npages * S, D, True)
-        args = (_randn(rng, QL, Hq, D), pool, ks, vs, _dev(tables),
-                _dev(np.array([CL], np.int32)), _dev(np.array([QL], np.int32)), S, 1.0 / np.sqrt(D))
-        e = (parent["prefill_q"](*args).float()
-             - P.paged_prefill_attention_hm_packed_q(*args).float()).abs().max()
-        if not e <= ATTN_TOL:
-            raise AssertionError(f"parent vs this tree, int8 prefill {model}: {e}")
-        turns(f"row 6, {model} 512-token chunk at cache 3200, int8 pool",
-              lambda: parent["prefill_q"](*args),
-              lambda: P.paged_prefill_attention_hm_packed_q(*args))
-    print(json.dumps({"parent_compare_q": res}), flush=True)
 
 
 def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
@@ -1083,9 +1033,10 @@ def phase_kernels(rec: dict, args) -> None:
         dict(B=8, **qwen, ctx=[3712, 7, 513, 1500, 100, 16, 250, 3201], window=0),
         dict(B=8, **qwen, ctx=[3712, 7, 0, 1500, 100, 16, 250, 3201], window=300),
     ]
-    # the bf16 kernel's split edges, and the head dims and groups it takes
-    # beyond the int8 kernel's (G 16 at 128 and 256, G 4 at 192, G 20 at 64)
-    bf16_decode_cases = [
+    # the split edges, and the head dims and groups both kernels take: G 16
+    # at 128 and 256, G 4 and 8 at 192, G 20 (two row groups) at 64 and 256,
+    # a window across splits at 128 and 256
+    wide_decode_cases = [
         dict(B=8, **qwen, ctx=SPLIT_CTX, window=0),
         dict(B=8, **qwen, ctx=SPLIT_CTX, window=700),  # a window across splits
         dict(B=8, Hq=16, Hkv=4, D=192, ctx_max=3000, window=0),
@@ -1093,11 +1044,14 @@ def phase_kernels(rec: dict, args) -> None:
         dict(B=8, Hq=32, Hkv=2, D=128, ctx_max=3000, window=0),
         dict(B=8, Hq=40, Hkv=2, D=64, ctx_max=700, window=0),
         dict(B=8, **GEMMA2_HEADS, ctx=SPLIT_CTX, window=300),
+        dict(B=8, Hq=32, Hkv=4, D=192, ctx=SPLIT_CTX, window=0),
+        dict(B=8, Hq=40, Hkv=2, D=256, ctx=SPLIT_CTX, window=300),
     ]
     for int8, name in ((False, "paged_decode_attention_hm"), (True, "paged_decode_attention_hm_q")):
         err = check_decode(rng, A, decode_cases, int8)
-        if not int8:  # inputs of their own, so the earlier cases keep theirs
-            err = max(err, check_decode(np.random.default_rng(1), A, bf16_decode_cases, False))
+        # inputs of their own, so the earlier cases keep theirs
+        err = max(err, check_decode(np.random.default_rng(9 if int8 else 1), A, wide_decode_cases,
+                                    int8))
         kind = "int8" if int8 else "bf16"
         shapes = {
             # bench.py's decode shape, and the Qwen serving stage's
@@ -1105,10 +1059,10 @@ def phase_kernels(rec: dict, args) -> None:
                 time_decode(rng, A, 16, **mini, CTX=512, int8=int8),
             f"Qwen2.5-14B batch 8, context 3712, {kind} pool":
                 time_decode(rng, A, 8, **qwen, CTX=3712, int8=int8),
+            f"head_dim 256 (16 / 8 heads) batch 8, context 3712, {kind} pool": time_decode(
+                np.random.default_rng(10 if int8 else 4), A, 8, **GEMMA2_HEADS, CTX=3712,
+                int8=int8),
         }
-        if not int8:
-            shapes["head_dim 256 (16 / 8 heads) batch 8, context 3712, bf16 pool"] = time_decode(
-                np.random.default_rng(4), A, 8, **GEMMA2_HEADS, CTX=3712, int8=False)
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
 
     # -- prefill attention: bf16 pool, then int8 pool --------------------------
@@ -1146,8 +1100,7 @@ def phase_kernels(rec: dict, args) -> None:
         }
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
     if args.parent_csrc:
-        compare_parent(np.random.default_rng(6), A, P, args.parent_csrc)
-        compare_parent_q(np.random.default_rng(8), P, args.parent_csrc)
+        compare_parent(np.random.default_rng(6), args.parent_csrc)
 
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
@@ -1305,6 +1258,34 @@ def kernels_w4a16(rec: dict, rng) -> None:
     del scratch
 
 
+def check_fp8_codes(F8, M: int) -> float:
+    """Every finite e4m3 code through fp8_block_matmul: weight rows 0 and 1
+    of a [128, 256] weight hold the 254 codes that are not NaN (each twice),
+    unit block scales, and x rows 0 and 1 are one-hot on them, so those output
+    rows are the codes' values, bit for bit; the other rows (random x over
+    random finite codes) are held to the plain version at FP8_TOL. Returns
+    their max abs error."""
+    codes = np.array([c for c in range(256) if c & 0x7F != 0x7F], np.uint8)
+    bits = np.zeros((128, 256), np.uint8)
+    bits[:2, :254] = np.stack([codes, codes[::-1]])
+    bits[2:] = np.random.default_rng(M).integers(0, 0x7F, (126, 256))
+    w = _dev(bits).view(torch.float8_e4m3fn)
+    bs = torch.ones(1, 2, device="cuda")
+    x = torch.zeros(M, 128, dtype=torch.bfloat16, device="cuda")
+    x[0, 0] = x[1, 1] = 1.0
+    x[2:, 2:] = _randn(np.random.default_rng(M + 1), M - 2, 126)
+    got, want = F8.fp8_block_matmul(x, w, bs), F8.fp8_block_matmul_plain(x, w, bs)
+    exact = w[:2].float().to(torch.bfloat16)
+    if not (torch.equal(got[:2], exact) and exact.isfinite().all()):
+        bad = (got[:2].float() != exact.float()).nonzero()[:8].tolist()
+        raise AssertionError(f"fp8_block_matmul M={M}: e4m3 codes not exact at {bad}")
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= FP8_TOL * want.float().abs().max().item():
+        raise AssertionError(f"fp8_block_matmul M={M} over the codes: max abs err {err}")
+    print(f"kernels: fp8_block_matmul M={M}: every finite e4m3 code exact", flush=True)
+    return err
+
+
 def kernels_fp8(rec: dict, rng) -> None:
     """fp8_block_matmul against its plain version at Qwen3-8B's seven projection
     shapes (four distinct K x N) at a decode batch (M = 8) and a prefill chunk
@@ -1353,6 +1334,8 @@ def kernels_fp8(rec: dict, rng) -> None:
                   flush=True)
         del w8, bs, wd
     del scratch
+    for M in (8, 512):  # both kernels
+        abs_err = max(abs_err, check_fp8_codes(F8, M))
     print(f"kernels: fp8_block_matmul over every case max rel err {rel_err:.3e}, max abs err "
           f"{abs_err:.3e} (library: torch.matmul on the bf16 weight dequantized beforehand)",
           flush=True)
@@ -2988,6 +2971,7 @@ def phase_serve(rec: dict, args) -> None:
 
     danube_paths(rec, args)
     no_packed_kv_path(rec, args)
+    head_dim_256_int8_path(rec, args)
 
 
 def danube_engine_config(kv_dtype: str = "bfloat16"):
@@ -3103,6 +3087,73 @@ def no_packed_kv_path(rec: dict, args) -> None:
             or int(first_sm.argmax()) != int(first_pk.argmax())):
         raise AssertionError(f"{label}: slot-major and packed pools give other logits")
     release_pool(llm)
+
+
+def head_dim_256_int8_path(rec: dict, args) -> None:
+    """An int8 pool at head_dim 256, which the reference packs head-major: a
+    4-layer Llama-family model at Gemma-2-9B's attention geometry (d 3584,
+    16 / 8 heads of 256, ff 14336, vocab 256000; weights from the seed),
+    ``kv_dtype="int8"``, serves four requests with the launch counters zeroed
+    just before and read just after; then its first-token and decode-step
+    logits against the plain path."""
+    from zhilight_tpu_torch.config import ModelConfig
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    t0 = time.monotonic()
+    label = "Gemma-2-9B-geometry-4-layers-int8kv"
+    cfg = ModelConfig(model_type="llama", num_layers=4, dim_model=3584, num_heads=16,
+                      dim_head=256, num_kv_heads=8, dim_ff=14336, vocab_size=256000,
+                      dtype="bfloat16")
+    llm = LLM(model_config=cfg, params=L.init_params(cfg, seed=args.seed, device="cuda"),
+              engine_config=qwen_engine_config("int8"), device="cuda")
+    ex = llm.executor
+    if not (ex.cache.packed and ex.cache.quantized and ex.cache.k[0].shape[-1] == 512):
+        raise AssertionError(f"{label}: the pool is not an int8 head-major [8, N, 512] pool")
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist() for n in (100, 513, 1500, 16)]
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with DynamicBatchGenerator(llm) as gen:
+        results = gen.batch_generate(prompts, GeneratorArg(max_length=8), timeout=300)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"][label] = n
+    print(f"serve: {label}: {len(prompts)} requests, "
+          f"{[len(r.outputs[0].token_ids) for r in results]} tokens; launches {launches}",
+          flush=True)
+    expect = PATHS[label]
+    if any(launches[n] == 0 for n in expect) or any(
+            n for name, n in launches.items() if name not in expect):
+        raise AssertionError(f"{label}: launched {launches}, expected only {expect}")
+    if any(len(r.outputs[0].token_ids) != 8 and r.outputs[0].finish_reason != "stop"
+           for r in results):
+        raise AssertionError(f"{label}: a request ended early")
+
+    got = _prefill_logits(ex, prompts[1])
+    with plain_kernels():
+        want = _prefill_logits(ex, prompts[1])
+    rel_first = ((got - want).abs().max() / want.abs().max()).item()
+    step, step_plain = _decode_step_logits(ex, prompts)
+    scale = step_plain.abs().amax(-1)
+    rel_step = ((step - step_plain).abs().amax(-1) / scale).max().item()
+    same = int((step.argmax(-1) == step_plain.argmax(-1)).sum())
+    print(f"serve: {label}: logits kernel vs plain: first token max rel err {rel_first:.3e}, "
+          f"argmax {int(got.argmax())} vs {int(want.argmax())}; decode step (batch "
+          f"{len(prompts)}) max rel err {rel_step:.3e}, argmax same on {same}/{len(prompts)} "
+          f"rows (tolerance {LOGIT_TOL}); {time.monotonic() - t0:.1f} s", flush=True)
+    if not all(torch.isfinite(t).all() for t in (got, want, step, step_plain)):
+        raise AssertionError(f"{label}: non-finite logits")
+    if (rel_first > LOGIT_TOL or rel_step > LOGIT_TOL or same != len(prompts)
+            or int(got.argmax()) != int(want.argmax())):
+        raise AssertionError(f"{label}: kernel and plain logits differ")
+    release_pool(llm)
+    del llm, ex
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3290,9 +3341,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its "
-                         "attn_headmajor.cu, prefill_attention.cu, quant_matmul.cu and "
-                         "prefill_attention_q.cu apart and time them beside this tree's "
-                         "kernels in the kernels phase")
+                         "fp8_matmul.cu and attn_headmajor_q.cu apart and time them beside "
+                         "this tree's kernels in the kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -256,16 +256,23 @@ def test_int8_write_kv_is_exact(cuda, start, n, H, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hq,hkv,D,window,ctx_max", [
+@pytest.mark.parametrize("hq,hkv,D,window,ctx", [
     (36, 36, 64, 0, 700), (32, 8, 128, 0, 700), (16, 1, 64, 50, 700), (16, 2, 128, 0, 300),
     (40, 8, 128, 0, 3712),  # Qwen2.5-14B at its serving batch and context
+    # the split edges (a window across splits), and the head dims and groups
+    # the kernel takes since its redesign: G 16 and 20 (two row groups) at
+    # 128 and 64, head_dim 192, head_dim 256 at Gemma-2-9B's 16 / 8 heads
+    (40, 8, 128, 0, _SPLIT_CTX), (40, 8, 128, 700, _SPLIT_CTX), (32, 2, 128, 0, 3000),
+    (40, 2, 64, 0, 700), (16, 4, 192, 0, 3000), (16, 8, 256, 0, 3712),
+    (16, 8, 256, 300, _SPLIT_CTX), (40, 2, 256, 0, _SPLIT_CTX),
 ])
-def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx_max):
+def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx):
+    """The int8 kernel against the plain version and against its twin (the
+    plain version in the kernels' rounding order); an empty slot gives zeros;
+    a second call gives the same bits and leaves the merge's tickets at zero."""
     rng = np.random.default_rng(hq + D)
-    B = 8
-    ctx = rng.integers(1, ctx_max, B).astype(np.int32)
-    ctx[0] = ctx_max
-    ctx[2] = 0
+    ctx = _ctx(rng, ctx)
+    B = len(ctx)
     tables, npages = _tables(rng, ctx, cuda)
     pool, ks, vs = _int8_pool(rng, cuda, hkv, npages * S, D)
     args = (_bf16(rng, cuda, B, hq, D), pool, ks, vs, tables, torch.from_numpy(ctx).to(cuda), S,
@@ -273,9 +280,12 @@ def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx_max):
     before = A.paged_decode_attention_hm_q.launches
     got = A.paged_decode_attention_hm_q(*args)
     assert A.paged_decode_attention_hm_q.launches == before + 1
-    want = A.paged_decode_attention_hm_q_plain(*args)
-    assert torch.equal(got[2], torch.zeros_like(got[2]))
-    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert not got[torch.from_numpy(ctx == 0).to(cuda)].any()
+    for want in (A.paged_decode_attention_hm_q_plain(*args), A.paged_decode_attention_hm_q_twin(*args)):
+        assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert torch.equal(A.paged_decode_attention_hm_q(*args), got)
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in A._TICKETS.values())
 
 
 @pytest.mark.cuda
@@ -531,17 +541,18 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         A.paged_decode_attention_hm_q(qb, pool8, sc[:, :10], sc, tables, ctx, S, 0.125)
     with pytest.raises(NotImplementedError):  # the partial mode takes what the kernel takes
         A.paged_decode_attention_hm_q(q, pool8, sc, sc, tables, ctx, S, 0.125, emit_partial=True)
-    # head_dim 256: the bf16 kernels and the int8 prefill run it, the int8
-    # decode raises; head_dim 96 (a slot-major pool in the engine) no
-    # head-major kernel takes
+    # head_dim 256: every head-major kernel runs it (the int8 decode since its
+    # redesign, and it matches its plain version); head_dim 96 (a slot-major
+    # pool in the engine) no head-major kernel takes
     q256, pool256 = torch.zeros(2, 4, 256, dtype=torch.bfloat16, device=cuda), torch.zeros(
         4, 64, 512, dtype=torch.bfloat16, device=cuda)
     assert not A.paged_decode_attention_hm(q256, pool256, tables, ctx, S, 0.125).isnan().any()
     assert P.paged_prefill_attention_hm_packed(q256, pool256, tables[:1], ctx[:1], ctx[:1], S,
                                                0.125).shape == q256.shape
     pool8_256 = pool256.to(torch.int8)
-    with pytest.raises(NotImplementedError):
-        A.paged_decode_attention_hm_q(q256, pool8_256, sc, sc, tables, ctx, S, 0.125)
+    args256 = (q256, pool8_256, sc, sc, tables, ctx, S, 0.125)
+    assert torch.equal(A.paged_decode_attention_hm_q(*args256),
+                       A.paged_decode_attention_hm_q_plain(*args256))
     assert P.paged_prefill_attention_hm_packed_q(q256, pool8_256, sc, sc, tables[:1], ctx[:1],
                                                  ctx[:1], S, 0.125).shape == q256.shape
     q96 = torch.zeros(2, 4, 96, dtype=torch.bfloat16, device=cuda)
@@ -672,8 +683,8 @@ def _fp8_weights(rng, device, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 512, 515])
-@pytest.mark.parametrize("K,N", [(128, 128), (384, 256), (4096, 1024), (4096, 4096),
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 32, 33, 512, 515])
+@pytest.mark.parametrize("K,N", [(128, 128), (128, 4096), (384, 256), (4096, 1024), (4096, 4096),
                                  (4096, 12288), (12288, 4096)])  # the last four: Qwen3-8B
 def test_fp8_block_matmul_matches_plain(cuda, M, K, N):
     rng = np.random.default_rng(M + K + N)
@@ -688,6 +699,35 @@ def test_fp8_block_matmul_matches_plain(cuda, M, K, N):
     assert err <= 1e-2, err
     # split-K adds its partial sums in a fixed order: a repeated call is bit-equal
     assert torch.equal(got, F8.fp8_block_matmul(x, w, bs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 512])
+def test_fp8_block_matmul_is_exact_on_every_e4m3_code(cuda, M):
+    """A [128, 256] weight holding every finite e4m3 code (the 254 bytes that
+    are not 0x7f or 0xff, each twice) with unit block scales, against x rows
+    that pick single weights (one-hot) and pairs: each output is one weight,
+    or a sum of two, exactly representable in bf16 except where a pair
+    rounds; the one-hot outputs must equal the codes' values bit for bit, the
+    others the plain version within FP8_TOL."""
+    codes = np.array([c for c in range(256) if c & 0x7F != 0x7F], np.uint8)
+    bits = np.concatenate([codes, codes[::-1]]).reshape(2, 254)
+    w_np = np.zeros((128, 256), np.uint8)
+    w_np[:2, :254] = bits
+    w_np[2:, :] = np.random.default_rng(0).integers(0, 0x7F, (126, 256)).astype(np.uint8)
+    w = torch.from_numpy(w_np).to(cuda).view(torch.float8_e4m3fn)
+    bs = torch.ones(1, 2, device=cuda)
+    x = torch.zeros(M, 128, device=cuda, dtype=torch.bfloat16)
+    x[0, 0] = 1.0  # row 0 picks weight row 0
+    x[1, 1] = 1.0  # row 1 picks weight row 1
+    x[2:, 2:] = _bf16(np.random.default_rng(1), cuda, M - 2, 126)
+    got = F8.fp8_block_matmul(x, w, bs)
+    want = F8.fp8_block_matmul_plain(x, w, bs)
+    exact = w[:2].float().to(torch.bfloat16)
+    assert torch.equal(got[:2], exact) and torch.equal(want[:2], exact)
+    assert exact.isfinite().all() and exact.unique().numel() == 253  # +0 and -0 compare equal
+    err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+    assert err <= 1e-2
 
 
 @pytest.mark.cuda
@@ -911,20 +951,14 @@ def _partial_err(got, want, ctx):
     (8, 40, 8, 128, [3712, 7, 513, 0, 1500, 100, 16, 250]),  # Qwen2.5-14B
     (8, 40, 8, 128, _SPLIT_CTX),                              # the bf16 kernel's split edges
     (8, 16, 4, 192, _SPLIT_CTX), (8, 32, 2, 256, _SPLIT_CTX), (8, 32, 2, 128, _SPLIT_CTX),
+    (8, 16, 8, 256, [3712, 7, 513, 0, 1500, 100, 16, 250]),  # Gemma-2-9B's heads
 ])
 def test_decode_attention_partial_matches_plain(cuda, B, hq, hkv, D, ctx, int8):
-    """The partial modes against their plain versions. The int8 kernel keeps
-    its limits (D 64 with G <= 16, D 128 with G <= 8): past them it raises."""
+    """The partial modes against their plain versions, the int8 one at every
+    head dim and group since its redesign."""
     rng = np.random.default_rng(B + D)
     ctx = np.array(ctx if ctx else [512] * 5 + [0] + [512] * 10, np.int32)
     tables, npages = _tables(rng, ctx, cuda)
-    if int8 and not ((D == 64 and hq // hkv <= 16) or (D == 128 and hq // hkv <= 8)):
-        pools = _int8_pool(rng, cuda, hkv, npages * S, D)
-        with pytest.raises(NotImplementedError):
-            A.paged_decode_attention_hm_q(_bf16(rng, cuda, B, hq, D), *pools, tables,
-                                          torch.from_numpy(ctx).to(cuda), S, 0.1,
-                                          emit_partial=True)
-        return
     pools = _int8_pool(rng, cuda, hkv, npages * S, D) if int8 else (
         _bf16(rng, cuda, hkv, npages * S, 2 * D),)
     args = (_bf16(rng, cuda, B, hq, D), *pools, tables, torch.from_numpy(ctx).to(cuda), S,

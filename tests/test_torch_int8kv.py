@@ -166,6 +166,94 @@ def test_decode_attention_q_empty_slot_is_zero_like_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("hkv,hq,D,window", [(2, 8, 192, 0), (2, 8, 256, 0), (8, 16, 256, 24),
+                                             (1, 16, 128, 0)])
+def test_decode_attention_q_wide_heads_match_pallas(hkv, hq, D, window):
+    """Head dims 192 and 256, which the reference packs into an int8 pool
+    too, and a group of 16 at head_dim 128: the shapes the int8 CUDA decode
+    kernel takes since its redesign, its plain version against the Pallas
+    kernel."""
+    q, k, v, tables, ctx = decode_setup(Hq=hq, Hkv=hkv, D=D, seed=D + hq)
+    k_q, k_s = _quant(k)
+    v_q, v_s = _quant(v)
+    pool = _pool(k_q, v_q)
+    scale = 1.0 / np.sqrt(D)
+    want = j_decode_q(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_s), jnp.asarray(v_s),
+                      jnp.asarray(tables), jnp.asarray(ctx), S, scale,
+                      sliding_window=window, interpret=True)
+    got = A.paged_decode_attention_hm_q(T(q), T(pool), _t_scales(k_s), _t_scales(v_s),
+                                        T(tables), T(ctx), S, scale, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the twins: plain versions in the kernels' rounding order, on bf16 inputs
+# ---------------------------------------------------------------------------
+
+# max |twin - Pallas| / max |Pallas| on bf16 inputs. Twin and kernel round
+# p * v_scale at the same place and divide by l last; what differs is the
+# order of the fp32 sums and, in prefill, the Pallas kernel's running max over
+# its key blocks (measured at most 2^-10 on these inputs). The existing plain
+# versions round softmax * v_scale instead, which costs up to one bf16 ulp of
+# the output: on the (seed 0, V x 6) case, with outputs in [4, 16), more than
+# this bound.
+TWIN_TOL = 2.0 ** -8
+
+
+def _bf16_np(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+
+
+def _twin_errors(got_twin, got_plain, want):
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    top = np.abs(want).max()
+    return (np.abs(got_twin.float().numpy() - want).max() / top,
+            np.abs(got_plain.float().numpy() - want).max() / top)
+
+
+@pytest.mark.parametrize("seed,v_mul", [(0, 1.0), (1, 1.0), (0, 6.0)])
+def test_decode_attention_q_twin_matches_pallas_on_bf16(seed, v_mul):
+    """paged_decode_attention_hm_q_twin against the Pallas kernel on bf16 q;
+    the plain version is further off, and on (0, 6.0) outside the bound."""
+    q, k, v, tables, ctx = decode_setup(B=4, Hq=8, Hkv=2, D=64, seed=seed)
+    k_q, k_s = _quant(k)
+    v_q, v_s = _quant(v * v_mul)
+    pool = _pool(k_q, v_q)
+    qb = jnp.asarray(q, jnp.bfloat16)
+    want = j_decode_q(qb, jnp.asarray(pool), jnp.asarray(k_s), jnp.asarray(v_s),
+                      jnp.asarray(tables), jnp.asarray(ctx), S, 0.125, interpret=True)
+    args = (_bf16_np(np.asarray(qb, np.float32)), T(pool), _t_scales(k_s), _t_scales(v_s),
+            T(tables), T(ctx), S, 0.125)
+    twin, plain = _twin_errors(A.paged_decode_attention_hm_q_twin(*args),
+                               A.paged_decode_attention_hm_q_plain(*args), want)
+    assert twin <= TWIN_TOL and twin <= plain
+    if v_mul > 1:
+        assert plain > TWIN_TOL
+
+
+@pytest.mark.parametrize("seed,v_mul", [(0, 1.0), (1, 1.0), (0, 6.0)])
+def test_prefill_attention_q_twin_matches_pallas_on_bf16(seed, v_mul):
+    """paged_prefill_attention_hm_packed_q_twin against the Pallas kernel on
+    bf16 q: a 50-token chunk at cache 40."""
+    n, cache_len, q_len, D = 64, 40, 50, 64
+    q, k, v, pages, _ = prefill_setup(n, cache_len + q_len, 8, 2, D, seed=seed)
+    k_q, k_s = _quant(k)
+    v_q, v_s = _quant(v * v_mul)
+    pool = _pool(k_q, v_q)
+    qb = jnp.asarray(q, jnp.bfloat16)
+    want = j_prefill_q(qb, jnp.asarray(pool), jnp.asarray(k_s), jnp.asarray(v_s),
+                       jnp.asarray(pages), jnp.int32(cache_len), jnp.int32(q_len), S, 0.125,
+                       interpret=True)[:q_len]
+    args = (_bf16_np(np.asarray(qb, np.float32)), T(pool), _t_scales(k_s), _t_scales(v_s),
+            T(pages)[None], torch.tensor([cache_len], dtype=torch.int32),
+            torch.tensor([q_len], dtype=torch.int32), S, 0.125)
+    twin, plain = _twin_errors(P.paged_prefill_attention_hm_packed_q_twin(*args)[:q_len],
+                               P.paged_prefill_attention_hm_packed_q_plain(*args)[:q_len], want)
+    assert twin <= TWIN_TOL and twin <= plain
+    if v_mul > 1:
+        assert plain > TWIN_TOL
+
+
 # ---------------------------------------------------------------------------
 # paged_prefill_attention_hm(_packed)_q
 # ---------------------------------------------------------------------------
@@ -365,6 +453,39 @@ def test_int8_engine_greedy_tokens_match_jax_engine(weights):
     assert got == want
     assert all(len(t) > 0 for t in got)
     assert any(s.any() for s in ex.cache.k_scale), "the int8 pool was never written"
+
+
+def test_int8_engine_head_dim_256_matches_jax_engine():
+    """A model at Gemma-2-9B's attention shape cut to size (2 layers, 4 / 2
+    heads of 256, narrow width) served over an int8 pool: the reference packs
+    head_dim 256 into the head-major int8 pool, and the port decodes it with
+    the same kernels on the card (the CPU runs their plain versions here).
+    Greedy tokens equal the JAX engine's."""
+    model = dict(MODEL, num_heads=4, num_kv_heads=2, dim_head=256)
+    jcfg = JModelConfig(**model)
+    jparams = JL.init_params(jcfg, jax.random.PRNGKey(3), jnp.float32)
+    tparams = params_to_torch(jax.device_get(jparams), "cpu")
+    rng = np.random.RandomState(11)
+    prompts = [list(rng.randint(2, VOCAB, size=n)) for n in (6, 13)]
+    sched = dict(max_batch=4, chunk_size=8, prefill_buckets=(8, 16), eos_id=EOS)
+    cache = dict(page_size=4, num_pages=32, kv_dtype="int8")
+
+    jllm = JLLM(model_config=jcfg, params=jparams, engine_config=JEngineConfig(
+        max_model_len=32, cache=JCacheConfig(**cache), scheduler=JSchedulerConfig(**sched)))
+    assert jllm.executor.cache.packed and jllm.executor.cache.quantized
+    with JGenerator(jllm) as gen:
+        want = [r.outputs[0].token_ids
+                for r in gen.batch_generate(prompts, JGeneratorArg(max_length=6))]
+
+    tllm = TLLM(model_config=TModelConfig(**model), params=tparams, device="cpu",
+                engine_config=TEngineConfig(max_model_len=32, cache=TCacheConfig(**cache),
+                                            scheduler=TSchedulerConfig(**sched)))
+    ex = tllm.executor
+    assert ex.cache.packed and ex.cache.k[0].shape[-1] == 512 and ex.cache.k[0].dtype == torch.int8
+    with TGenerator(tllm) as gen:
+        got = [r.outputs[0].token_ids
+               for r in gen.batch_generate(prompts, TGeneratorArg(max_length=6))]
+    assert got == want and all(len(t) > 0 for t in got)
 
 
 def test_llm_int8_without_device_raises_without_gpu(weights):

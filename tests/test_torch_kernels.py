@@ -201,6 +201,70 @@ def test_packed_prefill_attention_matches_pallas():
         np.testing.assert_allclose(got[rows], want[rows], rtol=RTOL, atol=ATOL)
 
 
+# ---------------------------------------------------------------------------
+# the twins: plain versions in the kernels' rounding order, on bf16 inputs
+# ---------------------------------------------------------------------------
+
+# max |twin - Pallas| / max |Pallas| on bf16 inputs. Twin and kernel round the
+# unnormalized p to bf16 for P.V and divide by l last; what differs is the
+# order of the fp32 sums and, in prefill, the Pallas kernel's running max over
+# its key blocks (measured at most 2^-10 on these inputs). The plain versions
+# round the normalized probabilities, as the XLA path does, which costs up to
+# one bf16 ulp of the output: on the (seed 0, V x 6) case, with outputs in
+# [4, 16), more than this bound.
+TWIN_TOL = 2.0 ** -8
+
+
+def _bf16(x):
+    return jnp.asarray(x, jnp.bfloat16)
+
+
+def _twin_errors(got_twin, got_plain, want):
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    top = np.abs(want).max()
+    return (np.abs(got_twin.float().numpy() - want).max() / top,
+            np.abs(got_plain.float().numpy() - want).max() / top)
+
+
+def _torch_bf16(x):
+    return T(np.array(x.astype(jnp.float32))).bfloat16()
+
+
+@pytest.mark.parametrize("seed,v_mul", [(0, 1.0), (1, 1.0), (0, 6.0)])
+def test_decode_attention_twin_matches_pallas_on_bf16(seed, v_mul):
+    """paged_decode_attention_hm_twin against the Pallas kernel on a bf16
+    pool; the plain version is further off, and on (0, 6.0) outside the
+    bound."""
+    q, k, v, tables, ctx = decode_setup(B=4, Hq=8, Hkv=2, D=64, seed=seed)
+    qb, pool = _bf16(q), _bf16(_pool(k, v * v_mul))
+    want = j_decode(qb, pool, jnp.asarray(tables), jnp.asarray(ctx), S, 0.125, interpret=True)
+    args = (_torch_bf16(qb), _torch_bf16(pool), T(tables), T(ctx), S, 0.125)
+    twin, plain = _twin_errors(A.paged_decode_attention_hm_twin(*args),
+                               A.paged_decode_attention_hm_plain(*args), want)
+    assert twin <= TWIN_TOL and twin <= plain
+    if v_mul > 1:
+        assert plain > TWIN_TOL
+
+
+@pytest.mark.parametrize("seed,v_mul", [(0, 1.0), (1, 1.0), (0, 6.0)])
+def test_prefill_attention_twin_matches_pallas_on_bf16(seed, v_mul):
+    """paged_prefill_attention_hm_packed_twin against the Pallas kernel on a
+    bf16 pool: a 50-token chunk at cache 40."""
+    n, cache_len, q_len, D = 64, 40, 50, 64
+    q, k, v, pages, _ = prefill_setup(n, cache_len + q_len, 8, 2, D, seed=seed)
+    qb, pool = _bf16(q), _bf16(_pool(k, v * v_mul))
+    want = j_prefill(qb, pool, jnp.asarray(pages), jnp.int32(cache_len), jnp.int32(q_len), S,
+                     0.125, interpret=True)[:q_len]
+    args = (_torch_bf16(qb), _torch_bf16(pool), T(pages)[None],
+            torch.tensor([cache_len], dtype=torch.int32), torch.tensor([q_len], dtype=torch.int32),
+            S, 0.125)
+    twin, plain = _twin_errors(P.paged_prefill_attention_hm_packed_twin(*args)[:q_len],
+                               P.paged_prefill_attention_hm_packed_plain(*args)[:q_len], want)
+    assert twin <= TWIN_TOL and twin <= plain
+    if v_mul > 1:
+        assert plain > TWIN_TOL
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     """A tensor that is neither on the CPU nor on a CUDA device (here the
     meta device) gets no plain version and no kernel: the wrappers raise."""

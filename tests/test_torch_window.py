@@ -151,6 +151,32 @@ def test_partial_modes_match_pallas(kind, empty):
     _assert_partials(got, want)
 
 
+@pytest.mark.parametrize("D,Hq,Hkv", [(256, 16, 8), (192, 8, 2)])
+def test_int8_partial_mode_wide_heads_matches_pallas(D, Hq, Hkv):
+    """The int8 partial mode at head_dim 256 (Gemma-2-9B's 16 / 8 heads) and
+    192, which the int8 CUDA decode kernel takes since its redesign, against
+    the Pallas partial mode; one empty pool."""
+    rng = np.random.RandomState(D)
+    B, pages, maxp, Kw = 4, 16, 4, 6
+    q = rng.randn(B, Hq, D).astype(np.float32)
+    pool_lens = rng.randint(1, maxp * S - Kw, size=B).astype(np.int32)
+    pool_lens[1] = 0
+    tables = np.arange(B * maxp, dtype=np.int32).reshape(B, maxp)
+    scale = 1.0 / np.sqrt(D)
+    k_q, k_s = _i8(rng.randn(pages * S, Hkv, D).astype(np.float32))
+    v_q, v_s = _i8(rng.randn(pages * S, Hkv, D).astype(np.float32))
+    pool = np.concatenate([k_q, v_q], -1).transpose(1, 0, 2).copy()  # [Hkv, N, 2D]
+    want = _j_partial(j_decode_q(jnp.asarray(q), jnp.asarray(pool), jnp.asarray(k_s),
+                                 jnp.asarray(v_s), jnp.asarray(tables), jnp.asarray(pool_lens),
+                                 S, scale, 0, interpret=True, emit_partial=True), D)
+    spare = np.zeros((Hkv, 1), np.float32)  # the port's scales [Hkv, N + 1]
+    ks, vs = (T(np.concatenate([s.T, spare], 1)) for s in (k_s, v_s))
+    got = A.paged_decode_attention_hm_q(T(q), T(pool), ks, vs, T(tables), T(pool_lens), S,
+                                        scale, emit_partial=True)
+    assert got[0].shape == (B, Hkv, Hq // Hkv) and got[2].shape == (B, Hkv, Hq // Hkv, D)
+    _assert_partials(got, want)
+
+
 # windows of B 8: entries mid-page, on a page boundary, on a page's last row;
 # n_rows 0, partial and full (Kw 8), runs that cross into the next page
 ENTRY = np.array([13, 16, 15, 3, 40, 31, 0, 57], np.int32)

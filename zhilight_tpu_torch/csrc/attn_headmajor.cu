@@ -73,18 +73,13 @@
 #include <stdint.h>
 
 #include "attn_tile.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace zt_mma;
-
-constexpr float NEG_INF = -2.0e38f;
-constexpr int NWARPS = 4;
-constexpr int NT = NWARPS * 32;
-constexpr int TN = 64;  // tokens per tile (16 per warp)
-constexpr int HR = 16;  // query rows per block
-constexpr int MAX_SPLITS = 64;
+using namespace zt_decode;
 
 template <int D>
 struct Cfg {
@@ -96,38 +91,10 @@ struct Cfg {
   static constexpr int STAGE = TN * LDK;  // bf16 per stage
   static constexpr int KV_BYTES = STAGES * STAGE * 2;
   static constexpr int BYTES = KV_BYTES + HR * LDQ * 2;
-  // the end-of-block merge reuses the stages: per warp O [HR, D], m, l [HR];
-  // the split merge's per-row weights [MAX_SPLITS, HR] and (M, 1 / L) [HR]
-  static constexpr int MERGE_FLOATS = NWARPS * HR * (D + 2) + MAX_SPLITS * HR + 2 * HR;
-  static_assert(MERGE_FLOATS * 4 <= KV_BYTES, "merge buffers");
+  // the end-of-block merge reuses the stages (decode_split.cuh)
+  static_assert(merge_floats<D>() * 4 <= KV_BYTES, "merge buffers");
   static_assert(D % 64 == 0, "head dim");
 };
-
-// tiles [*first, *last) of split `split` over the tiles of [start, ctx); the
-// number of splits with a non-empty range
-__device__ __forceinline__ int split_range(int start, int ctx, int splits, int split, int* first,
-                                           int* last) {
-  const int t0 = start / TN;
-  const int tiles = ctx > start ? (ctx + TN - 1) / TN - t0 : 0;
-  const int per = (tiles + splits - 1) / splits;
-  *first = t0 + min(split * per, tiles);
-  *last = t0 + min((split + 1) * per, tiles);
-  return per > 0 ? (tiles + per - 1) / per : 0;
-}
-
-template <int D, bool EMIT>
-__device__ __forceinline__ void write_final(void* out, float* m_out, float* l_out, long long row,
-                                            int d, float M, float L, float A) {
-  if constexpr (EMIT) {
-    static_cast<float*>(out)[row * D + d] = A;
-    if (d == 0) {
-      m_out[row] = M;
-      l_out[row] = L;
-    }
-  } else {
-    static_cast<bf16*>(out)[row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
-  }
-}
 
 template <int D, bool EMIT>
 __global__ void __launch_bounds__(NT) decode_hm_kernel(
@@ -272,8 +239,6 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
   float* sO = reinterpret_cast<float*>(smem);        // [NWARPS][HR][D]
   float* sM = sO + NWARPS * HR * D;                  // [NWARPS][HR]
   float* sL = sM + NWARPS * HR;                      // [NWARPS][HR]
-  float* sW = sL + NWARPS * HR;                      // [MAX_SPLITS][HR]
-  float* sRow = sW + MAX_SPLITS * HR;                // M [HR], 1 / L or L [HR]
   {
     const int g = lane / 4, c = 2 * (lane % 4);
 #pragma unroll
@@ -294,74 +259,9 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
       *reinterpret_cast<float2*>(ow + (g + 8) * D + j * 8 + c) = make_float2(o[j][2], o[j][3]);
     }
   }
-  __syncthreads();
-  if (tid < HR) {
-    float M = NEG_INF, L = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, sM[w * HR + tid]);
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float f = __expf(sM[w * HR + tid] - M);
-      sW[w * HR + tid] = f;
-      L += sL[w * HR + tid] * f;
-    }
-    sRow[tid] = M;
-    sRow[HR + tid] = L;
-  }
-  __syncthreads();
-
-  const long long row0 = (long long)b * Hq + h0;
-  const long long slot = ((long long)b * gridDim.y + hg) * splits;
-  if (parts == 1) {
-    for (int i = tid; i < rows * D; i += NT) {
-      const int r = i / D, d = i % D;
-      float A = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) A += sO[(w * HR + r) * D + d] * sW[w * HR + r];
-      write_final<D, EMIT>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
-    }
-    return;
-  }
-
-  // several splits: write this split's partial, then the last block merges
-  for (int i = tid; i < rows * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float A = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWARPS; ++w) A += sO[(w * HR + r) * D + d] * sW[w * HR + r];
-    part_acc[((slot + split) * HR + r) * D + d] = A;
-  }
-  if (tid < rows) {
-    part_ml[(slot + split) * 2 * HR + tid] = sRow[tid];
-    part_ml[(slot + split) * 2 * HR + HR + tid] = sRow[HR + tid];
-  }
-  __threadfence();  // the partial is visible device-wide before the ticket
-  __syncthreads();
-  if (tid == 0) s_last = atomicAdd(tickets + (long long)b * gridDim.y + hg, 1) == parts - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  if (tid < rows) {
-    float M = NEG_INF, L = 0.f;
-    for (int p = 0; p < parts; ++p) M = fmaxf(M, __ldcg(part_ml + (slot + p) * 2 * HR + tid));
-    for (int p = 0; p < parts; ++p) {
-      const float f = __expf(__ldcg(part_ml + (slot + p) * 2 * HR + tid) - M);
-      sW[p * HR + tid] = f;
-      L += __ldcg(part_ml + (slot + p) * 2 * HR + HR + tid) * f;
-    }
-    sRow[tid] = M;
-    sRow[HR + tid] = L;
-  }
-  if (tid == 0) tickets[(long long)b * gridDim.y + hg] = 0;  // ready for the next launch
-  __syncthreads();
-  for (int i = tid; i < rows * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float A = 0.f;
-    for (int p = 0; p < parts; ++p)
-      A += __ldcg(part_acc + ((slot + p) * HR + r) * D + d) * sW[p * HR + r];
-    write_final<D, EMIT>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
-  }
+  decode_merge<D, EMIT>(sO, out, m_out, l_out, part_acc, part_ml, tickets, rows, parts, split,
+                        (long long)b * Hq + h0, ((long long)b * gridDim.y + hg) * splits,
+                        (long long)b * gridDim.y + hg, tid, &s_last);
 }
 
 template <int D, bool EMIT>

@@ -1,6 +1,6 @@
 // Helpers shared by the head-major attention kernels (attn_headmajor.cu,
-// prefill_attention.cu, prefill_attention_q.cu) and the int4 matmul
-// (quant_matmul.cu): warp-level tensor-core products, asynchronous copies
+// attn_headmajor_q.cu, prefill_attention.cu, prefill_attention_q.cu) and the
+// int4 and FP8 matmuls (quant_matmul.cu, fp8_matmul.cu): warp-level tensor-core products, asynchronous copies
 // and the paged gather of a K|V tile.
 //
 // mma.sync m16n8k16 bf16 -> fp32 fragment layouts (PTX ISA, "Matrix Fragments
@@ -29,6 +29,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
 
+// the same with src-size `bytes` (0 or 16): the rest of the 16 bytes zero-filled
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -43,6 +49,13 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// two 8x8 b16 matrices: an A fragment of rows 0-7 only (rows 8-15 zero)
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 

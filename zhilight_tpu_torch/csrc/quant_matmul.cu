@@ -57,8 +57,9 @@
 //   split tile writes its fp32 partial tile, fences and takes a ticket from a
 //   zeroed per-tile counter; the block drawing the last ticket sums the
 //   partials in split order (the same bits on every call), writes y and
-//   resets the counter: one launch a call, where a second reduction kernel
-//   would add a launch to every projection of the host-bound decode step.
+//   resets the counter (splitk.cuh): one launch a call, where a second
+//   reduction kernel would add a launch to every projection of the
+//   host-bound decode step.
 //
 // What holds them back (measured on the H100, PERF.md): decode is
 // instruction-bound (the exact dequantization alone is about 4.5
@@ -75,6 +76,7 @@
 #include <type_traits>
 
 #include "attn_tile.cuh"
+#include "splitk.cuh"
 
 namespace {
 
@@ -86,10 +88,6 @@ constexpr int DEC_ROWS = 640;  // most weight rows a decode block takes
 
 enum Mode { FAST, EXACT, SLOW };
 
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
 __device__ __forceinline__ void cp8(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(bytes));
@@ -104,13 +102,6 @@ __device__ __forceinline__ void copy_w(void* dst, const uint8_t* w, long long of
     cp8(dst, bytes ? w + off : w, bytes ? 8 : 0);
     cp8(static_cast<char*>(dst) + 8, bytes > 8 ? w + off + 8 : w, bytes > 8 ? 8 : 0);
   }
-}
-
-// A fragment of x rows 0-7 only (rows 8-15 zero): ldmatrix .x2
-__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
 }
 
 // (a & B) ^ c in one LOP3, B an immediate
@@ -185,102 +176,6 @@ __device__ __forceinline__ void fragments(const uint32_t (&w)[4][(NPL + 3) / 4],
     b[t][0] = pack_bf16(d[0], d[1]);
     b[t][1] = pack_bf16(d[2], d[3]);
   }
-}
-
-// The end of a block: its accumulators into y, or, split, into the fp32
-// partials and, for the block drawing the last ticket of its tile, summed in
-// split order into y. A warp holds MT m16 x NT8 n8 tiles; slot e of n8-tile t
-// is row row_w + 16a + 8 (e / 2) and, PERM (the decode kernel's register-
-// built B fragments), column col_w + NT8 (2i + e % 2) + t, else column col_w
-// + 8t + 2i + e % 2. Every thread of the block calls it.
-template <int MT, int NT8, bool PERM, int NT, int BM, int BN>
-__device__ __forceinline__ void finish(float (&acc)[MT][NT8][4], bf16* __restrict__ out,
-                                       float* __restrict__ part, int* __restrict__ tickets,
-                                       int M, int N, int row_w, int col_w, int m_blk, int n_blk,
-                                       int i, int tid, int* s_last) {
-  static_assert(!PERM || NT8 == 4, "the decode kernel's 4 columns a lane");
-  const int split = blockIdx.z, splits = gridDim.z;
-  // a thread writes together PERM the 4 adjacent values of slot e (t = 0..3),
-  // else the 2 of slots e, e + 1 of one n8-tile
-  if (splits == 1) {
-#pragma unroll
-    for (int a = 0; a < MT; ++a)
-#pragma unroll
-      for (int e = 0; e < 4; e += PERM ? 1 : 2) {
-        const int m = row_w + a * 16 + 8 * (e >> 1);
-        if (m >= M) continue;
-        if constexpr (PERM) {
-          const int n = col_w + NT8 * (2 * i + (e & 1));
-          if (n >= N) continue;
-          *reinterpret_cast<uint2*>(out + (long long)m * N + n) = make_uint2(
-              pack_bf16(acc[a][0][e], acc[a][1][e]), pack_bf16(acc[a][2][e], acc[a][3][e]));
-        } else {
-#pragma unroll
-          for (int t = 0; t < NT8; ++t) {
-            const int n = col_w + 8 * t + 2 * i;
-            if (n < N)
-              *reinterpret_cast<uint32_t*>(out + (long long)m * N + n) =
-                  pack_bf16(acc[a][t][e], acc[a][t][e + 1]);
-          }
-        }
-      }
-    return;
-  }
-#pragma unroll
-  for (int a = 0; a < MT; ++a)
-#pragma unroll
-    for (int e = 0; e < 4; e += PERM ? 1 : 2) {
-      const int m = row_w + a * 16 + 8 * (e >> 1);
-      if (m >= M) continue;
-      float* row = part + ((long long)split * M + m) * N;
-      if constexpr (PERM) {
-        const int n = col_w + NT8 * (2 * i + (e & 1));
-        if (n < N)
-          *reinterpret_cast<float4*>(row + n) =
-              make_float4(acc[a][0][e], acc[a][1][e], acc[a][2][e], acc[a][3][e]);
-      } else {
-#pragma unroll
-        for (int t = 0; t < NT8; ++t) {
-          const int n = col_w + 8 * t + 2 * i;
-          if (n < N)
-            *reinterpret_cast<float2*>(row + n) = make_float2(acc[a][t][e], acc[a][t][e + 1]);
-        }
-      }
-    }
-  __threadfence();  // the partial is visible device-wide before the ticket
-  __syncthreads();
-  int* ticket = tickets + blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) *s_last = atomicAdd(ticket, 1) == splits - 1;
-  __syncthreads();
-  if (!*s_last) return;
-  __threadfence();
-  constexpr int Q4 = BN / 4;
-  const int rows = min(BM, M - m_blk);
-  for (int c = tid; c < rows * Q4; c += NT) {
-    const int m = m_blk + c / Q4, n = n_blk + (c % Q4) * 4;
-    if (n >= N) continue;
-    // eight partials in flight at a time, summed in split order (the same
-    // bits on every call)
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int p0 = 0; p0 < splits; p0 += 8) {
-      float4 v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (p0 + u < splits)
-          v[u] = __ldcg(reinterpret_cast<const float4*>(part + ((long long)(p0 + u) * M + m) * N + n));
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (p0 + u < splits) {
-          sum.x += v[u].x;
-          sum.y += v[u].y;
-          sum.z += v[u].z;
-          sum.w += v[u].w;
-        }
-    }
-    *reinterpret_cast<uint2*>(out + (long long)m * N + n) =
-        make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
-  }
-  if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
 // Which stages enter a new group (aligned layouts): the low and high

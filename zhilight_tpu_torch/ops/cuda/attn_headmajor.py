@@ -10,20 +10,27 @@ versions are :func:`paged_decode_attention_hm_plain` (page gather +
 take the plain versions only for CPU tensors; for CUDA tensors they launch the
 kernel or raise.
 
-The bf16 kernel takes head_dim 64, 128, 192 and 256 with any number of query
-heads per KV head. It splits each context over several blocks when the batch
-alone would not fill the card (:func:`decode_splits` picks the count from the
-shapes) and merges their partials in the same launch; the wrapper allocates
-the partials per call and keeps a zeroed ticket buffer per device for the
-merge. It rounds the probabilities to bf16 for the P.V product, as the TPU
-kernel does.
+Both kernels take head_dim 64, 128, 192 and 256 with any number of query
+heads per KV head. They split each context over several blocks when the
+batch alone would not fill the card (:func:`decode_splits` picks the count
+from the shapes and each kernel's occupancy) and merge their partials in the
+same launch; the wrapper allocates the partials per call and keeps a zeroed
+ticket buffer per device for the merge. The bf16 kernel rounds the
+unnormalized probabilities to bf16 for the P.V product, as the TPU kernel
+does.
 
 The int8 functions never dequantize K or V elements: the K scale multiplies
-the fp32 scores and the V scale the probabilities. The plain version rounds
-``p * v_scale`` to q's dtype before the second product, as the TPU kernel
-does; the CUDA kernel keeps it in fp32 (inside the tolerance of bf16 outputs).
-The scales are head-major ``[Hkv, >= N]`` (``kvcache/paged.py``), where the
-reference keeps them ``[N, Hkv]``.
+the fp32 scores and the V scale the probabilities. The kernel rounds ``p *
+v_scale`` of the unnormalized p to bf16 before the second product, as the
+TPU kernel does. The scales are head-major ``[Hkv, >= N]``
+(``kvcache/paged.py``), where the reference keeps them ``[N, Hkv]``.
+
+The plain versions round where the XLA path rounds (the normalized
+probabilities, or ``softmax * v_scale``), as the CPU model path needs; the
+twins (:func:`paged_decode_attention_hm_twin`,
+:func:`paged_decode_attention_hm_q_twin`) round where the kernels round and
+divide by ``l`` last. Tests hold the twins to the Pallas kernels on bf16
+inputs, and ``chip_smoke.py`` holds the CUDA kernels to both.
 
 The MLA latent mode of ``paged_decode_attention_hm`` (``v_dim > 0``: one
 shared latent row per token, scores over its first ``k_dim`` elements, values
@@ -46,8 +53,8 @@ apart, ``m``, ``l`` ``[B, Hkv, G]`` and ``acc`` ``[B, Hkv, G, D]`` (MLA:
 acc = 0. The partial modes are the same CUDA kernels with their last pass
 writing the partials (``*_partial`` wrappers, each with its own launch
 counter), and have plain versions beside them (``*_partial_plain``), whose
-probabilities stay fp32 (the int8 kernel's do too; the bf16 kernel rounds
-them to bf16 for P.V, inside the partials' tolerance).
+probabilities stay fp32 (both kernels round them to bf16 for P.V, inside the
+partials' tolerance).
 """
 
 from __future__ import annotations
@@ -63,10 +70,12 @@ from . import _build
 __all__ = [
     "paged_decode_attention_hm",
     "paged_decode_attention_hm_plain",
+    "paged_decode_attention_hm_twin",
     "paged_decode_attention_hm_partial",
     "paged_decode_attention_hm_partial_plain",
     "paged_decode_attention_hm_q",
     "paged_decode_attention_hm_q_plain",
+    "paged_decode_attention_hm_q_twin",
     "paged_decode_attention_hm_q_partial",
     "paged_decode_attention_hm_q_partial_plain",
     "paged_mla_decode",
@@ -129,6 +138,37 @@ def paged_decode_attention_hm_partial_plain(
     return m, l, torch.einsum("bkgs,bskd->bkgd", p, v.float())
 
 
+def _twin_out(p_round, l, v, out_shape, dtype):
+    """``sum p_round . V / max(l, 1e-20)`` in fp32, as dtype: the end of a
+    twin (``p_round`` [B, Hkv, G, KV] already rounded, V [B, KV, Hkv, D])."""
+    acc = torch.einsum("bkgs,bskd->bkgd", p_round.float(), v.float())
+    return (acc / l.clamp_min(1e-20)[..., None]).reshape(out_shape).to(dtype)
+
+
+def paged_decode_attention_hm_twin(
+    q: torch.Tensor,             # [B, Hq, D]
+    kv_pool: torch.Tensor,       # [Hkv, N, 2D]
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """The plain version in the kernels' rounding order (the TPU kernel's and
+    the CUDA kernel's): the unnormalized ``p = exp(s - m)`` is rounded to the
+    pool's dtype before P.V, ``l`` sums it unrounded, and the division by
+    ``max(l, 1e-20)`` comes last; :func:`paged_decode_attention_hm_plain`
+    rounds the normalized probabilities, as the XLA path does. One max over
+    the whole context where the kernels keep a running one."""
+    B, Hq, D = q.shape
+    Hkv = kv_pool.shape[0]
+    k, v = gather_hm(kv_pool, page_tables, page_size)  # [B, KV, Hkv, D]
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    _, l, p = _partial_probs(scores, _hm_mask(context_lens, k.shape[1], sliding_window))
+    return _twin_out(p.to(kv_pool.dtype), l, v, (B, Hq, D), q.dtype)
+
+
 def _entry():
     fn = _build.library("attn_headmajor").zt_decode_attention_hm
     if fn.argtypes is None:
@@ -160,25 +200,30 @@ def decode_splits(B: int, Hkv: int, G: int, max_ctx: int, capacity: int) -> int:
 
 
 _CAPACITY: dict = {}
+# the occupancy entry of each head-major decode kernel, by pool dtype
+_OCCUPANCY = {torch.bfloat16: ("attn_headmajor", "zt_decode_attention_hm_blocks_per_sm"),
+              torch.int8: ("attn_headmajor_q", "zt_decode_attention_hm_q_blocks_per_sm")}
 
 
-def _capacity(device, D: int) -> int:
-    """Blocks of the head-dim-D kernel the card holds at once (occupancy
-    times SMs), asked once per device."""
-    cap = _CAPACITY.get((device, D))
+def _capacity(device, D: int, pool_dtype=torch.bfloat16) -> int:
+    """Blocks of the head-dim-D kernel (over a ``pool_dtype`` pool) the card
+    holds at once (occupancy times SMs), asked once per device."""
+    cap = _CAPACITY.get((device, D, pool_dtype))
     if cap is None:
-        fn = _build.library("attn_headmajor").zt_decode_attention_hm_blocks_per_sm
+        lib, name = _OCCUPANCY[pool_dtype]
+        fn = getattr(_build.library(lib), name)
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
         n = ctypes.c_int(0)
-        _build.check(fn(D, ctypes.byref(n)), "paged_decode_attention_hm occupancy")
+        _build.check(fn(D, ctypes.byref(n)), f"{lib} occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        cap = _CAPACITY[(device, D)] = max(n.value, 1) * sms
+        cap = _CAPACITY[(device, D, pool_dtype)] = max(n.value, 1) * sms
     return cap
 
 
-# per device: the kernel's int32 tickets, zero between launches (the kernel's
+# per device: the kernels' int32 tickets, zero between launches (the kernel's
 # last block of each (sequence, head group) resets its own); grown, never
-# shrunk. One stream at a time uses them, as the engine runs decode.
+# shrunk. One stream at a time uses them, as the engine runs decode; the bf16
+# and the int8 kernel share them.
 _TICKETS: dict = {}
 
 
@@ -204,9 +249,8 @@ def _outputs(q: torch.Tensor, Hkv: int, D: int, partial: bool):
 
 def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     """The head-major kernels' shape, type and layout rules, shared by the
-    bf16 and int8 forms; returns (B, Hkv, G, D, N, maxp). The bf16 kernel
-    takes D in ``BF16_HEAD_DIMS`` with any G; the int8 kernel (D 64, G <= 16)
-    and (D 128, G <= 8)."""
+    bf16 and int8 forms; returns (B, Hkv, G, D, N, maxp). Both take D in
+    ``BF16_HEAD_DIMS`` with any G."""
     if not q.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q.device}")
     B, Hq, D = q.shape
@@ -217,10 +261,7 @@ def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     if q.dtype != torch.bfloat16 or kv_pool.dtype != pool_dtype:
         raise NotImplementedError(
             f"{what} kernel takes bf16 q and a {pool_dtype} pool, got {q.dtype}/{kv_pool.dtype}")
-    if pool_dtype == torch.int8:
-        if not ((D == 64 and G <= 16) or (D == 128 and G <= 8)):
-            raise NotImplementedError(f"{what} kernel: head_dim {D} with group {G}")
-    elif D not in BF16_HEAD_DIMS:
+    if D not in BF16_HEAD_DIMS:
         raise NotImplementedError(f"{what} kernel: head_dim {D}")
     if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise ValueError(f"{what}: page_tables and context_lens must be int32")
@@ -232,22 +273,31 @@ def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     return B, Hkv, G, D, N, page_tables.shape[1]
 
 
+def _split_scratch(q, B: int, Hkv: int, G: int, D: int, maxp: int, page_size: int, pool_dtype):
+    """The split count of a decode call and the kernel's split scratch:
+    partials, their (m, l) and the tickets, or three None for one split."""
+    splits = decode_splits(B, Hkv, G, maxp * page_size, _capacity(q.device, D, pool_dtype))
+    if splits == 1:
+        return splits, (None, None, None)
+    heads = Hkv * -(-G // _ROWS)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return splits, (torch.empty((B, heads, splits, _ROWS, D), **f32),
+                    torch.empty((B, heads, splits, 2, _ROWS), **f32),
+                    _tickets(q.device, B * heads))
+
+
+def _ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
 def _launch_hm(what, q, kv_pool, page_tables, context_lens, page_size, scale, sliding_window,
                partial: bool):
     B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens,
                                       torch.bfloat16)
     result, ptrs = _outputs(q, Hkv, D, partial)
-    splits = decode_splits(B, Hkv, G, maxp * page_size, _capacity(q.device, D))
-    scratch = (None, None, None)
-    if splits > 1:
-        heads = Hkv * -(-G // _ROWS)
-        f32 = dict(dtype=torch.float32, device=q.device)
-        part_acc = torch.empty((B, heads, splits, _ROWS, D), **f32)
-        part_ml = torch.empty((B, heads, splits, 2, _ROWS), **f32)
-        scratch = (part_acc.data_ptr(), part_ml.data_ptr(),
-                   _tickets(q.device, B * heads).data_ptr())
+    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, torch.bfloat16)
     err = _entry()(
-        *ptrs, *scratch, q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
+        *ptrs, *_ptrs(scratch), q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
         context_lens.data_ptr(), B, Hkv, G, D, N, maxp, page_size, float(scale),
         int(sliding_window), splits, torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -372,6 +422,34 @@ def paged_decode_attention_hm_q_partial_plain(
     return m, l, acc
 
 
+def paged_decode_attention_hm_q_twin(
+    q: torch.Tensor,             # [B, Hq, D]
+    kv_pool: torch.Tensor,       # [Hkv, N, 2D] int8
+    k_scales: torch.Tensor,      # [Hkv, >= N] f32
+    v_scales: torch.Tensor,      # [Hkv, >= N] f32
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """The plain version in the kernels' rounding order: ``p * v_scale`` of
+    the unnormalized ``p = exp(s - m)`` is rounded to q's dtype before P.V,
+    ``l`` sums the unscaled p, and the division by ``max(l, 1e-20)`` comes
+    last (:func:`paged_decode_attention_hm_q_plain` rounds ``softmax *
+    v_scale``)."""
+    B, Hq, D = q.shape
+    Hkv = kv_pool.shape[0]
+    k, v = gather_hm(kv_pool, page_tables, page_size)         # [B, KV, Hkv, D] int8
+    ks = gather_scales(k_scales, page_tables, page_size)      # [B, KV, Hkv]
+    vs = gather_scales(v_scales, page_tables, page_size)
+    qg = q.reshape(B, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
+    scores = scores * ks.transpose(1, 2)[:, :, None]
+    _, l, p = _partial_probs(scores, _hm_mask(context_lens, k.shape[1], sliding_window))
+    return _twin_out((p * vs.transpose(1, 2)[:, :, None]).to(q.dtype), l, v, (B, Hq, D), q.dtype)
+
+
 def check_scales(what: str, kv_pool, k_scales, v_scales) -> None:
     """The scale arrays an int8 kernel takes: fp32 ``[Hkv, >= N]`` on the
     pool's device, unit stride along the slots, one row stride for both."""
@@ -388,9 +466,9 @@ def check_scales(what: str, kv_pool, k_scales, v_scales) -> None:
 def _entry_q():
     fn = _build.library("attn_headmajor_q").zt_decode_attention_hm_q
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong,
-                       ctypes.c_longlong, i, i, ctypes.c_float, i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, i, i,
+                       ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -400,10 +478,11 @@ def _launch_hm_q(what, q, kv_pool, k_scales, v_scales, page_tables, context_lens
     B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens, torch.int8)
     check_scales(what, kv_pool, k_scales, v_scales)
     result, ptrs = _outputs(q, Hkv, D, partial)
+    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, torch.int8)
     err = _entry_q()(
-        *ptrs, q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(), v_scales.data_ptr(),
-        page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N, k_scales.stride(0),
-        maxp, page_size, float(scale), int(sliding_window),
+        *ptrs, *_ptrs(scratch), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N,
+        k_scales.stride(0), maxp, page_size, float(scale), int(sliding_window), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)

@@ -4,7 +4,8 @@ Counterpart of ``zhilight_tpu/ops/pallas/fp8_matmul.py`` ``fp8_block_matmul``
 (:85). The CUDA kernel is ``csrc/fp8_matmul.cu``; the plain PyTorch version is
 :func:`fp8_block_matmul_plain`. :func:`fp8_block_matmul` takes the plain
 version only for CPU tensors; for CUDA tensors it launches the kernel or
-raises.
+raises. The wrapper picks the kernel and its split-K count on the host
+(:func:`plan`, cached by shape) and owns the split-K scratch.
 
 What both compute: the activations stay bf16 (they are not quantized), every
 e4m3 weight is converted to bf16 (exactly), the product over one 128-row K
@@ -25,6 +26,7 @@ import ctypes
 import torch
 
 from . import _build
+from .quant_matmul import SplitScratch
 
 __all__ = ["fp8_block_matmul", "fp8_block_matmul_plain"]
 
@@ -49,16 +51,48 @@ def fp8_block_matmul_plain(
     return acc.to(torch.bfloat16).to(x.dtype).reshape(*x.shape[:-1], N)
 
 
-def _entries():
-    lib = _build.library("fp8_matmul")
-    fn, splits = lib.zt_fp8_block_matmul, lib.zt_fp8_block_matmul_splits
+# the kernels (csrc/fp8_matmul.cu): 0 decode (M <= 16), 1 wgmma prefill;
+# rows and columns of an output tile; the most 128-row K blocks a decode
+# split takes
+CONFIGS = ((16, 256), (128, 128))
+DECODE_M = 16
+DECODE_KBLOCKS = 8
+MAX_SPLITS = 32
+
+
+def plan(M: int, N: int, K: int, sms: int) -> tuple:
+    """(config, splits) of one call: the kernel by M, then its split-K count
+    in whole 128-row K blocks. Decode takes about one block an SM (``sms //
+    tiles`` splits, as ``quant_matmul.plan`` does), at least enough that a
+    split holds at most ``DECODE_KBLOCKS`` K blocks (its x slice is staged
+    whole), and at least two K blocks a split where K has them (a split's
+    fixed cost and its share of the merge outweigh a single block). The wgmma
+    kernel runs one block an SM: it splits only when its tiles alone would
+    leave SMs idle, into ``sms // tiles`` runs."""
+    cfg = 0 if M <= DECODE_M else 1
+    BM, BN = CONFIGS[cfg]
+    tiles = -(-M // BM) * -(-N // BN)
+    kbs = K // _B
+
+    def whole(s):  # the split count of runs of ceil(kbs / s) K blocks
+        return -(-kbs // -(-kbs // s))
+
+    fill = min(max(1, sms // tiles), MAX_SPLITS)
+    if cfg == 1:
+        return cfg, whole(min(fill, kbs))
+    return cfg, whole(min(max(-(-kbs // DECODE_KBLOCKS), fill), max(kbs // 2, 1)))
+
+
+def _entry():
+    fn = _build.library("fp8_matmul").zt_fp8_block_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        splits.argtypes = [i, i, i]
-        splits.restype = ctypes.c_int
-    return fn, splits
+    return fn
+
+
+_DEVICES: dict = {}
 
 
 def fp8_block_matmul(
@@ -92,19 +126,21 @@ def fp8_block_matmul(
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
-    fn, plan = _entries()
-    # split-K for a decode batch: each split's fp32 partial sums, added in order
-    splits = plan(M, N, K)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
     for t in (x2, w_f8, block_scale, out):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("fp8_block_matmul: tensors must be contiguous, 16-byte aligned "
                              "and on one device")
-    err = fn(
-        out.data_ptr(), partial.data_ptr() if partial is not None else None, x2.data_ptr(),
-        w_f8.data_ptr(), block_scale.data_ptr(), M, N, K, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+    dev = _DEVICES.get(x.device)
+    if dev is None:
+        dev = _DEVICES[x.device] = SplitScratch(x.device)
+    cfg, splits = dev.plans.get((M, N, K)) or dev.plans.setdefault((M, N, K), plan(M, N, K, dev.sms))
+    part = tickets = None
+    if splits > 1:
+        BM, BN = CONFIGS[cfg]
+        part, tickets = dev.scratch(splits, M, N, -(-M // BM) * -(-N // BN))
+    err = _entry()(
+        out.data_ptr(), x2.data_ptr(), w_f8.data_ptr(), block_scale.data_ptr(), part, tickets,
+        M, N, K, cfg, splits, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "fp8_block_matmul")
     fp8_block_matmul.launches += 1

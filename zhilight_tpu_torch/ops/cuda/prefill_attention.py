@@ -20,6 +20,12 @@ multiplied by a scale. The scales are head-major ``[Hkv, >= N]``
 
 Both kernels take head_dim 64, 128, 192 and 256.
 
+The plain versions round the normalized probabilities (times the V scale
+over an int8 pool) before the second product, as the XLA path does; the
+twins (:func:`paged_prefill_attention_hm_packed_twin`,
+:func:`paged_prefill_attention_hm_packed_q_twin`) round the unnormalized p,
+as the kernels do, and divide by ``l`` last.
+
 The pool must already hold the chunk's K/V (the write runs first). Only rows
 ``i < q_lens[s]`` of each segment are meaningful; padding rows and segments
 with ``q_len == 0`` come out finite, and the host discards them.
@@ -40,9 +46,11 @@ __all__ = [
     "paged_prefill_attention_hm",
     "paged_prefill_attention_hm_packed",
     "paged_prefill_attention_hm_packed_plain",
+    "paged_prefill_attention_hm_packed_twin",
     "paged_prefill_attention_hm_q",
     "paged_prefill_attention_hm_packed_q",
     "paged_prefill_attention_hm_packed_q_plain",
+    "paged_prefill_attention_hm_packed_q_twin",
 ]
 
 
@@ -67,6 +75,59 @@ def paged_prefill_attention_hm_packed_plain(
                 sliding_window,
             )
         )
+    return torch.cat(outs, dim=0)
+
+
+def _segment_twin(q, k, v, cache_len, q_len, scale, sliding_window, round_dtype, ks=None,
+                  vs=None):
+    """One segment in the kernels' rounding order: the unnormalized ``p =
+    exp(s - m)`` (times ``vs``, an int8 pool's V scales) rounded to
+    ``round_dtype`` before P.V, ``l`` summing the unscaled p, the division by
+    ``max(l, 1e-20)`` last. q [TC, Hq, D]; k, v [KV, Hkv, D]; ks, vs [Hkv, KV]."""
+    TC, Hq, D = q.shape
+    Hkv = k.shape[1]
+    qg = q.reshape(TC, Hkv, Hq // Hkv, D).float()
+    scores = torch.einsum("tkgd,skd->kgts", qg, k.float()) * scale
+    if ks is not None:
+        scores = scores * ks[:, None, None]
+    q_pos = cache_len + torch.arange(TC, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[0], device=q.device)[None, :]
+    mask = (k_pos <= q_pos) & (k_pos < cache_len + q_len)
+    if sliding_window > 0:
+        mask &= k_pos > q_pos - sliding_window
+    s = torch.where(mask, scores, NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1)                                        # [Hkv, G, TC]
+    if vs is not None:
+        p = p * vs[:, None, None]
+    acc = torch.einsum("kgts,skd->tkgd", p.to(round_dtype).float(), v.float())
+    out = acc / l.clamp_min(1e-20).permute(2, 0, 1)[..., None]
+    return out.reshape(TC, Hq, D).to(q.dtype)
+
+
+def paged_prefill_attention_hm_packed_twin(
+    q: torch.Tensor,            # [NS*TC, Hq, D]
+    kv_pool: torch.Tensor,      # [Hkv, N, 2D]
+    page_tables: torch.Tensor,  # [NS, maxp] int; < 0 => padding
+    cache_lens: torch.Tensor,   # [NS] int
+    q_lens: torch.Tensor,       # [NS] int
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """The plain version in the kernels' rounding order (the TPU kernel's and
+    the CUDA kernel's): the unnormalized p rounded to the pool's dtype before
+    P.V, the division by ``max(l, 1e-20)`` last, where
+    :func:`paged_prefill_attention_hm_packed_plain` rounds the normalized
+    probabilities, as the XLA path does. One max a row where the kernels keep
+    a running one."""
+    NS = page_tables.shape[0]
+    TC = q.shape[0] // NS
+    outs = []
+    for s in range(NS):
+        k, v = gather_hm(kv_pool, page_tables[s], page_size)  # [KV, Hkv, D]
+        outs.append(_segment_twin(q[s * TC : (s + 1) * TC], k, v, cache_lens[s], q_lens[s], scale,
+                                  sliding_window, kv_pool.dtype))
     return torch.cat(outs, dim=0)
 
 
@@ -197,6 +258,35 @@ def paged_prefill_attention_hm_packed_q_plain(
         probs = torch.softmax(scores, dim=-1) * vs[:, None, None]
         out = torch.einsum("kgts,skd->tkgd", probs.to(q.dtype).float(), v.float())
         outs.append(out.reshape(TC, Hq, D).to(q.dtype))
+    return torch.cat(outs, dim=0)
+
+
+def paged_prefill_attention_hm_packed_q_twin(
+    q: torch.Tensor,            # [NS*TC, Hq, D]
+    kv_pool: torch.Tensor,      # [Hkv, N, 2D] int8
+    k_scales: torch.Tensor,     # [Hkv, >= N] f32
+    v_scales: torch.Tensor,     # [Hkv, >= N] f32
+    page_tables: torch.Tensor,  # [NS, maxp] int; < 0 => padding
+    cache_lens: torch.Tensor,   # [NS] int
+    q_lens: torch.Tensor,       # [NS] int
+    page_size: int,
+    scale: float,
+    sliding_window: int = 0,
+) -> torch.Tensor:
+    """The int8 plain version in the kernels' rounding order: ``p *
+    v_scale`` of the unnormalized p rounded to q's dtype before P.V, ``l``
+    summing the unscaled p, the division last
+    (:func:`paged_prefill_attention_hm_packed_q_plain` rounds ``softmax *
+    v_scale``)."""
+    NS = page_tables.shape[0]
+    TC = q.shape[0] // NS
+    outs = []
+    for s in range(NS):
+        k, v = gather_hm(kv_pool, page_tables[s], page_size)        # [KV, Hkv, D] int8
+        ks = gather_scales(k_scales, page_tables[s], page_size).t()  # [Hkv, KV]
+        vs = gather_scales(v_scales, page_tables[s], page_size).t()
+        outs.append(_segment_twin(q[s * TC : (s + 1) * TC], k, v, cache_lens[s], q_lens[s], scale,
+                                  sliding_window, q.dtype, ks, vs))
     return torch.cat(outs, dim=0)
 
 

@@ -96,9 +96,10 @@ def _entry():
     return fn
 
 
-class _Device:
-    """What the wrapper keeps per device: the SM count (asked once), the
-    plans by shape, and the split-K scratch: fp32 partials and int32
+class SplitScratch:
+    """What a split-K matmul wrapper keeps per device (this module's and
+    ``fp8_matmul``'s, each its own): the SM count (asked once), the plans by
+    shape, and the split-K scratch: fp32 partials and int32
     tickets, zero between launches (the kernel's last block of each tile
     resets its own), grown to the largest call's need and never shrunk. One
     stream at a time uses them, as the engine runs its steps."""
@@ -127,7 +128,7 @@ def _run(x2, w_p, scales, zeros, out, planar: bool, cfg_splits=None) -> None:
     N, G = out.shape[1], scales.shape[0]
     dev = _DEVICES.get(x2.device)
     if dev is None:
-        dev = _DEVICES[x2.device] = _Device(x2.device)
+        dev = _DEVICES[x2.device] = SplitScratch(x2.device)
     key = (M, N, K, planar)
     cfg, splits = cfg_splits or dev.plans.get(key) or dev.plans.setdefault(
         key, plan(M, N, K, planar, dev.sms))

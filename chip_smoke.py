@@ -45,12 +45,15 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            at a group size that is not a multiple of 32 rows, and two calls of
            a split-K plan to the same bits, and timed at M 8, 128 and 512
            (also at every kernel and split count it takes); the FP8 block
-           matmul is held on every finite e4m3 code, bit for bit; with
-           ``--parent-csrc DIR`` the fp8_matmul.cu and attn_headmajor_q.cu in
-           DIR (an earlier tree's csrc) are built apart with nvcc and timed
-           beside this tree's in turns: the FP8 block matmul at the four
-           Qwen3-8B projections, M 8 and 512, and the int8 head-major decode
-           and its partial mode at MiniCPM-2B's and Qwen2.5-14B's shapes;
+           matmul is held on every finite e4m3 code, bit for bit; the
+           slot-major decode (bf16, int8, fused) is held at its split edges,
+           at head_dim 192, 256 and odd ones, with V rows near 6 (outputs in
+           [4, 8), where rounded probabilities would show) and over pools
+           holding NaN in every row no sequence attends to; with
+           ``--parent-csrc DIR`` the paged_attention.cu, paged_attention_q.cu
+           and paged_attention_fused.cu in DIR (an earlier tree's csrc) are
+           built apart with nvcc and timed beside this tree's in turns at
+           H2O-Danube-1.8B's and Qwen2.5-14B's heads, batch 8, context 3712;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -858,21 +861,23 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
 
 def parent_kernels(csrc: str):
     """Kernels of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc),
-    built by nvcc with this tree's flags into a temporary directory and
-    driven through their own C signatures (those before the FP8 block matmul
-    took a host plan and the int8 decode split its contexts): the FP8 block
-    matmul (row 9) and the int8 head-major decode (rows 5, 5p). Returns {name:
-    fn}: fp8(x, w, scale), decode_q(q, pool, ks, vs, tables, ctx, S, scale,
-    partial)."""
+    built by nvcc with this tree's flags into a temporary directory (each
+    ``.cu`` with the headers beside it) and driven through their own C
+    signatures, those of the slot-major decode before it merged its splits in
+    one launch (partials [B, Hq, max_splits, D] and [B, Hq, max_splits, 2], a
+    block target and a split cap): rows 10, 13 and 16. Returns {name: fn}:
+    decode(q, k, v, tables, ctx, S, scale), decode_q(q, k, v, ks, vs, tables,
+    ctx, S, scale), fused(q, k, v, k_new, v_new, slots, tables, ctx, S, scale),
+    over pools [1, N, Hkv, D] (fused: two pools, v not None)."""
     import ctypes
     import tempfile
 
     from zhilight_tpu_torch.ops.cuda import _build
-    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 
     out_dir = tempfile.mkdtemp(prefix="zt_parent_")
-    names = ("fp8_matmul", "attn_headmajor_q")
+    names = ("paged_attention", "paged_attention_q", "paged_attention_fused")
     libs = {}
+    t0 = time.monotonic()
     procs = [(name, subprocess.Popen(
         [_build._nvcc(), *_build._FLAGS, "-o", f"{out_dir}/{name}.so", f"{csrc}/{name}.cu"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for name in names]
@@ -881,87 +886,110 @@ def parent_kernels(csrc: str):
         if proc.returncode:
             raise RuntimeError(f"parent {name}: nvcc exit {proc.returncode}\n{log}")
         libs[name] = ctypes.CDLL(f"{out_dir}/{name}.so")
+    print(f"kernels: parent's {', '.join(names)} built in {time.monotonic() - t0:.1f} s",
+          flush=True)
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    mm = libs["fp8_matmul"].zt_fp8_block_matmul
-    mm.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    splits = libs["fp8_matmul"].zt_fp8_block_matmul_splits
-    splits.argtypes, splits.restype = [i, i, i], i
-    dec = libs["attn_headmajor_q"].zt_decode_attention_hm_q
-    dec.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, i, i, f, i, p]
+    dec = libs["paged_attention"].zt_paged_decode_attention
+    dec.argtypes = [p] * 8 + [i, i, i, i, ll, i, i, f, i, i, i, p]
+    dec_q = libs["paged_attention_q"].zt_paged_decode_attention_q
+    dec_q.argtypes = [p] * 10 + [i, i, i, i, ll, ll, i, i, f, i, i, i, p]
+    fus = libs["paged_attention_fused"].zt_paged_decode_attention_fused
+    fus.argtypes = [p] * 11 + [i, i, i, i, ll, ll, i, i, f, i, i, i, p]
     stream = lambda: torch.cuda.current_stream().cuda_stream
+    target = 2 * 132  # the parent's _TARGET_BLOCKS
 
-    def fp8(x, w, scale):
-        (M, K), N = x.shape, w.shape[1]
-        out = torch.empty(M, N, dtype=x.dtype, device=x.device)
-        n = splits(M, N, K)
-        part = torch.empty(n, M, N, dtype=torch.float32, device=x.device) if n > 1 else None
-        _build.check(mm(out.data_ptr(), None if part is None else part.data_ptr(), x.data_ptr(),
-                        w.data_ptr(), scale.data_ptr(), M, N, K, n, stream()), "parent fp8")
+    def scratch(q, Hkv, maxp, S):
+        """The parent's per-call partials (its _max_splits)."""
+        B, Hq, D = q.shape
+        n = max(min(-(-target // (B * Hkv)), -(-(maxp * S) // 128)), 1)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        return (n, torch.empty((B, Hq, n, D) if n > 1 else (1,), **f32),
+                torch.empty((B, Hq, n, 2) if n > 1 else (1,), **f32))
+
+    def decode(q, k, v, tables, ctx, S, scale):
+        B, Hq, D = q.shape
+        N, Hkv = k.shape[1:3]
+        n, acc, ml = scratch(q, Hkv, tables.shape[1], S)
+        out = torch.empty_like(q)
+        _build.check(dec(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
+                         k.data_ptr(), v.data_ptr(), tables.data_ptr(), ctx.data_ptr(), B, Hkv,
+                         Hq // Hkv, D, N, tables.shape[1], S, scale, 0, target, n, stream()),
+                     "parent decode")
         return out
 
-    def decode_q(q, pool, ks, vs, tables, ctx, S, scale, partial=False):
+    def decode_q(q, k, v, ks, vs, tables, ctx, S, scale):
         B, Hq, D = q.shape
-        Hkv, N, _ = pool.shape
-        out, ptrs = A._outputs(q, Hkv, D, partial)
-        _build.check(dec(*ptrs, q.data_ptr(), pool.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                         tables.data_ptr(), ctx.data_ptr(), B, Hkv, Hq // Hkv, D, N,
-                         ks.stride(0), tables.shape[1], S, scale, 0, stream()),
+        N, Hkv = k.shape[1:3]
+        n, acc, ml = scratch(q, Hkv, tables.shape[1], S)
+        out = torch.empty_like(q)
+        _build.check(dec_q(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                           tables.data_ptr(), ctx.data_ptr(), B, Hkv, Hq // Hkv, D, N,
+                           ks.stride(0), tables.shape[1], S, scale, 0, target, n, stream()),
                      "parent int8 decode")
         return out
 
-    return dict(fp8=fp8, decode_q=decode_q)
+    def fused(q, k, v, k_new, v_new, slots, tables, ctx, S, scale):
+        B, Hq, D = q.shape
+        N, Hkv = k.shape[1:3]
+        n, acc, ml = scratch(q, Hkv, tables.shape[1], S)
+        out = torch.empty_like(q)
+        _build.check(fus(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
+                         k.data_ptr(), v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                         slots.data_ptr(), tables.data_ptr(), ctx.data_ptr(), B, Hkv, Hq // Hkv,
+                         D, D, N, tables.shape[1], S, scale, 0, target, n, stream()),
+                     "parent fused decode")
+        return out
+
+    return dict(decode=decode, decode_q=decode_q, fused=fused)
 
 
 def compare_parent(rng, csrc: str) -> None:
-    """Rows 9, 5 and 5p of an earlier tree against this tree's, in turns
+    """Rows 10, 13 and 16 of an earlier tree against this tree's, in turns
     (parent, this tree, this tree, parent) on the same inputs, device time by
-    the same ``time_ms``: fp8_block_matmul at the four Qwen3-8B projection
-    shapes, M 8 and 512, with a cold L2; the int8 head-major decode and its
-    partial mode at MiniCPM-2B's and Qwen2.5-14B's shapes. Each pair is also
-    held against each other (FP8_TOL, ATTN_TOL; the partials relative to
-    their size). One JSON line."""
-    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
-    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
+    the same ``time_ms``: the slot-major decode over bf16 and int8 pools and
+    the fused write + attend (two pools) at H2O-Danube-1.8B's heads and at
+    Qwen2.5-14B's, batch 8, context 3712. Each pair is also held against each
+    other (ATTN_TOL; the fused pair's pools bit-equal). One JSON line."""
+    from zhilight_tpu_torch.kvcache.paged import _quantize_rows
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
 
     parent = parent_kernels(csrc)
     res = {}
-    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    cold = _turns(res, flush=scratch.zero_)
-    for name, (K, N) in QWEN3_SHAPES.items():
-        bits = rng.integers(0, 256, (K, N)).astype(np.uint8)
-        bits[(bits & 0x7F) == 0x7F] = 0x3C
-        w = _dev(bits).view(torch.float8_e4m3fn)
-        s = _dev(((rng.random((K // 128, N // 128)) + 0.5) * (0.02 / np.sqrt(K))).astype(np.float32))
-        for M in (8, 512):
-            x = _randn(rng, M, K)
-            old, new = parent["fp8"](x, w, s), F8.fp8_block_matmul(x, w, s)
-            e = (old.float() - new.float()).abs().max().item() / new.float().abs().max().item()
-            if not e <= FP8_TOL:
-                raise AssertionError(f"parent vs this tree, fp8 {name} M={M}: {e}")
-            cold(f"row 9, {name} M={M}", lambda: parent["fp8"](x, w, s),
-                 lambda: F8.fp8_block_matmul(x, w, s))
-    del scratch
     turns = _turns(res)
-    S = 16
-    for B, heads, CTX, model in ((16, MINICPM_HEADS, 512, "MiniCPM-2B batch 16, context 512"),
-                                 (8, QWEN_HEADS, 3712, "Qwen2.5-14B batch 8, context 3712")):
+    S, B, CTX = 16, 8, 3712
+    for model, heads in (("H2O-Danube-1.8B", DANUBE_HEADS), ("Qwen2.5-14B heads", QWEN_HEADS)):
         Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
         maxp = CTX // S + 2
+        N = B * maxp * S
         tables = _dev(np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32))
-        (pool, ks, vs), _ = _pool_args(rng, Hkv, B * maxp * S, D, True)
-        args = (_randn(rng, B, Hq, D), pool, ks, vs, tables, _dev(np.full(B, CTX, np.int32)), S,
-                1.0 / np.sqrt(D))
-        e = (parent["decode_q"](*args).float()
-             - A.paged_decode_attention_hm_q(*args).float()).abs().max().item()
-        ctx = np.full(B, CTX, np.int32)
-        e_p = _partial_err(A.paged_decode_attention_hm_q(*args, emit_partial=True),
-                           parent["decode_q"](*args, partial=True), ctx)
-        if not (e <= ATTN_TOL and e_p <= ATTN_TOL):
-            raise AssertionError(f"parent vs this tree, int8 decode {model}: {e}, partial {e_p}")
-        turns(f"row 5, {model}, int8 pool", lambda: parent["decode_q"](*args),
-              lambda: A.paged_decode_attention_hm_q(*args))
-        turns(f"row 5p, {model}, int8 pool", lambda: parent["decode_q"](*args, partial=True),
-              lambda: A.paged_decode_attention_hm_q(*args, emit_partial=True))
+        ctx = _dev(np.full(B, CTX, np.int32))
+        k, v = _randn(rng, N, Hkv, D), _randn(rng, N, Hkv, D)
+        q = _randn(rng, B, Hq, D)
+        scale = 1.0 / np.sqrt(D)
+        (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
+        ks, vs = k_s.t().contiguous(), v_s.t().contiguous()
+        bf = (q, k[None], v[None], tables, ctx, S, scale)
+        i8 = (q, k_q[None], v_q[None], ks, vs, tables, ctx, S, scale)
+        k_new, v_new = _randn(rng, B, Hkv, D), _randn(rng, B, Hkv, D)
+        slots = _dev((np.arange(B) * maxp + (CTX - 1) // S) * S + (CTX - 1) % S).to(torch.int32)
+        fz = (q, k[None], v[None], k_new, v_new, slots, tables, ctx, S, scale)
+        for what, old, new, args in (
+                ("10", parent["decode"], PA.paged_decode_attention, bf),
+                ("13", parent["decode_q"], PA.paged_decode_attention_q, i8)):
+            e = (old(*args).float() - new(*args).float()).abs().max().item()
+            if not e <= ATTN_TOL:
+                raise AssertionError(f"parent vs this tree, row {what} {model}: {e}")
+            turns(f"row {what}, {model} batch 8, context 3712", lambda: old(*args),
+                  lambda: new(*args))
+        pools = [[p.clone() for p in (k, v)] for _ in range(2)]
+        a = parent["fused"](q, pools[0][0][None], pools[0][1][None], *fz[3:])
+        b = PA.paged_decode_attention_fused(q, pools[1][0][None], pools[1][1][None], *fz[3:])
+        e = (a.float() - b.float()).abs().max().item()
+        if not (e <= ATTN_TOL and all(torch.equal(x, y) for x, y in zip(*pools))):
+            raise AssertionError(f"parent vs this tree, row 16 {model}: {e} or pools differ")
+        turns(f"row 16, {model} batch 8, context 3712", lambda: parent["fused"](*fz),
+              lambda: PA.paged_decode_attention_fused(*fz))
     print(json.dumps({"parent_compare": res}), flush=True)
 
 
@@ -1502,6 +1530,39 @@ def kernels_deepseek(rec: dict, rng) -> None:
     _record(rec, "w4a16_ragged_matmul", abs_err, list(shapes)[0], shapes)
 
 
+def _v6(rng, *shape):
+    """V rows near 6 (uniform in [4.5, 7.5)), bf16: attention outputs in [4,
+    8), where one bf16 ulp (2^-5) is above ATTN_TOL, so a kernel that rounded
+    its probabilities to bf16 before P.V would show."""
+    return _dev((6 + 1.5 * (2 * rng.random(shape) - 1)).astype(np.float32), torch.bfloat16)
+
+
+def _read_slots(tables, ctx, window, fused=False) -> torch.Tensor:
+    """Pool slots some sequence attends to: tokens [start, end) of each (end
+    = ctx - 1 in the fused mode, whose row ctx - 1 is written, not read)."""
+    tables, ctx = np.asarray(tables), np.asarray(ctx)
+    keep = [np.zeros(0, np.int64)]
+    for b, c in enumerate(ctx):
+        t = np.arange(max(0, c - window) if window else 0, max(c - 1, 0) if fused else c)
+        keep.append(tables[b, t // 16].astype(np.int64) * 16 + t % 16)
+    return _dev(np.concatenate(keep))
+
+
+def _poisoned(pools, keep, int8):
+    """Copies of the pools [1, N, Hkv, X] with NaN in every row but ``keep``;
+    int8 pools keep their rows and get NaN in every other column of their
+    scales [Hkv, >= N]."""
+    out = list(pools)
+    for i in ((2, 3) if int8 else range(len(pools))):
+        bad = torch.full_like(pools[i], float("nan"))
+        if int8:
+            bad[:, keep] = pools[i][:, keep]
+        else:
+            bad[0, keep] = pools[i][0, keep]
+        out[i] = bad
+    return out
+
+
 def kernels_slot_major(rec: dict, rng) -> None:
     """The four kernels of the slot-major pools against their plain versions:
     decode attention over bf16 and int8 pools at head_dim 16, 80, 96, 100 and
@@ -1509,17 +1570,26 @@ def kernels_slot_major(rec: dict, rng) -> None:
     mid-page, an empty slot, with and without a sliding window shorter than
     the contexts, and at the serving shapes (batch 8, H2O-Danube-1.8B's 32 / 8
     heads of 80 and Qwen2.5-14B's 40 / 8 of 128, contexts up to 3712, window
-    0 and 300); the two row writes bit-exact, bf16 and int8 rows, a decode
-    step's rows and a chunk starting mid-page. Then timed: decode at
+    0 and 300); at the split edges of this card's split count at Danube's
+    heads (contexts 1, 64, 65, two whole tiles a split and one token past, an
+    empty slot; windows 0, 40 and 300, 40 starting mid-tile), and at head_dim
+    192 and 256 (G 2) and 33 (G 5), each over unit-variance pools, pools with
+    NaN in every row no sequence attends to and pools whose V rows are near 6
+    (outputs in [4, 8), held against the plain version's fp32 output:
+    probabilities rounded to bf16 would show); the two
+    row writes bit-exact, bf16 and int8 rows, a decode step's rows and a
+    chunk starting mid-page. Then timed: decode at
     H2O-Danube-1.8B's shape (batch 8, context 3712, 32 / 8 heads of 80) and at
     Qwen2.5-14B's heads (40 / 8 of 128, the layout ZT_NO_PACKED_KV=1 gives
     it), beside SDPA on rows gathered (and dequantized) beforehand; the writes
     at 8 and 512 rows beside ``index_copy_`` on the pools' 2-D views."""
     from zhilight_tpu_torch.kvcache.paged import _quantize_rows, slot_indices
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import paged_attention as PA
 
     F, S = torch.nn.functional, 16
+    KINDS = ("plain", "nan", "v6")
 
     def pools(Hkv, slots, D, int8):
         """Pools [1, N, Hkv, D]: (k, v) bf16, or (k, v, k_scales, v_scales)
@@ -1540,22 +1610,48 @@ def kernels_slot_major(rec: dict, rng) -> None:
                      else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
         kind = "int8" if int8 else "bf16"
 
-        def check(ctx, Hq, Hkv, D, windows):
-            """The kernel against its plain version; returns the largest error."""
+        def check(ctx, Hq, Hkv, D, windows, kinds=("plain",)):
+            """The kernel against its plain version over unit-variance pools
+            ("plain"), the same pools with NaN in every row no sequence
+            attends to ("nan": compared with the plain version over the clean
+            pools) and pools whose V rows are near 6 ("v6"); returns the
+            largest error."""
             tables, npages = _paged(rng, ctx, S)
             pk, _ = pools(Hkv, npages * S, D, int8)
             q = _randn(rng, len(ctx), Hq, D)
+            if "v6" in kinds:
+                v6 = _v6(rng, npages * S, Hkv, D)
+                if int8:
+                    v_q, v_s = _quantize_rows(v6)
+                    pad = torch.zeros(Hkv, 1, device="cuda")
+                    v6 = (pk[0], v_q[None], pk[2], torch.cat([v_s.t(), pad], 1).contiguous())
+                else:
+                    v6 = (pk[0], v6[None])
             e_max = 0.0
             for window in windows:
-                args = (q, *pk, _dev(tables), _dev(ctx), S, 1.0 / np.sqrt(D), window)
-                got, want = fn(*args), plain(*args)
-                e = (got.float() - want.float()).abs().max().item()
-                label = f"{name} Hq={Hq} Hkv={Hkv} D={D} window={window} ctx={ctx.tolist()}"
-                if not np.isfinite(e) or e > ATTN_TOL:
-                    raise AssertionError(f"{label}: max abs err {e} > {ATTN_TOL}")
-                if got[torch.from_numpy(ctx == 0)].any():
-                    raise AssertionError(f"{label}: an empty slot is not zero")
-                e_max = max(e_max, e)
+                tail = (_dev(tables), _dev(ctx), S, 1.0 / np.sqrt(D), window)
+                want = plain(q, *pk, *tail)
+                runs = {"plain": (pk, want)}
+                if "nan" in kinds:
+                    runs["nan"] = (_poisoned(pk, _read_slots(tables, ctx, window), int8), want)
+                if "v6" in kinds:  # against the plain version's fp32 output, before its
+                    # one rounding to bf16: two roundings of close fp32 values may
+                    # differ by a whole ulp (2^-5 here), more than ATTN_TOL
+                    runs["v6"] = (v6, plain(q.float(), *v6, *tail))
+                for k_ in kinds:
+                    pools_, want_ = runs[k_]
+                    got = fn(q, *pools_, *tail)
+                    e = (got.float() - want_.float()).abs().max().item()
+                    label = (f"{name} ({k_}) Hq={Hq} Hkv={Hkv} D={D} window={window} "
+                             f"ctx={ctx.tolist()}")
+                    if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+                        raise AssertionError(f"{label}: max abs err {e} > {ATTN_TOL}")
+                    if got[torch.from_numpy(ctx == 0)].any():
+                        raise AssertionError(f"{label}: an empty slot is not zero")
+                    if k_ == "v6" and not (want_[torch.from_numpy(ctx > 0)].float().abs().min() >= 4
+                                           and want_.float().abs().max() < 8):
+                        raise AssertionError(f"{label}: outputs outside [4, 8)")
+                    e_max = max(e_max, e)
             return e_max
 
         ctx = np.array([700, 1, 0, 17, 33, 257, 16, 129], np.int32)  # slot 2 empty
@@ -1563,6 +1659,22 @@ def kernels_slot_major(rec: dict, rng) -> None:
                   for G in (1, 4, 5))
         print(f"kernels: {name} ({kind} slot-major pools) at D 16, 80, 96, 100, 128, G 1, 4, 5, "
               f"window 0 and 40, contexts {ctx.tolist()}: max abs err {err:.3e}", flush=True)
+        # the split edges at Danube's heads on this card's split count (2
+        # whole tiles a split, then one token past), a window of 40 starting
+        # mid-tile, and head_dim 192 and 256 (G 2) and an odd 33 (G 5); each
+        # also over pools with NaN in every row no sequence attends to and
+        # with V rows near 6
+        lib = "paged_attention_q" if int8 else "paged_attention"
+        splits = A.decode_splits(8, 8, 4, 3712, A._capacity(torch.device("cuda"), 80, lib))
+        edge = np.array([3712, 1, 0, 64, 65, 128 * splits, 128 * splits + 1, 2000], np.int32)
+        e = max([check(edge, **DANUBE_HEADS, windows=(0, 40, 300), kinds=KINDS)]
+                + [check(edge, 2 * G, 2, D, (0, 40), kinds=KINDS)
+                   for D, G in ((192, 2), (256, 2), (33, 5))])
+        print(f"kernels: {name} ({kind} slot-major pools) at the split edges ({splits} splits, "
+              f"contexts {edge.tolist()}) at Danube's heads, windows 0, 40, 300, and at D 192, "
+              f"256 (G 2), 33 (G 5), windows 0 and 40; plain, NaN-poisoned and V near 6 "
+              f"pools: max abs err {e:.3e}", flush=True)
+        err = max(err, e)
         # the serving shapes: H2O-Danube-1.8B's batch and heads (the grid the
         # main path launches) and Qwen2.5-14B's heads (G 5: two query-row
         # groups a block), at contexts up to 3712 that cut into ranges
@@ -1827,7 +1939,10 @@ def kernels_fused(rec: dict, rng) -> None:
     H2O-Danube-1.8B's shape (batch 8, 32 / 8 heads of 80) and Qwen2.5-14B's
     heads (40 / 8 of 128), the packed single pool at Danube's heads, contexts
     up to 3712 with slot 2 frozen, then with a context of 1 and an empty one,
-    windows 0 and 300 (output within ATTN_TOL); the latent mode at
+    windows 0 and 300 (output within ATTN_TOL); at the split edges and the
+    head dims of the unfused checks (kernels_slot_major), both pool modes,
+    over unit-variance, NaN-poisoned (the written rows NaN until the call)
+    and V-near-6 pools; the latent mode at
     DeepSeek-V2-Lite's shape (batch 8, 16 heads, rows of 576, contexts up to
     2816; within ATTN_TOL of the largest output: its tiles round the
     probabilities to bf16). Then timed at the serving contexts (batch 8 at
@@ -1884,6 +1999,65 @@ def kernels_fused(rec: dict, rng) -> None:
               f"(one frozen, then ctx 1 and 0), window 0 and 300: max abs err {e_model:.3e}, "
               f"pools bit-exact", flush=True)
         err = max(err, e_model)
+
+    def edge_case(ctx, Hq, Hkv, D, packed, windows):
+        """The fused kernel against its plain version over unit-variance
+        pools, over the same pools with NaN in every row no sequence attends
+        to (the written rows included: NaN until the call writes them) and
+        with V rows near 6 (the new V rows too; outputs in [4, 8)); the
+        written rows equal the new ones. Returns the largest error."""
+        tables, npages, slots, ctx_t = inputs(ctx)
+        q = _randn(rng, B, Hq, D)
+        k_new, v_new = _randn(rng, B, Hkv, D), _randn(rng, B, Hkv, D)
+        written = (slots >= 0) & (ctx_t >= 1)
+        e_max = 0.0
+        for kind in ("plain", "nan", "v6"):
+            k = _randn(rng, npages * S, Hkv, D)
+            v = _v6(rng, npages * S, Hkv, D) if kind == "v6" else _randn(rng, npages * S, Hkv, D)
+            vn = _v6(rng, B, Hkv, D) if kind == "v6" else v_new
+            clean = (torch.cat((k, v), -1)[None],) if packed else (k[None], v[None])
+            for window in windows:
+                tail = (k_new, vn, slots, tables, ctx_t, S, 1.0 / np.sqrt(D), window)
+                gp = [p.clone() for p in clean]
+                if kind == "nan":
+                    gp = _poisoned(gp, _read_slots(tables.cpu(), ctx, window, fused=True), False)
+                wp = [p.clone() for p in clean]
+                got = PA.paged_decode_attention_fused(q, gp[0], None if packed else gp[1], *tail)
+                # V near 6: against the plain version's fp32 output (kernels_slot_major)
+                want = PA.paged_decode_attention_fused_plain(
+                    q.float() if kind == "v6" else q, wp[0], None if packed else wp[1], *tail)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                what = (f"fused decode ({kind}) Hq={Hq} Hkv={Hkv} D={D} packed={packed} "
+                        f"window={window} ctx={ctx}")
+                if not (torch.isfinite(got).all() and e <= ATTN_TOL):
+                    raise AssertionError(f"{what}: max abs err {e} > {ATTN_TOL}")
+                rows = slots[written].long()
+                if not all(torch.equal(g[0, rows], w[0, rows]) for g, w in zip(gp, wp)):
+                    raise AssertionError(f"{what}: written rows differ from the plain version's")
+                if kind == "v6" and not (want.float().abs().min() >= 4
+                                         and want.float().abs().max() < 8):
+                    raise AssertionError(f"{what}: outputs outside [4, 8)")
+                e_max = max(e_max, e)
+        return e_max
+
+    # the split edges at Danube's heads on this card's split count (counting
+    # the new token: no pool token, 64 and 65 pool tokens, 2 whole tiles a
+    # split and one token past), a window of 40 starting mid-tile, and head_dim
+    # 192 and 256 (G 2) and an odd 33 (G 5), both pool modes
+    splits = A.decode_splits(B, 8, 4, 3712, A._capacity(torch.device("cuda"), 80,
+                                                         "paged_attention_fused"))
+    edge = [3712, 1, 0, 65, 66, 128 * splits + 1, 128 * splits + 2, 2000]
+    e = 0.0
+    for packed in (False, True):
+        e = max([e, edge_case(edge, **DANUBE_HEADS, packed=packed, windows=(0, 40, 300))]
+                + [edge_case(edge, 2 * G, 2, D, packed, (0, 40))
+                   for D, G in ((192, 2), (256, 2), (33, 5))])
+    print(f"kernels: paged_decode_attention_fused at the split edges ({splits} splits, contexts "
+          f"{edge}) at Danube's heads, windows 0, 40, 300, and at D 192, 256 (G 2), 33 (G 5), "
+          f"windows 0 and 40, two pools and packed; plain, NaN-poisoned and V near 6 pools: "
+          f"max abs err {e:.3e}, written rows bit-exact", flush=True)
+    err = max(err, e)
 
     def timed(Hq, Hkv, D, CTX):
         maxp = CTX // S + 2
@@ -3341,8 +3515,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its "
-                         "fp8_matmul.cu and attn_headmajor_q.cu apart and time them beside "
-                         "this tree's kernels in the kernels phase")
+                         "paged_attention.cu, paged_attention_q.cu and paged_attention_fused.cu "
+                         "apart and time them beside this tree's kernels in the kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]
@@ -3358,6 +3532,8 @@ def main() -> int:
     _build.build_all()
     print(f"build: {len(_build.SOURCES)} CUDA libraries in {time.monotonic() - t0:.1f} s",
           flush=True)
+    print("build: seconds to each library's end: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in _build.build_seconds.items()), flush=True)
     for name, log in _build.build_logs().items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:

@@ -21,7 +21,11 @@ output of the same call on the CPU (the integer product is exact, but the
 card may divide through a reciprocal, so a code may differ by one). The
 slot-major pools' kernels (separate K and V pools ``[1, N, Hkv, D]``) follow
 the same rules: their row writes bit-exact for bf16 and int8 rows, their
-decode attention within 2e-2 absolute at head_dim 16 to 128. The window
+decode attention within 2e-2 absolute at head_dim 7 to 256, at its split
+edges, over pools holding NaN in every row no sequence attends to, and with V
+rows near 6 (outputs in [4, 8), where one bf16 ulp is above the tolerance: the
+kernel rounds no probability); back-to-back calls with other split counts
+leave the tickets they share with the head-major decodes at zero. The window
 side-KV kernels: the two flushes bit-exact; the partial modes of the three
 decode kernels within 2e-2 relative to their size (m absolute where l > 0,
 l and acc over their largest value: unnormalized sums grow with the
@@ -828,7 +832,7 @@ def test_slot_major_decode_attention_long_context_and_wide_groups(cuda, hkv, G, 
     """H2O-Danube-1.8B's geometry (8 KV heads, G 4, head_dim 80) and
     Qwen2.5-14B's heads (G 5 of 128) at batch 8, contexts up to 3712 (the
     kernel cuts the context into ranges and merges them), one slot empty;
-    groups of query heads past the kernel's 4 or 8 rows a block."""
+    G 24: query heads past the kernel's 16 rows a block."""
     rng = np.random.default_rng(hkv * G + window)
     ctx = np.array([3712, 7, 0, 1500, 100, 16, 250, 3201], np.int32)
     tables, npages = _tables(rng, ctx, cuda)
@@ -925,6 +929,133 @@ def test_slot_major_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     with pytest.raises(ValueError):
         W.write_rows_2d_pair(pool, pool, rows[:, :1], rows, torch.zeros(3, dtype=torch.int32,
                                                                           device=cuda))
+
+
+# the slot-major decode's split edges at H2O-Danube-1.8B's heads and batch
+# (one wave is 6 splits on an H100: 768 tokens are 12 tiles, 2 a split, every
+# split full; 769 leaves one token for a seventh tile), contexts 1, 64, 65 and
+# an empty slot
+_SLOT_EDGE_CTX = [3712, 1, 0, 64, 65, 768, 769, 2000]
+
+
+def _v6(rng, device, *shape):
+    """V rows near 6 (uniform in [4.5, 7.5)): outputs in [4, 8), where one
+    bf16 ulp (2^-5) is above the tolerance, so probabilities rounded to bf16
+    before P.V would show."""
+    x = 6 + 1.5 * (2 * rng.random(shape) - 1)
+    return torch.from_numpy(x.astype(np.float32)).to(device, torch.bfloat16)
+
+
+def _read_slots(tables, ctx, window, fused=False):
+    """Pool slots that some sequence attends to: tokens [start, end) of each
+    (end = ctx - 1 in the fused mode)."""
+    tables, ctx = tables.cpu().numpy(), ctx.cpu().numpy()
+    keep = [np.zeros(0, np.int64)]
+    for b, c in enumerate(ctx):
+        t = np.arange(max(0, c - window) if window else 0, max(c - 1, 0) if fused else c)
+        keep.append(tables[b, t // S].astype(np.int64) * S + t % S)
+    return torch.from_numpy(np.concatenate(keep))
+
+
+def _poisoned(pools, keep, int8):
+    """The pools [1, N, Hkv, X] with NaN in every row but ``keep`` (int8 pools:
+    their scales [Hkv, >= N] NaN in every other column)."""
+    out = list(pools)
+    idx = keep.to(pools[0].device)
+    for i in ((2, 3) if int8 else range(len(pools))):
+        bad = torch.full_like(pools[i], float("nan"))
+        if int8:
+            bad[:, idx] = pools[i][:, idx]
+        else:
+            bad[0, idx] = pools[i][0, idx]
+        out[i] = bad
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [0, 40])  # 40: windows that start mid-tile
+@pytest.mark.parametrize("hkv,G,D", [(8, 4, 80), (2, 2, 192), (2, 2, 256), (2, 3, 7), (2, 5, 33)])
+def test_slot_major_decode_attention_edges(cuda, hkv, G, D, window, int8):
+    """Danube's heads at the split edges, and head_dim 192, 256 and odd ones,
+    each three ways: unit-variance rows; pools holding NaN in every row that
+    no sequence attends to (the output finite and equal to the plain version's
+    over the clean pools); V rows near 6 (outputs in [4, 8), held against the
+    plain version's fp32 output: p is not rounded)."""
+    rng = np.random.default_rng(hkv * G + D + window)
+    ctx = torch.from_numpy(np.array(_SLOT_EDGE_CTX, np.int32)).to(cuda)
+    tables, npages = _tables(rng, _SLOT_EDGE_CTX, cuda)
+    fn, plain = ((PA.paged_decode_attention_q, PA.paged_decode_attention_q_plain) if int8
+                 else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
+    q = _bf16(rng, cuda, 8, hkv * G, D)
+    tail = (tables, ctx, S, 1.0 / np.sqrt(D), window)
+    pools = _slot_major_pools(rng, cuda, npages * S, hkv, D, int8)
+    want = plain(q, *pools, *tail)
+    for kind, got in (("plain", fn(q, *pools, *tail)),
+                      ("nan", fn(q, *_poisoned(pools, _read_slots(tables, ctx, window), int8),
+                                 *tail))):
+        assert torch.isfinite(got).all(), kind
+        assert torch.equal(got[2], torch.zeros_like(got[2])), kind
+        assert (got.float() - want.float()).abs().max().item() <= TOL, kind
+    if int8:
+        (v_q, v_s) = _quantize_rows(_v6(rng, cuda, npages * S, hkv, D))
+        v6 = (pools[0], v_q[None], pools[2],
+              torch.cat([v_s.t(), torch.zeros(hkv, 1, device=cuda)], 1).contiguous())
+    else:
+        v6 = (pools[0], _v6(rng, cuda, 1, npages * S, hkv, D))
+    # against the plain version's fp32 output, before its one rounding to
+    # bf16: two roundings of close fp32 values may differ by a whole ulp
+    got, want = fn(q, *v6, *tail), plain(q.float(), *v6, *tail)
+    live = ctx > 0
+    assert want[live].float().abs().min() >= 4 and want.float().abs().max() < 8
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+def test_split_decodes_back_to_back_share_the_tickets(cuda):
+    """Slot-major decodes (bf16, int8, fused) whose split counts differ,
+    queued on one stream with the head-major decode between them and no
+    synchronisation: each equals its plain version and the tickets that all
+    of them share are zero afterwards."""
+    rng = np.random.default_rng(12)
+    calls = []
+    for B, ctx_max, int8 in ((8, 3712, False), (2, 300, True), (1, 100, False), (8, 2000, True)):
+        lens = _ctx(rng, ctx_max, B) if B > 2 else np.full(B, ctx_max, np.int32)
+        tables, npages = _tables(rng, lens, cuda)
+        pools = _slot_major_pools(rng, cuda, npages * S, 8, 80, int8)
+        args = (_bf16(rng, cuda, B, 32, 80), *pools, tables, torch.from_numpy(lens).to(cuda), S,
+                1.0 / np.sqrt(80))
+        fn, plain = ((PA.paged_decode_attention_q, PA.paged_decode_attention_q_plain) if int8
+                     else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
+        lib = "paged_attention_q" if int8 else "paged_attention"
+        calls.append((fn, plain, args, A.decode_splits(B, 8, 4, tables.shape[1] * S,
+                                                       A._capacity(cuda, 80, lib))))
+    assert len({c[3] for c in calls}) >= 3
+    hm_lens = _ctx(rng, 3712)
+    hm_tables, hm_pages = _tables(rng, hm_lens, cuda)
+    hm_args = (_bf16(rng, cuda, 8, 40, 128), _bf16(rng, cuda, 8, hm_pages * S, 256), hm_tables,
+               torch.from_numpy(hm_lens).to(cuda), S, 1.0 / np.sqrt(128))
+    f_tables, f_pages, f_slots, f_ctx = _fused_inputs(rng, cuda, _FUSED_CTX)
+    f_pools = [_bf16(rng, cuda, 1, f_pages * S, 8, 80) for _ in range(2)]
+    f_rows = [_bf16(rng, cuda, 8, 8, 80) for _ in range(2)]
+    f_q = _bf16(rng, cuda, 8, 32, 80)
+    f_want_pools = [p.clone() for p in f_pools]
+    got = []
+    for fn, _, args, _ in calls:
+        got.append(fn(*args))
+        got.append(A.paged_decode_attention_hm(*hm_args))
+    f_got = PA.paged_decode_attention_fused(f_q, *f_pools, *f_rows, f_slots, f_tables, f_ctx, S,
+                                            1.0 / np.sqrt(80))
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in A._TICKETS.values())
+    hm_want = A.paged_decode_attention_hm_plain(*hm_args)
+    for (_, plain, args, _), out, hm in zip(calls, got[::2], got[1::2]):
+        assert (out.float() - plain(*args).float()).abs().max().item() <= TOL
+        assert (hm.float() - hm_want.float()).abs().max().item() <= TOL
+    f_want = PA.paged_decode_attention_fused_plain(f_q, *f_want_pools, *f_rows, f_slots,
+                                                   f_tables, f_ctx, S, 1.0 / np.sqrt(80))
+    assert (f_got.float() - f_want.float()).abs().max().item() <= TOL
+    assert all(torch.equal(g, w) for g, w in zip(f_pools, f_want_pools))
 
 
 # ---------------------------------------------------------------------------

@@ -130,6 +130,52 @@ def test_plain_fused_decode_matches_pallas(hkv, packed, window):
                                atol=ATOL)
 
 
+# the CUDA kernel's edges on its 64-token grid, counting the new token: no
+# pool token, a whole tile of pool tokens (64), one past it (65), and a
+# window that starts mid-tile (ctx 90, window 40: tokens 50 to 88)
+FUSED_EDGE_CTX = [1, 65, 66, 90]
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("D", [16, 80])
+def test_plain_fused_decode_at_the_kernel_edges_matches_pallas(D, packed, window):
+    """Row 16's plain version at the CUDA kernel's split and tile edges (G 4,
+    2 KV heads): outputs within 1e-4 of the Pallas kernel, pools bit-equal."""
+    q, k_pages, v_pages, k_new, v_new, tables, ctx, slots = _setup(B=4, Hq=8, Hkv=2, D=D,
+                                                                   seed=D + window)
+    rng = np.random.RandomState(D)
+    ctx = np.array(FUSED_EDGE_CTX, np.int32)
+    tables = np.full_like(tables, -1)
+    perm, o = rng.permutation(k_pages.shape[0] // S), 0
+    for b, c in enumerate(ctx):
+        n = -(-int(c) // S)
+        tables[b, :n] = perm[o : o + n]
+        o += n
+    slots = np.array([tables[b, (c - 1) // S] * S + (c - 1) % S for b, c in enumerate(ctx)],
+                     np.int32)
+    scale = 1.0 / np.sqrt(D)
+    j_args = (jnp.asarray(k_new), jnp.asarray(v_new), jnp.asarray(slots), jnp.asarray(tables),
+              jnp.asarray(ctx), S, scale, window)
+    t_args = (T(k_new), T(v_new), T(slots), T(tables), T(ctx), S, scale, window)
+    if packed:
+        pool = np.concatenate([k_pages, v_pages], -1)
+        want, jk, _ = JPA.paged_decode_attention_fused(jnp.asarray(q), jnp.asarray(pool), None,
+                                                       *j_args, interpret=True)
+        t_pool = T(pool)[None]
+        got = PA.paged_decode_attention_fused_plain(T(q), t_pool, None, *t_args)
+        pools = [(t_pool[0], jk)]
+    else:
+        want, jk, jv = JPA.paged_decode_attention_fused(
+            jnp.asarray(q), jnp.asarray(k_pages), jnp.asarray(v_pages), *j_args, interpret=True)
+        tk, tv = T(k_pages)[None], T(v_pages)[None]
+        got = PA.paged_decode_attention_fused_plain(T(q), tk, tv, *t_args)
+        pools = [(tk[0], jk), (tv[0], jv)]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    for t_pool, j_pool in pools:
+        assert np.array_equal(t_pool.numpy(), np.asarray(j_pool))
+
+
 def _latent_inputs(edges):
     """tests/test_fused_decode_attention.py::test_fused_mla_latent's inputs: 4
     sequences, 8 heads, latent rows of 128 + 64 in a pool padded to 256."""

@@ -60,6 +60,7 @@ from zhilight_tpu_torch.llm import LLM as TLLM
 from zhilight_tpu_torch.models import llama as TL
 from zhilight_tpu_torch.models.base import DecodeMeta as TDecodeMeta
 from zhilight_tpu_torch.models.base import PrefillMeta as TPrefillMeta
+from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 from zhilight_tpu_torch.ops.cuda import kv_write as W
 from zhilight_tpu_torch.ops.cuda import paged_attention as PA
 from zhilight_tpu_torch.utils.convert import params_to_torch
@@ -147,6 +148,75 @@ def test_plain_decode_attention_q_empty_slot_is_zero_like_pallas():
                                       _t_scales(v_s), T(tables), T(ctx), S, 0.1)
     assert torch.equal(got[2], torch.zeros_like(got[2]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+# the CUDA kernel's edges on its 64-token grid: one token, one whole tile,
+# one token past it, and a context whose window starts mid-tile
+EDGE_CTX = [1, 64, 65, 90]
+
+
+def _edge_setup(D, G, seed):
+    """4 sequences of EDGE_CTX on 2 KV heads (G query heads each), pages of
+    16 in a shuffled table; tests/test_paged_attention_kernel.py's kind of
+    inputs (fp32, unit variance)."""
+    rng = np.random.RandomState(seed)
+    ctx = np.array(EDGE_CTX, np.int32)
+    maxp, P = 6, 32
+    q = rng.randn(len(ctx), 2 * G, D).astype(np.float32)
+    k, v = (rng.randn(P * S, 2, D).astype(np.float32) for _ in range(2))
+    perm = rng.permutation(P)
+    tables = np.full((len(ctx), maxp), -1, np.int32)
+    o = 0
+    for b, c in enumerate(ctx):
+        n = -(-int(c) // S)
+        tables[b, :n] = perm[o : o + n]
+        o += n
+    return q, k, v, tables, ctx
+
+
+@pytest.mark.parametrize("window", [0, 40])  # 40: ctx 90 starts at token 50, mid-tile
+@pytest.mark.parametrize("D", [16, 80])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_plain_decode_attention_at_the_kernel_edges_matches_pallas(quantized, D, window):
+    """Rows 10 and 13's plain versions at contexts 1, 64, 65 and a window
+    starting mid-tile (G 4): the split and tile edges of the CUDA kernel."""
+    q, k, v, tables, ctx = _edge_setup(D, 4, seed=D + window)
+    scale = 1.0 / np.sqrt(D)
+    jt, jc = jnp.asarray(tables), jnp.asarray(ctx)
+    if quantized:
+        (k_q, k_s), (v_q, v_s) = JP._quantize_rows(jnp.asarray(k)), JP._quantize_rows(jnp.asarray(v))
+        want = j_decode_q(jnp.asarray(q), k_q, v_q, k_s, v_s, jt, jc, S, scale,
+                          sliding_window=window, interpret=True)
+        got = PA.paged_decode_attention_q(T(q), _t_pool(k_q), _t_pool(v_q), _t_scales(k_s),
+                                          _t_scales(v_s), T(tables), T(ctx), S, scale, window)
+    else:
+        want = j_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jt, jc, S, scale,
+                        sliding_window=window, interpret=True)
+        got = PA.paged_decode_attention(T(q), _t_pool(k), _t_pool(v), T(tables), T(ctx), S,
+                                        scale, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+# the slot-major decode's split planner (ops/cuda/attn_headmajor.py
+# decode_splits, split_shapes) at the serving heads: H2O-Danube-1.8B's 32 / 8
+# of 80, Qwen2.5-14B's 40 / 8 of 128, batch 8
+@pytest.mark.parametrize("max_ctx", [1, 64, 65, 3744])
+@pytest.mark.parametrize("capacity", [64, 132, 396, 8448])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 80), (40, 8, 128)])
+def test_split_planner_fills_one_wave(Hq, Hkv, D, capacity, max_ctx):
+    B, G = 8, Hq // Hkv
+    blocks = B * Hkv * -(-G // 16)
+    tiles = -(-max_ctx // 64)
+    splits = A.decode_splits(B, Hkv, G, max_ctx, capacity)
+    assert 1 <= splits <= min(64, tiles)
+    if blocks <= capacity:  # one wave: every block fits, one more split would not
+        assert splits * blocks <= capacity
+        assert splits in (64, tiles) or (splits + 1) * blocks > capacity
+    acc, ml, n = A.split_shapes(B, Hkv, G, D, splits)
+    # the kernel's partial (b, head group, split) and ticket (b, head group)
+    # indices stay inside what the wrapper allocates
+    assert acc == (B, blocks // B, splits, 16, D) and ml == (B, blocks // B, splits, 2, 16)
+    assert n == blocks
 
 
 def test_decode_wrappers_take_the_plain_version_only_on_the_cpu():

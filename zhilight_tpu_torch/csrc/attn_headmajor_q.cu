@@ -90,24 +90,6 @@ struct Cfg {
   static_assert(D % 64 == 0 && 2 * TN == NT, "shapes");
 };
 
-// four int8 (a word, low byte first) -> two bf16 pairs, exactly
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = v ^ 0x80808080u;  // x + 128 as unsigned bytes
-  float f[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b)
-    f[b] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) - 8388736.f;
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
-
-// byte t of words a and b, exactly, as a bf16 pair (a's in the low half)
-__device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b, int t) {
-  const float fa = __int_as_float(__byte_perm(a ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
-  const float fb = __int_as_float(__byte_perm(b ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
-  return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
-}
-
 template <int D, bool EMIT>
 __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
     void* __restrict__ out,                   // [B, Hq, D]: bf16, or fp32 acc with EMIT

@@ -1,5 +1,6 @@
-// Helpers shared by the head-major attention kernels (attn_headmajor.cu,
-// attn_headmajor_q.cu, prefill_attention.cu, prefill_attention_q.cu) and the
+// Helpers shared by the attention kernels (attn_headmajor.cu,
+// attn_headmajor_q.cu, prefill_attention.cu, prefill_attention_q.cu, the
+// slot-major paged_decode.cuh) and the
 // int4 and FP8 matmuls (quant_matmul.cu, fp8_matmul.cu): warp-level tensor-core products, asynchronous copies
 // and the paged gather of a K|V tile.
 //
@@ -78,6 +79,24 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// four int8 (a word, low byte first) -> two bf16 pairs, exactly
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;  // x + 128 as unsigned bytes
+  float f[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// byte t of words a and b, exactly, as a bf16 pair (a's in the low half)
+__device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b, int t) {
+  const float fa = __int_as_float(__byte_perm(a ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
+  const float fb = __int_as_float(__byte_perm(b ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
+  return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
 }
 
 // Address of lane `lane`'s row for ldsm_x4 of the A operand (16 rows x 16

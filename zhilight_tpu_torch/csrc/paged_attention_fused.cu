@@ -1,6 +1,5 @@
 // Fused decode: write this step's K and V rows into the slot-major bf16 pool
-// and attend over the whole context, in one launch per layer (plus the split
-// merge when the context is cut into ranges).
+// and attend over the whole context, in one launch per layer.
 //
 // Replaces: zhilight_tpu/ops/pallas/paged_attention.py
 // paged_decode_attention_fused (:644), kernel _kernel_bs_fused (:445), in its
@@ -23,27 +22,34 @@
 // page fetches, its read-modify-write of the new row's page and its flat
 // write-back view are how a TPU moves rows; here the block that owns (b, KV
 // head, split 0, head group 0) stores the row directly. Design: the decode
-// template of paged_decode.cuh with its FUSED flag (header there): the
-// context loop stops before row ctx - 1, so no block reads the row another
-// block writes, and the new token's column is folded in once per query head.
+// template of paged_decode.cuh with its FUSED flag (header there): row ctx - 1
+// is never read (the tile's row there gets zeros and a mask), so no block
+// reads the row another block writes, and the new token's column is folded
+// in once per query head by the block that writes the output, the splits'
+// ticket merge included.
 
 #include "paged_decode.cuh"
 
 // Supported: bf16 q [B, Hkv * G, D]; bf16 pools whose (slot, KV head) rows are
 // rs elements apart (rs = D: separate K and V pools; rs = 2 * D: the packed
-// pool, v_pool = k_pool + D), D <= 256, any G; bf16 k_new, v_new
-// [B, Hkv, D]; int32 slot_mapping [B] (< 0: no write). Scratch as in
-// paged_attention.cu. Returns the CUDA error code of the launches.
+// pool, v_pool = k_pool + D), 1 <= D <= 256, any G; bf16 k_new, v_new
+// [B, Hkv, D]; int32 slot_mapping [B] (< 0: no write). Splits, partials and
+// tickets as in paged_attention.cu. Returns the CUDA error code of the launch.
 extern "C" int zt_paged_decode_attention_fused(
-    void* out, void* part_acc, void* part_ml, const void* q, void* k_pool, void* v_pool,
-    const void* k_new, const void* v_new, const void* slot_mapping, const void* page_tables,
-    const void* context_lens, int B, int Hkv, int G, int D, long long rs, long long N, int maxp,
-    int S, float scale, int window, int target_blocks, int max_splits, void* stream) {
+    void* out, void* part_acc, void* part_ml, void* tickets, const void* q, void* k_pool,
+    void* v_pool, const void* k_new, const void* v_new, const void* slot_mapping,
+    const void* page_tables, const void* context_lens, int B, int Hkv, int G, int D, long long rs,
+    long long N, int maxp, int S, float scale, int window, int splits, void* stream) {
   using zt_paged::bf16;
   const zt_paged::FusedRows fz{(const bf16*)k_new, (const bf16*)v_new,
                                (const int32_t*)slot_mapping, (bf16*)k_pool, (bf16*)v_pool};
   return zt_paged::dispatch<bf16, true>(
-      out, part_acc, part_ml, q, k_pool, v_pool, nullptr, nullptr, page_tables, context_lens,
-      fz, B, Hkv, G, D, rs, N, 0, maxp, S, scale, window, target_blocks, max_splits,
+      out, part_acc, part_ml, tickets, q, k_pool, v_pool, nullptr, nullptr, page_tables,
+      context_lens, fz, B, Hkv, G, D, rs, N, 0, maxp, S, scale, window, splits,
       (cudaStream_t)stream);
+}
+
+// Blocks of the head-dim-D kernel one SM holds at once. Returns the CUDA error code.
+extern "C" int zt_paged_decode_attention_fused_blocks_per_sm(int D, int* blocks) {
+  return zt_paged::blocks_per_sm<zt_paged::bf16, true>(D, blocks);
 }

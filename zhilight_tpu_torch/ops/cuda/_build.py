@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["SOURCES", "build_all", "library", "check", "build_logs"]
+__all__ = ["SOURCES", "build_all", "build_seconds", "library", "check", "build_logs"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
@@ -61,10 +61,15 @@ def _target(name: str) -> Tuple[Path, Path]:
     return src, _BUILD / f"{name}-{digest[:16]}.so"
 
 
+# seconds each library's nvcc took in the last build_all that compiled it
+build_seconds: Dict[str, float] = {}
+
+
 def build_all() -> float:
     """Compile every kernel library that is missing, all ``nvcc`` processes
-    started together. Returns the seconds spent (0 when all were built).
-    Raises RuntimeError with the compiler's output if any build fails."""
+    started together (each one's wall time into :data:`build_seconds`).
+    Returns the seconds spent (0 when all were built). Raises RuntimeError
+    with the compiler's output if any build fails."""
     with _lock:
         t0 = time.monotonic()
         todo = [(n, *_target(n)) for n in SOURCES]
@@ -76,19 +81,25 @@ def build_all() -> float:
         procs = []
         for name, src, so in todo:
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.Popen(
-                [nvcc, *_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            procs.append((name, proc, tmp, so))
+            log = so.with_suffix(".log")
+            with open(log, "w") as out:  # the compiler's output goes to the log
+                proc = subprocess.Popen([nvcc, *_FLAGS, "-o", str(tmp), str(src)],
+                                        stdout=out, stderr=subprocess.STDOUT)
+            procs.append((name, proc, tmp, so, log))
         errors = []
-        for name, proc, tmp, so in procs:
-            out, _ = proc.communicate()
-            so.with_suffix(".log").write_text(out)
-            if proc.returncode != 0:
-                errors.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
-            else:
-                os.replace(tmp, so)
+        running = list(procs)
+        while running:
+            for item in list(running):
+                name, proc, tmp, so, log = item
+                if proc.poll() is None:
+                    continue
+                running.remove(item)
+                build_seconds[name] = time.monotonic() - t0
+                if proc.returncode != 0:
+                    errors.append(f"{name}: nvcc exit {proc.returncode}\n{log.read_text()}")
+                else:
+                    os.replace(tmp, so)
+            time.sleep(0.05)
         if errors:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
         return time.monotonic() - t0

@@ -179,17 +179,18 @@ def _entry():
     return fn
 
 
-# the bf16 kernel's split-context plan (csrc/attn_headmajor.cu): 64-token
-# tiles, blocks of 16 query rows, at most 64 splits
+# the split-context plan of the decode kernels (csrc/decode_split.cuh:
+# attn_headmajor.cu, attn_headmajor_q.cu and the slot-major paged_decode.cuh):
+# 64-token tiles, blocks of 16 query rows, at most 64 splits
 _TILE, _ROWS, _MAX_SPLITS = 64, 16, 64
 BF16_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def decode_splits(B: int, Hkv: int, G: int, max_ctx: int, capacity: int) -> int:
     """How many blocks share the context of one (sequence, group of 16 query
-    rows) in the bf16 decode kernel: as many as let every block fit on the
-    card at once (``capacity`` blocks: one wave, since a block that waits for
-    a second wave doubles the time), no more than the 64-token tiles of the
+    rows) in a split-context decode kernel: as many as let every block fit on
+    the card at once (``capacity`` blocks: one wave, since a block that waits
+    for a second wave doubles the time), no more than the 64-token tiles of the
     longest context the page tables can address (``max_ctx``, from their
     shape: no device read), at least 1 and at most 64. The kernel cuts each
     sequence's own tiles into that many whole-tile runs and skips the empty
@@ -200,30 +201,36 @@ def decode_splits(B: int, Hkv: int, G: int, max_ctx: int, capacity: int) -> int:
 
 
 _CAPACITY: dict = {}
-# the occupancy entry of each head-major decode kernel, by pool dtype
-_OCCUPANCY = {torch.bfloat16: ("attn_headmajor", "zt_decode_attention_hm_blocks_per_sm"),
-              torch.int8: ("attn_headmajor_q", "zt_decode_attention_hm_q_blocks_per_sm")}
+# the occupancy entry of each split-context decode kernel, by library: the
+# head-major decodes (bf16, int8) and the slot-major ones
+# (ops/cuda/paged_attention.py: bf16, int8, fused)
+_OCCUPANCY = {"attn_headmajor": "zt_decode_attention_hm_blocks_per_sm",
+              "attn_headmajor_q": "zt_decode_attention_hm_q_blocks_per_sm",
+              "paged_attention": "zt_paged_decode_attention_blocks_per_sm",
+              "paged_attention_q": "zt_paged_decode_attention_q_blocks_per_sm",
+              "paged_attention_fused": "zt_paged_decode_attention_fused_blocks_per_sm"}
 
 
-def _capacity(device, D: int, pool_dtype=torch.bfloat16) -> int:
-    """Blocks of the head-dim-D kernel (over a ``pool_dtype`` pool) the card
-    holds at once (occupancy times SMs), asked once per device."""
-    cap = _CAPACITY.get((device, D, pool_dtype))
+def _capacity(device, D: int, lib: str) -> int:
+    """Blocks of library ``lib``'s head-dim-D decode kernel the card holds at
+    once (occupancy times SMs), asked once per device."""
+    cap = _CAPACITY.get((device, D, lib))
     if cap is None:
-        lib, name = _OCCUPANCY[pool_dtype]
-        fn = getattr(_build.library(lib), name)
+        fn = getattr(_build.library(lib), _OCCUPANCY[lib])
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
         n = ctypes.c_int(0)
         _build.check(fn(D, ctypes.byref(n)), f"{lib} occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        cap = _CAPACITY[(device, D, pool_dtype)] = max(n.value, 1) * sms
+        cap = _CAPACITY[(device, D, lib)] = max(n.value, 1) * sms
     return cap
 
 
 # per device: the kernels' int32 tickets, zero between launches (the kernel's
 # last block of each (sequence, head group) resets its own); grown, never
-# shrunk. One stream at a time uses them, as the engine runs decode; the bf16
-# and the int8 kernel share them.
+# shrunk. One stream at a time uses them, as the engine runs decode; every
+# split-context decode kernel shares them: the head-major bf16 and int8
+# kernels and the slot-major ones (ops/cuda/paged_attention.py), since each
+# launch leaves them at zero before the next on the same stream starts.
 _TICKETS: dict = {}
 
 
@@ -273,17 +280,25 @@ def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     return B, Hkv, G, D, N, page_tables.shape[1]
 
 
-def _split_scratch(q, B: int, Hkv: int, G: int, D: int, maxp: int, page_size: int, pool_dtype):
-    """The split count of a decode call and the kernel's split scratch:
-    partials, their (m, l) and the tickets, or three None for one split."""
-    splits = decode_splits(B, Hkv, G, maxp * page_size, _capacity(q.device, D, pool_dtype))
+def split_shapes(B: int, Hkv: int, G: int, D: int, splits: int):
+    """The split scratch of a decode launch with ``splits`` context splits:
+    the shapes of the fp32 partials ``[B, heads, splits, 16, D]`` and their
+    (m, l) ``[B, heads, splits, 2, 16]``, and the tickets it needs (one per
+    (sequence, group of 16 query rows): ``heads = Hkv * ceil(G / 16)``)."""
+    heads = Hkv * -(-G // _ROWS)
+    return (B, heads, splits, _ROWS, D), (B, heads, splits, 2, _ROWS), B * heads
+
+
+def _split_scratch(q, B: int, Hkv: int, G: int, D: int, maxp: int, page_size: int, lib: str):
+    """The split count of a decode call of library ``lib``'s kernel and its
+    split scratch: partials, their (m, l) and the tickets, or three None for
+    one split."""
+    splits = decode_splits(B, Hkv, G, maxp * page_size, _capacity(q.device, D, lib))
     if splits == 1:
         return splits, (None, None, None)
-    heads = Hkv * -(-G // _ROWS)
+    acc, ml, n = split_shapes(B, Hkv, G, D, splits)
     f32 = dict(dtype=torch.float32, device=q.device)
-    return splits, (torch.empty((B, heads, splits, _ROWS, D), **f32),
-                    torch.empty((B, heads, splits, 2, _ROWS), **f32),
-                    _tickets(q.device, B * heads))
+    return splits, (torch.empty(acc, **f32), torch.empty(ml, **f32), _tickets(q.device, n))
 
 
 def _ptrs(tensors):
@@ -295,7 +310,7 @@ def _launch_hm(what, q, kv_pool, page_tables, context_lens, page_size, scale, sl
     B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens,
                                       torch.bfloat16)
     result, ptrs = _outputs(q, Hkv, D, partial)
-    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, torch.bfloat16)
+    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, "attn_headmajor")
     err = _entry()(
         *ptrs, *_ptrs(scratch), q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
         context_lens.data_ptr(), B, Hkv, G, D, N, maxp, page_size, float(scale),
@@ -478,7 +493,7 @@ def _launch_hm_q(what, q, kv_pool, k_scales, v_scales, page_tables, context_lens
     B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens, torch.int8)
     check_scales(what, kv_pool, k_scales, v_scales)
     result, ptrs = _outputs(q, Hkv, D, partial)
-    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, torch.int8)
+    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, "attn_headmajor_q")
     err = _entry_q()(
         *ptrs, *_ptrs(scratch), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
         v_scales.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N,

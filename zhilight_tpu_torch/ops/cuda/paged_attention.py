@@ -11,6 +11,22 @@ are :func:`paged_decode_attention_plain` and
 :func:`paged_decode_attention_q_plain`. The wrappers take the plain versions
 only for CPU tensors; for CUDA tensors they launch the kernel or raise.
 
+The template is a split-context flash decode on tensor cores (``mma.sync``),
+one launch a layer, at any head_dim from 1 to 256 and any number of query
+heads per KV head: 64-token tiles gathered through the page table into a
+ring of ``cp.async`` stages, each row zero-padded to a multiple of 16
+columns. Each call cuts every context over as many blocks as fill the card
+once (``attn_headmajor.decode_splits`` with the kernel's own occupancy) and
+the last block of each (sequence, head group) merges the partials, drawing
+tickets from the per-device buffer that the head-major decodes share
+(``attn_headmajor._tickets``); the wrapper allocates the partials per call.
+Its bound is bytes: K and V rows read once. Nothing is rounded before the
+output: the probabilities (times the V scales over int8) go into P.V as two
+bf16 halves, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, and ``l`` sums the
+fp32 ``p``. What holds it back (the header of ``csrc/paged_decode.cuh``):
+every warp runs its copies, products and softmax in turn, and the split P.V
+doubles the second product.
+
 The pools may carry a leading unit dimension, ``[1, N, Hkv, D]``, as
 ``kvcache/paged.py`` holds them. The int8 scales are head-major
 ``[Hkv, >= N]`` (the reference keeps them ``[N, Hkv]``).
@@ -34,10 +50,13 @@ counterpart of ``paged_mla_decode_fused`` (:844); one TPU kernel,
 fused mode of ``csrc/mla_decode.cu``. ``context_lens`` count the current
 token, whose rows come from ``k_new`` / ``v_new`` (cast to the pool's dtype
 first) and never from the pool: pool tokens ``t < ctx - 1`` are attended (and
-``t >= ctx - sliding_window``). A frozen slot (``slot_mapping[b] < 0``) is not
-written but still attends to its new row, and an empty one (``ctx == 0``)
-gives its new V row and is not written either, as the TPU kernel does. Scores,
-probabilities and sums are fp32 and unrounded in every mode. The pools are
+``t >= ctx - sliding_window``). The kernel never reads row ``ctx - 1``: another
+block writes it during the launch. The new token's column is folded in by the
+block that writes the output, the splits' merge included. A frozen slot
+(``slot_mapping[b] < 0``) is not written but still attends to its new row,
+and an empty one (``ctx == 0``) gives its new V row and is not written
+either, as the TPU kernel does. Scores, probabilities and sums are fp32 and
+unrounded in every mode. The pools are
 written in place (at ``slot_mapping[b]``; the TPU kernel rewrites the slot's
 page, row ``(ctx - 1) % page_size``, the same row for tables that agree) and
 the output is returned.
@@ -52,7 +71,7 @@ import torch
 from ...kvcache.paged import gather_scales, slot_indices
 from ..attention import NEG_INF
 from . import _build
-from .attn_headmajor import _MLA_TARGET_BLOCKS, check_scales
+from .attn_headmajor import _MLA_TARGET_BLOCKS, _ptrs, _split_scratch, check_scales
 from .kv_write import _pool_2d
 
 __all__ = [
@@ -68,8 +87,6 @@ __all__ = [
 
 # the kernels' largest head dim (csrc/paged_decode.cuh DMAX)
 MAX_HEAD_DIM = 256
-# blocks the kernels aim to keep in flight: two per SM of an H100
-_TARGET_BLOCKS = 2 * 132
 
 
 def _pool3(pool: torch.Tensor) -> torch.Tensor:
@@ -137,15 +154,6 @@ def paged_decode_attention_q_plain(
     return _attend(q, k, v, context_lens, scale, sliding_window)
 
 
-def _max_splits(B: int, Hkv: int, max_ctx: int) -> int:
-    """The most context ranges the partial buffers hold: at least 128 tokens
-    a range, and no more than one query-row group a block needs to reach
-    ``_TARGET_BLOCKS``. The kernel picks the count within it from its own
-    groups (csrc/paged_decode.cuh ``dispatch``) and reads the real lengths;
-    a range without tokens writes an empty partial."""
-    return max(min(-(-_TARGET_BLOCKS // (B * Hkv)), -(-max_ctx // 128)), 1)
-
-
 def _entry(quant: bool):
     name = "paged_attention_q" if quant else "paged_attention"
     lib = _build.library(name)
@@ -154,8 +162,8 @@ def _entry(quant: bool):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         scales = [p, p] if quant else []
         stride = [ll] if quant else []
-        fn.argtypes = ([p, p, p, p, p, p] + scales + [p, p, i, i, i, i, ll] + stride
-                       + [i, i, ctypes.c_float, i, i, i, p])
+        fn.argtypes = ([p] * 7 + scales + [p, p, i, i, i, i, ll] + stride
+                       + [i, i, ctypes.c_float, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -189,19 +197,16 @@ def _launch(what, q, k_pages, v_pages, scales, page_tables, context_lens, page_s
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous and on one device")
     G = Hq // Hkv
-    max_splits = _max_splits(B, Hkv, maxp * page_size)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, Hq, max_splits, D) if max_splits > 1 else (1,), **f32)
-    part_ml = torch.empty((B, Hq, max_splits, 2) if max_splits > 1 else (1,), **f32)
+    lib = "paged_attention_q" if scales else "paged_attention"
+    splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, lib)
     out = torch.empty_like(q)
-    ptrs = [out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), q.data_ptr(),
-            kp.data_ptr(), vp.data_ptr()]
+    ptrs = [out.data_ptr(), *_ptrs(scratch), q.data_ptr(), kp.data_ptr(), vp.data_ptr()]
     if scales:
         ptrs += [scales[0].data_ptr(), scales[1].data_ptr()]
     stride = [scales[0].stride(0)] if scales else []
     err = _entry(bool(scales))(
         *ptrs, page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N, *stride,
-        maxp, page_size, float(scale), int(sliding_window), _TARGET_BLOCKS, max_splits,
+        maxp, page_size, float(scale), int(sliding_window), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
@@ -364,7 +369,7 @@ def _entry_fused():
     fn = _build.library("paged_attention_fused").zt_paged_decode_attention_fused
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p] * 11 + [i, i, i, i, ll, ll, i, i, ctypes.c_float, i, i, i, p])
+        fn.argtypes = [p] * 12 + [i, i, i, i, ll, ll, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -423,18 +428,15 @@ def _launch_fused(q, k_pages, v_pages, k_new, v_new, slot_mapping, page_tables, 
     _check_tables(what, B, slot_mapping, page_tables, context_lens)
     _check_devices(what, (q, kp, vp, kn, vn, slot_mapping, page_tables, context_lens))
     maxp = page_tables.shape[1]
-    max_splits = _max_splits(B, Hkv, maxp * page_size)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((B, Hq, max_splits, D) if max_splits > 1 else (1,), **f32)
-    part_ml = torch.empty((B, Hq, max_splits, 2) if max_splits > 1 else (1,), **f32)
+    splits, scratch = _split_scratch(q, B, Hkv, Hq // Hkv, D, maxp, page_size,
+                                     "paged_attention_fused")
     out = torch.empty_like(q)
     v_ptr = kp.data_ptr() + D * kp.element_size() if packed else vp.data_ptr()
     err = _entry_fused()(
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), q.data_ptr(), kp.data_ptr(),
-        v_ptr, kn.data_ptr(), vn.data_ptr(), slot_mapping.data_ptr(), page_tables.data_ptr(),
-        context_lens.data_ptr(), B, Hkv, Hq // Hkv, D, width, N, maxp, page_size, float(scale),
-        int(sliding_window), _TARGET_BLOCKS, max_splits,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), *_ptrs(scratch), q.data_ptr(), kp.data_ptr(), v_ptr, kn.data_ptr(),
+        vn.data_ptr(), slot_mapping.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(),
+        B, Hkv, Hq // Hkv, D, width, N, maxp, page_size, float(scale), int(sliding_window),
+        splits, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
     return out

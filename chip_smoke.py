@@ -49,11 +49,21 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            slot-major decode (bf16, int8, fused) is held at its split edges,
            at head_dim 192, 256 and odd ones, with V rows near 6 (outputs in
            [4, 8), where rounded probabilities would show) and over pools
-           holding NaN in every row no sequence attends to; with
-           ``--parent-csrc DIR`` the paged_attention.cu, paged_attention_q.cu
-           and paged_attention_fused.cu in DIR (an earlier tree's csrc) are
-           built apart with nvcc and timed beside this tree's in turns at
-           H2O-Danube-1.8B's and Qwen2.5-14B's heads, batch 8, context 3712;
+           holding NaN in every row no sequence attends to; the grouped int4
+           matmul is held with every expert occupied, one row an expert,
+           num_occ 0, m-tiles naming experts E and -1 and the down stack's
+           pad group, timed beside one torch._grouped_mm and one
+           torch.matmul per expert, and at its decode split counts; the
+           latent decode (rows 2b, 2bp and the fused latent mode) is held
+           at contexts 0 to 65, at its split edges, at 16 and 128 heads,
+           over latents holding NaN in every row no sequence attends to and
+           with V columns near 6 (2b against its twin, 2bp and the fused
+           mode against the fp32 plain output), and timed at other split
+           counts; with ``--parent-csrc DIR`` the quant_ragged.cu and
+           mla_decode.cu in DIR (an earlier tree's csrc) are built apart with
+           nvcc and timed beside this tree's in turns at DeepSeek-V2-Lite's
+           shapes (the grouped matmul's decode and chunk rows over both
+           stacks, the latent decode's three modes at batch 8, context 2816);
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -863,19 +873,20 @@ def parent_kernels(csrc: str):
     """Kernels of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc),
     built by nvcc with this tree's flags into a temporary directory (each
     ``.cu`` with the headers beside it) and driven through their own C
-    signatures, those of the slot-major decode before it merged its splits in
-    one launch (partials [B, Hq, max_splits, D] and [B, Hq, max_splits, 2], a
-    block target and a split cap): rows 10, 13 and 16. Returns {name: fn}:
-    decode(q, k, v, tables, ctx, S, scale), decode_q(q, k, v, ks, vs, tables,
-    ctx, S, scale), fused(q, k, v, k_new, v_new, slots, tables, ctx, S, scale),
-    over pools [1, N, Hkv, D] (fused: two pools, v not None)."""
+    signatures, those before this tree's redesign of rows 8 and 2b: the
+    grouped int4 matmul without split-K scratch, and the latent decode with
+    its separate merge kernel (partials [B, head tiles, splits, 16, 512] and
+    [.., 2, 16], ``ceil(264 / (B * head tiles))`` splits). Returns {name: fn}:
+    ragged(x, w_p, scales, zeros, tile_expert, num_occ), mla(q, pool, tables,
+    ctx, S, scale, partial) (partial: fp32 (m, l, acc)), mla_fused(q, pool,
+    new, slots, tables, ctx, S, scale), over latent pools [N, 576]."""
     import ctypes
     import tempfile
 
     from zhilight_tpu_torch.ops.cuda import _build
 
     out_dir = tempfile.mkdtemp(prefix="zt_parent_")
-    names = ("paged_attention", "paged_attention_q", "paged_attention_fused")
+    names = ("quant_ragged", "mla_decode")
     libs = {}
     t0 = time.monotonic()
     procs = [(name, subprocess.Popen(
@@ -889,107 +900,126 @@ def parent_kernels(csrc: str):
     print(f"kernels: parent's {', '.join(names)} built in {time.monotonic() - t0:.1f} s",
           flush=True)
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    dec = libs["paged_attention"].zt_paged_decode_attention
-    dec.argtypes = [p] * 8 + [i, i, i, i, ll, i, i, f, i, i, i, p]
-    dec_q = libs["paged_attention_q"].zt_paged_decode_attention_q
-    dec_q.argtypes = [p] * 10 + [i, i, i, i, ll, ll, i, i, f, i, i, i, p]
-    fus = libs["paged_attention_fused"].zt_paged_decode_attention_fused
-    fus.argtypes = [p] * 11 + [i, i, i, i, ll, ll, i, i, f, i, i, i, p]
+    rag = libs["quant_ragged"].zt_w4a16_ragged_matmul
+    rag.argtypes = [p] * 7 + [i] * 6 + [p]
+    dec = libs["mla_decode"].zt_mla_decode
+    dec.argtypes = [p] * 9 + [i, i, i, i, ll, i, i, i, f, i, p]
+    fus = libs["mla_decode"].zt_mla_decode_fused
+    fus.argtypes = [p] * 9 + [i, i, i, i, ll, i, i, i, f, i, p]
     stream = lambda: torch.cuda.current_stream().cuda_stream
-    target = 2 * 132  # the parent's _TARGET_BLOCKS
 
-    def scratch(q, Hkv, maxp, S):
-        """The parent's per-call partials (its _max_splits)."""
-        B, Hq, D = q.shape
-        n = max(min(-(-target // (B * Hkv)), -(-(maxp * S) // 128)), 1)
+    def ragged(x, w_p, scales, zeros, tile_expert, num_occ):
+        E, Kh, N = w_p.shape
+        tiles = tile_expert.shape[0]
+        out = torch.empty(x.shape[0], N, dtype=x.dtype, device=x.device)
+        _build.check(rag(out.data_ptr(), x.data_ptr(), w_p.data_ptr(), scales.data_ptr(),
+                         zeros.data_ptr(), tile_expert.data_ptr(), num_occ.data_ptr(), tiles,
+                         x.shape[0] // tiles, E, N, 2 * Kh, scales.shape[1], stream()),
+                     "parent ragged")
+        return out
+
+    def scratch(q):
+        """The parent's per-call partials (its _MLA_TARGET_BLOCKS = 264)."""
+        B, H = q.shape[:2]
+        ht = -(-H // 16)
+        n = max(-(-264 // (B * ht)), 1)
         f32 = dict(dtype=torch.float32, device=q.device)
-        return (n, torch.empty((B, Hq, n, D) if n > 1 else (1,), **f32),
-                torch.empty((B, Hq, n, 2) if n > 1 else (1,), **f32))
+        return (n, torch.empty((B, ht, n, 16, 512), **f32), torch.empty((B, ht, n, 2, 16), **f32))
 
-    def decode(q, k, v, tables, ctx, S, scale):
-        B, Hq, D = q.shape
-        N, Hkv = k.shape[1:3]
-        n, acc, ml = scratch(q, Hkv, tables.shape[1], S)
-        out = torch.empty_like(q)
-        _build.check(dec(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
-                         k.data_ptr(), v.data_ptr(), tables.data_ptr(), ctx.data_ptr(), B, Hkv,
-                         Hq // Hkv, D, N, tables.shape[1], S, scale, 0, target, n, stream()),
-                     "parent decode")
-        return out
+    def mla(q, pool, tables, ctx, S, scale, partial=False):
+        B, H, KD = q.shape
+        n, acc, ml = scratch(q)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        if partial:
+            m, l, o = torch.empty((B, H), **f32), torch.empty((B, H), **f32), torch.empty((B, H, 512), **f32)
+            ptrs, res = (o.data_ptr(), m.data_ptr(), l.data_ptr()), (m, l, o)
+        else:
+            res = torch.empty((B, H, 512), dtype=q.dtype, device=q.device)
+            ptrs = (res.data_ptr(), None, None)
+        _build.check(dec(*ptrs, acc.data_ptr(), ml.data_ptr(), q.data_ptr(), pool.data_ptr(),
+                         tables.data_ptr(), ctx.data_ptr(), B, H, KD, 512, pool.shape[0],
+                         pool.shape[1], tables.shape[1], S, scale, n, stream()),
+                     "parent latent decode")
+        return res
 
-    def decode_q(q, k, v, ks, vs, tables, ctx, S, scale):
-        B, Hq, D = q.shape
-        N, Hkv = k.shape[1:3]
-        n, acc, ml = scratch(q, Hkv, tables.shape[1], S)
-        out = torch.empty_like(q)
-        _build.check(dec_q(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
-                           k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-                           tables.data_ptr(), ctx.data_ptr(), B, Hkv, Hq // Hkv, D, N,
-                           ks.stride(0), tables.shape[1], S, scale, 0, target, n, stream()),
-                     "parent int8 decode")
-        return out
-
-    def fused(q, k, v, k_new, v_new, slots, tables, ctx, S, scale):
-        B, Hq, D = q.shape
-        N, Hkv = k.shape[1:3]
-        n, acc, ml = scratch(q, Hkv, tables.shape[1], S)
-        out = torch.empty_like(q)
+    def mla_fused(q, pool, new, slots, tables, ctx, S, scale):
+        B, H, KD = q.shape
+        n, acc, ml = scratch(q)
+        out = torch.empty((B, H, 512), dtype=q.dtype, device=q.device)
         _build.check(fus(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
-                         k.data_ptr(), v.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                         slots.data_ptr(), tables.data_ptr(), ctx.data_ptr(), B, Hkv, Hq // Hkv,
-                         D, D, N, tables.shape[1], S, scale, 0, target, n, stream()),
-                     "parent fused decode")
+                         pool.data_ptr(), new.data_ptr(), slots.data_ptr(), tables.data_ptr(),
+                         ctx.data_ptr(), B, H, KD, 512, pool.shape[0], pool.shape[1],
+                         tables.shape[1], S, scale, n, stream()),
+                     "parent fused latent decode")
         return out
 
-    return dict(decode=decode, decode_q=decode_q, fused=fused)
+    return dict(ragged=ragged, mla=mla, mla_fused=mla_fused)
 
 
 def compare_parent(rng, csrc: str) -> None:
-    """Rows 10, 13 and 16 of an earlier tree against this tree's, in turns
-    (parent, this tree, this tree, parent) on the same inputs, device time by
-    the same ``time_ms``: the slot-major decode over bf16 and int8 pools and
-    the fused write + attend (two pools) at H2O-Danube-1.8B's heads and at
-    Qwen2.5-14B's, batch 8, context 3712. Each pair is also held against each
-    other (ATTN_TOL; the fused pair's pools bit-equal). One JSON line."""
-    from zhilight_tpu_torch.kvcache.paged import _quantize_rows
+    """Rows 8, 2b, 2bp and the fused latent mode of an earlier tree against
+    this tree's, in turns (parent, this tree, this tree, parent) on the same
+    inputs, device time by the same ``time_ms``: the grouped int4 matmul at
+    DeepSeek-V2-Lite's gate/up and down stacks (64 experts; down K 1408 padded
+    to 1536), a decode step's 48 routed rows (TM 8) and a 512-token chunk's
+    3072 (TM 64), with a cold L2 as in the kernels phase; the latent decode in
+    its three modes at batch 8, context 2816, 16 heads. Each pair is also held
+    against each other (the matmul within W4A16_TOL of the largest output,
+    the attention within ATTN_TOL, the partials by the partial-mode error,
+    the fused pools bit-equal). One JSON line."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
 
     parent = parent_kernels(csrc)
     res = {}
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    cold = _turns(res, flush=scratch.zero_)
+    for wname, (K, N, pad) in DEEPSEEK_STACKS.items():
+        w_p, s, z = _expert_stack(rng, K, N, pad)
+        for cname, R_, TM, seed in (("decode, 48 rows", 48, 8, 1), ("chunk, 3072 rows", 3072, 64, 2)):
+            x, _, tile_expert, num_occ = _ragged_rows(rng, _routed(R_, seed), TM, K, pad)
+            args = (x, w_p, s, z, tile_expert, num_occ)
+            a, b = parent["ragged"](*args), R.w4a16_ragged_matmul(*args)
+            live = torch.arange(x.shape[0], device="cuda") < num_occ * TM
+            e = ((a[live].float() - b[live].float()).abs().max() / b[live].float().abs().max()).item()
+            if not e <= W4A16_TOL:
+                raise AssertionError(f"parent vs this tree, row 8 {wname} {cname}: {e}")
+            cold(f"row 8, DeepSeek-V2-Lite {wname}, {cname}", lambda: parent["ragged"](*args),
+                 lambda: R.w4a16_ragged_matmul(*args))
+        del w_p, s, z
+    del scratch
+
     turns = _turns(res)
-    S, B, CTX = 16, 8, 3712
-    for model, heads in (("H2O-Danube-1.8B", DANUBE_HEADS), ("Qwen2.5-14B heads", QWEN_HEADS)):
-        Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
-        maxp = CTX // S + 2
-        N = B * maxp * S
-        tables = _dev(np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32))
-        ctx = _dev(np.full(B, CTX, np.int32))
-        k, v = _randn(rng, N, Hkv, D), _randn(rng, N, Hkv, D)
-        q = _randn(rng, B, Hq, D)
-        scale = 1.0 / np.sqrt(D)
-        (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
-        ks, vs = k_s.t().contiguous(), v_s.t().contiguous()
-        bf = (q, k[None], v[None], tables, ctx, S, scale)
-        i8 = (q, k_q[None], v_q[None], ks, vs, tables, ctx, S, scale)
-        k_new, v_new = _randn(rng, B, Hkv, D), _randn(rng, B, Hkv, D)
-        slots = _dev((np.arange(B) * maxp + (CTX - 1) // S) * S + (CTX - 1) % S).to(torch.int32)
-        fz = (q, k[None], v[None], k_new, v_new, slots, tables, ctx, S, scale)
-        for what, old, new, args in (
-                ("10", parent["decode"], PA.paged_decode_attention, bf),
-                ("13", parent["decode_q"], PA.paged_decode_attention_q, i8)):
-            e = (old(*args).float() - new(*args).float()).abs().max().item()
-            if not e <= ATTN_TOL:
-                raise AssertionError(f"parent vs this tree, row {what} {model}: {e}")
-            turns(f"row {what}, {model} batch 8, context 3712", lambda: old(*args),
-                  lambda: new(*args))
-        pools = [[p.clone() for p in (k, v)] for _ in range(2)]
-        a = parent["fused"](q, pools[0][0][None], pools[0][1][None], *fz[3:])
-        b = PA.paged_decode_attention_fused(q, pools[1][0][None], pools[1][1][None], *fz[3:])
-        e = (a.float() - b.float()).abs().max().item()
-        if not (e <= ATTN_TOL and all(torch.equal(x, y) for x, y in zip(*pools))):
-            raise AssertionError(f"parent vs this tree, row 16 {model}: {e} or pools differ")
-        turns(f"row 16, {model} batch 8, context 3712", lambda: parent["fused"](*fz),
-              lambda: PA.paged_decode_attention_fused(*fz))
+    S, B, CTX, H = 16, 8, 2816, 16
+    scale = 1.0 / np.sqrt(192)
+    maxp = 3072 // S
+    tables = _dev(np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32))
+    ctx = _dev(np.full(B, CTX, np.int32))
+    pool, q, new = _randn(rng, B * maxp * S, 576), _randn(rng, B, H, 576), _randn(rng, B, 576)
+    args = (q, pool, tables, ctx, S, scale)
+    e = (parent["mla"](*args).float() - A.paged_mla_decode(*args, v_dim=512).float()).abs().max().item()
+    if not e <= ATTN_TOL:
+        raise AssertionError(f"parent vs this tree, row 2b: {e}")
+    turns("row 2b, DeepSeek-V2-Lite batch 8, context 2816, 16 heads",
+          lambda: parent["mla"](*args), lambda: A.paged_mla_decode(*args, v_dim=512))
+    e = _partial_err(parent["mla"](*args, partial=True),
+                     A.paged_mla_decode_partial(*args, v_dim=512), np.full(B, CTX))
+    if not e <= ATTN_TOL:
+        raise AssertionError(f"parent vs this tree, row 2bp: {e}")
+    turns("row 2bp, DeepSeek-V2-Lite batch 8, context 2816, 16 heads",
+          lambda: parent["mla"](*args, partial=True),
+          lambda: A.paged_mla_decode_partial(*args, v_dim=512))
+    slots = (tables[:, (CTX - 1) // S] * S + (CTX - 1) % S).to(torch.int32)
+    pools = [pool.clone() for _ in range(2)]
+    a = parent["mla_fused"](q, pools[0], new, slots, tables, ctx, S, scale)
+    b = PA.paged_mla_decode_fused(q, pools[1], new, slots, tables, ctx, S, scale, 512)
+    e = (a.float() - b.float()).abs().max().item()
+    if not (e <= ATTN_TOL and torch.equal(*pools)):
+        raise AssertionError(f"parent vs this tree, fused latent: {e} or pools differ")
+    fargs = (q, pool, new, slots, tables, ctx, S, scale)
+    turns("row 16 latent, DeepSeek-V2-Lite batch 8, context 2816, 16 heads",
+          lambda: parent["mla_fused"](*fargs), lambda: PA.paged_mla_decode_fused(*fargs, 512))
     print(json.dumps({"parent_compare": res}), flush=True)
 
 
@@ -1370,14 +1400,58 @@ def kernels_fp8(rec: dict, rng) -> None:
     _record(rec, "fp8_block_matmul", abs_err, "Qwen3-8B gate/up_proj (K 4096, N 12288), M 8", shapes)
 
 
+# DeepSeek-V2-Lite's routed expert stacks: (K, N, zero-scale pad groups at
+# the end of K); the loader pads the down projection's K 1408 to 1536
+DEEPSEEK_STACKS = {"gate/up (K 2048, N 1408)": (2048, 1408, 0), "down (K 1536, N 2048)": (1536, 2048, 1)}
+EXPERTS, EXPERT_GS = 64, 128
+
+
+def _expert_stack(rng, K, N, pad_groups=0):
+    """A planar int4 stack of EXPERTS experts, group EXPERT_GS, its last
+    ``pad_groups`` groups with zero scales (the loader's padding)."""
+    from zhilight_tpu_torch.ops.quant import pack_expert_int4
+
+    E, gs = EXPERTS, EXPERT_GS
+    q4 = _dev(rng.integers(0, 16, (E, K, N)).astype(np.int8))
+    s = _dev((rng.random((E, K // gs, N)) * 0.004 + 0.001).astype(np.float32))
+    z = _dev(rng.integers(1, 16, (E, K // gs, N)).astype(np.float32))
+    if pad_groups:
+        s[:, -pad_groups:] = 0
+    return pack_expert_int4(q4), s, z
+
+
+def _routed(R_, seed):
+    """R_ / 6 tokens' top-6 experts, drawn without replacement per token;
+    expert 1 gets no rows."""
+    g = np.random.default_rng(seed)
+    flat = np.concatenate([g.permutation(EXPERTS - 1)[:6] for _ in range(R_ // 6)])
+    return np.where(flat >= 1, flat + 1, flat)
+
+
+def _ragged_rows(rng, flat, TM, K, pad=0):
+    """Rows routed to the experts ``flat`` in ``ragged_layout``'s order (E + 1
+    groups, the last an overflow bucket, as models/moe.py lays them out):
+    x [Mp, K] bf16, zero in the alignment padding and the pad groups'
+    columns; and dest, tile_expert, num_occ."""
+    from zhilight_tpu_torch.ops.quant import ragged_layout
+
+    _, dest, tile_expert, num_occ, mp = ragged_layout(_dev(np.asarray(flat).astype(np.int32)),
+                                                      EXPERTS + 1, TM, occ_experts=EXPERTS)
+    x = torch.zeros(mp, K, dtype=torch.bfloat16, device="cuda")
+    x[dest] = _randn(rng, len(flat), K)
+    if pad:
+        x[:, K - pad * EXPERT_GS:] = 0
+    return x, dest, tile_expert, num_occ
+
+
 def kernels_deepseek(rec: dict, rng) -> None:
     """The three kernels of the DeepSeek-V2-Lite path at its shapes (16 heads,
     latent rows of 576 = 512 + 64 bf16, 64 experts of 2048 x 1408, top 6, group
-    128): each against its plain version, then timed."""
+    128): each against its plain version (the latent decode also against its
+    twin, and at its edges: check_latent_edges), then timed (the latent
+    decode also at other split counts; the grouped matmul: kernels_ragged)."""
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
-    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
-    from zhilight_tpu_torch.ops.quant import dequant_expert_int4, pack_expert_int4, ragged_layout
 
     F, S, X, VD, H = torch.nn.functional, 16, 576, 512, 16
     scale = 1.0 / np.sqrt(192)
@@ -1428,10 +1502,11 @@ def kernels_deepseek(rec: dict, rng) -> None:
         got = A.paged_mla_decode(*args, v_dim=VD)
         want = A.paged_mla_decode_plain(*args, v_dim=VD)
         e = (got.float() - want.float()).abs().max().item()
-        print(f"kernels: mla decode B={len(ctx)} H={H} ctx={ctx.tolist()} max_abs_err={e:.3e}",
-              flush=True)
-        if not np.isfinite(e) or e > ATTN_TOL:
-            raise AssertionError(f"MLA decode ctx {ctx}: max abs err {e} > {ATTN_TOL}")
+        e_twin = (got.float() - A.paged_mla_decode_twin(*args, VD).float()).abs().max().item()
+        print(f"kernels: mla decode B={len(ctx)} H={H} ctx={ctx.tolist()} max_abs_err={e:.3e} "
+              f"(twin {e_twin:.3e})", flush=True)
+        if not (np.isfinite(e) and e <= ATTN_TOL and e_twin <= ATTN_TOL):
+            raise AssertionError(f"MLA decode ctx {ctx}: max abs err {e} (twin {e_twin}) > {ATTN_TOL}")
         if got[torch.from_numpy(ctx == 0)].any():
             raise AssertionError("MLA decode: an empty slot is not zero")
         err = max(err, e)
@@ -1455,79 +1530,244 @@ def kernels_deepseek(rec: dict, rng) -> None:
         bound_ms=t_b, bound_by=by,
     )})
 
+    check_latent_edges(rng)
+    # the split count of the normal mode at the timed shape, against others
+    # (the host's plan: one wave; "sweep:" lines)
+    times = []
+    for n in (1, 2, 4, 8, 16):
+        times.append(f"{n}:{time_ms(lambda: A._launch_mla('sweep', *args, VD, False, n)):.4f}")
+    print(f"sweep: paged_mla_decode {label} splits:ms {' '.join(times)} (plan: "
+          f"{A.mla_plan(q.device, B, H, maxp * S)}; clusters the card holds at once, by size: "
+          f"{A._MLA_CLUSTERS[q.device]})", flush=True)
+
     # -- w4a16_ragged_matmul ----------------------------------------------------
-    E, gs = 64, 128
+    kernels_ragged(rec, rng)
 
-    def stack(K, N, pad_groups=0):
-        q4 = _dev(rng.integers(0, 16, (E, K, N)).astype(np.int8))
-        s = _dev((rng.random((E, K // gs, N)) * 0.004 + 0.001).astype(np.float32))
-        z = _dev(rng.integers(1, 16, (E, K // gs, N)).astype(np.float32))
-        if pad_groups:  # the loader's zero-scale pad groups (K 1408 -> 1536)
-            s[:, -pad_groups:] = 0
-        return pack_expert_int4(q4), s, z
 
-    def layout(flat, TM):
-        _, dest, tile_expert, num_occ, mp = ragged_layout(_dev(flat.astype(np.int32)), E + 1, TM,
-                                                          occ_experts=E)
-        return dest, tile_expert, num_occ, mp
+def kernels_ragged(rec: dict, rng) -> None:
+    """The grouped int4 matmul at DeepSeek-V2-Lite's stacks against its plain
+    version: a decode step's 48 rows (TM 8), a chunk's 3072 (TM 64), 5 rows
+    over 64 experts, every expert occupied at TM 8 (128 rows), one row per
+    expert over all 64, num_occ 0 (nothing written), an m-tile naming expert
+    E (the overflow bucket's id: the kernel clamps it to E - 1) and -1, the
+    down stack's zero-scale pad group, and a repeated split-K call to the
+    same bits; then timed with a cold L2 beside one torch.matmul per routed
+    expert and one torch._grouped_mm over the expert-sorted rows (weights
+    dequantized beforehand), and at the decode split counts it takes."""
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
+    from zhilight_tpu_torch.ops.quant import dequant_expert_int4
 
-    def routed(R_, seed):
-        """R_ / 6 tokens' top-6 experts, drawn without replacement per token;
-        expert 1 gets no rows."""
-        g = np.random.default_rng(seed)
-        flat = np.concatenate([g.permutation(E - 1)[:6] for _ in range(R_ // 6)])
-        return np.where(flat >= 1, flat + 1, flat)
-
-    stacks = {"gate/up (K 2048, N 1408)": (2048, 1408, 0), "down (K 1536, N 2048)": (1536, 2048, 1)}
+    E = EXPERTS
     scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     rel_err, abs_err, shapes = 0.0, 0.0, {}
-    for wname, (K, N, pad) in stacks.items():
-        w_p, s, z = stack(K, N, pad)
-        wd = dequant_expert_int4(w_p, s, z, torch.bfloat16)  # for the library call
-        cases = (("decode, 48 rows", routed(48, 1), 8), ("chunk, 3072 rows", routed(3072, 2), 64),
-                 ("5 rows over 64 experts", np.array([63, 0, 17, 63, 40]), 8))
+
+    def check(what, got, want):
+        nonlocal rel_err, abs_err
+        diff = (got.float() - want.float()).abs().max().item()
+        e = diff / want.float().abs().max().item()
+        print(f"kernels: w4a16_ragged {what}: max rel err {e:.3e}", flush=True)
+        if not (torch.isfinite(got).all() and e <= W4A16_TOL):
+            raise AssertionError(f"w4a16_ragged {what}: max rel err {e} > {W4A16_TOL}")
+        rel_err, abs_err = max(rel_err, e), max(abs_err, diff)
+
+    for wname, (K, N, pad) in DEEPSEEK_STACKS.items():
+        w_p, s, z = _expert_stack(rng, K, N, pad)
+        wd = dequant_expert_int4(w_p, s, z, torch.bfloat16)  # for the library calls
+        every = np.concatenate([np.random.default_rng(3).permutation(E) for _ in range(2)])
+        cases = (("decode, 48 rows", _routed(48, 1), 8), ("chunk, 3072 rows", _routed(3072, 2), 64),
+                 ("5 rows over 64 experts", np.array([63, 0, 17, 63, 40]), 8),
+                 ("every expert, 128 rows", every, 8), ("one row an expert", np.arange(E), 8))
         for cname, flat, TM in cases:
-            dest, tile_expert, num_occ, mp = layout(flat, TM)
-            x = torch.zeros(mp, K, dtype=torch.bfloat16, device="cuda")
-            x[dest] = _randn(rng, len(flat), K)
-            if pad:
-                x[:, K - pad * gs :] = 0
-            got = R.w4a16_ragged_matmul(x, w_p, s, z, tile_expert, num_occ)[dest].float()
-            want = R.w4a16_ragged_matmul_plain(x, w_p, s, z, tile_expert, num_occ)[dest].float()
-            diff = (got - want).abs().max().item()
-            e = diff / want.abs().max().item()
-            print(f"kernels: w4a16_ragged {wname} {cname} TM={TM}: max rel err {e:.3e}", flush=True)
-            if not (torch.isfinite(got).all() and e <= W4A16_TOL):
-                raise AssertionError(f"w4a16_ragged {wname} {cname}: max rel err {e} > {W4A16_TOL}")
-            rel_err, abs_err = max(rel_err, e), max(abs_err, diff)
-            if len(flat) < 48:
+            x, dest, tile_expert, num_occ = _ragged_rows(rng, flat, TM, K, pad)
+            args = (x, w_p, s, z, tile_expert, num_occ)
+            got = R.w4a16_ragged_matmul(*args)
+            check(f"{wname} {cname} TM={TM}", got[dest], R.w4a16_ragged_matmul_plain(*args)[dest])
+            live = slice(0, int(num_occ[0]) * TM)  # rows past num_occ are not written
+            if TM == 8 and not torch.equal(got[live], R.w4a16_ragged_matmul(*args)[live]):
+                raise AssertionError(f"w4a16_ragged {wname} {cname}: a repeated call differs")
+            if len(flat) not in (48, 3072):
                 continue
             # timed with a cold L2, as a decode step finds the experts' weights
             experts, counts = np.unique(flat, return_counts=True)
             R_ = len(flat)
-            t_b, by = bound(len(experts) * (K * N // 2 + 8 * (K // gs) * N) + 2 * R_ * (K + N),
-                            2 * R_ * K * N)
+            t_b, by = bound(len(experts) * (K * N // 2 + 8 * (K // EXPERT_GS) * N)
+                            + 2 * R_ * (K + N), 2 * R_ * K * N)
             xs = x[dest]  # the rows, sorted by expert
             groups = list(zip(experts.tolist(), np.cumsum(counts) - counts, np.cumsum(counts)))
+            ends = _dev(np.cumsum(np.bincount(flat, minlength=E)).astype(np.int32))
             out = torch.empty(R_, N, dtype=torch.bfloat16, device="cuda")
 
-            def library():  # one torch.matmul per routed expert, weights dequantized beforehand
+            def loop():  # one torch.matmul per routed expert
                 for ex, a, b in groups:
                     torch.matmul(xs[a:b], wd[ex], out=out[a:b])
 
-            shapes[f"DeepSeek-V2-Lite {wname}, {cname} over {len(experts)} experts"] = dict(
-                ms=time_ms(lambda: R.w4a16_ragged_matmul(x, w_p, s, z, tile_expert, num_occ),
-                           flush=scratch.zero_),
-                plain_ms=time_ms(lambda: R.w4a16_ragged_matmul_plain(x, w_p, s, z, tile_expert,
-                                                                     num_occ), reps=5, flush=scratch.zero_),
-                library_ms=time_ms(library, flush=scratch.zero_),
+            grouped = lambda: torch._grouped_mm(xs, wd, offs=ends)
+            e = ((grouped().float() - got[dest].float()).abs().max()
+                 / got[dest].float().abs().max()).item()
+            if not e <= W4A16_TOL:  # the library call computes the same function
+                raise AssertionError(f"torch._grouped_mm {wname} {cname}: {e} from the kernel")
+            label = f"DeepSeek-V2-Lite {wname}, {cname} over {len(experts)} experts"
+            shapes[label] = dict(
+                ms=time_ms(lambda: R.w4a16_ragged_matmul(*args), flush=scratch.zero_),
+                plain_ms=time_ms(lambda: R.w4a16_ragged_matmul_plain(*args), reps=5,
+                                 flush=scratch.zero_),
+                library_ms=time_ms(grouped, flush=scratch.zero_),
+                library_loop_ms=time_ms(loop, flush=scratch.zero_),
                 bound_ms=t_b, bound_by=by,
             )
+            print(f"kernels: w4a16_ragged {label}: torch._grouped_mm "
+                  f"{shapes[label]['library_ms']:.4f} ms, one torch.matmul per expert "
+                  f"{shapes[label]['library_loop_ms']:.4f} ms", flush=True)
+            if TM == 8:
+                key = (tile_expert.shape[0], TM, N, K, E)
+                times = []
+                for n in (1, 2, 3, 4, 6, 8, 12, 16):
+                    stages = K // 2 // R.STAGE_ROWS[0]
+                    per = -(-stages // n)
+                    if -(-stages // per) != n or per * R.STAGE_ROWS[0] > R.DECODE_ROWS:
+                        continue
+                    o = torch.empty_like(got)
+                    t = time_ms(lambda: R._run(*args, o, (0, n)), flush=scratch.zero_)
+                    times.append(f"{n}:{t:.4f}")
+                dev = R._DEVICES[x.device]
+                print(f"sweep: w4a16_ragged {label} splits:ms {' '.join(times)} "
+                      f"(plan {dev.plans[key]})", flush=True)
+        # num_occ 0: nothing is written; an m-tile naming expert E or -1 takes
+        # expert E - 1 or 0
+        x, dest, tile_expert, num_occ = _ragged_rows(rng, _routed(48, 4), 8, K, pad)
+        out = torch.full((x.shape[0], N), float("nan"), dtype=torch.bfloat16, device="cuda")
+        R._run(x, w_p, s, z, tile_expert, torch.zeros_like(num_occ), out)
+        torch.cuda.synchronize()
+        if not out.isnan().all():
+            raise AssertionError(f"w4a16_ragged {wname}: num_occ 0 wrote rows")
+        named = tile_expert.clone()
+        named[0], named[1] = E, -1
+        clamped = named.clamp(0, E - 1)
+        live = slice(0, 2 * 8)
+        check(f"{wname} m-tiles naming experts {E} and -1",
+              R.w4a16_ragged_matmul(x, w_p, s, z, named, num_occ)[live],
+              R.w4a16_ragged_matmul_plain(x, w_p, s, z, clamped, num_occ)[live])
         del w_p, s, z, wd
     del scratch
     print(f"kernels: w4a16_ragged over every case max rel err {rel_err:.3e}, max abs err "
           f"{abs_err:.3e}", flush=True)
     _record(rec, "w4a16_ragged_matmul", abs_err, list(shapes)[0], shapes)
+
+
+def check_latent_edges(rng) -> None:
+    """The latent decode's three modes (rows 2b, 2bp and the fused latent
+    mode) at batch 8 over contexts 0, 1, 15, 16, 64, 65, at the split edges
+    of this card's split count (runs of 16 and 64 tokens a split, one token
+    past) and up to 2816, at 16 heads (DeepSeek-V2-Lite's) and 128
+    (DeepSeek-V2's), each over unit-variance latents ("plain": against the
+    plain version, and 2b also against its twin), latents holding NaN in
+    every row no sequence attends to (and, fused, at the written slot) and
+    latents whose V columns are near 6 ("v6": outputs in [4, 8), where one
+    bf16 ulp is above ATTN_TOL; 2b against its twin's fp32 output, 2bp and
+    the fused mode against the plain version's); the fused mode's written
+    rows bit-exact. The twin here rounds p against the running max the kernel
+    keeps at its split count (``splits``). On V near 6 the kernel is also held
+    against the one-max twin (the one the CPU tests hold to the Pallas kernel):
+    each twin rounds every p within 2^-9 of itself, and with V positive that
+    moves an output by at most 2^-9 of it, so the two twins are held within
+    2^-8 of the output's size (as tests/test_torch_mla.py holds them on the
+    CPU) and the kernel within ATTN_TOL plus that of the one-max twin (on the
+    other latents within ATTN_TOL)."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+
+    S, X, VD, B = 16, 576, 512, 8
+    scale = 1.0 / np.sqrt(192)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sp = A.mla_plan(dev, B, 16, 2816)
+    edges = ([0, 1, 15, 16, 64, 65, 16 * sp, 16 * sp + 1],
+             [2816, min(64 * sp, 2815), min(64 * sp + 1, 2816), 17, 63, 128, 0, 2815])
+    err = {"2b": 0.0, "2b one-max": 0.0, "twins": 0.0, "2bp": 0.0, "fused": 0.0}
+    size = 0.0  # the largest V-near-6 output
+
+    def hold(mode, what, e, limit=ATTN_TOL):
+        if not e <= limit:
+            raise AssertionError(f"latent {mode} {what}: error {e} > {limit}")
+        err[mode] = max(err[mode], e)
+
+    for H in (16, 128):
+        for ctx in edges:
+            ctx = np.array(ctx, np.int32)
+            tables, npages = _paged(rng, ctx, S)
+            td, cd = _dev(tables), _dev(ctx)
+            live = torch.from_numpy(ctx > 0).cuda()
+            n_split = A.mla_plan(dev, B, H, tables.shape[1] * S)  # the kernel's plan
+            for kind in ("plain", "nan", "v6"):
+                what = f"H={H} ctx={ctx.tolist()} ({kind})"
+                pool, q, new = _randn(rng, npages * S, X), _randn(rng, B, H, X), _randn(rng, B, X)
+                if kind == "v6":
+                    pool[:, :VD] = _v6(rng, npages * S, VD)
+                    new[:, :VD] = _v6(rng, B, VD)
+                qp = q.float() if kind == "v6" else q  # fp32 outputs from the plain versions
+                used = pool
+                if kind == "nan":
+                    used = torch.full_like(pool, float("nan"))
+                    keep = _read_slots(tables, ctx, 0)
+                    used[keep] = pool[keep]
+                # row 2b
+                got = A.paged_mla_decode(q, used, td, cd, S, scale, v_dim=VD)
+                # the twin at the kernel's split count: p rounded against the same running max
+                twin = A.paged_mla_decode_twin(qp, pool, td, cd, S, scale, VD, n_split)
+                if not torch.isfinite(got).all() or got[~live].any():
+                    raise AssertionError(f"latent 2b {what}: non-finite, or an empty slot not zero")
+                e = (got.float() - twin.float()).abs().max().item()
+                one_max = A.paged_mla_decode_twin(qp, pool, td, cd, S, scale, VD)
+                rounding = 0.0
+                if kind == "v6":
+                    if not (twin[live].abs().min() >= 4 and twin.abs().max() < 8):
+                        raise AssertionError(f"latent 2b {what}: outputs outside [4, 8)")
+                    rounding = 2.0 ** -8 * one_max.abs().max().item()
+                    size = max(size, one_max.abs().max().item())
+                    hold("twins", what, (twin.float() - one_max.float()).abs().max().item(),
+                         rounding)
+                hold("2b one-max", what, (got.float() - one_max.float()).abs().max().item(),
+                     ATTN_TOL + rounding)
+                if kind != "v6":
+                    e = max(e, (got.float() - A.paged_mla_decode_plain(q, pool, td, cd, S, scale, VD)
+                                .float()).abs().max().item())
+                hold("2b", what, e)
+                # row 2bp
+                got = A.paged_mla_decode_partial(q, used, td, cd, S, scale, VD)
+                want = A.paged_mla_decode_partial_plain(q, pool, td, cd, S, scale, VD)
+                e = _partial_err(got, want, ctx)
+                if kind == "v6":
+                    e = max(e, (got[2] / got[1].clamp_min(1e-20)[..., None]
+                                - want[2] / want[1].clamp_min(1e-20)[..., None])[live].abs().max().item())
+                hold("2bp", what, e)
+                # the fused mode: ctx counts the new token, written at row ctx - 1
+                # (slot 3 frozen), never read
+                c1 = np.maximum(ctx - 1, 0)
+                slots = np.where(ctx >= 1, tables[np.arange(B), c1 // S] * S + c1 % S, -1)
+                slots[3] = -1
+                slots = _dev(slots.astype(np.int32))
+                fk, fp = used.clone(), pool.clone()
+                if kind == "nan":
+                    fk = torch.full_like(pool, float("nan"))
+                    keep = _read_slots(tables, ctx, 0, fused=True)
+                    fk[keep] = pool[keep]
+                tail = (new, slots, td, cd, S, scale, VD)
+                got = PA.paged_mla_decode_fused(q, fk, *tail)
+                want = PA.paged_mla_decode_fused_plain(qp, fp, *tail)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"latent fused {what}: non-finite output")
+                wrote = (slots >= 0) & (cd >= 1)
+                if not (torch.equal(fk[slots[wrote].long()], new[wrote])
+                        and (kind == "nan" or torch.equal(fk, fp))):
+                    raise AssertionError(f"latent fused {what}: written rows differ")
+                hold("fused", what, (got.float() - want.float()).abs().max().item())
+            print(f"kernels: latent decode H={H} ctx={ctx.tolist()} ({sp} splits at 16 heads): "
+                  f"plain, NaN and V near 6 latents; max err 2b {err['2b']:.3e}, 2bp "
+                  f"{err['2bp']:.3e}, fused {err['fused']:.3e}; 2b against the one-max twin "
+                  f"{err['2b one-max']:.3e} (limit {ATTN_TOL}, on V near 6 plus 2^-8 of the "
+                  f"output's size, up to {size:.4f}); on V near 6 the twin at the kernel's "
+                  f"splits against the one-max twin {err['twins']:.3e} (limit 2^-8 of the size)",
+                  flush=True)
 
 
 def _v6(rng, *shape):
@@ -2653,13 +2893,31 @@ def fused_path(label: str, base, engine_config, rec: dict, args, lens=SERVE_LENS
     release_pool(llm)
 
 
+def _unrounded_latent_decode(q_eff, latent_pool, page_tables, context_lens, page_size, scale,
+                             v_dim, emit_partial=False):
+    """The latent decode with p not rounded: the partial-mode kernel's (m, l,
+    acc) normalized, zero for an empty slot (l = 0, acc = 0)."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+
+    assert not emit_partial
+    _, l, acc = A.paged_mla_decode_partial(q_eff, latent_pool, page_tables, context_lens,
+                                           page_size, scale, v_dim)
+    return (acc / l.clamp_min(1e-20)[..., None]).to(q_eff.dtype)
+
+
 def fused_check(label: str, ex, prompts) -> None:
     """One batch-8 decode step of the prompts (prefilled through the kernels
     in 512-token chunks into a scratch cache, which is then copied), fused
     (``DecodeMeta.fused``) and unfused, on the same weights and tokens. Held:
     the fused step launches the fused kernel once a layer and no unfused
     decode and no row write; the logits agree within LOGIT_TOL of the largest
-    with the same argmax on every row; every layer's pools equal the pre-step
+    with the same argmax on every row. Over the latent pool the unfused
+    decode rounds p to bf16, as the reference's _kernel_hm does, and the fused
+    one does not, as its _kernel_bs_fused does not: there the argmax is held
+    against a second unfused step whose latent decode is the partial-mode
+    kernel normalized (p not rounded, as in the fused mode), and against the
+    model's own unfused step the logits are held within LOGIT_TOL and the
+    argmax agreement is printed; every layer's pools equal the pre-step
     pools with the rows the fused kernel was given stored by the unfused
     write kernel, and layer 0's rows equal the unfused step's (the same
     inputs; deeper layers' rows follow the rounding of their inputs:
@@ -2670,6 +2928,7 @@ def fused_check(label: str, ex, prompts) -> None:
     from zhilight_tpu_torch.models import llama as L
     from zhilight_tpu_torch.models import mla as M
     from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
     from zhilight_tpu_torch.ops.cuda import paged_attention as PA
 
@@ -2735,12 +2994,18 @@ def fused_check(label: str, ex, prompts) -> None:
         del want
     with torch.no_grad():
         want, pre = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, pre)
+        held = want
+        if mla:  # the same step (its row writes rewrite the same rows) with p not rounded
+            with mock.patch.object(A, "paged_mla_decode", _unrounded_latent_decode):
+                held, pre = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, pre)
     torch.cuda.synchronize()
-    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+    if not all(torch.isfinite(t).all() for t in (got, want, held)):
         raise AssertionError(f"{label}: non-finite decode-step logits")
-    scale = want.abs().amax(-1)
-    rel = ((got - want).abs().amax(-1) / scale).max().item()
-    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    rel = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+    rel_held = ((got - held).abs().amax(-1) / held.abs().amax(-1)).max().item()
+    pick = got.argmax(-1)
+    same = int((pick == want.argmax(-1)).sum())
+    same_held = int((pick == held.argmax(-1)).sum())
     written = meta.slot_mapping.long()
     per_layer = []
     for f in fields:
@@ -2748,15 +3013,20 @@ def fused_check(label: str, ex, prompts) -> None:
             ga, gb = a[0][written].float(), b[0][written].float()
             per_layer.append((layer, ((ga - gb).abs().max() / gb.abs().max()).item()))
     layer0 = max(r for layer, r in per_layer if layer == 0)
+    unrounded = (f"; against the unfused step with p not rounded (the partial-mode kernel "
+                 f"normalized): logits max rel err {rel_held:.3e}, argmax same on "
+                 f"{same_held}/{B} rows") if mla else ""
     print(f"serve: {label}: one decode step fused vs unfused (batch {B}, contexts "
           f"{min(map(len, prompts)) + 1} to {max(map(len, prompts)) + 1}): logits max rel err "
-          f"{rel:.3e} (tolerance {LOGIT_TOL}); argmax same on {same}/{B} rows; {name} launches "
+          f"{rel:.3e} (tolerance {LOGIT_TOL}); argmax same on {same}/{B} rows{unrounded}; "
+          f"{name} launches "
           f"{cfg.num_layers}, no unfused decode or row write; every layer's pools equal to the "
           f"unfused write of the kernel's rows: {not mismatched}; written rows against the "
           f"unfused step's, layer 0 max rel diff {layer0:.3e}, every layer "
           f"{max(r for _, r in per_layer):.3e}", flush=True)
-    if rel > LOGIT_TOL or same != B:
-        raise AssertionError(f"{label}: fused logits differ from unfused: {rel}, argmax {same}/{B}")
+    if rel > LOGIT_TOL or rel_held > LOGIT_TOL or same_held != B:
+        raise AssertionError(f"{label}: fused logits differ from unfused: {rel}, {rel_held}, "
+                             f"argmax {same_held}/{B}")
     if mismatched:
         raise AssertionError(f"{label}: pools differ from the unfused write in layers {mismatched}")
     if layer0 != 0:
@@ -3515,8 +3785,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its "
-                         "paged_attention.cu, paged_attention_q.cu and paged_attention_fused.cu "
-                         "apart and time them beside this tree's kernels in the kernels phase")
+                         "quant_ragged.cu and mla_decode.cu apart and time them beside this "
+                         "tree's kernels in the kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -31,9 +31,19 @@ decode kernels within 2e-2 relative to their size (m absolute where l > 0,
 l and acc over their largest value: unnormalized sums grow with the
 context), and exactly m = -2e38, l = 0, acc = 0 for an empty pool. The fused
 write + attend kernels (``ZT_FUSED_KV=1``): the pools after the call
-bit-equal to the plain version's, the output within 2e-2 absolute (slot-major
-and packed pools) or 2e-2 of its size (the latent mode, whose tiles round the
-probabilities to bf16 where the plain version keeps them fp32).
+bit-equal to the plain version's, the output within 2e-2 absolute (slot-major,
+packed and latent pools; the latent mode rounds no probability). The latent
+decode in its three modes is also held at its edges (contexts 0 to 65, this
+card's split edges, 128 heads, NaN in every latent row no sequence attends
+to, V columns near 6: the normal mode against its twin at the kernel's split count and
+within 2e-2 plus 2^-8 of the output's size of the one-max twin, the partial
+and fused modes, which round no probability, against the plain version's
+fp32 output), and the normal mode against its twin at the serving shape;
+back-to-back latent decodes at other split counts, between head-major
+decodes, each match and leave the head-major tickets at zero. The grouped
+int4 matmul is also held with every expert occupied, one row an expert,
+num_occ 0 (nothing written), m-tiles naming experts E and -1 (clamped), at
+every decode split count, and to the same bits on a repeated call.
 """
 
 import dataclasses
@@ -638,6 +648,9 @@ def test_mla_decode_matches_plain(cuda, B, H, ctx_max, stored):
     if B > 2:
         assert torch.equal(got[2], torch.zeros_like(got[2]))
     assert (got.float() - want.float()).abs().max().item() <= TOL
+    # and against its twin, which rounds the unnormalized p as the kernel does
+    twin = A.paged_mla_decode_twin(*args, 512)
+    assert (got.float() - twin.float()).abs().max().item() <= TOL
     # the head-major entry point's latent mode is the same kernel
     hm = A.paged_decode_attention_hm(q, pool[None], *args[2:], v_dim=512)
     assert torch.equal(hm, got)
@@ -675,6 +688,187 @@ def test_w4a16_ragged_matmul_matches_plain(cuda, R_, TM, E, K, N, gs, pad):
     got, want = got[dest].float(), want[dest].float()
     assert torch.isfinite(got).all()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+
+
+def _ragged_inputs(rng, device, flat, TM, K, N, pad=0, E=64):
+    """DeepSeek-V2-Lite's stack geometry (group 128) for E experts, rows laid
+    out as models/moe.py lays them out (E + 1 groups, the last an overflow
+    bucket)."""
+    w_p, s, z = _expert_stack(rng, device, E, K, N, 128, pad)
+    _, dest, tile_expert, num_occ, mp = ragged_layout(
+        torch.from_numpy(np.asarray(flat, np.int32)).to(device), E + 1, TM, occ_experts=E)
+    x = torch.zeros(mp, K, dtype=torch.bfloat16, device=device)
+    x[dest] = _bf16(rng, device, len(flat), K)
+    if pad:
+        x[:, K - 128 * pad:] = 0
+    return x, w_p, s, z, dest, tile_expert, num_occ
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,pad", [(2048, 1408, 0), (1536, 2048, 1)])  # gate/up, padded down
+@pytest.mark.parametrize("case", ["every_expert", "one_row_an_expert", "decode_48"])
+def test_w4a16_ragged_matmul_edges(cuda, case, K, N, pad):
+    """Every expert occupied at TM 8, one row an expert over all 64, a decode
+    step's 48 rows: against the plain version at every decode split count the
+    kernel takes, and a repeated call to the same bits."""
+    rng = np.random.default_rng(K + len(case))
+    flat = {"every_expert": np.concatenate([rng.permutation(64), rng.permutation(64)]),
+            "one_row_an_expert": np.arange(64),
+            "decode_48": np.concatenate([rng.permutation(63)[:6] for _ in range(8)])}[case]
+    x, w_p, s, z, dest, te, occ = _ragged_inputs(rng, cuda, flat, 8, K, N, pad)
+    args = (x, w_p, s, z, te, occ)
+    want = R.w4a16_ragged_matmul_plain(*args)[dest]
+    got = R.w4a16_ragged_matmul(*args)
+    assert _rel(got[dest], want) <= 1e-2 and torch.isfinite(got[dest]).all()
+    live = slice(0, int(occ[0]) * 8)  # rows past num_occ are not written
+    assert torch.equal(got[live], R.w4a16_ragged_matmul(*args)[live])
+    stages = K // 2 // 64
+    for n in range(2, stages + 1):  # at most 640 weight rows (10 stages) a split
+        per = -(-stages // n)
+        if -(-stages // per) != n:
+            continue
+        out = torch.empty_like(got)
+        R._run(*args, out, (0, n))
+        assert _rel(out[dest], want) <= 1e-2, n
+
+
+@pytest.mark.cuda
+def test_w4a16_ragged_matmul_skips_and_clamps_tiles(cuda):
+    """num_occ 0 writes nothing; m-tiles naming expert E (the overflow
+    bucket's id) and -1 take experts E - 1 and 0."""
+    rng = np.random.default_rng(3)
+    flat = np.concatenate([rng.permutation(63)[:6] for _ in range(8)])
+    x, w_p, s, z, dest, te, occ = _ragged_inputs(rng, cuda, flat, 8, 2048, 1408)
+    out = torch.full((x.shape[0], 1408), float("nan"), dtype=torch.bfloat16, device=cuda)
+    R._run(x, w_p, s, z, te, torch.zeros_like(occ), out)
+    torch.cuda.synchronize()
+    assert out.isnan().all()
+    named = te.clone()
+    named[0], named[1] = 64, -1
+    got = R.w4a16_ragged_matmul(x, w_p, s, z, named, occ)[:16]
+    want = R.w4a16_ragged_matmul_plain(x, w_p, s, z, named.clamp(0, 63), occ)[:16]
+    assert _rel(got, want) <= 1e-2
+
+
+def _latent_case(rng, device, ctx, H, kind):
+    """Latent decode inputs at batch len(ctx): q [B, H, 576], a pool [N, 576]
+    (kind "v6": V columns near 6; "nan": a poisoned copy with NaN in every
+    row no sequence attends to, beside the clean pool), tables, lengths."""
+    ctx = np.array(ctx, np.int32)
+    tables, npages = _tables(rng, ctx, device)
+    pool = _bf16(rng, device, npages * S, 576)
+    if kind == "v6":
+        pool[:, :512] = _v6(rng, device, npages * S, 512)
+    cd = torch.from_numpy(ctx).to(device)
+    used = pool
+    if kind == "nan":
+        used = torch.full_like(pool, float("nan"))
+        keep = _read_slots(tables, cd, 0).to(device)
+        used[keep] = pool[keep]
+    return _bf16(rng, device, len(ctx), H, 576), pool, used, tables, cd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "nan", "v6"])
+@pytest.mark.parametrize("H", [16, 128])
+def test_latent_decode_modes_at_their_edges(cuda, H, kind):
+    """Rows 2b, 2bp and the fused latent mode at contexts 0, 1, 15, 16, 64,
+    65 and this card's split edges (runs of 16 tokens a split and one past),
+    at DeepSeek-V2-Lite's 16 heads and DeepSeek-V2's 128: 2b against its
+    twin (and, but for V near 6, the plain version), 2bp and the fused mode
+    against the plain versions (their fp32 outputs for V near 6), the fused
+    mode's written rows bit-exact. For V near 6 the normal mode is also held
+    within 2e-2 plus 2^-8 of the output's size of the one-max twin."""
+    rng = np.random.default_rng(H + len(kind))
+    sp = A.mla_plan(cuda, 8, 16, 2816)
+    ctx = [0, 1, 15, 16, 64, 65, 16 * sp, 16 * sp + 1]
+    scale = 1.0 / np.sqrt(192)
+    q, pool, used, tables, cd = _latent_case(rng, cuda, ctx, H, kind)
+    live = cd > 0
+    qp = q.float() if kind == "v6" else q
+    got = A.paged_mla_decode(q, used, tables, cd, S, scale, v_dim=512)
+    assert torch.isfinite(got).all() and not got[~live].any()
+    # the twin at the kernel's split count (p rounded against the same running max)
+    splits = A.mla_plan(cuda, 8, H, tables.shape[1] * S)
+    twin = A.paged_mla_decode_twin(qp, pool, tables, cd, S, scale, 512, splits)
+    assert (got.float() - twin.float()).abs().max().item() <= TOL
+    if kind == "v6":
+        assert twin[live].abs().min() >= 4 and twin.abs().max() < 8
+        # and against the one-max twin: the twins differ by the rounding of p,
+        # at most 2^-8 of the output's size on positive V (test_torch_mla.py)
+        one_max = A.paged_mla_decode_twin(qp, pool, tables, cd, S, scale, 512)
+        rounding = 2.0 ** -8 * one_max.abs().max().item()
+        assert (twin - one_max).abs().max().item() <= rounding
+        assert (got.float() - one_max).abs().max().item() <= TOL + rounding
+    else:
+        plain = A.paged_mla_decode_plain(q, pool, tables, cd, S, scale, 512)
+        assert (got.float() - plain.float()).abs().max().item() <= TOL
+    part = A.paged_mla_decode_partial(q, used, tables, cd, S, scale, 512)
+    want = A.paged_mla_decode_partial_plain(q, pool, tables, cd, S, scale, 512)
+    assert _partial_err(part, want, np.array(ctx)) <= TOL
+    norm = lambda p: p[2] / p[1].clamp_min(1e-20)[..., None]
+    assert (norm(part) - norm(want))[live].abs().max().item() <= TOL
+    # the fused mode: the lengths count the new row, written at row ctx - 1
+    c1 = (cd - 1).clamp_min(0).long()
+    slots = torch.where(cd >= 1, tables[torch.arange(8, device=cuda), c1 // S] * S + c1 % S,
+                        -1).to(torch.int32)
+    slots[3] = -1  # frozen
+    new = _bf16(rng, cuda, 8, 576)
+    if kind == "v6":
+        new[:, :512] = _v6(rng, cuda, 8, 512)
+    fk, fp = used.clone(), pool.clone()
+    if kind == "nan":  # the written rows are NaN before the call
+        fk = torch.full_like(pool, float("nan"))
+        keep = _read_slots(tables, cd, 0, fused=True).to(cuda)
+        fk[keep] = pool[keep]
+    tail = (new, slots, tables, cd, S, scale, 512)
+    got = PA.paged_mla_decode_fused(q, fk, *tail)
+    want = PA.paged_mla_decode_fused_plain(qp, fp, *tail)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    wrote = (slots >= 0) & live
+    assert torch.equal(fk[slots[wrote].long()], new[wrote])
+    if kind != "nan":
+        assert torch.equal(fk, fp)
+
+
+@pytest.mark.cuda
+def test_latent_decodes_back_to_back_at_other_split_counts(cuda):
+    """Latent decodes (normal and partial) at three or more split counts,
+    queued on one stream with the head-major decode between them and no
+    synchronisation: each equals its twin or plain version, the head-major
+    decode its plain version, and the head-major decode's tickets are zero
+    afterwards."""
+    rng = np.random.default_rng(21)
+    scale = 1.0 / np.sqrt(192)
+    calls = []
+    for B, H, ctx_max in ((8, 16, 2816), (2, 16, 700), (8, 128, 2816), (1, 40, 300)):
+        lens = np.full(B, ctx_max, np.int32)
+        lens[B // 2:] = rng.integers(1, ctx_max, B - B // 2)
+        q, pool, _, tables, cd = _latent_case(rng, cuda, lens, H, "plain")
+        calls.append(((q, pool, tables, cd, S, scale), A.mla_plan(cuda, B, H, tables.shape[1] * S)))
+    assert len({c[1] for c in calls}) >= 3
+    hm_lens = _ctx(rng, 3712)
+    hm_tables, hm_pages = _tables(rng, hm_lens, cuda)
+    hm_args = (_bf16(rng, cuda, 8, 40, 128), _bf16(rng, cuda, 8, hm_pages * S, 256), hm_tables,
+               torch.from_numpy(hm_lens).to(cuda), S, 1.0 / np.sqrt(128))
+    got = []
+    for args, _ in calls:
+        got.append((A.paged_mla_decode(*args, v_dim=512), A.paged_mla_decode_partial(*args, 512)))
+        got.append(A.paged_decode_attention_hm(*hm_args))
+    torch.cuda.synchronize()
+    assert not any(t.any() for t in A._TICKETS.values())
+    hm_want = A.paged_decode_attention_hm_plain(*hm_args)
+    for (args, _), (out, part), hm in zip(calls, got[::2], got[1::2]):
+        assert (out.float() - A.paged_mla_decode_twin(*args, 512).float()).abs().max() <= TOL
+        ctx = args[3].cpu().numpy()
+        assert _partial_err(part, A.paged_mla_decode_partial_plain(*args, 512), ctx) <= TOL
+        assert (hm.float() - hm_want.float()).abs().max().item() <= TOL
 
 
 def _fp8_weights(rng, device, K, N):
@@ -1275,8 +1469,7 @@ def test_mla_decode_fused_matches_plain(cuda, B, H, ctx):
     want = PA.paged_mla_decode_fused_plain(q, want_pool, *tail)
     torch.cuda.synchronize()
     assert got.shape == (B, H, 512) and torch.isfinite(got).all()
-    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
-    assert err <= TOL
+    assert (got.float() - want.float()).abs().max().item() <= TOL
     assert torch.equal(got_pool, want_pool) and not torch.equal(got_pool, pool)
 
 

@@ -217,6 +217,32 @@ def test_plain_fused_latent_decode_matches_pallas(edges):
     assert np.array_equal(t_pool[0].numpy(), np.asarray(j_pool)[:, :L])
 
 
+@pytest.mark.parametrize("ctx", [1, 16, 64, 65])
+def test_plain_fused_latent_decode_at_tile_edges_matches_pallas(ctx):
+    """The fused latent mode at a context (the new token included) of 1, a
+    whole page, a whole 64-token tile and one token past, beside two other
+    contexts: the new row written at row ctx - 1, the pools equal."""
+    rng = np.random.RandomState(ctx)
+    B, H, lora, rope_d, maxp = 3, 8, 128, 64, 6
+    L = lora + rope_d
+    ctx_b = np.array([ctx, 9, 50], np.int32)
+    tables = rng.permutation(B * maxp).astype(np.int32).reshape(B, maxp)
+    slots = np.array([tables[b, (c - 1) // S] * S + (c - 1) % S for b, c in enumerate(ctx_b)],
+                     np.int32)
+    q_eff = rng.randn(B, H, L).astype(np.float32)
+    pool = rng.randn(B * maxp * S, L).astype(np.float32)
+    latent_new = rng.randn(B, L).astype(np.float32)
+    scale = 1.0 / np.sqrt(L)
+    want, j_pool = JPA.paged_mla_decode_fused(
+        jnp.asarray(q_eff), jnp.asarray(pool), jnp.asarray(latent_new), jnp.asarray(slots),
+        jnp.asarray(tables), jnp.asarray(ctx_b), S, scale, v_dim=lora, interpret=True)
+    t_pool = T(pool.copy())[None]
+    got = PA.paged_mla_decode_fused(T(q_eff), t_pool, T(latent_new), T(slots), T(tables),
+                                    T(ctx_b), S, scale, lora)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert np.array_equal(t_pool[0].numpy(), np.asarray(j_pool))
+
+
 def test_fused_wrappers_take_the_plain_version_only_on_the_cpu():
     """CPU tensors run the plain version (no launch counted); a tensor on a
     device without a kernel raises instead of falling back."""

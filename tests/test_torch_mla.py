@@ -164,6 +164,87 @@ def test_plain_latent_decode_matches_pallas(empty_slot):
     assert torch.equal(padded, got)
 
 
+TWIN_TOL = 2.0 ** -8
+
+
+@pytest.mark.parametrize("seed,v6", [(0, False), (2, False), (0, True)])
+def test_latent_decode_twin_matches_pallas_on_bf16(seed, v6):
+    """paged_mla_decode_twin (the unnormalized p rounded to bf16 before P.V,
+    the division by l last) against the Pallas latent decode on bf16 inputs:
+    within 2^-8 of its size. The plain version, which rounds the normalized
+    probabilities as the XLA path does, is further off, and at seed 0 outside
+    the bound (on unit-variance latents and on V columns near 6)."""
+    rng = np.random.RandomState(seed)
+    B, H, lora, rope_d, PS, MP = 3, 4, 128, 64, 16, 4
+    stored = 256  # the reference's lane-padded row
+    pool = rng.randn(B * MP * PS, stored).astype(np.float32)
+    pool[:, lora + rope_d :] = 0.0
+    if v6:  # V columns in [4.5, 7.5): outputs in [4, 8)
+        pool[:, :lora] = 6 + 1.5 * (2 * rng.rand(B * MP * PS, lora) - 1)
+    q = rng.randn(B, H, lora + rope_d).astype(np.float32)
+    ctx = rng.randint(1, MP * PS, size=B).astype(np.int32)
+    tables = np.stack([b * MP + np.arange(MP) for b in range(B)]).astype(np.int32)
+    qb, pb = jnp.asarray(q, jnp.bfloat16), jnp.asarray(pool, jnp.bfloat16)
+    want = np.asarray(j_paged_mla_decode(qb, pb, jnp.asarray(tables), jnp.asarray(ctx), PS, 0.11,
+                                         v_dim=lora, interpret=True).astype(jnp.float32))
+    tq = T(np.array(qb.astype(jnp.float32))).bfloat16()
+    tp = T(np.ascontiguousarray(np.asarray(pb.astype(jnp.float32))[:, : lora + rope_d])).bfloat16()
+    args = (tq, tp, T(tables), T(ctx), PS, 0.11, lora)
+    top = np.abs(want).max()
+    twin = np.abs(A.paged_mla_decode_twin(*args).float().numpy() - want).max() / top
+    plain = np.abs(A.paged_mla_decode_plain(*args).float().numpy() - want).max() / top
+    assert twin <= TWIN_TOL and twin <= plain
+    if seed == 0:
+        assert plain > TWIN_TOL
+
+
+@pytest.mark.parametrize("splits", [2, 4, 8, 16])
+def test_latent_decode_twin_at_a_split_count_stays_near_the_one_max_twin(splits):
+    """paged_mla_decode_twin at ``splits`` context splits (p rounded against
+    the running max the CUDA kernel keeps at that count) against the one-max
+    twin (held to the Pallas kernel above), fp32 out, on V columns near 6:
+    each rounds every p within 2^-9 of itself, which moves an output of
+    positive V by at most 2^-9 of it, so the two differ by at most 2^-8 of
+    the output's size; they do differ."""
+    rng = np.random.RandomState(splits)
+    B, H, PS, MP = 4, 16, 16, 64
+    pool = rng.randn(B * MP * PS, 576).astype(np.float32)
+    pool[:, :512] = 6 + 1.5 * (2 * rng.rand(B * MP * PS, 512) - 1)
+    q = T(rng.randn(B, H, 576).astype(np.float32))
+    ctx = T(np.array([MP * PS, 700, 65, 1], np.int32))
+    tables = T(np.stack([b * MP + np.arange(MP) for b in range(B)]).astype(np.int32))
+    args = (q, T(pool).bfloat16(), tables, ctx, PS, 1.0 / np.sqrt(192), 512)
+    one_max = A.paged_mla_decode_twin(*args)
+    split = A.paged_mla_decode_twin(*args, splits)
+    assert one_max.dtype == split.dtype == torch.float32
+    gap = (split - one_max).abs().max().item()
+    assert 0 < gap <= 2.0 ** -8 * one_max.abs().max().item()
+    # one token: p = 1 exactly at any split count
+    assert torch.equal(split[3], one_max[3])
+
+
+@pytest.mark.parametrize("B,H,ctx", [(8, 16, 2816), (1, 16, 2816), (8, 128, 2816), (8, 16, 40),
+                                     (64, 16, 2816)])
+def test_latent_decode_split_plan_fills_one_wave(B, H, ctx):
+    """The latent kernel's split count (mla_splits over its blocks of 16
+    heads): a power of two up to 16, no more than the context's 64-token
+    tiles (so no 16-token run is empty but the last ones), every block on
+    the card at once, and a cluster per (sequence, head tile) that the card
+    holds at once: on H100 counts and on a card with one cluster of 16 fewer."""
+    blocks = B * -(-H // 16)
+    for capacity, clusters in ((132, {2: 66, 4: 30, 8: 16, 16: 8}),
+                               (132, {2: 66, 4: 30, 8: 14, 16: 7}), (264, {2: 132, 4: 60})):
+        splits = A.mla_splits(B, H, ctx, capacity, clusters)
+        assert splits in (1, 2, 4, 8, 16) and splits <= -(-ctx // 64)
+        assert splits * blocks <= max(capacity, blocks)
+        assert splits == 1 or clusters[splits] >= blocks
+        # the kernel's runs: a multiple of 16 tokens, as many non-empty ones as splits at most
+        per = -(-max(-(-ctx // splits), 1) // 16) * 16
+        assert per % 16 == 0 and -(-ctx // per) <= splits
+    assert A.mla_splits(8, 16, 2816, 132, {2: 66, 4: 30, 8: 16, 16: 8}) == 16
+    assert A.mla_splits(8, 16, 2816, 132, {2: 66, 4: 30, 8: 16, 16: 7}) == 8
+
+
 def test_absorbed_decode_matches_jax():
     pool, q_nope, q_pe, w_uk, w_uv, ctx, tables, PS, lora, rope_d = _latent_decode_inputs()
 

@@ -157,6 +157,42 @@ def test_ragged_matmul_plain_matches_pallas_and_dequant(E, K, N, R, tm, pad):
         assert xp.shape[0] // tm > n_occ and int(dest.max()) < n_occ * tm
 
 
+@pytest.mark.parametrize("case", ["decode", "every_expert", "num_occ_0"])
+def test_ragged_matmul_plain_matches_pallas_at_the_decode_layout(case):
+    """DeepSeek-V2-Lite's decode layout: 8 tokens' top 6 of 63 experts (48
+    rows, TM 8, 64 experts and the overflow bucket: 63 m-tiles), every one of
+    the 64 experts occupied (128 rows), and no occupied m-tile (num_occ 0:
+    the plain version gives zeros, the kernels write nothing)."""
+    E, K, N, TM = 64, 256, 128, 8
+    nib, scales, zeros = _stack(E, K, N, seed=5)
+    rng = np.random.RandomState(6)
+    if case == "every_expert":
+        flat = np.concatenate([rng.permutation(E), rng.permutation(E)])
+    else:
+        flat = np.concatenate([rng.permutation(E - 1)[:6] for _ in range(8)])
+    flat = flat.astype(np.int32)
+    _, dest, tile_expert, num_occ, mp = TQ.ragged_layout(T(flat), E + 1, TM, occ_experts=E)
+    xp = torch.zeros(mp, K)
+    xp[dest] = T(rng.randn(len(flat), K).astype(np.float32))
+    if case == "decode":
+        assert mp // TM == 63
+    if case == "num_occ_0":
+        num_occ = torch.zeros_like(num_occ)
+    w_p = TQ.pack_expert_int4(T(nib))
+    got = TR.w4a16_ragged_matmul(xp, w_p, T(scales), T(zeros), tile_expert, num_occ)
+    out = JR.w4a16_ragged_matmul(
+        jnp.asarray(xp.numpy(), jnp.bfloat16), jnp.asarray(w_p.numpy()), jnp.asarray(scales),
+        jnp.asarray(zeros), jnp.asarray(tile_expert.numpy()), jnp.asarray(num_occ.numpy()),
+        interpret=True)
+    if case == "num_occ_0":
+        assert got.shape == (mp, N) and not got.any()
+        return
+    assert int(num_occ[0]) * TM >= int(dest.max()) + 1
+    kern = np.asarray(out, np.float32)[dest.numpy()]
+    got = got[dest].numpy()
+    assert np.abs(got - kern).max() <= 1e-2 * np.abs(got).max()
+
+
 def test_ragged_matmul_pad_group_contributes_exact_zeros():
     """Rows of a zero-scale pad group dequantize to exact zeros whatever the
     nibbles: garbage activations there change nothing."""

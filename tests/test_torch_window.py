@@ -151,6 +151,24 @@ def test_partial_modes_match_pallas(kind, empty):
     _assert_partials(got, want)
 
 
+@pytest.mark.parametrize("ctx", [1, 16, 64, 65])
+def test_latent_partial_mode_at_tile_edges_matches_pallas(ctx):
+    """The latent decode's partial mode (row 2bp) at a pool length of 1, a
+    whole page, a whole 64-token tile and one token past, beside two other
+    lengths; 16 heads, latent rows of 128 + 64."""
+    rng = np.random.RandomState(ctx)
+    B, H, lora, latent, maxp = 3, 16, 128, 192, 6
+    pool_lens = np.array([ctx, 7, 70], np.int32)
+    tables = np.arange(B * maxp, dtype=np.int32).reshape(B, maxp)
+    q_eff = rng.randn(B, H, latent).astype(np.float32)
+    pool = rng.randn(B * maxp * S, latent).astype(np.float32)
+    out = np.asarray(j_mla_decode(jnp.asarray(q_eff), jnp.asarray(pool), jnp.asarray(tables),
+                                  jnp.asarray(pool_lens), S, 0.11, v_dim=lora, interpret=True,
+                                  emit_partial=True))
+    got = A.paged_mla_decode_partial(T(q_eff), T(pool), T(tables), T(pool_lens), S, 0.11, lora)
+    _assert_partials(got, (out[..., 0], out[..., 1], out[..., 128:]))
+
+
 @pytest.mark.parametrize("D,Hq,Hkv", [(256, 16, 8), (192, 8, 2)])
 def test_int8_partial_mode_wide_heads_matches_pallas(D, Hq, Hkv):
     """The int8 partial mode at head_dim 256 (Gemma-2-9B's 16 / 8 heads) and

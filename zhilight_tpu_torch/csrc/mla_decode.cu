@@ -3,405 +3,703 @@
 // Replaces: zhilight_tpu/ops/pallas/attn_headmajor.py
 // paged_decode_attention_hm (:151), kernel _kernel_hm (:54), in its MLA latent
 // mode (v_dim > 0), as zhilight_tpu/ops/pallas/paged_attention.py
-// paged_mla_decode (:791) reaches it; and paged_mla_decode's emit_partial mode,
+// paged_mla_decode (:791) reaches it; paged_mla_decode's emit_partial mode,
 // which the reference serves from _kernel_bs (paged_attention.py:179, emit at
-// :272-287): the same function, with the merge kernel writing fp32 M, sum L and
-// the unnormalized accumulator instead of dividing.
+// :272-287); and the fused latent write + attend, paged_mla_decode_fused
+// (paged_attention.py:844, the latent mode of _kernel_bs_fused :445). One
+// template, three modes (EMIT, FUSED).
 //
-// Computes, for each sequence b and head h, over the tokens t < ctx =
-// context_lens[b], token t at pool row page_tables[b, t / S] * S + t % S:
+// Computes, for each sequence b and head h, over the tokens t < end (end =
+// ctx = context_lens[b]; ctx - 1 in the fused mode), token t at pool row
+// page_tables[b, t / S] * S + t % S (the page clamped into the pool):
 //   s[t]      = scale * q[b, h, :KD] . latent[row(t), :KD]
-//   out[b, h] = sum_t softmax(s)[t] * latent[row(t), :VD]
-// with fp32 scores, an fp32 online softmax (NEG_INF = -2e38, the max(l, 1e-20)
-// floor of the TPU kernel, so an empty slot yields zeros) and probabilities
-// rounded to bf16 for the second product. All heads share the one latent row
-// per token ("one KV head"): K is its first KD elements, V its first VD.
+//   out[b, h] = sum_t p[t] * latent[row(t), :VD] / max(l, 1e-20)
+// with p = exp(s - m), l = sum p, from an fp32 online softmax (NEG_INF =
+// -2e38: an empty slot gives zeros). All heads share the one latent row per
+// token ("one KV head"): K is its first KD = 576 elements, V its first VD =
+// 512. Q . K^T is exact in fp32 from the bf16 operands. How p meets P . V, by
+// mode, is the reference's:
+// - unfused (row 2b): p is rounded to bf16 unnormalized, before P . V, and l
+//   sums the fp32 p, as _kernel_hm rounds `p.astype(kv.dtype)` and divides
+//   by l last (attn_headmajor.py:110-121, :141-145). Its twin in
+//   ops/cuda/attn_headmajor.py (paged_mla_decode_twin) rounds the same way.
+// - EMIT (row 2bp) and FUSED: the reference keeps p fp32 (_kernel_bs and
+//   _kernel_bs_fused cast the latent rows to fp32). p is split into two bf16
+//   halves, hi = bf16(p) and lo = bf16(p - hi), and both go through P . V:
+//   hi + lo holds p to 2^-16 of itself, against bf16's 2^-8.
 //
-// Bound on the H100: bytes. A step reads B * ctx rows of KD bf16 once: 25.9 MB
-// at B 8, ctx 2816, KD 576 (7.7 us at 3.35 TB/s); the 16 heads do
-// 2 * 16 * (KD + VD) flops per row, 30 flops per byte, far under the card's
-// 295. Design: flash decoding. Grid (splits, head tiles of 16, B): a block
-// takes a run of 64-token tiles of one sequence, so a batch of 8 spreads over
-// the card (one block per sequence would use 8 of 132 SMs). Per tile the block
-// stages the 64 latent rows in shared memory once (cp.async, 16 bytes a
-// thread) and uses them for both products; rows past ctx are zero-filled.
-// Both products have M = 16 rows (the heads), one tensor-core tile: WMMA
-// 16x16x16 bf16 -> fp32. Eight warps: for q.K^T warp w takes 16 tokens (w % 4)
-// and half of KD (w / 4), the halves are summed in the softmax pass; for p.V
-// warp w owns VD / 8 output columns, its accumulators stay in registers
-// across tiles and are rescaled by the row's exp(m_old - m_new), the row of
-// each accumulator element being read once from a probe fragment (the WMMA
-// element layout is not specified). Each block writes its (m, l, acc) partial;
-// a second kernel merges a head's partials and writes bf16. About 106 KB of
-// shared memory per block, so two blocks share an SM and one's loads overlap
-// the other's arithmetic. No TMA, no wgmma yet.
+// Bound on the H100: bytes. A step reads B * ctx latent rows of KD bf16
+// once: 25.9 MB at DeepSeek-V2-Lite's batch 8, context 2816 (7.7 us at 3.35
+// TB/s); the 16 heads do 2 * 16 * (KD + VD) flops a row (a third product in
+// the split modes), under 50 flops a byte against the card's 295.
 //
-// Fused latent write + attend (zt_mla_decode_fused): replaces
-// zhilight_tpu/ops/pallas/paged_attention.py paged_mla_decode_fused (:844),
-// the latent mode of kernel _kernel_bs_fused (:445). context_lens count this
-// step's token, whose latent row (latent_new [B, stored], in the pool's
-// dtype) is not in the pool yet: the tiles cover pool rows t < ctx - 1 only,
-// and the merge kernel folds the new row in as one more partial (m = s_new =
-// scale * q[b, h, :KD] . latent_new[b, :KD], l = 1, acc = latent_new[b, :VD]),
-// in fp32, so an empty context gives the new row's V. Block h = 0 of the
-// merge then stores the row at slot_mapping[b] when that is >= 0 and ctx >=
-// 1; the merge runs after the tiles in stream order, so no read races the
-// write. As in the unfused mode the tiles round p to bf16 for their WMMA p.V
-// product, where the TPU kernel keeps it fp32 (its fused mode casts the
-// latent rows to fp32): the kernel is held to the unrounded plain version
-// within 2e-2 of the output's size. Bytes: the unfused mode's plus the
-// written row (7.8 us at DeepSeek-V2-Lite's batch 8, context 2816).
+// Design: split-context flash decoding on mma.sync, one launch a layer.
+// - Grid (splits, head tiles of 16, B), 256 threads, one block an SM (229 KB
+//   of shared memory, 246 registers). A block owns the 16 query rows of one
+//   head tile (rows past H are zeros) and one run of the sequence's tokens,
+//   and reads each latent row once for all of them. Split s takes tokens
+//   [lo, hi): [0, end) cut into runs of one length, a multiple of 16, so no
+//   block has a tile more than another; its 64-token tiles count from lo.
+// - The splits of a (sequence, head tile) are one thread block cluster (1, 2,
+//   4, 8 or 16 blocks; 16 is above the portable size) and merge on chip:
+//   each block puts its O [16][512] fp32 and (m, l) in its own shared memory,
+//   and block k merges columns [k * 512 / splits, +512 / splits) of every
+//   block of the cluster, in split order, through distributed shared memory,
+//   and writes them. No partial goes through device memory, no ticket is
+//   drawn, and the output does not depend on which block ran last. An empty
+//   run inside the cluster takes part with m = -2e38, l = 0, acc = 0; when
+//   only split 0 has tokens it writes the output alone. The host
+//   (ops/cuda/attn_headmajor.py mla_splits) takes as many splits as let every
+//   block fit on the card at once, down to a power of two for which the card
+//   holds a cluster per (sequence, head tile) at once
+//   (zt_mla_decode_max_clusters; a cluster's blocks share a GPC: the H100
+//   holds 7 clusters of 16, 15 of 8, 30 of 4): one wave.
+//   Measured on the H100 at DeepSeek-V2-Lite's batch 8, context 2816 (PERF.md),
+//   the earlier merges lost: a last-ticket merge of 16 splits' fp32 partials
+//   by one block (the partials' 4 MB of stores, then 512 KB through one SM,
+//   waiting a round of loads at a time), and clusters of 4 merged on chip
+//   with a last-ticket merge of the clusters' partials.
+// - Copies: a latent row is 1,152 contiguous bytes. Threads 0-63 each own a
+//   row of every 64-token tile and copy it with one cp.async.bulk onto the
+//   stage's mbarrier (arrive.expect_tx, 64 arrivals a phase), into a ring of
+//   three stages whose rows are padded to 1,168 bytes, so ldmatrix reads
+//   them without bank conflicts (a page-sized copy would land rows 1,152
+//   bytes apart, every row on the same banks). A row past hi is zero-filled
+//   by its thread before it arrives (the release orders the stores), so no
+//   stale value meets a zero probability, and a row outside [lo, hi) is
+//   never read: the fused mode's row ctx - 1 may be under write by another
+//   block. Each thread's page id is read one tile ahead of its copy.
+// - q: its 16 rows are loaded at the block's start beside the context and
+//   page-table loads, staged once in the last stage's buffer, and each warp
+//   keeps their A fragments (16 x 576) in registers for the block's life.
+// - Two block barriers a tile. Q . K^T: warp w takes tokens [8w, 8w + 8) of
+//   the tile over the whole KD, with two accumulators. The warps' row maxima
+//   meet in shared memory (barrier 1), every warp forms the same running max
+//   and writes its p tile (bf16, or the hi and lo halves) to shared memory
+//   (barrier 2). P . V: warp w owns V columns [64w, 64w + 64), its 16 x 64
+//   fp32 O in registers across tiles, rescaled by the row's exp(m_old - m_new).
+// - The shared-memory attribute is set once per device.
+//
+// Fused latent write + attend (FUSED): context_lens count this step's token,
+// whose latent row (latent_new [B, stored], in the pool's dtype) is not in
+// the pool yet. The tiles cover rows t < ctx - 1 only, and row ctx - 1 is
+// never read. Split 0 of head tile 0 stores the new row at slot_mapping[b]
+// when that is >= 0 and ctx >= 1 (as the TPU kernel writes only inside a
+// context); no other block reads that slot in the launch. The new row is
+// folded in once per (b, h), where the output is written (the only split,
+// or each block's columns of the cluster's merge), as one more partial: m =
+// s_new = scale * q[b, h, :KD] . latent_new[b, :KD] (fp32), l = 1, acc =
+// latent_new[b, :VD]. An empty context gives the new row's V.
+//
+// What holds it back (PERF.md): with the latent rows in L2, a 64-token tile
+// takes about 2 us a block (its copies, ldmatrix reads and products pass
+// through shared memory, 228 KB a tile, beside two block barriers), and a
+// block's start about 3.5 us (the context and page-table loads, q's
+// fragments); at batch 8 the card's 7 clusters of 16 leave the launch at 8
+// splits, 64 blocks; a head tile of 16 rows re-reads the latent rows for
+// every 16 heads (DeepSeek-V2/V3's 128 heads read them 8 times); the split
+// modes' third product. wgmma on the staged tiles is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "paged_decode.cuh"  // zt_paged::block_dot (128 threads)
+#include <cooperative_groups.h>
+
+#include "attn_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
+
 using bf16 = __nv_bfloat16;
+using namespace zt_mma;
 
 constexpr float NEG_INF = -2.0e38f;
-constexpr int HT = 16;       // heads per block (one WMMA tile of rows)
-constexpr int TN = 64;       // tokens per tile
-constexpr int NWARPS = 8;
-constexpr int NT = NWARPS * 32;
-constexpr int LDS = TN + 8;  // leading dimension of the score and probability tiles
+constexpr int KD = 576, VD = 512;  // latent widths: K the whole row, V its first 512
+constexpr int HR = 16;             // query rows (heads) a block
+constexpr int TN = 64;             // tokens a tile
+constexpr int NWARPS = 8, NT = NWARPS * 32;
+constexpr int STAGES = 3;
+constexpr int MAX_SPLITS = 16;     // splits: one cluster (16 takes the non-portable size)
+constexpr int LDK = KD + 8;        // bf16 a staged row: 1,168 bytes, ldmatrix conflict-free
+constexpr int LDP = TN + 8;        // bf16 a row of the p tiles
+constexpr int ROW_BYTES = KD * 2;  // bytes a copy
+constexpr int KSTEPS = KD / 16;    // 16-deep steps of Q . K^T
+constexpr int VCOLS = VD / NWARPS; // V columns a warp
+static_assert(VCOLS == 64 && TN == 8 * NWARPS, "warp split of the tile");
 
-template <int KD, int VD>
-struct Smem {
-  static constexpr int LDK = KD + 8;  // bf16 elements per staged row
-  static constexpr int TILE = TN * LDK * 2;
-  static constexpr int Q = HT * LDK * 2;
-  static constexpr int S = 2 * HT * LDS * 4;
-  static constexpr int P = HT * LDS * 2;
-  static constexpr int PROBE = 16 * 16 * 4;
-  static constexpr int STATS = 3 * HT * 4;
-  static constexpr int BYTES = TILE + Q + S + P + PROBE + STATS;
-  static_assert(KD % 32 == 0 && VD % (16 * NWARPS) == 0 && VD <= KD, "MLA dims");
-  static_assert(TILE % 32 == 0 && Q % 32 == 0 && S % 32 == 0 && P % 32 == 0, "alignment");
-};
+// shared memory, bytes: the ring (which the merge reuses at the end), the p
+// tiles (hi, lo), the warps' row maxima and sums, s_new
+constexpr int STAGE_BYTES = TN * LDK * 2;
+constexpr int RING = STAGES * STAGE_BYTES;
+constexpr int P_OFF = RING;
+constexpr int RED_OFF = P_OFF + 2 * HR * LDP * 2;
+constexpr int NEW_OFF = RED_OFF + 2 * NWARPS * HR * 4;
+constexpr int SMEM = NEW_OFF + HR * 4;
+// the merge's buffers, in the ring (free once every copy is consumed): small
+// tables, then the block's O [16][512] fp32, which its peers read
+constexpr int TAB_BYTES = 2048;
+constexpr int O_OFF = TAB_BYTES;
+static_assert((2 + MAX_SPLITS + 2) * HR * 4 <= TAB_BYTES, "merge tables");
+static_assert(O_OFF + HR * VD * 4 <= RING, "the block's O in the ring");
 
-// tiles of sequence b handled by split `split` of `splits`: [first, last)
-__device__ __forceinline__ void split_range(int ctx, int splits, int split, int* first,
-                                            int* last) {
-  const int tiles = (ctx + TN - 1) / TN;
-  const int per = (tiles + splits - 1) / splits;
-  *first = min(split * per, tiles);
-  *last = min(*first + per, tiles);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
 }
 
-template <int KD, int VD>
-__global__ void __launch_bounds__(NT) mla_decode_kernel(
-    float* __restrict__ part_acc,             // [B, tiles_h, splits, HT, VD]
-    float* __restrict__ part_ml,              // [B, tiles_h, splits, 2, HT]
-    const bf16* __restrict__ q,               // [B, H, KD]
-    const bf16* __restrict__ pool,            // [N, stored]
-    const int32_t* __restrict__ page_tables,  // [B, maxp]
-    const int32_t* __restrict__ context_lens, // [B]
-    int H, long long N, int stored, int maxp, int S, float scale, int drop) {
-  using L = Smem<KD, VD>;
-  constexpr int LDK = L::LDK;
-  constexpr int CPR = KD / 8;   // 16-byte chunks per row
-  constexpr int FV = VD / (16 * NWARPS);  // accumulator fragments per warp
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::TILE);
-  float* sS = reinterpret_cast<float*>(smem + L::TILE + L::Q);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::TILE + L::Q + L::S);
-  float* sProbe = reinterpret_cast<float*>(smem + L::TILE + L::Q + L::S + L::P);
-  float* sM = sProbe + 16 * 16;
-  float* sL = sM + HT;
-  float* sAlpha = sL + HT;
-
-  const int split = blockIdx.x, splits = gridDim.x;
-  const int ht = blockIdx.y, tiles_h = gridDim.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  // drop = 1 (fused): row ctx - 1 is this step's, folded in by the merge
-  int ctx = context_lens[b];
-  ctx = max(0, min(ctx, maxp * S) - drop);
-  int first, last;
-  split_range(ctx, splits, split, &first, &last);
-  if (first >= last) return;  // the merge kernel skips this split as well
-
-  const long long num_pages = N / S;
-  const int32_t* pt = page_tables + (long long)b * maxp;
-  const int h0 = ht * HT;
-
-  // q rows of this head tile (zero rows past H), the probe, the running stats
-  for (int c = tid; c < HT * CPR; c += NT) {
-    const int r = c / CPR, j = c % CPR;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (h0 + r < H)
-      v = *reinterpret_cast<const uint4*>(q + ((long long)b * H + h0 + r) * KD + j * 8);
-    *reinterpret_cast<uint4*>(sQ + r * LDK + j * 8) = v;
-  }
-  if (tid < 256) sProbe[tid] = (float)(tid / 16);
-  if (tid < HT) {
-    sM[tid] = NEG_INF;
-    sL[tid] = 0.f;
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FV];
-  int row_of[8];  // accumulator elements per thread of a 16x16 fp32 fragment
-  {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> probe;
-    wmma::load_matrix_sync(probe, sProbe, 16, wmma::mem_row_major);
-    static_assert(decltype(probe)::num_elements == 8, "fragment size");
-#pragma unroll
-    for (int i = 0; i < 8; ++i) row_of[i] = (int)probe.x[i];
-  }
-#pragma unroll
-  for (int f = 0; f < FV; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * TN;
-    // stage the tile's latent rows: [TN, KD] bf16, zero rows past ctx
-    for (int c = tid; c < TN * CPR; c += NT) {
-      const int r = c / CPR, j = c % CPR;
-      const int t = t0 + r;
-      bf16* dst = sK + r * LDK + j * 8;
-      if (t < ctx) {
-        long long page = pt[t / S];
-        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-        const bf16* src = pool + (page * S + t % S) * stored + j * 8;
-        const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-
-    // scores: warp w -> tokens [16 * (w % 4), +16), k in half (w / 4) of KD
-    {
-      const int nt = warp % 4, kh = warp / 4;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll 6
-      for (int k = kh * (KD / 2); k < (kh + 1) * (KD / 2); k += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + k, LDK);
-        wmma::load_matrix_sync(fb, sK + nt * 16 * LDK + k, LDK);
-        wmma::mma_sync(s, fa, fb, s);
-      }
-      wmma::store_matrix_sync(sS + kh * HT * LDS + nt * 16, s, LDS, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax: 16 threads per head row, 4 tokens each
-    {
-      const int r = tid / 16, sub = tid % 16;
-      float sv[4];
-      float tmax = NEG_INF;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = sub * 4 + i;
-        float x = (sS[r * LDS + c] + sS[HT * LDS + r * LDS + c]) * scale;
-        if (t0 + c >= ctx) x = NEG_INF;
-        sv[i] = x;
-        tmax = fmaxf(tmax, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, tmax);
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = __expf(sv[i] - m_new);
-        psum += p;
-        sP[r * LDS + sub * 4 + i] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      __syncwarp();  // every lane has read sM[r] before lane 0 of the row writes it
-      if (sub == 0) {
-        const float alpha = __expf(m_old - m_new);
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + psum;
-        sAlpha[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p . V: warp w owns columns [w * FV * 16, +FV * 16)
-    {
-      float al[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) al[i] = sAlpha[row_of[i]];
-#pragma unroll
-      for (int f = 0; f < FV; ++f)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[f].x[i] *= al[i];
-#pragma unroll
-      for (int kk = 0; kk < TN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-        wmma::load_matrix_sync(fp, sP + kk, LDS);
-#pragma unroll
-        for (int f = 0; f < FV; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-          wmma::load_matrix_sync(fv, sK + kk * LDK + (warp * FV + f) * 16, LDK);
-          wmma::mma_sync(acc[f], fp, fv, acc[f]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites sK and sP
-  }
-
-  const long long slot = ((long long)b * tiles_h + ht) * splits + split;
-  float* pa = part_acc + slot * HT * VD;
-#pragma unroll
-  for (int f = 0; f < FV; ++f)
-    wmma::store_matrix_sync(pa + (warp * FV + f) * 16, acc[f], VD, wmma::mem_row_major);
-  if (tid < HT) {
-    part_ml[slot * 2 * HT + tid] = sM[tid];
-    part_ml[slot * 2 * HT + HT + tid] = sL[tid];
-  }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
-// The fused mode's extra inputs (latent_new null otherwise).
+// one arrival, and the bytes of this thread's copy that the phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// two floats as (hi, lo) bf16 pairs, hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// The fused mode's extra inputs (null pointers otherwise).
 struct LatentRows {
-  const bf16* q;           // [B, H, KD]
   const bf16* latent_new;  // [B, stored] this step's rows, in the pool's dtype
   const int32_t* slots;    // [B] pool row of each; < 0 => not written
   bf16* pool;              // [N, stored], written at slots[b] only
 };
 
-// out[b, h, :] = sum_s acc_s * exp(m_s - M) / max(sum_s l_s * exp(m_s - M), 1e-20)
-// with M = max_s m_s; with EMIT, out (fp32) gets the sum unnormalized and
-// m_out, l_out [B, H] get M and the sum of l_s * exp(m_s - M): the flash
-// partials of the whole context (M = -2e38, L = 0, acc = 0 when it is empty).
-// FUSED adds the new latent row as one more partial and stores it (header).
-template <int KD, int VD, bool EMIT, bool FUSED>
-__global__ void __launch_bounds__(128) mla_merge_kernel(
-    void* __restrict__ out,                   // [B, H, VD]: bf16, or fp32 with EMIT
-    float* __restrict__ m_out, float* __restrict__ l_out,
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int32_t* __restrict__ context_lens, LatentRows fz, int H, int tiles_h, int splits,
-    int maxp, int S, long long N, int stored, float scale) {
+// out: bf16 [B, H, VD]; with EMIT fp32 [B, H, VD] (the unnormalized
+// accumulator) and m_out, l_out [B, H]
+template <bool EMIT, bool FUSED>
+__global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
+    void* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+    const bf16* __restrict__ q,               // [B, H, KD]
+    const bf16* pool,                         // [N, stored]
+    const int32_t* __restrict__ page_tables,  // [B, maxp]
+    const int32_t* __restrict__ context_lens, // [B]
+    LatentRows fz, int H, long long N, int stored, int maxp, int S, float scale) {
   static_assert(!(EMIT && FUSED), "the fused mode returns the output");
-  const int b = blockIdx.y, h = blockIdx.x;
-  const int ht = h / HT, r = h % HT;
+  constexpr bool SPLIT_P = EMIT || FUSED;  // p unrounded: hi and lo halves
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* sPh = reinterpret_cast<bf16*>(smem + P_OFF);
+  bf16* sPl = sPh + HR * LDP;
+  float* red_m = reinterpret_cast<float*>(smem + RED_OFF);  // [NWARPS][HR]
+  float* red_l = red_m + NWARPS * HR;
+  float* sNew = reinterpret_cast<float*>(smem + NEW_OFF);  // [HR]
+
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int ht = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, i4 = lane % 4;
+  const int h0 = ht * HR;
+  const int rows = min(HR, H - h0);
+
+  // the q rows of the head tile (rows past H zero), 16 bytes a load, in
+  // flight beside the context and page-table loads: nothing here waits on them
+  constexpr int QCH = (HR * KD / 8 + NT - 1) / NT;
+  uint4 qv[QCH];
+#pragma unroll
+  for (int j = 0; j < QCH; ++j) {
+    const int c = tid + j * NT, r = c / (KD / 8);
+    qv[j] = make_uint4(0, 0, 0, 0);
+    if (c < HR * (KD / 8) && r < rows)
+      qv[j] = *reinterpret_cast<const uint4*>(q + ((long long)b * H + h0) * KD + c * 8);
+  }
+
+  // the fused mode's new row, its words 2 * lane + 64 i (the K columns a
+  // lane takes in its warp's new scores, below)
+  constexpr int NW = KD / 64;
+  uint32_t nv[FUSED ? NW : 1];
+  if constexpr (FUSED) {
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      nv[i] = *reinterpret_cast<const uint32_t*>(fz.latent_new + (long long)b * stored +
+                                                 2 * lane + 64 * i);
+  }
+
   int ctx = context_lens[b];
   ctx = max(0, min(ctx, maxp * S));
-  const int tiles = ((FUSED ? max(ctx - 1, 0) : ctx) + TN - 1) / TN;
-  const int per = max((tiles + splits - 1) / splits, 1);
-  const int used = (tiles + per - 1) / per;  // splits with a non-empty range
-  const long long base = ((long long)b * tiles_h + ht) * splits;
-  const long long row = (long long)b * H + h;
-  const bf16* new_row = FUSED ? fz.latent_new + (long long)b * stored : nullptr;
-  float M = NEG_INF, s_new = NEG_INF;
+  // the fused mode's row ctx - 1 comes from latent_new, never the pool
+  const int end = FUSED ? max(ctx - 1, 0) : ctx;
+  // split s takes tokens [lo, hi): [0, end) cut into `splits` runs of one
+  // length, a multiple of 16 tokens
+  const int per = (max((end + splits - 1) / splits, 1) + 15) / 16 * 16;
+  const int parts = max((end + per - 1) / per, 1);
+  // one split with tokens: its block writes the output, the others leave;
+  // else every block of the cluster (the splits) takes part in the merge, an
+  // empty split with m = -2e38, l = 0, acc = 0
+  if (parts == 1 && split > 0) return;
+  const int lo = split * per, hi = max(min(lo + per, end), lo);
+  const int n = (max(hi - lo, 0) + TN - 1) / TN;
+
   if constexpr (FUSED) {
-    s_new = zt_paged::block_dot(fz.q + row * KD, new_row, KD, scale);
-    M = s_new;
     const long long slot = fz.slots[b];
-    if (h == 0 && slot >= 0 && slot < N && ctx >= 1)
-      for (int d = threadIdx.x; d < stored; d += blockDim.x)
-        fz.pool[slot * stored + d] = new_row[d];
+    if (split == 0 && ht == 0 && slot >= 0 && slot < N && ctx >= 1) {
+      const uint4* src = reinterpret_cast<const uint4*>(fz.latent_new + (long long)b * stored);
+      uint4* dst = reinterpret_cast<uint4*>(fz.pool + slot * stored);
+      for (int c = tid; c < stored / 8; c += NT) dst[c] = src[c];
+    }
   }
-  for (int s = 0; s < used; ++s) M = fmaxf(M, part_ml[(base + s) * 2 * HT + r]);
-  float Lsum = FUSED ? __expf(s_new - M) : 0.f;
-  for (int s = 0; s < used; ++s)
-    Lsum += part_ml[(base + s) * 2 * HT + HT + r] * __expf(part_ml[(base + s) * 2 * HT + r] - M);
-  if (EMIT && threadIdx.x == 0) {
-    m_out[row] = M;
-    l_out[row] = Lsum;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], TN);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const float inv = 1.f / fmaxf(Lsum, 1e-20f);
-  for (int d = threadIdx.x; d < VD; d += blockDim.x) {
-    float a = FUSED ? __bfloat162float(new_row[d]) * __expf(s_new - M) : 0.f;
-    for (int s = 0; s < used; ++s)
-      a += part_acc[((base + s) * HT + r) * VD + d] * __expf(part_ml[(base + s) * 2 * HT + r] - M);
-    if constexpr (EMIT)
-      static_cast<float*>(out)[row * VD + d] = a;
-    else
-      static_cast<bf16*>(out)[row * VD + d] = __float2bfloat16(a * inv);
+  __syncthreads();  // the barriers exist before any arrival
+
+  // thread r < 64 owns row r of every tile: its page id one tile ahead
+  const int32_t* pt = page_tables + (long long)b * maxp;
+  const long long num_pages = N / S;
+  const int s_shift = log2_if_pow2(S);
+  auto page_of = [&](int j) -> int {
+    const int t = lo + j * TN + tid;
+    return (j < n && t < hi) ? pt[s_shift >= 0 ? t >> s_shift : t / S] : 0;
+  };
+  // tile j into stage j % STAGES: the row's bytes, or zeros past hi
+  auto issue = [&](int j, int page) {
+    if (j >= n) return;
+    uint64_t* bar = &full[j % STAGES];
+    bf16* dst = ring + (j % STAGES) * (TN * LDK) + tid * LDK;
+    const int t = lo + j * TN + tid;
+    if (t < hi) {
+      const int pidx = s_shift >= 0 ? t >> s_shift : t / S;
+      const long long pg = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+      // this thread's earlier zero stores into the row, ordered before the copy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, ROW_BYTES);
+      bulk_copy(dst, pool + (pg * S + (t - pidx * S)) * stored, ROW_BYTES, bar);
+    } else {
+      uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll 8
+      for (int c = 0; c < KD / 8; ++c) d[c] = make_uint4(0, 0, 0, 0);
+      mbar_arrive(bar);  // releases the stores
+    }
+  };
+  int pg_next = 0;
+  if (tid < TN) {
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) issue(s, page_of(s));
+    pg_next = page_of(STAGES - 1);
   }
+
+  // the q fragments, while the first tiles are in flight: the rows staged
+  // once in the last stage's buffer (its first tile is issued in the loop,
+  // after every warp has passed barrier 1), then each warp's A fragments by
+  // ldmatrix
+  uint32_t qf[KSTEPS][4];
+  {
+    bf16* sQ = ring + (STAGES - 1) * (TN * LDK);
+#pragma unroll
+    for (int j = 0; j < QCH; ++j) {
+      const int c = tid + j * NT;
+      if (c < HR * (KD / 8))
+        *reinterpret_cast<uint4*>(sQ + (c / (KD / 8)) * LDK + (c % (KD / 8)) * 8) = qv[j];
+    }
+    // the stores, ordered before the stage's later bulk copies
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < KSTEPS; ++k) ldsm_x4(qf[k], sQ + a_offset(lane, LDK, 16 * k));
+    if constexpr (FUSED) {
+      // the new row's scores, s_new = scale * q . latent_new[:KD] in fp32
+      // (warp w rows 2w, 2w + 1), read where the output is written
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = 2 * warp + rr;
+        float x = 0.f;
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+          const float2 a = bf16x2_to_float2(
+              *reinterpret_cast<const uint32_t*>(sQ + r * LDK + 2 * lane + 64 * i));
+          const float2 c = bf16x2_to_float2(nv[i]);
+          x += a.x * c.x + a.y * c.y;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+        if (lane == 0) sNew[r] = x * scale;
+      }
+    }
+  }
+
+  float m_run[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o[VCOLS / 8][4];
+#pragma unroll
+  for (int j = 0; j < VCOLS / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    const bf16* st = ring + (it % STAGES) * (TN * LDK);
+    const int t0 = lo + it * TN;
+
+    // S = Q K^T over the warp's 8 keys (rows 8w .. 8w + 7 of the tile)
+    float s[4];
+    {
+      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+      const bf16* kw = st + (warp * 8 + lane % 8) * LDK + 8 * ((lane / 8) % 2);
+#pragma unroll
+      for (int k = 0; k < KSTEPS; k += 2) {
+        uint32_t b0[2], b1[2];
+        ldsm_x2(b0, kw + 16 * k);
+        ldsm_x2(b1, kw + 16 * (k + 1));
+        mma_bf16(sa, qf[k], b0[0], b0[1]);
+        mma_bf16(sb, qf[k + 1], b1[0], b1[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] = sa[e] + sb[e];
+    }
+    // scale, mask and the warp's row maxima (rows g and g + 8)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = t0 + warp * 8 + 2 * i4 + (e & 1);
+      s[e] = t < hi ? s[e] * scale : NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[e]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+    if (i4 == 0) {
+      red_m[warp * HR + g] = mx[0];
+      red_m[warp * HR + g + 8] = mx[1];
+    }
+    __syncthreads();  // 1: every warp's maxima; every warp is done with tile it - 1
+
+    // tile it + STAGES - 1 into tile it - 1's stage; the next page ids
+    if (tid < TN) {
+      issue(it + STAGES - 1, pg_next);
+      pg_next = page_of(it + STAGES);
+    }
+
+    // the running max (the same in every warp), p, and its tile in shared memory
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tmax = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) tmax = fmaxf(tmax, red_m[w * HR + g + 8 * r]);
+      const float m_new = fmaxf(m_run[r], tmax);
+      alpha[r] = __expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_r[r] *= alpha[r];
+    }
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = s[e] > NEG_INF ? __expf(s[e] - m_run[e >> 1]) : 0.f;
+      l_r[e >> 1] += p[e];
+    }
+    {
+      const int c = warp * 8 + 2 * i4;
+      if constexpr (SPLIT_P) {
+        uint32_t h0v, l0v, h1v, l1v;
+        split_bf16(p[0], p[1], h0v, l0v);
+        split_bf16(p[2], p[3], h1v, l1v);
+        *reinterpret_cast<uint32_t*>(sPh + g * LDP + c) = h0v;
+        *reinterpret_cast<uint32_t*>(sPh + (g + 8) * LDP + c) = h1v;
+        *reinterpret_cast<uint32_t*>(sPl + g * LDP + c) = l0v;
+        *reinterpret_cast<uint32_t*>(sPl + (g + 8) * LDP + c) = l1v;
+      } else {
+        *reinterpret_cast<uint32_t*>(sPh + g * LDP + c) = pack_bf16(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(sPh + (g + 8) * LDP + c) = pack_bf16(p[2], p[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VCOLS / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+    __syncthreads();  // 2: the p tile
+
+    // O += P V over the warp's 64 V columns
+#pragma unroll
+    for (int kk = 0; kk < TN / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      ldsm_x4(ah, sPh + a_offset(lane, LDP, 16 * kk));
+      if constexpr (SPLIT_P) ldsm_x4(al, sPl + a_offset(lane, LDP, 16 * kk));
+#pragma unroll
+      for (int np = 0; np < VCOLS / 16; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, st + bt_offset(lane, LDK, 16 * kk, warp * VCOLS + 16 * np));
+        mma_bf16(o[2 * np], ah, bv[0], bv[1]);
+        mma_bf16(o[2 * np + 1], ah, bv[2], bv[3]);
+        if constexpr (SPLIT_P) {
+          mma_bf16(o[2 * np], al, bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], al, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+
+  // the rows' sums over the warps (every warp holds the same m_run)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  __syncthreads();  // every warp is done with red_m
+  if (i4 == 0) {
+    red_l[warp * HR + g] = l_r[0];
+    red_l[warp * HR + g + 8] = l_r[1];
+  }
+  __syncthreads();
+  float L[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    L[r] = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) L[r] += red_l[w * HR + g + 8 * r];
+  }
+
+  const long long row0 = (long long)b * H + h0;  // the block's first output row
+  // row r's output at columns d, d + 1 from (M, L, A): FUSED folds the new
+  // row in as one more partial (m = s_new, l = 1, acc = its V)
+  auto write2 = [&](int r, int d, float M, float Lr, float a0, float a1) {
+    const long long row = row0 + r;
+    if constexpr (EMIT) {
+      *reinterpret_cast<float2*>(static_cast<float*>(out) + row * VD + d) = make_float2(a0, a1);
+      return;
+    } else {
+      if constexpr (FUSED) {
+        const float sn = sNew[r];
+        const float M2 = fmaxf(M, sn);
+        const float fa = __expf(M - M2), fb = __expf(sn - M2);
+        const float2 v = bf16x2_to_float2(
+            *reinterpret_cast<const uint32_t*>(fz.latent_new + (long long)b * stored + d));
+        Lr = Lr * fa + fb;
+        a0 = a0 * fa + v.x * fb;
+        a1 = a1 * fa + v.y * fb;
+      }
+      const float inv = 1.f / fmaxf(Lr, 1e-20f);
+      *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + row * VD + d) =
+          pack_bf16(a0 * inv, a1 * inv);
+    }
+  };
+
+  if (parts == 1) {
+#pragma unroll
+    for (int j = 0; j < VCOLS / 8; ++j) {
+      const int d = warp * VCOLS + 8 * j + 2 * i4;
+      if (g < rows) write2(g, d, m_run[0], L[0], o[j][0], o[j][1]);
+      if (g + 8 < rows) write2(g + 8, d, m_run[1], L[1], o[j][2], o[j][3]);
+    }
+    if (EMIT && warp == 0 && i4 == 0) {
+      if (g < rows) m_out[row0 + g] = m_run[0], l_out[row0 + g] = L[0];
+      if (g + 8 < rows) m_out[row0 + g + 8] = m_run[1], l_out[row0 + g + 8] = L[1];
+    }
+    return;
+  }
+
+  // several splits, merged on chip: every block of the cluster puts its O
+  // [16][512] and (m, l) in its own shared memory (the ring is free: every
+  // copy has been consumed); block k merges columns [k * 512 / C, +512 / C)
+  // of the C blocks, in split order, through distributed shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = splits, rank = split;  // the cluster is the sequence's splits
+  float* sMLo = reinterpret_cast<float*>(smem);        // this block's m [HR], L [HR]
+  float* sW = sMLo + 2 * HR;                            // the splits' weights [C][HR]
+  float* sRow = sW + MAX_SPLITS * HR;                   // the rows' M [HR], L [HR]
+  float* sO = reinterpret_cast<float*>(smem + O_OFF);  // [HR][VD]
+#pragma unroll
+  for (int j = 0; j < VCOLS / 8; ++j) {
+    const int d = warp * VCOLS + 8 * j + 2 * i4;
+    *reinterpret_cast<float2*>(sO + g * VD + d) = make_float2(o[j][0], o[j][1]);
+    *reinterpret_cast<float2*>(sO + (g + 8) * VD + d) = make_float2(o[j][2], o[j][3]);
+  }
+  if (warp == 0 && i4 == 0) {
+    sMLo[g] = m_run[0], sMLo[HR + g] = L[0];
+    sMLo[g + 8] = m_run[1], sMLo[HR + g + 8] = L[1];
+  }
+  cluster.sync();  // every block's O and (m, l)
+  if (tid < rows) {
+    float M = NEG_INF, Ls = 0.f, m_p[MAX_SPLITS], l_p[MAX_SPLITS];
+#pragma unroll
+    for (int p = 0; p < MAX_SPLITS; ++p)
+      if (p < C) {
+        const float* ml = cluster.map_shared_rank(sMLo, p);
+        m_p[p] = ml[tid], l_p[p] = ml[HR + tid];
+        M = fmaxf(M, m_p[p]);
+      }
+#pragma unroll
+    for (int p = 0; p < MAX_SPLITS; ++p)
+      if (p < C) {
+        const float f = __expf(m_p[p] - M);
+        sW[p * HR + tid] = f;
+        Ls += l_p[p] * f;
+      }
+    sRow[tid] = M, sRow[HR + tid] = Ls;
+    if (EMIT && rank == 0) m_out[row0 + tid] = M, l_out[row0 + tid] = Ls;
+  }
+  __syncthreads();  // sW, sRow
+  const int cols = VD / C, c0 = rank * cols;
+  for (int c = tid; c < rows * (cols / 4); c += NT) {
+    const int r = c / (cols / 4), d = c0 + (c % (cols / 4)) * 4;
+    float4 v[MAX_SPLITS];
+#pragma unroll
+    for (int p = 0; p < MAX_SPLITS; ++p)  // every peer's load in flight at once
+      if (p < C) v[p] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sO, p) + r * VD + d);
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < MAX_SPLITS; ++p)
+      if (p < C) {
+        const float f = sW[p * HR + r];
+        A.x += v[p].x * f, A.y += v[p].y * f, A.z += v[p].z * f, A.w += v[p].w * f;
+      }
+    write2(r, d, sRow[r], sRow[HR + r], A.x, A.y);
+    write2(r, d + 2, sRow[r], sRow[HR + r], A.z, A.w);
+  }
+  cluster.sync();  // no block leaves while a peer reads its shared memory
 }
 
-template <int KD, int VD>
-int launch(void* out, float* m_out, float* l_out, void* part_acc, void* part_ml,
-           const void* q, const void* pool,
-           const void* page_tables, const void* context_lens, const LatentRows& fz, int B,
-           int H, long long N, int stored, int maxp, int S, float scale, int splits,
-           cudaStream_t stream) {
-  using L = Smem<KD, VD>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(mla_decode_kernel<KD, VD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+// Sets the dynamic shared-memory attribute of an instantiation, and its
+// leave to launch clusters of 16 (above the portable 8), once per device.
+template <bool EMIT, bool FUSED>
+int configure() {
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  static bool done[64] = {};
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    cudaError_t e = cudaFuncSetAttribute(mla_decode_kernel<EMIT, FUSED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mla_decode_kernel<EMIT, FUSED>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    done[dev] = true;
   }
-  const int tiles_h = (H + HT - 1) / HT;
-  mla_decode_kernel<KD, VD><<<dim3(splits, tiles_h, B), NT, L::BYTES, stream>>>(
-      (float*)part_acc, (float*)part_ml, (const bf16*)q, (const bf16*)pool,
-      (const int32_t*)page_tables, (const int32_t*)context_lens, H, N, stored, maxp, S, scale,
-      fz.latent_new != nullptr ? 1 : 0);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  auto merge = fz.latent_new != nullptr ? mla_merge_kernel<KD, VD, false, true>
-               : m_out != nullptr       ? mla_merge_kernel<KD, VD, true, false>
-                                        : mla_merge_kernel<KD, VD, false, false>;
-  merge<<<dim3(H, B), 128, 0, stream>>>(
-      out, m_out, l_out, (const float*)part_acc, (const float*)part_ml,
-      (const int32_t*)context_lens, fz, H, tiles_h, splits, maxp, S, N, stored, scale);
-  return (int)cudaGetLastError();
+  return 0;
+}
+
+// a launch of the grid in clusters of cl blocks along the splits
+inline cudaLaunchConfig_t config(dim3 grid, int cl, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool EMIT, bool FUSED>
+int launch(void* out, float* m_out, float* l_out, const void* q, const void* pool,
+           const void* page_tables, const void* context_lens, const LatentRows& fz, int B, int H,
+           long long N, int stored, int maxp, int S, float scale, int splits,
+           cudaStream_t stream) {
+  if (int e = configure<EMIT, FUSED>()) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(dim3(splits, (H + HR - 1) / HR, B), splits, stream, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, mla_decode_kernel<EMIT, FUSED>, out, m_out, l_out,
+                                 (const bf16*)q, (const bf16*)pool,
+                                 (const int32_t*)page_tables, (const int32_t*)context_lens, fz,
+                                 H, N, stored, maxp, S, scale);
+}
+
+// the checks both entry points share: splits a power of two up to 16 (its
+// columns of the merge, 512 / splits, a whole number of float4)
+int check(int KD_, int VD_, int stored, int S, int splits, const void* pool) {
+  if (KD_ != KD || VD_ != VD || stored < KD || stored % 8 || S < 1 || splits < 1 ||
+      splits > MAX_SPLITS || (splits & (splits - 1)) || (uintptr_t)pool % 16)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
-// Supported (the wrapper checks): bf16 q [B, H, KD] and pool [N, stored] with
-// (KD, VD) = (576, 512), stored >= KD and a multiple of 8; scratch part_acc
-// fp32 [B, ceil(H / 16), splits, 16, VD] and part_ml fp32
-// [B, ceil(H / 16), splits, 2, 16], 32-byte aligned; out bf16 [B, H, VD], or
-// with m_out and l_out (fp32 [B, H]) non-null the partial mode: out fp32
-// [B, H, VD] receives the unnormalized accumulator.
-extern "C" int zt_mla_decode(void* out, float* m_out, float* l_out, void* part_acc,
-                             void* part_ml, const void* q,
-                             const void* pool, const void* page_tables,
-                             const void* context_lens, int B, int H, int KD, int VD,
-                             long long N, int stored, int maxp, int S, float scale,
-                             int splits, void* stream) {
+// Supported (the wrapper checks): bf16 q [B, H, 576] and pool [N, stored]
+// (16-byte aligned) with stored >= 576 and a multiple of 8, any page size S,
+// any H; splits 1, 2, 4, 8 or 16 (launched as one cluster of that many
+// blocks a sequence and head tile: at most zt_mla_decode_max_clusters of
+// them fit the card at once); out bf16 [B, H, 512], or with m_out and l_out
+// (fp32 [B, H]) non-null the partial mode: out fp32 [B, H, 512] receives the
+// unnormalized accumulator. Returns the CUDA error code.
+extern "C" int zt_mla_decode(void* out, float* m_out, float* l_out, const void* q,
+                             const void* pool, const void* page_tables, const void* context_lens,
+                             int B, int H, int KD_, int VD_, long long N, int stored, int maxp,
+                             int S, float scale, int splits, void* stream) {
   if (B == 0 || H == 0) return 0;
-  if (splits < 1 || stored < KD || stored % 8) return (int)cudaErrorInvalidValue;
+  if (int e = check(KD_, VD_, stored, S, splits, pool)) return e;
   if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (KD == 576 && VD == 512)
-    return launch<576, 512>(out, m_out, l_out, part_acc, part_ml, q, pool, page_tables,
-                            context_lens, LatentRows{}, B, H, N, stored, maxp, S, scale, splits,
-                            st);
-  return (int)cudaErrorInvalidValue;
+  if (m_out != nullptr)
+    return launch<true, false>(out, m_out, l_out, q, pool, page_tables, context_lens,
+                               LatentRows{}, B, H, N, stored, maxp, S, scale, splits, st);
+  return launch<false, false>(out, nullptr, nullptr, q, pool, page_tables, context_lens,
+                              LatentRows{}, B, H, N, stored, maxp, S, scale, splits, st);
 }
 
 // The fused mode (header): as zt_mla_decode without the partial outputs, plus
-// bf16 latent_new [B, stored] and int32 slot_mapping [B]; pool is written at
-// slot_mapping[b] (>= 0) with row b of latent_new. Returns the CUDA error code.
-extern "C" int zt_mla_decode_fused(void* out, void* part_acc, void* part_ml, const void* q,
-                                   void* pool, const void* latent_new, const void* slot_mapping,
-                                   const void* page_tables, const void* context_lens, int B,
-                                   int H, int KD, int VD, long long N, int stored, int maxp,
-                                   int S, float scale, int splits, void* stream) {
+// bf16 latent_new [B, stored] (16-byte aligned) and int32 slot_mapping [B];
+// pool is written at slot_mapping[b] (>= 0) with row b of latent_new.
+extern "C" int zt_mla_decode_fused(void* out, const void* q, void* pool, const void* latent_new,
+                                   const void* slot_mapping, const void* page_tables,
+                                   const void* context_lens, int B, int H, int KD_, int VD_,
+                                   long long N, int stored, int maxp, int S, float scale,
+                                   int splits, void* stream) {
   if (B == 0 || H == 0) return 0;
-  if (splits < 1 || stored < KD || stored % 8) return (int)cudaErrorInvalidValue;
-  const LatentRows fz{(const bf16*)q, (const bf16*)latent_new, (const int32_t*)slot_mapping,
-                      (bf16*)pool};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (KD == 576 && VD == 512)
-    return launch<576, 512>(out, nullptr, nullptr, part_acc, part_ml, q, pool, page_tables,
-                            context_lens, fz, B, H, N, stored, maxp, S, scale, splits, st);
-  return (int)cudaErrorInvalidValue;
+  if (int e = check(KD_, VD_, stored, S, splits, pool)) return e;
+  if ((uintptr_t)latent_new % 16) return (int)cudaErrorInvalidValue;
+  const LatentRows fz{(const bf16*)latent_new, (const int32_t*)slot_mapping, (bf16*)pool};
+  return launch<false, true>(out, nullptr, nullptr, q, pool, page_tables, context_lens, fz, B, H,
+                             N, stored, maxp, S, scale, splits, (cudaStream_t)stream);
+}
+
+// How many blocks of the latent decode kernel one SM holds at once (the three
+// modes share one shared-memory size); D is the output's width (512).
+extern "C" int zt_mla_decode_blocks_per_sm(int D, int* blocks) {
+  if (D != VD) return (int)cudaErrorInvalidValue;
+  if (int e = configure<false, false>()) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks,
+                                                            mla_decode_kernel<false, false>, NT,
+                                                            SMEM);
+}
+
+// How many clusters of cl blocks (1, 2, 4, 8 or 16) the card holds at once:
+// a cluster's blocks share a GPC, so SMs left over in a GPC hold none, and a
+// GPC with fewer free SMs than cl holds no cluster of cl.
+extern "C" int zt_mla_decode_max_clusters(int cl, int* clusters) {
+  if (cl < 1 || cl > MAX_SPLITS || (cl & (cl - 1))) return (int)cudaErrorInvalidValue;
+  if (int e = configure<false, false>()) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(dim3(cl), cl, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, mla_decode_kernel<false, false>, &cfg);
 }

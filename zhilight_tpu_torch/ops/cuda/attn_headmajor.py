@@ -36,9 +36,23 @@ The MLA latent mode of ``paged_decode_attention_hm`` (``v_dim > 0``: one
 shared latent row per token, scores over its first ``k_dim`` elements, values
 its first ``v_dim``) is :func:`paged_mla_decode`, the counterpart of
 ``zhilight_tpu/ops/pallas/paged_attention.py`` ``paged_mla_decode`` (:791);
-its CUDA kernel is ``csrc/mla_decode.cu`` and its plain version
-:func:`paged_mla_decode_plain`. ``paged_decode_attention_hm(..., v_dim=...)``
-goes there.
+its CUDA kernel is ``csrc/mla_decode.cu`` (576 / 512 bf16 latents, any number
+of heads, any page size) and its plain version :func:`paged_mla_decode_plain`.
+``paged_decode_attention_hm(..., v_dim=...)`` goes there. The kernel is a
+split-context flash decode on the tensor cores, one launch a layer: blocks of
+16 heads, one wave of equal 16-token runs of the context (:func:`mla_splits`:
+a power of two up to 16), each latent row copied once (one bulk copy a row)
+for all 16 heads; the splits of a (sequence, head tile) are one thread block
+cluster and merge on chip, through distributed shared memory. Bound on the
+H100: bytes (each latent row read once a head tile). Its normal mode rounds
+the unnormalized probabilities to bf16 before P.V and divides by ``l`` last,
+as the TPU kernel (``_kernel_hm``) does: :func:`paged_mla_decode_twin`
+rounds the same way, and :func:`paged_mla_decode_plain` where the XLA path
+rounds (the normalized probabilities). Its partial mode, like the fused latent mode
+(``ops/cuda/paged_attention.paged_mla_decode_fused``), keeps the
+probabilities unrounded, as the reference's ``_kernel_bs`` does: the kernel
+puts each through P.V as two bf16 halves. What holds it back is in the
+kernel's header (a tile's trips through shared memory, above all).
 
 Like the TPU kernels, an empty slot (``context_lens[b] == 0``) yields zeros.
 
@@ -53,8 +67,8 @@ apart, ``m``, ``l`` ``[B, Hkv, G]`` and ``acc`` ``[B, Hkv, G, D]`` (MLA:
 acc = 0. The partial modes are the same CUDA kernels with their last pass
 writing the partials (``*_partial`` wrappers, each with its own launch
 counter), and have plain versions beside them (``*_partial_plain``), whose
-probabilities stay fp32 (both kernels round them to bf16 for P.V, inside the
-partials' tolerance).
+probabilities stay fp32 (the head-major kernels round them to bf16 for P.V,
+inside the partials' tolerance; the latent kernel does not round them).
 """
 
 from __future__ import annotations
@@ -80,6 +94,7 @@ __all__ = [
     "paged_decode_attention_hm_q_partial_plain",
     "paged_mla_decode",
     "paged_mla_decode_plain",
+    "paged_mla_decode_twin",
     "paged_mla_decode_partial",
     "paged_mla_decode_partial_plain",
     "check_scales",
@@ -208,7 +223,8 @@ _OCCUPANCY = {"attn_headmajor": "zt_decode_attention_hm_blocks_per_sm",
               "attn_headmajor_q": "zt_decode_attention_hm_q_blocks_per_sm",
               "paged_attention": "zt_paged_decode_attention_blocks_per_sm",
               "paged_attention_q": "zt_paged_decode_attention_q_blocks_per_sm",
-              "paged_attention_fused": "zt_paged_decode_attention_fused_blocks_per_sm"}
+              "paged_attention_fused": "zt_paged_decode_attention_fused_blocks_per_sm",
+              "mla_decode": "zt_mla_decode_blocks_per_sm"}
 
 
 def _capacity(device, D: int, lib: str) -> int:
@@ -230,7 +246,8 @@ def _capacity(device, D: int, lib: str) -> int:
 # shrunk. One stream at a time uses them, as the engine runs decode; every
 # split-context decode kernel shares them: the head-major bf16 and int8
 # kernels and the slot-major ones (ops/cuda/paged_attention.py), since each
-# launch leaves them at zero before the next on the same stream starts.
+# launch leaves them at zero before the next on the same stream starts (the
+# latent kernel merges on chip and takes none).
 _TICKETS: dict = {}
 
 
@@ -598,16 +615,68 @@ def paged_mla_decode_partial_plain(
     return m, l, torch.einsum("bhs,bsv->bhv", p, ctx[..., :v_dim].float())
 
 
-# blocks the latent kernel aims to keep in flight: two per SM of an H100
-_MLA_TARGET_BLOCKS = 2 * 132
+def _split_reference(scores: torch.Tensor, context_lens: torch.Tensor, splits: int) -> torch.Tensor:
+    """The max each token's p is taken against in the latent kernel at
+    ``splits`` context splits (csrc/mla_decode.cu): [0, ctx) cut into runs of
+    one length, a multiple of 16 tokens, each walked in 64-token tiles with
+    a running max (the tile's included). ``scores`` [B, H, KV], masked."""
+    ref = torch.full_like(scores, NEG_INF)
+    KV = scores.shape[-1]
+    for b, ctx in enumerate(context_lens.tolist()):
+        end = max(0, min(int(ctx), KV))
+        per = -(-max(-(-end // splits), 1) // 16) * 16
+        for lo in range(0, end, per):
+            run = torch.full_like(scores[b, :, 0], NEG_INF)
+            for t0 in range(lo, min(lo + per, end), 64):
+                t1 = min(t0 + 64, lo + per, end)
+                run = torch.maximum(run, scores[b, :, t0:t1].amax(-1))
+                ref[b, :, t0:t1] = run[:, None]
+    return ref
+
+
+def paged_mla_decode_twin(
+    q_eff: torch.Tensor,         # [B, H, k_dim]
+    latent_pool: torch.Tensor,   # [N, stored], stored >= k_dim
+    page_tables: torch.Tensor,   # [B, maxp] int; < 0 => padding
+    context_lens: torch.Tensor,  # [B] int
+    page_size: int,
+    scale: float,
+    v_dim: int,
+    splits: int = 0,
+) -> torch.Tensor:
+    """The plain version in the kernels' rounding order (the TPU kernel's
+    ``_kernel_hm`` in its latent mode, and the CUDA kernel's normal mode): the
+    unnormalized ``p = exp(s - m)`` is rounded to the pool's dtype before P.V,
+    ``l`` sums it unrounded, and the division by ``max(l, 1e-20)`` comes last;
+    :func:`paged_mla_decode_plain` rounds the normalized probabilities, as
+    the XLA path does. ``m`` is one max over the whole context (the TPU
+    kernel's, when its pages fit one fetch group), or with ``splits`` > 0 the
+    running max the CUDA kernel keeps at that split count
+    (:func:`_split_reference`), each rounded p then rescaled in fp32 to the
+    context's max, as the kernel's merge does."""
+    k_dim = q_eff.shape[-1]
+    ctx = latent_pool[slot_indices(page_tables, page_size)]  # [B, KV, stored]
+    scores = torch.einsum("bhx,bsx->bhs", q_eff.float(), ctx[..., :k_dim].float()) * scale
+    k_pos = torch.arange(ctx.shape[1], device=q_eff.device)[None, :]
+    mask = (k_pos < context_lens[:, None])[:, None]
+    m, l, p = _partial_probs(scores, mask)
+    if splits:
+        masked = torch.where(mask, scores, NEG_INF)
+        ref = _split_reference(masked, context_lens, splits)
+        p = torch.where(mask, torch.exp(masked - ref), 0.0)
+        rescale = torch.where(mask, torch.exp(ref - m[..., None]), 0.0)
+        p = p.to(latent_pool.dtype).float() * rescale
+    else:
+        p = p.to(latent_pool.dtype).float()
+    acc = torch.einsum("bhs,bsv->bhv", p, ctx[..., :v_dim].float())
+    return (acc / l.clamp_min(1e-20)[..., None]).to(q_eff.dtype)
 
 
 def _entry_mla():
     fn = _build.library("mla_decode").zt_mla_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i, i,
-                       ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -662,8 +731,9 @@ def paged_mla_decode_partial(
 paged_mla_decode_partial.launches = 0
 
 
-def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim,
-                partial: bool):
+def check_mla(what: str, q_eff, latent_pool, page_tables, context_lens, v_dim: int):
+    """The latent kernel's shape, type and layout rules (shared with the
+    fused mode); returns (B, H, k_dim, N, stored, maxp)."""
     if not q_eff.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q_eff.device}")
     B, H, k_dim = q_eff.shape
@@ -676,7 +746,6 @@ def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, 
         raise NotImplementedError(
             f"{what} kernel: k_dim {k_dim}, v_dim {v_dim}, row of {stored} elements "
             "(built for 576/512, rows a multiple of 16 bytes)")
-    maxp = page_tables.shape[1]
     if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise ValueError(f"{what}: page_tables and context_lens must be int32")
     if page_tables.shape[0] != B or context_lens.shape != (B,):
@@ -684,14 +753,53 @@ def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, 
     for t in (q_eff, latent_pool, page_tables, context_lens):
         if t.device != q_eff.device or not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous and on one device")
-    # the context is cut over `splits` blocks per (sequence, 16 heads); the
-    # count comes from the shapes alone, the kernel reads the real lengths and
-    # blocks without tokens exit
-    head_tiles = (H + 15) // 16
-    splits = max(-(-_MLA_TARGET_BLOCKS // (B * head_tiles)), 1)
+    if latent_pool.data_ptr() % 16:
+        raise ValueError(f"{what}: the pool must be 16-byte aligned")
+    return B, H, k_dim, N, stored, page_tables.shape[1]
+
+
+# the latent kernel's split plan (csrc/mla_decode.cu): a power of two up to
+# 16, the splits of a (sequence, head tile) launched as one cluster
+_MLA_MAX_SPLITS = 16
+_MLA_CLUSTERS: dict = {}
+
+
+def mla_splits(B: int, H: int, max_ctx: int, capacity: int, clusters: dict) -> int:
+    """The latent kernel's split count: as many as let every block fit on
+    the card at once (:func:`decode_splits` over its blocks of 16 heads,
+    ``capacity`` blocks), taken down to a power of two up to 16 for which the
+    card holds a cluster per (sequence, head tile) at once (``clusters``:
+    cluster size -> the clusters of that size the card holds)."""
+    want = min(decode_splits(B, 1, H, max_ctx, capacity), _MLA_MAX_SPLITS)
+    splits = 1 << (want.bit_length() - 1)
+    while splits > 1 and clusters.get(splits, 0) < B * -(-H // _ROWS):
+        splits //= 2
+    return splits
+
+
+def mla_plan(device, B: int, H: int, max_ctx: int) -> int:
+    """:func:`mla_splits` on this device: the kernel's occupancy and the
+    clusters of 2 to 16 blocks the card holds (a cluster's blocks share a
+    GPC), asked once per device."""
+    clusters = _MLA_CLUSTERS.get(device)
+    if clusters is None:
+        fn = _build.library("mla_decode").zt_mla_decode_max_clusters
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        clusters = {}
+        for cl in (2, 4, 8, 16):
+            n = ctypes.c_int(0)
+            _build.check(fn(cl, ctypes.byref(n)), "mla_decode clusters")
+            clusters[cl] = n.value
+        _MLA_CLUSTERS[device] = clusters
+    return mla_splits(B, H, max_ctx, _capacity(device, 512, "mla_decode"), clusters)
+
+
+def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim,
+                partial: bool, splits: int = 0):
+    B, H, k_dim, N, stored, maxp = check_mla(what, q_eff, latent_pool, page_tables, context_lens,
+                                             v_dim)
+    splits = splits or mla_plan(q_eff.device, B, H, maxp * page_size)
     f32 = dict(dtype=torch.float32, device=q_eff.device)
-    part_acc = torch.empty((B, head_tiles, splits, 16, v_dim), **f32)
-    part_ml = torch.empty((B, head_tiles, splits, 2, 16), **f32)
     if partial:
         m, l = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
         acc = torch.empty((B, H, v_dim), **f32)
@@ -700,10 +808,9 @@ def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, 
         result = torch.empty((B, H, v_dim), dtype=q_eff.dtype, device=q_eff.device)
         ptrs = (result.data_ptr(), None, None)
     err = _entry_mla()(
-        *ptrs, part_acc.data_ptr(), part_ml.data_ptr(), q_eff.data_ptr(),
-        latent_pool.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim,
-        v_dim, N, stored, maxp, page_size, float(scale), splits,
-        torch.cuda.current_stream(q_eff.device).cuda_stream,
+        *ptrs, q_eff.data_ptr(), latent_pool.data_ptr(),
+        page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim, v_dim, N, stored, maxp,
+        page_size, float(scale), splits, torch.cuda.current_stream(q_eff.device).cuda_stream,
     )
     _build.check(err, what)
     return result

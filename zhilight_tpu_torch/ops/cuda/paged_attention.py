@@ -56,7 +56,11 @@ block that writes the output, the splits' merge included. A frozen slot
 (``slot_mapping[b] < 0``) is not written but still attends to its new row,
 and an empty one (``ctx == 0``) gives its new V row and is not written
 either, as the TPU kernel does. Scores, probabilities and sums are fp32 and
-unrounded in every mode. The pools are
+unrounded in every mode (the kernels put p through P.V as two bf16 halves,
+hi = bf16(p) and lo = bf16(p - hi)). The latent kernel is the split-context
+decode of ``ops/cuda/attn_headmajor.paged_mla_decode`` in its fused mode, one
+launch a layer; its header (``csrc/mla_decode.cu``) says what holds it back.
+The pools are
 written in place (at ``slot_mapping[b]``; the TPU kernel rewrites the slot's
 page, row ``(ctx - 1) % page_size``, the same row for tables that agree) and
 the output is returned.
@@ -71,7 +75,7 @@ import torch
 from ...kvcache.paged import gather_scales, slot_indices
 from ..attention import NEG_INF
 from . import _build
-from .attn_headmajor import _MLA_TARGET_BLOCKS, _ptrs, _split_scratch, check_scales
+from .attn_headmajor import _ptrs, _split_scratch, check_mla, check_scales, mla_plan
 from .kv_write import _pool_2d
 
 __all__ = [
@@ -446,7 +450,7 @@ def _entry_mla_fused():
     fn = _build.library("mla_decode").zt_mla_decode_fused
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -483,32 +487,19 @@ def _launch_mla_fused(q_eff, latent_pool, latent_new, slot_mapping, page_tables,
     if not q_eff.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q_eff.device}")
     pool = _pool_2d(latent_pool)
-    B, H, k_dim = q_eff.shape
-    N, stored = pool.shape
-    if q_eff.dtype != torch.bfloat16 or pool.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{what} kernel takes bf16, got {q_eff.dtype}/{pool.dtype}")
-    if (k_dim, v_dim) != (576, 512) or stored < k_dim or stored % 8:
-        raise NotImplementedError(
-            f"{what} kernel: k_dim {k_dim}, v_dim {v_dim}, row of {stored} elements "
-            "(built for 576/512, rows of at least k_dim, a multiple of 16 bytes)")
+    B, H, k_dim, N, stored, maxp = check_mla(what, q_eff, pool, page_tables, context_lens, v_dim)
     if latent_new.shape != (B, stored):
         raise ValueError(f"{what}: rows {tuple(latent_new.shape)}, want {(B, stored)}")
     new = latent_new.to(torch.bfloat16).contiguous()
     _check_tables(what, B, slot_mapping, page_tables, context_lens)
     _check_devices(what, (q_eff, pool, new, slot_mapping, page_tables, context_lens))
-    # the context is cut over `splits` blocks per (sequence, 16 heads), as in
-    # ops/cuda/attn_headmajor.paged_mla_decode
-    head_tiles = (H + 15) // 16
-    splits = max(-(-_MLA_TARGET_BLOCKS // (B * head_tiles)), 1)
-    f32 = dict(dtype=torch.float32, device=q_eff.device)
-    part_acc = torch.empty((B, head_tiles, splits, 16, v_dim), **f32)
-    part_ml = torch.empty((B, head_tiles, splits, 2, 16), **f32)
+    splits = mla_plan(q_eff.device, B, H, maxp * page_size)
     out = torch.empty((B, H, v_dim), dtype=q_eff.dtype, device=q_eff.device)
     err = _entry_mla_fused()(
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), q_eff.data_ptr(),
-        pool.data_ptr(), new.data_ptr(), slot_mapping.data_ptr(), page_tables.data_ptr(),
-        context_lens.data_ptr(), B, H, k_dim, v_dim, N, stored, page_tables.shape[1], page_size,
-        float(scale), splits, torch.cuda.current_stream(q_eff.device).cuda_stream,
+        out.data_ptr(), q_eff.data_ptr(), pool.data_ptr(), new.data_ptr(),
+        slot_mapping.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim,
+        v_dim, N, stored, maxp, page_size, float(scale), splits,
+        torch.cuda.current_stream(q_eff.device).cuda_stream,
     )
     _build.check(err, what)
     return out

@@ -6,6 +6,16 @@ the plain PyTorch version is :func:`w4a16_ragged_matmul_plain`.
 :func:`w4a16_ragged_matmul` takes the plain version only for CPU tensors; for
 CUDA tensors it launches the kernel or raises.
 
+The kernel is ``w4a16_matmul``'s (``csrc/w4a16.cuh``, row 4's design) with
+each block offset to its m-tile's expert: m-tiles of at most 16 rows (decode)
+take the decode kernel, which dequantizes in registers straight into the
+tensor-core fragments and splits K into runs of at most 640 weight rows;
+larger m-tiles take the 64 x 128 prefill kernel. The wrapper picks the kernel
+and the split count from the shapes (:func:`plan`) and keeps the split-K
+scratch per device. Bound on the H100: bytes (each routed expert's packed
+weights, scales and zeros read once); what holds the kernel back is instruction
+issue and a block's fixed cost, as in ``w4a16_matmul`` (``PERF.md``).
+
 Rows are expert-aligned (``ops/quant.ragged_layout``): ``x`` is ``[Mp, K]`` cut
 into ``Mp / len(tile_expert)`` -row m-tiles, m-tile ``i`` belongs to expert
 ``tile_expert[i]``, and only the first ``num_occ[0]`` tiles are computed. Both
@@ -29,8 +39,9 @@ import torch
 
 from ..quant import dequant_expert_int4
 from . import _build
+from .quant_matmul import DECODE_ROWS, MAX_SPLITS, STAGE_ROWS, SplitScratch
 
-__all__ = ["w4a16_ragged_matmul", "w4a16_ragged_matmul_plain"]
+__all__ = ["w4a16_ragged_matmul", "w4a16_ragged_matmul_plain", "plan"]
 
 
 def w4a16_ragged_matmul_plain(
@@ -52,13 +63,67 @@ def w4a16_ragged_matmul_plain(
     return (out * live[:, None, None]).reshape(Mp, -1).to(x.dtype)
 
 
+# the kernels (csrc/quant_ragged.cu): 0 decode (m-tiles of at most 16
+# rows, 256 columns a block), 1 prefill (64 x 128 output tiles)
+BLOCK_COLS = (256, 128)
+
+
+def plan(tiles: int, TM: int, N: int, K: int, E: int, sms: int) -> tuple:
+    """(config, splits) of a call over ``tiles`` m-tiles of ``TM`` rows.
+
+    Prefill m-tiles (TM > 16) take one split: a chunk's m-tiles times the
+    column blocks already fill the card several times. Decode takes the
+    fewest splits whose runs fit the staged x slice (``DECODE_ROWS``), more
+    when the m-tiles that can be live would leave SMs idle (about one block
+    an SM, as ``quant_matmul.plan``). The live m-tiles are not read back: at
+    most one an expert, ``tiles``, or the routed rows that ``Mp`` can hold
+    beside the alignment padding of ``E + 1`` row groups (``ragged_layout``
+    with an overflow bucket, as ``models/moe.py`` calls it)."""
+    if TM > 16:
+        return 1, 1
+    stages = -(-(K // 2) // STAGE_ROWS[0])
+    least = -(-stages // (DECODE_ROWS // STAGE_ROWS[0]))
+    live = max(1, min(tiles, E, tiles * TM - (E + 1) * (TM - 1)))
+    fill = max(1, sms // (live * -(-N // BLOCK_COLS[0])))
+    s = min(max(least, min(fill, MAX_SPLITS)), stages)
+    return 0, -(-stages // -(-stages // s))  # whole runs of ceil(stages / s) stages
+
+
 def _entry():
     fn = _build.library("quant_ragged").zt_w4a16_ragged_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+_DEVICES: dict = {}
+
+
+def _run(x, w_p, scales, zeros, tile_expert, num_occ, out, cfg_splits=None) -> None:
+    """Launch the kernel on checked operands; ``cfg_splits`` overrides the
+    plan (chip_smoke.py's sweep)."""
+    Mp, K = x.shape
+    E, N, G = w_p.shape[0], out.shape[1], scales.shape[1]
+    tiles = tile_expert.shape[0]
+    TM = Mp // tiles
+    dev = _DEVICES.get(x.device)
+    if dev is None:
+        dev = _DEVICES[x.device] = SplitScratch(x.device)
+    key = (tiles, TM, N, K, E)
+    cfg, splits = cfg_splits or dev.plans.get(key) or dev.plans.setdefault(
+        key, plan(tiles, TM, N, K, E, dev.sms))
+    part = tickets = None
+    if splits > 1:
+        part, tickets = dev.scratch(splits, Mp, N, tiles * -(-N // BLOCK_COLS[cfg]))
+    vec16 = int(N % 16 == 0 and w_p.data_ptr() % 16 == 0)
+    err = _entry()(
+        out.data_ptr(), x.data_ptr(), w_p.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
+        tile_expert.data_ptr(), num_occ.data_ptr(), part, tickets, tiles, TM, E, N, K, G, cfg,
+        splits, vec16, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "w4a16_ragged_matmul")
 
 
 def w4a16_ragged_matmul(
@@ -108,12 +173,7 @@ def w4a16_ragged_matmul(
                      (num_occ, 4)):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError("w4a16_ragged_matmul: tensors must be contiguous, aligned and on one device")
-    err = _entry()(
-        out.data_ptr(), x.data_ptr(), w_p.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
-        tile_expert.data_ptr(), num_occ.data_ptr(), tiles, TM, E, N, K, G,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(err, "w4a16_ragged_matmul")
+    _run(x, w_p, scales, zeros, tile_expert, num_occ, out)
     w4a16_ragged_matmul.launches += 1
     return out
 

@@ -59,11 +59,18 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            over latents holding NaN in every row no sequence attends to and
            with V columns near 6 (2b against its twin, 2bp and the fused
            mode against the fp32 plain output), and timed at other split
-           counts; with ``--parent-csrc DIR`` the quant_ragged.cu and
-           mla_decode.cu in DIR (an earlier tree's csrc) are built apart with
-           nvcc and timed beside this tree's in turns at DeepSeek-V2-Lite's
-           shapes (the grouped matmul's decode and chunk rows over both
-           stacks, the latent decode's three modes at batch 8, context 2816);
+           counts; the attention prologues (rows 1 and 7 redesigned: the
+           rope of q and k, an int8 pool's quantization and scale scatter
+           and the row write in one launch) bit-exact against their plain
+           versions at MiniCPM-2B's, Qwen2.5-14B's (bf16 and int8 pools),
+           Qwen3-8B's, head_dim 256's and DeepSeek-V2-Lite's shapes, decode
+           batches in both rope styles, 512 and 2048 tokens, every int8 code,
+           and timed (device and host-inclusive) beside the sequence of
+           launches each replaces; with ``--parent-csrc DIR`` the
+           kv_write.cu and kv_write_2d.cu in DIR (an earlier tree's csrc)
+           are built apart with nvcc and that sequence, with the earlier
+           tree's row write, is timed beside the prologue in turns, device
+           and host-inclusive, at the same shapes;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -171,9 +178,12 @@ INT8_TOL = 1e-2
 LOGIT_TOL = 5e-2            # max |kernel - plain| logits / max |plain logits|
 
 KERNELS = {
+    # row 1 and row 7 in their copy modes (write_kv, write_latent): the main
+    # paths write their rows through the prologues below
     "write_rows_hm": dict(
         source="zhilight_tpu_torch/csrc/kv_write.cu",
         replaces="zhilight_tpu/ops/pallas/kv_write.py:606",
+        mode="copy: write_kv's row write; the per-step path takes rope_write_rows_hm",
     ),
     "paged_decode_attention_hm": dict(
         source="zhilight_tpu_torch/csrc/attn_headmajor.cu",
@@ -198,6 +208,7 @@ KERNELS = {
     "write_rows_2d": dict(
         source="zhilight_tpu_torch/csrc/kv_write_2d.cu",
         replaces="zhilight_tpu/ops/pallas/kv_write.py:324",
+        mode="copy: write_latent's row write; the per-step path takes rope_write_rows_2d",
     ),
     # the MLA latent mode (v_dim > 0) of the TPU decode kernel, reached through
     # zhilight_tpu/ops/pallas/paged_attention.py:791 (paged_mla_decode)
@@ -263,18 +274,28 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/mla_decode.cu",
         replaces="zhilight_tpu/ops/pallas/paged_attention.py:844",
     ),
+    # the attention prologues: rows 1 and 7 with the rope of q and k, the int8
+    # quantization and the scale scatter folded in, one launch a layer
+    "rope_write_rows_hm": dict(
+        source="zhilight_tpu_torch/csrc/kv_write.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:606",
+    ),
+    "rope_write_rows_2d": dict(
+        source="zhilight_tpu_torch/csrc/kv_write_2d.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:324",
+    ),
 }
-ATTENTION_KERNELS = ("write_rows_hm", "paged_decode_attention_hm",
+ATTENTION_KERNELS = ("rope_write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
 INT8_KERNELS = ("paged_decode_attention_hm_q", "paged_prefill_attention_hm_packed_q")
 # what each main path must launch, and what it must not
 PATHS = {
     "MiniCPM-2B": ATTENTION_KERNELS,
     "Qwen2.5-14B-GPTQ-Int4": ATTENTION_KERNELS + ("w4a16_matmul",),
-    "Qwen2.5-14B-GPTQ-Int4-int8kv": ("write_rows_hm", "w4a16_matmul") + INT8_KERNELS,
+    "Qwen2.5-14B-GPTQ-Int4-int8kv": ("rope_write_rows_hm", "w4a16_matmul") + INT8_KERNELS,
     # MLA prefill is plain torch, as the reference leaves it to XLA
-    "DeepSeek-V2-Lite-GPTQ-Int4": ("write_rows_2d", "paged_mla_decode", "w4a16_ragged_matmul",
-                                   "w4a16_matmul"),
+    "DeepSeek-V2-Lite-GPTQ-Int4": ("rope_write_rows_2d", "paged_mla_decode",
+                                   "w4a16_ragged_matmul", "w4a16_matmul"),
     "Qwen3-8B-FP8": ATTENTION_KERNELS + ("fp8_block_matmul",),
     # W8A8 adds no hand-written kernel: the int8 product is the library's
     "MiniCPM-2B-W8A8": ATTENTION_KERNELS,
@@ -285,25 +306,30 @@ PATHS = {
     # decode windows with side-buffered KV writes (ZT_WINDOW_KV=1): the decode
     # kernels in their partial mode and one flush a layer a window, never the
     # normal decode; the row writes are prefill's
-    "MiniCPM-2B-window": ("write_rows_hm", "paged_prefill_attention_hm_packed",
+    "MiniCPM-2B-window": ("rope_write_rows_hm", "paged_prefill_attention_hm_packed",
                           "paged_decode_attention_hm_partial", "flush_side_rows_hm"),
-    "Qwen2.5-14B-GPTQ-Int4-int8kv-window": ("write_rows_hm", "w4a16_matmul",
+    "Qwen2.5-14B-GPTQ-Int4-int8kv-window": ("rope_write_rows_hm", "w4a16_matmul",
                                             "paged_prefill_attention_hm_packed_q",
                                             "paged_decode_attention_hm_q_partial",
                                             "flush_side_rows_hm"),
-    "DeepSeek-V2-Lite-GPTQ-Int4-window": ("write_rows_2d", "w4a16_ragged_matmul", "w4a16_matmul",
-                                          "paged_mla_decode_partial", "flush_side_rows_2d"),
+    "DeepSeek-V2-Lite-GPTQ-Int4-window": ("rope_write_rows_2d", "w4a16_ragged_matmul",
+                                          "w4a16_matmul", "paged_mla_decode_partial",
+                                          "flush_side_rows_2d"),
     # fused write + attend (ZT_FUSED_KV=1): the fused kernel in decode, never
     # the unfused decode; the row writes are prefill's (FUSED_PREFILL_WRITES)
     "H2O-Danube-1.8B-fused": ("write_rows_2d_pair", "paged_decode_attention_fused"),
-    "DeepSeek-V2-Lite-GPTQ-Int4-fused": ("write_rows_2d", "w4a16_ragged_matmul", "w4a16_matmul",
-                                         "paged_mla_decode_fused"),
+    "DeepSeek-V2-Lite-GPTQ-Int4-fused": ("rope_write_rows_2d", "w4a16_ragged_matmul",
+                                         "w4a16_matmul", "paged_mla_decode_fused"),
     # an int8 head-major pool at head_dim 256 (4 layers at Gemma-2-9B's heads)
-    "Gemma-2-9B-geometry-4-layers-int8kv": ("write_rows_hm",) + INT8_KERNELS,
+    "Gemma-2-9B-geometry-4-layers-int8kv": ("rope_write_rows_hm",) + INT8_KERNELS,
 }
 # a fused path's row write: layers x prefill forwards launches, none in decode
 FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "write_rows_2d_pair",
-                        "DeepSeek-V2-Lite-GPTQ-Int4-fused": "write_rows_2d"}
+                        "DeepSeek-V2-Lite-GPTQ-Int4-fused": "rope_write_rows_2d"}
+# every kernel that writes pool rows outside a window's flush (a window
+# writes none of them until its end)
+ROW_WRITES = ("write_rows_hm", "write_rows_2d", "rope_write_rows_hm", "rope_write_rows_2d",
+              "paged_write_rows", "write_rows_2d_pair")
 # prompt lengths of a path's 8 requests (32 new tokens each)
 SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
 DEEPSEEK_LENS = [7, 100, 513, 1500, 2816, 16, 250, 40]  # max_model_len 3072
@@ -870,23 +896,20 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
 
 
 def parent_kernels(csrc: str):
-    """Kernels of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc),
-    built by nvcc with this tree's flags into a temporary directory (each
-    ``.cu`` with the headers beside it) and driven through their own C
-    signatures, those before this tree's redesign of rows 8 and 2b: the
-    grouped int4 matmul without split-K scratch, and the latent decode with
-    its separate merge kernel (partials [B, head tiles, splits, 16, 512] and
-    [.., 2, 16], ``ceil(264 / (B * head tiles))`` splits). Returns {name: fn}:
-    ragged(x, w_p, scales, zeros, tile_expert, num_occ), mla(q, pool, tables,
-    ctx, S, scale, partial) (partial: fp32 (m, l, acc)), mla_fused(q, pool,
-    new, slots, tables, ctx, S, scale), over latent pools [N, 576]."""
+    """The row writes of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc):
+    kv_write.cu and kv_write_2d.cu, built by nvcc with this tree's flags into
+    a temporary directory (each ``.cu`` with the headers beside it) and driven
+    through their C signatures, which are those of this tree's copy modes
+    (``zt_write_rows_hm``, ``zt_write_rows_2d``). Returns {name: fn}: hm(pool,
+    k, v, slots) over contiguous rows [T, Hkv, D] in the pool's type, and
+    rows_2d(pool, rows, slots) over a pool [1, N, X] and contiguous rows."""
     import ctypes
     import tempfile
 
     from zhilight_tpu_torch.ops.cuda import _build
 
     out_dir = tempfile.mkdtemp(prefix="zt_parent_")
-    names = ("quant_ragged", "mla_decode")
+    names = ("kv_write", "kv_write_2d")
     libs = {}
     t0 = time.monotonic()
     procs = [(name, subprocess.Popen(
@@ -899,136 +922,66 @@ def parent_kernels(csrc: str):
         libs[name] = ctypes.CDLL(f"{out_dir}/{name}.so")
     print(f"kernels: parent's {', '.join(names)} built in {time.monotonic() - t0:.1f} s",
           flush=True)
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    rag = libs["quant_ragged"].zt_w4a16_ragged_matmul
-    rag.argtypes = [p] * 7 + [i] * 6 + [p]
-    dec = libs["mla_decode"].zt_mla_decode
-    dec.argtypes = [p] * 9 + [i, i, i, i, ll, i, i, i, f, i, p]
-    fus = libs["mla_decode"].zt_mla_decode_fused
-    fus.argtypes = [p] * 9 + [i, i, i, i, ll, i, i, i, f, i, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    w_hm = libs["kv_write"].zt_write_rows_hm
+    w_hm.argtypes = [p, p, p, p, i, i, ll, i, p]
+    w_2d = libs["kv_write_2d"].zt_write_rows_2d
+    w_2d.argtypes = [p, p, p, i, ll, i, p]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
-    def ragged(x, w_p, scales, zeros, tile_expert, num_occ):
-        E, Kh, N = w_p.shape
-        tiles = tile_expert.shape[0]
-        out = torch.empty(x.shape[0], N, dtype=x.dtype, device=x.device)
-        _build.check(rag(out.data_ptr(), x.data_ptr(), w_p.data_ptr(), scales.data_ptr(),
-                         zeros.data_ptr(), tile_expert.data_ptr(), num_occ.data_ptr(), tiles,
-                         x.shape[0] // tiles, E, N, 2 * Kh, scales.shape[1], stream()),
-                     "parent ragged")
-        return out
+    def hm(pool, k, v, slots):
+        H, N, X = pool.shape
+        _build.check(w_hm(pool.data_ptr(), k.data_ptr(), v.data_ptr(), slots.data_ptr(),
+                          k.shape[0], H, N, X // 2 * pool.element_size(), stream()),
+                     "parent write_rows_hm")
+        return pool
 
-    def scratch(q):
-        """The parent's per-call partials (its _MLA_TARGET_BLOCKS = 264)."""
-        B, H = q.shape[:2]
-        ht = -(-H // 16)
-        n = max(-(-264 // (B * ht)), 1)
-        f32 = dict(dtype=torch.float32, device=q.device)
-        return (n, torch.empty((B, ht, n, 16, 512), **f32), torch.empty((B, ht, n, 2, 16), **f32))
+    def rows_2d(pool, rows, slots):
+        N, X = pool.shape[1:]
+        _build.check(w_2d(pool.data_ptr(), rows.data_ptr(), slots.data_ptr(), rows.shape[0], N,
+                          X * pool.element_size(), stream()), "parent write_rows_2d")
+        return pool
 
-    def mla(q, pool, tables, ctx, S, scale, partial=False):
-        B, H, KD = q.shape
-        n, acc, ml = scratch(q)
-        f32 = dict(dtype=torch.float32, device=q.device)
-        if partial:
-            m, l, o = torch.empty((B, H), **f32), torch.empty((B, H), **f32), torch.empty((B, H, 512), **f32)
-            ptrs, res = (o.data_ptr(), m.data_ptr(), l.data_ptr()), (m, l, o)
-        else:
-            res = torch.empty((B, H, 512), dtype=q.dtype, device=q.device)
-            ptrs = (res.data_ptr(), None, None)
-        _build.check(dec(*ptrs, acc.data_ptr(), ml.data_ptr(), q.data_ptr(), pool.data_ptr(),
-                         tables.data_ptr(), ctx.data_ptr(), B, H, KD, 512, pool.shape[0],
-                         pool.shape[1], tables.shape[1], S, scale, n, stream()),
-                     "parent latent decode")
-        return res
-
-    def mla_fused(q, pool, new, slots, tables, ctx, S, scale):
-        B, H, KD = q.shape
-        n, acc, ml = scratch(q)
-        out = torch.empty((B, H, 512), dtype=q.dtype, device=q.device)
-        _build.check(fus(out.data_ptr(), acc.data_ptr(), ml.data_ptr(), q.data_ptr(),
-                         pool.data_ptr(), new.data_ptr(), slots.data_ptr(), tables.data_ptr(),
-                         ctx.data_ptr(), B, H, KD, 512, pool.shape[0], pool.shape[1],
-                         tables.shape[1], S, scale, n, stream()),
-                     "parent fused latent decode")
-        return out
-
-    return dict(ragged=ragged, mla=mla, mla_fused=mla_fused)
+    return dict(hm=hm, rows_2d=rows_2d)
 
 
-def compare_parent(rng, csrc: str) -> None:
-    """Rows 8, 2b, 2bp and the fused latent mode of an earlier tree against
-    this tree's, in turns (parent, this tree, this tree, parent) on the same
-    inputs, device time by the same ``time_ms``: the grouped int4 matmul at
-    DeepSeek-V2-Lite's gate/up and down stacks (64 experts; down K 1408 padded
-    to 1536), a decode step's 48 routed rows (TM 8) and a 512-token chunk's
-    3072 (TM 64), with a cold L2 as in the kernels phase; the latent decode in
-    its three modes at batch 8, context 2816, 16 heads. Each pair is also held
-    against each other (the matmul within W4A16_TOL of the largest output,
-    the attention within ATTN_TOL, the partials by the partial-mode error,
-    the fused pools bit-equal). One JSON line."""
-    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
-    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
-    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
+def sequence_hm(write, pool, q, k, v, cos, sin, neox, slots, k_scale=None, v_scale=None):
+    """The per-layer sequence the packed pool's prologue replaces (the parent
+    tree's ``attention_layer`` and ``write_kv``): rope of q and of k, then the
+    row write through ``write`` (rows contiguous in the pool's type), an int8
+    pool's quantization and scale scatter around it. Returns q rotated."""
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.rope import apply_rope_rot
 
-    parent = parent_kernels(csrc)
-    res = {}
-    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    cold = _turns(res, flush=scratch.zero_)
-    for wname, (K, N, pad) in DEEPSEEK_STACKS.items():
-        w_p, s, z = _expert_stack(rng, K, N, pad)
-        for cname, R_, TM, seed in (("decode, 48 rows", 48, 8, 1), ("chunk, 3072 rows", 3072, 64, 2)):
-            x, _, tile_expert, num_occ = _ragged_rows(rng, _routed(R_, seed), TM, K, pad)
-            args = (x, w_p, s, z, tile_expert, num_occ)
-            a, b = parent["ragged"](*args), R.w4a16_ragged_matmul(*args)
-            live = torch.arange(x.shape[0], device="cuda") < num_occ * TM
-            e = ((a[live].float() - b[live].float()).abs().max() / b[live].float().abs().max()).item()
-            if not e <= W4A16_TOL:
-                raise AssertionError(f"parent vs this tree, row 8 {wname} {cname}: {e}")
-            cold(f"row 8, DeepSeek-V2-Lite {wname}, {cname}", lambda: parent["ragged"](*args),
-                 lambda: R.w4a16_ragged_matmul(*args))
-        del w_p, s, z
-    del scratch
-
-    turns = _turns(res)
-    S, B, CTX, H = 16, 8, 2816, 16
-    scale = 1.0 / np.sqrt(192)
-    maxp = 3072 // S
-    tables = _dev(np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32))
-    ctx = _dev(np.full(B, CTX, np.int32))
-    pool, q, new = _randn(rng, B * maxp * S, 576), _randn(rng, B, H, 576), _randn(rng, B, 576)
-    args = (q, pool, tables, ctx, S, scale)
-    e = (parent["mla"](*args).float() - A.paged_mla_decode(*args, v_dim=512).float()).abs().max().item()
-    if not e <= ATTN_TOL:
-        raise AssertionError(f"parent vs this tree, row 2b: {e}")
-    turns("row 2b, DeepSeek-V2-Lite batch 8, context 2816, 16 heads",
-          lambda: parent["mla"](*args), lambda: A.paged_mla_decode(*args, v_dim=512))
-    e = _partial_err(parent["mla"](*args, partial=True),
-                     A.paged_mla_decode_partial(*args, v_dim=512), np.full(B, CTX))
-    if not e <= ATTN_TOL:
-        raise AssertionError(f"parent vs this tree, row 2bp: {e}")
-    turns("row 2bp, DeepSeek-V2-Lite batch 8, context 2816, 16 heads",
-          lambda: parent["mla"](*args, partial=True),
-          lambda: A.paged_mla_decode_partial(*args, v_dim=512))
-    slots = (tables[:, (CTX - 1) // S] * S + (CTX - 1) % S).to(torch.int32)
-    pools = [pool.clone() for _ in range(2)]
-    a = parent["mla_fused"](q, pools[0], new, slots, tables, ctx, S, scale)
-    b = PA.paged_mla_decode_fused(q, pools[1], new, slots, tables, ctx, S, scale, 512)
-    e = (a.float() - b.float()).abs().max().item()
-    if not (e <= ATTN_TOL and torch.equal(*pools)):
-        raise AssertionError(f"parent vs this tree, fused latent: {e} or pools differ")
-    fargs = (q, pool, new, slots, tables, ctx, S, scale)
-    turns("row 16 latent, DeepSeek-V2-Lite batch 8, context 2816, 16 heads",
-          lambda: parent["mla_fused"](*fargs), lambda: PA.paged_mla_decode_fused(*fargs, 512))
-    print(json.dumps({"parent_compare": res}), flush=True)
+    q_rot = apply_rope_rot(q, cos, sin, neox)
+    k_rot = apply_rope_rot(k, cos, sin, neox)
+    if k_scale is None:
+        write(pool, k_rot.to(pool.dtype).contiguous(), v.to(pool.dtype).contiguous(), slots)
+        return q_rot
+    rows, scales = W.quantize_rows(torch.stack((k_rot, v)))
+    write(pool, rows[0], rows[1], slots)
+    W.scatter_scales(k_scale, v_scale, scales, slots)
+    return q_rot
 
 
-def _turns(res: dict, flush=None):
+def sequence_2d(write, pool, q_pe, c_kv, k_pe, cos, sin, neox, slots):
+    """The per-layer sequence the latent pool's prologue replaces (the parent
+    tree's ``mla_attention_layer`` and ``write_latent``): rope of q_pe and of
+    k_pe, the latent row's concatenation, the row write. Returns q_pe rotated."""
+    from zhilight_tpu_torch.ops.rope import apply_rope_rot
+
+    q_rot = apply_rope_rot(q_pe, cos, sin, neox)
+    k_rot = apply_rope_rot(k_pe[:, None, :], cos, sin, neox)[:, 0]
+    write(pool, torch.cat([c_kv, k_rot], dim=-1), slots)
+    return q_rot
+
+
+def _turns(res: dict, flush=None, backlog: bool = True):
     """Time an earlier tree's call and this tree's in turns (parent, this
-    tree, this tree, parent), into res[label]."""
+    tree, this tree, parent), into res[label]; ``backlog=False`` times the
+    per-call cost with the host's time (``time_ms``)."""
     def turns(label, old, new):
-        t = [time_ms(old, flush=flush), time_ms(new, flush=flush), time_ms(new, flush=flush),
-             time_ms(old, flush=flush)]
+        t = [time_ms(f, flush=flush, backlog=backlog) for f in (old, new, new, old)]
         res[label] = dict(parent_ms=[t[0], t[3]], new_ms=[t[1], t[2]])
         print(f"kernels: parent vs this tree, {label}: parent {t[0]:.4f} / {t[3]:.4f} ms, "
               f"this tree {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
@@ -1043,6 +996,10 @@ def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
         pair = f" unfused_pair_ms={r['unfused_pair_ms']:.4f}" if "unfused_pair_ms" in r else ""
         if "call_ms" in r:
             pair += f" call_ms={r['call_ms']:.4f} (host-inclusive, no backlog)"
+        if "sequence_ms" in r:
+            pair += (f" ({r['device_kernels']} device kernel(s)) replaced sequence "
+                     f"ms={r['sequence_ms']:.4f} call_ms={r['sequence_call_ms']:.4f} "
+                     f"({r['sequence_launches']} device kernels)")
         print(f"kernels: {name} at {label}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
               f"library_ms={_ms(r['library_ms'])}{pair}", flush=True)
@@ -1157,9 +1114,7 @@ def phase_kernels(rec: dict, args) -> None:
                              CL=3200, QL=512, int8=int8),
         }
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
-    if args.parent_csrc:
-        compare_parent(np.random.default_rng(6), args.parent_csrc)
-
+    kernels_prologue(rec, np.random.default_rng(6), args.parent_csrc)
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
     kernels_fp8(rec, rng)
@@ -1171,6 +1126,231 @@ def phase_kernels(rec: dict, args) -> None:
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
               f"library_ms={_ms(r['library_ms'])}", flush=True)
+
+
+# the packed pool's prologue at the main paths' attention shapes: label ->
+# (query heads, KV heads, head_dim, int8 pool, decode batch)
+PROLOGUE_SHAPES = {
+    "MiniCPM-2B, 36 / 36 heads of 64, bf16 pool": (36, 36, 64, False, 16),
+    "Qwen2.5-14B, 40 / 8 heads of 128, bf16 pool": (40, 8, 128, False, 8),
+    "Qwen2.5-14B, 40 / 8 heads of 128, int8 pool": (40, 8, 128, True, 8),
+    "Qwen3-8B, 32 / 8 heads of 128, bf16 pool": (32, 8, 128, False, 8),
+    "head_dim 256 (16 / 8 heads), int8 pool": (16, 8, 256, True, 8),
+}
+# the latent pool's: DeepSeek-V2-Lite (16 heads, q_pe of 64 in rows of 128 + 64,
+# latent rows of 512 + 64), decode batch 8
+LATENT_PROLOGUE = dict(H=16, nope=128, R=64, L=512, B=8)
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+
+
+def device_kernels(fn) -> int:
+    """Kernels (and copies) the device runs for one call of ``fn``, counted
+    in a torch.profiler trace, as ``profile`` counts a decode step's."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _prologue_bound(nbytes: float, ops: float):
+    """The larger of the bytes' time and the fp32 operations' time, ms."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rope_rows(rng, T, D, neox):
+    from zhilight_tpu_torch.config.model_config import RopeConfig
+    from zhilight_tpu_torch.ops.rope import build_rope_table
+
+    table = build_rope_table(D, 1e6, RopeConfig(neox_style=neox), 32768, 32768)
+    return table.rot_values(_dev(rng.integers(0, 32000, T).astype(np.int32)))
+
+
+def _prologue_slots(rng, T, N, skip):
+    """T distinct slots; with ``skip`` one -1 and one past the pool (neither
+    writes a row; both scales go to the spare column)."""
+    slots = rng.permutation(N)[:T].astype(np.int32)
+    if skip and T > 1:
+        slots[T // 3], slots[T - 1] = -1, N + 3
+    return _dev(slots)
+
+
+def prologue_hm_case(rng, T, Hq, Hkv, D, int8, neox, skip):
+    """Inputs of the packed pool's prologue as the model hands them over: q,
+    k, v views of one fused qkv output [T, (Hq + 2 Hkv) D] (token 0's V rows
+    hold 1 and c / 127 for every code c, so an int8 pool receives every code),
+    cos/sin [T, D], slots. Returns (args, pool tensors, N)."""
+    N = max(T // 16 + 4, 64) * 16
+    qkv = _randn(rng, T, (Hq + 2 * Hkv) * D)
+    codes = (torch.arange(-127, 128, device="cuda") / 127).repeat(Hkv * D // 255 + 1)
+    row0 = torch.cat([torch.ones(Hkv, 1, device="cuda"),
+                      codes[: Hkv * (D - 1)].reshape(Hkv, -1)], 1)
+    qkv[0, (Hq + Hkv) * D:] = row0.reshape(-1).to(torch.bfloat16)
+    q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
+    cos, sin = _rope_rows(rng, T, D, neox)
+    slots = _prologue_slots(rng, T, N, skip)
+    if int8:
+        pool = [torch.zeros(Hkv, N, 2 * D, dtype=torch.int8, device="cuda"),
+                torch.full((Hkv, N + 1), -1.0, device="cuda"),
+                torch.full((Hkv, N + 1), -1.0, device="cuda")]
+    else:
+        pool = [_randn(rng, Hkv, N, 2 * D)]
+    return (q, k, v, cos, sin, neox, slots), pool, N
+
+
+def prologue_2d_case(rng, T, neox, skip):
+    """Inputs of the latent pool's prologue as the model hands them over:
+    q_pe a view of the q projection [T, H, nope + R], c_kv [T, L], k_pe the
+    strided tail of kv_a [T, L + R]. Returns (args, pool)."""
+    c = LATENT_PROLOGUE
+    N = max(T // 16 + 4, 64) * 16
+    q = _randn(rng, T, c["H"], c["nope"] + c["R"])
+    kv_a = _randn(rng, T, c["L"] + c["R"])
+    cos, sin = _rope_rows(rng, T, c["R"], neox)
+    args = (q[..., c["nope"]:], _randn(rng, T, c["L"]), kv_a[:, c["L"]:], cos, sin, neox,
+            _prologue_slots(rng, T, N, skip))
+    return args, _randn(rng, 1, N, c["L"] + c["R"])
+
+
+def kernels_prologue(rec: dict, rng, parent_csrc: str = "") -> None:
+    """The attention prologues (rows 1 and 7 redesigned: rope of q and k,
+    the int8 quantization and scale scatter, the row write, one launch)
+    bit-exact against their plain versions (the same PyTorch composition on
+    the card) at PROLOGUE_SHAPES and DeepSeek-V2-Lite's latent rows: decode
+    batches in both rope styles, a 512-token chunk and four packed chunks
+    (2048 tokens), with a skipped row and one past the pool; every int8 code
+    written; q rotated, pools and scales equal, the spare column holding a
+    skipped row's scales. Then timed at each shape, decode and a 512-token
+    chunk: device time, host-inclusive time (no backlog), the plain version,
+    and the sequence of launches it replaces with this tree's copy-mode
+    kernel (rope of q and k, the write and, over an int8 pool, the
+    quantization and scatter; device and host-inclusive). No one PyTorch call
+    computes the function (library_ms null). With ``parent_csrc`` the same
+    sequence with the earlier tree's write kernel, in turns against the
+    prologue, device and host-inclusive; one JSON line."""
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.rope import apply_rope_rot
+
+    def check(name, what, run, plain, fresh, int8=False, spare=None):
+        a, b = fresh(), fresh()
+        got, want = run(*a), plain(*b)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want) and torch.equal(a[-1][0], b[-1][0])
+        if int8:  # the scales of the written rows; the spare column one skipped row's
+            N = a[-1][0].shape[1]
+            ok = ok and torch.equal(torch.unique(a[-1][0]), torch.arange(-127, 128, device="cuda",
+                                                                         dtype=torch.int8))
+            for g, w in zip(a[-1][1:], b[-1][1:]):
+                ok = ok and torch.equal(g[:, :N], w[:, :N]) and spare(g[:, N])
+        if not ok:
+            raise AssertionError(f"{name} {what}: not bit-exact")
+        print(f"kernels: {name} {what} bit-exact", flush=True)
+
+    # -- the packed pool's prologue ---------------------------------------------
+    for label, (Hq, Hkv, D, int8, B) in PROLOGUE_SHAPES.items():
+        cases = [(B, True), (B, False), (512, True)]
+        if label.startswith("Qwen2.5"):
+            cases.append((2048, True))
+        for T, neox in cases:
+            seed = int(rng.integers(2**31))
+
+            def fresh():
+                args, pool, _ = prologue_hm_case(np.random.default_rng(seed), T, Hq, Hkv, D, int8,
+                                                 neox, True)
+                return (*args, pool)
+
+            def skipped_scales(col, fresh=fresh):
+                q, k, v, cos, sin, neox_, slots, pool = fresh()
+                N = pool[0].shape[1]
+                _, sc = W.quantize_rows(torch.stack((apply_rope_rot(k, cos, sin, neox_), v)))
+                cands = sc[:, (slots < 0) | (slots >= N)]  # [2, n, Hkv]
+                return bool(((col[:, None] == cands.permute(2, 0, 1).reshape(Hkv, -1)).any(1)).all())
+
+            check("rope_write_rows_hm", f"{label}, T={T}, {'neox' if neox else 'interleaved'}",
+                  lambda *x: W.rope_write_rows_hm(x[-1][0], *x[:-1], *x[-1][1:]),
+                  lambda *x: W.rope_write_rows_hm_plain(x[-1][0], *x[:-1], *x[-1][1:]),
+                  fresh, int8, skipped_scales)
+
+    parent = parent_kernels(parent_csrc) if parent_csrc else None
+    compare = {}
+    shapes = {}
+    for label, (Hq, Hkv, D, int8, B) in PROLOGUE_SHAPES.items():
+        for T, what in ((B, f"decode step, {B} tokens"), (512, "512-token chunk")):
+            args, pool, N = prologue_hm_case(rng, T, Hq, Hkv, D, int8, True, False)
+            run = lambda: W.rope_write_rows_hm(pool[0], *args, *pool[1:])
+            seq = lambda: sequence_hm(W.write_rows_hm, pool[0], *args, *pool[1:])
+            nbytes = (T * (Hq + 2 * Hkv) * D * 2 + 2 * T * D * 4 + T * Hq * D * 2
+                      + T * Hkv * 2 * D * pool[0].element_size() + T * 4
+                      + (2 * T * Hkv * 4 if int8 else 0))
+            ops = 3 * T * (Hq + Hkv) * D + (6 * T * Hkv * 2 * D if int8 else 0)
+            t_b, by = _prologue_bound(nbytes, ops)
+            shapes[f"{label}, {what}"] = dict(
+                ms=time_ms(run), call_ms=time_ms(run, backlog=False),
+                plain_ms=time_ms(lambda: W.rope_write_rows_hm_plain(pool[0], *args, *pool[1:])),
+                library_ms=None, bound_ms=t_b, bound_by=by,
+                sequence_ms=time_ms(seq), sequence_call_ms=time_ms(seq, backlog=False),
+                sequence_launches=device_kernels(seq), device_kernels=device_kernels(run),
+            )
+            if parent is not None:
+                old = lambda: sequence_hm(parent["hm"], pool[0], *args, *pool[1:])
+                pa = [x.clone() for x in pool]
+                pb = [x.clone() for x in pool]
+                qa = sequence_hm(parent["hm"], pa[0], *args, *pa[1:])
+                qb = W.rope_write_rows_hm(pb[0], *args, *pb[1:])
+                if not (torch.equal(qa, qb) and all(torch.equal(x, y) for x, y in zip(pa, pb))):
+                    raise AssertionError(f"parent vs this tree, row 1 {label} {what}: differ")
+                for backlog in (True, False):
+                    _turns(compare, backlog=backlog)(
+                        f"row 1, {label}, {what}, {'device' if backlog else 'host-inclusive'}",
+                        old, run)
+    _record(rec, "rope_write_rows_hm", 0.0,
+            "Qwen2.5-14B, 40 / 8 heads of 128, bf16 pool, decode step, 8 tokens", shapes)
+
+    # -- the latent pool's prologue --------------------------------------------
+    c = LATENT_PROLOGUE
+    for T, neox in ((c["B"], True), (c["B"], False), (512, True), (2048, True)):
+        seed = int(rng.integers(2**31))
+
+        def fresh():
+            args, pool = prologue_2d_case(np.random.default_rng(seed), T, neox, True)
+            return (*args, [pool])
+
+        check("rope_write_rows_2d", f"DeepSeek-V2-Lite, T={T}, {'neox' if neox else 'interleaved'}",
+              lambda *x: W.rope_write_rows_2d(x[-1][0], *x[:-1]),
+              lambda *x: W.rope_write_rows_2d_plain(x[-1][0], *x[:-1]), fresh)
+    shapes = {}
+    for T, what in ((c["B"], f"decode step, {c['B']} tokens"), (512, "512-token chunk")):
+        args, pool = prologue_2d_case(rng, T, True, False)
+        run = lambda: W.rope_write_rows_2d(pool, *args)
+        seq = lambda: sequence_2d(W.write_rows_2d, pool, *args)
+        H, R, L = c["H"], c["R"], c["L"]
+        nbytes = T * (2 * H * R * 2 + L * 2 + R * 2 + 2 * R * 4 + (L + R) * 2 + 4)
+        t_b, by = _prologue_bound(nbytes, 3 * T * (H + 1) * R)
+        label = f"DeepSeek-V2-Lite, 16 heads, rows of 512 + 64, {what}"
+        shapes[label] = dict(
+            ms=time_ms(run), call_ms=time_ms(run, backlog=False),
+            plain_ms=time_ms(lambda: W.rope_write_rows_2d_plain(pool, *args)),
+            library_ms=None, bound_ms=t_b, bound_by=by,
+            sequence_ms=time_ms(seq), sequence_call_ms=time_ms(seq, backlog=False),
+            sequence_launches=device_kernels(seq), device_kernels=device_kernels(run),
+        )
+        if parent is not None:
+            old = lambda: sequence_2d(parent["rows_2d"], pool, *args)
+            pa, pb = pool.clone(), pool.clone()
+            if not (torch.equal(sequence_2d(parent["rows_2d"], pa, *args),
+                                W.rope_write_rows_2d(pb, *args)) and torch.equal(pa, pb)):
+                raise AssertionError(f"parent vs this tree, row 7 {what}: differ")
+            for backlog in (True, False):
+                _turns(compare, backlog=backlog)(
+                    f"row 7, {label}, {'device' if backlog else 'host-inclusive'}", old, run)
+    _record(rec, "rope_write_rows_2d", 0.0, list(shapes)[0], shapes)
+    if parent is not None:
+        print(json.dumps({"parent_compare": compare}), flush=True)
 
 
 def kernels_w4a16(rec: dict, rng) -> None:
@@ -2423,6 +2603,8 @@ def _counters():
         "paged_mla_decode_partial": A.paged_mla_decode_partial,
         "paged_decode_attention_fused": PA.paged_decode_attention_fused,
         "paged_mla_decode_fused": PA.paged_mla_decode_fused,
+        "rope_write_rows_hm": W.rope_write_rows_hm,
+        "rope_write_rows_2d": W.rope_write_rows_2d,
     }
 
 
@@ -2457,6 +2639,9 @@ def plain_kernels():
     with mock.patch.object(paged_mod, "kv_write",
                            SimpleNamespace(write_rows_hm=W.write_rows_hm_plain,
                                            write_rows_2d=W.write_rows_2d_plain,
+                                           rope_write_rows_hm=W.rope_write_rows_hm_plain,
+                                           rope_write_rows_2d=W.rope_write_rows_2d_plain,
+                                           scatter_scales=W.scatter_scales,
                                            paged_write_rows=W.paged_write_rows_plain,
                                            write_rows_2d_pair=W.write_rows_2d_pair_plain)), \
          mock.patch.object(llama_mod, "paged_attention", SimpleNamespace(
@@ -2806,10 +2991,10 @@ def window_check(label: str, ex, prompts, K: int = 8) -> None:
             meta = DecodeMeta(positions=pos, slot_mapping=slots(rows_b, pos), page_tables=tables,
                               context_lens=pos + 1)
             valid[:, k] = True
-            w0 = counters["write_rows_hm"].launches + counters["write_rows_2d"].launches
+            w0 = sum(counters[w].launches for w in ROW_WRITES)
             got, cache, side = L.forward_decode_window(ex.params, cfg, ex.rope, tokens, meta, cache,
                                                        side, valid, n, k)
-            writes += counters["write_rows_hm"].launches + counters["write_rows_2d"].launches - w0
+            writes += sum(counters[w].launches for w in ROW_WRITES) - w0
             want, step_cache = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, step_cache)
             if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
                 raise AssertionError(f"{label}: non-finite window logits at step {k}")
@@ -3784,9 +3969,9 @@ def main() -> int:
     ap.add_argument("--phases", default="kernels,serve,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
-                    help="an earlier tree's zhilight_tpu_torch/csrc: build its "
-                         "quant_ragged.cu and mla_decode.cu apart and time them beside this "
-                         "tree's kernels in the kernels phase")
+                    help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu "
+                         "and kv_write_2d.cu apart and time the rope + row-write sequence "
+                         "through them beside this tree's prologues in the kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

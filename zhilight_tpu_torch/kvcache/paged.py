@@ -30,7 +30,12 @@ Every array of a cache has its slot dimension at dim 1 (hence the leading unit
 dimensions), so the engine's pool-row operations serve every layout.
 
 Writes update the pool in place (PyTorch has no buffer donation to emulate):
-:func:`write_kv` returns the same cache object it was given.
+:func:`write_kv` returns the same cache object it was given. A model's
+per-step writes go through the attention prologues instead:
+:func:`rope_write_kv` (packed pool) and :func:`rope_write_latent` (latent
+pool) rotate q and k and write the rows, quantized over an int8 pool, in one
+kernel launch, bit-equal to :func:`apply_rope_rot` followed by
+:func:`write_kv` / :func:`write_latent`.
 
 A decode window with side-buffered KV writes (``ZT_WINDOW_KV=1``) writes no
 row while it runs and flushes each layer's window rows at its end:
@@ -51,6 +56,7 @@ import torch
 from ..ops.cuda import kv_write
 
 __all__ = ["KVCache", "new_kv_cache", "new_latent_cache", "write_kv", "write_latent",
+           "rope_write_kv", "rope_write_latent",
            "flush_side_kv", "flush_side_latent", "side_scale_index", "gather_kv", "gather_hm",
            "gather_scales", "gather_latent", "slot_indices"]
 
@@ -159,14 +165,9 @@ def new_latent_cache(
     )
 
 
-def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-(token, head) absmax int8 quantization of K or V rows [..., D]:
-    int8 rows and their fp32 scales [...] (an all-zero row gets the 1e-8
-    floor; ties round half to even, as the reference's ``jnp.round``)."""
-    xf = x.float()
-    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
-    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
-    return q, scale
+# per-(token, head) absmax int8 quantization of K or V rows (kept beside the
+# prologue kernel's plain version, which shares it)
+_quantize_rows = kv_write.quantize_rows
 
 
 def _rows_tile_aligned(rows: torch.Tensor) -> bool:
@@ -201,17 +202,53 @@ def write_kv(
         # K and V in one pass: half the small launches of two
         rows, scales = _quantize_rows(torch.stack((k_new, v_new)))  # [2, T, Hkv, D], [2, T, Hkv]
         _write_rows(cache, layer, rows[0], rows[1], slot_mapping)
-        # a skipped row (slot < 0, or past the pool) lands in the spare last column
-        N = cache.num_slots
-        idx = slot_mapping.long()
-        idx = torch.where((idx < 0) | (idx >= N), N, idx)
-        cache.k_scale[layer][:, idx] = scales[0].t()
-        cache.v_scale[layer][:, idx] = scales[1].t()
+        kv_write.scatter_scales(cache.k_scale[layer], cache.v_scale[layer], scales, slot_mapping)
         return cache
     dtype = cache.k[layer].dtype
     _write_rows(cache, layer, k_new.to(dtype).contiguous(), v_new.to(dtype).contiguous(),
                 slot_mapping)
     return cache
+
+
+def rope_write_kv(
+    cache: KVCache,
+    layer: int,
+    q: torch.Tensor,             # [T, Hq, D]
+    k: torch.Tensor,             # [T, Hkv, D]
+    v: torch.Tensor,             # [T, Hkv, D]
+    cos_f: torch.Tensor,         # [T, D] fp32 (RopeTable.rot_values)
+    sin_f: torch.Tensor,
+    neox: bool,
+    slot_mapping: torch.Tensor,  # [T] int32; < 0 => skip
+) -> torch.Tensor:
+    """The packed pool's attention prologue: rotate q and k, write K|V rows
+    into layer ``layer``'s pool in place (an int8 cache quantizes them and
+    scatters their scales), one launch on the GPU; returns q rotated. The
+    same as :func:`apply_rope_rot` on q and k followed by :func:`write_kv`,
+    bit for bit."""
+    if not cache.packed:
+        raise ValueError("rope_write_kv: the prologue writes the packed head-major pool")
+    scales = (cache.k_scale[layer], cache.v_scale[layer]) if cache.quantized else ()
+    return kv_write.rope_write_rows_hm(cache.k[layer], q, k, v, cos_f, sin_f, neox, slot_mapping,
+                                       *scales)
+
+
+def rope_write_latent(
+    cache: KVCache,
+    layer: int,
+    q_pe: torch.Tensor,          # [T, H, rope]
+    c_kv: torch.Tensor,          # [T, kv_lora_rank]
+    k_pe: torch.Tensor,          # [T, rope]
+    cos_f: torch.Tensor,         # [T, rope] fp32
+    sin_f: torch.Tensor,
+    neox: bool,
+    slot_mapping: torch.Tensor,  # [T] int32; < 0 => skip
+) -> torch.Tensor:
+    """The latent pool's attention prologue: rotate q_pe and k_pe and write
+    the latent rows ``c_kv | rope(k_pe)`` into layer ``layer``'s pool in
+    place, one launch on the GPU; returns q_pe rotated."""
+    return kv_write.rope_write_rows_2d(cache.latent[layer], q_pe, c_kv, k_pe, cos_f, sin_f,
+                                       neox, slot_mapping)
 
 
 def write_latent(

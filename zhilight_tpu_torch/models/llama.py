@@ -11,7 +11,11 @@ write the paged KV pool in place.
 
 Every layer writes its new K and V rows (``ops.cuda.kv_write``), then
 attends over the paged pool, whose layout ``kvcache/paged.py`` picks as the
-reference does:
+reference does. Over the packed pool the rotation of q and k and the row
+write (with an int8 pool's quantization) are one kernel, the pool's attention
+prologue (``kvcache.paged.rope_write_kv``); over slot-major pools, and in the
+window and fused modes below, q and k are rotated apart and the rows written
+by ``write_kv`` or the fused kernel. The layouts:
 
 * the head-major packed pool (``2*head_dim % 128 == 0``): prefill chunks
   (single or packed) run ``ops.cuda.prefill_attention``, decode steps
@@ -55,7 +59,7 @@ import torch
 
 from ..config.model_config import ModelConfig
 from ..kvcache.paged import (KVCache, _quantize_rows, flush_side_kv, flush_side_latent,
-                             gather_kv, side_scale_index, write_kv)
+                             gather_kv, rope_write_kv, side_scale_index, write_kv)
 from ..ops.activations import gated_act
 from ..ops.attention import merge_window
 from ..ops.attention import prefill_attention as attend_chunk
@@ -145,24 +149,27 @@ def attention_layer(
     q, k, v = _qkv(p, cfg, x)
     q, k = _maybe_qk_norm(p, cfg, q, k)
     cos_f, sin_f = rot if rot is not None else rope.rot_values(positions)
-    q = apply_rope_rot(q, cos_f, sin_f, rope.neox_style)
-    k = apply_rope_rot(k, cos_f, sin_f, rope.neox_style)
     scale = 1.0 / math.sqrt(cfg.dim_head)
-
-    if side is not None:
-        out, rows = _side_window_attention(cache, layer_idx, q, k, v, meta, side, scale)
-        return linear(p["o_proj"], out), cache, rows
-
     S, sw = cache.page_size, cfg.sliding_window
-    if mode == "decode" and _use_fused_write(cache, meta.fused):
-        out = paged_attention.paged_decode_attention_fused(
-            q, cache.k[layer_idx], cache.v[layer_idx], k, v, meta.slot_mapping,
-            meta.page_tables, meta.context_lens, S, scale, sw)
-        return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
 
-    cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
-    if not cache.packed:
-        out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
+    if side is None and cache.packed:
+        # the packed pool's prologue: q and k rotated, K|V rows written (an
+        # int8 pool's quantized), one kernel launch
+        q = rope_write_kv(cache, layer_idx, q, k, v, cos_f, sin_f, rope.neox_style,
+                          meta.slot_mapping)
+    else:
+        q = apply_rope_rot(q, cos_f, sin_f, rope.neox_style)
+        k = apply_rope_rot(k, cos_f, sin_f, rope.neox_style)
+        if side is not None:
+            out, rows = _side_window_attention(cache, layer_idx, q, k, v, meta, side, scale)
+            return linear(p["o_proj"], out), cache, rows
+        if mode == "decode" and _use_fused_write(cache, meta.fused):
+            out = paged_attention.paged_decode_attention_fused(
+                q, cache.k[layer_idx], cache.v[layer_idx], k, v, meta.slot_mapping,
+                meta.page_tables, meta.context_lens, S, scale, sw)
+        else:
+            cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
+            out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
         return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
     # an int8 cache goes to the _q kernels with this layer's scales
     kv = (cache.k[layer_idx],)

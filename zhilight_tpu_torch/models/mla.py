@@ -20,6 +20,10 @@ path over gathered latents. Prefill decompresses gathered latents through
 ``kv_b_proj`` block by block with an online softmax, in plain torch as the
 reference leaves it to XLA. The softmax scale follows DeepSeek's YaRN:
 ``qk_head_dim ** -0.5 * yarn_mscale(factor, mscale_all_dim) ** 2``.
+Before attending, a prefill chunk or decode step rotates q_pe and k_pe and
+writes its latent rows ``c_kv | rope(k_pe)`` in one kernel, the latent pool's
+attention prologue (``kvcache.paged.rope_write_latent``); ``rms_norm`` of
+c_kv stays outside it.
 
 In a decode window with side-buffered writes (``side``, ``ZT_WINDOW_KV=1``)
 the step's latent row goes into the window's side buffer instead of the pool;
@@ -27,7 +31,7 @@ the latent decode kernel returns flash partials over the pool and
 :func:`_side_window_mla` merges the window's rows in plain torch
 (``zhilight_tpu/models/mla.py:215-281``). A decode step with
 ``DecodeMeta.fused`` (``ZT_FUSED_KV=1``; the side buffer takes precedence)
-skips ``write_latent`` and calls ``ops.cuda.paged_attention``'s
+skips the prologue's row write and calls ``ops.cuda.paged_attention``'s
 ``paged_mla_decode_fused``, which writes the latent row and attends in one
 kernel, on the CPU too through its plain version
 (``zhilight_tpu/models/mla.py:175-179, 190-212``).
@@ -41,7 +45,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..config.model_config import ModelConfig
-from ..kvcache.paged import KVCache, gather_latent, write_latent
+from ..kvcache.paged import KVCache, gather_latent, rope_write_latent
 from ..ops.attention import NEG_INF, merge_window
 from ..ops.cuda import attn_headmajor, paged_attention
 from ..ops.linear import linear
@@ -120,23 +124,26 @@ def mla_attention_layer(
 
     q_nope, q_pe = _project_q(p, cfg, x)
     cos_f, sin_f = rot if rot is not None else rope.rot_values(positions)
-    q_pe = apply_rope_rot(q_pe, cos_f, sin_f, rope.neox_style)
-
     kv_a = linear(p["kv_a_proj"], x)  # [T, lora + rope]
     c_kv = rms_norm(kv_a[..., : m.kv_lora_rank], p["kv_a_norm"]["w"], cfg.eps)
-    k_pe = kv_a[..., m.kv_lora_rank :][:, None, :]  # [T, 1, rope]
-    k_pe = apply_rope_rot(k_pe, cos_f, sin_f, rope.neox_style)[:, 0]
-
-    latent = torch.cat([c_kv, k_pe], dim=-1)  # [T, latent_dim]
+    k_pe = kv_a[..., m.kv_lora_rank :]  # [T, rope], a view
     w_uk, w_uv = _kv_b_weights(p, cfg)
-    if side is not None:
-        out, rows = _side_window_mla(cache, layer_idx, q_nope, q_pe, latent, w_uk, w_uv, meta,
-                                     side, scale, m)
-        return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache, rows
-    if mode == "decode" and meta.fused:
+
+    if side is None and not (mode == "decode" and meta.fused):
+        # the latent pool's prologue: q_pe and k_pe rotated, the latent row
+        # c_kv | rope(k_pe) written, one kernel launch
+        q_pe = rope_write_latent(cache, layer_idx, q_pe, c_kv, k_pe, cos_f, sin_f,
+                                 rope.neox_style, meta.slot_mapping)
+    else:
+        q_pe = apply_rope_rot(q_pe, cos_f, sin_f, rope.neox_style)
+        k_pe = apply_rope_rot(k_pe[:, None, :], cos_f, sin_f, rope.neox_style)[:, 0]
+        latent = torch.cat([c_kv, k_pe], dim=-1)  # [T, latent_dim]
+        if side is not None:
+            out, rows = _side_window_mla(cache, layer_idx, q_nope, q_pe, latent, w_uk, w_uv,
+                                         meta, side, scale, m)
+            return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache, rows
         out = _mla_decode_fused(q_nope, q_pe, latent, cache, layer_idx, w_uk, w_uv, meta, scale, m)
         return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache
-    cache = write_latent(cache, layer_idx, latent, meta.slot_mapping)
 
     if mode == "prefill" and isinstance(meta, PackedPrefillMeta):
         # the projections above ran on the fused [NS*TC] token batch;

@@ -1,5 +1,7 @@
 """KV-pool row writes: into the head-major packed pool, into a 2-D pool, and
-into separate slot-major K and V pools.
+into separate slot-major K and V pools; and the attention prologues of the
+packed and the latent pool, which rotate q and k and write the rows in one
+launch.
 
 Counterpart of ``zhilight_tpu/ops/pallas/kv_write.py`` ``write_rows_hm``
 (:606). The CUDA kernel is ``csrc/kv_write.cu``; the plain PyTorch version
@@ -22,6 +24,23 @@ to the pool's dtype first as the reference does. Its CUDA kernel is
 ``csrc/kv_write_2d.cu``, its plain version :func:`write_rows_2d_plain`. The
 reference's ``page_size`` argument served its page-granular TPU kernels and
 is dropped, as in :func:`write_rows_hm`.
+
+:func:`rope_write_rows_hm` is the packed pool's attention prologue, the
+redesign of row 1 (``write_rows_hm``) into one launch a layer:
+``q_rot = apply_rope_rot(q)`` is returned, and the pool rows become
+``apply_rope_rot(k) | v``; over an int8 pool (scales given) the rows are
+quantized first by :func:`quantize_rows` and their scales scattered by
+:func:`scatter_scales`, a skipped row's into the spare column N. The CUDA
+kernel is ``csrc/kv_write.cu`` (its rope modes; the copy mode is
+:func:`write_rows_hm`), bit-equal to :func:`rope_write_rows_hm_plain`, which
+is that composition of PyTorch ops. q, k and v may be strided views (of a
+fused qkv projection's output): the kernel reads them through their strides.
+:func:`rope_write_rows_2d` is the latent pool's prologue, the redesign of
+row 7: ``q_pe`` rotated and returned, the latent row ``c_kv | rope(k_pe)``
+written (``models/mla.py``'s two rotations, concatenation and
+:func:`write_rows_2d` in one launch of ``csrc/kv_write_2d.cu``); its plain
+version is :func:`rope_write_rows_2d_plain`. cos and sin are the fp32 ``[T,
+D]`` tables of ``RopeTable.rot_values``; the kernels take bf16 rows only.
 
 :func:`paged_write_rows` (:141) and :func:`write_rows_2d_pair` (:427) write
 the separate slot-major K and V pools, ``[N, Hkv, D]`` (or ``[1, N, Hkv, D]``,
@@ -52,12 +71,16 @@ only (the caller requantizes).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
+from ..rope import apply_rope_rot
 from . import _build
 
 __all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_2d_plain",
+           "rope_write_rows_hm", "rope_write_rows_hm_plain", "rope_write_rows_2d",
+           "rope_write_rows_2d_plain", "quantize_rows", "scatter_scales",
            "paged_write_rows", "paged_write_rows_plain", "write_rows_2d_pair",
            "write_rows_2d_pair_plain", "flush_side_rows_hm", "flush_side_rows_hm_plain",
            "flush_side_rows_2d", "flush_side_rows_2d_plain", "side_slots"]
@@ -186,6 +209,197 @@ def write_rows_2d(
 
 
 write_rows_2d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# attention prologues: rope, int8 quantization and the row write
+# ---------------------------------------------------------------------------
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) absmax int8 quantization of K or V rows [..., D]:
+    int8 rows and their fp32 scales [...] (an all-zero row gets the 1e-8
+    floor; ties round half to even, as the reference's ``jnp.round``)."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def scatter_scales(k_scale: torch.Tensor, v_scale: torch.Tensor, scales: torch.Tensor,
+                   slot_mapping: torch.Tensor) -> None:
+    """Scales [2, T, Hkv] of K and V rows into the head-major ``[Hkv, N + 1]``
+    arrays at their slots, in place; a skipped row (slot < 0, or past the
+    pool) lands in the spare last column."""
+    N = k_scale.shape[1] - 1
+    idx = slot_mapping.long()
+    idx = torch.where((idx < 0) | (idx >= N), N, idx)
+    k_scale[:, idx] = scales[0].t()
+    v_scale[:, idx] = scales[1].t()
+
+
+def rope_write_rows_hm_plain(
+    pool: torch.Tensor,                      # [Hkv, N, 2D]
+    q: torch.Tensor,                         # [T, Hq, D]
+    k: torch.Tensor,                         # [T, Hkv, D]
+    v: torch.Tensor,                         # [T, Hkv, D]
+    cos_f: torch.Tensor,                     # [T, D] fp32
+    sin_f: torch.Tensor,
+    neox: bool,
+    slot_mapping: torch.Tensor,              # [T] int; < 0 => skip
+    k_scale: Optional[torch.Tensor] = None,  # int8 pool: [Hkv, N + 1] fp32
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    q_rot = apply_rope_rot(q, cos_f, sin_f, neox)
+    k_rot = apply_rope_rot(k, cos_f, sin_f, neox)
+    if k_scale is None:
+        write_rows_hm_plain(pool, k_rot.to(pool.dtype), v.to(pool.dtype), slot_mapping)
+        return q_rot
+    rows, scales = quantize_rows(torch.stack((k_rot, v)))  # [2, T, Hkv, D], [2, T, Hkv]
+    write_rows_hm_plain(pool, rows[0], rows[1], slot_mapping)
+    scatter_scales(k_scale, v_scale, scales, slot_mapping)
+    return q_rot
+
+
+def _entry_rope_hm():
+    fn = _build.library("kv_write").zt_rope_write_rows_hm
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 7 + [i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _rows_ok(x: torch.Tensor) -> bool:
+    """Rows the prologue kernels read through their strides: unit last
+    stride, every row on a 16-byte boundary."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s * x.element_size() % 16 == 0 for s in x.stride()[:-1]))
+
+
+def _tables_ok(cos_f: torch.Tensor, sin_f: torch.Tensor, T: int, D: int) -> bool:
+    return all(c.dtype == torch.float32 and c.shape == (T, D) and c.is_contiguous()
+               and c.data_ptr() % 16 == 0 for c in (cos_f, sin_f))
+
+
+def rope_write_rows_hm(pool, q, k, v, cos_f, sin_f, neox: bool, slot_mapping,
+                       k_scale=None, v_scale=None) -> torch.Tensor:
+    """Rotate q and k, write the K|V rows (quantized over an int8 pool, whose
+    scales are given) into the head-major pool in place; returns q rotated,
+    ``[T, Hq, D]``."""
+    if pool.device.type == "cpu":
+        return rope_write_rows_hm_plain(pool, q, k, v, cos_f, sin_f, neox, slot_mapping,
+                                        k_scale, v_scale)
+    if not pool.is_cuda:
+        raise NotImplementedError(f"rope_write_rows_hm: no kernel for device {pool.device}")
+    Hkv, N, X = pool.shape
+    T, Hq, D = q.shape
+    if k.shape != (T, Hkv, D) or v.shape != k.shape or X != 2 * D:
+        raise ValueError(f"rope_write_rows_hm: pool {tuple(pool.shape)}, q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    int8 = k_scale is not None
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or \
+            pool.dtype != (torch.int8 if int8 else torch.bfloat16):
+        raise NotImplementedError(f"rope_write_rows_hm: the kernel takes bf16 rows into a bf16 "
+                                  f"or an int8 pool, got {q.dtype}/{k.dtype}/{v.dtype} into "
+                                  f"{pool.dtype}{' with scales' if int8 else ''}")
+    if D % 16 or D > 256:
+        raise NotImplementedError(f"rope_write_rows_hm: head_dim {D} (the kernel takes "
+                                  f"multiples of 16 up to 256)")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (T,):
+        raise ValueError("rope_write_rows_hm: slot_mapping must be int32 [T]")
+    scales = (k_scale, v_scale) if int8 else ()
+    if any(s.dtype != torch.float32 or s.shape != (Hkv, N + 1) or not s.is_contiguous()
+           for s in scales):
+        raise ValueError(f"rope_write_rows_hm: scales must be fp32 [Hkv, N + 1] = "
+                         f"[{Hkv}, {N + 1}] and contiguous")
+    if not (all(_rows_ok(x) for x in (q, k, v)) and _tables_ok(cos_f, sin_f, T, D)
+            and pool.is_contiguous()):
+        raise ValueError("rope_write_rows_hm: rows must have unit last stride and 16-byte "
+                         "aligned rows, cos/sin fp32 [T, D] contiguous, the pool contiguous")
+    if any(x.device != pool.device for x in (q, k, v, cos_f, sin_f, slot_mapping, *scales)):
+        raise ValueError("rope_write_rows_hm: tensors must be on one device")
+    q_out = torch.empty((T, Hq, D), dtype=q.dtype, device=q.device)
+    err = _entry_rope_hm()(
+        pool.data_ptr(), k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q_out.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(), slot_mapping.data_ptr(),
+        T, Hq, Hkv, D, N, *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], int(neox), int(int8),
+        torch.cuda.current_stream(pool.device).cuda_stream,
+    )
+    _build.check(err, "rope_write_rows_hm")
+    rope_write_rows_hm.launches += 1
+    return q_out
+
+
+rope_write_rows_hm.launches = 0
+
+
+def rope_write_rows_2d_plain(
+    pool: torch.Tensor,          # [N, L + R] or [1, N, L + R]
+    q_pe: torch.Tensor,          # [T, H, R]
+    c_kv: torch.Tensor,          # [T, L]
+    k_pe: torch.Tensor,          # [T, R]
+    cos_f: torch.Tensor,         # [T, R] fp32
+    sin_f: torch.Tensor,
+    neox: bool,
+    slot_mapping: torch.Tensor,  # [T] int; < 0 => skip
+) -> torch.Tensor:
+    q_rot = apply_rope_rot(q_pe, cos_f, sin_f, neox)
+    k_rot = apply_rope_rot(k_pe[:, None, :], cos_f, sin_f, neox)[:, 0]
+    write_rows_2d_plain(pool, torch.cat([c_kv, k_rot], dim=-1), slot_mapping)
+    return q_rot
+
+
+def _entry_rope_2d():
+    fn = _build.library("kv_write_2d").zt_rope_write_rows_2d
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 8 + [i] * 4 + [ll] * 5 + [i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rope_write_rows_2d(pool, q_pe, c_kv, k_pe, cos_f, sin_f, neox: bool,
+                       slot_mapping) -> torch.Tensor:
+    """Rotate q_pe and k_pe and write the latent rows ``c_kv | rope(k_pe)``
+    into the 2-D pool in place; returns q_pe rotated, ``[T, H, R]``."""
+    if pool.device.type == "cpu":
+        return rope_write_rows_2d_plain(pool, q_pe, c_kv, k_pe, cos_f, sin_f, neox, slot_mapping)
+    if not pool.is_cuda:
+        raise NotImplementedError(f"rope_write_rows_2d: no kernel for device {pool.device}")
+    p2 = _pool_2d(pool)
+    N, X = p2.shape
+    T, H, R = q_pe.shape
+    L = c_kv.shape[-1]
+    if c_kv.shape != (T, L) or k_pe.shape != (T, R) or X != L + R:
+        raise ValueError(f"rope_write_rows_2d: pool {tuple(pool.shape)}, q_pe "
+                         f"{tuple(q_pe.shape)}, c_kv {tuple(c_kv.shape)}, k_pe {tuple(k_pe.shape)}")
+    if any(x.dtype != torch.bfloat16 for x in (pool, q_pe, c_kv, k_pe)):
+        raise NotImplementedError("rope_write_rows_2d: the kernel takes bf16 rows and pool")
+    if R % 16 or R > 256 or L % 8:
+        raise NotImplementedError(f"rope_write_rows_2d: rope width {R}, latent width {L} (the "
+                                  f"kernel takes R a multiple of 16 up to 256, L of 8)")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (T,):
+        raise ValueError("rope_write_rows_2d: slot_mapping must be int32 [T]")
+    if not (all(_rows_ok(x) for x in (q_pe, c_kv, k_pe)) and _tables_ok(cos_f, sin_f, T, R)
+            and p2.is_contiguous() and p2.data_ptr() % 16 == 0):
+        raise ValueError("rope_write_rows_2d: rows must have unit last stride and 16-byte "
+                         "aligned rows, cos/sin fp32 [T, R] contiguous, the pool contiguous")
+    if any(x.device != pool.device for x in (q_pe, c_kv, k_pe, cos_f, sin_f, slot_mapping)):
+        raise ValueError("rope_write_rows_2d: tensors must be on one device")
+    q_out = torch.empty((T, H, R), dtype=q_pe.dtype, device=q_pe.device)
+    err = _entry_rope_2d()(
+        p2.data_ptr(), q_out.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(), k_pe.data_ptr(),
+        cos_f.data_ptr(), sin_f.data_ptr(), slot_mapping.data_ptr(), T, H, L, R, N,
+        *q_pe.stride()[:2], c_kv.stride(0), k_pe.stride(0), int(neox),
+        torch.cuda.current_stream(pool.device).cuda_stream,
+    )
+    _build.check(err, "rope_write_rows_2d")
+    rope_write_rows_2d.launches += 1
+    return q_out
+
+
+rope_write_rows_2d.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,11 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            DeepSeek-V2-Lite's shapes (latent row write, MLA latent decode,
            grouped int4 matmul over the expert stacks), and the FP8 block
            matmul at Qwen3-8B's seven projection shapes, M = 8 and 512;
-           and the four kernels of the slot-major pools (separate K and V
+           and the kernels of the slot-major pools (separate K and V
            pools, head_dim 16 to 128): decode attention over bf16 and int8
-           pools at H2O-Danube-1.8B's shape (32 / 8 heads of 80) and the two
-           row writes at its rows and at Qwen2.5-14B's; and the window
+           pools at H2O-Danube-1.8B's shape (32 / 8 heads of 80) and the
+           row write's copy mode (rows 11 and 12, one wrapper) at its rows
+           and at Qwen2.5-14B's; and the window
            side-KV kernels: the partial modes of the three decode kernels
            (MiniCPM-2B's and Qwen2.5-14B's shapes with an empty pool,
            DeepSeek-V2-Lite's) and the two end-of-window flushes, bit-exact
@@ -59,18 +60,20 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            over latents holding NaN in every row no sequence attends to and
            with V columns near 6 (2b against its twin, 2bp and the fused
            mode against the fp32 plain output), and timed at other split
-           counts; the attention prologues (rows 1 and 7 redesigned: the
-           rope of q and k, an int8 pool's quantization and scale scatter
-           and the row write in one launch) bit-exact against their plain
-           versions at MiniCPM-2B's, Qwen2.5-14B's (bf16 and int8 pools),
-           Qwen3-8B's, head_dim 256's and DeepSeek-V2-Lite's shapes, decode
-           batches in both rope styles, 512 and 2048 tokens, every int8 code,
-           and timed (device and host-inclusive) beside the sequence of
+           counts; the attention prologues (rows 1, 7 and 11-12
+           redesigned: the rope of q and k, an int8 pool's quantization and
+           scale scatter and the row write in one launch) bit-exact against
+           their plain versions at MiniCPM-2B's, Qwen2.5-14B's (bf16 and int8
+           pools), Qwen3-8B's, head_dim 256's and DeepSeek-V2-Lite's shapes
+           and, over slot-major pools, at H2O-Danube-1.8B's (32 / 8 heads of
+           80), 40 / 8 heads of 128 and head_dim 100 and 16 (bf16 and int8),
+           decode batches in both rope styles, 512 and 2048 tokens, every int8
+           code, and timed (device and host-inclusive) beside the sequence of
            launches each replaces; with ``--parent-csrc DIR`` the
-           kv_write.cu and kv_write_2d.cu in DIR (an earlier tree's csrc)
-           are built apart with nvcc and that sequence, with the earlier
-           tree's row write, is timed beside the prologue in turns, device
-           and host-inclusive, at the same shapes;
+           kv_write.cu, kv_write_2d.cu and kv_write_pair.cu in DIR (an
+           earlier tree's csrc) are built apart with nvcc and that sequence,
+           with the earlier tree's row write, is timed beside the prologue in
+           turns, device and host-inclusive, at the same shapes;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -107,8 +110,9 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            operations, a beam request and ``calc_logits``); and a 4-layer
            model at Qwen2.5-14B's attention geometry (40 / 8 heads of 128)
            whose pool is slot-major because ``ZT_NO_PACKED_KV=1`` is set while
-           its executor builds it, the only layout that reaches
-           ``paged_write_rows``, with logits against the packed pool's; and a
+           its executor builds it (rows the reference writes through
+           ``paged_write_rows``; here the slot-major prologue at head_dim
+           128), with logits against the packed pool's; and a
            4-layer model at Gemma-2-9B's attention geometry (16 / 8 heads of
            256) over an int8 head-major pool, four requests, its logits
            against the plain path; and
@@ -177,6 +181,9 @@ FP8_TOL = 1e-2
 INT8_TOL = 1e-2
 LOGIT_TOL = 5e-2            # max |kernel - plain| logits / max |plain logits|
 
+# the reference's two slot-major row writes, paged_write_rows and
+# write_rows_2d_pair: one function on the GPU
+PAIR_REPLACES = "zhilight_tpu/ops/pallas/kv_write.py:141, zhilight_tpu/ops/pallas/kv_write.py:427"
 KERNELS = {
     # row 1 and row 7 in their copy modes (write_kv, write_latent): the main
     # paths write their rows through the prologues below
@@ -228,13 +235,12 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/paged_attention.cu",
         replaces="zhilight_tpu/ops/pallas/paged_attention.py:364",
     ),
-    "paged_write_rows": dict(
+    # rows 11 and 12 in their copy mode (write_kv over slot-major pools): the
+    # main paths write their rows through rope_write_rows_pair below
+    "write_rows_pair": dict(
         source="zhilight_tpu_torch/csrc/kv_write_pair.cu",
-        replaces="zhilight_tpu/ops/pallas/kv_write.py:141",
-    ),
-    "write_rows_2d_pair": dict(
-        source="zhilight_tpu_torch/csrc/kv_write_pair.cu",
-        replaces="zhilight_tpu/ops/pallas/kv_write.py:427",
+        replaces=PAIR_REPLACES,
+        mode="copy: write_kv's slot-major row write; the per-step path takes rope_write_rows_pair",
     ),
     "paged_decode_attention_q": dict(
         source="zhilight_tpu_torch/csrc/paged_attention_q.cu",
@@ -284,6 +290,12 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/kv_write_2d.cu",
         replaces="zhilight_tpu/ops/pallas/kv_write.py:324",
     ),
+    # the slot-major pools' prologue: rows 11 and 12 with the rope of q and k,
+    # the int8 quantization and the scale scatter folded in
+    "rope_write_rows_pair": dict(
+        source="zhilight_tpu_torch/csrc/kv_write_pair.cu",
+        replaces=PAIR_REPLACES,
+    ),
 }
 ATTENTION_KERNELS = ("rope_write_rows_hm", "paged_decode_attention_hm",
                      "paged_prefill_attention_hm_packed")
@@ -301,8 +313,8 @@ PATHS = {
     "MiniCPM-2B-W8A8": ATTENTION_KERNELS,
     # slot-major pools: prefill attends over the gathered context in plain
     # torch, as the reference leaves it to XLA
-    "H2O-Danube-1.8B": ("write_rows_2d_pair", "paged_decode_attention"),
-    "H2O-Danube-1.8B-int8kv": ("write_rows_2d_pair", "paged_decode_attention_q"),
+    "H2O-Danube-1.8B": ("rope_write_rows_pair", "paged_decode_attention"),
+    "H2O-Danube-1.8B-int8kv": ("rope_write_rows_pair", "paged_decode_attention_q"),
     # decode windows with side-buffered KV writes (ZT_WINDOW_KV=1): the decode
     # kernels in their partial mode and one flush a layer a window, never the
     # normal decode; the row writes are prefill's
@@ -317,19 +329,19 @@ PATHS = {
                                           "flush_side_rows_2d"),
     # fused write + attend (ZT_FUSED_KV=1): the fused kernel in decode, never
     # the unfused decode; the row writes are prefill's (FUSED_PREFILL_WRITES)
-    "H2O-Danube-1.8B-fused": ("write_rows_2d_pair", "paged_decode_attention_fused"),
+    "H2O-Danube-1.8B-fused": ("rope_write_rows_pair", "paged_decode_attention_fused"),
     "DeepSeek-V2-Lite-GPTQ-Int4-fused": ("rope_write_rows_2d", "w4a16_ragged_matmul",
                                          "w4a16_matmul", "paged_mla_decode_fused"),
     # an int8 head-major pool at head_dim 256 (4 layers at Gemma-2-9B's heads)
     "Gemma-2-9B-geometry-4-layers-int8kv": ("rope_write_rows_hm",) + INT8_KERNELS,
 }
 # a fused path's row write: layers x prefill forwards launches, none in decode
-FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "write_rows_2d_pair",
+FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "rope_write_rows_pair",
                         "DeepSeek-V2-Lite-GPTQ-Int4-fused": "rope_write_rows_2d"}
 # every kernel that writes pool rows outside a window's flush (a window
 # writes none of them until its end)
-ROW_WRITES = ("write_rows_hm", "write_rows_2d", "rope_write_rows_hm", "rope_write_rows_2d",
-              "paged_write_rows", "write_rows_2d_pair")
+ROW_WRITES = ("write_rows_hm", "write_rows_2d", "write_rows_pair", "rope_write_rows_hm",
+              "rope_write_rows_2d", "rope_write_rows_pair")
 # prompt lengths of a path's 8 requests (32 new tokens each)
 SERVE_LENS = [7, 100, 513, 1500, 3712, 16, 250, 40]
 DEEPSEEK_LENS = [7, 100, 513, 1500, 2816, 16, 250, 40]  # max_model_len 3072
@@ -897,19 +909,22 @@ def time_prefill(rng, P, Hq, Hkv, D, CL, QL, int8) -> dict:
 
 def parent_kernels(csrc: str):
     """The row writes of an earlier tree (``csrc`` is its zhilight_tpu_torch/csrc):
-    kv_write.cu and kv_write_2d.cu, built by nvcc with this tree's flags into
-    a temporary directory (each ``.cu`` with the headers beside it) and driven
-    through their C signatures, which are those of this tree's copy modes
-    (``zt_write_rows_hm``, ``zt_write_rows_2d``). Returns {name: fn}: hm(pool,
-    k, v, slots) over contiguous rows [T, Hkv, D] in the pool's type, and
-    rows_2d(pool, rows, slots) over a pool [1, N, X] and contiguous rows."""
+    kv_write.cu, kv_write_2d.cu and kv_write_pair.cu, built by nvcc with this
+    tree's flags into a temporary directory (each ``.cu`` with the headers
+    beside it) and driven through their C signatures, which are those of this
+    tree's copy modes (``zt_write_rows_hm``, ``zt_write_rows_2d``,
+    ``zt_write_rows_pair``). Returns {name: fn}: hm(pool, k, v, slots) over
+    contiguous rows [T, Hkv, D] in the pool's type, rows_2d(pool, rows, slots)
+    over a pool [1, N, X] and contiguous rows, and pair(k_pool, v_pool, k, v,
+    slots) over slot-major pools [1, N, Hkv, D] and contiguous rows [T, Hkv, D]
+    in the pools' type."""
     import ctypes
     import tempfile
 
     from zhilight_tpu_torch.ops.cuda import _build
 
     out_dir = tempfile.mkdtemp(prefix="zt_parent_")
-    names = ("kv_write", "kv_write_2d")
+    names = ("kv_write", "kv_write_2d", "kv_write_pair")
     libs = {}
     t0 = time.monotonic()
     procs = [(name, subprocess.Popen(
@@ -927,6 +942,8 @@ def parent_kernels(csrc: str):
     w_hm.argtypes = [p, p, p, p, i, i, ll, i, p]
     w_2d = libs["kv_write_2d"].zt_write_rows_2d
     w_2d.argtypes = [p, p, p, i, ll, i, p]
+    w_pair = libs["kv_write_pair"].zt_write_rows_pair
+    w_pair.argtypes = [p, p, p, p, p, i, ll, i, p]
     stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def hm(pool, k, v, slots):
@@ -942,7 +959,14 @@ def parent_kernels(csrc: str):
                           X * pool.element_size(), stream()), "parent write_rows_2d")
         return pool
 
-    return dict(hm=hm, rows_2d=rows_2d)
+    def pair(k_pool, v_pool, k, v, slots):
+        N, Hkv, D = k_pool.shape[1:]
+        _build.check(w_pair(k_pool.data_ptr(), v_pool.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            slots.data_ptr(), k.shape[0], N, Hkv * D * k_pool.element_size(),
+                            stream()), "parent write_rows_pair")
+        return k_pool, v_pool
+
+    return dict(hm=hm, rows_2d=rows_2d, pair=pair)
 
 
 def sequence_hm(write, pool, q, k, v, cos, sin, neox, slots, k_scale=None, v_scale=None):
@@ -973,6 +997,28 @@ def sequence_2d(write, pool, q_pe, c_kv, k_pe, cos, sin, neox, slots):
     q_rot = apply_rope_rot(q_pe, cos, sin, neox)
     k_rot = apply_rope_rot(k_pe[:, None, :], cos, sin, neox)[:, 0]
     write(pool, torch.cat([c_kv, k_rot], dim=-1), slots)
+    return q_rot
+
+
+def sequence_pair(write, k_pool, v_pool, q, k, v, cos, sin, neox, slots, k_scale=None,
+                  v_scale=None):
+    """The per-layer sequence the slot-major pools' prologue replaces (the
+    parent tree's ``attention_layer`` and ``write_kv``): rope of q and of k,
+    then the K and V row write through ``write`` (rows contiguous in the
+    pools' type), an int8 pool's quantization and scale scatter around it.
+    Returns q rotated."""
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.rope import apply_rope_rot
+
+    q_rot = apply_rope_rot(q, cos, sin, neox)
+    k_rot = apply_rope_rot(k, cos, sin, neox)
+    if k_scale is None:
+        write(k_pool, v_pool, k_rot.to(k_pool.dtype).contiguous(),
+              v.to(k_pool.dtype).contiguous(), slots)
+        return q_rot
+    rows, scales = W.quantize_rows(torch.stack((k_rot, v)))
+    write(k_pool, v_pool, rows[0], rows[1], slots)
+    W.scatter_scales(k_scale, v_scale, scales, slots)
     return q_rot
 
 
@@ -1140,6 +1186,22 @@ PROLOGUE_SHAPES = {
 # the latent pool's: DeepSeek-V2-Lite (16 heads, q_pe of 64 in rows of 128 + 64,
 # latent rows of 512 + 64), decode batch 8
 LATENT_PROLOGUE = dict(H=16, nope=128, R=64, L=512, B=8)
+# the slot-major pools' prologue: label -> (query heads, KV heads, head_dim,
+# int8 pools, checked (tokens, neox) cases); timed at H2O-Danube-1.8B's
+# (PAIR_PROLOGUE_TIMED)
+_DECODE_CHUNK = ((8, True), (8, False), (512, True))
+PAIR_PROLOGUE_SHAPES = {
+    f"H2O-Danube-1.8B, 32 / 8 heads of 80, {kind} pools": (
+        32, 8, 80, kind == "int8", ((8, True), (8, False), (512, True), (512, False), (2048, True)))
+    for kind in ("bf16", "int8")
+} | {
+    f"{Hq} / {Hkv} heads of {D}{note}, {kind} pools": (Hq, Hkv, D, kind == "int8", _DECODE_CHUNK)
+    for note, Hq, Hkv, D in ((" (ZT_NO_PACKED_KV=1)", 40, 8, 128), ("", 16, 4, 100),
+                             (" (the verify recipe's checkpoint)", 4, 2, 16))
+    for kind in ("bf16", "int8")
+}
+PAIR_PROLOGUE_TIMED = ("H2O-Danube-1.8B, 32 / 8 heads of 80, bf16 pools",
+                       "H2O-Danube-1.8B, 32 / 8 heads of 80, int8 pools")
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 
 
@@ -1203,6 +1265,55 @@ def prologue_hm_case(rng, T, Hq, Hkv, D, int8, neox, skip):
     return (q, k, v, cos, sin, neox, slots), pool, N
 
 
+def prologue_pair_case(rng, T, Hq, Hkv, D, int8, neox, skip):
+    """Inputs of the slot-major pools' prologue as the model hands them
+    over: q, k, v views of one fused qkv output [T, (Hq + 2 Hkv) D]; over int8
+    pools each V row holds 1 and then c / 127 for c = -127 ... 127 in turn,
+    across the rows, so the pools receive every code once enough rows are
+    written. Returns (args, [k_pool, v_pool(, k_scale, v_scale)])."""
+    N = max(T // 16 + 4, 64) * 16
+    qkv = _randn(rng, T, (Hq + 2 * Hkv) * D)
+    if int8:
+        codes = (torch.arange(T * Hkv * (D - 1), device="cuda") % 255 - 127) / 127
+        rows = torch.cat([torch.ones(T, Hkv, 1, device="cuda"), codes.reshape(T, Hkv, D - 1)], -1)
+        qkv[:, (Hq + Hkv) * D:] = rows.reshape(T, -1).to(torch.bfloat16)
+    q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
+    cos, sin = _rope_rows(rng, T, D, neox)
+    slots = _prologue_slots(rng, T, N, skip)
+    if int8:
+        pools = [torch.zeros(1, N, Hkv, D, dtype=torch.int8, device="cuda") for _ in "kv"]
+        pools += [torch.full((Hkv, N + 1), -1.0, device="cuda") for _ in "kv"]
+    else:
+        pools = [_randn(rng, 1, N, Hkv, D) for _ in "kv"]
+    return (q, k, v, cos, sin, neox, slots), pools
+
+
+def _skipped_scales(col, fresh, Hkv) -> bool:
+    """Every KV head's spare-column scale is one of the skipped rows' (they
+    land there in no set order)."""
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.rope import apply_rope_rot
+
+    q, k, v, cos, sin, neox, slots, pools = fresh()
+    N = pools[0].shape[1]
+    _, sc = W.quantize_rows(torch.stack((apply_rope_rot(k, cos, sin, neox), v)))
+    cands = sc[:, (slots < 0) | (slots >= N)]  # [2, n, Hkv]
+    return bool(((col[:, None] == cands.permute(2, 0, 1).reshape(Hkv, -1)).any(1)).all())
+
+
+def _prologue_bytes(T, Hq, Hkv, D, pool_elem, int8) -> int:
+    """Bytes a packed or slot-major prologue must move: q, k, v and cos/sin
+    read, q rotated and the K and V rows (and their scales) written."""
+    return (T * (Hq + 2 * Hkv) * D * 2 + 2 * T * D * 4 + T * Hq * D * 2
+            + T * Hkv * 2 * D * pool_elem + T * 4 + (2 * T * Hkv * 4 if int8 else 0))
+
+
+def _prologue_ops(T, Hq, Hkv, D, int8) -> int:
+    """fp32 operations of the rope (three a rotated element) and of the int8
+    quantization (six a quantized element)."""
+    return 3 * T * (Hq + Hkv) * D + (6 * T * Hkv * 2 * D if int8 else 0)
+
+
 def prologue_2d_case(rng, T, neox, skip):
     """Inputs of the latent pool's prologue as the model hands them over:
     q_pe a view of the q projection [T, H, nope + R], c_kv [T, L], k_pe the
@@ -1218,34 +1329,45 @@ def prologue_2d_case(rng, T, neox, skip):
 
 
 def kernels_prologue(rec: dict, rng, parent_csrc: str = "") -> None:
-    """The attention prologues (rows 1 and 7 redesigned: rope of q and k,
-    the int8 quantization and scale scatter, the row write, one launch)
-    bit-exact against their plain versions (the same PyTorch composition on
-    the card) at PROLOGUE_SHAPES and DeepSeek-V2-Lite's latent rows: decode
+    """The attention prologues (rows 1, 7 and 11-12 redesigned: rope of q
+    and k, the int8 quantization and scale scatter, the row write, one
+    launch) bit-exact against their plain versions (the same PyTorch
+    composition on the card) at PROLOGUE_SHAPES, DeepSeek-V2-Lite's latent
+    rows and PAIR_PROLOGUE_SHAPES (slot-major pools: H2O-Danube-1.8B's 32 / 8
+    heads of 80, 40 / 8 of 128, head_dim 100 and 16; bf16 and int8): decode
     batches in both rope styles, a 512-token chunk and four packed chunks
-    (2048 tokens), with a skipped row and one past the pool; every int8 code
-    written; q rotated, pools and scales equal, the spare column holding a
-    skipped row's scales. Then timed at each shape, decode and a 512-token
-    chunk: device time, host-inclusive time (no backlog), the plain version,
-    and the sequence of launches it replaces with this tree's copy-mode
-    kernel (rope of q and k, the write and, over an int8 pool, the
-    quantization and scatter; device and host-inclusive). No one PyTorch call
-    computes the function (library_ms null). With ``parent_csrc`` the same
-    sequence with the earlier tree's write kernel, in turns against the
-    prologue, device and host-inclusive; one JSON line."""
+    (2048 tokens), with a skipped row and one past the pool, q, k and v views
+    of one fused qkv output; every int8 code written; q rotated, pools and
+    scales equal, the spare column holding a skipped row's scales. Then timed
+    at each packed and latent shape and at Danube's slot-major shapes,
+    decode and a 512-token chunk: device time, host-inclusive time (no
+    backlog), the plain version, and the sequence of launches it replaces
+    with this tree's copy-mode kernel (rope of q and k, the write and, over an
+    int8 pool, the quantization and scatter; device and host-inclusive). No
+    one PyTorch call computes the function (library_ms null). With
+    ``parent_csrc`` the same sequence with the earlier tree's write kernel,
+    in turns against the prologue, device and host-inclusive; one JSON
+    line."""
     from zhilight_tpu_torch.ops.cuda import kv_write as W
-    from zhilight_tpu_torch.ops.rope import apply_rope_rot
 
-    def check(name, what, run, plain, fresh, int8=False, spare=None):
+    def check(name, what, run, plain, fresh, npools=1, int8=False, every=True, spare=None):
+        """run and plain on two copies of fresh()'s inputs, whose last item is
+        the list of pools (npools of them) then scales: q rotated and the pools
+        equal; over int8 pools the scales of the written rows equal, the spare
+        column holding one skipped row's (``spare``), and with ``every`` each
+        of the 255 codes written."""
         a, b = fresh(), fresh()
         got, want = run(*a), plain(*b)
         torch.cuda.synchronize()
-        ok = torch.equal(got, want) and torch.equal(a[-1][0], b[-1][0])
-        if int8:  # the scales of the written rows; the spare column one skipped row's
+        ok = torch.equal(got, want) and all(
+            torch.equal(x, y) for x, y in zip(a[-1][:npools], b[-1][:npools]))
+        if int8:
             N = a[-1][0].shape[1]
-            ok = ok and torch.equal(torch.unique(a[-1][0]), torch.arange(-127, 128, device="cuda",
-                                                                         dtype=torch.int8))
-            for g, w in zip(a[-1][1:], b[-1][1:]):
+            if every:
+                codes = torch.unique(torch.cat([x.flatten() for x in a[-1][:npools]]))
+                ok = ok and torch.equal(codes, torch.arange(-127, 128, device="cuda",
+                                                            dtype=torch.int8))
+            for g, w in zip(a[-1][npools:], b[-1][npools:]):
                 ok = ok and torch.equal(g[:, :N], w[:, :N]) and spare(g[:, N])
         if not ok:
             raise AssertionError(f"{name} {what}: not bit-exact")
@@ -1264,17 +1386,11 @@ def kernels_prologue(rec: dict, rng, parent_csrc: str = "") -> None:
                                                  neox, True)
                 return (*args, pool)
 
-            def skipped_scales(col, fresh=fresh):
-                q, k, v, cos, sin, neox_, slots, pool = fresh()
-                N = pool[0].shape[1]
-                _, sc = W.quantize_rows(torch.stack((apply_rope_rot(k, cos, sin, neox_), v)))
-                cands = sc[:, (slots < 0) | (slots >= N)]  # [2, n, Hkv]
-                return bool(((col[:, None] == cands.permute(2, 0, 1).reshape(Hkv, -1)).any(1)).all())
-
             check("rope_write_rows_hm", f"{label}, T={T}, {'neox' if neox else 'interleaved'}",
                   lambda *x: W.rope_write_rows_hm(x[-1][0], *x[:-1], *x[-1][1:]),
                   lambda *x: W.rope_write_rows_hm_plain(x[-1][0], *x[:-1], *x[-1][1:]),
-                  fresh, int8, skipped_scales)
+                  fresh, int8=int8, spare=lambda col, fresh=fresh, Hkv=Hkv:
+                  _skipped_scales(col, fresh, Hkv))
 
     parent = parent_kernels(parent_csrc) if parent_csrc else None
     compare = {}
@@ -1284,11 +1400,8 @@ def kernels_prologue(rec: dict, rng, parent_csrc: str = "") -> None:
             args, pool, N = prologue_hm_case(rng, T, Hq, Hkv, D, int8, True, False)
             run = lambda: W.rope_write_rows_hm(pool[0], *args, *pool[1:])
             seq = lambda: sequence_hm(W.write_rows_hm, pool[0], *args, *pool[1:])
-            nbytes = (T * (Hq + 2 * Hkv) * D * 2 + 2 * T * D * 4 + T * Hq * D * 2
-                      + T * Hkv * 2 * D * pool[0].element_size() + T * 4
-                      + (2 * T * Hkv * 4 if int8 else 0))
-            ops = 3 * T * (Hq + Hkv) * D + (6 * T * Hkv * 2 * D if int8 else 0)
-            t_b, by = _prologue_bound(nbytes, ops)
+            t_b, by = _prologue_bound(_prologue_bytes(T, Hq, Hkv, D, pool[0].element_size(), int8),
+                                      _prologue_ops(T, Hq, Hkv, D, int8))
             shapes[f"{label}, {what}"] = dict(
                 ms=time_ms(run), call_ms=time_ms(run, backlog=False),
                 plain_ms=time_ms(lambda: W.rope_write_rows_hm_plain(pool[0], *args, *pool[1:])),
@@ -1349,6 +1462,68 @@ def kernels_prologue(rec: dict, rng, parent_csrc: str = "") -> None:
                 _turns(compare, backlog=backlog)(
                     f"row 7, {label}, {'device' if backlog else 'host-inclusive'}", old, run)
     _record(rec, "rope_write_rows_2d", 0.0, list(shapes)[0], shapes)
+
+    # -- the slot-major pools' prologue ------------------------------------------
+    def pair_fn(fn):  # fn(k_pool, v_pool, q, k, v, cos, sin, neox, slots(, scales))
+        return lambda *x: fn(*x[-1][:2], *x[:-1], *x[-1][2:])
+
+    for label, (Hq, Hkv, D, int8, cases) in PAIR_PROLOGUE_SHAPES.items():
+        for T, neox in cases:
+            seed = int(rng.integers(2**31))
+
+            def fresh():
+                args, pools = prologue_pair_case(np.random.default_rng(seed), T, Hq, Hkv, D, int8,
+                                                 neox, True)
+                return (*args, pools)
+
+            # token 0 alone holds every code, or enough rows are written to
+            check("rope_write_rows_pair", f"{label}, T={T}, {'neox' if neox else 'interleaved'}",
+                  pair_fn(W.rope_write_rows_pair), pair_fn(W.rope_write_rows_pair_plain), fresh,
+                  npools=2, int8=int8, every=Hkv * (D - 1) >= 255 or T >= 512,
+                  spare=lambda col, fresh=fresh, Hkv=Hkv: _skipped_scales(col, fresh, Hkv))
+    shapes = {}
+    for label in PAIR_PROLOGUE_TIMED:
+        Hq, Hkv, D, int8, _ = PAIR_PROLOGUE_SHAPES[label]
+        for T, what in ((8, "decode step, 8 tokens"), (512, "512-token chunk")):
+            args, pools = prologue_pair_case(rng, T, Hq, Hkv, D, int8, True, False)
+            run = lambda: W.rope_write_rows_pair(*pools[:2], *args, *pools[2:])
+            seq = lambda: sequence_pair(W.write_rows_pair, *pools[:2], *args, *pools[2:])
+            t_b, by = _prologue_bound(_prologue_bytes(T, Hq, Hkv, D, pools[0].element_size(), int8),
+                                      _prologue_ops(T, Hq, Hkv, D, int8))
+            shapes[f"{label}, {what}"] = dict(
+                ms=time_ms(run), call_ms=time_ms(run, backlog=False),
+                plain_ms=time_ms(
+                    lambda: W.rope_write_rows_pair_plain(*pools[:2], *args, *pools[2:])),
+                library_ms=None, bound_ms=t_b, bound_by=by,
+                sequence_ms=time_ms(seq), sequence_call_ms=time_ms(seq, backlog=False),
+                sequence_launches=device_kernels(seq), device_kernels=device_kernels(run),
+            )
+            if parent is not None:
+                old = lambda: sequence_pair(parent["pair"], *pools[:2], *args, *pools[2:])
+                pa = [x.clone() for x in pools]
+                pb = [x.clone() for x in pools]
+                qa = sequence_pair(parent["pair"], *pa[:2], *args, *pa[2:])
+                qb = W.rope_write_rows_pair(*pb[:2], *args, *pb[2:])
+                if not (torch.equal(qa, qb) and all(torch.equal(x, y) for x, y in zip(pa, pb))):
+                    raise AssertionError(f"parent vs this tree, rows 11-12 {label} {what}: differ")
+                for backlog in (True, False):
+                    _turns(compare, backlog=backlog)(
+                        f"rows 11-12, {label}, {what}, {'device' if backlog else 'host-inclusive'}",
+                        old, run)
+                if not int8:  # the copy mode (write_kv's row write) against the parent's kernel
+                    rows = [_randn(rng, T, Hkv, D) for _ in "kv"]
+                    pa = [x.clone() for x in pools]
+                    pb = [x.clone() for x in pools]
+                    parent["pair"](*pa, *rows, args[6])
+                    W.write_rows_pair(*pb, *rows, args[6])
+                    if not all(torch.equal(x, y) for x, y in zip(pa, pb)):
+                        raise AssertionError(f"parent vs this tree, rows 11-12 copy mode {what}: "
+                                             "differ")
+                    _turns(compare)(f"rows 11-12 copy mode, {label}, {what}, device",
+                                    lambda: parent["pair"](*pools, *rows, args[6]),
+                                    lambda: W.write_rows_pair(*pools, *rows, args[6]))
+    _record(rec, "rope_write_rows_pair", 0.0, f"{PAIR_PROLOGUE_TIMED[0]}, decode step, 8 tokens",
+            shapes)
     if parent is not None:
         print(json.dumps({"parent_compare": compare}), flush=True)
 
@@ -1984,7 +2159,7 @@ def _poisoned(pools, keep, int8):
 
 
 def kernels_slot_major(rec: dict, rng) -> None:
-    """The four kernels of the slot-major pools against their plain versions:
+    """The three kernels of the slot-major pools against their plain versions:
     decode attention over bf16 and int8 pools at head_dim 16, 80, 96, 100 and
     128 with groups of 1, 4 and 5 query heads, over contexts that end
     mid-page, an empty slot, with and without a sliding window shorter than
@@ -1996,13 +2171,14 @@ def kernels_slot_major(rec: dict, rng) -> None:
     192 and 256 (G 2) and 33 (G 5), each over unit-variance pools, pools with
     NaN in every row no sequence attends to and pools whose V rows are near 6
     (outputs in [4, 8), held against the plain version's fp32 output:
-    probabilities rounded to bf16 would show); the two
-    row writes bit-exact, bf16 and int8 rows, a decode step's rows and a
-    chunk starting mid-page. Then timed: decode at
+    probabilities rounded to bf16 would show); the row write's copy mode
+    (rows 11 and 12 in one wrapper) bit-exact, bf16 and int8 rows, a decode
+    step's rows and a chunk starting mid-page. Then timed: decode at
     H2O-Danube-1.8B's shape (batch 8, context 3712, 32 / 8 heads of 80) and at
     Qwen2.5-14B's heads (40 / 8 of 128, the layout ZT_NO_PACKED_KV=1 gives
-    it), beside SDPA on rows gathered (and dequantized) beforehand; the writes
-    at 8 and 512 rows beside ``index_copy_`` on the pools' 2-D views."""
+    it), beside SDPA on rows gathered (and dequantized) beforehand; the write
+    at 8 and 512 rows of both shapes beside ``index_copy_`` on the pools' 2-D
+    views."""
     from zhilight_tpu_torch.kvcache.paged import _quantize_rows, slot_indices
     from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
     from zhilight_tpu_torch.ops.cuda import kv_write as W
@@ -2138,7 +2314,7 @@ def kernels_slot_major(rec: dict, rng) -> None:
                 timed(8, CTX=3712, **QWEN_HEADS),
         })
 
-    # -- the two row writes: bit-exact, then timed -------------------------------
+    # -- the row write (copy mode): bit-exact, then timed ------------------------
     def write_case(T_, start, Hkv, D, int8, zero_pools=False):
         if start is None:  # decode: one row per sequence, one skipped
             npages = max(64, 2 * T_)
@@ -2158,23 +2334,22 @@ def kernels_slot_major(rec: dict, rng) -> None:
               else (_randn(rng, *shape) * 40).to(rows[0].dtype) for _ in "kv"]
         return pk, rows, _dev(slots.astype(np.int32))
 
-    for name, fn, plain, (Hkv, D) in (
-            ("paged_write_rows", W.paged_write_rows, W.paged_write_rows_plain, (8, 128)),
-            ("write_rows_2d_pair", W.write_rows_2d_pair, W.write_rows_2d_pair_plain, (8, 80))):
-        for hd in ((8, 80), (8, 128), (2, 16), (1, 100)):
-            for int8 in (False, True):
-                for T_, start in ((8, None), (512, 3205)):
-                    pk, rows, slots = write_case(T_, start, *hd, int8)
-                    got = fn(*(p.clone() for p in pk), *rows, slots)
-                    want = plain(*(p.clone() for p in pk), *rows, slots)
-                    torch.cuda.synchronize()
-                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                        raise AssertionError(f"{name} Hkv={hd[0]} D={hd[1]} T={T_} int8={int8}: "
-                                             "not bit-exact")
-        print(f"kernels: {name} bit-exact at (Hkv, D) (8, 80), (8, 128), (2, 16), (1, 100), "
-              "bf16 and int8 rows, 8 rows and a 512-token chunk starting mid-page", flush=True)
-        shapes = {}
-        model = "Qwen2.5-14B" if D == 128 else "H2O-Danube-1.8B"
+    name, fn, plain = "write_rows_pair", W.write_rows_pair, W.write_rows_pair_plain
+    for hd in ((8, 80), (8, 128), (2, 16), (1, 100)):
+        for int8 in (False, True):
+            for T_, start in ((8, None), (512, 3205)):
+                pk, rows, slots = write_case(T_, start, *hd, int8)
+                got = fn(*(p.clone() for p in pk), *rows, slots)
+                want = plain(*(p.clone() for p in pk), *rows, slots)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{name} Hkv={hd[0]} D={hd[1]} T={T_} int8={int8}: "
+                                         "not bit-exact")
+    print(f"kernels: {name} bit-exact at (Hkv, D) (8, 80), (8, 128), (2, 16), (1, 100), "
+          "bf16 and int8 rows, 8 rows and a 512-token chunk starting mid-page", flush=True)
+    shapes = {}
+    # the rows of the reference's write_rows_2d_pair (Danube) and paged_write_rows (Qwen heads)
+    for model, (Hkv, D) in (("H2O-Danube-1.8B", (8, 80)), ("Qwen2.5-14B", (8, 128))):
         for T_, int8 in ((8, False), (512, False), (8, True)):
             # distinct rows on exclusive pages (the library call takes no skipped rows)
             pk, rows, _ = write_case(T_, None, Hkv, D, int8, zero_pools=True)
@@ -2193,7 +2368,7 @@ def kernels_slot_major(rec: dict, rng) -> None:
                 plain_ms=time_ms(lambda: plain(*pk, *rows, slots)),
                 library_ms=time_ms(library), bound_ms=t_b, bound_by=by,
             )
-        _record(rec, name, 0.0, f"{model} 8 rows bf16", shapes)
+    _record(rec, name, 0.0, "H2O-Danube-1.8B 8 rows bf16", shapes)
 
 
 def _partial_err(got, want, ctx) -> float:
@@ -2492,7 +2667,7 @@ def kernels_fused(rec: dict, rng) -> None:
         args = (q, k[None], v[None], k_new, v_new, slots, tables_d, ctx, S, scale)
 
         def pair():  # kernel 12, then kernel 10 over the written pool
-            W.write_rows_2d_pair(k[None], v[None], k_new, v_new, slots)
+            W.write_rows_pair(k[None], v[None], k_new, v_new, slots)
             PA.paged_decode_attention(q, k[None], v[None], tables_d, ctx, S, scale)
 
         sl = slot_indices(tables_d, S)[:, :CTX]
@@ -2583,8 +2758,7 @@ def _counters():
 
     return {
         "paged_decode_attention": PA.paged_decode_attention,
-        "paged_write_rows": W.paged_write_rows,
-        "write_rows_2d_pair": W.write_rows_2d_pair,
+        "write_rows_pair": W.write_rows_pair,
         "paged_decode_attention_q": PA.paged_decode_attention_q,
         "fp8_block_matmul": F8.fp8_block_matmul,
         "write_rows_2d": W.write_rows_2d,
@@ -2605,6 +2779,7 @@ def _counters():
         "paged_mla_decode_fused": PA.paged_mla_decode_fused,
         "rope_write_rows_hm": W.rope_write_rows_hm,
         "rope_write_rows_2d": W.rope_write_rows_2d,
+        "rope_write_rows_pair": W.rope_write_rows_pair,
     }
 
 
@@ -2642,8 +2817,8 @@ def plain_kernels():
                                            rope_write_rows_hm=W.rope_write_rows_hm_plain,
                                            rope_write_rows_2d=W.rope_write_rows_2d_plain,
                                            scatter_scales=W.scatter_scales,
-                                           paged_write_rows=W.paged_write_rows_plain,
-                                           write_rows_2d_pair=W.write_rows_2d_pair_plain)), \
+                                           write_rows_pair=W.write_rows_pair_plain,
+                                           rope_write_rows_pair=W.rope_write_rows_pair_plain)), \
          mock.patch.object(llama_mod, "paged_attention", SimpleNamespace(
              paged_decode_attention=PA.paged_decode_attention_plain,
              paged_decode_attention_q=PA.paged_decode_attention_q_plain,
@@ -3171,8 +3346,8 @@ def fused_check(label: str, ex, prompts) -> None:
             want = [W.write_rows_2d(pre.latent[layer].clone(), rows[0], meta.slot_mapping)]
             have = [cache.latent[layer]]
         else:
-            want = list(W.write_rows_2d_pair(pre.k[layer].clone(), pre.v[layer].clone(),
-                                             *rows, meta.slot_mapping))
+            want = list(W.write_rows_pair(pre.k[layer].clone(), pre.v[layer].clone(),
+                                          *rows, meta.slot_mapping))
             have = [cache.k[layer], cache.v[layer]]
         if not all(torch.equal(w, h) for w, h in zip(want, have)):
             mismatched.append(layer)
@@ -3652,13 +3827,14 @@ def danube_paths(rec: dict, args) -> None:
 
 
 def no_packed_kv_path(rec: dict, args) -> None:
-    """``paged_write_rows`` is reached only by rows the TPU can write one by one
-    (Hkv % 8 == 0, D % 128 == 0), which a slot-major pool holds only under
-    ZT_NO_PACKED_KV=1. A 4-layer bf16 model at Qwen2.5-14B's attention geometry
-    (d 5120, 40 / 8 heads of 128; weights from the seed), the switch set while
-    its executor builds its pool, serves four requests; then its first-token
-    and decode-step logits over a slot-major cache against the same weights
-    over the packed pool."""
+    """The layout check: rows the reference writes through ``paged_write_rows``
+    (Hkv % 8 == 0, D % 128 == 0) reach a slot-major pool only under
+    ZT_NO_PACKED_KV=1, where the port writes them through the slot-major
+    prologue at head_dim 128. A 4-layer bf16 model at Qwen2.5-14B's attention
+    geometry (d 5120, 40 / 8 heads of 128; weights from the seed), the switch
+    set while its executor builds its pool, serves four requests; then its
+    first-token and decode-step logits over a slot-major cache against the
+    same weights over the packed pool."""
     from zhilight_tpu_torch.config import adapt_hf_config
     from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
     from zhilight_tpu_torch.llm import LLM
@@ -3690,7 +3866,7 @@ def no_packed_kv_path(rec: dict, args) -> None:
     print(f"serve: {label}: {len(prompts)} requests, "
           f"{[len(r.outputs[0].token_ids) for r in results]} tokens; launches {launches}",
           flush=True)
-    expect = ("paged_write_rows", "paged_decode_attention")
+    expect = ("rope_write_rows_pair", "paged_decode_attention")
     if any(launches[n] == 0 for n in expect) or any(
             n for name, n in launches.items() if name not in expect):
         raise AssertionError(f"{label}: launched {launches}, expected only {expect}")
@@ -3969,9 +4145,10 @@ def main() -> int:
     ap.add_argument("--phases", default="kernels,serve,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
-                    help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu "
-                         "and kv_write_2d.cu apart and time the rope + row-write sequence "
-                         "through them beside this tree's prologues in the kernels phase")
+                    help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
+                         "kv_write_2d.cu and kv_write_pair.cu apart and time the rope + "
+                         "row-write sequence through them beside this tree's prologues in the "
+                         "kernels phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -47,7 +47,10 @@ every decode split count, and to the same bits on a repeated call. The
 attention prologues (rope, int8 quantization and the row write in one
 launch) are bit-exact against their plain versions: the packed pool's at
 head_dim 64 to 256, bf16 and int8 pools, both rope styles, 1 to 2048 tokens,
-every int8 code; the latent pool's at DeepSeek-V2-Lite's rows. The fused
+every int8 code; the latent pool's at DeepSeek-V2-Lite's rows; the slot-major
+pools' at head_dim 16, 80, 96, 100, 128 and 256, 1 and 8 KV heads, bf16 and
+int8 pools, both rope styles, 1 to 2048 tokens, strided and contiguous rows,
+every int8 code, the spare column holding a skipped row's scales. The fused
 write + attend engine is held teacher-forced: its decode logits within 2e-2
 of the largest unfused logit, and the unfused argmax wherever the unfused
 top-2 gap exceeds twice the largest difference.
@@ -63,7 +66,7 @@ import torch
 from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig, load_model_config
 from zhilight_tpu_torch.config.model_config import RopeConfig
 from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
-from zhilight_tpu_torch.kvcache.paged import _quantize_rows, new_kv_cache, write_kv
+from zhilight_tpu_torch.kvcache.paged import _quantize_rows, new_kv_cache, rope_write_kv, write_kv
 from zhilight_tpu_torch.llm import LLM
 from zhilight_tpu_torch.models import llama as L
 from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
@@ -367,6 +370,113 @@ def test_rope_write_rows_2d_is_exact(cuda, T, neox):
     assert W.rope_write_rows_2d.launches == before + 1
     assert got.shape == (T, H, R) and torch.equal(got, want)
     assert torch.equal(pools[0], pools[1]) and not torch.equal(pools[0], pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("neox", [True, False])
+@pytest.mark.parametrize("T,Hq,Hkv,D,fused_qkv", [
+    (8, 32, 8, 80, True), (1, 32, 8, 80, True), (33, 32, 8, 80, False),  # H2O-Danube-1.8B
+    (512, 32, 8, 80, True), (2048, 32, 8, 80, True),  # a chunk; four packed chunks
+    (8, 4, 1, 16, True), (33, 4, 2, 16, True), (8, 12, 1, 96, True), (8, 16, 8, 96, False),
+    (33, 8, 8, 100, True), (8, 40, 8, 128, True), (2048, 40, 8, 128, True), (8, 16, 8, 256, True),
+    (8, 8, 1, 256, False),
+])
+def test_rope_write_rows_pair_is_exact(cuda, T, Hq, Hkv, D, fused_qkv, neox, int8):
+    """The slot-major pools' prologue bit-equal to its plain version (the
+    port's rope, quantization and pair write in PyTorch ops on the card): q
+    rotated, both pools, and the scales of the written rows; the spare column
+    holds one skipped row's scales. q, k, v are views of one fused qkv output
+    or contiguous rows. Over int8 pools every V row holds 1 and then c / 127
+    for c = -127 ... 127 in turn across the rows, so the codes cover every
+    code the quantization gives once enough rows are written."""
+    rng = np.random.default_rng(T + D + Hq + Hkv)
+    N = max(T // S + 4, 16) * S
+    qkv = _bf16(rng, cuda, T, (Hq + 2 * Hkv) * D)
+    if int8:
+        codes = (torch.arange(T * Hkv * (D - 1), device=cuda) % 255 - 127) / 127
+        rows = torch.cat([torch.ones(T, Hkv, 1, device=cuda), codes.reshape(T, Hkv, D - 1)], -1)
+        qkv[:, (Hq + Hkv) * D:] = rows.reshape(T, -1).to(torch.bfloat16)
+    q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
+    if not fused_qkv:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cos, sin = _rope_tables(rng, T, D, neox, cuda)
+    slots = _prologue_slots(rng, T, N, cuda)
+    if int8:
+        pools = [[torch.zeros(1, N, Hkv, D, dtype=torch.int8, device=cuda) for _ in "kv"]
+                 + [torch.full((Hkv, N + 1), -1.0, device=cuda) for _ in "kv"] for _ in "ab"]
+    else:
+        kv = [_bf16(rng, cuda, 1, N, Hkv, D) for _ in "kv"]
+        pools = [[x.clone() for x in kv] for _ in "ab"]
+    before = W.rope_write_rows_pair.launches
+    got = W.rope_write_rows_pair(*pools[0][:2], q, k, v, cos, sin, neox, slots, *pools[0][2:])
+    want = W.rope_write_rows_pair_plain(*pools[1][:2], q, k, v, cos, sin, neox, slots,
+                                        *pools[1][2:])
+    torch.cuda.synchronize()
+    assert W.rope_write_rows_pair.launches == before + 1
+    assert got.shape == (T, Hq, D) and got.is_contiguous() and torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(pools[0][:2], pools[1][:2]))
+    if not int8:
+        assert not torch.equal(pools[0][0], kv[0]) and not torch.equal(pools[0][1], kv[1])
+        return
+    if Hkv * (D - 1) >= 255 or T >= 512:  # token 0 alone, or enough rows
+        codes = torch.unique(torch.cat([p.flatten() for p in pools[0][:2]]))
+        assert codes.min().item() == -127 and codes.max().item() == 127 and codes.numel() == 255
+    skipped = ((slots < 0) | (slots >= N)).nonzero()[:, 0]
+    for g, w in zip(pools[0][2:], pools[1][2:]):
+        assert torch.equal(g[:, :N], w[:, :N])
+        if len(skipped):  # the spare column: one of the skipped rows' scales
+            _, sc = _quantize_rows(torch.stack((apply_rope_rot(k, cos, sin, neox), v)))
+            cands = torch.cat([sc[0][skipped].t(), sc[1][skipped].t()], 1)
+            assert (g[:, N:] == cands).any(1).all()
+
+
+@pytest.mark.cuda
+def test_rope_write_rows_pair_raises_on_unsupported_cuda_inputs(cuda):
+    rng = np.random.default_rng(1)
+    T, N = 4, 64
+
+    def case(D, Hkv=2):
+        qkv = _bf16(rng, cuda, T, (4 + 2 * Hkv) * D)
+        q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [4 * D, Hkv * D, Hkv * D], -1))
+        cos, sin = _rope_tables(rng, T, D, True, cuda) if D % 2 == 0 else (
+            torch.zeros(T, D, device=cuda), torch.zeros(T, D, device=cuda))
+        pool = torch.zeros(1, N, Hkv, D, dtype=torch.bfloat16, device=cuda)
+        return pool, q, k, v, cos, sin
+
+    pair = W.rope_write_rows_pair
+    slots = torch.arange(T, dtype=torch.int32, device=cuda)
+    pool, q, k, v, cos, sin = case(80)
+    sc = torch.zeros(2, N + 1, device=cuda)
+    with pytest.raises(NotImplementedError):
+        pair(pool, pool.clone(), q.float(), k, v, cos, sin, True, slots)                # fp32 q
+    with pytest.raises(NotImplementedError):
+        pair(pool, pool.clone(), q, k.half(), v, cos, sin, True, slots)                 # fp16 k
+    with pytest.raises(NotImplementedError):
+        pair(pool.float(), pool.float(), q, k, v, cos, sin, True, slots)                # fp32 pools
+    i8 = pool.to(torch.int8)
+    with pytest.raises(NotImplementedError):
+        pair(i8, i8.clone(), q, k, v, cos, sin, True, slots)                            # int8, no scales
+    with pytest.raises(NotImplementedError):
+        pair(pool, pool.clone(), q, k, v, cos, sin, True, slots, sc, sc.clone())        # bf16, scales
+    with pytest.raises(ValueError):
+        pair(i8, i8.clone(), q, k, v, cos, sin, True, slots, sc[:, :N], sc.clone())     # scales [2, N]
+    with pytest.raises(ValueError):
+        pair(i8, i8.clone(), q, k, v, cos, sin, True, slots, sc.double(), sc.clone())   # fp64 scales
+    with pytest.raises(ValueError):
+        pair(i8, i8.clone(), q, k, v, cos, sin, True, slots, sc, sc.clone()[:1])        # scales [1, N + 1]
+    with pytest.raises(ValueError):
+        pair(pool, pool.clone(), q, k, v, cos, sin, True, slots.long())                 # int64 slots
+    with pytest.raises(ValueError):
+        pair(pool, pool.clone(), q, k[:, :1], v, cos, sin, True, slots)                 # k [T, 1, D]
+    with pytest.raises(ValueError):
+        pair(pool, pool.clone(), q, k, v, cos[:, :64], sin, True, slots)                # cos [T, 64]
+    with pytest.raises(ValueError):
+        pair(pool, pool.clone(), q.cpu(), k, v, cos, sin, True, slots)                  # q on the CPU
+    for D in (81, 258):                                                                 # odd, > 256
+        pool, q, k, v, cos, sin = case(D)
+        with pytest.raises(NotImplementedError):
+            pair(pool, pool.clone(), q, k, v, cos, sin, True, slots)
 
 
 @pytest.mark.cuda
@@ -1186,8 +1296,9 @@ def test_slot_major_decode_attention_long_context_and_wide_groups(cuda, hkv, G, 
 @pytest.mark.parametrize("hkv,D", [(8, 80), (8, 128), (2, 16), (1, 100), (3, 7)])
 @pytest.mark.parametrize("start,n", [(0, 8), (21, 40), (3205, 512)])
 def test_slot_major_writes_are_exact(cuda, start, n, hkv, D, int8):
-    """Both pair writes against their plain versions: a decode step's rows or
-    a chunk starting mid-page through a shuffled table, one row skipped."""
+    """The pair write (the counterpart of both of the reference's slot-major
+    writes) against its plain version: a decode step's rows or a chunk
+    starting mid-page through a shuffled table, one row skipped."""
     rng = np.random.default_rng(start + D)
     pages = (start + n) // S + 3
     table = rng.permutation(pages)
@@ -1202,40 +1313,55 @@ def test_slot_major_writes_are_exact(cuda, start, n, hkv, D, int8):
     else:
         rows = [_bf16(rng, cuda, n, hkv, D) for _ in range(2)]
         pools = [_bf16(rng, cuda, 1, pages * S, hkv, D) for _ in range(2)]
-    for fn, plain in ((W.paged_write_rows, W.paged_write_rows_plain),
-                      (W.write_rows_2d_pair, W.write_rows_2d_pair_plain)):
-        n0 = fn.launches
-        gk, gv = fn(*(p.clone() for p in pools), *rows, slots)
-        wk, wv = plain(*(p.clone() for p in pools), *rows, slots)
-        assert fn.launches == n0 + 1
-        assert torch.equal(gk, wk) and torch.equal(gv, wv)
+    n0 = W.write_rows_pair.launches
+    gk, gv = W.write_rows_pair(*(p.clone() for p in pools), *rows, slots)
+    wk, wv = W.write_rows_pair_plain(*(p.clone() for p in pools), *rows, slots)
+    assert W.write_rows_pair.launches == n0 + 1
+    assert torch.equal(gk, wk) and torch.equal(gv, wv)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [False, True])
 def test_slot_major_write_kv_routes_as_the_reference(cuda, quantized, monkeypatch):
-    """write_kv on the card: head_dim 80 (8 KV heads) takes write_rows_2d_pair;
-    head_dim 128 under ZT_NO_PACKED_KV=1 takes paged_write_rows (Hkv % 8 == 0
-    and D % 128 == 0); int8 rows through the same kernels, scales beside them."""
+    """write_kv on the card over slot-major pools, head_dim 80 and 128 (under
+    ZT_NO_PACKED_KV=1, where the reference takes paged_write_rows), goes
+    through the one copy wrapper; int8 rows through the same kernel, scales
+    beside them. Both layouts' per-step writes (rope_write_kv) take their
+    prologue: rope_write_rows_pair over slot-major pools, rope_write_rows_hm
+    over the packed pool, one launch, bit-equal to rope + write_kv."""
     rng = np.random.default_rng(6)
-    monkeypatch.setenv("ZT_NO_PACKED_KV", "1")
-    for D, fn in ((80, W.write_rows_2d_pair), (128, W.paged_write_rows)):
+    for D, no_packed in ((80, "1"), (128, "1"), (128, "0")):
+        monkeypatch.setenv("ZT_NO_PACKED_KV", no_packed)
         cache = new_kv_cache(1, 8, S, 8, D, torch.bfloat16, quantized=quantized, device=cuda)
-        assert not cache.packed
+        assert cache.packed == (no_packed == "0")
         k, v = _bf16(rng, cuda, 5, 8, D), _bf16(rng, cuda, 5, 8, D)
         slots = torch.tensor([3, 40, -1, 77, 100], dtype=torch.int32, device=cuda)
-        n0 = fn.launches
-        write_kv(cache, 0, k, v, slots)
-        assert fn.launches == n0 + 1
         keep = slots >= 0
-        if quantized:
-            (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
-            assert torch.equal(cache.k[0][0, slots[keep].long()], k_q[keep])
-            assert torch.equal(cache.v[0][0, slots[keep].long()], v_q[keep])
-            assert torch.equal(cache.k_scale[0][:, slots[keep].long()], k_s[keep].t())
-        else:
-            assert torch.equal(cache.k[0][0, slots[keep].long()], k[keep])
-            assert torch.equal(cache.v[0][0, slots[keep].long()], v[keep])
+        if not cache.packed:
+            n0 = W.write_rows_pair.launches
+            write_kv(cache, 0, k, v, slots)
+            assert W.write_rows_pair.launches == n0 + 1
+            if quantized:
+                (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
+                assert torch.equal(cache.k[0][0, slots[keep].long()], k_q[keep])
+                assert torch.equal(cache.v[0][0, slots[keep].long()], v_q[keep])
+                assert torch.equal(cache.k_scale[0][:, slots[keep].long()], k_s[keep].t())
+            else:
+                assert torch.equal(cache.k[0][0, slots[keep].long()], k[keep])
+                assert torch.equal(cache.v[0][0, slots[keep].long()], v[keep])
+        # the per-step write: the prologue against rope + write_kv on a second cache
+        q = _bf16(rng, cuda, 5, 32, D)
+        cos, sin = _rope_tables(rng, 5, D, True, cuda)
+        twin = new_kv_cache(1, 8, S, 8, D, torch.bfloat16, quantized=quantized, device=cuda)
+        prologue = W.rope_write_rows_hm if cache.packed else W.rope_write_rows_pair
+        n0, c0 = prologue.launches, W.write_rows_pair.launches
+        got = rope_write_kv(cache, 0, q, k, v, cos, sin, True, slots)
+        assert prologue.launches == n0 + 1 and W.write_rows_pair.launches == c0
+        want = apply_rope_rot(q, cos, sin, True)
+        write_kv(twin, 0, apply_rope_rot(k, cos, sin, True), v, slots)
+        assert torch.equal(got, want)
+        # one skipped row: the spare scale column holds its scales on both sides
+        assert all(torch.equal(a[0], b[0]) for a, b in zip(cache.arrays(), twin.arrays()))
 
 
 @pytest.mark.cuda
@@ -1260,10 +1386,10 @@ def test_slot_major_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         PA.paged_decode_attention(wide, wpool, wpool, tables, ctx, S, 0.1)          # D > 256
     rows = torch.zeros(3, 2, 80, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
-        W.paged_write_rows(pool, pool, rows, rows, torch.zeros(3, dtype=torch.int64, device=cuda))
+        W.write_rows_pair(pool, pool, rows, rows, torch.zeros(3, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
-        W.write_rows_2d_pair(pool, pool, rows[:, :1], rows, torch.zeros(3, dtype=torch.int32,
-                                                                          device=cuda))
+        W.write_rows_pair(pool, pool, rows[:, :1], rows, torch.zeros(3, dtype=torch.int32,
+                                                                       device=cuda))
 
 
 # the slot-major decode's split edges at H2O-Danube-1.8B's heads and batch
@@ -1723,7 +1849,7 @@ def test_fused_kv_engine_on_gpu(cuda, dim_head, monkeypatch):
                         scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
     params = L.init_params(cfg, 0, cuda)
     prompts = [np.random.default_rng(i).integers(2, 128, n).tolist() for i, n in enumerate((40, 7, 100))]
-    write = W.write_rows_2d_pair if dim_head == 80 else W.rope_write_rows_hm
+    write = W.rope_write_rows_pair if dim_head == 80 else W.rope_write_rows_hm
     counted = (PA.paged_decode_attention_fused, PA.paged_decode_attention,
                A.paged_decode_attention_hm, write)
     runs, execs = {}, {}

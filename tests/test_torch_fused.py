@@ -121,7 +121,7 @@ def test_plain_fused_decode_matches_pallas(hkv, packed, window):
     # the port's own write-then-attend gives the same output where a row is
     # written and attended (frozen and empty slots differ by design)
     kp, vp = T(k_pages)[None], T(v_pages)[None]
-    W.paged_write_rows_plain(kp, vp, T(k_new), T(v_new), T(np.where(ctx > 0, slots, -1)))
+    W.write_rows_pair_plain(kp, vp, T(k_new), T(v_new), T(np.where(ctx > 0, slots, -1)))
     ref = PA.paged_decode_attention_plain(T(q), kp, vp, T(tables), T(ctx), S, scale, window)
     active = (slots >= 0) & (ctx > 0)
     np.testing.assert_allclose(got.numpy()[active], ref.numpy()[active], rtol=RTOL, atol=ATOL)

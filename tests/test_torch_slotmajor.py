@@ -232,13 +232,16 @@ def test_decode_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(NotImplementedError):
         PA.paged_decode_attention_q(q, pool, pool, sc, sc, tables, ctx, S, 0.1)
     rows = torch.empty(5, 2, 80, **meta)
-    for write in (W.paged_write_rows, W.write_rows_2d_pair):
-        with pytest.raises(NotImplementedError):
-            write(pool, pool, rows, rows, torch.empty(5, **i32))
+    with pytest.raises(NotImplementedError):
+        W.write_rows_pair(pool, pool, rows, rows, torch.empty(5, **i32))
+    cos = torch.empty(5, 80, device="meta")
+    with pytest.raises(NotImplementedError):
+        W.rope_write_rows_pair(pool, pool, torch.empty(5, 4, 80, **meta), rows, rows, cos, cos,
+                               True, torch.empty(5, **i32))
 
 
 # ---------------------------------------------------------------------------
-# paged_write_rows / write_rows_2d_pair: plain versions against Pallas
+# paged_write_rows / write_rows_2d_pair: the one plain version against both Pallas writes
 # ---------------------------------------------------------------------------
 
 def _write_slots(rng, T_, N):
@@ -275,8 +278,8 @@ def test_plain_pair_writes_match_pallas(T_, H, D, dtype):
             for shape in ((N, H, D), (N, H, D), (T_, H, D), (T_, H, D)))
     slots = _write_slots(rng, T_, N)
     jargs = tuple(jnp.asarray(a) for a in (k_cache, v_cache, k_rows, v_rows, slots))
-    for jfn, tfn in ((j_paged_write_rows, W.paged_write_rows),
-                     (j_write_rows_2d_pair, W.write_rows_2d_pair)):
+    for jfn, tfn in ((j_paged_write_rows, W.write_rows_pair),
+                     (j_write_rows_2d_pair, W.write_rows_pair)):
         wk, wv = jfn(*jargs, S, interpret=True)
         gk, gv = tfn(_t_pool(k_cache), _t_pool(v_cache), T(k_rows), T(v_rows), T(slots))
         assert gk.shape == (1, N, H, D)

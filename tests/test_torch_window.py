@@ -471,7 +471,7 @@ def _serve_both(monkeypatch, model, cache, sched, lens, max_length, seed):
     spy(TL, "forward_decode", "t_step")
     spy(W, "flush_side_rows_hm", "flush")
     spy(W, "flush_side_rows_2d", "flush")
-    for name in ("write_rows_hm", "write_rows_2d", "paged_write_rows", "write_rows_2d_pair"):
+    for name in ("write_rows_hm", "write_rows_2d", "write_rows_pair", "rope_write_rows_pair"):
         spy(W, name, "window_writes")
 
     with monkeypatch.context() as m:

@@ -30,11 +30,14 @@ Every array of a cache has its slot dimension at dim 1 (hence the leading unit
 dimensions), so the engine's pool-row operations serve every layout.
 
 Writes update the pool in place (PyTorch has no buffer donation to emulate):
-:func:`write_kv` returns the same cache object it was given. A model's
-per-step writes go through the attention prologues instead:
-:func:`rope_write_kv` (packed pool) and :func:`rope_write_latent` (latent
-pool) rotate q and k and write the rows, quantized over an int8 pool, in one
-kernel launch, bit-equal to :func:`apply_rope_rot` followed by
+:func:`write_kv` returns the same cache object it was given; it copies rows
+through ``write_rows_hm`` (packed pool) or ``write_rows_pair`` (slot-major
+pools; the counterpart of both of the reference's slot-major writes). A
+model's per-step writes go through the attention prologues instead:
+:func:`rope_write_kv` (``rope_write_rows_hm`` over a packed pool,
+``rope_write_rows_pair`` over slot-major pools) and :func:`rope_write_latent`
+(latent pool) rotate q and k and write the rows, quantized over an int8 pool,
+in one kernel launch, bit-equal to :func:`apply_rope_rot` followed by
 :func:`write_kv` / :func:`write_latent`.
 
 A decode window with side-buffered KV writes (``ZT_WINDOW_KV=1``) writes no
@@ -170,22 +173,14 @@ def new_latent_cache(
 _quantize_rows = kv_write.quantize_rows
 
 
-def _rows_tile_aligned(rows: torch.Tensor) -> bool:
-    """The reference's choice between its two slot-major row writes
-    (``kvcache/paged.py:229-232``): ``paged_write_rows`` for rows [T, Hkv, D]
-    with ``Hkv % 8 == 0`` and ``D % 128 == 0``, ``write_rows_2d_pair`` else."""
-    return rows.shape[-2] % 8 == 0 and rows.shape[-1] % 128 == 0
-
-
 def _write_rows(cache: KVCache, layer: int, k_rows, v_rows, slot_mapping) -> None:
     """Rows into layer ``layer``'s pools, whatever the layout and dtype: the
     CUDA writes move bytes, so int8 rows take the same kernel as model-dtype
     rows (the reference scatters slot-major int8 rows through XLA)."""
     if cache.packed:
         kv_write.write_rows_hm(cache.k[layer], k_rows, v_rows, slot_mapping)
-        return
-    write = kv_write.paged_write_rows if _rows_tile_aligned(k_rows) else kv_write.write_rows_2d_pair
-    write(cache.k[layer], cache.v[layer], k_rows, v_rows, slot_mapping)
+    else:
+        kv_write.write_rows_pair(cache.k[layer], cache.v[layer], k_rows, v_rows, slot_mapping)
 
 
 def write_kv(
@@ -221,16 +216,17 @@ def rope_write_kv(
     neox: bool,
     slot_mapping: torch.Tensor,  # [T] int32; < 0 => skip
 ) -> torch.Tensor:
-    """The packed pool's attention prologue: rotate q and k, write K|V rows
-    into layer ``layer``'s pool in place (an int8 cache quantizes them and
-    scatters their scales), one launch on the GPU; returns q rotated. The
-    same as :func:`apply_rope_rot` on q and k followed by :func:`write_kv`,
-    bit for bit."""
-    if not cache.packed:
-        raise ValueError("rope_write_kv: the prologue writes the packed head-major pool")
+    """The attention prologue of a packed or slot-major cache: rotate q and
+    k, write the K and V rows into layer ``layer``'s pools in place (an int8
+    cache quantizes them and scatters their scales), one launch on the GPU;
+    returns q rotated. The same as :func:`apply_rope_rot` on q and k followed
+    by :func:`write_kv`, bit for bit."""
     scales = (cache.k_scale[layer], cache.v_scale[layer]) if cache.quantized else ()
-    return kv_write.rope_write_rows_hm(cache.k[layer], q, k, v, cos_f, sin_f, neox, slot_mapping,
-                                       *scales)
+    if cache.packed:
+        return kv_write.rope_write_rows_hm(cache.k[layer], q, k, v, cos_f, sin_f, neox,
+                                           slot_mapping, *scales)
+    return kv_write.rope_write_rows_pair(cache.k[layer], cache.v[layer], q, k, v, cos_f, sin_f,
+                                         neox, slot_mapping, *scales)
 
 
 def rope_write_latent(

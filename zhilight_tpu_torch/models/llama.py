@@ -11,11 +11,11 @@ write the paged KV pool in place.
 
 Every layer writes its new K and V rows (``ops.cuda.kv_write``), then
 attends over the paged pool, whose layout ``kvcache/paged.py`` picks as the
-reference does. Over the packed pool the rotation of q and k and the row
-write (with an int8 pool's quantization) are one kernel, the pool's attention
-prologue (``kvcache.paged.rope_write_kv``); over slot-major pools, and in the
-window and fused modes below, q and k are rotated apart and the rows written
-by ``write_kv`` or the fused kernel. The layouts:
+reference does. Over either layout the rotation of q and k and the row write
+(with an int8 pool's quantization) are one kernel, the pool's attention
+prologue (``kvcache.paged.rope_write_kv``); in the window mode and in the
+fused mode's decode steps below, q and k are rotated apart and the rows kept
+in side buffers or written by the fused kernel. The layouts:
 
 * the head-major packed pool (``2*head_dim % 128 == 0``): prefill chunks
   (single or packed) run ``ops.cuda.prefill_attention``, decode steps
@@ -43,7 +43,7 @@ window's rows once at its end.
 Fused write + attend (``ZT_FUSED_KV=1``, read by the executor, which sets
 ``DecodeMeta.fused``): a decode step over slot-major pools in the model dtype
 (never int8, never the packed head-major pool: :func:`_use_fused_write`)
-skips ``write_kv`` and calls ``ops.cuda.paged_attention``'s
+skips the prologue and calls ``ops.cuda.paged_attention``'s
 ``paged_decode_attention_fused``, which writes the rows and attends in one
 kernel (its plain version for CPU tensors); an MLA model's decode step calls
 ``paged_mla_decode_fused`` over its latent pool (``models/mla.py``). Prefill
@@ -59,7 +59,7 @@ import torch
 
 from ..config.model_config import ModelConfig
 from ..kvcache.paged import (KVCache, _quantize_rows, flush_side_kv, flush_side_latent,
-                             gather_kv, rope_write_kv, side_scale_index, write_kv)
+                             gather_kv, rope_write_kv, side_scale_index)
 from ..ops.activations import gated_act
 from ..ops.attention import merge_window
 from ..ops.attention import prefill_attention as attend_chunk
@@ -152,24 +152,22 @@ def attention_layer(
     scale = 1.0 / math.sqrt(cfg.dim_head)
     S, sw = cache.page_size, cfg.sliding_window
 
-    if side is None and cache.packed:
-        # the packed pool's prologue: q and k rotated, K|V rows written (an
-        # int8 pool's quantized), one kernel launch
-        q = rope_write_kv(cache, layer_idx, q, k, v, cos_f, sin_f, rope.neox_style,
-                          meta.slot_mapping)
-    else:
+    if side is not None or (mode == "decode" and _use_fused_write(cache, meta.fused)):
+        # the rows go to a side buffer or to the fused kernel: q and k rotated apart
         q = apply_rope_rot(q, cos_f, sin_f, rope.neox_style)
         k = apply_rope_rot(k, cos_f, sin_f, rope.neox_style)
         if side is not None:
             out, rows = _side_window_attention(cache, layer_idx, q, k, v, meta, side, scale)
             return linear(p["o_proj"], out), cache, rows
-        if mode == "decode" and _use_fused_write(cache, meta.fused):
-            out = paged_attention.paged_decode_attention_fused(
-                q, cache.k[layer_idx], cache.v[layer_idx], k, v, meta.slot_mapping,
-                meta.page_tables, meta.context_lens, S, scale, sw)
-        else:
-            cache = write_kv(cache, layer_idx, k, v, meta.slot_mapping)
-            out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
+        out = paged_attention.paged_decode_attention_fused(
+            q, cache.k[layer_idx], cache.v[layer_idx], k, v, meta.slot_mapping,
+            meta.page_tables, meta.context_lens, S, scale, sw)
+        return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+    # the pool's attention prologue: q and k rotated, K and V rows written (an
+    # int8 pool's quantized), one kernel launch
+    q = rope_write_kv(cache, layer_idx, q, k, v, cos_f, sin_f, rope.neox_style, meta.slot_mapping)
+    if not cache.packed:
+        out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
         return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
     # an int8 cache goes to the _q kernels with this layer's scales
     kv = (cache.k[layer_idx],)

@@ -1,7 +1,6 @@
 """KV-pool row writes: into the head-major packed pool, into a 2-D pool, and
 into separate slot-major K and V pools; and the attention prologues of the
-packed and the latent pool, which rotate q and k and write the rows in one
-launch.
+three pools, which rotate q and k and write the rows in one launch.
 
 Counterpart of ``zhilight_tpu/ops/pallas/kv_write.py`` ``write_rows_hm``
 (:606). The CUDA kernel is ``csrc/kv_write.cu``; the plain PyTorch version
@@ -42,15 +41,25 @@ written (``models/mla.py``'s two rotations, concatenation and
 version is :func:`rope_write_rows_2d_plain`. cos and sin are the fp32 ``[T,
 D]`` tables of ``RopeTable.rot_values``; the kernels take bf16 rows only.
 
-:func:`paged_write_rows` (:141) and :func:`write_rows_2d_pair` (:427) write
-the separate slot-major K and V pools, ``[N, Hkv, D]`` (or ``[1, N, Hkv, D]``,
-as the cache holds them), in one call: ``k_cache[slot[t]] = k_rows[t]`` and
-``v_cache[slot[t]] = v_rows[t]`` for ``0 <= slot[t] < N``, rows cast to the
-pools' dtype, pools updated in place and returned as ``(k_cache, v_cache)``.
-The reference has two because its TPU kernels need tile-aligned rows for the
-first; on the GPU they compute one thing, so both launch ``csrc/kv_write_pair.cu``
-(any row width, bf16 or int8 rows), and each keeps its own launch counter and
-plain version. ``page_size`` and ``interpret`` are dropped.
+:func:`write_rows_pair` writes the separate slot-major K and V pools,
+``[N, Hkv, D]`` (or ``[1, N, Hkv, D]``, as the cache holds them), in one call:
+``k_cache[slot[t]] = k_rows[t]`` and ``v_cache[slot[t]] = v_rows[t]`` for
+``0 <= slot[t] < N``, rows cast to the pools' dtype, pools updated in place and
+returned as ``(k_cache, v_cache)``. It is the counterpart of both
+``paged_write_rows`` (:141) and ``write_rows_2d_pair`` (:427): the reference
+has two because its TPU kernels need tile-aligned rows for the first; on the
+GPU they compute one thing, the copy mode of ``csrc/kv_write_pair.cu`` (any
+row width, bf16 or int8 rows), whose plain version is
+:func:`write_rows_pair_plain`. ``page_size`` and ``interpret`` are dropped.
+:func:`rope_write_rows_pair` is the slot-major pools' attention prologue, the
+redesign of rows 11 and 12 into one launch a layer: ``q_rot =
+apply_rope_rot(q)`` is returned, ``apply_rope_rot(k)`` and ``v`` go into the
+K and V pools; over int8 pools (scales given) the rows are quantized by
+:func:`quantize_rows` and their scales scattered by :func:`scatter_scales`, a
+skipped row's into the spare column N. Its kernel is the rope modes of
+``csrc/kv_write_pair.cu`` (every even head_dim up to 256; q, k and v read
+through their strides), bit-equal to :func:`rope_write_rows_pair_plain`, which
+is that composition of PyTorch ops.
 
 :func:`flush_side_rows_hm` (:796) and :func:`flush_side_rows_2d` (:929) end a
 decode window with side-buffered KV writes (``ZT_WINDOW_KV=1``): slot b's
@@ -81,8 +90,8 @@ from . import _build
 __all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_2d_plain",
            "rope_write_rows_hm", "rope_write_rows_hm_plain", "rope_write_rows_2d",
            "rope_write_rows_2d_plain", "quantize_rows", "scatter_scales",
-           "paged_write_rows", "paged_write_rows_plain", "write_rows_2d_pair",
-           "write_rows_2d_pair_plain", "flush_side_rows_hm", "flush_side_rows_hm_plain",
+           "write_rows_pair", "write_rows_pair_plain", "rope_write_rows_pair",
+           "rope_write_rows_pair_plain", "flush_side_rows_hm", "flush_side_rows_hm_plain",
            "flush_side_rows_2d", "flush_side_rows_2d_plain", "side_slots"]
 
 
@@ -406,18 +415,24 @@ rope_write_rows_2d.launches = 0
 # separate slot-major K and V pools
 # ---------------------------------------------------------------------------
 
-def _rows_view(pool: torch.Tensor) -> torch.Tensor:
-    """A slot-major pool [N, Hkv, D] (or [1, N, Hkv, D]) as its 2-D view
-    [N, Hkv * D]: one token's row of every head."""
+def _pool_3d(pool: torch.Tensor) -> torch.Tensor:
+    """A slot-major pool [N, Hkv, D] (or [1, N, Hkv, D]) as [N, Hkv, D]."""
     if pool.dim() == 4 and pool.shape[0] == 1:
         pool = pool[0]
     if pool.dim() != 3:
         raise ValueError(f"pair write: pool must be [N, Hkv, D] or [1, N, Hkv, D], "
                          f"got {tuple(pool.shape)}")
+    return pool
+
+
+def _rows_view(pool: torch.Tensor) -> torch.Tensor:
+    """A slot-major pool as its 2-D view [N, Hkv * D]: one token's row of
+    every head."""
+    pool = _pool_3d(pool)
     return pool.view(pool.shape[0], -1)
 
 
-def paged_write_rows_plain(
+def write_rows_pair_plain(
     k_cache: torch.Tensor,       # [N, Hkv, D] or [1, N, Hkv, D]
     v_cache: torch.Tensor,
     k_rows: torch.Tensor,        # [T, Hkv, D]
@@ -429,10 +444,6 @@ def paged_write_rows_plain(
     return k_cache, v_cache
 
 
-# the reference's two writes differ only in how their TPU kernels move rows
-write_rows_2d_pair_plain = paged_write_rows_plain
-
-
 def _entry_pair():
     fn = _build.library("kv_write_pair").zt_write_rows_pair
     if fn.argtypes is None:
@@ -442,57 +453,133 @@ def _entry_pair():
     return fn
 
 
-def _write_pair(what: str, k_cache, v_cache, k_rows, v_rows, slot_mapping) -> None:
-    """Launch csrc/kv_write_pair.cu for a CUDA pool, or raise."""
+def write_rows_pair(k_cache, v_cache, k_rows, v_rows, slot_mapping):
+    """Write K and V rows into the slot-major pools in place; returns
+    ``(k_cache, v_cache)``. The counterpart of both ``paged_write_rows``
+    (:141) and ``write_rows_2d_pair`` (:427)."""
+    if k_cache.device.type == "cpu":
+        return write_rows_pair_plain(k_cache, v_cache, k_rows, v_rows, slot_mapping)
     if not k_cache.is_cuda:
-        raise NotImplementedError(f"{what}: no kernel for device {k_cache.device}")
+        raise NotImplementedError(f"write_rows_pair: no kernel for device {k_cache.device}")
     k2, v2 = _rows_view(k_cache), _rows_view(v_cache)
     N, X = k2.shape
     T = k_rows.shape[0]
     if v2.shape != (N, X) or v_cache.dtype != k_cache.dtype:
-        raise ValueError(f"{what}: k {tuple(k_cache.shape)} {k_cache.dtype}, "
+        raise ValueError(f"write_rows_pair: k {tuple(k_cache.shape)} {k_cache.dtype}, "
                          f"v {tuple(v_cache.shape)} {v_cache.dtype}")
     rk = k_rows.to(k_cache.dtype).reshape(T, -1).contiguous()
     rv = v_rows.to(k_cache.dtype).reshape(T, -1).contiguous()
     if rk.shape != (T, X) or rv.shape != (T, X):
-        raise ValueError(f"{what}: pools {tuple(k_cache.shape)}, rows {tuple(k_rows.shape)} / "
-                         f"{tuple(v_rows.shape)}")
+        raise ValueError(f"write_rows_pair: pools {tuple(k_cache.shape)}, rows "
+                         f"{tuple(k_rows.shape)} / {tuple(v_rows.shape)}")
     if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (T,):
-        raise ValueError(f"{what}: slot_mapping must be int32 [T]")
+        raise ValueError("write_rows_pair: slot_mapping must be int32 [T]")
     for t in (k2, v2, rk, rv, slot_mapping):
         if t.device != k_cache.device or not t.is_contiguous():
-            raise ValueError(f"{what}: tensors must be contiguous and on one device")
+            raise ValueError("write_rows_pair: tensors must be contiguous and on one device")
     err = _entry_pair()(
         k2.data_ptr(), v2.data_ptr(), rk.data_ptr(), rv.data_ptr(), slot_mapping.data_ptr(),
         T, N, X * k_cache.element_size(), torch.cuda.current_stream(k_cache.device).cuda_stream,
     )
-    _build.check(err, what)
-
-
-def paged_write_rows(k_cache, v_cache, k_rows, v_rows, slot_mapping):
-    """Write K and V rows into the slot-major pools in place; returns
-    ``(k_cache, v_cache)``."""
-    if k_cache.device.type == "cpu":
-        return paged_write_rows_plain(k_cache, v_cache, k_rows, v_rows, slot_mapping)
-    _write_pair("paged_write_rows", k_cache, v_cache, k_rows, v_rows, slot_mapping)
-    paged_write_rows.launches += 1
+    _build.check(err, "write_rows_pair")
+    write_rows_pair.launches += 1
     return k_cache, v_cache
 
 
-paged_write_rows.launches = 0
+write_rows_pair.launches = 0
 
 
-def write_rows_2d_pair(k_cache, v_cache, k_rows, v_rows, slot_mapping):
-    """Write K and V rows into the slot-major pools in place through their 2-D
-    views; returns ``(k_cache, v_cache)``."""
+def rope_write_rows_pair_plain(
+    k_cache: torch.Tensor,                   # [N, Hkv, D] or [1, N, Hkv, D]
+    v_cache: torch.Tensor,
+    q: torch.Tensor,                         # [T, Hq, D]
+    k: torch.Tensor,                         # [T, Hkv, D]
+    v: torch.Tensor,                         # [T, Hkv, D]
+    cos_f: torch.Tensor,                     # [T, D] fp32
+    sin_f: torch.Tensor,
+    neox: bool,
+    slot_mapping: torch.Tensor,              # [T] int; < 0 => skip
+    k_scale: Optional[torch.Tensor] = None,  # int8 pools: [Hkv, N + 1] fp32
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    q_rot = apply_rope_rot(q, cos_f, sin_f, neox)
+    k_rot = apply_rope_rot(k, cos_f, sin_f, neox)
+    if k_scale is None:
+        write_rows_pair_plain(k_cache, v_cache, k_rot, v, slot_mapping)
+        return q_rot
+    rows, scales = quantize_rows(torch.stack((k_rot, v)))  # [2, T, Hkv, D], [2, T, Hkv]
+    write_rows_pair_plain(k_cache, v_cache, rows[0], rows[1], slot_mapping)
+    scatter_scales(k_scale, v_scale, scales, slot_mapping)
+    return q_rot
+
+
+def _entry_rope_pair():
+    fn = _build.library("kv_write_pair").zt_rope_write_rows_pair
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 11 + [i] * 4 + [ll] * 7 + [i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rope_write_rows_pair(k_cache, v_cache, q, k, v, cos_f, sin_f, neox: bool, slot_mapping,
+                         k_scale=None, v_scale=None) -> torch.Tensor:
+    """Rotate q and k, write the K and V rows (quantized over int8 pools,
+    whose scales are given) into the slot-major pools in place; returns q
+    rotated, ``[T, Hq, D]``."""
     if k_cache.device.type == "cpu":
-        return write_rows_2d_pair_plain(k_cache, v_cache, k_rows, v_rows, slot_mapping)
-    _write_pair("write_rows_2d_pair", k_cache, v_cache, k_rows, v_rows, slot_mapping)
-    write_rows_2d_pair.launches += 1
-    return k_cache, v_cache
+        return rope_write_rows_pair_plain(k_cache, v_cache, q, k, v, cos_f, sin_f, neox,
+                                          slot_mapping, k_scale, v_scale)
+    if not k_cache.is_cuda:
+        raise NotImplementedError(f"rope_write_rows_pair: no kernel for device {k_cache.device}")
+    k3, v3 = _pool_3d(k_cache), _pool_3d(v_cache)
+    N, Hkv, D = k3.shape
+    T, Hq = q.shape[:2]
+    if (q.shape != (T, Hq, D) or k.shape != (T, Hkv, D) or v.shape != k.shape
+            or v3.shape != k3.shape):
+        raise ValueError(f"rope_write_rows_pair: pools {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)}, q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    int8 = k_scale is not None
+    pool_dtype = torch.int8 if int8 else torch.bfloat16
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or \
+            k3.dtype != pool_dtype or v3.dtype != pool_dtype:
+        raise NotImplementedError(f"rope_write_rows_pair: the kernel takes bf16 rows into bf16 "
+                                  f"or int8 pools, got {q.dtype}/{k.dtype}/{v.dtype} into "
+                                  f"{k3.dtype}/{v3.dtype}{' with scales' if int8 else ''}")
+    if D % 2 or D > 256:
+        raise NotImplementedError(f"rope_write_rows_pair: head_dim {D} (the kernel takes even "
+                                  f"head dims up to 256)")
+    if slot_mapping.dtype != torch.int32 or slot_mapping.shape != (T,):
+        raise ValueError("rope_write_rows_pair: slot_mapping must be int32 [T]")
+    scales = (k_scale, v_scale) if int8 else ()
+    if any(s is None or s.dtype != torch.float32 or s.shape != (Hkv, N + 1)
+           or not s.is_contiguous() for s in scales):
+        raise ValueError(f"rope_write_rows_pair: scales must be fp32 [Hkv, N + 1] = "
+                         f"[{Hkv}, {N + 1}] and contiguous")
+    if not (all(x.stride(-1) == 1 for x in (q, k, v))
+            and all(c.dtype == torch.float32 and c.shape == (T, D) and c.is_contiguous()
+                    for c in (cos_f, sin_f))
+            and k3.is_contiguous() and v3.is_contiguous()):
+        raise ValueError("rope_write_rows_pair: rows must have unit last stride, cos/sin fp32 "
+                         "[T, D] contiguous, the pools contiguous")
+    if any(x.device != k_cache.device
+           for x in (v_cache, q, k, v, cos_f, sin_f, slot_mapping, *scales)):
+        raise ValueError("rope_write_rows_pair: tensors must be on one device")
+    q_out = torch.empty((T, Hq, D), dtype=q.dtype, device=q.device)
+    err = _entry_rope_pair()(
+        k3.data_ptr(), v3.data_ptr(), k_scale.data_ptr() if int8 else None,
+        v_scale.data_ptr() if int8 else None, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q_out.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(), slot_mapping.data_ptr(),
+        T, Hq, Hkv, D, N, *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], int(neox), int(int8),
+        torch.cuda.current_stream(k_cache.device).cuda_stream,
+    )
+    _build.check(err, "rope_write_rows_pair")
+    rope_write_rows_pair.launches += 1
+    return q_out
 
 
-write_rows_2d_pair.launches = 0
+rope_write_rows_pair.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -73,7 +73,18 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            kv_write.cu, kv_write_2d.cu and kv_write_pair.cu in DIR (an
            earlier tree's csrc) are built apart with nvcc and that sequence,
            with the earlier tree's row write, is timed beside the prologue in
-           turns, device and host-inclusive, at the same shapes;
+           turns, device and host-inclusive, at the same shapes; and the
+           layered flush (rows 14 and 15 redesigned: every layer of a decode
+           window in one launch, an int8 pool's requantization and scale
+           scatter in it) bit-exact against its plain version over bf16, fp16,
+           int8 and latent pools (dead slots, windows across a page, a window
+           of a whole page), timed at MiniCPM-2B's, Qwen2.5-14B's int8 and
+           DeepSeek-V2-Lite's windows (40, 48 and 27 layers) beside the
+           per-layer sequence it replaces, and with ``--parent-csrc`` beside
+           that sequence through DIR's kv_flush.cu, in turns; and every
+           kernel with fp16 inputs (q, rows and model-dtype pools; fp16 q over
+           int8 pools) against its plain version in fp16, rows 2, 3 and 10
+           timed in fp16 beside bf16;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -99,7 +110,11 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            ``map_hf_params(quant_method="fp8")`` with ``ZT_FP8_KEEP=1``, so
            the weights stay FP8 and every projection runs the FP8 kernel),
            then the same tensors at 4 layers dequantized at load (the
-           loader's default) against the kept ones. Beside them, W8A8:
+           loader's default) against the kept ones; and Qwen2.5-14B
+           GPTQ-Int4 as an fp16 checkpoint (``"torch_dtype": "float16"``,
+           the same GPTQ leaves, its dense leaves in fp16, a packed fp16
+           pool), with 8 decode steps of 4 prompts teacher-forced against
+           the plain path. Beside them, W8A8:
            MiniCPM-2B calibrated on four seeded 512-token sequences
            (``calc_act_scales``), quantized by ``quantize_int8_params`` and
            served from the int8 tree, with ``int8_linear`` on the card held
@@ -137,7 +152,8 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            MiniCPM-2B W8A8 batch 16 at context 512, decode only;
            H2O-Danube-1.8B batch 8 at context 3712, over the bf16 pool and,
            decode only, the int8 pool; decode only, the three window paths
-           and the two fused paths at their twins' batch and context) and the
+           and the two fused paths at their twins' batch and context, and
+           the fp16 Qwen path's decode) and the
            time to first token of a
            3712-token prompt (DeepSeek: 2816) in 512-token chunks, by
            bench.py's method, then a torch.profiler breakdown of one decode
@@ -256,6 +272,18 @@ KERNELS = {
         source="zhilight_tpu_torch/csrc/kv_flush.cu",
         replaces="zhilight_tpu/ops/pallas/kv_write.py:929",
     ),
+    # the same kernel over every layer of a window in one launch (an int8
+    # pool's requantization and scale scatter in it): what the window paths
+    # launch; the per-layer entries above flush one layer (flush_side_kv,
+    # flush_side_latent)
+    "flush_side_layers_hm": dict(
+        source="zhilight_tpu_torch/csrc/kv_flush.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:796",
+    ),
+    "flush_side_layers_2d": dict(
+        source="zhilight_tpu_torch/csrc/kv_flush.cu",
+        replaces="zhilight_tpu/ops/pallas/kv_write.py:929",
+    ),
     "paged_decode_attention_hm_partial": dict(
         source="zhilight_tpu_torch/csrc/attn_headmajor.cu",
         replaces="zhilight_tpu/ops/pallas/attn_headmajor.py:151",
@@ -304,6 +332,9 @@ INT8_KERNELS = ("paged_decode_attention_hm_q", "paged_prefill_attention_hm_packe
 PATHS = {
     "MiniCPM-2B": ATTENTION_KERNELS,
     "Qwen2.5-14B-GPTQ-Int4": ATTENTION_KERNELS + ("w4a16_matmul",),
+    # the same geometry as an fp16 checkpoint ("torch_dtype": "float16", as the
+    # published GPTQ config gives it): the same kernels, fp16 instantiations
+    "Qwen2.5-14B-GPTQ-Int4-fp16": ATTENTION_KERNELS + ("w4a16_matmul",),
     "Qwen2.5-14B-GPTQ-Int4-int8kv": ("rope_write_rows_hm", "w4a16_matmul") + INT8_KERNELS,
     # MLA prefill is plain torch, as the reference leaves it to XLA
     "DeepSeek-V2-Lite-GPTQ-Int4": ("rope_write_rows_2d", "paged_mla_decode",
@@ -316,17 +347,17 @@ PATHS = {
     "H2O-Danube-1.8B": ("rope_write_rows_pair", "paged_decode_attention"),
     "H2O-Danube-1.8B-int8kv": ("rope_write_rows_pair", "paged_decode_attention_q"),
     # decode windows with side-buffered KV writes (ZT_WINDOW_KV=1): the decode
-    # kernels in their partial mode and one flush a layer a window, never the
-    # normal decode; the row writes are prefill's
+    # kernels in their partial mode and one flush a window for every layer,
+    # never the normal decode; the row writes are prefill's
     "MiniCPM-2B-window": ("rope_write_rows_hm", "paged_prefill_attention_hm_packed",
-                          "paged_decode_attention_hm_partial", "flush_side_rows_hm"),
+                          "paged_decode_attention_hm_partial", "flush_side_layers_hm"),
     "Qwen2.5-14B-GPTQ-Int4-int8kv-window": ("rope_write_rows_hm", "w4a16_matmul",
                                             "paged_prefill_attention_hm_packed_q",
                                             "paged_decode_attention_hm_q_partial",
-                                            "flush_side_rows_hm"),
+                                            "flush_side_layers_hm"),
     "DeepSeek-V2-Lite-GPTQ-Int4-window": ("rope_write_rows_2d", "w4a16_ragged_matmul",
                                           "w4a16_matmul", "paged_mla_decode_partial",
-                                          "flush_side_rows_2d"),
+                                          "flush_side_layers_2d"),
     # fused write + attend (ZT_FUSED_KV=1): the fused kernel in decode, never
     # the unfused decode; the row writes are prefill's (FUSED_PREFILL_WRITES)
     "H2O-Danube-1.8B-fused": ("rope_write_rows_pair", "paged_decode_attention_fused"),
@@ -503,8 +534,27 @@ def _dev(x, dtype=None):
     return t.to(dtype) if dtype is not None else t
 
 
+# the model dtype of the kernels' inputs that _randn makes: bf16, or fp16
+# inside ``elem_dtype(torch.float16)`` (the fp16 cases of kernels_fp16)
+_ELEM = [torch.bfloat16]
+
+
+@contextlib.contextmanager
+def elem_dtype(dtype):
+    _ELEM.append(dtype)
+    try:
+        yield
+    finally:
+        _ELEM.pop()
+
+
 def _randn(rng, *shape):
-    return _dev(rng.standard_normal(shape).astype(np.float32), torch.bfloat16)
+    return _dev(rng.standard_normal(shape).astype(np.float32), _ELEM[-1])
+
+
+def _q_note() -> str:
+    """A log note on the inputs' model dtype when it is not bf16."""
+    return "" if _ELEM[-1] == torch.bfloat16 else f" ({str(_ELEM[-1])[6:]} q and rows)"
 
 
 def _bf16(rng, shape, scale=0.02):
@@ -788,7 +838,7 @@ def check_decode(rng, A, cases, int8) -> float:
         got, want = fn(*args), plain(*args)
         e = (got.float() - want.float()).abs().max().item()
         e_twin = (got.float() - twin(*args).float()).abs().max().item()
-        print(f"kernels: decode {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e} "
+        print(f"kernels: decode {'int8' if int8 else 'bf16'}{_q_note()} {c} max_abs_err={e:.3e} "
               f"(twin {e_twin:.3e})", flush=True)
         if not (np.isfinite(e) and e <= ATTN_TOL and e_twin <= ATTN_TOL):
             raise AssertionError(f"decode attention {c}: max abs err {e} (twin {e_twin}) > {ATTN_TOL}")
@@ -863,7 +913,7 @@ def check_prefill(rng, P, cases, int8) -> float:
             if ql[s]:
                 e = max(e, (got[rows].float() - want[rows].float()).abs().max().item())
                 e_twin = max(e_twin, (got[rows].float() - want_twin[rows].float()).abs().max().item())
-        print(f"kernels: prefill {'int8' if int8 else 'bf16'} {c} max_abs_err={e:.3e} "
+        print(f"kernels: prefill {'int8' if int8 else 'bf16'}{_q_note()} {c} max_abs_err={e:.3e} "
               f"(twin {e_twin:.3e})", flush=True)
         if e > ATTN_TOL or e_twin > ATTN_TOL:
             raise AssertionError(f"prefill attention {c}: max abs err {e} (twin {e_twin}) > {ATTN_TOL}")
@@ -1166,7 +1216,9 @@ def phase_kernels(rec: dict, args) -> None:
     kernels_fp8(rec, rng)
     kernels_slot_major(rec, rng)
     kernels_window(rec, rng)
+    kernels_layered_flush(rec, np.random.default_rng(11), args.parent_csrc)
     kernels_fused(rec, rng)
+    kernels_fp16(rec, np.random.default_rng(13))
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1252,7 +1304,7 @@ def prologue_hm_case(rng, T, Hq, Hkv, D, int8, neox, skip):
     codes = (torch.arange(-127, 128, device="cuda") / 127).repeat(Hkv * D // 255 + 1)
     row0 = torch.cat([torch.ones(Hkv, 1, device="cuda"),
                       codes[: Hkv * (D - 1)].reshape(Hkv, -1)], 1)
-    qkv[0, (Hq + Hkv) * D:] = row0.reshape(-1).to(torch.bfloat16)
+    qkv[0, (Hq + Hkv) * D:] = row0.reshape(-1).to(qkv.dtype)
     q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
     cos, sin = _rope_rows(rng, T, D, neox)
     slots = _prologue_slots(rng, T, N, skip)
@@ -1276,7 +1328,7 @@ def prologue_pair_case(rng, T, Hq, Hkv, D, int8, neox, skip):
     if int8:
         codes = (torch.arange(T * Hkv * (D - 1), device="cuda") % 255 - 127) / 127
         rows = torch.cat([torch.ones(T, Hkv, 1, device="cuda"), codes.reshape(T, Hkv, D - 1)], -1)
-        qkv[:, (Hq + Hkv) * D:] = rows.reshape(T, -1).to(torch.bfloat16)
+        qkv[:, (Hq + Hkv) * D:] = rows.reshape(T, -1).to(qkv.dtype)
     q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
     cos, sin = _rope_rows(rng, T, D, neox)
     slots = _prologue_slots(rng, T, N, skip)
@@ -1792,7 +1844,7 @@ def _ragged_rows(rng, flat, TM, K, pad=0):
 
     _, dest, tile_expert, num_occ, mp = ragged_layout(_dev(np.asarray(flat).astype(np.int32)),
                                                       EXPERTS + 1, TM, occ_experts=EXPERTS)
-    x = torch.zeros(mp, K, dtype=torch.bfloat16, device="cuda")
+    x = torch.zeros(mp, K, dtype=_ELEM[-1], device="cuda")
     x[dest] = _randn(rng, len(flat), K)
     if pad:
         x[:, K - pad * EXPERT_GS:] = 0
@@ -2524,6 +2576,355 @@ def kernels_window(rec: dict, rng) -> None:
             shapes["flush_side_rows_2d"])
 
 
+def parent_flush(csrc: str):
+    """The per-layer flush of an earlier tree (``csrc`` its
+    zhilight_tpu_torch/csrc): kv_flush.cu built by nvcc with this tree's flags
+    and driven through its C signature (one layer a launch, rows in the pool's
+    type). Returns {"hm": fn, "2d": fn}, each fn(pool, side, entry_pos, n_rows,
+    page_tables, S) over a pool [H, N, X] (latent: [1, N, X]) and side rows
+    [B, H, Kw, X] (latent: [B, Kw, X])."""
+    import ctypes
+    import tempfile
+
+    from zhilight_tpu_torch.ops.cuda import _build
+
+    out = f"{tempfile.mkdtemp(prefix='zt_parent_')}/kv_flush.so"
+    t0 = time.monotonic()
+    proc = subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", out, f"{csrc}/kv_flush.cu"],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"parent kv_flush: nvcc exit {proc.returncode}\n{proc.stdout}")
+    fn = ctypes.CDLL(out).zt_flush_side_rows
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, i, p]
+    print(f"kernels: parent's kv_flush built in {time.monotonic() - t0:.1f} s", flush=True)
+
+    def launch(pool3, side4, entry, n_rows, tables, S):
+        H, N, X = pool3.shape
+        B, _, Kw, _ = side4.shape
+        _build.check(fn(pool3.data_ptr(), side4.data_ptr(), entry.data_ptr(), n_rows.data_ptr(),
+                        tables.data_ptr(), B, H, Kw, N, tables.shape[1], S,
+                        X * pool3.element_size(), torch.cuda.current_stream().cuda_stream),
+                     "parent flush")
+
+    return {"hm": lambda pool, side, *a: launch(pool, side, *a),
+            "2d": lambda pool, side, *a: launch(pool, side[:, None], *a)}
+
+
+def window_flush_sequence(flush_one, pools, side, entry, n_rows, tables, S, k_scales=None,
+                          v_scales=None):
+    """The window flush the layered launch replaces (the parent tree's
+    flush_window_rows): one flush launch a layer through ``flush_one`` and,
+    over int8 pools, each layer's plain requantization (stack, quantize_rows,
+    cat) and two scale scatters at side_scale_index's columns (computed once
+    a window; dead rows into the spare column N)."""
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+
+    if k_scales is None:
+        for pool, rows in zip(pools, side):
+            flush_one(pool, rows, entry, n_rows, tables, S)
+        return
+    N = pools[0].shape[1]
+    sl = W.side_slots(entry, n_rows, tables, S, side.shape[3])
+    index = torch.where((sl < 0) | (sl >= N), N, sl).reshape(-1)
+    D = side.shape[-1] // 2
+    for pool, rows, ks, vs in zip(pools, side, k_scales, v_scales):
+        codes, scales = W.quantize_rows(torch.stack((rows[..., :D], rows[..., D:])))
+        rows8 = torch.cat((codes[0], codes[1]), dim=-1)
+        H = rows8.shape[1]
+        ks[:, index] = scales[0].transpose(0, 1).reshape(H, -1)
+        vs[:, index] = scales[1].transpose(0, 1).reshape(H, -1)
+        flush_one(pool, rows8, entry, n_rows, tables, S)
+
+
+# the layered flush's windows: label -> (layers, batch, KV heads (0: the
+# latent pool), row elements, pool kind); Kw 8 throughout
+LAYERED_FLUSH = {
+    "MiniCPM-2B window (40 layers, B 16, 36 heads, rows of 2 x 64 bf16)":
+        (40, 16, 36, 128, "bf16"),
+    "Qwen2.5-14B int8 window (48 layers, B 8, 8 heads, fp32 rows of 2 x 128 into int8)":
+        (48, 8, 8, 256, "int8"),
+    "DeepSeek-V2-Lite window (27 layers, B 8, latent rows of 576 bf16)": (27, 8, 0, 576, "bf16"),
+}
+
+
+def _layered_case(rng, L_, B, H, X, kind, entry, n_rows, Kw=8):
+    """L layers' pools (int8 pools with -1 scales) and side rows [L, B, (H,) Kw, X]."""
+    S = 16
+    entry, n_rows = np.asarray(entry, np.int32), np.asarray(n_rows, np.int32)
+    tables, npages = _paged(rng, entry + Kw, S)
+    N, lead = npages * S, ((H,) if H else (1,))
+    if kind == "int8":
+        pools = [_dev(rng.integers(-127, 128, (*lead, N, X)).astype(np.int8)) for _ in range(L_)]
+        scales = ([torch.full((H, N + 1), -1.0, device="cuda") for _ in range(L_)],
+                  [torch.full((H, N + 1), -1.0, device="cuda") for _ in range(L_)])
+        side = _dev(rng.standard_normal((L_, B, H, Kw, X)).astype(np.float32))
+    else:
+        with elem_dtype(torch.float16 if kind == "fp16" else torch.bfloat16):
+            pools = [_randn(rng, *lead, N, X) for _ in range(L_)]
+            side = _randn(rng, L_, B, *((H,) if H else ()), Kw, X)
+        scales = ()
+    return pools, scales, side, (_dev(entry), _dev(n_rows), _dev(tables), S)
+
+
+def check_layered_flush(W, rng, L_, B, H, X, kind, entry, n_rows, Kw=8) -> None:
+    """The layered flush bit-exact against its plain version: pools and scale
+    arrays (a dead row writes no scale: the spare column stays -1)."""
+    pools, scales, side, args = _layered_case(rng, L_, B, H, X, kind, entry, n_rows, Kw)
+    fn, plain = ((W.flush_side_layers_hm, W.flush_side_layers_hm_plain) if H else
+                 (W.flush_side_layers_2d, W.flush_side_layers_2d_plain))
+    got, want = [p.clone() for p in pools], [p.clone() for p in pools]
+    got_sc = tuple([t.clone() for t in a] for a in scales)
+    want_sc = tuple([t.clone() for t in a] for a in scales)
+    fn(got, side, *args, *got_sc)
+    plain(want, side, *args, *want_sc)
+    torch.cuda.synchronize()
+    what = (f"{fn.__name__} {L_} layers, B {B}, {H or 'latent'} heads, rows of {X}, {kind}, "
+            f"Kw {Kw}, live rows {list(n_rows)}")
+    ok = all(torch.equal(g, w) for g, w in zip(got, want)) and not torch.equal(got[-1], pools[-1])
+    for g, w in zip(sum(got_sc, []), sum(want_sc, [])):
+        ok = ok and torch.equal(g, w) and bool((g[:, -1] == -1).all())
+    if not ok:
+        raise AssertionError(f"{what}: not bit-exact")
+    print(f"kernels: {what}: bit-exact", flush=True)
+
+
+def kernels_layered_flush(rec: dict, rng, parent_csrc: str = "") -> None:
+    """The layered flush (rows 14 and 15 redesigned: every layer of a window
+    in one launch, an int8 pool's requantization and scale scatter in it)
+    bit-exact against its plain version over bf16, fp16, int8 and latent
+    pools, with dead slots, windows that cross a page and a window of a whole
+    page; then timed with every window row live at LAYERED_FLUSH's windows
+    beside the sequence it replaces (window_flush_sequence through this
+    tree's per-layer flush) and, with ``parent_csrc``, that sequence through
+    the earlier tree's per-layer flush, in turns (parent, new, new, parent),
+    device and host-inclusive."""
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+
+    for (L_, B, H, X, kind), Kw in (((40, 16, 36, 128, "bf16"), 8), ((4, 8, 8, 256, "fp16"), 8),
+                                    ((48, 8, 8, 256, "int8"), 8), ((3, 16, 36, 128, "int8"), 8),
+                                    ((2, 8, 8, 256, "int8"), 16), ((27, 8, 0, 576, "bf16"), 8),
+                                    ((2, 8, 0, 576, "fp16"), 16)):
+        check_layered_flush(W, rng, L_, B, H, X, kind, FLUSH_ENTRY[:B],
+                            np.minimum(FLUSH_ROWS[:B], Kw), Kw)
+    parent = parent_flush(parent_csrc) if parent_csrc else None
+    shapes = {"flush_side_layers_hm": {}, "flush_side_layers_2d": {}}
+    res = {}
+    turns = _turns(res)
+    for label, (L_, B, H, X, kind) in LAYERED_FLUSH.items():
+        name = "flush_side_layers_hm" if H else "flush_side_layers_2d"
+        fn, plain = getattr(W, name), getattr(W, name + "_plain")
+        one = W.flush_side_rows_hm if H else W.flush_side_rows_2d
+        pools, scales, side, args = _layered_case(rng, L_, B, H, X, kind,
+                                                  [16 * b + 3 for b in range(B)], [8] * B)
+        new = lambda: fn(pools, side, *args, *scales)
+        replaced = lambda f=one: window_flush_sequence(f, pools, side, *args, *scales)
+        rows = L_ * B * 8 * (H or 1)
+        if kind == "int8":  # fp32 rows of 2D read; int8 codes and two fp32 scales written
+            nbytes = rows * (X * 4 + X + 8)
+        else:
+            nbytes = 2 * rows * X * side.element_size()
+        t_b, by = bound(nbytes + args[2].numel() * 4 + 2 * B * 4, 0)
+        seq_launches = device_kernels(replaced)
+        if kind == "int8":  # where the replaced sequence's device time goes
+            profile(f"replaced sequence, {label}", replaced)
+        shapes[name][label] = dict(
+            ms=time_ms(new), plain_ms=time_ms(lambda: plain(pools, side, *args, *scales), reps=5),
+            # no one PyTorch call writes L separate pools
+            library_ms=None, bound_ms=t_b, bound_by=by,
+            call_ms=time_ms(new, backlog=False), device_kernels=device_kernels(new),
+            sequence_ms=time_ms(replaced), sequence_call_ms=time_ms(replaced, backlog=False),
+            sequence_launches=seq_launches)
+        if parent is not None:
+            old = lambda f=parent["hm" if H else "2d"]: window_flush_sequence(
+                f, pools, side, *args, *scales)
+            turns(f"{label}, device", old, new)
+            call_res = {}
+            _turns(call_res, backlog=False)(f"{label}, host-inclusive", old, new)
+            res.update(call_res)
+            shapes[name][label]["parent_turns"] = {k: v for k, v in res.items() if label in k}
+    _record(rec, "flush_side_layers_hm", 0.0, list(LAYERED_FLUSH)[0], shapes["flush_side_layers_hm"])
+    _record(rec, "flush_side_layers_2d", 0.0, list(LAYERED_FLUSH)[2], shapes["flush_side_layers_2d"])
+
+
+def _hold(what: str, err: float, limit: float) -> float:
+    print(f"kernels: fp16 {what}: err {err:.3e} (limit {limit})", flush=True)
+    if not (np.isfinite(err) and err <= limit):
+        raise AssertionError(f"fp16 {what}: err {err} > {limit}")
+    return err
+
+
+def _time_slot_major(rng, B, Hq, Hkv, D, CTX) -> float:
+    """The slot-major decode (row 10) at B sequences of CTX tokens, device ms."""
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+
+    S, maxp = 16, CTX // 16 + 2
+    tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+    pools = [_randn(rng, 1, B * maxp * S, Hkv, D) for _ in "kv"]
+    args = (_randn(rng, B, Hq, D), *pools, _dev(tables), _dev(np.full(B, CTX, np.int32)), S,
+            1.0 / np.sqrt(D))
+    return time_ms(lambda: PA.paged_decode_attention(*args))
+
+
+def kernels_fp16(rec: dict, rng) -> None:
+    """Every kernel the fp16 fault touched (rows 1-13 and 16; rows 14-15 in
+    kernels_layered_flush) with fp16 q, rows and model-dtype pools (int8
+    pools: fp16 q) against its plain version in fp16, at main-path shapes:
+    attention within ATTN_TOL (head-major decode and prefill against their
+    twins too), the prologues bit-exact, the int4, grouped int4 and FP8
+    matmuls (x to bf16 and the result back, as the reference's kernels) within
+    their tolerances of the largest plain output. Then rows 2, 3 and 10 timed
+    in fp16 beside bf16 at Qwen2.5-14B's and H2O-Danube-1.8B's shapes, each
+    result under ``rec[name]["fp16"]``."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+    from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
+    from zhilight_tpu_torch.ops.quant import pack_int4
+
+    S, qwen, mini = 16, QWEN_HEADS, MINICPM_HEADS
+    errs = {}
+    rel = lambda got, want: ((got.float() - want.float()).abs().max()
+                             / want.float().abs().max()).item()
+    absd = lambda got, want: (got.float() - want.float()).abs().max().item()
+    with elem_dtype(torch.float16):
+        # rows 2 and 5, 3 and 6: the head-major attention kernels
+        dec = [dict(B=8, **qwen, ctx=SPLIT_CTX, window=0),
+               dict(B=16, **mini, ctx_max=1024, window=100),
+               dict(B=8, **GEMMA2_HEADS, ctx=SPLIT_CTX, window=0)]
+        pre = [dict(cache_lens=[3200], q_lens=[512], TC=512, **qwen),
+               dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128, **mini)]
+        errs["paged_decode_attention_hm"] = check_decode(rng, A, dec, False)
+        errs["paged_decode_attention_hm_q"] = check_decode(rng, A, dec, True)
+        errs["paged_prefill_attention_hm_packed"] = check_prefill(rng, P, pre, False)
+        errs["paged_prefill_attention_hm_packed_q"] = check_prefill(rng, P, pre, True)
+        # 2p and 5p: the partial modes
+        ctx = np.array([3712, 7, 513, 0, 1500, 100, 16, 250], np.int32)
+        tables, npages = _paged(rng, ctx, S)
+        for int8, name in ((False, "paged_decode_attention_hm_partial"),
+                           (True, "paged_decode_attention_hm_q_partial")):
+            pools, _ = _pool_args(rng, qwen["Hkv"], npages * S, qwen["D"], int8)
+            args = (_randn(rng, 8, qwen["Hq"], qwen["D"]), *pools, _dev(tables), _dev(ctx), S,
+                    1.0 / np.sqrt(qwen["D"]))
+            errs[name] = _hold(name, _partial_err(getattr(A, name)(*args),
+                                                  getattr(A, name + "_plain")(*args), ctx), ATTN_TOL)
+        # 2b, 2bp and the fused latent mode (row 16): DeepSeek-V2-Lite's latent rows
+        lctx = np.array([2816, 7, 0, 1500, 100, 16, 1, 2305], np.int32)
+        tables, npages = _paged(rng, lctx, S)
+        args = (_randn(rng, 8, 16, 576), _randn(rng, npages * S, 576), _dev(tables), _dev(lctx),
+                S, 1.0 / np.sqrt(192), 512)
+        got = A.paged_mla_decode(*args)
+        errs["paged_mla_decode"] = _hold("paged_mla_decode", max(
+            absd(got, A.paged_mla_decode_plain(*args)), absd(got, A.paged_mla_decode_twin(*args))),
+            ATTN_TOL)
+        errs["paged_mla_decode_partial"] = _hold("paged_mla_decode_partial", _partial_err(
+            A.paged_mla_decode_partial(*args), A.paged_mla_decode_partial_plain(*args), lctx),
+            ATTN_TOL)
+        slots = _dev(np.array([tables[b, (c - 1) // S] * S + (c - 1) % S if c else -1
+                               for b, c in enumerate(lctx)], np.int32))
+        pool, new = _randn(rng, 1, npages * S, 576), _randn(rng, 8, 576)
+        pools = [pool.clone(), pool.clone()]
+        tail = (new, slots, _dev(tables), _dev(lctx), S, 1.0 / np.sqrt(192), 512)
+        got = PA.paged_mla_decode_fused(args[0], pools[0], *tail)
+        want = PA.paged_mla_decode_fused_plain(args[0], pools[1], *tail)
+        if not torch.equal(pools[0], pools[1]):
+            raise AssertionError("fp16 paged_mla_decode_fused: pools differ")
+        errs["paged_mla_decode_fused"] = _hold("paged_mla_decode_fused", absd(got, want), ATTN_TOL)
+        # 10 and 13 (slot-major decode, fp16 and int8 pools) and 16 (fused)
+        dctx = np.array([3712, 1, 0, 17, 33, 257, 16, 129], np.int32)
+        tables, npages = _paged(rng, dctx, S)
+        d = DANUBE_HEADS
+        q = _randn(rng, 8, d["Hq"], d["D"])
+        k, v = _randn(rng, npages * S, d["Hkv"], d["D"]), _randn(rng, npages * S, d["Hkv"], d["D"])
+        tail = (_dev(tables), _dev(dctx), S, 1.0 / np.sqrt(d["D"]), 0)
+        errs["paged_decode_attention"] = _hold("paged_decode_attention", absd(
+            PA.paged_decode_attention(q, k[None], v[None], *tail),
+            PA.paged_decode_attention_plain(q, k[None], v[None], *tail)), ATTN_TOL)
+        (kq, ks), (vq, vs) = W.quantize_rows(k), W.quantize_rows(v)
+        pad = torch.zeros(d["Hkv"], 1, device="cuda")
+        pools8 = (kq[None], vq[None], torch.cat([ks.t(), pad], 1).contiguous(),
+                  torch.cat([vs.t(), pad], 1).contiguous())
+        errs["paged_decode_attention_q"] = _hold("paged_decode_attention_q", absd(
+            PA.paged_decode_attention_q(q, *pools8, *tail),
+            PA.paged_decode_attention_q_plain(q, *pools8, *tail)), ATTN_TOL)
+        fslots = _dev(np.array([tables[b, (c - 1) // S] * S + (c - 1) % S if c else -1
+                                for b, c in enumerate(dctx)], np.int32))
+        kn, vn = _randn(rng, 8, d["Hkv"], d["D"]), _randn(rng, 8, d["Hkv"], d["D"])
+        pools = [[k[None].clone(), v[None].clone()] for _ in "ab"]
+        got = PA.paged_decode_attention_fused(q, *pools[0], kn, vn, fslots, *tail)
+        want = PA.paged_decode_attention_fused_plain(q, *pools[1], kn, vn, fslots, *tail)
+        if not all(torch.equal(a, b) for a, b in zip(*pools)):
+            raise AssertionError("fp16 paged_decode_attention_fused: pools differ")
+        errs["paged_decode_attention_fused"] = _hold("paged_decode_attention_fused",
+                                                     absd(got, want), ATTN_TOL)
+        # rows 1, 7 and 12: the prologues, bit-exact
+        for name, case in (("rope_write_rows_hm", lambda i8: prologue_hm_case(
+                               rng, 8, qwen["Hq"], qwen["Hkv"], qwen["D"], i8, True, True)[:2]),
+                           ("rope_write_rows_pair", lambda i8: prologue_pair_case(
+                               rng, 8, d["Hq"], d["Hkv"], d["D"], i8, True, True)),
+                           ("rope_write_rows_2d", lambda i8: prologue_2d_case(rng, 8, True, True))):
+            for int8 in ((False, True) if name != "rope_write_rows_2d" else (False,)):
+                pargs, pool = case(int8)
+                pool = pool if isinstance(pool, list) else [pool]
+                got_p, want_p = [t.clone() for t in pool], [t.clone() for t in pool]
+                fn, plain = getattr(W, name), getattr(W, name + "_plain")
+                if name == "rope_write_rows_pair":
+                    got, want = (fn(*got_p[:2], *pargs, *got_p[2:]),
+                                 plain(*want_p[:2], *pargs, *want_p[2:]))
+                else:
+                    got, want = fn(got_p[0], *pargs, *got_p[1:]), plain(want_p[0], *pargs, *want_p[1:])
+                N = pool[0].shape[1]
+                same = torch.equal(got, want) and all(
+                    torch.equal(a[..., :N] if a.dtype == torch.float32 else a,
+                                b[..., :N] if b.dtype == torch.float32 else b)
+                    for a, b in zip(got_p, want_p))
+                _hold(f"{name} ({'int8' if int8 else 'fp16'} pool), bit-exact", 0.0 if same else 1.0, 0)
+                errs[name] = 0.0
+        # rows 4, 8 and 9: fp16 x cast to bf16 and the result back
+        K, N, gs = 5120, 1024, 128
+        w4 = pack_int4(torch.from_numpy(rng.integers(0, 16, (K, N)).astype(np.int8))).cuda()
+        sc = _dev((rng.random((K // gs, N)) * 0.004 + 0.001).astype(np.float32))
+        zr = _dev(rng.integers(1, 16, (K // gs, N)).astype(np.float32))
+        x = _randn(rng, 8, K)
+        got = Q.w4a16_matmul(x, w4, sc, zr)
+        errs["w4a16_matmul"] = _hold("w4a16_matmul (q/k/v K 5120, N 1024, M 8)", rel(
+            got, Q.w4a16_matmul_plain(x, w4, sc, zr)), W4A16_TOL)
+        if got.dtype != torch.float16:
+            raise AssertionError(f"fp16 w4a16_matmul returned {got.dtype}")
+        w_p, s4, z4 = _expert_stack(rng, 2048, 1408)
+        xr, dest, te, occ = _ragged_rows(rng, _routed(48, 5), 8, 2048)
+        got = R.w4a16_ragged_matmul(xr, w_p, s4, z4, te, occ)[dest]
+        errs["w4a16_ragged_matmul"] = _hold("w4a16_ragged_matmul (gate/up, 48 rows)", rel(
+            got, R.w4a16_ragged_matmul_plain(xr, w_p, s4, z4, te, occ)[dest]), W4A16_TOL)
+        w = torch.from_numpy(rng.standard_normal((4096, 1024)).astype(np.float32)).cuda() * 0.02
+        w8, bs = fp8_block_quantize(w)
+        w8 = w8.view(torch.uint8).t().contiguous().view(torch.float8_e4m3fn)
+        bs = bs.t().contiguous()
+        x = _randn(rng, 8, 1024)
+        errs["fp8_block_matmul"] = _hold("fp8_block_matmul (M 8, K 1024, N 4096)", rel(
+            F8.fp8_block_matmul(x, w8, bs), F8.fp8_block_matmul_plain(x, w8, bs)), FP8_TOL)
+    for name, e in errs.items():
+        rec[name].setdefault("fp16", {})["max_abs_err"] = e
+    # fp16 beside bf16 at one shape each (rows 2, 3, 10)
+    for name, label, timed in (
+            ("paged_decode_attention_hm", "Qwen2.5-14B batch 8, context 3712",
+             lambda r: time_decode(r, A, 8, **qwen, CTX=3712, int8=False)["ms"]),
+            ("paged_prefill_attention_hm_packed", "Qwen2.5-14B 512-token chunk at cache 3200",
+             lambda r: time_prefill(r, P, **qwen, CL=3200, QL=512, int8=False)["ms"]),
+            ("paged_decode_attention", "H2O-Danube-1.8B batch 8, context 3712",
+             lambda r: _time_slot_major(r, 8, **d, CTX=3712))):
+        t = {}
+        for dtype in (torch.bfloat16, torch.float16, torch.float16, torch.bfloat16):
+            with elem_dtype(dtype):
+                t.setdefault(str(dtype)[6:], []).append(timed(np.random.default_rng(12)))
+        rec[name]["fp16"].update(shape=label, ms=t["float16"], bf16_ms=t["bfloat16"])
+        print(f"kernels: {name} at {label}: fp16 {t['float16'][0]:.4f} / {t['float16'][1]:.4f} ms, "
+              f"bf16 {t['bfloat16'][0]:.4f} / {t['bfloat16'][1]:.4f} ms (in turns)", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase: serve (the main paths)
 # ---------------------------------------------------------------------------
@@ -2772,6 +3173,8 @@ def _counters():
         "paged_prefill_attention_hm_packed_q": P.paged_prefill_attention_hm_packed_q,
         "flush_side_rows_hm": W.flush_side_rows_hm,
         "flush_side_rows_2d": W.flush_side_rows_2d,
+        "flush_side_layers_hm": W.flush_side_layers_hm,
+        "flush_side_layers_2d": W.flush_side_layers_2d,
         "paged_decode_attention_hm_partial": A.paged_decode_attention_hm_partial,
         "paged_decode_attention_hm_q_partial": A.paged_decode_attention_hm_q_partial,
         "paged_mla_decode_partial": A.paged_mla_decode_partial,
@@ -2818,7 +3221,11 @@ def plain_kernels():
                                            rope_write_rows_2d=W.rope_write_rows_2d_plain,
                                            scatter_scales=W.scatter_scales,
                                            write_rows_pair=W.write_rows_pair_plain,
-                                           rope_write_rows_pair=W.rope_write_rows_pair_plain)), \
+                                           rope_write_rows_pair=W.rope_write_rows_pair_plain,
+                                           flush_side_rows_hm=W.flush_side_rows_hm_plain,
+                                           flush_side_rows_2d=W.flush_side_rows_2d_plain,
+                                           flush_side_layers_hm=W.flush_side_layers_hm_plain,
+                                           flush_side_layers_2d=W.flush_side_layers_2d_plain)), \
          mock.patch.object(llama_mod, "paged_attention", SimpleNamespace(
              paged_decode_attention=PA.paged_decode_attention_plain,
              paged_decode_attention_q=PA.paged_decode_attention_q_plain,
@@ -3119,7 +3526,7 @@ def window_check(label: str, ex, prompts, K: int = 8) -> None:
     run with side buffers (``forward_decode_window`` + ``flush_window_rows``)
     and per step (``forward_decode``) on the same weights, both fed the
     per-step path's greedy tokens. Held: during the window no row write
-    launches and the flush launches once a layer; at each step every row's
+    launches and the flush launches once, for every layer; at each step every row's
     logits agree within LOGIT_TOL of the largest and the window's pick lies
     within LOGIT_TOL of the per-step maximum; after the flush every layer's
     rows are bit-equal to the window's side rows (requantized for an int8
@@ -3180,7 +3587,7 @@ def window_check(label: str, ex, prompts, K: int = 8) -> None:
             worst_slack = max(worst_slack, ((want.amax(-1) - want.gather(-1, pick[:, None])[:, 0])
                                             / scale).max().item())
             tokens = want.argmax(-1).to(torch.int32)
-        flush = counters["flush_side_rows_2d" if cfg.mla.enabled else "flush_side_rows_hm"]
+        flush = counters["flush_side_layers_2d" if cfg.mla.enabled else "flush_side_layers_hm"]
         f0 = flush.launches
         cache = L.flush_window_rows(cfg, cache, side, valid, n, tables)
         flushes = flush.launches - f0
@@ -3192,7 +3599,7 @@ def window_check(label: str, ex, prompts, K: int = 8) -> None:
           f"the window {writes}, flush launches {flushes} ({cfg.num_layers} layers)", flush=True)
     if worst_rel > LOGIT_TOL or worst_slack > LOGIT_TOL:
         raise AssertionError(f"{label}: window logits differ from per-step: {worst_rel}, {worst_slack}")
-    if writes or flushes != cfg.num_layers:
+    if writes or flushes != 1:
         raise AssertionError(f"{label}: {writes} row writes in the window, {flushes} flushes")
 
     # the pool after the flush: every layer holds exactly the window's side
@@ -3445,6 +3852,105 @@ def load_qwen(seed: int):
           f"layer-0 q_proj w_p {q['w_p'].dtype} {tuple(q['w_p'].shape)}, scales "
           f"{q['scales'].dtype}, bit-identical to unpack_gptq + pack_int4 on the host", flush=True)
     return llm
+
+
+def _tree_map(tree, fn):
+    return {k: _tree_map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def fp16_qwen_path(rec: dict, args, base) -> None:
+    """Qwen2.5-14B GPTQ-Int4 as an fp16 checkpoint: the configuration with
+    ``"torch_dtype": "float16"`` (as the published GPTQ configs give it) over
+    the bf16 path's GPTQ leaves and its dense leaves cast to fp16 (what the
+    loader makes of the same checkpoint in fp16), a packed fp16 pool. The
+    main path with its kernel counts and logits against the plain path
+    (serve_path), then teacher-forced greedy decoding against the plain path."""
+    from zhilight_tpu_torch.config import adapt_hf_config
+    from zhilight_tpu_torch.llm import LLM
+
+    label = "Qwen2.5-14B-GPTQ-Int4-fp16"
+    cfg = adapt_hf_config(dict(QWEN14B_GPTQ, torch_dtype="float16"))
+    if cfg.torch_dtype != torch.float16:
+        raise AssertionError(f"{label}: the adapter gave {cfg.torch_dtype}")
+    params = _tree_map(base.executor.params, lambda t: t.to(torch.float16)
+                       if torch.is_tensor(t) and t.dtype == torch.bfloat16 else t)
+    llm = LLM(model_config=cfg, quant_config=base.quant_config, params=params,
+              engine_config=qwen_engine_config(), device="cuda")
+    cache = llm.executor.cache
+    if not (cache.packed and cache.k[0].dtype == torch.float16):
+        raise AssertionError(f"{label}: pool {cache.k[0].dtype}, packed {cache.packed}")
+    prompts, _ = serve_path(label, llm, rec, args.seed)
+    teacher_forced_vs_plain(label, llm.executor, prompts[:4], steps=8)
+    args.llms[label] = llm
+    release_pool(llm)
+
+
+def teacher_forced_vs_plain(label: str, ex, prompts, steps: int) -> None:
+    """The prompts prefilled through the kernels (512-token chunks) into a
+    scratch cache, copied for the plain path; then ``steps`` batched decode
+    steps through the kernels and through the plain path (plain_kernels), each
+    on its own cache, both fed the plain path's argmax. Held (the
+    teacher-forced rule of the fused-KV card test): every step's logits within 2e-2 of the row's
+    largest plain logit, and the same argmax wherever the plain top-2 gap
+    exceeds twice the largest difference."""
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
+
+    cfg, S, B = ex.cfg, ex.page_size, len(prompts)
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    maxp = max((len(p) + steps) // S + 1 for p in prompts)
+    cache = ex.new_cache(B * maxp)
+    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+    slots = lambda b, pos: (tables[b, (pos // S).long()] * S + pos % S).to(torch.int32)
+    rows_b = torch.arange(B, device=ex.device)
+    steps_out = []
+    with torch.no_grad():
+        first = []
+        for b, p in enumerate(prompts):
+            for start in range(0, len(p), 512):
+                toks = torch.tensor(p[start : start + 512], **i32)
+                pos = torch.arange(start, start + len(toks), **i32)
+                meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
+                                   cache_len=torch.tensor(start, **i32),
+                                   q_len=torch.tensor(len(toks), **i32))
+                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache)
+            first.append(int(logits.argmax()))
+        caches = {"kernels": cache, "plain": dataclasses.replace(cache, **{
+            f: [a.clone() for a in getattr(cache, f)] for f in ("k", "v", "latent", "k_scale",
+                                                                 "v_scale")
+            if getattr(cache, f) is not None})}
+        tokens = torch.tensor(first, **i32)
+        n = torch.tensor([len(p) for p in prompts], **i32)
+        for k in range(steps):
+            pos = n + k
+            meta = DecodeMeta(positions=pos, slot_mapping=slots(rows_b, pos), page_tables=tables,
+                              context_lens=pos + 1)
+            got, caches["kernels"] = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta,
+                                                      caches["kernels"])
+            with plain_kernels():
+                want, caches["plain"] = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta,
+                                                         caches["plain"])
+            steps_out.append((got.float(), want.float()))
+            tokens = want.argmax(-1).to(torch.int32)
+    diff = max((g - w).abs().max().item() for g, w in steps_out)
+    worst_rel, worst_gap, same = 0.0, 0.0, 0
+    for g, w in steps_out:
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{label}: non-finite teacher-forced logits")
+        worst_rel = max(worst_rel, ((g - w).abs().amax(-1) / w.abs().amax(-1)).max().item())
+        top2 = w.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        parted = g.argmax(-1) != w.argmax(-1)
+        same += int((~parted).sum())
+        if parted.any():
+            worst_gap = max(worst_gap, gap[parted].max().item())
+    print(f"serve: {label}: teacher-forced {steps} decode steps of batch {B} (contexts "
+          f"{min(map(len, prompts)) + 1} to {max(map(len, prompts)) + steps}) against the plain "
+          f"path: logits max rel err {worst_rel:.3e} (tolerance 2e-2), largest |diff| {diff:.3e}; "
+          f"greedy picks equal on {same}/{B * steps}, largest plain top-2 gap where they part "
+          f"{worst_gap:.3e} (allowed: up to twice the largest |diff|)", flush=True)
+    if worst_rel > 2e-2 or worst_gap > 2 * diff:
+        raise AssertionError(f"{label}: teacher-forced logits differ: {worst_rel}, gap {worst_gap}")
 
 
 def deepseek_engine_config():
@@ -3741,6 +4247,7 @@ def phase_serve(rec: dict, args) -> None:
     args.llms[label] = llm8
     release_pool(llm8)
     window_path("Qwen2.5-14B-GPTQ-Int4-int8kv-window", llm, qwen_engine_config("int8"), rec, args)
+    fp16_qwen_path(rec, args, llm)
 
     label = "DeepSeek-V2-Lite-GPTQ-Int4"
     llm = load_deepseek(label, DEEPSEEK_V2_LITE_GPTQ, args.seed)
@@ -3969,6 +4476,7 @@ TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prom
     "MiniCPM-2B": (16, 512, True, 3712),
     "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False, 3712),
     "Qwen2.5-14B-GPTQ-Int4-int8kv": (8, 3712, False, 3712),
+    "Qwen2.5-14B-GPTQ-Int4-fp16": (8, 3712, False, 0),  # decode only: its kernels a step
     "DeepSeek-V2-Lite-GPTQ-Int4": (8, 2816, False, 2816),
     "Qwen3-8B-FP8": (8, 3712, False, 3712),
     "MiniCPM-2B-W8A8": (16, 512, False, 0),  # decode only: prefill adds nothing the bf16 path lacks
@@ -4146,9 +4654,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
-                         "kv_write_2d.cu and kv_write_pair.cu apart and time the rope + "
-                         "row-write sequence through them beside this tree's prologues in the "
-                         "kernels phase")
+                         "kv_write_2d.cu, kv_write_pair.cu and kv_flush.cu apart and time the "
+                         "rope + row-write sequence and the per-layer window flush through "
+                         "them beside this tree's prologues and layered flush in the kernels "
+                         "phase")
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -53,7 +53,14 @@ int8 pools, both rope styles, 1 to 2048 tokens, strided and contiguous rows,
 every int8 code, the spare column holding a skipped row's scales. The fused
 write + attend engine is held teacher-forced: its decode logits within 2e-2
 of the largest unfused logit, and the unfused argmax wherever the unfused
-top-2 gap exceeds twice the largest difference.
+top-2 gap exceeds twice the largest difference. Every kernel test of a model
+dtype also runs in fp16 (``DTYPES``: q, rows and model-dtype pools in fp16;
+fp16 q over int8 pools; the int4 and FP8 matmuls cast fp16 x to bf16 and
+back), under the same tolerances; an fp16 model on each pool layout is held
+teacher-forced against the plain path on the CPU, as the fused engine is.
+The layered window flush (every layer in one launch, an int8 pool's
+requantization in it) is bit-exact against its plain version, scales
+included.
 """
 
 import dataclasses
@@ -95,7 +102,15 @@ def cuda():
 
 
 def _bf16(rng, device, *shape):
-    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, torch.bfloat16)
+    return _rand(torch.bfloat16, rng, device, *shape)
+
+
+# the model dtypes the kernels take: q, rows, outputs and model-dtype pools
+DTYPES, DTYPE_IDS = (torch.bfloat16, torch.float16), ("bf16", "fp16")
+
+
+def _rand(dtype, rng, device, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
 
 
 def _tables(rng, lens, device):
@@ -143,6 +158,7 @@ def _ctx(rng, ctx, B=8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("hq,hkv,D,window,ctx", [
     (36, 36, 64, 0, 700), (32, 8, 128, 0, 700), (16, 1, 64, 50, 700),
     (40, 8, 128, 0, 3712),  # Qwen2.5-14B at its serving batch and context
@@ -152,7 +168,7 @@ def _ctx(rng, ctx, B=8):
     (16, 4, 192, 0, 3000), (32, 2, 256, 0, 3000), (32, 2, 128, 0, 3000),
     (40, 2, 64, 0, 700), (16, 8, 256, 300, _SPLIT_CTX),
 ])
-def test_decode_attention_matches_plain(cuda, hq, hkv, D, window, ctx):
+def test_decode_attention_matches_plain(cuda, dtype, hq, hkv, D, window, ctx):
     """The kernel against the plain version; an empty slot gives zeros; a
     second call gives the same bits (the split merge runs in fixed order)
     and leaves the merge's tickets at zero."""
@@ -160,8 +176,8 @@ def test_decode_attention_matches_plain(cuda, hq, hkv, D, window, ctx):
     ctx = _ctx(rng, ctx)
     B = len(ctx)
     tables, npages = _tables(rng, ctx, cuda)
-    pool = _bf16(rng, cuda, hkv, npages * S, 2 * D)
-    args = (_bf16(rng, cuda, B, hq, D), pool, tables, torch.from_numpy(ctx).to(cuda), S,
+    pool = _rand(dtype, rng, cuda, hkv, npages * S, 2 * D)
+    args = (_rand(dtype, rng, cuda, B, hq, D), pool, tables, torch.from_numpy(ctx).to(cuda), S,
             1.0 / np.sqrt(D), window)
     got = A.paged_decode_attention_hm(*args)
     want = A.paged_decode_attention_hm_plain(*args)
@@ -174,16 +190,17 @@ def test_decode_attention_matches_plain(cuda, hq, hkv, D, window, ctx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("hq,hkv,D", [(8, 2, 64), (36, 36, 64), (8, 8, 128), (40, 8, 128),
                                       (8, 4, 192), (16, 8, 256), (32, 2, 256)])
-def test_prefill_attention_matches_plain(cuda, hq, hkv, D):
+def test_prefill_attention_matches_plain(cuda, dtype, hq, hkv, D):
     rng = np.random.default_rng(hq + D)
     TC = 96
     cache_lens = np.array([0, 45, 7], np.int32)
     q_lens = np.array([96, 50, 0], np.int32)
     tables, npages = _tables(rng, cache_lens + q_lens, cuda)
-    pool = _bf16(rng, cuda, hkv, npages * S, 2 * D)
-    q = _bf16(rng, cuda, len(q_lens) * TC, hq, D)
+    pool = _rand(dtype, rng, cuda, hkv, npages * S, 2 * D)
+    q = _rand(dtype, rng, cuda, len(q_lens) * TC, hq, D)
     lens = lambda a: torch.from_numpy(a).to(cuda)
     args = (q, pool, tables, lens(cache_lens), lens(q_lens), S, 1.0 / np.sqrt(D))
     got = P.paged_prefill_attention_hm_packed(*args)
@@ -296,13 +313,14 @@ def _rope_tables(rng, T, D, neox, device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("neox", [True, False])
 @pytest.mark.parametrize("T,Hq,Hkv,D", [
     (16, 36, 36, 64), (8, 40, 8, 128), (1, 40, 8, 128), (33, 32, 8, 128), (8, 16, 4, 192),
     (8, 16, 8, 256), (512, 36, 36, 64), (2048, 40, 8, 128),  # a chunk; four packed chunks
 ])
-def test_rope_write_rows_hm_is_exact(cuda, T, Hq, Hkv, D, neox, int8):
+def test_rope_write_rows_hm_is_exact(cuda, dtype, T, Hq, Hkv, D, neox, int8):
     """The packed pool's prologue bit-equal to its plain version (the port's
     rope, quantization and row write in PyTorch ops on the card): q rotated,
     the pool, and the scales of the written rows; the spare column holds one
@@ -312,11 +330,11 @@ def test_rope_write_rows_hm_is_exact(cuda, T, Hq, Hkv, D, neox, int8):
     rng = np.random.default_rng(T + D + Hq)
     pages = max(T // S + 4, 16)
     N = pages * S
-    qkv = _bf16(rng, cuda, T, (Hq + 2 * Hkv) * D)
+    qkv = _rand(dtype, rng, cuda, T, (Hq + 2 * Hkv) * D)
     # token 0's V rows: 1 and then c / 127 for c = -127 ... 127 in turn
     codes = (torch.arange(-127, 128, device=cuda) / 127).repeat(Hkv * D // 255 + 1)
     row0 = torch.cat([torch.ones(Hkv, 1, device=cuda), codes[: Hkv * (D - 1)].reshape(Hkv, -1)], 1)
-    qkv[0, (Hq + Hkv) * D:] = row0.reshape(-1).to(torch.bfloat16)
+    qkv[0, (Hq + Hkv) * D:] = row0.reshape(-1).to(dtype)
     q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
     cos, sin = _rope_tables(rng, T, D, neox, cuda)
     slots = _prologue_slots(rng, T, N, cuda)
@@ -324,7 +342,7 @@ def test_rope_write_rows_hm_is_exact(cuda, T, Hq, Hkv, D, neox, int8):
         pools = [torch.zeros(Hkv, N, 2 * D, dtype=torch.int8, device=cuda) for _ in "ab"]
         scales = [[torch.full((Hkv, N + 1), -1.0, device=cuda) for _ in "kv"] for _ in "ab"]
     else:
-        pool = _bf16(rng, cuda, Hkv, N, 2 * D)
+        pool = _rand(dtype, rng, cuda, Hkv, N, 2 * D)
         pools, scales = [pool.clone(), pool.clone()], [[], []]
     before = W.rope_write_rows_hm.launches
     got = W.rope_write_rows_hm(pools[0], q, k, v, cos, sin, neox, slots, *scales[0])
@@ -346,21 +364,22 @@ def test_rope_write_rows_hm_is_exact(cuda, T, Hq, Hkv, D, neox, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("neox", [True, False])
 @pytest.mark.parametrize("T", [1, 8, 33, 512, 2048])
-def test_rope_write_rows_2d_is_exact(cuda, T, neox):
+def test_rope_write_rows_2d_is_exact(cuda, dtype, T, neox):
     """The latent pool's prologue at DeepSeek-V2-Lite's shapes (16 heads,
     rows of 512 + 64) bit-equal to its plain version: q_pe a view of the q
     projection [T, 16, 128 + 64], k_pe the strided tail of kv_a [T, 576]."""
     rng = np.random.default_rng(T + 1)
     H, nope, R, Lr = 16, 128, 64, 512
     N = max(T // S + 4, 16) * S
-    q = _bf16(rng, cuda, T, H, nope + R)
-    kv_a = _bf16(rng, cuda, T, Lr + R)
-    c_kv = _bf16(rng, cuda, T, Lr)
+    q = _rand(dtype, rng, cuda, T, H, nope + R)
+    kv_a = _rand(dtype, rng, cuda, T, Lr + R)
+    c_kv = _rand(dtype, rng, cuda, T, Lr)
     cos, sin = _rope_tables(rng, T, R, neox, cuda)
     slots = _prologue_slots(rng, T, N, cuda)
-    pool = _bf16(rng, cuda, 1, N, Lr + R)
+    pool = _rand(dtype, rng, cuda, 1, N, Lr + R)
     pools = [pool.clone(), pool.clone()]
     before = W.rope_write_rows_2d.launches
     args = (q[..., nope:], c_kv, kv_a[:, Lr:], cos, sin, neox, slots)
@@ -373,6 +392,7 @@ def test_rope_write_rows_2d_is_exact(cuda, T, neox):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("neox", [True, False])
 @pytest.mark.parametrize("T,Hq,Hkv,D,fused_qkv", [
@@ -382,7 +402,7 @@ def test_rope_write_rows_2d_is_exact(cuda, T, neox):
     (33, 8, 8, 100, True), (8, 40, 8, 128, True), (2048, 40, 8, 128, True), (8, 16, 8, 256, True),
     (8, 8, 1, 256, False),
 ])
-def test_rope_write_rows_pair_is_exact(cuda, T, Hq, Hkv, D, fused_qkv, neox, int8):
+def test_rope_write_rows_pair_is_exact(cuda, dtype, T, Hq, Hkv, D, fused_qkv, neox, int8):
     """The slot-major pools' prologue bit-equal to its plain version (the
     port's rope, quantization and pair write in PyTorch ops on the card): q
     rotated, both pools, and the scales of the written rows; the spare column
@@ -392,11 +412,11 @@ def test_rope_write_rows_pair_is_exact(cuda, T, Hq, Hkv, D, fused_qkv, neox, int
     code the quantization gives once enough rows are written."""
     rng = np.random.default_rng(T + D + Hq + Hkv)
     N = max(T // S + 4, 16) * S
-    qkv = _bf16(rng, cuda, T, (Hq + 2 * Hkv) * D)
+    qkv = _rand(dtype, rng, cuda, T, (Hq + 2 * Hkv) * D)
     if int8:
         codes = (torch.arange(T * Hkv * (D - 1), device=cuda) % 255 - 127) / 127
         rows = torch.cat([torch.ones(T, Hkv, 1, device=cuda), codes.reshape(T, Hkv, D - 1)], -1)
-        qkv[:, (Hq + Hkv) * D:] = rows.reshape(T, -1).to(torch.bfloat16)
+        qkv[:, (Hq + Hkv) * D:] = rows.reshape(T, -1).to(dtype)
     q, k, v = (x.reshape(T, -1, D) for x in torch.split(qkv, [Hq * D, Hkv * D, Hkv * D], -1))
     if not fused_qkv:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -406,7 +426,7 @@ def test_rope_write_rows_pair_is_exact(cuda, T, Hq, Hkv, D, fused_qkv, neox, int
         pools = [[torch.zeros(1, N, Hkv, D, dtype=torch.int8, device=cuda) for _ in "kv"]
                  + [torch.full((Hkv, N + 1), -1.0, device=cuda) for _ in "kv"] for _ in "ab"]
     else:
-        kv = [_bf16(rng, cuda, 1, N, Hkv, D) for _ in "kv"]
+        kv = [_rand(dtype, rng, cuda, 1, N, Hkv, D) for _ in "kv"]
         pools = [[x.clone() for x in kv] for _ in "ab"]
     before = W.rope_write_rows_pair.launches
     got = W.rope_write_rows_pair(*pools[0][:2], q, k, v, cos, sin, neox, slots, *pools[0][2:])
@@ -521,6 +541,7 @@ def test_prologue_wrappers_raise_on_unsupported_cuda_inputs(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("hq,hkv,D,window,ctx", [
     (36, 36, 64, 0, 700), (32, 8, 128, 0, 700), (16, 1, 64, 50, 700), (16, 2, 128, 0, 300),
     (40, 8, 128, 0, 3712),  # Qwen2.5-14B at its serving batch and context
@@ -531,7 +552,7 @@ def test_prologue_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     (40, 2, 64, 0, 700), (16, 4, 192, 0, 3000), (16, 8, 256, 0, 3712),
     (16, 8, 256, 300, _SPLIT_CTX), (40, 2, 256, 0, _SPLIT_CTX),
 ])
-def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx):
+def test_decode_attention_q_matches_plain(cuda, dtype, hq, hkv, D, window, ctx):
     """The int8 kernel against the plain version and against its twin (the
     plain version in the kernels' rounding order); an empty slot gives zeros;
     a second call gives the same bits and leaves the merge's tickets at zero."""
@@ -540,7 +561,7 @@ def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx):
     B = len(ctx)
     tables, npages = _tables(rng, ctx, cuda)
     pool, ks, vs = _int8_pool(rng, cuda, hkv, npages * S, D)
-    args = (_bf16(rng, cuda, B, hq, D), pool, ks, vs, tables, torch.from_numpy(ctx).to(cuda), S,
+    args = (_rand(dtype, rng, cuda, B, hq, D), pool, ks, vs, tables, torch.from_numpy(ctx).to(cuda), S,
             1.0 / np.sqrt(D), window)
     before = A.paged_decode_attention_hm_q.launches
     got = A.paged_decode_attention_hm_q(*args)
@@ -554,17 +575,18 @@ def test_decode_attention_q_matches_plain(cuda, hq, hkv, D, window, ctx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("hq,hkv,D,window", [(8, 2, 64, 0), (36, 36, 64, 0), (8, 8, 128, 0),
                                              (40, 8, 128, 0), (40, 8, 128, 60), (8, 2, 192, 0),
                                              (16, 8, 256, 0), (16, 8, 256, 60)])
-def test_prefill_attention_q_matches_plain(cuda, hq, hkv, D, window):
+def test_prefill_attention_q_matches_plain(cuda, dtype, hq, hkv, D, window):
     rng = np.random.default_rng(hq + D)
     TC = 96
     cache_lens = np.array([0, 45, 7], np.int32)
     q_lens = np.array([96, 50, 0], np.int32)
     tables, npages = _tables(rng, cache_lens + q_lens, cuda)
     pool, ks, vs = _int8_pool(rng, cuda, hkv, npages * S, D)
-    q = _bf16(rng, cuda, len(q_lens) * TC, hq, D)
+    q = _rand(dtype, rng, cuda, len(q_lens) * TC, hq, D)
     lens = lambda a: torch.from_numpy(a).to(cuda)
     args = (q, pool, ks, vs, tables, lens(cache_lens), lens(q_lens), S, 1.0 / np.sqrt(D), window)
     got = P.paged_prefill_attention_hm_packed_q(*args)
@@ -642,21 +664,22 @@ def _int4(rng, K, N, gs, device, planar):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("planar", [True, False])
 @pytest.mark.parametrize("M", [1, 8, 16, 37, 128, 512])
 @pytest.mark.parametrize("K,N,gs", [(512, 256, 128), (768, 200, 64), (384, 136, 32), (256, 64, 256),
                                     (768, 200, 48), (1024, 1032, 128)])
-def test_w4a16_matmul_matches_plain(cuda, planar, M, K, N, gs):
+def test_w4a16_matmul_matches_plain(cuda, dtype, planar, M, K, N, gs):
     """Both weight formats, ragged M and N (N % 16 == 8 too), groups of 32 to
     K and of 48 (a group size the kernel's 32-row stages cross). Tolerance:
     max |err| <= 1e-2 * max |plain| (the bf16 output rounding; fp32 sums in
     another order; the dequantized weights are the same bf16 values)."""
     rng = np.random.default_rng(M + K + N)
     w, scales, zeros = _int4(rng, K, N, gs, cuda, planar)
-    x = _bf16(rng, cuda, M, K)
+    x = _rand(dtype, rng, cuda, M, K)
     got = Q.w4a16_matmul(x, w, scales, zeros)
     want = Q.w4a16_matmul_plain(x, w, scales, zeros)
-    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    assert got.shape == (M, N) and got.dtype == dtype
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item()
 
@@ -880,18 +903,19 @@ def test_write_rows_2d_is_exact(cuda, start, n, X, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("B,H,ctx_max,stored", [(8, 16, 2816, 576), (3, 16, 300, 576),
                                                 (8, 16, 1000, 640), (2, 5, 130, 576),
                                                 (1, 40, 3000, 576)])
-def test_mla_decode_matches_plain(cuda, B, H, ctx_max, stored):
+def test_mla_decode_matches_plain(cuda, dtype, B, H, ctx_max, stored):
     rng = np.random.default_rng(B + ctx_max)
     ctx = rng.integers(1, ctx_max, B).astype(np.int32)
     ctx[0] = ctx_max
     if B > 2:
         ctx[2] = 0
     tables, npages = _tables(rng, ctx, cuda)
-    pool = _bf16(rng, cuda, npages * S, stored)
-    q = _bf16(rng, cuda, B, H, 576)
+    pool = _rand(dtype, rng, cuda, npages * S, stored)
+    q = _rand(dtype, rng, cuda, B, H, 576)
     args = (q, pool, tables, torch.from_numpy(ctx).to(cuda), S, 1.0 / np.sqrt(192))
     got = A.paged_mla_decode(*args, v_dim=512)
     want = A.paged_mla_decode_plain(*args, v_dim=512)
@@ -917,6 +941,7 @@ def _expert_stack(rng, device, E, K, N, gs, pad_groups=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("R_,TM,E,K,N,gs,pad", [
     (48, 8, 64, 2048, 1408, 128, 0),    # DeepSeek-V2-Lite decode, gate/up
     (48, 8, 64, 1536, 2048, 128, 1),    # ... down, K 1408 padded to 1536
@@ -925,15 +950,15 @@ def _expert_stack(rng, device, E, K, N, gs, pad_groups=0):
     (5, 8, 16, 128, 256, 32, 0),        # few rows, many experts
     (100, 32, 4, 256, 384, 128, 0),
 ])
-def test_w4a16_ragged_matmul_matches_plain(cuda, R_, TM, E, K, N, gs, pad):
+def test_w4a16_ragged_matmul_matches_plain(cuda, dtype, R_, TM, E, K, N, gs, pad):
     rng = np.random.default_rng(R_ + K)
     flat = rng.integers(0, E, R_)
     flat[flat == 1] = 0  # an expert without rows
     w_p, s, z = _expert_stack(rng, cuda, E, K, N, gs, pad)
     _, dest, tile_expert, num_occ, mp = ragged_layout(torch.from_numpy(flat).to(cuda), E + 1, TM,
                                                       occ_experts=E)
-    x = torch.zeros(mp, K, dtype=torch.bfloat16, device=cuda)
-    x[dest] = _bf16(rng, cuda, R_, K)
+    x = torch.zeros(mp, K, dtype=dtype, device=cuda)
+    x[dest] = _rand(dtype, rng, cuda, R_, K)
     got = R.w4a16_ragged_matmul(x, w_p, s, z, tile_expert, num_occ)
     want = R.w4a16_ragged_matmul_plain(x, w_p, s, z, tile_expert, num_occ)
     got, want = got[dest].float(), want[dest].float()
@@ -1132,18 +1157,19 @@ def _fp8_weights(rng, device, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 32, 33, 512, 515])
 @pytest.mark.parametrize("K,N", [(128, 128), (128, 4096), (384, 256), (4096, 1024), (4096, 4096),
                                  (4096, 12288), (12288, 4096)])  # the last four: Qwen3-8B
-def test_fp8_block_matmul_matches_plain(cuda, M, K, N):
+def test_fp8_block_matmul_matches_plain(cuda, dtype, M, K, N):
     rng = np.random.default_rng(M + K + N)
     w, bs = _fp8_weights(rng, cuda, K, N)
-    x = _bf16(rng, cuda, M, K)
+    x = _rand(dtype, rng, cuda, M, K)
     before = F8.fp8_block_matmul.launches
     got = F8.fp8_block_matmul(x, w, bs)
     assert F8.fp8_block_matmul.launches == before + 1
     want = F8.fp8_block_matmul_plain(x, w, bs)
-    assert got.dtype == torch.bfloat16 and got.shape == (M, N) and torch.isfinite(got).all()
+    assert got.dtype == dtype and got.shape == (M, N) and torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
     assert err <= 1e-2, err
     # split-K adds its partial sums in a fixed order: a repeated call is bit-equal
@@ -1235,10 +1261,10 @@ def test_int8_linear_on_gpu_matches_cpu(cuda, M, smooth):
 # slot-major pools (head_dim 16, 80, 96, 100; 128 under ZT_NO_PACKED_KV=1)
 # ---------------------------------------------------------------------------
 
-def _slot_major_pools(rng, device, slots, hkv, D, int8):
-    """Separate K and V pools [1, N, Hkv, D] of unit-variance rows (bf16), or
-    those rows quantized with their head-major scales [Hkv, N + 1]."""
-    k, v = _bf16(rng, device, slots, hkv, D), _bf16(rng, device, slots, hkv, D)
+def _slot_major_pools(rng, device, slots, hkv, D, int8, dtype=torch.bfloat16):
+    """Separate K and V pools [1, N, Hkv, D] of unit-variance rows (bf16 or
+    ``dtype``), or those rows quantized with their head-major scales [Hkv, N + 1]."""
+    k, v = _rand(dtype, rng, device, slots, hkv, D), _rand(dtype, rng, device, slots, hkv, D)
     if not int8:
         return k[None], v[None]
     (k_q, k_s), (v_q, v_s) = _quantize_rows(k), _quantize_rows(v)
@@ -1248,20 +1274,21 @@ def _slot_major_pools(rng, device, slots, hkv, D, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("G", [1, 4, 5])
 @pytest.mark.parametrize("D", [16, 80, 96, 100, 128])
-def test_slot_major_decode_attention_matches_plain(cuda, D, G, int8):
+def test_slot_major_decode_attention_matches_plain(cuda, dtype, D, G, int8):
     """8 sequences on 2 KV heads: contexts ending mid-page, an empty slot,
     then the same with a sliding window shorter than the contexts."""
     rng = np.random.default_rng(D + G)
     hkv = 2
     ctx = np.array([700, 1, 0, 17, 33, 257, 16, 129], np.int32)
     tables, npages = _tables(rng, ctx, cuda)
-    pools = _slot_major_pools(rng, cuda, npages * S, hkv, D, int8)
+    pools = _slot_major_pools(rng, cuda, npages * S, hkv, D, int8, dtype)
     fn, plain = ((PA.paged_decode_attention_q, PA.paged_decode_attention_q_plain) if int8
                  else (PA.paged_decode_attention, PA.paged_decode_attention_plain))
-    q = _bf16(rng, cuda, len(ctx), hkv * G, D)
+    q = _rand(dtype, rng, cuda, len(ctx), hkv * G, D)
     for window in (0, 40):
         args = (q, *pools, tables, torch.from_numpy(ctx).to(cuda), S, 1.0 / np.sqrt(D), window)
         got, want = fn(*args), plain(*args)
@@ -1537,6 +1564,7 @@ def _partial_err(got, want, ctx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("B,hq,hkv,D,ctx", [
     (16, 36, 36, 64, None),                                   # MiniCPM-2B, context 512
@@ -1545,15 +1573,15 @@ def _partial_err(got, want, ctx):
     (8, 16, 4, 192, _SPLIT_CTX), (8, 32, 2, 256, _SPLIT_CTX), (8, 32, 2, 128, _SPLIT_CTX),
     (8, 16, 8, 256, [3712, 7, 513, 0, 1500, 100, 16, 250]),  # Gemma-2-9B's heads
 ])
-def test_decode_attention_partial_matches_plain(cuda, B, hq, hkv, D, ctx, int8):
+def test_decode_attention_partial_matches_plain(cuda, dtype, B, hq, hkv, D, ctx, int8):
     """The partial modes against their plain versions, the int8 one at every
     head dim and group since its redesign."""
     rng = np.random.default_rng(B + D)
     ctx = np.array(ctx if ctx else [512] * 5 + [0] + [512] * 10, np.int32)
     tables, npages = _tables(rng, ctx, cuda)
     pools = _int8_pool(rng, cuda, hkv, npages * S, D) if int8 else (
-        _bf16(rng, cuda, hkv, npages * S, 2 * D),)
-    args = (_bf16(rng, cuda, B, hq, D), *pools, tables, torch.from_numpy(ctx).to(cuda), S,
+        _rand(dtype, rng, cuda, hkv, npages * S, 2 * D),)
+    args = (_rand(dtype, rng, cuda, B, hq, D), *pools, tables, torch.from_numpy(ctx).to(cuda), S,
             1.0 / np.sqrt(D))
     fn, plain = ((A.paged_decode_attention_hm_q_partial, A.paged_decode_attention_hm_q_partial_plain)
                  if int8 else
@@ -1567,11 +1595,12 @@ def test_decode_attention_partial_matches_plain(cuda, B, hq, hkv, D, ctx, int8):
 
 
 @pytest.mark.cuda
-def test_mla_decode_partial_matches_plain(cuda):
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_mla_decode_partial_matches_plain(cuda, dtype):
     rng = np.random.default_rng(5)
     ctx = np.array([2816, 7, 0, 1500, 100, 16, 1, 2305], np.int32)  # DeepSeek-V2-Lite's batch
     tables, npages = _tables(rng, ctx, cuda)
-    args = (_bf16(rng, cuda, 8, 16, 576), _bf16(rng, cuda, npages * S, 576), tables,
+    args = (_rand(dtype, rng, cuda, 8, 16, 576), _rand(dtype, rng, cuda, npages * S, 576), tables,
             torch.from_numpy(ctx).to(cuda), S, 1.0 / np.sqrt(192))
     got = A.paged_mla_decode(*args, v_dim=512, emit_partial=True)
     assert got[0].shape == (8, 16) and got[2].shape == (8, 16, 512)
@@ -1620,12 +1649,235 @@ def test_flush_side_rows_is_exact(cuda, B, H, X, dtype):
     assert torch.equal(got, want) and not torch.equal(got, pool)
 
 
+def _layered_flush_case(rng, device, L_, B, H, X, Kw, kind):
+    """L layers' pools and side rows for the layered flush: windows of Kw
+    rows from _ENTRY (mid-page, on a page boundary, crossing one), _N_ROWS
+    live (0: a dead slot; the last slot idle); int8 pools with their scale
+    arrays (-1 everywhere, so a column written shows) and fp32 side rows."""
+    entry = np.array((_ENTRY * 2)[:B], np.int32)
+    n_rows = np.minimum(np.array((_N_ROWS * 2)[:B], np.int32), Kw)
+    n_rows[-1] = 0
+    tables, npages = _tables(rng, entry + Kw, device)
+    N, lead = npages * S, ((H,) if H else (1,))
+    if kind == "int8":
+        pools = [torch.from_numpy(rng.integers(-127, 128, (*lead, N, X)).astype(np.int8)).to(device)
+                 for _ in range(L_)]
+        scales = [[torch.full((H, N + 1), -1.0, device=device) for _ in range(L_)] for _ in "kv"]
+        side = torch.from_numpy(rng.standard_normal((L_, B, H, Kw, X)).astype(np.float32)).to(device)
+        side[:, 0, 0, 0] = 0.0  # an all-zero row: the 1e-8 scale floor
+    else:
+        dtype = torch.float16 if kind == "fp16" else torch.bfloat16
+        pools = [_rand(dtype, rng, device, *lead, N, X) for _ in range(L_)]
+        scales = [None, None]
+        side = _rand(dtype, rng, device, L_, B, *((H,) if H else ()), Kw, X)
+    i32 = lambda a: torch.from_numpy(a).to(device)
+    return pools, scales, side, (i32(entry), i32(n_rows), tables, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L_,B,H,X,Kw,kind", [
+    (40, 16, 36, 128, 8, "bf16"),       # MiniCPM-2B's window
+    (3, 8, 8, 256, 8, "fp16"),
+    (48, 8, 8, 256, 8, "int8"),         # Qwen2.5-14B's int8 window
+    (3, 16, 36, 128, 8, "int8"), (2, 8, 2, 512, 16, "int8"),  # head_dim 256; Kw = the page
+    (27, 8, 0, 576, 8, "bf16"),         # DeepSeek-V2-Lite's latent window
+    (2, 8, 0, 576, 16, "fp16"), (2, 8, 8, 128, 16, "bf16"),
+])
+def test_flush_side_layers_is_exact(cuda, L_, B, H, X, Kw, kind):
+    """The layered flush (one launch for every layer; over int8 pools the
+    requantization and the scale scatter in it) bit-exact against its plain
+    version: pools, and the scales of the live rows; a dead row writes no
+    scale, so the spare column and every other column stay -1."""
+    rng = np.random.default_rng(L_ + B + X + Kw)
+    pools, (ks, vs), side, args = _layered_flush_case(rng, cuda, L_, B, H, X, Kw, kind)
+    fn, plain = ((W.flush_side_layers_hm, W.flush_side_layers_hm_plain) if H else
+                 (W.flush_side_layers_2d, W.flush_side_layers_2d_plain))
+    got = [p.clone() for p in pools]
+    want = [p.clone() for p in pools]
+    extra = lambda sc: () if sc is None else tuple([t.clone() for t in a] for a in sc)
+    got_sc, want_sc = extra(ks and (ks, vs)), extra(ks and (ks, vs))
+    before = fn.launches
+    fn(got, side, *args, *got_sc)
+    plain(want, side, *args, *want_sc)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[0], pools[0]) and not torch.equal(got[-1], pools[-1])
+    for g, w in zip(sum(got_sc, []), sum(want_sc, [])):
+        assert torch.equal(g, w) and (g[:, -1] == -1).all()
+    if kind == "int8":
+        written = got_sc[0][0][:, :-1] != -1
+        assert written.sum().item() == H * int(args[1].sum().item())
+        assert (got_sc[0][0][:, :-1][written] >= 1e-8).all()
+
+
+@pytest.mark.cuda
+def test_flush_wrappers_raise_on_unsupported_cuda_inputs(cuda):
+    rng = np.random.default_rng(3)
+    pools, (ks, vs), side, args = _layered_flush_case(rng, cuda, 2, 8, 2, 128, 8, "int8")
+    with pytest.raises(NotImplementedError, match="fp32 rows"):  # requantizing from bf16 rows
+        W.flush_side_layers_hm(pools, side.to(torch.bfloat16), *args, ks, vs)
+    with pytest.raises(ValueError, match="scale"):  # one layer's scales missing
+        W.flush_side_layers_hm(pools, side, *args, ks[:1], vs)
+    with pytest.raises(ValueError, match="pools"):  # a pool short of the side rows' layers
+        W.flush_side_layers_hm(pools[:1], side, *args, ks[:1], vs[:1])
+    with pytest.raises(ValueError, match="int8"):  # int8 pools without scales: int8 rows only
+        W.flush_side_layers_hm(pools, side, *args)
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_float32_and_mixed_dtypes(cuda):
+    """The wrappers take bf16 or fp16, one type for q, rows and a model-dtype
+    pool: float32 and a bf16/fp16 mix raise (no cast, no plain fallback)."""
+    rng = np.random.default_rng(4)
+    ctx = torch.tensor([40, 7], dtype=torch.int32, device=cuda)
+    tables, npages = _tables(rng, [40, 7], cuda)
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    q = lambda dt, *shape: _rand(dt, rng, cuda, *shape)
+    for qd, pd in ((f32, f32), (f16, bf), (bf, f16)):
+        with pytest.raises(NotImplementedError, match="bf16 or fp16"):
+            A.paged_decode_attention_hm(q(qd, 2, 8, 128), q(pd, 2, npages * S, 256), tables, ctx,
+                                        S, 0.1)
+        with pytest.raises(NotImplementedError, match="bf16 or fp16"):
+            PA.paged_decode_attention(q(qd, 2, 8, 80), q(pd, 1, npages * S, 2, 80),
+                                      q(pd, 1, npages * S, 2, 80), tables, ctx, S, 0.1)
+        with pytest.raises(NotImplementedError, match="bf16 or fp16"):
+            P.paged_prefill_attention_hm_packed(q(qd, 16, 8, 128), q(pd, 2, npages * S, 256),
+                                                tables[:1], ctx[:1], ctx[:1] * 0 + 16, S, 0.1)
+        with pytest.raises(NotImplementedError, match="bf16 or fp16"):
+            A.paged_mla_decode(q(qd, 2, 16, 576), q(pd, npages * S, 576), tables, ctx, S, 0.1,
+                               v_dim=512)
+    pool8, k_s, v_s = _int8_pool(rng, cuda, 2, npages * S, 128)
+    with pytest.raises(NotImplementedError, match="bf16 or fp16"):
+        A.paged_decode_attention_hm_q(q(f32, 2, 8, 128), pool8, k_s, v_s, tables, ctx, S, 0.1)
+    w, scales, zeros = _int4(rng, 256, 128, 128, cuda, True)
+    with pytest.raises(NotImplementedError, match="bf16 or fp16"):
+        Q.w4a16_matmul(q(f32, 8, 256), w, scales, zeros)
+    cos, sin = _rope_tables(rng, 4, 128, True, cuda)
+    slots = torch.arange(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="bf16 or fp16"):  # fp16 rows into a bf16 pool
+        W.rope_write_rows_hm(q(bf, 2, 64, 256), q(f16, 4, 8, 128), q(f16, 4, 2, 128),
+                             q(f16, 4, 2, 128), cos, sin, True, slots)
+
+
+def _fp16_config(layout):
+    """A 2-layer fp16 model for each pool layout: packed head-major (head_dim
+    64, bf16-layout pool in fp16; int8), slot-major (head_dim 80), and an MLA
+    model's latent pool (DeepSeek's 512 + 64 latent rows)."""
+    base = dict(model_type="llama", num_layers=2, dim_model=256, num_heads=4, dim_head=64,
+                num_kv_heads=2, dim_ff=512, vocab_size=128, dtype="float16")
+    if layout == "slot_major":
+        base.update(dim_head=80)
+    if layout == "latent":
+        from zhilight_tpu_torch.config import MLAConfig
+
+        base.update(model_type="deepseek_v2", num_kv_heads=4, dim_head=96,
+                    mla=MLAConfig(kv_lora_rank=512, qk_nope_head_dim=32, qk_rope_head_dim=64,
+                                  v_head_dim=32))
+    return L.ModelConfig(**base)
+
+
+def _forced_logits(ex, prompts, steps, feed=None):
+    """Each prompt prefilled (one chunk) into a fresh cache of ``ex``'s pool
+    kind, then ``steps`` decode steps of the batch, each fed the previous
+    step's argmax (the first: the prefill's), or with ``feed`` the tokens
+    ``feed[k]`` at step k. Returns the decode steps' fp32 logits [B, V], on
+    the CPU, and the tokens each step was fed."""
+    cfg, B = ex.cfg, len(prompts)
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    maxp = max(len(p) + steps for p in prompts) // S + 1
+    cache = ex.new_cache(B * maxp)
+    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+    slots = lambda b, pos: (tables[b, (pos // S).long()] * S + pos % S).to(torch.int32)
+    out, fed, first = [], [], []
+    with torch.no_grad():
+        for b, p in enumerate(prompts):
+            pos = torch.arange(len(p), **i32)
+            meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
+                               cache_len=torch.tensor(0, **i32), q_len=torch.tensor(len(p), **i32))
+            logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, torch.tensor(p, **i32),
+                                              meta, cache)
+            first.append(int(logits.argmax()))
+        n = torch.tensor([len(p) for p in prompts], **i32)
+        rows = torch.arange(B, device=ex.device)
+        tokens = torch.tensor(first, **i32)
+        for k in range(steps):
+            if feed is not None:
+                tokens = torch.tensor(feed[k], **i32)
+            fed.append(tokens.tolist())
+            pos = n + k
+            meta = DecodeMeta(positions=pos, slot_mapping=slots(rows, pos), page_tables=tables,
+                              context_lens=pos + 1)
+            logits, cache = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta, cache)
+            out.append(logits.float().cpu())
+            tokens = logits.argmax(-1).to(torch.int32)
+    return out, fed
+
+
+# what each fp16 layout's decode must launch (prefill: the prologue and, on
+# head-major pools, the prefill kernel)
+FP16_PATHS = {
+    "packed": (W.rope_write_rows_hm, P.paged_prefill_attention_hm_packed,
+               A.paged_decode_attention_hm),
+    "int8": (W.rope_write_rows_hm, P.paged_prefill_attention_hm_packed_q,
+             A.paged_decode_attention_hm_q),
+    "slot_major": (W.rope_write_rows_pair, PA.paged_decode_attention),
+    "latent": (W.rope_write_rows_2d, A.paged_mla_decode),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(FP16_PATHS))
+def test_fp16_engine_on_gpu(cuda, layout):
+    """An fp16 model served on the card on each pool layout: the pool is fp16
+    (or int8), every kernel of the path launches and no wrapper raises, and
+    each request gets its tokens. Then teacher-forced against the plain path
+    (the same weights on the CPU, where every wrapper takes its plain
+    version; both fed the card's greedy tokens, 12 decode steps): every
+    step's logits within FP16_LOGIT_TOL of the row's largest, and the same
+    argmax wherever the card's top-2 gap exceeds twice the largest
+    difference."""
+    cfg = _fp16_config(layout)
+    cache = CacheConfig(page_size=16, num_pages=64, kv_dtype="int8" if layout == "int8" else "float16")
+    ecfg = EngineConfig(max_model_len=256, cache=cache,
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
+    params = L.init_params(cfg, 0, "cpu")
+    to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict) else
+                            (v.to(dev) if torch.is_tensor(v) else v) for k, v in tree.items()}
+    prompts = [np.random.default_rng(i).integers(2, 128, n).tolist() for i, n in enumerate((40, 7, 100))]
+    llm = LLM(model_config=cfg, params=to(params, cuda), engine_config=ecfg, device=cuda)
+    ex = llm.executor
+    pool = ex.cache.latent[0] if layout == "latent" else ex.cache.k[0]
+    assert pool.dtype == (torch.int8 if layout == "int8" else torch.float16)
+    before = [fn.launches for fn in FP16_PATHS[layout]]
+    with DynamicBatchGenerator(llm) as gen:
+        res = gen.batch_generate(prompts, [GeneratorArg(max_length=12)] * 3, timeout=300)
+    assert all(len(r.outputs[0].token_ids) == 12 for r in res)
+    assert all(fn.launches > b for fn, b in zip(FP16_PATHS[layout], before))
+
+    plain = LLM(model_config=cfg, params=params, engine_config=ecfg, device="cpu").executor
+    card, fed = _forced_logits(ex, prompts, 12)
+    want, _ = _forced_logits(plain, prompts, 12, feed=fed)
+    diff = max((c - w).abs().max().item() for c, w in zip(card, want))
+    worst_rel, worst_gap = 0.0, 0.0
+    for c, w in zip(card, want):
+        worst_rel = max([worst_rel] + ((c - w).abs().amax(-1) / c.abs().amax(-1)).tolist())
+        top2 = c.topk(2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]).tolist()
+        parted = (c.argmax(-1) != w.argmax(-1)).tolist()
+        worst_gap = max([worst_gap] + [g for g, p in zip(gap, parted) if p])
+    print(f"fp16 {layout}: teacher-forced largest |diff| {diff:.4e}, rel {worst_rel:.4e}")
+    assert worst_rel <= FP16_LOGIT_TOL, f"logits differ by {worst_rel} of the largest"
+    assert worst_gap <= 2 * diff, f"an argmax parted at a top-2 gap of {worst_gap} > 2 x {diff}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
 def test_window_kv_engine_on_gpu(cuda, kv_dtype, monkeypatch):
     """A small bf16 model served with ZT_WINDOW_KV=1: 8-step windows run the
-    partial kernel and one flush a layer a window, and write no row per step;
-    the tokens equal the per-step engine's on the same weights."""
+    partial kernel and one flush a window for every layer (the layered flush;
+    no per-layer one), and write no row per step; the tokens equal the
+    per-step engine's on the same weights."""
     cfg = L.ModelConfig(model_type="llama", num_layers=2, dim_model=256, num_heads=4, dim_head=64,
                         num_kv_heads=2, dim_ff=512, vocab_size=128, dtype="bfloat16")
     ecfg = EngineConfig(max_model_len=256,
@@ -1636,7 +1888,10 @@ def test_window_kv_engine_on_gpu(cuda, kv_dtype, monkeypatch):
     partial = A.paged_decode_attention_hm_q_partial if kv_dtype == "int8" else A.paged_decode_attention_hm_partial
     # every row write into the packed pool: the prologue (the model's) and the copy mode
     row_writes = lambda: W.rope_write_rows_hm.launches + W.write_rows_hm.launches
-    runs = {}
+    runs, windows = {}, []
+    flush_window_rows = L.flush_window_rows
+    monkeypatch.setattr(L, "flush_window_rows",
+                        lambda *a, **kw: windows.append(1) or flush_window_rows(*a, **kw))
     for window in (False, True):
         if window:
             monkeypatch.setenv("ZT_WINDOW_KV", "1")
@@ -1646,14 +1901,18 @@ def test_window_kv_engine_on_gpu(cuda, kv_dtype, monkeypatch):
             # the same prompts' prefill alone, then prefill and decode
             w0 = row_writes()
             gen.batch_generate(prompts, [GeneratorArg(max_length=1)] * 3, timeout=300)
-            before = (W.flush_side_rows_hm.launches, partial.launches, row_writes())
+            before = (W.flush_side_layers_hm.launches, partial.launches, row_writes(),
+                      W.flush_side_rows_hm.launches)
+            windows.clear()
             res = gen.batch_generate(prompts, [GeneratorArg(max_length=16)] * 3, timeout=300)
         prefill_writes = before[2] - w0
         runs[window] = [r.outputs[0].token_ids for r in res]
-        flushes, partials, writes = (n - b for n, b in zip(
-            (W.flush_side_rows_hm.launches, partial.launches, row_writes()), before))
-        if window:  # decode writes no row per step: one flush a layer a window
-            assert flushes > 0 and flushes % 2 == 0 and partials > 0 and writes == prefill_writes
+        flushes, partials, writes, per_layer = (n - b for n, b in zip(
+            (W.flush_side_layers_hm.launches, partial.launches, row_writes(),
+             W.flush_side_rows_hm.launches), before))
+        assert per_layer == 0
+        if window:  # decode writes no row per step: one flush a window, every layer in it
+            assert flushes == len(windows) > 0 and partials > 0 and writes == prefill_writes
         else:
             assert flushes == partials == 0 and writes > prefill_writes
     assert all(len(t) == 16 for t in runs[True])
@@ -1687,19 +1946,20 @@ def _fused_inputs(rng, device, ctx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("hkv,G,D", [(2, 1, 16), (2, 8, 16), (2, 4, 80), (2, 8, 128),
                                      (8, 1, 16), (8, 4, 80), (8, 5, 128), (8, 8, 128),
                                      (12, 2, 64)])
-def test_fused_decode_attention_matches_plain(cuda, hkv, G, D, packed):
+def test_fused_decode_attention_matches_plain(cuda, dtype, hkv, G, D, packed):
     """Danube's (8 KV heads, G 4, head_dim 80) and Qwen2.5-14B's (G 5 of 128)
     geometries among others, at batch 8 over _FUSED_CTX, windows 0 and 300."""
     rng = np.random.default_rng(hkv * G + D + packed)
     tables, npages, slots, ctx = _fused_inputs(rng, cuda, _FUSED_CTX)
-    k, v = _bf16(rng, cuda, npages * S, hkv, D), _bf16(rng, cuda, npages * S, hkv, D)
+    k, v = _rand(dtype, rng, cuda, npages * S, hkv, D), _rand(dtype, rng, cuda, npages * S, hkv, D)
     pools = (torch.cat((k, v), -1)[None],) if packed else (k[None], v[None])
-    q = _bf16(rng, cuda, 8, hkv * G, D)
-    k_new, v_new = _bf16(rng, cuda, 8, hkv, D), _bf16(rng, cuda, 8, hkv, D)
+    q = _rand(dtype, rng, cuda, 8, hkv * G, D)
+    k_new, v_new = _rand(dtype, rng, cuda, 8, hkv, D), _rand(dtype, rng, cuda, 8, hkv, D)
     for window in (0, 300):
         got_pools = [p.clone() for p in pools]
         want_pools = [p.clone() for p in pools]
@@ -1720,9 +1980,10 @@ def test_fused_decode_attention_matches_plain(cuda, hkv, G, D, packed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("B,H,ctx", [(8, 16, [2816, 1, 0, 16, 17, 1500, 100, 2305]),
                                      (3, 16, [300, 1, 65]), (2, 40, [3000, 64])])
-def test_mla_decode_fused_matches_plain(cuda, B, H, ctx):
+def test_mla_decode_fused_matches_plain(cuda, dtype, B, H, ctx):
     """DeepSeek-V2-Lite's latent rows (576, V the first 512) and 16 heads at
     its serving batch, and smaller batches; pools [1, N, 576]."""
     rng = np.random.default_rng(B + H)
@@ -1730,8 +1991,8 @@ def test_mla_decode_fused_matches_plain(cuda, B, H, ctx):
     tables, slots, ctx_t = tables[:B], slots[:B].clone(), ctx_t[:B]
     if B == 8:
         slots[5] = -1  # frozen
-    pool = _bf16(rng, cuda, 1, npages * S, 576)
-    q, new = _bf16(rng, cuda, B, H, 576), _bf16(rng, cuda, B, 576)
+    pool = _rand(dtype, rng, cuda, 1, npages * S, 576)
+    q, new = _rand(dtype, rng, cuda, B, H, 576), _rand(dtype, rng, cuda, B, 576)
     got_pool, want_pool = pool.clone(), pool.clone()
     tail = (new, slots, tables, ctx_t, S, 1.0 / np.sqrt(192), 512)
     got = PA.paged_mla_decode_fused(q, got_pool, *tail)
@@ -1788,6 +2049,10 @@ def test_fused_wrappers_raise_on_unsupported_cuda_inputs(cuda):
 # 8.97e-3, in the short context only, where the new token weighs most; rows
 # of contexts over 40 agree to the bit.
 FUSED_LOGIT_TOL = 2e-2
+# largest |card - plain| fp16 logit over the row's largest: the kernels' fp32
+# sums in another order and their own rounding points (p rounded unnormalized)
+# against the plain path's on the CPU, through two fp16 layers
+FP16_LOGIT_TOL = 2e-2
 
 
 def _teacher_forced(ex_u, ex_f, prompts, steps):

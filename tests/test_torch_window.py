@@ -345,6 +345,51 @@ def _pool_arrays(cache, latent_dim=0):
             + [a[:, :N].numpy().T for a in cache.v_scale or []])
 
 
+# the layered flush's window: slot 0 crosses from its first page into its
+# second, slot 1 is dead (no live row), slot 2 has 2 live rows of 6, slot 3
+# starts on a page boundary
+FLUSH_ENTRY = np.array([13, 20, 30, 16], np.int32)
+FLUSH_LIVE = np.array([6, 0, 2, 6], np.int32)
+
+
+@pytest.mark.parametrize("kind", ["dense", "int8", "mla"])
+def test_layered_plain_flush_matches_jax_flush_window_rows(kind, monkeypatch):
+    """The port's layered plain flush (one call for every layer; over an int8
+    pool it requantizes the fp32 side rows and scatters their scales) against
+    JAX's flush_window_rows, which loops its per-layer flush_side_rows_hm /
+    _2d (interpret mode) and its requantization over the layers: three
+    layers, a dead slot, a window across a page, bit-equal pools and scales
+    (the port's spare scale column untouched)."""
+    monkeypatch.setenv("ZT_PALLAS_INTERPRET", "1")
+    rng = np.random.RandomState(11)
+    if kind == "mla":
+        jcfg = _mla_model()[0].replace(num_layers=3)
+        shape = (B, KW, jcfg.mla.latent_dim)
+    else:
+        jcfg = JModelConfig(**dict(DENSE, num_layers=3))
+        shape = (B, jcfg.num_kv_heads, KW, 2 * jcfg.dim_head)
+    jcache, tcache = _caches(kind, jcfg, rng)
+    side = rng.randn(3, *shape).astype(np.float32)
+    valid = np.arange(KW)[None, :] < FLUSH_LIVE[:, None]
+    pad = -jcfg.mla.latent_dim % 128 if kind == "mla" else 0
+    j_side = [jnp.asarray(np.pad(r, [(0, 0)] * (r.ndim - 1) + [(0, pad)])) for r in side]
+    jcache = JL.flush_window_rows(jcfg, jcache, j_side, jnp.asarray(valid),
+                                  jnp.asarray(FLUSH_ENTRY), jnp.asarray(TABLES))
+    spare = [a[:, -1].clone() for a in tcache.k_scale or []]
+    args = (T(FLUSH_ENTRY.copy()), T(FLUSH_LIVE.copy()), T(TABLES.copy()), S)
+    if kind == "mla":
+        pools = W.flush_side_layers_2d(tcache.latent, T(side.copy()), *args)
+    else:
+        pools = W.flush_side_layers_hm(tcache.k, T(side.copy()), *args, tcache.k_scale,
+                                       tcache.v_scale)
+    assert pools is (tcache.latent if kind == "mla" else tcache.k)
+    latent_dim = jcfg.mla.latent_dim if kind == "mla" else 0
+    for got, want in zip(_pool_arrays(tcache), _pool_arrays(jcache, latent_dim)):
+        assert np.array_equal(got, want)
+    for before, after in zip(spare, tcache.k_scale or []):
+        assert torch.equal(before, after[:, -1])
+
+
 @pytest.mark.parametrize("kind", ["dense", "int8", "mla"])
 def test_window_matches_jax_and_the_per_step_path(kind, monkeypatch):
     monkeypatch.setenv("ZT_PALLAS_INTERPRET", "1")
@@ -469,8 +514,9 @@ def _serve_both(monkeypatch, model, cache, sched, lens, max_length, seed):
     spy(JL, "forward_decode_window", "j_window")
     spy(TL, "forward_decode_window", "t_window", window_step=True)
     spy(TL, "forward_decode", "t_step")
-    spy(W, "flush_side_rows_hm", "flush")
-    spy(W, "flush_side_rows_2d", "flush")
+    for name in ("flush_side_rows_hm", "flush_side_rows_2d", "flush_side_layers_hm",
+                 "flush_side_layers_2d"):
+        spy(W, name, "flush")
     for name in ("write_rows_hm", "write_rows_2d", "write_rows_pair", "rope_write_rows_pair"):
         spy(W, name, "window_writes")
 

@@ -12,9 +12,10 @@
 //   when a sliding window is set; token t lives at pool[hkv, page*S + t%S]
 //   with page = page_tables[b, t / S] (clamped into the pool); K is lanes
 //   [:D], V lanes [D:].
-// fp32 scores and online softmax with NEG_INF = -2e38 and the max(l, 1e-20)
+// q, the pool and the output are bf16 or fp16 (one type, T). fp32 scores and
+// online softmax with NEG_INF = -2e38 and the max(l, 1e-20)
 // floor of the TPU kernel, so an empty slot (ctx == 0) yields zeros. The
-// probabilities are rounded to bf16 for the P.V product, as the TPU kernel
+// probabilities are rounded to T for the P.V product, as the TPU kernel
 // casts p.astype(kv.dtype) before its second dot_general (_kernel_hm body,
 // :118-122); l sums them unrounded. With EMIT (the partial mode) the kernel
 // writes fp32 m = max score, l = sum of exp(score - m) and the unnormalized
@@ -69,6 +70,7 @@
 // - Any D in {64, 128, 192, 256} and any G.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,23 +98,24 @@ struct Cfg {
   static_assert(D % 64 == 0, "head dim");
 };
 
-template <int D, bool EMIT>
+template <int D, bool EMIT, class T>
 __global__ void __launch_bounds__(NT) decode_hm_kernel(
-    void* __restrict__ out,                   // [B, Hq, D]: bf16, or fp32 acc with EMIT
+    void* __restrict__ out,                   // [B, Hq, D]: T, or fp32 acc with EMIT
     float* __restrict__ m_out,                // [B, Hq] with EMIT, else unused
     float* __restrict__ l_out,                // [B, Hq] with EMIT, else unused
     float* __restrict__ part_acc,             // [B, Hkv * groups, splits, HR, D]
     float* __restrict__ part_ml,              // [B, Hkv * groups, splits, 2, HR]
     int* __restrict__ tickets,                // [B, Hkv * groups], zero between launches
-    const bf16* __restrict__ q,               // [B, Hq, D]
-    const bf16* __restrict__ pool,            // [Hkv, N, 2D]
+    const T* __restrict__ q,                  // [B, Hq, D]
+    const T* __restrict__ pool,               // [Hkv, N, 2D]
     const int32_t* __restrict__ page_tables,  // [B, maxp]
     const int32_t* __restrict__ context_lens, // [B]
     int Hkv, int G, int groups, long long N, int maxp, int S, float scale, int window) {
   using C = Cfg<D>;
+  using E = Elem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sKV = reinterpret_cast<bf16*>(smem);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + C::KV_BYTES);
+  T* sKV = reinterpret_cast<T*>(smem);
+  T* sQ = reinterpret_cast<T*>(smem + C::KV_BYTES);
   __shared__ int s_last;
 
   const int split = blockIdx.x, splits = gridDim.x;
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
     *reinterpret_cast<uint4*>(sQ + r * C::LDQ + c * 8) = v;
   }
 
-  const bf16* head = pool + (long long)hkv * N * 2 * D;
+  const T* head = pool + (long long)hkv * N * 2 * D;
   const int32_t* pt = page_tables + (long long)b * maxp;
   const long long num_pages = N / S;
   const int s_shift = log2_if_pow2(S);
@@ -154,7 +157,7 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
   auto issue = [&]() {
     if (issued < n) {
       const int tile = first + issued;
-      gather_tile<TN, 2 * D, C::LDK, NT, 2>(sKV + (issued % C::STAGES) * C::STAGE, head, pt, ids,
+      gather_tile<TN, 2 * D, C::LDK, NT, 2, T>(sKV + (issued % C::STAGES) * C::STAGE, head, pt, ids,
                                          tile * TN, start, ctx, S, s_shift, num_pages, tid);
       if (++issued < n) ids = fetch_pages(pt, maxp, page_of((tile + 1) * TN), lane);
     }
@@ -174,7 +177,7 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
     issue();          // tile i + STAGES - 1, into tile i - 1's stage
     const int tok0 = (first + i) * TN + warp * 16;  // this warp's 16 tokens
     if (tok0 >= ctx || tok0 + 16 <= start) continue;  // warp-uniform
-    const bf16* kw = sKV + (i % C::STAGES) * C::STAGE + warp * 16 * C::LDK;
+    const T* kw = sKV + (i % C::STAGES) * C::STAGE + warp * 16 * C::LDK;
 
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
@@ -182,8 +185,8 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
       uint32_t a[4], bk[4];
       ldsm_x4(a, sQ + a_offset(lane, C::LDQ, k * 16));
       ldsm_x4(bk, kw + b_offset(lane, C::LDK, 0, k * 16));
-      mma_bf16(s[0], a, bk[0], bk[1]);
-      mma_bf16(s[1], a, bk[2], bk[3]);
+      E::mma(s[0], a, bk[0], bk[1]);
+      E::mma(s[1], a, bk[2], bk[3]);
     }
 
     // online softmax over the warp's 16 tokens; rows g and g + 8 of the tile
@@ -215,8 +218,8 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
         s[nt][e] = p;
         l_r[e >> 1] += p;
       }
-    uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                      pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    uint32_t pa[4] = {E::pack(s[0][0], s[0][1]), E::pack(s[0][2], s[0][3]),
+                      E::pack(s[1][0], s[1][1]), E::pack(s[1][2], s[1][3])};
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       o[j][0] *= alpha[0];
@@ -228,8 +231,8 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t bv[4];
       ldsm_x4_trans(bv, kw + bt_offset(lane, C::LDK, 0, D + dp * 16));
-      mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-      mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      E::mma(o[2 * dp], pa, bv[0], bv[1]);
+      E::mma(o[2 * dp + 1], pa, bv[2], bv[3]);
     }
   }
   cp_async_wait<0>();
@@ -259,12 +262,12 @@ __global__ void __launch_bounds__(NT) decode_hm_kernel(
       *reinterpret_cast<float2*>(ow + (g + 8) * D + j * 8 + c) = make_float2(o[j][2], o[j][3]);
     }
   }
-  decode_merge<D, EMIT>(sO, out, m_out, l_out, part_acc, part_ml, tickets, rows, parts, split,
+  decode_merge<D, EMIT, T>(sO, out, m_out, l_out, part_acc, part_ml, tickets, rows, parts, split,
                         (long long)b * Hq + h0, ((long long)b * gridDim.y + hg) * splits,
                         (long long)b * gridDim.y + hg, tid, &s_last);
 }
 
-template <int D, bool EMIT>
+template <int D, bool EMIT, class T>
 int launch_one(void* out, float* m_out, float* l_out, float* part_acc, float* part_ml,
                int* tickets, const void* q, const void* pool, const void* page_tables,
                const void* context_lens, int B, int Hkv, int G, long long N, int maxp, int S,
@@ -272,14 +275,14 @@ int launch_one(void* out, float* m_out, float* l_out, float* part_acc, float* pa
   using C = Cfg<D>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(decode_hm_kernel<D, EMIT>,
+    cudaError_t e = cudaFuncSetAttribute(decode_hm_kernel<D, EMIT, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int groups = (G + HR - 1) / HR;
-  decode_hm_kernel<D, EMIT><<<dim3(splits, Hkv * groups, B), NT, C::BYTES, stream>>>(
-      out, m_out, l_out, part_acc, part_ml, tickets, (const bf16*)q, (const bf16*)pool,
+  decode_hm_kernel<D, EMIT, T><<<dim3(splits, Hkv * groups, B), NT, C::BYTES, stream>>>(
+      out, m_out, l_out, part_acc, part_ml, tickets, (const T*)q, (const T*)pool,
       (const int32_t*)page_tables, (const int32_t*)context_lens, Hkv, G, groups, N, maxp, S,
       scale, window);
   return (int)cudaGetLastError();
@@ -289,8 +292,9 @@ template <int D>
 int launch(void* out, float* m_out, float* l_out, float* part_acc, float* part_ml, int* tickets,
            const void* q, const void* pool, const void* page_tables, const void* context_lens,
            int B, int Hkv, int G, long long N, int maxp, int S, float scale, int window,
-           int splits, cudaStream_t stream) {
-  auto fn = m_out != nullptr ? launch_one<D, true> : launch_one<D, false>;
+           int splits, int fp16, cudaStream_t stream) {
+  auto fn = m_out != nullptr ? (fp16 ? launch_one<D, true, __half> : launch_one<D, true, bf16>)
+                             : (fp16 ? launch_one<D, false, __half> : launch_one<D, false, bf16>);
   return fn(out, m_out, l_out, part_acc, part_ml, tickets, q, pool, page_tables, context_lens, B,
             Hkv, G, N, maxp, S, scale, window, splits, stream);
 }
@@ -298,10 +302,10 @@ int launch(void* out, float* m_out, float* l_out, float* part_acc, float* part_m
 template <int D>
 int blocks_per_sm(int* blocks) {
   using C = Cfg<D>;
-  cudaError_t e = cudaFuncSetAttribute(decode_hm_kernel<D, false>,
+  cudaError_t e = cudaFuncSetAttribute(decode_hm_kernel<D, false, bf16>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, decode_hm_kernel<D, false>, NT,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, decode_hm_kernel<D, false, bf16>, NT,
                                                       C::BYTES);
   return (int)e;
 }
@@ -309,7 +313,8 @@ int blocks_per_sm(int* blocks) {
 }  // namespace
 
 // How many blocks of the head-dim-D kernel one SM holds at once (into
-// *blocks); the host sizes `splits` with it. Returns the CUDA error code.
+// *blocks); the host sizes `splits` with it (the fp16 instantiation's shared
+// memory is the same). Returns the CUDA error code.
 extern "C" int zt_decode_attention_hm_blocks_per_sm(int D, int* blocks) {
   if (D == 64) return blocks_per_sm<64>(blocks);
   if (D == 128) return blocks_per_sm<128>(blocks);
@@ -318,8 +323,8 @@ extern "C" int zt_decode_attention_hm_blocks_per_sm(int D, int* blocks) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Supported: bf16 q and pool, D in {64, 128, 192, 256}, any G = Hq / Hkv >= 1,
-// 1 <= splits <= 64. With splits > 1: part_acc fp32
+// Supported: bf16 q and pool (fp16 with fp16 != 0), D in {64, 128, 192,
+// 256}, any G = Hq / Hkv >= 1, 1 <= splits <= 64. With splits > 1: part_acc fp32
 // [B, Hkv * ceil(G / 16), splits, 16, D], part_ml fp32 [..., splits, 2, 16]
 // and tickets int32 [B, Hkv * ceil(G / 16)], zero before the launch and left
 // zero after it (with splits == 1 the three may be null). With m_out (and
@@ -331,7 +336,7 @@ extern "C" int zt_decode_attention_hm(void* out, float* m_out, float* l_out, flo
                                       const void* pool, const void* page_tables,
                                       const void* context_lens, int B, int Hkv, int G, int D,
                                       long long N, int maxp, int S, float scale, int window,
-                                      int splits, void* stream) {
+                                      int splits, int fp16, void* stream) {
   if (B == 0) return 0;
   if ((m_out == nullptr) != (l_out == nullptr) || G < 1 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
@@ -341,7 +346,7 @@ extern "C" int zt_decode_attention_hm(void* out, float* m_out, float* l_out, flo
 #define ZT_D(DD)                                                                            \
   if (D == DD)                                                                              \
     return launch<DD>(out, m_out, l_out, part_acc, part_ml, tickets, q, pool, page_tables,  \
-                      context_lens, B, Hkv, G, N, maxp, S, scale, window, splits, st);
+                      context_lens, B, Hkv, G, N, maxp, S, scale, window, splits, fp16, st);
   ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)
 #undef ZT_D
   return (int)cudaErrorInvalidValue;

@@ -11,11 +11,12 @@
 // window) when a sliding window is set, token t living at slot =
 // page_tables[b, t / S] * S + t % S (the page clamped into the pool):
 //   s[t] = scale * (q[b, h] . K_i8[hkv, slot, :D]) * k_scales[hkv, slot]
-//   out[b, h] = sum_t bf16(p[t] * v_scales[hkv, slot]) * V_i8[hkv, slot, D:] / l
-// with p, l from an fp32 online softmax of s (NEG_INF = -2e38, max(l, 1e-20)
+//   out[b, h] = sum_t T(p[t] * v_scales[hkv, slot]) * V_i8[hkv, slot, D:] / l
+// with q and out of one type T, bf16 or fp16,
+// and p, l from an fp32 online softmax of s (NEG_INF = -2e38, max(l, 1e-20)
 // floor, so an empty slot yields zeros). As in the TPU kernel, no element of
 // K or V is multiplied by its scale: the K scale multiplies the score before
-// the mask, l sums the unscaled p, and p * v_scale is rounded to bf16 as the
+// the mask, l sums the unscaled p, and p * v_scale is rounded to T as the
 // A operand of the second product (the TPU kernel's (p * vs_h).astype(q.dtype),
 // :319). The scales are head-major [Hkv, scale_stride >= N] (the reference
 // keeps them [N, Hkv]): a tile's scales are read from one row.
@@ -61,6 +62,7 @@
 //   well inside the byte bound.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,15 +92,15 @@ struct Cfg {
   static_assert(D % 64 == 0 && 2 * TN == NT, "shapes");
 };
 
-template <int D, bool EMIT>
+template <int D, bool EMIT, class T>
 __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
-    void* __restrict__ out,                   // [B, Hq, D]: bf16, or fp32 acc with EMIT
+    void* __restrict__ out,                   // [B, Hq, D]: T, or fp32 acc with EMIT
     float* __restrict__ m_out,                // [B, Hq] with EMIT, else unused
     float* __restrict__ l_out,                // [B, Hq] with EMIT, else unused
     float* __restrict__ part_acc,             // [B, Hkv * groups, splits, HR, D]
     float* __restrict__ part_ml,              // [B, Hkv * groups, splits, 2, HR]
     int* __restrict__ tickets,                // [B, Hkv * groups], zero between launches
-    const bf16* __restrict__ q,               // [B, Hq, D]
+    const T* __restrict__ q,                  // [B, Hq, D]
     const int8_t* __restrict__ pool,          // [Hkv, N, 2D]
     const float* __restrict__ k_scales,       // [Hkv, scale_stride]
     const float* __restrict__ v_scales,       // [Hkv, scale_stride]
@@ -107,8 +109,9 @@ __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
     int Hkv, int G, int groups, long long N, long long scale_stride, int maxp, int S,
     float scale, int window) {
   using C = Cfg<D>;
+  using E = Elem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + C::BUF);
+  T* sQ = reinterpret_cast<T*>(smem + C::BUF);
   __shared__ int s_last;
 
   const int split = blockIdx.x, splits = gridDim.x;
@@ -229,9 +232,9 @@ __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         uint32_t b0, b1;
-        i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(kw + (nt * 8 + g) * C::LDK + 16 * k + 4 * i),
-                     b0, b1);
-        mma_bf16(s[nt], a, b0, b1);
+        E::i8x4(*reinterpret_cast<const uint32_t*>(kw + (nt * 8 + g) * C::LDK + 16 * k + 4 * i),
+                b0, b1);
+        E::mma(s[nt], a, b0, b1);
       }
     }
 
@@ -260,7 +263,7 @@ __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
       m_r[r] = m_new;
       l_r[r] *= alpha[r];
     }
-    // p (unscaled) into l; p times the key's V scale, rounded to bf16, into P
+    // p (unscaled) into l; p times the key's V scale, rounded to T, into P
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const float2 vsc = *reinterpret_cast<const float2*>(svs + nt * 8 + 2 * i);
@@ -271,8 +274,8 @@ __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
         s[nt][e] = p * (e & 1 ? vsc.y : vsc.x);
       }
     }
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    const uint32_t pa[4] = {E::pack(s[0][0], s[0][1]), E::pack(s[0][2], s[0][3]),
+                            E::pack(s[1][0], s[1][1]), E::pack(s[1][2], s[1][3])};
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       o[j][0] *= alpha[0];
@@ -290,7 +293,8 @@ __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
       const uint32_t w8 = *reinterpret_cast<const uint32_t*>(vw + 8 * C::LDK + 32 * c);
       const uint32_t w9 = *reinterpret_cast<const uint32_t*>(vw + 9 * C::LDK + 32 * c);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) mma_bf16(o[4 * c + t], pa, i8_pair(w0, w1, t), i8_pair(w8, w9, t));
+      for (int t = 0; t < 4; ++t)
+        E::mma(o[4 * c + t], pa, E::i8pair(w0, w1, t), E::i8pair(w8, w9, t));
     }
   }
   cp_async_wait<0>();
@@ -317,36 +321,36 @@ __global__ void __launch_bounds__(NT, Cfg<D>::MINB) decode_hm_q_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       ow[(g + 8 * (e >> 1)) * D + 32 * (j / 4) + 4 * (2 * i + (e & 1)) + j % 4] = o[j][e];
-  decode_merge<D, EMIT>(sO, out, m_out, l_out, part_acc, part_ml, tickets, rows, parts, split,
+  decode_merge<D, EMIT, T>(sO, out, m_out, l_out, part_acc, part_ml, tickets, rows, parts, split,
                         (long long)b * Hq + h0, ((long long)b * gridDim.y + hg) * splits,
                         (long long)b * gridDim.y + hg, tid, &s_last);
 }
 
 // dynamic shared memory above 48 KB and the largest carveout, once per kernel
-template <int D, bool EMIT>
+template <int D, bool EMIT, class T>
 int configure() {
   static int err = -1;
   if (err < 0) {
-    err = (int)cudaFuncSetAttribute(decode_hm_q_kernel<D, EMIT>,
+    err = (int)cudaFuncSetAttribute(decode_hm_q_kernel<D, EMIT, T>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::BYTES);
     if (!err)
-      err = (int)cudaFuncSetAttribute(decode_hm_q_kernel<D, EMIT>,
+      err = (int)cudaFuncSetAttribute(decode_hm_q_kernel<D, EMIT, T>,
                                       cudaFuncAttributePreferredSharedMemoryCarveout,
                                       cudaSharedmemCarveoutMaxShared);
   }
   return err;
 }
 
-template <int D, bool EMIT>
+template <int D, bool EMIT, class T>
 int launch(void* out, float* m_out, float* l_out, float* part_acc, float* part_ml, int* tickets,
            const void* q, const void* pool, const void* k_scales, const void* v_scales,
            const void* page_tables, const void* context_lens, int B, int Hkv, int G, long long N,
            long long scale_stride, int maxp, int S, float scale, int window, int splits,
            cudaStream_t stream) {
-  if (int err = configure<D, EMIT>()) return err;
+  if (int err = configure<D, EMIT, T>()) return err;
   const int groups = (G + HR - 1) / HR;
-  decode_hm_q_kernel<D, EMIT><<<dim3(splits, Hkv * groups, B), NT, Cfg<D>::BYTES, stream>>>(
-      out, m_out, l_out, part_acc, part_ml, tickets, (const bf16*)q, (const int8_t*)pool,
+  decode_hm_q_kernel<D, EMIT, T><<<dim3(splits, Hkv * groups, B), NT, Cfg<D>::BYTES, stream>>>(
+      out, m_out, l_out, part_acc, part_ml, tickets, (const T*)q, (const int8_t*)pool,
       (const float*)k_scales, (const float*)v_scales, (const int32_t*)page_tables,
       (const int32_t*)context_lens, Hkv, G, groups, N, scale_stride, maxp, S, scale, window);
   return (int)cudaGetLastError();
@@ -354,15 +358,16 @@ int launch(void* out, float* m_out, float* l_out, float* part_acc, float* part_m
 
 template <int D>
 int blocks_per_sm(int* blocks) {
-  if (int err = configure<D, false>()) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, decode_hm_q_kernel<D, false>,
-                                                            NT, Cfg<D>::BYTES);
+  if (int err = configure<D, false, bf16>()) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, decode_hm_q_kernel<D, false, bf16>, NT, Cfg<D>::BYTES);
 }
 
 }  // namespace
 
 // How many blocks of the head-dim-D kernel one SM holds at once (into
-// *blocks); the host sizes `splits` with it. Returns the CUDA error code.
+// *blocks); the host sizes `splits` with it (the fp16 instantiation's shared
+// memory is the same). Returns the CUDA error code.
 extern "C" int zt_decode_attention_hm_q_blocks_per_sm(int D, int* blocks) {
   if (D == 64) return blocks_per_sm<64>(blocks);
   if (D == 128) return blocks_per_sm<128>(blocks);
@@ -371,8 +376,8 @@ extern "C" int zt_decode_attention_hm_q_blocks_per_sm(int D, int* blocks) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Supported: bf16 q, int8 pool, fp32 scales [Hkv, scale_stride >= N]; D in
-// {64, 128, 192, 256}, any G = Hq / Hkv >= 1, 1 <= splits <= 64. With splits
+// Supported: bf16 q (fp16 with fp16 != 0), int8 pool, fp32 scales [Hkv,
+// scale_stride >= N]; D in {64, 128, 192, 256}, any G = Hq / Hkv >= 1, 1 <= splits <= 64. With splits
 // > 1: part_acc fp32 [B, Hkv * ceil(G / 16), splits, 16, D], part_ml fp32
 // [..., splits, 2, 16] and tickets int32 [B, Hkv * ceil(G / 16)], zero before
 // the launch and left zero after it (with splits == 1 the three may be null).
@@ -385,7 +390,8 @@ extern "C" int zt_decode_attention_hm_q(void* out, float* m_out, float* l_out, f
                                         const void* v_scales, const void* page_tables,
                                         const void* context_lens, int B, int Hkv, int G, int D,
                                         long long N, long long scale_stride, int maxp, int S,
-                                        float scale, int window, int splits, void* stream) {
+                                        float scale, int window, int splits, int fp16,
+                                        void* stream) {
   if (B == 0) return 0;
   if ((m_out == nullptr) != (l_out == nullptr) || G < 1 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
@@ -394,7 +400,8 @@ extern "C" int zt_decode_attention_hm_q(void* out, float* m_out, float* l_out, f
   cudaStream_t st = (cudaStream_t)stream;
 #define ZT_D(DD)                                                                                \
   if (D == DD)                                                                                  \
-    return (m_out != nullptr ? launch<DD, true> : launch<DD, false>)(                           \
+    return (m_out != nullptr ? (fp16 ? launch<DD, true, __half> : launch<DD, true, bf16>)        \
+                             : (fp16 ? launch<DD, false, __half> : launch<DD, false, bf16>))(   \
         out, m_out, l_out, part_acc, part_ml, tickets, q, pool, k_scales, v_scales, page_tables, \
         context_lens, B, Hkv, G, N, scale_stride, maxp, S, scale, window, splits, st);
   ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)

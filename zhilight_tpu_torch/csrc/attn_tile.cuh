@@ -4,6 +4,10 @@
 // int4 and FP8 matmuls (quant_matmul.cu, fp8_matmul.cu): warp-level tensor-core products, asynchronous copies
 // and the paged gather of a K|V tile.
 //
+// The element type of a kernel's q, its output and its tensor-core operands is
+// bf16 or fp16 (Elem<T> at the end: the mma.sync operand type, conversions and
+// pair packing); the fragment layouts below are the same for both.
+//
 // mma.sync m16n8k16 bf16 -> fp32 fragment layouts (PTX ISA, "Matrix Fragments
 // for mma.m16n8k16"), with g = lane / 4 and c = 2 * (lane % 4):
 //   A (16 x 16, row-major): a[0] = (g, c..c+1), a[1] = (g+8, c..c+1),
@@ -17,6 +21,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace zt_mma {
@@ -75,9 +80,24 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a . b (16 x 8 x 16, fp16 operands, fp32 accumulators)
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two floats rounded to a bf16 pair, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two floats rounded to an fp16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
@@ -97,6 +117,14 @@ __device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b, int t) {
   const float fa = __int_as_float(__byte_perm(a ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
   const float fb = __int_as_float(__byte_perm(b ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
   return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
+}
+
+// the four int8 of a word (low byte first) as exact fp32 values
+__device__ __forceinline__ void i8x4_to_f32(uint32_t v, float (&f)[4]) {
+  const uint32_t u = v ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) - 8388736.f;
 }
 
 // Address of lane `lane`'s row for ldsm_x4 of the A operand (16 rows x 16
@@ -171,6 +199,64 @@ __device__ __forceinline__ void gather_tile(T* dst0, const T* head, const int32_
 
 __device__ __forceinline__ int log2_if_pow2(int S) {
   return (S & (S - 1)) ? -1 : __ffs(S) - 1;
+}
+
+// The element type T (bf16 or fp16) of q, the output and the tensor-core
+// operands: the product, conversions and pairs. An int8 code converts to
+// either exactly (|x| <= 127).
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+    mma_bf16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_bf16(lo, hi); }
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+  }
+  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
+  static __device__ __forceinline__ void i8x4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+    i8x4_to_bf16(v, lo, hi);
+  }
+  static __device__ __forceinline__ uint32_t i8pair(uint32_t a, uint32_t b, int t) {
+    return i8_pair(a, b, t);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+    mma_f16(c, a, b0, b1);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) { return pack_f16(lo, hi); }
+  static __device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  }
+  static __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ __half from_f(float x) { return __float2half_rn(x); }
+  static __device__ __forceinline__ void i8x4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+    float f[4];
+    i8x4_to_f32(v, f);
+    lo = pack_f16(f[0], f[1]);
+    hi = pack_f16(f[2], f[3]);
+  }
+  static __device__ __forceinline__ uint32_t i8pair(uint32_t a, uint32_t b, int t) {
+    const float fa = __int_as_float(__byte_perm(a ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
+    const float fb = __int_as_float(__byte_perm(b ^ 0x80808080u, 0x4B000000u, 0x7650 + t)) - 8388736.f;
+    return pack_f16(fa, fb);
+  }
+};
+
+// two floats as (hi, lo) pairs of T, hi = T(x), lo = T(x - hi): hi + lo holds
+// x to 2^-16 of itself in bf16 (fp16: 2^-22 above its normal range)
+template <class T>
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = Elem<T>::pack(x0, x1);
+  const float2 hf = Elem<T>::unpack(hi);
+  lo = Elem<T>::pack(x0 - hf.x, x1 - hf.y);
 }
 
 }  // namespace zt_mma

@@ -8,7 +8,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "attn_tile.cuh"
 
 namespace zt_decode {
 
@@ -38,7 +41,8 @@ __device__ __forceinline__ int split_range(int start, int ctx, int splits, int s
   return per > 0 ? (tiles + per - 1) / per : 0;
 }
 
-template <int D, bool EMIT>
+// T: the output's element type (bf16 or fp16) outside EMIT
+template <int D, bool EMIT, class T>
 __device__ __forceinline__ void write_final(void* out, float* m_out, float* l_out, long long row,
                                             int d, float M, float L, float A) {
   if constexpr (EMIT) {
@@ -48,7 +52,7 @@ __device__ __forceinline__ void write_final(void* out, float* m_out, float* l_ou
       l_out[row] = L;
     }
   } else {
-    static_cast<__nv_bfloat16*>(out)[row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    static_cast<T*>(out)[row * D + d] = zt_mma::Elem<T>::from_f(A / fmaxf(L, 1e-20f));
   }
 }
 
@@ -59,7 +63,7 @@ __device__ __forceinline__ void write_final(void* out, float* m_out, float* l_ou
 // in the block that draws the last ticket, merges the splits. row0 is the
 // first output row, slot the first partial of the (sequence, head group),
 // ticket its counter.
-template <int D, bool EMIT>
+template <int D, bool EMIT, class T>
 __device__ __forceinline__ void decode_merge(float* sO, void* out, float* m_out, float* l_out,
                                              float* part_acc, float* part_ml, int* tickets,
                                              int rows, int parts, int split, long long row0,
@@ -91,7 +95,7 @@ __device__ __forceinline__ void decode_merge(float* sO, void* out, float* m_out,
       float A = 0.f;
 #pragma unroll
       for (int w = 0; w < NWARPS; ++w) A += sO[(w * HR + r) * D + d] * sW[w * HR + r];
-      write_final<D, EMIT>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
+      write_final<D, EMIT, T>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
     }
     return;
   }
@@ -133,7 +137,7 @@ __device__ __forceinline__ void decode_merge(float* sO, void* out, float* m_out,
     float A = 0.f;
     for (int p = 0; p < parts; ++p)
       A += __ldcg(part_acc + ((slot + p) * HR + r) * D + d) * sW[p * HR + r];
-    write_final<D, EMIT>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
+    write_final<D, EMIT, T>(out, m_out, l_out, row0 + r, d, sRow[r], sRow[HR + r], A);
   }
 }
 

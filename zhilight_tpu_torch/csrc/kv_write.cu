@@ -13,7 +13,8 @@
 // Computes, for tokens t < T, query heads h < Hq and KV heads g < Hkv, over
 // the head-major pool [Hkv, N, 2D] (K in [:D], V in [D:]):
 //   rope mode:  q_out[t, h] = rope(q[t, h]); pool[g, slot[t]] = rope(k[t, g]) | v[t, g];
-//               over an int8 pool the bf16 rope(k) row and the v row are
+//               over an int8 pool the rope(k) row rounded to q's type (bf16
+//               or fp16, the type of q, k, v and a model-dtype pool) and the v row are
 //               quantized per (token, head), codes into the pool and scales
 //               into the head-major [Hkv, N + 1] arrays, a skipped row's into
 //               the spare column N;
@@ -38,6 +39,7 @@
 // is as many warps as it has (token, head) rows.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,10 +53,10 @@ struct Params {
   void* pool;               // [Hkv, N, 2D]
   float* k_scale;           // [Hkv, N + 1] (int8 rope mode)
   float* v_scale;
-  const void* q;            // [T, Hq, D] bf16, strides q_st, q_sh (elements)
+  const void* q;            // [T, Hq, D] bf16 or fp16, strides q_st, q_sh (elements)
   const void* k;            // [T, Hkv, D], strides kv_st... (copy mode: contiguous)
   const void* v;
-  __nv_bfloat16* q_out;     // [T, Hq, D] contiguous
+  void* q_out;              // [T, Hq, D] contiguous
   const float* cos_f;       // [T, D] fp32
   const float* sin_f;
   const int32_t* slots;     // [T]
@@ -64,7 +66,8 @@ struct Params {
   int neox;
 };
 
-template <int MODE>
+// T: the type of q, k, v, q_out and a model-dtype pool (bf16 or fp16)
+template <int MODE, class T>
 __global__ void __launch_bounds__(256) hm_rows_kernel(const Params p) {
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -89,29 +92,29 @@ __global__ void __launch_bounds__(256) hm_rows_kernel(const Params p) {
     const float* sn = p.sin_f + (long long)t * D;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (j < p.Hq) {  // a query row: rotated into q_out
-      const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(p.q) + t * p.q_st + j * p.q_sh;
+      const T* src = static_cast<const T*>(p.q) + t * p.q_st + j * p.q_sh;
       if (active) zt_rope::load8(src + 8 * lane, x);
       zt_rope::rope8(x, cs, sn, lane, D, p.neox);
       if (active)
-        *reinterpret_cast<uint4*>(p.q_out + ((long long)t * p.Hq + j) * D + 8 * lane) =
-            zt_rope::pack8(x);
+        *reinterpret_cast<uint4*>(static_cast<T*>(p.q_out) + ((long long)t * p.Hq + j) * D +
+                                  8 * lane) = zt_rope::pack8<T>(x);
       return;
     }
     const int g = j - p.Hq;  // a KV row
-    const __nv_bfloat16* ks = static_cast<const __nv_bfloat16*>(p.k) + t * p.k_st + g * p.k_sh;
-    const __nv_bfloat16* vs = static_cast<const __nv_bfloat16*>(p.v) + t * p.v_st + g * p.v_sh;
+    const T* ks = static_cast<const T*>(p.k) + t * p.k_st + g * p.k_sh;
+    const T* vs = static_cast<const T*>(p.v) + t * p.v_st + g * p.v_sh;
     if (active) zt_rope::load8(ks + 8 * lane, x);
     zt_rope::rope8(x, cs, sn, lane, D, p.neox);
     const long long base = ((long long)g * p.N + slot) * 2 * D;  // element of the pool row
     if constexpr (MODE == kRope) {
       if (!keep || !active) return;
-      __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.pool) + base;
-      *reinterpret_cast<uint4*>(dst + 8 * lane) = zt_rope::pack8(x);
+      T* dst = static_cast<T*>(p.pool) + base;
+      *reinterpret_cast<uint4*>(dst + 8 * lane) = zt_rope::pack8<T>(x);
       *reinterpret_cast<uint4*>(dst + D + 8 * lane) = *reinterpret_cast<const uint4*>(vs + 8 * lane);
     } else {
       float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (active) zt_rope::load8(vs + 8 * lane, y);
-      zt_rope::round_bf16(x);  // the cache quantizes the bf16 rotated row
+      zt_rope::round_to<T>(x);  // the cache quantizes the rotated row as T holds it
       float ak = 0.f, av = 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -142,14 +145,15 @@ __global__ void __launch_bounds__(256) hm_rows_kernel(const Params p) {
   }
 }
 
+template <class T>
 int launch(int mode, const Params& p, cudaStream_t stream) {
   const long long warps = (long long)p.T * (p.Hq + p.Hkv);
   if (warps == 0) return 0;
   const long long blocks = (warps + 7) / 8;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if (mode == kCopy) hm_rows_kernel<kCopy><<<(unsigned)blocks, 256, 0, stream>>>(p);
-  else if (mode == kRope) hm_rows_kernel<kRope><<<(unsigned)blocks, 256, 0, stream>>>(p);
-  else hm_rows_kernel<kRopeInt8><<<(unsigned)blocks, 256, 0, stream>>>(p);
+  if (mode == kCopy) hm_rows_kernel<kCopy, T><<<(unsigned)blocks, 256, 0, stream>>>(p);
+  else if (mode == kRope) hm_rows_kernel<kRope, T><<<(unsigned)blocks, 256, 0, stream>>>(p);
+  else hm_rows_kernel<kRopeInt8, T><<<(unsigned)blocks, 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -172,12 +176,13 @@ extern "C" int zt_write_rows_hm(void* pool, const void* k, const void* v,
   p.Hq = 0;
   p.Hkv = H;
   p.D = row_bytes / 16;
-  return launch(kCopy, p, (cudaStream_t)stream);
+  return launch<__nv_bfloat16>(kCopy, p, (cudaStream_t)stream);  // bytes: any type
 }
 
-// The prologue. q, k, v: bf16 with unit last stride, strides in elements
-// (row, head); every row 16-byte aligned. q_out: bf16 [T, Hq, D] contiguous.
-// cos_f, sin_f: fp32 [T, D] contiguous. pool: bf16 [Hkv, N, 2D], or int8 with
+// The prologue. q, k, v: bf16 (fp16 with fp16 != 0) with unit last stride,
+// strides in elements (row, head); every row 16-byte aligned. q_out [T, Hq,
+// D] of their type, contiguous. cos_f, sin_f: fp32 [T, D] contiguous. pool:
+// [Hkv, N, 2D] of their type, or int8 with
 // k_scale, v_scale fp32 [Hkv, N + 1] (int8 != 0). D % 16 == 0 and D <= 256.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int zt_rope_write_rows_hm(
@@ -185,7 +190,7 @@ extern "C" int zt_rope_write_rows_hm(
     const void* v, void* q_out, const void* cos_f, const void* sin_f,
     const void* slots, int T, int Hq, int Hkv, int D, long long N,
     long long q_st, long long q_sh, long long k_st, long long k_sh,
-    long long v_st, long long v_sh, int neox, int int8, void* stream) {
+    long long v_st, long long v_sh, int neox, int int8, int fp16, void* stream) {
   if (D % 16 != 0 || D > 256 || D <= 0) return (int)cudaErrorInvalidValue;
   Params p{};
   p.pool = pool;
@@ -194,7 +199,7 @@ extern "C" int zt_rope_write_rows_hm(
   p.q = q;
   p.k = k;
   p.v = v;
-  p.q_out = static_cast<__nv_bfloat16*>(q_out);
+  p.q_out = q_out;
   p.cos_f = static_cast<const float*>(cos_f);
   p.sin_f = static_cast<const float*>(sin_f);
   p.slots = static_cast<const int32_t*>(slots);
@@ -210,5 +215,7 @@ extern "C" int zt_rope_write_rows_hm(
   p.Hkv = Hkv;
   p.D = D;
   p.neox = neox;
-  return launch(int8 ? kRopeInt8 : kRope, p, (cudaStream_t)stream);
+  const int mode = int8 ? kRopeInt8 : kRope;
+  return fp16 ? launch<__half>(mode, p, (cudaStream_t)stream)
+              : launch<__nv_bfloat16>(mode, p, (cudaStream_t)stream);
 }

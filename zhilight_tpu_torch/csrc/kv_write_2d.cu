@@ -13,11 +13,11 @@
 // Computes, over the latent pool [N, X] with X = L + R (L = kv_lora_rank,
 // R = qk_rope_head_dim), for tokens t < T and query heads h < H:
 //   rope mode:  q_out[t, h] = rope(q_pe[t, h]);
-//               pool[slot[t]] = c_kv[t] | rope(k_pe[t])   (bf16);
+//               pool[slot[t]] = c_kv[t] | rope(k_pe[t])   (bf16 or fp16);
 //   copy mode:  pool[slot[t]] = rows[t], any element type (X * size bytes).
 // A row with slot < 0 or slot >= N is skipped. The rope mode is bit-equal to
 // apply_rope_rot twice, torch.cat and the row write: each rope product and
-// sum rounded on its own (__fmul_rn / __fadd_rn), then once to bf16.
+// sum rounded on its own (__fmul_rn / __fadd_rn), then once to the pool's type.
 //
 // Bound on the H100: the launch, then bytes. A DeepSeek-V2-Lite decode step
 // (8 tokens, 16 heads of 64 rope lanes, rows of 576) moves 54 KB (16 ns at
@@ -29,6 +29,7 @@
 // of the widest width (16, 8, 4, 2 or 1 bytes) that divides the row's bytes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,12 +53,12 @@ __global__ void __launch_bounds__(256) rows_2d_copy_kernel(
   for (int i = lane; i < vec; i += 32) dst[i] = src[i];
 }
 
-struct RopeParams {
-  __nv_bfloat16* pool;          // [N, L + R]
-  __nv_bfloat16* q_out;         // [T, H, R] contiguous
-  const __nv_bfloat16* q_pe;    // [T, H, R], strides q_st, q_sh
-  const __nv_bfloat16* c_kv;    // [T, L], row stride c_st
-  const __nv_bfloat16* k_pe;    // [T, R], row stride k_st
+struct RopeParams {            // the rows of one type T, bf16 or fp16
+  void* pool;                   // [N, L + R]
+  void* q_out;                  // [T, H, R] contiguous
+  const void* q_pe;             // [T, H, R], strides q_st, q_sh
+  const void* c_kv;             // [T, L], row stride c_st
+  const void* k_pe;             // [T, R], row stride k_st
   const float* cos_f;           // [T, R] fp32
   const float* sin_f;
   const int32_t* slots;         // [T]
@@ -65,6 +66,7 @@ struct RopeParams {
   int T, H, L, R, neox;
 };
 
+template <class T>
 __global__ void __launch_bounds__(256) rows_2d_rope_kernel(const RopeParams p) {
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -77,20 +79,21 @@ __global__ void __launch_bounds__(256) rows_2d_rope_kernel(const RopeParams p) {
   const float* cs = p.cos_f + (long long)t * R;
   const float* sn = p.sin_f + (long long)t * R;
   float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const __nv_bfloat16* src = j < p.H ? p.q_pe + t * p.q_st + j * p.q_sh : p.k_pe + t * p.k_st;
+  const T* src = j < p.H ? static_cast<const T*>(p.q_pe) + t * p.q_st + j * p.q_sh
+                        : static_cast<const T*>(p.k_pe) + t * p.k_st;
   if (active) zt_rope::load8(src + 8 * lane, x);
   zt_rope::rope8(x, cs, sn, lane, R, p.neox);
   if (j < p.H) {  // a query head's rope row
     if (active)
-      *reinterpret_cast<uint4*>(p.q_out + ((long long)t * p.H + j) * R + 8 * lane) =
-          zt_rope::pack8(x);
+      *reinterpret_cast<uint4*>(static_cast<T*>(p.q_out) + ((long long)t * p.H + j) * R +
+                                8 * lane) = zt_rope::pack8<T>(x);
     return;
   }
   const int slot = p.slots[t];  // the token's latent row
   if (slot < 0 || slot >= p.N) return;
-  __nv_bfloat16* dst = p.pool + (long long)slot * (p.L + R);
-  if (active) *reinterpret_cast<uint4*>(dst + p.L + 8 * lane) = zt_rope::pack8(x);
-  const uint4* c = reinterpret_cast<const uint4*>(p.c_kv + t * p.c_st);
+  T* dst = static_cast<T*>(p.pool) + (long long)slot * (p.L + R);
+  if (active) *reinterpret_cast<uint4*>(dst + p.L + 8 * lane) = zt_rope::pack8<T>(x);
+  const uint4* c = reinterpret_cast<const uint4*>(static_cast<const T*>(p.c_kv) + t * p.c_st);
   uint4* d = reinterpret_cast<uint4*>(dst);
   for (int i = lane; i < p.L / 8; i += 32) d[i] = c[i];
 }
@@ -121,7 +124,7 @@ extern "C" int zt_write_rows_2d(void* pool, const void* rows, const void* slots,
   return launch_copy<uint8_t>(pool, rows, slots, T, N, row_bytes, st);
 }
 
-// The prologue, bf16 throughout. q_pe [T, H, R] (strides q_st, q_sh), c_kv
+// The prologue, bf16 throughout (fp16 with fp16 != 0). q_pe [T, H, R] (strides q_st, q_sh), c_kv
 // [T, L] (row stride c_st), k_pe [T, R] (row stride k_st), unit last
 // strides, every row 16-byte aligned; q_out [T, H, R] contiguous; cos_f,
 // sin_f fp32 [T, R] contiguous; pool [N, L + R]. L % 8 == 0, R % 16 == 0,
@@ -130,16 +133,16 @@ extern "C" int zt_rope_write_rows_2d(
     void* pool, void* q_out, const void* q_pe, const void* c_kv, const void* k_pe,
     const void* cos_f, const void* sin_f, const void* slots, int T, int H, int L, int R,
     long long N, long long q_st, long long q_sh, long long c_st, long long k_st, int neox,
-    void* stream) {
+    int fp16, void* stream) {
   if (R % 16 != 0 || R > 256 || R <= 0 || L % 8 != 0) return (int)cudaErrorInvalidValue;
   const long long warps = (long long)T * (H + 1);
   if (warps == 0) return 0;
   RopeParams p{};
-  p.pool = static_cast<__nv_bfloat16*>(pool);
-  p.q_out = static_cast<__nv_bfloat16*>(q_out);
-  p.q_pe = static_cast<const __nv_bfloat16*>(q_pe);
-  p.c_kv = static_cast<const __nv_bfloat16*>(c_kv);
-  p.k_pe = static_cast<const __nv_bfloat16*>(k_pe);
+  p.pool = pool;
+  p.q_out = q_out;
+  p.q_pe = q_pe;
+  p.c_kv = c_kv;
+  p.k_pe = k_pe;
   p.cos_f = static_cast<const float*>(cos_f);
   p.sin_f = static_cast<const float*>(sin_f);
   p.slots = static_cast<const int32_t*>(slots);
@@ -153,6 +156,8 @@ extern "C" int zt_rope_write_rows_2d(
   p.L = L;
   p.R = R;
   p.neox = neox;
-  rows_2d_rope_kernel<<<(unsigned)((warps + 7) / 8), 256, 0, (cudaStream_t)stream>>>(p);
+  const unsigned blocks = (unsigned)((warps + 7) / 8);
+  if (fp16) rows_2d_rope_kernel<__half><<<blocks, 256, 0, (cudaStream_t)stream>>>(p);
+  else rows_2d_rope_kernel<__nv_bfloat16><<<blocks, 256, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

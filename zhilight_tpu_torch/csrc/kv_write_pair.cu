@@ -14,8 +14,9 @@
 // Computes, for tokens t < T, query heads h < Hq and KV heads g < Hkv, over
 // the slot-major pools [N, Hkv, D] (one token's row of every head contiguous):
 //   rope mode:  q_out[t, h] = rope(q[t, h]); k_pool[slot[t], g] = rope(k[t, g]);
-//               v_pool[slot[t], g] = v[t, g]; over int8 pools the bf16 rope(k)
-//               row and the v row are quantized per (token, head), codes into
+//               v_pool[slot[t], g] = v[t, g] (q, k, v bf16 or fp16); over
+//               int8 pools the rope(k) row rounded to their type and the v
+//               row are quantized per (token, head), codes into
 //               the pools and scales into the head-major [Hkv, N + 1] arrays,
 //               a skipped row's into the spare column N;
 //   copy mode:  k_pool[slot[t]] = k_rows[t], v_pool[slot[t]] = v_rows[t] on
@@ -45,6 +46,7 @@
 // row's bytes and all four addresses.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,10 +63,10 @@ struct Params {
   void* v_pool;
   float* k_scale;           // [Hkv, N + 1] (int8 rope mode)
   float* v_scale;
-  const void* q;            // [T, Hq, D] bf16, strides q_st, q_sh (elements)
+  const void* q;            // [T, Hq, D] bf16 or fp16, strides q_st, q_sh (elements)
   const void* k;            // [T, Hkv, D], strides k_st, k_sh (copy mode: [T, vec])
   const void* v;
-  __nv_bfloat16* q_out;     // [T, Hq, D] contiguous
+  void* q_out;              // [T, Hq, D] contiguous
   const float* cos_f;       // [T, D] fp32
   const float* sin_f;
   const int32_t* slots;     // [T]
@@ -80,8 +82,9 @@ __device__ __forceinline__ void pair_at(int p, int D, bool neox, int& a, int& b)
   b = neox ? p + D / 2 : 2 * p + 1;
 }
 
-// Loads the lane's pairs of a bf16 row as fp32 (0 past the row).
-__device__ __forceinline__ void load_pairs(const __nv_bfloat16* row, int lane, int D, bool neox,
+// Loads the lane's pairs of a bf16 or fp16 row as fp32 (0 past the row).
+template <class T>
+__device__ __forceinline__ void load_pairs(const T* row, int lane, int D, bool neox,
                                            float (&x0)[kMaxPairs], float (&x1)[kMaxPairs]) {
 #pragma unroll
   for (int i = 0; i < kMaxPairs; ++i) {
@@ -90,8 +93,8 @@ __device__ __forceinline__ void load_pairs(const __nv_bfloat16* row, int lane, i
     if (p < D / 2) {
       int a, b;
       pair_at(p, D, neox, a, b);
-      x0[i] = __bfloat162float(row[a]);
-      x1[i] = __bfloat162float(row[b]);
+      x0[i] = zt_mma::Elem<T>::to_f(row[a]);
+      x1[i] = zt_mma::Elem<T>::to_f(row[b]);
     }
   }
 }
@@ -142,6 +145,8 @@ __device__ __forceinline__ float row_scale(const float (&x0)[kMaxPairs],
   return fmaxf(__fmul_rn(zt_rope::warp_max(m), kInv127), 1e-8f);
 }
 
+// V: the copy mode's vector type; the rope modes' element type of q, k, v,
+// q_out and a model-dtype pool (bf16 or fp16)
 template <int MODE, typename V>
 __global__ void __launch_bounds__(256) pair_rows_kernel(const Params p) {
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -167,33 +172,31 @@ __global__ void __launch_bounds__(256) pair_rows_kernel(const Params p) {
     const bool neox = p.neox;
     const float* cs = p.cos_f + (long long)t * D;
     const float* sn = p.sin_f + (long long)t * D;
+    using E = zt_mma::Elem<V>;
+    const auto cast = [](float f) { return E::from_f(f); };
     float x0[kMaxPairs], x1[kMaxPairs];
     if (j < p.Hq) {  // a query row: rotated into q_out
-      load_pairs(static_cast<const __nv_bfloat16*>(p.q) + t * p.q_st + j * p.q_sh, lane, D, neox,
-                 x0, x1);
+      load_pairs(static_cast<const V*>(p.q) + t * p.q_st + j * p.q_sh, lane, D, neox, x0, x1);
       rope_pairs(cs, sn, lane, D, neox, x0, x1);
-      store_pairs(p.q_out + ((long long)t * p.Hq + j) * D, lane, D, neox, x0, x1,
-                  [](float f) { return __float2bfloat16_rn(f); });
+      store_pairs(static_cast<V*>(p.q_out) + ((long long)t * p.Hq + j) * D, lane, D, neox, x0,
+                  x1, cast);
       return;
     }
     const int g = j - p.Hq;  // a KV row
     float y0[kMaxPairs], y1[kMaxPairs];
-    load_pairs(static_cast<const __nv_bfloat16*>(p.k) + t * p.k_st + g * p.k_sh, lane, D, neox,
-               x0, x1);
-    load_pairs(static_cast<const __nv_bfloat16*>(p.v) + t * p.v_st + g * p.v_sh, lane, D, neox,
-               y0, y1);
+    load_pairs(static_cast<const V*>(p.k) + t * p.k_st + g * p.k_sh, lane, D, neox, x0, x1);
+    load_pairs(static_cast<const V*>(p.v) + t * p.v_st + g * p.v_sh, lane, D, neox, y0, y1);
     rope_pairs(cs, sn, lane, D, neox, x0, x1);
     const long long base = ((long long)slot * p.Hkv + g) * D;  // element of the pool row
     if constexpr (MODE == kRope) {
       if (!keep) return;
-      const auto bf16 = [](float f) { return __float2bfloat16_rn(f); };
-      store_pairs(static_cast<__nv_bfloat16*>(p.k_pool) + base, lane, D, neox, x0, x1, bf16);
-      store_pairs(static_cast<__nv_bfloat16*>(p.v_pool) + base, lane, D, neox, y0, y1, bf16);
+      store_pairs(static_cast<V*>(p.k_pool) + base, lane, D, neox, x0, x1, cast);
+      store_pairs(static_cast<V*>(p.v_pool) + base, lane, D, neox, y0, y1, cast);
     } else {
 #pragma unroll
-      for (int i = 0; i < kMaxPairs; ++i) {  // the cache quantizes the bf16 rotated row
-        x0[i] = __bfloat162float(__float2bfloat16_rn(x0[i]));
-        x1[i] = __bfloat162float(__float2bfloat16_rn(x1[i]));
+      for (int i = 0; i < kMaxPairs; ++i) {  // the cache quantizes the rotated row as V holds it
+        x0[i] = E::to_f(E::from_f(x0[i]));
+        x1[i] = E::to_f(E::from_f(x1[i]));
       }
       const float sk = row_scale(x0, x1), sv = row_scale(y0, y1);
       if (lane == 0) {
@@ -254,16 +257,18 @@ extern "C" int zt_write_rows_pair(void* k_pool, void* v_pool, const void* k_rows
   }
 }
 
-// The prologue. q, k, v: bf16 with unit last stride, strides in elements
-// (row, head). q_out: bf16 [T, Hq, D] contiguous. cos_f, sin_f: fp32 [T, D]
-// contiguous. k_pool, v_pool: bf16 [N, Hkv, D], or int8 with k_scale, v_scale
+// The prologue. q, k, v: bf16 (fp16 with fp16 != 0) with unit last stride,
+// strides in elements (row, head). q_out [T, Hq, D] of their type,
+// contiguous. cos_f, sin_f: fp32 [T, D] contiguous. k_pool, v_pool [N, Hkv,
+// D] of their type, or int8 with k_scale, v_scale
 // fp32 [Hkv, N + 1] (int8 != 0). D even, 2 <= D <= 256. Returns the CUDA
 // error code of the launch (0 = success).
 extern "C" int zt_rope_write_rows_pair(
     void* k_pool, void* v_pool, void* k_scale, void* v_scale, const void* q, const void* k,
     const void* v, void* q_out, const void* cos_f, const void* sin_f, const void* slots, int T,
     int Hq, int Hkv, int D, long long N, long long q_st, long long q_sh, long long k_st,
-    long long k_sh, long long v_st, long long v_sh, int neox, int int8, void* stream) {
+    long long k_sh, long long v_st, long long v_sh, int neox, int int8, int fp16,
+    void* stream) {
   if (D % 2 != 0 || D > 2 * 32 * kMaxPairs || D <= 0) return (int)cudaErrorInvalidValue;
   Params p{};
   p.k_pool = k_pool;
@@ -273,7 +278,7 @@ extern "C" int zt_rope_write_rows_pair(
   p.q = q;
   p.k = k;
   p.v = v;
-  p.q_out = static_cast<__nv_bfloat16*>(q_out);
+  p.q_out = q_out;
   p.cos_f = static_cast<const float*>(cos_f);
   p.sin_f = static_cast<const float*>(sin_f);
   p.slots = static_cast<const int32_t*>(slots);
@@ -290,5 +295,6 @@ extern "C" int zt_rope_write_rows_pair(
   p.D = D;
   p.neox = neox;
   cudaStream_t st = (cudaStream_t)stream;
-  return int8 ? launch<kRopeInt8>(p, st) : launch<kRope>(p, st);
+  if (fp16) return int8 ? launch<kRopeInt8, __half>(p, st) : launch<kRope, __half>(p, st);
+  return int8 ? launch<kRopeInt8, __nv_bfloat16>(p, st) : launch<kRope, __nv_bfloat16>(p, st);
 }

@@ -101,6 +101,7 @@
 // modes' third product. wgmma on the staged tiles is the next step.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,43 +175,33 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
-// two floats as (hi, lo) bf16 pairs, hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
-// The fused mode's extra inputs (null pointers otherwise).
+// The fused mode's extra inputs (null pointers otherwise), of the pool's type.
 struct LatentRows {
-  const bf16* latent_new;  // [B, stored] this step's rows, in the pool's dtype
+  const void* latent_new;  // [B, stored] this step's rows, in the pool's dtype
   const int32_t* slots;    // [B] pool row of each; < 0 => not written
-  bf16* pool;              // [N, stored], written at slots[b] only
+  void* pool;              // [N, stored], written at slots[b] only
 };
 
-// out: bf16 [B, H, VD]; with EMIT fp32 [B, H, VD] (the unnormalized
+// T: the type of q, the pool and out, bf16 or fp16 (the comments say bf16).
+// out: T [B, H, VD]; with EMIT fp32 [B, H, VD] (the unnormalized
 // accumulator) and m_out, l_out [B, H]
-template <bool EMIT, bool FUSED>
+template <bool EMIT, bool FUSED, class T>
 __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
     void* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
-    const bf16* __restrict__ q,               // [B, H, KD]
-    const bf16* pool,                         // [N, stored]
+    const T* __restrict__ q,                  // [B, H, KD]
+    const T* pool,                            // [N, stored]
     const int32_t* __restrict__ page_tables,  // [B, maxp]
     const int32_t* __restrict__ context_lens, // [B]
     LatentRows fz, int H, long long N, int stored, int maxp, int S, float scale) {
   static_assert(!(EMIT && FUSED), "the fused mode returns the output");
   constexpr bool SPLIT_P = EMIT || FUSED;  // p unrounded: hi and lo halves
+  using E = Elem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[STAGES];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* sPh = reinterpret_cast<bf16*>(smem + P_OFF);
-  bf16* sPl = sPh + HR * LDP;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* sPh = reinterpret_cast<T*>(smem + P_OFF);
+  T* sPl = sPh + HR * LDP;
+  const T* latent_new = static_cast<const T*>(fz.latent_new);
   float* red_m = reinterpret_cast<float*>(smem + RED_OFF);  // [NWARPS][HR]
   float* red_l = red_m + NWARPS * HR;
   float* sNew = reinterpret_cast<float*>(smem + NEW_OFF);  // [HR]
@@ -242,7 +233,7 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
   if constexpr (FUSED) {
 #pragma unroll
     for (int i = 0; i < NW; ++i)
-      nv[i] = *reinterpret_cast<const uint32_t*>(fz.latent_new + (long long)b * stored +
+      nv[i] = *reinterpret_cast<const uint32_t*>(latent_new + (long long)b * stored +
                                                  2 * lane + 64 * i);
   }
 
@@ -264,8 +255,8 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
   if constexpr (FUSED) {
     const long long slot = fz.slots[b];
     if (split == 0 && ht == 0 && slot >= 0 && slot < N && ctx >= 1) {
-      const uint4* src = reinterpret_cast<const uint4*>(fz.latent_new + (long long)b * stored);
-      uint4* dst = reinterpret_cast<uint4*>(fz.pool + slot * stored);
+      const uint4* src = reinterpret_cast<const uint4*>(latent_new + (long long)b * stored);
+      uint4* dst = reinterpret_cast<uint4*>(static_cast<T*>(fz.pool) + slot * stored);
       for (int c = tid; c < stored / 8; c += NT) dst[c] = src[c];
     }
   }
@@ -289,7 +280,7 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
   auto issue = [&](int j, int page) {
     if (j >= n) return;
     uint64_t* bar = &full[j % STAGES];
-    bf16* dst = ring + (j % STAGES) * (TN * LDK) + tid * LDK;
+    T* dst = ring + (j % STAGES) * (TN * LDK) + tid * LDK;
     const int t = lo + j * TN + tid;
     if (t < hi) {
       const int pidx = s_shift >= 0 ? t >> s_shift : t / S;
@@ -318,7 +309,7 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
   // ldmatrix
   uint32_t qf[KSTEPS][4];
   {
-    bf16* sQ = ring + (STAGES - 1) * (TN * LDK);
+    T* sQ = ring + (STAGES - 1) * (TN * LDK);
 #pragma unroll
     for (int j = 0; j < QCH; ++j) {
       const int c = tid + j * NT;
@@ -339,9 +330,9 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
         float x = 0.f;
 #pragma unroll
         for (int i = 0; i < NW; ++i) {
-          const float2 a = bf16x2_to_float2(
-              *reinterpret_cast<const uint32_t*>(sQ + r * LDK + 2 * lane + 64 * i));
-          const float2 c = bf16x2_to_float2(nv[i]);
+          const float2 a =
+              E::unpack(*reinterpret_cast<const uint32_t*>(sQ + r * LDK + 2 * lane + 64 * i));
+          const float2 c = E::unpack(nv[i]);
           x += a.x * c.x + a.y * c.y;
         }
 #pragma unroll
@@ -358,21 +349,21 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
 
   for (int it = 0; it < n; ++it) {
     mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
-    const bf16* st = ring + (it % STAGES) * (TN * LDK);
+    const T* st = ring + (it % STAGES) * (TN * LDK);
     const int t0 = lo + it * TN;
 
     // S = Q K^T over the warp's 8 keys (rows 8w .. 8w + 7 of the tile)
     float s[4];
     {
       float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* kw = st + (warp * 8 + lane % 8) * LDK + 8 * ((lane / 8) % 2);
+      const T* kw = st + (warp * 8 + lane % 8) * LDK + 8 * ((lane / 8) % 2);
 #pragma unroll
       for (int k = 0; k < KSTEPS; k += 2) {
         uint32_t b0[2], b1[2];
         ldsm_x2(b0, kw + 16 * k);
         ldsm_x2(b1, kw + 16 * (k + 1));
-        mma_bf16(sa, qf[k], b0[0], b0[1]);
-        mma_bf16(sb, qf[k + 1], b1[0], b1[1]);
+        E::mma(sa, qf[k], b0[0], b0[1]);
+        E::mma(sb, qf[k + 1], b1[0], b1[1]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[e] = sa[e] + sb[e];
@@ -424,15 +415,15 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
       const int c = warp * 8 + 2 * i4;
       if constexpr (SPLIT_P) {
         uint32_t h0v, l0v, h1v, l1v;
-        split_bf16(p[0], p[1], h0v, l0v);
-        split_bf16(p[2], p[3], h1v, l1v);
+        split_pair<T>(p[0], p[1], h0v, l0v);
+        split_pair<T>(p[2], p[3], h1v, l1v);
         *reinterpret_cast<uint32_t*>(sPh + g * LDP + c) = h0v;
         *reinterpret_cast<uint32_t*>(sPh + (g + 8) * LDP + c) = h1v;
         *reinterpret_cast<uint32_t*>(sPl + g * LDP + c) = l0v;
         *reinterpret_cast<uint32_t*>(sPl + (g + 8) * LDP + c) = l1v;
       } else {
-        *reinterpret_cast<uint32_t*>(sPh + g * LDP + c) = pack_bf16(p[0], p[1]);
-        *reinterpret_cast<uint32_t*>(sPh + (g + 8) * LDP + c) = pack_bf16(p[2], p[3]);
+        *reinterpret_cast<uint32_t*>(sPh + g * LDP + c) = E::pack(p[0], p[1]);
+        *reinterpret_cast<uint32_t*>(sPh + (g + 8) * LDP + c) = E::pack(p[2], p[3]);
       }
     }
 #pragma unroll
@@ -454,11 +445,11 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
       for (int np = 0; np < VCOLS / 16; ++np) {
         uint32_t bv[4];
         ldsm_x4_trans(bv, st + bt_offset(lane, LDK, 16 * kk, warp * VCOLS + 16 * np));
-        mma_bf16(o[2 * np], ah, bv[0], bv[1]);
-        mma_bf16(o[2 * np + 1], ah, bv[2], bv[3]);
+        E::mma(o[2 * np], ah, bv[0], bv[1]);
+        E::mma(o[2 * np + 1], ah, bv[2], bv[3]);
         if constexpr (SPLIT_P) {
-          mma_bf16(o[2 * np], al, bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], al, bv[2], bv[3]);
+          E::mma(o[2 * np], al, bv[0], bv[1]);
+          E::mma(o[2 * np + 1], al, bv[2], bv[3]);
         }
       }
     }
@@ -497,15 +488,15 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
         const float sn = sNew[r];
         const float M2 = fmaxf(M, sn);
         const float fa = __expf(M - M2), fb = __expf(sn - M2);
-        const float2 v = bf16x2_to_float2(
-            *reinterpret_cast<const uint32_t*>(fz.latent_new + (long long)b * stored + d));
+        const float2 v =
+            E::unpack(*reinterpret_cast<const uint32_t*>(latent_new + (long long)b * stored + d));
         Lr = Lr * fa + fb;
         a0 = a0 * fa + v.x * fb;
         a1 = a1 * fa + v.y * fb;
       }
       const float inv = 1.f / fmaxf(Lr, 1e-20f);
-      *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + row * VD + d) =
-          pack_bf16(a0 * inv, a1 * inv);
+      *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + row * VD + d) =
+          E::pack(a0 * inv, a1 * inv);
     }
   };
 
@@ -586,17 +577,17 @@ __global__ void __launch_bounds__(NT, 1) mla_decode_kernel(
 
 // Sets the dynamic shared-memory attribute of an instantiation, and its
 // leave to launch clusters of 16 (above the portable 8), once per device.
-template <bool EMIT, bool FUSED>
+template <bool EMIT, bool FUSED, class T>
 int configure() {
   int dev = 0;
   if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
   static bool done[64] = {};
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!done[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(mla_decode_kernel<EMIT, FUSED>,
+    cudaError_t e = cudaFuncSetAttribute(mla_decode_kernel<EMIT, FUSED, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(mla_decode_kernel<EMIT, FUSED>,
+      e = cudaFuncSetAttribute(mla_decode_kernel<EMIT, FUSED, T>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return (int)e;
     done[dev] = true;
@@ -620,16 +611,16 @@ inline cudaLaunchConfig_t config(dim3 grid, int cl, cudaStream_t stream, cudaLau
   return cfg;
 }
 
-template <bool EMIT, bool FUSED>
+template <bool EMIT, bool FUSED, class T>
 int launch(void* out, float* m_out, float* l_out, const void* q, const void* pool,
            const void* page_tables, const void* context_lens, const LatentRows& fz, int B, int H,
            long long N, int stored, int maxp, int S, float scale, int splits,
            cudaStream_t stream) {
-  if (int e = configure<EMIT, FUSED>()) return e;
+  if (int e = configure<EMIT, FUSED, T>()) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(dim3(splits, (H + HR - 1) / HR, B), splits, stream, &attr);
-  return (int)cudaLaunchKernelEx(&cfg, mla_decode_kernel<EMIT, FUSED>, out, m_out, l_out,
-                                 (const bf16*)q, (const bf16*)pool,
+  return (int)cudaLaunchKernelEx(&cfg, mla_decode_kernel<EMIT, FUSED, T>, out, m_out, l_out,
+                                 (const T*)q, (const T*)pool,
                                  (const int32_t*)page_tables, (const int32_t*)context_lens, fz,
                                  H, N, stored, maxp, S, scale);
 }
@@ -646,6 +637,7 @@ int check(int KD_, int VD_, int stored, int S, int splits, const void* pool) {
 }  // namespace
 
 // Supported (the wrapper checks): bf16 q [B, H, 576] and pool [N, stored]
+// (both fp16, and out too, with fp16 != 0)
 // (16-byte aligned) with stored >= 576 and a multiple of 8, any page size S,
 // any H; splits 1, 2, 4, 8 or 16 (launched as one cluster of that many
 // blocks a sequence and head tile: at most zt_mla_decode_max_clusters of
@@ -655,42 +647,44 @@ int check(int KD_, int VD_, int stored, int S, int splits, const void* pool) {
 extern "C" int zt_mla_decode(void* out, float* m_out, float* l_out, const void* q,
                              const void* pool, const void* page_tables, const void* context_lens,
                              int B, int H, int KD_, int VD_, long long N, int stored, int maxp,
-                             int S, float scale, int splits, void* stream) {
+                             int S, float scale, int splits, int fp16, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (int e = check(KD_, VD_, stored, S, splits, pool)) return e;
   if ((m_out == nullptr) != (l_out == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (m_out != nullptr)
-    return launch<true, false>(out, m_out, l_out, q, pool, page_tables, context_lens,
-                               LatentRows{}, B, H, N, stored, maxp, S, scale, splits, st);
-  return launch<false, false>(out, nullptr, nullptr, q, pool, page_tables, context_lens,
-                              LatentRows{}, B, H, N, stored, maxp, S, scale, splits, st);
+    return (fp16 ? launch<true, false, __half> : launch<true, false, bf16>)(
+        out, m_out, l_out, q, pool, page_tables, context_lens, LatentRows{}, B, H, N, stored,
+        maxp, S, scale, splits, st);
+  return (fp16 ? launch<false, false, __half> : launch<false, false, bf16>)(
+      out, nullptr, nullptr, q, pool, page_tables, context_lens, LatentRows{}, B, H, N, stored,
+      maxp, S, scale, splits, st);
 }
 
 // The fused mode (header): as zt_mla_decode without the partial outputs, plus
-// bf16 latent_new [B, stored] (16-byte aligned) and int32 slot_mapping [B];
+// latent_new [B, stored] of the pool's type (16-byte aligned) and int32 slot_mapping [B];
 // pool is written at slot_mapping[b] (>= 0) with row b of latent_new.
 extern "C" int zt_mla_decode_fused(void* out, const void* q, void* pool, const void* latent_new,
                                    const void* slot_mapping, const void* page_tables,
                                    const void* context_lens, int B, int H, int KD_, int VD_,
                                    long long N, int stored, int maxp, int S, float scale,
-                                   int splits, void* stream) {
+                                   int splits, int fp16, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (int e = check(KD_, VD_, stored, S, splits, pool)) return e;
   if ((uintptr_t)latent_new % 16) return (int)cudaErrorInvalidValue;
-  const LatentRows fz{(const bf16*)latent_new, (const int32_t*)slot_mapping, (bf16*)pool};
-  return launch<false, true>(out, nullptr, nullptr, q, pool, page_tables, context_lens, fz, B, H,
-                             N, stored, maxp, S, scale, splits, (cudaStream_t)stream);
+  const LatentRows fz{latent_new, (const int32_t*)slot_mapping, pool};
+  return (fp16 ? launch<false, true, __half> : launch<false, true, bf16>)(
+      out, nullptr, nullptr, q, pool, page_tables, context_lens, fz, B, H, N, stored, maxp, S,
+      scale, splits, (cudaStream_t)stream);
 }
 
 // How many blocks of the latent decode kernel one SM holds at once (the three
-// modes share one shared-memory size); D is the output's width (512).
+// modes and both types share one shared-memory size); D is the output's width (512).
 extern "C" int zt_mla_decode_blocks_per_sm(int D, int* blocks) {
   if (D != VD) return (int)cudaErrorInvalidValue;
-  if (int e = configure<false, false>()) return e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks,
-                                                            mla_decode_kernel<false, false>, NT,
-                                                            SMEM);
+  if (int e = configure<false, false, bf16>()) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, mla_decode_kernel<false, false, bf16>, NT, SMEM);
 }
 
 // How many clusters of cl blocks (1, 2, 4, 8 or 16) the card holds at once:
@@ -698,8 +692,8 @@ extern "C" int zt_mla_decode_blocks_per_sm(int D, int* blocks) {
 // GPC with fewer free SMs than cl holds no cluster of cl.
 extern "C" int zt_mla_decode_max_clusters(int cl, int* clusters) {
   if (cl < 1 || cl > MAX_SPLITS || (cl & (cl - 1))) return (int)cudaErrorInvalidValue;
-  if (int e = configure<false, false>()) return e;
+  if (int e = configure<false, false, bf16>()) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(dim3(cl), cl, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(clusters, mla_decode_kernel<false, false>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, mla_decode_kernel<false, false, bf16>, &cfg);
 }

@@ -1,4 +1,4 @@
-// Paged decode attention over separate slot-major bf16 K and V pools.
+// Paged decode attention over separate slot-major bf16 (or fp16) K and V pools.
 //
 // Replaces: zhilight_tpu/ops/pallas/paged_attention.py paged_decode_attention
 // (:364), kernels _kernel (:48) and _kernel_bs (:179, through
@@ -10,7 +10,8 @@
 
 #include "paged_decode.cuh"
 
-// Supported: bf16 q [B, Hkv * G, D] and pools [N, Hkv, D] with 1 <= D <= 256,
+// Supported: bf16 q [B, Hkv * G, D] and pools [N, Hkv, D] (fp16 with fp16 !=
+// 0) with 1 <= D <= 256,
 // any G, any page size S; 1 <= splits <= 64. With splits > 1: part_acc fp32
 // [B, Hkv * ceil(G / 16), splits, 16, D], part_ml fp32 [..., splits, 2, 16]
 // and tickets int32 [B, Hkv * ceil(G / 16)], zero before the launch and left
@@ -21,8 +22,9 @@ extern "C" int zt_paged_decode_attention(void* out, void* part_acc, void* part_m
                                          const void* page_tables, const void* context_lens,
                                          int B, int Hkv, int G, int D, long long N, int maxp,
                                          int S, float scale, int window, int splits,
-                                         void* stream) {
-  return zt_paged::dispatch<zt_paged::bf16, false>(
+                                         int fp16, void* stream) {
+  return (fp16 ? zt_paged::dispatch<__half, __half, false>
+               : zt_paged::dispatch<zt_paged::bf16, zt_paged::bf16, false>)(
       out, part_acc, part_ml, tickets, q, k_pool, v_pool, nullptr, nullptr, page_tables,
       context_lens, zt_paged::FusedRows{}, B, Hkv, G, D, D, N, 0, maxp, S, scale, window, splits,
       (cudaStream_t)stream);

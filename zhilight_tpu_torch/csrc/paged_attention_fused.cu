@@ -1,5 +1,5 @@
-// Fused decode: write this step's K and V rows into the slot-major bf16 pool
-// and attend over the whole context, in one launch per layer.
+// Fused decode: write this step's K and V rows into the slot-major bf16 (or
+// fp16) pool and attend over the whole context, in one launch per layer.
 //
 // Replaces: zhilight_tpu/ops/pallas/paged_attention.py
 // paged_decode_attention_fused (:644), kernel _kernel_bs_fused (:445), in its
@@ -30,7 +30,8 @@
 
 #include "paged_decode.cuh"
 
-// Supported: bf16 q [B, Hkv * G, D]; bf16 pools whose (slot, KV head) rows are
+// Supported: bf16 q [B, Hkv * G, D] (all of q, the pools and the new rows
+// fp16 with fp16 != 0); bf16 pools whose (slot, KV head) rows are
 // rs elements apart (rs = D: separate K and V pools; rs = 2 * D: the packed
 // pool, v_pool = k_pool + D), 1 <= D <= 256, any G; bf16 k_new, v_new
 // [B, Hkv, D]; int32 slot_mapping [B] (< 0: no write). Splits, partials and
@@ -39,11 +40,12 @@ extern "C" int zt_paged_decode_attention_fused(
     void* out, void* part_acc, void* part_ml, void* tickets, const void* q, void* k_pool,
     void* v_pool, const void* k_new, const void* v_new, const void* slot_mapping,
     const void* page_tables, const void* context_lens, int B, int Hkv, int G, int D, long long rs,
-    long long N, int maxp, int S, float scale, int window, int splits, void* stream) {
+    long long N, int maxp, int S, float scale, int window, int splits, int fp16,
+    void* stream) {
   using zt_paged::bf16;
-  const zt_paged::FusedRows fz{(const bf16*)k_new, (const bf16*)v_new,
-                               (const int32_t*)slot_mapping, (bf16*)k_pool, (bf16*)v_pool};
-  return zt_paged::dispatch<bf16, true>(
+  const zt_paged::FusedRows fz{k_new, v_new, (const int32_t*)slot_mapping, k_pool, v_pool};
+  return (fp16 ? zt_paged::dispatch<__half, __half, true>
+               : zt_paged::dispatch<bf16, bf16, true>)(
       out, part_acc, part_ml, tickets, q, k_pool, v_pool, nullptr, nullptr, page_tables,
       context_lens, fz, B, Hkv, G, D, rs, N, 0, maxp, S, scale, window, splits,
       (cudaStream_t)stream);

@@ -14,9 +14,9 @@
 
 #include "paged_decode.cuh"
 
-// Supported: bf16 q [B, Hkv * G, D], int8 pools [N, Hkv, D] with 1 <= D <=
-// 256, any G, any page size; fp32 scales [Hkv, scale_stride >= N], one row
-// stride for both. Splits, partials and tickets as in paged_attention.cu.
+// Supported: bf16 q [B, Hkv * G, D] (fp16 with fp16 != 0), int8 pools
+// [N, Hkv, D] with 1 <= D <= 256, any G, any page size; fp32 scales
+// [Hkv, scale_stride >= N], one row stride for both. Splits, partials and tickets as in paged_attention.cu.
 // Returns the CUDA error code of the launch.
 extern "C" int zt_paged_decode_attention_q(void* out, void* part_acc, void* part_ml,
                                            void* tickets, const void* q, const void* k_pool,
@@ -25,8 +25,9 @@ extern "C" int zt_paged_decode_attention_q(void* out, void* part_acc, void* part
                                            const void* context_lens, int B, int Hkv, int G,
                                            int D, long long N, long long scale_stride, int maxp,
                                            int S, float scale, int window, int splits,
-                                           void* stream) {
-  return zt_paged::dispatch<int8_t, false>(
+                                           int fp16, void* stream) {
+  return (fp16 ? zt_paged::dispatch<int8_t, __half, false>
+               : zt_paged::dispatch<int8_t, zt_paged::bf16, false>)(
       out, part_acc, part_ml, tickets, q, k_pool, v_pool, k_scales, v_scales, page_tables,
       context_lens, zt_paged::FusedRows{}, B, Hkv, G, D, D, N, scale_stride, maxp, S, scale,
       window, splits, (cudaStream_t)stream);

@@ -1,7 +1,9 @@
 // Paged decode attention over slot-major K and V pools, shared by
-// paged_attention.cu (bf16 pools), paged_attention_q.cu (int8 pools with fp32
-// scales) and paged_attention_fused.cu (bf16 pools, this step's rows written
-// and attended in the same launch).
+// paged_attention.cu (bf16 or fp16 pools), paged_attention_q.cu (int8 pools
+// with fp32 scales) and paged_attention_fused.cu (bf16 or fp16 pools, this
+// step's rows written and attended in the same launch). q and the output are
+// bf16 or fp16 (Q below; a model-dtype pool is of the same type), and Q is the
+// tensor cores' operand type: "bf16" in the notes below reads Q.
 //
 // Replaces: zhilight_tpu/ops/pallas/paged_attention.py
 // paged_decode_attention (:364; kernels _kernel :48 and _kernel_bs :179),
@@ -117,6 +119,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,35 +143,14 @@ using zt_decode::TN;
 
 constexpr int DMAX = 256;
 
-// The fused mode's extra inputs (null pointers otherwise).
+// The fused mode's extra inputs (null pointers otherwise), of the pool's type.
 struct FusedRows {
-  const bf16* k_new;      // [B, Hkv, D] this step's rows, in the pool's dtype
-  const bf16* v_new;      // [B, Hkv, D]
+  const void* k_new;      // [B, Hkv, D] this step's rows, in the pool's dtype
+  const void* v_new;      // [B, Hkv, D]
   const int32_t* slots;   // [B] pool slot of each row; < 0 => not written
-  bf16* k_dst;            // the pools again, written at slots[b] only
-  bf16* v_dst;
+  void* k_dst;            // the pools again, written at slots[b] only
+  void* v_dst;
 };
-
-// sum of x over the block's 128 threads, returned to every thread
-__device__ __forceinline__ float block_sum(float x) {
-  __shared__ float red[NWARPS];
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  __syncthreads();  // a previous call's readers are done with red
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = x;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < NWARPS; ++w) s += red[w];
-  return s;
-}
-
-// scale * a . b over n bf16 elements, for the block's 128 threads (the latent
-// mode's fold in mla_decode.cu)
-__device__ __forceinline__ float block_dot(const bf16* a, const bf16* b, int n, float scale) {
-  float x = 0.f;
-  for (int d = threadIdx.x; d < n; d += NT) x += __bfloat162float(a[d]) * __bfloat162float(b[d]);
-  return block_sum(x) * scale;
-}
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -245,6 +227,8 @@ __device__ __forceinline__ T zero();
 template <>
 __device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
 template <>
+__device__ __forceinline__ __half zero<__half>() { return __float2half(0.f); }
+template <>
 __device__ __forceinline__ int8_t zero<int8_t>() { return 0; }
 
 // Rows of one tile from one pool: row r of the tile is the hkv row of slot
@@ -279,16 +263,6 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* pool, const i
   }
 }
 
-// two floats as (hi, lo) bf16 pairs, hi = bf16(x), lo = bf16(x - hi): hi + lo
-// holds x to 2^-16 of itself
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // The end of a block, every thread. sO [NWARPS][HR][D] holds each warp's
 // unnormalized O in head-dim order, then sM, sL [NWARPS][HR] its running max
 // and sum, then room for the warps' weights [NWARPS][HR] and the rows' (M, L)
@@ -296,12 +270,12 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
 // split's partial and, in the block that draws the last ticket, merges the
 // splits in fixed order. FUSED folds the new token's column (s_new [HR] and
 // the v_new row, in shared memory) in, in the block that writes the output.
-template <bool FUSED>
-__device__ __forceinline__ void finish(float* sO, int D, bf16* out, float* part_acc,
+template <bool FUSED, class Q>
+__device__ __forceinline__ void finish(float* sO, int D, Q* out, float* part_acc,
                                        float* part_ml, int* tickets, int rows, int parts,
                                        int split, long long row0, long long slot,
                                        long long ticket, int tid, int* s_last,
-                                       const float* s_new, const bf16* v_new) {
+                                       const float* s_new, const Q* v_new) {
   float* sM = sO + NWARPS * HR * D;
   float* sL = sM + NWARPS * HR;
   float* sW = sL + NWARPS * HR;        // the warps' weights [NWARPS][HR]
@@ -326,9 +300,9 @@ __device__ __forceinline__ void finish(float* sO, int D, bf16* out, float* part_
       const float M2 = fmaxf(M, s);
       const float fa = __expf(M - M2), fb = __expf(s - M2);
       L = L * fa + fb;
-      A = A * fa + __bfloat162float(v_new[d]) * fb;
+      A = A * fa + Elem<Q>::to_f(v_new[d]) * fb;
     }
-    out[(row0 + r) * D + d] = __float2bfloat16(A / fmaxf(L, 1e-20f));
+    out[(row0 + r) * D + d] = Elem<Q>::from_f(A / fmaxf(L, 1e-20f));
   };
 
   if (parts == 1) {
@@ -385,17 +359,18 @@ __device__ __forceinline__ void finish(float* sO, int D, bf16* out, float* part_
   }
 }
 
-// T: bf16 (model-dtype pools) or int8 (quantized pools, read with scales);
-// DPM: the column bucket (registers for DPM / 8 accumulator tiles); FUSED:
-// write this step's rows and fold their column in (header). vb: the copy
-// width in bytes (0: plain loads).
-template <typename T, int DPM, bool FUSED>
+// T: bf16 or fp16 (model-dtype pools, T == Q) or int8 (quantized pools, read
+// with scales); Q: the type of q and out (bf16 or fp16); DPM: the column
+// bucket (registers for DPM / 8 accumulator tiles); FUSED: write this step's
+// rows and fold their column in (header). vb: the copy width in bytes (0:
+// plain loads).
+template <typename T, typename Q, int DPM, bool FUSED>
 __global__ void __launch_bounds__(NT) paged_decode_kernel(
-    bf16* __restrict__ out,                   // [B, Hq, D]
+    Q* __restrict__ out,                      // [B, Hq, D]
     float* __restrict__ part_acc,             // [B, Hkv * groups, splits, HR, D]
     float* __restrict__ part_ml,              // [B, Hkv * groups, splits, 2, HR]
     int* __restrict__ tickets,                // [B, Hkv * groups], zero between launches
-    const bf16* __restrict__ q,               // [B, Hq, D]
+    const Q* __restrict__ q,                  // [B, Hq, D]
     const T* k_pool,                          // [N, Hkv, rs]: K at the row's start
     const T* v_pool,                          // V at the same stride
     const float* __restrict__ k_scales,       // [Hkv, scale_stride] (int8 pools)
@@ -406,10 +381,11 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
     long long scale_stride, int maxp, int S, float scale, int window, int vb) {
   constexpr bool QUANT = sizeof(T) == 1;
   constexpr int STAGES = stages<QUANT, DPM>();
-  static_assert(!(FUSED && QUANT), "the fused mode takes bf16 pools");
+  static_assert(!(FUSED && QUANT), "the fused mode takes model-dtype pools");
+  using E = Elem<Q>;
   const Layout L(D, QUANT, STAGES);
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q_off);
+  Q* sQ = reinterpret_cast<Q*>(smem + L.q_off);
   int* sSlot = reinterpret_cast<int*>(smem + L.slot_off);  // [STAGES][TN]
   __shared__ int s_last;
 
@@ -443,8 +419,8 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       const long long src = ((long long)b * Hkv + hkv) * D;
       const long long dst = (slot * Hkv + hkv) * rs;
       for (int d = tid; d < D; d += NT) {
-        fz.k_dst[dst + d] = fz.k_new[src + d];
-        fz.v_dst[dst + d] = fz.v_new[src + d];
+        static_cast<T*>(fz.k_dst)[dst + d] = static_cast<const T*>(fz.k_new)[src + d];
+        static_cast<T*>(fz.v_dst)[dst + d] = static_cast<const T*>(fz.v_new)[src + d];
       }
     }
   }
@@ -470,12 +446,12 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   // stored; the pad columns of every stage (never written by a copy); the
   // first tiles' slots
   constexpr int QPT = HR * DPM / NT;  // q elements a thread loads at most
-  const bf16* qg = q + ((long long)b * Hq + h0) * D;
-  bf16 qv[QPT];
+  const Q* qg = q + ((long long)b * Hq + h0) * D;
+  Q qv[QPT];
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
     const int e = tid + j * NT;
-    qv[j] = e < rows * D ? qg[e] : zero<bf16>();
+    qv[j] = e < rows * D ? qg[e] : zero<Q>();
   }
   // the ring (every pad column with it) and the q rows: zeros, 16 bytes a store
   for (int e = tid; e < (L.q_off + HR * L.ldq * 2) / 16; e += NT)
@@ -534,18 +510,19 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
   // row's fp32 score against k_new (warp w takes rows w, w + 4, ...) and the
   // v_new row, kept in shared memory for the block that writes the output
   float* sNew = reinterpret_cast<float*>(smem + L.new_off);
-  bf16* sVn = reinterpret_cast<bf16*>(sNew + HR);
+  Q* sVn = reinterpret_cast<Q*>(sNew + HR);
   if constexpr (FUSED) {
     const long long kv_row = ((long long)b * Hkv + hkv) * D;
+    const Q* k_new = static_cast<const Q*>(fz.k_new);
     for (int r = warp; r < rows; r += NWARPS) {
       float x = 0.f;
       for (int d = lane; d < D; d += 32)
-        x += __bfloat162float(sQ[r * L.ldq + d]) * __bfloat162float(fz.k_new[kv_row + d]);
+        x += E::to_f(sQ[r * L.ldq + d]) * E::to_f(k_new[kv_row + d]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
       if (lane == 0) sNew[r] = x * scale;
     }
-    for (int d = tid; d < D; d += NT) sVn[d] = fz.v_new[kv_row + d];
+    for (int d = tid; d < D; d += NT) sVn[d] = static_cast<const Q*>(fz.v_new)[kv_row + d];
   }
 
   const int nk = L.dk / 16;  // 16-deep steps of Q K^T
@@ -583,18 +560,18 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
 #pragma unroll
             for (int nt = 0; nt < 2; ++nt) {
               uint32_t b0, b1;
-              i8x4_to_bf16(*reinterpret_cast<const uint32_t*>(
-                               reinterpret_cast<const unsigned char*>(kw) +
-                               (nt * 8 + g) * L.ldk + 16 * k + 4 * i4),
-                           b0, b1);
-              mma_bf16(s[nt], a, b0, b1);
+              E::i8x4(*reinterpret_cast<const uint32_t*>(
+                          reinterpret_cast<const unsigned char*>(kw) +
+                          (nt * 8 + g) * L.ldk + 16 * k + 4 * i4),
+                      b0, b1);
+              E::mma(s[nt], a, b0, b1);
             }
           } else {
             uint32_t a[4], bk[4];
             ldsm_x4(a, sQ + a_offset(lane, L.ldq, k * 16));
             ldsm_x4(bk, kw + b_offset(lane, L.ldk, 0, k * 16));
-            mma_bf16(s[0], a, bk[0], bk[1]);
-            mma_bf16(s[1], a, bk[2], bk[3]);
+            E::mma(s[0], a, bk[0], bk[1]);
+            E::mma(s[1], a, bk[2], bk[3]);
           }
         }
       }
@@ -631,7 +608,7 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
         l_r[r] *= alpha[r];
       }
       // p into l unscaled; the A operand (p, int8: p times the key's V
-      // scale) split into bf16 hi and lo halves
+      // scale) split into hi and lo halves of Q
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         float2 vsc = make_float2(1.f, 1.f);
@@ -644,10 +621,10 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
         }
       }
       uint32_t ph[4], pl[4];
-      split_bf16(s[0][0], s[0][1], ph[0], pl[0]);
-      split_bf16(s[0][2], s[0][3], ph[1], pl[1]);
-      split_bf16(s[1][0], s[1][1], ph[2], pl[2]);
-      split_bf16(s[1][2], s[1][3], ph[3], pl[3]);
+      split_pair<Q>(s[0][0], s[0][1], ph[0], pl[0]);
+      split_pair<Q>(s[0][2], s[0][3], ph[1], pl[1]);
+      split_pair<Q>(s[1][0], s[1][1], ph[2], pl[2]);
+      split_pair<Q>(s[1][2], s[1][3], ph[3], pl[3]);
       const int nj = L.dv / 8;  // n8 tiles of the output
 #pragma unroll
       for (int j = 0; j < DPM / 8; ++j) {
@@ -672,9 +649,9 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
             const uint32_t w9 = *reinterpret_cast<const uint32_t*>(vb8 + 9 * L.ldv + 32 * c);
 #pragma unroll
             for (int t = 0; t < 4; ++t) {
-              const uint32_t b0 = i8_pair(w0, w1, t), b1 = i8_pair(w8, w9, t);
-              mma_bf16(o[4 * c + t], ph, b0, b1);
-              mma_bf16(o[4 * c + t], pl, b0, b1);
+              const uint32_t b0 = E::i8pair(w0, w1, t), b1 = E::i8pair(w8, w9, t);
+              E::mma(o[4 * c + t], ph, b0, b1);
+              E::mma(o[4 * c + t], pl, b0, b1);
             }
           }
         }
@@ -684,10 +661,10 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
           if (dp < nk) {
             uint32_t bv[4];
             ldsm_x4_trans(bv, vw + bt_offset(lane, L.ldv, 0, dp * 16));
-            mma_bf16(o[2 * dp], ph, bv[0], bv[1]);
-            mma_bf16(o[2 * dp], pl, bv[0], bv[1]);
-            mma_bf16(o[2 * dp + 1], ph, bv[2], bv[3]);
-            mma_bf16(o[2 * dp + 1], pl, bv[2], bv[3]);
+            E::mma(o[2 * dp], ph, bv[0], bv[1]);
+            E::mma(o[2 * dp], pl, bv[0], bv[1]);
+            E::mma(o[2 * dp + 1], ph, bv[2], bv[3]);
+            E::mma(o[2 * dp + 1], pl, bv[2], bv[3]);
           }
         }
       }
@@ -729,34 +706,34 @@ __global__ void __launch_bounds__(NT) paged_decode_kernel(
       }
     }
   }
-  finish<FUSED>(sO, D, out, part_acc, part_ml, tickets, rows, parts, split,
+  finish<FUSED, Q>(sO, D, out, part_acc, part_ml, tickets, rows, parts, split,
                 (long long)b * Hq + h0, ((long long)b * gridDim.y + hg) * splits,
                 (long long)b * gridDim.y + hg, tid, &s_last, sNew, sVn);
 }
 
-template <typename T, int DPM, bool FUSED>
+template <typename T, typename Q, int DPM, bool FUSED>
 int set_smem() {
   static int done = -1;  // the attribute is set once per instantiation
   if (done < 0) {
     const Layout L(DPM, sizeof(T) == 1, stages<sizeof(T) == 1, DPM>());
-    done = (int)cudaFuncSetAttribute(paged_decode_kernel<T, DPM, FUSED>,
+    done = (int)cudaFuncSetAttribute(paged_decode_kernel<T, Q, DPM, FUSED>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   }
   return done;
 }
 
-template <typename T, int DPM, bool FUSED>
+template <typename T, typename Q, int DPM, bool FUSED>
 int launch(void* out, void* part_acc, void* part_ml, void* tickets, const void* q,
            const void* k_pool, const void* v_pool, const void* k_scales, const void* v_scales,
            const void* page_tables, const void* context_lens, const FusedRows& fz, int B,
            int Hkv, int G, int D, long long rs, long long N, long long scale_stride, int maxp,
            int S, float scale, int window, int vb, int splits, cudaStream_t stream) {
-  const int e = set_smem<T, DPM, FUSED>();
+  const int e = set_smem<T, Q, DPM, FUSED>();
   if (e != 0) return e;
   const Layout L(D, sizeof(T) == 1, stages<sizeof(T) == 1, DPM>());
   const int groups = (G + HR - 1) / HR;
-  paged_decode_kernel<T, DPM, FUSED><<<dim3(splits, Hkv * groups, B), NT, L.bytes, stream>>>(
-      (bf16*)out, (float*)part_acc, (float*)part_ml, (int*)tickets, (const bf16*)q,
+  paged_decode_kernel<T, Q, DPM, FUSED><<<dim3(splits, Hkv * groups, B), NT, L.bytes, stream>>>(
+      (Q*)out, (float*)part_acc, (float*)part_ml, (int*)tickets, (const Q*)q,
       (const T*)k_pool, (const T*)v_pool, (const float*)k_scales, (const float*)v_scales,
       (const int32_t*)page_tables, (const int32_t*)context_lens, fz, Hkv, G, groups, D, rs, N,
       scale_stride, maxp, S, scale, window, vb);
@@ -780,7 +757,7 @@ int copy_bytes(int D, long long rs, const void* k_pool, const void* v_pool) {
 // Checks the arguments, picks the column bucket and the copy width, and
 // launches. splits in [1, MAX_SPLITS]; with splits > 1 the partials and the
 // tickets must be given.
-template <typename T, bool FUSED>
+template <typename T, typename Q, bool FUSED>
 int dispatch(void* out, void* part_acc, void* part_ml, void* tickets, const void* q,
              const void* k_pool, const void* v_pool, const void* k_scales, const void* v_scales,
              const void* page_tables, const void* context_lens, const FusedRows& fz, int B,
@@ -794,7 +771,7 @@ int dispatch(void* out, void* part_acc, void* part_ml, void* tickets, const void
   const int vb = copy_bytes<T>(D, rs, k_pool, v_pool);
 #define ZT_CASE(DPM)                                                                         \
   if (bucket(D) == DPM)                                                                      \
-    return launch<T, DPM, FUSED>(out, part_acc, part_ml, tickets, q, k_pool, v_pool,         \
+    return launch<T, Q, DPM, FUSED>(out, part_acc, part_ml, tickets, q, k_pool, v_pool,         \
                                  k_scales, v_scales, page_tables, context_lens, fz, B, Hkv,  \
                                  G, D, rs, N, scale_stride, maxp, S, scale, window, vb,      \
                                  splits, stream);
@@ -803,17 +780,18 @@ int dispatch(void* out, void* part_acc, void* part_ml, void* tickets, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// How many blocks of the head-dim-D kernel one SM holds at once.
+// How many blocks of the head-dim-D kernel one SM holds at once (the fp16
+// instantiations take the bf16 ones' shared memory).
 template <typename T, bool FUSED>
 int blocks_per_sm(int D, int* blocks) {
   if (D < 1 || D > DMAX) return (int)cudaErrorInvalidValue;
 #define ZT_CASE(DPM)                                                                          \
   if (bucket(D) == DPM) {                                                                     \
-    const int e = set_smem<T, DPM, FUSED>();                                                  \
+    const int e = set_smem<T, bf16, DPM, FUSED>();                                            \
     if (e != 0) return e;                                                                     \
     const Layout L(D, sizeof(T) == 1, stages<sizeof(T) == 1, DPM>());                         \
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                \
-        blocks, paged_decode_kernel<T, DPM, FUSED>, NT, L.bytes);                             \
+        blocks, paged_decode_kernel<T, bf16, DPM, FUSED>, NT, L.bytes);                       \
   }
   ZT_CASE(64) ZT_CASE(128) ZT_CASE(256)
 #undef ZT_CASE

@@ -12,7 +12,7 @@
 // set). The pool already holds the chunk's own K/V. Rows i >= q_lens[s] are
 // padding: they see no key and come out as zeros, which the host discards.
 // fp32 scores and online softmax, NEG_INF = -2e38, max(l, 1e-20) floor. The
-// probabilities are rounded to bf16 for the P.V product, as the TPU kernel
+// probabilities are rounded to q's type (bf16 or fp16) for the P.V product, as the TPU kernel
 // casts p to the pool's dtype before its second dot (_kernel_prefill_hm body,
 // :212-216); l sums them unrounded.
 //
@@ -51,6 +51,7 @@
 //   registers to one head's O.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,21 +86,22 @@ struct Cfg {
 
 // three blocks an SM up to D 128 (at most 170 registers a thread): MiniCPM-2B's
 // 288 blocks and Qwen2.5-14B's 320 for a 512-token chunk then run in one wave
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
-    bf16* __restrict__ out,                   // [NS*TC, Hq, D]
-    const bf16* __restrict__ q,               // [NS*TC, Hq, D]
-    const bf16* __restrict__ pool,            // [Hkv, N, 2D]
+    T* __restrict__ out,                      // [NS*TC, Hq, D]
+    const T* __restrict__ q,                  // [NS*TC, Hq, D]
+    const T* __restrict__ pool,               // [Hkv, N, 2D]
     const int32_t* __restrict__ page_tables,  // [NS, maxp]
     const int32_t* __restrict__ cache_lens,   // [NS]
     const int32_t* __restrict__ q_lens,       // [NS]
     int Hq, int Hkv, long long N, int maxp, int S, int TC, int NS, int qblocks_per_seg,
     float scale, int window) {
   using C = Cfg<D>;
+  using E = Elem<T>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = reinterpret_cast<bf16*>(smem + C::Q_BYTES);
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sKV = reinterpret_cast<T*>(smem + C::Q_BYTES);
 
   const int hq = blockIdx.x;
   const int seg = blockIdx.y % NS;
@@ -112,7 +114,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
   const int q_len = q_lens[seg];
   const int total = cache_len + q_len;
   const int32_t* pt = page_tables + (long long)seg * maxp;
-  const bf16* head = pool + (long long)hkv * N * 2 * D;
+  const T* head = pool + (long long)hkv * N * 2 * D;
 
   // the block's keys [kv_lo, kv_hi)
   int kv_hi = 0, kv_lo = 0;
@@ -144,7 +146,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
   auto issue = [&]() {
     if (issued < n) {
       const int j0 = jt0 + issued * BK;
-      gather_tile<BK, 2 * D, C::LDK, NT, C::UNROLL>(sKV + (issued % C::STAGES) * C::STAGE, head, pt, ids,
+      gather_tile<BK, 2 * D, C::LDK, NT, C::UNROLL, T>(sKV + (issued % C::STAGES) * C::STAGE, head, pt, ids,
                                          j0, kv_lo, kv_hi, S, s_shift, num_pages, tid);
       if (++issued < n) ids = fetch_pages(pt, maxp, page_of(j0 + BK), lane);
     }
@@ -180,7 +182,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   constexpr int QF = C::QREG ? D / 16 : 1;
   uint32_t qf[QF][4];
-  const bf16* qw = sQ + warp * 16 * C::LDQ;
+  const T* qw = sQ + warp * 16 * C::LDQ;
 
   for (int it = 0; it < n; ++it) {
     cp_async_wait<C::STAGES - 2>();
@@ -195,7 +197,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
     const int j0 = jt0 + it * BK;
     if (j0 >= hi_max || j0 + BK <= lo_min) continue;  // warp-uniform: all masked
     const bool full = j0 + BK <= hi_min && j0 >= lo_max;
-    const bf16* kv = sKV + (it % C::STAGES) * C::STAGE;
+    const T* kv = sKV + (it % C::STAGES) * C::STAGE;
 
     float s[BK / 8][4];
 #pragma unroll
@@ -214,8 +216,8 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t bk[4];
         ldsm_x4(bk, kv + b_offset(lane, C::LDK, np * 16, k * 16));
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        E::mma(s[2 * np], a, bk[0], bk[1]);
+        E::mma(s[2 * np + 1], a, bk[2], bk[3]);
       }
     }
 
@@ -260,16 +262,16 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
     }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {E::pack(s[2 * kk][0], s[2 * kk][1]),
+                              E::pack(s[2 * kk][2], s[2 * kk][3]),
+                              E::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              E::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t bv[4];
         ldsm_x4_trans(bv, kv + bt_offset(lane, C::LDK, kk * 16, D + dp * 16));
-        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+        E::mma(o[2 * dp], pa, bv[0], bv[1]);
+        E::mma(o[2 * dp + 1], pa, bv[2], bv[3]);
       }
     }
   }
@@ -286,15 +288,15 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_kernel(
   for (int r = 0; r < 2; ++r) {
     const int i = row0 + warp * 16 + g + 8 * r;
     if (i >= TC) continue;
-    bf16* orow = out + (((long long)seg * TC + i) * Hq + hq) * D + c;
+    T* orow = out + (((long long)seg * TC + i) * Hq + hq) * D + c;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack_bf16(o[j][2 * r] * l_r[r], o[j][2 * r + 1] * l_r[r]);
+          E::pack(o[j][2 * r] * l_r[r], o[j][2 * r + 1] * l_r[r]);
   }
 }
 
-template <int D>
+template <int D, class T>
 int launch(void* out, const void* q, const void* pool, const void* page_tables,
            const void* cache_lens, const void* q_lens, int NS, int TC, int Hq, int Hkv,
            long long N, int maxp, int S, float scale, int window, cudaStream_t stream) {
@@ -302,13 +304,13 @@ int launch(void* out, const void* q, const void* pool, const void* page_tables,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        prefill_hm_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+        prefill_hm_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int qbps = (TC + BQ - 1) / BQ;
-  prefill_hm_kernel<D><<<dim3(Hq, NS * qbps), NT, C::BYTES, stream>>>(
-      (bf16*)out, (const bf16*)q, (const bf16*)pool, (const int32_t*)page_tables,
+  prefill_hm_kernel<D, T><<<dim3(Hq, NS * qbps), NT, C::BYTES, stream>>>(
+      (T*)out, (const T*)q, (const T*)pool, (const int32_t*)page_tables,
       (const int32_t*)cache_lens, (const int32_t*)q_lens, Hq, Hkv, N, maxp, S, TC, NS, qbps,
       scale, window);
   return (int)cudaGetLastError();
@@ -316,20 +318,22 @@ int launch(void* out, const void* q, const void* pool, const void* page_tables,
 
 }  // namespace
 
-// Supported: bf16 q and pool, D in {64, 128, 192, 256}, Hq a multiple of Hkv.
+// Supported: bf16 q and pool (fp16 with fp16 != 0), D in {64, 128, 192, 256},
+// Hq a multiple of Hkv.
 // Returns the CUDA error code of the launch.
 extern "C" int zt_prefill_attention_hm(void* out, const void* q, const void* pool,
                                        const void* page_tables,
                                        const void* cache_lens, const void* q_lens,
                                        int NS, int TC, int Hq, int Hkv, int D,
                                        long long N, int maxp, int S, float scale,
-                                       int window, void* stream) {
+                                       int window, int fp16, void* stream) {
   if (NS == 0 || TC == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define ZT_D(DD)                                                                          \
   if (D == DD)                                                                            \
-    return launch<DD>(out, q, pool, page_tables, cache_lens, q_lens, NS, TC, Hq, Hkv, N, \
-                      maxp, S, scale, window, st);
+    return (fp16 ? launch<DD, __half> : launch<DD, bf16>)(                               \
+        out, q, pool, page_tables, cache_lens, q_lens, NS, TC, Hq, Hkv, N,               \
+        maxp, S, scale, window, st);
   ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)
 #undef ZT_D
   return (int)cudaErrorInvalidValue;

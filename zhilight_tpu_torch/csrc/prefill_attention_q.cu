@@ -8,11 +8,12 @@
 // optional sliding window, rows past q_lens[s] zero), over int8 K|V rows with
 // one fp32 scale per (token, KV head) for K and for V:
 //   s[i, j] = scale * (q[i] . K_i8[j]) * k_scales[hkv, slot(j)]
-//   out[i]  = sum_j bf16(p[i, j] * v_scales[hkv, slot(j)]) * V_i8[j] / l[i]
+//   out[i]  = sum_j T(p[i, j] * v_scales[hkv, slot(j)]) * V_i8[j] / l[i]
+// (T: the type of q and out, bf16 or fp16)
 // with p, l from the fp32 online softmax of s (NEG_INF = -2e38, max(l, 1e-20)
 // floor). As in the TPU kernel, no K or V element is multiplied by a scale,
 // the K scale multiplies the score before the mask, l sums the unscaled p,
-// and p * v_scale is rounded to bf16 before the second product. q is not
+// and p * v_scale is rounded to T before the second product. q is not
 // quantized. The scales are head-major [Hkv, scale_stride >= N] (the
 // reference keeps them [N, Hkv] and re-blocks them per call; here a tile's
 // scales are read straight from one row).
@@ -53,6 +54,7 @@
 //   three blocks share an SM at D <= 128 and two above.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,26 +87,19 @@ struct Cfg {
   static_assert(D % 64 == 0 && (BK * D2 / 16) % NT == 0 && (2 * BK) % 32 == 0, "shapes");
 };
 
-// 16 int8 -> 16 bf16 (8 pairs, low byte in the low half), exactly
-__device__ __forceinline__ void int8x16_to_bf16(uint4 v, uint32_t* out) {
+// 16 int8 -> 16 elements of T (8 pairs, low byte in the low half), exactly
+template <class T>
+__device__ __forceinline__ void int8x16_to(uint4 v, uint32_t* out) {
   const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    const uint32_t u = words[w] ^ 0x80808080u;  // x + 128 as unsigned bytes
-    float f[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[b] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + b)) - 8388736.f;
-    out[2 * w] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-    out[2 * w + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-  }
+  for (int w = 0; w < 4; ++w) Elem<T>::i8x4(words[w], out[2 * w], out[2 * w + 1]);
 }
 
 // three blocks an SM up to D 128 (at most 170 registers a thread), two above
-template <int D>
+template <int D, class T>
 __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
-    bf16* __restrict__ out,                   // [NS*TC, Hq, D]
-    const bf16* __restrict__ q,               // [NS*TC, Hq, D]
+    T* __restrict__ out,                      // [NS*TC, Hq, D]
+    const T* __restrict__ q,                  // [NS*TC, Hq, D]
     const int8_t* __restrict__ pool,          // [Hkv, N, 2D]
     const float* __restrict__ k_scales,       // [Hkv, scale_stride]
     const float* __restrict__ v_scales,       // [Hkv, scale_stride]
@@ -114,10 +109,11 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
     int Hq, int Hkv, long long N, long long scale_stride, int maxp, int S, int TC, int NS,
     int qblocks_per_seg, float scale, int window) {
   using C = Cfg<D>;
+  using E = Elem<T>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  unsigned char* sBuf = smem + C::Q_BYTES;               // 2 x (bf16 tile, scales)
+  T* sQ = reinterpret_cast<T*>(smem);
+  unsigned char* sBuf = smem + C::Q_BYTES;               // 2 x (T tile, scales)
   unsigned char* sSlot = sBuf + 2 * C::BUF;              // STAGES x (int8 tile, scales)
 
   const int hq = blockIdx.x;
@@ -199,7 +195,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
     for (int k = 0; k < C::CH; ++k) {
       const int i = tid + k * NT, r = i / CPR, c = i % CPR;
       uint32_t pk[8];
-      int8x16_to_bf16(*reinterpret_cast<const uint4*>(slot + r * C::D2 + c * 16), pk);
+      int8x16_to<T>(*reinterpret_cast<const uint4*>(slot + r * C::D2 + c * 16), pk);
       uint4* dst = reinterpret_cast<uint4*>(buf + (r * C::LDK + c * 16) * 2);
       dst[0] = make_uint4(pk[0], pk[1], pk[2], pk[3]);
       dst[1] = make_uint4(pk[4], pk[5], pk[6], pk[7]);
@@ -242,7 +238,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
   for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   constexpr int QF = C::QREG ? D / 16 : 1;
   uint32_t qf[QF][4];
-  const bf16* qw = sQ + warp * 16 * C::LDQ;
+  const T* qw = sQ + warp * 16 * C::LDQ;
   const int c2 = 2 * (lane % 4);
 
   for (int it = 0; it < n; ++it) {
@@ -264,7 +260,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
     if (j0 >= hi_max || j0 + BK <= lo_min) continue;  // warp-uniform: all masked
     const bool full = j0 + BK <= hi_min && j0 >= lo_max;
     const unsigned char* buf = sBuf + (it % 2) * C::BUF;
-    const bf16* kv = reinterpret_cast<const bf16*>(buf);
+    const T* kv = reinterpret_cast<const T*>(buf);
     const float* sks = reinterpret_cast<const float*>(buf + BK * C::LDK * 2);
     const float* svs = sks + BK;
 
@@ -285,8 +281,8 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
       for (int np = 0; np < BK / 16; ++np) {
         uint32_t bk[4];
         ldsm_x4(bk, kv + b_offset(lane, C::LDK, np * 16, k * 16));
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        E::mma(s[2 * np], a, bk[0], bk[1]);
+        E::mma(s[2 * np + 1], a, bk[2], bk[3]);
       }
     }
 
@@ -317,7 +313,7 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
       m_r[r] = m_new;
       l_r[r] *= alpha[r];
     }
-    // p (unscaled) into l; p times the key's V scale, rounded to bf16, into P
+    // p (unscaled) into l; p times the key's V scale, rounded to T, into P
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
       const float2 vsc = *reinterpret_cast<const float2*>(svs + nt * 8 + c2);
@@ -337,16 +333,16 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
     }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {E::pack(s[2 * kk][0], s[2 * kk][1]),
+                              E::pack(s[2 * kk][2], s[2 * kk][3]),
+                              E::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              E::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t bv[4];
         ldsm_x4_trans(bv, kv + bt_offset(lane, C::LDK, kk * 16, D + dp * 16));
-        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+        E::mma(o[2 * dp], pa, bv[0], bv[1]);
+        E::mma(o[2 * dp + 1], pa, bv[2], bv[3]);
       }
     }
   }
@@ -362,34 +358,34 @@ __global__ void __launch_bounds__(NT, D <= 128 ? 3 : 2) prefill_hm_q_kernel(
   for (int r = 0; r < 2; ++r) {
     const int i = row0 + warp * 16 + g + 8 * r;
     if (i >= TC) continue;
-    bf16* orow = out + (((long long)seg * TC + i) * Hq + hq) * D + c2;
+    T* orow = out + (((long long)seg * TC + i) * Hq + hq) * D + c2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + j * 8) =
-          pack_bf16(o[j][2 * r] * l_r[r], o[j][2 * r + 1] * l_r[r]);
+          E::pack(o[j][2 * r] * l_r[r], o[j][2 * r + 1] * l_r[r]);
   }
 }
 
-template <int D>
+template <int D, class T>
 int launch(void* out, const void* q, const void* pool, const void* k_scales,
            const void* v_scales, const void* page_tables, const void* cache_lens,
            const void* q_lens, int NS, int TC, int Hq, int Hkv, long long N,
            long long scale_stride, int maxp, int S, float scale, int window,
            cudaStream_t stream) {
   using C = Cfg<D>;
-  static int err = -1;  // once per head dim
+  static int err = -1;  // once per head dim and type
   if (err < 0) {  // and the largest carveout, so that two or three blocks share an SM
-    err = (int)cudaFuncSetAttribute(prefill_hm_q_kernel<D>,
+    err = (int)cudaFuncSetAttribute(prefill_hm_q_kernel<D, T>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
     if (!err)
-      err = (int)cudaFuncSetAttribute(prefill_hm_q_kernel<D>,
+      err = (int)cudaFuncSetAttribute(prefill_hm_q_kernel<D, T>,
                                       cudaFuncAttributePreferredSharedMemoryCarveout,
                                       cudaSharedmemCarveoutMaxShared);
   }
   if (err) return err;
   const int qbps = (TC + BQ - 1) / BQ;
-  prefill_hm_q_kernel<D><<<dim3(Hq, NS * qbps), NT, C::BYTES, stream>>>(
-      (bf16*)out, (const bf16*)q, (const int8_t*)pool, (const float*)k_scales,
+  prefill_hm_q_kernel<D, T><<<dim3(Hq, NS * qbps), NT, C::BYTES, stream>>>(
+      (T*)out, (const T*)q, (const int8_t*)pool, (const float*)k_scales,
       (const float*)v_scales, (const int32_t*)page_tables, (const int32_t*)cache_lens,
       (const int32_t*)q_lens, Hq, Hkv, N, scale_stride, maxp, S, TC, NS, qbps, scale, window);
   return (int)cudaGetLastError();
@@ -397,7 +393,7 @@ int launch(void* out, const void* q, const void* pool, const void* k_scales,
 
 }  // namespace
 
-// Supported: bf16 q, int8 pool, fp32 scales, D in {64, 128, 192, 256}, Hq a
+// Supported: bf16 q (fp16 with fp16 != 0), int8 pool, fp32 scales, D in {64, 128, 192, 256}, Hq a
 // multiple of Hkv. Returns the CUDA error code of the launch (0 = success).
 extern "C" int zt_prefill_attention_hm_q(void* out, const void* q, const void* pool,
                                          const void* k_scales, const void* v_scales,
@@ -406,13 +402,14 @@ extern "C" int zt_prefill_attention_hm_q(void* out, const void* q, const void* p
                                          int NS, int TC, int Hq, int Hkv, int D,
                                          long long N, long long scale_stride,
                                          int maxp, int S, float scale, int window,
-                                         void* stream) {
+                                         int fp16, void* stream) {
   if (NS == 0 || TC == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
 #define ZT_D(DD)                                                                          \
   if (D == DD)                                                                            \
-    return launch<DD>(out, q, pool, k_scales, v_scales, page_tables, cache_lens, q_lens, \
-                      NS, TC, Hq, Hkv, N, scale_stride, maxp, S, scale, window, st);
+    return (fp16 ? launch<DD, __half> : launch<DD, bf16>)(                               \
+        out, q, pool, k_scales, v_scales, page_tables, cache_lens, q_lens, NS, TC, Hq, Hkv, \
+        N, scale_stride, maxp, S, scale, window, st);
   ZT_D(64) ZT_D(128) ZT_D(192) ZT_D(256)
 #undef ZT_D
   return (int)cudaErrorInvalidValue;

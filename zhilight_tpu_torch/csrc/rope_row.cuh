@@ -1,4 +1,4 @@
-// One warp, one bf16 row of D <= 256 elements: lane l holds elements
+// One warp, one row of D <= 256 bf16 or fp16 elements (T): lane l holds elements
 // [8l, 8l + 8) as fp32 (lanes l >= D / 8 hold nothing and take part only in
 // the shuffles). Shared by the attention prologues of the packed pool
 // (kv_write.cu) and the latent pool (kv_write_2d.cu).
@@ -6,40 +6,44 @@
 // The rotation rounds as PyTorch's separate kernels of
 // ops/rope.py apply_rope_rot round: out = x*cos + rot(x)*sin with each product
 // and the sum rounded to fp32 on its own (__fmul_rn / __fadd_rn, so nvcc
-// cannot contract them into an FMA), then once to bf16 by the caller.
+// cannot contract them into an FMA), then once to T by the caller.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "attn_tile.cuh"
 
 namespace zt_rope {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+template <class T>
+__device__ __forceinline__ void load8(const T* p, float (&x)[8]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
+    const float2 f = zt_mma::Elem<T>::unpack(w[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
 }
 
+template <class T>
 __device__ __forceinline__ uint4 pack8(const float (&x)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-  return u;
+  using E = zt_mma::Elem<T>;
+  return make_uint4(E::pack(x[0], x[1]), E::pack(x[2], x[3]), E::pack(x[4], x[5]),
+                    E::pack(x[6], x[7]));
 }
 
-// x <- bf16(x) as fp32: the value a bf16 tensor holds after the rotation
-__device__ __forceinline__ void round_bf16(float (&x)[8]) {
+// x <- T(x) as fp32: the value a T tensor holds after the rotation
+template <class T>
+__device__ __forceinline__ void round_to(float (&x)[8]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(__float2bfloat16_rn(x[i]));
+  for (int i = 0; i < 8; ++i) x[i] = zt_mma::Elem<T>::to_f(zt_mma::Elem<T>::from_f(x[i]));
 }
 
 // Rotates the lane's 8 elements in place. cos_row / sin_row: fp32 [D] of the

@@ -41,11 +41,11 @@ in one kernel launch, bit-equal to :func:`apply_rope_rot` followed by
 :func:`write_kv` / :func:`write_latent`.
 
 A decode window with side-buffered KV writes (``ZT_WINDOW_KV=1``) writes no
-row while it runs and flushes each layer's window rows at its end:
-:func:`flush_side_kv` for a packed pool (an int8 one requantizes the fp32
-side rows and scatters their scales, dead rows' into the spare column, where
-the reference drops them at ``num_slots``) and :func:`flush_side_latent` for
-a latent pool.
+row while it runs and flushes every layer's window rows at its end in one
+kernel launch, :func:`flush_side_layers` (an int8 pool requantizes the fp32
+side rows and scatters their scales in the same launch; dead rows' are
+dropped, as the reference drops them); :func:`flush_side_kv` (packed pool)
+and :func:`flush_side_latent` (latent pool) flush one layer.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ from ..ops.cuda import kv_write
 
 __all__ = ["KVCache", "new_kv_cache", "new_latent_cache", "write_kv", "write_latent",
            "rope_write_kv", "rope_write_latent",
-           "flush_side_kv", "flush_side_latent", "side_scale_index", "gather_kv", "gather_hm",
+           "flush_side_kv", "flush_side_latent", "flush_side_layers", "gather_kv", "gather_hm",
            "gather_scales", "gather_latent", "slot_indices"]
 
 
@@ -258,15 +258,6 @@ def write_latent(
     return cache
 
 
-def side_scale_index(cache: KVCache, entry_pos, n_rows, page_tables, window: int) -> torch.Tensor:
-    """Scale column of each window row of an int8 cache, [B * window]: its
-    pool slot, or the spare column N for a row past ``n_rows``. One for every
-    layer of a window's flush."""
-    N = cache.num_slots
-    slots = kv_write.side_slots(entry_pos, n_rows, page_tables, cache.page_size, window)
-    return torch.where((slots < 0) | (slots >= N), N, slots).reshape(-1)
-
-
 def flush_side_kv(
     cache: KVCache,
     layer: int,
@@ -274,26 +265,17 @@ def flush_side_kv(
     entry_pos: torch.Tensor,     # [B] int32 position of each slot's first window row
     n_rows: torch.Tensor,        # [B] int32 live window rows
     page_tables: torch.Tensor,   # [B, maxp] int32
-    scale_index: Optional[torch.Tensor] = None,  # int8 cache: side_scale_index(...)
 ) -> KVCache:
     """Flush one layer's window rows into its packed pool, in place. An int8
-    cache requantizes them first (idempotent on the values the window
-    attended over) and writes their scales (plain tensor ops, as the
-    reference leaves both to XLA) at ``scale_index``, computed here unless the
-    caller computed it once for every layer; the rows go through the CUDA
-    flush."""
+    cache requantizes them (idempotent on the values the window attended
+    over) and writes their scales in the same launch."""
     if cache.quantized:
-        if scale_index is None:
-            scale_index = side_scale_index(cache, entry_pos, n_rows, page_tables, rows.shape[2])
-        D = rows.shape[-1] // 2
-        codes, scales = _quantize_rows(torch.stack((rows[..., :D], rows[..., D:])))
-        rows = torch.cat((codes[0], codes[1]), dim=-1)  # [B, Hkv, Kw, 2D] int8
-        Hkv = rows.shape[1]
-        # scales [2, B, Hkv, Kw] -> columns of the head-major [Hkv, N + 1] arrays
-        cache.k_scale[layer][:, scale_index] = scales[0].transpose(0, 1).reshape(Hkv, -1)
-        cache.v_scale[layer][:, scale_index] = scales[1].transpose(0, 1).reshape(Hkv, -1)
-    kv_write.flush_side_rows_hm(cache.k[layer], rows, entry_pos, n_rows, page_tables,
-                                cache.page_size)
+        kv_write.flush_side_layers_hm([cache.k[layer]], rows[None], entry_pos, n_rows,
+                                      page_tables, cache.page_size, [cache.k_scale[layer]],
+                                      [cache.v_scale[layer]])
+    else:
+        kv_write.flush_side_rows_hm(cache.k[layer], rows, entry_pos, n_rows, page_tables,
+                                    cache.page_size)
     return cache
 
 
@@ -302,6 +284,25 @@ def flush_side_latent(cache: KVCache, layer: int, rows, entry_pos, n_rows, page_
     pool, in place."""
     kv_write.flush_side_rows_2d(cache.latent[layer], rows, entry_pos, n_rows, page_tables,
                                 cache.page_size)
+    return cache
+
+
+def flush_side_layers(
+    cache: KVCache,
+    side: torch.Tensor,          # [L, B, Hkv, Kw, 2D] (fp32 for an int8 cache) or [L, B, Kw, X]
+    entry_pos: torch.Tensor,     # [B] int32 position of each slot's first window row
+    n_rows: torch.Tensor,        # [B] int32 live window rows
+    page_tables: torch.Tensor,   # [B, maxp] int32
+) -> KVCache:
+    """Flush every layer's window rows into its pool (packed, or latent),
+    in place, in one kernel launch on the GPU; an int8 cache's rows are
+    requantized and their scales written in the same launch."""
+    if cache.is_latent:
+        kv_write.flush_side_layers_2d(cache.latent, side, entry_pos, n_rows, page_tables,
+                                      cache.page_size)
+    else:
+        kv_write.flush_side_layers_hm(cache.k, side, entry_pos, n_rows, page_tables,
+                                      cache.page_size, cache.k_scale, cache.v_scale)
     return cache
 
 

@@ -58,8 +58,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..config.model_config import ModelConfig
-from ..kvcache.paged import (KVCache, _quantize_rows, flush_side_kv, flush_side_latent,
-                             gather_kv, rope_write_kv, side_scale_index)
+from ..kvcache.paged import KVCache, _quantize_rows, flush_side_layers, gather_kv, rope_write_kv
 from ..ops.activations import gated_act
 from ..ops.attention import merge_window
 from ..ops.attention import prefill_attention as attend_chunk
@@ -428,12 +427,13 @@ def forward_decode(
 
 
 def new_side_rows(cfg: ModelConfig, batch: int, window: int, dtype: torch.dtype, device=None):
-    """Zeroed per-layer side buffers of a decode window: [B, Hkv, Kw, 2D]
-    (K|V rows), or for MLA [B, Kw, latent_dim] (the port's latent pool is not
-    padded, so neither are its side rows)."""
+    """The zeroed side buffer of a decode window, every layer in one tensor
+    (``[i]`` is layer i's view, so the flush reads all layers in one launch):
+    [L, B, Hkv, Kw, 2D] (K|V rows), or for MLA [L, B, Kw, latent_dim] (the
+    port's latent pool is not padded, so neither are its side rows)."""
     shape = ((batch, window, cfg.mla.latent_dim) if cfg.mla.enabled
              else (batch, cfg.num_kv_heads, window, 2 * cfg.dim_head))
-    return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_layers)]
+    return torch.zeros((cfg.num_layers, *shape), dtype=dtype, device=device)
 
 
 def forward_decode_window(
@@ -443,7 +443,7 @@ def forward_decode_window(
     tokens: torch.Tensor,      # [B]
     meta: DecodeMeta,
     cache: KVCache,
-    side_rows,                 # per layer: new_side_rows' buffers
+    side_rows,                 # new_side_rows' buffer ([i]: layer i's rows)
     side_valid: torch.Tensor,  # [B, Kw] bool: column j set iff the slot was live at step j
     pool_lens: torch.Tensor,   # [B] int32: pool tokens at the window's entry
     step: int,                 # this step's column of the window
@@ -451,41 +451,34 @@ def forward_decode_window(
     """One decode step of a window with side-buffered KV writes: every layer
     puts its new rows into its side buffer (in place) instead of the pool and
     attends over the pool's partials and the side rows. Returns (fp32 logits
-    [B, V], cache, side_rows); :func:`flush_window_rows` writes the pool at
-    the end of the window."""
+    [B, V], cache, side_rows), the side buffer written in place;
+    :func:`flush_window_rows` writes the pool at the end of the window."""
     x = embed(params, cfg, tokens)
     rot = rope.rot_values(meta.positions)
-    rows = []
     for i in range(cfg.num_layers):
         side = dict(rows=side_rows[i], valid=side_valid, pool_lens=pool_lens, step=step)
-        x, cache, r = decoder_layer(params["layers"][str(i)], cfg, rope, x, meta.positions,
+        x, cache, _ = decoder_layer(params["layers"][str(i)], cfg, rope, x, meta.positions,
                                     cache, i, meta, "decode", rot=rot, side=side)
-        rows.append(r)
     hidden = _norm(params["final_norm"], cfg, x)
-    return get_logits(params, cfg, hidden), cache, rows
+    return get_logits(params, cfg, hidden), cache, side_rows
 
 
 def flush_window_rows(
     cfg: ModelConfig,
     cache: KVCache,
-    side_rows,
+    side_rows,                  # new_side_rows' buffer, or a sequence of per-layer rows
     side_valid: torch.Tensor,   # [B, Kw] bool
     entry_pos: torch.Tensor,    # [B] int32 position of each slot's first window row
     page_tables: torch.Tensor,  # [B, maxp] int32
 ) -> KVCache:
-    """End of a decode window: each layer's live side rows (the first
+    """End of a decode window: every layer's live side rows (the first
     ``side_valid[b].sum()`` of slot b: a frozen slot stays frozen) go into the
-    pool, one flush kernel a layer."""
+    pool, one flush kernel for all the layers (an int8 pool's requantization
+    in it)."""
     n_rows = side_valid.sum(dim=1, dtype=torch.int32)
-    if cfg.mla.enabled:
-        for i, rows in enumerate(side_rows):
-            cache = flush_side_latent(cache, i, rows, entry_pos, n_rows, page_tables)
-        return cache
-    index = (side_scale_index(cache, entry_pos, n_rows, page_tables, side_valid.shape[1])
-             if cache.quantized else None)
-    for i, rows in enumerate(side_rows):
-        cache = flush_side_kv(cache, i, rows, entry_pos, n_rows, page_tables, index)
-    return cache
+    if not torch.is_tensor(side_rows):
+        side_rows = torch.stack(list(side_rows))
+    return flush_side_layers(cache, side_rows, entry_pos, n_rows, page_tables)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,10 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["SOURCES", "build_all", "build_seconds", "library", "check", "build_logs"]
+import torch
+
+__all__ = ["SOURCES", "build_all", "build_seconds", "library", "check", "build_logs",
+           "elem_flag"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
@@ -133,3 +136,19 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+# the element types of the kernels' q, rows, outputs and model-dtype pools:
+# their C entry points take 0 for bf16 and 1 for fp16
+_ELEM_FLAGS = {torch.bfloat16: 0, torch.float16: 1}
+
+
+def elem_flag(what: str, *tensors: torch.Tensor) -> int:
+    """The C entry points' element-type flag of ``tensors``, which must all
+    be bf16 or all fp16; raises NotImplementedError for any other dtype or a
+    mix of the two."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in _ELEM_FLAGS:
+        raise NotImplementedError(f"{what}: the kernel takes bf16 or fp16, all of one type, "
+                                  f"got {'/'.join(str(t.dtype) for t in tensors)}")
+    return _ELEM_FLAGS[tensors[0].dtype]

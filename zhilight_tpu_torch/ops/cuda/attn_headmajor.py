@@ -69,6 +69,12 @@ writing the partials (``*_partial`` wrappers, each with its own launch
 counter), and have plain versions beside them (``*_partial_plain``), whose
 probabilities stay fp32 (the head-major kernels round them to bf16 for P.V,
 inside the partials' tolerance; the latent kernel does not round them).
+
+Every kernel here takes q, and a model-dtype pool, in bf16 or in fp16 (an
+fp16 checkpoint's; never mixed): "bf16" above reads q's type, to which the
+kernels round where the reference rounds to ``kv.dtype`` or ``q.dtype``
+(``attn_headmajor.py:118``, ``:319``). The softmax's running max and sum stay
+fp32 in both.
 """
 
 from __future__ import annotations
@@ -189,7 +195,7 @@ def _entry():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, i,
-                       ctypes.c_float, i, i, p]
+                       ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -271,10 +277,11 @@ def _outputs(q: torch.Tensor, Hkv: int, D: int, partial: bool):
     return (m, l, acc), (acc.data_ptr(), m.data_ptr(), l.data_ptr())
 
 
-def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
+def _check_hm(what: str, q, kv_pool, page_tables, context_lens, quant: bool):
     """The head-major kernels' shape, type and layout rules, shared by the
-    bf16 and int8 forms; returns (B, Hkv, G, D, N, maxp). Both take D in
-    ``BF16_HEAD_DIMS`` with any G."""
+    model-dtype and int8 forms; returns (B, Hkv, G, D, N, maxp, fp16). Both
+    take D in ``BF16_HEAD_DIMS`` with any G, q bf16 or fp16 (fp16: the flag of
+    ``_build.elem_flag``), and a pool of q's type or int8 (``quant``)."""
     if not q.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q.device}")
     B, Hq, D = q.shape
@@ -282,9 +289,10 @@ def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     if D2 != 2 * D or Hq % Hkv:
         raise ValueError(f"{what}: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}")
     G = Hq // Hkv
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != pool_dtype:
-        raise NotImplementedError(
-            f"{what} kernel takes bf16 q and a {pool_dtype} pool, got {q.dtype}/{kv_pool.dtype}")
+    if quant and kv_pool.dtype != torch.int8:
+        raise NotImplementedError(f"{what} kernel takes an int8 pool, got {kv_pool.dtype}")
+    fp16 = _build.elem_flag(f"{what} (q{'' if quant else ' and pool'})",
+                            q, *(() if quant else (kv_pool,)))
     if D not in BF16_HEAD_DIMS:
         raise NotImplementedError(f"{what} kernel: head_dim {D}")
     if page_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
@@ -294,7 +302,7 @@ def _check_hm(what: str, q, kv_pool, page_tables, context_lens, pool_dtype):
     for t in (q, kv_pool, page_tables, context_lens):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous and on one device")
-    return B, Hkv, G, D, N, page_tables.shape[1]
+    return B, Hkv, G, D, N, page_tables.shape[1], fp16
 
 
 def split_shapes(B: int, Hkv: int, G: int, D: int, splits: int):
@@ -324,14 +332,14 @@ def _ptrs(tensors):
 
 def _launch_hm(what, q, kv_pool, page_tables, context_lens, page_size, scale, sliding_window,
                partial: bool):
-    B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens,
-                                      torch.bfloat16)
+    B, Hkv, G, D, N, maxp, fp16 = _check_hm(what, q, kv_pool, page_tables, context_lens,
+                                            quant=False)
     result, ptrs = _outputs(q, Hkv, D, partial)
     splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, "attn_headmajor")
     err = _entry()(
         *ptrs, *_ptrs(scratch), q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
         context_lens.data_ptr(), B, Hkv, G, D, N, maxp, page_size, float(scale),
-        int(sliding_window), splits, torch.cuda.current_stream(q.device).cuda_stream,
+        int(sliding_window), splits, fp16, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
     return result
@@ -500,21 +508,22 @@ def _entry_q():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, i, i,
-                       ctypes.c_float, i, i, p]
+                       ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_hm_q(what, q, kv_pool, k_scales, v_scales, page_tables, context_lens, page_size,
                  scale, sliding_window, partial: bool):
-    B, Hkv, G, D, N, maxp = _check_hm(what, q, kv_pool, page_tables, context_lens, torch.int8)
+    B, Hkv, G, D, N, maxp, fp16 = _check_hm(what, q, kv_pool, page_tables, context_lens,
+                                            quant=True)
     check_scales(what, kv_pool, k_scales, v_scales)
     result, ptrs = _outputs(q, Hkv, D, partial)
     splits, scratch = _split_scratch(q, B, Hkv, G, D, maxp, page_size, "attn_headmajor_q")
     err = _entry_q()(
         *ptrs, *_ptrs(scratch), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
         v_scales.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N,
-        k_scales.stride(0), maxp, page_size, float(scale), int(sliding_window), splits,
+        k_scales.stride(0), maxp, page_size, float(scale), int(sliding_window), splits, fp16,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
@@ -676,7 +685,7 @@ def _entry_mla():
     fn = _build.library("mla_decode").zt_mla_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -733,15 +742,15 @@ paged_mla_decode_partial.launches = 0
 
 def check_mla(what: str, q_eff, latent_pool, page_tables, context_lens, v_dim: int):
     """The latent kernel's shape, type and layout rules (shared with the
-    fused mode); returns (B, H, k_dim, N, stored, maxp)."""
+    fused mode); returns (B, H, k_dim, N, stored, maxp, fp16): q and the pool
+    bf16, or both fp16."""
     if not q_eff.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q_eff.device}")
     B, H, k_dim = q_eff.shape
     if latent_pool.dim() != 2 or latent_pool.shape[1] < k_dim:
         raise ValueError(f"{what}: q {tuple(q_eff.shape)}, pool {tuple(latent_pool.shape)}")
     N, stored = latent_pool.shape
-    if q_eff.dtype != torch.bfloat16 or latent_pool.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{what} kernel takes bf16, got {q_eff.dtype}/{latent_pool.dtype}")
+    fp16 = _build.elem_flag(f"{what} (q and pool)", q_eff, latent_pool)
     if (k_dim, v_dim) != (576, 512) or stored % 8:
         raise NotImplementedError(
             f"{what} kernel: k_dim {k_dim}, v_dim {v_dim}, row of {stored} elements "
@@ -755,7 +764,7 @@ def check_mla(what: str, q_eff, latent_pool, page_tables, context_lens, v_dim: i
             raise ValueError(f"{what}: tensors must be contiguous and on one device")
     if latent_pool.data_ptr() % 16:
         raise ValueError(f"{what}: the pool must be 16-byte aligned")
-    return B, H, k_dim, N, stored, page_tables.shape[1]
+    return B, H, k_dim, N, stored, page_tables.shape[1], fp16
 
 
 # the latent kernel's split plan (csrc/mla_decode.cu): a power of two up to
@@ -796,8 +805,8 @@ def mla_plan(device, B: int, H: int, max_ctx: int) -> int:
 
 def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, scale, v_dim,
                 partial: bool, splits: int = 0):
-    B, H, k_dim, N, stored, maxp = check_mla(what, q_eff, latent_pool, page_tables, context_lens,
-                                             v_dim)
+    B, H, k_dim, N, stored, maxp, fp16 = check_mla(what, q_eff, latent_pool, page_tables,
+                                                   context_lens, v_dim)
     splits = splits or mla_plan(q_eff.device, B, H, maxp * page_size)
     f32 = dict(dtype=torch.float32, device=q_eff.device)
     if partial:
@@ -810,7 +819,7 @@ def _launch_mla(what, q_eff, latent_pool, page_tables, context_lens, page_size, 
     err = _entry_mla()(
         *ptrs, q_eff.data_ptr(), latent_pool.data_ptr(),
         page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim, v_dim, N, stored, maxp,
-        page_size, float(scale), splits, torch.cuda.current_stream(q_eff.device).cuda_stream,
+        page_size, float(scale), splits, fp16, torch.cuda.current_stream(q_eff.device).cuda_stream,
     )
     _build.check(err, what)
     return result

@@ -115,8 +115,10 @@ def fp8_block_matmul(
     if x.shape[-1] != K or block_scale.shape != (K // _B, N // _B):
         raise ValueError(f"fp8_block_matmul: x {tuple(x.shape)}, w_f8 {tuple(w_f8.shape)}, "
                          f"block_scale {tuple(block_scale.shape)}")
+    if x.dtype == torch.float16:  # as the reference's kernel: x to bf16, the result back
+        return fp8_block_matmul(x.to(torch.bfloat16), w_f8, block_scale).to(x.dtype)
     if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"fp8_block_matmul kernel takes bf16 activations, got {x.dtype}")
+        raise NotImplementedError(f"fp8_block_matmul kernel takes bf16 or fp16 activations, got {x.dtype}")
     if block_scale.dtype != torch.float32:
         raise ValueError("fp8_block_matmul: block_scale must be float32")
     if not x.is_contiguous():

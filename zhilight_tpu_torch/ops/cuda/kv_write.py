@@ -39,7 +39,8 @@ row 7: ``q_pe`` rotated and returned, the latent row ``c_kv | rope(k_pe)``
 written (``models/mla.py``'s two rotations, concatenation and
 :func:`write_rows_2d` in one launch of ``csrc/kv_write_2d.cu``); its plain
 version is :func:`rope_write_rows_2d_plain`. cos and sin are the fp32 ``[T,
-D]`` tables of ``RopeTable.rot_values``; the kernels take bf16 rows only.
+D]`` tables of ``RopeTable.rot_values``; the kernels take bf16 or fp16 rows
+(q, k, v and a model-dtype pool of one type).
 
 :func:`write_rows_pair` writes the separate slot-major K and V pools,
 ``[N, Hkv, D]`` (or ``[1, N, Hkv, D]``, as the cache holds them), in one call:
@@ -70,11 +71,18 @@ pool ``[Hkv, N, 2D]`` and side rows ``[B, Hkv, Kw, 2D]``, and
 ``pool[slot(b, j)] = side[b, j]`` for the latent pool ``[N, X]`` (or
 ``[1, N, X]``) and side rows ``[B, Kw, X]``. Rows past ``n_rows`` are left
 alone. Both launch ``csrc/kv_flush.cu``, which computes each row's slot on
-the device (one launch a layer, no host sync); :func:`_side_page_runs` is the
-reference's split of a slot's rows into its page runs, from which the plain
-versions and :func:`side_slots` compute the same slots. Side rows are cast to
-the pool's dtype, as the reference casts them; an int8 pool takes int8 rows
-only (the caller requantizes).
+the device (no host sync); :func:`_side_page_runs` is the reference's split
+of a slot's rows into its page runs, from which the plain versions and
+:func:`side_slots` compute the same slots. Side rows are cast to the pool's
+dtype, as the reference casts them; an int8 pool takes int8 rows only.
+:func:`flush_side_layers_hm` and :func:`flush_side_layers_2d`, the redesign
+of both, flush every layer of a window in one launch of the same kernel:
+side rows ``[L, B, Hkv, Kw, 2D]`` (``[L, B, Kw, X]``) into L pools; over int8
+pools (their K and V scale arrays given) the fp32 side rows are requantized
+(:func:`quantize_rows`' rule) and their scales written at the live rows'
+slots in the same launch, where the reference loops over the layers with its
+requantization and scale scatter in XLA ops. Their plain versions are that
+loop (:func:`flush_side_layers_hm_plain`, :func:`flush_side_layers_2d_plain`).
 """
 
 from __future__ import annotations
@@ -92,7 +100,9 @@ __all__ = ["write_rows_hm", "write_rows_hm_plain", "write_rows_2d", "write_rows_
            "rope_write_rows_2d_plain", "quantize_rows", "scatter_scales",
            "write_rows_pair", "write_rows_pair_plain", "rope_write_rows_pair",
            "rope_write_rows_pair_plain", "flush_side_rows_hm", "flush_side_rows_hm_plain",
-           "flush_side_rows_2d", "flush_side_rows_2d_plain", "side_slots"]
+           "flush_side_rows_2d", "flush_side_rows_2d_plain", "flush_side_layers_hm",
+           "flush_side_layers_hm_plain", "flush_side_layers_2d", "flush_side_layers_2d_plain",
+           "side_slots"]
 
 
 def write_rows_hm_plain(
@@ -273,7 +283,7 @@ def _entry_rope_hm():
     fn = _build.library("kv_write").zt_rope_write_rows_hm
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 7 + [i, i, p]
+        fn.argtypes = [p] * 10 + [i] * 4 + [ll] * 7 + [i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -306,11 +316,10 @@ def rope_write_rows_hm(pool, q, k, v, cos_f, sin_f, neox: bool, slot_mapping,
         raise ValueError(f"rope_write_rows_hm: pool {tuple(pool.shape)}, q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     int8 = k_scale is not None
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or \
-            pool.dtype != (torch.int8 if int8 else torch.bfloat16):
-        raise NotImplementedError(f"rope_write_rows_hm: the kernel takes bf16 rows into a bf16 "
-                                  f"or an int8 pool, got {q.dtype}/{k.dtype}/{v.dtype} into "
-                                  f"{pool.dtype}{' with scales' if int8 else ''}")
+    fp16 = _build.elem_flag("rope_write_rows_hm (rows and a model-dtype pool)",
+                            q, k, v, *(() if int8 else (pool,)))
+    if int8 and pool.dtype != torch.int8:
+        raise NotImplementedError(f"rope_write_rows_hm: scales need an int8 pool, got {pool.dtype}")
     if D % 16 or D > 256:
         raise NotImplementedError(f"rope_write_rows_hm: head_dim {D} (the kernel takes "
                                   f"multiples of 16 up to 256)")
@@ -333,7 +342,7 @@ def rope_write_rows_hm(pool, q, k, v, cos_f, sin_f, neox: bool, slot_mapping,
         v_scale.data_ptr() if int8 else None, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q_out.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(), slot_mapping.data_ptr(),
         T, Hq, Hkv, D, N, *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], int(neox), int(int8),
-        torch.cuda.current_stream(pool.device).cuda_stream,
+        fp16, torch.cuda.current_stream(pool.device).cuda_stream,
     )
     _build.check(err, "rope_write_rows_hm")
     rope_write_rows_hm.launches += 1
@@ -363,7 +372,7 @@ def _entry_rope_2d():
     fn = _build.library("kv_write_2d").zt_rope_write_rows_2d
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 8 + [i] * 4 + [ll] * 5 + [i, p]
+        fn.argtypes = [p] * 8 + [i] * 4 + [ll] * 5 + [i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -383,8 +392,7 @@ def rope_write_rows_2d(pool, q_pe, c_kv, k_pe, cos_f, sin_f, neox: bool,
     if c_kv.shape != (T, L) or k_pe.shape != (T, R) or X != L + R:
         raise ValueError(f"rope_write_rows_2d: pool {tuple(pool.shape)}, q_pe "
                          f"{tuple(q_pe.shape)}, c_kv {tuple(c_kv.shape)}, k_pe {tuple(k_pe.shape)}")
-    if any(x.dtype != torch.bfloat16 for x in (pool, q_pe, c_kv, k_pe)):
-        raise NotImplementedError("rope_write_rows_2d: the kernel takes bf16 rows and pool")
+    fp16 = _build.elem_flag("rope_write_rows_2d (rows and pool)", pool, q_pe, c_kv, k_pe)
     if R % 16 or R > 256 or L % 8:
         raise NotImplementedError(f"rope_write_rows_2d: rope width {R}, latent width {L} (the "
                                   f"kernel takes R a multiple of 16 up to 256, L of 8)")
@@ -400,7 +408,7 @@ def rope_write_rows_2d(pool, q_pe, c_kv, k_pe, cos_f, sin_f, neox: bool,
     err = _entry_rope_2d()(
         p2.data_ptr(), q_out.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(), k_pe.data_ptr(),
         cos_f.data_ptr(), sin_f.data_ptr(), slot_mapping.data_ptr(), T, H, L, R, N,
-        *q_pe.stride()[:2], c_kv.stride(0), k_pe.stride(0), int(neox),
+        *q_pe.stride()[:2], c_kv.stride(0), k_pe.stride(0), int(neox), fp16,
         torch.cuda.current_stream(pool.device).cuda_stream,
     )
     _build.check(err, "rope_write_rows_2d")
@@ -517,7 +525,7 @@ def _entry_rope_pair():
     fn = _build.library("kv_write_pair").zt_rope_write_rows_pair
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 11 + [i] * 4 + [ll] * 7 + [i, i, p]
+        fn.argtypes = [p] * 11 + [i] * 4 + [ll] * 7 + [i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -541,12 +549,11 @@ def rope_write_rows_pair(k_cache, v_cache, q, k, v, cos_f, sin_f, neox: bool, sl
                          f"{tuple(v_cache.shape)}, q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     int8 = k_scale is not None
-    pool_dtype = torch.int8 if int8 else torch.bfloat16
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)) or \
-            k3.dtype != pool_dtype or v3.dtype != pool_dtype:
-        raise NotImplementedError(f"rope_write_rows_pair: the kernel takes bf16 rows into bf16 "
-                                  f"or int8 pools, got {q.dtype}/{k.dtype}/{v.dtype} into "
-                                  f"{k3.dtype}/{v3.dtype}{' with scales' if int8 else ''}")
+    fp16 = _build.elem_flag("rope_write_rows_pair (rows and model-dtype pools)",
+                            q, k, v, *(() if int8 else (k3, v3)))
+    if int8 and (k3.dtype != torch.int8 or v3.dtype != torch.int8):
+        raise NotImplementedError(f"rope_write_rows_pair: scales need int8 pools, got "
+                                  f"{k3.dtype}/{v3.dtype}")
     if D % 2 or D > 256:
         raise NotImplementedError(f"rope_write_rows_pair: head_dim {D} (the kernel takes even "
                                   f"head dims up to 256)")
@@ -572,7 +579,7 @@ def rope_write_rows_pair(k_cache, v_cache, q, k, v, cos_f, sin_f, neox: bool, sl
         v_scale.data_ptr() if int8 else None, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q_out.data_ptr(), cos_f.data_ptr(), sin_f.data_ptr(), slot_mapping.data_ptr(),
         T, Hq, Hkv, D, N, *q.stride()[:2], *k.stride()[:2], *v.stride()[:2], int(neox), int(int8),
-        torch.cuda.current_stream(k_cache.device).cuda_stream,
+        fp16, torch.cuda.current_stream(k_cache.device).cuda_stream,
     )
     _build.check(err, "rope_write_rows_pair")
     rope_write_rows_pair.launches += 1
@@ -644,37 +651,136 @@ def flush_side_rows_2d_plain(
     return pool
 
 
+def _live_slots(side_slots_: torch.Tensor, N: int) -> torch.Tensor:
+    """The live window rows of :func:`side_slots`' result: slots in [0, N)."""
+    return (side_slots_ >= 0) & (side_slots_ < N)
+
+
+def flush_side_layers_hm_plain(
+    pools,                      # L pools [Hkv, N, 2D]
+    side: torch.Tensor,         # [L, B, Hkv, Kw, 2D]: the pools' dtype, or fp32 over int8 pools
+    entry_pos: torch.Tensor,
+    n_rows: torch.Tensor,
+    page_tables: torch.Tensor,
+    page_size: int,
+    k_scales=None,              # int8 pools: L arrays [Hkv, N + 1] fp32
+    v_scales=None,
+):
+    """Every layer's window rows into its head-major pool, in place: the
+    per-layer plain flush, after (over int8 pools) :func:`quantize_rows` of
+    each row's K and V halves and the scatter of their scales at the live
+    rows' slots (the dead and skipped rows' are dropped, as the reference
+    drops them). Returns the pools."""
+    if k_scales is None:
+        for pool, rows in zip(pools, side):
+            flush_side_rows_hm_plain(pool, rows, entry_pos, n_rows, page_tables, page_size)
+        return pools
+    D = side.shape[-1] // 2
+    slots = side_slots(entry_pos, n_rows, page_tables, page_size, side.shape[3])  # [B, Kw]
+    live = _live_slots(slots, pools[0].shape[1])
+    for pool, rows, ks, vs in zip(pools, side, k_scales, v_scales):
+        codes, scales = quantize_rows(torch.stack((rows[..., :D], rows[..., D:])))
+        flush_side_rows_hm_plain(pool, torch.cat((codes[0], codes[1]), dim=-1), entry_pos,
+                                 n_rows, page_tables, page_size)
+        # scales [2, B, Hkv, Kw] -> the live rows' columns of [Hkv, N + 1]
+        per_row = scales.permute(0, 1, 3, 2)[:, live]  # [2, n, Hkv]
+        ks[:, slots[live]] = per_row[0].t()
+        vs[:, slots[live]] = per_row[1].t()
+    return pools
+
+
+def flush_side_layers_2d_plain(pools, side, entry_pos, n_rows, page_tables, page_size: int):
+    """Every layer's window latent rows ``side`` [L, B, Kw, X] into its pool
+    ([N, X] or [1, N, X]), in place: the per-layer plain flush. Returns the
+    pools."""
+    for pool, rows in zip(pools, side):
+        flush_side_rows_2d_plain(pool, rows, entry_pos, n_rows, page_tables, page_size)
+    return pools
+
+
 def _entry_flush():
     fn = _build.library("kv_flush").zt_flush_side_rows
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, ctypes.c_longlong, i, i, i, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 7 + [ll] + [p] * 3 + [i] * 4 + [ll, i, i, i, ll, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _flush(what: str, pool3, side4, entry_pos, n_rows, page_tables, page_size: int) -> None:
-    """Launch csrc/kv_flush.cu for a pool [H, N, X] and side rows
-    [B, H, Kw, X] on the GPU, or raise."""
+# per device: the int64 tables of pool (and scale array) addresses handed to
+# the layered flush, keyed on the addresses themselves
+_TABLES: dict = {}
+
+
+def _address_table(tensors) -> Optional[torch.Tensor]:
+    """A device int64 table of the tensors' addresses, or None for one tensor
+    (the kernel then takes its address directly). A table is cached under the
+    addresses it holds, so it is right whatever tensors the caller passes
+    (the engine's pools never change, a scratch cache's are new) and costs one
+    small host-to-device copy per new set of addresses, none per window."""
+    if len(tensors) == 1:
+        return None
+    device = tensors[0].device
+    key = (device, tuple(t.data_ptr() for t in tensors))
+    table = _TABLES.get(key)
+    if table is None:
+        if len(_TABLES) >= 64:
+            _TABLES.clear()
+        table = _TABLES[key] = torch.tensor(key[1], dtype=torch.int64, device=device)
+    return table
+
+
+def _flush(what: str, pools3, side5, entry_pos, n_rows, page_tables, page_size: int,
+           k_scales=None, v_scales=None) -> None:
+    """Launch csrc/kv_flush.cu once for L pools [H, N, X] and side rows
+    [L, B, H, Kw, X] on the GPU (fp32 rows and the scale arrays over int8
+    pools: the kernel quantizes), or raise."""
+    pool3 = pools3[0]
     if not pool3.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {pool3.device}")
     H, N, X = pool3.shape
-    B, Hs, Kw, Xs = side4.shape
-    if (Hs, Xs) != (H, X):
-        raise ValueError(f"{what}: pool {tuple(pool3.shape)}, side rows {tuple(side4.shape)}")
+    L, B, Hs, Kw, Xs = side5.shape
+    if (Hs, Xs) != (H, X) or len(pools3) != L or any(
+            p.shape != pool3.shape or p.dtype != pool3.dtype for p in pools3):
+        raise ValueError(f"{what}: {len(pools3)} pools {tuple(pool3.shape)}, side rows "
+                         f"{tuple(side5.shape)}")
     if Kw > page_size:
         raise ValueError(f"{what}: {Kw} window rows do not fit a page of {page_size}")
-    side4 = _side_rows(what, side4, pool3).contiguous()
+    int8 = k_scales is not None
+    if int8:
+        if pool3.dtype != torch.int8 or side5.dtype != torch.float32 or X % 8 or X > 512:
+            raise NotImplementedError(f"{what}: requantizing flushes take fp32 rows into int8 "
+                                      f"pools, 2D a multiple of 8 up to 512; got "
+                                      f"{side5.dtype} rows of {X} into {pool3.dtype}")
+        scales = list(k_scales) + list(v_scales)
+        if len(scales) != 2 * L or any(
+                s.dtype != torch.float32 or s.shape != (H, N + 1) or not s.is_contiguous()
+                or s.device != pool3.device for s in scales):
+            raise ValueError(f"{what}: {L} K and V scale arrays fp32 [H, N + 1] = "
+                             f"[{H}, {N + 1}], contiguous, on the pools' device")
+    else:
+        side5 = _side_rows(what, side5, pool3)
+    side5 = side5.contiguous()
     maxp = page_tables.shape[1]
     for t, shape in ((entry_pos, (B,)), (n_rows, (B,)), (page_tables, (B, maxp))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
             raise ValueError(f"{what}: entry_pos, n_rows int32 [B], page_tables int32 [B, maxp]")
-    for t in (pool3, side4, entry_pos, n_rows, page_tables):
+    for t in (*pools3, side5, entry_pos, n_rows, page_tables):
         if t.device != pool3.device or not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous and on one device")
+    pools_t = _address_table(pools3)
+    ks_t = _address_table(list(k_scales)) if int8 else None
+    vs_t = _address_table(list(v_scales)) if int8 else None
+    bits = 0
+    for p in pools3:
+        bits |= p.data_ptr()
     err = _entry_flush()(
-        pool3.data_ptr(), side4.data_ptr(), entry_pos.data_ptr(), n_rows.data_ptr(),
-        page_tables.data_ptr(), B, H, Kw, N, maxp, page_size, X * pool3.element_size(),
+        pool3.data_ptr(), None if pools_t is None else pools_t.data_ptr(),
+        k_scales[0].data_ptr() if int8 else None, v_scales[0].data_ptr() if int8 else None,
+        None if ks_t is None else ks_t.data_ptr(), None if vs_t is None else vs_t.data_ptr(),
+        side5.data_ptr(), side5.stride(0) * side5.element_size(), entry_pos.data_ptr(),
+        n_rows.data_ptr(), page_tables.data_ptr(), L, B, H, Kw, N, maxp, page_size,
+        X * pool3.element_size(), bits, int(int8),
         torch.cuda.current_stream(pool3.device).cuda_stream,
     )
     _build.check(err, what)
@@ -685,7 +791,7 @@ def flush_side_rows_hm(pool, side, entry_pos, n_rows, page_tables, page_size: in
     returns the pool."""
     if pool.device.type == "cpu":
         return flush_side_rows_hm_plain(pool, side, entry_pos, n_rows, page_tables, page_size)
-    _flush("flush_side_rows_hm", pool, side, entry_pos, n_rows, page_tables, page_size)
+    _flush("flush_side_rows_hm", [pool], side[None], entry_pos, n_rows, page_tables, page_size)
     flush_side_rows_hm.launches += 1
     return pool
 
@@ -698,10 +804,44 @@ def flush_side_rows_2d(pool, side, entry_pos, n_rows, page_tables, page_size: in
     returns the pool."""
     if pool.device.type == "cpu":
         return flush_side_rows_2d_plain(pool, side, entry_pos, n_rows, page_tables, page_size)
-    _flush("flush_side_rows_2d", _pool_2d(pool)[None], side[:, None], entry_pos, n_rows,
+    _flush("flush_side_rows_2d", [_pool_2d(pool)[None]], side[None, :, None], entry_pos, n_rows,
            page_tables, page_size)
     flush_side_rows_2d.launches += 1
     return pool
 
 
 flush_side_rows_2d.launches = 0
+
+
+def flush_side_layers_hm(pools, side, entry_pos, n_rows, page_tables, page_size: int,
+                         k_scales=None, v_scales=None):
+    """Every layer's live window rows ``side`` [L, B, Hkv, Kw, 2D] into its
+    head-major pool (``pools``, L of them) in place, in one launch; over int8
+    pools (their K and V scale arrays given) the fp32 side rows are
+    requantized and their scales written in the same launch. Returns the
+    pools."""
+    if pools[0].device.type == "cpu":
+        return flush_side_layers_hm_plain(pools, side, entry_pos, n_rows, page_tables, page_size,
+                                          k_scales, v_scales)
+    _flush("flush_side_layers_hm", list(pools), side, entry_pos, n_rows, page_tables, page_size,
+           k_scales, v_scales)
+    flush_side_layers_hm.launches += 1
+    return pools
+
+
+flush_side_layers_hm.launches = 0
+
+
+def flush_side_layers_2d(pools, side, entry_pos, n_rows, page_tables, page_size: int):
+    """Every layer's live window latent rows ``side`` [L, B, Kw, X] into its
+    pool ([N, X] or [1, N, X], L of them) in place, in one launch. Returns the
+    pools."""
+    if pools[0].device.type == "cpu":
+        return flush_side_layers_2d_plain(pools, side, entry_pos, n_rows, page_tables, page_size)
+    _flush("flush_side_layers_2d", [_pool_2d(p)[None] for p in pools], side[:, :, None],
+           entry_pos, n_rows, page_tables, page_size)
+    flush_side_layers_2d.launches += 1
+    return pools
+
+
+flush_side_layers_2d.launches = 0

@@ -167,7 +167,7 @@ def _entry(quant: bool):
         scales = [p, p] if quant else []
         stride = [ll] if quant else []
         fn.argtypes = ([p] * 7 + scales + [p, p, i, i, i, i, ll] + stride
-                       + [i, i, ctypes.c_float, i, i, p])
+                       + [i, i, ctypes.c_float, i, i, i, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -183,10 +183,10 @@ def _launch(what, q, k_pages, v_pages, scales, page_tables, context_lens, page_s
     if vp.shape != kp.shape or Dk != D or Hq % Hkv:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
                          f"v {tuple(v_pages.shape)}")
-    pool_dtype = torch.int8 if scales else torch.bfloat16
-    if q.dtype != torch.bfloat16 or kp.dtype != pool_dtype or vp.dtype != pool_dtype:
-        raise NotImplementedError(f"{what} kernel takes bf16 q and {pool_dtype} pools, "
-                                  f"got {q.dtype}/{kp.dtype}/{vp.dtype}")
+    if scales and (kp.dtype != torch.int8 or vp.dtype != torch.int8):
+        raise NotImplementedError(f"{what} kernel takes int8 pools, got {kp.dtype}/{vp.dtype}")
+    fp16 = _build.elem_flag(f"{what} (q{'' if scales else ' and pools'})",
+                            q, *(() if scales else (kp, vp)))
     if D > MAX_HEAD_DIM:
         raise NotImplementedError(f"{what} kernel: head_dim {D} > {MAX_HEAD_DIM}")
     if scales:
@@ -210,7 +210,7 @@ def _launch(what, q, k_pages, v_pages, scales, page_tables, context_lens, page_s
     stride = [scales[0].stride(0)] if scales else []
     err = _entry(bool(scales))(
         *ptrs, page_tables.data_ptr(), context_lens.data_ptr(), B, Hkv, G, D, N, *stride,
-        maxp, page_size, float(scale), int(sliding_window), splits,
+        maxp, page_size, float(scale), int(sliding_window), splits, fp16,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
@@ -373,7 +373,7 @@ def _entry_fused():
     fn = _build.library("paged_attention_fused").zt_paged_decode_attention_fused
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 12 + [i, i, i, i, ll, ll, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = [p] * 12 + [i, i, i, i, ll, ll, i, i, ctypes.c_float, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -419,16 +419,14 @@ def _launch_fused(q, k_pages, v_pages, k_new, v_new, slot_mapping, page_tables, 
     if width != (2 * D if packed else D) or vp.shape != kp.shape or Hq % Hkv:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k_pages.shape)}, "
                          f"v {None if packed else tuple(v_pages.shape)}")
-    if q.dtype != torch.bfloat16 or kp.dtype != torch.bfloat16 or vp.dtype != torch.bfloat16:
-        raise NotImplementedError(f"{what} kernel takes bf16 q and pools, "
-                                  f"got {q.dtype}/{kp.dtype}/{vp.dtype}")
+    fp16 = _build.elem_flag(f"{what} (q and pools)", q, kp, vp)
     if D > MAX_HEAD_DIM:
         raise NotImplementedError(f"{what} kernel: head_dim {D} > {MAX_HEAD_DIM}")
     if k_new.shape != (B, Hkv, D) or v_new.shape != (B, Hkv, D):
         raise ValueError(f"{what}: rows {tuple(k_new.shape)} / {tuple(v_new.shape)}, "
                          f"want {(B, Hkv, D)}")
     # the rows in the pool's dtype, as the reference casts them before the write
-    kn, vn = k_new.to(torch.bfloat16).contiguous(), v_new.to(torch.bfloat16).contiguous()
+    kn, vn = k_new.to(kp.dtype).contiguous(), v_new.to(kp.dtype).contiguous()
     _check_tables(what, B, slot_mapping, page_tables, context_lens)
     _check_devices(what, (q, kp, vp, kn, vn, slot_mapping, page_tables, context_lens))
     maxp = page_tables.shape[1]
@@ -440,7 +438,7 @@ def _launch_fused(q, k_pages, v_pages, k_new, v_new, slot_mapping, page_tables, 
         out.data_ptr(), *_ptrs(scratch), q.data_ptr(), kp.data_ptr(), v_ptr, kn.data_ptr(),
         vn.data_ptr(), slot_mapping.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(),
         B, Hkv, Hq // Hkv, D, width, N, maxp, page_size, float(scale), int(sliding_window),
-        splits, torch.cuda.current_stream(q.device).cuda_stream,
+        splits, fp16, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
     return out
@@ -450,7 +448,7 @@ def _entry_mla_fused():
     fn = _build.library("mla_decode").zt_mla_decode_fused
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, ctypes.c_longlong, i, i, i, ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -487,10 +485,11 @@ def _launch_mla_fused(q_eff, latent_pool, latent_new, slot_mapping, page_tables,
     if not q_eff.is_cuda:
         raise NotImplementedError(f"{what}: no kernel for device {q_eff.device}")
     pool = _pool_2d(latent_pool)
-    B, H, k_dim, N, stored, maxp = check_mla(what, q_eff, pool, page_tables, context_lens, v_dim)
+    B, H, k_dim, N, stored, maxp, fp16 = check_mla(what, q_eff, pool, page_tables, context_lens,
+                                                   v_dim)
     if latent_new.shape != (B, stored):
         raise ValueError(f"{what}: rows {tuple(latent_new.shape)}, want {(B, stored)}")
-    new = latent_new.to(torch.bfloat16).contiguous()
+    new = latent_new.to(pool.dtype).contiguous()
     _check_tables(what, B, slot_mapping, page_tables, context_lens)
     _check_devices(what, (q_eff, pool, new, slot_mapping, page_tables, context_lens))
     splits = mla_plan(q_eff.device, B, H, maxp * page_size)
@@ -498,7 +497,7 @@ def _launch_mla_fused(q_eff, latent_pool, latent_new, slot_mapping, page_tables,
     err = _entry_mla_fused()(
         out.data_ptr(), q_eff.data_ptr(), pool.data_ptr(), new.data_ptr(),
         slot_mapping.data_ptr(), page_tables.data_ptr(), context_lens.data_ptr(), B, H, k_dim,
-        v_dim, N, stored, maxp, page_size, float(scale), splits,
+        v_dim, N, stored, maxp, page_size, float(scale), splits, fp16,
         torch.cuda.current_stream(q_eff.device).cuda_stream,
     )
     _build.check(err, what)

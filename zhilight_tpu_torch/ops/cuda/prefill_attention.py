@@ -136,7 +136,7 @@ def _entry():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_longlong, i, i,
-                       ctypes.c_float, i, p]
+                       ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -166,8 +166,7 @@ def paged_prefill_attention_hm_packed(
         raise ValueError(
             f"prefill attention: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}, {NS} segments"
         )
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.bfloat16:
-        raise NotImplementedError(f"prefill attention kernel takes bf16, got {q.dtype}/{kv_pool.dtype}")
+    fp16 = _build.elem_flag("prefill attention (q and pool)", q, kv_pool)
     if D not in BF16_HEAD_DIMS:
         raise NotImplementedError(f"prefill attention kernel: head_dim {D}")
     for t in (page_tables, cache_lens, q_lens):
@@ -182,7 +181,7 @@ def paged_prefill_attention_hm_packed(
     err = _entry()(
         out.data_ptr(), q.data_ptr(), kv_pool.data_ptr(), page_tables.data_ptr(),
         cache_lens.data_ptr(), q_lens.data_ptr(), NS, T // NS, Hq, Hkv, D, N, maxp,
-        page_size, float(scale), int(sliding_window),
+        page_size, float(scale), int(sliding_window), fp16,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_prefill_attention_hm_packed")
@@ -295,7 +294,7 @@ def _entry_q():
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, i, i,
-                       ctypes.c_float, i, p]
+                       ctypes.c_float, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -328,10 +327,10 @@ def paged_prefill_attention_hm_packed_q(
         raise ValueError(
             f"int8 prefill attention: q {tuple(q.shape)}, pool {tuple(kv_pool.shape)}, {NS} segments"
         )
-    if q.dtype != torch.bfloat16 or kv_pool.dtype != torch.int8:
-        raise NotImplementedError(
-            f"int8 prefill attention kernel takes bf16 q and an int8 pool, got {q.dtype}/{kv_pool.dtype}"
-        )
+    if kv_pool.dtype != torch.int8:
+        raise NotImplementedError(f"int8 prefill attention kernel takes an int8 pool, got "
+                                  f"{kv_pool.dtype}")
+    fp16 = _build.elem_flag("int8 prefill attention (q)", q)
     if D not in BF16_HEAD_DIMS:
         raise NotImplementedError(f"int8 prefill attention kernel: head_dim {D}")
     check_scales("int8 prefill attention", kv_pool, k_scales, v_scales)
@@ -348,7 +347,7 @@ def paged_prefill_attention_hm_packed_q(
         out.data_ptr(), q.data_ptr(), kv_pool.data_ptr(), k_scales.data_ptr(),
         v_scales.data_ptr(), page_tables.data_ptr(), cache_lens.data_ptr(), q_lens.data_ptr(),
         NS, T // NS, Hq, Hkv, D, N, k_scales.stride(0), maxp, page_size, float(scale),
-        int(sliding_window), torch.cuda.current_stream(q.device).cuda_stream,
+        int(sliding_window), fp16, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_prefill_attention_hm_packed_q")
     paged_prefill_attention_hm_packed_q.launches += 1

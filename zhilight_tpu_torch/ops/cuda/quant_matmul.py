@@ -167,8 +167,10 @@ def w4a16_matmul(
             f"w4a16_matmul: x {tuple(x.shape)}, w_p {tuple(w_p.shape)} {w_p.dtype}, "
             f"scales {tuple(scales.shape)}, zeros {tuple(zeros.shape)}"
         )
+    if x.dtype == torch.float16:  # as the reference's kernel: x to bf16, the result back
+        return w4a16_matmul(x.to(torch.bfloat16), w_p, scales, zeros).to(x.dtype)
     if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"w4a16_matmul kernel takes bf16 activations, got {x.dtype}")
+        raise NotImplementedError(f"w4a16_matmul kernel takes bf16 or fp16 activations, got {x.dtype}")
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise ValueError("w4a16_matmul: scales and zeros must be float32")
     if N % 8 or rows % 8:

@@ -153,8 +153,11 @@ def w4a16_ragged_matmul(
             f"w4a16_ragged_matmul: x {tuple(x.shape)}, w_p {tuple(w_p.shape)}, scales "
             f"{tuple(scales.shape)}, zeros {tuple(zeros.shape)}, {tiles} tiles")
     TM = Mp // tiles
+    if x.dtype == torch.float16:  # as the reference's kernel: x to bf16, the result back
+        return w4a16_ragged_matmul(x.to(torch.bfloat16), w_p, scales, zeros, tile_expert,
+                                   num_occ).to(x.dtype)
     if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"w4a16_ragged_matmul kernel takes bf16 activations, got {x.dtype}")
+        raise NotImplementedError(f"w4a16_ragged_matmul kernel takes bf16 or fp16 activations, got {x.dtype}")
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
         raise ValueError("w4a16_ragged_matmul: scales and zeros must be float32")
     if tile_expert.dtype != torch.int32 or num_occ.dtype != torch.int32 or num_occ.numel() != 1:

@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
     python3 chip_smoke.py                         # every phase
     python3 chip_smoke.py --phases kernels,serve  # a subset
+    python3 chip_smoke.py --phases http           # the OpenAI server alone
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
@@ -145,6 +146,23 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            no unfused decode and row writes in prefill only, then one batch-8
            decode step fused against unfused on the same prefilled cache
            (logits, launches, every layer's written rows);
+  http     the OpenAI server (``zhilight_tpu_torch.server.openai``) over
+           MiniCPM-2B (full width and depth; the serve phase's weights where
+           it ran) with prefix caching on the native allocator and a
+           character-level tokenizer written here: first a line saying which
+           of aiohttp, pydantic, transformers, tokenizers, safetensors and
+           prometheus_client import and where the native library was built;
+           then, where aiohttp and pydantic import, ``build_app`` in-process
+           on the loopback (aiohttp's TestServer): /health, /v1/models, one
+           greedy completion held equal to ``generate`` alone on the same
+           ``LLM``, 8 concurrent completions (finish_reason length, usage),
+           8 concurrent streamed chats ending in ``[DONE]`` (client-side
+           TTFT), a request sharing two pages of prefix with another (a
+           prefix hit on the native allocator) and /metrics (generated
+           tokens = tokens served); where either does not import, the layer
+           under the server on the same path, saying so (string prompts, a
+           stop string, streaming through ``IncrementalDetokenizer``, the
+           prefix hit);
   timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
            3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
@@ -167,6 +185,7 @@ non-zero without the ``ok`` line; so does a machine without a CUDA GPU.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import dataclasses
 import json
@@ -365,6 +384,9 @@ PATHS = {
                                          "w4a16_matmul", "paged_mla_decode_fused"),
     # an int8 head-major pool at head_dim 256 (4 layers at Gemma-2-9B's heads)
     "Gemma-2-9B-geometry-4-layers-int8kv": ("rope_write_rows_hm",) + INT8_KERNELS,
+    # the OpenAI server (or the layer under it) over MiniCPM-2B with prefix
+    # caching on the native allocator
+    "MiniCPM-2B-http": ATTENTION_KERNELS,
 }
 # a fused path's row write: layers x prefill forwards launches, none in decode
 FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "rope_write_rows_pair",
@@ -4472,6 +4494,290 @@ def head_dim_256_int8_path(rec: dict, args) -> None:
 # phase: timing (bench.py's method)
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# http: the OpenAI server (zhilight_tpu_torch.server.openai) over MiniCPM-2B
+
+# the server's and the tokenizer's packages, reported as the card has them
+SERVING_PACKAGES = ("aiohttp", "pydantic", "transformers", "tokenizers", "safetensors",
+                    "prometheus_client")
+HTTP_LENS = [7, 100, 513, 1500, 16, 250, 40, 900]  # characters (= tokens) of 8 prompts
+HTTP_MAXLEN = 32
+HTTP_PROMPT = "the quick brown"  # under one page: no prefix match on either run
+# a prompt of 3 full pages and one that shares its first 2 (page_size 16)
+PREFIX_PAIR = ("a" * 7 + " shared system prompt of two pages" + " x" * 7,
+               "a" * 7 + " shared system prompt of two pages, then another question")
+
+
+class CharTokenizer:
+    """A character-level tokenizer for the http phase (test scaffolding, as
+    tests/test_openai_server.py's ToyTokenizer): a character is one id in
+    [3, vocab_size), an id decodes to a letter, chat messages concatenate."""
+
+    def __init__(self, vocab_size: int, eos_token_id: int = 2):
+        self.vocab_size, self.eos_token_id = vocab_size, eos_token_id
+
+    def encode(self, text):
+        return [3 + ord(c) % (self.vocab_size - 3) for c in text]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(chr(97 + int(i) % 26) for i in ids if int(i) >= 3)
+
+    def apply_chat_template(self, messages, tokenize=True, add_generation_prompt=True, **kw):
+        return self.encode("".join(m["content"] or "" for m in messages))
+
+
+def _http_prompts(seed: int):
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz "))
+    return ["".join(rng.choice(letters, n)) for n in HTTP_LENS]
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def _generation_tokens(text: str) -> float:
+    for line in text.splitlines():
+        if line.startswith("zhilight_generation_tokens_total "):
+            return float(line.split()[1])
+    raise AssertionError("/metrics has no zhilight_generation_tokens_total")
+
+
+async def _sse(resp, t0: float):
+    """(parsed data chunks, seconds from ``t0`` to the first chunk after the
+    role chunk) of a streamed response, holding the ``[DONE]`` sentinel."""
+    chunks, first = [], None
+    async for raw in resp.content:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        data = line[len("data: "):]
+        if data == "[DONE]":
+            return chunks, first
+        chunk = json.loads(data)
+        if first is None and not chunk["choices"][0]["delta"].get("role"):
+            first = time.monotonic() - t0
+        chunks.append(chunk)
+    raise AssertionError("a stream ended without data: [DONE]")
+
+
+async def http_layer(engine, tok, prompts, chats, label: str, smi: str) -> dict:
+    """The server in-process on the loopback (aiohttp's TestServer): health
+    and models, one greedy completion alone, 8 concurrent completions, 8
+    concurrent streamed chats (other prompts, so that no prefix is cached), a
+    request sharing 2 pages of prefix with another, and /metrics. Returns the completion's text (to hold against
+    ``generate``) and the tokens served."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from zhilight_tpu_torch.server.openai.api_server import build_app
+
+    client = TestClient(TestServer(build_app(engine, label), host="127.0.0.1"))
+    await client.start_server()
+    try:
+        r = await client.get("/health")
+        _require(r.status == 200, f"/health {r.status}")
+        r = await client.get("/v1/models")
+        _require((await r.json())["data"][0]["id"] == label, "/v1/models")
+        r = await client.get("/metrics")
+        before = _generation_tokens(await r.text())
+
+        r = await client.post("/v1/completions", json={
+            "prompt": HTTP_PROMPT, "max_tokens": HTTP_MAXLEN, "temperature": 0})
+        _require(r.status == 200, f"/v1/completions {r.status}: {await r.text()}")
+        solo = await r.json()
+        served = solo["usage"]["completion_tokens"]
+
+        body = lambda p: {"prompt": p, "max_tokens": HTTP_MAXLEN, "temperature": 0,
+                          "ignore_eos": True}
+
+        async def complete(p):
+            r = await client.post("/v1/completions", json=body(p))
+            _require(r.status == 200, f"/v1/completions {r.status}: {await r.text()}")
+            return await r.json()
+
+        t0 = time.monotonic()
+        outs = await asyncio.gather(*(complete(p) for p in prompts))
+        wall = time.monotonic() - t0
+        for p, out in zip(prompts, outs):
+            c, u = out["choices"][0], out["usage"]
+            _require(c["finish_reason"] == "length", f"finish_reason {c['finish_reason']}")
+            _require(u["prompt_tokens"] == len(tok.encode(p)) and
+                  u["completion_tokens"] == HTTP_MAXLEN and
+                  u["total_tokens"] == u["prompt_tokens"] + HTTP_MAXLEN, f"usage {u}")
+            _require(len(c["text"]) <= HTTP_MAXLEN, f"text of {len(c['text'])} characters")
+        tokens = sum(o["usage"]["completion_tokens"] for o in outs)
+        served += tokens
+
+        async def chat(p):
+            t0 = time.monotonic()
+            r = await client.post("/v1/chat/completions", json={
+                "messages": [{"role": "user", "content": p}], "max_tokens": HTTP_MAXLEN,
+                "temperature": 0, "ignore_eos": True, "stream": True})
+            _require(r.status == 200, f"/v1/chat/completions {r.status}")
+            chunks, ttft = await _sse(r, t0)
+            last = chunks[-1]
+            _require(last["choices"][0]["finish_reason"] == "length", f"stream finish {last}")
+            _require(last["usage"]["completion_tokens"] == HTTP_MAXLEN, f"stream usage {last}")
+            text = "".join(c["choices"][0]["delta"].get("content") or "" for c in chunks)
+            _require(len(text) <= HTTP_MAXLEN, f"streamed text of {len(text)} characters")
+            return ttft
+
+        t0 = time.monotonic()
+        ttfts = await asyncio.gather(*(chat(p) for p in chats))
+        chat_wall = time.monotonic() - t0
+        served += len(chats) * HTTP_MAXLEN
+
+        for p in PREFIX_PAIR:
+            out = await complete(p)
+            served += out["usage"]["completion_tokens"]
+
+        r = await client.get("/metrics")
+        counted = _generation_tokens(await r.text()) - before
+        _require(counted == served, f"/metrics counted {counted} generated tokens, {served} served")
+    finally:
+        await client.close()
+    print(f"http: {label}: 8 concurrent completions (prompts of {min(HTTP_LENS)} to "
+          f"{max(HTTP_LENS)} tokens, {HTTP_MAXLEN} new each): {tokens} tokens in {wall:.3f} s "
+          f"= {tokens / wall:.1f} tok/s aggregate; 8 concurrent streamed chats in "
+          f"{chat_wall:.3f} s, client TTFT median {statistics.median(ttfts) * 1e3:.1f} ms, "
+          f"max {max(ttfts) * 1e3:.1f} ms; {smi}", flush=True)
+    print(f"http: {label}: /metrics zhilight_generation_tokens_total rose by {counted:.0f} = "
+          f"the {served} tokens served", flush=True)
+    return dict(text=solo["choices"][0]["text"], finish=solo["choices"][0]["finish_reason"])
+
+
+def below_http(gen, tok, prompts, label: str) -> dict:
+    """The layer under the server on the same path: string prompts through
+    ``DynamicBatchGenerator``, a stop string, streaming through
+    ``IncrementalDetokenizer`` and the shared-prefix pair."""
+    from zhilight_tpu_torch.engine import GeneratorArg
+
+    greedy = lambda **kw: GeneratorArg(max_length=HTTP_MAXLEN, temperature=0.0, **kw)
+    solo = gen.generate(HTTP_PROMPT, greedy()).outputs[0]
+    results = gen.batch_generate(prompts, greedy(ignore_eos=True))
+    for p, r in zip(prompts, results):
+        out = r.outputs[0]
+        _require(r.input_tokens_num == len(tok.encode(p)), "prompt tokens")
+        _require(len(out.token_ids) == HTTP_MAXLEN and out.finish_reason == "length",
+              f"{len(out.token_ids)} tokens, {out.finish_reason}")
+        _require(out.text == tok.decode(out.token_ids), "text is not the decoded tokens")
+    # a stop string: 3 letters of a greedy output of the same prompt alone
+    full = gen.generate(HTTP_PROMPT, greedy(ignore_eos=True)).outputs[0].text
+    _require(len(full) >= 8, f"a greedy output of {len(full)} characters")
+    stop = full[5:8]
+    cut = gen.generate(HTTP_PROMPT, greedy(ignore_eos=True, stop_strings=[stop])).outputs[0]
+    _require(cut.finish_reason == "stop" and cut.text == full[: full.find(stop)],
+          f"stop string {stop!r}: {cut.text!r}, {cut.finish_reason}")
+    # streaming: the increments concatenate to the output's text
+    parts = list(gen.stream_generate(prompts[2], greedy(ignore_eos=True)))
+    streamed, final = "".join(p["text"] for p in parts), parts[-1]["output"]
+    _require(streamed == final.text, "streamed text differs from the output's")
+    for p in PREFIX_PAIR:
+        gen.generate(p, greedy())
+    print(f"http: {label}: string prompts, a stop string ({stop!r}: {len(cut.text)} of "
+          f"{len(full)} characters, finish stop) and a stream of {len(parts)} increments "
+          f"through IncrementalDetokenizer", flush=True)
+    return dict(text=solo.text, finish=solo.finish_reason)
+
+
+def phase_http(rec: dict, args, smi: str) -> None:
+    import importlib
+
+    from zhilight_tpu_torch import native
+    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    found = {}
+    for name in SERVING_PACKAGES:  # the phase's one conditional: what the card has
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except ImportError:
+            found[name] = None
+    t0 = time.monotonic()
+    lib = native.load()
+    print("http: packages: " + ", ".join(f"{n} {v or 'does not import'}"
+                                         for n, v in found.items())
+          + f"; native library built and loaded in {time.monotonic() - t0:.2f} s: {lib._name}",
+          flush=True)
+    missing = [n for n in ("aiohttp", "pydantic") if found[n] is None]
+
+    label, cfg = "MiniCPM-2B-http", minicpm_2b()
+    base = args.llms.get("MiniCPM-2B")
+    params = base.executor.params if base else L.init_params(cfg, seed=args.seed, device="cuda")
+    tok = CharTokenizer(cfg.vocab_size)
+    llm = LLM(model_config=cfg, params=params, tokenizer=tok, device="cuda",
+              engine_config=EngineConfig(
+                  max_model_len=4096, cache=CacheConfig(page_size=16, enable_prefix_caching=True),
+                  scheduler=SchedulerConfig(max_batch=16, chunk_size=512)))
+    prompts = _http_prompts(args.seed)
+    try:
+        warm = llm.executor.warmup()
+        gen = DynamicBatchGenerator(llm).start()
+        try:
+            alloc = gen.scheduler.allocator
+            _require(type(alloc) is native.NativePageAllocator, f"the scheduler's allocator is "
+                  f"{type(alloc).__name__}, not the native one")
+            matched = []  # pages each admission's prefix match returned
+            match = alloc.match_prefix
+
+            def spy(tokens):
+                pages, n = match(tokens)
+                matched.append(len(pages))
+                return pages, n
+
+            alloc.match_prefix = spy
+            print(f"http: {label}: {cfg.num_layers} layers, d {cfg.dim_model}, vocab "
+                  f"{cfg.vocab_size}, {llm.executor.num_pages} KV pages, prefix caching on the "
+                  f"native allocator, warmup {warm:.1f} s", flush=True)
+            counters = _counters()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.monotonic()
+            if missing:
+                print(f"http: HTTP layer not run on this machine: {', '.join(missing)} "
+                      f"do not import", flush=True)
+                got = below_http(gen, tok, prompts, label)
+            else:
+                from zhilight_tpu_torch.server.openai.serving import AsyncEngine
+
+                got = asyncio.run(http_layer(AsyncEngine(llm, gen), tok, prompts,
+                                             _http_prompts(args.seed + 1), label, smi))
+            torch.cuda.synchronize()
+            launches = {name: fn.launches for name, fn in counters.items()}
+            wall = time.monotonic() - t0
+            alloc.match_prefix = match
+            hits = matched[-1]  # the pair's second request came last
+            _require(hits > 0, f"no prefix hit on the native allocator: pages matched {matched}")
+            print(f"http: {label}: the prefix pair's second request matched {hits} cached "
+                  f"pages on the native allocator", flush=True)
+            # the completion against generate alone on the same LLM
+            ref = [gen.generate(HTTP_PROMPT, GeneratorArg(max_length=HTTP_MAXLEN,
+                                                          temperature=0.0)).outputs[0]
+                   for _ in range(2)]
+        finally:
+            gen.stop()
+    finally:
+        release_pool(llm)
+    for name, n in launches.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"][label] = n
+    print(f"http: {label}: drove the path in {wall:.2f} s; launches {launches}", flush=True)
+    if any(launches[name] == 0 for name in PATHS[label]):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    if any(n for name, n in launches.items() if name not in PATHS[label]):
+        raise AssertionError(f"{label}: a kernel of another path launched: {launches}")
+    _require(ref[0].text == ref[1].text, "two runs of generate alone differ")
+    _require((got["text"], got["finish"]) == (ref[0].text, ref[0].finish_reason),
+          f"the completion {got} differs from generate's {ref[0].text!r}, "
+          f"{ref[0].finish_reason}")
+    print(f"http: {label}: the greedy completion equals generate alone on the same LLM "
+          f"({len(ref[0].text)} characters, finish {ref[0].finish_reason}); two runs of "
+          f"generate agree", flush=True)
+
+
 TIMING = {  # path -> (decode batch, context, time sampled decode too, TTFT prompt or 0 for none)
     "MiniCPM-2B": (16, 512, True, 3712),
     "Qwen2.5-14B-GPTQ-Int4": (8, 3712, False, 3712),
@@ -4650,7 +4956,7 @@ def profile(what: str, fn, steps: int = 0) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,timing")
+    ap.add_argument("--phases", default="kernels,serve,http,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
@@ -4694,6 +5000,8 @@ def main() -> int:
                 phase_kernels(rec, args)
             elif phase == "serve":
                 phase_serve(rec, args)
+            elif phase == "http":
+                phase_http(rec, args, smi)
             elif phase == "timing":
                 phase_timing(args, smi)
             else:

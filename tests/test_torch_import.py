@@ -68,3 +68,31 @@ def test_llm_without_device_raises_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLM(model_config=ModelConfig(num_layers=1, dim_model=64, num_heads=1, dim_head=64,
                                      dim_ff=64, vocab_size=8, dtype="float32"), params={})
+
+
+SERVING = ("aiohttp", "pydantic", "transformers", "tokenizers", "prometheus_client")
+
+
+def test_package_and_llm_leave_the_serving_packages_out():
+    """The server's and the tokenizer's packages load only with the server
+    modules or a tokenizer: ``LLM`` on token ids needs none of them."""
+    code = (
+        "import sys\n"
+        "import zhilight_tpu_torch, zhilight_tpu_torch.llm\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {SERVING + FOREIGN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_server_and_native_modules_are_covered():
+    assert {"zhilight_tpu_torch.native", "zhilight_tpu_torch.server",
+            "zhilight_tpu_torch.server.openai.api_server",
+            "zhilight_tpu_torch.server.openai.metrics",
+            "zhilight_tpu_torch.server.openai.protocol",
+            "zhilight_tpu_torch.server.openai.reasoning",
+            "zhilight_tpu_torch.server.openai.serving"} <= set(MODULES)

@@ -273,7 +273,7 @@ def test_scoring_leaves_serving_state_alone_and_refuses_strings(weights):
     np.testing.assert_allclose(got, roomy_llm(weights).calc_logits([5, 9, 12, 33]), rtol=0, atol=0)
     for arrays, now in zip(before, llm8.executor.cache.arrays()):
         assert all(torch.equal(a, b) for a, b in zip(arrays, now))
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+    with pytest.raises(ValueError, match="no tokenizer for string input"):
         llm8.calc_logits("a string")
 
 

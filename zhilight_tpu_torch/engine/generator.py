@@ -66,7 +66,9 @@ class DynamicBatchGenerator:
         if isinstance(prompt, list) and prompt and isinstance(prompt[0], (int, np.integer)):
             return [int(t) for t in prompt]
         if self.tokenizer is None:
-            raise ValueError("no tokenizer available; pass token ids")
+            # an LLM whose tokenizer files could not load says why
+            raise getattr(self.model, "tokenizer_error", None) or ValueError(
+                "no tokenizer available; pass token ids")
         if isinstance(prompt, list):  # chat messages
             return list(
                 self.tokenizer.apply_chat_template(

@@ -52,7 +52,11 @@ def ngram_penalty_map(
 ) -> Dict[int, float]:
     """Combined ngram x repetition multiplicative map for one sequence
     (reference apply_beam_repetition_penalty: value = ngram_map[t] * rep).
-    The port has the Python implementation only."""
+    Uses the C++ implementation (csrc/native.cpp) unless ``ZT_NO_NATIVE=1``."""
+    from .. import native
+
+    if native.enabled():
+        return native.native_ngram_penalty_map(all_tokens, ngram_penalty, repetition_penalty)
     rev = list(all_tokens)[::-1]
     m = calc_repetition_ngram(rev, ngram_penalty)
     return {t: v * repetition_penalty for t, v in m.items()}

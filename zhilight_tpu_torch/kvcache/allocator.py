@@ -8,7 +8,9 @@ eviction of unreferenced cached pages. This is pure host bookkeeping — the
 device only ever sees page-index tables, so no device allocation/defrag is
 needed (the reference's defragmentation machinery has no TPU analogue by design).
 
-Copy of ``zhilight_tpu/kvcache/allocator.py`` without the native bridge.
+Copy of ``zhilight_tpu/kvcache/allocator.py``. The scheduler takes the C++
+allocator (``zhilight_tpu_torch/native``, a subclass of :class:`PageAllocator`)
+unless ``ZT_NO_NATIVE=1`` asks for this Python one.
 """
 
 from __future__ import annotations
@@ -20,9 +22,14 @@ __all__ = ["PageAllocator", "make_page_allocator"]
 
 
 def make_page_allocator(num_pages: int, page_size: int, enable_prefix_cache: bool = False):
-    """The page allocator the scheduler uses. The port has the Python
-    implementation only; the ctypes bridge to the reference's C++ allocator
-    (``csrc/native.cpp``) is a later slice."""
+    """The page allocator the scheduler uses: the C++ one
+    (``csrc/native.cpp``), or the Python one below under ``ZT_NO_NATIVE=1``.
+    Both expose the same surface; tests assert behavioral parity. A failed
+    build of the C++ one raises."""
+    from .. import native
+
+    if native.enabled():
+        return native.NativePageAllocator(num_pages, page_size, enable_prefix_cache)
     return PageAllocator(num_pages, page_size, enable_prefix_cache)
 
 
@@ -128,6 +135,9 @@ class PageAllocator:
         """
         if not self.enable_prefix_cache:
             return [], 0
+        return self._match_full_pages(tokens)
+
+    def _match_full_pages(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
         pages: List[int] = []
         key = 0
         n = 0

@@ -3,15 +3,23 @@
 ``LLM(model_path=...)`` reads an HF checkpoint directory (``config.json``,
 ``generation_config.json``, safetensors or torch ``.bin`` weights: dense,
 GPTQ/AWQ int4, or FP8, which is dequantized at load unless ``ZT_FP8_KEEP=1``
-keeps it for the FP8 kernel); ``LLM(model_config=..., params=..., quant_config=...)``
-takes in-memory weights. ``QuantType.AUTO_INT8`` quantizes a raw checkpoint to
-W8A8 int8 at load, and ``LLM.load_with_smooth_quant`` calibrates it first.
-``llm.generator()`` (or ``DynamicBatchGenerator(llm)``) serves requests on
-token ids. The device defaults to the GPU and there is no
-silent move to the CPU: without a GPU, ``device`` must be given as ``"cpu"``.
-The scoring utilities (``calc_logits``, ``calc_hidden_states``,
-``calc_log_prob``, ``calc_loss``, ``calc_greedy_match``) take token ids. The
-tokenizer (string input) is a later slice of the port.
+keeps it for the FP8 kernel) and, where the directory holds tokenizer files,
+its tokenizer (``transformers.AutoTokenizer``); ``LLM(model_config=...,
+params=..., quant_config=..., tokenizer=...)`` takes in-memory weights and
+any tokenizer with ``encode``, ``decode`` and ``apply_chat_template``.
+``QuantType.AUTO_INT8`` quantizes a raw checkpoint to W8A8 int8 at load, and
+``LLM.load_with_smooth_quant`` calibrates it first. ``llm.generator()`` (or
+``DynamicBatchGenerator(llm)``) serves requests on token ids, strings or chat
+messages. The device defaults to the GPU and there is no silent move to the
+CPU: without a GPU, ``device`` must be given as ``"cpu"``. The scoring
+utilities (``calc_logits``, ``calc_hidden_states``, ``calc_log_prob``,
+``calc_loss``, ``calc_greedy_match``) take token ids or a string.
+
+A directory without tokenizer files leaves ``tokenizer`` at None (string
+input then raises ``ValueError``). With tokenizer files but no
+``transformers`` installed, ``tokenizer`` stays None and ``tokenizer_error``
+holds the ImportError that string input and the server's start raise, so
+token ids still serve; any other failure to load the tokenizer propagates.
 """
 
 from __future__ import annotations
@@ -33,8 +41,23 @@ from .utils.hf_loader import load_hf_state
 __all__ = ["LLM"]
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
+# the files a tokenizer loads from: a directory holding none of them has no tokenizer
+_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model", "vocab.json",
+                   "vocab.txt", "spiece.model", "sentencepiece.bpe.model")
+
+
+def _load_tokenizer(model_path: str):
+    """(tokenizer, error): the directory's tokenizer, or None and the
+    ImportError to raise on string input when ``transformers`` is missing."""
+    if not any(os.path.exists(os.path.join(model_path, f)) for f in _TOKENIZER_FILES):
+        return None, None
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        return None, ImportError(
+            f"{model_path} holds a tokenizer, and loading it needs the 'transformers' "
+            f"package, which does not import ({e}); pass token ids, or a tokenizer")
+    return AutoTokenizer.from_pretrained(model_path, trust_remote_code=True), None
 
 
 def _load_generation_eos(model_path: str) -> list:
@@ -60,8 +83,6 @@ class LLM:
         tokenizer=None,
         device=None,
     ):
-        if tokenizer is not None:
-            _not_ported("tokenizer support")
         self.engine_config = engine_config or EngineConfig(model_path=model_path)
         self.hf_config = {}
         if model_path:
@@ -80,7 +101,9 @@ class LLM:
                 )
             device = "cuda"
         self.device = torch.device(device)
-        self.tokenizer = None
+        self.tokenizer, self.tokenizer_error = tokenizer, None
+        if model_path and tokenizer is None:
+            self.tokenizer, self.tokenizer_error = _load_tokenizer(model_path)
 
         if params is None:
             params = load_hf_state(
@@ -92,7 +115,14 @@ class LLM:
                 from .utils.quant_convert import quantize_int8_params
 
                 params = quantize_int8_params(params, alpha=self.quant_config.smooth_alpha)
-        eos_ids = _load_generation_eos(model_path) if model_path else []
+        # the EOS set: the tokenizer's eos first, then generation_config.json's
+        # ids (e.g. Llama-3's [eos, eot_id]); any member stops generation
+        eos_ids: list = []
+        if getattr(self.tokenizer, "eos_token_id", None) is not None:
+            eos_ids.append(int(self.tokenizer.eos_token_id))
+        for gen_eos in (_load_generation_eos(model_path) if model_path else []):
+            if gen_eos not in eos_ids:
+                eos_ids.append(gen_eos)
         if eos_ids:
             sched = self.engine_config.scheduler
             self.engine_config = dataclasses.replace(
@@ -109,7 +139,7 @@ class LLM:
     # SmoothQuant calibration
     # ------------------------------------------------------------------
     def calc_act_scales(self, prompts, calib_len: int = 512) -> Dict[str, np.ndarray]:
-        """Run calibration prompts (token ids) through the model and return
+        """Run calibration prompts (token ids or strings) through the model and return
         the per-channel activation |max| of every quantized linear's input
         (parameter path -> [in] float32). Each prompt is tiled or truncated
         to ``calib_len`` tokens."""
@@ -138,25 +168,30 @@ class LLM:
     ) -> "LLM":
         """The SmoothQuant flow from a raw fp16/bf16 checkpoint: load it,
         calibrate the activation scales on ``calibration_prompts`` (token
-        ids), migrate the outliers into the weights (``alpha``) and serve
+        ids or strings), migrate the outliers into the weights (``alpha``) and serve
         W8A8 int8 on the same device."""
         from .utils.quant_convert import quantize_int8_params
 
         base = cls(model_path=model_path, engine_config=engine_config, **kw)
         scales = base.calc_act_scales(calibration_prompts, calib_len=calib_len)
         params, device = base.executor.params, base.device
-        mc, ec = base.model_config, base.engine_config
+        mc, ec, tok, tok_err = (base.model_config, base.engine_config, base.tokenizer,
+                                base.tokenizer_error)
         base.executor = None  # release the KV pool before the rebuild
         del base
-        return cls(model_config=mc, engine_config=ec, device=device,
-                   params=quantize_int8_params(params, scales, alpha))
+        llm = cls(model_config=mc, engine_config=ec, device=device, tokenizer=tok,
+                  params=quantize_int8_params(params, scales, alpha))
+        llm.tokenizer_error = tok_err
+        return llm
 
     # ------------------------------------------------------------------
-    # scoring utilities, on token ids
+    # scoring utilities, on token ids or a string
     # ------------------------------------------------------------------
     def _encode_ids(self, tokens) -> np.ndarray:
         if isinstance(tokens, str):
-            _not_ported("string input (tokenizer support)")
+            if self.tokenizer is None:
+                raise self.tokenizer_error or ValueError("no tokenizer for string input")
+            tokens = self.tokenizer.encode(tokens)
         return np.asarray(list(tokens), dtype=np.int32)
 
     def calc_logits(self, tokens) -> np.ndarray:

@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
     python3 chip_smoke.py                         # every phase
     python3 chip_smoke.py --phases kernels,serve  # a subset
+    python3 chip_smoke.py --phases multimodal     # DeepSeek-VL2-small's language path alone
     python3 chip_smoke.py --phases http           # the OpenAI server alone
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
@@ -86,6 +87,25 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            kernel with fp16 inputs (q, rows and model-dtype pools; fp16 q over
            int8 pools) against its plain version in fp16, rows 2, 3 and 10
            timed in fp16 beside bf16;
+  multimodal  DeepSeek-VL2-small's language model (``VL2_SMALL``, a
+           ``deepseek_vl_v2`` config.json whose nested ``language_config`` is
+           parsed by ``adapt_hf_config``: 27 layers, full width, MLA over a
+           latent pool, 64 + 2 experts of 1408, top 6; bf16 with bf16 expert
+           stacks, about 15.7 B parameters drawn on the card from the seed)
+           fed embedding rows through ``LLM`` + ``DynamicBatchGenerator`` with
+           prefix caching on, launch counters zeroed just before and read
+           just after: a 1500-token prompt as token ids and as its own rows
+           (the same greedy tokens; teacher-forced, the same logits), two
+           image prompts over the same placeholder ids (no prefix hit,
+           nothing cached, different first-token logits), position ids
+           0..n-1 against none (the same tokens), the ``DeepseekVL2``
+           language shim over a stand-in module (the card table's rows);
+           then an image prompt's first-token logits against the plain path,
+           one and two requests decoded teacher-forced against the plain path
+           in the engine's batch of 8 over its page tables (each row 2b call
+           against its split-count twin and plain version, MoE routing parting
+           only at near ties), its TTFT and batch-1 decode tok/s; the weights
+           are then freed;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -387,6 +407,10 @@ PATHS = {
     # the OpenAI server (or the layer under it) over MiniCPM-2B with prefix
     # caching on the native allocator
     "MiniCPM-2B-http": ATTENTION_KERNELS,
+    # DeepSeek-VL2-small's language model fed image rows (input_embeddings):
+    # bf16 experts go through the library's grouped GEMM, MLA prefill is
+    # plain torch
+    "DeepSeek-VL2-small-multimodal": ("rope_write_rows_2d", "paged_mla_decode"),
 }
 # a fused path's row write: layers x prefill forwards launches, none in decode
 FUSED_PREFILL_WRITES = {"H2O-Danube-1.8B-fused": "rope_write_rows_pair",
@@ -461,6 +485,19 @@ DANUBE_1_8B = {
     "num_key_value_heads": 8, "vocab_size": 32000, "max_position_embeddings": 16384,
     "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "sliding_window": 4096,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16", "bos_token_id": 1, "eos_token_id": 2,
+}
+
+
+# deepseek-ai/deepseek-vl2-small's config.json as far as the language model
+# goes: the DeepSeek-VL2 paper's Table 1 gives DeepSeekMoE-16B with MLA (27
+# layers, d 2048, kv_lora_rank 512, 64 routed + 2 shared experts, top 6); every
+# other field of language_config is DeepSeek-V2-Lite's public value (the dict
+# above), a stand-in. Served in bf16 with bf16 expert stacks, as it ships.
+VL2_SMALL = {
+    "model_type": "deepseek_vl_v2", "architectures": ["DeepseekVLV2ForCausalLM"],
+    "torch_dtype": "bfloat16",
+    "language_config": {k: v for k, v in DEEPSEEK_V2_LITE_GPTQ.items()
+                        if k != "quantization_config"},
 }
 
 
@@ -3271,14 +3308,16 @@ def plain_kernels():
         yield
 
 
-def _prefill_logits(ex, prompt, quantized=None):
+def _prefill_logits(ex, prompt, quantized=None, emb=None):
     """Last-token logits [V] of one prompt through the model's forward on a
     scratch cache (identity page table) of the serving pool's kind, or as
-    ``quantized`` says."""
+    ``quantized`` says; ``emb`` [n, d] (fp32, host) replaces the prompt's
+    token embeddings, cast to the model's dtype as the executor casts them."""
     from zhilight_tpu_torch.models import llama as L
     from zhilight_tpu_torch.models.base import PrefillMeta
 
     cfg, S, n = ex.cfg, ex.page_size, len(prompt)
+    rows = None if emb is None else ex._emb_arg(np.asarray(emb, np.float32), n)
     pages = (n + S - 1) // S
     cache = ex.new_cache(pages, quantized)
     i32 = dict(dtype=torch.int32, device=ex.device)
@@ -3289,7 +3328,7 @@ def _prefill_logits(ex, prompt, quantized=None):
     )
     with torch.no_grad():
         logits, _ = L.forward_prefill(ex.params, cfg, ex.rope,
-                                      torch.tensor(prompt, **i32), meta, cache)
+                                      torch.tensor(prompt, **i32), meta, cache, rows)
     return logits
 
 
@@ -3902,32 +3941,59 @@ def fp16_qwen_path(rec: dict, args, base) -> None:
     if not (cache.packed and cache.k[0].dtype == torch.float16):
         raise AssertionError(f"{label}: pool {cache.k[0].dtype}, packed {cache.packed}")
     prompts, _ = serve_path(label, llm, rec, args.seed)
-    teacher_forced_vs_plain(label, llm.executor, prompts[:4], steps=8)
+    teacher_forced(label, llm.executor, prompts[:4], steps=8)
     args.llms[label] = llm
     release_pool(llm)
 
 
-def teacher_forced_vs_plain(label: str, ex, prompts, steps: int) -> None:
-    """The prompts prefilled through the kernels (512-token chunks) into a
-    scratch cache, copied for the plain path; then ``steps`` batched decode
-    steps through the kernels and through the plain path (plain_kernels), each
-    on its own cache, both fed the plain path's argmax. Held (the
-    teacher-forced rule of the fused-KV card test): every step's logits within 2e-2 of the row's
-    largest plain logit, and the same argmax wherever the plain top-2 gap
-    exceeds twice the largest difference."""
+def teacher_forced(label: str, ex, prompts, steps: int, embs=None, against: str = "plain",
+                   pages_per_seq: int = 0, batch: int = 0, tol: float = 2e-2) -> None:
+    """The prompts prefilled through the kernels (512-token chunks; ``embs``:
+    each prompt's embedding rows [n, d], fp32 on the host, or None) into a
+    scratch cache, then ``steps`` batched decode steps fed the other side's
+    argmax. ``against="plain"``: the cache copied and decoded through the
+    plain path (plain_kernels), each latent decode (row 2b) of the kernel
+    side held against its split-count twin and its plain version on the
+    same inputs (ATTN_TOL, idle rows zero, as the kernels phase holds it).
+    ``against="ids"``: the prompts as token ids prefilled and decoded
+    through the kernels into a cache of their own, the first-token logits
+    held too. ``pages_per_seq`` and ``batch``: the decode's page-table width
+    and row count, by default what the prompts need; the serving engine's
+    (its max_pages_per_seq and max_batch, the rows past the prompts idle at
+    context 0 as the engine's idle slots) give the kernels the engine's
+    shapes and split plans.
+
+    MoE routing: where a token's top-k experts on the kernel side part from
+    the other side's in the same layer and step, the parting must be a near
+    tie (the other side's gap between its k-th expert and the kernel side's
+    pick at most twice the row's largest router-logit difference); the token
+    then takes the other side's experts and weights, so that one rounding
+    flip does not stand for the rest of the step (as
+    tests/test_torch_multimodal.py holds the port's MoE to the reference's).
+    Held (the teacher-forced rule of the fused-KV card test): every step's
+    logits within ``tol`` of the row's largest logit on the other side, and
+    the same argmax wherever that side's top-2 gap exceeds twice the largest
+    difference."""
+    from types import SimpleNamespace
+    from unittest import mock
+
     from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models import mla as mla_mod
+    from zhilight_tpu_torch.models import moe as moe_mod
     from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 
     cfg, S, B = ex.cfg, ex.page_size, len(prompts)
     i32 = dict(dtype=torch.int32, device=ex.device)
-    maxp = max((len(p) + steps) // S + 1 for p in prompts)
-    cache = ex.new_cache(B * maxp)
-    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+    maxp = pages_per_seq or max((len(p) + steps) // S + 1 for p in prompts)
+    rows = max(batch, B)
+    tables = torch.full((rows, maxp), -1, **i32)
+    tables[:B] = torch.arange(B * maxp, **i32).reshape(B, maxp)
     slots = lambda b, pos: (tables[b, (pos // S).long()] * S + pos % S).to(torch.int32)
-    rows_b = torch.arange(B, device=ex.device)
-    steps_out = []
-    with torch.no_grad():
-        first = []
+    active, idle = torch.arange(B, device=ex.device), torch.zeros(rows - B, **i32)
+
+    def prefill(embs):
+        cache, last = ex.new_cache(B * maxp), []
         for b, p in enumerate(prompts):
             for start in range(0, len(p), 512):
                 toks = torch.tensor(p[start : start + 512], **i32)
@@ -3935,24 +4001,88 @@ def teacher_forced_vs_plain(label: str, ex, prompts, steps: int) -> None:
                 meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
                                    cache_len=torch.tensor(start, **i32),
                                    q_len=torch.tensor(len(toks), **i32))
-                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache)
-            first.append(int(logits.argmax()))
-        caches = {"kernels": cache, "plain": dataclasses.replace(cache, **{
-            f: [a.clone() for a in getattr(cache, f)] for f in ("k", "v", "latent", "k_scale",
-                                                                 "v_scale")
-            if getattr(cache, f) is not None})}
-        tokens = torch.tensor(first, **i32)
+                emb = None if embs is None or embs[b] is None else ex._emb_arg(
+                    np.asarray(embs[b][start : start + 512], np.float32), len(toks))
+                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache, emb)
+            last.append(logits.float())
+        return cache, torch.stack(last)
+
+    select, mla = moe_mod.select_experts, A.paged_mla_decode
+    routes, seen = [], dict(routed=0, parted=0, ratio=0.0, calls=0, twin=0.0, plain=0.0, size=0.0)
+
+    def select_other(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        routes.append((logits[:B], ids[:B], weights[:B]))
+        return weights, ids
+
+    def select_kernels(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        o_logits, o_ids, o_weights = routes.pop(0)
+        parted = (ids[:B].sort(-1).values != o_ids.sort(-1).values).any(-1)
+        seen["routed"] += B
+        for r in parted.nonzero().flatten().tolist():
+            own = sorted(set(ids[r].tolist()) - set(o_ids[r].tolist()))
+            gap = o_logits[r, o_ids[r].long()].min() - o_logits[r, own].max()
+            ratio = (gap / (o_logits[r] - logits[r]).abs().max()).item()
+            if not ratio <= 2:
+                raise AssertionError(f"{label}: routing parted off a near tie (gap {ratio} x the "
+                                     f"router-logit difference)")
+            seen["parted"], seen["ratio"] = seen["parted"] + 1, max(seen["ratio"], ratio)
+            ids[r], weights[r] = o_ids[r], o_weights[r]
+        return weights, ids
+
+    def mla_checked(q, pool, page_tables, context_lens, page_size, scale, v_dim, **kw):
+        out = mla(q, pool, page_tables, context_lens, page_size, scale, v_dim, **kw)
+        if kw.get("emit_partial"):
+            return out
+        live = context_lens > 0
+        plan = A.mla_plan(q.device, q.shape[0], q.shape[1], page_tables.shape[1] * page_size)
+        twin = A.paged_mla_decode_twin(q, pool, page_tables, context_lens, page_size, scale,
+                                       v_dim, plan)
+        plain = A.paged_mla_decode_plain(q, pool, page_tables, context_lens, page_size, scale,
+                                         v_dim)
+        e_twin = (out[live].float() - twin[live].float()).abs().max().item()
+        e_plain = (out[live].float() - plain[live].float()).abs().max().item()
+        if not (e_twin <= ATTN_TOL and e_plain <= ATTN_TOL) or out[~live].any():
+            raise AssertionError(f"{label}: row 2b at B {q.shape[0]}, plan {plan}: error {e_twin}"
+                                 f" (twin) / {e_plain} (plain), or an idle row not zero")
+        seen["calls"] += 1
+        seen["twin"], seen["plain"] = max(seen["twin"], e_twin), max(seen["plain"], e_plain)
+        seen["size"] = max(seen["size"], plain[live].float().abs().max().item())
+        return out
+
+    steps_out = []
+    with torch.no_grad():
+        got_cache, got_first = prefill(embs)
+        if against == "plain":
+            other, want_first, side = plain_kernels, got_first, "the plain path"
+            want_cache = dataclasses.replace(got_cache, **{
+                f: [a.clone() for a in getattr(got_cache, f)]
+                for f in ("k", "v", "latent", "k_scale", "v_scale")
+                if getattr(got_cache, f) is not None})
+            checked = mock.patch.object(mla_mod, "attn_headmajor",
+                                        SimpleNamespace(paged_mla_decode=mla_checked))
+        elif against == "ids":
+            want_cache, want_first = prefill(None)
+            other, side = contextlib.nullcontext, "the prompts as token ids"
+            checked = contextlib.nullcontext()
+            steps_out.append((got_first, want_first))
+        else:
+            raise ValueError(f"against={against!r}")
+        tokens = want_first.argmax(-1).to(torch.int32)
         n = torch.tensor([len(p) for p in prompts], **i32)
         for k in range(steps):
             pos = n + k
-            meta = DecodeMeta(positions=pos, slot_mapping=slots(rows_b, pos), page_tables=tables,
-                              context_lens=pos + 1)
-            got, caches["kernels"] = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta,
-                                                      caches["kernels"])
-            with plain_kernels():
-                want, caches["plain"] = L.forward_decode(ex.params, cfg, ex.rope, tokens, meta,
-                                                         caches["plain"])
-            steps_out.append((got.float(), want.float()))
+            meta = DecodeMeta(positions=torch.cat([pos, idle]),
+                              slot_mapping=torch.cat([slots(active, pos), idle - 1]),
+                              page_tables=tables, context_lens=torch.cat([pos + 1, idle]))
+            fed = torch.cat([tokens, idle])
+            with other(), mock.patch.object(moe_mod, "select_experts", select_other):
+                want, want_cache = L.forward_decode(ex.params, cfg, ex.rope, fed, meta, want_cache)
+            with checked, mock.patch.object(moe_mod, "select_experts", select_kernels):
+                got, got_cache = L.forward_decode(ex.params, cfg, ex.rope, fed, meta, got_cache)
+            got, want = got[:B].float(), want[:B].float()
+            steps_out.append((got, want))
             tokens = want.argmax(-1).to(torch.int32)
     diff = max((g - w).abs().max().item() for g, w in steps_out)
     worst_rel, worst_gap, same = 0.0, 0.0, 0
@@ -3966,12 +4096,21 @@ def teacher_forced_vs_plain(label: str, ex, prompts, steps: int) -> None:
         same += int((~parted).sum())
         if parted.any():
             worst_gap = max(worst_gap, gap[parted].max().item())
-    print(f"serve: {label}: teacher-forced {steps} decode steps of batch {B} (contexts "
-          f"{min(map(len, prompts)) + 1} to {max(map(len, prompts)) + steps}) against the plain "
-          f"path: logits max rel err {worst_rel:.3e} (tolerance 2e-2), largest |diff| {diff:.3e}; "
-          f"greedy picks equal on {same}/{B * steps}, largest plain top-2 gap where they part "
-          f"{worst_gap:.3e} (allowed: up to twice the largest |diff|)", flush=True)
-    if worst_rel > 2e-2 or worst_gap > 2 * diff:
+    notes = ""
+    if seen["routed"]:
+        notes += (f"; MoE routing parted on {seen['parted']}/{seen['routed']} token-layers, each a "
+                  f"near tie (gap up to {seen['ratio']:.3f} x the router-logit difference)")
+    if seen["calls"]:
+        notes += (f"; row 2b in {seen['calls']} calls against its split-count twin / plain "
+                  f"version: max abs err {seen['twin']:.3e} / {seen['plain']:.3e} (tolerance "
+                  f"{ATTN_TOL}, outputs up to {seen['size']:.3f}), idle rows zero")
+    print(f"serve: {label}: teacher-forced {steps} decode steps of {B} prompts in a batch of "
+          f"{rows} (contexts {min(map(len, prompts)) + 1} to {max(map(len, prompts)) + steps}, "
+          f"page tables of {maxp} pages) against {side}: logits max rel err {worst_rel:.3e} "
+          f"(tolerance {tol}), largest |diff| {diff:.3e}; greedy picks equal on "
+          f"{same}/{B * len(steps_out)}, largest top-2 gap where they part {worst_gap:.3e} "
+          f"(allowed: up to twice the largest |diff|){notes}", flush=True)
+    if worst_rel > tol or worst_gap > 2 * diff:
         raise AssertionError(f"{label}: teacher-forced logits differ: {worst_rel}, gap {worst_gap}")
 
 
@@ -4093,6 +4232,251 @@ def dense_expert_path(args) -> None:
     if rel > LOGIT_TOL or int(got.argmax()) != int(want.argmax()) or d_rel > LOGIT_TOL or slack > LOGIT_TOL:
         raise AssertionError(f"{label}: logits differ from the plain path")
     release_pool(llm)
+
+
+MM_LABEL = "DeepSeek-VL2-small-multimodal"
+MM_TEXT_LEN = 1500           # (a): a text prompt, then the same prompt as its embedding rows
+MM_IMAGE_SPAN = (64, 400, 36)  # (b), (c): text ids, image rows, text ids
+MM_PLACEHOLDER = 100015      # the image span's token id (any id below the vocabulary)
+MM_MAXLEN = 16
+MM_MAX_BATCH = 8             # the engine decodes all its rows each step, idle ones at context 0
+
+
+def _table_rows(shim, ids) -> np.ndarray:
+    """Embedding rows [n, d] of token ids through the language shim, as the
+    vision model takes its text rows (float32 on the host)."""
+    return shim(torch.tensor(ids, dtype=torch.long)).numpy()
+
+
+def _image_prompt(shim, ids, seed: int, scale: float) -> np.ndarray:
+    """The prompt's rows: text rows from the shim and, over the placeholder
+    span, random "image" rows at the table's scale drawn on the card from
+    ``seed``."""
+    rows = _table_rows(shim, ids)
+    a, n, _ = MM_IMAGE_SPAN
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.randn((n, rows.shape[1]), generator=gen, device="cuda") * scale
+    rows[a : a + n] = img.cpu().numpy()
+    return rows
+
+
+def phase_multimodal(rec: dict, args, smi: str) -> None:
+    """DeepSeek-VL2-small's language model (VL2_SMALL through adapt_hf_config:
+    27 layers, MLA over a latent pool, 64 + 2 experts of 1408, top 6; bf16 with
+    bf16 expert stacks, random weights from the seed drawn on the card) fed
+    embedding rows, through LLM + DynamicBatchGenerator with prefix caching
+    on. With the launch counters zeroed just before and read just after:
+    (a) a 1500-token text prompt and the same prompt as its embedding rows,
+    same greedy tokens where they do not part, and teacher-forced the same
+    logits by the repo's rule (teacher_forced); (b) a text request
+    over the placeholder ids, then two image requests over the same ids with
+    different image rows at once: neither hits nor adds to the prefix cache,
+    and their first-token logits differ; (c) the first image prompt with
+    position ids 0..n-1, the tokens of (b) without them. (d) The VL2 wrapper's
+    language shim over a stand-in module: the card table's rows, the stand-in
+    stripped of its language weights. Then an image prompt's first-token
+    logits against the plain path; one and two requests (image rows, text
+    rows) decoded teacher-forced through the kernels and the plain path in the
+    engine's batch of 8 rows over its page tables, so row 2b at the main
+    path's shapes and split plan; the image prompt's TTFT and batch-1 decode
+    tok/s; then the weights are freed."""
+    import gc
+
+    from zhilight_tpu_torch.config import CacheConfig, EngineConfig, SchedulerConfig, adapt_hf_config
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg, SearchTask
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models.multimodal import DeepseekVL2
+    from zhilight_tpu_torch.ops.cuda.attn_headmajor import mla_plan
+
+    label = MM_LABEL
+    cfg = adapt_hf_config(VL2_SMALL)
+    if not (cfg.model_type == "deepseek_v2" and cfg.num_layers == 27 and cfg.dim_model == 2048
+            and cfg.mla.kv_lora_rank == 512 and cfg.moe.num_experts == 64 and cfg.moe.top_k == 6
+            and cfg.dtype == "bfloat16"):
+        raise AssertionError(f"{label}: the nested language_config was not what got parsed: {cfg}")
+    t0 = time.monotonic()
+    params = L.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    make_s = time.monotonic() - t0
+    stack = params["layers"]["1"]["mlp"]["experts"]["gate_proj"]["w"]
+    if stack.dtype != torch.bfloat16 or tuple(stack.shape) != (64, 2048, 1408):
+        raise AssertionError(f"{label}: expert stacks are not bf16 (64, 2048, 1408)")
+    llm = LLM(model_config=cfg, params=params, device="cuda", engine_config=EngineConfig(
+        max_model_len=3072, cache=CacheConfig(page_size=16, num_pages=2048,
+                                              enable_prefix_caching=True),
+        scheduler=SchedulerConfig(max_batch=MM_MAX_BATCH, chunk_size=512)))
+    del params, stack
+    ex = llm.executor
+    try:
+        warm_s = ex.warmup()
+        n_params = sum(t.numel() for t in _leaves(ex.params))
+        weights = sum(t.numel() * t.element_size() for t in _leaves(ex.params))
+        print(f"serve: {label}: {cfg.num_layers} layers, {n_params / 1e9:.2f} B parameters, "
+              f"{weights / 2**30:.2f} GiB of bf16 weights made on the card from seed {args.seed} "
+              f"in {make_s:.1f} s; latent pool of {ex.num_pages} pages x {ex.page_size}, prefix "
+              f"caching on; warmup {warm_s:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+              f"allocated", flush=True)
+
+        # (d) the wrapper's language shim over a stand-in whose language holds a
+        # large embedding: rows of the card's table, the stand-in's weights gone
+        V, D = cfg.vocab_size, cfg.dim_model
+
+        class StandIn(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.vision = torch.nn.Linear(64, 64)
+                self.language = torch.nn.Embedding(
+                    V, D, _weight=torch.empty(V, D, dtype=torch.bfloat16))
+
+        stand_in = StandIn()
+        before = sum(p.numel() for p in stand_in.parameters())
+        DeepseekVL2(llm, model_path="")._strip_language(stand_in)
+        after = sum(p.numel() for p in stand_in.parameters())
+        shim = stand_in.language.get_input_embeddings()
+        table = ex.params["embedding"]["w"]
+        rng = np.random.default_rng(args.seed + 19)
+        probe = torch.from_numpy(rng.integers(0, V, 256))
+        host, dev = shim(probe), shim(probe.cuda())
+        want = table[probe.cuda()].float()
+        if not (after < before // 10 and host.dtype == torch.float32 and host.device.type == "cpu"
+                and torch.equal(host, want.cpu()) and dev.is_cuda and torch.equal(dev, want)):
+            raise AssertionError(f"{label}: (d) the shim's rows are not the card table's, or the "
+                                 f"stand-in kept its weights ({before} -> {after} parameters)")
+        print(f"serve: {label}: (d) language shim: 256 ids, rows equal to the card table's "
+              f"(float32, on the ids' device); stand-in parameters {before} -> {after}", flush=True)
+
+        scale = table[:4096].float().std().item()
+        a, n_img, b = MM_IMAGE_SPAN
+        ids = (rng.integers(3, V, a).tolist() + [MM_PLACEHOLDER] * n_img
+               + rng.integers(3, V, b).tolist())
+        images = [_image_prompt(shim, ids, args.seed + 100 + k, scale) for k in range(2)]
+        text = rng.integers(3, V, MM_TEXT_LEN).tolist()
+        text_rows = _table_rows(shim, text)
+        arange = np.arange(len(ids), dtype=np.int32)
+
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        gen = DynamicBatchGenerator(llm).start()
+        try:
+            t0 = time.monotonic()
+            arg = GeneratorArg(max_length=MM_MAXLEN)
+            a_text = gen.generate(text, arg, timeout=600).outputs[0].token_ids
+            a_emb = gen.generate(text, arg, input_embeddings=text_rows,
+                                 timeout=600).outputs[0].token_ids
+            gen.generate(ids, GeneratorArg(max_length=2), timeout=600)  # registers its prefix
+            cached0 = gen.scheduler.allocator.num_cached
+            tasks = [SearchTask(list(ids), arg, input_embeddings=e) for e in images]
+            for task in tasks:
+                gen.scheduler.submit(task)
+            outs = [gen._wait_final(task, 600)[1] for task in tasks]
+            for out in outs:
+                if isinstance(out, BaseException):
+                    raise out
+            cached1 = gen.scheduler.allocator.num_cached
+            c_pos = gen.generate(ids, arg, input_embeddings=images[0], position_ids=arange,
+                                 timeout=600).outputs[0].token_ids
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+
+            # an image prompt's TTFT (a lone request of max_length 1, median of
+            # 3 after one more) and batch-1 decode rate over 128 new tokens
+            ttft = []
+            for _ in range(4):
+                t1 = time.monotonic()
+                gen.generate(ids, GeneratorArg(max_length=1), input_embeddings=images[1],
+                             position_ids=arange, timeout=600)
+                ttft.append(time.monotonic() - t1)
+            ttft_s = statistics.median(ttft[1:])
+            t1 = time.monotonic()
+            long = gen.generate(ids, GeneratorArg(max_length=129, ignore_eos=True),
+                                input_embeddings=images[1], position_ids=arange, timeout=600)
+            long_s = time.monotonic() - t1
+        finally:
+            gen.stop()
+
+        for name, count in launches.items():
+            rec[name]["launches"] += count
+            rec[name]["launches_by_path"][label] = count
+        print(f"serve: {label}: requests (a)-(c) in {wall:.2f} s; launches {launches}", flush=True)
+        print(f"serve: {label}: launches of row 7 (rope_write_rows_2d) "
+              f"{launches['rope_write_rows_2d']}, row 2b (paged_mla_decode) "
+              f"{launches['paged_mla_decode']}", flush=True)
+        expect = PATHS[label]
+        if any(launches[name] == 0 for name in expect):
+            raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+        if any(count for name, count in launches.items() if name not in expect):
+            raise AssertionError(f"{label}: a kernel of another path launched: {launches}")
+
+        # (a) the text prompt and its own rows: the same greedy tokens, or
+        # where they part, teacher-forced the same logits by the repo's rule
+        pages = ex.max_pages_per_seq
+        print(f"serve: {label}: (a) {MM_TEXT_LEN}-token prompt as token ids and as its "
+              f"embedding rows: greedy tokens {'identical' if a_text == a_emb else 'parted'} "
+              f"({a_text[:6]} ... / {a_emb[:6]} ...)", flush=True)
+        teacher_forced(f"{label} (a)", ex, [text], MM_MAXLEN, embs=[text_rows], against="ids",
+                       pages_per_seq=pages, batch=MM_MAX_BATCH)
+
+        # (b) same placeholder ids, different images: no prefix hit, nothing
+        # cached, different first-token logits
+        firsts = [_prefill_logits(ex, ids, emb=e) for e in images]
+        apart = (firsts[0] - firsts[1]).abs().max().item()
+        hits = [task.prefix_hit_len for task in tasks]
+        print(f"serve: {label}: (b) two image prompts of {len(ids)} tokens ({n_img} image rows) "
+              f"over the same ids: prefix hits {hits}, cached prefixes {cached0} -> {cached1}, "
+              f"first-token logits apart by up to {apart:.3e}; tokens {outs[0].token_ids[:4]} / "
+              f"{outs[1].token_ids[:4]}", flush=True)
+        if hits != [0, 0] or cached0 == 0 or cached1 != cached0 or not apart > 0:
+            raise AssertionError(f"{label}: (b) image prompts shared the token-keyed prefix cache")
+
+        # (c) position ids 0..n-1 change nothing
+        print(f"serve: {label}: (c) position ids 0..{len(ids) - 1} against none: tokens "
+              f"{'identical' if c_pos == outs[0].token_ids else 'differ'}", flush=True)
+        if c_pos != outs[0].token_ids:
+            raise AssertionError(f"{label}: (c) {c_pos} != {outs[0].token_ids}")
+
+        # an image prompt's first-token logits: main path against the plain path
+        with plain_kernels():
+            plain = _prefill_logits(ex, ids, emb=images[0])
+        got = firsts[0]
+        if not (torch.isfinite(got).all() and torch.isfinite(plain).all()):
+            raise AssertionError(f"{label}: non-finite first-token logits")
+        rel = ((got - plain).abs().max() / plain.abs().max()).item()
+        print(f"serve: {label}: image prompt first-token logits kernel vs plain: max rel err "
+              f"{rel:.3e} (tolerance {LOGIT_TOL}); argmax {int(got.argmax())} vs "
+              f"{int(plain.argmax())}", flush=True)
+        if rel > LOGIT_TOL or int(got.argmax()) != int(plain.argmax()):
+            raise AssertionError(f"{label}: first-token logits differ from the plain path")
+        # row 2b at the engine's decode shapes against the plain path: one and
+        # two requests in the engine's batch of MM_MAX_BATCH rows (the rest
+        # idle at context 0) over its page tables, so with its split plan;
+        # each call held to its twin and plain version, the logits to
+        # LOGIT_TOL, as MLA + MoE decode logits are held against the plain
+        # path (dense_expert_path): through 27 such layers they stay 2-3% of
+        # the largest apart with the same routing (PERF.md, section 7)
+        plan = mla_plan(torch.device("cuda", 0), MM_MAX_BATCH, cfg.num_heads, pages * ex.page_size)
+        print(f"serve: {label}: latent decode split plan of the engine's batch of "
+              f"{MM_MAX_BATCH}, {cfg.num_heads} heads, {pages} pages: {plan}", flush=True)
+        teacher_forced(label, ex, [ids], 8, embs=[images[0]], pages_per_seq=pages,
+                       batch=MM_MAX_BATCH, tol=LOGIT_TOL)
+        teacher_forced(label, ex, [ids, text], 8, embs=[images[1], text_rows],
+                       pages_per_seq=pages, batch=MM_MAX_BATCH, tol=LOGIT_TOL)
+
+        new = len(long.outputs[0].token_ids)
+        decode = (new - 1) / (long_s - ttft_s)
+        print(f"timing: {label}: image prompt of {len(ids)} tokens ({n_img} image rows): TTFT "
+              f"{ttft_s * 1e3:.2f} ms (median of 3: {', '.join(f'{t * 1e3:.2f}' for t in ttft[1:])})"
+              f", batch-1 decode {decode:.2f} tok/s over {new - 1} tokens ({long_s:.2f} s for "
+              f"{new}); {smi}", flush=True)
+    finally:
+        release_pool(llm)
+        ex.params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"serve: {label}: weights freed, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+              f"allocated", flush=True)
 
 
 @contextlib.contextmanager
@@ -4956,7 +5340,7 @@ def profile(what: str, fn, steps: int = 0) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,http,timing")
+    ap.add_argument("--phases", default="kernels,multimodal,serve,http,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
@@ -4998,6 +5382,8 @@ def main() -> int:
         try:
             if phase == "kernels":
                 phase_kernels(rec, args)
+            elif phase == "multimodal":
+                phase_multimodal(rec, args, smi)
             elif phase == "serve":
                 phase_serve(rec, args)
             elif phase == "http":

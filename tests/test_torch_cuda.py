@@ -2154,3 +2154,75 @@ def test_fused_kv_engine_on_gpu(cuda, dim_head, monkeypatch):
         worst_gap = max([worst_gap] + [g for g, p in zip(gap, parted) if p])
     assert worst_rel <= FUSED_LOGIT_TOL, f"logits differ by {worst_rel} of the largest"
     assert worst_gap <= 2 * diff, f"an argmax parted at a top-2 gap of {worst_gap} > 2 x {diff}"
+
+
+@pytest.mark.cuda
+def test_multimodal_engine_on_gpu(cuda):
+    """Input embeddings and position ids on the card: a bf16 MLA + MoE model
+    (latent pool, bf16 expert stacks) served through LLM +
+    DynamicBatchGenerator. A prompt given as its own table rows returns the
+    tokens of the prompt as token ids; an image prompt (random rows at the
+    table's scale) with position ids 0..n-1 returns its tokens without them;
+    the latent row write (rope_write_rows_2d) and the latent decode
+    (paged_mla_decode) launch. Then that image prompt's first-token logits
+    through the executor's cast of the rows, the card (kernels) against the
+    same weights on the CPU (plain versions): within FP16_LOGIT_TOL of the
+    largest, the same argmax wherever the top-2 gap exceeds twice the largest
+    difference."""
+    from zhilight_tpu_torch.config import MLAConfig, MoEConfig
+
+    cfg = L.ModelConfig(model_type="deepseek_v2", num_layers=2, dim_model=256, num_heads=4,
+                        dim_head=96, num_kv_heads=4, dim_ff=512, vocab_size=128, dtype="bfloat16",
+                        mla=MLAConfig(kv_lora_rank=512, qk_nope_head_dim=32, qk_rope_head_dim=64,
+                                      v_head_dim=32),
+                        moe=MoEConfig(num_experts=8, top_k=2, intermediate_size=128,
+                                      shared_expert_intermediate_size=128, first_k_dense_replace=1))
+    ecfg = EngineConfig(max_model_len=256, cache=CacheConfig(page_size=16, num_pages=64),
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=64, prefill_buckets=(64,)))
+    params = L.init_params(cfg, 0, "cpu")
+    to = lambda tree, dev: {k: to(v, dev) if isinstance(v, dict) else
+                            (v.to(dev) if torch.is_tensor(v) else v) for k, v in tree.items()}
+    llm = LLM(model_config=cfg, params=to(params, cuda), engine_config=ecfg, device=cuda)
+    ex = llm.executor
+    assert ex.cache.is_latent
+    table = ex.params["embedding"]["w"]
+    rng = np.random.default_rng(5)
+    text = rng.integers(2, 128, 90).tolist()
+    image = rng.integers(2, 128, 100).tolist()
+    rows = table[torch.tensor(image, device=cuda)].float()
+    rows[20:84] = torch.randn(64, cfg.dim_model, device=cuda) * table.float().std()
+    rows = rows.cpu().numpy()
+    pos = np.arange(len(image), dtype=np.int32)
+    before = (W.rope_write_rows_2d.launches, A.paged_mla_decode.launches)
+    arg = GeneratorArg(max_length=12)
+    with DynamicBatchGenerator(llm) as gen:
+        as_ids = gen.generate(text, arg, timeout=300).outputs[0].token_ids
+        as_rows = gen.generate(text, arg, timeout=300,
+                               input_embeddings=table[text].float().cpu().numpy()).outputs[0].token_ids
+        img = gen.generate(image, arg, timeout=300, input_embeddings=rows).outputs[0].token_ids
+        img_pos = gen.generate(image, arg, timeout=300, input_embeddings=rows,
+                               position_ids=pos).outputs[0].token_ids
+    assert as_rows == as_ids and img_pos == img and len(img) == 12
+    assert W.rope_write_rows_2d.launches > before[0] and A.paged_mla_decode.launches > before[1]
+
+    plain = LLM(model_config=cfg, params=params, engine_config=ecfg, device="cpu").executor
+
+    def first_logits(e):
+        n = len(image)
+        i32 = dict(dtype=torch.int32, device=e.device)
+        pages = -(-n // S)
+        meta = PrefillMeta(positions=torch.arange(n, **i32), slot_mapping=torch.arange(n, **i32),
+                           page_table=torch.arange(pages, **i32),
+                           cache_len=torch.tensor(0, **i32), q_len=torch.tensor(n, **i32))
+        with torch.no_grad():
+            logits, _ = L.forward_prefill(e.params, cfg, e.rope, torch.tensor(image, **i32), meta,
+                                          e.new_cache(pages), e._emb_arg(rows, n))
+        return logits.float().cpu()
+
+    card, want = first_logits(ex), first_logits(plain)
+    diff = (card - want).abs().max().item()
+    top2 = card.topk(2).values
+    print(f"multimodal: first-token logits card vs CPU plain: largest |diff| {diff:.4e}, "
+          f"rel {diff / want.abs().max().item():.4e}")
+    assert diff <= FP16_LOGIT_TOL * want.abs().max().item()
+    assert int(card.argmax()) == int(want.argmax()) or (top2[0] - top2[1]).item() <= 2 * diff

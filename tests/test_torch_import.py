@@ -96,3 +96,23 @@ def test_server_and_native_modules_are_covered():
             "zhilight_tpu_torch.server.openai.protocol",
             "zhilight_tpu_torch.server.openai.reasoning",
             "zhilight_tpu_torch.server.openai.serving"} <= set(MODULES)
+
+
+def test_multimodal_module_is_covered_and_imports_transformers_lazily():
+    """``models/multimodal.py`` is among the modules above, and importing it
+    (the vision front-end of DeepSeek-VL2) loads no transformers: the HF
+    processor and vision tower load when a vision request needs them."""
+    assert "zhilight_tpu_torch.models.multimodal" in MODULES
+    code = (
+        "import sys\n"
+        "from zhilight_tpu_torch.models import DeepseekVL2, is_customized_model\n"
+        "from zhilight_tpu_torch.models.multimodal import DeepseekVL2 as same\n"
+        "assert DeepseekVL2 is same\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {SERVING + FOREIGN!r})\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -189,9 +189,9 @@ class ModelExecutor:
     # host <-> device
     # ------------------------------------------------------------------
     def upload(self, x) -> torch.Tensor:
-        """A host array (or scalar) as a tensor on the executor's device,
-        copied without waiting for the device (pinned staging on CUDA)."""
-        t = torch.as_tensor(np.ascontiguousarray(x))
+        """A host array, scalar or CPU tensor as a tensor on the executor's
+        device, copied without waiting for the device (pinned staging on CUDA)."""
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(x))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.clone()
@@ -220,18 +220,29 @@ class ModelExecutor:
             self.sampler_state, slot, self.upload(np.asarray(tokens, np.int32)), reset=True
         )
 
-    def _backbone(self, tokens: torch.Tensor, meta):
+    def _emb_arg(self, embeddings: Optional[np.ndarray], bucket: int) -> Optional[torch.Tensor]:
+        """A chunk's multimodal rows [n, d] as the model's input [bucket, d]:
+        zero-padded in fp32, cast to the model's dtype on the host (round to
+        nearest even, the values of the reference's ``jnp.asarray(pad,
+        dtype)``) and uploaded once."""
+        if embeddings is None:
+            return None
+        pad = np.zeros((bucket, self.cfg.dim_model), np.float32)
+        pad[: embeddings.shape[0]] = embeddings
+        return self.upload(torch.from_numpy(pad).to(self.cfg.torch_dtype))
+
+    def _backbone(self, tokens: torch.Tensor, meta, embeddings: Optional[torch.Tensor] = None):
         with torch.no_grad():
             _, self.cache = llama_mod.backbone(
                 self.params, self.cfg, self.rope, tokens, meta.positions, self.cache,
-                meta, "prefill",
+                meta, "prefill", embeddings,
             )
 
-    def run_chunk(self, tokens: np.ndarray, meta: PrefillMeta, embeddings=None):
-        """A prefill chunk that only writes the cache."""
-        if embeddings is not None:
-            raise NotImplementedError("input embeddings (multimodal) are not ported yet")
-        self._backbone(self.upload(tokens), meta)
+    def run_chunk(self, tokens: np.ndarray, meta: PrefillMeta,
+                  embeddings: Optional[np.ndarray] = None):
+        """A prefill chunk that only writes the cache; ``embeddings`` [n, d]
+        replace the chunk's token embeddings (multimodal)."""
+        self._backbone(self.upload(tokens), meta, self._emb_arg(embeddings, tokens.shape[0]))
 
     def _chunk_meta(self, bucket: int, pages: torch.Tensor, start: int, chunk: int) -> PrefillMeta:
         """A chunk's PrefillMeta built on the device from its page table and
@@ -287,16 +298,16 @@ class ModelExecutor:
         penalties: Optional[Tuple[np.ndarray, np.ndarray]] = None,
         embeddings: Optional[np.ndarray] = None,
     ):
-        """A prompt's last chunk and its first token, sampled for ``slot``.
+        """A prompt's last chunk and its first token, sampled for ``slot``;
+        ``embeddings`` [n, d] replace the chunk's token embeddings.
         Returns (token, logprob, top_logprobs [L], top_tokens [L])."""
-        if embeddings is not None:
-            raise NotImplementedError("input embeddings (multimodal) are not ported yet")
         bias_tok, bias_val = self._pair(*(bias or (None, None)))
         pen_tok, pen_val = self._pair(*(penalties or (None, None)))
+        emb = self._emb_arg(embeddings, tokens.shape[0])
         st = self.sampler_state
         with torch.no_grad():
             logits, self.cache = llama_mod.forward_prefill(
-                self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache
+                self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache, emb
             )
             rows = torch.full((1,), slot, dtype=torch.long, device=self.device)
             tok, lp, toplp, toptok, st2 = sample_step(

@@ -1,3 +1,4 @@
-from . import llama
+from . import llama, multimodal
+from .multimodal import DeepseekVL2, is_customized_model
 
-__all__ = ["llama"]
+__all__ = ["llama", "multimodal", "DeepseekVL2", "is_customized_model"]

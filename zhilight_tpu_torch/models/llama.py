@@ -322,10 +322,12 @@ def backbone(
     cache: KVCache,
     meta,
     mode: str,
+    input_embeddings: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embedding -> N blocks -> final norm; rope's cos/sin are computed once
-    and shared by every layer."""
-    x = embed(params, cfg, tokens)
+    and shared by every layer. ``input_embeddings`` [T, d] in the model's
+    dtype replaces the token embedding (the multimodal path)."""
+    x = embed(params, cfg, tokens) if input_embeddings is None else input_embeddings
     rot = rope.rot_values(positions)
     for i in range(cfg.num_layers):
         x, cache = decoder_layer(
@@ -363,9 +365,11 @@ def forward_prefill(
     tokens: torch.Tensor,  # [T]
     meta: PrefillMeta,
     cache: KVCache,
+    input_embeddings: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One prefill chunk; returns the fp32 logits [V] of its last valid token."""
-    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill")
+    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill",
+                             input_embeddings)
     last = (meta.q_len - 1).clamp_min(0).reshape(1).long()
     return get_logits(params, cfg, hidden.index_select(0, last))[0], cache
 
@@ -377,10 +381,12 @@ def forward_prefill_packed(
     tokens: torch.Tensor,  # [NS * TC]
     meta: PackedPrefillMeta,
     cache: KVCache,
+    input_embeddings: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Packed chunks of NS sequences; returns each segment's last-valid-token
     logits [NS, V] (rows of empty segments are garbage the host discards)."""
-    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill")
+    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill",
+                             input_embeddings)
     NS = meta.num_segments
     TC = tokens.shape[0] // NS
     rows = torch.arange(NS, device=tokens.device) * TC + (meta.q_lens - 1).clamp_min(0)

@@ -7,6 +7,8 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
     python3 chip_smoke.py --phases kernels,serve  # a subset
     python3 chip_smoke.py --phases multimodal     # DeepSeek-VL2-small's language path alone
     python3 chip_smoke.py --phases http           # the OpenAI server alone
+    python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16, TP=1 then TP=2 (gloo)
+    python3 chip_smoke.py --phases tp --tp-backend nccl  # the same, NCCL, a GPU a rank
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
@@ -106,6 +108,22 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            against its split-count twin and plain version, MoE routing parting
            only at near ties), its TTFT and batch-1 decode tok/s; the weights
            are then freed;
+  tp       tensor parallelism: Qwen2.5-14B in bf16 (``QWEN14B_BF16``: 48 layers,
+           full width, random weights drawn on the card from the seed) through
+           ``LLM`` + ``DynamicBatchGenerator`` at TP=1 in this process, then at
+           TP=2 by two rank processes of this script on the one GPU over an
+           explicit gloo group (``--tp-backend nccl``: NCCL, a GPU a rank), each
+           drawing the same full tensors and keeping its shard (20 query / 4 KV
+           heads of 128 a rank): the same requests (TTFT and batch-1 decode of a
+           1500-token prompt, two greedy prompts of 500 and 1500 tokens, a seeded
+           sampled request, one cancelled mid-decode), launch counters zeroed
+           just before and read just after on each rank; the TP=2 greedy tokens
+           against TP=1's, and teacher-forced logits along them against TP=1's
+           and against TP=1's own noise (one prompt at a time against the
+           batch); both ranks finish every request alike and score the same
+           logits bit for bit; the TP=2 times are labelled as a gloo run whose
+           collectives go through host memory. The kernels phase holds rows 2
+           and 3 (and the prologue, row 1) at a rank's shapes too;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -1147,6 +1165,10 @@ def _record(rec: dict, name: str, err: float, main: str, shapes: dict) -> None:
     """The kernel's JSON numbers are those of its ``main`` shape; every timed
     shape is kept under ``shapes``."""
     rec[name].update(shapes[main], max_abs_err=err, shape=main, shapes=shapes)
+    _record_print(name, shapes)
+
+
+def _record_print(name: str, shapes: dict) -> None:
     for label, r in shapes.items():
         pair = f" unfused_pair_ms={r['unfused_pair_ms']:.4f}" if "unfused_pair_ms" in r else ""
         if "call_ms" in r:
@@ -1269,6 +1291,7 @@ def phase_kernels(rec: dict, args) -> None:
                              CL=3200, QL=512, int8=int8),
         }
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
+    kernels_tp_rank(rec, A, P)
     kernels_prologue(rec, np.random.default_rng(6), args.parent_csrc)
     kernels_w4a16(rec, rng)
     kernels_deepseek(rec, rng)
@@ -1285,12 +1308,57 @@ def phase_kernels(rec: dict, args) -> None:
               f"library_ms={_ms(r['library_ms'])}", flush=True)
 
 
+# a TP=2 rank of Qwen2.5-14B (the tp phase): 20 query heads over 4 KV heads of
+# 128, G 5, which no single-process path runs
+TP_RANK_HEADS = dict(Hq=20, Hkv=4, D=128)
+
+
+def kernels_tp_rank(rec: dict, A, P) -> None:
+    """Rows 2 and 3 (bf16) at a TP=2 rank's heads (TP_RANK_HEADS) against
+    their plain versions and twins, at the tp phase's engine batch (4 slots:
+    its two greedy prompts decoding at 532 and 1532 tokens, one slot at
+    context 1, one idle) and at the decode kernel's split edges, and the
+    prefill at its chunks (a first 512-token chunk, the 1500-token prompt's
+    last at cache 1024, four packed segments); the split plans those shapes
+    pick are printed. Timed at the tp phase's decode step and last chunk,
+    kept under ``shapes`` of each kernel's record (its main numbers stay the
+    single-process Qwen2.5-14B shape's)."""
+    rng, S = np.random.default_rng(15), 16
+    decode = [dict(B=4, **TP_RANK_HEADS, ctx=[1532, 532, 1, 0], window=0),
+              dict(B=8, **TP_RANK_HEADS, ctx=SPLIT_CTX, window=0)]
+    for c in decode:
+        G, maxp = c["Hq"] // c["Hkv"], max(c["ctx"]) // S + 1
+        splits = A.decode_splits(c["B"], c["Hkv"], G, maxp * S,
+                                 A._capacity(torch.device("cuda"), c["D"], "attn_headmajor"))
+        print(f"kernels: TP=2 rank shape, decode B {c['B']}, {c['Hq']} / {c['Hkv']} heads of "
+              f"{c['D']}, contexts {c['ctx']}: {splits} context splits", flush=True)
+    err = check_decode(rng, A, decode, False)
+    shapes = {"Qwen2.5-14B TP=2 rank (20 / 4 heads) batch 4, context 1532, bf16 pool":
+              time_decode(rng, A, 4, **TP_RANK_HEADS, CTX=1532, int8=False)}
+    rec["paged_decode_attention_hm"]["shapes"].update(shapes)
+    rec["paged_decode_attention_hm"]["max_abs_err"] = max(
+        rec["paged_decode_attention_hm"]["max_abs_err"], err)
+    _record_print("paged_decode_attention_hm", shapes)
+    prefill = [dict(cache_lens=[0], q_lens=[512], TC=512, **TP_RANK_HEADS),
+               dict(cache_lens=[1024], q_lens=[476], TC=512, **TP_RANK_HEADS),
+               dict(cache_lens=[0, 16, 5, 300], q_lens=[128, 37, 0, 100], TC=128,
+                    **TP_RANK_HEADS)]
+    err = check_prefill(rng, P, prefill, False)
+    shapes = {"Qwen2.5-14B TP=2 rank (20 / 4 heads) 476-token chunk at cache 1024, bf16 pool":
+              time_prefill(rng, P, **TP_RANK_HEADS, CL=1024, QL=476, int8=False)}
+    rec["paged_prefill_attention_hm_packed"]["shapes"].update(shapes)
+    rec["paged_prefill_attention_hm_packed"]["max_abs_err"] = max(
+        rec["paged_prefill_attention_hm_packed"]["max_abs_err"], err)
+    _record_print("paged_prefill_attention_hm_packed", shapes)
+
+
 # the packed pool's prologue at the main paths' attention shapes: label ->
 # (query heads, KV heads, head_dim, int8 pool, decode batch)
 PROLOGUE_SHAPES = {
     "MiniCPM-2B, 36 / 36 heads of 64, bf16 pool": (36, 36, 64, False, 16),
     "Qwen2.5-14B, 40 / 8 heads of 128, bf16 pool": (40, 8, 128, False, 8),
     "Qwen2.5-14B, 40 / 8 heads of 128, int8 pool": (40, 8, 128, True, 8),
+    "Qwen2.5-14B TP=2 rank, 20 / 4 heads of 128, bf16 pool": (20, 4, 128, False, 4),
     "Qwen3-8B, 32 / 8 heads of 128, bf16 pool": (32, 8, 128, False, 8),
     "head_dim 256 (16 / 8 heads), int8 pool": (16, 8, 256, True, 8),
 }
@@ -4479,6 +4547,452 @@ def phase_multimodal(rec: dict, args, smi: str) -> None:
               f"allocated", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: Qwen2.5-14B in bf16 at TP=2
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen2.5-14B-Instruct's config.json fields: QWEN14B_GPTQ's without its
+# quantization_config, bf16 as it ships (48 layers, d 5120, 40 / 8 heads of
+# 128, dim_ff 13824, vocab 152064, q/k/v biases)
+QWEN14B_BF16 = {k: v for k, v in QWEN14B_GPTQ.items() if k != "quantization_config"}
+TP_LABEL = "Qwen2.5-14B-bf16"
+TP_LENS = (500, 1500)      # the greedy prompts, 32 new tokens each
+TP_NEW = 32
+TP_SAMPLED = 200           # a seeded sampled request's prompt
+TP_CANCEL = 300            # a request cancelled mid-decode
+TP_PAGES = 512             # given: both ranks would size the pool from the same free memory
+TP_TIMEOUT = 300           # seconds: the rank processes' limit and their default group's timeout
+# a parting of the TP=2 and TP=1 greedy tokens must be a near tie (the
+# teacher-forced rule of teacher_forced, 2e-2 of the largest logit)
+TP_TOL = 2e-2
+for _r in range(2):
+    PATHS[f"{TP_LABEL}-TP2-rank{_r}"] = ATTENTION_KERNELS
+PATHS[f"{TP_LABEL}-TP1"] = ATTENTION_KERNELS
+
+
+def tp_engine_config(tp: int):
+    """Batch 4, max_model_len 2048, 512-token chunks, a pool of TP_PAGES
+    pages of 16 tokens."""
+    from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ParallelConfig,
+                                           SchedulerConfig)
+
+    return EngineConfig(max_model_len=2048, cache=CacheConfig(page_size=16, num_pages=TP_PAGES),
+                        scheduler=SchedulerConfig(max_batch=4, chunk_size=512),
+                        parallel=ParallelConfig(tp=tp))
+
+
+def tp_prompts(seed: int) -> dict:
+    rng = np.random.default_rng(seed + 20)
+    V = QWEN14B_BF16["vocab_size"]
+    return dict(greedy=[rng.integers(3, V, n).tolist() for n in TP_LENS],
+                sampled=rng.integers(3, V, TP_SAMPLED).tolist(),
+                cancel=rng.integers(3, V, TP_CANCEL).tolist())
+
+
+def tp_drive(llm, prompts: dict) -> dict:
+    """The phase's requests, in this order, through DynamicBatchGenerator
+    (rank 0's, or the TP=1 run's): the 1500-token prompt for one token three
+    times (TTFT, the median) and for 32 (batch-1 decode tok/s, as the
+    multimodal phase times it), the two greedy prompts together, a seeded
+    sampled request, and a request cancelled after its second streamed
+    result. Returns the tokens and the times."""
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg, SearchTask
+    from zhilight_tpu_torch.engine.task import StreamResultType
+
+    out, t_start = {}, time.monotonic()
+    gen = DynamicBatchGenerator(llm).start()
+    try:
+        long = prompts["greedy"][1]
+        ttft = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            gen.generate(long, GeneratorArg(max_length=1), timeout=TP_TIMEOUT)
+            ttft.append(time.monotonic() - t0)
+        t0 = time.monotonic()
+        out["long"] = gen.generate(long, GeneratorArg(max_length=TP_NEW, ignore_eos=True),
+                                   timeout=TP_TIMEOUT).outputs[0].token_ids
+        long_s = time.monotonic() - t0
+        out["ttft_ms"] = statistics.median(ttft) * 1e3
+        out["decode_tok_s"] = (len(out["long"]) - 1) / (long_s - statistics.median(ttft))
+        out["greedy"] = [r.outputs[0].token_ids for r in gen.batch_generate(
+            prompts["greedy"], GeneratorArg(max_length=TP_NEW, ignore_eos=True),
+            timeout=TP_TIMEOUT)]
+        out["sampled"] = gen.generate(prompts["sampled"], GeneratorArg(
+            max_length=TP_NEW, temperature=0.8, top_p=0.9, seed=7),
+            timeout=TP_TIMEOUT).outputs[0].token_ids
+        task = SearchTask(prompts["cancel"], GeneratorArg(max_length=4 * TP_NEW, ignore_eos=True),
+                          stream=True)
+        gen.scheduler.submit(task)
+        seen, deadline = 0, time.monotonic() + TP_TIMEOUT
+        while True:
+            flag, payload = task.res_queue.get(timeout=max(deadline - time.monotonic(), 1))
+            if flag == StreamResultType.Incremental:
+                seen += 1
+                if seen == 2:
+                    task.cancel()
+            elif flag == StreamResultType.Final:
+                break
+        out["cancelled"] = [int(t) for t in task.output_tokens]
+    finally:
+        gen.stop()
+    out["drive_s"] = time.monotonic() - t_start
+    if gen.scheduler.error is not None:
+        raise AssertionError("the scheduler failed") from gen.scheduler.error
+    return out
+
+
+def tp_forced(ex, prompts, tokens) -> torch.Tensor:
+    """Teacher-forced logits [B, N, V] (fp32, on the host): the prompts
+    prefilled (512-token chunks) into a scratch cache, then N - 1 batched
+    decode steps fed ``tokens`` (the TP=1 run's greedy tokens), so row k
+    holds the logits that pick tokens[b][k]. Every rank of a TP run calls it
+    together."""
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
+
+    cfg, S, B, N = ex.cfg, ex.page_size, len(prompts), len(tokens[0])
+    i32 = dict(dtype=torch.int32, device=ex.device)
+    maxp = max(len(p) + N for p in prompts) // S + 1
+    tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
+    slots = lambda b, pos: (tables[b, (pos // S).long()] * S + pos % S).to(torch.int32)
+    cache, rows = ex.new_cache(B * maxp), [[] for _ in range(B)]
+    with torch.no_grad():
+        for b, p in enumerate(prompts):
+            for start in range(0, len(p), 512):
+                toks = torch.tensor(p[start : start + 512], **i32)
+                pos = torch.arange(start, start + len(toks), **i32)
+                meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
+                                   cache_len=torch.tensor(start, **i32),
+                                   q_len=torch.tensor(len(toks), **i32))
+                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache,
+                                                  tp=ex.tp)
+            rows[b].append(logits.float().cpu())
+        fed = torch.tensor(tokens, **i32)
+        n = torch.tensor([len(p) for p in prompts], **i32)
+        active = torch.arange(B, device=ex.device)
+        for k in range(N - 1):
+            pos = n + k
+            meta = DecodeMeta(positions=pos, slot_mapping=slots(active, pos), page_tables=tables,
+                              context_lens=pos + 1)
+            logits, cache = L.forward_decode(ex.params, cfg, ex.rope, fed[:, k], meta, cache,
+                                             tp=ex.tp)
+            for b in range(B):
+                rows[b].append(logits[b].float().cpu())
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def _tp_counters():
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def tp_rank(args) -> int:
+    """One rank of the TP=2 run (``--tp-rank``): joins the others over an
+    explicit gloo group on the one GPU (``--tp-backend nccl``: NCCL, a GPU a
+    rank), draws the full tensors from the seed one at a time and keeps its
+    shard (``init_params(shard=...)``), serves through LLM: rank 0 drives
+    the requests (tp_drive), rank 1 runs the lockstep scheduler until rank
+    0's shutdown sentinel. Then both run the teacher-forced logits along the
+    TP=1 run's tokens, and write what they saw to ``--tp-dir``."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from zhilight_tpu_torch.config import adapt_hf_config
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, SearchTask
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    rank, world, nccl = args.tp_rank, 2, args.tp_backend == "nccl"
+    device = torch.device("cuda", rank if nccl else 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if nccl else "gloo",
+                            init_method=f"tcp://127.0.0.1:{args.tp_port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    finished = {}
+    finish = SearchTask.finish
+
+    def recorded(self):
+        finished[str(self.task_id)] = [int(t) for t in self.output_tokens]
+        finish(self)
+
+    SearchTask.finish = recorded
+    cfg = adapt_hf_config(QWEN14B_BF16)
+    t0 = time.monotonic()
+    params = L.init_params(cfg, seed=args.seed, device=device, shard=(rank, world))
+    llm = LLM(model_config=cfg, params=params, engine_config=tp_engine_config(world),
+              device=device)
+    del params
+    ex = llm.executor
+    setup_s = time.monotonic() - t0
+    warm_s = ex.warmup()
+    counters = _tp_counters()
+    out = dict(rank=rank, setup_s=setup_s, warmup_s=warm_s,
+               weights_gib=sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30,
+               pool=list(ex.cache.k[0].shape), heads=[ex.cfg.num_heads, ex.cfg.num_kv_heads],
+               backend=dist.get_backend())
+    prompts = tp_prompts(args.seed)
+    if rank == 0:
+        out.update(tp_drive(llm, prompts))
+    else:
+        gen = DynamicBatchGenerator(llm).start()
+        gen.scheduler._thread.join(timeout=TP_TIMEOUT)
+        if gen.scheduler._thread.is_alive() or gen.scheduler.error is not None:
+            raise AssertionError(f"rank {rank}: the lockstep scheduler did not stop cleanly: "
+                                 f"{gen.scheduler.error!r}")
+        out["sessions_left"] = len(gen.scheduler.sessions)
+    torch.cuda.synchronize()
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    out["finished"] = finished
+    forced = json.load(open(os.path.join(args.tp_dir, "forced.json")))
+    t0 = time.monotonic()
+    logits = tp_forced(ex, forced["prompts"], forced["tokens"])
+    out["forced_s"] = time.monotonic() - t0
+    out["logits_sha"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+    if rank == 0:
+        np.save(os.path.join(args.tp_dir, "tp2_logits.npy"), logits.numpy())
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    out["collectives_ms"] = tp_collectives(llm.tp_group, cfg, device)
+    with open(os.path.join(args.tp_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"tp rank {rank}: done", flush=True)
+    return 0
+
+
+def tp_collectives(group, cfg, device) -> dict:
+    """Wall ms of one collective at the model's shapes on this group, the
+    host's time included (20 calls after 3, synchronised): the fp32
+    all-reduce of a row-parallel product at a decode step of the engine's 4
+    slots and at a 512-token chunk, and the all-gather of a decode step's
+    fp32 logits (a rank's vocab slice). A decode step makes 2 all-reduces a
+    layer, one for the embedding (bf16) and one all-gather."""
+    V = cfg.vocab_size // group.world
+    cases = {"all_reduce fp32 [4, d]": (group.all_reduce, (4, cfg.dim_model)),
+             "all_reduce fp32 [512, d]": (group.all_reduce, (512, cfg.dim_model)),
+             "all_gather fp32 [4, V / tp]": (lambda x: group.all_gather(x, -1), (4, V))}
+    out = {}
+    for label, (fn, shape) in cases.items():
+        x = torch.randn(shape, device=device)
+        for _ in range(3):
+            fn(x)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn(x)
+        torch.cuda.synchronize(device)
+        out[label] = (time.perf_counter() - t0) / 20 * 1e3
+    return out
+
+
+def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, got_tokens,
+               floor: torch.Tensor) -> str:
+    """Teacher-forced logits [B, N, V] of the TP=2 run against the TP=1 run's
+    along the TP=1 tokens. The TP=2 greedy tokens equal TP=1's; where they
+    part, the first parting is a near tie by the repo's teacher-forced rule
+    (that row within TP_TOL of its largest logit, the TP=1 top-2 gap at most
+    twice the largest difference). Every row lies within LOGIT_TOL of its
+    largest logit (the bound serve_path holds two computations of a
+    full-depth model to) and keeps the TP=1 argmax wherever the TP=1 top-2 gap
+    exceeds twice the largest difference. ``floor``: the same rows at TP=1
+    one prompt at a time, against the batch: the rounding noise between two
+    computations of one model, printed beside."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: non-finite teacher-forced logits")
+    diff = (got - want).abs().max().item()
+    rel = (got - want).abs().amax(-1) / want.abs().amax(-1)  # [B, N]
+    noise = ((floor - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    parted = got.argmax(-1) != want.argmax(-1)
+    worst = gap[parted].max().item() if parted.any() else 0.0
+    notes = []
+    for b, (w, g) in enumerate(zip(want_tokens, got_tokens)):
+        k = next((k for k, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if k is None:
+            if len(w) != len(g):
+                raise AssertionError(f"{label}: prompt {b}: {len(g)} tokens, not {len(w)}")
+            continue
+        notes.append(f"prompt {b} parts at token {k} (top-2 gap there {gap[b, k].item():.3e}, "
+                     f"rel err {rel[b, k].item():.3e})")
+        if rel[b, k].item() > TP_TOL or gap[b, k].item() > 2 * diff:
+            raise AssertionError(f"{label}: prompt {b}: the greedy tokens part at {k}, off a near "
+                                 f"tie: {notes[-1]}, largest |diff| {diff}")
+    msg = (f"teacher-forced {want.shape[1]} positions of {want.shape[0]} prompts: logits max rel "
+           f"err {rel.max().item():.3e} (tolerance {LOGIT_TOL}; TP=1 one prompt at a time against "
+           f"its batch: {noise:.3e}), largest |diff| {diff:.3e}; argmax equal on "
+           f"{int((~parted).sum())}/{parted.numel()}, largest top-2 gap where they part "
+           f"{worst:.3e} (allowed: up to twice the largest |diff|); "
+           f"{'; '.join(notes) or 'the greedy tokens are equal'}")
+    if rel.max().item() > LOGIT_TOL or worst > 2 * diff:
+        raise AssertionError(f"{label}: {msg}")
+    return msg
+
+
+def phase_tp(rec: dict, args, smi: str) -> None:
+    """Qwen2.5-14B in bf16 (QWEN14B_BF16: 48 layers, full width, random
+    weights drawn on the card from the seed) served at TP=1 in this process,
+    then at TP=2 by two rank processes on the one GPU over an explicit gloo
+    group (NCCL refuses two ranks on one device; ``--tp-backend nccl`` runs
+    a GPU a rank), each drawing the same full tensors and keeping its shard:
+    20 query / 4 KV heads of 128 a rank, rows 1-3 at those shapes. The same
+    requests on both (tp_drive), launch counters zeroed just before and read
+    just after; the TP=2 greedy tokens against TP=1's (where they part, the
+    teacher-forced rule, tp_compare); both ranks finish every request with
+    the same tokens, the sampled and the cancelled ones included, and the
+    same teacher-forced logits to the bit; rank 1 stops on rank 0's
+    sentinel. Decode tok/s and TTFT of both are printed, the TP=2 ones
+    labelled as a gloo run."""
+    import gc
+    import shutil
+    import tempfile
+
+    from zhilight_tpu_torch.config import adapt_hf_config
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    nccl = args.tp_backend == "nccl"
+    if nccl and torch.cuda.device_count() < 2:
+        raise RuntimeError(f"--tp-backend nccl runs a GPU a rank: 2 needed, "
+                           f"{torch.cuda.device_count()} visible")
+    cfg = adapt_hf_config(QWEN14B_BF16)
+    if not (cfg.num_layers == 48 and cfg.dim_model == 5120 and cfg.num_heads == 40
+            and cfg.num_kv_heads == 8
+            and cfg.dim_head == 128 and cfg.dim_ff == 13824 and cfg.vocab_size == 152064
+            and cfg.attn_bias and cfg.dtype == "bfloat16"):
+        raise AssertionError(f"tp: the configuration is not Qwen2.5-14B's: {cfg}")
+    prompts = tp_prompts(args.seed)
+    tmp = tempfile.mkdtemp(prefix="zt-tp-")  # the ranks' results; removed at the end
+    try:
+        # -- TP=1 in this process ---------------------------------------------
+        t0 = time.monotonic()
+        llm = LLM(model_config=cfg, params=L.init_params(cfg, seed=args.seed, device="cuda"),
+                  engine_config=tp_engine_config(1), device="cuda")
+        ex = llm.executor
+        setup_s = time.monotonic() - t0
+        warm_s = ex.warmup()
+        print(f"tp: {TP_LABEL}: {cfg.num_layers} layers, "
+              f"{sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30:.2f} GiB of "
+              f"weights at TP=1, set-up {setup_s:.1f} s, warmup {warm_s:.1f} s", flush=True)
+        counters = _tp_counters()
+        one = tp_drive(llm, prompts)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"tp: {TP_LABEL} TP=1: requests {one['drive_s']:.1f} s; launches {launches}",
+              flush=True)
+        # teacher-forced along the TP=1 tokens: the batch's two prompts and the
+        # 1500-token request's
+        forced = dict(prompts=prompts["greedy"] + [prompts["greedy"][1]],
+                      tokens=one["greedy"] + [one["long"]])
+        with open(os.path.join(tmp, "forced.json"), "w") as f:
+            json.dump(forced, f)
+        want = tp_forced(ex, forced["prompts"], forced["tokens"])
+        floor = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
+                                                                     forced["tokens"])])
+        _tp_launches(rec, f"{TP_LABEL}-TP1", launches)
+        release_pool(llm)
+        ex.params, llm, ex = None, None, None
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"tp: {TP_LABEL}: TP=1 weights freed, "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+
+        # -- TP=2: two rank processes -----------------------------------------
+        port = _tp_free_port()
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), "--tp-port",
+             str(port), "--tp-dir", tmp, "--seed", str(args.seed), "--tp-backend",
+             args.tp_backend],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                left = max(TP_TIMEOUT - (time.monotonic() - t0), 1)
+                logs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"tp: rank {r} exited {p.returncode}:\n{log[-6000:]}")
+        wall = time.monotonic() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
+        r0, r1 = ranks
+        for r in ranks:
+            drive = f"requests {r['drive_s']:.1f} s, " if "drive_s" in r else ""
+            print(f"tp: {TP_LABEL} TP=2 rank {r['rank']} ({r['backend']}): {r['heads'][0]} / "
+                  f"{r['heads'][1]} heads, pool {r['pool']}, {r['weights_gib']:.2f} GiB of "
+                  f"weights, set-up {r['setup_s']:.1f} s, warmup {r['warmup_s']:.1f} s, {drive}"
+                  f"teacher-forced {r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB; "
+                  f"launches {r['launches']}", flush=True)
+            _tp_launches(rec, f"{TP_LABEL}-TP2-rank{r['rank']}", r["launches"])
+        per_step = (2 * cfg.num_layers * r0["collectives_ms"]["all_reduce fp32 [4, d]"]
+                    + r0["collectives_ms"]["all_gather fp32 [4, V / tp]"])
+        print(f"timing: {TP_LABEL} TP=2 ({r0['backend']}) one collective, host included, rank 0: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["collectives_ms"].items())
+              + f"; {2 * cfg.num_layers} all-reduces and one all-gather a decode step: "
+                f"{per_step:.1f} ms; {smi}", flush=True)
+        if r0["heads"] != [cfg.num_heads // 2, cfg.num_kv_heads // 2]:
+            raise AssertionError(f"tp: rank heads {r0['heads']}")
+        if r0["finished"] != r1["finished"] or not r0["finished"]:
+            raise AssertionError("tp: the ranks finished the requests with other tokens")
+        if r0["logits_sha"] != r1["logits_sha"]:
+            raise AssertionError("tp: the ranks' teacher-forced logits differ")
+        if r1.get("sessions_left"):
+            raise AssertionError("tp: rank 1 kept a session")
+        if not 2 <= len(r0["cancelled"]) < 4 * TP_NEW:
+            raise AssertionError(f"tp: the cancelled request returned {len(r0['cancelled'])} "
+                                 f"tokens")
+        print(f"tp: {TP_LABEL}: both ranks finished {len(r0['finished'])} requests with the same "
+              f"tokens (the sampled one: {r0['sampled'][:6]}..., the cancelled one after "
+              f"{len(r0['cancelled'])} tokens) and the same teacher-forced logits, bit for bit; "
+              f"rank 1 stopped on rank 0's sentinel; TP=2 run {wall:.1f} s", flush=True)
+        got = torch.from_numpy(np.load(os.path.join(tmp, "tp2_logits.npy")))
+        same = sum(a == b for w, g in zip(one["greedy"], r0["greedy"]) for a, b in zip(w, g))
+        print(f"tp: {TP_LABEL}: TP=2 greedy tokens equal TP=1's on "
+              f"{same}/{TP_NEW * len(TP_LENS)} (batch of {len(TP_LENS)}); the 1500-token "
+              f"request's on "
+              f"{sum(a == b for a, b in zip(one['long'], r0['long']))}/{TP_NEW}", flush=True)
+        msg = tp_compare(TP_LABEL, want, got, one["greedy"] + [one["long"]],
+                         r0["greedy"] + [r0["long"]], floor)
+        print(f"tp: {TP_LABEL}: TP=2 against TP=1, {msg}", flush=True)
+        how = ("NCCL, a GPU a rank" if nccl else "gloo on one GPU: every collective goes "
+               "through host memory, not an NCCL TP figure")
+        for what, r in (("TP=1 (one process)", one), (f"TP=2 ({how})", r0)):
+            print(f"timing: {TP_LABEL} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
+                  f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
+                  f"tokens; {smi}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tp_launches(rec: dict, label: str, launches: dict) -> None:
+    for name, n in launches.items():
+        rec[name]["launches"] += n
+        rec[name]["launches_by_path"][label] = n
+    expect = PATHS[label]
+    if any(launches[name] == 0 for name in expect):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    if any(n for name, n in launches.items() if name not in expect):
+        raise AssertionError(f"{label}: a kernel of another path launched: {launches}")
+
+
+def _tp_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 @contextlib.contextmanager
 def env_switch(name: str, on: bool):
     """``name=1`` in the environment for the enclosed block only (unset when
@@ -5207,7 +5721,9 @@ def timing_path(label: str, ex, BATCH: int, CTX: int, sampled_too: bool, PROMPT:
     from zhilight_tpu_torch.ops.sampling import SamplingParams
 
     dev = ex.device
-    S, WINDOWS, K = ex.page_size, 10, ex.decode_window
+    # 5 pipelined windows (10 before the tp phase joined the run, which must
+    # stay within its time limit)
+    S, WINDOWS, K = ex.page_size, 5, ex.decode_window
     # pages for the context and every step of the timed windows
     MAX_PAGES = min((CTX + (WINDOWS + 1) * K) // S + 1, ex.num_pages // BATCH)
     page_tables = np.stack([b * MAX_PAGES + np.arange(MAX_PAGES) for b in range(BATCH)]).astype(np.int32)
@@ -5340,7 +5856,7 @@ def profile(what: str, fn, steps: int = 0) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,multimodal,serve,http,timing")
+    ap.add_argument("--phases", default="kernels,multimodal,tp,serve,http,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
@@ -5348,6 +5864,13 @@ def main() -> int:
                          "rope + row-write sequence and the per-layer window flush through "
                          "them beside this tree's prologues and layered flush in the kernels "
                          "phase")
+    ap.add_argument("--tp-backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the tp phase's TP=2 group: gloo, both ranks on the one GPU (the "
+                         "default), or nccl, a GPU a rank (raises with fewer than two)")
+    # one rank of the tp phase's TP=2 run (the phase starts these itself)
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]
@@ -5355,6 +5878,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here", file=sys.stderr)
         return 1
+    if args.tp_rank is not None:
+        return tp_rank(args)
     from zhilight_tpu_torch.ops.cuda import _build
 
     smi = nvidia_smi()
@@ -5384,6 +5909,8 @@ def main() -> int:
                 phase_kernels(rec, args)
             elif phase == "multimodal":
                 phase_multimodal(rec, args, smi)
+            elif phase == "tp":
+                phase_tp(rec, args, smi)
             elif phase == "serve":
                 phase_serve(rec, args)
             elif phase == "http":

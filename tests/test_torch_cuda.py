@@ -2226,3 +2226,131 @@ def test_multimodal_engine_on_gpu(cuda):
           f"rel {diff / want.abs().max().item():.4e}")
     assert diff <= FP16_LOGIT_TOL * want.abs().max().item()
     assert int(card.argmax()) == int(want.argmax()) or (top2[0] - top2[1]).item() <= 2 * diff
+
+
+TP_RANK = r"""
+import datetime, json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+spec = json.load(open(os.path.join(tmp, "spec.json")))
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig, ParallelConfig,
+                                       SchedulerConfig)
+from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg, SearchTask
+from zhilight_tpu_torch.llm import LLM
+from zhilight_tpu_torch.models import llama as L
+from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+from zhilight_tpu_torch.ops.cuda import kv_write as W
+from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+
+finished = {}
+finish = SearchTask.finish
+def recorded(self):
+    finished[str(self.task_id)] = [int(t) for t in self.output_tokens]
+    finish(self)
+SearchTask.finish = recorded
+cfg = ModelConfig(**spec["model"])
+params = L.init_params(cfg, 0, "cuda:0", shard=(rank, 2))
+# "cuda" with no index: the rank's device is cuda:LOCAL_RANK, 0 for both ranks here
+llm = LLM(model_config=cfg, params=params, device="cuda", engine_config=EngineConfig(
+    max_model_len=512, cache=CacheConfig(page_size=16, num_pages=128),
+    scheduler=SchedulerConfig(max_batch=4, chunk_size=128, prefill_buckets=(128,)),
+    parallel=ParallelConfig(tp=2)))
+assert llm.device == torch.device("cuda", 0), llm.device
+counted = (W.rope_write_rows_hm, A.paged_decode_attention_hm, P.paged_prefill_attention_hm_packed)
+for fn in counted:
+    fn.launches = 0
+gen = DynamicBatchGenerator(llm).start()
+out = {}
+if rank == 0:
+    out["greedy"] = [r.outputs[0].token_ids for r in gen.batch_generate(
+        spec["prompts"], GeneratorArg(max_length=12, ignore_eos=True), timeout=120)]
+    gen.stop()
+else:
+    gen.scheduler._thread.join(timeout=120)
+    assert not gen.scheduler._thread.is_alive() and gen.scheduler.error is None
+out["launches"] = [fn.launches for fn in counted]
+out["finished"] = finished
+# teacher-forced along the TP=1 tokens: every rank scores together
+forced = [llm.executor.run_score(np.asarray(p + t, np.int32))[len(p) - 1 : -1]
+          for p, t in zip(spec["prompts"], spec["tokens"])]
+np.save(os.path.join(tmp, f"forced{rank}.npy"), np.stack(forced))
+json.dump(out, open(os.path.join(tmp, f"rank{rank}.json"), "w"))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_engine_on_gpu(cuda, tmp_path):
+    """Tensor parallelism on the card: a bf16 model at Qwen2.5-14B's TP=2
+    rank geometry (a rank holds 20 query / 4 KV heads of 128) served by two
+    rank processes on the one GPU over a gloo group, each drawing the full
+    weights from the seed and keeping its shard. Both ranks finish every
+    request with the same tokens and score the same logits bit for bit
+    (each given the device "cuda", which resolves to ``cuda:LOCAL_RANK``); the
+    row write, the decode and the prefill kernels launch on both; the TP=2
+    logits, teacher-forced along the TP=1 run's greedy tokens, lie within
+    2e-2 of the largest TP=1 logit, with the TP=1 argmax wherever its top-2
+    gap exceeds twice the largest difference, and the greedy tokens part, if
+    at all, at such a near tie."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    model = dict(model_type="qwen2", num_layers=2, dim_model=512, num_heads=40, dim_head=128,
+                 num_kv_heads=8, dim_ff=1024, vocab_size=1024, attn_bias=True,
+                 dtype="bfloat16")
+    cfg = L.ModelConfig(**model)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, 1024, n).tolist() for n in (40, 300)]
+    one = LLM(model_config=cfg, params=L.init_params(cfg, 0, "cuda"), device=cuda,
+              engine_config=EngineConfig(max_model_len=512, cache=CacheConfig(page_size=16,
+                                                                              num_pages=128),
+                                         scheduler=SchedulerConfig(max_batch=4, chunk_size=128,
+                                                                   prefill_buckets=(128,))))
+    with DynamicBatchGenerator(one) as gen:
+        tokens = [r.outputs[0].token_ids for r in gen.batch_generate(
+            prompts, GeneratorArg(max_length=12, ignore_eos=True), timeout=120)]
+    want = np.stack([one.executor.run_score(np.asarray(p + t, np.int32))[len(p) - 1 : -1]
+                     for p, t in zip(prompts, tokens)])
+    (tmp_path / "spec.json").write_text(json.dumps(dict(model=model, prompts=prompts,
+                                                        tokens=tokens)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root), LOCAL_RANK="0")
+    procs = [subprocess.Popen([sys.executable, "-c", TP_RANK, str(r), str(port), str(tmp_path)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-6000:]}"
+    r0, r1 = (json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2))
+    assert r0["finished"] and r0["finished"] == r1["finished"]
+    assert all(n > 0 for n in r0["launches"] + r1["launches"]), (r0["launches"], r1["launches"])
+    got, other = np.load(tmp_path / "forced0.npy"), np.load(tmp_path / "forced1.npy")
+    assert np.array_equal(got, other)
+    diff = np.abs(got - want).max()
+    assert diff <= 2e-2 * np.abs(want).max()
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]
+    parted = got.argmax(-1) != want.argmax(-1)
+    assert not parted.any() or gap[parted].max() <= 2 * diff
+    for b, (w, g) in enumerate(zip(tokens, r0["greedy"])):
+        first = next((k for k, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        assert first is None or gap[b, first] <= 2 * diff, (b, first)

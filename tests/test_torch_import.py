@@ -116,3 +116,22 @@ def test_multimodal_module_is_covered_and_imports_transformers_lazily():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_parallel_modules_are_covered():
+    """The tensor-parallel modules are among the modules above (so none of
+    them imports JAX or the JAX package), and the package's import starts no
+    process group: ``torch.distributed`` is initialised only by a launch or
+    by ``LLM`` under ``tp > 1``."""
+    assert {"zhilight_tpu_torch.parallel.sharding", "zhilight_tpu_torch.parallel.comm",
+            "zhilight_tpu_torch.parallel.control_plane"} <= set(MODULES)
+    code = (
+        "import torch.distributed as dist\n"
+        "import zhilight_tpu_torch, zhilight_tpu_torch.llm, zhilight_tpu_torch.parallel\n"
+        "assert not dist.is_initialized()\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

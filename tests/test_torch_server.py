@@ -456,7 +456,15 @@ def test_cli_without_device_raises_without_gpu(tiny, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["-tp", "2"], ["-dp", "2"], ["-pp", "2"], ["--nnodes", "2"],
                                    ["--node-rank", "1"]])
-def test_parallel_flags_are_not_ported(flags):
+def test_parallel_flags_are_not_ported(flags, monkeypatch):
     args = t_api.parse_args(["--model-path", "unused", "--device", "cpu", *flags])
+    if flags[0] == "-tp":
+        # tensor parallelism is served one process a rank under torchrun
+        # (tests/test_torch_tp.py); without such a launch the flag raises
+        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(RuntimeError, match="torchrun"):
+            t_api.make_engine_config(args)
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         t_api.make_engine_config(args)

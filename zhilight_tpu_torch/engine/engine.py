@@ -26,6 +26,15 @@ take no side buffer write each layer's new rows inside the attention kernel
 (``DecodeMeta.fused``; over slot-major model-dtype pools and latent pools
 only, as the reference routes it). Both switches are read once, when the
 executor is built; the reference reads them when it traces a decode program.
+
+Under tensor parallelism (``ParallelConfig(tp=N)`` and a
+``parallel.comm.TPGroup`` of N ranks, one process a rank) the executor holds
+its rank's shard of the weights and a pool of its own ``num_kv_heads / tp``
+heads, in every layout; the model all-reduces and all-gathers across the
+ranks, and every rank's scheduler runs in lockstep through ``plane``
+(``parallel.control_plane.DistPlane``). The pool-row operations move the
+rank's own rows. Scoring (:meth:`run_score`) runs collectives too, so every
+rank must call it together.
 """
 
 from __future__ import annotations
@@ -50,6 +59,8 @@ from ..ops.sampling import (
     record_tokens,
     sample_step,
 )
+from ..parallel.control_plane import DistPlane, LocalPlane
+from ..parallel.sharding import rank_config
 
 __all__ = ["ModelExecutor"]
 
@@ -70,10 +81,14 @@ class ModelExecutor:
         params: Dict[str, Any],
         engine_cfg: EngineConfig,
         device,
+        tp=None,
     ):
         pcfg = engine_cfg.parallel
-        if pcfg.num_devices > 1 or pcfg.num_hosts > 1:
-            raise NotImplementedError("tensor, data and pipeline parallelism are not ported yet")
+        if pcfg.dp > 1 or pcfg.pp > 1 or pcfg.num_hosts > 1:
+            raise NotImplementedError("data, pipeline and multi-host parallelism are not "
+                                      "ported yet")
+        if pcfg.tp != (tp.world if tp is not None else 1):
+            raise ValueError(f"tp={pcfg.tp} needs a tensor-parallel group of {pcfg.tp} ranks")
         if engine_cfg.cache.kv_dtype not in ("bfloat16", "int8", cfg.dtype):
             raise NotImplementedError(f"KV dtype {engine_cfg.cache.kv_dtype} is not ported yet")
         self.device = torch.device(device)
@@ -83,6 +98,15 @@ class ModelExecutor:
             # no TF32
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
             torch.backends.cuda.matmul.allow_tf32 = False
+        # under tensor parallelism (``tp``, a parallel.comm.TPGroup of world
+        # > 1) ``params`` is this rank's shard and the model runs on the
+        # rank's heads (parallel.sharding.rank_config); every rank runs the
+        # scheduler loop in lockstep through the control plane
+        self.tp = tp if tp is not None and tp.world > 1 else None
+        self.plane = LocalPlane()
+        if self.tp is not None:
+            cfg = rank_config(cfg, self.tp.world)
+            self.plane = DistPlane()
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         self.sched_cfg = self._trim_buckets(engine_cfg)
@@ -92,6 +116,15 @@ class ModelExecutor:
 
         self.page_size = self.cache_cfg.page_size
         self.num_pages = self._decide_num_pages()
+        if self.tp is not None:
+            # one page count for the group, the smallest rank's: every rank
+            # replays rank 0's admission and preemption against its own
+            # allocator, so the allocators must agree (the reference sizes
+            # one pool for its whole mesh)
+            import torch.distributed as dist
+
+            n = torch.tensor([self.num_pages], dtype=torch.int64, device=self.device)
+            self.num_pages = int(self.tp.all_reduce(n, op=dist.ReduceOp.MIN).item())
         self.max_pages_per_seq = _round_up(engine_cfg.max_model_len, self.page_size) // self.page_size
         self.max_batch = self.sched_cfg.max_batch
 
@@ -136,7 +169,10 @@ class ModelExecutor:
     def _kv_bytes_per_token(self) -> int:
         """Pool bytes one token takes over all layers: K and V elements in
         the pool's dtype and, for an int8 pool, their two fp32 scales; for an
-        MLA model one latent row (2 bytes an element) per layer."""
+        MLA model one latent row (2 bytes an element) per layer. Under tensor
+        parallelism over the rank's ``num_kv_heads / tp`` heads: the
+        reference's bytes divided by tp (``zhilight_tpu/engine/engine.py:
+        258-259``), so the page count, and admission with it, match."""
         cfg = self.cfg
         if cfg.mla.enabled:
             return cfg.num_layers * cfg.mla.latent_dim * 2
@@ -235,7 +271,7 @@ class ModelExecutor:
         with torch.no_grad():
             _, self.cache = llama_mod.backbone(
                 self.params, self.cfg, self.rope, tokens, meta.positions, self.cache,
-                meta, "prefill", embeddings,
+                meta, "prefill", embeddings, tp=self.tp,
             )
 
     def run_chunk(self, tokens: np.ndarray, meta: PrefillMeta,
@@ -307,7 +343,8 @@ class ModelExecutor:
         st = self.sampler_state
         with torch.no_grad():
             logits, self.cache = llama_mod.forward_prefill(
-                self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache, emb
+                self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache, emb,
+                tp=self.tp,
             )
             rows = torch.full((1,), slot, dtype=torch.long, device=self.device)
             tok, lp, toplp, toptok, st2 = sample_step(
@@ -340,7 +377,8 @@ class ModelExecutor:
         st = self.sampler_state
         with torch.no_grad():
             logits, self.cache = llama_mod.forward_prefill_packed(
-                self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache
+                self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache,
+                tp=self.tp,
             )
             rows = self.upload(np.maximum(slots, 0).astype(np.int64))
             gens = [self.generators[s] if s >= 0 else self._scratch_generator for s in slots]
@@ -439,11 +477,11 @@ class ModelExecutor:
                     side_valid[:, k] = valid
                     logits, self.cache, side_rows = llama_mod.forward_decode_window(
                         self.params, self.cfg, self.rope, d_tok, meta, self.cache,
-                        side_rows, side_valid, pool_lens, k,
+                        side_rows, side_valid, pool_lens, k, tp=self.tp,
                     )
                 else:
                     logits, self.cache = llama_mod.forward_decode(
-                        self.params, self.cfg, self.rope, d_tok, meta, self.cache
+                        self.params, self.cfg, self.rope, d_tok, meta, self.cache, tp=self.tp,
                     )
                 tok, lp, toplp, toptok, st2 = sample_step(
                     logits, state, sparams, generators=self.generators,
@@ -528,7 +566,7 @@ class ModelExecutor:
         with torch.no_grad():
             out, _ = forward(self.params, self.cfg, self.rope,
                              self.upload(np.asarray(tokens, np.int32)), meta,
-                             self.new_cache(maxp, quantized=False))
+                             self.new_cache(maxp, quantized=False), tp=self.tp)
         return out.float().cpu().numpy()
 
     def run_hidden(self, tokens: np.ndarray) -> np.ndarray:

@@ -26,6 +26,7 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..config.engine_config import SchedulerConfig
 from ..kvcache.allocator import make_page_allocator
@@ -86,6 +87,9 @@ class Scheduler:
         self.step_index = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # what ended the loop when it crashed (a worker rank's lockstep loop
+        # has no task to fail, so its caller reads this after the join)
+        self.error: Optional[BaseException] = None
         self._wake = threading.Event()
         self._active = 0
         self._lock = threading.Lock()
@@ -215,6 +219,9 @@ class Scheduler:
     def _run(self):
         logger.info("scheduler loop started (rank %d/%d)", self.plane.rank, self.plane.world)
         try:
+            if self.ex.device.type == "cuda" and self.ex.device.index is not None:
+                # the kernels launch on the thread's current device
+                torch.cuda.set_device(self.ex.device)
             while not self._stop.is_set():
                 did_work = self._step()
                 if not did_work and self.plane.rank == 0:
@@ -227,6 +234,7 @@ class Scheduler:
             return
         except BaseException as e:  # propagate to all tasks, mirror reference
             logger.exception("scheduler crashed")
+            self.error = e
             for t in list(self.slots) + self.prefilling + self.preempted:
                 if t is not None and t.status not in (TaskStatus.FINISHED, TaskStatus.FAILED):
                     t.fail(e)
@@ -563,8 +571,11 @@ class Scheduler:
     # ------------------------------------------------------------------
     def _preempt_mode(self) -> str:
         # per-host shard offload isn't wired for multi-host meshes; recompute
-        # is pure host logic and replays deterministically on every rank
-        if self.plane.world > 1:
+        # is pure host logic and replays deterministically on every rank.
+        # Keyed on the hosts, not the plane: the ranks of one host's
+        # tensor-parallel model each swap their own shard's rows, as the
+        # reference's single-host mesh swaps its sharded pool
+        if self.ex.engine_cfg.parallel.num_hosts > 1:
             return "recompute"
         return self.cfg.preempt_mode
 

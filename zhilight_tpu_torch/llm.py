@@ -20,6 +20,18 @@ input then raises ``ValueError``). With tokenizer files but no
 ``transformers`` installed, ``tokenizer`` stays None and ``tokenizer_error``
 holds the ImportError that string input and the server's start raise, so
 token ids still serve; any other failure to load the tokenizer propagates.
+
+Tensor parallelism (``engine_config=EngineConfig(parallel=ParallelConfig(
+tp=N))``, dense models in bf16, fp16 or fp32) follows torchrun's convention:
+every rank runs the same program and builds the same ``LLM``, which joins
+the default ``torch.distributed`` group (the caller's, or one initialised
+from ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``: NCCL on
+the GPU, gloo on the CPU), whose world must be N, and keeps its rank's shard
+of ``params`` or of the checkpoint. The device defaults to
+``cuda:LOCAL_RANK``; one device given to every rank is allowed (two ranks on
+one GPU over a gloo group). Rank 0 takes the requests; the other ranks run
+the scheduler loop in lockstep (``gen.scheduler._thread.join()``) until rank
+0's generator stops. Scoring and calibration raise under N > 1.
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ import torch
 from .config import EngineConfig, ModelConfig, QuantConfig, QuantType, load_model_config
 from .engine.engine import ModelExecutor
 from .engine.generator import DynamicBatchGenerator
+from .parallel.comm import join, local_device
+from .parallel.sharding import check_tp, is_shard, shard_params
 from .utils.convert import params_to_torch
 from .utils.hf_loader import load_hf_state
 
@@ -93,21 +107,35 @@ class LLM:
             raise ValueError("LLM needs model_path, or model_config and params")
         self.model_config = model_config
         self.quant_config = quant_config or QuantConfig()
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "LLM runs on the GPU by default and no CUDA device is available; "
-                    "pass device='cpu' to run on the CPU"
-                )
-            device = "cuda"
-        self.device = torch.device(device)
+        tp = self.engine_config.parallel.tp
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError(
+                "LLM runs on the GPU by default and no CUDA device is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        self.tp_group = None
+        if tp > 1:
+            # one process a rank (torchrun's convention): every rank builds
+            # the same LLM and keeps its shard of the weights
+            check_tp(model_config, tp)
+            if self.quant_config.enabled:
+                raise NotImplementedError(
+                    "quantized linears under tensor parallelism are not ported yet "
+                    "(ROADMAP, queue 1)")
+            device = local_device(device)
+            self.tp_group = join(tp, device)
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
+        self.device = torch.device(device if device is not None else "cuda")
+        shard = (self.tp_group.rank, tp) if self.tp_group is not None else None
         self.tokenizer, self.tokenizer_error = tokenizer, None
         if model_path and tokenizer is None:
             self.tokenizer, self.tokenizer_error = _load_tokenizer(model_path)
 
         if params is None:
             params = load_hf_state(
-                model_path, model_config, quant=self.quant_config, device=self.device
+                model_path, model_config, quant=self.quant_config, device=self.device,
+                shard=shard,
             )
             if self.quant_config.quant_type == QuantType.AUTO_INT8:
                 # quantize the raw fp16/bf16 weights to W8A8 at load; the
@@ -129,8 +157,13 @@ class LLM:
                 self.engine_config,
                 scheduler=dataclasses.replace(sched, eos_id=eos_ids[0], eos_ids=tuple(eos_ids)),
             )
+        if shard is not None and not is_shard(params, model_config, tp):
+            # the full tree (a rank's shard, from init_params(shard=...) or
+            # the loader, is taken as it is)
+            params = shard_params(params, *shard)
         params = params_to_torch(params, self.device, model_config.torch_dtype)
-        self.executor = ModelExecutor(model_config, params, self.engine_config, self.device)
+        self.executor = ModelExecutor(model_config, params, self.engine_config, self.device,
+                                      tp=self.tp_group)
 
     def generator(self) -> DynamicBatchGenerator:
         return DynamicBatchGenerator(self)
@@ -143,6 +176,7 @@ class LLM:
         the per-channel activation |max| of every quantized linear's input
         (parameter path -> [in] float32). Each prompt is tiled or truncated
         to ``calib_len`` tokens."""
+        self._single_rank("calc_act_scales")
         from .utils.calibrate import calc_act_scales as _calc
 
         batches = []
@@ -172,6 +206,9 @@ class LLM:
         W8A8 int8 on the same device."""
         from .utils.quant_convert import quantize_int8_params
 
+        if engine_config is not None and engine_config.parallel.tp > 1:
+            raise NotImplementedError("load_with_smooth_quant under tensor parallelism is not "
+                                      "ported yet (ROADMAP, queue 1)")
         base = cls(model_path=model_path, engine_config=engine_config, **kw)
         scales = base.calc_act_scales(calibration_prompts, calib_len=calib_len)
         params, device = base.executor.params, base.device
@@ -187,6 +224,14 @@ class LLM:
     # ------------------------------------------------------------------
     # scoring utilities, on token ids or a string
     # ------------------------------------------------------------------
+    def _single_rank(self, what: str):
+        """Scoring and calibration run outside the scheduler loop, on the
+        caller's rank alone: under tensor parallelism the other ranks would
+        never join their collectives, so they raise instead of hanging."""
+        if self.tp_group is not None:
+            raise NotImplementedError(
+                f"{what} under tensor parallelism is not ported yet (ROADMAP, queue 1)")
+
     def _encode_ids(self, tokens) -> np.ndarray:
         if isinstance(tokens, str):
             if self.tokenizer is None:
@@ -196,15 +241,18 @@ class LLM:
 
     def calc_logits(self, tokens) -> np.ndarray:
         """Per-position vocab logits [T, V] (fp32 numpy)."""
+        self._single_rank("calc_logits")
         return self.executor.run_score(self._encode_ids(tokens))
 
     def calc_hidden_states(self, tokens) -> np.ndarray:
         """Per-position last-layer hidden states [T, d] after the final norm."""
+        self._single_rank("calc_hidden_states")
         return self.executor.run_hidden(self._encode_ids(tokens))
 
     def _logits_and_labels(self, tokens, labels):
         """The logit rows that score ``labels``: by default position i scores
         the next token, tokens[i + 1]."""
+        self._single_rank("scoring (calc_log_prob, calc_loss, calc_greedy_match)")
         ids = self._encode_ids(tokens)
         logits = self.executor.run_score(ids)
         if labels is None:

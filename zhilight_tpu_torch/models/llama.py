@@ -40,6 +40,15 @@ and the side rows are attended and merged in plain torch, on the GPU too, as
 the reference leaves them to XLA. :func:`flush_window_rows` writes the
 window's rows once at its end.
 
+Tensor parallelism: given a rank's configuration
+(``parallel.sharding.rank_config``: its heads and ``dim_ff``), its shard of
+the weights and ``tp``, its group (``parallel.comm.TPGroup``), every function
+here runs on the rank's share; ``o_proj`` and ``down_proj`` are all-reduced
+(:func:`_reduce_linear`), the vocab-sharded embedding is looked up and
+all-reduced (:func:`embed`) and the logits are all-gathered
+(:func:`get_logits`), so that every rank holds the same activations and
+logits. ``tp=None`` is one process.
+
 Fused write + attend (``ZT_FUSED_KV=1``, read by the executor, which sets
 ``DecodeMeta.fused``): a decode step over slot-major pools in the model dtype
 (never int8, never the packed head-major pool: :func:`_use_fused_write`)
@@ -52,6 +61,7 @@ never fuses, and a decode window with side buffers takes precedence.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -66,6 +76,7 @@ from ..ops.cuda import attn_headmajor, paged_attention, prefill_attention
 from ..ops.linear import linear
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rope import RopeTable, apply_rope_rot, build_rope_table
+from ..parallel.sharding import shard_params
 from .base import DecodeMeta, PackedPrefillMeta, PrefillMeta
 
 __all__ = [
@@ -91,6 +102,25 @@ def build_rope(cfg: ModelConfig, max_model_len: int = 0) -> RopeTable:
     return build_rope_table(
         cfg.mla.qk_rope_head_dim if cfg.mla.enabled else cfg.dim_head, cfg.rope_theta, cfg.rope, cfg.max_position_embeddings, max_model_len
     )
+
+
+def _reduce_linear(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel projection (``o_proj``, ``down_proj``). Under tensor
+    parallelism each rank's partial product stays in fp32, is all-reduced in
+    fp32 and rounded to the model's dtype once, as the reference's compiled
+    program does (its dot's fp32 result is all-reduced before the convert);
+    the (replicated) bias is added after the sum."""
+    if tp is None:
+        return linear(p, x)
+    y = tp.all_reduce(_matmul_f32(x, p["w"])).to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def _o_proj(p: Params, out: torch.Tensor, tp) -> torch.Tensor:
+    """The attention output [T, Hq(, D)] through ``o_proj``."""
+    return _reduce_linear(p["o_proj"], out.reshape(out.shape[0], -1), tp)
 
 
 def _norm(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -139,12 +169,12 @@ def attention_layer(
     mode: str,
     rot=None,
     side=None,
+    tp=None,
 ):
     """Standard / GQA attention over the paged pool: write this step's K|V
     rows, then attend (prefill chunk, packed chunks or decode step). With
     ``side`` (a decode window's side buffer, see :func:`forward_decode_window`)
     nothing is written and ``(out, cache, side_rows)`` is returned."""
-    n = x.shape[0]
     q, k, v = _qkv(p, cfg, x)
     q, k = _maybe_qk_norm(p, cfg, q, k)
     cos_f, sin_f = rot if rot is not None else rope.rot_values(positions)
@@ -157,17 +187,17 @@ def attention_layer(
         k = apply_rope_rot(k, cos_f, sin_f, rope.neox_style)
         if side is not None:
             out, rows = _side_window_attention(cache, layer_idx, q, k, v, meta, side, scale)
-            return linear(p["o_proj"], out), cache, rows
+            return _o_proj(p, out, tp), cache, rows
         out = paged_attention.paged_decode_attention_fused(
             q, cache.k[layer_idx], cache.v[layer_idx], k, v, meta.slot_mapping,
             meta.page_tables, meta.context_lens, S, scale, sw)
-        return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+        return _o_proj(p, out, tp), cache
     # the pool's attention prologue: q and k rotated, K and V rows written (an
     # int8 pool's quantized), one kernel launch
     q = rope_write_kv(cache, layer_idx, q, k, v, cos_f, sin_f, rope.neox_style, meta.slot_mapping)
     if not cache.packed:
         out = _slot_major_attention(cache, layer_idx, q, meta, mode, scale, sw)
-        return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+        return _o_proj(p, out, tp), cache
     # an int8 cache goes to the _q kernels with this layer's scales
     kv = (cache.k[layer_idx],)
     if cache.quantized:
@@ -184,7 +214,7 @@ def attention_layer(
         attend = (attn_headmajor.paged_decode_attention_hm_q if cache.quantized
                   else attn_headmajor.paged_decode_attention_hm)
         out = attend(q, *kv, meta.page_tables, meta.context_lens, S, scale, sw)
-    return linear(p["o_proj"], out.reshape(n, cfg.num_heads * cfg.dim_head)), cache
+    return _o_proj(p, out, tp), cache
 
 
 def _side_window_attention(cache: KVCache, layer: int, q, k, v, meta, side, scale: float):
@@ -253,21 +283,22 @@ def _slot_major_attention(
 # feed-forward and block
 # ---------------------------------------------------------------------------
 
-def dense_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def dense_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Gated MLP, from split or fused gate+up weights."""
     if "gate_up_proj" in p:
         g, u = linear(p["gate_up_proj"], x).chunk(2, dim=-1)
     else:
         g, u = linear(p["gate_proj"], x), linear(p["up_proj"], x)
-    return linear(p["down_proj"], gated_act(g, u, cfg.activate_fn))
+    return _reduce_linear(p["down_proj"], gated_act(g, u, cfg.activate_fn), tp)
 
 
-def mlp_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, layer_idx: int) -> torch.Tensor:
+def mlp_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, layer_idx: int,
+              tp=None) -> torch.Tensor:
     if cfg.is_moe_layer(layer_idx):
         from .moe import moe_layer
 
-        return moe_layer(p, cfg, x)
-    return dense_mlp(p, cfg, x)
+        return moe_layer(p, cfg, x)  # never under tp (parallel.sharding.check_tp)
+    return dense_mlp(p, cfg, x, tp)
 
 
 def decoder_layer(
@@ -282,32 +313,45 @@ def decoder_layer(
     mode: str,
     rot=None,
     side=None,
+    tp=None,
 ):
     """Pre-norm block: sequential residual by default, Cohere's parallel
     variant, MiniCPM's depth-scaled residual (scale_depth / sqrt(L)). With
     ``side`` (decode windows) returns (x, cache, side_rows)."""
     if cfg.mla.enabled:
+        # never under tp (parallel.sharding.check_tp)
         from .mla import mla_attention_layer as attn_fn
     else:
-        attn_fn = attention_layer
+        attn_fn = functools.partial(attention_layer, tp=tp)
     res_scale = cfg.scale_depth / math.sqrt(cfg.num_layers) if cfg.scale_depth != 1.0 else 1.0
     h = _norm(p["ln_attn"], cfg, x)
     attn_out, cache, *rows = attn_fn(
         p["attn"], cfg, rope, h, positions, cache, layer_idx, meta, mode, rot=rot, side=side
     )
     if cfg.parallel_residual:
-        return (x + attn_out + mlp_layer(p["mlp"], cfg, h, layer_idx), cache, *rows)
+        return (x + attn_out + mlp_layer(p["mlp"], cfg, h, layer_idx, tp), cache, *rows)
     x = x + attn_out * res_scale
     h = _norm(p["ln_ff"], cfg, x)
-    return (x + mlp_layer(p["mlp"], cfg, h, layer_idx) * res_scale, cache, *rows)
+    return (x + mlp_layer(p["mlp"], cfg, h, layer_idx, tp) * res_scale, cache, *rows)
 
 
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 
-def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embedding"]["w"].index_select(0, tokens)
+def embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token embeddings [T, d]. Under tensor parallelism a rank holds rows
+    ``[rank * V / tp, (rank + 1) * V / tp)`` of the table: it looks up its
+    rows, gives zeros for the other ids and all-reduces, a sum with one
+    non-zero term, so exact."""
+    w = params["embedding"]["w"]
+    if tp is None:
+        x = w.index_select(0, tokens)
+    else:
+        local = tokens.long() - tp.rank * w.shape[0]
+        mine = (local >= 0) & (local < w.shape[0])
+        x = w.index_select(0, torch.where(mine, local, 0))
+        x = tp.all_reduce(torch.where(mine[:, None], x, torch.zeros_like(x)))
     if cfg.scale_emb != 1.0:
         x = x * cfg.scale_emb
     return x.to(cfg.torch_dtype)
@@ -323,15 +367,17 @@ def backbone(
     meta,
     mode: str,
     input_embeddings: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Embedding -> N blocks -> final norm; rope's cos/sin are computed once
     and shared by every layer. ``input_embeddings`` [T, d] in the model's
     dtype replaces the token embedding (the multimodal path)."""
-    x = embed(params, cfg, tokens) if input_embeddings is None else input_embeddings
+    x = embed(params, cfg, tokens, tp) if input_embeddings is None else input_embeddings
     rot = rope.rot_values(positions)
     for i in range(cfg.num_layers):
         x, cache = decoder_layer(
-            params["layers"][str(i)], cfg, rope, x, positions, cache, i, meta, mode, rot=rot
+            params["layers"][str(i)], cfg, rope, x, positions, cache, i, meta, mode, rot=rot,
+            tp=tp,
         )
     return _norm(params["final_norm"], cfg, x), cache
 
@@ -345,14 +391,19 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
-def get_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+def get_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor, tp=None) -> torch.Tensor:
     """Project hidden states [..., d] to fp32 vocab logits [..., V], with the
-    MiniCPM (dim_model_base) and Cohere (logit_scale) scalings."""
+    MiniCPM (dim_model_base) and Cohere (logit_scale) scalings. Under tensor
+    parallelism a rank's head (or tied table) holds a slice of the vocab:
+    the slices' logits are all-gathered, the same [..., V] on every rank."""
     if cfg.dim_model_base:
         hidden = hidden / (cfg.dim_model / cfg.dim_model_base)
     w = params["embedding"]["w"].t() if cfg.tie_lm_head else params["lm_head"]["w"]
     lead = hidden.shape[:-1]
-    logits = _matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w).reshape(*lead, -1)
+    logits = _matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w)
+    if tp is not None:
+        logits = tp.all_gather(logits, dim=-1)
+    logits = logits.reshape(*lead, -1)
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     return logits
@@ -366,12 +417,13 @@ def forward_prefill(
     meta: PrefillMeta,
     cache: KVCache,
     input_embeddings: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One prefill chunk; returns the fp32 logits [V] of its last valid token."""
     hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill",
-                             input_embeddings)
+                             input_embeddings, tp)
     last = (meta.q_len - 1).clamp_min(0).reshape(1).long()
-    return get_logits(params, cfg, hidden.index_select(0, last))[0], cache
+    return get_logits(params, cfg, hidden.index_select(0, last), tp)[0], cache
 
 
 def forward_prefill_packed(
@@ -382,15 +434,16 @@ def forward_prefill_packed(
     meta: PackedPrefillMeta,
     cache: KVCache,
     input_embeddings: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Packed chunks of NS sequences; returns each segment's last-valid-token
     logits [NS, V] (rows of empty segments are garbage the host discards)."""
     hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill",
-                             input_embeddings)
+                             input_embeddings, tp)
     NS = meta.num_segments
     TC = tokens.shape[0] // NS
     rows = torch.arange(NS, device=tokens.device) * TC + (meta.q_lens - 1).clamp_min(0)
-    return get_logits(params, cfg, hidden.index_select(0, rows.long())), cache
+    return get_logits(params, cfg, hidden.index_select(0, rows.long()), tp), cache
 
 
 def forward_score(
@@ -400,11 +453,13 @@ def forward_score(
     tokens: torch.Tensor,  # [T]
     meta: PrefillMeta,
     cache: KVCache,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence fp32 logits [T, V]: the scoring utilities keep every
     position's logits, not only the last."""
-    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill")
-    return get_logits(params, cfg, hidden), cache
+    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill",
+                             tp=tp)
+    return get_logits(params, cfg, hidden, tp), cache
 
 
 def forward_hidden(
@@ -414,9 +469,10 @@ def forward_hidden(
     tokens: torch.Tensor,  # [T]
     meta: PrefillMeta,
     cache: KVCache,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence last-layer hidden states [T, d] after the final norm."""
-    return backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill")
+    return backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "prefill", tp=tp)
 
 
 def forward_decode(
@@ -426,10 +482,12 @@ def forward_decode(
     tokens: torch.Tensor,  # [B]
     meta: DecodeMeta,
     cache: KVCache,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step for all slots; returns fp32 logits [B, V]."""
-    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "decode")
-    return get_logits(params, cfg, hidden), cache
+    hidden, cache = backbone(params, cfg, rope, tokens, meta.positions, cache, meta, "decode",
+                             tp=tp)
+    return get_logits(params, cfg, hidden, tp), cache
 
 
 def new_side_rows(cfg: ModelConfig, batch: int, window: int, dtype: torch.dtype, device=None):
@@ -453,20 +511,21 @@ def forward_decode_window(
     side_valid: torch.Tensor,  # [B, Kw] bool: column j set iff the slot was live at step j
     pool_lens: torch.Tensor,   # [B] int32: pool tokens at the window's entry
     step: int,                 # this step's column of the window
+    tp=None,
 ):
     """One decode step of a window with side-buffered KV writes: every layer
     puts its new rows into its side buffer (in place) instead of the pool and
     attends over the pool's partials and the side rows. Returns (fp32 logits
     [B, V], cache, side_rows), the side buffer written in place;
     :func:`flush_window_rows` writes the pool at the end of the window."""
-    x = embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens, tp)
     rot = rope.rot_values(meta.positions)
     for i in range(cfg.num_layers):
         side = dict(rows=side_rows[i], valid=side_valid, pool_lens=pool_lens, step=step)
         x, cache, _ = decoder_layer(params["layers"][str(i)], cfg, rope, x, meta.positions,
-                                    cache, i, meta, "decode", rot=rot, side=side)
+                                    cache, i, meta, "decode", rot=rot, side=side, tp=tp)
     hidden = _norm(params["final_norm"], cfg, x)
-    return get_logits(params, cfg, hidden), cache, side_rows
+    return get_logits(params, cfg, hidden, tp), cache, side_rows
 
 
 def flush_window_rows(
@@ -496,10 +555,16 @@ def init_params(
     seed: int = 0,
     device=None,
     dtype: Optional[torch.dtype] = None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Params:
     """Random weights in the reference's layout and scales (normal /
     sqrt(fan_in), embeddings 0.02, norms 1), drawn on ``device`` from a
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``. With ``shard=(rank, tp)`` the same full
+    tensors are drawn, one layer at a time, and only rank ``rank``'s shard of
+    each is kept (``parallel.sharding.shard_params``): every rank of a
+    tensor-parallel model draws the same weights without holding them all."""
+    keep = (lambda tree, path: tree) if shard is None else (
+        lambda tree, path: shard_params(tree, *shard, prefix=path))
     dtype = dtype or cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     d, hq, hkv, dh = cfg.dim_model, cfg.num_heads, cfg.num_kv_heads, cfg.dim_head
@@ -556,12 +621,12 @@ def init_params(
         return p
 
     params: Params = {
-        "embedding": {"w": dense((cfg.vocab_size, d), scale=0.02)},
-        "layers": {str(i): layer(i) for i in range(cfg.num_layers)},
+        "embedding": keep({"w": dense((cfg.vocab_size, d), scale=0.02)}, "embedding"),
+        "layers": {str(i): keep(layer(i), f"layers.{i}") for i in range(cfg.num_layers)},
         "final_norm": {"w": ones(d)},
     }
     if not cfg.tie_lm_head:
-        params["lm_head"] = {"w": dense((d, cfg.vocab_size), scale=0.02)}
+        params["lm_head"] = keep({"w": dense((d, cfg.vocab_size), scale=0.02)}, "lm_head")
     return params
 
 

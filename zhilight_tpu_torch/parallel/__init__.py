@@ -1,3 +1,6 @@
-from .control_plane import ControlPlane, LocalPlane
+from .comm import TPGroup
+from .control_plane import ControlPlane, DistPlane, LocalPlane
+from .sharding import param_shard_dim, shard_params
 
-__all__ = ["ControlPlane", "LocalPlane"]
+__all__ = ["ControlPlane", "DistPlane", "LocalPlane", "TPGroup", "param_shard_dim",
+           "shard_params"]

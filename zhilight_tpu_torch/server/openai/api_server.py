@@ -9,12 +9,18 @@ This build uses **aiohttp** (fastapi/uvicorn are not in the base image) — the
 HTTP surface and JSON bodies are identical to the reference's. It serves the
 port's engine (``zhilight_tpu_torch``) on the GPU unless ``--device`` names
 another device; without one and without a GPU it raises, as ``LLM`` does.
-Tensor, data and pipeline parallelism and multi-host serving are not ported
-yet: their flags raise.
+Tensor parallelism runs one process a rank under torchrun: rank 0 serves
+HTTP, the other ranks serve none and run the scheduler in lockstep. Without
+such a launch ``--tensor-parallel N`` raises. Data and pipeline parallelism
+and multi-host serving are not ported yet: their flags raise. Embeddings
+(``/v1/embeddings``) answer 501 under tensor parallelism: they run outside
+the scheduler loop, on rank 0 alone.
 
 Launch:
   python -m zhilight_tpu_torch.server.openai.api_server --model-path M [--port 8080]
       [--device cpu] [--max-model-len L] [--api-key K] [--environ K=V]
+  torchrun --nproc-per-node 2 -m zhilight_tpu_torch.server.openai.api_server \
+      --model-path M --tensor-parallel 2
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ...config import (
     SchedulerConfig,
 )
 from ...engine.generator import DynamicBatchGenerator
+from ...parallel.comm import leave, require_launch
 from .metrics import ServingMetrics
 from .protocol import (
     ChatCompletionRequest,
@@ -429,6 +436,8 @@ def build_app(engine: AsyncEngine, served_model: str, api_key: Optional[str] = N
     app.router.add_get("/v1/options", options)
     # -- embeddings (beyond reference parity: mean-pooled last hidden) --
     async def embeddings(request: web.Request):
+        if getattr(engine.llm, "tp_group", None) is not None:
+            return _error(501, "embeddings are not served under tensor parallelism")
         try:
             req = EmbeddingRequest(**await request.json())
         except Exception as e:
@@ -505,8 +514,10 @@ def parse_args(argv=None):
 
 
 def make_engine_config(args) -> EngineConfig:
-    if args.tensor_parallel * args.data_parallel * args.pipeline_parallel > 1:
-        raise NotImplementedError("tensor, data and pipeline parallelism are not ported yet")
+    if args.data_parallel * args.pipeline_parallel > 1:
+        raise NotImplementedError("data and pipeline parallelism are not ported yet")
+    if args.tensor_parallel > 1:
+        require_launch(args.tensor_parallel)
     if args.nnodes > 1 or args.node_rank > 0:
         raise NotImplementedError("multi-host serving is not ported yet")
     return EngineConfig(
@@ -553,6 +564,18 @@ def main(argv=None):
         dt = llm.executor.warmup()
         logger.info("warmup done in %.1fs", dt)
     gen = DynamicBatchGenerator(llm).start()
+    if llm.tp_group is not None and llm.tp_group.rank > 0:
+        # tensor-parallel ranks above 0 serve no HTTP (the reference's worker
+        # nodes, api_server.py:549-554): their scheduler thread replays rank
+        # 0's loop in lockstep, entering the same collectives, and exits when
+        # rank 0 shuts down
+        logger.info("tensor-parallel rank %d: serving no HTTP, running the lockstep scheduler",
+                    llm.tp_group.rank)
+        gen.scheduler._thread.join()
+        leave()
+        if gen.scheduler.error is not None:
+            raise RuntimeError("the lockstep scheduler failed") from gen.scheduler.error
+        return
     engine = AsyncEngine(llm, gen)
     served = args.served_model_name or os.path.basename(args.model_path.rstrip("/"))
 
@@ -561,6 +584,8 @@ def main(argv=None):
         web.run_app(app, host=args.host, port=args.port)
     finally:
         gen.stop()
+        if llm.tp_group is not None:
+            leave()
 
 
 if __name__ == "__main__":

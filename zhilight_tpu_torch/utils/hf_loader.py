@@ -25,6 +25,7 @@ import torch
 
 from ..config.model_config import ModelConfig
 from ..ops.quant import pack_expert_int4, pack_int4
+from ..parallel.sharding import shard_leaf
 from .convert import to_tensor
 from .quant_convert import convert_quant_tensors, planar_from_gptq
 
@@ -181,12 +182,16 @@ def map_hf_params(
     strict: bool = True,
     quant_method: Optional[str] = None,
     device=None,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, Any]:
     """Build the nested param dict from (hf_name, array or tensor) pairs,
     its leaves on ``device`` (default: the CPU).
 
     ``quant_method`` ("gptq" | "awq" | "fp8") converts the checkpoint tensors
-    of each quantized linear into the formats of ``ops/quant.py``."""
+    of each quantized linear into the formats of ``ops/quant.py``. With
+    ``shard=(rank, tp)`` each dense tensor is sliced to rank ``rank``'s shard
+    as it is read (``parallel.sharding.shard_leaf``), so that no rank holds
+    more than one full tensor at a time."""
     dtype = dtype or cfg.torch_dtype
     tree: Dict[str, Any] = {}
     expert_stash: Dict[str, Dict[int, torch.Tensor]] = {}  # stack path -> expert -> [in, out]
@@ -224,7 +229,11 @@ def map_hf_params(
         path, transpose, e = mapped
         t = to_tensor(arr).to(device)
         if transpose:
-            t = t.t().contiguous()
+            t = t.t()
+        if shard is not None and e is None:
+            t = shard_leaf(path, t, *shard)
+        elif transpose:
+            t = t.contiguous()
         if e is not None:
             expert_stash.setdefault(path, {})[e] = t.to(dtype)
         else:
@@ -233,6 +242,9 @@ def map_hf_params(
     for path, experts in expert_stash.items():
         _set_path(tree, path, torch.stack([experts[i] for i in range(max(experts) + 1)]))
 
+    if (quant_stash or expert_stash) and shard is not None and shard[1] > 1:
+        raise NotImplementedError("quantized linears and expert stacks under tensor "
+                                  "parallelism are not ported yet (ROADMAP, queue 1)")
     if quant_stash:
         _convert_quant_stash(tree, quant_stash, quant_method, dtype, device)
 
@@ -424,10 +436,11 @@ def _packable_int4(shape) -> bool:
 
 
 def load_hf_state(
-    model_path: str, cfg: ModelConfig, dtype=None, quant=None, device=None
+    model_path: str, cfg: ModelConfig, dtype=None, quant=None, device=None, shard=None
 ) -> Dict[str, Any]:
     """Load a full HF checkpoint directory into the port's param dict, its
-    leaves on ``device``.
+    leaves on ``device``; with ``shard=(rank, tp)`` rank ``rank``'s shard
+    of it, each tensor sliced as it is read.
 
     ``quant`` is the QuantConfig of the checkpoint's ``quantization_config``;
     it selects the packed-tensor conversion."""
@@ -443,7 +456,7 @@ def load_hf_state(
         }.get(quant.quant_type)
     params = map_hf_params(
         iter_checkpoint(model_path), cfg, dtype=dtype, strict=False, quant_method=method,
-        device=device,
+        device=device, shard=shard,
     )
     if cfg.tie_lm_head and "lm_head" in params:
         del params["lm_head"]

@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
 
-    python3 chip_smoke.py                         # every phase
+    python3 chip_smoke.py                         # every phase but timing
     python3 chip_smoke.py --phases kernels,serve  # a subset
+    python3 chip_smoke.py --phases serve,timing   # the serve paths, then their rates
     python3 chip_smoke.py --phases multimodal     # DeepSeek-VL2-small's language path alone
     python3 chip_smoke.py --phases http           # the OpenAI server alone
     python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16, TP=1 then TP=2 (gloo)
@@ -108,22 +109,29 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            against its split-count twin and plain version, MoE routing parting
            only at near ties), its TTFT and batch-1 decode tok/s; the weights
            are then freed;
-  tp       tensor parallelism: Qwen2.5-14B in bf16 (``QWEN14B_BF16``: 48 layers,
-           full width, random weights drawn on the card from the seed) through
-           ``LLM`` + ``DynamicBatchGenerator`` at TP=1 in this process, then at
-           TP=2 by two rank processes of this script on the one GPU over an
-           explicit gloo group (``--tp-backend nccl``: NCCL, a GPU a rank), each
-           drawing the same full tensors and keeping its shard (20 query / 4 KV
-           heads of 128 a rank): the same requests (TTFT and batch-1 decode of a
-           1500-token prompt, two greedy prompts of 500 and 1500 tokens, a seeded
-           sampled request, one cancelled mid-decode), launch counters zeroed
-           just before and read just after on each rank; the TP=2 greedy tokens
-           against TP=1's, and teacher-forced logits along them against TP=1's
-           and against TP=1's own noise (one prompt at a time against the
-           batch); both ranks finish every request alike and score the same
-           logits bit for bit; the TP=2 times are labelled as a gloo run whose
-           collectives go through host memory. The kernels phase holds rows 2
-           and 3 (and the prologue, row 1) at a rank's shapes too;
+  tp       tensor parallelism, two paths (``TP_PATHS``): Qwen2.5-14B in bf16
+           (``QWEN14B_BF16`` at 4 of its 48 layers, full width) and
+           DeepSeek-V2-Lite in bf16 (``DEEPSEEK_V2_LITE_BF16``: 27 layers, MLA,
+           64 + 2 experts of 1408, top 6, full width and depth), random
+           weights drawn on the card from the seed, each through ``LLM`` +
+           ``DynamicBatchGenerator`` at TP=1 in this process, then at TP=2 by
+           two rank processes of this script on the one GPU over an explicit
+           gloo group (``--tp-backend nccl``: NCCL, a GPU a rank), each
+           drawing the same full tensors and keeping its shard (Qwen: 20
+           query / 4 KV heads of 128 a rank; DeepSeek: 8 of 16 MLA heads over
+           a whole latent pool, 32 of the 64 experts): the same requests (TTFT
+           and batch-1 decode of a 1500-token prompt, two greedy prompts of 500
+           and 1500 tokens, a seeded sampled request, one cancelled
+           mid-decode), launch counters zeroed just before and read just after
+           on each rank, every kernel of the path launched once a layer a
+           forward; the TP=2 greedy tokens against TP=1's, and teacher-forced
+           logits along them against TP=1's and against TP=1's own noise (one
+           prompt at a time against the batch); both ranks finish every
+           request alike, route every token to the same experts and score the
+           same logits bit for bit; the TP=2 times are labelled as a gloo run
+           whose collectives go through host memory. The kernels phase holds
+           rows 2 and 3 (and the prologue, row 1) at a Qwen rank's shapes, and
+           rows 2b, 7 and 8 at a DeepSeek rank's;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -201,7 +209,9 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            under the server on the same path, saying so (string prompts, a
            stop string, streaming through ``IncrementalDetokenizer``, the
            prefix hit);
-  timing   per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
+  timing   (not in the default order: it needs the serve phase's
+           engines and added 250-300 s to a run held to 1200 s; run it with
+           ``--phases serve,timing``) per path, decode tokens/s (MiniCPM batch 16 at context 512, greedy
            and sampled at temperature 0.8, top_p 0.9; Qwen batch 8 at context
            3712, greedy, over the bf16 and the int8 pool; DeepSeek-V2-Lite
            batch 8 at context 2816; Qwen3-8B-FP8 batch 8 at context 3712;
@@ -537,6 +547,18 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def lap_timer(phase: str):
+    """``lap(what)`` prints the seconds since the previous lap (or since this
+    call) as ``<phase> time: <what> N s``: where a phase's time goes."""
+    last = [time.monotonic()]
+
+    def lap(what: str) -> None:
+        now = time.monotonic()
+        print(f"{phase} time: {what} {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+    return lap
 
 
 # GPU clock cycles a second, no fewer than the H100's 1.98 GHz boost clock: a
@@ -1202,6 +1224,7 @@ def phase_kernels(rec: dict, args) -> None:
 
     rng = np.random.default_rng(0)
     mini, qwen = MINICPM_HEADS, QWEN_HEADS
+    lap = lap_timer("kernels")
 
     def record(name, err, main, shapes):
         _record(rec, name, err, main, shapes)
@@ -1291,16 +1314,29 @@ def phase_kernels(rec: dict, args) -> None:
                              CL=3200, QL=512, int8=int8),
         }
         record(name, err, list(shapes)[1 if int8 else 0], shapes)
+    lap("head-major attention")
     kernels_tp_rank(rec, A, P)
+    lap("kernels_tp_rank")
     kernels_prologue(rec, np.random.default_rng(6), args.parent_csrc)
+    lap("kernels_prologue")
     kernels_w4a16(rec, rng)
+    lap("kernels_w4a16")
     kernels_deepseek(rec, rng)
+    lap("kernels_deepseek")
     kernels_fp8(rec, rng)
+    lap("kernels_fp8")
     kernels_slot_major(rec, rng)
+    lap("kernels_slot_major")
     kernels_window(rec, rng)
+    lap("kernels_window")
     kernels_layered_flush(rec, np.random.default_rng(11), args.parent_csrc)
+    lap("kernels_layered_flush")
     kernels_fused(rec, rng)
+    lap("kernels_fused")
     kernels_fp16(rec, np.random.default_rng(13))
+    lap("kernels_fp16")
+    kernels_tp_rank_mla(rec, np.random.default_rng(17))
+    lap("kernels_tp_rank_mla")
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1350,6 +1386,159 @@ def kernels_tp_rank(rec: dict, A, P) -> None:
     rec["paged_prefill_attention_hm_packed"]["max_abs_err"] = max(
         rec["paged_prefill_attention_hm_packed"]["max_abs_err"], err)
     _record_print("paged_prefill_attention_hm_packed", shapes)
+
+
+# a TP=2 rank of DeepSeek-V2-Lite (the tp phase): 8 of the 16 heads over the
+# whole latent pool, 32 of the 64 experts
+TP_RANK_MLA_HEADS = 8
+
+
+def kernels_tp_rank_mla(rec: dict, rng) -> None:
+    """Rows 2b, 7 and 8 at a TP=2 rank's shapes of the DeepSeek-V2-Lite tp
+    path, each against its plain version, kept under ``shapes`` of each
+    kernel's record (its main numbers stay the single-process shape's):
+
+    - row 2b at 8 heads of the 576 / 512 latent, batch 4, at the tp phase's
+      contexts (its two greedy prompts decoding at 532 and 1532 tokens, one
+      slot at context 1, one idle) and at the split edges of the plan those
+      shapes pick, against the plain version and the twin at the kernel's
+      split count; timed at the path's decode step;
+    - row 7, the latent prologue, at 8 heads: a decode step's 4 rows and a
+      512-token chunk, bit-exact, timed at the decode step;
+    - row 8, gate/up and down, over rank 1's 32 local experts of a 64-expert
+      top-6 routing, 48 and 3072 pairs, the remote pairs (about half) in the
+      overflow bucket: the local pairs' rows against the plain version;
+      timed with a cold L2, its bound counting the occupied local experts'
+      bytes only, beside ``torch._grouped_mm`` over the local rows."""
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import quant_ragged as R
+    from zhilight_tpu_torch.ops.quant import dequant_expert_int4
+
+    F, S, X, VD, H, B = torch.nn.functional, 16, 576, 512, TP_RANK_MLA_HEADS, 4
+    scale = 1.0 / np.sqrt(192)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    # -- row 2b -----------------------------------------------------------------
+    maxp = 2048 // S  # the path's max_model_len
+    sp = A.mla_plan(dev, B, H, maxp * S)
+    err = 0.0
+    for ctx in ([1532, 532, 1, 0], [0, 1, 16 * sp, 16 * sp + 1],
+                [min(64 * sp, 2046), min(64 * sp + 1, 2047), 65, 2047]):
+        ctx = np.array(ctx, np.int32)
+        tables, npages = _paged(rng, ctx, S)
+        td, cd = _dev(tables), _dev(ctx)
+        args = (_randn(rng, B, H, X), _randn(rng, npages * S, X), td, cd, S, scale)
+        got = A.paged_mla_decode(*args, v_dim=VD)
+        n_split = A.mla_plan(dev, B, H, tables.shape[1] * S)
+        e = (got.float() - A.paged_mla_decode_plain(*args, v_dim=VD).float()).abs().max().item()
+        e_twin = (got.float() - A.paged_mla_decode_twin(*args, VD, n_split).float()
+                  ).abs().max().item()
+        print(f"kernels: TP=2 rank shape, mla decode B={B} H={H} ctx={ctx.tolist()} "
+              f"({n_split} splits) max_abs_err={e:.3e} (twin {e_twin:.3e})", flush=True)
+        if not (torch.isfinite(got).all() and e <= ATTN_TOL and e_twin <= ATTN_TOL):
+            raise AssertionError(f"TP=2 rank MLA decode ctx {ctx}: max abs err {e} "
+                                 f"(twin {e_twin}) > {ATTN_TOL}")
+        if got[torch.from_numpy(ctx == 0)].any():
+            raise AssertionError("TP=2 rank MLA decode: an empty slot is not zero")
+        err = max(err, e)
+    ctx = np.array([1532, 532, 1, 0], np.int32)
+    tables = np.stack([b * maxp + np.arange(maxp) for b in range(B)]).astype(np.int32)
+    pool, q = _randn(rng, B * maxp * S, X), _randn(rng, B, H, X)
+    args = (q, pool, _dev(tables), _dev(ctx), S, scale)
+    CTX = int(ctx.max())
+    lat = pool.reshape(B, maxp * S, X)[:, None, :CTX]
+    kg = lat.contiguous().expand(-1, H, -1, -1)
+    vg = lat[..., :VD].contiguous().expand(-1, H, -1, -1)
+    mask = (torch.arange(CTX, device="cuda")[None, :] < _dev(ctx)[:, None].long())[:, None, None]
+    used = int(ctx.sum())
+    t_b, by = bound(used * X * 2 + q.numel() * 2 + B * H * VD * 2 + tables.size * 4 + B * 4,
+                    2 * H * used * (X + VD))
+    label = (f"DeepSeek-V2-Lite TP=2 rank ({H} heads) batch {B}, contexts {ctx.tolist()} "
+             f"({sp} splits)")
+    shapes = {label: dict(
+        ms=time_ms(lambda: A.paged_mla_decode(*args, v_dim=VD)),
+        call_ms=time_ms(lambda: A.paged_mla_decode(*args, v_dim=VD), backlog=False),
+        plain_ms=time_ms(lambda: A.paged_mla_decode_plain(*args, v_dim=VD), reps=10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, attn_mask=mask, scale=scale)),
+        bound_ms=t_b, bound_by=by)}
+    rec["paged_mla_decode"]["shapes"].update(shapes)
+    rec["paged_mla_decode"]["max_abs_err"] = max(rec["paged_mla_decode"]["max_abs_err"], err)
+    _record_print("paged_mla_decode", shapes)
+
+    # -- row 7 ------------------------------------------------------------------
+    c = LATENT_PROLOGUE
+    for T in (B, 512):
+        args, pool = prologue_2d_case(rng, T, True, True, H=H)
+        got, want = pool.clone(), pool.clone()
+        q_got = W.rope_write_rows_2d(got, *args)
+        q_want = W.rope_write_rows_2d_plain(want, *args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(q_got, q_want)):
+            raise AssertionError(f"TP=2 rank latent prologue T={T}: not bit-exact")
+        print(f"kernels: TP=2 rank shape, rope_write_rows_2d {H} heads T={T} bit-exact",
+              flush=True)
+    args, pool = prologue_2d_case(rng, B, True, False, H=H)
+    R_, L_ = c["R"], c["L"]
+    nbytes = B * (2 * H * R_ * 2 + L_ * 2 + R_ * 2 + 2 * R_ * 4 + (L_ + R_) * 2 + 4)
+    t_b, by = _prologue_bound(nbytes, 3 * B * (H + 1) * R_)
+    run = lambda: W.rope_write_rows_2d(pool, *args)
+    shapes = {f"DeepSeek-V2-Lite TP=2 rank ({H} heads), decode step, {B} tokens": dict(
+        ms=time_ms(run), call_ms=time_ms(run, backlog=False),
+        plain_ms=time_ms(lambda: W.rope_write_rows_2d_plain(pool, *args)),
+        library_ms=None, bound_ms=t_b, bound_by=by)}
+    rec["rope_write_rows_2d"]["shapes"].update(shapes)
+    _record_print("rope_write_rows_2d", shapes)
+
+    # -- row 8 ------------------------------------------------------------------
+    El = e0 = EXPERTS // 2  # rank 1's experts [32, 64)
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    shapes, rel = {}, 0.0
+    for wname, (K, N, pad) in DEEPSEEK_STACKS.items():
+        w_p, s_, z = _expert_stack(rng, K, N, pad, E=El)
+        wd = dequant_expert_int4(w_p, s_, z, torch.bfloat16)
+        for R_pairs, TM, seed in ((48, 8, 5), (3072, 64, 6)):
+            flat = _routed(R_pairs, seed) - e0
+            valid = (flat >= 0) & (flat < El)
+            bucket = np.where(valid, flat, El)
+            x, dest, tile_expert, num_occ = _ragged_rows(rng, bucket, TM, K, pad, E=El)
+            args = (x, w_p, s_, z, tile_expert, num_occ)
+            # dest follows the rows sorted by expert: the local pairs first, then the bucket
+            mine = dest[: int(valid.sum())]
+            got = R.w4a16_ragged_matmul(*args)[mine]
+            want = R.w4a16_ragged_matmul_plain(*args)[mine]
+            diff = (got.float() - want.float()).abs().max().item()
+            e = diff / want.float().abs().max().item()
+            rec["w4a16_ragged_matmul"]["max_abs_err"] = max(
+                rec["w4a16_ragged_matmul"]["max_abs_err"], diff)
+            print(f"kernels: TP=2 rank shape, w4a16_ragged {wname} {R_pairs} pairs, "
+                  f"{int(valid.sum())} local over {El} experts, TM={TM}: max rel err {e:.3e}",
+                  flush=True)
+            if not (torch.isfinite(got).all() and e <= W4A16_TOL):
+                raise AssertionError(f"TP=2 rank w4a16_ragged {wname} {R_pairs}: {e}")
+            rel = max(rel, e)
+            local = flat[valid]
+            experts, counts = np.unique(local, return_counts=True)
+            Rl = len(local)
+            t_b, by = bound(len(experts) * (K * N // 2 + 8 * (K // EXPERT_GS) * N)
+                            + 2 * Rl * (K + N), 2 * Rl * K * N)
+            xs = x[mine]  # the local rows, sorted by expert
+            ends = _dev(np.cumsum(np.bincount(local, minlength=El)).astype(np.int32))
+            grouped = lambda: torch._grouped_mm(xs, wd, offs=ends)
+            label = (f"DeepSeek-V2-Lite TP=2 rank {wname}, {R_pairs} pairs ({Rl} local over "
+                     f"{len(experts)} of {El} experts)")
+            shapes[label] = dict(
+                ms=time_ms(lambda: R.w4a16_ragged_matmul(*args), flush=scratch.zero_),
+                plain_ms=time_ms(lambda: R.w4a16_ragged_matmul_plain(*args), reps=5,
+                                 flush=scratch.zero_),
+                library_ms=time_ms(grouped, flush=scratch.zero_),
+                bound_ms=t_b, bound_by=by)
+        del w_p, s_, z, wd
+    del scratch
+    rec["w4a16_ragged_matmul"]["shapes"].update(shapes)
+    _record_print("w4a16_ragged_matmul", shapes)
+    print(f"kernels: TP=2 rank shapes, w4a16_ragged max rel err {rel:.3e}", flush=True)
 
 
 # the packed pool's prologue at the main paths' attention shapes: label ->
@@ -1493,13 +1682,13 @@ def _prologue_ops(T, Hq, Hkv, D, int8) -> int:
     return 3 * T * (Hq + Hkv) * D + (6 * T * Hkv * 2 * D if int8 else 0)
 
 
-def prologue_2d_case(rng, T, neox, skip):
+def prologue_2d_case(rng, T, neox, skip, H=LATENT_PROLOGUE["H"]):
     """Inputs of the latent pool's prologue as the model hands them over:
     q_pe a view of the q projection [T, H, nope + R], c_kv [T, L], k_pe the
     strided tail of kv_a [T, L + R]. Returns (args, pool)."""
     c = LATENT_PROLOGUE
     N = max(T // 16 + 4, 64) * 16
-    q = _randn(rng, T, c["H"], c["nope"] + c["R"])
+    q = _randn(rng, T, H, c["nope"] + c["R"])
     kv_a = _randn(rng, T, c["L"] + c["R"])
     cos, sin = _rope_rows(rng, T, c["R"], neox)
     args = (q[..., c["nope"]:], _randn(rng, T, c["L"]), kv_a[:, c["L"]:], cos, sin, neox,
@@ -1940,12 +2129,12 @@ DEEPSEEK_STACKS = {"gate/up (K 2048, N 1408)": (2048, 1408, 0), "down (K 1536, N
 EXPERTS, EXPERT_GS = 64, 128
 
 
-def _expert_stack(rng, K, N, pad_groups=0):
-    """A planar int4 stack of EXPERTS experts, group EXPERT_GS, its last
+def _expert_stack(rng, K, N, pad_groups=0, E=EXPERTS):
+    """A planar int4 stack of ``E`` experts, group EXPERT_GS, its last
     ``pad_groups`` groups with zero scales (the loader's padding)."""
     from zhilight_tpu_torch.ops.quant import pack_expert_int4
 
-    E, gs = EXPERTS, EXPERT_GS
+    gs = EXPERT_GS
     q4 = _dev(rng.integers(0, 16, (E, K, N)).astype(np.int8))
     s = _dev((rng.random((E, K // gs, N)) * 0.004 + 0.001).astype(np.float32))
     z = _dev(rng.integers(1, 16, (E, K // gs, N)).astype(np.float32))
@@ -1962,15 +2151,16 @@ def _routed(R_, seed):
     return np.where(flat >= 1, flat + 1, flat)
 
 
-def _ragged_rows(rng, flat, TM, K, pad=0):
+def _ragged_rows(rng, flat, TM, K, pad=0, E=EXPERTS):
     """Rows routed to the experts ``flat`` in ``ragged_layout``'s order (E + 1
-    groups, the last an overflow bucket, as models/moe.py lays them out):
-    x [Mp, K] bf16, zero in the alignment padding and the pad groups'
-    columns; and dest, tile_expert, num_occ."""
+    groups, the last an overflow bucket, as models/moe.py lays them out; an
+    expert shard's remote pairs name bucket E): x [Mp, K] bf16, zero in the
+    alignment padding and the pad groups' columns; and dest, tile_expert,
+    num_occ."""
     from zhilight_tpu_torch.ops.quant import ragged_layout
 
     _, dest, tile_expert, num_occ, mp = ragged_layout(_dev(np.asarray(flat).astype(np.int32)),
-                                                      EXPERTS + 1, TM, occ_experts=EXPERTS)
+                                                      E + 1, TM, occ_experts=E)
     x = torch.zeros(mp, K, dtype=_ELEM[-1], device="cuda")
     x[dest] = _randn(rng, len(flat), K)
     if pad:
@@ -4555,19 +4745,47 @@ def phase_multimodal(rec: dict, args, smi: str) -> None:
 # quantization_config, bf16 as it ships (48 layers, d 5120, 40 / 8 heads of
 # 128, dim_ff 13824, vocab 152064, q/k/v biases)
 QWEN14B_BF16 = {k: v for k, v in QWEN14B_GPTQ.items() if k != "quantization_config"}
-TP_LABEL = "Qwen2.5-14B-bf16"
+# deepseek-ai/DeepSeek-V2-Lite's config.json as it ships, bf16 (27 layers, d 2048,
+# 16 heads, kv_lora_rank 512, 64 + 2 experts of 1408, top 6, a dense first
+# layer of 10944, vocab 102400): DEEPSEEK_V2_LITE_GPTQ without quantization_config
+DEEPSEEK_V2_LITE_BF16 = {k: v for k, v in DEEPSEEK_V2_LITE_GPTQ.items()
+                         if k != "quantization_config"}
+# the tp phase's Qwen path at a cut depth (its width as it ships): 4 of 48
+# layers leave room in the run's time for the DeepSeek path at full depth (a
+# gloo collective costs 1-3 ms on one host, 25 a step at 12 layers)
+TP_QWEN_LAYERS = 4
+TP_PATHS = {
+    # label -> (config.json fields, the geometry they must give, its kernels,
+    # the teacher-forced tolerance: what the card holds the model's logits to)
+    "Qwen2.5-14B-bf16": (
+        dict(QWEN14B_BF16, num_hidden_layers=TP_QWEN_LAYERS),
+        lambda c: (c.num_layers == TP_QWEN_LAYERS and c.dim_model == 5120 and c.num_heads == 40
+                   and c.num_kv_heads == 8 and c.dim_head == 128 and c.dim_ff == 13824
+                   and c.vocab_size == 152064 and c.attn_bias and c.dtype == "bfloat16"),
+        ATTENTION_KERNELS, 2e-2),
+    # MLA over a replicated latent pool, bf16 experts through the library's
+    # grouped GEMM, sharded over the ranks
+    "DeepSeek-V2-Lite-bf16": (
+        DEEPSEEK_V2_LITE_BF16,
+        lambda c: (c.num_layers == 27 and c.dim_model == 2048 and c.num_heads == 16
+                   and c.mla.kv_lora_rank == 512 and c.mla.latent_dim == 576
+                   and c.moe.num_experts == 64 and c.moe.top_k == 6
+                   and c.moe.intermediate_size == 1408
+                   and c.moe.shared_expert_intermediate_size == 2816
+                   and c.moe.first_k_dense_replace == 1 and c.dim_ff == 10944
+                   and c.vocab_size == 102400 and c.dtype == "bfloat16"),
+        ("rope_write_rows_2d", "paged_mla_decode"), LOGIT_TOL),
+}
 TP_LENS = (500, 1500)      # the greedy prompts, 32 new tokens each
 TP_NEW = 32
 TP_SAMPLED = 200           # a seeded sampled request's prompt
 TP_CANCEL = 300            # a request cancelled mid-decode
 TP_PAGES = 512             # given: both ranks would size the pool from the same free memory
 TP_TIMEOUT = 300           # seconds: the rank processes' limit and their default group's timeout
-# a parting of the TP=2 and TP=1 greedy tokens must be a near tie (the
-# teacher-forced rule of teacher_forced, 2e-2 of the largest logit)
-TP_TOL = 2e-2
-for _r in range(2):
-    PATHS[f"{TP_LABEL}-TP2-rank{_r}"] = ATTENTION_KERNELS
-PATHS[f"{TP_LABEL}-TP1"] = ATTENTION_KERNELS
+for _label, (_, _, _kernels, _) in TP_PATHS.items():
+    for _r in range(2):
+        PATHS[f"{_label}-TP2-rank{_r}"] = _kernels
+    PATHS[f"{_label}-TP1"] = _kernels
 
 
 def tp_engine_config(tp: int):
@@ -4581,12 +4799,31 @@ def tp_engine_config(tp: int):
                         parallel=ParallelConfig(tp=tp))
 
 
-def tp_prompts(seed: int) -> dict:
+def tp_config(label: str):
+    """The path's ModelConfig, its geometry checked."""
+    from zhilight_tpu_torch.config import adapt_hf_config
+
+    hf, geometry, _, _ = TP_PATHS[label]
+    cfg = adapt_hf_config(hf)
+    if not geometry(cfg):
+        raise AssertionError(f"tp: {label}: the configuration is not the path's: {cfg}")
+    return cfg
+
+
+def tp_prompts(seed: int, vocab: int) -> dict:
     rng = np.random.default_rng(seed + 20)
-    V = QWEN14B_BF16["vocab_size"]
-    return dict(greedy=[rng.integers(3, V, n).tolist() for n in TP_LENS],
-                sampled=rng.integers(3, V, TP_SAMPLED).tolist(),
-                cancel=rng.integers(3, V, TP_CANCEL).tolist())
+    return dict(greedy=[rng.integers(3, vocab, n).tolist() for n in TP_LENS],
+                sampled=rng.integers(3, vocab, TP_SAMPLED).tolist(),
+                cancel=rng.integers(3, vocab, TP_CANCEL).tolist())
+
+
+def tp_collective_count(cfg) -> int:
+    """All-reduces a decode step makes at tp > 1: the embedding's, each
+    layer's ``o_proj``, a dense layer's ``down_proj``, a MoE layer's routed
+    sum and its shared expert's ``down_proj``."""
+    moe = [cfg.is_moe_layer(i) for i in range(cfg.num_layers)]
+    shared = 1 if cfg.moe.shared_expert_intermediate_size else 0
+    return 1 + cfg.num_layers + sum(1 + shared if m else 1 for m in moe)
 
 
 def tp_drive(llm, prompts: dict) -> dict:
@@ -4641,22 +4878,63 @@ def tp_drive(llm, prompts: dict) -> dict:
     return out
 
 
-def tp_forced(ex, prompts, tokens) -> torch.Tensor:
+def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
     """Teacher-forced logits [B, N, V] (fp32, on the host): the prompts
     prefilled (512-token chunks) into a scratch cache, then N - 1 batched
     decode steps fed ``tokens`` (the TP=1 run's greedy tokens), so row k
     holds the logits that pick tokens[b][k]. Every rank of a TP run calls it
-    together."""
+    together.
+
+    MoE routing, as ``teacher_forced`` shares it: ``routes`` (a list) records
+    every routing (router logits, expert ids, weights, on the host); with
+    ``share`` (a dict holding such a list under "routes", the TP=1 run's)
+    each routing is held against the recorded one in the same order: where
+    a token's experts part, the parting must be a near tie (the recorded
+    gap between its k-th expert and this side's pick at most twice the row's
+    largest router-logit difference), and the token then takes the recorded
+    experts and weights, so that one rounding flip does not stand for the
+    rest of the run; ``share`` counts the routed and parted token-layers and
+    the largest gap ratio."""
+    from unittest import mock
+
     from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.models import moe as M
     from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 
+    select = M.select_experts
+
+    def recorded(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        routes.append((logits.float().cpu(), ids.cpu(), weights.cpu()))
+        return weights, ids
+
+    def shared(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        o_logits, o_ids, o_weights = (t.to(logits.device) for t in share["routes"][share["calls"]])
+        share["calls"] += 1
+        parted = (ids.sort(-1).values != o_ids.sort(-1).values).any(-1)
+        share["routed"] += ids.shape[0]
+        for r in parted.nonzero().flatten().tolist():
+            own = sorted(set(ids[r].tolist()) - set(o_ids[r].tolist()))
+            gap = o_logits[r, o_ids[r].long()].min() - o_logits[r, own].max()
+            ratio = (gap / (o_logits[r] - logits[r].float()).abs().max()).item()
+            if not ratio <= 2:
+                raise AssertionError(f"tp: routing parted off a near tie (gap {ratio} x the "
+                                     f"router-logit difference)")
+            share["parted"], share["ratio"] = share["parted"] + 1, max(share["ratio"], ratio)
+        return (torch.where(parted[:, None], o_weights, weights),
+                torch.where(parted[:, None], o_ids, ids))
+
+    route = recorded if routes is not None else shared if share is not None else select
+    if share is not None:
+        share.update(calls=0, routed=0, parted=0, ratio=0.0)
     cfg, S, B, N = ex.cfg, ex.page_size, len(prompts), len(tokens[0])
     i32 = dict(dtype=torch.int32, device=ex.device)
     maxp = max(len(p) + N for p in prompts) // S + 1
     tables = torch.arange(B * maxp, **i32).reshape(B, maxp)
     slots = lambda b, pos: (tables[b, (pos // S).long()] * S + pos % S).to(torch.int32)
     cache, rows = ex.new_cache(B * maxp), [[] for _ in range(B)]
-    with torch.no_grad():
+    with torch.no_grad(), mock.patch.object(M, "select_experts", route):
         for b, p in enumerate(prompts):
             for start in range(0, len(p), 512):
                 toks = torch.tensor(p[start : start + 512], **i32)
@@ -4688,20 +4966,37 @@ def _tp_counters():
     return counters
 
 
+def tp_routing():
+    """Record every routing's expert ids on the device (no sync) from now
+    on; returns the list they are appended to."""
+    from zhilight_tpu_torch.models import moe as M
+
+    seen, select = [], M.select_experts
+
+    def recorded(*a, **kw):
+        weights, ids = select(*a, **kw)
+        seen.append(ids.reshape(-1))
+        return weights, ids
+
+    M.select_experts = recorded
+    return seen
+
+
 def tp_rank(args) -> int:
-    """One rank of the TP=2 run (``--tp-rank``): joins the others over an
-    explicit gloo group on the one GPU (``--tp-backend nccl``: NCCL, a GPU a
-    rank), draws the full tensors from the seed one at a time and keeps its
-    shard (``init_params(shard=...)``), serves through LLM: rank 0 drives
-    the requests (tp_drive), rank 1 runs the lockstep scheduler until rank
-    0's shutdown sentinel. Then both run the teacher-forced logits along the
-    TP=1 run's tokens, and write what they saw to ``--tp-dir``."""
+    """One rank of a tp path's TP=2 run (``--tp-rank``, the path
+    ``--tp-model``): joins the other over an explicit gloo group on the one
+    GPU (``--tp-backend nccl``: NCCL, a GPU a rank), draws the full tensors
+    from the seed one layer at a time and keeps its shard
+    (``init_params(shard=...)``: its heads, its half of the experts), serves
+    through LLM: rank 0 drives the requests (tp_drive), rank 1 runs the
+    lockstep scheduler until rank 0's shutdown sentinel. Then both run the
+    teacher-forced logits along the TP=1 run's tokens, and write what they
+    saw to ``--tp-dir``: among it a digest of every routing's expert ids."""
     import datetime
     import hashlib
 
     import torch.distributed as dist
 
-    from zhilight_tpu_torch.config import adapt_hf_config
     from zhilight_tpu_torch.engine import DynamicBatchGenerator, SearchTask
     from zhilight_tpu_torch.llm import LLM
     from zhilight_tpu_torch.models import llama as L
@@ -4721,7 +5016,7 @@ def tp_rank(args) -> int:
         finish(self)
 
     SearchTask.finish = recorded
-    cfg = adapt_hf_config(QWEN14B_BF16)
+    cfg = tp_config(args.tp_model)
     t0 = time.monotonic()
     params = L.init_params(cfg, seed=args.seed, device=device, shard=(rank, world))
     llm = LLM(model_config=cfg, params=params, engine_config=tp_engine_config(world),
@@ -4731,11 +5026,16 @@ def tp_rank(args) -> int:
     setup_s = time.monotonic() - t0
     warm_s = ex.warmup()
     counters = _tp_counters()
+    routed = tp_routing()
+    pool = ex.cache.latent if ex.cache.is_latent else ex.cache.k
     out = dict(rank=rank, setup_s=setup_s, warmup_s=warm_s,
                weights_gib=sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30,
-               pool=list(ex.cache.k[0].shape), heads=[ex.cfg.num_heads, ex.cfg.num_kv_heads],
+               pool=list(pool[0].shape), heads=[ex.cfg.num_heads, ex.cfg.num_kv_heads],
+               experts=sorted({v.shape[0] for layer in ex.params["layers"].values()
+                               for proj in layer["mlp"].get("experts", {}).values()
+                               for v in proj.values()}),
                backend=dist.get_backend())
-    prompts = tp_prompts(args.seed)
+    prompts = tp_prompts(args.seed, cfg.vocab_size)
     if rank == 0:
         out.update(tp_drive(llm, prompts))
     else:
@@ -4749,10 +5049,18 @@ def tp_rank(args) -> int:
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
     out["finished"] = finished
     forced = json.load(open(os.path.join(args.tp_dir, "forced.json")))
+    share = None
+    if cfg.moe.enabled:
+        share = dict(routes=torch.load(os.path.join(args.tp_dir, "routes.pt")))
     t0 = time.monotonic()
-    logits = tp_forced(ex, forced["prompts"], forced["tokens"])
+    logits = tp_forced(ex, forced["prompts"], forced["tokens"], share=share)
     out["forced_s"] = time.monotonic() - t0
+    if share is not None:
+        out["shared_routing"] = {k: share[k] for k in ("routed", "parted", "ratio")}
     out["logits_sha"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+    out["routings"] = len(routed)
+    if routed:
+        out["experts_sha"] = hashlib.sha256(torch.cat(routed).cpu().numpy().tobytes()).hexdigest()
     if rank == 0:
         np.save(os.path.join(args.tp_dir, "tp2_logits.npy"), logits.numpy())
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
@@ -4768,10 +5076,11 @@ def tp_rank(args) -> int:
 def tp_collectives(group, cfg, device) -> dict:
     """Wall ms of one collective at the model's shapes on this group, the
     host's time included (20 calls after 3, synchronised): the fp32
-    all-reduce of a row-parallel product at a decode step of the engine's 4
-    slots and at a 512-token chunk, and the all-gather of a decode step's
-    fp32 logits (a rank's vocab slice). A decode step makes 2 all-reduces a
-    layer, one for the embedding (bf16) and one all-gather."""
+    all-reduce of a row-parallel product or a MoE layer's routed sum at a
+    decode step of the engine's 4 slots and at a 512-token chunk, and the
+    all-gather of a decode step's fp32 logits (a rank's vocab slice). A
+    decode step makes tp_collective_count all-reduces (the embedding's in the
+    model's dtype, the others fp32) and one all-gather."""
     V = cfg.vocab_size // group.world
     cases = {"all_reduce fp32 [4, d]": (group.all_reduce, (4, cfg.dim_model)),
              "all_reduce fp32 [512, d]": (group.all_reduce, (512, cfg.dim_model)),
@@ -4791,12 +5100,13 @@ def tp_collectives(group, cfg, device) -> dict:
 
 
 def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, got_tokens,
-               floor: torch.Tensor) -> str:
+               floor: torch.Tensor, tol: float) -> str:
     """Teacher-forced logits [B, N, V] of the TP=2 run against the TP=1 run's
     along the TP=1 tokens. The TP=2 greedy tokens equal TP=1's; where they
     part, the first parting is a near tie by the repo's teacher-forced rule
-    (that row within TP_TOL of its largest logit, the TP=1 top-2 gap at most
-    twice the largest difference). Every row lies within LOGIT_TOL of its
+    (that row within ``tol`` of its largest logit: the path's, 2e-2 for a
+    dense model, LOGIT_TOL for MLA + MoE; the TP=1 top-2 gap at most twice
+    the largest difference). Every row lies within LOGIT_TOL of its
     largest logit (the bound serve_path holds two computations of a
     full-depth model to) and keeps the TP=1 argmax wherever the TP=1 top-2 gap
     exceeds twice the largest difference. ``floor``: the same rows at TP=1
@@ -4820,7 +5130,7 @@ def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, g
             continue
         notes.append(f"prompt {b} parts at token {k} (top-2 gap there {gap[b, k].item():.3e}, "
                      f"rel err {rel[b, k].item():.3e})")
-        if rel[b, k].item() > TP_TOL or gap[b, k].item() > 2 * diff:
+        if rel[b, k].item() > tol or gap[b, k].item() > 2 * diff:
             raise AssertionError(f"{label}: prompt {b}: the greedy tokens part at {k}, off a near "
                                  f"tie: {notes[-1]}, largest |diff| {diff}")
     msg = (f"teacher-forced {want.shape[1]} positions of {want.shape[0]} prompts: logits max rel "
@@ -4835,38 +5145,43 @@ def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, g
 
 
 def phase_tp(rec: dict, args, smi: str) -> None:
-    """Qwen2.5-14B in bf16 (QWEN14B_BF16: 48 layers, full width, random
-    weights drawn on the card from the seed) served at TP=1 in this process,
-    then at TP=2 by two rank processes on the one GPU over an explicit gloo
-    group (NCCL refuses two ranks on one device; ``--tp-backend nccl`` runs
-    a GPU a rank), each drawing the same full tensors and keeping its shard:
-    20 query / 4 KV heads of 128 a rank, rows 1-3 at those shapes. The same
-    requests on both (tp_drive), launch counters zeroed just before and read
-    just after; the TP=2 greedy tokens against TP=1's (where they part, the
-    teacher-forced rule, tp_compare); both ranks finish every request with
-    the same tokens, the sampled and the cancelled ones included, and the
-    same teacher-forced logits to the bit; rank 1 stops on rank 0's
-    sentinel. Decode tok/s and TTFT of both are printed, the TP=2 ones
-    labelled as a gloo run."""
-    import gc
-    import shutil
-    import tempfile
-
-    from zhilight_tpu_torch.config import adapt_hf_config
-    from zhilight_tpu_torch.llm import LLM
-    from zhilight_tpu_torch.models import llama as L
-
+    """The TP_PATHS, one after the other: Qwen2.5-14B in bf16 at a cut depth
+    (TP_QWEN_LAYERS of 48, full width) and DeepSeek-V2-Lite in bf16 at full
+    width and depth (MLA + MoE), random weights drawn on the card from the
+    seed, each served at TP=1 in this process and then at TP=2 by two rank
+    processes on the one GPU over an explicit gloo group (NCCL refuses two
+    ranks on one device; ``--tp-backend nccl`` runs a GPU a rank)."""
     nccl = args.tp_backend == "nccl"
     if nccl and torch.cuda.device_count() < 2:
         raise RuntimeError(f"--tp-backend nccl runs a GPU a rank: 2 needed, "
                            f"{torch.cuda.device_count()} visible")
-    cfg = adapt_hf_config(QWEN14B_BF16)
-    if not (cfg.num_layers == 48 and cfg.dim_model == 5120 and cfg.num_heads == 40
-            and cfg.num_kv_heads == 8
-            and cfg.dim_head == 128 and cfg.dim_ff == 13824 and cfg.vocab_size == 152064
-            and cfg.attn_bias and cfg.dtype == "bfloat16"):
-        raise AssertionError(f"tp: the configuration is not Qwen2.5-14B's: {cfg}")
-    prompts = tp_prompts(args.seed)
+    for label in TP_PATHS:
+        tp_path(rec, args, smi, label)
+
+
+def tp_path(rec: dict, args, smi: str, label: str) -> None:
+    """One tp path: TP=1 in this process, then TP=2 by two rank processes,
+    each drawing the same full tensors and keeping its shard (its heads; a
+    MoE model's ranks half the experts each, beside a whole latent pool). The
+    same requests on both (tp_drive), launch counters zeroed just before and
+    read just after, every kernel of the path launched a multiple of the
+    layer count on each rank; the TP=2 greedy tokens against TP=1's (where
+    they part, the teacher-forced rule, tp_compare); both ranks finish every
+    request with the same tokens, the sampled and the cancelled ones
+    included, route every token to the same experts and score the same
+    teacher-forced logits to the bit; rank 1 stops on rank 0's sentinel.
+    Decode tok/s and TTFT of both are printed, the TP=2 ones labelled as a
+    gloo run."""
+    import gc
+    import shutil
+    import tempfile
+
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    nccl = args.tp_backend == "nccl"
+    cfg = tp_config(label)
+    prompts = tp_prompts(args.seed, cfg.vocab_size)
     tmp = tempfile.mkdtemp(prefix="zt-tp-")  # the ranks' results; removed at the end
     try:
         # -- TP=1 in this process ---------------------------------------------
@@ -4876,14 +5191,15 @@ def phase_tp(rec: dict, args, smi: str) -> None:
         ex = llm.executor
         setup_s = time.monotonic() - t0
         warm_s = ex.warmup()
-        print(f"tp: {TP_LABEL}: {cfg.num_layers} layers, "
+        n_params = sum(t.numel() for t in _leaves(ex.params))
+        print(f"tp: {label}: {cfg.num_layers} layers, {n_params / 1e9:.2f} B parameters, "
               f"{sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30:.2f} GiB of "
               f"weights at TP=1, set-up {setup_s:.1f} s, warmup {warm_s:.1f} s", flush=True)
         counters = _tp_counters()
         one = tp_drive(llm, prompts)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
-        print(f"tp: {TP_LABEL} TP=1: requests {one['drive_s']:.1f} s; launches {launches}",
+        print(f"tp: {label} TP=1: requests {one['drive_s']:.1f} s; launches {launches}",
               flush=True)
         # teacher-forced along the TP=1 tokens: the batch's two prompts and the
         # 1500-token request's
@@ -4891,15 +5207,19 @@ def phase_tp(rec: dict, args, smi: str) -> None:
                       tokens=one["greedy"] + [one["long"]])
         with open(os.path.join(tmp, "forced.json"), "w") as f:
             json.dump(forced, f)
-        want = tp_forced(ex, forced["prompts"], forced["tokens"])
+        routes = []
+        want = tp_forced(ex, forced["prompts"], forced["tokens"], routes=routes)
+        if routes:
+            torch.save(routes, os.path.join(tmp, "routes.pt"))
+        del routes
         floor = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
                                                                      forced["tokens"])])
-        _tp_launches(rec, f"{TP_LABEL}-TP1", launches)
+        _tp_launches(rec, f"{label}-TP1", launches, cfg.num_layers)
         release_pool(llm)
         ex.params, llm, ex = None, None, None
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"tp: {TP_LABEL}: TP=1 weights freed, "
+        print(f"tp: {label}: TP=1 weights freed, "
               f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
 
         # -- TP=2: two rank processes -----------------------------------------
@@ -4907,8 +5227,8 @@ def phase_tp(rec: dict, args, smi: str) -> None:
         t0 = time.monotonic()
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), "--tp-port",
-             str(port), "--tp-dir", tmp, "--seed", str(args.seed), "--tp-backend",
-             args.tp_backend],
+             str(port), "--tp-dir", tmp, "--tp-model", label, "--seed", str(args.seed),
+             "--tp-backend", args.tp_backend],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
         logs = []
         try:
@@ -4922,65 +5242,88 @@ def phase_tp(rec: dict, args, smi: str) -> None:
                     p.communicate()
         for r, (p, log) in enumerate(zip(procs, logs)):
             if p.returncode != 0:
-                raise AssertionError(f"tp: rank {r} exited {p.returncode}:\n{log[-6000:]}")
+                raise AssertionError(f"tp: {label}: rank {r} exited {p.returncode}:\n"
+                                     f"{log[-6000:]}")
         wall = time.monotonic() - t0
         ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
         r0, r1 = ranks
         for r in ranks:
             drive = f"requests {r['drive_s']:.1f} s, " if "drive_s" in r else ""
-            print(f"tp: {TP_LABEL} TP=2 rank {r['rank']} ({r['backend']}): {r['heads'][0]} / "
-                  f"{r['heads'][1]} heads, pool {r['pool']}, {r['weights_gib']:.2f} GiB of "
-                  f"weights, set-up {r['setup_s']:.1f} s, warmup {r['warmup_s']:.1f} s, {drive}"
-                  f"teacher-forced {r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB; "
+            experts = f"{r['experts'][0]} experts a stack, " if r["experts"] else ""
+            print(f"tp: {label} TP=2 rank {r['rank']} ({r['backend']}): {r['heads'][0]} / "
+                  f"{r['heads'][1]} heads, {experts}pool {r['pool']}, {r['weights_gib']:.2f} GiB "
+                  f"of weights, set-up {r['setup_s']:.1f} s, warmup {r['warmup_s']:.1f} s, "
+                  f"{drive}teacher-forced {r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB; "
                   f"launches {r['launches']}", flush=True)
-            _tp_launches(rec, f"{TP_LABEL}-TP2-rank{r['rank']}", r["launches"])
-        per_step = (2 * cfg.num_layers * r0["collectives_ms"]["all_reduce fp32 [4, d]"]
+            _tp_launches(rec, f"{label}-TP2-rank{r['rank']}", r["launches"], cfg.num_layers)
+        n_reduce = tp_collective_count(cfg)
+        per_step = (n_reduce * r0["collectives_ms"]["all_reduce fp32 [4, d]"]
                     + r0["collectives_ms"]["all_gather fp32 [4, V / tp]"])
-        print(f"timing: {TP_LABEL} TP=2 ({r0['backend']}) one collective, host included, rank 0: "
+        print(f"timing: {label} TP=2 ({r0['backend']}) one collective, host included, rank 0: "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["collectives_ms"].items())
-              + f"; {2 * cfg.num_layers} all-reduces and one all-gather a decode step: "
+              + f"; {n_reduce} all-reduces and one all-gather a decode step: "
                 f"{per_step:.1f} ms; {smi}", flush=True)
         if r0["heads"] != [cfg.num_heads // 2, cfg.num_kv_heads // 2]:
-            raise AssertionError(f"tp: rank heads {r0['heads']}")
+            raise AssertionError(f"tp: {label}: rank heads {r0['heads']}")
+        if cfg.moe.enabled and not r0["experts"] == r1["experts"] == [cfg.moe.num_experts // 2]:
+            raise AssertionError(f"tp: {label}: expert stacks of {r0['experts']} / "
+                                 f"{r1['experts']} experts, not {cfg.moe.num_experts // 2}")
+        if cfg.mla.enabled and r0["pool"][-1] != cfg.mla.latent_dim:
+            raise AssertionError(f"tp: {label}: the latent pool {r0['pool']} is not whole")
         if r0["finished"] != r1["finished"] or not r0["finished"]:
-            raise AssertionError("tp: the ranks finished the requests with other tokens")
+            raise AssertionError(f"tp: {label}: the ranks finished the requests with other tokens")
         if r0["logits_sha"] != r1["logits_sha"]:
-            raise AssertionError("tp: the ranks' teacher-forced logits differ")
+            raise AssertionError(f"tp: {label}: the ranks' teacher-forced logits differ")
+        if cfg.moe.enabled and (r0["routings"] == 0 or r0.get("experts_sha")
+                                != r1.get("experts_sha") or r0["routings"] != r1["routings"]):
+            raise AssertionError(f"tp: {label}: the ranks routed other experts "
+                                 f"({r0['routings']} / {r1['routings']} routings)")
         if r1.get("sessions_left"):
-            raise AssertionError("tp: rank 1 kept a session")
+            raise AssertionError(f"tp: {label}: rank 1 kept a session")
         if not 2 <= len(r0["cancelled"]) < 4 * TP_NEW:
-            raise AssertionError(f"tp: the cancelled request returned {len(r0['cancelled'])} "
-                                 f"tokens")
-        print(f"tp: {TP_LABEL}: both ranks finished {len(r0['finished'])} requests with the same "
+            raise AssertionError(f"tp: {label}: the cancelled request returned "
+                                 f"{len(r0['cancelled'])} tokens")
+        routed = (f", routed {r0['routings']} times to the same experts" if cfg.moe.enabled
+                  else "")
+        print(f"tp: {label}: both ranks finished {len(r0['finished'])} requests with the same "
               f"tokens (the sampled one: {r0['sampled'][:6]}..., the cancelled one after "
-              f"{len(r0['cancelled'])} tokens) and the same teacher-forced logits, bit for bit; "
-              f"rank 1 stopped on rank 0's sentinel; TP=2 run {wall:.1f} s", flush=True)
+              f"{len(r0['cancelled'])} tokens){routed} and the same teacher-forced logits, bit "
+              f"for bit; rank 1 stopped on rank 0's sentinel; TP=2 run {wall:.1f} s", flush=True)
         got = torch.from_numpy(np.load(os.path.join(tmp, "tp2_logits.npy")))
         same = sum(a == b for w, g in zip(one["greedy"], r0["greedy"]) for a, b in zip(w, g))
-        print(f"tp: {TP_LABEL}: TP=2 greedy tokens equal TP=1's on "
+        print(f"tp: {label}: TP=2 greedy tokens equal TP=1's on "
               f"{same}/{TP_NEW * len(TP_LENS)} (batch of {len(TP_LENS)}); the 1500-token "
               f"request's on "
               f"{sum(a == b for a, b in zip(one['long'], r0['long']))}/{TP_NEW}", flush=True)
-        msg = tp_compare(TP_LABEL, want, got, one["greedy"] + [one["long"]],
-                         r0["greedy"] + [r0["long"]], floor)
-        print(f"tp: {TP_LABEL}: TP=2 against TP=1, {msg}", flush=True)
+        msg = tp_compare(label, want, got, one["greedy"] + [one["long"]],
+                         r0["greedy"] + [r0["long"]], floor, TP_PATHS[label][3])
+        if cfg.moe.enabled:
+            sr = r0["shared_routing"]
+            msg += (f"; MoE routing shared with TP=1's: parted on {sr['parted']}/{sr['routed']} "
+                    f"token-layers, each a near tie (gap up to {sr['ratio']:.3f} x the "
+                    f"router-logit difference)")
+        print(f"tp: {label}: TP=2 against TP=1, {msg}", flush=True)
         how = ("NCCL, a GPU a rank" if nccl else "gloo on one GPU: every collective goes "
                "through host memory, not an NCCL TP figure")
         for what, r in (("TP=1 (one process)", one), (f"TP=2 ({how})", r0)):
-            print(f"timing: {TP_LABEL} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
+            print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
                   f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
                   f"tokens; {smi}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _tp_launches(rec: dict, label: str, launches: dict) -> None:
+def _tp_launches(rec: dict, label: str, launches: dict, layers: int) -> None:
+    """Add a tp run's launches to the record; every kernel of its path
+    launched, a multiple of ``layers`` times (once a layer a forward), and
+    no other."""
     for name, n in launches.items():
         rec[name]["launches"] += n
         rec[name]["launches_by_path"][label] = n
     expect = PATHS[label]
-    if any(launches[name] == 0 for name in expect):
-        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    if any(launches[name] == 0 or launches[name] % layers for name in expect):
+        raise AssertionError(f"{label}: a kernel of the path never launched, or not once a "
+                             f"layer a forward ({layers} layers): {launches}")
     if any(n for name, n in launches.items() if name not in expect):
         raise AssertionError(f"{label}: a kernel of another path launched: {launches}")
 
@@ -5129,6 +5472,7 @@ def phase_serve(rec: dict, args) -> None:
     from zhilight_tpu_torch.llm import LLM
     from zhilight_tpu_torch.models import llama as L
 
+    lap = lap_timer("serve")
     cfg = minicpm_2b()
     t0 = time.monotonic()
     params = L.init_params(cfg, seed=args.seed, device="cuda")
@@ -5143,13 +5487,17 @@ def phase_serve(rec: dict, args) -> None:
     serve_path("MiniCPM-2B", llm, rec, args.seed)
     args.llms["MiniCPM-2B"] = llm
     release_pool(llm)
+    lap("MiniCPM-2B")
     window_path("MiniCPM-2B-window", llm, ecfg, rec, args)
+    lap("MiniCPM-2B-window")
     w8a8_path(llm, rec, args)
+    lap("MiniCPM-2B-W8A8")
 
     llm = load_qwen(args.seed)
     _, bf16_first = serve_path("Qwen2.5-14B-GPTQ-Int4", llm, rec, args.seed)
     args.llms["Qwen2.5-14B-GPTQ-Int4"] = llm
     release_pool(llm)
+    lap("Qwen2.5-14B-GPTQ-Int4 (load included)")
 
     # the same leaves (making them is most of the load time) behind an int8 pool
     label = "Qwen2.5-14B-GPTQ-Int4-int8kv"
@@ -5166,8 +5514,11 @@ def phase_serve(rec: dict, args) -> None:
     pool_rows_and_scoring(label, llm8, prompts, bf16_first)
     args.llms[label] = llm8
     release_pool(llm8)
+    lap(label)
     window_path("Qwen2.5-14B-GPTQ-Int4-int8kv-window", llm, qwen_engine_config("int8"), rec, args)
+    lap("Qwen2.5-14B-GPTQ-Int4-int8kv-window")
     fp16_qwen_path(rec, args, llm)
+    lap("Qwen2.5-14B-GPTQ-Int4-fp16")
 
     label = "DeepSeek-V2-Lite-GPTQ-Int4"
     llm = load_deepseek(label, DEEPSEEK_V2_LITE_GPTQ, args.seed)
@@ -5182,12 +5533,16 @@ def phase_serve(rec: dict, args) -> None:
     pool_rows(label, ex, ex.cache.latent[0][0].float().abs().sum(-1) != 0, "latent pool")
     args.llms[label] = llm
     release_pool(llm)
+    lap(f"{label} (load included)")
     window_path("DeepSeek-V2-Lite-GPTQ-Int4-window", llm, deepseek_engine_config(), rec, args,
                 DEEPSEEK_LENS)
+    lap("DeepSeek-V2-Lite-GPTQ-Int4-window")
     fused_path("DeepSeek-V2-Lite-GPTQ-Int4-fused", llm, deepseek_engine_config(), rec, args,
                DEEPSEEK_LENS)
+    lap("DeepSeek-V2-Lite-GPTQ-Int4-fused")
 
     dense_expert_path(args)
+    lap("DeepSeek-V2-Lite bf16 experts, 4 layers")
 
     label = "Qwen3-8B-FP8"
     llm = load_qwen3_fp8(label, args.seed, QWEN3_8B_FP8["num_hidden_layers"], keep=True)
@@ -5198,11 +5553,16 @@ def phase_serve(rec: dict, args) -> None:
     serve_path(label, llm, rec, args.seed)
     args.llms[label] = llm
     release_pool(llm)
+    lap(f"{label} (load included)")
     fp8_default_load_path(args)
+    lap("Qwen3-8B-FP8, 4 layers kept and dequantized")
 
     danube_paths(rec, args)
+    lap("H2O-Danube-1.8B paths")
     no_packed_kv_path(rec, args)
+    lap("ZT_NO_PACKED_KV")
     head_dim_256_int8_path(rec, args)
+    lap("head_dim 256 int8")
 
 
 def danube_engine_config(kv_dtype: str = "bfloat16"):
@@ -5856,7 +6216,9 @@ def profile(what: str, fn, steps: int = 0) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,multimodal,tp,serve,http,timing")
+    ap.add_argument("--phases", default="kernels,multimodal,tp,serve,http",
+                    help="comma-separated, run in order; timing (after serve) is not in "
+                         "the default")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
@@ -5871,6 +6233,7 @@ def main() -> int:
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-model", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -1030,6 +1030,73 @@ def test_w4a16_ragged_matmul_skips_and_clamps_tiles(cuda):
     assert _rel(got, want) <= 1e-2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctx", ["path", "short_splits", "long_splits"])
+def test_mla_decode_at_a_tp_rank_matches_plain(cuda, ctx):
+    """The latent decode at a TP=2 rank of DeepSeek-V2-Lite (8 of its 16
+    heads, the whole 576 / 512 latent), batch 4: the tp phase's contexts and
+    the split edges of the plan those shapes pick (runs of 16 and of 64
+    tokens a split, one token past), against the plain version and the twin
+    at the kernel's split count."""
+    B, H, maxp = 4, 8, 2048 // S
+    sp = A.mla_plan(cuda, B, H, maxp * S)
+    ctx = {"path": [1532, 532, 1, 0], "short_splits": [0, 1, 16 * sp, 16 * sp + 1],
+           "long_splits": [min(64 * sp, 2046), min(64 * sp + 1, 2047), 65, 2047]}[ctx]
+    rng = np.random.default_rng(sum(ctx))
+    tables, npages = _tables(rng, ctx, cuda)
+    args = (_bf16(rng, cuda, B, H, 576), _bf16(rng, cuda, npages * S, 576), tables,
+            torch.tensor(ctx, dtype=torch.int32, device=cuda), S, 1.0 / np.sqrt(192))
+    got = A.paged_mla_decode(*args, v_dim=512)
+    assert got.shape == (B, H, 512) and torch.isfinite(got).all()
+    assert not got[torch.tensor(ctx) == 0].any()
+    want = A.paged_mla_decode_plain(*args, v_dim=512)
+    twin = A.paged_mla_decode_twin(*args, 512, A.mla_plan(cuda, B, H, tables.shape[1] * S))
+    assert (got.float() - want.float()).abs().max().item() <= TOL
+    assert (got.float() - twin.float()).abs().max().item() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [4, 512])
+def test_rope_write_rows_2d_at_a_tp_rank_is_exact(cuda, T):
+    """The latent pool's prologue at a TP=2 rank of DeepSeek-V2-Lite (8
+    heads' q_pe, the whole latent row): a decode step's 4 rows, a chunk."""
+    rng = np.random.default_rng(T + 7)
+    H, nope, R, Lr = 8, 128, 64, 512
+    N = max(T // S + 4, 16) * S
+    q = _bf16(rng, cuda, T, H, nope + R)
+    kv_a = _bf16(rng, cuda, T, Lr + R)
+    cos, sin = _rope_tables(rng, T, R, True, cuda)
+    pool = _bf16(rng, cuda, 1, N, Lr + R)
+    pools = [pool.clone(), pool.clone()]
+    args = (q[..., nope:], _bf16(rng, cuda, T, Lr), kv_a[:, Lr:], cos, sin, True,
+            _prologue_slots(rng, T, N, cuda))
+    got = W.rope_write_rows_2d(pools[0], *args)
+    assert torch.equal(got, W.rope_write_rows_2d_plain(pools[1], *args))
+    assert torch.equal(pools[0], pools[1]) and not torch.equal(pools[0], pool)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,pad", [(2048, 1408, 0), (1536, 2048, 1)])  # gate/up, padded down
+@pytest.mark.parametrize("R_,TM", [(48, 8), (3072, 64)])
+def test_w4a16_ragged_matmul_over_an_expert_shard(cuda, R_, TM, K, N, pad):
+    """A TP=2 rank's share of DeepSeek-V2-Lite's experts (32 of 64, top 6):
+    the pairs routed to the other rank's experts sit in the overflow bucket,
+    past the occupied tiles, as models/moe.py lays them out; the local pairs'
+    rows against the plain version."""
+    rng = np.random.default_rng(R_ + K)
+    flat = np.concatenate([rng.permutation(64)[:6] for _ in range(R_ // 6)]) - 32
+    valid = (flat >= 0) & (flat < 32)
+    x, w_p, s, z, dest, te, occ = _ragged_inputs(rng, cuda, np.where(valid, flat, 32), TM, K, N,
+                                                 pad, E=32)
+    # dest follows the rows sorted by expert: the local pairs first, then the bucket
+    mine = dest[: int(valid.sum())]
+    assert 0 < len(mine) < R_ and int(mine.max()) < int(occ[0]) * TM
+    args = (x, w_p, s, z, te, occ)
+    got = R.w4a16_ragged_matmul(*args)[mine]
+    assert torch.isfinite(got).all()
+    assert _rel(got, R.w4a16_ragged_matmul_plain(*args)[mine]) <= 1e-2
+
+
 def _latent_case(rng, device, ctx, H, kind):
     """Latent decode inputs at batch len(ctx): q [B, H, 576], a pool [N, 576]
     (kind "v6": V columns near 6; "nan": a poisoned copy with NaN in every
@@ -2239,11 +2306,12 @@ spec = json.load(open(os.path.join(tmp, "spec.json")))
 torch.cuda.set_device(0)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
                         timeout=datetime.timedelta(seconds=120))
-from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig, ParallelConfig,
-                                       SchedulerConfig)
+from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, MLAConfig, ModelConfig,
+                                       MoEConfig, ParallelConfig, SchedulerConfig)
 from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg, SearchTask
 from zhilight_tpu_torch.llm import LLM
 from zhilight_tpu_torch.models import llama as L
+from zhilight_tpu_torch.models import moe as M
 from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 from zhilight_tpu_torch.ops.cuda import kv_write as W
 from zhilight_tpu_torch.ops.cuda import prefill_attention as P
@@ -2254,7 +2322,11 @@ def recorded(self):
     finished[str(self.task_id)] = [int(t) for t in self.output_tokens]
     finish(self)
 SearchTask.finish = recorded
-cfg = ModelConfig(**spec["model"])
+model = dict(spec["model"])
+for key, kind in (("mla", MLAConfig), ("moe", MoEConfig)):
+    if key in model:
+        model[key] = kind(**model[key])
+cfg = ModelConfig(**model)
 params = L.init_params(cfg, 0, "cuda:0", shard=(rank, 2))
 # "cuda" with no index: the rank's device is cuda:LOCAL_RANK, 0 for both ranks here
 llm = LLM(model_config=cfg, params=params, device="cuda", engine_config=EngineConfig(
@@ -2262,7 +2334,8 @@ llm = LLM(model_config=cfg, params=params, device="cuda", engine_config=EngineCo
     scheduler=SchedulerConfig(max_batch=4, chunk_size=128, prefill_buckets=(128,)),
     parallel=ParallelConfig(tp=2)))
 assert llm.device == torch.device("cuda", 0), llm.device
-counted = (W.rope_write_rows_hm, A.paged_decode_attention_hm, P.paged_prefill_attention_hm_packed)
+modules = dict(A=A, W=W, P=P)
+counted = [getattr(modules[m], name) for m, name in spec["kernels"]]
 for fn in counted:
     fn.launches = 0
 gen = DynamicBatchGenerator(llm).start()
@@ -2276,9 +2349,33 @@ else:
     assert not gen.scheduler._thread.is_alive() and gen.scheduler.error is None
 out["launches"] = [fn.launches for fn in counted]
 out["finished"] = finished
+out["experts"] = sorted({v.shape[0] for layer in llm.executor.params["layers"].values()
+                         for proj in layer["mlp"].get("experts", {}).values()
+                         for v in proj.values()})
+# MoE routing shared with the TP=1 run's, in the same order: where a token's
+# experts part, the parting must be a near tie (the TP=1 gap between its k-th
+# expert and this rank's pick at most twice the row's largest router-logit
+# difference), and the token takes TP=1's experts and weights
+routes, parted = (torch.load(os.path.join(tmp, "routes.pt"))
+                  if os.path.exists(os.path.join(tmp, "routes.pt")) else None), []
+select = M.select_experts
+def shared(logits, m, bias=None):
+    weights, ids = select(logits, m, bias)
+    o_logits, o_ids, o_weights = (t.to(logits.device) for t in routes.pop(0))
+    part = (ids.sort(-1).values != o_ids.sort(-1).values).any(-1)
+    for r in part.nonzero().flatten().tolist():
+        own = sorted(set(ids[r].tolist()) - set(o_ids[r].tolist()))
+        gap = o_logits[r, o_ids[r].long()].min() - o_logits[r, own].max()
+        parted.append((gap / (o_logits[r] - logits[r].float()).abs().max()).item())
+    return (torch.where(part[:, None], o_weights, weights),
+            torch.where(part[:, None], o_ids, ids))
+if routes is not None:
+    M.select_experts = shared
 # teacher-forced along the TP=1 tokens: every rank scores together
 forced = [llm.executor.run_score(np.asarray(p + t, np.int32))[len(p) - 1 : -1]
           for p, t in zip(spec["prompts"], spec["tokens"])]
+out["parted"] = parted
+out["routes_left"] = None if routes is None else len(routes)
 np.save(os.path.join(tmp, f"forced{rank}.npy"), np.stack(forced))
 json.dump(out, open(os.path.join(tmp, f"rank{rank}.json"), "w"))
 dist.barrier()
@@ -2286,29 +2383,64 @@ dist.destroy_process_group()
 """
 
 
+# the card's TP engine cases: model fields (MLA and MoE nested), the kernels
+# each rank must launch (module, name), the teacher-forced tolerance (the
+# card's 5e-2 for MLA + MoE logits)
+TP_MODELS = {
+    # Qwen2.5-14B's TP=2 rank geometry: 20 query / 4 KV heads of 128
+    "qwen2": (dict(model_type="qwen2", num_layers=2, dim_model=512, num_heads=40, dim_head=128,
+                   num_kv_heads=8, dim_ff=1024, vocab_size=1024, attn_bias=True,
+                   dtype="bfloat16"),
+              [("W", "rope_write_rows_hm"), ("A", "paged_decode_attention_hm"),
+               ("P", "paged_prefill_attention_hm_packed")], 2e-2),
+    # DeepSeek-V2-Lite's: 8 of 16 heads over the whole 512 + 64 latent, 32
+    # of 64 bf16 experts (top 6), a shared expert, a dense first layer
+    "deepseek_v2": (dict(model_type="deepseek_v2", num_layers=3, dim_model=512, num_heads=16,
+                         dim_head=192, num_kv_heads=16, dim_ff=1024, vocab_size=1024,
+                         dtype="bfloat16",
+                         mla=dict(kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+                                  v_head_dim=128),
+                         moe=dict(num_experts=64, top_k=6, intermediate_size=128,
+                                  shared_expert_intermediate_size=256, first_k_dense_replace=1)),
+                    [("W", "rope_write_rows_2d"), ("A", "paged_mla_decode")], 5e-2),
+}
+
+
 @pytest.mark.cuda
-def test_tensor_parallel_engine_on_gpu(cuda, tmp_path):
+@pytest.mark.parametrize("model_type", list(TP_MODELS))
+def test_tensor_parallel_engine_on_gpu(cuda, tmp_path, model_type):
     """Tensor parallelism on the card: a bf16 model at Qwen2.5-14B's TP=2
-    rank geometry (a rank holds 20 query / 4 KV heads of 128) served by two
-    rank processes on the one GPU over a gloo group, each drawing the full
-    weights from the seed and keeping its shard. Both ranks finish every
-    request with the same tokens and score the same logits bit for bit
-    (each given the device "cuda", which resolves to ``cuda:LOCAL_RANK``); the
-    row write, the decode and the prefill kernels launch on both; the TP=2
-    logits, teacher-forced along the TP=1 run's greedy tokens, lie within
-    2e-2 of the largest TP=1 logit, with the TP=1 argmax wherever its top-2
-    gap exceeds twice the largest difference, and the greedy tokens part, if
-    at all, at such a near tie."""
+    rank geometry (a rank holds 20 query / 4 KV heads of 128), and one at
+    DeepSeek-V2-Lite's (8 of 16 MLA heads over a whole latent pool, 32 of
+    64 experts), served by two rank processes on the one GPU over a gloo
+    group, each drawing the full weights from the seed and keeping its
+    shard. Both ranks finish every request with the same tokens and score
+    the same logits bit for bit (each given the device "cuda", which
+    resolves to ``cuda:LOCAL_RANK``); the path's kernels launch on both; the
+    TP=2 logits, teacher-forced along the TP=1 run's greedy tokens, lie
+    within 2e-2 of the largest TP=1 logit, with the TP=1 argmax wherever its
+    top-2 gap exceeds twice the largest difference, and the greedy tokens
+    part, if at all, at such a near tie (5e-2 for the MLA + MoE model, as
+    the card holds MLA + MoE logits). The MoE model's teacher-forced ranks
+    share the TP=1 run's routing: where a token's experts part from TP=1's,
+    the parting is a near tie, and the token takes TP=1's experts."""
     import os
     import socket
     import subprocess
     import sys
     from pathlib import Path
 
-    model = dict(model_type="qwen2", num_layers=2, dim_model=512, num_heads=40, dim_head=128,
-                 num_kv_heads=8, dim_ff=1024, vocab_size=1024, attn_bias=True,
-                 dtype="bfloat16")
-    cfg = L.ModelConfig(**model)
+    from unittest import mock
+
+    from zhilight_tpu_torch.config import MLAConfig, MoEConfig
+    from zhilight_tpu_torch.models import moe as M
+
+    model, kernels, tol = TP_MODELS[model_type]
+    nested = dict(model)
+    for key, kind in (("mla", MLAConfig), ("moe", MoEConfig)):
+        if key in nested:
+            nested[key] = kind(**nested[key])
+    cfg = L.ModelConfig(**nested)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(2, 1024, n).tolist() for n in (40, 300)]
     one = LLM(model_config=cfg, params=L.init_params(cfg, 0, "cuda"), device=cuda,
@@ -2319,10 +2451,21 @@ def test_tensor_parallel_engine_on_gpu(cuda, tmp_path):
     with DynamicBatchGenerator(one) as gen:
         tokens = [r.outputs[0].token_ids for r in gen.batch_generate(
             prompts, GeneratorArg(max_length=12, ignore_eos=True), timeout=120)]
-    want = np.stack([one.executor.run_score(np.asarray(p + t, np.int32))[len(p) - 1 : -1]
-                     for p, t in zip(prompts, tokens)])
+    # the TP=1 run's routing, shared with the ranks' teacher-forced runs
+    routes, select = [], M.select_experts
+
+    def recorded(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        routes.append((logits.float().cpu(), ids.cpu(), weights.cpu()))
+        return weights, ids
+
+    with mock.patch.object(M, "select_experts", recorded):
+        want = np.stack([one.executor.run_score(np.asarray(p + t, np.int32))[len(p) - 1 : -1]
+                         for p, t in zip(prompts, tokens)])
+    if routes:
+        torch.save(routes, tmp_path / "routes.pt")
     (tmp_path / "spec.json").write_text(json.dumps(dict(model=model, prompts=prompts,
-                                                        tokens=tokens)))
+                                                        tokens=tokens, kernels=kernels)))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -2343,10 +2486,15 @@ def test_tensor_parallel_engine_on_gpu(cuda, tmp_path):
     r0, r1 = (json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(2))
     assert r0["finished"] and r0["finished"] == r1["finished"]
     assert all(n > 0 for n in r0["launches"] + r1["launches"]), (r0["launches"], r1["launches"])
+    if cfg.moe.enabled:
+        assert r0["experts"] == r1["experts"] == [cfg.moe.num_experts // 2]
+        # every routing shared, every parting a near tie
+        assert r0["routes_left"] == r1["routes_left"] == 0 and r0["parted"] == r1["parted"]
+        assert all(ratio <= 2 for ratio in r0["parted"]), r0["parted"]
     got, other = np.load(tmp_path / "forced0.npy"), np.load(tmp_path / "forced1.npy")
     assert np.array_equal(got, other)
     diff = np.abs(got - want).max()
-    assert diff <= 2e-2 * np.abs(want).max()
+    assert diff <= tol * np.abs(want).max()
     top2 = np.sort(want, axis=-1)[..., -2:]
     gap = top2[..., 1] - top2[..., 0]
     parted = got.argmax(-1) != want.argmax(-1)

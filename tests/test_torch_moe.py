@@ -284,11 +284,73 @@ def test_moe_layer_padded_down_k_matches_jax(monkeypatch):
     np.testing.assert_allclose(TM.moe_layer(tmlp, tcfg, T(x)).numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-def test_quant_experts_contribution_refuses_expert_parallelism():
-    with pytest.raises(NotImplementedError):
-        TM.quant_experts_contribution(torch.zeros(2, 8), torch.zeros(4, dtype=torch.int32),
-                                      torch.zeros(4), [torch.zeros(2, 4, 8, dtype=torch.uint8)],
-                                      False, 2, 1, "silu")
+def _contribution_inputs():
+    """Qwen2-MoE act-order int4 stacks (E 4: experts 1 and 2 with a
+    permutation), 9 tokens' routing: (x, flat experts, pair weights, the
+    port's and JAX's arrays per projection (w_p, scales, zeros, perm))."""
+    _, _, tcfg, tp = _load_both("qwen2_moe", "gptq-act-order")
+    tmlp = tp["layers"]["0"]["mlp"]
+    x = T(_x(4))
+    weights, ids = TM.select_experts(x @ tmlp["router"]["w"], tcfg.moe)
+    t_arrs = []
+    for nm in ("gate_proj", "up_proj", "down_proj"):
+        pr = tmlp["experts"][nm]
+        # a projection with a trivial g_idx takes the identity, as moe_layer gives it
+        Kp = 2 * pr["w_p"].shape[1]
+        perm = pr.get("perm", torch.arange(Kp, dtype=torch.int32).expand(E, Kp).contiguous())
+        t_arrs += [pr["w_p"], pr["scales"], pr["zeros"], perm]
+    assert "perm" in tmlp["experts"]["gate_proj"] and "perm" not in tmlp["experts"]["up_proj"]
+    # the JAX loader's leaves are the port's, bit for bit (test_map_hf_params_moe_leaves_match_reference)
+    j_arrs = [jnp.asarray(a.numpy()) for a in t_arrs]
+    return x, ids.reshape(-1), weights.reshape(-1), t_arrs, j_arrs, tcfg
+
+
+def test_quant_experts_contribution_refuses_expert_parallelism(monkeypatch):
+    """Expert parallelism, which this function once refused: the share of
+    experts ``[e0, e0 + E / n)`` of an n-way split (n = 2 and 4, every e0)
+    against JAX's ``quant_experts_contribution`` at the same ``e0`` through
+    its Pallas kernel in interpret mode (2e-2 of the largest output: the
+    kernel rounds x to bf16), and the shares' fp32 sum against the unsharded
+    contribution (1e-5)."""
+    x, flat, pair_w, t_arrs, j_arrs, tcfg = _contribution_inputs()
+    K, act = tcfg.moe.top_k, tcfg.activate_fn
+    whole = TM.quant_experts_contribution(x, flat, pair_w, t_arrs, False, K, 0, act, has_perm=True)
+    for n in (2, 4):
+        El = E // n
+        shares = []
+        for e0 in range(0, E, El):
+            local = [a[e0:e0 + El] for a in t_arrs]
+            got = TM.quant_experts_contribution(x, flat, pair_w, local, False, K, e0, act,
+                                                has_perm=True)
+            want = np.asarray(JM.quant_experts_contribution(
+                jnp.asarray(x.numpy()), jnp.asarray(flat.numpy()), jnp.asarray(pair_w.numpy()),
+                [a[e0:e0 + El] for a in j_arrs], False, K, e0, act, interpret=True,
+                has_perm=True))
+            assert got.dtype == torch.float32 and got.abs().max() > 0
+            assert np.abs(got.numpy() - want).max() <= 2e-2 * np.abs(want).max(), (n, e0)
+            shares.append(got)
+        np.testing.assert_allclose(sum(shares).numpy(), whole.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_quant_experts_contribution_masks_remote_pairs(monkeypatch):
+    """The rows of pairs routed to another shard's experts are never
+    written by the kernel (tiles past ``num_occ``): filled with NaN here,
+    they never reach the sum."""
+    x, flat, pair_w, t_arrs, _, tcfg = _contribution_inputs()
+    K, act = tcfg.moe.top_k, tcfg.activate_fn
+    local = [a[2:4] for a in t_arrs]
+    want = TM.quant_experts_contribution(x, flat, pair_w, local, False, K, 2, act, has_perm=True)
+    matmul = TM.quant_ragged.w4a16_ragged_matmul
+
+    def unwritten(xin, w_p, scales, zeros, tile_expert, num_occ):
+        out = matmul(xin, w_p, scales, zeros, tile_expert, num_occ)
+        TM_ = xin.shape[0] // tile_expert.shape[0]
+        out[int(num_occ[0]) * TM_:] = float("nan")
+        return out
+
+    monkeypatch.setattr(TM.quant_ragged, "w4a16_ragged_matmul", unwritten)
+    got = TM.quant_experts_contribution(x, flat, pair_w, local, False, K, 2, act, has_perm=True)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 def test_ragged_tile_and_expert_weight():

@@ -20,8 +20,12 @@ devices of tests/conftest.py.
   torchrun's variables: rank 0 answers ``/v1/completions`` with tp=1's text
   and usage; rank 1 binds no port.
 - The raises: a vocab, KV-head count or ``dim_ff`` that tp does not divide;
-  MoE, MLA or a quantized linear under tp > 1; a world that is not tp; tp > 1
+  a quantized dense linear under tp > 1; a world that is not tp; tp > 1
   without a process group; scoring and calibration under tp > 1.
+
+MoE and MLA under tensor parallelism are tests/test_torch_tp_moe.py's, on
+this file's rank processes (:class:`Ranks`, ``RANK``), which also record
+every routing's expert ids and the collectives a MoE layer issues.
 
 The rank processes import torch and the port only (the weights come from the
 JAX package's ``init_params`` through an ``.npz``), started as
@@ -60,6 +64,7 @@ from zhilight_tpu.config import SchedulerConfig as JSchedulerConfig
 from zhilight_tpu.engine import DynamicBatchGenerator as JGenerator
 from zhilight_tpu.engine import GeneratorArg as JGeneratorArg
 from zhilight_tpu.kvcache import new_kv_cache as j_new_kv_cache
+from zhilight_tpu.kvcache import new_latent_cache as j_new_latent_cache
 from zhilight_tpu.llm import LLM as JLLM
 from zhilight_tpu.models import llama as JL
 from zhilight_tpu.models import stacked as JS
@@ -68,10 +73,10 @@ from zhilight_tpu.models.base import PrefillMeta as JPrefillMeta
 from zhilight_tpu.parallel import TP_AXIS, make_mesh
 from zhilight_tpu.parallel import shard_params as j_shard_params
 from zhilight_tpu.parallel.sharding import param_pspec
-from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, MLAConfig, ModelConfig,
-                                       MoEConfig, ParallelConfig, QuantConfig, QuantType,
+from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig,
+                                       ParallelConfig, QuantConfig, QuantType,
                                        SchedulerConfig)
-from zhilight_tpu_torch.kvcache.paged import new_kv_cache
+from zhilight_tpu_torch.kvcache.paged import new_kv_cache, new_latent_cache
 from zhilight_tpu_torch.llm import LLM
 from zhilight_tpu_torch.models import llama as TL
 from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
@@ -124,7 +129,7 @@ def _save(params, path):
 # ---------------------------------------------------------------------------
 
 RANK = r"""
-import datetime, json, os, sys, threading, time
+import datetime, hashlib, json, os, sys, threading, time
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -136,19 +141,30 @@ spec = json.load(open(spec_path))
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
                         world_size=world, timeout=datetime.timedelta(seconds=60))
 
-from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ModelConfig, ParallelConfig,
-                                       SchedulerConfig)
+from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, MLAConfig, ModelConfig,
+                                       MoEConfig, ParallelConfig, RopeConfig, SchedulerConfig)
 from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg
 from zhilight_tpu_torch.engine.engine import ModelExecutor
 from zhilight_tpu_torch.engine.session import SessionGenerator
 from zhilight_tpu_torch.engine.task import SearchTask, StreamResultType
-from zhilight_tpu_torch.kvcache.paged import new_kv_cache
+from zhilight_tpu_torch.kvcache.paged import new_kv_cache, new_latent_cache
 from zhilight_tpu_torch.llm import LLM
 from zhilight_tpu_torch.models import llama as L
+from zhilight_tpu_torch.models import moe as M
 from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 from zhilight_tpu_torch.parallel.comm import TPGroup
 from zhilight_tpu_torch.parallel.sharding import rank_config, shard_params
 from zhilight_tpu_torch.utils.convert import params_to_torch
+
+
+def model_config(m):
+    # a ModelConfig from its fields, MLA, MoE and rope as nested dicts
+    m = dict(m)
+    for key, kind in (("mla", MLAConfig), ("moe", MoEConfig), ("rope", RopeConfig)):
+        if isinstance(m.get(key), dict):
+            m[key] = kind(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in m[key].items()})
+    return ModelConfig(**m)
 
 
 def load(path):
@@ -180,14 +196,46 @@ def _counted(*a, **kw):
     return _window(*a, **kw)
 L.forward_decode_window = _counted
 
+# the expert ids of every routing, and the shape of every collective issued
+# inside a MoE layer
+routed, moe_collectives, in_moe = [], [], [False]
+_select = M.select_experts
+def _routing(*a, **kw):
+    weights, ids = _select(*a, **kw)
+    routed.append(ids.tolist())
+    return weights, ids
+M.select_experts = _routing
+_moe_layer = M.moe_layer
+def _in_moe(*a, **kw):
+    in_moe[0] = True
+    try:
+        return _moe_layer(*a, **kw)
+    finally:
+        in_moe[0] = False
+M.moe_layer = _in_moe
+for op in ("all_reduce", "all_gather"):
+    def _recorded(self, x, *a, _fn=getattr(TPGroup, op), _op=op, **kw):
+        if in_moe[0]:
+            moe_collectives.append([_op, str(x.dtype), list(x.shape)])
+        return _fn(self, x, *a, **kw)
+    setattr(TPGroup, op, _recorded)
+
+
+def expert_counts(params):
+    # the expert dim of every expert-stack leaf of a tree
+    return sorted({v.shape[0] for layer in params["layers"].values()
+                   for proj in layer["mlp"].get("experts", {}).values() for v in proj.values()})
+
+
 out = {"forward": {}, "engine": {}, "raises": {}}
 i32 = dict(dtype=torch.int32)
 PAGE, MAXP, BUCKET = 4, 8, 16
 
 group = TPGroup()
 for name, f in spec.get("forward", {}).items():
-    cfg = rank_config(ModelConfig(**f["model"]), world)
+    cfg = rank_config(model_config(f["model"]), world)
     params = params_to_torch(shard_params(load(f["params"]), rank, world), "cpu", torch.float32)
+    routed.clear(), moe_collectives.clear()
     rope = L.build_rope(cfg)
     n = len(f["tokens"])
     tok = torch.zeros(BUCKET, **i32); tok[:n] = torch.tensor(f["tokens"])
@@ -197,7 +245,9 @@ for name, f in spec.get("forward", {}).items():
     pt = torch.full((MAXP,), -1, **i32); pt[:pages] = torch.arange(pages)
     meta = PrefillMeta(positions=pos, slot_mapping=slots, page_table=pt,
                        cache_len=torch.tensor(0, **i32), q_len=torch.tensor(n, **i32))
-    cache = new_kv_cache(cfg.num_layers, 32, PAGE, cfg.num_kv_heads, cfg.dim_head, torch.float32)
+    cache = (new_latent_cache(cfg.num_layers, 32, PAGE, cfg.mla.latent_dim, torch.float32)
+             if cfg.mla.enabled else
+             new_kv_cache(cfg.num_layers, 32, PAGE, cfg.num_kv_heads, cfg.dim_head, torch.float32))
     p2 = torch.full((2, MAXP), -1, **i32); p2[0, : n // PAGE + 1] = torch.arange(n // PAGE + 1)
     dmeta = DecodeMeta(positions=torch.tensor([n, 0], **i32),
                        slot_mapping=torch.tensor([n, -1], **i32), page_tables=p2,
@@ -207,7 +257,9 @@ for name, f in spec.get("forward", {}).items():
         dtok = torch.tensor([f["decode_token"], 0], **i32)
         dlogits, cache = L.forward_decode(params, cfg, rope, dtok, dmeta, cache, tp=group)
     out["forward"][name] = dict(prefill=logits.tolist(), decode=dlogits[0].tolist(),
-                                pool=list(cache.k[0].shape))
+                                pool=list((cache.latent if cfg.mla.enabled else cache.k)[0].shape),
+                                experts=list(routed), moe_collectives=list(moe_collectives),
+                                expert_counts=expert_counts(params))
 
 
 def engine_config(case, tp):
@@ -235,20 +287,28 @@ llm = None
 decide_num_pages = ModelExecutor._decide_num_pages
 for name, case in spec.get("engine", {}).items():
     os.environ.pop("ZT_WINDOW_KV", None)
+    os.environ.pop("ZT_FUSED_KV", None)
     os.environ.update(case.get("env", {}))
     # a pool budget of the rank's own, as where the ranks' free memory differs
     ModelExecutor._decide_num_pages = (
         (lambda self, n=case["budgets"][rank]: n) if case.get("budgets") else decide_num_pages)
     finished.clear()
     window_steps[0] = 0
-    llm = LLM(model_config=ModelConfig(**case["model"]), params=load(case["params"]),
-              engine_config=engine_config(case, world), device="cpu")
+    # the weights as a tree, or a checkpoint directory each rank reads its shard of
+    weights = (dict(model_path=case["model_path"]) if case.get("model_path")
+               else dict(params=load(case["params"])))
+    llm = LLM(model_config=model_config(case["model"]), engine_config=engine_config(case, world),
+              device="cpu", **weights)
     ex = llm.executor
+    routed.clear()
     gen = DynamicBatchGenerator(llm).start()
-    rec = dict(pool=list(ex.cache.k[0].shape), packed=ex.cache.packed,
+    latent = ex.cache.is_latent
+    rec = dict(pool=list((ex.cache.latent if latent else ex.cache.k)[0].shape),
+               packed=None if latent else ex.cache.packed,
                scales=list(ex.cache.k_scale[0].shape) if ex.cache.quantized else None,
                kv_bytes=ex._kv_bytes_per_token(), num_pages=ex.num_pages,
-               window_kv=ex.window_kv)
+               window_kv=ex.window_kv, fused_kv=ex.fused_kv,
+               expert_counts=expert_counts(ex.params))
     if rank == 0:
         rec["greedy"] = [r.outputs[0].token_ids for r in gen.batch_generate(
             case["prompts"], GeneratorArg(**case["arg"]), timeout=100)]
@@ -265,9 +325,12 @@ for name, case in spec.get("engine", {}).items():
         assert not gen.scheduler._thread.is_alive(), "rank 1's scheduler did not stop"
         assert gen.scheduler.error is None, gen.scheduler.error
     rec.update(finished=dict(finished), sessions=len(gen.scheduler.sessions),
-               preemptions=gen.scheduler.num_preemptions, window_steps=window_steps[0])
+               preemptions=gen.scheduler.num_preemptions, window_steps=window_steps[0],
+               routings=len(routed),
+               experts=hashlib.sha256(json.dumps(routed).encode()).hexdigest())
     out["engine"][name] = rec
 os.environ.pop("ZT_WINDOW_KV", None)
+os.environ.pop("ZT_FUSED_KV", None)
 
 if spec.get("raises"):
     def raises(fn):
@@ -610,9 +673,13 @@ def _jax_forward(jcfg, params, tp):
                         context_lens=jnp.asarray([n + 1, 0], jnp.int32))
     mesh = make_mesh(tp=tp, dp=1, devices=jax.devices()[:tp])
     # the engine's placement (zhilight_tpu/engine/engine.py:262-306): the
-    # packed head-major pool on its head dim
-    cache = j_new_kv_cache(jcfg.num_layers, 32, PAGE, jcfg.num_kv_heads, jcfg.dim_head,
-                           jnp.float32, kv_sharding=NamedSharding(mesh, P(TP_AXIS, None, None)))
+    # packed head-major pool on its head dim, a latent pool replicated
+    if jcfg.mla.enabled:
+        cache = j_new_latent_cache(jcfg.num_layers, 32, PAGE, jcfg.mla.latent_dim, jnp.float32,
+                                   sharding=NamedSharding(mesh, P()))
+    else:
+        cache = j_new_kv_cache(jcfg.num_layers, 32, PAGE, jcfg.num_kv_heads, jcfg.dim_head,
+                               jnp.float32, kv_sharding=NamedSharding(mesh, P(TP_AXIS, None, None)))
     with mesh:
         sharded = j_shard_params(params, mesh)
         pre = jax.jit(lambda pr, tk, mt, ca: JL.forward_prefill(pr, jcfg, rope, tk, mt, ca))
@@ -637,7 +704,9 @@ def _port_forward(cfg, params):
     pt[: (n + PAGE - 1) // PAGE] = torch.arange((n + PAGE - 1) // PAGE)
     meta = PrefillMeta(positions=pos, slot_mapping=slots, page_table=pt,
                        cache_len=torch.tensor(0, **i32), q_len=torch.tensor(n, **i32))
-    cache = new_kv_cache(cfg.num_layers, 32, PAGE, cfg.num_kv_heads, cfg.dim_head, torch.float32)
+    cache = (new_latent_cache(cfg.num_layers, 32, PAGE, cfg.mla.latent_dim, torch.float32)
+             if cfg.mla.enabled else
+             new_kv_cache(cfg.num_layers, 32, PAGE, cfg.num_kv_heads, cfg.dim_head, torch.float32))
     p2 = torch.full((2, MAXP), -1, **i32)
     p2[0, : n // PAGE + 1] = torch.arange(n // PAGE + 1)
     dmeta = DecodeMeta(positions=torch.tensor([n, 0], **i32),
@@ -675,10 +744,10 @@ def test_forward_matches_single_process_and_jax_mesh(ranks, name, tp):
 # the engine
 # ---------------------------------------------------------------------------
 
-def _jax_tokens(case, monkeypatch):
+def _jax_tokens(case, monkeypatch, jcfg=None):
     """The JAX engine's greedy tokens at ParallelConfig(tp=2), with room for
     every request (its own ZT_WINDOW_KV=1 with interpret kernels for the
-    window case)."""
+    window case); ``jcfg`` in place of the case's model fields."""
     model = case["model"]
     params = _tree(_load(case["params"]))
     cache, sched = dict(case["cache"]), dict(case["sched"])
@@ -690,7 +759,7 @@ def _jax_tokens(case, monkeypatch):
             m.setenv(key, value)
         if case["env"]:
             m.setenv("ZT_PALLAS_INTERPRET", "1")
-        jllm = JLLM(model_config=JModelConfig(**model), params=params,
+        jllm = JLLM(model_config=jcfg or JModelConfig(**model), params=params,
                     engine_config=JEngineConfig(max_model_len=case["max_model_len"],
                                                 cache=JCacheConfig(**cache),
                                                 scheduler=JSchedulerConfig(**sched),
@@ -777,17 +846,12 @@ def test_sizes_tp_does_not_divide_raise(what, change, monkeypatch):
             shard_params(params, 0, 2)
 
 
-@pytest.mark.parametrize("kind", ["moe", "mla", "gptq", "int8", "quantized_leaf"])
+@pytest.mark.parametrize("kind", ["gptq", "int8", "quantized_leaf"])
 def test_what_tp_does_not_serve_yet_raises(kind, monkeypatch):
     for var in LAUNCH_VARS:
         monkeypatch.delenv(var, raising=False)
     model, quant = dict(FWD_MODEL), QuantConfig()
-    if kind == "moe":
-        model["moe"] = MoEConfig(num_experts=4, top_k=2, intermediate_size=64)
-    elif kind == "mla":
-        model.update(model_type="deepseek_v2", mla=MLAConfig(kv_lora_rank=16, qk_nope_head_dim=8,
-                                                             qk_rope_head_dim=4, v_head_dim=8))
-    elif kind == "gptq":
+    if kind == "gptq":
         quant = QuantConfig(quant_type=QuantType.GPTQ)
     elif kind == "int8":
         quant = QuantConfig(quant_type=QuantType.AUTO_INT8)

@@ -30,10 +30,12 @@ executor is built; the reference reads them when it traces a decode program.
 Under tensor parallelism (``ParallelConfig(tp=N)`` and a
 ``parallel.comm.TPGroup`` of N ranks, one process a rank) the executor holds
 its rank's shard of the weights and a pool of its own ``num_kv_heads / tp``
-heads, in every layout; the model all-reduces and all-gathers across the
-ranks, and every rank's scheduler runs in lockstep through ``plane``
-(``parallel.control_plane.DistPlane``). The pool-row operations move the
-rank's own rows. Scoring (:meth:`run_score`) runs collectives too, so every
+heads, in every layout (an MLA model's latent pool whole on every rank, each
+rank writing the same rows into its replica, as the reference replicates it:
+``zhilight_tpu/engine/engine.py:264-272``); the model all-reduces and
+all-gathers across the ranks, and every rank's scheduler runs in lockstep
+through ``plane`` (``parallel.control_plane.DistPlane``). The pool-row
+operations move the rank's own rows. Scoring (:meth:`run_score`) runs collectives too, so every
 rank must call it together.
 """
 
@@ -169,10 +171,11 @@ class ModelExecutor:
     def _kv_bytes_per_token(self) -> int:
         """Pool bytes one token takes over all layers: K and V elements in
         the pool's dtype and, for an int8 pool, their two fp32 scales; for an
-        MLA model one latent row (2 bytes an element) per layer. Under tensor
-        parallelism over the rank's ``num_kv_heads / tp`` heads: the
-        reference's bytes divided by tp (``zhilight_tpu/engine/engine.py:
-        258-259``), so the page count, and admission with it, match."""
+        MLA model one latent row (2 bytes an element) per layer, whole on
+        every rank. Under tensor parallelism a KV pool holds the rank's
+        ``num_kv_heads / tp`` heads: the reference's bytes divided by tp
+        (``zhilight_tpu/engine/engine.py:249-259``, the latent bytes not
+        divided), so the page count, and admission with it, match."""
         cfg = self.cfg
         if cfg.mla.enabled:
             return cfg.num_layers * cfg.mla.latent_dim * 2

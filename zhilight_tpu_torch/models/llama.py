@@ -44,7 +44,9 @@ Tensor parallelism: given a rank's configuration
 (``parallel.sharding.rank_config``: its heads and ``dim_ff``), its shard of
 the weights and ``tp``, its group (``parallel.comm.TPGroup``), every function
 here runs on the rank's share; ``o_proj`` and ``down_proj`` are all-reduced
-(:func:`_reduce_linear`), the vocab-sharded embedding is looked up and
+(:func:`_reduce_linear`; MLA's ``o_proj`` and the shared expert's too), a
+MoE layer's routed sum over the rank's experts is all-reduced in
+``models/moe.py``, the vocab-sharded embedding is looked up and
 all-reduced (:func:`embed`) and the logits are all-gathered
 (:func:`get_logits`), so that every rank holds the same activations and
 logits. ``tp=None`` is one process.
@@ -297,7 +299,7 @@ def mlp_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, layer_idx: int,
     if cfg.is_moe_layer(layer_idx):
         from .moe import moe_layer
 
-        return moe_layer(p, cfg, x)  # never under tp (parallel.sharding.check_tp)
+        return moe_layer(p, cfg, x, tp)
     return dense_mlp(p, cfg, x, tp)
 
 
@@ -319,10 +321,10 @@ def decoder_layer(
     variant, MiniCPM's depth-scaled residual (scale_depth / sqrt(L)). With
     ``side`` (decode windows) returns (x, cache, side_rows)."""
     if cfg.mla.enabled:
-        # never under tp (parallel.sharding.check_tp)
         from .mla import mla_attention_layer as attn_fn
     else:
-        attn_fn = functools.partial(attention_layer, tp=tp)
+        attn_fn = attention_layer
+    attn_fn = functools.partial(attn_fn, tp=tp)
     res_scale = cfg.scale_depth / math.sqrt(cfg.num_layers) if cfg.scale_depth != 1.0 else 1.0
     h = _norm(p["ln_attn"], cfg, x)
     attn_out, cache, *rows = attn_fn(

@@ -113,11 +113,18 @@ def mla_attention_layer(
     mode: str,
     rot=None,
     side=None,
+    tp=None,
 ):
     """MLA over the latent pool: write this step's latent rows, then attend
     (prefill chunk, packed chunks or decode step). With ``side`` (a decode
     window's side buffer) nothing is written and ``(out, cache, side_rows)``
-    is returned."""
+    is returned. Under tensor parallelism (``tp``, the group; ``cfg`` the
+    rank's, its ``num_heads / tp`` heads) the rank projects and attends its
+    heads over its replica of the latent pool, which every rank writes
+    alike, and ``o_proj`` is row parallel: its fp32 partials are
+    all-reduced (``llama._reduce_linear``)."""
+    from .llama import _o_proj
+
     m = cfg.mla
     T = x.shape[0]
     scale = mla_softmax_scale(cfg)
@@ -141,9 +148,9 @@ def mla_attention_layer(
         if side is not None:
             out, rows = _side_window_mla(cache, layer_idx, q_nope, q_pe, latent, w_uk, w_uv,
                                          meta, side, scale, m)
-            return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache, rows
+            return _o_proj(p, out, tp), cache, rows
         out = _mla_decode_fused(q_nope, q_pe, latent, cache, layer_idx, w_uk, w_uv, meta, scale, m)
-        return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache
+        return _o_proj(p, out, tp), cache
 
     if mode == "prefill" and isinstance(meta, PackedPrefillMeta):
         # the projections above ran on the fused [NS*TC] token batch;
@@ -166,7 +173,7 @@ def mla_attention_layer(
         ctx = gather_latent(cache, layer_idx, meta.page_tables)  # [B, KV, latent]
         out = _mla_decode(q_nope, q_pe, ctx, w_uk, w_uv, meta.context_lens, scale, m)
 
-    return linear(p["o_proj"], out.reshape(T, cfg.num_heads * m.v_head_dim)), cache
+    return _o_proj(p, out, tp), cache
 
 
 def _q_eff(q_nope: torch.Tensor, q_pe: torch.Tensor, w_uk: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,13 @@ CUDA tensors, its plain version for CPU tensors. Dense stacks
 :func:`_grouped_experts` (``lax.ragged_dot`` in the
 reference). Nothing on these paths reads a count back to the host: tile
 counts are static worst cases and the occupied count stays on the device.
-Expert parallelism (``e0 > 0``) is a later slice.
+
+Under tensor parallelism the experts are sharded over the ranks, as the
+reference's rules shard them (expert parallelism): rank r holds experts
+``[r * E / tp, (r + 1) * E / tp)``, computes them for every routed pair and
+masks the others' pairs, and one fp32 all-reduce of the ``[T, D]`` routed
+sum gives every rank the whole (``zhilight_tpu/ops/pallas/partitioned.py:
+461-529``). No collective is expert-sized.
 """
 
 from __future__ import annotations
@@ -111,26 +117,33 @@ def _use_quant_ragged(p_experts: Params) -> bool:
 
 def quant_experts_contribution(
     x: torch.Tensor,             # [T, D] token activations
-    flat_experts: torch.Tensor,  # [R = T*K] expert of each (token, k) pair
+    flat_experts: torch.Tensor,  # [R = T*K] global expert of each (token, k) pair
     pair_weights: torch.Tensor,  # [R] f32 routing weight per pair
     expert_arrays,               # flat (w_p, scales, zeros[, perm]) per projection
     fused: bool,                 # True => [gate_up, down]; else [gate, up, down]
     top_k: int,
-    e0: int,
+    e0: int,                     # the first expert held here (0 when unsharded)
     act: str,
     has_perm: bool = False,      # act_order stacks: a K-permutation per expert
 ) -> torch.Tensor:
-    """Weighted contribution [T, D] (fp32) of the int4 expert stacks to every
-    token. Pair r = t*K + k keeps its place: the rows are gathered into
-    expert-aligned tiles, multiplied, and read back per pair, so each token's
-    K contributions are summed in a fixed order."""
-    if e0 != 0:
-        raise NotImplementedError("expert parallelism is not ported yet")
+    """Weighted contribution [T, D] (fp32) of experts ``[e0, e0 + E_local)``,
+    the stacks' experts, to every token: the whole routed sum unsharded, one
+    rank's share of it under expert parallelism (every rank computes its
+    experts for all routed pairs; the shares are then all-reduced). Pairs
+    routed to another rank's experts go to an overflow bucket past the
+    occupied tiles, never computed, and their unwritten rows (which may hold
+    anything) are masked with ``where``. Pair r = t*K + k keeps its place:
+    the rows are gathered into expert-aligned tiles, multiplied, and read
+    back per pair, so each token's K contributions are summed in a fixed
+    order."""
     T, D = x.shape
     E = expert_arrays[0].shape[0]
     R = flat_experts.shape[0]
+    local = flat_experts.long() - e0
+    valid = (local >= 0) & (local < E)
     TM = _ragged_tile(R)
-    sort_idx, dest, tile_expert, num_occ, mp = ragged_layout(flat_experts, E + 1, TM, occ_experts=E)
+    sort_idx, dest, tile_expert, num_occ, mp = ragged_layout(
+        torch.where(valid, local, E), E + 1, TM, occ_experts=E)
     xp = torch.zeros((mp, D), dtype=x.dtype, device=x.device)
     xp[dest] = x[sort_idx // top_k]
     stride = 4 if has_perm else 3
@@ -160,6 +173,7 @@ def quant_experts_contribution(
     pair_row = torch.empty_like(dest)
     pair_row[sort_idx] = dest
     out = down[pair_row].float() * pair_weights.float()[:, None]
+    out = torch.where(valid[:, None], out, 0.0)
     return out.reshape(T, top_k, D).sum(dim=1)
 
 
@@ -204,8 +218,14 @@ def _grouped_experts(
     return _grouped_mm(h, w_of("down_proj", h.shape[-1]), group_sizes)
 
 
-def moe_layer(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: [T, D] -> [T, D]."""
+def moe_layer(p: Params, cfg: ModelConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """x: [T, D] -> [T, D]. Under tensor parallelism (``tp``, the group) the
+    stacks hold the rank's ``E / tp`` whole experts, ``[e0, e0 + E / tp)``
+    with ``e0 = rank * E / tp``, and the router is replicated: every rank
+    routes every token alike, computes its experts' share of the routed sum
+    in fp32, and the shares are all-reduced once in fp32 and rounded to the
+    model's dtype; the shared expert is column / row parallel, reduced by
+    ``dense_mlp`` on its own."""
     m = cfg.moe
     T, D = x.shape
     K, E = m.top_k, m.num_experts
@@ -217,6 +237,8 @@ def moe_layer(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     flat_experts = expert_ids.reshape(-1)  # [T*K]
     pair_w = weights.reshape(-1)           # [T*K] f32
     experts = p["experts"]
+    E_local = E if tp is None else E // tp.world  # parallel.sharding.check_tp: tp divides E
+    e0 = 0 if tp is None else tp.rank * E_local
     if _use_quant_ragged(experts):
         fused = "gate_up_proj" in experts
         names = ("gate_up_proj", "down_proj") if fused else ("gate_proj", "up_proj", "down_proj")
@@ -231,28 +253,38 @@ def moe_layer(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                 perm = pr.get("perm")
                 if perm is None:
                     Kp = 2 * pr["w_p"].shape[1]
-                    perm = torch.arange(Kp, dtype=torch.int32, device=x.device).expand(E, Kp)
+                    perm = torch.arange(Kp, dtype=torch.int32, device=x.device).expand(E_local, Kp)
                 arrs.append(perm)
         routed = quant_experts_contribution(
-            x, flat_experts, pair_w, arrs, fused, K, 0, cfg.activate_fn, has_perm=has_perm
-        ).to(x.dtype)
+            x, flat_experts, pair_w, arrs, fused, K, e0, cfg.activate_fn, has_perm=has_perm)
     else:
-        flat = flat_experts.long()
-        sort_idx = torch.argsort(flat, stable=True)
+        # the rank's pairs sorted by local expert, the other ranks' pairs after
+        # the last local group
+        local = flat_experts.long() - e0
+        valid = (local >= 0) & (local < E_local)
+        sort_idx = torch.argsort(torch.where(valid, local, E_local), stable=True)
         x_sorted = x[sort_idx // K]
         # a count by comparison: torch.bincount reads its maximum back to the host
-        group_sizes = (flat[:, None] == torch.arange(E, device=x.device)[None, :]).sum(0)
+        group_sizes = (local[:, None] == torch.arange(E_local, device=x.device)[None, :]).sum(0)
         out_sorted = _grouped_experts(experts, x_sorted, group_sizes, cfg.activate_fn)
-        out_sorted = out_sorted * pair_w[sort_idx][:, None].to(out_sorted.dtype)
+        w_sorted = pair_w[sort_idx][:, None]
+        if tp is None:
+            out_sorted = out_sorted * w_sorted.to(out_sorted.dtype)
+        else:
+            # the rows past the last group are unwritten: masked, never multiplied
+            out_sorted = torch.where(valid[sort_idx][:, None], out_sorted.float() * w_sorted, 0.0)
         # back to (token, k) order: each token's K contributions sum in a fixed order
         out_pairs = torch.empty_like(out_sorted)
         out_pairs[sort_idx] = out_sorted
-        routed = out_pairs.reshape(T, K, D).sum(dim=1).to(x.dtype)
+        routed = out_pairs.reshape(T, K, D).sum(dim=1)
+    if tp is not None:
+        routed = tp.all_reduce(routed.float())
+    routed = routed.to(x.dtype)
 
     if "shared_expert" in p:
         from .llama import dense_mlp
 
-        shared = dense_mlp(p["shared_expert"], cfg, x)
+        shared = dense_mlp(p["shared_expert"], cfg, x, tp)
         if "shared_expert_gate" in p:
             gate = torch.sigmoid(linear(p["shared_expert_gate"], x).float())
             shared = (shared.float() * gate).to(x.dtype)

@@ -77,10 +77,12 @@ _RULES = [
 
 _COMPILED = [(re.compile(pat), dim) for pat, dim in _RULES]
 
-# the keys that mark a quantized linear (ops/linear.py); none is sharded yet
+# the keys that mark a quantized linear (ops/linear.py); only expert stacks shard them
 _QUANT_KEYS = ("w_p", "w_q", "w_f8")
 # fused projections, whose parts a single column slice would cut across
 _FUSED = ("qkv_proj", "gate_up_proj")
+# a path inside an expert stack
+_EXPERTS = re.compile(r"\.mlp\.experts\.")
 
 
 def param_shard_dim(path: str, ndim: int) -> Optional[int]:
@@ -115,16 +117,20 @@ def shard_leaf(path: str, leaf: Any, rank: int, tp: int) -> torch.Tensor:
 
 def shard_params(params: Dict[str, Any], rank: int, tp: int, prefix: str = "") -> Dict[str, Any]:
     """Rank ``rank``'s shard of a nested parameter tree, leaf by leaf
-    (``prefix`` is the tree's own path in the model's, for a subtree). A
-    quantized linear raises: the reference replicates dense quantized leaves,
-    and serving them under tensor parallelism waits for its own slice."""
+    (``prefix`` is the tree's own path in the model's, for a subtree). An
+    int4 expert stack (``.mlp.experts.``) is sliced on its expert dim, as the
+    reference's rules slice it; any other quantized linear raises: the
+    reference replicates dense quantized leaves, and serving them under
+    tensor parallelism waits for its own slice."""
 
     def walk(tree, path):
-        if tp > 1 and any(k in tree for k in _QUANT_KEYS):
+        # an expert stack keeps whole experts, fused or quantized: it shards on the expert dim
+        experts = _EXPERTS.search(path + ".")
+        if tp > 1 and not experts and any(k in tree for k in _QUANT_KEYS):
             raise NotImplementedError(
                 f"{path}: quantized linears under tensor parallelism are not ported yet "
                 "(ROADMAP, queue 1)")
-        if tp > 1 and any(k in tree for k in _FUSED):
+        if tp > 1 and not experts and any(k in tree for k in _FUSED):
             # one slice of [q | k | v] or [gate | up] would not be the rank's heads or columns
             raise NotImplementedError(f"{path}: split fused projections {_FUSED} into their "
                                       "parts before sharding them")
@@ -137,27 +143,37 @@ def shard_params(params: Dict[str, Any], rank: int, tp: int, prefix: str = "") -
 
 def check_tp(cfg, tp: int) -> None:
     """The model-level conditions of tensor parallelism over ``tp`` ranks:
-    dense attention and MLP only, and every sharded size divisible by tp
-    (the vocab: the embedding's rows and the head's columns; the KV heads:
-    the pool's head dim; ``dim_ff``), as the reference's mesh placement
-    requires. Raises ``NotImplementedError`` or ``ValueError``."""
+    every size a rank slices divides by tp, as the reference's mesh
+    placement requires: the vocab (the embedding's rows and the head's
+    columns), the query heads (MLA's head-sharded projections too), the KV
+    heads of a KV pool (an MLA model's latent pool is whole on every rank),
+    ``dim_ff`` where a layer is dense, the routed experts (a rank holds
+    ``num_experts / tp`` whole experts) and the shared expert's width.
+    Raises ``ValueError``."""
     if tp <= 1:
         return
-    if cfg.moe.enabled or cfg.mla.enabled:
-        raise NotImplementedError(
-            "MoE (expert parallelism) and MLA under tensor parallelism are not ported yet "
-            "(ROADMAP, queue 1 item 5b)")
-    for what, n in (("vocab_size", cfg.vocab_size), ("num_kv_heads", cfg.num_kv_heads),
-                    ("num_heads", cfg.num_heads), ("dim_ff", cfg.dim_ff)):
+    sizes = [("vocab_size", cfg.vocab_size)]
+    if not cfg.mla.enabled:
+        sizes.append(("num_kv_heads", cfg.num_kv_heads))
+    sizes.append(("num_heads", cfg.num_heads))
+    if not all(cfg.is_moe_layer(i) for i in range(cfg.num_layers)):
+        sizes.append(("dim_ff", cfg.dim_ff))
+    if cfg.moe.enabled:
+        sizes += [("num_experts", cfg.moe.num_experts),
+                  ("shared_expert_intermediate_size", cfg.moe.shared_expert_intermediate_size)]
+    for what, n in sizes:
         if n % tp:
             raise ValueError(f"{what} {n} does not divide by tp={tp}")
 
 
 def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
     """The configuration one rank of a ``tp``-rank model computes with: its
-    ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads and its
-    ``dim_ff / tp`` columns of the MLP. The vocabulary stays global (the
-    logits are all-gathered to it)."""
+    ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads (MLA's
+    reshapes see the rank's heads) and its ``dim_ff / tp`` columns of a dense
+    MLP. The vocabulary stays global (the logits are all-gathered to it), and
+    so does the MoE configuration: the replicated router routes over every
+    expert, each expert is whole on its rank, and the shared expert's width
+    is read from its weights."""
     check_tp(cfg, tp)
     return cfg.replace(num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
                        dim_ff=cfg.dim_ff // tp)

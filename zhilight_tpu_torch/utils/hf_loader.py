@@ -191,8 +191,20 @@ def map_hf_params(
     of each quantized linear into the formats of ``ops/quant.py``. With
     ``shard=(rank, tp)`` each dense tensor is sliced to rank ``rank``'s shard
     as it is read (``parallel.sharding.shard_leaf``), so that no rank holds
-    more than one full tensor at a time."""
+    more than one full tensor at a time, and only the tensors of the rank's
+    experts ``[rank * E / tp, (rank + 1) * E / tp)`` are read into its expert
+    stacks (bf16 or int4); a quantized dense linear raises."""
     dtype = dtype or cfg.torch_dtype
+    # under tensor parallelism a rank keeps experts [e0, e0 + E / tp) (their
+    # stack index e - e0) and never converts or places another rank's
+    e_lo, e_n = 0, None
+    if shard is not None and shard[1] > 1 and cfg.moe.enabled:
+        e_n = cfg.moe.num_experts // shard[1]
+        e_lo = shard[0] * e_n
+
+    def mine(e):
+        return e is None or e_n is None or e_lo <= e < e_lo + e_n
+
     tree: Dict[str, Any] = {}
     expert_stash: Dict[str, Dict[int, torch.Tensor]] = {}  # stack path -> expert -> [in, out]
     quant_stash: Dict[str, Dict[str, Any]] = {}  # linear path -> kind -> array (or expert -> array)
@@ -213,6 +225,13 @@ def map_hf_params(
                 unmapped.append(name)
                 continue
             path, _, e = mapped
+            if not mine(e):
+                continue
+            if e is None and shard is not None and shard[1] > 1:
+                raise NotImplementedError(
+                    f"{path}: quantized linears under tensor parallelism are not ported yet "
+                    "(ROADMAP, queue 1)")
+            e = None if e is None else e - e_lo
             entry = quant_stash.setdefault(path[: -len(".w")], {})
             value = to_tensor(arr) if kind in _FP8_KINDS else _numpy(arr)
             if e is not None:
@@ -227,6 +246,8 @@ def map_hf_params(
                 unmapped.append(name)
             continue
         path, transpose, e = mapped
+        if not mine(e):
+            continue
         t = to_tensor(arr).to(device)
         if transpose:
             t = t.t()
@@ -235,16 +256,13 @@ def map_hf_params(
         elif transpose:
             t = t.contiguous()
         if e is not None:
-            expert_stash.setdefault(path, {})[e] = t.to(dtype)
+            expert_stash.setdefault(path, {})[e - e_lo] = t.to(dtype)
         else:
             _set_path(tree, path, t.to(_target_dtype(path, dtype)))
 
     for path, experts in expert_stash.items():
         _set_path(tree, path, torch.stack([experts[i] for i in range(max(experts) + 1)]))
 
-    if (quant_stash or expert_stash) and shard is not None and shard[1] > 1:
-        raise NotImplementedError("quantized linears and expert stacks under tensor "
-                                  "parallelism are not ported yet (ROADMAP, queue 1)")
     if quant_stash:
         _convert_quant_stash(tree, quant_stash, quant_method, dtype, device)
 

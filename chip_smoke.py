@@ -8,7 +8,8 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
     python3 chip_smoke.py --phases serve,timing   # the serve paths, then their rates
     python3 chip_smoke.py --phases multimodal     # DeepSeek-VL2-small's language path alone
     python3 chip_smoke.py --phases http           # the OpenAI server alone
-    python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16, TP=1 then TP=2 (gloo)
+    python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16 and GPTQ, ..., TP=1 then TP=2 (gloo)
+    python3 chip_smoke.py --phases tp --tp-gptq-layers 48  # the GPTQ TP path at full depth
     python3 chip_smoke.py --phases tp --tp-backend nccl  # the same, NCCL, a GPU a rank
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
@@ -109,14 +110,20 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            against its split-count twin and plain version, MoE routing parting
            only at near ties), its TTFT and batch-1 decode tok/s; the weights
            are then freed;
-  tp       tensor parallelism, two paths (``TP_PATHS``): Qwen2.5-14B in bf16
-           (``QWEN14B_BF16`` at 4 of its 48 layers, full width) and
-           DeepSeek-V2-Lite in bf16 (``DEEPSEEK_V2_LITE_BF16``: 27 layers, MLA,
-           64 + 2 experts of 1408, top 6, full width and depth), random
-           weights drawn on the card from the seed, each through ``LLM`` +
-           ``DynamicBatchGenerator`` at TP=1 in this process, then at TP=2 by
-           two rank processes of this script on the one GPU over an explicit
-           gloo group (``--tp-backend nccl``: NCCL, a GPU a rank), each
+  tp       tensor parallelism, five paths (``TP_PATHS``): Qwen2.5-14B in bf16
+           (``QWEN14B_BF16`` at 4 of its 48 layers, full width), Qwen2.5-14B
+           GPTQ-Int4 (``QWEN14B_GPTQ`` at ``--tp-gptq-layers``, 2 by default,
+           of its 48, full width; GPTQ tensors through the port's loader, each
+           rank keeping its int4 shard: columns of q/k/v and gate/up, rows of
+           o and down with their group scales), two 2-layer checks at full
+           width, teacher-forced only (Qwen3-8B-FP8 kept in FP8; Qwen2.5-14B
+           quantized to W8A8 at load, AUTO_INT8), and DeepSeek-V2-Lite in bf16
+           (``DEEPSEEK_V2_LITE_BF16``, all 27 layers: MLA, 64 + 2 experts of
+           1408, top 6, full width), random weights drawn on the card from
+           the seed, each through ``LLM`` + ``DynamicBatchGenerator`` at TP=1
+           in this process, then all at TP=2, one after the other, by one
+           launch of two rank processes of this script on the one GPU over an
+           explicit gloo group (``--tp-backend nccl``: NCCL, a GPU a rank), each
            drawing the same full tensors and keeping its shard (Qwen: 20
            query / 4 KV heads of 128 a rank; DeepSeek: 8 of 16 MLA heads over
            a whole latent pool, 32 of the 64 experts): the same requests (TTFT
@@ -128,10 +135,18 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            logits along them against TP=1's and against TP=1's own noise (one
            prompt at a time against the batch); both ranks finish every
            request alike, route every token to the same experts and score the
-           same logits bit for bit; the TP=2 times are labelled as a gloo run
-           whose collectives go through host memory. The kernels phase holds
-           rows 2 and 3 (and the prologue, row 1) at a Qwen rank's shapes, and
-           rows 2b, 7 and 8 at a DeepSeek rank's;
+           same logits bit for bit; a forward's collectives counted on each
+           rank against the expected (an fp32 all-reduce a row-parallel
+           linear, W8A8 a MAX and an int32 one, an all-gather for one kept
+           whole) with the linears kept whole; the W8A8 path's ranks also hold
+           ``int8_linear``'s row-parallel product at their shapes bit-equal to
+           the unsharded one, and show that a rank-local absmax or a missing
+           int32 sum would not be; the TP=2 times are labelled as
+           a gloo run whose collectives go through host memory. The kernels
+           phase holds rows 2 and 3 (and the prologue, row 1) at a Qwen rank's
+           shapes, rows 2b, 7 and 8 at a DeepSeek rank's, and rows 4 and 9 at
+           a rank's projections in both output modes (bf16, and fp32: a
+           row-parallel partial);
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -656,10 +671,12 @@ def _q_note() -> str:
     return "" if _ELEM[-1] == torch.bfloat16 else f" ({str(_ELEM[-1])[6:]} q and rows)"
 
 
-def _bf16(rng, shape, scale=0.02):
-    """Random bf16 (tools/make_bench_model.py's ``bf16``), as a torch tensor."""
-    g = torch.Generator().manual_seed(int(rng.integers(2**31)))
-    return (torch.randn(int(np.prod(shape)), generator=g) * scale).to(torch.bfloat16).reshape(shape)
+def _bf16(rng, shape, scale=0.02, device=None):
+    """Random bf16 (tools/make_bench_model.py's ``bf16``), as a torch tensor,
+    drawn on ``device`` (default: the host)."""
+    g = torch.Generator(device=device or "cpu").manual_seed(int(rng.integers(2**31)))
+    return (torch.randn(int(np.prod(shape)), generator=g, device=device) * scale).to(
+        torch.bfloat16).reshape(shape)
 
 
 def gptq_tensors(rng, K, N, group_size):
@@ -673,11 +690,12 @@ def gptq_tensors(rng, K, N, group_size):
     return dict(qweight=qweight, qzeros=qzeros, scales=scales, g_idx=g_idx)
 
 
-def qwen_hf_tensors(hf: dict, seed: int, keep: dict):
+def qwen_hf_tensors(hf: dict, seed: int, keep: dict, device=None):
     """(HF name, tensor) pairs of a random GPTQ-Int4 checkpoint of ``hf``'s
     geometry, in tools/make_bench_model.py's format and order; dense leaves
-    bf16 at scale 0.02, norms 1. ``keep`` receives layer 0's q_proj GPTQ
-    tensors and the seconds spent making the tensors."""
+    bf16 at scale 0.02 (drawn on ``device``, default the host), norms 1.
+    ``keep`` receives layer 0's q_proj GPTQ tensors and the seconds spent
+    making the tensors."""
     t0 = time.monotonic()
     made = 0.0
     rng = np.random.default_rng(seed)
@@ -697,7 +715,7 @@ def qwen_hf_tensors(hf: dict, seed: int, keep: dict):
         yield name, value
         t0 = time.monotonic()
 
-    yield from emit("model.embed_tokens.weight", _bf16(rng, (V, H)))
+    yield from emit("model.embed_tokens.weight", _bf16(rng, (V, H), device=device))
     for i in range(hf["num_hidden_layers"]):
         pre = f"model.layers.{i}."
         for name, (K, N) in lin.items():
@@ -707,12 +725,12 @@ def qwen_hf_tensors(hf: dict, seed: int, keep: dict):
             for k, v in parts.items():
                 yield from emit(pre + name + "." + k, v)
             if name != "self_attn.o_proj" and name.startswith("self_attn."):
-                yield from emit(pre + name + ".bias", _bf16(rng, (N,)))
+                yield from emit(pre + name + ".bias", _bf16(rng, (N,), device=device))
         yield from emit(pre + "input_layernorm.weight", ones)
         yield from emit(pre + "post_attention_layernorm.weight", ones)
     rng = np.random.default_rng(seed + 1)
     yield from emit("model.norm.weight", ones)
-    yield from emit("lm_head.weight", _bf16(rng, (V, H)))
+    yield from emit("lm_head.weight", _bf16(rng, (V, H), device=device))
     keep["make_s"] = made + time.monotonic() - t0
 
 
@@ -1337,6 +1355,8 @@ def phase_kernels(rec: dict, args) -> None:
     lap("kernels_fp16")
     kernels_tp_rank_mla(rec, np.random.default_rng(17))
     lap("kernels_tp_rank_mla")
+    kernels_tp_rank_quant(rec, np.random.default_rng(19))
+    lap("kernels_tp_rank_quant")
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1386,6 +1406,136 @@ def kernels_tp_rank(rec: dict, A, P) -> None:
     rec["paged_prefill_attention_hm_packed"]["max_abs_err"] = max(
         rec["paged_prefill_attention_hm_packed"]["max_abs_err"], err)
     _record_print("paged_prefill_attention_hm_packed", shapes)
+
+
+# a TP=2 rank's projections (K, N): its columns of q, k/v and gate/up (the
+# bf16 output mode) and its rows of o and down (the fp32 output mode: a
+# partial product, all-reduced in fp32 and rounded once)
+TP_RANK_W4_SHAPES = {"q_proj": (5120, 2560), "k/v_proj": (5120, 512), "o_proj": (2560, 5120),
+                     "gate/up_proj": (5120, 6912), "down_proj": (6912, 5120)}
+TP_RANK_FP8_SHAPES = {"q_proj": (4096, 2048), "k/v_proj": (4096, 512), "o_proj": (2048, 4096),
+                      "gate/up_proj": (4096, 6144), "down_proj": (6144, 4096)}
+ROW_PARALLEL = ("o_proj", "down_proj")
+
+
+def kernels_tp_rank_quant(rec: dict, rng) -> None:
+    """Rows 4 and 9 at a TP=2 rank's projections (Qwen2.5-14B's int4,
+    Qwen3-8B-FP8's), at a decode step of the tp phase's 4 slots and a
+    512-token chunk, in both output modes (bf16, and fp32: a row-parallel
+    partial), each against its plain version in the same mode (1e-2 of the
+    largest output), then at the split-K edges of a row-parallel shape in the
+    fp32 mode (each kernel at split counts from one to one stage a split,
+    runs ending inside a group or scale block). Timed with a
+    cold L2 in both modes beside the plain version and ``torch.mm`` on the
+    bf16 weight dequantized beforehand (fp32 output in the fp32 mode); kept
+    under ``shapes`` of each kernel's record, the mode the rank's path uses
+    (fp32 for o and down) as ``ms``."""
+    from zhilight_tpu_torch.ops.cuda import fp8_matmul as F8
+    from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+    from zhilight_tpu_torch.ops.quant import dequant_int4, pack_int4
+
+    gs, f32 = 128, torch.float32
+    scratch = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    worst = {"w4a16_matmul": [0.0, 0.0], "fp8_block_matmul": [0.0, 0.0]}  # rel, abs
+
+    def held(kernel, what, got, want, dtype):
+        if got.dtype != dtype:
+            raise AssertionError(f"{kernel} {what}: output {got.dtype}, not {dtype}")
+        diff = (got.float() - want.float()).abs().max().item()
+        e = diff / want.float().abs().max().item()
+        if not (torch.isfinite(got).all() and e <= W4A16_TOL):
+            raise AssertionError(f"{kernel} {what}: max rel err {e} > {W4A16_TOL}")
+        w = worst[kernel]
+        w[0], w[1] = max(w[0], e), max(w[1], diff)
+
+    def int4_weights(K, N):
+        q = _dev(rng.integers(0, 16, (K, N)).astype(np.int8))
+        s = _dev((rng.random((K // gs, N)) * 0.004 + 0.001).astype(np.float32))
+        z = _dev(rng.integers(1, 16, (K // gs, N)).astype(np.float32))
+        w = pack_int4(q)
+        return ((w, s, z), dequant_int4(w, s, z, torch.bfloat16),
+                K * N // 2 + 8 * (K // gs) * N)
+
+    def fp8_weights(K, N):
+        wt = torch.from_numpy(rng.standard_normal((N, K)).astype(np.float32)).cuda() * 0.02
+        w8, bs = fp8_block_quantize(wt)
+        w8 = w8.view(torch.uint8).t().contiguous().view(torch.float8_e4m3fn)
+        bs = bs.t().contiguous()
+        wd = (w8.float().reshape(K // 128, 128, N // 128, 128) * bs[:, None, :, None]
+              ).reshape(K, N).to(torch.bfloat16)
+        return (w8, bs), wd, K * N + 4 * (K // 128) * (N // 128)
+
+    cases = (("w4a16_matmul", "Qwen2.5-14B", TP_RANK_W4_SHAPES, int4_weights, Q.w4a16_matmul,
+              Q.w4a16_matmul_plain),
+             ("fp8_block_matmul", "Qwen3-8B-FP8", TP_RANK_FP8_SHAPES, fp8_weights,
+              F8.fp8_block_matmul, F8.fp8_block_matmul_plain))
+    for kernel, model, shapes, make, fn, plain in cases:
+        rows = {}
+        for pname, (K, N) in shapes.items():
+            w, wd, wbytes = make(K, N)
+            for M in (4, 512):
+                x = _randn(rng, M, K)
+                for out in (None, f32):
+                    held(kernel, f"{pname} M={M} out {out}", fn(x, *w, out_dtype=out),
+                         plain(x, *w, out_dtype=out), out or torch.bfloat16)
+                t = {}
+                for mode, out in (("bf16", None), ("fp32", f32)):
+                    t[mode] = time_ms(lambda: fn(x, *w, out_dtype=out), flush=flush)
+                    t[mode + "_bound"] = bound(wbytes + 2 * M * K + (4 if out else 2) * M * N,
+                                               2 * M * K * N)
+                mode = "fp32" if pname in ROW_PARALLEL else "bf16"
+                out = f32 if mode == "fp32" else None
+                lib = (lambda: torch.mm(x, wd, out_dtype=f32)) if out else (lambda: torch.mm(x, wd))
+                t_b, by = t[mode + "_bound"]
+                rows[f"{model} TP=2 rank {pname} (K {K}, N {N}), M {M}, {mode} out"] = dict(
+                    ms=t[mode], bf16_out_ms=t["bf16"], fp32_out_ms=t["fp32"],
+                    plain_ms=time_ms(lambda: plain(x, *w, out_dtype=out), flush=flush,
+                                     reps=5 if M == 512 else 30),
+                    library_ms=time_ms(lib, flush=flush), bound_ms=t_b, bound_by=by)
+                print(f"kernels: {kernel} TP=2 rank {pname} K={K} N={N} M={M}: bf16 out "
+                      f"ms={t['bf16']:.4f} (bound {t['bf16_bound'][0]:.4f}), fp32 out "
+                      f"ms={t['fp32']:.4f} (bound {t['fp32_bound'][0]:.4f})", flush=True)
+            del w, wd
+        rec[kernel].setdefault("shapes", {}).update(rows)
+        _record_print(kernel, rows)
+
+    # split-K edges in the fp32 mode at a row-parallel shape: row 4 at
+    # Qwen2.5-14B's o_proj rows (K 2560: 20 decode stages of 64 weight rows,
+    # 40 prefill stages of 32, a group every 128 rows), row 9 at Qwen3-8B's
+    # (K 2048: 16 K blocks)
+    K, N = TP_RANK_W4_SHAPES["o_proj"]
+    (w, s, z), _, _ = int4_weights(K, N)
+    for M, cfgs, counts in ((4, (0,), (2, 3, 7, 10, 20)), (37, (1, 2), (1, 3, 7, 20, 40)),
+                            (130, (1, 2), (1, 6, 8, 40))):
+        x = _randn(rng, M, K)
+        want = Q.w4a16_matmul_plain(x, w, s, z, out_dtype=f32)
+        for cfg in cfgs:
+            for splits in counts:
+                out = torch.empty(M, N, dtype=f32, device="cuda")
+                Q._run(x, w, s, z, out, True, (cfg, splits))
+                held("w4a16_matmul", f"o_proj M={M} config {cfg} splits {splits} fp32", out,
+                     want, f32)
+    K, N = TP_RANK_FP8_SHAPES["o_proj"]
+    (w8, bs), _, _ = fp8_weights(K, N)
+    dev = F8._DEVICES[torch.device("cuda", torch.cuda.current_device())]
+    for M, cfg, counts in ((4, 0, (2, 3, 6, 8, 16)), (37, 1, (1, 2, 4, 16)), (300, 1, (1, 3, 8))):
+        x = _randn(rng, M, K)
+        want = F8.fp8_block_matmul_plain(x, w8, bs, out_dtype=f32)
+        kept = dev.plans.get((M, N, K))
+        for splits in counts:
+            dev.plans[M, N, K] = (cfg, splits)
+            held("fp8_block_matmul", f"o_proj M={M} config {cfg} splits {splits} fp32",
+                 F8.fp8_block_matmul(x, w8, bs, out_dtype=f32), want, f32)
+        dev.plans.pop((M, N, K))
+        if kept is not None:
+            dev.plans[M, N, K] = kept
+    for kernel, (e, diff) in worst.items():
+        rec[kernel]["max_abs_err"] = max(rec[kernel]["max_abs_err"], diff)
+        print(f"kernels: {kernel} at TP=2 rank shapes, both output modes and the fp32 mode's "
+              f"split-K edges: max rel err {e:.3e} (tolerance {W4A16_TOL}), max abs err "
+              f"{diff:.3e}", flush=True)
+    del scratch
 
 
 # a TP=2 rank of DeepSeek-V2-Lite (the tp phase): 8 of the 16 heads over the
@@ -1904,8 +2054,8 @@ def kernels_w4a16(rec: dict, rng) -> None:
     kernel and split count the kernel takes (the "sweep:" lines behind the
     host's plan)."""
     from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
-    from zhilight_tpu_torch.ops.quant import dequant_int4, int4_linear, pack_int4
-    from zhilight_tpu_torch.utils.hf_loader import _pad_canon_int4
+    from zhilight_tpu_torch.ops.quant import (dequant_int4, int4_linear, pack_int4,
+                                              pad_int4_groups)
 
     gs = 128
 
@@ -1951,10 +2101,8 @@ def kernels_w4a16(rec: dict, rng) -> None:
     # a K the loader pads (DeepSeek-V2-Lite's expert down_proj, 1408 at gs 128)
     K, N = 1408, 2048
     q, s, z = weights(K, N)
-    canon = _pad_canon_int4({"w_p": q.cpu().numpy(), "scales": s.cpu().numpy(),
-                             "zeros": z.cpu().numpy()})
-    p = {"w_p": pack_int4(_dev(canon["w_p"])), "scales": _dev(canon["scales"]),
-         "zeros": _dev(canon["zeros"])}
+    canon = pad_int4_groups({"w_p": q, "scales": s, "zeros": z})
+    p = dict(canon, w_p=pack_int4(canon["w_p"]))
     x = _randn(rng, 8, K)
     e2 = check("padded K", int4_linear(p, x), Q.w4a16_matmul_plain(x, q, s, z))
     err = max(err, e, e2)
@@ -4384,10 +4532,11 @@ def deepseek_engine_config():
     )
 
 
-def map_hf_params_by_layer(tensors, cfg, quant_method: str):
+def map_hf_params_by_layer(tensors, cfg, quant_method: str, shard=None):
     """The port's map_hf_params on one layer's HF tensors at a time, on the
-    GPU, so that neither the host nor the GPU holds a checkpoint twice.
-    Returns the parameter tree and the number of tensors."""
+    GPU, so that neither the host nor the GPU holds a checkpoint twice
+    (``shard``: a TP rank's, as map_hf_params takes it). Returns the
+    parameter tree and the number of tensors."""
     from zhilight_tpu_torch.utils.hf_loader import map_hf_params
 
     params, n_tensors = {}, 0
@@ -4395,7 +4544,7 @@ def map_hf_params_by_layer(tensors, cfg, quant_method: str):
     def convert(group):
         nonlocal n_tensors
         n_tensors += len(group)
-        tree = map_hf_params(group, cfg, quant_method=quant_method, device="cuda")
+        tree = map_hf_params(group, cfg, quant_method=quant_method, device="cuda", shard=shard)
         params.setdefault("layers", {}).update(tree.pop("layers", {}))
         params.update(tree)
 
@@ -4754,15 +4903,55 @@ DEEPSEEK_V2_LITE_BF16 = {k: v for k, v in DEEPSEEK_V2_LITE_GPTQ.items()
 # layers leave room in the run's time for the DeepSeek path at full depth (a
 # gloo collective costs 1-3 ms on one host, 25 a step at 12 layers)
 TP_QWEN_LAYERS = 4
+# the GPTQ-Int4 path's depth in a default run (``--tp-gptq-layers`` sets it;
+# its width as it ships): 2 of 48 leave the run's time to the DeepSeek path at
+# full depth
+TP_GPTQ_LAYERS = 2
+# the quantized 2-layer checks: teacher-forced only, at full width
+TP_CHECK_LAYERS = 2
+# paths whose teacher-forced logits are held to TP=1's own spread (one prompt
+# at a time against the batch) where that exceeds LOGIT_TOL: W8A8 quantizes
+# each token's activations to int8 codes that a bf16 ulp of difference flips,
+# and two TP=1 computations of its 2-layer model part by 6.007e-02 of the
+# largest logit (the first card run of the path)
+TP_SPREAD_BOUND = ("Qwen2.5-14B-AUTO_INT8-2-layers",)
+
+
+def _qwen14b(c, layers):
+    return (c.num_layers == layers and c.dim_model == 5120 and c.num_heads == 40
+            and c.num_kv_heads == 8 and c.dim_head == 128 and c.dim_ff == 13824
+            and c.vocab_size == 152064 and c.attn_bias and c.dtype == "bfloat16")
+
+
 TP_PATHS = {
     # label -> (config.json fields, the geometry they must give, its kernels,
-    # the teacher-forced tolerance: what the card holds the model's logits to)
+    # the teacher-forced tolerance: what the card holds the model's logits to,
+    # how its weights are made (tp_weights), whether it serves the requests
+    # (tp_drive) or only runs the teacher-forced logits)
     "Qwen2.5-14B-bf16": (
         dict(QWEN14B_BF16, num_hidden_layers=TP_QWEN_LAYERS),
-        lambda c: (c.num_layers == TP_QWEN_LAYERS and c.dim_model == 5120 and c.num_heads == 40
-                   and c.num_kv_heads == 8 and c.dim_head == 128 and c.dim_ff == 13824
-                   and c.vocab_size == 152064 and c.attn_bias and c.dtype == "bfloat16"),
-        ATTENTION_KERNELS, 2e-2),
+        lambda c: _qwen14b(c, TP_QWEN_LAYERS), ATTENTION_KERNELS, 2e-2, "seed", True),
+    # GPTQ tensors from the seed through the port's loader, each rank keeping its
+    # shard: the int4 linears sharded on N (q/k/v, gate/up) and K (o, down)
+    # with their group scales; rows 1-4 at a rank's shapes, row 4's fp32 mode
+    "Qwen2.5-14B-GPTQ-Int4": (
+        dict(QWEN14B_GPTQ, num_hidden_layers=TP_GPTQ_LAYERS),
+        lambda c: _qwen14b(c, c.num_layers), ATTENTION_KERNELS + ("w4a16_matmul",), 2e-2,
+        "gptq", True),
+    # FP8 block-scaled tensors kept in FP8 (ZT_FP8_KEEP=1): row 9 at a rank's
+    # shapes, its fp32 mode in o and down
+    "Qwen3-8B-FP8-2-layers": (
+        dict(QWEN3_8B_FP8, num_hidden_layers=TP_CHECK_LAYERS),
+        lambda c: (c.num_layers == TP_CHECK_LAYERS and c.dim_model == 4096 and c.num_heads == 32
+                   and c.num_kv_heads == 8 and c.dim_head == 128 and c.dim_ff == 12288
+                   and c.qk_norm and c.vocab_size == 151936),
+        ATTENTION_KERNELS + ("fp8_block_matmul",), 2e-2, "fp8", False),
+    # the bf16 weights quantized to W8A8 at load on each rank (AUTO_INT8): the
+    # row-parallel shards' column absmax MAX-reduced, their activations'
+    # per-token absmax MAX-reduced and int32 products summed
+    "Qwen2.5-14B-AUTO_INT8-2-layers": (
+        dict(QWEN14B_BF16, num_hidden_layers=TP_CHECK_LAYERS),
+        lambda c: _qwen14b(c, TP_CHECK_LAYERS), ATTENTION_KERNELS, 2e-2, "int8", False),
     # MLA over a replicated latent pool, bf16 experts through the library's
     # grouped GEMM, sharded over the ranks
     "DeepSeek-V2-Lite-bf16": (
@@ -4774,15 +4963,15 @@ TP_PATHS = {
                    and c.moe.shared_expert_intermediate_size == 2816
                    and c.moe.first_k_dense_replace == 1 and c.dim_ff == 10944
                    and c.vocab_size == 102400 and c.dtype == "bfloat16"),
-        ("rope_write_rows_2d", "paged_mla_decode"), LOGIT_TOL),
+        ("rope_write_rows_2d", "paged_mla_decode"), LOGIT_TOL, "seed", True),
 }
 TP_LENS = (500, 1500)      # the greedy prompts, 32 new tokens each
 TP_NEW = 32
 TP_SAMPLED = 200           # a seeded sampled request's prompt
 TP_CANCEL = 300            # a request cancelled mid-decode
 TP_PAGES = 512             # given: both ranks would size the pool from the same free memory
-TP_TIMEOUT = 300           # seconds: the rank processes' limit and their default group's timeout
-for _label, (_, _, _kernels, _) in TP_PATHS.items():
+TP_TIMEOUT = 300           # seconds: a path's limit in the rank processes, their default group's timeout
+for _label, (_, _, _kernels, *_) in TP_PATHS.items():
     for _r in range(2):
         PATHS[f"{_label}-TP2-rank{_r}"] = _kernels
     PATHS[f"{_label}-TP1"] = _kernels
@@ -4799,15 +4988,105 @@ def tp_engine_config(tp: int):
                         parallel=ParallelConfig(tp=tp))
 
 
-def tp_config(label: str):
+def tp_hf(label: str, args) -> dict:
+    """The path's config.json fields (the GPTQ path at ``--tp-gptq-layers``)."""
+    hf = TP_PATHS[label][0]
+    if TP_PATHS[label][4] == "gptq":
+        hf = dict(hf, num_hidden_layers=args.tp_gptq_layers)
+    return hf
+
+
+def tp_config(label: str, args):
     """The path's ModelConfig, its geometry checked."""
     from zhilight_tpu_torch.config import adapt_hf_config
 
-    hf, geometry, _, _ = TP_PATHS[label]
-    cfg = adapt_hf_config(hf)
-    if not geometry(cfg):
+    cfg = adapt_hf_config(tp_hf(label, args))
+    if not TP_PATHS[label][1](cfg):
         raise AssertionError(f"tp: {label}: the configuration is not the path's: {cfg}")
     return cfg
+
+
+def tp_weights(label: str, args, cfg, device, shard=None):
+    """The path's weights, drawn from ``--seed`` on ``device``, whole or rank
+    ``shard = (rank, tp)``'s: by ``init_params`` ("seed"; "int8": then
+    quantized to W8A8 as ``LLM`` does an AUTO_INT8 checkpoint, a rank's
+    row-parallel scales MAX-reduced over the group), or as HF tensors through
+    the port's loader, one layer at a time, each rank converting a whole
+    linear and keeping its entry ("gptq": ``qwen_hf_tensors``, its dense
+    tensors drawn on ``device``; "fp8":
+    ``qwen3_fp8_hf_tensors``, kept in FP8)."""
+    from zhilight_tpu_torch.models import llama as L
+
+    kind = TP_PATHS[label][4]
+    if kind in ("seed", "int8"):
+        params = L.init_params(cfg, seed=args.seed, device=device, shard=shard)
+        if kind == "int8":
+            from zhilight_tpu_torch.parallel.comm import TPGroup
+            from zhilight_tpu_torch.utils.quant_convert import quantize_int8_params
+
+            params = quantize_int8_params(params, tp=TPGroup() if shard else None)
+        return params
+    hf = tp_hf(label, args)
+    if kind == "gptq":
+        # the dense tensors (a 152064-row embedding and head) drawn on the card
+        return map_hf_params_by_layer(qwen_hf_tensors(hf, args.seed, {}, device=device), cfg,
+                                      "gptq", shard)[0]
+    with env_switch("ZT_FP8_KEEP", True):
+        return map_hf_params_by_layer(qwen3_fp8_hf_tensors(hf, args.seed), cfg, "fp8", shard)[0]
+
+
+def tp_kept_whole(ex, tp: int) -> int:
+    """The row-parallel linears a rank keeps whole (``shard_linear``: they
+    hold tp times the rank's input rows), whose input it all-gathers."""
+    from zhilight_tpu_torch.ops.linear import in_rows
+
+    cfg, n = ex.cfg, 0
+    for layer in ex.params["layers"].values():
+        for group, name, rows in (("attn", "o_proj", cfg.num_heads * cfg.dim_head),
+                                  ("mlp", "down_proj", cfg.dim_ff)):
+            p = layer[group].get(name)
+            if p is not None and not cfg.mla.enabled and in_rows(p) >= tp * rows:
+                n += 1
+    return n
+
+
+def tp_count_collectives(group) -> dict:
+    """Count, from now on, each collective ``group`` makes, by kind (an
+    all-reduce by its dtype, or MAX)."""
+    counts = {}
+    for op in ("all_reduce", "all_gather"):
+        real = getattr(group, op)
+
+        def counted(x, *a, _real=real, _op=op, **kw):
+            kind = "max" if "MAX" in str(kw.get("op")) else str(x.dtype).replace("torch.", "")
+            counts[f"{_op} {kind}"] = counts.get(f"{_op} {kind}", 0) + 1
+            return _real(x, *a, **kw)
+
+        setattr(group, op, counted)
+    return counts
+
+
+def tp_expected_collectives(label: str, cfg, kept_whole: int):
+    """A dense path's collectives a forward at TP=2: the embedding's
+    all-reduce (model dtype), each row-parallel linear's (an fp32 all-reduce;
+    W8A8: the per-token absmax's MAX and the int32 sum; one kept whole: an
+    all-gather of its input), the logits' fp32 all-gather. None for an MLA or
+    MoE path (tp_collective_count gives a decode step's)."""
+    if cfg.moe.enabled or cfg.mla.enabled:
+        return None
+    reduced = 2 * cfg.num_layers - kept_whole
+    want = {"all_reduce bfloat16": 1, "all_gather float32": 1, "all_gather bfloat16": kept_whole}
+    if TP_PATHS[label][4] == "int8":
+        want.update({"all_reduce max": reduced, "all_reduce int32": reduced})
+    else:
+        want["all_reduce float32"] = reduced
+    return {k: v for k, v in want.items() if v}
+
+
+def tp_forwards(prompts, tokens) -> int:
+    """The forwards tp_forced runs: each prompt's 512-token chunks, then the
+    batched decode steps."""
+    return sum(-(-len(p) // 512) for p in prompts) + len(tokens[0]) - 1
 
 
 def tp_prompts(seed: int, vocab: int) -> dict:
@@ -4983,23 +5262,15 @@ def tp_routing():
 
 
 def tp_rank(args) -> int:
-    """One rank of a tp path's TP=2 run (``--tp-rank``, the path
-    ``--tp-model``): joins the other over an explicit gloo group on the one
-    GPU (``--tp-backend nccl``: NCCL, a GPU a rank), draws the full tensors
-    from the seed one layer at a time and keeps its shard
-    (``init_params(shard=...)``: its heads, its half of the experts), serves
-    through LLM: rank 0 drives the requests (tp_drive), rank 1 runs the
-    lockstep scheduler until rank 0's shutdown sentinel. Then both run the
-    teacher-forced logits along the TP=1 run's tokens, and write what they
-    saw to ``--tp-dir``: among it a digest of every routing's expert ids."""
+    """One rank of the tp phase's TP=2 run (``--tp-rank``): joins the other
+    over an explicit gloo group on the one GPU (``--tp-backend nccl``: NCCL,
+    a GPU a rank), then runs each path of ``--tp-models`` in turn
+    (tp_rank_path), one process for them all."""
     import datetime
-    import hashlib
 
     import torch.distributed as dist
 
-    from zhilight_tpu_torch.engine import DynamicBatchGenerator, SearchTask
-    from zhilight_tpu_torch.llm import LLM
-    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.engine import SearchTask
 
     rank, world, nccl = args.tp_rank, 2, args.tp_backend == "nccl"
     device = torch.device("cuda", rank if nccl else 0)
@@ -5016,9 +5287,43 @@ def tp_rank(args) -> int:
         finish(self)
 
     SearchTask.finish = recorded
-    cfg = tp_config(args.tp_model)
+    for label in args.tp_models.split(","):
+        finished.clear()
+        tp_rank_path(args, label, rank, world, device, finished)
+        print(f"tp rank {rank}: {label} done", flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"tp rank {rank}: done", flush=True)
+    return 0
+
+
+def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict) -> None:
+    """One tp path on one rank: draws the full tensors from the seed one
+    layer at a time and keeps its shard (``tp_weights``: its heads, its half
+    of the experts, its int4 / FP8 / W8A8 columns or rows), serves through
+    LLM: rank 0 drives the requests (tp_drive), rank 1 runs the lockstep
+    scheduler until rank 0's shutdown sentinel (a check path serves none).
+    Then both run the teacher-forced logits along the TP=1 run's tokens,
+    counting their collectives (the W8A8 path: then holds int8_linear's
+    row-parallel product to the unsharded one, tp_w8a8_exact), write what
+    they saw to the path's directory under ``--tp-dir`` (among it a digest
+    of every routing's expert ids) and free the path."""
+    import gc
+    import hashlib
+
+    import torch.distributed as dist
+
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import moe as M
+
+    path_dir = os.path.join(args.tp_dir, label)
+    t_path = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = tp_config(label, args)
+    drive = TP_PATHS[label][5]
     t0 = time.monotonic()
-    params = L.init_params(cfg, seed=args.seed, device=device, shard=(rank, world))
+    params = tp_weights(label, args, cfg, device, shard=(rank, world))
     llm = LLM(model_config=cfg, params=params, engine_config=tp_engine_config(world),
               device=device)
     del params
@@ -5026,6 +5331,7 @@ def tp_rank(args) -> int:
     setup_s = time.monotonic() - t0
     warm_s = ex.warmup()
     counters = _tp_counters()
+    select = M.select_experts
     routed = tp_routing()
     pool = ex.cache.latent if ex.cache.is_latent else ex.cache.k
     out = dict(rank=rank, setup_s=setup_s, warmup_s=warm_s,
@@ -5036,7 +5342,9 @@ def tp_rank(args) -> int:
                                for v in proj.values()}),
                backend=dist.get_backend())
     prompts = tp_prompts(args.seed, cfg.vocab_size)
-    if rank == 0:
+    if not drive:
+        pass
+    elif rank == 0:
         out.update(tp_drive(llm, prompts))
     else:
         gen = DynamicBatchGenerator(llm).start()
@@ -5045,32 +5353,107 @@ def tp_rank(args) -> int:
             raise AssertionError(f"rank {rank}: the lockstep scheduler did not stop cleanly: "
                                  f"{gen.scheduler.error!r}")
         out["sessions_left"] = len(gen.scheduler.sessions)
+        del gen
     torch.cuda.synchronize()
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
-    out["finished"] = finished
-    forced = json.load(open(os.path.join(args.tp_dir, "forced.json")))
+    out["finished"] = dict(finished)
+    forced = json.load(open(os.path.join(path_dir, "forced.json")))
     share = None
     if cfg.moe.enabled:
-        share = dict(routes=torch.load(os.path.join(args.tp_dir, "routes.pt")))
+        share = dict(routes=torch.load(os.path.join(path_dir, "routes.pt")))
+    collectives = tp_count_collectives(llm.tp_group)
     t0 = time.monotonic()
     logits = tp_forced(ex, forced["prompts"], forced["tokens"], share=share)
     out["forced_s"] = time.monotonic() - t0
+    if not drive:  # the path's launches are the teacher-forced run's
+        torch.cuda.synchronize()
+        out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    n = tp_forwards(forced["prompts"], forced["tokens"])
+    out["collectives"] = {k: v / n for k, v in collectives.items()}
+    out["kept_whole"] = tp_kept_whole(ex, world)
     if share is not None:
         out["shared_routing"] = {k: share[k] for k in ("routed", "parted", "ratio")}
     out["logits_sha"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
     out["routings"] = len(routed)
     if routed:
         out["experts_sha"] = hashlib.sha256(torch.cat(routed).cpu().numpy().tobytes()).hexdigest()
+    M.select_experts = select
     if rank == 0:
-        np.save(os.path.join(args.tp_dir, "tp2_logits.npy"), logits.numpy())
+        np.save(os.path.join(path_dir, "tp2_logits.npy"), logits.numpy())
+    if TP_PATHS[label][4] == "int8":
+        out["w8a8_exact"] = tp_w8a8_exact(llm.tp_group, device, args.seed)
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     out["collectives_ms"] = tp_collectives(llm.tp_group, cfg, device)
-    with open(os.path.join(args.tp_dir, f"rank{rank}.json"), "w") as f:
+    release_pool(llm)
+    ex.params, llm, ex = None, None, None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["left_gib"] = torch.cuda.memory_allocated(device) / 2**30
+    out["path_s"] = time.monotonic() - t_path
+    with open(os.path.join(path_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-    dist.barrier()
-    dist.destroy_process_group()
-    print(f"tp rank {rank}: done", flush=True)
-    return 0
+
+
+# the W8A8 card check: Qwen2.5-14B's row-parallel linears at TP=2 (o_proj
+# 5120 -> 2560 rows a rank, down_proj 13824 -> 6912; both 5120 columns), at a
+# decode step's 4 rows and a 512-token chunk
+TP_W8A8_SHAPES = ((5120, 5120), (13824, 5120))
+TP_W8A8_ROWS = (4, 512)
+
+
+def tp_w8a8_exact(group, device, seed: int) -> dict:
+    """``int8_linear`` at a row-parallel rank's shapes on the card, every
+    rank given the same inputs (bf16 x [M, K] with an outlier in the last
+    rank's columns; a bf16 weight quantized whole by AUTO_INT8; with and
+    without a smooth vector): each rank's product of its shard (shard_linear)
+    and its K / tp columns over ``group`` (the per-token absmax MAX-reduced,
+    the int32 partials summed) against the unsharded product, bit for bit.
+    Two planted faults show that the check sees what it guards: a rank-local
+    absmax (no MAX) and a missing int32 sum must each give another result;
+    their largest errors relative to the row's largest output are returned
+    beside the cases' count."""
+    from zhilight_tpu_torch.ops.quant import int8_linear
+    from zhilight_tpu_torch.parallel.sharding import shard_linear
+    from zhilight_tpu_torch.utils.quant_convert import auto_int8_from_fp
+
+    class Fault:
+        """``group`` with one collective left out: the MAX ("max") or the
+        int32 sum ("int32")."""
+
+        def __init__(self, skip):
+            self.skip = skip
+
+        def all_reduce(self, x, op=None):
+            maxed = "MAX" in str(op)
+            if maxed if self.skip == "max" else (not maxed and x.dtype == torch.int32):
+                return x
+            return group.all_reduce(x, op=op)
+
+    r, tp = group.rank, group.world
+    gen = torch.Generator(device).manual_seed(seed + 22)
+    out = dict(cases=0, equal=0, fault_max=[], fault_int32=[])
+    for K, N in TP_W8A8_SHAPES:
+        w = (torch.randn(K, N, generator=gen, device=device) / K ** 0.5).to(torch.bfloat16)
+        smooth = torch.rand(K, generator=gen, device=device) + 0.5
+        for smoothed in (False, True):
+            p = auto_int8_from_fp(w)
+            if smoothed:
+                p["smooth"] = smooth
+            shard = shard_linear("layers.0.mlp.down_proj", p, r, tp)
+            k = K // tp
+            for M in TP_W8A8_ROWS:
+                x = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
+                x[M // 2, K - 1 - k // 3] = 40.0  # the last rank's columns
+                want = int8_linear(p, x)
+                xs = x[:, r * k:(r + 1) * k]
+                got = int8_linear(shard, xs, group)
+                out["cases"] += 1
+                out["equal"] += int(torch.equal(got, want))
+                scale = want.float().abs().amax(-1, keepdim=True)
+                for fault in ("max", "int32"):
+                    bad = int8_linear(shard, xs, Fault(fault)).float()
+                    out[f"fault_{fault}"].append(((bad - want.float()).abs() / scale).max().item())
+    return out
 
 
 def tp_collectives(group, cfg, device) -> dict:
@@ -5100,7 +5483,7 @@ def tp_collectives(group, cfg, device) -> dict:
 
 
 def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, got_tokens,
-               floor: torch.Tensor, tol: float) -> str:
+               floor: torch.Tensor, tol: float, spread: bool = False) -> str:
     """Teacher-forced logits [B, N, V] of the TP=2 run against the TP=1 run's
     along the TP=1 tokens. The TP=2 greedy tokens equal TP=1's; where they
     part, the first parting is a near tie by the repo's teacher-forced rule
@@ -5111,12 +5494,14 @@ def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, g
     full-depth model to) and keeps the TP=1 argmax wherever the TP=1 top-2 gap
     exceeds twice the largest difference. ``floor``: the same rows at TP=1
     one prompt at a time, against the batch: the rounding noise between two
-    computations of one model, printed beside."""
+    computations of one model, printed beside; with ``spread`` the rows are
+    held to the larger of LOGIT_TOL and 1.25 times that noise."""
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
         raise AssertionError(f"{label}: non-finite teacher-forced logits")
     diff = (got - want).abs().max().item()
     rel = (got - want).abs().amax(-1) / want.abs().amax(-1)  # [B, N]
     noise = ((floor - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+    bound = max(LOGIT_TOL, 1.25 * noise) if spread else LOGIT_TOL
     top2 = want.topk(2, dim=-1).values
     gap = top2[..., 0] - top2[..., 1]
     parted = got.argmax(-1) != want.argmax(-1)
@@ -5134,183 +5519,259 @@ def tp_compare(label: str, want: torch.Tensor, got: torch.Tensor, want_tokens, g
             raise AssertionError(f"{label}: prompt {b}: the greedy tokens part at {k}, off a near "
                                  f"tie: {notes[-1]}, largest |diff| {diff}")
     msg = (f"teacher-forced {want.shape[1]} positions of {want.shape[0]} prompts: logits max rel "
-           f"err {rel.max().item():.3e} (tolerance {LOGIT_TOL}; TP=1 one prompt at a time against "
+           f"err {rel.max().item():.3e} (tolerance {bound:.4g}; TP=1 one prompt at a time against "
            f"its batch: {noise:.3e}), largest |diff| {diff:.3e}; argmax equal on "
            f"{int((~parted).sum())}/{parted.numel()}, largest top-2 gap where they part "
            f"{worst:.3e} (allowed: up to twice the largest |diff|); "
            f"{'; '.join(notes) or 'the greedy tokens are equal'}")
-    if rel.max().item() > LOGIT_TOL or worst > 2 * diff:
+    if rel.max().item() > bound or worst > 2 * diff:
         raise AssertionError(f"{label}: {msg}")
     return msg
 
 
 def phase_tp(rec: dict, args, smi: str) -> None:
-    """The TP_PATHS, one after the other: Qwen2.5-14B in bf16 at a cut depth
-    (TP_QWEN_LAYERS of 48, full width) and DeepSeek-V2-Lite in bf16 at full
+    """The TP_PATHS: Qwen2.5-14B in bf16 at a cut depth (TP_QWEN_LAYERS of
+    48, full width), Qwen2.5-14B GPTQ-Int4 (at ``--tp-gptq-layers``), the
+    FP8 and AUTO_INT8 2-layer checks and DeepSeek-V2-Lite in bf16 at full
     width and depth (MLA + MoE), random weights drawn on the card from the
-    seed, each served at TP=1 in this process and then at TP=2 by two rank
-    processes on the one GPU over an explicit gloo group (NCCL refuses two
-    ranks on one device; ``--tp-backend nccl`` runs a GPU a rank)."""
+    seed. Each is served (or, the checks, teacher-forced) at TP=1 in this
+    process, one after the other (tp_one); then two rank processes on the one
+    GPU over an explicit gloo group (NCCL refuses two ranks on one device;
+    ``--tp-backend nccl`` runs a GPU a rank) run every path at TP=2 in the
+    same order, one launch for them all (tp_rank); then each path's TP=2 run
+    is held to its TP=1 run (tp_check)."""
+    import shutil
+    import tempfile
+
     nccl = args.tp_backend == "nccl"
     if nccl and torch.cuda.device_count() < 2:
         raise RuntimeError(f"--tp-backend nccl runs a GPU a rank: 2 needed, "
                            f"{torch.cuda.device_count()} visible")
-    for label in TP_PATHS:
-        tp_path(rec, args, smi, label)
-
-
-def tp_path(rec: dict, args, smi: str, label: str) -> None:
-    """One tp path: TP=1 in this process, then TP=2 by two rank processes,
-    each drawing the same full tensors and keeping its shard (its heads; a
-    MoE model's ranks half the experts each, beside a whole latent pool). The
-    same requests on both (tp_drive), launch counters zeroed just before and
-    read just after, every kernel of the path launched a multiple of the
-    layer count on each rank; the TP=2 greedy tokens against TP=1's (where
-    they part, the teacher-forced rule, tp_compare); both ranks finish every
-    request with the same tokens, the sampled and the cancelled ones
-    included, route every token to the same experts and score the same
-    teacher-forced logits to the bit; rank 1 stops on rank 0's sentinel.
-    Decode tok/s and TTFT of both are printed, the TP=2 ones labelled as a
-    gloo run."""
-    import gc
-    import shutil
-    import tempfile
-
-    from zhilight_tpu_torch.llm import LLM
-    from zhilight_tpu_torch.models import llama as L
-
-    nccl = args.tp_backend == "nccl"
-    cfg = tp_config(label)
-    prompts = tp_prompts(args.seed, cfg.vocab_size)
     tmp = tempfile.mkdtemp(prefix="zt-tp-")  # the ranks' results; removed at the end
     try:
-        # -- TP=1 in this process ---------------------------------------------
-        t0 = time.monotonic()
-        llm = LLM(model_config=cfg, params=L.init_params(cfg, seed=args.seed, device="cuda"),
-                  engine_config=tp_engine_config(1), device="cuda")
-        ex = llm.executor
-        setup_s = time.monotonic() - t0
-        warm_s = ex.warmup()
-        n_params = sum(t.numel() for t in _leaves(ex.params))
-        print(f"tp: {label}: {cfg.num_layers} layers, {n_params / 1e9:.2f} B parameters, "
-              f"{sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30:.2f} GiB of "
-              f"weights at TP=1, set-up {setup_s:.1f} s, warmup {warm_s:.1f} s", flush=True)
-        counters = _tp_counters()
+        ones = {}
+        for label in TP_PATHS:
+            os.makedirs(os.path.join(tmp, label))
+            ones[label] = tp_one(rec, args, label, os.path.join(tmp, label))
+        tp_launch(args, list(TP_PATHS), tmp)
+        for label in TP_PATHS:
+            tp_check(rec, args, smi, label, ones[label], os.path.join(tmp, label))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
+    """A tp path at TP=1 in this process: the requests (tp_drive; a check
+    path: none), launch counters zeroed just before and read just after,
+    every kernel of the path launched a multiple of the layer count; then
+    the teacher-forced logits along its greedy tokens (a check path: tokens
+    from the seed), their routing recorded, and the same one prompt at a
+    time (the noise between two computations of one model). Writes what the
+    ranks need to ``path_dir``; frees the weights."""
+    import gc
+
+    from zhilight_tpu_torch.llm import LLM
+
+    cfg = tp_config(label, args)
+    drive = TP_PATHS[label][5]
+    prompts = tp_prompts(args.seed, cfg.vocab_size)
+    t0 = time.monotonic()
+    llm = LLM(model_config=cfg, params=tp_weights(label, args, cfg, "cuda"),
+              engine_config=tp_engine_config(1), device="cuda")
+    ex = llm.executor
+    setup_s = time.monotonic() - t0
+    warm_s = ex.warmup()
+    n_params = sum(t.numel() for t in _leaves(ex.params))
+    print(f"tp: {label}: {cfg.num_layers} layers, {n_params / 1e9:.2f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30:.2f} GiB of "
+          f"weights at TP=1, set-up {setup_s:.1f} s, warmup {warm_s:.1f} s", flush=True)
+    counters = _tp_counters()
+    one = None
+    if drive:
         one = tp_drive(llm, prompts)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
         print(f"tp: {label} TP=1: requests {one['drive_s']:.1f} s; launches {launches}",
               flush=True)
-        # teacher-forced along the TP=1 tokens: the batch's two prompts and the
-        # 1500-token request's
+        # teacher-forced along the TP=1 tokens: the batch's two prompts and
+        # the 1500-token request's
         forced = dict(prompts=prompts["greedy"] + [prompts["greedy"][1]],
                       tokens=one["greedy"] + [one["long"]])
-        with open(os.path.join(tmp, "forced.json"), "w") as f:
-            json.dump(forced, f)
-        routes = []
-        want = tp_forced(ex, forced["prompts"], forced["tokens"], routes=routes)
-        if routes:
-            torch.save(routes, os.path.join(tmp, "routes.pt"))
-        del routes
-        floor = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
-                                                                     forced["tokens"])])
-        _tp_launches(rec, f"{label}-TP1", launches, cfg.num_layers)
-        release_pool(llm)
-        ex.params, llm, ex = None, None, None
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"tp: {label}: TP=1 weights freed, "
-              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    else:
+        # teacher-forced alone, along tokens from the seed
+        fed = np.random.default_rng(args.seed + 21).integers(3, cfg.vocab_size, (2, TP_NEW))
+        forced = dict(prompts=prompts["greedy"], tokens=fed.tolist())
+    with open(os.path.join(path_dir, "forced.json"), "w") as f:
+        json.dump(forced, f)
+    routes = []
+    want = tp_forced(ex, forced["prompts"], forced["tokens"], routes=routes)
+    if not drive:
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"tp: {label} TP=1: teacher-forced launches {launches}", flush=True)
+    if routes:
+        torch.save(routes, os.path.join(path_dir, "routes.pt"))
+    del routes
+    floor = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
+                                                                 forced["tokens"])])
+    _tp_launches(rec, f"{label}-TP1", launches, cfg.num_layers)
+    release_pool(llm)
+    ex.params, llm, ex = None, None, None
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tp: {label}: TP=1 weights freed, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    return dict(one=one, forced=forced, want=want, floor=floor)
 
-        # -- TP=2: two rank processes -----------------------------------------
-        port = _tp_free_port()
-        t0 = time.monotonic()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), "--tp-port",
-             str(port), "--tp-dir", tmp, "--tp-model", label, "--seed", str(args.seed),
-             "--tp-backend", args.tp_backend],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-        logs = []
-        try:
-            for p in procs:
-                left = max(TP_TIMEOUT - (time.monotonic() - t0), 1)
-                logs.append(p.communicate(timeout=left)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise AssertionError(f"tp: {label}: rank {r} exited {p.returncode}:\n"
-                                     f"{log[-6000:]}")
-        wall = time.monotonic() - t0
-        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(2)]
-        r0, r1 = ranks
-        for r in ranks:
-            drive = f"requests {r['drive_s']:.1f} s, " if "drive_s" in r else ""
-            experts = f"{r['experts'][0]} experts a stack, " if r["experts"] else ""
-            print(f"tp: {label} TP=2 rank {r['rank']} ({r['backend']}): {r['heads'][0]} / "
-                  f"{r['heads'][1]} heads, {experts}pool {r['pool']}, {r['weights_gib']:.2f} GiB "
-                  f"of weights, set-up {r['setup_s']:.1f} s, warmup {r['warmup_s']:.1f} s, "
-                  f"{drive}teacher-forced {r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB; "
-                  f"launches {r['launches']}", flush=True)
-            _tp_launches(rec, f"{label}-TP2-rank{r['rank']}", r["launches"], cfg.num_layers)
-        n_reduce = tp_collective_count(cfg)
-        per_step = (n_reduce * r0["collectives_ms"]["all_reduce fp32 [4, d]"]
-                    + r0["collectives_ms"]["all_gather fp32 [4, V / tp]"])
-        print(f"timing: {label} TP=2 ({r0['backend']}) one collective, host included, rank 0: "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["collectives_ms"].items())
-              + f"; {n_reduce} all-reduces and one all-gather a decode step: "
-                f"{per_step:.1f} ms; {smi}", flush=True)
-        if r0["heads"] != [cfg.num_heads // 2, cfg.num_kv_heads // 2]:
-            raise AssertionError(f"tp: {label}: rank heads {r0['heads']}")
-        if cfg.moe.enabled and not r0["experts"] == r1["experts"] == [cfg.moe.num_experts // 2]:
-            raise AssertionError(f"tp: {label}: expert stacks of {r0['experts']} / "
-                                 f"{r1['experts']} experts, not {cfg.moe.num_experts // 2}")
-        if cfg.mla.enabled and r0["pool"][-1] != cfg.mla.latent_dim:
-            raise AssertionError(f"tp: {label}: the latent pool {r0['pool']} is not whole")
-        if r0["finished"] != r1["finished"] or not r0["finished"]:
-            raise AssertionError(f"tp: {label}: the ranks finished the requests with other tokens")
-        if r0["logits_sha"] != r1["logits_sha"]:
-            raise AssertionError(f"tp: {label}: the ranks' teacher-forced logits differ")
-        if cfg.moe.enabled and (r0["routings"] == 0 or r0.get("experts_sha")
-                                != r1.get("experts_sha") or r0["routings"] != r1["routings"]):
-            raise AssertionError(f"tp: {label}: the ranks routed other experts "
-                                 f"({r0['routings']} / {r1['routings']} routings)")
-        if r1.get("sessions_left"):
-            raise AssertionError(f"tp: {label}: rank 1 kept a session")
-        if not 2 <= len(r0["cancelled"]) < 4 * TP_NEW:
-            raise AssertionError(f"tp: {label}: the cancelled request returned "
-                                 f"{len(r0['cancelled'])} tokens")
-        routed = (f", routed {r0['routings']} times to the same experts" if cfg.moe.enabled
-                  else "")
-        print(f"tp: {label}: both ranks finished {len(r0['finished'])} requests with the same "
-              f"tokens (the sampled one: {r0['sampled'][:6]}..., the cancelled one after "
-              f"{len(r0['cancelled'])} tokens){routed} and the same teacher-forced logits, bit "
-              f"for bit; rank 1 stopped on rank 0's sentinel; TP=2 run {wall:.1f} s", flush=True)
-        got = torch.from_numpy(np.load(os.path.join(tmp, "tp2_logits.npy")))
-        same = sum(a == b for w, g in zip(one["greedy"], r0["greedy"]) for a, b in zip(w, g))
-        print(f"tp: {label}: TP=2 greedy tokens equal TP=1's on "
-              f"{same}/{TP_NEW * len(TP_LENS)} (batch of {len(TP_LENS)}); the 1500-token "
-              f"request's on "
-              f"{sum(a == b for a, b in zip(one['long'], r0['long']))}/{TP_NEW}", flush=True)
-        msg = tp_compare(label, want, got, one["greedy"] + [one["long"]],
-                         r0["greedy"] + [r0["long"]], floor, TP_PATHS[label][3])
-        if cfg.moe.enabled:
-            sr = r0["shared_routing"]
-            msg += (f"; MoE routing shared with TP=1's: parted on {sr['parted']}/{sr['routed']} "
-                    f"token-layers, each a near tie (gap up to {sr['ratio']:.3f} x the "
-                    f"router-logit difference)")
-        print(f"tp: {label}: TP=2 against TP=1, {msg}", flush=True)
-        how = ("NCCL, a GPU a rank" if nccl else "gloo on one GPU: every collective goes "
-               "through host memory, not an NCCL TP figure")
-        for what, r in (("TP=1 (one process)", one), (f"TP=2 ({how})", r0)):
-            print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
-                  f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
-                  f"tokens; {smi}", flush=True)
+
+def tp_launch(args, labels: list, tmp: str) -> None:
+    """The TP=2 run of every path in ``labels``: two rank processes
+    (tp_rank), each path's results under ``tmp``; raises with a rank's log
+    where one fails or outlasts TP_TIMEOUT a path."""
+    port = _tp_free_port()
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), "--tp-port",
+         str(port), "--tp-dir", tmp, "--tp-models", ",".join(labels), "--seed", str(args.seed),
+         "--tp-backend", args.tp_backend, "--tp-gptq-layers", str(args.tp_gptq_layers)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            left = max(TP_TIMEOUT * len(labels) - (time.monotonic() - t0), 1)
+            logs.append(p.communicate(timeout=left)[0])
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"tp: rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    print(f"tp: the TP=2 run of {len(labels)} paths, one launch of two rank processes: "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+def tp_check(rec: dict, args, smi: str, label: str, tp1: dict, path_dir: str) -> None:
+    """A tp path's TP=2 run against its TP=1 run (``tp1``, tp_one's): both
+    ranks' launches (every kernel of the path a multiple of the layer count),
+    their collectives a forward (the expected ones), heads, expert stacks and
+    latent pool; both finish every request with the same tokens, the sampled
+    and the cancelled ones included, route every token to the same experts
+    and score the same teacher-forced logits to the bit; rank 1 stops on
+    rank 0's sentinel; the TP=2 greedy tokens against TP=1's (where they
+    part, the teacher-forced rule, tp_compare); the W8A8 path's row-parallel
+    product bit-equal to the unsharded one on both ranks, each planted fault
+    caught. Decode tok/s and TTFT of both are printed, the TP=2 ones
+    labelled as a gloo run."""
+    nccl = args.tp_backend == "nccl"
+    cfg = tp_config(label, args)
+    drive = TP_PATHS[label][5]
+    one, forced, want, floor = tp1["one"], tp1["forced"], tp1["want"], tp1["floor"]
+    ranks = [json.load(open(os.path.join(path_dir, f"rank{r}.json"))) for r in range(2)]
+    r0, r1 = ranks
+    wall = r0["path_s"]
+    for r in ranks:
+        took = f"requests {r['drive_s']:.1f} s, " if "drive_s" in r else ""
+        experts = f"{r['experts'][0]} experts a stack, " if r["experts"] else ""
+        print(f"tp: {label} TP=2 rank {r['rank']} ({r['backend']}): {r['heads'][0]} / "
+              f"{r['heads'][1]} heads, {experts}pool {r['pool']}, {r['weights_gib']:.2f} GiB "
+              f"of weights, set-up {r['setup_s']:.1f} s, warmup {r['warmup_s']:.1f} s, "
+              f"{took}teacher-forced {r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB, "
+              f"{r['left_gib']:.1f} GiB left after the path; launches {r['launches']}",
+              flush=True)
+        _tp_launches(rec, f"{label}-TP2-rank{r['rank']}", r["launches"], cfg.num_layers)
+    n_reduce = tp_collective_count(cfg)
+    per_step = (n_reduce * r0["collectives_ms"]["all_reduce fp32 [4, d]"]
+                + r0["collectives_ms"]["all_gather fp32 [4, V / tp]"])
+    print(f"timing: {label} TP=2 ({r0['backend']}) one collective, host included, rank 0: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["collectives_ms"].items())
+          + f"; {n_reduce} all-reduces and one all-gather a decode step: "
+            f"{per_step:.1f} ms; {smi}", flush=True)
+    print(f"tp: {label} TP=2: a forward's collectives, rank 0, counted over the "
+          f"teacher-forced run: {r0['collectives']}; row-parallel linears kept whole "
+          f"(their input all-gathered): {r0['kept_whole']} of {2 * cfg.num_layers}",
+          flush=True)
+    if r0["collectives"] != r1["collectives"] or r0["kept_whole"] != r1["kept_whole"]:
+        raise AssertionError(f"tp: {label}: the ranks' collectives differ: "
+                             f"{r0['collectives']} / {r1['collectives']}")
+    want_coll = tp_expected_collectives(label, cfg, r0["kept_whole"])
+    if want_coll is not None and r0["collectives"] != want_coll:
+        raise AssertionError(f"tp: {label}: a forward's collectives {r0['collectives']}, "
+                             f"not {want_coll}")
+    if r0["heads"] != [cfg.num_heads // 2, cfg.num_kv_heads // 2]:
+        raise AssertionError(f"tp: {label}: rank heads {r0['heads']}")
+    if cfg.moe.enabled and not r0["experts"] == r1["experts"] == [cfg.moe.num_experts // 2]:
+        raise AssertionError(f"tp: {label}: expert stacks of {r0['experts']} / "
+                             f"{r1['experts']} experts, not {cfg.moe.num_experts // 2}")
+    if cfg.mla.enabled and r0["pool"][-1] != cfg.mla.latent_dim:
+        raise AssertionError(f"tp: {label}: the latent pool {r0['pool']} is not whole")
+    if drive and (r0["finished"] != r1["finished"] or not r0["finished"]):
+        raise AssertionError(f"tp: {label}: the ranks finished the requests with other tokens")
+    if r0["logits_sha"] != r1["logits_sha"]:
+        raise AssertionError(f"tp: {label}: the ranks' teacher-forced logits differ")
+    if cfg.moe.enabled and (r0["routings"] == 0 or r0.get("experts_sha")
+                            != r1.get("experts_sha") or r0["routings"] != r1["routings"]):
+        raise AssertionError(f"tp: {label}: the ranks routed other experts "
+                             f"({r0['routings']} / {r1['routings']} routings)")
+    if r1.get("sessions_left"):
+        raise AssertionError(f"tp: {label}: rank 1 kept a session")
+    if "w8a8_exact" in r0:
+        for r in ranks:
+            ex8 = r["w8a8_exact"]
+            if ex8["equal"] != ex8["cases"] or ex8["cases"] != 2 * len(TP_W8A8_SHAPES) * len(
+                    TP_W8A8_ROWS):
+                raise AssertionError(f"tp: {label}: rank {r['rank']}: int8_linear's row-parallel "
+                                     f"product equals the unsharded one in {ex8['equal']} of "
+                                     f"{ex8['cases']} cases")
+            if min(ex8["fault_max"] + ex8["fault_int32"]) == 0:
+                raise AssertionError(f"tp: {label}: rank {r['rank']}: a planted fault gave the "
+                                     f"unsharded product: {ex8}")
+        ex8 = r0["w8a8_exact"]
+        print(f"tp: {label}: int8_linear row-parallel at TP=2 rank shapes (K "
+              f"{[k // 2 for k, _ in TP_W8A8_SHAPES]} of {[k for k, _ in TP_W8A8_SHAPES]}, N "
+              f"5120, M {list(TP_W8A8_ROWS)}, with and without smooth): bit-equal to the "
+              f"unsharded product in {ex8['equal']}/{ex8['cases']} cases on both ranks; planted "
+              f"faults, each caught in every case: a rank-local absmax (no MAX) max rel err "
+              f"{min(ex8['fault_max']):.3e} to {max(ex8['fault_max']):.3e}, no int32 sum "
+              f"{min(ex8['fault_int32']):.3e} to {max(ex8['fault_int32']):.3e}; {smi}",
+              flush=True)
+    got = torch.from_numpy(np.load(os.path.join(path_dir, "tp2_logits.npy")))
+    if not drive:
+        msg = tp_compare(label, want, got, forced["tokens"], forced["tokens"], floor,
+                         TP_PATHS[label][3], spread=label in TP_SPREAD_BOUND)
+        print(f"tp: {label}: both ranks scored the same teacher-forced logits, bit for bit; "
+              f"TP=2 path {wall:.1f} s on rank 0; TP=2 against TP=1, {msg}", flush=True)
+        return
+    if not 2 <= len(r0["cancelled"]) < 4 * TP_NEW:
+        raise AssertionError(f"tp: {label}: the cancelled request returned "
+                             f"{len(r0['cancelled'])} tokens")
+    routed = (f", routed {r0['routings']} times to the same experts" if cfg.moe.enabled
+              else "")
+    print(f"tp: {label}: both ranks finished {len(r0['finished'])} requests with the same "
+          f"tokens (the sampled one: {r0['sampled'][:6]}..., the cancelled one after "
+          f"{len(r0['cancelled'])} tokens){routed} and the same teacher-forced logits, bit "
+          f"for bit; rank 1 stopped on rank 0's sentinel; TP=2 path {wall:.1f} s on rank 0",
+          flush=True)
+    same = sum(a == b for w, g in zip(one["greedy"], r0["greedy"]) for a, b in zip(w, g))
+    print(f"tp: {label}: TP=2 greedy tokens equal TP=1's on "
+          f"{same}/{TP_NEW * len(TP_LENS)} (batch of {len(TP_LENS)}); the 1500-token "
+          f"request's on "
+          f"{sum(a == b for a, b in zip(one['long'], r0['long']))}/{TP_NEW}", flush=True)
+    msg = tp_compare(label, want, got, one["greedy"] + [one["long"]],
+                     r0["greedy"] + [r0["long"]], floor, TP_PATHS[label][3])
+    if cfg.moe.enabled:
+        sr = r0["shared_routing"]
+        msg += (f"; MoE routing shared with TP=1's: parted on {sr['parted']}/{sr['routed']} "
+                f"token-layers, each a near tie (gap up to {sr['ratio']:.3f} x the "
+                f"router-logit difference)")
+    print(f"tp: {label}: TP=2 against TP=1, {msg}", flush=True)
+    how = ("NCCL, a GPU a rank" if nccl else "gloo on one GPU: every collective goes "
+           "through host memory, not an NCCL TP figure")
+    for what, r in (("TP=1 (one process)", one), (f"TP=2 ({how})", r0)):
+        print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
+              f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
+              f"tokens; {smi}", flush=True)
 
 
 def _tp_launches(rec: dict, label: str, launches: dict, layers: int) -> None:
@@ -6226,6 +6687,9 @@ def main() -> int:
                          "rope + row-write sequence and the per-layer window flush through "
                          "them beside this tree's prologues and layered flush in the kernels "
                          "phase")
+    ap.add_argument("--tp-gptq-layers", type=int, default=TP_GPTQ_LAYERS,
+                    help="the tp phase's Qwen2.5-14B GPTQ-Int4 path's depth (full width; 48 "
+                         "as it ships)")
     ap.add_argument("--tp-backend", default="gloo", choices=["gloo", "nccl"],
                     help="the tp phase's TP=2 group: gloo, both ranks on the one GPU (the "
                          "default), or nccl, a GPU a rank (raises with fewer than two)")
@@ -6233,7 +6697,7 @@ def main() -> int:
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--tp-model", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-models", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]

@@ -1243,6 +1243,113 @@ def test_fp8_block_matmul_matches_plain(cuda, dtype, M, K, N):
     assert torch.equal(got, F8.fp8_block_matmul(x, w, bs))
 
 
+# a TP=2 rank's row-parallel projections (K, N) and a column-parallel one:
+# Qwen2.5-14B's o_proj and down_proj rows and q_proj columns (row 4),
+# Qwen3-8B's (row 9)
+TP_RANK_W4 = [(2560, 5120), (6912, 5120), (5120, 2560)]
+TP_RANK_FP8 = [(2048, 4096), (6144, 4096), (4096, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 37, 512])
+@pytest.mark.parametrize("K,N", TP_RANK_W4)
+def test_w4a16_matmul_fp32_output_at_a_tp_rank(cuda, M, K, N):
+    """The fp32-output mode (a row-parallel rank's partial product) at a
+    TP=2 rank's shapes: fp32, within 1e-2 of the largest output of the plain
+    version's fp32 product, and the same accumulators as the bf16 mode, which
+    is that output rounded once."""
+    rng = np.random.default_rng(M + K + N)
+    w, scales, zeros = _int4(rng, K, N, 128, cuda, True)
+    x = _bf16(rng, cuda, M, K)
+    got = Q.w4a16_matmul(x, w, scales, zeros, out_dtype=torch.float32)
+    want = Q.w4a16_matmul_plain(x, w, scales, zeros, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (M, N) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(got.to(torch.bfloat16), Q.w4a16_matmul(x, w, scales, zeros))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,cfg,splits", [(4, 0, 2), (4, 0, 3), (4, 0, 7), (4, 0, 20),
+                                          (37, 1, 1), (37, 1, 7), (37, 2, 20), (130, 1, 40),
+                                          (130, 2, 6), (130, 2, 8)])
+def test_w4a16_matmul_fp32_output_split_k_edges(cuda, M, cfg, splits):
+    """The fp32-output mode at Qwen2.5-14B's o_proj rows on a TP=2 rank (K
+    2560, a group every 128 rows): the decode kernel at 2 to 20 splits of its
+    20 stages, the prefill kernels at 1 to 40 of their 40, each held to the
+    plain fp32 product, and its bf16 rounding equal to the bf16 mode's at the
+    same plan."""
+    rng = np.random.default_rng(splits + M)
+    K, N = 2560, 5120
+    w, scales, zeros = _int4(rng, K, N, 128, cuda, True)
+    x = _bf16(rng, cuda, M, K)
+    out = torch.empty(M, N, dtype=torch.float32, device=cuda)
+    Q._run(x, w, scales, zeros, out, True, (cfg, splits))
+    want = Q.w4a16_matmul_plain(x, w, scales, zeros, out_dtype=torch.float32)
+    assert (out - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    half = torch.empty(M, N, dtype=torch.bfloat16, device=cuda)
+    Q._run(x, w, scales, zeros, half, True, (cfg, splits))
+    assert torch.equal(out.to(torch.bfloat16), half)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 512])
+@pytest.mark.parametrize("K,N", TP_RANK_FP8)
+def test_fp8_block_matmul_fp32_output_at_a_tp_rank(cuda, M, K, N):
+    """Row 9's fp32-output mode, in the split-K decode kernel (M <= 16) and
+    the wgmma kernel, at a TP=2 rank's shapes: within 1e-2 of the largest
+    output of the plain fp32 sum, and the same sums as the bf16 mode."""
+    rng = np.random.default_rng(M + K + N)
+    w, bs = _fp8_weights(rng, cuda, K, N)
+    x = _bf16(rng, cuda, M, K)
+    got = F8.fp8_block_matmul(x, w, bs, out_dtype=torch.float32)
+    want = F8.fp8_block_matmul_plain(x, w, bs, out_dtype=torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (M, N) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(got.to(torch.bfloat16), F8.fp8_block_matmul(x, w, bs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,cfg,splits", [(4, 0, 2), (4, 0, 3), (4, 0, 6), (4, 0, 16),
+                                          (37, 1, 1), (37, 1, 4), (37, 1, 16), (300, 1, 3)])
+def test_fp8_block_matmul_fp32_output_split_k_edges(cuda, M, cfg, splits):
+    """Row 9's fp32-output mode at Qwen3-8B's o_proj rows on a TP=2 rank (K
+    2048, 16 K blocks) at split counts the plan may not pick (set in its
+    plan cache), each held to the plain fp32 sum."""
+    rng = np.random.default_rng(splits + M)
+    K, N = 2048, 4096
+    w, bs = _fp8_weights(rng, cuda, K, N)
+    x = _bf16(rng, cuda, M, K)
+    if x.device not in F8._DEVICES:
+        F8._DEVICES[x.device] = F8.SplitScratch(x.device)
+    dev = F8._DEVICES[x.device]
+    kept = dev.plans.pop((M, N, K), None)
+    dev.plans[M, N, K] = (cfg, splits)
+    try:
+        got = F8.fp8_block_matmul(x, w, bs, out_dtype=torch.float32)
+        half = F8.fp8_block_matmul(x, w, bs)
+    finally:
+        dev.plans.pop((M, N, K))
+        if kept is not None:
+            dev.plans[M, N, K] = kept
+    want = F8.fp8_block_matmul_plain(x, w, bs, out_dtype=torch.float32)
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    assert torch.equal(got.to(torch.bfloat16), half)
+
+
+@pytest.mark.cuda
+def test_fp32_output_modes_raise_on_other_dtypes(cuda):
+    """The kernels write their dtype or fp32: any other output dtype raises,
+    with no fallback."""
+    rng = np.random.default_rng(0)
+    w, scales, zeros = _int4(rng, 256, 64, 128, cuda, True)
+    x = _bf16(rng, cuda, 4, 256)
+    with pytest.raises(NotImplementedError, match="out_dtype"):
+        Q.w4a16_matmul(x, w, scales, zeros, out_dtype=torch.float16)
+    w8, bs = _fp8_weights(rng, cuda, 128, 128)
+    with pytest.raises(NotImplementedError, match="out_dtype"):
+        F8.fp8_block_matmul(_bf16(rng, cuda, 4, 128), w8, bs, out_dtype=torch.float16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [8, 512])
 def test_fp8_block_matmul_is_exact_on_every_e4m3_code(cuda, M):
@@ -2295,6 +2402,26 @@ def test_multimodal_engine_on_gpu(cuda):
     assert int(card.argmax()) == int(want.argmax()) or (top2[0] - top2[1]).item() <= 2 * diff
 
 
+# a bf16 tree's dense layer linears as symmetric int4 entries (groups of 128
+# rows, round to nearest; planar where K allows): the card's GPTQ-like TP model
+QUANTIZE_INT4 = r"""
+def quantize_int4(params, gs=128):
+    from zhilight_tpu_torch.ops.quant import pack_int4
+    for layer in params["layers"].values():
+        for group in (layer["attn"], layer["mlp"]):
+            for name, p in list(group.items()):
+                K, N = p["w"].shape
+                g = p["w"].float().reshape(K // gs, gs, N)
+                s = (g.abs().amax(1) / 7).clamp_min(1e-8)
+                q = (torch.round(g / s[:, None]) + 8).clamp(0, 15).to(torch.int8).reshape(K, N)
+                group[name] = dict({"w_p": pack_int4(q) if K % 256 == 0 else q, "scales": s,
+                                    "zeros": torch.full_like(s, 8.0)},
+                                   **({"b": p["b"]} if "b" in p else {}))
+    return params
+"""
+exec(QUANTIZE_INT4)
+
+
 TP_RANK = r"""
 import datetime, json, os, sys
 import numpy as np
@@ -2315,6 +2442,9 @@ from zhilight_tpu_torch.models import moe as M
 from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
 from zhilight_tpu_torch.ops.cuda import kv_write as W
 from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+from zhilight_tpu_torch.ops.cuda import quant_matmul as Q
+from zhilight_tpu_torch.parallel.sharding import shard_params
+exec(spec["quantize"])
 
 finished = {}
 finish = SearchTask.finish
@@ -2327,14 +2457,17 @@ for key, kind in (("mla", MLAConfig), ("moe", MoEConfig)):
     if key in model:
         model[key] = kind(**model[key])
 cfg = ModelConfig(**model)
-params = L.init_params(cfg, 0, "cuda:0", shard=(rank, 2))
+if spec["int4"]:  # the whole tree quantized, then the rank's shard of it
+    params = shard_params(quantize_int4(L.init_params(cfg, 0, "cuda:0")), rank, 2, cfg=cfg)
+else:
+    params = L.init_params(cfg, 0, "cuda:0", shard=(rank, 2))
 # "cuda" with no index: the rank's device is cuda:LOCAL_RANK, 0 for both ranks here
 llm = LLM(model_config=cfg, params=params, device="cuda", engine_config=EngineConfig(
     max_model_len=512, cache=CacheConfig(page_size=16, num_pages=128),
     scheduler=SchedulerConfig(max_batch=4, chunk_size=128, prefill_buckets=(128,)),
     parallel=ParallelConfig(tp=2)))
 assert llm.device == torch.device("cuda", 0), llm.device
-modules = dict(A=A, W=W, P=P)
+modules = dict(A=A, W=W, P=P, Q=Q)
 counted = [getattr(modules[m], name) for m, name in spec["kernels"]]
 for fn in counted:
     fn.launches = 0
@@ -2393,6 +2526,14 @@ TP_MODELS = {
                    dtype="bfloat16"),
               [("W", "rope_write_rows_hm"), ("A", "paged_decode_attention_hm"),
                ("P", "paged_prefill_attention_hm_packed")], 2e-2),
+    # the same geometry with int4 linears (QUANTIZE_INT4): each rank's q/k/v and
+    # gate/up columns, o (2560 of 5120 rows) and down rows with their groups,
+    # row 4 in its fp32-output mode for o and down
+    "qwen2_gptq": (dict(model_type="qwen2", num_layers=2, dim_model=512, num_heads=40,
+                        dim_head=128, num_kv_heads=8, dim_ff=1024, vocab_size=1024,
+                        attn_bias=True, dtype="bfloat16"),
+                   [("W", "rope_write_rows_hm"), ("A", "paged_decode_attention_hm"),
+                    ("P", "paged_prefill_attention_hm_packed"), ("Q", "w4a16_matmul")], 2e-2),
     # DeepSeek-V2-Lite's: 8 of 16 heads over the whole 512 + 64 latent, 32
     # of 64 bf16 experts (top 6), a shared expert, a dense first layer
     "deepseek_v2": (dict(model_type="deepseek_v2", num_layers=3, dim_model=512, num_heads=16,
@@ -2443,7 +2584,9 @@ def test_tensor_parallel_engine_on_gpu(cuda, tmp_path, model_type):
     cfg = L.ModelConfig(**nested)
     rng = np.random.default_rng(3)
     prompts = [rng.integers(2, 1024, n).tolist() for n in (40, 300)]
-    one = LLM(model_config=cfg, params=L.init_params(cfg, 0, "cuda"), device=cuda,
+    int4 = model_type.endswith("gptq")
+    params = L.init_params(cfg, 0, "cuda")
+    one = LLM(model_config=cfg, params=quantize_int4(params) if int4 else params, device=cuda,
               engine_config=EngineConfig(max_model_len=512, cache=CacheConfig(page_size=16,
                                                                               num_pages=128),
                                          scheduler=SchedulerConfig(max_batch=4, chunk_size=128,
@@ -2465,7 +2608,8 @@ def test_tensor_parallel_engine_on_gpu(cuda, tmp_path, model_type):
     if routes:
         torch.save(routes, tmp_path / "routes.pt")
     (tmp_path / "spec.json").write_text(json.dumps(dict(model=model, prompts=prompts,
-                                                        tokens=tokens, kernels=kernels)))
+                                                        tokens=tokens, kernels=kernels,
+                                                        int4=int4, quantize=QUANTIZE_INT4)))
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]

@@ -20,8 +20,9 @@ devices of tests/conftest.py.
   torchrun's variables: rank 0 answers ``/v1/completions`` with tp=1's text
   and usage; rank 1 binds no port.
 - The raises: a vocab, KV-head count or ``dim_ff`` that tp does not divide;
-  a quantized dense linear under tp > 1; a world that is not tp; tp > 1
-  without a process group; scoring and calibration under tp > 1.
+  a world that is not tp; tp > 1 without a process group; scoring and
+  calibration under tp > 1. Quantized linears under tp > 1, which once
+  raised here, build (tests/test_torch_tp_quant.py serves them).
 
 MoE and MLA under tensor parallelism are tests/test_torch_tp_moe.py's, on
 this file's rank processes (:class:`Ranks`, ``RANK``), which also record
@@ -155,6 +156,17 @@ from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 from zhilight_tpu_torch.parallel.comm import TPGroup
 from zhilight_tpu_torch.parallel.sharding import rank_config, shard_params
 from zhilight_tpu_torch.utils.convert import params_to_torch
+from zhilight_tpu_torch.utils.hf_loader import map_hf_params
+from zhilight_tpu_torch.utils.quant_convert import quantize_int8_params
+
+
+def flat(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from flat(v, path)
+        else:
+            yield path, v
 
 
 def model_config(m):
@@ -168,6 +180,7 @@ def model_config(m):
 
 
 def load(path):
+    # FP8 payloads are saved as their bytes (uint8)
     tree = {}
     with np.load(path) as flat:
         for key in flat.files:
@@ -175,7 +188,9 @@ def load(path):
             *parts, leaf = key.split(".")
             for part in parts:
                 node = node.setdefault(part, {})
-            node[leaf] = flat[key]
+            value = flat[key]
+            node[leaf] = (torch.from_numpy(value).view(torch.float8_e4m3fn) if leaf == "w_f8"
+                          else value)
     return tree
 
 
@@ -197,8 +212,8 @@ def _counted(*a, **kw):
 L.forward_decode_window = _counted
 
 # the expert ids of every routing, and the shape of every collective issued
-# inside a MoE layer
-routed, moe_collectives, in_moe = [], [], [False]
+# (inside a MoE layer, and in all)
+routed, moe_collectives, in_moe, collectives = [], [], [False], []
 _select = M.select_experts
 def _routing(*a, **kw):
     weights, ids = _select(*a, **kw)
@@ -215,8 +230,10 @@ def _in_moe(*a, **kw):
 M.moe_layer = _in_moe
 for op in ("all_reduce", "all_gather"):
     def _recorded(self, x, *a, _fn=getattr(TPGroup, op), _op=op, **kw):
+        what = [_op, str(x.dtype), list(x.shape), "max" if "MAX" in str(kw.get("op")) else "sum"]
         if in_moe[0]:
-            moe_collectives.append([_op, str(x.dtype), list(x.shape)])
+            moe_collectives.append(what[:3])
+        collectives.append(what)
         return _fn(self, x, *a, **kw)
     setattr(TPGroup, op, _recorded)
 
@@ -233,8 +250,22 @@ PAGE, MAXP, BUCKET = 4, 8, 16
 
 group = TPGroup()
 for name, f in spec.get("forward", {}).items():
-    cfg = rank_config(model_config(f["model"]), world)
-    params = params_to_torch(shard_params(load(f["params"]), rank, world), "cpu", torch.float32)
+    full_cfg = model_config(f["model"])
+    cfg = rank_config(full_cfg, world)
+    os.environ.update(f.get("env", {}))
+    if f.get("hf"):
+        # a checkpoint's HF tensors through the loader, the rank's shard as it reads them
+        with np.load(f["hf"]) as state:
+            items = [(k, state[k]) for k in state.files]
+        params = map_hf_params(items, full_cfg, dtype=torch.float32, quant_method=f["method"],
+                               shard=(rank, world))
+    else:
+        params = shard_params(load(f["params"]), rank, world, cfg=full_cfg)
+    for key in f.get("env", {}):
+        os.environ.pop(key)
+    params = params_to_torch(params, "cpu", torch.float32)
+    if f.get("auto_int8"):
+        params = quantize_int8_params(params, tp=group)
     routed.clear(), moe_collectives.clear()
     rope = L.build_rope(cfg)
     n = len(f["tokens"])
@@ -253,13 +284,17 @@ for name, f in spec.get("forward", {}).items():
                        slot_mapping=torch.tensor([n, -1], **i32), page_tables=p2,
                        context_lens=torch.tensor([n + 1, 0], **i32))
     with torch.no_grad():
+        collectives.clear()
         logits, cache = L.forward_prefill(params, cfg, rope, tok, meta, cache, tp=group)
+        prefill_collectives = list(collectives)
         dtok = torch.tensor([f["decode_token"], 0], **i32)
         dlogits, cache = L.forward_decode(params, cfg, rope, dtok, dmeta, cache, tp=group)
     out["forward"][name] = dict(prefill=logits.tolist(), decode=dlogits[0].tolist(),
                                 pool=list((cache.latent if cfg.mla.enabled else cache.k)[0].shape),
                                 experts=list(routed), moe_collectives=list(moe_collectives),
-                                expert_counts=expert_counts(params))
+                                expert_counts=expert_counts(params),
+                                collectives=prefill_collectives,
+                                leaves={k: [str(v.dtype), list(v.shape)] for k, v in flat(params)})
 
 
 def engine_config(case, tp):
@@ -576,7 +611,7 @@ def test_shard_params_slices_by_the_rule_table():
     shard from the full tree by its embedding's rows."""
     model = dict(FWD_MODEL, model_type="qwen2", attn_bias=True)
     params = _params(JModelConfig(**model), biases=True)
-    shards = [shard_params(params, r, 4) for r in range(4)]
+    shards = [shard_params(params, r, 4, ModelConfig(**model)) for r in range(4)]
     assert is_shard(shards[2], ModelConfig(**model), 4)
     assert not is_shard(params, ModelConfig(**model), 4)
     for path, full in _flat(params):
@@ -594,7 +629,7 @@ def test_init_params_shard_keeps_the_full_draw_slice():
     """``init_params(..., shard=(rank, tp))`` draws the same tensors and keeps
     the rank's slices: the shard of the full draw, leaf for leaf."""
     cfg = ModelConfig(**FWD_MODEL)
-    full = shard_params(TL.init_params(cfg, 3, "cpu"), 1, 2)
+    full = shard_params(TL.init_params(cfg, 3, "cpu"), 1, 2, cfg)
     part = TL.init_params(cfg, 3, "cpu", shard=(1, 2))
     assert is_shard(part, cfg, 2)
     a, b = dict(_flat(full)), dict(_flat(part))
@@ -624,7 +659,7 @@ def test_loader_slices_each_tensor_as_it_reads_it():
         state[pre + name] = torch.randn(*shape, generator=g)
     full = map_hf_params(state.items(), cfg, dtype=torch.float32)
     for rank in range(2):
-        want = dict(_flat(shard_params(full, rank, 2)))
+        want = dict(_flat(shard_params(full, rank, 2, cfg)))
         got = dict(_flat(map_hf_params(state.items(), cfg, dtype=torch.float32,
                                        shard=(rank, 2))))
         assert want.keys() == got.keys()
@@ -843,26 +878,71 @@ def test_sizes_tp_does_not_divide_raise(what, change, monkeypatch):
         # the leaf itself: no padding
         params = _params(JModelConfig(**dict(FWD_MODEL, **change)))
         with pytest.raises(ValueError, match="does not divide by tp=2"):
-            shard_params(params, 0, 2)
+            shard_params(params, 0, 2, cfg)
+
+
+class _SoloRank:
+    """Rank 0 of a two-rank group whose other rank holds the same values:
+    a sum is the value, a gather repeats it (enough to build a rank's LLM
+    in this process, beside a local control plane)."""
+    rank, world = 0, 2
+
+    def all_reduce(self, x, op=None):
+        return x
+
+    def all_gather(self, x, dim):
+        return torch.cat([x] * self.world, dim=dim)
 
 
 @pytest.mark.parametrize("kind", ["gptq", "int8", "quantized_leaf"])
 def test_what_tp_does_not_serve_yet_raises(kind, monkeypatch):
+    """Quantized linears under tp > 1, refused until they were ported, now
+    build: a GPTQ and an AUTO_INT8 ``LLM`` at tp=2 keep rank 0's shard (its
+    half of q_proj's columns and of o_proj's rows), and ``shard_params``
+    slices a bare int4 leaf of a column-parallel projection."""
+    import zhilight_tpu_torch.llm as t_llm
+    from zhilight_tpu_torch.ops.quant import pack_int4
+
     for var in LAUNCH_VARS:
         monkeypatch.delenv(var, raising=False)
     model, quant = dict(FWD_MODEL), QuantConfig()
+    if kind == "quantized_leaf":
+        quantized = {"w_p": np.zeros((4, 4), np.uint8)}
+        got = shard_params({"layers": {"0": {"attn": {"q_proj": quantized}}}}, 0, 2,
+                           ModelConfig(**model))
+        assert tuple(got["layers"]["0"]["attn"]["q_proj"]["w_p"].shape) == (4, 2)
+        return
+    import zhilight_tpu_torch.engine.engine as t_engine
+    from zhilight_tpu_torch.parallel.control_plane import LocalPlane
+
+    monkeypatch.setattr(t_llm, "join", lambda tp, device: _SoloRank())
+    monkeypatch.setattr(t_engine, "DistPlane", LocalPlane)
+    params = _params(JModelConfig(**model))
     if kind == "gptq":
         quant = QuantConfig(quant_type=QuantType.GPTQ)
-    elif kind == "int8":
-        quant = QuantConfig(quant_type=QuantType.AUTO_INT8)
+        rng = np.random.RandomState(0)
+        for layer in params["layers"].values():
+            for group in (layer["attn"], layer["mlp"]):
+                for name, p in list(group.items()):
+                    K, N = p["w"].shape
+                    nib = torch.from_numpy(rng.randint(0, 16, size=(K, N)).astype(np.int8))
+                    group[name] = {"w_p": (pack_int4(nib) if K % 256 == 0 else nib).numpy(),
+                                   "scales": np.full((K // 32, N), 0.01, np.float32),
+                                   "zeros": np.full((K // 32, N), 8.0, np.float32)}
     else:
-        with pytest.raises(NotImplementedError, match="quantized linears"):
-            quantized = {"w_p": np.zeros((4, 4), np.uint8)}
-            shard_params({"layers": {"0": {"attn": {"q_proj": quantized}}}}, 0, 2)
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LLM(model_config=ModelConfig(**model), params={}, quant_config=quant, device="cpu",
-            engine_config=EngineConfig(parallel=ParallelConfig(tp=2)))
+        quant = QuantConfig(quant_type=QuantType.AUTO_INT8)
+        from zhilight_tpu_torch.utils.quant_convert import quantize_int8_params
+
+        params = quantize_int8_params(params_to_torch(params, "cpu", torch.float32))
+    llm = LLM(model_config=ModelConfig(**model), params=params, quant_config=quant, device="cpu",
+              engine_config=EngineConfig(max_model_len=64,
+                                         cache=CacheConfig(page_size=4, num_pages=16),
+                                         parallel=ParallelConfig(tp=2)))
+    attn = llm.executor.params["layers"]["0"]["attn"]
+    q, o = ("w_p", "w_p") if kind == "gptq" else ("w_q", "w_q")
+    assert attn["q_proj"][q].shape[-1] == model["num_heads"] * model["dim_head"] // 2
+    rows = attn["o_proj"][o].shape[0] * (2 if attn["o_proj"][o].dtype == torch.uint8 else 1)
+    assert rows == model["num_heads"] * model["dim_head"] // 2
 
 
 def test_tp_without_a_process_group_raises(monkeypatch):

@@ -9,7 +9,7 @@ tests/conftest.py.
   ``param_pspec`` shards on a DeepSeek tree with bf16 and with GPTQ expert
   stacks (``g_idx`` / ``perm`` included) and on a Qwen2-MoE tree with a
   shared-expert gate; ``shard_params`` slices int4 expert stacks on the
-  expert dim and still refuses any other quantized linear.
+  expert dim and a GPTQ shared expert as a dense MLP.
 - The forward: a prefill chunk and one decode step at TP=2 and TP=4, in
   fp32, with dense and with GPTQ int4 expert stacks, against the
   single-process port and the JAX forward on a tp mesh, within 2e-4. The JAX
@@ -246,9 +246,9 @@ def ranks(tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 def _rule_tree(tree):
-    """(JAX leaves, port tree, names no random tree holds) of a rule-table case."""
+    """(JAX leaves, port tree, its config) of a rule-table case."""
     if tree == "qwen2_moe-gate":
-        _, jp, _, tp = _load_both("qwen2_moe", None)
+        _, jp, tcfg, tp = _load_both("qwen2_moe", None)
         assert "shared_expert_gate" in tp["layers"]["0"]["mlp"]
     else:
         name = "dense" if tree == "deepseek-bf16" else "gptq"
@@ -257,7 +257,7 @@ def _rule_tree(tree):
                               quant_method="gptq" if name == "gptq" else None)
         if tree == "deepseek-bf16":
             tp = params_to_torch(tp, "cpu", torch.bfloat16)
-    return jp, tp
+    return jp, tp, tcfg
 
 
 @pytest.mark.parametrize("tree", ["deepseek-bf16", "deepseek-gptq", "qwen2_moe-gate"])
@@ -266,7 +266,7 @@ def test_rule_table_matches_param_pspec(tree):
     checkpoint's ``g_idx`` among the names), and each rank's shard of the
     port's tree: its ``E / tp`` experts (int4 ``w_p`` / ``scales`` /
     ``zeros`` / ``perm`` too), the ranks' slices together the whole."""
-    jp, tp = _rule_tree(tree)
+    jp, tp, tcfg = _rule_tree(tree)
     leaves = [(path, np.ndim(x)) for path, x in _flat(jp)]
     if tree == "deepseek-gptq":
         assert any(path.endswith("experts.gate_proj.perm") for path, _ in leaves)
@@ -275,7 +275,7 @@ def test_rule_table_matches_param_pspec(tree):
     for path, ndim in leaves:
         assert param_shard_dim(path, ndim) == _spec_dim(param_pspec(path, ndim)), path
     full = dict(_flat(tp))
-    shards = [dict(_flat(shard_params(tp, r, 2))) for r in range(2)]
+    shards = [dict(_flat(shard_params(tp, r, 2, tcfg))) for r in range(2)]
     for path, leaf in full.items():
         dim = param_shard_dim(path, leaf.dim())
         if ".mlp.experts." in path:
@@ -287,11 +287,24 @@ def test_rule_table_matches_param_pspec(tree):
 
 
 def test_shard_params_refuses_a_quantized_dense_linear():
-    """GPTQ shared experts are dense quantized linears: still refused."""
-    _, _, _, tp = _load_both("deepseek", "gptq")
-    assert "w_p" in tp["layers"]["0"]["mlp"]["shared_expert"]["down_proj"]
-    with pytest.raises(NotImplementedError, match="quantized linears"):
-        shard_params(tp, 0, 2)
+    """GPTQ shared experts are dense quantized linears, refused until quantized
+    linears under tensor parallelism were ported: now each rank holds its
+    half of the shared expert's gate/up columns and of its down_proj rows
+    (or the whole down_proj where half its rows would cut a group), and the
+    ranks' column slices put back together give the whole."""
+    _, _, tcfg, tp = _load_both("deepseek", "gptq")
+    down = tp["layers"]["0"]["mlp"]["shared_expert"]["down_proj"]
+    assert "w_p" in down
+    shards = [shard_params(tp, r, 2, tcfg) for r in range(2)]
+    mlp = [s["layers"]["0"]["mlp"]["shared_expert"] for s in shards]
+    gate = tp["layers"]["0"]["mlp"]["shared_expert"]["gate_proj"]
+    for key in ("w_p", "scales", "zeros"):
+        assert torch.equal(torch.cat([m["gate_proj"][key] for m in mlp], -1),
+                           torch.as_tensor(gate[key])), key
+    K = down["w_p"].shape[0] * (2 if down["w_p"].dtype == torch.uint8 else 1)
+    rows = [m["down_proj"]["w_p"].shape[0] * (2 if m["down_proj"]["w_p"].dtype == torch.uint8
+                                               else 1) for m in mlp]
+    assert all(r < K for r in rows) or all(r == K for r in rows)
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +406,7 @@ def test_init_params_shard_keeps_the_full_draw_slice():
 
     _, tcfg = configs(_hf("dense"))
     for rank in range(2):
-        want = dict(_flat(shard_params(TL.init_params(tcfg, 3, "cpu"), rank, 2)))
+        want = dict(_flat(shard_params(TL.init_params(tcfg, 3, "cpu"), rank, 2, tcfg)))
         got = dict(_flat(TL.init_params(tcfg, 3, "cpu", shard=(rank, 2))))
         assert want.keys() == got.keys()
         assert all(torch.equal(want[k], got[k]) for k in want)
@@ -421,7 +434,7 @@ def test_loader_reads_only_the_rank_experts(name, monkeypatch):
     for rank in range(2):
         seen.clear()
         got = dict(_flat(TH.map_hf_params(state, tcfg, quant_method=method, shard=(rank, 2))))
-        want = dict(_flat(shard_params(full, rank, 2)))
+        want = dict(_flat(shard_params(full, rank, 2, tcfg)))
         assert got.keys() == want.keys()
         assert all(torch.equal(got[k], want[k]) for k in want)
         lo, hi = rank * E // 2, (rank + 1) * E // 2
@@ -452,4 +465,4 @@ def test_sizes_tp_does_not_divide_raise(what, change, monkeypatch):
         # the leaf itself: no padding
         tree = TH.map_hf_params(deepseek_state(dict(HF, **change), None), tcfg)
         with pytest.raises(ValueError, match="does not divide by tp=4"):
-            shard_params(tree, 0, 4)
+            shard_params(tree, 0, 4, tcfg)

@@ -13,7 +13,11 @@
 // included (the hardware's e4m3x2 -> f16x2, then f32, then bf16). The inner
 // sum runs in fp32 on the tensor cores; THE BLOCK'S SCALE MULTIPLIES THAT
 // PARTIAL SUM, not the weights (folding it into them would round w * scale),
-// and the scaled partials are added in fp32; y is rounded to bf16 once. The
+// and the scaled partials are added in fp32; y is rounded to bf16 once, or,
+// in the fp32-output mode (out_f32 = 1), stored unrounded as fp32: a
+// tensor-parallel rank's partial product of a row-parallel projection, which
+// the model all-reduces in fp32 and rounds once (models/llama.py
+// _reduce_linear). Only the epilogue's store type differs (splitk.cuh). The
 // plain version (ops/cuda/fp8_matmul.py fp8_block_matmul_plain) computes the
 // same thing. Both kernels keep two accumulators an output element: the
 // current 128-row K block's (fresh at its start) and the running one, which
@@ -118,9 +122,9 @@ struct Dec {
   static constexpr int SMEM = X_BYTES + NWARP * STG * W_BYTES;
 };
 
-template <int MR>
+template <int MR, class O>
 __global__ void __launch_bounds__(256, 2) fp8_decode_kernel(
-    bf16* __restrict__ out, const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+    O* __restrict__ out, const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     const float* __restrict__ scale, float* __restrict__ part, int* __restrict__ tickets,
     int M, int N, int K, int per) {
   using C = Dec<MR>;
@@ -313,8 +317,9 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       ::"r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar)) : "memory");
 }
 
+template <class O>
 __global__ void __launch_bounds__(Pre::NT, 1) fp8_prefill_kernel(
-    bf16* __restrict__ out, const __grid_constant__ CUtensorMap tmx,
+    O* __restrict__ out, const __grid_constant__ CUtensorMap tmx,
     const __grid_constant__ CUtensorMap tmw, const float* __restrict__ scale,
     float* __restrict__ part, int* __restrict__ tickets, int M, int N, int K, int per) {
   using C = Pre;
@@ -447,7 +452,7 @@ bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void
 // dynamic shared memory above 48 KB, once per kernel, and the largest
 // shared-memory carveout (two decode blocks an SM)
 int configure(const void* fn, int smem) {
-  static const void* done[4];
+  static const void* done[8];
   static int n = 0;
   for (int k = 0; k < n; ++k)
     if (done[k] == fn) return 0;
@@ -455,8 +460,38 @@ int configure(const void* fn, int smem) {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess && n < 4) done[n++] = fn;
+  if (err == cudaSuccess && n < 8) done[n++] = fn;
   return (int)err;
+}
+
+// the launch of config cfg with output type O (bf16, or float: the
+// fp32-output mode); arguments checked by the caller
+template <class O>
+int run(void* out, const void* x, const void* w, const float* sc, float* part, int* tickets,
+        int M, int N, int K, int cfg, int splits, int per, cudaStream_t stream) {
+  const void* fn = cfg == 1 ? (const void*)fp8_prefill_kernel<O>
+                   : M <= 8 ? (const void*)fp8_decode_kernel<8, O>
+                            : (const void*)fp8_decode_kernel<16, O>;
+  const int smem = cfg == 1 ? Pre::SMEM : M <= 8 ? Dec<8>::SMEM : Dec<16>::SMEM;
+  if (int err = configure(fn, smem)) return err;
+  O* o = (O*)out;
+  if (cfg == 1) {
+    CUtensorMap tmx, tmw;
+    if (!tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, Pre::BM, 64,
+                    CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, KB, Pre::BN,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(N / Pre::BN, (M + Pre::BM - 1) / Pre::BM, splits);
+    fp8_prefill_kernel<O><<<grid, Pre::NT, smem, stream>>>(o, tmx, tmw, sc, part, tickets, M, N,
+                                                            K, per);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(N / Dec<8>::BN + (N % Dec<8>::BN != 0), (M + 15) / 16, splits);
+  const bf16* xx = (const bf16*)x;
+  const uint8_t* ww = (const uint8_t*)w;
+  void* args[] = {&o, &xx, &ww, &sc, &part, &tickets, &M, &N, &K, (void*)&per};
+  return (int)cudaLaunchKernel(fn, grid, dim3(256), args, smem, stream);
 }
 
 }  // namespace
@@ -468,10 +503,10 @@ int configure(const void* fn, int smem) {
 // the K blocks into that many non-empty runs of ceil(K/128 / splits); with
 // splits > 1, part holds f32 [splits, M, N] and tickets int32 [ceil(M / BM) *
 // (N / BN)] (BM x BN 16 x 256 or 128 x 128), zero before the launch and left
-// zero.
+// zero. out_f32: out is f32 [M, N] (the fp32-output mode), else bf16.
 extern "C" int zt_fp8_block_matmul(void* out, const void* x, const void* w, const void* scale,
                                    float* part, int* tickets, int M, int N, int K, int cfg,
-                                   int splits, void* stream) {
+                                   int splits, int out_f32, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K <= 0 || K % KB || N % KB || cfg < 0 || cfg > 1 || (cfg == 0 && M > DEC_M))
     return (int)cudaErrorInvalidValue;
@@ -480,28 +515,8 @@ extern "C" int zt_fp8_block_matmul(void* out, const void* x, const void* w, cons
   if (splits < 1 || splits > kbs || (kbs + per - 1) / per != splits ||
       (cfg == 0 && per > DEC_KB) || (splits > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const void* fn = cfg == 1 ? (const void*)fp8_prefill_kernel
-                   : M <= 8 ? (const void*)fp8_decode_kernel<8>
-                            : (const void*)fp8_decode_kernel<16>;
-  const int smem = cfg == 1 ? Pre::SMEM : M <= 8 ? Dec<8>::SMEM : Dec<16>::SMEM;
-  if (int err = configure(fn, smem)) return err;
-  bf16* o = (bf16*)out;
   const float* sc = (const float*)scale;
-  if (cfg == 1) {
-    CUtensorMap tmx, tmw;
-    if (!tensor_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, Pre::BM, 64,
-                    CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !tensor_map(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, KB, Pre::BN,
-                    CU_TENSOR_MAP_SWIZZLE_NONE))
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid(N / Pre::BN, (M + Pre::BM - 1) / Pre::BM, splits);
-    fp8_prefill_kernel<<<grid, Pre::NT, smem, (cudaStream_t)stream>>>(o, tmx, tmw, sc, part,
-                                                                       tickets, M, N, K, per);
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid(N / Dec<8>::BN + (N % Dec<8>::BN != 0), (M + 15) / 16, splits);
-  const bf16* xx = (const bf16*)x;
-  const uint8_t* ww = (const uint8_t*)w;
-  void* args[] = {&o, &xx, &ww, &sc, &part, &tickets, &M, &N, &K, (void*)&per};
-  return (int)cudaLaunchKernel(fn, grid, dim3(256), args, smem, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  return out_f32 ? run<float>(out, x, w, sc, part, tickets, M, N, K, cfg, splits, per, st)
+                 : run<bf16>(out, x, w, sc, part, tickets, M, N, K, cfg, splits, per, st);
 }

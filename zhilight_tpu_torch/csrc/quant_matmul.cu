@@ -6,7 +6,11 @@
 //
 // Computes, for x bf16 [M, K] and groups of gs = K / G consecutive rows:
 //   y[m, n] = sum_k x[m, k] * bf16((q[k, n] - zeros[k / gs, n]) * scales[k / gs, n])
-// with fp32 accumulation, y rounded to bf16. Two weight formats:
+// with fp32 accumulation, y rounded to bf16, or in the fp32-output mode
+// (out_f32 = 1) stored unrounded as fp32: a tensor-parallel rank's partial
+// product of a row-parallel projection, which the model all-reduces in fp32
+// and rounds once (models/llama.py _reduce_linear). Only the epilogue's store
+// type differs (splitk.cuh). Two weight formats:
 //   planar  uint8 [K/2, N]: byte (r, n) holds q[r, n] in its low nibble and
 //           q[r + K/2, n] XOR 8 in its high nibble (ops/quant.pack_int4);
 //   nibbles int8 [K, N], one value 0..15 per byte.
@@ -80,17 +84,29 @@
 // splits must cut the stages into that many non-empty runs of ceil(stages /
 // splits); with splits > 1, part holds f32 [splits, M, N] and tickets int32
 // [ceil(M / BM) * ceil(N / BN)] (BM x BN 16 x 256, 64 x 128, 128 x 256),
-// zero before the launch and left zero.
+// zero before the launch and left zero. out_f32: out is f32 [M, N] (the
+// fp32-output mode), else bf16.
+template <class O>
+static int matmul(void* out, const void* x, const void* w, const void* scales, const void* zeros,
+                  float* part, int* tickets, int M, int N, int K, int G, int planar, int cfg,
+                  int splits, int vec16, void* stream) {
+  using zt_w4a16::Experts;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (planar)
+    return zt_w4a16::launch<true, false, O>(cfg, out, x, w, scales, zeros, part, tickets, M, N, K,
+                                            G, splits, vec16, 0, Experts{}, st);
+  return zt_w4a16::launch<false, false, O>(cfg, out, x, w, scales, zeros, part, tickets, M, N, K,
+                                           G, splits, vec16, 0, Experts{}, st);
+}
+
 extern "C" int zt_w4a16_matmul(void* out, const void* x, const void* w, const void* scales,
                                const void* zeros, float* part, int* tickets, int M, int N, int K,
-                               int G, int planar, int cfg, int splits, int vec16, void* stream) {
+                               int G, int planar, int cfg, int splits, int vec16, int out_f32,
+                               void* stream) {
   if (M == 0 || N == 0) return 0;
   if (G <= 0 || K % G) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  using zt_w4a16::Experts;
-  if (planar)
-    return zt_w4a16::launch<true, false>(cfg, out, x, w, scales, zeros, part, tickets, M, N, K,
-                                         G, splits, vec16, 0, Experts{}, st);
-  return zt_w4a16::launch<false, false>(cfg, out, x, w, scales, zeros, part, tickets, M, N, K, G,
-                                        splits, vec16, 0, Experts{}, st);
+  return out_f32 ? matmul<float>(out, x, w, scales, zeros, part, tickets, M, N, K, G, planar, cfg,
+                                 splits, vec16, stream)
+                 : matmul<__nv_bfloat16>(out, x, w, scales, zeros, part, tickets, M, N, K, G,
+                                         planar, cfg, splits, vec16, stream);
 }

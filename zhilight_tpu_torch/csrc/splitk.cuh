@@ -6,6 +6,10 @@
 // bits on every call), writes y and resets the counter. One launch a call,
 // where a second reduction kernel would add a launch to every projection of
 // a host-bound decode step.
+//
+// The output type O is bf16 (y rounded once) or float (the fp32-output mode:
+// the accumulators, or the split sum, stored unrounded, for a row-parallel
+// rank's partial product that is all-reduced in fp32 before it is rounded).
 
 #pragma once
 
@@ -16,14 +20,28 @@
 
 namespace zt_mma {
 
+// two or four adjacent outputs from fp32 (4: 16-byte aligned for float)
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(a, b), pack_bf16(c, d));
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
 // The end of a block: its accumulators into y, or, split, into the fp32
 // partials and, for the block drawing the last ticket of its tile, summed in
 // split order into y. A warp holds MT m16 x NT8 n8 tiles; slot e of n8-tile t
 // is row row_w + 16a + 8 (e / 2) and, PERM (the decode kernel's register-
 // built B fragments), column col_w + NT8 (2i + e % 2) + t, else column col_w
 // + 8t + 2i + e % 2. Every thread of the block calls it.
-template <int MT, int NT8, bool PERM, int NT, int BM, int BN>
-__device__ __forceinline__ void finish(float (&acc)[MT][NT8][4], __nv_bfloat16* __restrict__ out,
+template <int MT, int NT8, bool PERM, int NT, int BM, int BN, class O>
+__device__ __forceinline__ void finish(float (&acc)[MT][NT8][4], O* __restrict__ out,
                                        float* __restrict__ part, int* __restrict__ tickets,
                                        int M, int N, int row_w, int col_w, int m_blk, int n_blk,
                                        int i, int tid, int* s_last) {
@@ -41,15 +59,13 @@ __device__ __forceinline__ void finish(float (&acc)[MT][NT8][4], __nv_bfloat16* 
         if constexpr (PERM) {
           const int n = col_w + NT8 * (2 * i + (e & 1));
           if (n >= N) continue;
-          *reinterpret_cast<uint2*>(out + (long long)m * N + n) = make_uint2(
-              pack_bf16(acc[a][0][e], acc[a][1][e]), pack_bf16(acc[a][2][e], acc[a][3][e]));
+          store4(out + (long long)m * N + n, acc[a][0][e], acc[a][1][e], acc[a][2][e],
+                 acc[a][3][e]);
         } else {
 #pragma unroll
           for (int t = 0; t < NT8; ++t) {
             const int n = col_w + 8 * t + 2 * i;
-            if (n < N)
-              *reinterpret_cast<uint32_t*>(out + (long long)m * N + n) =
-                  pack_bf16(acc[a][t][e], acc[a][t][e + 1]);
+            if (n < N) store2(out + (long long)m * N + n, acc[a][t][e], acc[a][t][e + 1]);
           }
         }
       }
@@ -106,8 +122,7 @@ __device__ __forceinline__ void finish(float (&acc)[MT][NT8][4], __nv_bfloat16* 
           sum.w += v[u].w;
         }
     }
-    *reinterpret_cast<uint2*>(out + (long long)m * N + n) =
-        make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+    store4(out + (long long)m * N + n, sum.x, sum.y, sum.z, sum.w);
   }
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }

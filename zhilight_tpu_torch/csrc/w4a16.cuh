@@ -192,9 +192,9 @@ struct Dec {
 
 // two blocks an SM (at most 128 registers a thread): one block's latency-
 // bound copies alone left half of each SM's issue slots idle
-template <int MR, bool PLANAR, bool RAGGED>
+template <int MR, bool PLANAR, bool RAGGED, class O>
 __global__ void __launch_bounds__(256, 2) w4a16_decode_kernel(
-    bf16* __restrict__ out, const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+    O* __restrict__ out, const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     const float* __restrict__ scales, const float* __restrict__ zeros, float* __restrict__ part,
     int* __restrict__ tickets, int M, int N, int K, int G, int per, int vec16, int aligned,
     Experts ex) {
@@ -398,9 +398,9 @@ __device__ __forceinline__ uint2 deq_row(uint32_t w, uint32_t w16, const float (
 }
 
 // a warp holds a 64-column run of BM / WM rows (128 fp32 accumulators at 64)
-template <class C, bool RAGGED>
+template <class C, bool RAGGED, class O>
 __global__ void __launch_bounds__(C::NT, C::MINB) w4a16_prefill_kernel(
-    bf16* __restrict__ out, const bf16* __restrict__ x, const uint8_t* __restrict__ w,
+    O* __restrict__ out, const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     const float* __restrict__ scales, const float* __restrict__ zeros, float* __restrict__ part,
     int* __restrict__ tickets, int M, int N, int K, int G, int per, int vec16, int aligned,
     Experts ex) {
@@ -562,17 +562,18 @@ __global__ void __launch_bounds__(C::NT, C::MINB) w4a16_prefill_kernel(
 // ---------------------------------------------------------------------------
 
 // the kernel of config cfg (the host's ops/cuda/quant_matmul.py CONFIGS):
-// 0 decode (x rows 8 or 16), 1 prefill 64 x 128, 2 prefill 128 x 256
-template <bool P, bool RAGGED>
+// 0 decode (x rows 8 or 16), 1 prefill 64 x 128, 2 prefill 128 x 256; output
+// type O (bf16, or float: the fp32-output mode)
+template <bool P, bool RAGGED, class O>
 struct Kernels {
   using P64 = Pre<64, 128, 2, 2, 2, P>;
   using P128 = Pre<128, 256, 2, 4, 1, P>;
   static void* fn(int cfg, int M) {
     if (cfg == 0)
-      return M <= 8 ? (void*)w4a16_decode_kernel<8, P, RAGGED>
-                    : (void*)w4a16_decode_kernel<16, P, RAGGED>;
-    if (cfg == 1) return (void*)w4a16_prefill_kernel<P64, RAGGED>;
-    return (void*)w4a16_prefill_kernel<P128, RAGGED>;
+      return M <= 8 ? (void*)w4a16_decode_kernel<8, P, RAGGED, O>
+                    : (void*)w4a16_decode_kernel<16, P, RAGGED, O>;
+    if (cfg == 1) return (void*)w4a16_prefill_kernel<P64, RAGGED, O>;
+    return (void*)w4a16_prefill_kernel<P128, RAGGED, O>;
   }
   static int smem(int cfg, int M) {
     if (cfg == 0) return M <= 8 ? Dec<8, P>::SMEM : Dec<16, P>::SMEM;
@@ -611,11 +612,12 @@ int configure(const void* fn, int smem) {
 // split count must cut the stages into that many non-empty runs of ceil(stages
 // / splits); with splits > 1 the fp32 partials (dense [splits, M, N], ragged
 // [tiles, splits, TM, N]) and zeroed tickets (one per output tile) are given.
-template <bool P, bool RAGGED>
+// out is O [M, N] (bf16, or float in the fp32-output mode).
+template <bool P, bool RAGGED, class O = bf16>
 int launch(int cfg, void* out, const void* x, const void* w, const void* scales,
            const void* zeros, float* part, int* tickets, int M, int N, int K, int G, int splits,
            int vec16, int tiles, Experts ex, cudaStream_t stream) {
-  using KS = Kernels<P, RAGGED>;
+  using KS = Kernels<P, RAGGED, O>;
   if (cfg < 0 || cfg > 2) return (int)cudaErrorInvalidValue;
   const int rows = P ? K / 2 : K;
   const int unit = cfg == 0 ? Dec<8, P>::SRD : SR;  // weight rows of a stage
@@ -632,7 +634,7 @@ int launch(int cfg, void* out, const void* x, const void* w, const void* scales,
   const int bm = KS::bm(cfg);
   const int bn = KS::bn(cfg);
   const dim3 grid((N + bn - 1) / bn, RAGGED ? tiles : (M + bm - 1) / bm, splits);
-  bf16* o = (bf16*)out;
+  O* o = (O*)out;
   const bf16* xx = (const bf16*)x;
   const uint8_t* ww = (const uint8_t*)w;
   const float *s = (const float*)scales, *z = (const float*)zeros;

@@ -118,10 +118,6 @@ class LLM:
             # one process a rank (torchrun's convention): every rank builds
             # the same LLM and keeps its shard of the weights
             check_tp(model_config, tp)
-            if self.quant_config.enabled:
-                raise NotImplementedError(
-                    "quantized linears under tensor parallelism are not ported yet "
-                    "(ROADMAP, queue 1)")
             device = local_device(device)
             self.tp_group = join(tp, device)
             if device.type == "cuda":
@@ -138,11 +134,13 @@ class LLM:
                 shard=shard,
             )
             if self.quant_config.quant_type == QuantType.AUTO_INT8:
-                # quantize the raw fp16/bf16 weights to W8A8 at load; the
-                # calibrated SmoothQuant variant is LLM.load_with_smooth_quant
+                # quantize the raw fp16/bf16 weights to W8A8 at load (a rank's
+                # shard with the whole weight's column scales); the calibrated
+                # SmoothQuant variant is LLM.load_with_smooth_quant
                 from .utils.quant_convert import quantize_int8_params
 
-                params = quantize_int8_params(params, alpha=self.quant_config.smooth_alpha)
+                params = quantize_int8_params(params, alpha=self.quant_config.smooth_alpha,
+                                              tp=self.tp_group)
         # the EOS set: the tokenizer's eos first, then generation_config.json's
         # ids (e.g. Llama-3's [eos, eot_id]); any member stops generation
         eos_ids: list = []
@@ -160,7 +158,7 @@ class LLM:
         if shard is not None and not is_shard(params, model_config, tp):
             # the full tree (a rank's shard, from init_params(shard=...) or
             # the loader, is taken as it is)
-            params = shard_params(params, *shard)
+            params = shard_params(params, *shard, cfg=model_config)
         params = params_to_torch(params, self.device, model_config.torch_dtype)
         self.executor = ModelExecutor(model_config, params, self.engine_config, self.device,
                                       tp=self.tp_group)

@@ -44,7 +44,8 @@ Tensor parallelism: given a rank's configuration
 (``parallel.sharding.rank_config``: its heads and ``dim_ff``), its shard of
 the weights and ``tp``, its group (``parallel.comm.TPGroup``), every function
 here runs on the rank's share; ``o_proj`` and ``down_proj`` are all-reduced
-(:func:`_reduce_linear`; MLA's ``o_proj`` and the shared expert's too), a
+(:func:`_reduce_linear`, in every weight format: dense, int4, FP8 and W8A8;
+MLA's ``o_proj`` and the shared expert's too), a
 MoE layer's routed sum over the rank's experts is all-reduced in
 ``models/moe.py``, the vocab-sharded embedding is looked up and
 all-reduced (:func:`embed`) and the logits are all-gathered
@@ -75,8 +76,9 @@ from ..ops.activations import gated_act
 from ..ops.attention import merge_window
 from ..ops.attention import prefill_attention as attend_chunk
 from ..ops.cuda import attn_headmajor, paged_attention, prefill_attention
-from ..ops.linear import linear
+from ..ops.linear import in_rows, linear, linear_f32, matmul_f32
 from ..ops.norms import layer_norm, rms_norm
+from ..ops.quant import int8_linear
 from ..ops.rope import RopeTable, apply_rope_rot, build_rope_table
 from ..parallel.sharding import shard_params
 from .base import DecodeMeta, PackedPrefillMeta, PrefillMeta
@@ -108,13 +110,24 @@ def build_rope(cfg: ModelConfig, max_model_len: int = 0) -> RopeTable:
 
 def _reduce_linear(p: Params, x: torch.Tensor, tp) -> torch.Tensor:
     """A row-parallel projection (``o_proj``, ``down_proj``). Under tensor
-    parallelism each rank's partial product stays in fp32, is all-reduced in
-    fp32 and rounded to the model's dtype once, as the reference's compiled
-    program does (its dot's fp32 result is all-reduced before the convert);
-    the (replicated) bias is added after the sum."""
+    parallelism each rank's partial product stays in fp32 (dense, int4 and
+    FP8: ``ops.linear.linear_f32``, the int4 and FP8 kernels in their
+    fp32-output modes), is all-reduced in fp32 and rounded to the model's
+    dtype once, as the reference's compiled program does (its dot's fp32
+    result is all-reduced before the convert); a W8A8 shard quantizes with
+    the whole row's absmax and all-reduces its int32 products
+    (``ops.quant.int8_linear``). The (replicated) bias is added after the
+    sum. A leaf kept whole on every rank (``parallel.sharding.shard_linear``:
+    it holds ``tp`` times the rank's input rows or more) takes the ranks'
+    inputs, all-gathered, and computes the whole product instead."""
     if tp is None:
         return linear(p, x)
-    y = tp.all_reduce(_matmul_f32(x, p["w"])).to(x.dtype)
+    if in_rows(p) >= tp.world * x.shape[-1]:
+        return linear(p, tp.all_gather(x, dim=-1))
+    if "w_q" in p:
+        y = int8_linear(p, x, tp)
+    else:
+        y = tp.all_reduce(linear_f32(p, x)).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -384,15 +397,6 @@ def backbone(
     return _norm(params["final_norm"], cfg, x), cache
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with an fp32 result. On the GPU a bf16/fp16 product goes to
-    cuBLAS with an fp32 output (fp32 accumulation, no rounding of the result
-    to bf16, which would create argmax ties); the weight is never upcast."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.matmul(a.float(), b.float())
-
-
 def get_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor, tp=None) -> torch.Tensor:
     """Project hidden states [..., d] to fp32 vocab logits [..., V], with the
     MiniCPM (dim_model_base) and Cohere (logit_scale) scalings. Under tensor
@@ -402,7 +406,7 @@ def get_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor, tp=None) 
         hidden = hidden / (cfg.dim_model / cfg.dim_model_base)
     w = params["embedding"]["w"].t() if cfg.tie_lm_head else params["lm_head"]["w"]
     lead = hidden.shape[:-1]
-    logits = _matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w)
+    logits = matmul_f32(hidden.reshape(-1, hidden.shape[-1]), w)
     if tp is not None:
         logits = tp.all_gather(logits, dim=-1)
     logits = logits.reshape(*lead, -1)
@@ -566,7 +570,7 @@ def init_params(
     each is kept (``parallel.sharding.shard_params``): every rank of a
     tensor-parallel model draws the same weights without holding them all."""
     keep = (lambda tree, path: tree) if shard is None else (
-        lambda tree, path: shard_params(tree, *shard, prefix=path))
+        lambda tree, path: shard_params(tree, *shard, prefix=path, cfg=cfg))
     dtype = dtype or cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     d, hq, hkv, dh = cfg.dim_model, cfg.num_heads, cfg.num_kv_heads, cfg.dim_head

@@ -17,6 +17,11 @@ the last bf16 bits.
 
 Weights: ``float8_e4m3fn`` ``[K, N]`` with K and N multiples of 128, none of
 them a NaN encoding (bytes 0x7f, 0xff); f32 scales ``[K/128, N/128]``.
+
+With ``out_dtype=torch.float32`` both return the fp32 sum unrounded (the
+kernel's fp32-output mode, in its wgmma and its split-K decode kernels): a
+row-parallel rank's partial product, all-reduced in fp32 and rounded once
+(``models/llama.py`` ``_reduce_linear``).
 """
 
 from __future__ import annotations
@@ -37,9 +42,11 @@ def fp8_block_matmul_plain(
     x: torch.Tensor,            # [..., K]
     w_f8: torch.Tensor,         # float8_e4m3fn [K, N]
     block_scale: torch.Tensor,  # f32 [K/128, N/128]
+    out_dtype=None,
 ) -> torch.Tensor:
     """Per 128-row K block: bf16 x times the block's weights in fp32, times
-    the block's scales; summed in fp32, rounded to bf16, cast to x's dtype."""
+    the block's scales; summed in fp32, rounded to bf16, cast to x's dtype
+    (``out_dtype=torch.float32``: the fp32 sum, unrounded)."""
     K, N = w_f8.shape
     x2 = x.reshape(-1, K).to(torch.bfloat16).float()
     wf = w_f8.float()
@@ -48,7 +55,9 @@ def fp8_block_matmul_plain(
     for kb in range(K // _B):
         blk = slice(kb * _B, (kb + 1) * _B)
         acc += torch.matmul(x2[:, blk], wf[blk]) * s[kb]
-    return acc.to(torch.bfloat16).to(x.dtype).reshape(*x.shape[:-1], N)
+    if out_dtype != torch.float32:
+        acc = acc.to(torch.bfloat16).to(x.dtype)
+    return acc.reshape(*x.shape[:-1], N)
 
 
 # the kernels (csrc/fp8_matmul.cu): 0 decode (M <= 16), 1 wgmma prefill;
@@ -87,7 +96,7 @@ def _entry():
     fn = _build.library("fp8_matmul").zt_fp8_block_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -99,11 +108,15 @@ def fp8_block_matmul(
     x: torch.Tensor,
     w_f8: torch.Tensor,
     block_scale: torch.Tensor,
+    out_dtype=None,
 ) -> torch.Tensor:
     """``x_bf16 · (W_e4m3 ⊙ block_scale[k/128, n/128])``, the scale applied to
-    each K block's fp32 partial sum; [..., N] in x's dtype."""
+    each K block's fp32 partial sum; [..., N] in x's dtype, or unrounded with
+    ``out_dtype=torch.float32``."""
+    if out_dtype not in (None, x.dtype, torch.float32):
+        raise NotImplementedError(f"fp8_block_matmul: out_dtype {out_dtype}: x's dtype or float32")
     if x.device.type == "cpu":
-        return fp8_block_matmul_plain(x, w_f8, block_scale)
+        return fp8_block_matmul_plain(x, w_f8, block_scale, out_dtype)
     if not x.is_cuda:
         raise NotImplementedError(f"fp8_block_matmul: no kernel for device {x.device}")
     if w_f8.dtype != torch.float8_e4m3fn or w_f8.dim() != 2:
@@ -116,7 +129,8 @@ def fp8_block_matmul(
         raise ValueError(f"fp8_block_matmul: x {tuple(x.shape)}, w_f8 {tuple(w_f8.shape)}, "
                          f"block_scale {tuple(block_scale.shape)}")
     if x.dtype == torch.float16:  # as the reference's kernel: x to bf16, the result back
-        return fp8_block_matmul(x.to(torch.bfloat16), w_f8, block_scale).to(x.dtype)
+        y = fp8_block_matmul(x.to(torch.bfloat16), w_f8, block_scale, out_dtype=out_dtype)
+        return y if out_dtype == torch.float32 else y.to(x.dtype)
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(f"fp8_block_matmul kernel takes bf16 or fp16 activations, got {x.dtype}")
     if block_scale.dtype != torch.float32:
@@ -125,7 +139,7 @@ def fp8_block_matmul(
         raise ValueError("fp8_block_matmul: x must be contiguous")
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty((M, N), dtype=out_dtype or x.dtype, device=x.device)
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
     for t in (x2, w_f8, block_scale, out):
@@ -142,7 +156,8 @@ def fp8_block_matmul(
         part, tickets = dev.scratch(splits, M, N, -(-M // BM) * -(-N // BN))
     err = _entry()(
         out.data_ptr(), x2.data_ptr(), w_f8.data_ptr(), block_scale.data_ptr(), part, tickets,
-        M, N, K, cfg, splits, torch.cuda.current_stream(x.device).cuda_stream,
+        M, N, K, cfg, splits, int(out.dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "fp8_block_matmul")
     fp8_block_matmul.launches += 1

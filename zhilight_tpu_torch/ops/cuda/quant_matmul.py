@@ -12,6 +12,11 @@ on the host (:func:`plan`, cached by shape) and owns the split-K scratch.
 
 Weights: uint8 ``[K/2, N]`` in the global-planar layout (``ops/quant.pack_int4``)
 or int8 nibbles ``[K, N]``; f32 scales and zeros ``[G, N]``, group size K/G.
+
+The result is x's dtype, or with ``out_dtype=torch.float32`` the fp32
+accumulators unrounded (the kernel's fp32-output mode: its epilogue stores
+fp32): a row-parallel rank's partial product, all-reduced in fp32 and
+rounded once (``models/llama.py`` ``_reduce_linear``).
 """
 
 from __future__ import annotations
@@ -31,10 +36,12 @@ def w4a16_matmul_plain(
     w_p: torch.Tensor,     # uint8 [K/2, N] planar or int8 [K, N] nibbles
     scales: torch.Tensor,  # f32 [G, N]
     zeros: torch.Tensor,   # f32 [G, N]
+    out_dtype=None,
 ) -> torch.Tensor:
-    """Dequantize to x's dtype, multiply in fp32, round to x's dtype."""
+    """Dequantize to x's dtype, multiply in fp32, round to x's dtype (or to
+    ``out_dtype``: fp32 keeps the product unrounded)."""
     w = dequant_int4(w_p, scales, zeros, x.dtype)
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
 
 
 # the kernels (csrc/quant_matmul.cu): 0 decode (M <= 16), 1 prefill with
@@ -91,7 +98,7 @@ def _entry():
     fn = _build.library("quant_matmul").zt_w4a16_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -140,7 +147,7 @@ def _run(x2, w_p, scales, zeros, out, planar: bool, cfg_splits=None) -> None:
     err = _entry()(
         out.data_ptr(), x2.data_ptr(), w_p.data_ptr(), scales.data_ptr(), zeros.data_ptr(),
         part, tickets, M, N, K, G, int(planar), cfg, splits, vec16,
-        torch.cuda.current_stream(x2.device).cuda_stream,
+        int(out.dtype == torch.float32), torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(err, "w4a16_matmul")
 
@@ -150,10 +157,14 @@ def w4a16_matmul(
     w_p: torch.Tensor,
     scales: torch.Tensor,
     zeros: torch.Tensor,
+    out_dtype=None,
 ) -> torch.Tensor:
-    """``x · ((w - zero_g) · scale_g)`` with fp32 accumulation; [..., N] in x's dtype."""
+    """``x · ((w - zero_g) · scale_g)`` with fp32 accumulation; [..., N] in x's
+    dtype, or unrounded with ``out_dtype=torch.float32``."""
+    if out_dtype not in (None, x.dtype, torch.float32):
+        raise NotImplementedError(f"w4a16_matmul: out_dtype {out_dtype}: x's dtype or float32")
     if x.device.type == "cpu":
-        return w4a16_matmul_plain(x, w_p, scales, zeros)
+        return w4a16_matmul_plain(x, w_p, scales, zeros, out_dtype)
     if not x.is_cuda:
         raise NotImplementedError(f"w4a16_matmul: no kernel for device {x.device}")
     planar = w_p.dtype == torch.uint8
@@ -168,7 +179,8 @@ def w4a16_matmul(
             f"scales {tuple(scales.shape)}, zeros {tuple(zeros.shape)}"
         )
     if x.dtype == torch.float16:  # as the reference's kernel: x to bf16, the result back
-        return w4a16_matmul(x.to(torch.bfloat16), w_p, scales, zeros).to(x.dtype)
+        y = w4a16_matmul(x.to(torch.bfloat16), w_p, scales, zeros, out_dtype=out_dtype)
+        return y if out_dtype == torch.float32 else y.to(x.dtype)
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(f"w4a16_matmul kernel takes bf16 or fp16 activations, got {x.dtype}")
     if scales.dtype != torch.float32 or zeros.dtype != torch.float32:
@@ -176,7 +188,7 @@ def w4a16_matmul(
     if N % 8 or rows % 8:
         raise NotImplementedError(f"w4a16_matmul kernel: N {N} and weight rows {rows} must be multiples of 8")
     x2 = x.reshape(-1, K).contiguous()
-    out = torch.empty((x2.shape[0], N), dtype=x.dtype, device=x.device)
+    out = torch.empty((x2.shape[0], N), dtype=out_dtype or x.dtype, device=x.device)
     for t, align in ((x2, 16), (w_p, 8), (scales, 16), (zeros, 16), (out, 16)):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError("w4a16_matmul: tensors must be contiguous, aligned and on one device")

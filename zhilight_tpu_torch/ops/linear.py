@@ -22,7 +22,7 @@ import torch
 
 from .quant import fp8_linear, int4_linear, int8_linear
 
-__all__ = ["linear"]
+__all__ = ["linear", "linear_f32", "matmul_f32", "in_rows"]
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -39,3 +39,37 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with an fp32 result. On the GPU a bf16/fp16 product goes to
+    cuBLAS with an fp32 output (fp32 accumulation, no rounding of the result
+    to bf16, which would create argmax ties); the weight is never upcast."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32).reshape(
+            *a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
+def linear_f32(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The product of :func:`linear` without its bias, unrounded in fp32: a
+    row-parallel rank's partial sum, all-reduced before it is rounded once.
+    Dense, int4 (the ``w4a16_matmul`` kernel's fp32-output mode) and FP8 (the
+    ``fp8_block_matmul`` kernel's, or the dequantized weight through
+    :func:`matmul_f32`); a W8A8 shard reduces inside ``int8_linear``."""
+    if "w" in p:
+        return matmul_f32(x, p["w"])
+    if "w_p" in p:
+        return int4_linear(p, x, out_dtype=torch.float32)
+    if "w_f8" in p:
+        return fp8_linear(p, x, out_dtype=torch.float32)
+    raise ValueError(f"no fp32 partial product for linear param format {sorted(p)}")
+
+
+def in_rows(p: Dict[str, torch.Tensor]) -> int:
+    """The input rows a linear entry holds: its weight's, an int4 planar
+    weight's unpacked (a padded one's padding included)."""
+    if "w_p" in p:
+        w = p["w_p"]
+        return w.shape[-2] * (2 if w.dtype == torch.uint8 else 1)
+    return p[next(k for k in ("w", "w_q", "w_f8") if k in p)].shape[-2]

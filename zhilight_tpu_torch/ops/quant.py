@@ -42,6 +42,8 @@ __all__ = [
     "quantize_int8_weight",
     "pack_int4",
     "unpack_int4",
+    "pad_int4_groups",
+    "packable_int4",
     "dequant_int4",
     "pack_expert_int4",
     "unpack_expert_int4",
@@ -55,20 +57,22 @@ __all__ = [
 INT4_PACK_FORMAT = 2
 
 
-def int4_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """W4A16 groupwise linear: ``x · ((w - zero_g) · scale_g)``."""
+def int4_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """W4A16 groupwise linear: ``x · ((w - zero_g) · scale_g)``, in x's dtype
+    or ``out_dtype`` (``torch.float32``: a row-parallel rank's unrounded
+    partial product)."""
     from .cuda import quant_matmul
 
     Kw = p["w_p"].shape[-2] * (2 if p["w_p"].dtype == torch.uint8 else 1)
     if x.shape[-1] < Kw:
         # the loader padded K to a multiple of 2*group_size with zero-scale
-        # groups (hf_loader._pad_canon_int4): pad the activation columns
+        # groups (pad_int4_groups): pad the activation columns
         x = F.pad(x, (0, Kw - x.shape[-1]))
     if "perm" in p:
         # GPTQ act-order: the loader sorted the weight rows so each group is
         # contiguous; gather the activations with the same permutation
         x = x.index_select(-1, p["perm"])
-    return quant_matmul.w4a16_matmul(x, p["w_p"], p["scales"], p["zeros"])
+    return quant_matmul.w4a16_matmul(x, p["w_p"], p["scales"], p["zeros"], out_dtype=out_dtype)
 
 
 def pack_int4(w_nib: torch.Tensor) -> torch.Tensor:
@@ -101,6 +105,38 @@ def dequant_int4(
     wf = w_p.to(torch.float32).reshape(G, K // G, N)
     w = (wf - zeros[:, None, :]) * scales[:, None, :]
     return w.reshape(K, N).to(dtype)
+
+
+def packable_int4(rows: int) -> bool:
+    """Whether int4 nibble rows [K, N] (padded by :func:`pad_int4_groups`)
+    go into the planar layout: K a multiple of 256, the kernel's planar
+    stage."""
+    return rows % 256 == 0
+
+
+def pad_int4_groups(canon: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Pad a canonical int4 entry's K (int8 nibbles ``[..., K, N]``, scales
+    and zeros ``[..., G, N]``, perm ``[..., K]``; a single linear or an expert
+    stack) to a multiple of 2 * group_size, so that every group lies inside
+    one plane of the planar layout. The padding groups have zero scales and
+    zeros, which keeps the product exact; :func:`int4_linear` pads the
+    activation columns with zeros at call time, and a padded perm maps the
+    new rows to themselves."""
+    w = canon["w_p"]
+    K, G = w.shape[-2], canon["scales"].shape[-2]
+    gs = K // G
+    K2 = -(-K // (2 * gs)) * (2 * gs)
+    if K2 == K:
+        return canon
+    out = dict(canon)
+    out["w_p"] = F.pad(w, (0, 0, 0, K2 - K))
+    for k in ("scales", "zeros"):
+        out[k] = F.pad(canon[k], (0, 0, 0, K2 // gs - G))
+    if "perm" in canon:
+        p = canon["perm"]
+        extra = torch.arange(K, K2, dtype=p.dtype, device=p.device).expand(*p.shape[:-1], K2 - K)
+        out["perm"] = torch.cat([p, extra], dim=-1)
+    return out
 
 
 def pack_expert_int4(w_nib: torch.Tensor) -> torch.Tensor:
@@ -174,20 +210,30 @@ def ragged_layout(flat_experts: torch.Tensor, num_experts: int, tm: int, occ_exp
 # INT8 (W8A8, SmoothQuant)
 # ---------------------------------------------------------------------------
 
-def quantize_int8_weight(w: torch.Tensor):
+def quantize_int8_weight(w: torch.Tensor, reduce=None):
     """Per-output-channel absmax int8 quantization: w [in, out] ->
-    (w_q int8, scale f32 [out])."""
+    (w_q int8, scale f32 [out]). ``reduce`` maps the column absmax [out]
+    first (a row-parallel shard's MAX over the ranks, so that its scales
+    and codes are the whole weight's)."""
     wf = w.float()
-    scale = (wf.abs().amax(0) / 127.0).clamp_min(1e-8)
+    amax = wf.abs().amax(0)
+    if reduce is not None:
+        amax = reduce(amax)
+    scale = (amax / 127.0).clamp_min(1e-8)
     w_q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
     return w_q, scale
 
 
-def _quantize_act_per_token(x: torch.Tensor):
+def _quantize_act_per_token(x: torch.Tensor, reduce=None):
     """Dynamic per-token absmax int8 activation quantization: x [..., in] ->
-    (q int8, scale f32 [..., 1]); round half to even, as the reference."""
+    (q int8, scale f32 [..., 1]); round half to even, as the reference.
+    ``reduce`` maps the per-token absmax [..., 1] first (a row-parallel
+    shard's MAX over the ranks)."""
     xf = x.float()
-    scale = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(-1, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax)
+    scale = (amax / 127.0).clamp_min(1e-8)
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -213,14 +259,29 @@ def _int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(padded, w_q)[:M]
 
 
-def int8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def int8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, tp=None) -> torch.Tensor:
     """W8A8: smooth-scale x, dynamic per-token int8 quantization, an int8 x
-    int8 product with int32 accumulation, then the two scales."""
+    int8 product with int32 accumulation, then the two scales.
+
+    ``tp`` (a tensor-parallel group, ``parallel.comm.TPGroup``): ``p`` is a
+    row-parallel rank's shard (its K / tp rows of ``w_q`` and of
+    ``smooth``, the whole ``scale``) and x the rank's columns. The per-token
+    absmax is then the whole row's (a MAX all-reduce before quantizing) and
+    the int32 products are summed over the ranks (an exact all-reduce) before
+    the scales: the codes, the accumulator and the result are the unsharded
+    ones, bit for bit."""
     if "smooth" in p:
         x = x * p["smooth"].to(x.dtype)
-    x_q, x_scale = _quantize_act_per_token(x)
+    reduce = None
+    if tp is not None:
+        import torch.distributed as dist
+
+        reduce = lambda amax: tp.all_reduce(amax, op=dist.ReduceOp.MAX)  # noqa: E731
+    x_q, x_scale = _quantize_act_per_token(x, reduce)
     K = x_q.shape[-1]
     acc = _int8_matmul(x_q.reshape(-1, K), p["w_q"]).reshape(*x_q.shape[:-1], -1)
+    if tp is not None:
+        acc = tp.all_reduce(acc)
     y = acc.float() * x_scale * p["scale"]
     return y.to(x.dtype)
 
@@ -229,12 +290,19 @@ def int8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 # FP8
 # ---------------------------------------------------------------------------
 
-def fp8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def fp8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """FP8 (e4m3) weight linear with a per-tensor or per-channel ``scale`` or
     block scales. A CUDA tensor over 128 x 128 blocks goes to the
     ``fp8_block_matmul`` kernel (bf16 activations, the weight read as one
     byte each and never dequantized in device memory); every other case
-    dequantizes in fp32, rounds the weight to x's dtype and multiplies."""
+    dequantizes in fp32, rounds the weight to x's dtype and multiplies. The
+    result is in x's dtype, or unrounded fp32 with ``out_dtype=torch.float32``
+    (a row-parallel rank's partial product)."""
+    from .linear import matmul_f32
+
+    if out_dtype not in (None, x.dtype, torch.float32):
+        raise NotImplementedError(f"fp8_linear: out_dtype {out_dtype}")
+    f32 = out_dtype == torch.float32
     w = p["w_f8"]
     if "block_scale" in p:
         bs = p["block_scale"]  # [in/B, out/B]
@@ -242,10 +310,11 @@ def fp8_linear(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         if x.is_cuda and K % 128 == 0 and N % 128 == 0 and bs.shape == (K // 128, N // 128):
             from .cuda.fp8_matmul import fp8_block_matmul
 
-            return fp8_block_matmul(x.to(torch.bfloat16), w, bs).to(x.dtype)
+            y = fp8_block_matmul(x.to(torch.bfloat16), w, bs, out_dtype=torch.float32 if f32 else None)
+            return y if f32 else y.to(x.dtype)
         Bk, Bn = K // bs.shape[0], N // bs.shape[1]
         wf = w.float().reshape(bs.shape[0], Bk, bs.shape[1], Bn) * bs[:, None, :, None]
         w_deq = wf.reshape(K, N).to(x.dtype)
     else:
         w_deq = (w.float() * p["scale"]).to(x.dtype)
-    return torch.matmul(x, w_deq)
+    return matmul_f32(x, w_deq) if f32 else torch.matmul(x, w_deq)

@@ -10,6 +10,18 @@ products and all-gathers the vocab-sharded logits itself.
 Linear weights are stored ``[in, out]`` (x @ W). "Column parallel" (COL)
 shards the output dim, "row parallel" (ROW) the input dim (its product is a
 partial sum), and REP leaves the leaf whole on every rank.
+
+Quantized linears (int4, FP8, W8A8; ``ops/quant.py``) and fused ``qkv_proj``
+/ ``gate_up_proj`` leaves are sharded a linear at a time
+(:func:`shard_linear`), their role read from the rule of the linear's
+``.w``. The reference names no rule for ``w_p``, ``scales``, ``w_f8``...
+and replicates them; the port shards them with their scales, so that a rank
+holds and reads ``1 / tp`` of the weight bytes (PERF.md, "why shard"). A
+row-parallel leaf that a slice of ``K / tp`` rows would not keep exact (an
+int4 leaf with an act-order ``perm``, a cut quant group or 128-row scale
+block) stays whole on every rank, as the reference keeps it: the model then
+gathers the rank's input and runs the whole product (``models/llama.py``
+``_reduce_linear``, which tells the two apart by the rows the leaf holds).
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..config.model_config import ModelConfig
+from ..ops.linear import in_rows
+from ..ops.quant import pack_int4, packable_int4, pad_int4_groups, unpack_int4
 from ..utils.convert import to_tensor
 
 __all__ = [
@@ -29,6 +43,7 @@ __all__ = [
     "param_shard_dim",
     "shard_params",
     "shard_leaf",
+    "shard_linear",
     "check_tp",
     "rank_config",
 ]
@@ -77,10 +92,13 @@ _RULES = [
 
 _COMPILED = [(re.compile(pat), dim) for pat, dim in _RULES]
 
-# the keys that mark a quantized linear (ops/linear.py); only expert stacks shard them
+# the keys that mark a quantized linear (ops/linear.py)
 _QUANT_KEYS = ("w_p", "w_q", "w_f8")
 # fused projections, whose parts a single column slice would cut across
 _FUSED = ("qkv_proj", "gate_up_proj")
+# the leaves of a linear entry that stay whole in a column slice: input-side
+# vectors (an int4 act-order perm, a SmoothQuant smooth)
+_INPUT_SIDE = ("perm", "smooth")
 # a path inside an expert stack
 _EXPERTS = re.compile(r"\.mlp\.experts\.")
 
@@ -115,25 +133,154 @@ def shard_leaf(path: str, leaf: Any, rank: int, tp: int) -> torch.Tensor:
     return t.narrow(dim, rank * (n // tp), n // tp).clone(memory_format=torch.contiguous_format)
 
 
-def shard_params(params: Dict[str, Any], rank: int, tp: int, prefix: str = "") -> Dict[str, Any]:
-    """Rank ``rank``'s shard of a nested parameter tree, leaf by leaf
-    (``prefix`` is the tree's own path in the model's, for a subtree). An
-    int4 expert stack (``.mlp.experts.``) is sliced on its expert dim, as the
-    reference's rules slice it; any other quantized linear raises: the
-    reference replicates dense quantized leaves, and serving them under
-    tensor parallelism waits for its own slice."""
+def _copy(t: torch.Tensor) -> torch.Tensor:
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _out_cols(entry: Dict[str, Any]) -> int:
+    """The output columns of a linear entry's weight, in any format."""
+    return to_tensor(next(entry[k] for k in ("w", "w_p", "w_q", "w_f8") if k in entry)).shape[-1]
+
+
+def _col_part(path: str, entry: Dict[str, torch.Tensor], off: int, n: int) -> Dict[str, torch.Tensor]:
+    """Output columns ``[off, off + n)`` of a linear entry: the weight's
+    columns (an int4 one's packed bytes are per column), their scales,
+    zeros and bias; input-side vectors and a per-tensor scale whole. FP8
+    block scales take their blocks: the slice must not cut one."""
+    N = _out_cols(entry)
+    out = {}
+    for k, t in entry.items():
+        if k == "block_scale":
+            bn = N // t.shape[-1]
+            if off % bn or n % bn:
+                raise ValueError(f"{path}: the column slice [{off}, {off + n}) cuts its "
+                                 f"{bn}-column FP8 scale blocks")
+            out[k] = t[..., off // bn:(off + n) // bn]
+        elif k in _INPUT_SIDE or t.dim() == 0:
+            out[k] = t
+        else:  # w, w_p, w_q, w_f8, scales, zeros, a per-channel scale, b
+            out[k] = t[..., off:off + n]
+    return out
+
+
+def _row_part(entry: Dict[str, torch.Tensor], rank: int, tp: int) -> Optional[Dict[str, torch.Tensor]]:
+    """Rank ``rank``'s ``K / tp`` input rows of a quantized linear entry, or
+    None where the slice would not be exact and the leaf stays whole: an
+    act-order ``perm`` (its sorted groups draw on every input row), K that tp
+    does not divide, a slice that cuts an int4 group or a 128-row FP8 scale
+    block, an int4 leaf already padded (a trailing zero-scale group, from
+    ``pad_int4_groups``), or an int4 shard whose own padding would make it
+    as wide as the whole (so that the model can tell a shard from a whole
+    leaf by its rows). Output-side scales and the bias stay whole; an int4
+    shard is padded on its own and repacked planar where its rows allow."""
+    K = in_rows(entry)
+    if "perm" in entry or K % tp:
+        return None
+    k = K // tp
+    lo = rank * k
+    out = {}
+    if "w_p" in entry:
+        scales = entry["scales"]
+        gs = K // scales.shape[-2]
+        if k % gs or not scales[-1].any():
+            return None
+        w = entry["w_p"]
+        nib = unpack_int4(w) if w.dtype == torch.uint8 else w
+        shard = pad_int4_groups({"w_p": nib[lo:lo + k], "scales": scales[lo // gs:(lo + k) // gs],
+                                 "zeros": entry["zeros"][lo // gs:(lo + k) // gs]})
+        rows = shard["w_p"].shape[0]
+        if rows >= tp * k:
+            return None
+        if packable_int4(rows):
+            shard["w_p"] = pack_int4(shard["w_p"])
+        out.update(shard)
+    elif "block_scale" in entry:
+        bs = entry["block_scale"]
+        bk = K // bs.shape[0]
+        if k % bk:
+            return None
+        out["w_f8"], out["block_scale"] = entry["w_f8"][lo:lo + k], bs[lo // bk:(lo + k) // bk]
+    else:
+        wk = next(key for key in ("w", "w_q", "w_f8") if key in entry)
+        out[wk] = entry[wk][lo:lo + k]
+        if "smooth" in entry:
+            out["smooth"] = entry["smooth"][lo:lo + k]
+    for key in ("scale", "b"):
+        if key in entry:
+            out[key] = entry[key]
+    return out
+
+
+def shard_linear(path: str, entry: Dict[str, Any], rank: int, tp: int,
+                 parts: Optional[list] = None) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s entry of the linear at ``path`` (as
+    ``"layers.0.attn.o_proj"``), dense or quantized (``ops/linear.py``'s
+    formats), every leaf its own contiguous tensor so that the whole entry
+    can be freed. The role is the rule of ``path + ".w"``:
+
+    - COL: the rank's output columns of the weight, its scales, zeros and
+      bias; with ``parts`` (the column widths of a fused leaf: q, k, v or
+      gate, up) the rank's slice of each part, concatenated ``[q_r | k_r |
+      v_r]``, so that the rank's output splits as the whole one does. Raises
+      ``ValueError`` where tp does not divide a part, or a part's slice would
+      cut an FP8 scale block.
+    - ROW: the rank's ``K / tp`` input rows with their groups (an int4
+      planar weight unpacked, sliced, padded and repacked on its own) or
+      scale blocks, its smooth vector's rows; the output-side scale and the
+      bias whole. Where that would not be exact (:func:`_row_part`) the entry
+      stays whole on every rank.
+    - REP (MLA's a-projections): whole."""
+    entry = {k: to_tensor(v) for k, v in entry.items()}
+    role = param_shard_dim(path + ".w", 2)
+    if tp == 1 or role is None:
+        return entry
+    if role == COL:
+        N = _out_cols(entry)
+        widths = list(parts or [N])
+        if sum(widths) != N:
+            raise ValueError(f"{path}: parts {widths} do not make its {N} columns")
+        pieces, off = [], 0
+        for n in widths:
+            if n % tp:
+                raise ValueError(f"{path}: a part of {n} columns does not divide by tp={tp}")
+            pieces.append(_col_part(path, entry, off + rank * (n // tp), n // tp))
+            off += n
+        return {k: _copy(pieces[0][k]) if k in _INPUT_SIDE or entry[k].dim() == 0
+                else torch.cat([p[k] for p in pieces], dim=-1).contiguous() for k in entry}
+    if "w" in entry:  # a dense row-parallel leaf: sliced as shard_leaf slices it
+        return {k: shard_leaf(f"{path}.{k}", v, rank, tp) for k, v in entry.items()}
+    part = _row_part(entry, rank, tp)
+    return {k: _copy(v) for k, v in (entry if part is None else part).items()}
+
+
+def fused_parts(name: str, entry: Dict[str, Any], cfg: ModelConfig) -> Optional[list]:
+    """The column widths of a fused projection's parts (``gate_up_proj``:
+    two halves; ``qkv_proj``: q, k and v by the model's heads), or None for
+    any other linear."""
+    if name == "gate_up_proj":
+        N = _out_cols(entry)
+        return [N // 2, N // 2]
+    if name == "qkv_proj":
+        q, kv = cfg.num_heads * cfg.dim_head, cfg.num_kv_heads * cfg.dim_head
+        return [q, kv, kv]
+    return None
+
+
+def shard_params(params: Dict[str, Any], rank: int, tp: int, cfg: ModelConfig,
+                 prefix: str = "") -> Dict[str, Any]:
+    """Rank ``rank``'s shard of a nested parameter tree of the model ``cfg``
+    (``prefix`` is the tree's own path in the model's, for a subtree). Dense
+    leaves are sliced leaf by leaf; a quantized linear or a fused
+    ``qkv_proj`` / ``gate_up_proj`` a linear at a time (:func:`shard_linear`;
+    a fused ``qkv_proj``'s parts by ``cfg``'s heads). An expert stack (``.mlp.experts.``), fused or
+    quantized, is sliced on its expert dim, as the reference's rules slice
+    it."""
 
     def walk(tree, path):
-        # an expert stack keeps whole experts, fused or quantized: it shards on the expert dim
-        experts = _EXPERTS.search(path + ".")
-        if tp > 1 and not experts and any(k in tree for k in _QUANT_KEYS):
-            raise NotImplementedError(
-                f"{path}: quantized linears under tensor parallelism are not ported yet "
-                "(ROADMAP, queue 1)")
-        if tp > 1 and not experts and any(k in tree for k in _FUSED):
-            # one slice of [q | k | v] or [gate | up] would not be the rank's heads or columns
-            raise NotImplementedError(f"{path}: split fused projections {_FUSED} into their "
-                                      "parts before sharding them")
+        name = path.rsplit(".", 1)[-1]
+        if (tp > 1 and not _EXPERTS.search(path + ".")
+                and (any(k in tree for k in _QUANT_KEYS) or (name in _FUSED and "w" in tree))):
+            return shard_linear(path, tree, rank, tp, fused_parts(name, tree, cfg))
         return {k: walk(v, f"{path}.{k}" if path else k) if isinstance(v, dict)
                 else shard_leaf(f"{path}.{k}" if path else k, v, rank, tp)
                 for k, v in tree.items()}

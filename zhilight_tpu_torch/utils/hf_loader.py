@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from ..config.model_config import ModelConfig
-from ..ops.quant import pack_expert_int4, pack_int4
-from ..parallel.sharding import shard_leaf
+from ..ops.quant import pack_expert_int4, pack_int4, packable_int4, pad_int4_groups
+from ..parallel.sharding import shard_leaf, shard_linear
 from .convert import to_tensor
 from .quant_convert import convert_quant_tensors, planar_from_gptq
 
@@ -191,9 +191,13 @@ def map_hf_params(
     of each quantized linear into the formats of ``ops/quant.py``. With
     ``shard=(rank, tp)`` each dense tensor is sliced to rank ``rank``'s shard
     as it is read (``parallel.sharding.shard_leaf``), so that no rank holds
-    more than one full tensor at a time, and only the tensors of the rank's
-    experts ``[rank * E / tp, (rank + 1) * E / tp)`` are read into its expert
-    stacks (bf16 or int4); a quantized dense linear raises."""
+    more than one full tensor at a time; each quantized linear is converted
+    whole (an int4 one to its unpadded canonical or planar form) and then
+    cut to the rank's entry (``parallel.sharding.shard_linear``: its columns
+    or rows with their scales, an int4 row shard padded and packed on its
+    own), the whole freed before the next; and only the tensors of the
+    rank's experts ``[rank * E / tp, (rank + 1) * E / tp)`` are read into its
+    expert stacks (bf16, int4 or FP8)."""
     dtype = dtype or cfg.torch_dtype
     # under tensor parallelism a rank keeps experts [e0, e0 + E / tp) (their
     # stack index e - e0) and never converts or places another rank's
@@ -227,10 +231,6 @@ def map_hf_params(
             path, _, e = mapped
             if not mine(e):
                 continue
-            if e is None and shard is not None and shard[1] > 1:
-                raise NotImplementedError(
-                    f"{path}: quantized linears under tensor parallelism are not ported yet "
-                    "(ROADMAP, queue 1)")
             e = None if e is None else e - e_lo
             entry = quant_stash.setdefault(path[: -len(".w")], {})
             value = to_tensor(arr) if kind in _FP8_KINDS else _numpy(arr)
@@ -264,7 +264,7 @@ def map_hf_params(
         _set_path(tree, path, torch.stack([experts[i] for i in range(max(experts) + 1)]))
 
     if quant_stash:
-        _convert_quant_stash(tree, quant_stash, quant_method, dtype, device)
+        _convert_quant_stash(tree, quant_stash, quant_method, dtype, device, shard)
 
     if strict and unmapped:
         raise ValueError(f"unmapped checkpoint tensors: {unmapped[:10]}")
@@ -287,7 +287,7 @@ def _gptq_trivial_gidx(entry) -> bool:
 def _planar_fast_path_ok(entry) -> bool:
     """The direct int32 -> planar pack needs K % 256 == 0 and every group
     inside one nibble plane (K % (2*gs) == 0); otherwise go canonical so
-    _pad_canon_int4 can pad."""
+    pad_int4_groups can pad."""
     K = entry["qweight"].shape[0] * 8
     gs = K // entry["scales"].shape[0]
     return K % 256 == 0 and K % (2 * gs) == 0
@@ -308,7 +308,8 @@ def _convert_expert_stack(entry, quant_method):
         K = parts[0]["w_p"].shape[0]
         for p in parts:
             p.setdefault("perm", np.arange(K, dtype=np.int32))
-    return _pad_canon_int4({k: np.stack([p[k] for p in parts], axis=0) for k in parts[0]})
+    return pad_int4_groups(_int4_tensors({k: np.stack([p[k] for p in parts], axis=0)
+                                          for k in parts[0]}))
 
 
 def _as_e4m3(t: torch.Tensor) -> torch.Tensor:
@@ -336,8 +337,9 @@ def _fp8_dequant_host(w_oi, scale_oi, dtype=None, device=None) -> torch.Tensor:
     return t.t().contiguous().to(dtype or torch.bfloat16)
 
 
-def _convert_fp8_entry(tree, path, entry, dtype, device):
-    """One FP8 linear (or per-expert stack): apply its scales.
+def _convert_fp8_entry(path, entry, dtype, device) -> Dict[str, torch.Tensor]:
+    """One FP8 linear (or per-expert stack): apply its scales; returns its
+    entry.
 
     By default the weight is dequantized at load to the model dtype and
     served as a dense ``w`` (experts stacked ``[E, in, out]``).
@@ -351,9 +353,7 @@ def _convert_fp8_entry(tree, path, entry, dtype, device):
     if w is None:
         # a scale without a stashed weight (the weight was not one byte wide
         # and went through the dense rule): record the scale
-        if scale is not None:
-            _set_path(tree, path + ".block_scale", scale.to(device).float().t().contiguous())
-        return
+        return {} if scale is None else {"block_scale": scale.to(device).float().t().contiguous()}
     per_expert = isinstance(w, dict)
     if per_expert:
         E = max(w) + 1
@@ -370,29 +370,36 @@ def _convert_fp8_entry(tree, path, entry, dtype, device):
         wt = [_as_e4m3(x.to(device)).view(torch.uint8).t().contiguous() for x in ws]
         st = [s.to(device).float().t().contiguous() for s in ss]
         w_f8 = (torch.stack(wt) if per_expert else wt[0]).view(torch.float8_e4m3fn)
-        _set_path(tree, path + ".w_f8", w_f8)
-        _set_path(tree, path + ".block_scale", torch.stack(st) if per_expert else st[0])
-        return
+        return {"w_f8": w_f8, "block_scale": torch.stack(st) if per_expert else st[0]}
     deq = [_fp8_dequant_host(x, s, dtype, device) for x, s in zip(ws, ss)]
-    _set_path(tree, path + ".w", torch.stack(deq) if per_expert else deq[0])
+    return {"w": torch.stack(deq) if per_expert else deq[0]}
 
 
-def _convert_quant_stash(tree, quant_stash, quant_method, dtype, device):
+def _int4_tensors(canon) -> Dict[str, torch.Tensor]:
+    """A canonical int4 entry's numpy arrays as torch tensors (nibbles int8,
+    perm int32, scales and zeros f32)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.astype({"w_p": np.int8, "perm": np.int32}.get(k, np.float32)))) for k, v in canon.items()}
+
+
+def _convert_quant_stash(tree, quant_stash, quant_method, dtype, device, shard=None):
+    """Convert each stashed quantized linear, and set it; under ``shard``
+    (rank, tp) a linear that is not an expert stack is cut to the rank's
+    entry first (``shard_linear``)."""
     for path, entry in quant_stash.items():
+        per_expert = isinstance(next(iter(entry.values())), dict)
         if quant_method == "fp8":
-            _convert_fp8_entry(tree, path, entry, dtype, device)
-            continue
-        if isinstance(next(iter(entry.values())), dict):  # per-expert quant tensors
-            for k, v in _convert_expert_stack(entry, quant_method).items():
-                t = torch.from_numpy(v.astype({"w_p": np.int8, "perm": np.int32}.get(k, np.float32)))
+            out = _convert_fp8_entry(path, entry, dtype, device)
+        elif per_expert:  # per-expert quant tensors
+            out = {}
+            for k, t in _convert_expert_stack(entry, quant_method).items():
                 t = t.to(device)
-                if k == "w_p" and v.shape[1] % 2 == 0:
+                if k == "w_p" and t.shape[1] % 2 == 0:
                     # 4 bits a weight, each expert planar-packed on its own
                     # (ops/quant.pack_expert_int4), packed on the device
                     t = pack_expert_int4(t)
-                _set_path(tree, f"{path}.{k}", t)
-            continue
-        if (
+                out[k] = t
+        elif (
             quant_method == "gptq"
             and "qweight" in entry
             and _planar_fast_path_ok(entry)
@@ -406,51 +413,27 @@ def _convert_quant_stash(tree, quant_stash, quant_method, dtype, device):
                 quant_method,
             )
             qweight = torch.from_numpy(entry["qweight"]).to(device)
-            _set_path(tree, f"{path}.w_p", planar_from_gptq(qweight))
-            _set_path(tree, f"{path}.scales", torch.from_numpy(meta["scales"]).to(device))
-            _set_path(tree, f"{path}.zeros", torch.from_numpy(meta["zeros"]).to(device))
-            continue
-        canon = convert_quant_tensors(entry, quant_method)
-        if canon is None:
-            continue
-        for k, v in _pad_canon_int4(canon).items():
-            t = torch.from_numpy(v.astype({"w_p": np.int8, "perm": np.int32}.get(k, np.float32)))
-            if k == "w_p" and _packable_int4(v.shape):
-                # 4 bits/weight in device memory (ops/quant.pack_int4 layout)
-                t = pack_int4(t)
-            _set_path(tree, f"{path}.{k}", t.to(device))
-
-
-def _pad_canon_int4(canon):
-    """Pad the canonical int4 K dim to a multiple of 2*group_size.
-
-    The planar packed layout needs every quant group inside one nibble plane.
-    Padding K at the end with zero-SCALE groups keeps the dequant exact, and
-    the activations are padded with zero columns at call time
-    (ops/quant.int4_linear)."""
-    w = canon["w_p"]  # [K, N] int8 nibbles
-    K = w.shape[-2]
-    G = canon["scales"].shape[-2]
-    gs = K // G
-    K2 = -(-K // (2 * gs)) * (2 * gs)
-    if K2 == K:
-        return canon
-    pad_w = [(0, 0)] * w.ndim
-    pad_w[-2] = (0, K2 - K)
-    canon["w_p"] = np.pad(w, pad_w)
-    pad_s = [(0, 0)] * canon["scales"].ndim
-    pad_s[-2] = (0, K2 // gs - G)
-    canon["scales"] = np.pad(canon["scales"], pad_s)  # zero scales
-    canon["zeros"] = np.pad(canon["zeros"], pad_s)
-    if "perm" in canon:
-        p = canon["perm"]
-        extra = np.broadcast_to(np.arange(K, K2, dtype=p.dtype), p.shape[:-1] + (K2 - K,))
-        canon["perm"] = np.concatenate([p, extra], axis=-1)
-    return canon
-
-
-def _packable_int4(shape) -> bool:
-    return len(shape) == 2 and shape[0] % 256 == 0
+            out = {"w_p": planar_from_gptq(qweight),
+                   "scales": torch.from_numpy(meta["scales"]).to(device),
+                   "zeros": torch.from_numpy(meta["zeros"]).to(device)}
+        else:
+            canon = convert_quant_tensors(entry, quant_method)
+            if canon is None:
+                continue
+            out = {k: v.to(device) for k, v in _int4_tensors(canon).items()}
+        if shard is not None and not per_expert and any(k in out for k in ("w", "w_p", "w_f8")):
+            # the rank's entry, cut from the unpadded canonical one so that
+            # no rank holds another's padding; the whole goes with ``out``
+            out = shard_linear(path, out, *shard)
+        if not per_expert and "w_p" in out and out["w_p"].dtype == torch.int8:
+            # int4 nibbles (whole, a rank's columns, or a leaf kept whole)
+            # padded to whole planes and, where the rows allow, packed: 4
+            # bits a weight in device memory (ops/quant.pack_int4 layout)
+            out = pad_int4_groups(out)
+            if packable_int4(out["w_p"].shape[0]):
+                out["w_p"] = pack_int4(out["w_p"])
+        for k, v in out.items():
+            _set_path(tree, f"{path}.{k}", v)
 
 
 def load_hf_state(

@@ -233,9 +233,10 @@ def convert_quant_tensors(
 # int8 at load
 # ---------------------------------------------------------------------------
 
-def auto_int8_from_fp(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Per-output-channel absmax int8. w [in, out] -> {"w_q" int8, "scale" f32 [out]}."""
-    w_q, scale = quantize_int8_weight(w)
+def auto_int8_from_fp(w: torch.Tensor, reduce=None) -> Dict[str, torch.Tensor]:
+    """Per-output-channel absmax int8. w [in, out] -> {"w_q" int8, "scale" f32 [out]}
+    (``reduce``: as :func:`ops.quant.quantize_int8_weight` takes it)."""
+    w_q, scale = quantize_int8_weight(w, reduce)
     return {"w_q": w_q, "scale": scale}
 
 
@@ -269,6 +270,7 @@ def quantize_int8_params(
     params: Dict[str, Any],
     act_scales: Optional[Dict[str, Any]] = None,
     alpha: float = 0.5,
+    tp=None,
 ) -> Dict[str, Any]:
     """Quantize the dense-layer linears of a loaded parameter tree to W8A8
     int8 in place of their ``{"w"}`` leaves (2-D weights only; expert stacks
@@ -277,7 +279,24 @@ def quantize_int8_params(
     SmoothQuant migration folds activation outliers into the weights and
     stores the inverse ``smooth`` vector for ``ops.quant.int8_linear``.
     Embedding, lm_head, norms, routers and leaves that are quantized already
-    are untouched. Returns a new tree; the leaves stay on their device."""
+    are untouched. Returns a new tree; the leaves stay on their device.
+
+    ``tp`` (a tensor-parallel group): ``params`` is a rank's shard. A
+    column-parallel leaf holds every input row of its columns, so its scales
+    are its own; a row-parallel one (``o_proj``, ``down_proj``) holds K / tp
+    rows, and the column absmax is MAX-all-reduced over the ranks, so that
+    every rank's codes and scales are those of the whole weight. Calibrated
+    scales are not taken under tensor parallelism."""
+    from ..parallel.sharding import ROW, param_shard_dim
+
+    if tp is not None and act_scales is not None:
+        raise NotImplementedError("SmoothQuant calibration under tensor parallelism is not "
+                                  "ported yet (ROADMAP, queue 1)")
+    reduce = None
+    if tp is not None:
+        import torch.distributed as dist
+
+        reduce = lambda amax: tp.all_reduce(amax, op=dist.ReduceOp.MAX)  # noqa: E731
 
     def walk(tree, path):
         out = {}
@@ -290,7 +309,8 @@ def quantize_int8_params(
                 w, smooth = v["w"].float(), None
                 if act_scales is not None and sub in act_scales:
                     w, smooth = smooth_quant_weights(w, act_scales[sub], alpha)
-                new = auto_int8_from_fp(w)
+                row = reduce is not None and param_shard_dim(sub + ".w", 2) == ROW
+                new = auto_int8_from_fp(w, reduce if row else None)
                 if smooth is not None:
                     new["smooth"] = smooth
                 if "b" in v:

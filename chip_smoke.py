@@ -8,7 +8,7 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
     python3 chip_smoke.py --phases serve,timing   # the serve paths, then their rates
     python3 chip_smoke.py --phases multimodal     # DeepSeek-VL2-small's language path alone
     python3 chip_smoke.py --phases http           # the OpenAI server alone
-    python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16 and GPTQ, ..., TP=1 then TP=2 (gloo)
+    python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16 and GPTQ, ..., scoring and SmoothQuant, TP=1 then TP=2 (gloo)
     python3 chip_smoke.py --phases tp --tp-gptq-layers 48  # the GPTQ TP path at full depth
     python3 chip_smoke.py --phases tp --tp-backend nccl  # the same, NCCL, a GPU a rank
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
@@ -141,7 +141,16 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            whole) with the linears kept whole; the W8A8 path's ranks also hold
            ``int8_linear``'s row-parallel product at their shapes bit-equal to
            the unsharded one, and show that a rank-local absmax or a missing
-           int32 sum would not be; the TP=2 times are labelled as
+           int32 sum would not be; the Qwen bf16 and DeepSeek paths also
+           score the 1500-token prompt through the loop (``calc_hidden_states``
+           while the greedy batch decodes, then ``calc_logits``,
+           ``calc_log_prob``, ``calc_greedy_match``: every rank runs each as a
+           scheduler event, launching rows 1 and 3, or 7, once a layer; held
+           to TP=1's, DeepSeek's routing shared as teacher-forced), and the
+           AUTO_INT8 path's bf16 weights are SmoothQuant-calibrated on both
+           ranks (``calc_act_scales``, whole vectors), each shard quantized
+           with TP=1's scales equal to TP=1's shard and the calibrated model
+           teacher-forced against TP=1's; the TP=2 times are labelled as
            a gloo run whose collectives go through host memory. The kernels
            phase holds rows 2 and 3 (and the prologue, row 1) at a Qwen rank's
            shapes, rows 2b, 7 and 8 at a DeepSeek rank's, and rows 4 and 9 at
@@ -4965,6 +4974,14 @@ TP_PATHS = {
                    and c.vocab_size == 102400 and c.dtype == "bfloat16"),
         ("rope_write_rows_2d", "paged_mla_decode"), LOGIT_TOL, "seed", True),
 }
+# the paths scored through the serving loop (LLM.calc_*), and the kernels one
+# scoring call launches, once a layer: rows 1 and 3 over a packed pool, row 7
+# over a latent one (MLA's prefill attention is plain torch)
+TP_SCORED = {"Qwen2.5-14B-bf16": ("rope_write_rows_hm", "paged_prefill_attention_hm_packed"),
+             "DeepSeek-V2-Lite-bf16": ("rope_write_rows_2d",)}
+# SmoothQuant on the AUTO_INT8 path: calibration prompts (count, tokens) and alpha
+TP_CALIB = (4, 512)
+TP_ALPHA = 0.5
 TP_LENS = (500, 1500)      # the greedy prompts, 32 new tokens each
 TP_NEW = 32
 TP_SAMPLED = 200           # a seeded sampled request's prompt
@@ -5105,15 +5122,21 @@ def tp_collective_count(cfg) -> int:
     return 1 + cfg.num_layers + sum(1 + shared if m else 1 for m in moe)
 
 
-def tp_drive(llm, prompts: dict) -> dict:
+def tp_drive(llm, prompts: dict, score: bool = False) -> dict:
     """The phase's requests, in this order, through DynamicBatchGenerator
     (rank 0's, or the TP=1 run's): the 1500-token prompt for one token three
     times (TTFT, the median) and for 32 (batch-1 decode tok/s, as the
     multimodal phase times it), the two greedy prompts together, a seeded
     sampled request, and a request cancelled after its second streamed
-    result. Returns the tokens and the times."""
+    result. With ``score`` the scoring utilities run on the 1500-token
+    prompt through the loop: ``calc_hidden_states`` while the greedy batch
+    decodes, then ``calc_logits`` (timed), ``calc_log_prob`` and
+    ``calc_greedy_match``; their results under "scores" (host arrays).
+    Returns the tokens and the times."""
+    import threading
+
     from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg, SearchTask
-    from zhilight_tpu_torch.engine.task import StreamResultType
+    from zhilight_tpu_torch.engine.task import StreamResultType, TaskStatus
 
     out, t_start = {}, time.monotonic()
     gen = DynamicBatchGenerator(llm).start()
@@ -5130,9 +5153,43 @@ def tp_drive(llm, prompts: dict) -> dict:
         long_s = time.monotonic() - t0
         out["ttft_ms"] = statistics.median(ttft) * 1e3
         out["decode_tok_s"] = (len(out["long"]) - 1) / (long_s - statistics.median(ttft))
-        out["greedy"] = [r.outputs[0].token_ids for r in gen.batch_generate(
-            prompts["greedy"], GeneratorArg(max_length=TP_NEW, ignore_eos=True),
-            timeout=TP_TIMEOUT)]
+        batch = {}
+
+        def greedy():
+            try:
+                batch["res"] = gen.batch_generate(
+                    prompts["greedy"], GeneratorArg(max_length=TP_NEW, ignore_eos=True),
+                    timeout=TP_TIMEOUT)
+            except BaseException as e:  # noqa: BLE001 - raised below, on this thread
+                batch["error"] = e
+
+        if score:
+            scores = {}
+            th = threading.Thread(target=greedy)
+            th.start()
+            deadline = time.monotonic() + TP_TIMEOUT
+            while not any(t is not None and t.status == TaskStatus.DECODE
+                          for t in gen.scheduler.slots):
+                if not th.is_alive() or time.monotonic() > deadline:
+                    raise AssertionError("tp: the greedy batch never decoded while watched")
+                time.sleep(0.0005)
+            t0 = time.monotonic()
+            scores["hidden"] = llm.calc_hidden_states(long)
+            out["score_s"] = time.monotonic() - t0
+            th.join()
+        else:
+            greedy()
+        if "error" in batch:
+            raise batch["error"]
+        out["greedy"] = [r.outputs[0].token_ids for r in batch["res"]]
+        if score:
+            t0 = time.monotonic()
+            scores["logits"] = llm.calc_logits(long)
+            out["calc_logits_ms"] = (time.monotonic() - t0) * 1e3
+            scores["log_prob"] = np.asarray(llm.calc_log_prob(long)[1], np.float32)
+            out["greedy_match"] = llm.calc_greedy_match(long)
+            out["score_s"] += time.monotonic() - t0
+            out["scores"] = scores
         out["sampled"] = gen.generate(prompts["sampled"], GeneratorArg(
             max_length=TP_NEW, temperature=0.8, top_p=0.9, seed=7),
             timeout=TP_TIMEOUT).outputs[0].token_ids
@@ -5155,6 +5212,249 @@ def tp_drive(llm, prompts: dict) -> dict:
     if gen.scheduler.error is not None:
         raise AssertionError("the scheduler failed") from gen.scheduler.error
     return out
+
+
+def tp_score_recorder(llm, counters, routes=None, share=None) -> list:
+    """Record, from now on, each scoring call the executor runs
+    (``run_score``; ``run_hidden`` goes through it), on whichever thread runs
+    it: its kind, the slots decoding when it started, and the kernel
+    launches between its start and end (exact where the call runs on the
+    loop's thread, as every TP=2 one does; a TP=1 call on the caller's
+    thread may count the loop's launches too). A MoE model's routing, as
+    tp_forced shares it: ``routes`` gets a list of each call's routings;
+    with ``share`` every call takes the recorded routing where its own
+    parts at a near tie (the parted counts added up in ``share``). Returns
+    the list."""
+    from unittest import mock
+
+    from zhilight_tpu_torch.engine.task import TaskStatus
+    from zhilight_tpu_torch.models import moe as M
+
+    ex, seen, run = llm.executor, [], llm.executor.run_score
+    if share is not None:
+        share.update(routed=0, parted=0, ratio=0.0)
+    # the host seconds a call spends in the group's collectives
+    in_collectives = [0.0]
+    if ex.tp is not None:
+        for op in ("all_reduce", "all_gather"):
+            def timed(*a, _real=getattr(ex.tp, op), **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **kw)
+                finally:
+                    in_collectives[0] += time.perf_counter() - t0
+            setattr(ex.tp, op, timed)
+
+    def recorded(tokens, _kind="score"):
+        slots = llm.scheduler.slots if llm.scheduler is not None else []
+        decoding = sum(t is not None and t.status == TaskStatus.DECODE for t in slots)
+        before = {n: fn.launches for n, fn in counters.items()}
+        if routes is not None:
+            routes.append([])
+        t0, in_collectives[0] = time.perf_counter(), 0.0
+        with mock.patch.object(M, "select_experts",
+                               tp_route(routes[-1] if routes is not None else None, share)):
+            result = run(tokens, _kind)
+        seen.append(dict(kind=_kind, decoding=decoding, s=time.perf_counter() - t0,
+                         collectives_s=in_collectives[0],
+                         launches={n: fn.launches - before[n] for n, fn in counters.items()
+                                   if fn.launches != before[n]}))
+        return result
+
+    ex.run_score = recorded
+    return seen
+
+
+def tp_score_check(label: str, cfg, one: dict, got: dict, ranks: list) -> str:
+    """The scoring calls of a TP=2 run (``got``: rank 0's results, ``ranks``:
+    both ranks' records) against TP=1's (``one``): logits [T, V] every row
+    within the path's tolerance of its largest logit, the argmax kept
+    wherever TP=1's top-2 gap exceeds twice the largest difference; hidden
+    states within the path's tolerance of their largest entry (2e-2 for the
+    dense path; MLA + MoE's 27 bf16 layers part by more, as their
+    teacher-forced logits do, even with the routing shared); log-probabilities
+    within twice their row's largest logit difference (the bound of a
+    log-softmax) plus 1e-3; greedy matches apart by no more than the
+    positions whose argmax parted (each a near tie). Each rank ran every
+    scoring event, one while requests decoded, and each launched the path's
+    scoring kernels once a layer and nothing else. Returns the summary."""
+    tol = TP_PATHS[label][3]
+    want, have = torch.from_numpy(one["scores"]["logits"]), torch.from_numpy(got["logits"])
+    if not (torch.isfinite(have).all() and have.shape == want.shape
+            and have.shape == (TP_LENS[1], cfg.vocab_size)):
+        raise AssertionError(f"tp: {label}: scored logits {tuple(have.shape)}, or not finite")
+    diff = (have - want).abs()
+    row_diff = diff.amax(-1)
+    rel = (row_diff / want.abs().amax(-1)).max().item()
+    top2 = want.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    parted = have.argmax(-1) != want.argmax(-1)
+    worst = gap[parted].max().item() if parted.any() else 0.0
+    hs_want, hs_got = one["scores"]["hidden"], got["hidden"]
+    hs_rel = float(np.abs(hs_got - hs_want).max() / np.abs(hs_want).max())
+    lp_err = float((torch.from_numpy(got["log_prob"] - one["scores"]["log_prob"]).abs()
+                    - 2 * row_diff[:-1] - 1e-3).max())
+    gm = (one["greedy_match"], got["greedy_match"])
+    msg = (f"calc_logits [{TP_LENS[1]}, {cfg.vocab_size}] max rel err {rel:.3e} (tolerance "
+           f"{tol:.4g}), argmax equal on {int((~parted).sum())}/{parted.numel()}, largest top-2 "
+           f"gap where they part {worst:.3e} (allowed {2 * diff.max().item():.3e}); "
+           f"calc_hidden_states {hs_rel:.3e} (tolerance {tol:.4g}); calc_log_prob within "
+           f"the log-softmax bound by {-lp_err:.3e}; calc_greedy_match {gm[1]} against {gm[0]}")
+    if (rel > tol or worst > 2 * diff.max().item() or hs_rel > tol or lp_err > 0
+            or abs(gm[1] - gm[0]) > int(parted[:-1].sum())):
+        raise AssertionError(f"tp: {label}: TP=2 scoring against TP=1: {msg}")
+    layers = cfg.num_layers
+    for r in ranks:
+        calls = r["score_calls"]
+        kinds = [c["kind"] for c in calls]
+        if kinds != ["hidden", "score", "score", "score"]:
+            raise AssertionError(f"tp: {label}: rank {r['rank']} ran the scoring events {kinds}")
+        if not calls[0]["decoding"]:
+            raise AssertionError(f"tp: {label}: rank {r['rank']}: no scoring event ran while "
+                                 f"the greedy batch decoded")
+        want_launches = {name: layers for name in TP_SCORED[label]}
+        for c in calls:
+            if c["launches"] != want_launches:
+                raise AssertionError(f"tp: {label}: rank {r['rank']}: a scoring call launched "
+                                     f"{c['launches']}, not {want_launches}")
+    return msg
+
+
+def tp_digests(tree, prefix: str = "") -> dict:
+    """sha256 of each leaf's bytes, by path."""
+    import hashlib
+
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(tp_digests(v, path))
+        else:
+            out[path] = hashlib.sha256(v.detach().contiguous().view(torch.uint8).cpu().numpy()
+                                       .tobytes()).hexdigest()
+    return out
+
+
+def tp_calib_prompts(seed: int, vocab: int) -> list:
+    rng = np.random.default_rng(seed + 23)
+    return [rng.integers(3, vocab, TP_CALIB[1]).tolist() for _ in range(TP_CALIB[0])]
+
+
+def tp_smooth(args, label: str, cfg, device, path_dir: str, forced: dict, shard=None) -> dict:
+    """SmoothQuant on the AUTO_INT8 path, at TP=1 (``shard`` None) or on one
+    rank of TP=2: the bf16 weights drawn from the seed (a rank's shard),
+    ``LLM.calc_act_scales`` on seeded prompts (at TP=2 every rank together);
+    the weights quantized with TP=1's scales (a rank: broadcast from rank 0,
+    its shard quantized with ``tp=``), each quantized leaf's digest (TP=1:
+    those of each rank's shard of its tree); then the calibrated model's
+    teacher-forced logits along the path's tokens (TP=1 also one prompt at a
+    time, its spread). TP=1 writes its scales and digests to ``path_dir``."""
+    import gc
+
+    import torch.distributed as dist
+
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.parallel.sharding import shard_params
+    from zhilight_tpu_torch.utils.quant_convert import quantize_int8_params
+
+    world = 1 if shard is None else shard[1]
+    t0 = time.monotonic()
+    base = LLM(model_config=cfg, params=L.init_params(cfg, seed=args.seed, device=device,
+                                                       shard=shard),
+               engine_config=tp_engine_config(world), device=device)
+    t1 = time.monotonic()
+    scales = base.calc_act_scales(tp_calib_prompts(args.seed, cfg.vocab_size),
+                                  calib_len=TP_CALIB[1])
+    out = dict(calib_s=time.monotonic() - t1, sites=len(scales))
+    scales_path = os.path.join(path_dir, "act_scales.npz")
+    if shard is None:
+        np.savez(scales_path, **scales)
+        one = scales
+    else:
+        box = [dict(np.load(scales_path)) if shard[0] == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        one = box[0]
+        out["scales_sha"] = tp_digests({k: torch.from_numpy(v) for k, v in scales.items()})
+        out["scales_rel"] = {k: float(np.abs(scales[k] - one[k]).max() / np.abs(one[k]).max())
+                             for k in one}
+        out["scales_whole"] = all(scales[k].shape == one[k].shape for k in one)
+    params = base.executor.params
+    release_pool(base)
+    base.executor = None
+    tp = None if shard is None else base.tp_group
+    q = quantize_int8_params(params, one, TP_ALPHA, tp=tp)
+    del params, base
+    layers = {"layers": q["layers"]}
+    if shard is None:
+        got = [tp_digests(shard_params(layers, r, 2, cfg)) for r in range(2)]
+        with open(os.path.join(path_dir, "smooth_digests.json"), "w") as f:
+            json.dump(got, f)
+        got = got[0]
+    else:
+        want = json.load(open(os.path.join(path_dir, "smooth_digests.json")))[shard[0]]
+        got = tp_digests(layers)
+        out["leaves"] = len(got)
+        out["leaves_equal"] = sum(got.get(k) == v for k, v in want.items())
+        out["leaves_want"] = len(want)
+    out["smooth_leaves"] = sum(k.endswith(".smooth") for k in got)
+    gc.collect()
+    llm = LLM(model_config=cfg, params=q, engine_config=tp_engine_config(world), device=device)
+    del q
+    ex = llm.executor
+    out["logits"] = tp_forced(ex, forced["prompts"], forced["tokens"])
+    if shard is None:
+        out["floor"] = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
+                                                                           forced["tokens"])])
+    release_pool(llm)
+    ex.params, llm, ex = None, None, None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["smooth_s"] = time.monotonic() - t0
+    return out
+
+
+def tp_route(routes=None, share=None):
+    """``models.moe.select_experts`` as tp_forced shares it: appending each
+    routing (router logits, expert ids, weights, on the host) to ``routes``;
+    or, with ``share`` (a dict holding such a list under "routes"), taking
+    each one's experts and weights where this side's part from the recorded
+    one in the same order, if the parting is a near tie (see tp_forced),
+    counted in ``share``'s "routed", "parted" and "ratio" (set them first);
+    else the function itself. Starts ``share``'s replay at its first
+    routing."""
+    from zhilight_tpu_torch.models import moe as M
+
+    select = M.select_experts
+
+    def recorded(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        routes.append((logits.float().cpu(), ids.cpu(), weights.cpu()))
+        return weights, ids
+
+    def shared(logits, m, bias=None):
+        weights, ids = select(logits, m, bias)
+        o_logits, o_ids, o_weights = (t.to(logits.device) for t in share["routes"][share["calls"]])
+        share["calls"] += 1
+        parted = (ids.sort(-1).values != o_ids.sort(-1).values).any(-1)
+        share["routed"] += ids.shape[0]
+        # each parted row: the gap between its recorded k-th expert and the
+        # best of this side's own picks, over the row's largest difference
+        own = (ids[:, :, None] != o_ids[:, None, :]).all(-1)
+        own_max = o_logits.gather(1, ids.long()).masked_fill(~own, float("-inf")).amax(-1)
+        gap = o_logits.gather(1, o_ids.long()).amin(-1) - own_max
+        ratios = (gap / (o_logits - logits.float()).abs().amax(-1))[parted].tolist()
+        if not all(r <= 2 for r in ratios):
+            raise AssertionError(f"tp: routing parted off a near tie (gap {max(ratios)} x the "
+                                 f"router-logit difference)")
+        share["parted"] += len(ratios)
+        share["ratio"] = max([share["ratio"]] + ratios)
+        return (torch.where(parted[:, None], o_weights, weights),
+                torch.where(parted[:, None], o_ids, ids))
+
+    if share is not None:
+        share["calls"] = 0
+    return recorded if routes is not None else shared if share is not None else select
 
 
 def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
@@ -5180,33 +5480,9 @@ def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
     from zhilight_tpu_torch.models import moe as M
     from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 
-    select = M.select_experts
-
-    def recorded(logits, m, bias=None):
-        weights, ids = select(logits, m, bias)
-        routes.append((logits.float().cpu(), ids.cpu(), weights.cpu()))
-        return weights, ids
-
-    def shared(logits, m, bias=None):
-        weights, ids = select(logits, m, bias)
-        o_logits, o_ids, o_weights = (t.to(logits.device) for t in share["routes"][share["calls"]])
-        share["calls"] += 1
-        parted = (ids.sort(-1).values != o_ids.sort(-1).values).any(-1)
-        share["routed"] += ids.shape[0]
-        for r in parted.nonzero().flatten().tolist():
-            own = sorted(set(ids[r].tolist()) - set(o_ids[r].tolist()))
-            gap = o_logits[r, o_ids[r].long()].min() - o_logits[r, own].max()
-            ratio = (gap / (o_logits[r] - logits[r].float()).abs().max()).item()
-            if not ratio <= 2:
-                raise AssertionError(f"tp: routing parted off a near tie (gap {ratio} x the "
-                                     f"router-logit difference)")
-            share["parted"], share["ratio"] = share["parted"] + 1, max(share["ratio"], ratio)
-        return (torch.where(parted[:, None], o_weights, weights),
-                torch.where(parted[:, None], o_ids, ids))
-
-    route = recorded if routes is not None else shared if share is not None else select
     if share is not None:
-        share.update(calls=0, routed=0, parted=0, ratio=0.0)
+        share.update(routed=0, parted=0, ratio=0.0)
+    route = tp_route(routes, share)
     cfg, S, B, N = ex.cfg, ex.page_size, len(prompts), len(tokens[0])
     i32 = dict(dtype=torch.int32, device=ex.device)
     maxp = max(len(p) + N for p in prompts) // S + 1
@@ -5331,6 +5607,12 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     setup_s = time.monotonic() - t0
     warm_s = ex.warmup()
     counters = _tp_counters()
+    score_share = None
+    if label in TP_SCORED and cfg.moe.enabled:
+        # TP=1's routing of its calc_logits call, shared as tp_forced shares it
+        score_share = dict(routes=torch.load(os.path.join(path_dir, "score_routes.pt")))
+    score_calls = (tp_score_recorder(llm, counters, share=score_share) if label in TP_SCORED
+                   else [])
     select = M.select_experts
     routed = tp_routing()
     pool = ex.cache.latent if ex.cache.is_latent else ex.cache.k
@@ -5345,7 +5627,9 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     if not drive:
         pass
     elif rank == 0:
-        out.update(tp_drive(llm, prompts))
+        out.update(tp_drive(llm, prompts, score=label in TP_SCORED))
+        for name, value in out.pop("scores", {}).items():
+            np.save(os.path.join(path_dir, f"tp2_score_{name}.npy"), value)
     else:
         gen = DynamicBatchGenerator(llm).start()
         gen.scheduler._thread.join(timeout=TP_TIMEOUT)
@@ -5356,6 +5640,9 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
         del gen
     torch.cuda.synchronize()
     out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    out["score_calls"] = score_calls
+    if score_share is not None:
+        out["score_routing"] = {k: score_share[k] for k in ("routed", "parted", "ratio")}
     out["finished"] = dict(finished)
     forced = json.load(open(os.path.join(path_dir, "forced.json")))
     share = None
@@ -5388,6 +5675,13 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     ex.params, llm, ex = None, None, None
     gc.collect()
     torch.cuda.empty_cache()
+    if TP_PATHS[label][4] == "int8":
+        sq = tp_smooth(args, label, cfg, device, path_dir, forced, shard=(rank, world))
+        logits = sq.pop("logits")
+        sq["logits_sha"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+        if rank == 0:
+            np.save(os.path.join(path_dir, "tp2_smooth_logits.npy"), logits.numpy())
+        out["smooth"] = sq
     out["left_gib"] = torch.cuda.memory_allocated(device) / 2**30
     out["path_s"] = time.monotonic() - t_path
     with open(os.path.join(path_dir, f"rank{rank}.json"), "w") as f:
@@ -5586,9 +5880,12 @@ def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
           f"{sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30:.2f} GiB of "
           f"weights at TP=1, set-up {setup_s:.1f} s, warmup {warm_s:.1f} s", flush=True)
     counters = _tp_counters()
+    score_routes = [] if label in TP_SCORED and cfg.moe.enabled else None
+    score_calls = (tp_score_recorder(llm, counters, routes=score_routes) if label in TP_SCORED
+                   else [])
     one = None
     if drive:
-        one = tp_drive(llm, prompts)
+        one = tp_drive(llm, prompts, score=label in TP_SCORED)
         torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
         print(f"tp: {label} TP=1: requests {one['drive_s']:.1f} s; launches {launches}",
@@ -5615,13 +5912,36 @@ def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
     floor = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
                                                                  forced["tokens"])])
     _tp_launches(rec, f"{label}-TP1", launches, cfg.num_layers)
+    if score_calls:
+        # on the caller's thread: the call made while the batch decoded may
+        # count the loop's launches too
+        kinds = [c["kind"] for c in score_calls]
+        short = [c for c in score_calls if any(c["launches"].get(name, 0) < cfg.num_layers
+                                               for name in TP_SCORED[label])]
+        if kinds != ["hidden", "score", "score", "score"] or short or not score_calls[0][
+                "decoding"]:
+            raise AssertionError(f"tp: {label} TP=1: the scoring calls {score_calls}")
+        print(f"tp: {label} TP=1: scoring calls {kinds}, the first while "
+              f"{score_calls[0]['decoding']} requests decoded; launches of the idle ones "
+              f"{[c['launches'] for c in score_calls[1:]]}", flush=True)
+        if score_routes is not None:
+            # the calc_logits call's routing, which the TP=2 scoring calls share
+            torch.save(score_routes[1], os.path.join(path_dir, "score_routes.pt"))
+        del score_routes
     release_pool(llm)
     ex.params, llm, ex = None, None, None
     gc.collect()
     torch.cuda.empty_cache()
     print(f"tp: {label}: TP=1 weights freed, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
-    return dict(one=one, forced=forced, want=want, floor=floor)
+    smooth = None
+    if TP_PATHS[label][4] == "int8":
+        smooth = tp_smooth(args, label, cfg, "cuda", path_dir, forced)
+        print(f"tp: {label} TP=1 SmoothQuant: calc_act_scales over {smooth['sites']} sites "
+              f"({TP_CALIB[0]} prompts of {TP_CALIB[1]} tokens) {smooth['calib_s']:.1f} s, "
+              f"quantized with alpha {TP_ALPHA} ({smooth['smooth_leaves']} smooth vectors), "
+              f"{smooth['smooth_s']:.1f} s in all", flush=True)
+    return dict(one=one, forced=forced, want=want, floor=floor, smooth=smooth)
 
 
 def tp_launch(args, labels: list, tmp: str) -> None:
@@ -5742,6 +6062,8 @@ def tp_check(rec: dict, args, smi: str, label: str, tp1: dict, path_dir: str) ->
                          TP_PATHS[label][3], spread=label in TP_SPREAD_BOUND)
         print(f"tp: {label}: both ranks scored the same teacher-forced logits, bit for bit; "
               f"TP=2 path {wall:.1f} s on rank 0; TP=2 against TP=1, {msg}", flush=True)
+        if tp1["smooth"] is not None:
+            tp_smooth_check(label, tp1["smooth"], ranks, forced, path_dir, smi)
         return
     if not 2 <= len(r0["cancelled"]) < 4 * TP_NEW:
         raise AssertionError(f"tp: {label}: the cancelled request returned "
@@ -5768,10 +6090,67 @@ def tp_check(rec: dict, args, smi: str, label: str, tp1: dict, path_dir: str) ->
     print(f"tp: {label}: TP=2 against TP=1, {msg}", flush=True)
     how = ("NCCL, a GPU a rank" if nccl else "gloo on one GPU: every collective goes "
            "through host memory, not an NCCL TP figure")
+    if label in TP_SCORED:
+        got_scores = {name: np.load(os.path.join(path_dir, f"tp2_score_{name}.npy"))
+                      for name in ("logits", "hidden", "log_prob")}
+        got_scores["greedy_match"] = r0["greedy_match"]
+        msg = tp_score_check(label, cfg, one, got_scores, ranks)
+        if "score_routing" in r0:
+            sr = r0["score_routing"]
+            msg += (f"; MoE routing shared with TP=1's calc_logits call: parted on "
+                    f"{sr['parted']}/{sr['routed']} token-layers over the four calls, each a "
+                    f"near tie (gap up to {sr['ratio']:.3f} x the router-logit difference)")
+        print(f"tp: {label}: scoring through the loop of both ranks ({TP_LENS[1]}-token prompt; "
+              f"calc_hidden_states while the greedy batch decoded), each call launching "
+              f"{', '.join(TP_SCORED[label])} once a layer on each rank; TP=2 against TP=1, "
+              f"{msg}", flush=True)
+        print(f"timing: {label} calc_logits of {TP_LENS[1]} tokens, [{TP_LENS[1]}, "
+              f"{cfg.vocab_size}] fp32 logits to the host: TP=1 (one process) "
+              f"{one['calc_logits_ms']:.2f} ms, TP=2 ({how}) {r0['calc_logits_ms']:.2f} ms; "
+              f"the four scoring calls {one['score_s']:.1f} s at TP=1, {r0['score_s']:.1f} s "
+              f"at TP=2, of which the executor ran them {sum(c['s'] for c in r0['score_calls']):.1f} "
+              f"s on rank 0, {sum(c['collectives_s'] for c in r0['score_calls']):.1f} s in "
+              f"collectives; {smi}", flush=True)
     for what, r in (("TP=1 (one process)", one), (f"TP=2 ({how})", r0)):
         print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
               f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
               f"tokens; {smi}", flush=True)
+
+
+def tp_smooth_check(label: str, one: dict, ranks: list, forced: dict, path_dir: str,
+                    smi: str) -> None:
+    """SmoothQuant at TP=2 against TP=1 (tp_smooth's results): both ranks'
+    ``calc_act_scales`` whole vectors, bit-equal between the ranks, each
+    within 2e-2 of TP=1's largest entry; each rank's shard quantized with
+    TP=1's scales equal, leaf for leaf, to that rank's shard of TP=1's
+    quantized tree; the calibrated model's teacher-forced logits held to
+    TP=1's by the path's rule (tp_compare, TP_SPREAD_BOUND), the ranks'
+    bit-equal."""
+    r0, r1 = (r["smooth"] for r in ranks)
+    spread = max(r0["scales_rel"].values())
+    if r0["scales_sha"] != r1["scales_sha"] or not (r0["scales_whole"] and r1["scales_whole"]):
+        raise AssertionError(f"tp: {label}: the ranks' act scales differ, or are not whole")
+    if spread > 2e-2 or len(r0["scales_rel"]) != one["sites"]:
+        raise AssertionError(f"tp: {label}: TP=2 act scales {spread:.3e} of the largest entry "
+                             f"from TP=1's over {len(r0['scales_rel'])} sites")
+    for r, sq in enumerate((r0, r1)):
+        if not sq["leaves_equal"] == sq["leaves_want"] == sq["leaves"] or not sq["leaves"]:
+            raise AssertionError(f"tp: {label}: rank {r}'s calibrated shard equals TP=1's shard "
+                                 f"on {sq['leaves_equal']} of {sq['leaves_want']} leaves")
+    if r0["logits_sha"] != r1["logits_sha"]:
+        raise AssertionError(f"tp: {label}: the ranks' calibrated teacher-forced logits differ")
+    got = torch.from_numpy(np.load(os.path.join(path_dir, "tp2_smooth_logits.npy")))
+    msg = tp_compare(f"{label}-SmoothQuant", one["logits"], got, forced["tokens"],
+                     forced["tokens"], one["floor"], TP_PATHS[label][3],
+                     spread=label in TP_SPREAD_BOUND)
+    print(f"tp: {label} SmoothQuant at TP=2: calc_act_scales on both ranks ({TP_CALIB[0]} "
+          f"prompts of {TP_CALIB[1]} tokens, {r0['calib_s']:.1f} s), whole vectors bit-equal "
+          f"between the ranks, {spread:.3e} of the largest entry from TP=1's at most (tolerance "
+          f"2e-2); each rank's shard quantized with TP=1's scales equal to its shard of TP=1's "
+          f"quantized tree on {r0['leaves_equal']} / {r1['leaves_equal']} of {r0['leaves']} "
+          f"leaves ({r0['smooth_leaves']} smooth vectors a rank); the calibrated model's "
+          f"teacher-forced logits, both ranks bit-equal, TP=2 against TP=1: {msg}; {smi}",
+          flush=True)
 
 
 def _tp_launches(rec: dict, label: str, launches: dict, layers: int) -> None:

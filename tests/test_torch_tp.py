@@ -20,9 +20,12 @@ devices of tests/conftest.py.
   torchrun's variables: rank 0 answers ``/v1/completions`` with tp=1's text
   and usage; rank 1 binds no port.
 - The raises: a vocab, KV-head count or ``dim_ff`` that tp does not divide;
-  a world that is not tp; tp > 1 without a process group; scoring and
-  calibration under tp > 1. Quantized linears under tp > 1, which once
-  raised here, build (tests/test_torch_tp_quant.py serves them).
+  a world that is not tp; tp > 1 (``LLM`` and ``load_with_smooth_quant``)
+  without a process group. Quantized linears under tp > 1, which once
+  raised here, build (tests/test_torch_tp_quant.py serves them); scoring,
+  calibration and embeddings under tp > 1, which raised here too, run as
+  scheduler events (tests/test_torch_tp_score.py holds them, and this
+  file's server case ``/v1/embeddings``).
 
 MoE and MLA under tensor parallelism are tests/test_torch_tp_moe.py's, on
 this file's rank processes (:class:`Ranks`, ``RANK``), which also record
@@ -379,9 +382,10 @@ if spec.get("raises"):
     out["raises"]["world_not_tp"] = raises(lambda: LLM(
         model_config=ModelConfig(**case["model"]), params=load(case["params"]),
         engine_config=EngineConfig(parallel=ParallelConfig(tp=2 * world)), device="cpu"))
-    out["raises"]["calc_logits"] = raises(lambda: llm.calc_logits([3, 4, 5]))
-    out["raises"]["calc_loss"] = raises(lambda: llm.calc_loss([3, 4, 5]))
-    out["raises"]["calc_act_scales"] = raises(lambda: llm.calc_act_scales([[3, 4, 5]]))
+
+if spec.get("extra"):
+    # another file's cases, run here with this script's names
+    exec(compile(open(spec["extra"]).read(), spec["extra"], "exec"))
 
 json.dump(out, open(out_path, "w"))
 dist.barrier()
@@ -392,10 +396,15 @@ print(f"rank {rank} DONE", flush=True)
 
 class Ranks:
     """``world`` rank processes over one spec, started now; ``result()``
-    waits for them (each with a timeout) and returns every rank's output."""
+    waits for them (each with a timeout) and returns every rank's output.
+    ``extra``: more of the rank script, run after its own cases with its
+    names (``out``, ``spec``, ``rank``, ``load``...)."""
 
-    def __init__(self, spec: dict, world: int, tmp: Path):
+    def __init__(self, spec: dict, world: int, tmp: Path, extra: str = ""):
         self.tmp = tmp
+        if extra:
+            (tmp / "extra.py").write_text(extra)
+            spec = dict(spec, extra=str(tmp / "extra.py"))
         (tmp / "spec.json").write_text(json.dumps(spec))
         port = _free_port()
         env = {k: v for k, v in os.environ.items()
@@ -951,7 +960,8 @@ def test_tp_without_a_process_group_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         LLM(model_config=ModelConfig(**FWD_MODEL), params={}, device="cpu",
             engine_config=EngineConfig(parallel=ParallelConfig(tp=2)))
-    with pytest.raises(NotImplementedError, match="load_with_smooth_quant"):
+    # before the checkpoint is read
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         LLM.load_with_smooth_quant("unused", [[3, 4]], engine_config=EngineConfig(
             parallel=ParallelConfig(tp=2)))
 
@@ -968,17 +978,15 @@ def test_rank_device_defaults_to_local_rank(monkeypatch):
     assert local_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("what", ["world_not_tp", "calc_logits", "calc_loss", "calc_act_scales"])
+@pytest.mark.parametrize("what", ["world_not_tp"])
 def test_rank_raises(ranks, what):
-    """On the ranks: a group whose world is not tp; scoring and calibration
-    of a tensor-parallel LLM (they run outside the scheduler loop)."""
+    """On the ranks: a group whose world is not tp. (Scoring and calibration
+    under tensor parallelism, which raised here until they ran in the
+    scheduler loop, are tests/test_torch_tp_score.py's.)"""
     for r in ranks["engine"].result():
         msg = r["raises"][what]
         assert msg is not None, what
-        if what == "world_not_tp":
-            assert msg.startswith("ValueError") and "the process group has 2 ranks" in msg
-        else:
-            assert msg.startswith("NotImplementedError") and "tensor parallelism" in msg
+        assert msg.startswith("ValueError") and "the process group has 2 ranks" in msg
 
 
 # ---------------------------------------------------------------------------
@@ -1026,6 +1034,7 @@ def _checkpoint(path: Path) -> str:
 SERVER_FLAGS = ["--device", "cpu", "--max-model-len", "256", "--dyn-max-batch-size", "4",
                 "--chunk-size", "64", "--max-total-token", "1024"]
 COMPLETION = {"prompt": "hello world", "max_tokens": 8, "temperature": 0}
+EMBEDDING = {"input": ["hello world", "the lazy dog"]}
 
 
 def _post(url, body, timeout=60):
@@ -1081,7 +1090,10 @@ class TPServer:
 
 def test_server_tp2_answers_like_tp1(ranks):
     """Rank 0 answers /v1/completions at temperature 0 with the text and
-    usage of the same flags at tp=1 (in this process); rank 1 serves no HTTP
+    usage of the same flags at tp=1 (in this process), and /v1/embeddings
+    with its vectors and usage: within 2e-2, a few bf16 steps at their size
+    (both serve the float32 checkpoint in bf16, as tests/test_torch_server.py
+    holds the port's embeddings to the reference's); rank 1 serves no HTTP
     and stops with rank 0."""
     server = ranks["server"]
     if server.missing:
@@ -1101,13 +1113,15 @@ def test_server_tp2_answers_like_tp1(ranks):
             await client.start_server()
             try:
                 r = await client.post("/v1/completions", json=COMPLETION)
-                return await r.json()
+                e = await client.post("/v1/embeddings", json=EMBEDDING)
+                assert e.status == 200, await e.text()
+                return await r.json(), await e.json()
             finally:
                 await client.close()
 
         loop = asyncio.new_event_loop()
         try:
-            want = loop.run_until_complete(ask())
+            want, want_emb = loop.run_until_complete(ask())
         finally:
             loop.close()
     finally:
@@ -1131,6 +1145,11 @@ def test_server_tp2_answers_like_tp1(ranks):
     assert got["choices"][0]["finish_reason"] == want["choices"][0]["finish_reason"]
     assert got["usage"] == want["usage"]
     assert got["usage"]["completion_tokens"] >= 1
+    status, emb = _post(base + "/v1/embeddings", EMBEDDING)
+    assert status == 200 and emb["usage"] == want_emb["usage"]
+    np.testing.assert_allclose(np.asarray([d["embedding"] for d in emb["data"]]),
+                               np.asarray([d["embedding"] for d in want_emb["data"]]),
+                               rtol=2e-2, atol=2e-2)
     assert server.stop() == [0, 0], f"{server.log(0)}\n{server.log(1)}"
     # rank 1 bound no port: it said so and ran the lockstep scheduler only
     assert "rank 1: serving no HTTP" in server.log(1)

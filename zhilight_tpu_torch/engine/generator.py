@@ -41,6 +41,9 @@ class DynamicBatchGenerator:
         self.model = model
         self.tokenizer = getattr(model, "tokenizer", None)
         self.scheduler = scheduler or Scheduler(model.executor)
+        if hasattr(model, "scheduler"):
+            # the loop that runs the LLM's scoring calls under tensor parallelism
+            model.scheduler = self.scheduler
         self._started = False
 
     # -- lifecycle --------------------------------------------------------
@@ -113,9 +116,7 @@ class DynamicBatchGenerator:
             # decode hot loop; reference fills them inside the decode step
             # (fill_last_hidden_states), same values
             hs = [
-                self.model.executor.run_hidden(
-                    np.asarray(tokens + list(out.token_ids), np.int32)
-                )
+                self.scheduler.score("hidden", tokens + list(out.token_ids))
                 for out in outs
             ]
         return RequestResult(
@@ -181,9 +182,7 @@ class DynamicBatchGenerator:
             hs = None
             if t.arg.output_hidden_states:
                 hs = [
-                    self.model.executor.run_hidden(
-                        np.asarray(t.input_tokens + list(out.token_ids), np.int32)
-                    )
+                    self.scheduler.score("hidden", t.input_tokens + list(out.token_ids))
                     for out in outs
                 ]
             results.append(

@@ -40,7 +40,11 @@ from .task import SearchTask, TaskStatus
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["Scheduler"]
+__all__ = ["Scheduler", "NO_LOOP"]
+
+# what a scoring call under tensor parallelism raises with no loop to run it
+NO_LOOP = ("under tensor parallelism scoring runs inside the scheduler loop of every rank: "
+           "start every rank's generator (DynamicBatchGenerator(llm).start()) first")
 
 
 class _PlaneClosed(Exception):
@@ -133,6 +137,10 @@ class Scheduler:
         # host frees the pages at the same step: (sid, done_event, result_box)
         self._close_requests: List[tuple] = []
         self._close_lock = threading.Lock()
+        # scoring requests from caller threads under tensor parallelism, run
+        # in-loop by every rank at the same point of an iteration (_run_scores),
+        # under the same lock: (kind, tokens, done_event, result_box)
+        self._score_requests: List[tuple] = []
 
     # ------------------------------------------------------------------
     # public API
@@ -190,6 +198,64 @@ class Scheduler:
             return False
         return box[0]
 
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def score(self, kind: str, tokens) -> np.ndarray:
+        """The executor's ``run_score`` of ``tokens`` (``kind`` "score": fp32
+        logits [T, V]) or ``run_hidden`` ("hidden": hidden states [T, d]). In
+        one process it runs on the caller's thread. Under tensor parallelism
+        every rank must run it together: rank 0 hands it to the loop, which
+        broadcasts it with the iteration's events, and waits for the result;
+        a rank above 0, or rank 0 with no loop running, raises."""
+        if kind not in ("score", "hidden"):
+            raise ValueError(f"kind {kind!r}: 'score' or 'hidden'")
+        tokens = np.asarray(tokens, np.int32)
+        if self.plane.world == 1:
+            return self._score_now(kind, tokens)
+        if self.plane.rank > 0:
+            raise RuntimeError("worker ranks take no scoring calls; call rank 0, whose loop "
+                               "runs them on every rank")
+        thread = self._thread
+        if thread is None or not thread.is_alive():
+            raise RuntimeError(NO_LOOP)
+        ev, box = threading.Event(), []
+        with self._close_lock:
+            self._score_requests.append((kind, tokens, ev, box))
+        self._wake.set()
+        while not ev.wait(timeout=0.05):
+            if not thread.is_alive() and not ev.is_set():
+                raise RuntimeError("the scheduler loop ended before the scoring call ran")
+        if isinstance(box[0], BaseException):
+            raise box[0]
+        return box[0]
+
+    def _score_now(self, kind: str, tokens: np.ndarray) -> np.ndarray:
+        return self.ex.run_score(tokens) if kind == "score" else self.ex.run_hidden(tokens)
+
+    def _run_scores(self, reqs: List[tuple]) -> None:
+        """This iteration's scoring events, in rank 0's order, on every rank.
+        They run after the iteration's events and admission and before its
+        model steps: rank 0 can enter a collective only once its broadcast
+        has released the other ranks. Each runs on a scratch cache
+        (``ModelExecutor.run_score``), so the pool, an in-flight decode window
+        and its device carry stay as they are. Rank 0 fills each caller's
+        box; a failure fails the loop, as a model step's does, and every
+        caller of this iteration gets the error."""
+        for i, (kind, tokens, ev, box) in enumerate(reqs):
+            try:
+                out = self._score_now(kind, tokens)
+            except BaseException as e:
+                for _, _, ev_left, box_left in reqs[i:]:
+                    if ev_left is not None:
+                        box_left.append(e)
+                        ev_left.set()
+                raise
+            if ev is not None:
+                box.append(out)
+                ev.set()
+
     def _close_session_now(self, session_id: str) -> bool:
         sess = self.sessions.pop(session_id, None)
         if sess is None:
@@ -245,12 +311,27 @@ class Scheduler:
                     break
             raise
         finally:
+            with self._close_lock:
+                left, self._score_requests = self._score_requests, []
+            for _, _, ev, box in left:
+                box.append(self.error or RuntimeError(
+                    "the scheduler loop stopped before the scoring call ran"))
+                ev.set()
             if self.plane.rank == 0 and self.plane.world > 1:
                 try:  # release workers blocked on the channel
                     self.plane.broadcast(None)
                 except OSError:
                     pass
                 self.plane.close()
+            elif self.plane.world > 1 and self.error is not None:
+                # a failed worker takes the sentinel that rank 0 sends when
+                # the same step failed there too, so that a failure every rank
+                # meets at one point ends every loop (one rank's failure alone
+                # leaves the others in a collective until the group's timeout)
+                try:
+                    self.plane.broadcast(None)
+                except Exception:  # noqa: BLE001 - the loop's own error stands
+                    pass
 
     def _expired_sids(self) -> List[str]:
         """Rank-0 wall-clock TTL decision (broadcast as close events)."""
@@ -287,15 +368,17 @@ class Scheduler:
             results[sid] = self._close_session_now(sid)
         return results
 
-    def _sync_step(self):
+    def _sync_step(self) -> List[tuple]:
         """Per-iteration lockstep point. Rank 0 collects this step's
-        nondeterministic events (cancels, session closes, TTL expiries) and
-        admissions, applies them, and broadcasts; workers receive and replay
-        the identical sequence (reference: rank 0 pop_multi +
-        broadcast_data(new_tasks), batch_generator.cpp:1461-1480)."""
+        nondeterministic events (cancels, session closes, TTL expiries,
+        scoring requests) and admissions, applies them, and broadcasts;
+        workers receive and replay the identical sequence (reference: rank 0
+        pop_multi + broadcast_data(new_tasks), batch_generator.cpp:1461-1480).
+        Returns the scoring requests, which :meth:`_step` runs next."""
         if self.plane.rank == 0:
             with self._close_lock:
                 reqs, self._close_requests = self._close_requests, []
+                scores, self._score_requests = self._score_requests, []
             closes = [sid for sid, _, _ in reqs] + self._expired_sids()
             cancels = []
             if self.plane.world > 1:
@@ -313,13 +396,13 @@ class Scheduler:
             if self.plane.world > 1:
                 self.plane.broadcast(
                     (cancels, closes, [t.to_wire() for t in admitted],
-                     self._queue_pressure)
+                     self._queue_pressure, [(k, t) for k, t, _, _ in scores])
                 )
-            return
+            return scores
         payload = self.plane.broadcast(None)
         if payload is None:
             raise _PlaneClosed()
-        cancels, closes, admitted_wire, self._queue_pressure = payload
+        cancels, closes, admitted_wire, self._queue_pressure, scores = payload
         self._apply_events(cancels, closes)
         for d in admitted_wire:
             self.queue.put_nowait(SearchTask.from_wire(d))
@@ -329,10 +412,12 @@ class Scheduler:
                 f"worker admission replay diverged: {self.queue.qsize()} tasks "
                 "not admitted under the local allocator state"
             )
+        return [(kind, tokens, None, None) for kind, tokens in scores]
 
     def _step(self) -> bool:
-        self._sync_step()
-        worked = False
+        scores = self._sync_step()
+        self._run_scores(scores)
+        worked = bool(scores)
         # decode BEFORE prefill: the decode window (and the successor of an
         # in-flight speculative window) enters the device queue ahead of the
         # prefill chunk, so decode fetches never wait behind chunk compute —

@@ -31,7 +31,13 @@ of ``params`` or of the checkpoint. The device defaults to
 ``cuda:LOCAL_RANK``; one device given to every rank is allowed (two ranks on
 one GPU over a gloo group). Rank 0 takes the requests; the other ranks run
 the scheduler loop in lockstep (``gen.scheduler._thread.join()``) until rank
-0's generator stops. Scoring and calibration raise under N > 1.
+0's generator stops. The scoring utilities run collectives, so under N > 1
+they are events of that loop: rank 0 calls them while every rank's generator
+runs, and every rank runs them at the same point of an iteration (a rank
+above 0, or rank 0 with no loop running, raises). ``calc_act_scales`` is a
+collective call instead: every rank calls it with the same prompts, outside
+the loop, and gets the whole vectors; ``load_with_smooth_quant`` is called
+on every rank, which keeps its quantized shard.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import torch
 from .config import EngineConfig, ModelConfig, QuantConfig, QuantType, load_model_config
 from .engine.engine import ModelExecutor
 from .engine.generator import DynamicBatchGenerator
-from .parallel.comm import join, local_device
+from .engine.scheduler import NO_LOOP
+from .parallel.comm import join, local_device, require_launch
 from .parallel.sharding import check_tp, is_shard, shard_params
 from .utils.convert import params_to_torch
 from .utils.hf_loader import load_hf_state
@@ -114,6 +121,9 @@ class LLM:
                 "pass device='cpu' to run on the CPU"
             )
         self.tp_group = None
+        # the loop of the generator that serves this LLM (DynamicBatchGenerator
+        # sets it): under tensor parallelism the scoring calls run there
+        self.scheduler = None
         if tp > 1:
             # one process a rank (torchrun's convention): every rank builds
             # the same LLM and keeps its shard of the weights
@@ -173,8 +183,15 @@ class LLM:
         """Run calibration prompts (token ids or strings) through the model and return
         the per-channel activation |max| of every quantized linear's input
         (parameter path -> [in] float32). Each prompt is tiled or truncated
-        to ``calib_len`` tokens."""
-        self._single_rank("calc_act_scales")
+        to ``calib_len`` tokens.
+
+        Under tensor parallelism it is a collective call: every rank calls it
+        with the same prompts, outside the scheduler loop, and every rank
+        gets the whole vectors (a row-parallel input's rank slices
+        all-gathered)."""
+        if self.tp_group is not None and self.scheduler is not None and self.scheduler.running:
+            raise RuntimeError("calc_act_scales under tensor parallelism is a collective call of "
+                               "every rank outside the scheduler loop: stop the generator first")
         from .utils.calibrate import calc_act_scales as _calc
 
         batches = []
@@ -186,7 +203,8 @@ class LLM:
             batches.append(np.tile(ids, reps)[:calib_len])
         if not batches:
             raise ValueError("no non-empty calibration prompts")
-        return _calc(self.executor.params, self.model_config, self.executor.rope, batches)
+        ex = self.executor
+        return _calc(ex.params, ex.cfg, ex.rope, batches, tp=ex.tp)
 
     @classmethod
     def load_with_smooth_quant(
@@ -201,34 +219,50 @@ class LLM:
         """The SmoothQuant flow from a raw fp16/bf16 checkpoint: load it,
         calibrate the activation scales on ``calibration_prompts`` (token
         ids or strings), migrate the outliers into the weights (``alpha``) and serve
-        W8A8 int8 on the same device."""
+        W8A8 int8 on the same device.
+
+        Under tensor parallelism every rank calls it: each loads its shard,
+        calibrates collectively (:meth:`calc_act_scales`) and quantizes its
+        shard with the whole vectors (``quantize_int8_params(..., tp=)``); the
+        rebuilt ``LLM`` keeps that shard and the joined process group."""
         from .utils.quant_convert import quantize_int8_params
 
         if engine_config is not None and engine_config.parallel.tp > 1:
-            raise NotImplementedError("load_with_smooth_quant under tensor parallelism is not "
-                                      "ported yet (ROADMAP, queue 1)")
+            require_launch(engine_config.parallel.tp)
         base = cls(model_path=model_path, engine_config=engine_config, **kw)
         scales = base.calc_act_scales(calibration_prompts, calib_len=calib_len)
-        params, device = base.executor.params, base.device
+        params, device, tp = base.executor.params, base.device, base.executor.tp
         mc, ec, tok, tok_err = (base.model_config, base.engine_config, base.tokenizer,
                                 base.tokenizer_error)
         base.executor = None  # release the KV pool before the rebuild
         del base
         llm = cls(model_config=mc, engine_config=ec, device=device, tokenizer=tok,
-                  params=quantize_int8_params(params, scales, alpha))
+                  params=quantize_int8_params(params, scales, alpha, tp=tp))
         llm.tokenizer_error = tok_err
         return llm
 
     # ------------------------------------------------------------------
     # scoring utilities, on token ids or a string
     # ------------------------------------------------------------------
-    def _single_rank(self, what: str):
-        """Scoring and calibration run outside the scheduler loop, on the
-        caller's rank alone: under tensor parallelism the other ranks would
-        never join their collectives, so they raise instead of hanging."""
-        if self.tp_group is not None:
-            raise NotImplementedError(
-                f"{what} under tensor parallelism is not ported yet (ROADMAP, queue 1)")
+    def _run(self, kind: str, tokens) -> np.ndarray:
+        """The executor's ``run_score`` (``kind`` "score") or ``run_hidden``
+        ("hidden") of ``tokens``: directly in one process; under tensor
+        parallelism through the serving loop (``Scheduler.score``), which
+        runs it on every rank, and only on rank 0."""
+        ids = self._encode_ids(tokens)
+        if self.tp_group is None:
+            return self.executor.run_score(ids) if kind == "score" else self.executor.run_hidden(ids)
+        if self.tp_group.rank > 0:
+            raise RuntimeError(f"rank {self.tp_group.rank} of a tensor-parallel LLM takes no "
+                               "scoring calls; call rank 0, whose scheduler loop runs them on "
+                               "every rank")
+        if self.scheduler is None:
+            raise RuntimeError(NO_LOOP)
+        V = self.model_config.vocab_size
+        if len(ids) == 0 or ids.min() < 0 or ids.max() >= V:
+            # checked here: a failure inside the loop stops every rank
+            raise ValueError(f"scoring takes one or more token ids below the vocabulary's {V}")
+        return self.scheduler.score(kind, ids)
 
     def _encode_ids(self, tokens) -> np.ndarray:
         if isinstance(tokens, str):
@@ -239,20 +273,17 @@ class LLM:
 
     def calc_logits(self, tokens) -> np.ndarray:
         """Per-position vocab logits [T, V] (fp32 numpy)."""
-        self._single_rank("calc_logits")
-        return self.executor.run_score(self._encode_ids(tokens))
+        return self._run("score", tokens)
 
     def calc_hidden_states(self, tokens) -> np.ndarray:
         """Per-position last-layer hidden states [T, d] after the final norm."""
-        self._single_rank("calc_hidden_states")
-        return self.executor.run_hidden(self._encode_ids(tokens))
+        return self._run("hidden", tokens)
 
     def _logits_and_labels(self, tokens, labels):
         """The logit rows that score ``labels``: by default position i scores
         the next token, tokens[i + 1]."""
-        self._single_rank("scoring (calc_log_prob, calc_loss, calc_greedy_match)")
         ids = self._encode_ids(tokens)
-        logits = self.executor.run_score(ids)
+        logits = self._run("score", ids)
         if labels is None:
             return logits[:-1], ids[1:]
         lab = np.asarray(list(labels), dtype=np.int32)

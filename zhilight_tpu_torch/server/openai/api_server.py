@@ -13,8 +13,8 @@ Tensor parallelism runs one process a rank under torchrun: rank 0 serves
 HTTP, the other ranks serve none and run the scheduler in lockstep. Without
 such a launch ``--tensor-parallel N`` raises. Data and pipeline parallelism
 and multi-host serving are not ported yet: their flags raise. Embeddings
-(``/v1/embeddings``) answer 501 under tensor parallelism: they run outside
-the scheduler loop, on rank 0 alone.
+(``/v1/embeddings``) go through ``LLM.calc_hidden_states``, which under
+tensor parallelism runs as an event of the scheduler loop on every rank.
 
 Launch:
   python -m zhilight_tpu_torch.server.openai.api_server --model-path M [--port 8080]
@@ -436,8 +436,6 @@ def build_app(engine: AsyncEngine, served_model: str, api_key: Optional[str] = N
     app.router.add_get("/v1/options", options)
     # -- embeddings (beyond reference parity: mean-pooled last hidden) --
     async def embeddings(request: web.Request):
-        if getattr(engine.llm, "tp_group", None) is not None:
-            return _error(501, "embeddings are not served under tensor parallelism")
         try:
             req = EmbeddingRequest(**await request.json())
         except Exception as e:
@@ -454,9 +452,7 @@ def build_app(engine: AsyncEngine, served_model: str, api_key: Optional[str] = N
             tokens = engine.encode_prompt(item)
             if len(tokens) >= engine.max_model_len:
                 return _error(400, "input too long")
-            hs = await loop.run_in_executor(
-                None, engine.llm.executor.run_hidden, __import__("numpy").asarray(tokens, dtype="int32")
-            )
+            hs = await loop.run_in_executor(None, engine.llm.calc_hidden_states, tokens)
             emb = hs.astype("float32").mean(axis=0)
             data.append(EmbeddingData(index=i, embedding=[float(x) for x in emb]))
             usage.prompt_tokens += len(tokens)

@@ -14,6 +14,15 @@ offline, and the statistics do not depend on cache mechanics.
 
 Scope: the seven dense-layer linears (q/k/v or fused qkv, o, gate/up or fused
 gate_up, down). MoE expert weights keep their checkpoint's quantization.
+
+Under tensor parallelism (``tp``, the group; ``params`` a rank's shard and
+``cfg`` the rank's configuration, ``parallel.sharding.rank_config``) every
+rank runs the pass together and reduces each row-parallel product as the TP
+forward does (``models/llama.py`` ``_reduce_linear``: ``o_proj`` and
+``down_proj`` in fp32; a MoE layer's routed sum and shared expert through
+``mlp_layer``). A column-parallel input's statistic is the whole vector,
+the same on every rank; a row-parallel input's is the rank's ``K / tp``
+slice, which :func:`calc_act_scales` all-gathers.
 """
 
 from __future__ import annotations
@@ -31,10 +40,11 @@ def _amax(x: torch.Tensor) -> torch.Tensor:
     return x.float().abs().amax(0)
 
 
-def calib_forward(params, cfg, rope, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+def calib_forward(params, cfg, rope, tokens: torch.Tensor, tp=None) -> Dict[str, torch.Tensor]:
     """One calibration pass over a single sequence [T]; returns
-    {parameter path: per-channel |input| max} for every quantized-linear site."""
-    from ..models.llama import _maybe_qk_norm, _norm, _qkv, embed, mlp_layer
+    {parameter path: per-channel |input| max} for every quantized-linear site
+    (under ``tp`` a row-parallel site's: the rank's slice)."""
+    from ..models.llama import _maybe_qk_norm, _norm, _qkv, _reduce_linear, embed, mlp_layer
     from ..ops.activations import gated_act
     from ..ops.attention import prefill_attention
     from ..ops.linear import linear
@@ -42,7 +52,7 @@ def calib_forward(params, cfg, rope, tokens: torch.Tensor) -> Dict[str, torch.Te
 
     T = tokens.shape[0]
     positions = torch.arange(T, dtype=torch.int32, device=tokens.device)
-    x = embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens, tp)
     cos_f, sin_f = rope.rot_values(positions)
     scale = 1.0 / math.sqrt(cfg.dim_head)
     res_scale = cfg.scale_depth / math.sqrt(cfg.num_layers) if cfg.scale_depth != 1.0 else 1.0
@@ -62,7 +72,7 @@ def calib_forward(params, cfg, rope, tokens: torch.Tensor) -> Dict[str, torch.Te
         attn = prefill_attention(q, k, v, 0, T, scale, cfg.sliding_window)
         attn = attn.reshape(T, cfg.num_heads * cfg.dim_head)
         stats[f"{pre}.attn.o_proj"] = _amax(attn)
-        attn_out = linear(p["attn"]["o_proj"], attn)
+        attn_out = _reduce_linear(p["attn"]["o_proj"], attn, tp)
 
         if cfg.parallel_residual:
             ff_in = h
@@ -73,7 +83,7 @@ def calib_forward(params, cfg, rope, tokens: torch.Tensor) -> Dict[str, torch.Te
         mp = p["mlp"]
         if cfg.is_moe_layer(i):
             # MoE experts keep their checkpoint's quantization: no statistics
-            ff_out = mlp_layer(mp, cfg, ff_in, i)
+            ff_out = mlp_layer(mp, cfg, ff_in, i, tp)
         else:
             for name in ("gate_up_proj", "gate_proj", "up_proj"):
                 if name in mp:
@@ -84,7 +94,7 @@ def calib_forward(params, cfg, rope, tokens: torch.Tensor) -> Dict[str, torch.Te
                 g, u = linear(mp["gate_proj"], ff_in), linear(mp["up_proj"], ff_in)
             hact = gated_act(g, u, cfg.activate_fn)
             stats[f"{pre}.mlp.down_proj"] = _amax(hact)
-            ff_out = linear(mp["down_proj"], hact)
+            ff_out = _reduce_linear(mp["down_proj"], hact, tp)
 
         if cfg.parallel_residual:
             x = x + attn_out + ff_out
@@ -93,15 +103,24 @@ def calib_forward(params, cfg, rope, tokens: torch.Tensor) -> Dict[str, torch.Te
     return stats
 
 
-def calc_act_scales(params, cfg, rope, token_batches: List[np.ndarray]) -> Dict[str, np.ndarray]:
+def calc_act_scales(params, cfg, rope, token_batches: List[np.ndarray],
+                    tp=None) -> Dict[str, np.ndarray]:
     """Per-channel activation |max| over the calibration sequences (a running
-    maximum), fp32 numpy by parameter path."""
+    maximum), fp32 numpy by parameter path. Under ``tp`` every rank calls it
+    with the same sequences and gets the whole vectors: a row-parallel
+    site's rank slices are all-gathered, rank 0's first."""
+    from ..parallel.sharding import ROW, param_shard_dim
+
     device = params["embedding"]["w"].device
     out: Dict[str, torch.Tensor] = {}
     with torch.no_grad():
         for toks in token_batches:
             tokens = torch.as_tensor(np.asarray(toks, np.int32), device=device)
-            for k, v in calib_forward(params, cfg, rope, tokens).items():
+            for k, v in calib_forward(params, cfg, rope, tokens, tp).items():
                 prev = out.get(k)
                 out[k] = v if prev is None else torch.maximum(prev, v)
+        if tp is not None:
+            # every rank visits the sites in the forward's order
+            out = {k: tp.all_gather(v, dim=0) if param_shard_dim(k + ".w", 2) == ROW else v
+                   for k, v in out.items()}
     return {k: v.cpu().numpy().astype(np.float32) for k, v in out.items()}

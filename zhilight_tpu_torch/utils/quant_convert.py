@@ -241,19 +241,24 @@ def auto_int8_from_fp(w: torch.Tensor, reduce=None) -> Dict[str, torch.Tensor]:
 
 
 def smooth_quant_weights(
-    w: torch.Tensor, act_scale, alpha: float = 0.5
+    w: torch.Tensor, act_scale, alpha: float = 0.5, reduce=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SmoothQuant migration: returns (w * s[:, None], 1 / s) with
     s = act_scale^alpha / w_rowmax^(1 - alpha), all fp32. The runtime
     multiplies the activations by the returned ``smooth`` (= 1 / s) vector.
     The [in] vector s is computed with numpy on the host, in the reference's
     order (the libraries' ``pow`` differ in the last bit); the weight stays
-    on its device."""
+    on its device. ``reduce`` (a MAX over the ranks, for a column-parallel
+    shard that holds some of the columns) makes each row's maximum the
+    whole weight's."""
     wf = w.float()
     if isinstance(act_scale, torch.Tensor):
         act_scale = act_scale.detach().cpu().numpy()
     act = np.asarray(act_scale, np.float32)
-    w_amax = np.maximum(wf.abs().amax(1).cpu().numpy(), 1e-8)
+    w_amax = wf.abs().amax(1)
+    if reduce is not None:
+        w_amax = reduce(w_amax)
+    w_amax = np.maximum(w_amax.cpu().numpy(), 1e-8)
     s = np.power(np.maximum(act, 1e-8), alpha) / np.power(w_amax, 1.0 - alpha)
     s = np.maximum(s, 1e-8).astype(np.float32)
     smooth = torch.from_numpy((1.0 / s).astype(np.float32)).to(wf.device)
@@ -281,17 +286,18 @@ def quantize_int8_params(
     Embedding, lm_head, norms, routers and leaves that are quantized already
     are untouched. Returns a new tree; the leaves stay on their device.
 
-    ``tp`` (a tensor-parallel group): ``params`` is a rank's shard. A
-    column-parallel leaf holds every input row of its columns, so its scales
-    are its own; a row-parallel one (``o_proj``, ``down_proj``) holds K / tp
-    rows, and the column absmax is MAX-all-reduced over the ranks, so that
-    every rank's codes and scales are those of the whole weight. Calibrated
-    scales are not taken under tensor parallelism."""
-    from ..parallel.sharding import ROW, param_shard_dim
+    ``tp`` (a tensor-parallel group): ``params`` is a rank's shard, and
+    every rank's codes, scales and ``smooth`` are its shard of the whole
+    tree's. A column-parallel leaf holds every input row of its columns, so
+    its column scales are its own; with ``act_scales`` each row's weight
+    maximum is MAX-all-reduced over the ranks (a fused ``qkv_proj`` /
+    ``gate_up_proj`` holds the rank's columns of each part: the maximum over
+    them all is the same), and its ``smooth`` is the whole vector. A
+    row-parallel one (``o_proj``, ``down_proj``) holds K / tp rows: its
+    column absmax is MAX-all-reduced, and it takes its rows' slice of the
+    whole act vector, which is its ``smooth``."""
+    from ..parallel.sharding import COL, ROW, param_shard_dim
 
-    if tp is not None and act_scales is not None:
-        raise NotImplementedError("SmoothQuant calibration under tensor parallelism is not "
-                                  "ported yet (ROADMAP, queue 1)")
     reduce = None
     if tp is not None:
         import torch.distributed as dist
@@ -307,10 +313,18 @@ def quantize_int8_params(
             elif (k in _INT8_TARGETS and "w" in v and ".experts" not in sub
                   and getattr(v["w"], "ndim", 0) == 2):
                 w, smooth = v["w"].float(), None
+                role = param_shard_dim(sub + ".w", 2) if reduce is not None else None
                 if act_scales is not None and sub in act_scales:
-                    w, smooth = smooth_quant_weights(w, act_scales[sub], alpha)
-                row = reduce is not None and param_shard_dim(sub + ".w", 2) == ROW
-                new = auto_int8_from_fp(w, reduce if row else None)
+                    act = act_scales[sub]
+                    if role == ROW and len(act) != w.shape[0]:
+                        rows = w.shape[0]
+                        if len(act) != rows * tp.world:
+                            raise ValueError(f"{sub}: an act vector of {len(act)} for a row "
+                                             f"shard of {rows} rows at tp={tp.world}")
+                        act = act[tp.rank * rows:(tp.rank + 1) * rows]
+                    w, smooth = smooth_quant_weights(w, act, alpha,
+                                                     reduce if role == COL else None)
+                new = auto_int8_from_fp(w, reduce if role == ROW else None)
                 if smooth is not None:
                     new["smooth"] = smooth
                 if "b" in v:

@@ -11,6 +11,8 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
     python3 chip_smoke.py --phases tp             # Qwen2.5-14B bf16 and GPTQ, ..., scoring and SmoothQuant, TP=1 then TP=2 (gloo)
     python3 chip_smoke.py --phases tp --tp-gptq-layers 48  # the GPTQ TP path at full depth
     python3 chip_smoke.py --phases tp --tp-backend nccl  # the same, NCCL, a GPU a rank
+    python3 chip_smoke.py --phases pp4            # Qwen2.5-14B bf16, TP=2 x PP=2, 4 ranks
+    python3 chip_smoke.py --phases pp4 --tp-backend nccl  # the same, a GPU a rank (four)
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
@@ -155,7 +157,26 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            phase holds rows 2 and 3 (and the prologue, row 1) at a Qwen rank's
            shapes, rows 2b, 7 and 8 at a DeepSeek rank's, and rows 4 and 9 at
            a rank's projections in both output modes (bf16, and fp32: a
-           row-parallel partial);
+           row-parallel partial); and pipeline parallelism, two paths run
+           by the same launch of two rank processes, a stage a rank:
+           Qwen2.5-14B in bf16 at full width and all 48 layers
+           (``Qwen2.5-14B-bf16-pp``: 24 layers a rank, each rank drawing the
+           full stream from the seed and keeping its stage, a pool of its 24
+           layers; scored through the loop too) and the GPTQ-Int4 path at
+           ``--tp-gptq-layers`` (``Qwen2.5-14B-GPTQ-Int4-pp``, each rank
+           converting only its stage's layers), each against its PP=1 run in
+           this process: the teacher-forced logits, the scoring calls and the
+           greedy tokens bit for bit (or the teacher-forced rule), every rank
+           finishing every request with rank 0's tokens, each rank's
+           teacher-forced launches its stage's share (a column's sum the PP=1
+           run's), one hand-off and one broadcast of the hidden state a
+           forward, and decode tok/s, TTFT and the time of a move beside PP=1's;
+  pp4      (not in the default order) Qwen2.5-14B in bf16 at TP=2 x PP=2
+           (``Qwen2.5-14B-bf16-tp-pp``, TP_QWEN_LAYERS of 48, full width):
+           its one-process run, then four rank processes (stage ``r // 2``, TP
+           rank ``r % 2``; gloo on the one GPU, ``--tp-backend nccl`` a GPU a
+           rank), held as the pipelined paths above, the logits by the
+           teacher-forced rule (TP changes the arithmetic);
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -169,7 +190,9 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            on whose executor the pool-row operations (``copy_slots``,
            ``swap_out_rows`` -> ``swap_in_rows``), a beam request and
            ``calc_logits`` are also driven; and DeepSeek-V2-Lite GPTQ-Int4 (27
-           layers, full width: MLA over a latent pool, 64 routed + 2 shared
+           layers as it ships, 8 here: ``SERVE_DEEPSEEK_LAYERS``, the dense
+           first layer and seven MoE layers, the tp phase serving all 27 in
+           bf16; full width: MLA over a latent pool, 64 routed + 2 shared
            experts, top 6; HF-format tensors named and quantized as
            tools/make_bench_model.py's ``deepseek-v2-lite-w4``; prompts up to
            2816 tokens), with ``copy_slots`` and a swap round trip on the
@@ -4529,6 +4552,15 @@ def teacher_forced(label: str, ex, prompts, steps: int, embs=None, against: str 
         raise AssertionError(f"{label}: teacher-forced logits differ: {worst_rel}, gap {worst_gap}")
 
 
+# the serve phase's DeepSeek-V2-Lite GPTQ-Int4 paths (served, window, fused)
+# at a cut depth, full width: 8 of its 27 layers (the dense first layer and
+# seven MoE layers), which leave the default run's time to the tp phase's
+# pipelined Qwen2.5-14B at all 48 (the 27-layer paths took 205-228 s, load
+# and conversion 58.8 s of it); the tp phase serves DeepSeek-V2-Lite at all
+# 27 layers in bf16
+SERVE_DEEPSEEK_LAYERS = 8
+
+
 def deepseek_engine_config():
     """bench.py:433-436's DeepSeek serving stage: batch 8, max_model_len 3072
     (2816-token prompts), 512-token chunks; the latent pool holds 8 x 3072 tokens."""
@@ -4541,11 +4573,11 @@ def deepseek_engine_config():
     )
 
 
-def map_hf_params_by_layer(tensors, cfg, quant_method: str, shard=None):
+def map_hf_params_by_layer(tensors, cfg, quant_method: str, shard=None, layers=None):
     """The port's map_hf_params on one layer's HF tensors at a time, on the
     GPU, so that neither the host nor the GPU holds a checkpoint twice
-    (``shard``: a TP rank's, as map_hf_params takes it). Returns the
-    parameter tree and the number of tensors."""
+    (``shard``: a TP rank's, ``layers``: a pipeline stage's, as map_hf_params
+    takes them). Returns the parameter tree and the number of tensors."""
     from zhilight_tpu_torch.utils.hf_loader import map_hf_params
 
     params, n_tensors = {}, 0
@@ -4553,7 +4585,8 @@ def map_hf_params_by_layer(tensors, cfg, quant_method: str, shard=None):
     def convert(group):
         nonlocal n_tensors
         n_tensors += len(group)
-        tree = map_hf_params(group, cfg, quant_method=quant_method, device="cuda", shard=shard)
+        tree = map_hf_params(group, cfg, quant_method=quant_method, device="cuda", shard=shard,
+                             layers=layers)
         params.setdefault("layers", {}).update(tree.pop("layers", {}))
         params.update(tree)
 
@@ -4936,17 +4969,18 @@ TP_PATHS = {
     # label -> (config.json fields, the geometry they must give, its kernels,
     # the teacher-forced tolerance: what the card holds the model's logits to,
     # how its weights are made (tp_weights), whether it serves the requests
-    # (tp_drive) or only runs the teacher-forced logits)
+    # (tp_drive) or only runs the teacher-forced logits, the (tp, pp) of its
+    # multi-rank run)
     "Qwen2.5-14B-bf16": (
         dict(QWEN14B_BF16, num_hidden_layers=TP_QWEN_LAYERS),
-        lambda c: _qwen14b(c, TP_QWEN_LAYERS), ATTENTION_KERNELS, 2e-2, "seed", True),
+        lambda c: _qwen14b(c, TP_QWEN_LAYERS), ATTENTION_KERNELS, 2e-2, "seed", True, (2, 1)),
     # GPTQ tensors from the seed through the port's loader, each rank keeping its
     # shard: the int4 linears sharded on N (q/k/v, gate/up) and K (o, down)
     # with their group scales; rows 1-4 at a rank's shapes, row 4's fp32 mode
     "Qwen2.5-14B-GPTQ-Int4": (
         dict(QWEN14B_GPTQ, num_hidden_layers=TP_GPTQ_LAYERS),
         lambda c: _qwen14b(c, c.num_layers), ATTENTION_KERNELS + ("w4a16_matmul",), 2e-2,
-        "gptq", True),
+        "gptq", True, (2, 1)),
     # FP8 block-scaled tensors kept in FP8 (ZT_FP8_KEEP=1): row 9 at a rank's
     # shapes, its fp32 mode in o and down
     "Qwen3-8B-FP8-2-layers": (
@@ -4954,13 +4988,13 @@ TP_PATHS = {
         lambda c: (c.num_layers == TP_CHECK_LAYERS and c.dim_model == 4096 and c.num_heads == 32
                    and c.num_kv_heads == 8 and c.dim_head == 128 and c.dim_ff == 12288
                    and c.qk_norm and c.vocab_size == 151936),
-        ATTENTION_KERNELS + ("fp8_block_matmul",), 2e-2, "fp8", False),
+        ATTENTION_KERNELS + ("fp8_block_matmul",), 2e-2, "fp8", False, (2, 1)),
     # the bf16 weights quantized to W8A8 at load on each rank (AUTO_INT8): the
     # row-parallel shards' column absmax MAX-reduced, their activations'
     # per-token absmax MAX-reduced and int32 products summed
     "Qwen2.5-14B-AUTO_INT8-2-layers": (
         dict(QWEN14B_BF16, num_hidden_layers=TP_CHECK_LAYERS),
-        lambda c: _qwen14b(c, TP_CHECK_LAYERS), ATTENTION_KERNELS, 2e-2, "int8", False),
+        lambda c: _qwen14b(c, TP_CHECK_LAYERS), ATTENTION_KERNELS, 2e-2, "int8", False, (2, 1)),
     # MLA over a replicated latent pool, bf16 experts through the library's
     # grouped GEMM, sharded over the ranks
     "DeepSeek-V2-Lite-bf16": (
@@ -4972,12 +5006,29 @@ TP_PATHS = {
                    and c.moe.shared_expert_intermediate_size == 2816
                    and c.moe.first_k_dense_replace == 1 and c.dim_ff == 10944
                    and c.vocab_size == 102400 and c.dtype == "bfloat16"),
-        ("rope_write_rows_2d", "paged_mla_decode"), LOGIT_TOL, "seed", True),
+        ("rope_write_rows_2d", "paged_mla_decode"), LOGIT_TOL, "seed", True, (2, 1)),
+    # pipeline parallelism: Qwen2.5-14B in bf16 at full width and all 48
+    # layers, 24 a stage, each rank drawing the full stream from the seed and
+    # keeping its stage (init_params(stage=...))
+    "Qwen2.5-14B-bf16-pp": (
+        QWEN14B_BF16, lambda c: _qwen14b(c, 48), ATTENTION_KERNELS, 2e-2, "seed", True, (1, 2)),
+    # the GPTQ-Int4 path at PP=2 (``--tp-gptq-layers``), each rank converting
+    # only its stage's layers (map_hf_params(layers=...))
+    "Qwen2.5-14B-GPTQ-Int4-pp": (
+        dict(QWEN14B_GPTQ, num_hidden_layers=TP_GPTQ_LAYERS),
+        lambda c: _qwen14b(c, c.num_layers), ATTENTION_KERNELS + ("w4a16_matmul",), 2e-2,
+        "gptq", True, (1, 2)),
+    # TP=2 x PP=2, four rank processes: the pp4 phase's only path (not in the
+    # default order), at the tp path's cut depth
+    "Qwen2.5-14B-bf16-tp-pp": (
+        dict(QWEN14B_BF16, num_hidden_layers=TP_QWEN_LAYERS),
+        lambda c: _qwen14b(c, TP_QWEN_LAYERS), ATTENTION_KERNELS, 2e-2, "seed", True, (2, 2)),
 }
 # the paths scored through the serving loop (LLM.calc_*), and the kernels one
 # scoring call launches, once a layer: rows 1 and 3 over a packed pool, row 7
 # over a latent one (MLA's prefill attention is plain torch)
 TP_SCORED = {"Qwen2.5-14B-bf16": ("rope_write_rows_hm", "paged_prefill_attention_hm_packed"),
+             "Qwen2.5-14B-bf16-pp": ("rope_write_rows_hm", "paged_prefill_attention_hm_packed"),
              "DeepSeek-V2-Lite-bf16": ("rope_write_rows_2d",)}
 # SmoothQuant on the AUTO_INT8 path: calibration prompts (count, tokens) and alpha
 TP_CALIB = (4, 512)
@@ -4988,21 +5039,40 @@ TP_SAMPLED = 200           # a seeded sampled request's prompt
 TP_CANCEL = 300            # a request cancelled mid-decode
 TP_PAGES = 512             # given: both ranks would size the pool from the same free memory
 TP_TIMEOUT = 300           # seconds: a path's limit in the rank processes, their default group's timeout
+
+
+def tp_shape(label: str):
+    """The (tp, pp) of a tp path's multi-rank run."""
+    return TP_PATHS[label][6]
+
+
+def run_names(label: str):
+    """The names a tp path's runs take in the launch record: the one-process
+    run's, and each rank's of the multi-rank run (``-TP1``, ``-TP2-rank0``
+    for a tensor-parallel path; ``-PP1``, ``-PP2-rank0`` or
+    ``-TP2xPP2-rank0`` where it is pipelined)."""
+    tp, pp = tp_shape(label)
+    if pp == 1:
+        return f"{label}-TP1", [f"{label}-TP{tp}-rank{r}" for r in range(tp)]
+    shape = f"TP{tp}xPP{pp}" if tp > 1 else f"PP{pp}"
+    return f"{label}-PP1", [f"{label}-{shape}-rank{r}" for r in range(tp * pp)]
+
+
 for _label, (_, _, _kernels, *_) in TP_PATHS.items():
-    for _r in range(2):
-        PATHS[f"{_label}-TP2-rank{_r}"] = _kernels
-    PATHS[f"{_label}-TP1"] = _kernels
+    _one, _ranks = run_names(_label)
+    for _name in [_one] + _ranks:
+        PATHS[_name] = _kernels
 
 
-def tp_engine_config(tp: int):
+def tp_engine_config(tp: int, pp: int = 1):
     """Batch 4, max_model_len 2048, 512-token chunks, a pool of TP_PAGES
-    pages of 16 tokens."""
+    pages of 16 tokens; ``tp`` x ``pp`` ranks."""
     from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ParallelConfig,
                                            SchedulerConfig)
 
     return EngineConfig(max_model_len=2048, cache=CacheConfig(page_size=16, num_pages=TP_PAGES),
                         scheduler=SchedulerConfig(max_batch=4, chunk_size=512),
-                        parallel=ParallelConfig(tp=tp))
+                        parallel=ParallelConfig(tp=tp, pp=pp))
 
 
 def tp_hf(label: str, args) -> dict:
@@ -5023,9 +5093,11 @@ def tp_config(label: str, args):
     return cfg
 
 
-def tp_weights(label: str, args, cfg, device, shard=None):
+def tp_weights(label: str, args, cfg, device, shard=None, stage=None):
     """The path's weights, drawn from ``--seed`` on ``device``, whole or rank
-    ``shard = (rank, tp)``'s: by ``init_params`` ("seed"; "int8": then
+    ``shard = (rank, tp)``'s, of pipeline stage ``stage = (s, pp)`` (its
+    layers only: ``init_params(stage=)``, ``map_hf_params(layers=)``): by
+    ``init_params`` ("seed"; "int8": then
     quantized to W8A8 as ``LLM`` does an AUTO_INT8 checkpoint, a rank's
     row-parallel scales MAX-reduced over the group), or as HF tensors through
     the port's loader, one layer at a time, each rank converting a whole
@@ -5036,7 +5108,7 @@ def tp_weights(label: str, args, cfg, device, shard=None):
 
     kind = TP_PATHS[label][4]
     if kind in ("seed", "int8"):
-        params = L.init_params(cfg, seed=args.seed, device=device, shard=shard)
+        params = L.init_params(cfg, seed=args.seed, device=device, shard=shard, stage=stage)
         if kind == "int8":
             from zhilight_tpu_torch.parallel.comm import TPGroup
             from zhilight_tpu_torch.utils.quant_convert import quantize_int8_params
@@ -5045,9 +5117,12 @@ def tp_weights(label: str, args, cfg, device, shard=None):
         return params
     hf = tp_hf(label, args)
     if kind == "gptq":
+        from zhilight_tpu_torch.parallel.sharding import stage_range
+
         # the dense tensors (a 152064-row embedding and head) drawn on the card
+        layers = None if stage is None else stage_range(cfg, *stage)
         return map_hf_params_by_layer(qwen_hf_tensors(hf, args.seed, {}, device=device), cfg,
-                                      "gptq", shard)[0]
+                                      "gptq", shard, layers)[0]
     with env_switch("ZT_FP8_KEEP", True):
         return map_hf_params_by_layer(qwen3_fp8_hf_tensors(hf, args.seed), cfg, "fp8", shard)[0]
 
@@ -5233,17 +5308,19 @@ def tp_score_recorder(llm, counters, routes=None, share=None) -> list:
     ex, seen, run = llm.executor, [], llm.executor.run_score
     if share is not None:
         share.update(routed=0, parted=0, ratio=0.0)
-    # the host seconds a call spends in the group's collectives
+    # the host seconds a call spends in the group's collectives (and a
+    # pipeline column's moves)
     in_collectives = [0.0]
-    if ex.tp is not None:
-        for op in ("all_reduce", "all_gather"):
-            def timed(*a, _real=getattr(ex.tp, op), **kw):
-                t0 = time.perf_counter()
-                try:
-                    return _real(*a, **kw)
-                finally:
-                    in_collectives[0] += time.perf_counter() - t0
-            setattr(ex.tp, op, timed)
+    timed_ops = [(ex.tp, op) for op in ("all_reduce", "all_gather") if ex.tp is not None]
+    timed_ops += [(ex.pp, op) for op in ("send", "recv", "from_last") if ex.pp is not None]
+    for group, op in timed_ops:
+        def timed(*a, _real=getattr(group, op), **kw):
+            t0 = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                in_collectives[0] += time.perf_counter() - t0
+        setattr(group, op, timed)
 
     def recorded(tokens, _kind="score"):
         slots = llm.scheduler.slots if llm.scheduler is not None else []
@@ -5265,7 +5342,8 @@ def tp_score_recorder(llm, counters, routes=None, share=None) -> list:
     return seen
 
 
-def tp_score_check(label: str, cfg, one: dict, got: dict, ranks: list) -> str:
+def tp_score_check(label: str, cfg, one: dict, got: dict, ranks: list,
+                   layers: int = 0) -> str:
     """The scoring calls of a TP=2 run (``got``: rank 0's results, ``ranks``:
     both ranks' records) against TP=1's (``one``): logits [T, V] every row
     within the path's tolerance of its largest logit, the argmax kept
@@ -5277,7 +5355,8 @@ def tp_score_check(label: str, cfg, one: dict, got: dict, ranks: list) -> str:
     log-softmax) plus 1e-3; greedy matches apart by no more than the
     positions whose argmax parted (each a near tie). Each rank ran every
     scoring event, one while requests decoded, and each launched the path's
-    scoring kernels once a layer and nothing else. Returns the summary."""
+    scoring kernels once a layer it holds (``layers``: a pipeline stage's;
+    default every layer) and nothing else. Returns the summary."""
     tol = TP_PATHS[label][3]
     want, have = torch.from_numpy(one["scores"]["logits"]), torch.from_numpy(got["logits"])
     if not (torch.isfinite(have).all() and have.shape == want.shape
@@ -5303,7 +5382,7 @@ def tp_score_check(label: str, cfg, one: dict, got: dict, ranks: list) -> str:
     if (rel > tol or worst > 2 * diff.max().item() or hs_rel > tol or lp_err > 0
             or abs(gm[1] - gm[0]) > int(parted[:-1].sum())):
         raise AssertionError(f"tp: {label}: TP=2 scoring against TP=1: {msg}")
-    layers = cfg.num_layers
+    layers = layers or cfg.num_layers
     for r in ranks:
         calls = r["score_calls"]
         kinds = [c["kind"] for c in calls]
@@ -5338,6 +5417,52 @@ def tp_digests(tree, prefix: str = "") -> dict:
 def tp_calib_prompts(seed: int, vocab: int) -> list:
     rng = np.random.default_rng(seed + 23)
     return [rng.integers(3, vocab, TP_CALIB[1]).tolist() for _ in range(TP_CALIB[0])]
+
+
+def pp_count_moves(group) -> dict:
+    """Count, from now on, each move of the hidden state ``group`` (a
+    pipeline column) makes, by kind: ``send`` and ``recv`` (a hand-off
+    between adjacent stages), ``from_last`` (the last stage's broadcast)."""
+    counts = {}
+    for op in ("send", "recv", "from_last"):
+        def counted(*a, _real=getattr(group, op), _op=op, **kw):
+            counts[_op] = counts.get(_op, 0) + 1
+            return _real(*a, **kw)
+
+        setattr(group, op, counted)
+    return counts
+
+
+def pp_moves_ms(group, cfg, device) -> dict:
+    """Wall ms of one move of the bf16 hidden state over a pipeline column,
+    the host's time included (20 after 3, synchronised), at a decode step of
+    the engine's 4 slots and at a 512-token chunk: the hand-off down the
+    column (each stage receives, then sends on) and the last stage's
+    broadcast to every stage. Every rank of the column calls it together."""
+    out = {}
+    for rows in (4, 512):
+        shape = (rows, cfg.dim_model)
+        x = torch.randn(shape, device=device).to(torch.bfloat16)
+
+        def hand_off():
+            y = x if group.first else group.recv(shape, torch.bfloat16, device)
+            if not group.last:
+                group.send(y)
+
+        def from_last():
+            group.from_last(x if group.last else None, shape, torch.bfloat16, device)
+
+        for what, fn in ((f"hand-off bf16 [{rows}, d]", hand_off),
+                         (f"from_last bf16 [{rows}, d]", from_last)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize(device)
+            out[what] = (time.perf_counter() - t0) / 20 * 1e3
+    return out
 
 
 def tp_smooth(args, label: str, cfg, device, path_dir: str, forced: dict, shard=None) -> dict:
@@ -5461,8 +5586,9 @@ def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
     """Teacher-forced logits [B, N, V] (fp32, on the host): the prompts
     prefilled (512-token chunks) into a scratch cache, then N - 1 batched
     decode steps fed ``tokens`` (the TP=1 run's greedy tokens), so row k
-    holds the logits that pick tokens[b][k]. Every rank of a TP run calls it
-    together.
+    holds the logits that pick tokens[b][k]. Every rank of a TP or PP run
+    calls it together (a pipeline stage through its own forwards,
+    ``ex.model``, over a scratch cache of its layers).
 
     MoE routing, as ``teacher_forced`` shares it: ``routes`` (a list) records
     every routing (router logits, expert ids, weights, on the host); with
@@ -5476,7 +5602,6 @@ def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
     the largest gap ratio."""
     from unittest import mock
 
-    from zhilight_tpu_torch.models import llama as L
     from zhilight_tpu_torch.models import moe as M
     from zhilight_tpu_torch.models.base import DecodeMeta, PrefillMeta
 
@@ -5497,8 +5622,8 @@ def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
                 meta = PrefillMeta(positions=pos, slot_mapping=slots(b, pos), page_table=tables[b],
                                    cache_len=torch.tensor(start, **i32),
                                    q_len=torch.tensor(len(toks), **i32))
-                logits, cache = L.forward_prefill(ex.params, cfg, ex.rope, toks, meta, cache,
-                                                  tp=ex.tp)
+                logits, cache = ex.model.forward_prefill(ex.params, cfg, ex.rope, toks, meta,
+                                                         cache, tp=ex.tp)
             rows[b].append(logits.float().cpu())
         fed = torch.tensor(tokens, **i32)
         n = torch.tensor([len(p) for p in prompts], **i32)
@@ -5507,8 +5632,8 @@ def tp_forced(ex, prompts, tokens, routes=None, share=None) -> torch.Tensor:
             pos = n + k
             meta = DecodeMeta(positions=pos, slot_mapping=slots(active, pos), page_tables=tables,
                               context_lens=pos + 1)
-            logits, cache = L.forward_decode(ex.params, cfg, ex.rope, fed[:, k], meta, cache,
-                                             tp=ex.tp)
+            logits, cache = ex.model.forward_decode(ex.params, cfg, ex.rope, fed[:, k], meta,
+                                                    cache, tp=ex.tp)
             for b in range(B):
                 rows[b].append(logits[b].float().cpu())
     return torch.stack([torch.stack(r) for r in rows])
@@ -5538,17 +5663,18 @@ def tp_routing():
 
 
 def tp_rank(args) -> int:
-    """One rank of the tp phase's TP=2 run (``--tp-rank``): joins the other
-    over an explicit gloo group on the one GPU (``--tp-backend nccl``: NCCL,
-    a GPU a rank), then runs each path of ``--tp-models`` in turn
-    (tp_rank_path), one process for them all."""
+    """One rank of the tp phase's multi-rank run (``--tp-rank`` of
+    ``--tp-world``: 2 in the tp phase, 4 in pp4): joins the others over an
+    explicit gloo group on the one GPU (``--tp-backend nccl``: NCCL, a GPU a
+    rank), then runs each path of ``--tp-models`` in turn (tp_rank_path), one
+    process for them all."""
     import datetime
 
     import torch.distributed as dist
 
     from zhilight_tpu_torch.engine import SearchTask
 
-    rank, world, nccl = args.tp_rank, 2, args.tp_backend == "nccl"
+    rank, world, nccl = args.tp_rank, args.tp_world, args.tp_backend == "nccl"
     device = torch.device("cuda", rank if nccl else 0)
     torch.cuda.set_device(device)
     dist.init_process_group("nccl" if nccl else "gloo",
@@ -5576,9 +5702,10 @@ def tp_rank(args) -> int:
 def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict) -> None:
     """One tp path on one rank: draws the full tensors from the seed one
     layer at a time and keeps its shard (``tp_weights``: its heads, its half
-    of the experts, its int4 / FP8 / W8A8 columns or rows), serves through
-    LLM: rank 0 drives the requests (tp_drive), rank 1 runs the lockstep
-    scheduler until rank 0's shutdown sentinel (a check path serves none).
+    of the experts, its int4 / FP8 / W8A8 columns or rows; a pipelined path:
+    its stage's layers, stage ``rank // tp``), serves through LLM: rank 0
+    drives the requests (tp_drive), the others run the lockstep scheduler
+    until rank 0's shutdown sentinel (a check path serves none).
     Then both run the teacher-forced logits along the TP=1 run's tokens,
     counting their collectives (the W8A8 path: then holds int8_linear's
     row-parallel product to the unsharded one, tp_w8a8_exact), write what
@@ -5598,9 +5725,13 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     torch.cuda.reset_peak_memory_stats(device)
     cfg = tp_config(label, args)
     drive = TP_PATHS[label][5]
+    tp, pp = tp_shape(label)
+    if tp * pp != world:
+        raise AssertionError(f"tp: {label} runs on {tp * pp} ranks, not {world}")
     t0 = time.monotonic()
-    params = tp_weights(label, args, cfg, device, shard=(rank, world))
-    llm = LLM(model_config=cfg, params=params, engine_config=tp_engine_config(world),
+    params = tp_weights(label, args, cfg, device, shard=(rank % tp, tp) if tp > 1 else None,
+                        stage=(rank // tp, pp) if pp > 1 else None)
+    llm = LLM(model_config=cfg, params=params, engine_config=tp_engine_config(tp, pp),
               device=device)
     del params
     ex = llm.executor
@@ -5616,7 +5747,8 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     select = M.select_experts
     routed = tp_routing()
     pool = ex.cache.latent if ex.cache.is_latent else ex.cache.k
-    out = dict(rank=rank, setup_s=setup_s, warmup_s=warm_s,
+    out = dict(rank=rank, setup_s=setup_s, warmup_s=warm_s, pool_layers=len(pool),
+               layers=sorted(int(i) for i in ex.params["layers"]),
                weights_gib=sum(t.numel() * t.element_size() for t in _leaves(ex.params)) / 2**30,
                pool=list(pool[0].shape), heads=[ex.cfg.num_heads, ex.cfg.num_kv_heads],
                experts=sorted({v.shape[0] for layer in ex.params["layers"].values()
@@ -5648,16 +5780,22 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     share = None
     if cfg.moe.enabled:
         share = dict(routes=torch.load(os.path.join(path_dir, "routes.pt")))
-    collectives = tp_count_collectives(llm.tp_group)
+    collectives = tp_count_collectives(llm.tp_group) if llm.tp_group is not None else {}
+    moves = pp_count_moves(llm.pp_group) if llm.pp_group is not None else {}
+    before = {name: fn.launches for name, fn in counters.items()}
     t0 = time.monotonic()
     logits = tp_forced(ex, forced["prompts"], forced["tokens"], share=share)
     out["forced_s"] = time.monotonic() - t0
+    torch.cuda.synchronize()
+    out["forced_launches"] = {name: fn.launches - before[name] for name, fn in counters.items()
+                              if fn.launches != before[name]}
     if not drive:  # the path's launches are the teacher-forced run's
         torch.cuda.synchronize()
         out["launches"] = {name: fn.launches for name, fn in counters.items()}
     n = tp_forwards(forced["prompts"], forced["tokens"])
     out["collectives"] = {k: v / n for k, v in collectives.items()}
-    out["kept_whole"] = tp_kept_whole(ex, world)
+    out["moves"] = {k: v / n for k, v in moves.items()}
+    out["kept_whole"] = tp_kept_whole(ex, tp) if tp > 1 else 0
     if share is not None:
         out["shared_routing"] = {k: share[k] for k in ("routed", "parted", "ratio")}
     out["logits_sha"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
@@ -5670,7 +5808,10 @@ def tp_rank_path(args, label: str, rank: int, world: int, device, finished: dict
     if TP_PATHS[label][4] == "int8":
         out["w8a8_exact"] = tp_w8a8_exact(llm.tp_group, device, args.seed)
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
-    out["collectives_ms"] = tp_collectives(llm.tp_group, cfg, device)
+    if llm.tp_group is not None:
+        out["collectives_ms"] = tp_collectives(llm.tp_group, cfg, device)
+    if llm.pp_group is not None:
+        out["moves_ms"] = pp_moves_ms(llm.pp_group, cfg, device)
     release_pool(llm)
     ex.params, llm, ex = None, None, None
     gc.collect()
@@ -5841,15 +5982,41 @@ def phase_tp(rec: dict, args, smi: str) -> None:
     if nccl and torch.cuda.device_count() < 2:
         raise RuntimeError(f"--tp-backend nccl runs a GPU a rank: 2 needed, "
                            f"{torch.cuda.device_count()} visible")
+    labels = [label for label in TP_PATHS if tp_shape(label)[0] * tp_shape(label)[1] == 2]
     tmp = tempfile.mkdtemp(prefix="zt-tp-")  # the ranks' results; removed at the end
     try:
         ones = {}
-        for label in TP_PATHS:
+        for label in labels:
             os.makedirs(os.path.join(tmp, label))
             ones[label] = tp_one(rec, args, label, os.path.join(tmp, label))
-        tp_launch(args, list(TP_PATHS), tmp)
-        for label in TP_PATHS:
-            tp_check(rec, args, smi, label, ones[label], os.path.join(tmp, label))
+        tp_launch(args, labels, tmp)
+        for label in labels:
+            check = tp_check if tp_shape(label)[1] == 1 else pp_check
+            check(rec, args, smi, label, ones[label], os.path.join(tmp, label))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_pp4(rec: dict, args, smi: str) -> None:
+    """Qwen2.5-14B in bf16 at TP=2 x PP=2 (``Qwen2.5-14B-bf16-tp-pp``, at the
+    tp path's cut depth, TP_QWEN_LAYERS of 48, full width): the one-process
+    run in this process (tp_one), then four rank processes (stage ``r //
+    2``, TP rank ``r % 2``), over gloo on the one GPU or, with
+    ``--tp-backend nccl``, a GPU a rank (four needed), then pp_check."""
+    import shutil
+    import tempfile
+
+    if args.tp_backend == "nccl" and torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--phases pp4 --tp-backend nccl runs a GPU a rank: 4 needed, "
+                           f"{torch.cuda.device_count()} visible")
+    label = "Qwen2.5-14B-bf16-tp-pp"
+    tmp = tempfile.mkdtemp(prefix="zt-pp4-")
+    try:
+        path_dir = os.path.join(tmp, label)
+        os.makedirs(path_dir)
+        one = tp_one(rec, args, label, path_dir)
+        tp_launch(args, [label], tmp, world=4)
+        pp_check(rec, args, smi, label, one, path_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5901,9 +6068,12 @@ def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
     with open(os.path.join(path_dir, "forced.json"), "w") as f:
         json.dump(forced, f)
     routes = []
+    before = {name: fn.launches for name, fn in counters.items()}
     want = tp_forced(ex, forced["prompts"], forced["tokens"], routes=routes)
+    torch.cuda.synchronize()
+    forced_launches = {name: fn.launches - before[name] for name, fn in counters.items()
+                       if fn.launches != before[name]}
     if not drive:
-        torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in counters.items()}
         print(f"tp: {label} TP=1: teacher-forced launches {launches}", flush=True)
     if routes:
@@ -5911,7 +6081,7 @@ def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
     del routes
     floor = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(forced["prompts"],
                                                                  forced["tokens"])])
-    _tp_launches(rec, f"{label}-TP1", launches, cfg.num_layers)
+    _tp_launches(rec, run_names(label)[0], launches, cfg.num_layers)
     if score_calls:
         # on the caller's thread: the call made while the batch decoded may
         # count the loop's launches too
@@ -5941,20 +6111,22 @@ def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
               f"({TP_CALIB[0]} prompts of {TP_CALIB[1]} tokens) {smooth['calib_s']:.1f} s, "
               f"quantized with alpha {TP_ALPHA} ({smooth['smooth_leaves']} smooth vectors), "
               f"{smooth['smooth_s']:.1f} s in all", flush=True)
-    return dict(one=one, forced=forced, want=want, floor=floor, smooth=smooth)
+    return dict(one=one, forced=forced, want=want, floor=floor, smooth=smooth,
+                forced_launches=forced_launches)
 
 
-def tp_launch(args, labels: list, tmp: str) -> None:
-    """The TP=2 run of every path in ``labels``: two rank processes
-    (tp_rank), each path's results under ``tmp``; raises with a rank's log
-    where one fails or outlasts TP_TIMEOUT a path."""
+def tp_launch(args, labels: list, tmp: str, world: int = 2) -> None:
+    """The multi-rank run of every path in ``labels``: ``world`` rank
+    processes (tp_rank), each path's results under ``tmp``; raises with a
+    rank's log where one fails or outlasts TP_TIMEOUT a path."""
     port = _tp_free_port()
     t0 = time.monotonic()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), "--tp-port",
-         str(port), "--tp-dir", tmp, "--tp-models", ",".join(labels), "--seed", str(args.seed),
-         "--tp-backend", args.tp_backend, "--tp-gptq-layers", str(args.tp_gptq_layers)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), "--tp-world",
+         str(world), "--tp-port", str(port), "--tp-dir", tmp, "--tp-models", ",".join(labels),
+         "--seed", str(args.seed), "--tp-backend", args.tp_backend, "--tp-gptq-layers",
+         str(args.tp_gptq_layers)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
         for p in procs:
@@ -5968,8 +6140,8 @@ def tp_launch(args, labels: list, tmp: str) -> None:
     for r, (p, log) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
             raise AssertionError(f"tp: rank {r} exited {p.returncode}:\n{log[-6000:]}")
-    print(f"tp: the TP=2 run of {len(labels)} paths, one launch of two rank processes: "
-          f"{time.monotonic() - t0:.1f} s", flush=True)
+    print(f"tp: the multi-rank run of {len(labels)} paths, one launch of {world} rank "
+          f"processes: {time.monotonic() - t0:.1f} s", flush=True)
 
 
 def tp_check(rec: dict, args, smi: str, label: str, tp1: dict, path_dir: str) -> None:
@@ -6112,6 +6284,117 @@ def tp_check(rec: dict, args, smi: str, label: str, tp1: dict, path_dir: str) ->
               f"s on rank 0, {sum(c['collectives_s'] for c in r0['score_calls']):.1f} s in "
               f"collectives; {smi}", flush=True)
     for what, r in (("TP=1 (one process)", one), (f"TP=2 ({how})", r0)):
+        print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
+              f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
+              f"tokens; {smi}", flush=True)
+
+
+def pp_check(rec: dict, args, smi: str, label: str, tp1: dict, path_dir: str) -> None:
+    """A pipelined path's multi-rank run (``tp_shape``: PP=2, or TP=2 x
+    PP=2) against its one-process run (``tp1``, tp_one's): each rank holds
+    its stage's layers, in a pool of those layers only, and its TP heads;
+    launched every kernel of the path a multiple of its layers in the
+    requests, and in the teacher-forced run each kernel its stage's share:
+    the ranks of a column alike, their sum the one-process run's; moved the
+    hidden state once a forward (a hand-off down the column, one broadcast
+    from the last stage); every rank finished every request with rank 0's
+    tokens (the sampled and cancelled ones included) and scored the same
+    teacher-forced logits, bit for bit; those logits against the
+    one-process run's (bit for bit, else within the path's tolerance by the
+    teacher-forced rule, tp_compare), and the greedy tokens likewise; the
+    scored path's calls (``calc_logits`` ...) against the one-process run's.
+    Prints decode tok/s and TTFT beside the one-process run's and the time
+    of a hand-off and a broadcast."""
+    from zhilight_tpu_torch.parallel.sharding import stage_range
+
+    tp, pp = tp_shape(label)
+    cfg = tp_config(label, args)
+    one, forced, want, floor = tp1["one"], tp1["forced"], tp1["want"], tp1["floor"]
+    ranks = [json.load(open(os.path.join(path_dir, f"rank{r}.json"))) for r in range(tp * pp)]
+    r0 = ranks[0]
+    one_name, names = run_names(label)
+    shape = f"TP={tp} x PP={pp}" if tp > 1 else f"PP={pp}"
+    per_stage = cfg.num_layers // pp
+    for r in ranks:
+        stage = r["rank"] // tp
+        print(f"pp: {label} {shape} rank {r['rank']} (stage {stage}, {r['backend']}): layers "
+              f"{r['layers'][0]}-{r['layers'][-1]} ({len(r['layers'])}), a pool of "
+              f"{r['pool_layers']} layers {r['pool']}, {r['heads'][0]} / {r['heads'][1]} heads, "
+              f"{r['weights_gib']:.2f} GiB of weights, set-up {r['setup_s']:.1f} s, warmup "
+              f"{r['warmup_s']:.1f} s, requests {r.get('drive_s', 0.0):.1f} s, teacher-forced "
+              f"{r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB; launches {r['launches']}; "
+              f"moves a forward {r['moves']}", flush=True)
+        _tp_launches(rec, names[r["rank"]], r["launches"], per_stage)
+        if (r["layers"] != list(range(*stage_range(cfg, stage, pp)))
+                or r["pool_layers"] != per_stage):
+            raise AssertionError(f"pp: {label}: rank {r['rank']} holds layers {r['layers']} in a "
+                                 f"pool of {r['pool_layers']}")
+        if r["heads"] != [cfg.num_heads // tp, cfg.num_kv_heads // tp]:
+            raise AssertionError(f"pp: {label}: rank {r['rank']}'s heads {r['heads']}")
+        want_moves = {"from_last": 1.0}
+        if stage < pp - 1:
+            want_moves["send"] = 1.0
+        if stage > 0:
+            want_moves["recv"] = 1.0
+        if r["moves"] != want_moves:
+            raise AssertionError(f"pp: {label}: rank {r['rank']} moved {r['moves']} a forward, "
+                                 f"not {want_moves}")
+    want_launches = tp1["forced_launches"]
+    for t in range(tp):
+        column = [ranks[s * tp + t] for s in range(pp)]
+        summed = {n: sum(c["forced_launches"].get(n, 0) for c in column) for n in want_launches}
+        if (summed != want_launches or any(c["forced_launches"] != column[0]["forced_launches"]
+                                           for c in column)):
+            raise AssertionError(f"pp: {label}: teacher-forced launches "
+                                 f"{[c['forced_launches'] for c in column]} of a column, not "
+                                 f"{want_launches} between them")
+    print(f"pp: {label} {shape}: teacher-forced launches, each rank "
+          f"{r0['forced_launches']} ({per_stage} of {cfg.num_layers} layers), a column's sum "
+          f"equal to the one-process run's {want_launches}", flush=True)
+    if any(r["finished"] != r0["finished"] for r in ranks) or not r0["finished"]:
+        raise AssertionError(f"pp: {label}: the ranks finished the requests with other tokens")
+    if any(r["logits_sha"] != r0["logits_sha"] for r in ranks):
+        raise AssertionError(f"pp: {label}: the ranks' teacher-forced logits differ")
+    if any(r.get("sessions_left") for r in ranks):
+        raise AssertionError(f"pp: {label}: a rank kept a session")
+    if not 2 <= len(r0["cancelled"]) < 4 * TP_NEW:
+        raise AssertionError(f"pp: {label}: the cancelled request returned "
+                             f"{len(r0['cancelled'])} tokens")
+    got = torch.from_numpy(np.load(os.path.join(path_dir, "tp2_logits.npy")))
+    bits = torch.equal(got, want)
+    msg = tp_compare(label, want, got, one["greedy"] + [one["long"]],
+                     r0["greedy"] + [r0["long"]], floor, TP_PATHS[label][3])
+    same = sum(a == b for w, g in zip(one["greedy"] + [one["long"]], r0["greedy"] + [r0["long"]])
+               for a, b in zip(w, g))
+    bits_txt = ("equal the one-process run's bit for bit" if bits
+                else "differ from the one-process run's")
+    print(f"pp: {label}: every rank finished {len(r0['finished'])} requests with rank 0's "
+          f"tokens (the sampled one: {r0['sampled'][:6]}..., the cancelled one after "
+          f"{len(r0['cancelled'])} tokens) and scored the same teacher-forced logits, bit for "
+          f"bit; {shape} teacher-forced logits {bits_txt}; greedy tokens equal on "
+          f"{same}/{TP_NEW * (len(TP_LENS) + 1)}; {shape} against PP=1, {msg}", flush=True)
+    if label in TP_SCORED:
+        got_scores = {name: np.load(os.path.join(path_dir, f"tp2_score_{name}.npy"))
+                      for name in ("logits", "hidden", "log_prob")}
+        got_scores["greedy_match"] = r0["greedy_match"]
+        smsg = tp_score_check(label, cfg, one, got_scores, ranks, layers=per_stage)
+        sbits = all(np.array_equal(got_scores[k], one["scores"][k])
+                    for k in ("logits", "hidden", "log_prob"))
+        sbits_txt = "equal PP=1's bit for bit" if sbits else "differ from PP=1's"
+        print(f"pp: {label}: scoring through the loop of every rank ({TP_LENS[1]}-token prompt), "
+              f"each call launching {', '.join(TP_SCORED[label])} once a layer of its stage; "
+              f"calc_logits, calc_hidden_states and calc_log_prob {sbits_txt}; {shape} against "
+              f"PP=1, {smsg}", flush=True)
+        print(f"timing: {label} calc_logits of {TP_LENS[1]} tokens: PP=1 "
+              f"{one['calc_logits_ms']:.2f} ms, {shape} {r0['calc_logits_ms']:.2f} ms; {smi}",
+              flush=True)
+    how = "NCCL, a GPU a rank" if args.tp_backend == "nccl" else "gloo on one GPU"
+    moves = r0["moves_ms"]
+    step = moves["hand-off bf16 [4, d]"] + moves["from_last bf16 [4, d]"]
+    print(f"timing: {label} {shape} ({how}) one move of the hidden state, host included, rank "
+          f"0: " + ", ".join(f"{k} {v:.3f} ms" for k, v in moves.items())
+          + f"; a decode step's hand-off and broadcast: {step:.3f} ms; {smi}", flush=True)
+    for what, r in (("PP=1 (one process)", one), (f"{shape} ({how})", r0)):
         print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {TP_LENS[1]} tokens "
               f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {TP_NEW - 1} "
               f"tokens; {smi}", flush=True)
@@ -6361,7 +6644,8 @@ def phase_serve(rec: dict, args) -> None:
     lap("Qwen2.5-14B-GPTQ-Int4-fp16")
 
     label = "DeepSeek-V2-Lite-GPTQ-Int4"
-    llm = load_deepseek(label, DEEPSEEK_V2_LITE_GPTQ, args.seed)
+    hf = dict(DEEPSEEK_V2_LITE_GPTQ, num_hidden_layers=SERVE_DEEPSEEK_LAYERS)
+    llm = load_deepseek(label, hf, args.seed)
     ex = llm.executor
     print(f"serve: {label}: latent pool of {ex.num_pages} pages x {ex.page_size} = "
           f"{ex.cache.num_slots} tokens, {pool_bytes(ex.cache) / 1e9:.3f} GB "
@@ -7057,8 +7341,8 @@ def profile(what: str, fn, steps: int = 0) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="kernels,multimodal,tp,serve,http",
-                    help="comma-separated, run in order; timing (after serve) is not in "
-                         "the default")
+                    help="comma-separated, run in order; timing (after serve) and pp4 are "
+                         "not in the default")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
@@ -7070,10 +7354,12 @@ def main() -> int:
                     help="the tp phase's Qwen2.5-14B GPTQ-Int4 path's depth (full width; 48 "
                          "as it ships)")
     ap.add_argument("--tp-backend", default="gloo", choices=["gloo", "nccl"],
-                    help="the tp phase's TP=2 group: gloo, both ranks on the one GPU (the "
-                         "default), or nccl, a GPU a rank (raises with fewer than two)")
+                    help="the tp and pp4 phases' groups: gloo, every rank on the one GPU (the "
+                         "default), or nccl, a GPU a rank (raises with fewer than 2, or 4 for "
+                         "pp4)")
     # one rank of the tp phase's TP=2 run (the phase starts these itself)
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tp-models", default="", help=argparse.SUPPRESS)
@@ -7117,6 +7403,8 @@ def main() -> int:
                 phase_multimodal(rec, args, smi)
             elif phase == "tp":
                 phase_tp(rec, args, smi)
+            elif phase == "pp4":
+                phase_pp4(rec, args, smi)
             elif phase == "serve":
                 phase_serve(rec, args)
             elif phase == "http":

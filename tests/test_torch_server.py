@@ -458,9 +458,10 @@ def test_cli_without_device_raises_without_gpu(tiny, monkeypatch):
                                    ["--node-rank", "1"]])
 def test_parallel_flags_are_not_ported(flags, monkeypatch):
     args = t_api.parse_args(["--model-path", "unused", "--device", "cpu", *flags])
-    if flags[0] == "-tp":
-        # tensor parallelism is served one process a rank under torchrun
-        # (tests/test_torch_tp.py); without such a launch the flag raises
+    if flags[0] in ("-tp", "-pp"):
+        # tensor and pipeline parallelism are served one process a rank under
+        # torchrun (tests/test_torch_tp.py, tests/test_torch_pp.py); without
+        # such a launch the flag raises
         for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
             monkeypatch.delenv(var, raising=False)
         with pytest.raises(RuntimeError, match="torchrun"):

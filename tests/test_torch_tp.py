@@ -924,7 +924,7 @@ def test_what_tp_does_not_serve_yet_raises(kind, monkeypatch):
     import zhilight_tpu_torch.engine.engine as t_engine
     from zhilight_tpu_torch.parallel.control_plane import LocalPlane
 
-    monkeypatch.setattr(t_llm, "join", lambda tp, device: _SoloRank())
+    monkeypatch.setattr(t_llm, "join", lambda tp, pp, device: (_SoloRank(), None))
     monkeypatch.setattr(t_engine, "DistPlane", LocalPlane)
     params = _params(JModelConfig(**model))
     if kind == "gptq":
@@ -1045,11 +1045,12 @@ def _post(url, body, timeout=60):
 
 
 class TPServer:
-    """``api_server --tensor-parallel 2`` as two processes with torchrun's
-    variables over :func:`_checkpoint`, started now (where aiohttp and
-    transformers import), each logging to a file of its own."""
+    """``api_server --tensor-parallel 2`` (or the ``parallel`` flags given,
+    for two ranks) as two processes with torchrun's variables over
+    :func:`_checkpoint`, started now (where aiohttp and transformers
+    import), each logging to a file of its own."""
 
-    def __init__(self, tmp: Path):
+    def __init__(self, tmp: Path, parallel=("--tensor-parallel", "2")):
         self.procs, self.logs = [], []
         self.missing = [m for m in ("aiohttp", "pydantic", "transformers")
                         if importlib.util.find_spec(m) is None]
@@ -1066,7 +1067,7 @@ class TPServer:
                 self.procs.append(subprocess.Popen(
                     [sys.executable, "-m", "zhilight_tpu_torch.server.openai.api_server",
                      "--model-path", self.ckpt, "--host", "127.0.0.1", "--port", str(self.port),
-                     "--tensor-parallel", "2", *SERVER_FLAGS],
+                     *parallel, *SERVER_FLAGS],
                     cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                     stdout=log, stderr=subprocess.STDOUT))
 

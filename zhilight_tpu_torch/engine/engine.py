@@ -37,6 +37,16 @@ all-gathers across the ranks, and every rank's scheduler runs in lockstep
 through ``plane`` (``parallel.control_plane.DistPlane``). The pool-row
 operations move the rank's own rows. Scoring (:meth:`run_score`) runs collectives too, so every
 rank must call it together.
+
+Under pipeline parallelism (``ParallelConfig(pp=P)``, alone or with ``tp``, and
+the rank's column, a ``parallel.comm.PPGroup`` of P stages) the executor holds
+its stage's layers (``parallel.sharding.stage_range``) and a pool of those
+layers only, and every model call goes through ``models/pipeline.py``'s
+``PPForwards``; every rank of the world runs the scheduler in lockstep and
+samples the same logits with the same generators. As the reference gates
+them, the fused chunk meta, packed prefill and window side-KV are off under
+PP (``ZT_WINDOW_KV=1`` then decodes per step); ``ZT_FUSED_KV=1`` is not
+gated, the reference gating it by pool kind only.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ from ..config.engine_config import SchedulerConfig
 from ..kvcache.paged import KVCache, new_kv_cache, new_latent_cache
 from ..models import llama as llama_mod
 from ..models.base import DecodeMeta, PackedPrefillMeta, PrefillMeta
+from ..models.pipeline import PPForwards
 from ..ops.sampling import (
     SamplerState,
     SamplingParams,
@@ -62,7 +73,7 @@ from ..ops.sampling import (
     sample_step,
 )
 from ..parallel.control_plane import DistPlane, LocalPlane
-from ..parallel.sharding import rank_config
+from ..parallel.sharding import check_pp, rank_config, stage_range
 
 __all__ = ["ModelExecutor"]
 
@@ -84,13 +95,16 @@ class ModelExecutor:
         engine_cfg: EngineConfig,
         device,
         tp=None,
+        pp=None,
     ):
         pcfg = engine_cfg.parallel
-        if pcfg.dp > 1 or pcfg.pp > 1 or pcfg.num_hosts > 1:
-            raise NotImplementedError("data, pipeline and multi-host parallelism are not "
-                                      "ported yet")
+        check_pp(cfg, pcfg.pp, pcfg)
+        if pcfg.dp > 1 or pcfg.num_hosts > 1:
+            raise NotImplementedError("data and multi-host parallelism are not ported yet")
         if pcfg.tp != (tp.world if tp is not None else 1):
             raise ValueError(f"tp={pcfg.tp} needs a tensor-parallel group of {pcfg.tp} ranks")
+        if pcfg.pp != (pp.stages if pp is not None else 1):
+            raise ValueError(f"pp={pcfg.pp} needs a pipeline group of {pcfg.pp} stages")
         if engine_cfg.cache.kv_dtype not in ("bfloat16", "int8", cfg.dtype):
             raise NotImplementedError(f"KV dtype {engine_cfg.cache.kv_dtype} is not ported yet")
         self.device = torch.device(device)
@@ -105,9 +119,16 @@ class ModelExecutor:
         # rank's heads (parallel.sharding.rank_config); every rank runs the
         # scheduler loop in lockstep through the control plane
         self.tp = tp if tp is not None and tp.world > 1 else None
+        # under pipeline parallelism (``pp``, the rank's column) the rank
+        # holds its stage's layers [lo, hi) and runs the stage's forwards
+        self.pp = pp if pp is not None and pp.stages > 1 else None
+        self.layers = ((0, cfg.num_layers) if self.pp is None
+                       else stage_range(cfg, self.pp.stage, self.pp.stages))
+        self.model = llama_mod if self.pp is None else PPForwards(self.pp, self.layers)
         self.plane = LocalPlane()
         if self.tp is not None:
             cfg = rank_config(cfg, self.tp.world)
+        if self.tp is not None or self.pp is not None:
             self.plane = DistPlane()
         self.cfg = cfg
         self.engine_cfg = engine_cfg
@@ -117,16 +138,11 @@ class ModelExecutor:
         self.params = params
 
         self.page_size = self.cache_cfg.page_size
-        self.num_pages = self._decide_num_pages()
-        if self.tp is not None:
-            # one page count for the group, the smallest rank's: every rank
-            # replays rank 0's admission and preemption against its own
-            # allocator, so the allocators must agree (the reference sizes
-            # one pool for its whole mesh)
-            import torch.distributed as dist
-
-            n = torch.tensor([self.num_pages], dtype=torch.int64, device=self.device)
-            self.num_pages = int(self.tp.all_reduce(n, op=dist.ReduceOp.MIN).item())
+        # one page count for the world, the smallest rank's: every rank
+        # replays rank 0's admission and preemption against its own
+        # allocator, so the allocators must agree (the reference sizes one
+        # pool for its whole mesh)
+        self.num_pages = self.plane.all_min(self._decide_num_pages())
         self.max_pages_per_seq = _round_up(engine_cfg.max_model_len, self.page_size) // self.page_size
         self.max_batch = self.sched_cfg.max_batch
 
@@ -175,7 +191,11 @@ class ModelExecutor:
         every rank. Under tensor parallelism a KV pool holds the rank's
         ``num_kv_heads / tp`` heads: the reference's bytes divided by tp
         (``zhilight_tpu/engine/engine.py:249-259``, the latent bytes not
-        divided), so the page count, and admission with it, match."""
+        divided), so the page count, and admission with it, match. Under
+        pipeline parallelism it still counts every layer, as the reference's
+        does, though a stage's pool holds ``num_layers / pp`` of them: the
+        page count stays the reference's, and a stage leaves the rest of its
+        budget unused."""
         cfg = self.cfg
         if cfg.mla.enabled:
             return cfg.num_layers * cfg.mla.latent_dim * 2
@@ -212,15 +232,16 @@ class ModelExecutor:
         latent cache in the model's dtype whatever ``kv_dtype`` says: the
         latent pool has no int8 form, as in the reference."""
         cfg = self.cfg
+        layers = self.layers[1] - self.layers[0]  # the stage's, under PP
         if cfg.mla.enabled:
             return new_latent_cache(
-                cfg.num_layers, num_pages, self.page_size, cfg.mla.latent_dim,
+                layers, num_pages, self.page_size, cfg.mla.latent_dim,
                 cfg.torch_dtype, device=self.device,
             )
         if quantized is None:
             quantized = self.cache_cfg.kv_dtype == "int8"
         return new_kv_cache(
-            cfg.num_layers, num_pages, self.page_size, cfg.num_kv_heads, cfg.dim_head,
+            layers, num_pages, self.page_size, cfg.num_kv_heads, cfg.dim_head,
             cfg.torch_dtype, quantized=quantized, device=self.device,
         )
 
@@ -272,7 +293,7 @@ class ModelExecutor:
 
     def _backbone(self, tokens: torch.Tensor, meta, embeddings: Optional[torch.Tensor] = None):
         with torch.no_grad():
-            _, self.cache = llama_mod.backbone(
+            _, self.cache = self.model.backbone(
                 self.params, self.cfg, self.rope, tokens, meta.positions, self.cache,
                 meta, "prefill", embeddings, tp=self.tp,
             )
@@ -303,7 +324,8 @@ class ModelExecutor:
 
     @property
     def supports_fused_chunk(self) -> bool:
-        return True
+        """Off under PP, as the reference gates it."""
+        return self.pp is None
 
     def run_chunk_fused(self, tokens: np.ndarray, pages_dev: torch.Tensor, start: int, chunk: int):
         """run_chunk with the meta built on the device; ``pages_dev`` is the
@@ -345,7 +367,7 @@ class ModelExecutor:
         emb = self._emb_arg(embeddings, tokens.shape[0])
         st = self.sampler_state
         with torch.no_grad():
-            logits, self.cache = llama_mod.forward_prefill(
+            logits, self.cache = self.model.forward_prefill(
                 self.params, self.cfg, self.rope, self.upload(tokens), meta, self.cache, emb,
                 tp=self.tp,
             )
@@ -364,7 +386,8 @@ class ModelExecutor:
 
     @property
     def supports_packed_prefill(self) -> bool:
-        return True
+        """Off under PP, as the reference gates it."""
+        return self.pp is None
 
     def run_prefill_packed(
         self,
@@ -405,9 +428,9 @@ class ModelExecutor:
         """Window-batched KV writes (``zhilight_tpu/engine/engine.py:589-622``):
         under ``ZT_WINDOW_KV=1``, a window of 2 to ``page_size`` steps (its
         rows then fall in at most two pages a slot) without a sliding window,
-        over a latent pool or a packed head-major one (bf16 or int8). Anything
-        else decodes per step."""
-        if not self.window_kv or not 2 <= num_steps <= self.page_size:
+        over a latent pool or a packed head-major one (bf16 or int8), not
+        under PP. Anything else decodes per step."""
+        if not self.window_kv or self.pp is not None or not 2 <= num_steps <= self.page_size:
             return False
         if (self.cfg.sliding_window or 0) > 0:
             return False
@@ -483,7 +506,7 @@ class ModelExecutor:
                         side_rows, side_valid, pool_lens, k, tp=self.tp,
                     )
                 else:
-                    logits, self.cache = llama_mod.forward_decode(
+                    logits, self.cache = self.model.forward_decode(
                         self.params, self.cfg, self.rope, d_tok, meta, self.cache, tp=self.tp,
                     )
                 tok, lp, toplp, toptok, st2 = sample_step(
@@ -565,7 +588,7 @@ class ModelExecutor:
             positions=rows, slot_mapping=rows, page_table=torch.arange(maxp, **i32),
             cache_len=torch.zeros((), **i32), q_len=torch.full((), n, **i32),
         )
-        forward = llama_mod.forward_score if _kind == "score" else llama_mod.forward_hidden
+        forward = self.model.forward_score if _kind == "score" else self.model.forward_hidden
         with torch.no_grad():
             out, _ = forward(self.params, self.cfg, self.rope,
                              self.upload(np.asarray(tokens, np.int32)), meta,
@@ -602,7 +625,7 @@ class ModelExecutor:
                 q_len=self.upload(np.int32(n)),
             )
             self.run_prefill(np.zeros(bucket, np.int32), meta, sparams, 0, 0)
-            if self.sched_cfg.prefill_pack >= 2:
+            if self.sched_cfg.prefill_pack >= 2 and self.supports_packed_prefill:
                 ns = 2
                 pmeta = PackedPrefillMeta(
                     positions=self.upload(np.tile(pos, ns)),

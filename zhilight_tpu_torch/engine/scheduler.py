@@ -42,9 +42,9 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["Scheduler", "NO_LOOP"]
 
-# what a scoring call under tensor parallelism raises with no loop to run it
-NO_LOOP = ("under tensor parallelism scoring runs inside the scheduler loop of every rank: "
-           "start every rank's generator (DynamicBatchGenerator(llm).start()) first")
+# what a scoring call under tensor or pipeline parallelism raises with no loop to run it
+NO_LOOP = ("under tensor or pipeline parallelism scoring runs inside the scheduler loop of "
+           "every rank: start every rank's generator (DynamicBatchGenerator(llm).start()) first")
 
 
 class _PlaneClosed(Exception):
@@ -205,10 +205,11 @@ class Scheduler:
     def score(self, kind: str, tokens) -> np.ndarray:
         """The executor's ``run_score`` of ``tokens`` (``kind`` "score": fp32
         logits [T, V]) or ``run_hidden`` ("hidden": hidden states [T, d]). In
-        one process it runs on the caller's thread. Under tensor parallelism
-        every rank must run it together: rank 0 hands it to the loop, which
-        broadcasts it with the iteration's events, and waits for the result;
-        a rank above 0, or rank 0 with no loop running, raises."""
+        one process it runs on the caller's thread. Under tensor or pipeline
+        parallelism (a world above 1) every rank must run it together: rank 0
+        hands it to the loop, which broadcasts it with the iteration's
+        events, and waits for the result; a rank above 0, or rank 0 with no
+        loop running, raises."""
         if kind not in ("score", "hidden"):
             raise ValueError(f"kind {kind!r}: 'score' or 'hidden'")
         tokens = np.asarray(tokens, np.int32)

@@ -38,6 +38,17 @@ above 0, or rank 0 with no loop running, raises). ``calc_act_scales`` is a
 collective call instead: every rank calls it with the same prompts, outside
 the loop, and gets the whole vectors; ``load_with_smooth_quant`` is called
 on every rank, which keeps its quantized shard.
+
+Pipeline parallelism (``ParallelConfig(pp=P)``, alone or with ``tp=T``; dense
+homogeneous models) follows the same convention over ``T * P`` ranks: rank
+``r`` is stage ``r // T`` and TP rank ``r % T``; each keeps its stage's
+layers (``parallel.sharding.stage_range``) of ``params`` or of the
+checkpoint (whose other layers it never reads), TP-sharded within the
+stage, beside the embedding, the final norm and the head. Rank 0 takes the
+requests and the scoring calls, every other rank runs the lockstep loop,
+as under TP. ``calc_act_scales`` and ``load_with_smooth_quant`` raise
+``NotImplementedError`` under ``pp > 1``: the reference fails there too
+(its calibration reads the per-layer tree, which its PP stacks).
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ from .engine.engine import ModelExecutor
 from .engine.generator import DynamicBatchGenerator
 from .engine.scheduler import NO_LOOP
 from .parallel.comm import join, local_device, require_launch
-from .parallel.sharding import check_tp, is_shard, shard_params
+from .parallel.sharding import check_pp, check_tp, is_shard, rank_params, stage_range
 from .utils.convert import params_to_torch
 from .utils.hf_loader import load_hf_state
 
@@ -114,26 +125,29 @@ class LLM:
             raise ValueError("LLM needs model_path, or model_config and params")
         self.model_config = model_config
         self.quant_config = quant_config or QuantConfig()
-        tp = self.engine_config.parallel.tp
+        tp, pp = self.engine_config.parallel.tp, self.engine_config.parallel.pp
         if device is None and not torch.cuda.is_available():
             raise RuntimeError(
                 "LLM runs on the GPU by default and no CUDA device is available; "
                 "pass device='cpu' to run on the CPU"
             )
-        self.tp_group = None
+        # the rank's tensor-parallel group (tp > 1) and pipeline column (pp > 1)
+        self.tp_group = self.pp_group = None
         # the loop of the generator that serves this LLM (DynamicBatchGenerator
-        # sets it): under tensor parallelism the scoring calls run there
+        # sets it): under tensor or pipeline parallelism the scoring calls run there
         self.scheduler = None
-        if tp > 1:
+        if tp * pp > 1:
             # one process a rank (torchrun's convention): every rank builds
-            # the same LLM and keeps its shard of the weights
+            # the same LLM and keeps its part of the weights
             check_tp(model_config, tp)
+            check_pp(model_config, pp, self.engine_config.parallel)
             device = local_device(device)
-            self.tp_group = join(tp, device)
+            self.tp_group, self.pp_group = join(tp, pp, device)
             if device.type == "cuda":
                 torch.cuda.set_device(device)
         self.device = torch.device(device if device is not None else "cuda")
         shard = (self.tp_group.rank, tp) if self.tp_group is not None else None
+        stage = self.pp_group.stage if self.pp_group is not None else 0
         self.tokenizer, self.tokenizer_error = tokenizer, None
         if model_path and tokenizer is None:
             self.tokenizer, self.tokenizer_error = _load_tokenizer(model_path)
@@ -141,7 +155,7 @@ class LLM:
         if params is None:
             params = load_hf_state(
                 model_path, model_config, quant=self.quant_config, device=self.device,
-                shard=shard,
+                shard=shard, layers=stage_range(model_config, stage, pp) if pp > 1 else None,
             )
             if self.quant_config.quant_type == QuantType.AUTO_INT8:
                 # quantize the raw fp16/bf16 weights to W8A8 at load (a rank's
@@ -165,13 +179,20 @@ class LLM:
                 self.engine_config,
                 scheduler=dataclasses.replace(sched, eos_id=eos_ids[0], eos_ids=tuple(eos_ids)),
             )
-        if shard is not None and not is_shard(params, model_config, tp):
-            # the full tree (a rank's shard, from init_params(shard=...) or
-            # the loader, is taken as it is)
-            params = shard_params(params, *shard, cfg=model_config)
+        if tp * pp > 1 and not is_shard(params, model_config, tp, pp):
+            # the full tree, or one cut already on one axis only (a rank's
+            # part, from init_params(shard=..., stage=...) or the loader, is
+            # taken as it is)
+            params = rank_params(params, model_config, shard[0] if shard else 0, tp, stage, pp)
         params = params_to_torch(params, self.device, model_config.torch_dtype)
         self.executor = ModelExecutor(model_config, params, self.engine_config, self.device,
-                                      tp=self.tp_group)
+                                      tp=self.tp_group, pp=self.pp_group)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank in the world of a tensor- or pipeline-parallel
+        model (0 in one process): rank 0 takes the requests."""
+        return self.executor.plane.rank
 
     def generator(self) -> DynamicBatchGenerator:
         return DynamicBatchGenerator(self)
@@ -188,7 +209,15 @@ class LLM:
         Under tensor parallelism it is a collective call: every rank calls it
         with the same prompts, outside the scheduler loop, and every rank
         gets the whole vectors (a row-parallel input's rank slices
-        all-gathered)."""
+        all-gathered).
+
+        Under pipeline parallelism it raises ``NotImplementedError``: the
+        reference's calibration fails there too (its PP stacks the per-layer
+        tree it reads)."""
+        if self.pp_group is not None:
+            raise NotImplementedError("calc_act_scales under pipeline parallelism: the "
+                                      "calibration runs the whole model in one process, as "
+                                      "the reference's does (it fails under its pp too)")
         if self.tp_group is not None and self.scheduler is not None and self.scheduler.running:
             raise RuntimeError("calc_act_scales under tensor parallelism is a collective call of "
                                "every rank outside the scheduler loop: stop the generator first")
@@ -224,9 +253,15 @@ class LLM:
         Under tensor parallelism every rank calls it: each loads its shard,
         calibrates collectively (:meth:`calc_act_scales`) and quantizes its
         shard with the whole vectors (``quantize_int8_params(..., tp=)``); the
-        rebuilt ``LLM`` keeps that shard and the joined process group."""
+        rebuilt ``LLM`` keeps that shard and the joined process group. Under
+        pipeline parallelism it raises ``NotImplementedError``, before
+        anything is read (:meth:`calc_act_scales`)."""
         from .utils.quant_convert import quantize_int8_params
 
+        if engine_config is not None and engine_config.parallel.pp > 1:
+            raise NotImplementedError("load_with_smooth_quant under pipeline parallelism: "
+                                      "calc_act_scales does not run under pp (nor does the "
+                                      "reference's)")
         if engine_config is not None and engine_config.parallel.tp > 1:
             require_launch(engine_config.parallel.tp)
         base = cls(model_path=model_path, engine_config=engine_config, **kw)
@@ -246,16 +281,16 @@ class LLM:
     # ------------------------------------------------------------------
     def _run(self, kind: str, tokens) -> np.ndarray:
         """The executor's ``run_score`` (``kind`` "score") or ``run_hidden``
-        ("hidden") of ``tokens``: directly in one process; under tensor
-        parallelism through the serving loop (``Scheduler.score``), which
-        runs it on every rank, and only on rank 0."""
+        ("hidden") of ``tokens``: directly in one process; under tensor or
+        pipeline parallelism through the serving loop (``Scheduler.score``),
+        which runs it on every rank, and only on rank 0."""
         ids = self._encode_ids(tokens)
-        if self.tp_group is None:
+        if self.executor.plane.world == 1:
             return self.executor.run_score(ids) if kind == "score" else self.executor.run_hidden(ids)
-        if self.tp_group.rank > 0:
-            raise RuntimeError(f"rank {self.tp_group.rank} of a tensor-parallel LLM takes no "
-                               "scoring calls; call rank 0, whose scheduler loop runs them on "
-                               "every rank")
+        if self.rank > 0:
+            kind = "tensor-parallel" if self.pp_group is None else "pipeline-parallel"
+            raise RuntimeError(f"rank {self.rank} of a {kind} LLM takes no scoring calls; call "
+                               "rank 0, whose scheduler loop runs them on every rank")
         if self.scheduler is None:
             raise RuntimeError(NO_LOOP)
         V = self.model_config.vocab_size

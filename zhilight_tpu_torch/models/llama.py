@@ -80,7 +80,7 @@ from ..ops.linear import in_rows, linear, linear_f32, matmul_f32
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.quant import int8_linear
 from ..ops.rope import RopeTable, apply_rope_rot, build_rope_table
-from ..parallel.sharding import shard_params
+from ..parallel.sharding import shard_params, stage_range
 from .base import DecodeMeta, PackedPrefillMeta, PrefillMeta
 
 __all__ = [
@@ -329,10 +329,14 @@ def decoder_layer(
     rot=None,
     side=None,
     tp=None,
+    pool_idx: Optional[int] = None,
 ):
     """Pre-norm block: sequential residual by default, Cohere's parallel
     variant, MiniCPM's depth-scaled residual (scale_depth / sqrt(L)). With
-    ``side`` (decode windows) returns (x, cache, side_rows)."""
+    ``side`` (decode windows) returns (x, cache, side_rows). ``layer_idx`` is
+    the model's layer (its per-layer configuration); ``pool_idx`` the
+    cache's, which is ``layer_idx`` unless the cache holds a pipeline
+    stage's layers only (``models/pipeline.py``)."""
     if cfg.mla.enabled:
         from .mla import mla_attention_layer as attn_fn
     else:
@@ -341,7 +345,8 @@ def decoder_layer(
     res_scale = cfg.scale_depth / math.sqrt(cfg.num_layers) if cfg.scale_depth != 1.0 else 1.0
     h = _norm(p["ln_attn"], cfg, x)
     attn_out, cache, *rows = attn_fn(
-        p["attn"], cfg, rope, h, positions, cache, layer_idx, meta, mode, rot=rot, side=side
+        p["attn"], cfg, rope, h, positions, cache,
+        layer_idx if pool_idx is None else pool_idx, meta, mode, rot=rot, side=side,
     )
     if cfg.parallel_residual:
         return (x + attn_out + mlp_layer(p["mlp"], cfg, h, layer_idx, tp), cache, *rows)
@@ -562,15 +567,21 @@ def init_params(
     device=None,
     dtype: Optional[torch.dtype] = None,
     shard: Optional[Tuple[int, int]] = None,
+    stage: Optional[Tuple[int, int]] = None,
 ) -> Params:
     """Random weights in the reference's layout and scales (normal /
     sqrt(fan_in), embeddings 0.02, norms 1), drawn on ``device`` from a
     generator seeded with ``seed``. With ``shard=(rank, tp)`` the same full
     tensors are drawn, one layer at a time, and only rank ``rank``'s shard of
     each is kept (``parallel.sharding.shard_params``): every rank of a
-    tensor-parallel model draws the same weights without holding them all."""
+    tensor-parallel model draws the same weights without holding them all.
+    With ``stage=(s, pp)`` every layer is drawn likewise and only pipeline
+    stage ``s``'s (``parallel.sharding.stage_range``) kept, under their
+    global keys, beside the embedding, final norm and head: the full
+    draw, sliced. Both compose."""
     keep = (lambda tree, path: tree) if shard is None else (
         lambda tree, path: shard_params(tree, *shard, prefix=path, cfg=cfg))
+    lo, hi = (0, cfg.num_layers) if stage is None else stage_range(cfg, *stage)
     dtype = dtype or cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
     d, hq, hkv, dh = cfg.dim_model, cfg.num_heads, cfg.num_kv_heads, cfg.dim_head
@@ -628,9 +639,14 @@ def init_params(
 
     params: Params = {
         "embedding": keep({"w": dense((cfg.vocab_size, d), scale=0.02)}, "embedding"),
-        "layers": {str(i): keep(layer(i), f"layers.{i}") for i in range(cfg.num_layers)},
+        "layers": {},
         "final_norm": {"w": ones(d)},
     }
+    for i in range(cfg.num_layers):
+        drawn = layer(i)  # drawn whatever the stage: the stream stays the full model's
+        if lo <= i < hi:
+            params["layers"][str(i)] = keep(drawn, f"layers.{i}")
+        del drawn
     if not cfg.tie_lm_head:
         params["lm_head"] = keep({"w": dense((d, cfg.vocab_size), scale=0.02)}, "lm_head")
     return params

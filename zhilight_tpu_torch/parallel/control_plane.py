@@ -1,8 +1,8 @@
 """Scheduler control plane (counterpart of
 ``zhilight_tpu/parallel/control_plane.py``).
 
-Every rank of a tensor-parallel model runs the scheduler loop in lockstep,
-so that every rank enters the same model steps, and with them the same
+Every rank of a tensor- or pipeline-parallel model runs the scheduler loop
+in lockstep, so that every rank enters the same model steps, and with them the same
 collectives, in the same order. Rank 0 is the only source of
 nondeterminism (task arrival, cancels, session closes, TTL expiry): once per
 scheduler iteration it broadcasts those events and the other ranks replay
@@ -34,6 +34,10 @@ class ControlPlane:
         Returns None on rank>0 when rank 0 closed the channel (shutdown)."""
         raise NotImplementedError
 
+    def all_min(self, n: int) -> int:
+        """The smallest of every rank's ``n`` (a collective call)."""
+        raise NotImplementedError
+
     def close(self):
         pass
 
@@ -43,6 +47,9 @@ class LocalPlane(ControlPlane):
 
     def broadcast(self, obj: Any) -> Any:
         return obj
+
+    def all_min(self, n: int) -> int:
+        return n
 
 
 class DistPlane(ControlPlane):
@@ -65,3 +72,11 @@ class DistPlane(ControlPlane):
         box = [obj if self.rank == 0 else None]
         dist.broadcast_object_list(box, src=0, group=self.group)
         return box[0]
+
+    def all_min(self, n: int) -> int:
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([int(n)], dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group)
+        return int(t.item())

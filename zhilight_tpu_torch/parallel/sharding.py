@@ -27,7 +27,7 @@ gathers the rank's input and runs the whole product (``models/llama.py``
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -45,7 +45,11 @@ __all__ = [
     "shard_leaf",
     "shard_linear",
     "check_tp",
+    "check_pp",
     "rank_config",
+    "stage_range",
+    "stage_params",
+    "rank_params",
 ]
 
 COL = 1      # [in, out] kernels: the output dim  (qkv, gate, up)
@@ -326,8 +330,69 @@ def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
                        dim_ff=cfg.dim_ff // tp)
 
 
-def is_shard(params: Dict[str, Any], cfg: ModelConfig, tp: int) -> bool:
-    """Whether ``params`` is already one rank's shard (``init_params(...,
-    shard=...)``, ``load_hf_state(..., shard=...)``) rather than the full
-    tree: its embedding holds ``vocab_size / tp`` rows."""
+def check_pp(cfg: ModelConfig, pp: int, pcfg) -> None:
+    """The conditions of pipeline parallelism over ``pp`` stages, the
+    reference's raises (``zhilight_tpu/engine/engine.py:104-110``): no data
+    parallelism beside it (``NotImplementedError``), homogeneous layers (no
+    MLA, no MoE, no parallel residual, RMS norms: the reference's
+    ``models/stacked.py`` ``is_stackable``) and a layer count that ``pp``
+    divides (``ValueError``)."""
+    if pp <= 1:
+        return
+    if pcfg.dp > 1:
+        raise NotImplementedError("pp does not compose with dp; use tp")
+    if cfg.mla.enabled or cfg.moe.enabled or cfg.parallel_residual or not cfg.rms_norm:
+        raise ValueError("pipeline parallelism needs homogeneous layers")
+    if cfg.num_layers % pp:
+        raise ValueError(f"num_layers {cfg.num_layers} % pp {pp} != 0")
+
+
+def stage_range(cfg: ModelConfig, stage: int, pp: int) -> Tuple[int, int]:
+    """The layers ``[lo, hi)`` of pipeline stage ``stage`` of ``pp``:
+    ``[stage * L / pp, (stage + 1) * L / pp)``."""
+    n = cfg.num_layers // pp
+    return stage * n, (stage + 1) * n
+
+
+def stage_params(params: Dict[str, Any], stage: int, pp: int) -> Dict[str, Any]:
+    """Stage ``stage``'s tree of a full one: its layers under their global
+    keys, beside the embedding, the final norm and the head, which every
+    stage holds (the reference replicates them over the stages,
+    ``zhilight_tpu/models/pipeline.py:81-86``)."""
+    n = len(params["layers"]) // pp
+    keep = {str(i) for i in range(stage * n, (stage + 1) * n)}
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: v for k, v in params["layers"].items() if k in keep}
+    return out
+
+
+def _tp_cut(params: Dict[str, Any], cfg: ModelConfig, tp: int) -> bool:
     return tp > 1 and to_tensor(params["embedding"]["w"]).shape[0] == cfg.vocab_size // tp
+
+
+def _pp_cut(params: Dict[str, Any], cfg: ModelConfig, pp: int) -> bool:
+    return pp > 1 and len(params["layers"]) == cfg.num_layers // pp
+
+
+def is_shard(params: Dict[str, Any], cfg: ModelConfig, tp: int, pp: int = 1) -> bool:
+    """Whether ``params`` is already what one rank keeps (``init_params(...,
+    shard=..., stage=...)``, ``load_hf_state(..., shard=..., layers=...)``)
+    rather than the full tree: at tp > 1 its embedding holds ``vocab_size /
+    tp`` rows, at pp > 1 it holds a stage's ``num_layers / pp`` layers (and
+    both where both are above 1). False where neither is."""
+    if tp <= 1 and pp <= 1:
+        return False
+    return (tp <= 1 or _tp_cut(params, cfg, tp)) and (pp <= 1 or _pp_cut(params, cfg, pp))
+
+
+def rank_params(params: Dict[str, Any], cfg: ModelConfig, tp_rank: int, tp: int,
+                stage: int = 0, pp: int = 1) -> Dict[str, Any]:
+    """What the rank at (``stage``, ``tp_rank``) keeps of ``params``: the
+    stage's layers (:func:`stage_params`) where the tree holds every layer,
+    then its TP shard (:func:`shard_params`) where it is not one yet; each
+    cut is taken only where the tree still needs it."""
+    if pp > 1 and not _pp_cut(params, cfg, pp):
+        params = stage_params(params, stage, pp)
+    if tp > 1 and not _tp_cut(params, cfg, tp):
+        params = shard_params(params, tp_rank, tp, cfg)
+    return params

@@ -9,18 +9,22 @@ This build uses **aiohttp** (fastapi/uvicorn are not in the base image) — the
 HTTP surface and JSON bodies are identical to the reference's. It serves the
 port's engine (``zhilight_tpu_torch``) on the GPU unless ``--device`` names
 another device; without one and without a GPU it raises, as ``LLM`` does.
-Tensor parallelism runs one process a rank under torchrun: rank 0 serves
-HTTP, the other ranks serve none and run the scheduler in lockstep. Without
-such a launch ``--tensor-parallel N`` raises. Data and pipeline parallelism
-and multi-host serving are not ported yet: their flags raise. Embeddings
-(``/v1/embeddings``) go through ``LLM.calc_hidden_states``, which under
-tensor parallelism runs as an event of the scheduler loop on every rank.
+Tensor and pipeline parallelism run one process a rank under torchrun
+(``--tensor-parallel T --pipeline-parallel P``: ``T * P`` processes, rank r
+stage ``r // T``): rank 0 serves HTTP, the other ranks serve none and run
+the scheduler in lockstep. Without such a launch either flag above 1
+raises. Data parallelism and multi-host serving are not ported yet: their
+flags raise. Embeddings (``/v1/embeddings``) go through
+``LLM.calc_hidden_states``, which under either parallelism runs as an
+event of the scheduler loop on every rank.
 
 Launch:
   python -m zhilight_tpu_torch.server.openai.api_server --model-path M [--port 8080]
       [--device cpu] [--max-model-len L] [--api-key K] [--environ K=V]
   torchrun --nproc-per-node 2 -m zhilight_tpu_torch.server.openai.api_server \
       --model-path M --tensor-parallel 2
+  torchrun --nproc-per-node 2 -m zhilight_tpu_torch.server.openai.api_server \
+      --model-path M --pipeline-parallel 2
 """
 
 from __future__ import annotations
@@ -510,10 +514,10 @@ def parse_args(argv=None):
 
 
 def make_engine_config(args) -> EngineConfig:
-    if args.data_parallel * args.pipeline_parallel > 1:
-        raise NotImplementedError("data and pipeline parallelism are not ported yet")
-    if args.tensor_parallel > 1:
-        require_launch(args.tensor_parallel)
+    if args.data_parallel > 1:
+        raise NotImplementedError("data parallelism is not ported yet")
+    if args.tensor_parallel * args.pipeline_parallel > 1:
+        require_launch(args.tensor_parallel * args.pipeline_parallel)
     if args.nnodes > 1 or args.node_rank > 0:
         raise NotImplementedError("multi-host serving is not ported yet")
     return EngineConfig(
@@ -560,13 +564,15 @@ def main(argv=None):
         dt = llm.executor.warmup()
         logger.info("warmup done in %.1fs", dt)
     gen = DynamicBatchGenerator(llm).start()
-    if llm.tp_group is not None and llm.tp_group.rank > 0:
-        # tensor-parallel ranks above 0 serve no HTTP (the reference's worker
-        # nodes, api_server.py:549-554): their scheduler thread replays rank
-        # 0's loop in lockstep, entering the same collectives, and exits when
+    world = llm.executor.plane.world
+    if llm.rank > 0:
+        # ranks above 0 serve no HTTP (the reference's worker nodes,
+        # api_server.py:549-554): their scheduler thread replays rank 0's
+        # loop in lockstep, entering the same collectives, and exits when
         # rank 0 shuts down
-        logger.info("tensor-parallel rank %d: serving no HTTP, running the lockstep scheduler",
-                    llm.tp_group.rank)
+        logger.info("%s rank %d: serving no HTTP, running the lockstep scheduler",
+                    "tensor-parallel" if llm.pp_group is None else "pipeline-parallel",
+                    llm.rank)
         gen.scheduler._thread.join()
         leave()
         if gen.scheduler.error is not None:
@@ -580,7 +586,7 @@ def main(argv=None):
         web.run_app(app, host=args.host, port=args.port)
     finally:
         gen.stop()
-        if llm.tp_group is not None:
+        if world > 1:
             leave()
 
 

@@ -38,8 +38,10 @@ Tensors = Iterable[Tuple[str, Any]]
 # raw tensor iteration
 # ---------------------------------------------------------------------------
 
-def iter_safetensors(model_path: str) -> Tensors:
-    """Yield (name, tensor) from every *.safetensors file in a directory."""
+def iter_safetensors(model_path: str, keep=None) -> Tensors:
+    """Yield (name, tensor) from every *.safetensors file in a directory;
+    with ``keep`` (a predicate on the name) only the tensors it keeps, the
+    others never read."""
     try:
         from safetensors import safe_open
     except ImportError as e:
@@ -51,23 +53,25 @@ def iter_safetensors(model_path: str) -> Tensors:
     for fname in files:
         with safe_open(os.path.join(model_path, fname), framework="pt") as f:
             for name in f.keys():
-                yield name, f.get_tensor(name)
+                if keep is None or keep(name):
+                    yield name, f.get_tensor(name)
 
 
-def _iter_torch_bin(model_path: str) -> Tensors:
-    """Yield (name, tensor) from every *.bin / *.pt torch checkpoint file."""
+def _iter_torch_bin(model_path: str, keep=None) -> Tensors:
+    """Yield (name, tensor) from every *.bin / *.pt torch checkpoint file
+    (memory-mapped: a tensor that ``keep`` skips is never paged in)."""
     files = sorted(f for f in os.listdir(model_path) if f.endswith((".bin", ".pt")))
     for fname in files:
         state = torch.load(
             os.path.join(model_path, fname), map_location="cpu", mmap=True, weights_only=True
         )
-        yield from state.items()
+        yield from ((n, t) for n, t in state.items() if keep is None or keep(n))
 
 
-def iter_checkpoint(model_path: str) -> Tensors:
+def iter_checkpoint(model_path: str, keep=None) -> Tensors:
     if any(n.endswith(".safetensors") for n in os.listdir(model_path)):
-        return iter_safetensors(model_path)
-    return _iter_torch_bin(model_path)
+        return iter_safetensors(model_path, keep)
+    return _iter_torch_bin(model_path, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +116,18 @@ _DENSE_RULES: List[Tuple[str, str, bool]] = [
 ]
 _LAYER = r"^(?:model|language_model(?:\.model)?)\.layers\.(?P<i>\d+)"
 _EXPERT = r"(?P<e>\d+)"
+_LAYER_OF = re.compile(_LAYER + r"\.")
+
+
+def in_layers(name: str, layers: Optional[Tuple[int, int]]) -> bool:
+    """Whether the HF tensor ``name`` is kept by a stage of ``layers`` =
+    (lo, hi): a tensor of layer i where lo <= i < hi, and every tensor
+    outside the layers (embedding, final norm, head). Everything is kept
+    where ``layers`` is None."""
+    if layers is None:
+        return True
+    m = _LAYER_OF.match(name)
+    return m is None or layers[0] <= int(m.group("i")) < layers[1]
 
 
 def _compile_rules():
@@ -183,9 +199,15 @@ def map_hf_params(
     quant_method: Optional[str] = None,
     device=None,
     shard: Optional[Tuple[int, int]] = None,
+    layers: Optional[Tuple[int, int]] = None,
 ) -> Dict[str, Any]:
     """Build the nested param dict from (hf_name, array or tensor) pairs,
     its leaves on ``device`` (default: the CPU).
+
+    With ``layers=(lo, hi)`` (a pipeline stage's) the tensors of every other
+    layer are skipped as they come, quantized ones and their scales
+    included, before anything is converted or stashed; the embedding, the
+    final norm and the head are kept. It composes with ``shard``.
 
     ``quant_method`` ("gptq" | "awq" | "fp8") converts the checkpoint tensors
     of each quantized linear into the formats of ``ops/quant.py``. With
@@ -215,6 +237,8 @@ def map_hf_params(
     unmapped: List[str] = []
 
     for name, arr in tensors:
+        if not in_layers(name, layers):
+            continue
         # quantized linear tensors: strip the kind suffix, map the base name
         kind = next((s for s in _QUANT_SUFFIXES if name.endswith("." + s)), None)
         base = name if kind is None else name[: -(len(kind) + 1)] + ".weight"
@@ -437,11 +461,14 @@ def _convert_quant_stash(tree, quant_stash, quant_method, dtype, device, shard=N
 
 
 def load_hf_state(
-    model_path: str, cfg: ModelConfig, dtype=None, quant=None, device=None, shard=None
+    model_path: str, cfg: ModelConfig, dtype=None, quant=None, device=None, shard=None,
+    layers=None,
 ) -> Dict[str, Any]:
     """Load a full HF checkpoint directory into the port's param dict, its
     leaves on ``device``; with ``shard=(rank, tp)`` rank ``rank``'s shard
-    of it, each tensor sliced as it is read.
+    of it, each tensor sliced as it is read; with ``layers=(lo, hi)`` only
+    those layers (a pipeline stage's) beside the embedding, the final norm
+    and the head, the other layers' tensors never read.
 
     ``quant`` is the QuantConfig of the checkpoint's ``quantization_config``;
     it selects the packed-tensor conversion."""
@@ -456,8 +483,9 @@ def load_hf_state(
             QuantType.FP8_BLOCK: "fp8",
         }.get(quant.quant_type)
     params = map_hf_params(
-        iter_checkpoint(model_path), cfg, dtype=dtype, strict=False, quant_method=method,
-        device=device, shard=shard,
+        iter_checkpoint(model_path, keep=lambda name: in_layers(name, layers)), cfg,
+        dtype=dtype, strict=False, quant_method=method, device=device, shard=shard,
+        layers=layers,
     )
     if cfg.tie_lm_head and "lm_head" in params:
         del params["lm_head"]

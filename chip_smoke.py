@@ -13,6 +13,8 @@ Run from the repository root on a machine with a CUDA GPU and ``nvcc``:
     python3 chip_smoke.py --phases tp --tp-backend nccl  # the same, NCCL, a GPU a rank
     python3 chip_smoke.py --phases pp4            # Qwen2.5-14B bf16, TP=2 x PP=2, 4 ranks
     python3 chip_smoke.py --phases pp4 --tp-backend nccl  # the same, a GPU a rank (four)
+    python3 chip_smoke.py --phases hosts          # MiniCPM-2B as 2 TCP-joined hosts; Qwen2.5-14B, TP=2 x DP=2 over 2 hosts
+    python3 chip_smoke.py --phases hosts --tp-backend nccl  # the same, a GPU a rank (four)
     python3 chip_smoke.py --phases kernels --parent-csrc DIR  # + an earlier tree's kernels
 
 It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
@@ -177,6 +179,28 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            rank ``r % 2``; gloo on the one GPU, ``--tp-backend nccl`` a GPU a
            rank), held as the pipelined paths above, the logits by the
            teacher-forced rule (TP changes the arithmetic);
+  hosts    (not in the default order) multi-host serving and data-parallel
+           replicas, two paths (``HOSTS_PATHS``), each run in this process
+           first, then as its rank processes, 8 requests (SERVE_LENS, 32
+           greedy tokens each, queued before the loop starts so that every
+           run batches them alike) and a 1500-token prompt's TTFT and batch-1
+           decode, launch counters zeroed just before and read just after on
+           every rank, then the teacher-forced logits along the one-process
+           run's tokens: ``MiniCPM-2B-bf16-hosts``, MiniCPM-2B in bf16 at full
+           width and depth as two hosts joined by the TCP control plane alone
+           (``ZT_CONTROL_ADDR``, no process group), each a whole replica on
+           the one GPU (``--tp-backend nccl``: a GPU a host), their tokens and
+           logits held bit-equal to each other's and the one-process run's;
+           ``Qwen2.5-14B-bf16-tp-dp``, Qwen2.5-14B in bf16 at full width and
+           TP_QWEN_LAYERS of 48 at TP=2 x DP=2, four ranks of two emulated
+           hosts sharing one world (gloo on the one GPU, made by the script;
+           ``--tp-backend nccl``: each host sees two of four GPUs and ``LLM``
+           joins the world from the coordinator), every rank finishing every
+           request with rank 0's tokens, replica 1's logits and shards
+           bit-equal to replica 0's, the logits against TP=1 by the
+           teacher-forced rule; each rank's launches equal to the one-process
+           run's; decode tok/s and TTFT beside the one-process run's, the
+           plane's ms a broadcast on rank 0 and an ``all_min`` round trip;
   serve    the main paths, each through ``LLM`` + ``DynamicBatchGenerator``
            answering 8 concurrent requests, with every kernel's launch
            counter set to 0 just before and read just after, and the
@@ -6021,6 +6045,399 @@ def phase_pp4(rec: dict, args, smi: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the hosts phase: multi-host serving and data-parallel replicas
+# ---------------------------------------------------------------------------
+
+HOSTS_NEW = 32             # new tokens a request, EOS ignored
+HOSTS_PAGES = 512          # given: processes sharing a GPU would size their pools from its free memory
+HOSTS_TIMEOUT = 600        # seconds: the rank processes' limit, their groups' timeout
+HOSTS_PLANE_ROUNDS = 200   # all_min round trips timed on every rank
+HOSTS_PATHS = {
+    # label -> the rank processes of its multi-process run
+    # MiniCPM-2B in bf16 at full width and depth, as two hosts joined by the
+    # TCP control plane alone, each a whole replica (the plane tier)
+    "MiniCPM-2B-bf16-hosts": 2,
+    # Qwen2.5-14B in bf16 at full width and TP_QWEN_LAYERS of 48, TP=2 x
+    # DP=2: two emulated hosts of two ranks sharing one world (the mesh tier)
+    "Qwen2.5-14B-bf16-tp-dp": 4,
+}
+for _label, _world in HOSTS_PATHS.items():
+    for _name in [f"{_label}-one"] + [f"{_label}-rank{r}" for r in range(_world)]:
+        PATHS[_name] = ATTENTION_KERNELS
+
+
+def hosts_config(label: str, args):
+    """The path's ModelConfig: MiniCPM-2B, or the tp phase's Qwen2.5-14B bf16
+    at TP_QWEN_LAYERS."""
+    return minicpm_2b() if label.startswith("MiniCPM") else tp_config("Qwen2.5-14B-bf16", args)
+
+
+def hosts_parallel(label: str, rank: int, port: int):
+    """Rank ``rank``'s ParallelConfig: the plane tier's host ``rank`` of 2
+    (the TCP plane at ZT_CONTROL_ADDR), or TP=2 x DP=2 over 2 hosts of 2
+    ranks sharing one world from the coordinator at ``port``."""
+    from zhilight_tpu_torch.config import ParallelConfig
+
+    if label.startswith("MiniCPM"):
+        return ParallelConfig(num_hosts=2, host_rank=rank)
+    return ParallelConfig(tp=2, dp=2, num_hosts=2, host_rank=rank // 2,
+                          coordinator_address=f"127.0.0.1:{port}")
+
+
+def hosts_engine_config(parallel=None):
+    """Batch 8, max_model_len 4096, 512-token chunks, HOSTS_PAGES pages of
+    16; one process unless ``parallel`` says otherwise."""
+    from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, ParallelConfig,
+                                           SchedulerConfig)
+
+    return EngineConfig(max_model_len=4096,
+                        cache=CacheConfig(page_size=16, num_pages=HOSTS_PAGES),
+                        scheduler=SchedulerConfig(max_batch=8, chunk_size=512),
+                        parallel=parallel or ParallelConfig())
+
+
+def hosts_prompts(seed: int, vocab: int) -> list:
+    """The 8 requests' prompts, SERVE_LENS tokens each."""
+    rng = np.random.default_rng(seed + 30)
+    return [rng.integers(3, vocab, n).tolist() for n in SERVE_LENS]
+
+
+def hosts_drive(llm, prompts) -> dict:
+    """Rank 0's requests (or the one-process run's): the 8 prompts,
+    HOSTS_NEW greedy tokens each, queued before the loop starts, so that its
+    first iteration admits them all and every run batches them alike; then
+    the 1500-token prompt for one token three times (TTFT, the median) and
+    for HOSTS_NEW (batch-1 decode tok/s). Each broadcast of the control plane
+    is timed on this rank (the cost an iteration pays). Returns the tokens
+    and the times."""
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, GeneratorArg, SearchTask
+
+    out, t_start = {}, time.monotonic()
+    gen = DynamicBatchGenerator(llm)
+    plane, spent = llm.executor.plane, []
+    broadcast = plane.broadcast
+
+    def timed(obj):
+        t0 = time.perf_counter()
+        try:
+            return broadcast(obj)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    plane.broadcast = timed
+    tasks = [SearchTask(p, GeneratorArg(max_length=HOSTS_NEW, ignore_eos=True)) for p in prompts]
+    for task in tasks:
+        gen.scheduler.submit(task)
+    gen.start()
+    try:
+        out["greedy"] = []
+        for task in tasks:
+            result = gen._wait_final(task, HOSTS_TIMEOUT)[1]
+            if isinstance(result, BaseException):
+                raise result
+            out["greedy"].append([int(t) for t in result.token_ids])
+        out["batch_s"] = time.monotonic() - t_start
+        long, ttft = prompts[3], []
+        for _ in range(3):
+            t0 = time.monotonic()
+            gen.generate(long, GeneratorArg(max_length=1), timeout=HOSTS_TIMEOUT)
+            ttft.append(time.monotonic() - t0)
+        t0 = time.monotonic()
+        out["long"] = gen.generate(long, GeneratorArg(max_length=HOSTS_NEW, ignore_eos=True),
+                                   timeout=HOSTS_TIMEOUT).outputs[0].token_ids
+        long_s = time.monotonic() - t0
+    finally:
+        gen.stop()
+        plane.broadcast = broadcast
+    if gen.scheduler.error is not None:
+        raise AssertionError("the scheduler failed") from gen.scheduler.error
+    out["ttft_ms"] = statistics.median(ttft) * 1e3
+    out["decode_tok_s"] = (len(out["long"]) - 1) / (long_s - statistics.median(ttft))
+    out["broadcasts"] = len(spent)
+    out["broadcast_ms"] = statistics.mean(spent) * 1e3 if spent else None
+    out["drive_s"] = time.monotonic() - t_start
+    return out
+
+
+def hosts_one(rec: dict, args, label: str, path_dir: str) -> dict:
+    """A hosts path in one process: the requests (hosts_drive), launch
+    counters zeroed just before and read just after; then the teacher-forced
+    logits along its greedy tokens (tp_forced) and, for the TP path, the
+    same one prompt at a time (the noise between two computations of one
+    model). Writes the tokens the ranks feed to ``path_dir``; frees the
+    weights."""
+    import gc
+    import hashlib
+
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+
+    cfg = hosts_config(label, args)
+    t0 = time.monotonic()
+    llm = LLM(model_config=cfg, params=L.init_params(cfg, seed=args.seed, device="cuda"),
+              engine_config=hosts_engine_config(), device="cuda")
+    ex = llm.executor
+    setup_s = time.monotonic() - t0
+    warm_s = ex.warmup()
+    prompts = hosts_prompts(args.seed, cfg.vocab_size)
+    counters = _tp_counters()
+    one = hosts_drive(llm, prompts)
+    torch.cuda.synchronize()
+    one["launches"] = {name: fn.launches for name, fn in counters.items()}
+    _tp_launches(rec, f"{label}-one", one["launches"], cfg.num_layers)
+    with open(os.path.join(path_dir, "forced.json"), "w") as f:
+        json.dump(dict(prompts=prompts, tokens=one["greedy"]), f)
+    t0 = time.monotonic()
+    one["want"] = tp_forced(ex, prompts, one["greedy"])
+    one["forced_s"] = time.monotonic() - t0
+    one["logits_sha"] = hashlib.sha256(one["want"].numpy().tobytes()).hexdigest()
+    if not label.startswith("MiniCPM"):
+        one["floor"] = torch.cat([tp_forced(ex, [p], [t]) for p, t in zip(prompts, one["greedy"])])
+    print(f"hosts: {label} one process: {cfg.num_layers} layers, set-up {setup_s:.1f} s, warmup "
+          f"{warm_s:.1f} s, requests {one['drive_s']:.1f} s, teacher-forced {one['forced_s']:.1f} "
+          f"s; launches {({k: v for k, v in one['launches'].items() if v})}", flush=True)
+    release_pool(llm)
+    ex.params, llm, ex = None, None, None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one
+
+
+def hosts_launch(args, label: str, tmp: str) -> None:
+    """The multi-process run of a hosts path: its rank processes (hosts_rank),
+    started together; the plane tier's hosts find host 0 at ZT_CONTROL_ADDR,
+    the mesh tier's ranks their world at the coordinator (``--hosts-port``).
+    Under ``--tp-backend nccl`` each emulated host sees its own GPUs
+    (CUDA_VISIBLE_DEVICES: a GPU a rank, host 0 the first ones). Raises with
+    a rank's log where one fails or outlasts HOSTS_TIMEOUT."""
+    world, nccl = HOSTS_PATHS[label], args.tp_backend == "nccl"
+    per_host = world // 2
+    port, ctrl = _tp_free_port(), _tp_free_port()
+    t0 = time.monotonic()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, LOCAL_RANK=str(r % per_host))
+        if world == 2:  # the plane tier: host 0 binds the TCP plane's port
+            env["ZT_CONTROL_ADDR"] = f"127.0.0.1:{ctrl}"
+        if nccl:
+            host = r // per_host
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(str(host * per_host + i)
+                                                   for i in range(per_host))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--hosts-rank", str(r), "--hosts-path",
+             label, "--hosts-port", str(port), "--tp-dir", tmp, "--seed", str(args.seed),
+             "--tp-backend", args.tp_backend],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(HOSTS_TIMEOUT - (time.monotonic() - t0),
+                                                  1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"hosts: {label}: rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    print(f"hosts: {label}: {world} rank processes, {time.monotonic() - t0:.1f} s", flush=True)
+
+
+def hosts_rank(args) -> int:
+    """One rank process of a hosts path (``--hosts-rank`` of
+    HOSTS_PATHS[``--hosts-path``]): builds the path's LLM at its
+    ParallelConfig (the TP path's weights: its TP rank's shard, drawn from
+    the seed as every replica draws it), times HOSTS_PLANE_ROUNDS ``all_min``
+    round trips of the plane, then drives the requests on rank 0
+    (hosts_drive) while the others run the lockstep loop until rank 0's
+    shutdown, launch counters zeroed just before; then every rank runs the
+    teacher-forced logits along the one-process run's tokens and writes
+    what it saw (digests of its logits and, for the TP path, of its shard)
+    under ``--tp-dir``."""
+    import datetime
+    import hashlib
+
+    import torch.distributed as dist
+
+    from zhilight_tpu_torch.engine import DynamicBatchGenerator, SearchTask
+    from zhilight_tpu_torch.llm import LLM
+    from zhilight_tpu_torch.models import llama as L
+    from zhilight_tpu_torch.parallel.comm import leave
+
+    label, rank, nccl = args.hosts_path, args.hosts_rank, args.tp_backend == "nccl"
+    pcfg = hosts_parallel(label, rank, args.hosts_port)
+    world = pcfg.num_devices
+    # NCCL: the rank's GPU on its emulated host (hosts_launch)
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"]) if nccl else 0)
+    if world > 1 and not nccl:
+        # gloo, every rank on the one GPU: the world made here, over both
+        # hosts, which LLM then checks against host_rank (NCCL: LLM makes it
+        # from the coordinator itself)
+        dist.init_process_group("gloo", init_method=f"tcp://{pcfg.coordinator_address}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=HOSTS_TIMEOUT))
+    finished = {}
+    finish = SearchTask.finish
+
+    def recorded(self):
+        finished[str(self.task_id)] = [int(t) for t in self.output_tokens]
+        finish(self)
+
+    SearchTask.finish = recorded
+    t0 = time.monotonic()
+    cfg = hosts_config(label, args)
+    torch.cuda.set_device(device)
+    params = L.init_params(cfg, seed=args.seed, device=device,
+                           shard=(rank % pcfg.tp, pcfg.tp) if pcfg.tp > 1 else None)
+    llm = LLM(model_config=cfg, params=params, engine_config=hosts_engine_config(pcfg),
+              device=device)
+    del params
+    ex = llm.executor
+    out = dict(rank=llm.rank, world=ex.plane.world, plane=type(ex.plane).__name__,
+               device=str(ex.device), setup_s=time.monotonic() - t0, warmup_s=ex.warmup(),
+               heads=[ex.cfg.num_heads, ex.cfg.num_kv_heads],
+               backend=dist.get_backend() if dist.is_initialized() else None)
+    t0 = time.perf_counter()
+    for _ in range(HOSTS_PLANE_ROUNDS):
+        ex.plane.all_min(rank)
+    out["all_min_ms"] = (time.perf_counter() - t0) * 1e3 / HOSTS_PLANE_ROUNDS
+    prompts = hosts_prompts(args.seed, cfg.vocab_size)
+    counters = _tp_counters()
+    if llm.rank == 0:
+        out.update(hosts_drive(llm, prompts))
+    else:
+        gen = DynamicBatchGenerator(llm).start()
+        gen.scheduler._thread.join(timeout=HOSTS_TIMEOUT)
+        if gen.scheduler._thread.is_alive() or gen.scheduler.error is not None:
+            raise AssertionError(f"rank {rank}: the lockstep scheduler did not stop cleanly: "
+                                 f"{gen.scheduler.error!r}")
+    torch.cuda.synchronize()
+    out["launches"] = {name: fn.launches for name, fn in counters.items()}
+    out["finished"] = dict(finished)
+    path_dir = os.path.join(args.tp_dir, label)
+    forced = json.load(open(os.path.join(path_dir, "forced.json")))
+    t0 = time.monotonic()
+    logits = tp_forced(ex, forced["prompts"], forced["tokens"])
+    out["forced_s"] = time.monotonic() - t0
+    out["logits_sha"] = hashlib.sha256(logits.numpy().tobytes()).hexdigest()
+    if rank == 0 and pcfg.tp > 1:
+        np.save(os.path.join(path_dir, "rank0_logits.npy"), logits.numpy())
+    if pcfg.tp > 1:
+        out["tp_rank"] = llm.tp_group.rank
+        out["shards"] = tp_digests(ex.params)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(ex.device) / 2**30
+    with open(os.path.join(path_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    leave()
+    print(f"hosts rank {rank}: {label} done", flush=True)
+    return 0
+
+
+def hosts_check(rec: dict, args, smi: str, label: str, one: dict, path_dir: str) -> None:
+    """A hosts path's multi-process run against its one-process run
+    (``one``, hosts_one's): every rank launched what the one-process run
+    launched (each TP rank launches what TP=1 does: every kernel once a
+    layer a forward) and finished every request with rank 0's tokens, and
+    every rank scored the same teacher-forced logits, bit for bit. The
+    plane tier's hosts (whole replicas): their greedy tokens and logits
+    equal the one-process run's bit for bit. The TP=2 x DP=2 path: replica
+    1's shard bit-equal to replica 0's at each TP rank, and rank 0's logits
+    held to TP=1's by the teacher-forced rule (tp_compare), its tokens
+    likewise. Prints decode tok/s and TTFT beside the one-process run's and
+    the plane's cost."""
+    cfg = hosts_config(label, args)
+    world = HOSTS_PATHS[label]
+    ranks = [json.load(open(os.path.join(path_dir, f"rank{r}.json"))) for r in range(world)]
+    r0 = ranks[0]
+    nccl = args.tp_backend == "nccl"
+    if world == 2:
+        how = "a GPU a host" if nccl else "both hosts on the one GPU"
+    else:
+        how = "NCCL, a GPU a rank" if nccl else "gloo, every rank on the one GPU"
+    for r in ranks:
+        print(f"hosts: {label} rank {r['rank']} of {r['world']} ({r['plane']}, {r['device']}, "
+              f"{r['backend'] or 'no process group'}): {r['heads'][0]} / {r['heads'][1]} heads, "
+              f"set-up {r['setup_s']:.1f} s, warmup {r['warmup_s']:.1f} s, teacher-forced "
+              f"{r['forced_s']:.1f} s, peak {r['peak_gib']:.1f} GiB; launches "
+              f"{({k: v for k, v in r['launches'].items() if v})}", flush=True)
+        _tp_launches(rec, f"{label}-rank{r['rank']}", r["launches"], cfg.num_layers)
+        if r["launches"] != one["launches"]:
+            raise AssertionError(f"hosts: {label}: rank {r['rank']} launched {r['launches']}, the "
+                                 f"one-process run {one['launches']}")
+    if [r["rank"] for r in ranks] != list(range(world)):
+        raise AssertionError(f"hosts: {label}: the ranks are {[r['rank'] for r in ranks]}")
+    if any(r["finished"] != r0["finished"] for r in ranks) or len(r0["finished"]) != len(
+            SERVE_LENS) + 4:
+        raise AssertionError(f"hosts: {label}: the ranks finished the requests with other tokens")
+    if any(r["logits_sha"] != r0["logits_sha"] for r in ranks):
+        raise AssertionError(f"hosts: {label}: the ranks' teacher-forced logits differ")
+    if world == 2:
+        if r0["greedy"] != one["greedy"] or r0["long"] != one["long"]:
+            raise AssertionError(f"hosts: {label}: host 0's greedy tokens differ from the "
+                                 f"one-process run's")
+        if r0["logits_sha"] != one["logits_sha"]:
+            raise AssertionError(f"hosts: {label}: the hosts' teacher-forced logits differ from "
+                                 f"the one-process run's")
+        print(f"hosts: {label}: both hosts finished {len(r0['finished'])} requests with the same "
+              f"tokens, the one-process run's, and scored its teacher-forced logits "
+              f"([{len(SERVE_LENS)}, {HOSTS_NEW}, {cfg.vocab_size}]) bit for bit; launches equal "
+              f"the one-process run's on each host", flush=True)
+    else:
+        for r in ranks[2:]:
+            twin = ranks[r["rank"] % 2]
+            if r["tp_rank"] != twin["tp_rank"] or r["shards"] != twin["shards"]:
+                raise AssertionError(f"hosts: {label}: rank {r['rank']}'s shard differs from "
+                                     f"replica 0's at TP rank {twin['tp_rank']}")
+        if ranks[0]["shards"] == ranks[1]["shards"]:
+            raise AssertionError(f"hosts: {label}: the two TP ranks hold the same shard")
+        got = torch.from_numpy(np.load(os.path.join(path_dir, "rank0_logits.npy")))
+        msg = tp_compare(label, one["want"], got, one["greedy"], r0["greedy"], one["floor"], 2e-2)
+        bits = torch.equal(got, one["want"])
+        print(f"hosts: {label} TP=2 x DP=2: every rank finished {len(r0['finished'])} requests "
+              f"with rank 0's tokens and scored the same teacher-forced logits, bit for bit; "
+              f"replica 1's shards bit-equal to replica 0's ({len(r0['shards'])} leaves a rank); "
+              f"launches equal the one-process run's on every rank; the logits "
+              f"{'equal' if bits else 'differ from'} TP=1's bit for bit; against TP=1, {msg}",
+              flush=True)
+    plane = "TCP" if r0["plane"] == "TcpPlane" else f"{r0['plane']} across hosts"
+    print(f"timing: {label} control plane ({plane}, {how}): {r0['broadcast_ms']:.3f} ms a "
+          f"broadcast on rank 0 over {r0['broadcasts']} iterations; an all_min round trip "
+          f"{r0['all_min_ms']:.3f} ms (rank 0, mean of {HOSTS_PLANE_ROUNDS}); {smi}", flush=True)
+    shape = "2 hosts" if world == 2 else "TP=2 x DP=2 over 2 hosts"
+    for what, r in (("one process", one), (f"{shape} ({how})", r0)):
+        print(f"timing: {label} {what}: TTFT {r['ttft_ms']:.2f} ms for {SERVE_LENS[3]} tokens "
+              f"(median of 3), batch-1 decode {r['decode_tok_s']:.2f} tok/s over {HOSTS_NEW - 1} "
+              f"tokens, the 8 requests {r['batch_s']:.1f} s; {smi}", flush=True)
+
+
+def phase_hosts(rec: dict, args, smi: str) -> None:
+    """HOSTS_PATHS, each run in this process (hosts_one), then as its rank
+    processes (hosts_launch), then held to the one-process run
+    (hosts_check): MiniCPM-2B as two TCP-joined hosts, Qwen2.5-14B at TP=2 x
+    DP=2 over two emulated hosts (``--tp-backend nccl``: a GPU a rank, four
+    needed)."""
+    import shutil
+    import tempfile
+
+    if args.tp_backend == "nccl" and torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--phases hosts --tp-backend nccl runs a GPU a rank: 4 needed, "
+                           f"{torch.cuda.device_count()} visible")
+    tmp = tempfile.mkdtemp(prefix="zt-hosts-")
+    try:
+        for label in HOSTS_PATHS:
+            t0 = time.monotonic()
+            path_dir = os.path.join(tmp, label)
+            os.makedirs(path_dir)
+            one = hosts_one(rec, args, label, path_dir)
+            hosts_launch(args, label, tmp)
+            hosts_check(rec, args, smi, label, one, path_dir)
+            print(f"hosts: {label}: {time.monotonic() - t0:.1f} s; {smi}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def tp_one(rec: dict, args, label: str, path_dir: str) -> dict:
     """A tp path at TP=1 in this process: the requests (tp_drive; a check
     path: none), launch counters zeroed just before and read just after,
@@ -7341,8 +7758,8 @@ def profile(what: str, fn, steps: int = 0) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="kernels,multimodal,tp,serve,http",
-                    help="comma-separated, run in order; timing (after serve) and pp4 are "
-                         "not in the default")
+                    help="comma-separated, run in order; timing (after serve), pp4 and hosts "
+                         "are not in the default")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent-csrc", default="",
                     help="an earlier tree's zhilight_tpu_torch/csrc: build its kv_write.cu, "
@@ -7354,15 +7771,19 @@ def main() -> int:
                     help="the tp phase's Qwen2.5-14B GPTQ-Int4 path's depth (full width; 48 "
                          "as it ships)")
     ap.add_argument("--tp-backend", default="gloo", choices=["gloo", "nccl"],
-                    help="the tp and pp4 phases' groups: gloo, every rank on the one GPU (the "
-                         "default), or nccl, a GPU a rank (raises with fewer than 2, or 4 for "
-                         "pp4)")
+                    help="the tp, pp4 and hosts phases' groups: gloo, every rank on the one "
+                         "GPU (the default), or nccl, a GPU a rank (raises with fewer than 2, or "
+                         "4 for pp4 and hosts)")
     # one rank of the tp phase's TP=2 run (the phase starts these itself)
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-world", type=int, default=2, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tp-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--tp-models", default="", help=argparse.SUPPRESS)
+    # one rank process of the hosts phase (the phase starts these itself)
+    ap.add_argument("--hosts-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--hosts-path", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--hosts-port", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
     args.llms = {}
     phases = [p for p in args.phases.split(",") if p]
@@ -7372,6 +7793,8 @@ def main() -> int:
         return 1
     if args.tp_rank is not None:
         return tp_rank(args)
+    if args.hosts_rank is not None:
+        return hosts_rank(args)
     from zhilight_tpu_torch.ops.cuda import _build
 
     smi = nvidia_smi()
@@ -7405,6 +7828,8 @@ def main() -> int:
                 phase_tp(rec, args, smi)
             elif phase == "pp4":
                 phase_pp4(rec, args, smi)
+            elif phase == "hosts":
+                phase_hosts(rec, args, smi)
             elif phase == "serve":
                 phase_serve(rec, args)
             elif phase == "http":

@@ -23,7 +23,8 @@ against the single-process port.
   index.
 - The server: ``api_server --pipeline-parallel 2`` as two processes with
   torchrun's variables answers ``/v1/completions`` and ``/v1/embeddings`` as
-  ``pp=1`` does; ``--data-parallel 2`` still raises.
+  ``pp=1`` does; ``--data-parallel 2``, once refused, answers
+  ``/v1/completions`` as ``dp=1`` does.
 
 The rank processes are tests/test_torch_tp.py's (``Ranks``, its ``RANK``
 script with this file's cases appended), one pair and one quartet started
@@ -193,8 +194,8 @@ def _case(name, trees, paths):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The rank processes, started together: a pair for every pp=2 case and
-    the raises, a quartet for tp=2 x pp=2 and pp=4, and the server's two
-    ranks; the weights beside."""
+    the raises, a quartet for tp=2 x pp=2 and pp=4, and two servers' two
+    ranks each (pp=2, dp=2); the weights beside."""
     tmp = tmp_path_factory.mktemp("pp")
     trees, paths = {}, {}
     for name, (model, kind, *_) in CASES.items():
@@ -210,11 +211,13 @@ def ranks(tmp_path_factory):
         "w2": Ranks(dict(pp=w2, pp_raises=cases["swap"]), 2, tmp / "w2", extra=PP_RANK),
         "w4": Ranks(dict(pp=w4), 4, tmp / "w4", extra=PP_RANK),
         "server": TPServer(tmp / "server", parallel=("--pipeline-parallel", "2")),
+        "dp_server": TPServer(tmp / "dp_server", parallel=("--data-parallel", "2")),
         "cases": cases,
         "trees": trees,
     }
     yield running
     running["server"].stop()
+    running["dp_server"].stop()
 
 
 def _results(ranks, name):
@@ -559,8 +562,10 @@ def test_server_pp2_answers_like_pp1(ranks):
     temperature 0 with the text and usage of the same flags at pp=1 (in
     this process), and /v1/embeddings within 2e-2 (both serve the float32
     checkpoint in bf16); rank 1 serves no HTTP and stops with rank 0.
-    ``--data-parallel 2`` still raises."""
-    server = ranks["server"]
+    ``--data-parallel 2`` (two processes, a replica each) answers
+    /v1/completions with the same text and usage; its rank 1 serves no HTTP
+    and stops with its rank 0."""
+    server, dp_server = ranks["server"], ranks["dp_server"]
     if server.missing:
         pytest.skip(f"{server.missing} do not import")
     from aiohttp.test_utils import TestClient, TestServer
@@ -568,9 +573,6 @@ def test_server_pp2_answers_like_pp1(ranks):
     from zhilight_tpu_torch.server.openai import api_server as t_api
     from zhilight_tpu_torch.server.openai.serving import AsyncEngine
 
-    with pytest.raises(NotImplementedError, match="data parallelism"):
-        t_api.make_engine_config(t_api.parse_args(["--model-path", server.ckpt,
-                                                   "--data-parallel", "2", *SERVER_FLAGS]))
     args = t_api.parse_args(["--model-path", server.ckpt, *SERVER_FLAGS])
     llm = LLM(model_path=server.ckpt, device="cpu", engine_config=t_api.make_engine_config(args))
     gen = DynamicBatchGenerator(llm).start()
@@ -592,18 +594,7 @@ def test_server_pp2_answers_like_pp1(ranks):
             loop.close()
     finally:
         gen.stop()
-    base = f"http://127.0.0.1:{server.port}"
-    deadline = time.monotonic() + 90
-    while True:
-        for r, p in enumerate(server.procs):
-            assert p.poll() is None, f"rank {r}:\n{server.log(r)}"
-        try:
-            with urllib.request.urlopen(base + "/health", timeout=5) as resp:
-                assert resp.status == 200
-            break
-        except OSError:
-            assert time.monotonic() < deadline, "the pp=2 server did not come up in 90 s"
-            time.sleep(0.5)
+    base = _serving(server, "pp=2")
     status, got = _post(base + "/v1/completions", COMPLETION)
     assert status == 200
     assert got["choices"][0]["text"] == want["choices"][0]["text"]
@@ -616,3 +607,27 @@ def test_server_pp2_answers_like_pp1(ranks):
     assert server.stop() == [0, 0], f"{server.log(0)}\n{server.log(1)}"
     assert "pipeline-parallel rank 1: serving no HTTP" in server.log(1)
     assert "Running on" not in server.log(1)
+    status, got = _post(_serving(dp_server, "dp=2") + "/v1/completions", COMPLETION)
+    assert status == 200
+    assert got["choices"][0]["text"] == want["choices"][0]["text"]
+    assert got["usage"] == want["usage"]
+    assert dp_server.stop() == [0, 0], f"{dp_server.log(0)}\n{dp_server.log(1)}"
+    assert "data-parallel rank 1: serving no HTTP" in dp_server.log(1)
+    assert "Running on" not in dp_server.log(1)
+
+
+def _serving(server, what: str) -> str:
+    """The base URL of ``server``'s rank 0 once /health answers (90 s at
+    most; a rank that exits fails at once)."""
+    base = f"http://127.0.0.1:{server.port}"
+    deadline = time.monotonic() + 90
+    while True:
+        for r, p in enumerate(server.procs):
+            assert p.poll() is None, f"rank {r}:\n{server.log(r)}"
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=5) as resp:
+                assert resp.status == 200
+            return base
+        except OSError:
+            assert time.monotonic() < deadline, f"the {what} server did not come up in 90 s"
+            time.sleep(0.5)

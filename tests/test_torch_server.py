@@ -457,15 +457,27 @@ def test_cli_without_device_raises_without_gpu(tiny, monkeypatch):
 @pytest.mark.parametrize("flags", [["-tp", "2"], ["-dp", "2"], ["-pp", "2"], ["--nnodes", "2"],
                                    ["--node-rank", "1"]])
 def test_parallel_flags_are_not_ported(flags, monkeypatch):
+    """Every parallel flag is served (tests/test_torch_tp.py,
+    tests/test_torch_pp.py, tests/test_torch_multihost.py); without the
+    launch it needs, each raises by name before the model is read: tensor,
+    pipeline and data parallelism name torchrun, a second host with no
+    coordinator and no ``ZT_CONTROL_ADDR`` raises the reference's
+    ``ValueError``, and a node rank beyond the node count raises too. With
+    the plane's address given, ``--nnodes 2`` gives its ParallelConfig."""
     args = t_api.parse_args(["--model-path", "unused", "--device", "cpu", *flags])
-    if flags[0] in ("-tp", "-pp"):
-        # tensor and pipeline parallelism are served one process a rank under
-        # torchrun (tests/test_torch_tp.py, tests/test_torch_pp.py); without
-        # such a launch the flag raises
-        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
-            monkeypatch.delenv(var, raising=False)
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "ZT_CONTROL_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    if flags[0] in ("-tp", "-dp", "-pp"):
         with pytest.raises(RuntimeError, match="torchrun"):
             t_api.make_engine_config(args)
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    if flags[0] == "--nnodes":
+        with pytest.raises(ValueError, match="multi-host serving needs coordinator_address"):
+            t_api.make_engine_config(args)
+        monkeypatch.setenv("ZT_CONTROL_ADDR", "127.0.0.1:29517")
+        parallel = t_api.make_engine_config(args).parallel
+        assert (parallel.num_hosts, parallel.host_rank) == (2, 0)
+        assert parallel.coordinator_address is None
+        return
+    with pytest.raises(ValueError, match="host_rank 1 is not below num_hosts 1"):
         t_api.make_engine_config(args)

@@ -142,8 +142,9 @@ torch.set_num_threads(1)
 spec_path, rank, world, port, out_path = (
     sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
 spec = json.load(open(spec_path))
-dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                        world_size=world, timeout=datetime.timedelta(seconds=60))
+if spec.get("init", True):
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
 
 from zhilight_tpu_torch.config import (CacheConfig, EngineConfig, MLAConfig, ModelConfig,
                                        MoEConfig, ParallelConfig, RopeConfig, SchedulerConfig)
@@ -388,8 +389,9 @@ if spec.get("extra"):
     exec(compile(open(spec["extra"]).read(), spec["extra"], "exec"))
 
 json.dump(out, open(out_path, "w"))
-dist.barrier()
-dist.destroy_process_group()
+if dist.is_initialized():
+    dist.barrier()
+    dist.destroy_process_group()
 print(f"rank {rank} DONE", flush=True)
 """
 
@@ -398,7 +400,9 @@ class Ranks:
     """``world`` rank processes over one spec, started now; ``result()``
     waits for them (each with a timeout) and returns every rank's output.
     ``extra``: more of the rank script, run after its own cases with its
-    names (``out``, ``spec``, ``rank``, ``load``...)."""
+    names (``out``, ``spec``, ``rank``, ``load``...). The processes join one
+    gloo group of ``world`` ranks first, unless the spec says ``"init":
+    False`` (its cases then make their own groups, or none)."""
 
     def __init__(self, spec: dict, world: int, tmp: Path, extra: str = ""):
         self.tmp = tmp
@@ -908,7 +912,9 @@ def test_what_tp_does_not_serve_yet_raises(kind, monkeypatch):
     """Quantized linears under tp > 1, refused until they were ported, now
     build: a GPTQ and an AUTO_INT8 ``LLM`` at tp=2 keep rank 0's shard (its
     half of q_proj's columns and of o_proj's rows), and ``shard_params``
-    slices a bare int4 leaf of a column-parallel projection."""
+    slices a bare int4 leaf of a column-parallel projection. ``LLM`` asks
+    ``join`` for the groups of one replica on one host (``dp=1, hosts=1``),
+    and the executor takes its plane from ``make_control_plane``."""
     import zhilight_tpu_torch.llm as t_llm
     from zhilight_tpu_torch.ops.quant import pack_int4
 
@@ -924,8 +930,14 @@ def test_what_tp_does_not_serve_yet_raises(kind, monkeypatch):
     import zhilight_tpu_torch.engine.engine as t_engine
     from zhilight_tpu_torch.parallel.control_plane import LocalPlane
 
-    monkeypatch.setattr(t_llm, "join", lambda tp, pp, device: (_SoloRank(), None))
-    monkeypatch.setattr(t_engine, "DistPlane", LocalPlane)
+    joined = []
+
+    def join(tp, pp, device, dp=1, hosts=1):
+        joined.append((tp, pp, device.type, dp, hosts))
+        return _SoloRank(), None
+
+    monkeypatch.setattr(t_llm, "join", join)
+    monkeypatch.setattr(t_engine, "make_control_plane", lambda pcfg: LocalPlane())
     params = _params(JModelConfig(**model))
     if kind == "gptq":
         quant = QuantConfig(quant_type=QuantType.GPTQ)
@@ -947,6 +959,7 @@ def test_what_tp_does_not_serve_yet_raises(kind, monkeypatch):
               engine_config=EngineConfig(max_model_len=64,
                                          cache=CacheConfig(page_size=4, num_pages=16),
                                          parallel=ParallelConfig(tp=2)))
+    assert joined == [(2, 1, "cpu", 1, 1)]
     attn = llm.executor.params["layers"]["0"]["attn"]
     q, o = ("w_p", "w_p") if kind == "gptq" else ("w_q", "w_q")
     assert attn["q_proj"][q].shape[-1] == model["num_heads"] * model["dim_head"] // 2

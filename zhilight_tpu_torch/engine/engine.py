@@ -47,6 +47,15 @@ samples the same logits with the same generators. As the reference gates
 them, the fused chunk meta, packed prefill and window side-KV are off under
 PP (``ZT_WINDOW_KV=1`` then decodes per step); ``ZT_FUSED_KV=1`` is not
 gated, the reference gating it by pool kind only.
+
+Under data parallelism (``ParallelConfig(dp=D)``, alone or with ``tp``) each
+of the D replicas holds the same shards and runs the same batch, as the
+reference's mesh replicates everything over its ``dp`` axis; over several
+hosts (``num_hosts``) each host's ranks are ranks of the same lockstep loop.
+The plane (``parallel.control_plane.make_control_plane``) spans them all:
+``DistPlane`` where they share one ``torch.distributed`` world, ``TcpPlane``
+(relayed within a host by ``RelayPlane``) where the hosts share none. Swap
+preemption falls back to recompute over several hosts, as in the reference.
 """
 
 from __future__ import annotations
@@ -72,7 +81,7 @@ from ..ops.sampling import (
     record_tokens,
     sample_step,
 )
-from ..parallel.control_plane import DistPlane, LocalPlane
+from ..parallel.control_plane import make_control_plane
 from ..parallel.sharding import check_pp, rank_config, stage_range
 
 __all__ = ["ModelExecutor"]
@@ -99,8 +108,6 @@ class ModelExecutor:
     ):
         pcfg = engine_cfg.parallel
         check_pp(cfg, pcfg.pp, pcfg)
-        if pcfg.dp > 1 or pcfg.num_hosts > 1:
-            raise NotImplementedError("data and multi-host parallelism are not ported yet")
         if pcfg.tp != (tp.world if tp is not None else 1):
             raise ValueError(f"tp={pcfg.tp} needs a tensor-parallel group of {pcfg.tp} ranks")
         if pcfg.pp != (pp.stages if pp is not None else 1):
@@ -125,11 +132,11 @@ class ModelExecutor:
         self.layers = ((0, cfg.num_layers) if self.pp is None
                        else stage_range(cfg, self.pp.stage, self.pp.stages))
         self.model = llama_mod if self.pp is None else PPForwards(self.pp, self.layers)
-        self.plane = LocalPlane()
         if self.tp is not None:
             cfg = rank_config(cfg, self.tp.world)
-        if self.tp is not None or self.pp is not None:
-            self.plane = DistPlane()
+        # every rank of the world (and every host) runs the scheduler in
+        # lockstep through the plane; one process alone, through a local one
+        self.plane = make_control_plane(pcfg)
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         self.sched_cfg = self._trim_buckets(engine_cfg)
@@ -138,10 +145,10 @@ class ModelExecutor:
         self.params = params
 
         self.page_size = self.cache_cfg.page_size
-        # one page count for the world, the smallest rank's: every rank
-        # replays rank 0's admission and preemption against its own
-        # allocator, so the allocators must agree (the reference sizes one
-        # pool for its whole mesh)
+        # one page count for the world, the smallest rank's (over every
+        # host, TCP-joined ones too): every rank replays rank 0's admission
+        # and preemption against its own allocator, so the allocators must
+        # agree (the reference sizes one pool for its whole mesh)
         self.num_pages = self.plane.all_min(self._decide_num_pages())
         self.max_pages_per_seq = _round_up(engine_cfg.max_model_len, self.page_size) // self.page_size
         self.max_batch = self.sched_cfg.max_batch

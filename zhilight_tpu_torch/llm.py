@@ -49,6 +49,23 @@ requests and the scoring calls, every other rank runs the lockstep loop,
 as under TP. ``calc_act_scales`` and ``load_with_smooth_quant`` raise
 ``NotImplementedError`` under ``pp > 1``: the reference fails there too
 (its calibration reads the per-layer tree, which its PP stacks).
+
+Data parallelism (``ParallelConfig(dp=D)``, alone or with ``tp``; not with
+``pp``, which raises as in the reference) runs ``T * P * D`` ranks, rank
+``r`` replica ``r // (T * P)``, each replica keeping the same shards and
+computing the same batch (the reference replicates everything over its
+``dp`` axis); rank 0 takes the requests, as above. Multi-host serving
+(``ParallelConfig(num_hosts=H, host_rank=h)``) has the reference's two
+tiers. With a ``coordinator_address`` the hosts share one world of ``T * P
+* D`` ranks, ``T * P * D / H`` a host: under ``torchrun --nnodes H
+--node-rank h`` (whose node count and index must be ``H`` and ``h``), or,
+without torchrun's variables, initialised here from the coordinator
+(``tcp://``), this process rank ``h * (T * P * D / H) + LOCAL_RANK``.
+Without one, each host is a job of its own (``T * P * D`` local ranks, or
+one process) and the hosts are joined by the TCP control plane alone, at
+``ZT_CONTROL_ADDR`` (``host:port``: host 0 binds it); every host holds a
+whole model and replays host 0's loop. Either way rank 0 of host 0 takes the
+requests, and every other rank runs the lockstep loop.
 """
 
 from __future__ import annotations
@@ -65,7 +82,7 @@ from .config import EngineConfig, ModelConfig, QuantConfig, QuantType, load_mode
 from .engine.engine import ModelExecutor
 from .engine.generator import DynamicBatchGenerator
 from .engine.scheduler import NO_LOOP
-from .parallel.comm import join, local_device, require_launch
+from .parallel.comm import check_hosts, join, join_hosts, local_device, mesh_tier, require_launch
 from .parallel.sharding import check_pp, check_tp, is_shard, rank_params, stage_range
 from .utils.convert import params_to_torch
 from .utils.hf_loader import load_hf_state
@@ -125,7 +142,8 @@ class LLM:
             raise ValueError("LLM needs model_path, or model_config and params")
         self.model_config = model_config
         self.quant_config = quant_config or QuantConfig()
-        tp, pp = self.engine_config.parallel.tp, self.engine_config.parallel.pp
+        pcfg = self.engine_config.parallel
+        tp, pp = pcfg.tp, pcfg.pp
         if device is None and not torch.cuda.is_available():
             raise RuntimeError(
                 "LLM runs on the GPU by default and no CUDA device is available; "
@@ -136,13 +154,17 @@ class LLM:
         # the loop of the generator that serves this LLM (DynamicBatchGenerator
         # sets it): under tensor or pipeline parallelism the scoring calls run there
         self.scheduler = None
-        if tp * pp > 1:
+        check_hosts(pcfg)
+        if pcfg.num_devices > 1:
             # one process a rank (torchrun's convention): every rank builds
-            # the same LLM and keeps its part of the weights
+            # the same LLM and keeps its part of the weights, its replica's
+            # (every replica keeps the same)
             check_tp(model_config, tp)
-            check_pp(model_config, pp, self.engine_config.parallel)
+            check_pp(model_config, pp, pcfg)
             device = local_device(device)
-            self.tp_group, self.pp_group = join(tp, pp, device)
+            join_hosts(pcfg, device)
+            self.tp_group, self.pp_group = join(
+                tp, pp, device, dp=pcfg.dp, hosts=pcfg.num_hosts if mesh_tier(pcfg) else 1)
             if device.type == "cuda":
                 torch.cuda.set_device(device)
         self.device = torch.device(device if device is not None else "cuda")
@@ -190,9 +212,21 @@ class LLM:
 
     @property
     def rank(self) -> int:
-        """This process's rank in the world of a tensor- or pipeline-parallel
-        model (0 in one process): rank 0 takes the requests."""
+        """This process's rank in the world of a tensor-, pipeline- or
+        data-parallel model, over every host of a multi-host one (0 in one
+        process): rank 0 takes the requests."""
         return self.executor.plane.rank
+
+    @property
+    def parallel_kind(self) -> str:
+        """What spreads this model over processes, by name: "pipeline-parallel",
+        "tensor-parallel", "data-parallel" or "multi-host", the first that
+        applies."""
+        if self.pp_group is not None:
+            return "pipeline-parallel"
+        if self.tp_group is not None:
+            return "tensor-parallel"
+        return "data-parallel" if self.engine_config.parallel.dp > 1 else "multi-host"
 
     def generator(self) -> DynamicBatchGenerator:
         return DynamicBatchGenerator(self)
@@ -262,8 +296,9 @@ class LLM:
             raise NotImplementedError("load_with_smooth_quant under pipeline parallelism: "
                                       "calc_act_scales does not run under pp (nor does the "
                                       "reference's)")
-        if engine_config is not None and engine_config.parallel.tp > 1:
-            require_launch(engine_config.parallel.tp)
+        if (engine_config is not None and engine_config.parallel.num_devices > 1
+                and not mesh_tier(engine_config.parallel)):
+            require_launch(engine_config.parallel.num_devices)
         base = cls(model_path=model_path, engine_config=engine_config, **kw)
         scales = base.calc_act_scales(calibration_prompts, calib_len=calib_len)
         params, device, tp = base.executor.params, base.device, base.executor.tp
@@ -288,9 +323,8 @@ class LLM:
         if self.executor.plane.world == 1:
             return self.executor.run_score(ids) if kind == "score" else self.executor.run_hidden(ids)
         if self.rank > 0:
-            kind = "tensor-parallel" if self.pp_group is None else "pipeline-parallel"
-            raise RuntimeError(f"rank {self.rank} of a {kind} LLM takes no scoring calls; call "
-                               "rank 0, whose scheduler loop runs them on every rank")
+            raise RuntimeError(f"rank {self.rank} of a {self.parallel_kind} LLM takes no scoring "
+                               "calls; call rank 0, whose scheduler loop runs them on every rank")
         if self.scheduler is None:
             raise RuntimeError(NO_LOOP)
         V = self.model_config.vocab_size

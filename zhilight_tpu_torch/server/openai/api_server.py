@@ -9,14 +9,22 @@ This build uses **aiohttp** (fastapi/uvicorn are not in the base image) — the
 HTTP surface and JSON bodies are identical to the reference's. It serves the
 port's engine (``zhilight_tpu_torch``) on the GPU unless ``--device`` names
 another device; without one and without a GPU it raises, as ``LLM`` does.
-Tensor and pipeline parallelism run one process a rank under torchrun
-(``--tensor-parallel T --pipeline-parallel P``: ``T * P`` processes, rank r
-stage ``r // T``): rank 0 serves HTTP, the other ranks serve none and run
-the scheduler in lockstep. Without such a launch either flag above 1
-raises. Data parallelism and multi-host serving are not ported yet: their
-flags raise. Embeddings (``/v1/embeddings``) go through
-``LLM.calc_hidden_states``, which under either parallelism runs as an
-event of the scheduler loop on every rank.
+Tensor, pipeline and data parallelism run one process a rank under torchrun
+(``--tensor-parallel T --pipeline-parallel P --data-parallel D``: ``T * P *
+D`` processes, rank r replica ``r // (T * P)``, stage ``r % (T * P) // T``;
+every replica computes the same batch, as the reference's ``dp`` axis
+does): rank 0 serves HTTP, the other ranks serve none and run the scheduler
+in lockstep. Without such a launch any of them above 1 raises. Multi-host
+serving (``--nnodes H --node-rank h``) has the reference's two tiers: with
+``--dist-init-addr A:P`` the hosts share one world (``torchrun --nnodes H
+--node-rank h --nproc-per-node T*P*D/H``, or one process a host initialised
+from ``A:P``); without it each host is a job of its own, holding a whole
+model, and the hosts are joined by the TCP control plane at
+``ZT_CONTROL_ADDR`` (``--environ ZT_CONTROL_ADDR=host0:port``), which then
+must be set. Only rank 0 of host 0 serves HTTP, as the reference's worker
+nodes serve none. Embeddings (``/v1/embeddings``) go through
+``LLM.calc_hidden_states``, which under any of them runs as an event of the
+scheduler loop on every rank.
 
 Launch:
   python -m zhilight_tpu_torch.server.openai.api_server --model-path M [--port 8080]
@@ -25,6 +33,15 @@ Launch:
       --model-path M --tensor-parallel 2
   torchrun --nproc-per-node 2 -m zhilight_tpu_torch.server.openai.api_server \
       --model-path M --pipeline-parallel 2
+  torchrun --nproc-per-node 2 -m zhilight_tpu_torch.server.openai.api_server \
+      --model-path M --data-parallel 2
+  # two hosts sharing one world, TP=2 x DP=2 (on host h):
+  torchrun --nnodes 2 --node-rank h --nproc-per-node 2 --master-addr A --master-port P \
+      -m zhilight_tpu_torch.server.openai.api_server --model-path M \
+      --tensor-parallel 2 --data-parallel 2 --nnodes 2 --node-rank h --dist-init-addr A:P
+  # two hosts joined by the TCP control plane alone (on host h):
+  python -m zhilight_tpu_torch.server.openai.api_server --model-path M \
+      --nnodes 2 --node-rank h --environ ZT_CONTROL_ADDR=host0:29517
 """
 
 from __future__ import annotations
@@ -48,7 +65,8 @@ from ...config import (
     SchedulerConfig,
 )
 from ...engine.generator import DynamicBatchGenerator
-from ...parallel.comm import leave, require_launch
+from ...parallel.comm import check_hosts, leave, mesh_tier, require_launch
+from ...parallel.control_plane import control_address
 from .metrics import ServingMetrics
 from .protocol import (
     ChatCompletionRequest,
@@ -514,12 +532,23 @@ def parse_args(argv=None):
 
 
 def make_engine_config(args) -> EngineConfig:
-    if args.data_parallel > 1:
-        raise NotImplementedError("data parallelism is not ported yet")
-    if args.tensor_parallel * args.pipeline_parallel > 1:
-        require_launch(args.tensor_parallel * args.pipeline_parallel)
-    if args.nnodes > 1 or args.node_rank > 0:
-        raise NotImplementedError("multi-host serving is not ported yet")
+    """The flags' EngineConfig; the parallel flags' launch checked first:
+    more than one rank needs torchrun (or, over hosts sharing one world,
+    ``--dist-init-addr``), hosts joined by TCP alone need the plane's
+    address, and the host flags must agree with each other and torchrun."""
+    parallel = ParallelConfig(
+        tp=args.tensor_parallel,
+        dp=args.data_parallel,
+        pp=args.pipeline_parallel,
+        num_hosts=args.nnodes,
+        host_rank=args.node_rank,
+        coordinator_address=args.dist_init_addr,
+    )
+    check_hosts(parallel)
+    if parallel.num_devices > 1 and not mesh_tier(parallel):
+        require_launch(parallel.num_devices)
+    if parallel.num_hosts > 1 and not mesh_tier(parallel):
+        control_address(parallel)
     return EngineConfig(
         model_path=args.model_path,
         max_model_len=args.max_model_len,
@@ -533,14 +562,7 @@ def make_engine_config(args) -> EngineConfig:
             chunk_size=args.chunk_size,
             ignore_eos=args.ignore_eos,
         ),
-        parallel=ParallelConfig(
-            tp=args.tensor_parallel,
-            dp=args.data_parallel,
-            pp=args.pipeline_parallel,
-            num_hosts=args.nnodes,
-            host_rank=args.node_rank,
-            coordinator_address=args.dist_init_addr,
-        ),
+        parallel=parallel,
     )
 
 
@@ -571,8 +593,7 @@ def main(argv=None):
         # loop in lockstep, entering the same collectives, and exits when
         # rank 0 shuts down
         logger.info("%s rank %d: serving no HTTP, running the lockstep scheduler",
-                    "tensor-parallel" if llm.pp_group is None else "pipeline-parallel",
-                    llm.rank)
+                    llm.parallel_kind, llm.rank)
         gen.scheduler._thread.join()
         leave()
         if gen.scheduler.error is not None:

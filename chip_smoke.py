@@ -94,7 +94,9 @@ It builds the port's CUDA kernels from ``zhilight_tpu_torch/csrc`` (one
            that sequence through DIR's kv_flush.cu, in turns; and every
            kernel with fp16 inputs (q, rows and model-dtype pools; fp16 q over
            int8 pools) against its plain version in fp16, rows 2, 3 and 10
-           timed in fp16 beside bf16;
+           timed in fp16 beside bf16; and rows 1-3, 5, 6, 10, 12 and 16 on
+           pools of more than 2^31 elements (``kernels_large_pools``), their
+           rows at the pools' highest pages;
   multimodal  DeepSeek-VL2-small's language model (``VL2_SMALL``, a
            ``deepseek_vl_v2`` config.json whose nested ``language_config`` is
            parsed by ``adapt_hf_config``: 27 layers, full width, MLA over a
@@ -1413,11 +1415,164 @@ def phase_kernels(rec: dict, args) -> None:
     lap("kernels_tp_rank_mla")
     kernels_tp_rank_quant(rec, np.random.default_rng(19))
     lap("kernels_tp_rank_quant")
+    kernels_large_pools(rec, np.random.default_rng(23))
+    lap("kernels_large_pools")
     for name in KERNELS:
         r = rec[name]
         print(f"kernels: {name} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
               f"library_ms={_ms(r['library_ms'])}", flush=True)
+
+
+# pools of more than 2^31 elements, so that an offset into them formed in 32
+# bits would land elsewhere: a packed pool [Hkv, N, 2D] at Qwen2.5-14B's heads
+# of 8,650,752 slots (48 x 11264 pages of 16: each head plane 2,214,592,512
+# elements, 35.4 GB of bf16), and slot-major pools [1, N, Hkv, D] at
+# H2O-Danube-1.8B's heads of 3,407,872 slots (2,181,038,080 elements each).
+# A model of few layers reaches such pools on an 80 GB card.
+LARGE_HM_SLOTS = 48 * 11264 * 16
+LARGE_PAIR_SLOTS = 208 * 1024 * 16
+LARGE_CTX = [3712, 7, 513, 1500, 100, 16, 250, 3201]  # a decode batch; a chunk of sequence 0
+
+
+def kernels_large_pools(rec: dict, rng) -> None:
+    """Rows 1-3 and 5-6 on a packed pool (bf16, then int8 with its scales)
+    and rows 10, 12 and 16 on slot-major pools, each of more than 2^31
+    elements, every page the inputs touch among the pools' highest: the
+    prologue writing the 512 rows of a chunk at positions 3200-3711 into a
+    zeroed pool, bit-exact against its plain version, and no element outside
+    those rows written; decode attention over LARGE_CTX and the chunk's
+    prefill attention against their plain versions (ATTN_TOL); the fused
+    write + attend's output (ATTN_TOL) and written rows (bit-exact). Each
+    kernel's max_abs_err takes these errors too."""
+    from zhilight_tpu_torch.kvcache.paged import _quantize_rows, slot_indices
+    from zhilight_tpu_torch.ops.cuda import attn_headmajor as A
+    from zhilight_tpu_torch.ops.cuda import kv_write as W
+    from zhilight_tpu_torch.ops.cuda import paged_attention as PA
+    from zhilight_tpu_torch.ops.cuda import prefill_attention as P
+
+    S, CL, QL = 16, 3200, 512
+    torch.cuda.empty_cache()  # what the earlier checks left cached
+
+    def tables(n_slots):
+        """LARGE_CTX's shuffled tables moved to the pool's highest pages,
+        the chunk's slots and every slot the tables reach."""
+        t, npages = _paged(rng, LARGE_CTX, S)
+        t = np.where(t >= 0, t + n_slots // S - npages, -1).astype(np.int32)
+        pos = np.arange(CL, CL + QL)
+        chunk = (t[0, pos // S] * S + pos % S).astype(np.int32)
+        t = _dev(t)
+        reach = slot_indices(t[t >= 0][None], S)[0]
+        return t, _dev(chunk), reach
+
+    def hold(name, what, err, limit):
+        if not (np.isfinite(err) and err <= limit):
+            raise AssertionError(f"{name} {what}: max abs err {err} > {limit}")
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        print(f"kernels: {name} {what}: max abs err {err:.3e}", flush=True)
+
+    def written_only(name, what, arrays, rows):
+        """Bit-exact rows (got, want pairs) and no other element written."""
+        if not all(torch.equal(g, w) for g, w in rows):
+            raise AssertionError(f"{name} {what}: rows differ from the plain version's")
+        inside = sum(int(g.count_nonzero()) for g, _ in rows)
+        outside = sum(int(a.select(0, i).count_nonzero()) for a in arrays
+                      for i in range(a.shape[0])) - inside
+        if outside:
+            raise AssertionError(f"{name} {what}: {outside} elements written outside its rows")
+        print(f"kernels: {name} {what}: bit-exact, nothing written outside its rows", flush=True)
+
+    # -- rows 1-3 (bf16) and 1, 5, 6 (int8) on one packed pool ---------------------
+    Hq, Hkv, D = QWEN_HEADS["Hq"], QWEN_HEADS["Hkv"], QWEN_HEADS["D"]
+    N, scale = LARGE_HM_SLOTS, 1.0 / np.sqrt(D)
+    for int8 in (False, True):
+        kind = f"{'int8' if int8 else 'bf16'} pool [{Hkv}, {N}, {2 * D}]"
+        pool = torch.zeros(Hkv, N, 2 * D, dtype=torch.int8 if int8 else torch.bfloat16,
+                           device="cuda")
+        scales = [torch.zeros(Hkv, N + 1, device="cuda") for _ in "kv"] if int8 else []
+        t, chunk, reach = tables(N)
+        idx = chunk.long()
+        (q, k, v, cos, sin, neox, _), _, _ = prologue_hm_case(rng, QL, Hq, Hkv, D, int8, True, False)
+        got_q = W.rope_write_rows_hm(pool, q, k, v, cos, sin, neox, chunk, *scales)
+        got = [pool[:, idx].clone()] + [s[:, idx].clone() for s in scales]
+        pool[:, idx] = 0
+        for s in scales:
+            s[:, idx] = 0
+        want_q = W.rope_write_rows_hm_plain(pool, q, k, v, cos, sin, neox, chunk, *scales)
+        want = [pool[:, idx]] + [s[:, idx] for s in scales]
+        if not torch.equal(got_q, want_q):
+            raise AssertionError(f"rope_write_rows_hm {kind}: q differs from the plain version's")
+        written_only("rope_write_rows_hm", kind, [pool, *scales], list(zip(got, want)))
+        del got, want
+        # every slot the tables reach, filled as the cache fills it
+        if int8:
+            filled, ks, vs = _int8_pool(rng, Hkv, len(reach), D)
+            pool[:, reach], scales[0][:, reach], scales[1][:, reach] = filled, ks[:, :-1], vs[:, :-1]
+        else:
+            pool[:, reach] = _randn(rng, Hkv, len(reach), 2 * D)
+        pools = (pool, *scales)
+        dec, dec_plain, pre, pre_plain = (
+            (A.paged_decode_attention_hm_q, A.paged_decode_attention_hm_q_plain,
+             P.paged_prefill_attention_hm_q, P.paged_prefill_attention_hm_packed_q_plain) if int8
+            else (A.paged_decode_attention_hm, A.paged_decode_attention_hm_plain,
+                  P.paged_prefill_attention_hm, P.paged_prefill_attention_hm_packed_plain))
+        qd, ctx = _randn(rng, len(LARGE_CTX), Hq, D), _dev(np.array(LARGE_CTX, np.int32))
+        err = (dec(qd, *pools, t, ctx, S, scale).float()
+               - dec_plain(qd, *pools, t, ctx, S, scale).float()).abs().max().item()
+        hold("paged_decode_attention_hm_q" if int8 else "paged_decode_attention_hm",
+             f"{kind}, contexts {LARGE_CTX}", err, ATTN_TOL)
+        qp = _randn(rng, QL, Hq, D)
+        lens = [_dev(np.array([x], np.int32)) for x in (CL, QL)]
+        err = (pre(qp, *pools, t[0], CL, QL, S, scale).float()
+               - pre_plain(qp, *pools, t[:1], *lens, S, scale).float()).abs().max().item()
+        hold("paged_prefill_attention_hm_packed_q" if int8 else "paged_prefill_attention_hm_packed",
+             f"{kind}, a {QL}-token chunk at cache {CL} (single-sequence form)", err, ATTN_TOL)
+        del pool, pools, scales
+        torch.cuda.empty_cache()
+
+    # -- rows 12, 10 and 16 on slot-major pools ---------------------------------------
+    Hq, Hkv, D = DANUBE_HEADS["Hq"], DANUBE_HEADS["Hkv"], DANUBE_HEADS["D"]
+    N, scale = LARGE_PAIR_SLOTS, 1.0 / np.sqrt(D)
+    kind = f"bf16 pools [1, {N}, {Hkv}, {D}]"
+    kv = [torch.zeros(1, N, Hkv, D, dtype=torch.bfloat16, device="cuda") for _ in "kv"]
+    t, chunk, reach = tables(N)
+    idx = chunk.long()
+    (q, k, v, cos, sin, neox, _), _ = prologue_pair_case(rng, QL, Hq, Hkv, D, False, True, False)
+    got_q = W.rope_write_rows_pair(*kv, q, k, v, cos, sin, neox, chunk)
+    got = [x[:, idx].clone() for x in kv]
+    for x in kv:
+        x[:, idx] = 0
+    want_q = W.rope_write_rows_pair_plain(*kv, q, k, v, cos, sin, neox, chunk)
+    if not torch.equal(got_q, want_q):
+        raise AssertionError(f"rope_write_rows_pair {kind}: q differs from the plain version's")
+    written_only("rope_write_rows_pair", kind, kv, [(g, x[:, idx]) for g, x in zip(got, kv)])
+    del got
+    for x in kv:
+        x[0, reach] = _randn(rng, len(reach), Hkv, D)
+    qd, ctx = _randn(rng, len(LARGE_CTX), Hq, D), _dev(np.array(LARGE_CTX, np.int32))
+    err = (PA.paged_decode_attention(qd, *kv, t, ctx, S, scale).float()
+           - PA.paged_decode_attention_plain(qd, *kv, t, ctx, S, scale).float()).abs().max().item()
+    hold("paged_decode_attention", f"{kind}, contexts {LARGE_CTX}", err, ATTN_TOL)
+    # the fused write + attend: this step's rows at each context's last position
+    last = np.array(LARGE_CTX) - 1
+    slots = _dev((t.cpu().numpy()[np.arange(len(last)), last // S] * S + last % S).astype(np.int32))
+    k_new, v_new = _randn(rng, len(last), Hkv, D), _randn(rng, len(last), Hkv, D)
+    sidx = slots.long()
+    old = [x[0, sidx].clone() for x in kv]
+    tail = (k_new, v_new, slots, t, ctx, S, scale)
+    out = PA.paged_decode_attention_fused(qd, *kv, *tail)
+    got = [x[0, sidx].clone() for x in kv]
+    for x, o in zip(kv, old):
+        x[0, sidx] = o
+    err = (out.float() - PA.paged_decode_attention_fused_plain(qd, *kv, *tail).float()
+           ).abs().max().item()
+    if not all(torch.equal(g, x[0, sidx]) for g, x in zip(got, kv)):
+        raise AssertionError(f"paged_decode_attention_fused {kind}: written rows differ from the "
+                             f"plain version's")
+    hold("paged_decode_attention_fused", f"{kind}, contexts {LARGE_CTX}, rows bit-exact", err,
+         ATTN_TOL)
+    del kv, got, old
+    torch.cuda.empty_cache()
 
 
 # a TP=2 rank of Qwen2.5-14B (the tp phase): 20 query heads over 4 KV heads of

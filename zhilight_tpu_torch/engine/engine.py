@@ -56,6 +56,15 @@ The plane (``parallel.control_plane.make_control_plane``) spans them all:
 ``DistPlane`` where they share one ``torch.distributed`` world, ``TcpPlane``
 (relayed within a host by ``RelayPlane``) where the hosts share none. Swap
 preemption falls back to recompute over several hosts, as in the reference.
+
+``ZT_STACK=1`` changes nothing here. The reference stacks the layers of a
+homogeneous model and scans one layer body over one layer-major pool
+(``zhilight_tpu/models/stacked.py``) so that XLA compiles a program whose
+size does not grow with depth, and it promises the per-layer loop's tokens.
+A PyTorch forward is the per-layer loop whatever the layout, so the port
+keeps its per-layer pools and paths and gives those tokens. Under the switch
+the reference's pool-row operations move layer 0's rows only
+(``zhilight_tpu/engine/engine.py:742-824``); the port's move every layer's.
 """
 
 from __future__ import annotations
